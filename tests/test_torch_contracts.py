@@ -149,6 +149,7 @@ def test_port_imports_neither_jax_nor_tmac_tpu():
     code = ("import tmac_tpu_torch, tmac_tpu_torch.models.llama, "
             "tmac_tpu_torch.runtime.generate, "
             "tmac_tpu_torch.ops.cuda.qgemm_kernel, "
+            "tmac_tpu_torch.ops.cuda.qgemm_grouped_kernel, "
             "tmac_tpu_torch.ops.cuda.attention_kernel, "
             "tmac_tpu_torch.convert.from_jax; import sys; "
             "assert 'jax' not in sys.modules and not any("
@@ -179,18 +180,23 @@ def test_kernel_modules_do_not_build_on_import():
     code = (
         "import torch, tmac_tpu_torch.ops.cuda.build as b\n"
         "from tmac_tpu_torch.ops.cuda import qgemm_kernel, attention_kernel\n"
+        "from tmac_tpu_torch.ops.cuda import qgemm_grouped_kernel\n"
         "before = set(b.BUILD_DIR.glob('*.so')) if b.BUILD_DIR.exists() else set()\n"
         "import numpy as np\n"
         "from tmac_tpu_torch.ops.qgemm import QuantizedTensor\n"
         "qt = QuantizedTensor.from_float(np.ones((64, 128), np.float32), 2,"
         " device='cpu')\n"
         "qgemm_kernel.qgemm_fused(torch.ones(1, 64), qt)\n"
+        "gq = QuantizedTensor.from_float(np.ones((256, 128), np.float32), 2, 128,"
+        " scale_dtype=torch.bfloat16, device='cpu')\n"
+        "qgemm_grouped_kernel.qgemm_grouped(torch.ones(1, 256), gq)\n"
         "q = torch.ones(1, 1, 1, 100); kv = torch.zeros(1, 1, 1, 8, 128)\n"
         "attention_kernel.flash_decode(q, kv, kv, torch.ones(1, dtype=torch.int32),"
         " torch.zeros(1, dtype=torch.int32))\n"
         "after = set(b.BUILD_DIR.glob('*.so')) if b.BUILD_DIR.exists() else set()\n"
         "assert not b._loaded and before == after\n"
         "assert qgemm_kernel.qgemm_fused.launches == 0\n"
+        "assert qgemm_grouped_kernel.qgemm_grouped.launches == 0\n"
         "assert attention_kernel.flash_decode.launches == 0\n")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
                    timeout=120)

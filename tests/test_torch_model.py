@@ -1,9 +1,24 @@
-"""The port's BitNet model and generation loop against the JAX package.
+"""The port's models and generation loop against the JAX package.
 
-Config: bitnet-3b scaled(8) with head_dim put back to 100, so the cache's
-100 -> 128 pad is exercised.  JAX runs forward(impl="pallas"), whose fused
+Configs: bitnet-3b scaled(8) (w_a8, per-tensor scales, kernel K1) with
+head_dim put back to 100, so the cache's 100 -> 128 pad is exercised; and
+llama-2-7b scaled(8) at bits 2 and 4 (w_fp, g128 bf16 scales and zero
+points, kernel K4).  At bits 2 down's K pads from 1280 to 1536, as at full
+size, so silu(g) * u runs before down; at bits 4 it folds into down.  JAX runs forward(impl="pallas"), whose fused
 qgemm kernel runs in interpret mode on the CPU; it is jitted once per
 shape and fed the port's own greedy tokens (teacher forcing).
+
+The port follows what XLA compiles the reference to on the CPU: the row
+sum of the rms_norm variance in XLA's window order, the activation scale
+as a multiply by the f32 reciprocal of 127, and the epilogue's fused
+multiply-adds on each of qgemm_pallas's two routes (N < 64 and N >= 64).
+What it cannot follow is XLA's CPU rsqrt, a hardware reciprocal-square-
+root estimate refined by two Newton steps, which differs from IEEE
+1 / sqrt in the last bit of about a third of its inputs (and, on longer
+prompts, the bits of XLA's exp in the prefill softmax).  A last-bit
+difference in a row's norm factor can move an int8 code at a .5 tie, and
+the random layers amplify it, so prompts long enough to hit such a row get
+their own, measured gate.
 """
 
 import dataclasses
@@ -30,6 +45,19 @@ PROMPT, STEPS = 8, 4
 # 7.5e-4 at this config, so the gate separates the two semantics.
 LOGITS_NMSE = 1e-4
 TIE_MARGIN = 1e-2
+# Prefill of LONG_PROMPT tokens (qgemm_pallas's N >= 64 route), gate by
+# config.  Measured on the CPU: bitnet-3b 1.4e-4 (1.8e-4 for a 64-token
+# prompt), llama-2-7b 5.1e-4 at bits 2 and 6.8e-4 at bits 4 (9.2e-5 and
+# 1.3e-4 for another prompt).  All of it but 2.0e-6 (bitnet-3b) and 0.0
+# (llama-2-7b) comes from XLA's rsqrt (the module docstring; the
+# *_gap_is_xla_rsqrt tests).  The gates leave room for another CPU's
+# reciprocal-square-root estimate.
+LONG_PROMPT = 72
+LONG_PROMPT_NMSE = {"bitnet-3b": 4e-4, "llama-2-7b": 2e-3}
+# ... and with XLA's rsqrt values given to the port; the 2.0e-6 left at
+# bitnet-3b are the bits of XLA's exp and dot order in the f32 prefill
+# softmax
+GIVEN_RSQRT_NMSE = 1e-5
 
 
 def _cfgs():
@@ -38,11 +66,24 @@ def _cfgs():
     return cfg, jcfg
 
 
+def _wfp_cfgs(bits):
+    return (get_preset("llama-2-7b", bits=bits).scaled(8),
+            jax_preset("llama-2-7b", bits=bits).scaled(8))
+
+
 @pytest.fixture(scope="module")
 def run():
+    return _teacher_forced(*_cfgs())
+
+
+@pytest.fixture(scope="module", params=[2, 4], ids=["w2", "w4"])
+def wfp(request):
+    return _teacher_forced(*_wfp_cfgs(request.param))
+
+
+def _teacher_forced(cfg, jcfg):
     """The port's prefill + greedy decode, and JAX teacher-forced on the
     port's tokens: logits per step from both."""
-    cfg, jcfg = _cfgs()
     model = Llama(cfg, init_params(cfg, seed=0, device="cpu"))
     prompt = np.random.default_rng(0).integers(0, cfg.vocab_size, (1, PROMPT))
     cache = KVCache.create(cfg, 1, 64, device="cpu")
@@ -63,8 +104,23 @@ def run():
         lg, jcache = fwd(jparams, jcfg, jnp.asarray([[t]]), jcache,
                          impl="pallas")
         ref.append(np.asarray(lg[0]))
-    return dict(cfg=cfg, model=model, prompt=prompt, toks=toks, port=port,
-                ref=ref, jparams=jparams, cache=cache)
+    return dict(cfg=cfg, jcfg=jcfg, model=model, prompt=prompt, toks=toks,
+                port=port, ref=ref, jparams=jparams, cache=cache)
+
+
+_fwd = jax.jit(jl.forward, static_argnames=("cfg", "impl"))
+
+
+def jax_prefill(jparams, jcfg, prompt):
+    """JAX forward(impl="pallas") logits (T, V) of a prompt (1, T)."""
+    cache = jl.KVCache.create(jcfg, 1, 128)
+    lg, _ = _fwd(jparams, jcfg, jnp.asarray(prompt), cache, impl="pallas")
+    return np.asarray(lg[0])
+
+
+def port_prefill(model, prompt):
+    cache = KVCache.create(model.cfg, 1, 128, device="cpu")
+    return model(torch.from_numpy(prompt), cache)[0][0].numpy()
 
 
 def _assert_tree_equal(a, b, path="params"):
@@ -92,19 +148,59 @@ def _assert_tree_equal(a, b, path="params"):
         assert torch.equal(a, b), path
 
 
-def test_init_params_match_jax_byte_for_byte(run):
+def _init_params_match(run):
     cfg = run["cfg"]
     tree = jax.tree.map(np.asarray, run["jparams"])
     carried = params_from_numpy(tree, cfg, device="cpu")
     _assert_tree_equal(init_params(cfg, seed=0, device="cpu"), carried)
     assert carried["embed"].dtype == torch.bfloat16
+    return carried
 
 
-def test_logits_match_jax_pallas(run):
+def _logits_match(run):
     for step, (ref, got) in enumerate(zip(run["ref"], run["port"])):
         assert got.shape == ref.shape and np.isfinite(got).all()
         assert nmse(ref, got) <= LOGITS_NMSE, step
         assert argmax_agreement(ref, got, TIE_MARGIN) == 1.0, step
+
+
+def test_init_params_match_jax_byte_for_byte(run):
+    _init_params_match(run)
+
+
+def test_logits_match_jax_pallas(run):
+    _logits_match(run)
+
+
+def test_wfp_init_params_match_jax_byte_for_byte(wfp):
+    """Including the bf16 scales and sub and down's K padding."""
+    layer = _init_params_match(wfp)["layers"][0]
+    down, bits = layer["down"], wfp["cfg"].quant.bits
+    assert layer["wqkv"].scales.dtype == down.sub.dtype == torch.bfloat16
+    assert (down.kdim, down.kdim_padded) == ((1280, 1536) if bits == 2
+                                             else (1280, 1280))
+
+
+def test_wfp_logits_match_jax_pallas(wfp):
+    """Prefill of PROMPT tokens and STEPS decode steps, teacher-forced."""
+    _logits_match(wfp)
+
+
+def test_wfp_long_prompt_matches_jax_pallas(wfp):
+    """Past qgemm_pallas's N >= 64 route switch, where the reference runs
+    the external-int8 form of its grouped kernel (the same function)."""
+    T = LONG_PROMPT
+    prompt = np.random.default_rng(T).integers(0, wfp["cfg"].vocab_size, (1, T))
+    ref = jax_prefill(wfp["jparams"], wfp["jcfg"], prompt)
+    got = port_prefill(wfp["model"], prompt)
+    assert np.isfinite(got).all()
+    assert nmse(ref, got) <= LONG_PROMPT_NMSE["llama-2-7b"]
+    assert argmax_agreement(ref, got, TIE_MARGIN) == 1.0
+
+
+def test_wfp_long_prompt_gap_is_xla_rsqrt(wfp, monkeypatch):
+    _given_xla_rsqrt(monkeypatch)
+    _long_prompt_within(wfp, GIVEN_RSQRT_NMSE)
 
 
 def test_generate_agrees_with_jax_teacher_forced(run):
@@ -139,3 +235,52 @@ def test_forward_updates_cache_in_place(run):
     assert (written.abs().sum(-1) > 0).all()
     assert not cache.k[:, :, :, n:].any()                    # rows ahead
     assert not cache.k[..., cfg.head_dim:].any()             # Dp padding
+
+
+@pytest.mark.parametrize("T", [16, LONG_PROMPT])
+def test_prefill_logits_match_jax_pallas_at_longer_prompts(run, T):
+    """The main path's prompt length, and one past qgemm_pallas's N >= 64
+    route switch."""
+    prompt = np.random.default_rng(T).integers(0, run["cfg"].vocab_size, (1, T))
+    ref = jax_prefill(run["jparams"], run["jcfg"], prompt)
+    got = port_prefill(run["model"], prompt)
+    assert np.isfinite(got).all()
+    assert nmse(ref, got) <= (LOGITS_NMSE if T < 64
+                              else LONG_PROMPT_NMSE["bitnet-3b"])
+    assert argmax_agreement(ref, got, TIE_MARGIN) == 1.0
+
+
+def _given_xla_rsqrt(monkeypatch):
+    """Give the port's prologues XLA's rsqrt values for the norm factors."""
+    import tmac_tpu_torch.ops.cuda.qgemm_kernel as k1
+
+    plain_values = k1.prologue_values
+
+    def xla_rsqrt_values(x, K, Kp, norm=None, glu=False):
+        if norm is None:
+            return plain_values(x, K, Kp, norm, glu)
+        w, eps = norm
+        xf = plain_values(x, K, Kp, None, glu)
+        var = k1.row_sum_xla_order(xf * xf) * (1.0 / K)
+        rs = np.asarray(jax.jit(jax.lax.rsqrt)(jnp.asarray((var + eps).numpy())))
+        return xf * torch.from_numpy(np.array(rs)) * torch.nn.functional.pad(
+            w.float(), (0, Kp - K))
+
+    import tmac_tpu_torch.ops.cuda.qgemm_grouped_kernel as k4
+    monkeypatch.setattr(k1, "prologue_values", xla_rsqrt_values)
+    monkeypatch.setattr(k4, "prologue_values", xla_rsqrt_values)
+
+
+def _long_prompt_within(run, gate):
+    T = LONG_PROMPT
+    prompt = np.random.default_rng(T).integers(0, run["cfg"].vocab_size, (1, T))
+    ref = jax_prefill(run["jparams"], run["jcfg"], prompt)
+    got = port_prefill(run["model"], prompt)
+    assert nmse(ref, got) <= gate
+
+
+def test_long_prompt_gap_is_xla_rsqrt(run, monkeypatch):
+    """Given XLA's rsqrt values for the norm factors, the port's prefill
+    logits at LONG_PROMPT tokens come within GIVEN_RSQRT_NMSE of JAX's."""
+    _given_xla_rsqrt(monkeypatch)
+    _long_prompt_within(run, GIVEN_RSQRT_NMSE)

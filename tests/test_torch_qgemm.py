@@ -27,6 +27,20 @@ torch.set_num_threads(2)
 jquant_jit = jax.jit(jquant)
 
 
+def pallas_fused(xb, jqt, norm=None, glu=False, residual=None):
+    """qgemm_pallas(act="fused") compiled as the model runs it (inside
+    jit): XLA's rewrites of the N >= 64 route's XLA prologue and epilogue
+    apply only then."""
+    eps = None if norm is None else norm[1]
+
+    def f(x, q, w, r):
+        return qgemm_pallas(x, q, out_dtype=jnp.float32, interpret=True,
+                            act="fused", glu=glu, residual=r,
+                            norm=None if w is None else (w, eps))
+    return np.asarray(jax.jit(f)(xb, jqt, None if norm is None else norm[0],
+                                 residual))
+
+
 def _pair(rng, bits, K, Ms):
     """The same weights as a port and a JAX QuantizedTensor; several Ms
     make a fused tensor."""
@@ -60,6 +74,10 @@ CASES = [
     (8, 1, 256, (500,), False, False, False),       # lm head form
     (8, 16, 256, (500,), False, False, False),
     (8, 1, 300, (256,), True, False, True),
+    (2, 72, 256, (384,), False, False, False),    # the N >= 64 route
+    (2, 72, 256, (256,), False, False, True),
+    (2, 72, 512, (256,), False, True, True),
+    (8, 72, 256, (500,), False, False, False),
 ]
 
 
@@ -81,16 +99,17 @@ def test_plain_k1_matches_pallas_fused(bits, N, K, Ms, norm, glu, residual):
         r = rng.standard_normal((N, sum(Ms))).astype(np.float32)
         kw_j["residual"] = jnp.asarray(r, jnp.bfloat16)
         kw_t["residual"] = torch.from_numpy(r).to(torch.bfloat16)
-    want = np.asarray(qgemm_pallas(xb, jqt, out_dtype=jnp.float32,
-                                   interpret=True, act="fused", **kw_j))
+    want = pallas_fused(xb, jqt, **kw_j)
     got = qgemm_fused(xt, qt, **kw_t).numpy()
     assert got.shape == want.shape == (N, sum(Ms))
     if norm or glu:
-        # the rms_norm / sigmoid prologue may differ by an ulp
+        # XLA's CPU rsqrt (a hardware estimate refined by Newton steps) and
+        # exp differ from IEEE 1/sqrt and torch's exp by an ulp in some rows
         assert nmse(want, got) <= 1e-6
         return
     # no folds: the int8 codes and the int32 accumulator are exact, and the
-    # f32 epilogue runs in the TPU kernel's order
+    # f32 epilogue is the one XLA compiles the reference's to, FMAs and all
+    np.testing.assert_array_equal(got, want)
     codes, xs, xsum = act_quant_plain(xt, qt)
     jcodes, jscale = jquant_jit(xb)
     Kp = qt.kdim_padded
@@ -100,11 +119,6 @@ def test_plain_k1_matches_pallas_fused(bits, N, K, Ms, norm, glu, residual):
     acc = int_dot_plain(codes, qt).numpy()
     w64 = unpack_codes(qt).numpy().astype(np.int64)
     np.testing.assert_array_equal(acc, codes.numpy().astype(np.int64) @ w64)
-    # XLA on the CPU contracts the reference's epilogue into
-    # fma(acc*scale, xs, -xsum*sub): one rounding fewer than the port's
-    # (and the CUDA kernel's) separately rounded steps
-    np.testing.assert_allclose(got, want, rtol=1e-6,
-                               atol=1e-6 * np.abs(want).max())
 
 
 @pytest.mark.parametrize("bits", [2, 8])
@@ -155,8 +169,7 @@ def test_codes_match_pallas_at_ties(N):
     x[:, 0] = cand[:, 0]
     x[:, 1:33] = cand / 2 * rng.choice([1.0, -1.0], (N, 32))
     xb = jnp.asarray(x, jnp.bfloat16)
-    out = np.asarray(qgemm_pallas(xb, jqt, out_dtype=jnp.float32,
-                                  interpret=True, act="fused"))
+    out = pallas_fused(xb, jqt)
     codes, xs, _ = act_quant_plain(torch.from_numpy(x), qt)
     np.testing.assert_array_equal(np.rint(out / xs.numpy()[:, None]),
                                   codes.numpy())
@@ -182,19 +195,26 @@ def test_wrapper_dispatch_and_limits():
         qgemm_fused(x, qt, residual=torch.zeros(2, 384))
 
 
-@pytest.mark.parametrize("case", ["grouped", "int8_x"])
+@pytest.mark.parametrize("case", ["grouped", "grouped_bits3", "int8_x"])
 def test_auto_off_the_cpu_takes_k1_or_raises(case):
-    """Off the CPU, impl="auto" never reaches the plain grouped matmul:
-    it takes K1, which raises on what it does not cover (shown on the
-    meta device, which no kernel runs on)."""
+    """Off the CPU, impl="auto" never reaches the plain grouped matmul: it
+    takes K4 for grouped scales and K1 otherwise, which raise on what they
+    do not cover (shown on the meta device, which no kernel runs on)."""
     rng = np.random.default_rng(2)
     w = rng.standard_normal((256, 128)).astype(np.float32)
+    x = torch.zeros((2, 256), dtype=torch.bfloat16)
     if case == "grouped":
-        qt = QuantizedTensor.from_float(w, 2, 64, device="cpu")
-        x = torch.zeros((2, 256), dtype=torch.bfloat16)
+        qt = QuantizedTensor.from_float(w, 2, 64, scale_dtype=torch.bfloat16,
+                                        device="cpu")
+        want = "K4 runs on CPU or CUDA tensors"   # K4 took it
+    elif case == "grouped_bits3":
+        qt = QuantizedTensor.from_float(w, 3, 64, scale_dtype=torch.bfloat16,
+                                        device="cpu")
+        want = "K4 takes bits 2 and 4"
     else:
         qt = QuantizedTensor.from_float(w, 2, device="cpu")
-        x = torch.zeros((2, 256), dtype=torch.int8)
-    qgemm(x, qt)  # the CPU takes the plain grouped matmul
-    with pytest.raises(ValueError):
+        x = x.to(torch.int8)
+        want = "quantize float activations"
+    qgemm(x, qt)  # the CPU takes a plain version
+    with pytest.raises(ValueError, match=want):
         qgemm(x.to("meta"), qt.to("meta"))

@@ -1,0 +1,198 @@
+"""Kernel K4's plain version against the JAX package's grouped Pallas qgemm
+(qgemm_pallas act="fused", interpret mode on CPU, compiled as the model
+runs it), against the dequant oracle, and the layout contract between the
+CUDA kernel's packed-field walk and the per-group dots."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tmac_tpu.ops import packing as jpacking
+from tmac_tpu.ops.pallas.qgemm_kernel import qgemm_pallas
+from tmac_tpu.ops.qgemm import QuantizedTensor as JQT
+from tmac_tpu.ops.qgemm import fuse_m as jfuse_m
+from tmac_tpu_torch.ops.cuda.qgemm_grouped_kernel import (
+    act_quant_grouped_plain, group_dots_plain, qgemm_grouped,
+    qgemm_grouped_plain)
+from tmac_tpu_torch.ops.qgemm import QuantizedTensor, fuse_m, qgemm, unpack_codes
+from tmac_tpu_torch.utils import nmse
+
+torch.set_num_threads(2)
+
+GS = 128
+
+
+def _pair(rng, bits, K, Ms, gs=GS):
+    """The same grouped weights (random codes, per-group scales and zero
+    points, bf16 scales and sub, as the model's init draws them) as a port
+    and a JAX QuantizedTensor; several Ms make a fused tensor."""
+    qmax = (1 << bits) - 1
+    G = K // gs
+    ts, js = [], []
+    for M in Ms:
+        wq = rng.integers(0, qmax + 1, (K, M)).astype(np.uint8)
+        sc = ((0.5 + rng.random((G, M))) * 0.05).astype(np.float32)
+        sub = sc * rng.integers(0, qmax + 1, (G, M)).astype(np.float32)
+        ts.append(QuantizedTensor.from_quantized(
+            wq, sc, sub, bits, gs, scale_dtype=torch.bfloat16, device="cpu"))
+        js.append(JQT.from_quantized(wq, sc, sub, bits, gs,
+                                     scale_dtype=jnp.bfloat16))
+    if len(Ms) == 1:
+        return ts[0], js[0]
+    return fuse_m(ts), jfuse_m(js)
+
+
+def _pallas(xb, jqt, norm=None, glu=False, residual=None):
+    """qgemm_pallas(act="fused") compiled as the model runs it (inside jit),
+    on the route its N picks: fused chunk kernel below 64 rows, XLA
+    prologue + external-int8 chunk kernel from 64."""
+    eps = None if norm is None else norm[1]
+
+    def f(x, q, w, r):
+        return qgemm_pallas(x, q, out_dtype=jnp.float32, interpret=True,
+                            act="fused", glu=glu, residual=r,
+                            norm=None if w is None else (w, eps))
+    return np.asarray(jax.jit(f)(xb, jqt, None if norm is None else norm[0],
+                                 residual))
+
+
+@jax.jit
+def _jax_group_quant(x):
+    """The reference's per-(row, group) quantization (qgemm_pallas's int8
+    prologue), compiled: codes, scales, dequantized code sums."""
+    N, K = x.shape
+    xg = x.astype(jnp.float32).reshape(N, K // GS, GS)
+    xs = jnp.maximum(jnp.max(jnp.abs(xg), axis=-1), 1e-20) / 127.0
+    q = jnp.clip(jnp.rint(xg / xs[..., None]), -127, 127).astype(jnp.int8)
+    xsum = jnp.sum(q.astype(jnp.int32), -1).astype(jnp.float32) * xs
+    return q.reshape(N, K), xs, xsum
+
+
+# (bits, N, K, Ms, norm, glu, residual): every fold at the decode (N=1),
+# short-prefill (N=16) and long-prefill (N=72, the N >= 64 route) forms
+CASES = [
+    (2, 1, 512, (256,), False, False, False),
+    (2, 1, 512, (200,), False, False, False),          # M padded
+    (2, 1, 512, (256, 256, 256), True, False, False),  # wqkv form
+    (2, 16, 512, (256,), False, False, True),          # wo form
+    (2, 1, 512, (512, 512), True, False, False),       # gate_up form
+    (2, 16, 1280, (256,), False, False, True),         # W2 down: K 1280 -> 1536
+    (4, 1, 1024, (256,), False, True, True),           # W4 down: glu folded
+    (4, 16, 512, (384,), True, False, False),
+    (2, 72, 512, (256,), False, False, True),
+    (4, 72, 512, (200,), False, False, False),
+    (2, 72, 1280, (256,), True, False, False),
+    (4, 72, 512, (256,), False, True, True),
+]
+
+
+@pytest.mark.parametrize("bits,N,K,Ms,norm,glu,residual", CASES)
+def test_plain_k4_matches_pallas(bits, N, K, Ms, norm, glu, residual):
+    rng = np.random.default_rng(bits * 1000 + N * 100 + K + sum(Ms))
+    qt, jqt = _pair(rng, bits, K, Ms)
+    x = rng.standard_normal((N, 2 * K if glu else K)).astype(np.float32)
+    xb = jnp.asarray(x, jnp.bfloat16)
+    xt = torch.from_numpy(x).to(torch.bfloat16)
+    kw_j, kw_t = {}, {}
+    if norm:
+        w = (1.0 + 0.1 * rng.standard_normal(K)).astype(np.float32)
+        kw_j["norm"] = (jnp.asarray(w, jnp.bfloat16), 1e-5)
+        kw_t["norm"] = (torch.from_numpy(w).to(torch.bfloat16), 1e-5)
+    if glu:
+        kw_j["glu"] = kw_t["glu"] = True
+    if residual:
+        r = rng.standard_normal((N, sum(Ms))).astype(np.float32)
+        kw_j["residual"] = jnp.asarray(r, jnp.bfloat16)
+        kw_t["residual"] = torch.from_numpy(r).to(torch.bfloat16)
+    want = _pallas(xb, jqt, **kw_j)
+    got = qgemm_grouped(xt, qt, **kw_t).numpy()
+    assert got.shape == want.shape == (N, sum(Ms))
+    if norm or glu:
+        # XLA's CPU rsqrt (a hardware estimate refined by Newton steps) and
+        # exp differ from IEEE 1/sqrt and torch's exp by an ulp in some
+        # rows, which can move a code at a .5 tie
+        assert nmse(want, got) <= 1e-6
+        return
+    # no norm or glu: codes, scales, code sums and per-group int32 dots are
+    # exact, and the f32 fold is the one XLA compiles the reference's to,
+    # FMAs and group order included, so the outputs are bit for bit
+    np.testing.assert_array_equal(got, want)
+    codes, xs, xsum = act_quant_grouped_plain(xt, qt)
+    jc, jxs, jxsum = _jax_group_quant(jnp.pad(xb, ((0, 0), (0, qt.kdim_padded - K))))
+    np.testing.assert_array_equal(codes.numpy(), np.asarray(jc))
+    np.testing.assert_array_equal(xs.numpy(), np.asarray(jxs))
+    np.testing.assert_array_equal(xsum.numpy(), np.asarray(jxsum))
+    parts = group_dots_plain(codes, qt).numpy()
+    G = qt.kdim_padded // GS
+    w64 = unpack_codes(qt).numpy().astype(np.int64).reshape(G, GS, -1)
+    c64 = codes.numpy().astype(np.int64).reshape(N, G, GS)
+    np.testing.assert_array_equal(parts, np.einsum("ngk,gkm->gnm", c64, w64))
+
+
+@pytest.mark.parametrize("bits", [2, 4])
+def test_plain_k4_matches_dequant_oracle(bits):
+    """Against the float dequant oracle (docs/contracts.md's 5e-4 gate)."""
+    rng = np.random.default_rng(bits)
+    K, M, N = 1024, 384, 4
+    w = (rng.standard_normal((K, M)) * 0.02).astype(np.float32)
+    wq, s, sub = jpacking.quantize_weights(w, bits, GS, True)
+    qt = QuantizedTensor.from_quantized(wq, s, sub, bits, GS,
+                                        scale_dtype=torch.bfloat16, device="cpu")
+    x = torch.from_numpy(rng.standard_normal((N, K)).astype(np.float32))
+    wdq = (unpack_codes(qt).float().reshape(K // GS, GS, M)
+           * qt.scales.float()[:, None] - qt.sub.float()[:, None]).reshape(K, M)
+    oracle = x.to(torch.bfloat16).float() @ wdq
+    assert nmse(oracle.numpy(), qgemm_grouped_plain(x, qt).numpy()) <= 5e-4
+
+
+@pytest.mark.parametrize("bits", [2, 4])
+def test_packed_field_walk_feeds_the_group_dots(bits):
+    """Emulates csrc/qgemm_grouped.cu's group-dot kernel: a chunk of gs
+    packed rows holds, in field j, the gs consecutive k of group
+    j * nchunks + c, so 4 packed rows meet one 32-bit word of natural-order
+    codes in each dp4a."""
+    rng = np.random.default_rng(bits)
+    qt, _ = _pair(rng, bits, 1024, (128,))
+    x = torch.from_numpy(rng.standard_normal((3, 1024)).astype(np.float32))
+    codes, _, _ = act_quant_grouped_plain(x, qt)
+    P, Kp, Mp = 8 // bits, qt.kdim_padded, qt.mdim_padded
+    Kb, nchunks = Kp // P, Kp // P // GS
+    pk = qt.packed.numpy().astype(np.int64)
+    c = codes.numpy().astype(np.int64)
+    parts = np.zeros((Kp // GS, 3, Mp), np.int64)
+    for chunk in range(nchunks):
+        for r in range(chunk * GS, (chunk + 1) * GS, 4):
+            for j in range(P):
+                fields = (pk[r:r + 4] >> (bits * j)) & ((1 << bits) - 1)
+                xw = c[:, j * Kb + r:j * Kb + r + 4]            # one code word
+                parts[j * nchunks + chunk] += xw @ fields
+    np.testing.assert_array_equal(parts, group_dots_plain(codes, qt).numpy())
+
+
+def test_wrapper_dispatch_and_limits():
+    rng = np.random.default_rng(3)
+    qt, _ = _pair(rng, 2, 512, (256,))
+    x = torch.from_numpy(rng.standard_normal((2, 512)).astype(np.float32))
+    assert torch.equal(qgemm(x, qt, out_dtype=torch.float32),  # auto -> K4
+                       qgemm_grouped_plain(x, qt))
+    bits3 = QuantizedTensor.from_quantized(
+        rng.integers(0, 8, (512, 256)).astype(np.uint8),
+        np.ones((4, 256), np.float32), np.zeros((4, 256), np.float32), 3, GS,
+        scale_dtype=torch.bfloat16, device="cpu")
+    f32 = QuantizedTensor.from_quantized(
+        rng.integers(0, 4, (512, 256)).astype(np.uint8),
+        np.ones((4, 256), np.float32), np.zeros((4, 256), np.float32), 2, GS,
+        device="cpu")
+    per_tensor = QuantizedTensor.from_float(
+        rng.standard_normal((512, 256)).astype(np.float32), 2, device="cpu")
+    padded_k, _ = _pair(rng, 2, 640, (256,))    # K 640 -> 1024
+    padded_m, _ = _pair(rng, 2, 512, (200,))
+    for bad, kw in ((bits3, {}), (f32, {}), (per_tensor, {}),
+                    (padded_k, dict(glu=True)),
+                    (padded_m, dict(residual=torch.zeros(2, 200, dtype=torch.bfloat16))),
+                    (qt, dict(residual=torch.zeros(2, 256)))):
+        xb = x if not kw.get("glu") else torch.zeros(2, 2 * bad.kdim)
+        with pytest.raises(ValueError):
+            qgemm_grouped(xb, bad, **kw)

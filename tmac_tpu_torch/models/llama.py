@@ -1,10 +1,15 @@
 """Llama-family transformer in PyTorch: the main-path subset.
 
-The port of ``tmac_tpu/models/llama.py`` for dense w_a8 (BitNet W1.58A8)
-models with plain RoPE and a bf16 KV cache.  Every quantized linear goes
-through kernel K1 (ops/cuda/qgemm_kernel.py) with the JAX package's fused
-semantics: rms_norm folded into wqkv and gate_up, the residual into wo and
-down, SwiGLU into down.  Decode attention goes through kernel K2
+The port of ``tmac_tpu/models/llama.py`` for dense models with plain RoPE
+and a bf16 KV cache: w_a8 (BitNet W1.58A8, per-tensor scales) and w_fp
+with grouped scales (e.g. Llama-2-7B W2A16 / W4A16 g128, bits 2 and 4).
+Every quantized linear goes through a kernel with the JAX package's pallas
+semantics: K1 (ops/cuda/qgemm_kernel.py) for per-tensor scales, K4
+(ops/cuda/qgemm_grouped_kernel.py) for grouped ones, with activations
+quantized to int8 inside the kernel, rms_norm folded into wqkv and
+gate_up, the residual into wo and down, and SwiGLU into down where down's
+K is unpadded (elsewhere silu(g) * u runs in bf16 torch ops before down,
+as in JAX).  Decode attention goes through kernel K2
 (ops/cuda/attention_kernel.py); prefill attention is a masked softmax in
 f32 torch ops, as the JAX package leaves it to XLA.  The int8 lm head is K1
 with bits=8 and no folds, after a separate bf16 rms_norm.
@@ -27,7 +32,9 @@ from torch import nn
 from tmac_tpu_torch.models.config import ModelConfig
 from tmac_tpu_torch.ops.cuda.attention_kernel import (flash_decode,
                                                       flash_decode_plain)
-from tmac_tpu_torch.ops.cuda.qgemm_kernel import (qgemm_fused,
+from tmac_tpu_torch.ops.cuda.qgemm_grouped_kernel import (qgemm_grouped,
+                                                          qgemm_grouped_plain)
+from tmac_tpu_torch.ops.cuda.qgemm_kernel import (act_scale, qgemm_fused,
                                                   qgemm_fused_plain)
 from tmac_tpu_torch.ops.qgemm import QuantizedTensor, fuse_m
 from tmac_tpu_torch.utils import round_up
@@ -37,25 +44,33 @@ def quantize_activations_int8(x: torch.Tensor):
     """Per-token absmax int8 quantization (1e-20 clamp, rint, +-127), as
     the JAX package's function computes it when compiled: XLA turns its
     `amax / 127.0` into a multiply by the f32 reciprocal."""
-    amax = x.abs().amax(-1, keepdim=True).float()
-    scale = torch.clamp_min(amax, 1e-20) * torch.full_like(amax, 1.0 / 127.0)
+    scale = act_scale(x.abs().amax(-1, keepdim=True).float())
     # true division, by a tensor (a Python-scalar divisor becomes a
     # reciprocal multiply on CUDA)
     q = torch.clamp(torch.round(x.float() / scale), -127, 127).to(torch.int8)
     return q, scale
 
 
+def linear_kernel(qt: QuantizedTensor, plain: bool = False):
+    """The kernel wrapper for a quantized linear: K4 for grouped scales, K1
+    for per-tensor ones; with plain=True, its plain PyTorch version."""
+    if qt.scales.shape[0] > 1:
+        return qgemm_grouped_plain if plain else qgemm_grouped
+    return qgemm_fused_plain if plain else qgemm_fused
+
+
 def apply_qlinear(x: torch.Tensor, qt: QuantizedTensor, norm=None,
-                  glu: bool = False, residual=None, qgemm=qgemm_fused):
+                  glu: bool = False, residual=None, plain: bool = False):
     """x (..., K) @ Wdq (K, M) -> (..., M) in x's dtype, with the JAX
-    package's fused w_a8 semantics: per-token int8 activations quantized
-    inside K1 (after the optional norm or SwiGLU fold), exact int32
-    accumulation, optional residual added in the epilogue."""
+    package's pallas semantics: int8 activations quantized inside the
+    kernel (per token, or per token and scale group; after the optional
+    norm or SwiGLU fold), exact int32 dots, optional residual added in the
+    epilogue."""
     shape = x.shape
     x2 = x.reshape(-1, shape[-1])
     res2 = residual.reshape(-1, residual.shape[-1]) \
         if residual is not None else None
-    out = qgemm(x2, qt, norm=norm, glu=glu, residual=res2)
+    out = linear_kernel(qt, plain)(x2, qt, norm=norm, glu=glu, residual=res2)
     return out.reshape(*shape[:-1], qt.mdim).to(x.dtype)
 
 
@@ -131,23 +146,54 @@ class KVCache:
 # ---------------------------------------------------------------------------
 
 def _check_slice(cfg: ModelConfig) -> None:
-    """The model family this port covers so far."""
-    if cfg.quant.mode != "w_a8" or cfg.quant.group_size != -1:
-        raise NotImplementedError("only w_a8 per-tensor models are ported")
-    if cfg.num_experts or cfg.attention_bias or cfg.tie_word_embeddings \
-            or cfg.head_bits != 8 or cfg.sliding_window:
+    """The model family this port covers so far: dense w_a8 with
+    per-tensor scales, or dense w_fp with grouped scales at bits 2 or 4
+    and activations quantized per weight group."""
+    q = cfg.quant
+    if q.mode == "w_a8":
+        if q.group_size != -1:
+            raise NotImplementedError("only per-tensor w_a8 is ported")
+    elif q.group_size <= 0 or q.bits not in (2, 4) or q.act_group_size:
         raise NotImplementedError(
-            "MoE, attention bias, tied or bf16 heads and sliding windows "
-            "are not ported yet")
+            "w_fp is ported for grouped scales at bits 2 and 4, with "
+            "activation groups equal to the weight groups")
+    if cfg.num_experts or cfg.attention_bias or cfg.tie_word_embeddings \
+            or cfg.head_bits != 8 or cfg.sliding_window or cfg.rope_scaling:
+        raise NotImplementedError(
+            "MoE, attention bias, tied or bf16 heads, sliding windows and "
+            "rope scaling are not ported yet")
 
 
-def _rand_qt(rng: np.random.Generator, K: int, M: int,
+def _rand_qt(rng: np.random.Generator, K: int, M: int, cfg: ModelConfig,
              device) -> QuantizedTensor:
-    """Ternary weights {-1,0,1} stored as {1,2,3}, one scale per tensor."""
-    wq = rng.integers(1, 4, (K, M)).astype(np.uint8)
-    scales = np.full((1, M), 1.0 / np.sqrt(K), np.float32)
-    return QuantizedTensor.from_quantized(wq, scales, 2 * scales, bits=2,
-                                          group_size=K, device=device)
+    """Synthetic quantized weights, the JAX package's numpy draws in its
+    order: w_a8 ternary {-1,0,1} stored as {1,2,3} with one scale per
+    tensor; w_fp random codes with per-group scales and zero points (bf16
+    scales and sub when grouped)."""
+    q = cfg.quant
+    gs = K if q.group_size == -1 else q.group_size
+    std = 1.0 / np.sqrt(K)
+    if q.mode == "w_a8":
+        wq = rng.integers(1, 4, (K, M)).astype(np.uint8)
+        scales = np.full((1, M), std, np.float32)
+        return QuantizedTensor.from_quantized(wq, scales, 2 * scales, bits=2,
+                                              group_size=K, device=device)
+    qmax = (1 << q.bits) - 1
+    mid = 1 << (q.bits - 1)
+    G = K // gs
+    wq = rng.integers(0, qmax + 1, (K, M), dtype=np.int64).astype(np.uint8)
+    scales = ((0.5 + rng.random((G, M))) * (2.0 * std / mid)).astype(np.float32)
+    if q.zero_point:
+        # zero points on each group's mean code, jittered by -2..2
+        gmean = wq.reshape(G, gs, M).astype(np.float32).mean(1).round()
+        zq = np.clip(gmean + rng.integers(-2, 3, (G, M)), 0, qmax) \
+            .astype(np.float32)
+        sub = scales * zq
+    else:
+        sub = mid * scales
+    sd = torch.bfloat16 if gs < K else torch.float32
+    return QuantizedTensor.from_quantized(wq, scales, sub, q.bits, gs,
+                                          scale_dtype=sd, device=device)
 
 
 def padded_intermediate(cfg: ModelConfig) -> int:
@@ -182,14 +228,14 @@ def init_params(cfg: ModelConfig, seed: int = 0,
         layer = {
             "attn_norm": ones(H),
             "mlp_norm": ones(H),
-            "wqkv": fuse_m([_rand_qt(rng, H, cfg.q_dim, device),
-                            _rand_qt(rng, H, cfg.kv_dim, device),
-                            _rand_qt(rng, H, cfg.kv_dim, device)]),
-            "wo": _rand_qt(rng, cfg.q_dim, H, device),
+            "wqkv": fuse_m([_rand_qt(rng, H, cfg.q_dim, cfg, device),
+                            _rand_qt(rng, H, cfg.kv_dim, cfg, device),
+                            _rand_qt(rng, H, cfg.kv_dim, cfg, device)]),
+            "wo": _rand_qt(rng, cfg.q_dim, H, cfg, device),
         }
-        layer["gate_up"] = fuse_m([_rand_qt(rng, H, I, device),
-                                   _rand_qt(rng, H, I, device)])
-        layer["down"] = _rand_qt(rng, I, H, device)
+        layer["gate_up"] = fuse_m([_rand_qt(rng, H, I, cfg, device),
+                                   _rand_qt(rng, H, I, cfg, device)])
+        layer["down"] = _rand_qt(rng, I, H, cfg, device)
         layers.append(layer)
     embed = torch.from_numpy(rng.standard_normal((cfg.vocab_size, H)) * 0.02)
     head = (rng.standard_normal((H, cfg.vocab_size)) * 0.02).astype(np.float32)
@@ -244,14 +290,14 @@ class Block(nn.Module):
 
 
 class Llama(nn.Module):
-    """The dense w_a8 transformer over a params tree.
+    """The dense transformer over a params tree.
 
     forward(tokens (B, T), cache) -> (logits (B, T, V) f32, cache): the
     JAX package's forward contract, except that the cache is updated in
     place (see KVCache).  The residual stream stays bf16, as in JAX.
 
-    plain=True runs the kernels' plain PyTorch versions instead of K1 and
-    K2 on whatever device the weights are on.  It exists so that the
+    plain=True runs the kernels' plain PyTorch versions instead of K1, K4
+    and K2 on whatever device the weights are on.  It exists so that the
     kernel path can be held against a reference on the card; the default
     path never falls back to it."""
 
@@ -260,7 +306,7 @@ class Llama(nn.Module):
         super().__init__()
         _check_slice(cfg)
         self.cfg = cfg
-        self.qgemm = qgemm_fused_plain if plain else qgemm_fused
+        self.plain = plain
         self.attend = flash_decode_plain if plain else flash_decode
         self.register_buffer("embed", params["embed"])
         self.register_buffer("final_norm", params["final_norm"])
@@ -318,9 +364,10 @@ class Llama(nn.Module):
         tables = rope_tables(positions, self.freqs)
         eps = cfg.rms_norm_eps
         qd, kvd = cfg.q_dim, cfg.kv_dim
+        plain = self.plain
         for li, blk in enumerate(self.layers):
             qkv = apply_qlinear(x, blk.wqkv.qt, norm=(blk.attn_norm, eps),
-                                qgemm=self.qgemm)
+                                plain=plain)
             q = rope(qkv[..., :qd].reshape(B, T, cfg.num_heads, cfg.head_dim),
                      tables)
             k = rope(qkv[..., qd:qd + kvd].reshape(B, T, cfg.num_kv_heads,
@@ -331,13 +378,21 @@ class Llama(nn.Module):
             _write_kv_stacked(cache.v, li, v, positions)
             attn = self._attention(q, cache, li, positions, kv_lens,
                                    kv_len_mask)
-            x = apply_qlinear(attn, blk.wo.qt, residual=x, qgemm=self.qgemm)
+            x = apply_qlinear(attn, blk.wo.qt, residual=x, plain=plain)
             gu = apply_qlinear(x, blk.gate_up.qt, norm=(blk.mlp_norm, eps),
-                               qgemm=self.qgemm)
-            x = apply_qlinear(gu, blk.down.qt, glu=True, residual=x,
-                              qgemm=self.qgemm)
+                               plain=plain)
+            down = blk.down.qt
+            if down.kdim_padded == down.kdim:
+                # SwiGLU folded into down's prologue
+                x = apply_qlinear(gu, down, glu=True, residual=x, plain=plain)
+            else:
+                # down's K is padded (e.g. W2 at group size 128): JAX runs
+                # silu(g) * u in bf16 before the kernel, and so does the port
+                g, u = gu[..., :down.kdim].float(), gu[..., down.kdim:]
+                h = (g * (1.0 / (1.0 + torch.exp(-g)))).to(u.dtype) * u
+                x = apply_qlinear(h, down, residual=x, plain=plain)
         x = rms_norm(x, self.final_norm, eps)
         head = self.lm_head.qt
-        logits = self.qgemm(x.reshape(B * T, -1), head)
+        logits = linear_kernel(head, plain)(x.reshape(B * T, -1), head)
         cache.pos += T
         return logits.reshape(B, T, head.mdim), cache

@@ -5,11 +5,12 @@ Each source becomes its own library, compiled by nvcc for Hopper
 built when a module is imported: a library is built at its first use, or
 all of them at once, in parallel, by ``build()``.  Libraries go into
 ``tmac_tpu_torch/_build/`` under a name that carries a hash of the source
-and the flags, so an edited source is rebuilt.  A failed build raises with
+and the flags (and of the shared headers, ``csrc/*.cuh``), so an edited
+source is rebuilt.  A failed build raises with
 nvcc's output.
 
-No ``--use_fast_math``: the activation quantization in qgemm_fused.cu
-depends on IEEE division and ``rintf``.
+No ``--use_fast_math``: the activation quantization in qgemm_fused.cu and
+qgemm_grouped.cu depends on IEEE division, square root and ``rintf``.
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "_build"
-SOURCES = ("qgemm_fused", "flash_decode")
+SOURCES = ("qgemm_fused", "qgemm_grouped", "flash_decode")
 # -Xptxas -v only reports each kernel's registers, shared memory and spills
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -43,6 +44,7 @@ def nvcc() -> str:
 
 def library_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 

@@ -8,10 +8,14 @@
 //     -> optional silu(g) * u, optional rms_norm (variance over the
 //        logical K)
 //     -> per-row absmax int8 codes (scale xs = max(amax, 1e-20) * (1/127),
-//        codes rint(x / xs) clamped to +-127) and the dequantized code
-//        sum xsum
+//        codes rint(x / xs) clamped to +-127) and their sum
 //     -> exact int32 dot with the packed weights
-//     -> acc * scale * xs - xsum * sub (+ residual)  in f32, (N, Mp).
+//     -> the f32 epilogue, (N, Mp), in the form the JAX reference compiles
+//        to on its route for N (XLA contracts one multiply-add of each into
+//        an FMA; q = the code sum):
+//          N < 64:   fma(acc * scale, xs, -(q * xs) * sub) (+ residual)
+//          N >= 64:  fma(acc, scale, -q * sub) * xs, or
+//                    fma(fma(acc, scale, -q * sub), xs, residual)
 //
 // What bounds it: at decode (N = 1) each packed weight byte is read once
 // and feeds 4 (bits=2) or 1 (bits=8) multiply-adds, far below the card's
@@ -40,6 +44,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "act_prologue.cuh"
+
 namespace {
 
 constexpr int kQuantThreads = 512;
@@ -49,7 +55,6 @@ constexpr int kCols = 4 * kTX;    // output columns of a block
 constexpr int kRowsMany = 8;      // output rows of a block when N > 1
 
 struct SumOp {
-  __device__ float operator()(float a, float b) const { return __fadd_rn(a, b); }
   __device__ int operator()(int a, int b) const { return a + b; }
 };
 
@@ -72,46 +77,28 @@ __device__ T block_reduce(T v, Op op, T* red) {
   return r;
 }
 
-// The prologue's value at column k of row xr, before rms_norm.
-__device__ __forceinline__ float glu_value(const __nv_bfloat16* xr, int k,
-                                           int K, int glu) {
-  if (k >= K) return 0.f;  // K zero-padded up to Kp
-  float v = __bfloat162float(xr[k]);
-  if (glu) {
-    const float u = __bfloat162float(xr[K + k]);
-    v = v * (1.0f / (1.0f + expf(-v))) * u;
-  }
-  return v;
-}
-
 __global__ void __launch_bounds__(kQuantThreads) act_quant_kernel(
     const __nv_bfloat16* __restrict__ x, int x_cols, int K, int Kp, int glu,
     const __nv_bfloat16* __restrict__ norm_w, float eps, float inv_norm_k,
-    int bits, int8_t* __restrict__ codes, float* __restrict__ xs,
-    float* __restrict__ xsum) {
-  __shared__ float redf[32];
+    int bits, int large_n, int8_t* __restrict__ codes,
+    float* __restrict__ xs, float* __restrict__ xsum) {
+  __shared__ float redf[kQuantThreads];
   __shared__ int redi[32];
   const int n = blockIdx.x;
   const __nv_bfloat16* xr = x + (size_t)n * x_cols;
 
   float rs = 1.f;
   if (norm_w != nullptr) {
-    // rounded step by step (no FMA) in a fixed order that the plain
-    // version repeats: per thread over k = tid + i*blockDim, then the
-    // block reduction
-    float ss = 0.f;
-    for (int k = threadIdx.x; k < K; k += blockDim.x) {
-      const float v = glu_value(xr, k, K, glu);
-      ss = __fadd_rn(ss, __fmul_rn(v, v));
-    }
-    ss = block_reduce(ss, SumOp(), redf);
-    // var = sum * (1 / logical K); x * rsqrt(var + eps) * w, as in JAX
-    rs = 1.0f / sqrtf(__fadd_rn(__fmul_rn(ss, inv_norm_k), eps));
+    // the sum of squares over the padded row in the reference's order
+    // (act_prologue.cuh); var = sum * (1 / logical K); x * rsqrt(var +
+    // eps) * w, as in JAX
+    rs = tmac::rms_factor(tmac::sumsq_xla_order(xr, K, Kp, glu, redf),
+                          inv_norm_k, eps);
   }
 
   float amax = 0.f;
   for (int k = threadIdx.x; k < Kp; k += blockDim.x) {
-    float v = glu_value(xr, k, K, glu);
+    float v = tmac::glu_value(xr, k, K, glu);
     if (norm_w != nullptr && k < K) v = v * rs * __bfloat162float(norm_w[k]);
     amax = fmaxf(amax, fabsf(v));
   }
@@ -124,7 +111,7 @@ __global__ void __launch_bounds__(kQuantThreads) act_quant_kernel(
   int8_t* cr = codes + (size_t)n * Kp;
   int qsum = 0;
   for (int k = threadIdx.x; k < Kp; k += blockDim.x) {
-    float v = glu_value(xr, k, K, glu);
+    float v = tmac::glu_value(xr, k, K, glu);
     if (norm_w != nullptr && k < K) v = v * rs * __bfloat162float(norm_w[k]);
     const int q = (int)fminf(fmaxf(rintf(v / sc), -127.f), 127.f);
     qsum += q;
@@ -134,7 +121,9 @@ __global__ void __launch_bounds__(kQuantThreads) act_quant_kernel(
   qsum = block_reduce(qsum, SumOp(), redi);
   if (threadIdx.x == 0) {
     xs[n] = sc;
-    xsum[n] = __fmul_rn((float)qsum, sc);
+    // the N >= 64 epilogue takes the bare code sum, the other the
+    // dequantized one
+    xsum[n] = large_n ? (float)qsum : __fmul_rn((float)qsum, sc);
   }
 }
 
@@ -160,7 +149,7 @@ __global__ void __launch_bounds__(kTX * kTY) qgemm_kernel(
     const int32_t* __restrict__ xq, const float* __restrict__ xs,
     const float* __restrict__ xsum, int N, int nq,
     const uint8_t* __restrict__ packed, const float* __restrict__ scales,
-    const float* __restrict__ sub, int Mp,
+    const float* __restrict__ sub, int Mp, int large_n,
     const __nv_bfloat16* __restrict__ residual, float* __restrict__ out) {
   __shared__ int red[kTY][NT][kCols];
   const int tx = threadIdx.x % kTX, ty = threadIdx.x / kTX;
@@ -210,10 +199,20 @@ __global__ void __launch_bounds__(kTX * kTY) qgemm_kernel(
     for (int t = 0; t < kTY; ++t) s += red[t][n][c];
     const int m = blockIdx.x * kCols + c;
     const size_t row = (size_t)(n0 + n);
-    // f32 epilogue in the TPU kernel's order, each step rounded on its own
-    float o = __fmul_rn(__fmul_rn((float)s, scales[m]), xs[row]);
-    o = __fsub_rn(o, __fmul_rn(xsum[row], sub[m]));
-    if (residual != nullptr) o = __fadd_rn(o, __bfloat162float(residual[row * Mp + m]));
+    // f32 epilogue as the reference compiles it (header), each step
+    // rounded on its own or fused exactly where it fuses
+    const float zero_fold = -__fmul_rn(xsum[row], sub[m]);
+    float o;
+    if (large_n) {
+      const float c = __fmaf_rn((float)s, scales[m], zero_fold);
+      o = residual != nullptr
+              ? __fmaf_rn(c, xs[row], __bfloat162float(residual[row * Mp + m]))
+              : __fmul_rn(c, xs[row]);
+    } else {
+      o = __fmaf_rn(__fmul_rn((float)s, scales[m]), xs[row], zero_fold);
+      if (residual != nullptr)
+        o = __fadd_rn(o, __bfloat162float(residual[row * Mp + m]));
+    }
     out[row * Mp + m] = o;
   }
 }
@@ -221,53 +220,59 @@ __global__ void __launch_bounds__(kTX * kTY) qgemm_kernel(
 template <int BITS>
 void launch_gemm(const int32_t* xq, const float* xs, const float* xsum, int N,
                  int nq, const uint8_t* packed, const float* scales,
-                 const float* sub, int Mp, const __nv_bfloat16* residual,
-                 float* out, cudaStream_t stream) {
+                 const float* sub, int Mp, int large_n,
+                 const __nv_bfloat16* residual, float* out,
+                 cudaStream_t stream) {
   const dim3 block(kTX * kTY);
   if (N == 1) {
     qgemm_kernel<BITS, 1><<<dim3(Mp / kCols, 1), block, 0, stream>>>(
-        xq, xs, xsum, N, nq, packed, scales, sub, Mp, residual, out);
+        xq, xs, xsum, N, nq, packed, scales, sub, Mp, large_n, residual, out);
   } else {
     const int ny = (N + kRowsMany - 1) / kRowsMany;
     qgemm_kernel<BITS, kRowsMany><<<dim3(Mp / kCols, ny), block, 0, stream>>>(
-        xq, xs, xsum, N, nq, packed, scales, sub, Mp, residual, out);
+        xq, xs, xsum, N, nq, packed, scales, sub, Mp, large_n, residual, out);
   }
 }
 
 }  // namespace
 
 // Prologue: x (N, x_cols) bf16 -> codes (N, Kp) int8 in dp4a grouping,
-// xs (N,) and xsum (N,) f32.  norm_w (K,) bf16 or null.  Returns the CUDA
-// error of the launch (0 on success).
+// xs (N,) and xsum (N,) f32 (the code sum, times xs unless large_n).
+// norm_w (K,) bf16 or null.  Returns the CUDA error of the launch (0 on
+// success).
 extern "C" int tmac_act_quant(const void* x, int N, int x_cols, int K, int Kp,
                               int glu, const void* norm_w, float eps,
-                              float inv_norm_k, int bits, void* codes,
-                              float* xs, float* xsum, void* stream) {
-  if (N <= 0 || Kp % 4 != 0 || (bits != 2 && bits != 8)) return (int)cudaErrorInvalidValue;
+                              float inv_norm_k, int bits, int large_n,
+                              void* codes, float* xs, float* xsum,
+                              void* stream) {
+  if (N <= 0 || Kp % 4 != 0 || Kp > tmac::kSumWindow * kQuantThreads ||
+      (bits != 2 && bits != 8))
+    return (int)cudaErrorInvalidValue;
   act_quant_kernel<<<N, kQuantThreads, 0, (cudaStream_t)stream>>>(
       static_cast<const __nv_bfloat16*>(x), x_cols, K, Kp, glu,
       static_cast<const __nv_bfloat16*>(norm_w), eps, inv_norm_k, bits,
-      static_cast<int8_t*>(codes), xs, xsum);
+      large_n, static_cast<int8_t*>(codes), xs, xsum);
   return (int)cudaGetLastError();
 }
 
 // Matmul: codes (N, Kp) from tmac_act_quant, packed (Kp/4, Mp) (bits=2) or
 // (Kp, Mp) (bits=8) uint8, scales/sub (Mp,) f32, residual (N, Mp) bf16 or
-// null -> out (N, Mp) f32.  Mp must be a multiple of 32.
+// null -> out (N, Mp) f32.  Mp must be a multiple of 32.  large_n picks the
+// epilogue of the reference's N >= 64 route (the prologue's must match).
 extern "C" int tmac_qgemm(const void* codes, const float* xs,
                           const float* xsum, int N, int Kp, int bits,
                           const void* packed, const float* scales,
-                          const float* sub, int Mp, const void* residual,
-                          float* out, void* stream) {
+                          const float* sub, int Mp, int large_n,
+                          const void* residual, float* out, void* stream) {
   if (N <= 0 || Kp % 4 != 0 || Mp % kCols != 0) return (int)cudaErrorInvalidValue;
   const int32_t* xq = static_cast<const int32_t*>(codes);
   const uint8_t* pk = static_cast<const uint8_t*>(packed);
   const __nv_bfloat16* res = static_cast<const __nv_bfloat16*>(residual);
   cudaStream_t s = (cudaStream_t)stream;
   if (bits == 2) {
-    launch_gemm<2>(xq, xs, xsum, N, Kp / 4, pk, scales, sub, Mp, res, out, s);
+    launch_gemm<2>(xq, xs, xsum, N, Kp / 4, pk, scales, sub, Mp, large_n, res, out, s);
   } else if (bits == 8) {
-    launch_gemm<8>(xq, xs, xsum, N, Kp / 4, pk, scales, sub, Mp, res, out, s);
+    launch_gemm<8>(xq, xs, xsum, N, Kp / 4, pk, scales, sub, Mp, large_n, res, out, s);
   } else {
     return (int)cudaErrorInvalidValue;
   }

@@ -20,6 +20,7 @@ import functools
 import torch
 
 from tmac_tpu_torch.ops.qgemm import QuantizedTensor, unpack_codes
+from tmac_tpu_torch.utils import fma_f32
 
 _c_ptr, _c_int, _c_float = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
@@ -42,57 +43,77 @@ def _check_supported(qt: QuantizedTensor, glu: bool, norm, residual) -> None:
 # Plain PyTorch version (the CPU path, and what the kernel is held to)
 # ---------------------------------------------------------------------------
 
-# threads of the prologue kernel (kQuantThreads in csrc/qgemm_fused.cu)
-PROLOGUE_THREADS = 512
+# The JAX reference runs N >= LARGE_N rows on another route
+# (qgemm_pallas's XLA prologue), whose compiled f32 epilogue K1 follows too
+LARGE_N = 64
+
+# XLA's CPU backend adds a row longer than this in windows of this many
+# values (kSumWindow in csrc/act_prologue.cuh)
+SUM_WINDOW = 32
 
 
-def _block_sum(v: torch.Tensor) -> torch.Tensor:
-    """Row sums of v (N, K) in the prologue kernel's order, each addition
-    rounded on its own: thread t adds k = t, t + 512, ...; each warp of 32
-    threads folds its values with an xor butterfly (16, 8, 4, 2, 1); the
-    16 warp values are added in warp order."""
-    N, K = v.shape
-    T = PROLOGUE_THREADS
-    v = torch.nn.functional.pad(v, (0, -K % T)).reshape(N, -1, T)
-    s = v[:, 0]
-    for i in range(1, v.shape[1]):
-        s = s + v[:, i]
-    s = s.reshape(N, T // 32, 32)
-    while s.shape[-1] > 1:
-        h = s.shape[-1] // 2
-        s = s[..., :h] + s[..., h:]
-    s = s[..., 0]
-    out = s[:, 0]
-    for w in range(1, s.shape[1]):
-        out = out + s[:, w]
-    return out[:, None]
+def row_sum_xla_order(v: torch.Tensor) -> torch.Tensor:
+    """Row sums (N, 1) of v (N, n) in the order the JAX reference compiles
+    to on the CPU, each addition rounded on its own: a row longer than 32
+    is zero-padded evenly on both sides to a multiple of 32, each window
+    of 32 is summed from left to right, and the window sums are reduced
+    the same way until 32 or fewer remain, which are added from left to
+    right.  The prologue kernels add in this order too."""
+    W = SUM_WINDOW
+    while v.shape[1] > W:
+        pad = -v.shape[1] % W
+        v = torch.nn.functional.pad(v, (pad // 2, pad - pad // 2))
+        v = v.reshape(v.shape[0], -1, W)
+        s = torch.zeros_like(v[:, :, 0])
+        for j in range(W):
+            s = s + v[:, :, j]
+        v = s
+    s = torch.zeros_like(v[:, :1])
+    for j in range(v.shape[1]):
+        s = s + v[:, j:j + 1]
+    return s
 
 
-def act_quant_plain(x: torch.Tensor, qt: QuantizedTensor, norm=None,
-                    glu: bool = False):
-    """The prologue: x (N, K) or (N, 2K) -> (codes int8 (N, Kp) in natural
-    k order, xs (N,) f32, xsum (N,) f32), as the TPU kernel's step 0."""
-    K, Kp = qt.kdim, qt.kdim_padded
+def prologue_values(x: torch.Tensor, K: int, Kp: int, norm=None,
+                    glu: bool = False) -> torch.Tensor:
+    """x (N, K) or (N, 2K) -> the f32 values (N, Kp) that are quantized:
+    silu(g) * u with glu, then rms_norm with norm (variance over the
+    logical K), zero past K.  Written as the prologue kernels compute them
+    (IEEE exp, sqrt and division, the row sum in the reference's order),
+    so that kernel and plain version agree bit for bit."""
     xf = x.to(torch.bfloat16).float()
-    # written as the kernel computes them (IEEE exp, sqrt and division,
-    # the variance summed in its order), so that the two agree bit for bit
     if glu:
         g = xf[:, :K]
         xf = g * (1.0 / (1.0 + torch.exp(-g))) * xf[:, K:]
+    xf = torch.nn.functional.pad(xf, (0, Kp - K))
     if norm is not None:
         w, eps = norm
-        var = _block_sum(xf * xf) * (1.0 / K)
+        var = row_sum_xla_order(xf * xf) * (1.0 / K)
         xf = xf * (1.0 / torch.sqrt(var + eps))
-        xf = xf * w.float()
-    xf = torch.nn.functional.pad(xf, (0, Kp - K))
-    amax = xf.abs().amax(1, keepdim=True)
-    # the scale as XLA compiles the JAX package's `amax / 127.0`: times the
-    # f32 reciprocal of 127.  The codes then take a true division, by a
-    # tensor: on CUDA PyTorch turns division by a Python scalar into a
-    # reciprocal multiply
-    xs = torch.clamp_min(amax, 1e-20) * torch.full_like(amax, 1.0 / 127.0)
+        xf = xf * torch.nn.functional.pad(w.float(), (0, Kp - K))
+    return xf
+
+
+def act_scale(amax: torch.Tensor) -> torch.Tensor:
+    """The int8 scale of an absmax, as XLA compiles the JAX package's
+    `max(amax, 1e-20) / 127.0`: times the f32 reciprocal of 127."""
+    return torch.clamp_min(amax, 1e-20) * torch.full_like(amax, 1.0 / 127.0)
+
+
+def act_quant_plain(x: torch.Tensor, qt: QuantizedTensor, norm=None,
+                    glu: bool = False, large_n: bool = False):
+    """The prologue: x (N, K) or (N, 2K) -> (codes int8 (N, Kp) in natural
+    k order, xs (N,) f32, xsum (N,) f32), as the TPU kernel's step 0.
+    xsum is the code sum times xs, or the bare code sum for the large-N
+    epilogue."""
+    xf = prologue_values(x, qt.kdim, qt.kdim_padded, norm, glu)
+    xs = act_scale(xf.abs().amax(1, keepdim=True))
+    # the codes take a true division, by a tensor: on CUDA PyTorch turns
+    # division by a Python scalar into a reciprocal multiply
     q = torch.clamp(torch.round(xf / xs), -127, 127)
-    xsum = q.sum(1, keepdim=True) * xs
+    xsum = q.sum(1, keepdim=True)
+    if not large_n:
+        xsum = xsum * xs
     return q.to(torch.int8), xs[:, 0], xsum[:, 0]
 
 
@@ -115,14 +136,23 @@ def dp4a_order(codes: torch.Tensor, bits: int) -> torch.Tensor:
 
 def qgemm_fused_plain(x: torch.Tensor, qt: QuantizedTensor, norm=None,
                       glu: bool = False, residual=None) -> torch.Tensor:
-    """The function K1 computes, in plain PyTorch: (N, M) f32."""
+    """The function K1 computes, in plain PyTorch: (N, M) f32.  The f32
+    epilogue is the one the reference compiles to on its route for N
+    (csrc/qgemm_fused.cu's header), every step rounded as there."""
     _check_supported(qt, glu, norm, residual)
-    codes, xs, xsum = act_quant_plain(x, qt, norm, glu)
-    acc = int_dot_plain(codes, qt)
-    out = acc.float() * qt.scales[0].float() * xs[:, None]
-    out = out - xsum[:, None] * qt.sub[0].float()
-    if residual is not None:
-        out = out + residual.float()
+    large = x.shape[0] >= LARGE_N
+    codes, xs, xsum = act_quant_plain(x, qt, norm, glu, large)
+    acc = int_dot_plain(codes, qt).float()
+    scale, xs = qt.scales[0].float().expand_as(acc), xs[:, None].expand_as(acc)
+    zero_fold = -(xsum[:, None] * qt.sub[0].float())
+    if large:
+        out = fma_f32(acc, scale, zero_fold)
+        out = (out * xs if residual is None
+               else fma_f32(out, xs, residual.float()))
+    else:
+        out = fma_f32(acc * scale, xs, zero_fold)
+        if residual is not None:
+            out = out + residual.float()
     return qt.slice_m(out)
 
 
@@ -136,77 +166,84 @@ def _lib():
     lib = build.load("qgemm_fused")
     lib.tmac_act_quant.argtypes = [
         _c_ptr, _c_int, _c_int, _c_int, _c_int, _c_int, _c_ptr, _c_float,
-        _c_float, _c_int, _c_ptr, _c_ptr, _c_ptr, _c_ptr]
+        _c_float, _c_int, _c_int, _c_ptr, _c_ptr, _c_ptr, _c_ptr]
     lib.tmac_act_quant.restype = _c_int
     lib.tmac_qgemm.argtypes = [
         _c_ptr, _c_ptr, _c_ptr, _c_int, _c_int, _c_int, _c_ptr, _c_ptr,
-        _c_ptr, _c_int, _c_ptr, _c_ptr, _c_ptr]
+        _c_ptr, _c_int, _c_int, _c_ptr, _c_ptr, _c_ptr]
     lib.tmac_qgemm.restype = _c_int
     return lib
 
 
-def _require(t: torch.Tensor, what: str, dtype, shape, device) -> None:
+def require(kernel: str, t: torch.Tensor, what: str, dtype, shape,
+            device) -> None:
+    """Raise unless t is what `kernel`'s C interface takes."""
     if t.device != device or t.dtype != dtype or tuple(t.shape) != tuple(shape) \
             or not t.is_contiguous():
         raise ValueError(
-            f"K1: {what} must be a contiguous {dtype} {tuple(shape)} tensor on "
-            f"{device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+            f"{kernel}: {what} must be a contiguous {dtype} {tuple(shape)} "
+            f"tensor on {device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
 
 
-def _raise_on(err: int, what: str) -> None:
+def raise_on(kernel: str, err: int, what: str) -> None:
+    """Raise if a launch returned a CUDA error."""
     if err != 0:
-        raise RuntimeError(f"K1 {what} launch failed with CUDA error {err}")
+        raise RuntimeError(f"{kernel} {what} launch failed with CUDA error {err}")
 
 
 def launch_act_quant(x: torch.Tensor, qt: QuantizedTensor, norm=None,
-                     glu: bool = False):
+                     glu: bool = False, large_n: bool = False):
     """Launch the prologue: -> (codes (N, Kp) int8 in dp4a grouping,
-    xs (N,), xsum (N,))."""
+    xs (N,), xsum (N,)); xsum as act_quant_plain gives it."""
     dev = x.device
     N = x.shape[0]
     K, Kp = qt.kdim, qt.kdim_padded
-    _require(x, "x", torch.bfloat16, (N, 2 * K if glu else K), dev)
+    require("K1", x, "x", torch.bfloat16, (N, 2 * K if glu else K), dev)
     norm_ptr, eps = None, 0.0
     if norm is not None:
         w, eps = norm
-        _require(w, "norm weight", torch.bfloat16, (K,), dev)
+        require("K1", w, "norm weight", torch.bfloat16, (K,), dev)
         norm_ptr = w.data_ptr()
     codes = torch.empty((N, Kp), dtype=torch.int8, device=dev)
     xs = torch.empty((N,), dtype=torch.float32, device=dev)
     xsum = torch.empty((N,), dtype=torch.float32, device=dev)
     err = _lib().tmac_act_quant(
         x.data_ptr(), N, x.shape[1], K, Kp, int(glu), norm_ptr, float(eps),
-        1.0 / K, qt.bits, codes.data_ptr(), xs.data_ptr(), xsum.data_ptr(),
+        1.0 / K, qt.bits, int(large_n), codes.data_ptr(), xs.data_ptr(),
+        xsum.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(err, "prologue")
+    raise_on("K1", err, "prologue")
     return codes, xs, xsum
 
 
 def launch_gemm(codes: torch.Tensor, xs: torch.Tensor, xsum: torch.Tensor,
-                qt: QuantizedTensor, residual=None) -> torch.Tensor:
-    """Launch the matmul on prologue outputs: -> (N, Mp) f32."""
+                qt: QuantizedTensor, residual=None,
+                large_n: bool = False) -> torch.Tensor:
+    """Launch the matmul on prologue outputs: -> (N, Mp) f32, with the
+    epilogue of the reference's route for N (large_n must be the flag the
+    prologue ran with)."""
     dev = codes.device
     N, Kp, Mp = codes.shape[0], qt.kdim_padded, qt.mdim_padded
-    _require(codes, "codes", torch.int8, (N, Kp), dev)
-    _require(xs, "xs", torch.float32, (N,), dev)
-    _require(xsum, "xsum", torch.float32, (N,), dev)
+    require("K1", codes, "codes", torch.int8, (N, Kp), dev)
+    require("K1", xs, "xs", torch.float32, (N,), dev)
+    require("K1", xsum, "xsum", torch.float32, (N,), dev)
     rows = Kp // 4 if qt.bits == 2 else Kp
-    _require(qt.packed, "packed", torch.uint8, (rows, Mp), dev)
-    _require(qt.scales, "scales", torch.float32, (1, Mp), dev)
-    _require(qt.sub, "sub", torch.float32, (1, Mp), dev)
+    require("K1", qt.packed, "packed", torch.uint8, (rows, Mp), dev)
+    require("K1", qt.scales, "scales", torch.float32, (1, Mp), dev)
+    require("K1", qt.sub, "sub", torch.float32, (1, Mp), dev)
     if qt.packed.data_ptr() % 4 or Mp % 32:
         raise ValueError("K1: packed must be 4-byte aligned with Mp % 32 == 0")
     res_ptr = None
     if residual is not None:
-        _require(residual, "residual", torch.bfloat16, (N, Mp), dev)
+        require("K1", residual, "residual", torch.bfloat16, (N, Mp), dev)
         res_ptr = residual.data_ptr()
     out = torch.empty((N, Mp), dtype=torch.float32, device=dev)
     err = _lib().tmac_qgemm(
         codes.data_ptr(), xs.data_ptr(), xsum.data_ptr(), N, Kp, qt.bits,
         qt.packed.data_ptr(), qt.scales.data_ptr(), qt.sub.data_ptr(), Mp,
-        res_ptr, out.data_ptr(),
+        int(large_n), res_ptr, out.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(err, "matmul")
+    raise_on("K1", err, "matmul")
     return out
 
 
@@ -224,8 +261,9 @@ def qgemm_fused(x: torch.Tensor, qt: QuantizedTensor, norm=None,
         return qgemm_fused_plain(x, qt, norm, glu, residual)
     if x.device.type != "cuda":
         raise ValueError(f"K1 runs on CPU or CUDA tensors, not {x.device}")
-    codes, xs, xsum = launch_act_quant(x, qt, norm, glu)
-    out = launch_gemm(codes, xs, xsum, qt, residual)
+    large = x.shape[0] >= LARGE_N
+    codes, xs, xsum = launch_act_quant(x, qt, norm, glu, large)
+    out = launch_gemm(codes, xs, xsum, qt, residual, large)
     qgemm_fused.launches += 1
     return qt.slice_m(out)
 

@@ -5,10 +5,13 @@ implementation computes C = x @ Wdq with
 
     Wdq[k, m] = scales[k // gs, m] * wq[k, m] - sub[k // gs, m]
 
-  * "fused" -- kernel K1 (ops/cuda/qgemm_kernel.py): in-kernel per-token
-               int8 activation quantization, exact int32 accumulation,
-               optional rms_norm / SwiGLU prologue and residual epilogue
-               (per-tensor scales only)
+  * "fused" -- kernel K1 (ops/cuda/qgemm_kernel.py) for per-tensor scales:
+               in-kernel per-token int8 activation quantization, exact
+               int32 accumulation; kernel K4 (ops/cuda/qgemm_grouped_kernel.py)
+               for grouped scales: int8 activations per (token, group),
+               exact int32 dots per group, scales folded per group.  Both
+               take an optional rms_norm / SwiGLU prologue and residual
+               epilogue
   * "torch" -- plain grouped dequant matmul (the ``qgemm_xla`` role)
 """
 
@@ -296,26 +299,36 @@ def qgemm(x: torch.Tensor, qt: QuantizedTensor, impl: str = "auto",
           residual=None) -> torch.Tensor:
     """Quantized matmul x (N, K) @ Wdq (K, M) -> (N, M).
 
-    impl: "fused" (kernel K1; float x, per-tensor scales), "torch", or
-    "auto": K1 for any tensor off the CPU, which raises on what K1 does
-    not cover yet (grouped scales, int8 x); on the CPU, K1's plain version
-    where K1 applies and "torch" otherwise.
+    impl: "fused" (float x: kernel K1 for per-tensor scales, K4 for
+    grouped ones), "torch", or "auto": "fused" for any tensor off the CPU,
+    whose kernels raise on what they do not cover yet (int8 x, bits other
+    than K1's 2 and 8 or K4's 2 and 4); on the CPU, the kernels' plain
+    versions for float x (grouped: bits 2 or 4 with bf16 scales) and
+    "torch" otherwise.
     norm: optional (weight (K,), eps) rms_norm applied to x first.
     glu: x is (N, 2K) and silu(x[:, :K]) * x[:, K:] feeds the matmul.
     residual: optional (N, M) added to the output.
     """
+    grouped = qt.scales.shape[0] > 1
     if impl == "auto":
-        impl = ("fused" if x.device.type != "cpu" or (
-            x.is_floating_point() and qt.scales.shape[0] == 1) else "torch")
+        on_cpu_kernel = x.is_floating_point() and (not grouped or (
+            qt.bits in (2, 4) and qt.scales.dtype == torch.bfloat16))
+        impl = ("fused" if x.device.type != "cpu" or on_cpu_kernel
+                else "torch")
     out_dtype = out_dtype or (torch.float32 if x.dtype == torch.int8
                               else x.dtype)
     if impl == "fused":
         if not x.is_floating_point():
-            raise ValueError("K1 quantizes float activations; int8 x takes "
-                             "impl='torch'")
-        from tmac_tpu_torch.ops.cuda.qgemm_kernel import qgemm_fused
-        out = qgemm_fused(x.to(torch.bfloat16), qt, norm=norm, glu=glu,
-                          residual=residual)
+            raise ValueError("K1 and K4 quantize float activations; int8 x "
+                             "takes impl='torch'")
+        if grouped:
+            from tmac_tpu_torch.ops.cuda.qgemm_grouped_kernel import \
+                qgemm_grouped as kernel
+        else:
+            from tmac_tpu_torch.ops.cuda.qgemm_kernel import \
+                qgemm_fused as kernel
+        out = kernel(x.to(torch.bfloat16), qt, norm=norm, glu=glu,
+                     residual=residual)
         return out.to(out_dtype)
     if impl != "torch":
         raise ValueError(f"unknown impl {impl}")

@@ -3,6 +3,7 @@
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 
 def nmse(a, b) -> float:
@@ -39,3 +40,20 @@ def argmax_agreement(ref, got, tie_margin: float) -> float:
                 or srt[-1] - srt[-2] < tie_margin):
             ok += 1
     return ok / len(ref)
+
+
+def fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """a * b + c in float32 with one rounding, as CUDA's fmaf and the fused
+    multiply-adds XLA's CPU backend emits compute it.  The product of two
+    float32 values is exact in float64; their sum with c is rounded to odd
+    in float64 (nearest, then moved to the odd neighbour when inexact), so
+    that the one rounding to float32 that follows is the correct one."""
+    p = a.double() * b.double()
+    c = c.double()
+    s = p + c
+    bb = s - p
+    err = (p - (s - bb)) + (c - bb)          # p + c == s + err exactly
+    fix = (err != 0) & ((s.view(torch.int64) & 1) == 0)
+    toward = torch.where(err > 0, torch.full_like(s, float("inf")),
+                         torch.full_like(s, float("-inf")))
+    return torch.where(fix, torch.nextafter(s, toward), s).float()
