@@ -45,7 +45,25 @@ Phases, each printing one JSON line before the last two:
      launches) and 64 greedy decode steps (the select form through K7: 128
      K7, 64 K4, 32 K2 and 1 K1 launches per step), then the checks and
      timings of path 1 (the decode step captured in a CUDA graph, which
-     proves it makes no host sync), K7's per call and per step.
+     proves it makes no host sync), K7's per call and per step;
+  8. path 4, Phi-3-mini W2A16 g128 at full width and depth (32 layers,
+     hidden 3072, 32 heads of head_dim 96, FFN 8192, vocab 32064, a
+     2047-row sliding window), random weights drawn on the card from seed
+     0: kernels K6 (int8 cache and/or window), K8 (current token as an
+     operand) and K9 (K8 storing the current row) against their plain
+     versions, bit for bit, at Phi-3's shapes and a GQA shape (KV 8, rep
+     4, head_dim 128), bf16 and int8 caches, windows 2047 and 0, lengths 1
+     to 2368 (K9's stored rows byte for byte, the rest of the cache
+     untouched, no store at cached length S); K4 at Phi-3's shapes (N = 1
+     and 256); a 2304-token prefill (nine chunks of 256, past the window)
+     and 64 greedy decode steps on an int8 cache (1152 K4 and 9 K1
+     launches for the prefill; 128 K4, 1 K1 and 32 K6 a step), the same on
+     a bf16 cache, and 64 steps from the int8 prefill's cache in the
+     deferred (K8) and in-kernel (K9) KV-write modes, which must agree bit
+     for bit (tokens, logits, cache); a teacher-forced check of the
+     explicit and in-kernel steps against the plain versions; each mode's
+     step captured in a CUDA graph; K6, K8 and K9 per call at 2048 cached
+     rows beside their byte bound, plain versions and SDPA.
 The last two lines are the kernels' JSON record and
 {"ok": true, "device": {...}}.  Any failed check raises and the script
 exits non-zero; so does a machine without a CUDA device.
@@ -66,8 +84,8 @@ PEAKS = (("H200", 4.8e12, 1979e12, 989e12),
          ("H100 PCIe", 2.0e12, 1513e12, 756e12),
          ("H100", 3.35e12, 1979e12, 989e12))
 
-STEPS, FORCED, MOE_FORCED, PROFILED = 64, 8, 2, 4
-BITNET_PROMPT, LLAMA_PROMPT = 16, 256
+STEPS, FORCED, MOE_FORCED, PHI3_FORCED, PROFILED = 64, 8, 2, 2, 4
+BITNET_PROMPT, LLAMA_PROMPT, PHI3_PROMPT = 16, 256, 2304
 FOLDED_NMSE, K2_F32_ERR = 1e-6, 2e-5
 PATH_NMSE, TIE_MARGIN = 1e-4, 1e-2
 STEP_MS = {}  # per path: eager and graph step ms, prefill s (the record line)
@@ -302,19 +320,93 @@ def check_k2(card, Dl):
 # a main path: run, hold to the plain versions, time
 # ---------------------------------------------------------------------------
 
-COUNTERS = ("K1", "K4", "K2", "K7")
+COUNTERS = ("K1", "K4", "K2", "K7", "K6", "K8", "K9")
 
 
 def counters():
-    from tmac_tpu_torch.ops.cuda import attention_kernel as k2
+    from tmac_tpu_torch.ops.cuda import attention_kernel as ak
     from tmac_tpu_torch.ops.cuda import expert_kernel as k7
     from tmac_tpu_torch.ops.cuda import qgemm_grouped_kernel as k4
     from tmac_tpu_torch.ops.cuda import qgemm_kernel as k1
-    return (k1.qgemm_fused, k4.qgemm_grouped, k2.flash_decode, k7.qgemm_expert)
+    return (k1.qgemm_fused, k4.qgemm_grouped, ak.flash_decode, k7.qgemm_expert,
+            ak.flash_decode_split, ak.flash_decode_append,
+            ak.flash_decode_append_write)
 
 
 def read_counts():
     return dict(zip(COUNTERS, (f.launches for f in counters())))
+
+
+def zero_counts():
+    for f in counters():
+        f.launches = 0
+
+
+def counts(**kw):
+    """Launch counts by kernel label, 0 for every kernel not named."""
+    return {k: kw.get(k, 0) for k in COUNTERS}
+
+
+def graph_decode(model, cache, tok):
+    """STEPS greedy decode steps from tok (B,) and cache, replayed from one
+    captured CUDA graph of a step: (device ms per step, the tokens)."""
+    import torch
+    from tmac_tpu_torch.runtime.sampling import sample
+    tok0, pos0 = tok.clone(), cache.pos.clone()
+
+    def step():
+        lg, _ = model(tok[:, None], cache)
+        tok.copy_(sample(lg[:, -1]))
+    graph = capture(step)
+    tok.copy_(tok0)
+    cache.pos.copy_(pos0)
+    torch.cuda.synchronize()
+    start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    replayed = []
+    for _ in range(STEPS):
+        graph.replay()
+        replayed.append(tok.clone())
+    stop.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(stop) / STEPS, torch.cat(replayed).tolist()
+
+
+KERNEL_NAMES = (("K7 prologue", "expert_act_quant_kernel"),
+                ("K7 matmul", "expert_qgemm_kernel"),
+                ("K4 prologue", "act_quant_grouped_kernel"),
+                ("K4 dots", "group_dot_kernel"), ("K4 fold", "fold_kernel"),
+                ("K1 prologue", "act_quant_kernel"), ("K1 matmul", "qgemm_kernel"),
+                ("K2", "flash_decode_kernel"),
+                ("K6/K8/K9 partial", "flash_partial_kernel"),
+                ("K6/K8/K9 combine", "flash_combine_kernel"))
+
+
+def device_time(tag, model, cache, first, step_ms, graph_step_ms):
+    """Where an eager decode step's device time goes: torch.profiler's
+    kernel times over PROFILED steps from first (B,) and cache, by kernel
+    and the rest as torch glue; printed as the phase `{tag}_device_time`."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from tmac_tpu_torch.runtime.generate import decode_loop
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        decode_loop(model, first, cache, PROFILED)
+        torch.cuda.synchronize()
+    per_step = {label: 0.0 for label, _ in KERNEL_NAMES}
+    per_step["torch glue"] = 0.0
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        key = next((label for label, k in KERNEL_NAMES if k in e.key),
+                   "torch glue")
+        per_step[key] += e.device_time_total / 1e3 / PROFILED
+    per_step = {k: v for k, v in per_step.items() if v}
+    busy = sum(per_step.values())
+    say(f"{tag}_device_time", ms_per_step=per_step, busy_ms=busy,
+        idle_share_eager=1 - busy / step_ms,
+        idle_share_graph=1 - busy / graph_step_ms)
 
 
 def run_path(card, tag, cfg, params, prompt_len, want_prefill, want_step,
@@ -337,8 +429,7 @@ def run_path(card, tag, cfg, params, prompt_len, want_prefill, want_step,
     prompt = np.random.default_rng(0).integers(0, cfg.vocab_size, (1, prompt_len))
     tokens = torch.from_numpy(prompt).to(dev)
     cache = KVCache.create(cfg, 1, max_len, device=dev)
-    for f in counters():
-        f.launches = 0
+    zero_counts()
     logits, cache = prefill(model, tokens, cache)
     first = sample(logits)
     torch.cuda.synchronize()
@@ -413,59 +504,19 @@ def run_path(card, tag, cfg, params, prompt_len, want_prefill, want_step,
     tok = sample(logits)
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
-    tok0, pos0 = tok.clone(), cache.pos.clone()
-
-    def step():
-        lg, _ = model(tok[:, None], cache)
-        tok.copy_(sample(lg[:, -1]))
-    graph = capture(step)
-    tok.copy_(tok0)
-    cache.pos.copy_(pos0)
-    torch.cuda.synchronize()
-    start.record()
-    replayed = []
-    for _ in range(STEPS):
-        graph.replay()
-        replayed.append(tok.clone())
-    stop.record()
-    torch.cuda.synchronize()
-    graph_step_ms = start.elapsed_time(stop) / STEPS
-    same = torch.cat(replayed).tolist() == gen[1:]
+    graph_step_ms, replayed = graph_decode(model, cache, tok)
+    same = replayed == gen[1:]
     say(f"{tag}_decode_graph", step_ms=graph_step_ms,
         tokens_per_s=1e3 / graph_step_ms, tokens_equal_eager=same,
         prefill_host_s=prefill_s)
     STEP_MS[tag] = dict(eager=step_ms, graph=graph_step_ms, prefill_s=prefill_s)
     if not same:
         raise AssertionError(f"{tag}: graph-replayed decode gave other tokens")
-    del graph
 
     # where an eager step's device time goes (torch.profiler, kernels only)
     cache = KVCache.create(cfg, 1, max_len, device=dev)
     logits, cache = prefill(model, tokens, cache)
-    first = sample(logits)
-    torch.cuda.synchronize()
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        decode_loop(model, first, cache, PROFILED)
-        torch.cuda.synchronize()
-    names = (("K7 prologue", "expert_act_quant_kernel"),
-             ("K7 matmul", "expert_qgemm_kernel"),
-             ("K4 prologue", "act_quant_grouped_kernel"),
-             ("K4 dots", "group_dot_kernel"), ("K4 fold", "fold_kernel"),
-             ("K1 prologue", "act_quant_kernel"), ("K1 matmul", "qgemm_kernel"),
-             ("K2", "flash_decode_kernel"))
-    per_step = {label: 0.0 for label, _ in names}
-    per_step["torch glue"] = 0.0
-    for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        key = next((label for label, k in names if k in e.key), "torch glue")
-        per_step[key] += e.device_time_total / 1e3 / PROFILED
-    per_step = {k: v for k, v in per_step.items() if v}
-    busy = sum(per_step.values())
-    say(f"{tag}_device_time", ms_per_step=per_step, busy_ms=busy,
-        idle_share_eager=1 - busy / step_ms,
-        idle_share_graph=1 - busy / graph_step_ms)
+    device_time(tag, model, cache, sample(logits), step_ms, graph_step_ms)
     return model, cache, total, step_ms, graph_step_ms
 
 
@@ -573,8 +624,7 @@ def bitnet_path(card, build_s, ptxas):
     # K1: 4 linears a layer and the head; K2: one call a layer
     model, cache, launches, _, _ = run_path(
         card, "bitnet", cfg, params, BITNET_PROMPT,
-        dict(K1=4 * L + 1, K4=0, K2=0, K7=0),
-        dict(K1=4.0 * L + 1, K4=0.0, K2=float(L), K7=0.0))
+        counts(K1=4 * L + 1), counts(K1=4.0 * L + 1, K2=float(L)))
 
     # per-kernel device times at the decode shapes (N=1), each a CUDA graph
     # of its calls over the 26 layers' weights (cold in the 50 MB L2, as in
@@ -684,8 +734,7 @@ def llama_path(card):
     L = cfg.num_layers
     model, cache, launches, step_ms, graph_step_ms = run_path(
         card, "llama", cfg, params, LLAMA_PROMPT,
-        dict(K1=1, K4=4 * L, K2=0, K7=0),
-        dict(K1=1.0, K4=4.0 * L, K2=float(L), K7=0.0))
+        counts(K1=1, K4=4 * L), counts(K1=1.0, K4=4.0 * L, K2=float(L)))
 
     # K4 per call at the decode (N=1, CUDA graphs over the 32 layers'
     # weights, cold in L2) and prefill (N=256, over 4 layers' weights)
@@ -764,39 +813,57 @@ def rand_qt_on_card(gen, K, M, bits, gs, dev):
                            (K, M))
 
 
-def moe_params_on_card(cfg, seed, dev):
-    """An MoE model's parameter tree at full size, drawn on the card (the
-    package's numpy draws would take ~10 minutes for 46.7B weights): norms
-    of ones, bf16 router and embedding ~N(0, 0.02), random int8 head codes
-    with per-column f32 scales."""
+def int8_head_on_card(gen, H, V, dev):
+    """A random int8 lm head (H, V): codes and per-column f32 scales, the
+    columns padded to a multiple of 128 with zero scales."""
     import torch
-    from tmac_tpu_torch.models.llama import padded_moe_intermediate
+    from tmac_tpu_torch.ops.qgemm import QuantizedTensor
+    from tmac_tpu_torch.utils import round_up
+    Vp = round_up(V, 128)
+    scales = torch.zeros((1, Vp), device=dev)
+    scales[:, :V] = (0.5 + torch.rand((1, V), generator=gen, device=dev)) * 1.4e-3
+    packed = torch.randint(0, 256, (H, Vp), generator=gen, device=dev,
+                           dtype=torch.uint8)
+    return QuantizedTensor(packed, None, scales, torch.zeros_like(scales), 8,
+                           H, 1, 1, (H, V))
+
+
+def params_on_card(cfg, seed, dev):
+    """A model's parameter tree at full size, drawn on the card (the
+    package's numpy draws take minutes at billions of weights): norms of
+    ones, bf16 embedding (and MoE router) ~N(0, 0.02), random grouped
+    weights (rand_qt_on_card), a random int8 head."""
+    import torch
+    from tmac_tpu_torch.models.llama import (padded_intermediate,
+                                             padded_moe_intermediate)
     from tmac_tpu_torch.models.moe import stack_experts
-    from tmac_tpu_torch.ops.qgemm import QuantizedTensor, fuse_m
+    from tmac_tpu_torch.ops.qgemm import fuse_m
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     H, E, V = cfg.hidden_size, cfg.num_experts, cfg.vocab_size
-    Ie = padded_moe_intermediate(cfg)
 
     def qt(K, M):
         return rand_qt_on_card(gen, K, M, cfg.quant.bits, cfg.quant.group_size, dev)
 
     def normal(*shape):
         return (torch.randn(shape, generator=gen, device=dev) * 0.02).to(torch.bfloat16)
+
+    def mlp():
+        if not E:
+            I = padded_intermediate(cfg)
+            return {"gate_up": fuse_m([qt(H, I), qt(H, I)]), "down": qt(I, H)}
+        Ie = padded_moe_intermediate(cfg)
+        return {"moe_router": normal(H, E),
+                "experts_gate_up": stack_experts([fuse_m([qt(H, Ie), qt(H, Ie)])
+                                                  for _ in range(E)]),
+                "experts_down": stack_experts([qt(Ie, H) for _ in range(E)])}
     ones = torch.ones(H, dtype=torch.bfloat16, device=dev)
     layers = [{
         "attn_norm": ones, "mlp_norm": ones,
         "wqkv": fuse_m([qt(H, cfg.q_dim), qt(H, cfg.kv_dim), qt(H, cfg.kv_dim)]),
-        "wo": qt(cfg.q_dim, H),
-        "moe_router": normal(H, E),
-        "experts_gate_up": stack_experts([fuse_m([qt(H, Ie), qt(H, Ie)])
-                                          for _ in range(E)]),
-        "experts_down": stack_experts([qt(Ie, H) for _ in range(E)]),
+        "wo": qt(cfg.q_dim, H), **mlp(),
     } for _ in range(cfg.num_layers)]
-    head_scales = (0.5 + torch.rand((1, V), generator=gen, device=dev)) * 1.4e-3
-    head = QuantizedTensor(
-        torch.randint(0, 256, (H, V), generator=gen, device=dev, dtype=torch.uint8),
-        None, head_scales, torch.zeros_like(head_scales), 8, H, 1, 1, (H, V))
+    head = int8_head_on_card(gen, H, V, dev)
     return {"embed": normal(V, H), "layers": layers, "final_norm": ones,
             "lm_head": head}
 
@@ -838,7 +905,7 @@ def mixtral_path(card):
     t_path = time.perf_counter()
     cfg = get_preset("mixtral-8x7b")
     t0 = time.perf_counter()
-    params = moe_params_on_card(cfg, 0, card.dev)
+    params = params_on_card(cfg, 0, card.dev)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     layers = params["layers"]
@@ -907,8 +974,8 @@ def mixtral_path(card):
     # slots (K4); decode: 2 experts x (gate_up, down) through K7 a layer
     model, cache, launches, step_ms, graph_step_ms = run_path(
         card, "mixtral", cfg, params, LLAMA_PROMPT,
-        dict(K1=1, K4=(2 + 2 * E) * L, K2=0, K7=0),
-        dict(K1=1.0, K4=2.0 * L, K2=float(L), K7=4.0 * L), forced=MOE_FORCED)
+        counts(K1=1, K4=(2 + 2 * E) * L),
+        counts(K1=1.0, K4=2.0 * L, K2=float(L), K7=4.0 * L), forced=MOE_FORCED)
 
     # K7 per call at decode (N=1): CUDA graphs of its calls over the 32
     # layers' stacks (cold in L2, as in a step), one routed expert a layer
@@ -994,6 +1061,449 @@ def mixtral_path(card):
     ]
 
 
+# ---------------------------------------------------------------------------
+# path 4: Phi-3-mini W2A16 g128, sliding window, int8 KV cache
+# ---------------------------------------------------------------------------
+
+def rand_cache(card, L, KV, S, Dl, quant):
+    """A random (L, 1, KV, S, 128) cache, zero past Dl: int8 codes with
+    (L, 1, KV, S) f32 scales, or bf16 values (scales None)."""
+    import torch
+    k = torch.randn((2, L, 1, KV, S, Dl), device=card.dev)
+    pad = (0, 128 - Dl)
+    if not quant:
+        kv = torch.nn.functional.pad(k, pad).to(torch.bfloat16)
+        return kv[0].contiguous(), kv[1].contiguous(), None, None
+    from tmac_tpu_torch.ops.cuda.attention_kernel import quantize_kv
+    codes, sc = quantize_kv(k)
+    kv = torch.nn.functional.pad(codes, pad)
+    return (kv[0].contiguous(), kv[1].contiguous(), sc[0].contiguous(),
+            sc[1].contiguous())
+
+
+def check_kv_modes(card, S, window, lengths):
+    """K6, K8 and K9 against their plain versions on an S-row cache, bit
+    for bit: Phi-3's shapes (KV 32, rep 1, head_dim 96) and a GQA shape
+    (KV 8, rep 4, head_dim 128), bf16 and int8 caches, the window and none
+    (K6 without either is K2), each of `lengths` (K6 skips 0 and S).  K9 on copies of the cache: its stored rows byte for
+    byte the plain version's, every other byte untouched, and at cached
+    length S no store.  -> (rows, worst abs error by kernel)."""
+    import torch
+    from tmac_tpu_torch.ops.cuda import attention_kernel as ak
+    dev, L = card.dev, 2
+    li = torch.tensor([1], dtype=torch.int32, device=dev)
+    rows, worst = [], dict(K6=0.0, K8=0.0, K9=0.0)
+
+    def same(a, b):
+        return a is None or torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+    for KV, rep, Dl in ((32, 1, 96), (8, 4, 128)):
+        for quant in (True, False):
+            k, v, ks, vs = rand_cache(card, L, KV, S, Dl, quant)
+            q = card.bf16(1, KV, rep, Dl)
+            ck, cv = card.bf16(1, KV, Dl), card.bf16(1, KV, Dl)
+            kw = dict(k_scale=ks, v_scale=vs)
+            for w in (window, 0):
+                kw["window"] = w
+                for n in lengths:
+                    lens = torch.tensor([n], dtype=torch.int32, device=dev)
+                    errs = {}
+                    if n and n < S and (quant or w):
+                        got = ak.flash_decode_split(q, k, v, lens, li, **kw)
+                        want = ak.flash_decode_split_plain(q, k, v, lens, li, **kw)
+                        errs["K6"] = (got, want)
+                    if n < S:
+                        got = ak.flash_decode_append(q, k, v, lens, li, ck, cv, **kw)
+                        want = ak.flash_decode_append_plain(q, k, v, lens, li, ck, cv, **kw)
+                        errs["K8"] = (got, want)
+                    # K9 on two copies of the cache, kernel and plain
+                    pair = [[t.clone() if t is not None else None
+                             for t in (k, v, ks, vs)] for _ in range(2)]
+                    outs = []
+                    for fn, (kk, vv, kks, vvs) in zip(
+                            (ak.flash_decode_append_write,
+                             ak.flash_decode_append_write_plain), pair):
+                        outs.append(fn(q, kk, vv, lens, li, ck, cv, k_scale=kks,
+                                       v_scale=vvs, window=w))
+                    errs["K9"] = tuple(outs)
+                    torch.cuda.synchronize()
+                    stored = all(same(a, b) for a, b in zip(*pair))
+                    # outside row n of layer 1 the cache is as it was
+                    untouched = True
+                    for t, new in zip((k, v, ks, vs), pair[0]):
+                        if t is None:
+                            continue
+                        diff = (t != new).reshape(L, 1, KV, S, -1).any(-1)
+                        if n < S:
+                            diff[1, 0, :, n] = False
+                        untouched &= not bool(diff.any())
+                    row = dict(KV=KV, rep=rep, Dl=Dl, cache="int8" if quant else "bf16",
+                               window=w, len=n, stored_equal=stored,
+                               rest_untouched=untouched)
+                    for name, (got, want) in errs.items():
+                        err = float((got.float() - want.float()).abs().max())
+                        worst[name] = max(worst[name], err)
+                        row[name] = dict(max_abs_err=err,
+                                         bitwise=bool(torch.equal(got, want)))
+                    rows.append(row)
+                    if not (stored and untouched and all(
+                            r["bitwise"] for n_, r in row.items() if n_ in errs)):
+                        raise AssertionError(f"K6/K8/K9 check failed: {row}")
+    return rows, worst
+
+
+def llama_in_mode(cfg, params, mode, plain=False):
+    """Llama with its decode KV-write mode chosen as a user chooses it: the
+    deferred_kv argument, or TMAC_KV_INKERNEL=1 in the environment while
+    the model is made (the mode is resolved once, there)."""
+    import os
+    from tmac_tpu_torch.models.llama import Llama
+    saved = {n: os.environ.pop(n, None)
+             for n in ("TMAC_KV_INKERNEL", "TMAC_DEFERRED_KV")}
+    try:
+        if mode == "inkernel":
+            os.environ["TMAC_KV_INKERNEL"] = "1"
+        model = Llama(cfg, params, plain=plain,
+                      deferred_kv=True if mode == "deferred" else None)
+    finally:
+        os.environ.pop("TMAC_KV_INKERNEL", None)
+        os.environ.update({n: v for n, v in saved.items() if v is not None})
+    if model.kv_mode != mode:
+        raise AssertionError(f"asked for the {mode} mode, got {model.kv_mode}")
+    return model
+
+
+def clone_cache(cache):
+    return dataclasses.replace(cache, **{
+        f.name: getattr(cache, f.name).clone()
+        for f in dataclasses.fields(cache) if getattr(cache, f.name) is not None})
+
+
+def cache_bytes_equal(a, b):
+    import torch
+    return all((x is None and y is None) or torch.equal(
+        x.view(torch.uint8), y.view(torch.uint8))
+        for x, y in ((a.k, b.k), (a.v, b.v), (a.pos, b.pos),
+                     (a.k_scale, b.k_scale), (a.v_scale, b.v_scale)))
+
+
+def time_kv_modes(card, cfg, caches, n):
+    """K6 (int8 and bf16 caches), K8 and K9 per call over the path's caches
+    at n cached rows, window 2047 (CUDA graphs of one call a layer, the
+    rows cold in L2): ms, plain ms, byte bound and SDPA on a dequantized
+    bf16 copy of the same rows; K6 on int8 also at 64 and 128 rows a block.
+    -> {label: dict}."""
+    import torch
+    from tmac_tpu_torch.ops.cuda import attention_kernel as ak
+    dev, L, Dl, W = card.dev, cfg.num_layers, cfg.head_dim, cfg.sliding_window
+    KVh, rep = cfg.num_kv_heads, cfg.num_heads // cfg.num_kv_heads
+    q = card.bf16(1, KVh, rep, Dl)
+    ck, cv = card.bf16(1, KVh, Dl), card.bf16(1, KVh, Dl)
+    lens = torch.tensor([n], dtype=torch.int32, device=dev)
+    lis = [torch.tensor([i], dtype=torch.int32, device=dev) for i in range(L)]
+    out = {}
+    for label, fn, plain, cache, cur in (
+            ("K6 int8", ak.flash_decode_split, ak.flash_decode_split_plain,
+             caches["int8"], False),
+            ("K6 bf16", ak.flash_decode_split, ak.flash_decode_split_plain,
+             caches["bf16"], False),
+            ("K8 int8", ak.flash_decode_append, ak.flash_decode_append_plain,
+             caches["int8"], True),
+            ("K9 int8", ak.flash_decode_append_write,
+             ak.flash_decode_append_write_plain, caches["scratch"], True)):
+        kw = dict(k_scale=cache.k_scale, v_scale=cache.v_scale, window=W)
+        extra = (ck, cv) if cur else ()
+        ms = graph_ms(lambda: [fn(q, cache.k, cache.v, lens, i, *extra, **kw)
+                               for i in lis]) / L
+        plain_ms = cuda_ms(lambda: plain(q, cache.k, cache.v, lens, lis[1],
+                                         *extra, **kw), 3)
+        # the windowed rows the function reads (K8 and K9: the cached ones
+        # below n, then the current token as an operand), each k and v row
+        # at Dl columns and its two scales once; q, the output, the
+        # current k/v and K9's stored rows
+        lo = max(n - W + (1 if cur else 0), 0)
+        rows = n - lo
+        item = cache.k.element_size()
+        nbytes = (2 * KVh * rows * (Dl * item + (4 if cache.quantized else 0))
+                  + 2 * q.numel() * 2 + (2 * KVh * Dl * 2 if cur else 0)
+                  + (2 * KVh * (128 * item + 4) if fn is ak.flash_decode_append_write else 0))
+        ops = 4 * KVh * rep * (rows + (1 if cur else 0)) * Dl
+        peak = card.int8_peak if cache.quantized else card.bf16_peak
+        out[label] = dict(rows=rows + (1 if cur else 0), ms=ms, plain_ms=plain_ms,
+                          bound_ms=card.bound_ms(nbytes, ops, peak),
+                          bound_by="bytes" if nbytes / card.bw >= ops / peak
+                          else "operations", bytes=nbytes)
+    # the yardstick: SDPA over the same 2047 rows of each layer, dequantized
+    # to bf16 beforehand (K6 at n rows and K8/K9 at n cached rows plus the
+    # current one attend over as many)
+    c8, lo = caches["int8"], max(n - W, 0)
+    views = []
+    for i in range(L):
+        kk = (c8.k[i, :, :, lo:n, :Dl].float() * c8.k_scale[i, :, :, lo:n, None])
+        vv = (c8.v[i, :, :, lo:n, :Dl].float() * c8.v_scale[i, :, :, lo:n, None])
+        views.append((kk.to(torch.bfloat16), vv.to(torch.bfloat16)))
+    qs = q.reshape(1, KVh * rep, 1, Dl)
+    gqa = dict(enable_gqa=True) if rep > 1 else {}
+    lib = graph_ms(lambda: [torch.nn.functional.scaled_dot_product_attention(
+        qs, kk, vv, **gqa) for kk, vv in views]) / L
+    for row in out.values():
+        row["library_ms"] = lib
+    # K6 on the int8 cache with fewer rows a block (more blocks a head)
+    kw = dict(k_scale=c8.k_scale, v_scale=c8.v_scale, window=W)
+    chunk, by_chunk = ak.CHUNK, {}
+    try:
+        for rows in (64, 128, 256):
+            ak.CHUNK = rows
+            by_chunk[rows] = graph_ms(lambda: [ak.flash_decode_split(
+                q, c8.k, c8.v, lens, i, **kw) for i in lis]) / L
+    finally:
+        ak.CHUNK = chunk
+    out["K6 int8"]["ms_by_chunk"] = by_chunk
+    return out
+
+
+def phi3_path(card):
+    import numpy as np
+    import torch
+    from tmac_tpu_torch.models.config import get_preset
+    from tmac_tpu_torch.models.llama import KVCache
+    from tmac_tpu_torch.runtime.generate import decode_loop, prefill
+    from tmac_tpu_torch.runtime.sampling import sample
+    from tmac_tpu_torch.utils import argmax_agreement, nmse, round_up
+    t_path = time.perf_counter()
+    cfg = get_preset("phi-3-mini")
+    dev, L, H, I = card.dev, cfg.num_layers, cfg.hidden_size, cfg.intermediate_size
+    max_len = PHI3_PROMPT + STEPS
+    t0 = time.perf_counter()
+    params = params_on_card(cfg, 0, dev)
+    torch.cuda.synchronize()
+    say("phi3_build", init_params_s=round(time.perf_counter() - t0, 3),
+        layers=L, window=cfg.sliding_window, head_dim=cfg.head_dim,
+        allocated_gb=round(torch.cuda.memory_allocated() / 1e9, 3))
+
+    S = round_up(max_len, 128)
+    kv_rows, kv_err = check_kv_modes(card, S, cfg.sliding_window,
+                                     (0, 1, 200, 2047, 2048, max_len, S))
+    say("k6_k8_k9_check", at_s=round(time.perf_counter() - t_path, 3),
+        checks=len(kv_rows), worst=kv_err, rows=kv_rows)
+    l0, eps = params["layers"][0], cfg.rms_norm_eps
+    k4_cases = []
+    for N in (1, 256):
+        for shape, width, kw in (
+                ("wqkv", H, dict(norm=(l0["attn_norm"], eps))),
+                ("wo", cfg.q_dim, dict(residual=card.bf16(N, H))),
+                ("gate_up", H, dict(norm=(l0["mlp_norm"], eps))),
+                ("down", 2 * I, dict(glu=True, residual=card.bf16(N, H)))):
+            x = card.bf16(N, width)
+            k4_cases.append((shape, x, l0[shape], kw))
+            k4_cases.append((shape, x[:, :l0[shape].kdim].contiguous(), l0[shape], {}))
+    k4_rows, k4_err = check_k4(card, k4_cases)
+    k1_rows, k1_err = check_k1(card, [("head", card.bf16(1, H), params["lm_head"], {})])
+    say("k4_k1_check_phi3", at_s=round(time.perf_counter() - t_path, 3),
+        k4=k4_rows, k1=k1_rows)
+    del k4_cases
+
+    # the main run: 2304-token prefill and 64 greedy steps on an int8
+    # cache, explicit KV writes (K6 reads the current row back
+    # quantized); then the same on a bf16 cache (K6 with the window only)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (1, PHI3_PROMPT))).to(dev)
+    explicit = llama_in_mode(cfg, params, "explicit")
+    chunks = -(-PHI3_PROMPT // 256)
+    want_prefill = counts(K1=chunks, K4=4 * L * chunks)
+    runs = {}
+    for name, quant in (("int8", True), ("bf16", False)):
+        cache = KVCache.create(cfg, 1, max_len, device=dev, quant=quant)
+        zero_counts()
+        t0 = time.perf_counter()
+        logits, cache = prefill(explicit, tokens, cache)
+        first = sample(logits)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        pre = read_counts()
+        snap = clone_cache(cache)
+        start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        out, cache = decode_loop(explicit, first, cache, STEPS)
+        stop.record()
+        torch.cuda.synchronize()
+        total = read_counts()
+        per_step = {k: (total[k] - pre[k]) / STEPS for k in COUNTERS}
+        gen = torch.cat([first[:, None], out], 1)[0].tolist()
+        ok = (bool(torch.isfinite(logits).all()) and len(gen) == STEPS + 1
+              and all(0 <= t < cfg.vocab_size for t in gen)
+              and int(cache.pos[0]) == max_len and pre == want_prefill
+              and per_step == counts(K1=1.0, K4=4.0 * L, K6=float(L)))
+        step_ms = start.elapsed_time(stop) / STEPS
+        runs[name] = dict(snap=snap, cache=cache, first=first, gen=gen,
+                          step_ms=step_ms, prefill_s=prefill_s, launches=total)
+        say(f"phi3_{name}_main_path", model=cfg.name, prompt=PHI3_PROMPT,
+            steps=STEPS, tokens=gen[:16], launches_prefill=pre,
+            launches_per_decode_step=per_step, launches_total=total,
+            eager_step_ms=step_ms, prefill_host_s=prefill_s)
+        if not ok:
+            raise AssertionError(f"phi3 {name} cache: run failed its checks")
+
+    # deferred (K8) and in-kernel (K9) steps from the int8 prefill's cache:
+    # the two compute one function and must agree bit for bit
+    for mode, label in (("deferred", "K8"), ("inkernel", "K9")):
+        model = llama_in_mode(cfg, params, mode)
+        cache, tok = clone_cache(runs["int8"]["snap"]), runs["int8"]["first"].clone()
+        gen, lgs = [int(tok[0])], []
+        zero_counts()
+        start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        with torch.no_grad():
+            start.record()
+            for _ in range(STEPS):
+                logits, cache = model(tok[:, None], cache)
+                tok = sample(logits[:, -1])
+                lgs.append(logits[0, -1])
+                gen.append(tok)
+            stop.record()
+        torch.cuda.synchronize()
+        total = read_counts()
+        gen = [gen[0]] + torch.stack(gen[1:]).reshape(-1).tolist()
+        per_step = {k: total[k] / STEPS for k in COUNTERS}
+        runs[mode] = dict(model=model, cache=cache, gen=gen,
+                          logits=torch.stack(lgs), launches=total,
+                          step_ms=start.elapsed_time(stop) / STEPS)
+        say(f"phi3_{mode}_path", tokens=gen[:16], launches_per_decode_step=per_step,
+            launches_total=total, eager_step_ms=runs[mode]["step_ms"])
+        if per_step != counts(K1=1.0, K4=4.0 * L, **{label: float(L)}) \
+                or not bool(torch.isfinite(runs[mode]["logits"]).all()):
+            raise AssertionError(f"phi3 {mode}: launches {per_step}")
+    d, k = runs["deferred"], runs["inkernel"]
+    agree = dict(tokens=d["gen"] == k["gen"],
+                 logits=bool(torch.equal(d["logits"], k["logits"])),
+                 cache=cache_bytes_equal(d["cache"], k["cache"]))
+    say("phi3_inkernel_vs_deferred", **agree,
+        tokens_equal_explicit=d["gen"] == runs["int8"]["gen"])
+    if not all(agree.values()):
+        raise AssertionError(f"phi3: in-kernel differs from deferred: {agree}")
+
+    # teacher-forced: the explicit and in-kernel steps against the plain
+    # versions on the card, both from the int8 prefill's cache
+    t0 = time.perf_counter()
+    forced = runs["int8"]["gen"][:PHI3_FORCED]
+    tf = {}
+    for mode in ("explicit", "inkernel"):
+        kernel = explicit if mode == "explicit" else k["model"]
+        plain = llama_in_mode(cfg, params, mode, plain=True)
+        ck, cp = clone_cache(runs["int8"]["snap"]), clone_cache(runs["int8"]["snap"])
+        worst, agreement, bitwise = 0.0, [], True
+        with torch.no_grad():
+            for t in forced:
+                step = torch.tensor([[t]], device=dev)
+                lk, ck = kernel(step, ck)
+                lp, cp = plain(step, cp)
+                ref, got = lp[0].float().cpu().numpy(), lk[0].float().cpu().numpy()
+                bitwise &= bool(torch.equal(lk, lp))
+                worst = max(worst, nmse(ref, got))
+                agreement.append(argmax_agreement(ref, got, TIE_MARGIN))
+        tf[mode] = dict(max_nmse=worst, argmax_agreement=min(agreement),
+                        bitwise=bitwise, cache_equal=cache_bytes_equal(ck, cp))
+        del plain, ck, cp
+    say("phi3_teacher_forced", steps=len(forced), seconds=round(time.perf_counter() - t0, 3),
+        **tf)
+    if not all(r["max_nmse"] <= PATH_NMSE and r["argmax_agreement"] == 1.0
+               and r["cache_equal"] for r in tf.values()):
+        raise AssertionError(f"phi3: teacher-forced: {tf}")
+
+    # each mode's step captured in a CUDA graph from the prefill's cache:
+    # it must replay the eager tokens
+    graphs = {}
+    for mode, model, src in (("int8", explicit, "int8"), ("bf16", explicit, "bf16"),
+                             ("deferred", d["model"], "int8"),
+                             ("inkernel", k["model"], "int8")):
+        cache = clone_cache(runs[src]["snap"])
+        ms, replayed = graph_decode(model, cache, runs[src]["first"].clone())
+        graphs[mode] = dict(step_ms=ms, tokens_per_s=1e3 / ms,
+                            eager_step_ms=runs[mode]["step_ms"],
+                            tokens_equal_eager=replayed == runs[mode]["gen"][1:])
+        STEP_MS[f"phi3 {mode}"] = dict(eager=runs[mode]["step_ms"], graph=ms,
+                                       prefill_s=runs[src].get("prefill_s"))
+    say("phi3_decode_graph", card=card.name, nvidia_smi=card.smi, **graphs)
+    if not all(g["tokens_equal_eager"] for g in graphs.values()):
+        raise AssertionError("phi3: a graph-replayed decode gave other tokens")
+    for mode, model, src in (("int8", explicit, "int8"), ("bf16", explicit, "bf16"),
+                             ("inkernel", k["model"], "int8")):
+        device_time(f"phi3_{mode}", model, clone_cache(runs[src]["snap"]),
+                    runs[src]["first"], runs[mode]["step_ms"], graphs[mode]["step_ms"])
+
+    # per-call times: K6, K8, K9 at 2048 cached rows; K4 and the head at N=1
+    times = time_kv_modes(card, cfg, dict(int8=runs["int8"]["cache"],
+                                          bf16=runs["bf16"]["cache"],
+                                          scratch=k["cache"]),
+                          n=min(2048, PHI3_PROMPT))
+    say("k6_k8_k9_times", at_s=round(time.perf_counter() - t_path, 3),
+        per_step=L, card=card.name, nvidia_smi=card.smi, **times)
+    layers = params["layers"]
+    k4_tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0)
+    k4_rows = []
+    for shape, width in (("wqkv", H), ("wo", cfg.q_dim), ("gate_up", H),
+                         ("down", 2 * I)):
+        calls = []
+        for i in range(L):
+            kw = {"wqkv": lambda: dict(norm=(layers[i]["attn_norm"], eps)),
+                  "gate_up": lambda: dict(norm=(layers[i]["mlp_norm"], eps)),
+                  "wo": lambda: dict(residual=card.bf16(1, H)),
+                  "down": lambda: dict(glu=True, residual=card.bf16(1, H))}[shape]()
+            calls.append((card.bf16(1, width), layers[i][shape], kw))
+        k4_rows.append(dict(shape=shape, **time_k4(card, calls)))
+        for key in k4_tot:
+            k4_tot[key] += L * k4_rows[-1][key]
+    h_ms, h_plain, h_bound, h_lib = time_head(card, params["lm_head"])
+    say("k4_k1_times_phi3", at_s=round(time.perf_counter() - t_path, 3),
+        k4=k4_rows, k4_per_step=dict(k4_tot, calls=4 * L), head_ms=h_ms,
+        head_plain_ms=h_plain, head_bound_ms=h_bound, head_library_ms=h_lib)
+    bound = k4_tot["bound_ms"] + h_bound
+    say("phi3_step", card=card.name, nvidia_smi=card.smi,
+        kernel_bound_ms={m: bound + L * times[t]["bound_ms"] for m, t in (
+            ("int8", "K6 int8"), ("bf16", "K6 bf16"), ("deferred", "K8 int8"),
+            ("inkernel", "K9 int8"))},
+        graph_ms={m: g["step_ms"] for m, g in graphs.items()},
+        path_s=round(time.perf_counter() - t_path, 3))
+
+    def row(name, label, replaces, t, launches, err):
+        return dict(name=name, path="phi-3-mini", route="cuda",
+                    source="tmac_tpu_torch/ops/cuda/csrc/flash_decode.cu",
+                    replaces=replaces, launches=launches, max_abs_err=err,
+                    ms=t["ms"] * L, plain_ms=t["plain_ms"] * L,
+                    bound_ms=t["bound_ms"] * L, bound_by=t["bound_by"],
+                    library_ms=t["library_ms"] * L)
+    site = "tmac_tpu/ops/pallas/attention_kernel.py:"
+    return [
+        row("flash_decode_split (K6)", "K6", site + "367", times["K6 int8"],
+            runs["int8"]["launches"]["K6"], kv_err["K6"]),
+        row("flash_decode_append (K8)", "K8", site + "450", times["K8 int8"],
+            runs["deferred"]["launches"]["K8"], kv_err["K8"]),
+        row("flash_decode_append_write (K9)", "K9", site + "552",
+            times["K9 int8"], runs["inkernel"]["launches"]["K9"], kv_err["K9"]),
+        dict(name="qgemm_grouped (K4)", path="phi-3-mini", route="cuda",
+             source="tmac_tpu_torch/ops/cuda/csrc/qgemm_grouped.cu",
+             replaces="tmac_tpu/ops/pallas/qgemm_kernel.py:567",
+             launches=runs["int8"]["launches"]["K4"], max_abs_err=k4_err,
+             ms=k4_tot["ms"], plain_ms=k4_tot["plain_ms"],
+             bound_ms=k4_tot["bound_ms"], bound_by="bytes",
+             library_ms=k4_tot["library_ms"]),
+        dict(name="qgemm_fused (K1)", path="phi-3-mini", route="cuda",
+             source="tmac_tpu_torch/ops/cuda/csrc/qgemm_fused.cu",
+             replaces="tmac_tpu/ops/pallas/qgemm_kernel.py:567",
+             launches=runs["int8"]["launches"]["K1"], max_abs_err=k1_err,
+             ms=h_ms, plain_ms=h_plain, bound_ms=h_bound, bound_by="bytes",
+             library_ms=h_lib),
+    ]
+
+
+def template_args(mangled):
+    """A kernel's template arguments from its mangled name: bf16, f32,
+    int8 or an int."""
+    rest, args = mangled.partition("_kernelI")[2], []
+    while m := re.match(r"13__nv_bfloat16|f|a|Li(\d+)E", rest):
+        args.append(m.group(1) or dict(f="f32", a="int8").get(m.group(0), "bf16"))
+        rest = rest[m.end():]
+    return args
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1019,10 +1529,9 @@ def main() -> int:
         if "Compiling entry function" in ln:
             mangled = ln.split("'")[1]
             base = re.search(r"(act_quant_grouped|act_quant|expert_qgemm|qgemm"
-                             r"|flash_decode|group_dot|fold)_kernel", mangled)
-            targs = re.findall(r"Li(\d+)E", mangled)
-            if "flash" in mangled:
-                targs.insert(0, "bf16" if "bfloat16" in mangled else "f32")
+                             r"|flash_decode|flash_partial|flash_combine"
+                             r"|group_dot|fold)_kernel", mangled)
+            targs = template_args(mangled)
             kernel = f"{base.group(0) if base else mangled}<{','.join(targs)}>"
         elif "registers" in ln or "spill" in ln:
             ptxas.append(f"{kernel}: {ln.split(':', 1)[-1].strip()}")
@@ -1032,10 +1541,14 @@ def main() -> int:
     records += llama_path(card)
     torch.cuda.empty_cache()
     records += mixtral_path(card)
+    torch.cuda.empty_cache()
+    records += phi3_path(card)
     say("record", unit="device ms per decode step of each path (bitnet-3b: "
         "105 K1 and 26 K2 launches; llama-2-7b: 128 K4, 1 K1 and 32 K2; "
-        "mixtral-8x7b: 128 K7, 64 K4, 32 K2 and 1 K1); launches over each "
-        "path's prefill + decode", card=card.name, nvidia_smi=card.smi,
+        "mixtral-8x7b: 128 K7, 64 K4, 32 K2 and 1 K1; phi-3-mini: 128 K4, "
+        "1 K1 and 32 K6, K8 or K9); launches over each path's prefill + "
+        "decode (phi-3-mini K8, K9: decode only)", card=card.name,
+        nvidia_smi=card.smi,
         step_ms=STEP_MS, paths_s=round(time.perf_counter() - t_all, 3))
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {

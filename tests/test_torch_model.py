@@ -125,12 +125,16 @@ def mixtral():
     return dict(run, expert_calls=calls)
 
 
-def _teacher_forced(cfg, jcfg):
+def _teacher_forced(cfg, jcfg, quant=False, deferred_kv=None,
+                    prompt_len=PROMPT):
     """The port's prefill + greedy decode, and JAX teacher-forced on the
-    port's tokens: logits per step from both."""
-    model = Llama(cfg, init_params(cfg, seed=0, device="cpu"))
-    prompt = np.random.default_rng(0).integers(0, cfg.vocab_size, (1, PROMPT))
-    cache = KVCache.create(cfg, 1, 64, device="cpu")
+    port's tokens: logits per step from both.  quant: int8 caches;
+    deferred_kv: the decode steps' KV-write mode on both sides."""
+    model = Llama(cfg, init_params(cfg, seed=0, device="cpu"),
+                  deferred_kv=deferred_kv)
+    prompt = np.random.default_rng(0).integers(0, cfg.vocab_size,
+                                               (1, prompt_len))
+    cache = KVCache.create(cfg, 1, 64, device="cpu", quant=quant)
     logits, cache = model(torch.from_numpy(prompt), cache)
     port = [logits[0].numpy()]
     toks = [int(logits[0, -1].argmax())]
@@ -139,17 +143,18 @@ def _teacher_forced(cfg, jcfg):
         port.append(logits[0].numpy())
         toks.append(int(logits[0, -1].argmax()))
 
-    fwd = jax.jit(jl.forward, static_argnames=("cfg", "impl"))
+    fwd = jax.jit(jl.forward, static_argnames=("cfg", "impl", "deferred_kv"))
     jparams = jl.init_params(jcfg, seed=0)
-    jcache = jl.KVCache.create(jcfg, 1, 64)
+    jcache = jl.KVCache.create(jcfg, 1, 64, quant=quant)
     lg, jcache = fwd(jparams, jcfg, jnp.asarray(prompt), jcache, impl="pallas")
     ref = [np.asarray(lg[0])]
     for t in toks[:STEPS]:
         lg, jcache = fwd(jparams, jcfg, jnp.asarray([[t]]), jcache,
-                         impl="pallas")
+                         impl="pallas", deferred_kv=deferred_kv)
         ref.append(np.asarray(lg[0]))
     return dict(cfg=cfg, jcfg=jcfg, model=model, prompt=prompt, toks=toks,
-                port=port, ref=ref, jparams=jparams, cache=cache)
+                port=port, ref=ref, jparams=jparams, cache=cache,
+                jcache=jcache)
 
 
 _fwd = jax.jit(jl.forward, static_argnames=("cfg", "impl"))
@@ -381,3 +386,164 @@ def test_mixtral_generate_agrees_with_jax_teacher_forced(mixtral):
     chosen[np.arange(STEPS + 1), out[0].numpy()] = 1.0
     assert argmax_agreement(ref_top, chosen, TIE_MARGIN) == 1.0
     assert out[0].tolist() == mixtral["toks"]
+
+
+# Phi-3-mini scaled(8) with head_dim 96 (its cache pads 96 -> 128) and a
+# sliding window of 24 rows, which the prompt of 26 tokens and the 4
+# decode steps cross.  Logits NMSE against forward(impl="pallas"), measured
+# on the CPU: bf16 cache 2.5e-4 to 7.6e-4, int8 cache 4.1e-4 to 8.6e-4,
+# deferred mode (forward(deferred_kv=True), K8) 2.8e-4 to 8.6e-4 on either
+# cache.  Given XLA's rsqrt values the int8 cache's explicit and deferred
+# runs are bit-identical to JAX's; the bf16 cache keeps 6.2e-4 at one
+# decode step, where K6's online softmax (its plain version here) adds in
+# another order than the reference's masked softmax off the TPU, and a
+# last-bit difference in an attention output moves a bf16 rounding.  The
+# gate leaves room for another CPU's rsqrt estimate.
+PHI3_PROMPT, PHI3_WINDOW = 26, 24
+PHI3_NMSE = 3e-3
+
+
+def _phi3_cfgs():
+    return tuple(dataclasses.replace(get("phi-3-mini").scaled(8), head_dim=96,
+                                     sliding_window=PHI3_WINDOW)
+                 for get in (get_preset, jax_preset))
+
+
+@pytest.fixture(scope="module", params=[False, True], ids=["bf16", "int8"])
+def phi3(request):
+    return _teacher_forced(*_phi3_cfgs(), quant=request.param,
+                           prompt_len=PHI3_PROMPT)
+
+
+@pytest.fixture(scope="module", params=[False, True], ids=["bf16", "int8"])
+def phi3_deferred(request):
+    return _teacher_forced(*_phi3_cfgs(), quant=request.param,
+                           deferred_kv=True, prompt_len=PHI3_PROMPT)
+
+
+def _phi3_logits_match(run):
+    for step, (ref, got) in enumerate(zip(run["ref"], run["port"])):
+        assert got.shape == ref.shape and np.isfinite(got).all()
+        assert nmse(ref, got) <= PHI3_NMSE, step
+        assert argmax_agreement(ref, got, TIE_MARGIN) == 1.0, step
+
+
+def test_phi3_init_params_match_jax_byte_for_byte(phi3):
+    layer = _init_params_match(phi3)["layers"][0]
+    assert layer["down"].kdim == layer["down"].kdim_padded     # SwiGLU folds
+    assert phi3["cache"].k.shape[-1] == 128
+
+
+def test_phi3_logits_match_jax_pallas(phi3):
+    """Explicit KV writes: prefill past the window, and 4 decode steps
+    through K6 (its plain version) on a bf16 or int8 cache."""
+    assert phi3["cache"].quantized == (phi3["cache"].k.dtype == torch.int8)
+    _phi3_logits_match(phi3)
+
+
+def test_phi3_deferred_logits_match_jax_pallas(phi3_deferred):
+    """The deferred mode (K8) against forward(deferred_kv=True), whose
+    flash_decode_stacked_append runs in interpret mode."""
+    assert phi3_deferred["model"].kv_mode == "deferred"
+    _phi3_logits_match(phi3_deferred)
+
+
+@pytest.mark.parametrize("deferred_kv", [None, True],
+                         ids=["explicit", "deferred"])
+def test_phi3_int8_gap_is_xla_rsqrt(monkeypatch, deferred_kv):
+    """Given XLA's rsqrt values for the norm factors, the int8 cache's
+    logits are JAX's (measured: bit-identical)."""
+    _given_xla_rsqrt(monkeypatch)
+    run = _teacher_forced(*_phi3_cfgs(), quant=True, deferred_kv=deferred_kv,
+                          prompt_len=PHI3_PROMPT)
+    for ref, got in zip(run["ref"], run["port"]):
+        assert nmse(ref, got) <= LOGITS_NMSE
+
+
+def _phi3_steps(model, cfg, prompt, toks, quant):
+    cache = KVCache.create(cfg, 1, 64, device="cpu", quant=quant)
+    logits, cache = model(torch.from_numpy(prompt), cache)
+    out = [logits]
+    for t in toks:
+        logits, cache = model(torch.tensor([[t]]), cache)
+        out.append(logits)
+    return out, cache
+
+
+def test_phi3_inkernel_equals_deferred(phi3_deferred, monkeypatch):
+    """TMAC_KV_INKERNEL=1: K9 stores each layer's row itself.  Its logits
+    and the cache it leaves equal the deferred mode's (K8, then one commit
+    after the layers) bit for bit; the explicit mode differs on an int8
+    cache, where it reads the current row back quantized."""
+    cfg, params = phi3_deferred["cfg"], init_params(_phi3_cfgs()[0], 0, "cpu")
+    prompt, toks = phi3_deferred["prompt"], phi3_deferred["toks"][:STEPS]
+    quant = phi3_deferred["cache"].quantized
+    deferred = Llama(cfg, params, deferred_kv=True)
+    monkeypatch.setenv("TMAC_KV_INKERNEL", "1")
+    inkernel = Llama(cfg, params)
+    monkeypatch.delenv("TMAC_KV_INKERNEL")
+    assert (deferred.kv_mode, inkernel.kv_mode) == ("deferred", "inkernel")
+    lg_d, c_d = _phi3_steps(deferred, cfg, prompt, toks, quant)
+    lg_i, c_i = _phi3_steps(inkernel, cfg, prompt, toks, quant)
+    assert all(torch.equal(a, b) for a, b in zip(lg_d, lg_i))
+    for name in ("k", "v", "pos", "k_scale", "v_scale"):
+        a, b = getattr(c_d, name), getattr(c_i, name)
+        assert (a is None) == (b is None) == (name.endswith("scale")
+                                              and not quant), name
+        if a is not None:
+            assert torch.equal(a, b), name
+    assert not c_i.k[..., cfg.head_dim:].any()           # Dp padding
+    lg_e, _ = _phi3_steps(Llama(cfg, params), cfg, prompt, toks, quant)
+    assert torch.equal(lg_e[0], lg_d[0])                # the same prefill
+    assert any(not torch.equal(a, b) for a, b in zip(lg_e, lg_d)) == quant
+
+
+def test_phi3_generate_agrees_with_jax_teacher_forced(phi3):
+    """generate(kv_quant=True) on the int8 run, the bf16 cache otherwise."""
+    out = generate(phi3["model"], phi3["prompt"], STEPS + 1,
+                   kv_quant=phi3["cache"].quantized)
+    ref_top = np.stack([r[-1] for r in phi3["ref"]])
+    chosen = np.zeros_like(ref_top)
+    chosen[np.arange(STEPS + 1), out[0].numpy()] = 1.0
+    assert argmax_agreement(ref_top, chosen, TIE_MARGIN) == 1.0
+    assert out[0].tolist() == phi3["toks"]
+
+
+def test_phi3_cache_from_numpy_round_trips(phi3):
+    """The JAX cache (int8 codes and f32 scales, or bf16) carried into the
+    port byte for byte; one more decode step from it on both sides."""
+    from tmac_tpu_torch.convert.from_jax import cache_from_numpy
+    jcache, cfg = phi3["jcache"], phi3["cfg"]
+    carried = cache_from_numpy(jax.tree.map(np.asarray, jcache), device="cpu")
+    assert carried.quantized == jcache.quantized
+    for name in ("k", "v", "pos", "k_scale", "v_scale"):
+        a, b = getattr(jcache, name), getattr(carried, name)
+        assert (a is None) == (b is None), name
+        if a is not None:
+            a = np.asarray(a)
+            assert str(b.dtype)[6:] == str(a.dtype) and b.shape == a.shape
+            b = b.view(torch.int16) if b.dtype == torch.bfloat16 else b
+            np.testing.assert_array_equal(
+                b.numpy(), a.view(np.int16) if a.dtype.name == "bfloat16"
+                else a)
+    tok = phi3["toks"][STEPS]
+    got, _ = phi3["model"](torch.tensor([[tok]]), carried)
+    ref, _ = _fwd(phi3["jparams"], phi3["jcfg"], jnp.asarray([[tok]]),
+                  jcache, impl="pallas")
+    assert nmse(np.asarray(ref[0]), got[0].numpy()) <= PHI3_NMSE
+
+
+def test_phi3_chunked_prefill_equals_one_shot(phi3):
+    """A prefill in chunks of 8 tokens, whose window masks cross the chunk
+    boundaries, leaves the one-shot prefill's logits and cache."""
+    cfg, model, quant = phi3["cfg"], phi3["model"], phi3["cache"].quantized
+    toks = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (2, PHI3_PROMPT + 6)))
+    one = KVCache.create(cfg, 2, 64, device="cpu", quant=quant)
+    chunked = KVCache.create(cfg, 2, 64, device="cpu", quant=quant)
+    lg1, one = prefill(model, toks, one)
+    lg2, chunked = prefill(model, toks, chunked, chunk=8)
+    assert torch.equal(lg2, lg1)
+    for name in ("k", "v", "pos", "k_scale", "v_scale"):
+        a, b = getattr(one, name), getattr(chunked, name)
+        assert (a is None and b is None) or torch.equal(a, b), name

@@ -1,7 +1,7 @@
-"""Carry parameters from the JAX package's pytree into the port.
+"""Carry parameters and KV caches from the JAX package into the port.
 
 ``params_from_numpy`` takes the tree with every leaf already converted by
-``np.asarray``.  A quantized tensor is any object or mapping with the
+``np.asarray``; ``cache_from_numpy`` a KV cache's fields, likewise.  A quantized tensor is any object or mapping with the
 fields ``packed``, ``packed_hi``, ``scales``, ``sub``, ``bits``,
 ``group_size``, ``k_shards``, ``m_shards``, ``shape`` and ``m_segments``;
 it is read by those names, never by importing the JAX package.  bf16
@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from tmac_tpu_torch.models.config import ModelConfig
+from tmac_tpu_torch.models.llama import KVCache
 from tmac_tpu_torch.ops.qgemm import QuantizedTensor
 
 _QT_FIELDS = ("packed", "packed_hi", "scales", "sub", "bits", "group_size",
@@ -71,3 +72,16 @@ def params_from_numpy(tree: Any, cfg: ModelConfig, device="cuda"):
         raise ValueError(f"tree has {len(tree['layers'])} layers, config "
                          f"{cfg.name} has {cfg.num_layers}")
     return _convert(tree, device)
+
+
+def cache_from_numpy(cache: Any, device="cuda") -> KVCache:
+    """A JAX KVCache (an object or mapping with the fields k, v, pos and,
+    for an int8 cache, k_scale and v_scale, as numpy arrays) -> the port's
+    KVCache, byte for byte."""
+    get = cache.get if isinstance(cache, Mapping) \
+        else lambda name: getattr(cache, name, None)
+    scales = {name: _tensor(get(name), device)
+              for name in ("k_scale", "v_scale") if get(name) is not None}
+    return KVCache(k=_tensor(_field(cache, "k"), device),
+                   v=_tensor(_field(cache, "v"), device),
+                   pos=_tensor(_field(cache, "pos"), device), **scales)

@@ -1,19 +1,21 @@
 """Llama-family transformer in PyTorch: the main-path subset.
 
-The port of ``tmac_tpu/models/llama.py`` for models with plain RoPE and a
-bf16 KV cache: w_a8 (BitNet W1.58A8, per-tensor scales) and w_fp with
-grouped scales (e.g. Llama-2-7B W2A16 / W4A16 g128, bits 2 and 4), dense or
-MoE (Mixtral-8x7B: the MLP is models/moe.py's moe_mlp, whose decode form
-runs kernel K7).
+The port of ``tmac_tpu/models/llama.py`` for models with plain RoPE, an
+optional sliding window (Phi-3-mini) and a bf16 or int8 KV cache: w_a8
+(BitNet W1.58A8, per-tensor scales) and w_fp with grouped scales (e.g.
+Llama-2-7B W2A16 / W4A16 g128, bits 2 and 4), dense or MoE (Mixtral-8x7B:
+the MLP is models/moe.py's moe_mlp, whose decode form runs kernel K7).
 Every quantized linear goes through a kernel with the JAX package's pallas
 semantics: K1 (ops/cuda/qgemm_kernel.py) for per-tensor scales, K4
 (ops/cuda/qgemm_grouped_kernel.py) for grouped ones, with activations
 quantized to int8 inside the kernel, rms_norm folded into wqkv and
 gate_up, the residual into wo and down, and SwiGLU into down where down's
 K is unpadded (elsewhere silu(g) * u runs in bf16 torch ops before down,
-as in JAX).  Decode attention goes through kernel K2
-(ops/cuda/attention_kernel.py); prefill attention is a masked softmax in
-f32 torch ops, as the JAX package leaves it to XLA.  The int8 lm head is K1
+as in JAX).  Decode attention goes through ops/cuda/attention_kernel.py:
+K2 on a bf16 cache without a window, K6 on an int8 cache or with a window,
+or, in the deferred and in-kernel KV-write modes (``Llama``), K8 and K9;
+prefill attention is a masked softmax in f32 torch ops, as the JAX package
+leaves it to XLA.  The int8 lm head is K1
 with bits=8 and no folds, after a separate bf16 rms_norm.
 
 Parameters are a plain dict tree (``init_params``, or
@@ -24,7 +26,8 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict
+import os
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
@@ -33,12 +36,13 @@ from torch import nn
 
 from tmac_tpu_torch.models.config import ModelConfig
 from tmac_tpu_torch.models.moe import moe_mlp, stack_experts
-from tmac_tpu_torch.ops.cuda.attention_kernel import (flash_decode,
-                                                      flash_decode_plain)
+from tmac_tpu_torch.ops.cuda.attention_kernel import (
+    flash_decode, flash_decode_append, flash_decode_append_plain,
+    flash_decode_append_write, flash_decode_append_write_plain,
+    flash_decode_plain, quantize_kv)
 from tmac_tpu_torch.ops.cuda.qgemm_grouped_kernel import (qgemm_grouped,
                                                           qgemm_grouped_plain)
-from tmac_tpu_torch.ops.cuda.qgemm_kernel import (act_scale, qgemm_fused,
-                                                  qgemm_fused_plain)
+from tmac_tpu_torch.ops.cuda.qgemm_kernel import qgemm_fused, qgemm_fused_plain
 from tmac_tpu_torch.ops.qgemm import QuantizedTensor, fuse_m
 from tmac_tpu_torch.utils import round_up
 
@@ -46,12 +50,10 @@ from tmac_tpu_torch.utils import round_up
 def quantize_activations_int8(x: torch.Tensor):
     """Per-token absmax int8 quantization (1e-20 clamp, rint, +-127), as
     the JAX package's function computes it when compiled: XLA turns its
-    `amax / 127.0` into a multiply by the f32 reciprocal."""
-    scale = act_scale(x.abs().amax(-1, keepdim=True).float())
-    # true division, by a tensor (a Python-scalar divisor becomes a
-    # reciprocal multiply on CUDA)
-    q = torch.clamp(torch.round(x.float() / scale), -127, 127).to(torch.int8)
-    return q, scale
+    `amax / 127.0` into a multiply by the f32 reciprocal.  The int8 KV
+    cache's convention too (quantize_kv), with the scale kept as (..., 1)."""
+    q, scale = quantize_kv(x)
+    return q, scale[..., None]
 
 
 def linear_kernel(qt: QuantizedTensor, plain: bool = False):
@@ -130,26 +132,42 @@ class KVCache:
     functional cache, ``Llama.forward`` updates this one IN PLACE: it
     writes the new rows and advances ``pos``.  Rows past max_len are an
     indexing error here, where JAX's dynamic_update_slice would clamp them
-    (``generate`` checks the lengths).  (The int8 cache mode is not ported
-    yet.)"""
+    (``generate`` checks the lengths).
+
+    Quantized mode (``create(..., quant=True)``): k/v hold int8 codes and
+    k_scale/v_scale (L, B, KV, S) f32 one absmax/127 scale per written row
+    vector (``attention_kernel.quantize_kv``), half the bytes a decode step
+    reads; K6, K8 and K9 fold the scales into the scores and
+    probabilities."""
 
     k: torch.Tensor
     v: torch.Tensor
     pos: torch.Tensor
+    k_scale: Optional[torch.Tensor] = None
+    v_scale: Optional[torch.Tensor] = None
 
     @classmethod
     def create(cls, cfg: ModelConfig, batch: int, max_len: int,
-               device="cuda") -> "KVCache":
+               device="cuda", quant: bool = False) -> "KVCache":
         dp = round_up(cfg.head_dim, 128)
         shape = (cfg.num_layers, batch, cfg.num_kv_heads,
                  round_up(max_len, 128), dp)
-        return cls(k=torch.zeros(shape, dtype=torch.bfloat16, device=device),
-                   v=torch.zeros(shape, dtype=torch.bfloat16, device=device),
-                   pos=torch.zeros((batch,), dtype=torch.int32, device=device))
+        dtype = torch.int8 if quant else torch.bfloat16
+        scales = dict(k_scale=torch.zeros(shape[:4], device=device),
+                      v_scale=torch.zeros(shape[:4], device=device)) \
+            if quant else {}
+        return cls(k=torch.zeros(shape, dtype=dtype, device=device),
+                   v=torch.zeros(shape, dtype=dtype, device=device),
+                   pos=torch.zeros((batch,), dtype=torch.int32, device=device),
+                   **scales)
 
     @property
     def max_len(self) -> int:
         return self.k.shape[3]
+
+    @property
+    def quantized(self) -> bool:
+        return self.k_scale is not None
 
 
 # ---------------------------------------------------------------------------
@@ -171,10 +189,10 @@ def _check_slice(cfg: ModelConfig) -> None:
     if cfg.num_experts and q.mode != "w_fp":
         raise NotImplementedError("MoE is ported for w_fp only")
     if cfg.attention_bias or cfg.tie_word_embeddings \
-            or cfg.head_bits != 8 or cfg.sliding_window or cfg.rope_scaling:
+            or cfg.head_bits != 8 or cfg.rope_scaling:
         raise NotImplementedError(
-            "attention bias, tied or bf16 heads, sliding windows and rope "
-            "scaling are not ported yet")
+            "attention bias, tied or bf16 heads and rope scaling are not "
+            "ported yet")
 
 
 def _rand_qt(rng: np.random.Generator, K: int, M: int, cfg: ModelConfig,
@@ -306,6 +324,32 @@ def _write_kv_stacked(buf: torch.Tensor, li: int, kv: torch.Tensor,
     buf[li, ..., :kv.shape[-1]][rows, :, positions] = kv.to(buf.dtype)
 
 
+def _write_scale_stacked(sbuf: torch.Tensor, li: int, sc: torch.Tensor,
+                         positions: torch.Tensor) -> None:
+    """Write per-vector scales sc (B, T, KV) into the stacked scale buffer
+    (L, B, KV, S) at layer li, rows positions (B, T), in place."""
+    rows = torch.arange(sc.shape[0], device=sc.device)[:, None]
+    sbuf[li][rows, :, positions] = sc
+
+
+def _write_kv_all_layers(buf: torch.Tensor, per_layer: torch.Tensor,
+                         pos: torch.Tensor) -> None:
+    """The deferred mode's commit: every layer's decode-step rows
+    per_layer (L, B, 1, KV, D) into buf (L, B, KV, S, Dp) at rows pos (B,),
+    in place, in one write."""
+    rows = torch.arange(per_layer.shape[1], device=buf.device)[:, None]
+    buf[..., :per_layer.shape[-1]][:, rows, :, pos.long()[:, None]] = \
+        per_layer.permute(1, 2, 0, 3, 4).to(buf.dtype)
+
+
+def _write_scale_all_layers(sbuf: torch.Tensor, per_layer: torch.Tensor,
+                            pos: torch.Tensor) -> None:
+    """_write_kv_all_layers for the scales: per_layer (L, B, 1, KV) into
+    sbuf (L, B, KV, S)."""
+    rows = torch.arange(per_layer.shape[1], device=sbuf.device)[:, None]
+    sbuf[:, rows, :, pos.long()[:, None]] = per_layer.permute(1, 2, 0, 3)
+
+
 class QLinear(nn.Module):
     """A QuantizedTensor's arrays held as module buffers."""
 
@@ -352,6 +396,27 @@ class Block(nn.Module):
         return out
 
 
+def kv_write_mode(deferred_kv: Optional[bool] = None) -> str:
+    """The decode step's KV-write mode, from the JAX package's switches
+    (its forward's `deferred_kv` argument and environment variables, all
+    off by default):
+      "inkernel"  K9 attends and stores the current row itself, when
+                  TMAC_KV_INKERNEL=1 and deferred_kv is not True;
+      "deferred"  K8 attends with the current k/v as operands and one write
+                  after the layer loop commits every layer's row, when
+                  deferred_kv is True, or None with TMAC_DEFERRED_KV=1;
+      "explicit"  a write per layer, then K2 or K6 over the cache (which on
+                  an int8 cache reads the current row back quantized, where
+                  the other two modes keep it float)."""
+    if deferred_kv is not True \
+            and os.environ.get("TMAC_KV_INKERNEL", "0") == "1":
+        return "inkernel"
+    if deferred_kv or (deferred_kv is None and
+                       os.environ.get("TMAC_DEFERRED_KV", "0") == "1"):
+        return "deferred"
+    return "explicit"
+
+
 class Llama(nn.Module):
     """The transformer over a params tree (dense or MoE MLPs).
 
@@ -360,17 +425,27 @@ class Llama(nn.Module):
     place (see KVCache).  The residual stream stays bf16, as in JAX.
 
     plain=True runs the kernels' plain PyTorch versions instead of K1, K4,
-    K7 and K2 on whatever device the weights are on.  It exists so that the
-    kernel path can be held against a reference on the card; the default
-    path never falls back to it."""
+    K7 and the attention kernels on whatever device the weights are on.  It
+    exists so that the kernel path can be held against a reference on the
+    card; the default path never falls back to it.
+
+    deferred_kv and the environment choose the decode step's KV-write mode
+    once, here (kv_write_mode), so that a captured CUDA graph holds one
+    mode; a prefill (T > 1) always writes explicitly, as in JAX."""
 
     def __init__(self, cfg: ModelConfig, params: Dict[str, Any],
-                 plain: bool = False):
+                 plain: bool = False, deferred_kv: Optional[bool] = None):
         super().__init__()
         _check_slice(cfg)
         self.cfg = cfg
         self.plain = plain
-        self.attend = flash_decode_plain if plain else flash_decode
+        self.kv_mode = kv_write_mode(deferred_kv)
+        self.attend = {
+            "explicit": (flash_decode_plain, flash_decode),
+            "deferred": (flash_decode_append_plain, flash_decode_append),
+            "inkernel": (flash_decode_append_write_plain,
+                         flash_decode_append_write),
+        }[self.kv_mode][0 if plain else 1]
         self.register_buffer("embed", params["embed"])
         self.register_buffer("final_norm", params["final_norm"])
         self.layers = nn.ModuleList(Block(l) for l in params["layers"])
@@ -385,31 +460,68 @@ class Llama(nn.Module):
     def device(self) -> torch.device:
         return self.embed.device
 
-    def _attention(self, q, cache: KVCache, li: int, positions, kv_lens,
-                   kv_len_mask):
-        """q (B, T, H, D) -> (B, T, H*D); causal within the valid rows.
-        Decode (T == 1) runs K2 on the stacked cache; prefill a masked
-        softmax in f32."""
+    def _decode_attention(self, q, k, v, cache: KVCache, li: int, lens):
+        """q (B, 1, H, D), this step's k/v (B, 1, KV, D) -> (B, 1, H*D)
+        through the mode's kernel over `lens` (B,) rows of the stacked
+        cache."""
+        B, _, H, D = q.shape
+        KV = cache.k.shape[2]
+        kw = dict(scale=1.0 / math.sqrt(D), k_scale=cache.k_scale,
+                  v_scale=cache.v_scale, window=self.cfg.sliding_window)
+        args = (q.reshape(B, KV, H // KV, D), cache.k, cache.v, lens,
+                self.layer_ids[li:li + 1])
+        if self.kv_mode == "explicit":
+            o = self.attend(*args, **kw)
+        else:
+            o = self.attend(*args, k.reshape(B, KV, D), v.reshape(B, KV, D),
+                            **kw)
+        return o.reshape(B, 1, H * D)
+
+    def _prefill_attention(self, q, cache: KVCache, li: int, positions,
+                           kv_len_mask):
+        """q (B, T, H, D) -> (B, T, H*D): a masked softmax in f32 over the
+        valid rows at or before each position (and inside the window), an
+        int8 cache dequantized in f32 as JAX does off the TPU."""
         cfg = self.cfg
         B, T, H, D = q.shape
         KV, S, Dp = cache.k.shape[2], cache.k.shape[3], cache.k.shape[4]
-        rep = H // KV
-        if T == 1:
-            o = self.attend(q.reshape(B, KV, rep, D), cache.k, cache.v,
-                            kv_lens,
-                            self.layer_ids[li:li + 1],
-                            scale=1.0 / math.sqrt(D))
-            return o.reshape(B, T, H * D)
-        qr = F.pad(q.reshape(B, T, KV, rep, D).float(), (0, Dp - D))
+        qr = F.pad(q.reshape(B, T, KV, H // KV, D).float(), (0, Dp - D))
         k, v = cache.k[li].float(), cache.v[li].float()
+        if cache.quantized:
+            k = k * cache.k_scale[li][..., None]
+            v = v * cache.v_scale[li][..., None]
         scores = torch.einsum("btkrd,bksd->btkrs", qr, k) / math.sqrt(D)
         s_idx = torch.arange(S, device=q.device)[None, None, :]
         valid = (s_idx <= positions[:, :, None]) & kv_len_mask[:, None, :]
+        if cfg.sliding_window > 0:
+            valid &= s_idx > positions[:, :, None] - cfg.sliding_window
         scores = torch.where(valid[:, :, None, None, :], scores,
                              torch.full_like(scores, -1e30))
         probs = torch.softmax(scores, -1)
         out = torch.einsum("btkrs,bksd->btkrd", probs, v)
         return out[..., :D].reshape(B, T, H * D).to(q.dtype)
+
+    @staticmethod
+    def _write_kv(cache: KVCache, li: int, k, v, positions) -> None:
+        """Write k/v (B, T, KV, D) at layer li, rows positions, quantized
+        on an int8 cache."""
+        for buf, sbuf, kv in ((cache.k, cache.k_scale, k),
+                              (cache.v, cache.v_scale, v)):
+            if sbuf is not None:
+                kv, sc = quantize_kv(kv)
+                _write_scale_stacked(sbuf, li, sc, positions)
+            _write_kv_stacked(buf, li, kv, positions)
+
+    @staticmethod
+    def _commit_kv(cache: KVCache, ks, vs) -> None:
+        """The deferred mode's one write of every layer's row, ks/vs
+        (L, B, 1, KV, D), at rows cache.pos."""
+        for buf, sbuf, kv in ((cache.k, cache.k_scale, ks),
+                              (cache.v, cache.v_scale, vs)):
+            if sbuf is not None:
+                kv, sc = quantize_kv(kv)
+                _write_scale_all_layers(sbuf, sc, cache.pos)
+            _write_kv_all_layers(buf, kv, cache.pos)
 
     def forward(self, tokens: torch.Tensor, cache: KVCache):
         cfg = self.cfg
@@ -418,12 +530,17 @@ class Llama(nn.Module):
         x = F.embedding(tokens, self.embed)                       # (B, T, H)
         positions = (cache.pos[:, None].long()
                      + torch.arange(T, device=dev)[None, :])      # (B, T)
+        mode = self.kv_mode if T == 1 else "explicit"
         if T == 1:
-            kv_lens, kv_len_mask = cache.pos + 1, None  # rows incl. current
+            # the cached rows to attend over, the current one among them
+            # once it is written
+            lens = cache.pos + 1 if mode == "explicit" else cache.pos
+            kv_len_mask = None
         else:
-            kv_lens, kv_len_mask = None, (
+            lens, kv_len_mask = None, (
                 torch.arange(cache.max_len, device=dev)[None, :]
                 < positions[:, -1:] + 1)                          # (B, S)
+        pending = []
         tables = rope_tables(positions, self.freqs)
         eps = cfg.rms_norm_eps
         qd, kvd = cfg.q_dim, cfg.kv_dim
@@ -437,10 +554,15 @@ class Llama(nn.Module):
                                                    cfg.head_dim), tables)
             v = qkv[..., qd + kvd:].reshape(B, T, cfg.num_kv_heads,
                                             cfg.head_dim)
-            _write_kv_stacked(cache.k, li, k, positions)
-            _write_kv_stacked(cache.v, li, v, positions)
-            attn = self._attention(q, cache, li, positions, kv_lens,
-                                   kv_len_mask)
+            if mode == "explicit":
+                self._write_kv(cache, li, k, v, positions)
+            elif mode == "deferred":
+                pending.append((k, v))
+            if T == 1:
+                attn = self._decode_attention(q, k, v, cache, li, lens)
+            else:
+                attn = self._prefill_attention(q, cache, li, positions,
+                                               kv_len_mask)
             x = apply_qlinear(attn, blk.wo.qt, residual=x, plain=plain)
             if cfg.num_experts:
                 # MoE MLP (models/moe.py): norm, routing and the experts;
@@ -458,6 +580,8 @@ class Llama(nn.Module):
                 # silu(g) * u in bf16 before the kernel, and so does the port
                 h = silu_mul(gu[..., :down.kdim], gu[..., down.kdim:])
                 x = apply_qlinear(h, down, residual=x, plain=plain)
+        if pending:
+            self._commit_kv(cache, *(torch.stack(t) for t in zip(*pending)))
         x = rms_norm(x, self.final_norm, eps)
         head = self.lm_head.qt
         logits = linear_kernel(head, plain)(x.reshape(B * T, -1), head)

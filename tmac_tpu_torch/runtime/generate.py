@@ -48,8 +48,10 @@ def decode_loop(model: Llama, first_tokens: torch.Tensor, cache: KVCache,
 
 def generate(model: Llama, prompt_tokens, max_new_tokens: int,
              max_len: Optional[int] = None,
-             sampler: SamplerConfig = SamplerConfig()) -> torch.Tensor:
-    """Prefill + decode_loop on the model's device -> (B, max_new_tokens)."""
+             sampler: SamplerConfig = SamplerConfig(),
+             kv_quant: bool = False) -> torch.Tensor:
+    """Prefill + decode_loop on the model's device -> (B, max_new_tokens).
+    kv_quant: an int8 KV cache (KVCache quant mode, half the KV bytes)."""
     cfg = model.cfg
     pt = np.asarray(prompt_tokens)
     if pt.max(initial=0) >= cfg.vocab_size or pt.min(initial=0) < 0:
@@ -58,7 +60,8 @@ def generate(model: Llama, prompt_tokens, max_new_tokens: int,
     max_len = -(-(max_len or (T + max_new_tokens)) // 64) * 64
     if T + max_new_tokens > max_len:
         raise ValueError(f"{T} + {max_new_tokens} tokens exceed max_len {max_len}")
-    cache = KVCache.create(cfg, B, max_len, device=model.device)
+    cache = KVCache.create(cfg, B, max_len, device=model.device,
+                           quant=kv_quant)
     tokens = torch.from_numpy(pt.astype(np.int64)).to(model.device)
     logits, cache = prefill(model, tokens, cache)
     first = sample(logits, sampler)
