@@ -34,12 +34,12 @@ import torch
 import torch.nn.functional as F
 
 from tmac_tpu_torch.ops.cuda.qgemm_kernel import act_scale
-from tmac_tpu_torch.utils import cdiv
+from tmac_tpu_torch.utils import cdiv, round_up
 
 _c_ptr, _c_int, _c_float = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
-GROUPS = 16  # half-warps of a K2 block (kGroups in csrc/flash_decode.cu)
+GROUPS = 16  # half-warps of a block (kGroups in csrc/flash_decode.cu)
 # cache rows a block of K6, K8 and K9 reads (read at each call, so a test
 # can make it smaller)
 CHUNK = 256
@@ -89,61 +89,20 @@ def flash_decode_plain(q: torch.Tensor, k_all: torch.Tensor,
     f32 throughout, each step rounded on its own as the kernel rounds it:
     scores summed 8 dims at a time per lane then over 16 lanes by an xor
     butterfly; 16 position groups (rows g, g+16, ...) each keep an online
-    softmax; the groups merge in group order.  So kernel and plain version
-    agree bit for bit, and a model run through either gives the same
-    tokens."""
+    softmax; the groups merge in group order.  That is K6's order with one
+    chunk holding every row.  So kernel and plain version agree bit for
+    bit, and a model run through either gives the same tokens."""
     if k_scale is not None or window:
         return flash_decode_split_plain(q, k_all, v_all, kv_lens, layer,
                                         scale, k_scale, v_scale, window)
-    B, KV, rep, Dl = q.shape
-    S, Dp = k_all.shape[3], k_all.shape[4]
-    G = GROUPS
-    scale = 1.0 / math.sqrt(Dl) if scale is None else scale
-    li = torch.as_tensor(layer, device=k_all.device).reshape(1).long()
-    pad = (0, 0, 0, -S % G)                           # rows past S: never valid
-    k = F.pad(k_all.index_select(0, li)[0].float(), pad)   # (B, KV, S', Dp)
-    v = F.pad(v_all.index_select(0, li)[0].float(), pad)
-    qf = F.pad(q.float() * scale, (0, Dp - Dl))
-    prod = (qf[:, :, :, None, :] * k[:, :, None, :, :]).reshape(
-        B, KV, rep, -1, G, Dp // G)
-    sc = prod[..., 0]
-    for i in range(1, Dp // G):                       # 8 dims per lane
-        sc = sc + prod[..., i]
-    while sc.shape[-1] > 1:                           # butterfly, 16 lanes
-        h = sc.shape[-1] // 2
-        sc = sc[..., :h] + sc[..., h:]
-    sc = sc[..., 0].reshape(B, KV, rep, -1, G)        # (.., S/G, G)
-    vg = v.reshape(B, KV, 1, -1, G, Dp)
-    lens = kv_lens.to(k.device).long()[:, None, None, None]
-    m = torch.full((B, KV, rep, G), float("-inf"), device=k.device)
-    l = torch.zeros_like(m)
-    acc = torch.zeros((B, KV, rep, G, Dp), device=k.device)
-    g_idx = torch.arange(G, device=k.device)
-    for j in range(k.shape[2] // G):                  # rows j*G + g
-        s = sc[..., j, :]
-        valid = (j * G + g_idx) < lens
-        m_new = torch.maximum(m, s)
-        corr, p = torch.exp(m - m_new), torch.exp(s - m_new)
-        l = torch.where(valid, l * corr + p, l)
-        acc = torch.where(valid[..., None], acc * corr[..., None]
-                          + p[..., None] * vg[:, :, :, j], acc)
-        m = torch.where(valid, m_new, m)
-    mx = m.amax(-1, keepdim=True)
-    live = torch.isfinite(m)
-    cg = torch.where(live, torch.exp(m - mx), torch.zeros_like(m))
-    lg = torch.where(live, l * torch.exp(m - mx), torch.zeros_like(m))
-    a, lt = torch.zeros_like(acc[..., 0, :]), torch.zeros_like(m[..., 0])
-    for g in range(G):                                # group order
-        a = a + acc[..., g, :] * cg[..., g, None]
-        lt = lt + lg[..., g]
-    o = a / torch.clamp_min(lt, 1e-30)[..., None]
-    return o[..., :Dl].to(q.dtype)
+    return _split_plain(q, k_all, v_all, kv_lens, layer, scale, None, None,
+                        0, round_up(k_all.shape[3], GROUPS))
 
 
-def n_chunks(S: int, window: int) -> int:
-    """Blocks a head of K6, K8 and K9 takes: enough chunks of CHUNK rows
+def n_chunks(S: int, window: int, chunk: int) -> int:
+    """Blocks a head of K6, K8 and K9 takes: enough chunks of `chunk` rows
     for the rows a window (or, without one, the cache) can hold."""
-    return cdiv(min(S, window) if window > 0 else S, CHUNK)
+    return cdiv(min(S, window) if window > 0 else S, chunk)
 
 
 def _merge(m, l, acc):
@@ -160,9 +119,9 @@ def _merge(m, l, acc):
 
 
 def _split_plain(q, k_all, v_all, lens, layer, scale, k_scale, v_scale,
-                 window, cur_k=None, cur_v=None):
+                 window, chunk, cur_k=None, cur_v=None):
     """The attention of K6 (cur_k None) and K8/K9, in their kernels' order:
-    chunk c holds rows lo + c*CHUNK + 16j + g (lo the window's lower edge),
+    chunk c holds rows lo + c*chunk + 16j + g (lo the window's lower edge),
     group g of it keeps an online softmax over its rows, the groups merge
     in group order, the chunks in chunk order, then the current token
     comes in as a last online step."""
@@ -176,8 +135,7 @@ def _split_plain(q, k_all, v_all, lens, layer, scale, k_scale, v_scale,
     lens = lens.to(dev).long().clamp(0, S)
     lo = (lens - window + int(append)).clamp_min(0) if window > 0 \
         else torch.zeros_like(lens)
-    chunk = CHUNK
-    nchunk, J = n_chunks(S, window), cdiv(chunk, G)
+    nchunk, J = n_chunks(S, window, chunk), cdiv(chunk, G)
     within = (torch.arange(J, device=dev)[:, None] * G
               + torch.arange(G, device=dev))                  # (J, G)
     rows = (lo[:, None, None, None] + within
@@ -231,7 +189,7 @@ def flash_decode_split_plain(q, k_all, v_all, kv_lens, layer, scale=None,
     f32) each row's score times its k scale, its probability times its v
     scale before the PV product."""
     return _split_plain(q, k_all, v_all, kv_lens, layer, scale, k_scale,
-                        v_scale, window)
+                        v_scale, window, CHUNK)
 
 
 def flash_decode_append_plain(q, k_all, v_all, cached_lens, layer, cur_k,
@@ -242,7 +200,7 @@ def flash_decode_append_plain(q, k_all, v_all, cached_lens, layer, cur_k,
     token's cur_k/cur_v (B, KV, Dl), exact floats, as a last online step.
     A fresh sequence (cached_lens 0) reads no row."""
     return _split_plain(q, k_all, v_all, cached_lens, layer, scale, k_scale,
-                        v_scale, window, cur_k, cur_v)
+                        v_scale, window, CHUNK, cur_k, cur_v)
 
 
 def _store_row_plain(buf, sbuf, cur, lens, layer):
@@ -273,7 +231,7 @@ def flash_decode_append_write_plain(q, k_all, v_all, cached_lens, layer,
     cached_lens[b] of the cache (k_all, v_all and, on an int8 cache,
     k_scale, v_scale), in place, after the attention has read it."""
     out = _split_plain(q, k_all, v_all, cached_lens, layer, scale, k_scale,
-                       v_scale, window, cur_k, cur_v)
+                       v_scale, window, CHUNK, cur_k, cur_v)
     _store_row_plain(k_all, k_scale, cur_k, cached_lens, layer)
     _store_row_plain(v_all, v_scale, cur_v, cached_lens, layer)
     return out
@@ -386,7 +344,7 @@ def _launch_split(name, q, k_all, v_all, lens, layer, scale, k_scale,
     if any(t.data_ptr() % 16 for t in (k_all, v_all)):
         raise ValueError(f"{name}: the cache must be 16-byte aligned")
     scale = 1.0 / math.sqrt(Dl) if scale is None else scale
-    nchunk = n_chunks(S, window)
+    nchunk = n_chunks(S, window, CHUNK)
     part_ml = torch.empty((2, B, KV, rep, nchunk), dtype=torch.float32,
                           device=q.device)
     part_acc = torch.empty((B, KV, rep, nchunk, Dp), dtype=torch.float32,

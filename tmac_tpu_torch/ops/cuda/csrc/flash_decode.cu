@@ -69,24 +69,49 @@ constexpr int kDp = 128;      // cache head_dim this kernel serves
 constexpr int kGroups = 16;   // half-warps of a block
 constexpr int kPer = kDp / 16;  // elements of a row per lane
 
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, float* f) {
-  const uint4 raw = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 t = __bfloat1622float2(h[i]);
-    f[2 * i] = t.x;
-    f[2 * i + 1] = t.y;
+// 8 consecutive elements of a cache row as loaded (one 16-byte load for
+// bf16, two for f32, one 8-byte load for int8), turned into floats at use
+template <typename T> struct Raw8;
+
+template <> struct Raw8<__nv_bfloat16> {
+  uint4 r;
+  __device__ __forceinline__ void load(const __nv_bfloat16* p) {
+    r = *reinterpret_cast<const uint4*>(p);
   }
-}
+  __device__ __forceinline__ void get(float* f) const {
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&r);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 t = __bfloat1622float2(h[i]);
+      f[2 * i] = t.x;
+      f[2 * i + 1] = t.y;
+    }
+  }
+};
 
-__device__ __forceinline__ void load8(const float* p, float* f) {
-  const float4 a = *reinterpret_cast<const float4*>(p);
-  const float4 b = *reinterpret_cast<const float4*>(p + 4);
-  f[0] = a.x; f[1] = a.y; f[2] = a.z; f[3] = a.w;
-  f[4] = b.x; f[5] = b.y; f[6] = b.z; f[7] = b.w;
-}
+template <> struct Raw8<float> {
+  float4 a, b;
+  __device__ __forceinline__ void load(const float* p) {
+    a = *reinterpret_cast<const float4*>(p);
+    b = *reinterpret_cast<const float4*>(p + 4);
+  }
+  __device__ __forceinline__ void get(float* f) const {
+    f[0] = a.x; f[1] = a.y; f[2] = a.z; f[3] = a.w;
+    f[4] = b.x; f[5] = b.y; f[6] = b.z; f[7] = b.w;
+  }
+};
 
+template <> struct Raw8<int8_t> {
+  int2 r;
+  __device__ __forceinline__ void load(const int8_t* p) {
+    r = *reinterpret_cast<const int2*>(p);
+  }
+  __device__ __forceinline__ void get(float* f) const {
+    const int8_t* c = reinterpret_cast<const int8_t*>(&r);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) f[i] = (float)c[i];
+  }
+};
 
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ float to_float(float v) { return v; }
@@ -132,9 +157,12 @@ __global__ void __launch_bounds__(kGroups * 16) flash_decode_kernel(
 
   const size_t base = (((size_t)li * B + b) * KV + h) * (size_t)S * kDp + d0;
   for (int s = g; s < len; s += kGroups) {
+    Raw8<T> kr, vr;
+    kr.load(k + base + (size_t)s * kDp);
+    vr.load(v + base + (size_t)s * kDp);
     float kf[kPer], vf[kPer];
-    load8(k + base + (size_t)s * kDp, kf);
-    load8(v + base + (size_t)s * kDp, vf);
+    kr.get(kf);
+    vr.get(vf);
 #pragma unroll
     for (int r = 0; r < MAXREP; ++r) {
       if (r < rep) {
@@ -212,55 +240,11 @@ int launch(const void* q, const void* k, const void* v, const int* lens,
 // K6, K8, K9: split over the rows
 // ---------------------------------------------------------------------------
 
-// Merges a partial state into a running one in a fixed order: `e` is 0 for
-// a state that saw no row (m = -inf) and exp(m - mx) otherwise.
+// The weight of a partial online-softmax state in a merge whose maximum is
+// mx: 0 for a state that saw no row (m = -inf), else exp(m - mx).
 __device__ __forceinline__ float merge_weight(float m, float mx) {
   return isinf(m) ? 0.f : expf(m - mx);
 }
-
-// 8 consecutive elements of a cache row as loaded (one 16-byte load for
-// bf16, two for f32, one 8-byte load for int8), turned into floats at use
-template <typename T> struct Raw8;
-
-template <> struct Raw8<__nv_bfloat16> {
-  uint4 r;
-  __device__ __forceinline__ void load(const __nv_bfloat16* p) {
-    r = *reinterpret_cast<const uint4*>(p);
-  }
-  __device__ __forceinline__ void get(float* f) const {
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&r);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 t = __bfloat1622float2(h[i]);
-      f[2 * i] = t.x;
-      f[2 * i + 1] = t.y;
-    }
-  }
-};
-
-template <> struct Raw8<float> {
-  float4 a, b;
-  __device__ __forceinline__ void load(const float* p) {
-    a = *reinterpret_cast<const float4*>(p);
-    b = *reinterpret_cast<const float4*>(p + 4);
-  }
-  __device__ __forceinline__ void get(float* f) const {
-    f[0] = a.x; f[1] = a.y; f[2] = a.z; f[3] = a.w;
-    f[4] = b.x; f[5] = b.y; f[6] = b.z; f[7] = b.w;
-  }
-};
-
-template <> struct Raw8<int8_t> {
-  int2 r;
-  __device__ __forceinline__ void load(const int8_t* p) {
-    r = *reinterpret_cast<const int2*>(p);
-  }
-  __device__ __forceinline__ void get(float* f) const {
-    const int8_t* c = reinterpret_cast<const int8_t*>(&r);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) f[i] = (float)c[i];
-  }
-};
 
 template <typename QT, typename CT, int MAXREP>
 __global__ void __launch_bounds__(kGroups * 16) flash_partial_kernel(
