@@ -6,9 +6,13 @@ Phases, each printing one JSON line before the last two:
   1. the card (nvidia-smi name and power limit, torch's device name);
   2. build the CUDA kernels from tmac_tpu_torch/ops/cuda/csrc with nvcc
      (all sources in parallel), and the synthetic BitNet-3B weights;
-  3. kernel K1 (fused act-quant + packed qgemm) against its plain PyTorch
-     version at BitNet-3B's shapes: exact int8 codes and int32 sums on the
-     call without folds, NMSE <= 1e-6 on the folded calls;
+  3. kernel K1 (fused act-quant + packed qgemm, N < 64) against its plain
+     PyTorch version at BitNet-3B's shapes: exact int8 codes and int32
+     sums on the call without folds, NMSE <= 1e-6 on the folded calls;
+     kernel K3 (the N >= 64 route: K1's prologue + one int8 tensor-core
+     dot) at N = 64 and 256 on every linear with its folds and the int8
+     head, bit for bit; kernel K10 (wo + residual, rms_norm, gate_up,
+     SwiGLU, down + residual in one program) on two layers, bit for bit;
   4. kernel K2 (flash decode) against its plain version: max abs error
      <= 2e-5 in f32, within one bf16 ulp in bf16;
   5. path 1, BitNet-3B W1.58A8 at full width (26 layers, hidden 3200,
@@ -20,19 +24,32 @@ Phases, each printing one JSON line before the last two:
      tie-aware argmax agreement 1.0); the eager decode rate from CUDA
      events; the same step captured in a CUDA graph (the card's own time
      per step, checked to give the eager tokens); the device time of an
-     eager step by kernel from torch.profiler; each kernel's device time
-     per decode step (CUDA graphs of its calls) beside its byte bound, its
-     plain version and a PyTorch yardstick;
+     eager step by kernel from torch.profiler; then the same for a
+     1024-token prefill in chunks of 256 (420 K3 launches, no K1) and 64
+     steps of a model made with TMAC_BLOCK_KERNEL=1 (26 K10, 27 K1 and 26
+     K2 a step), the block-mode step's graph beside the default mode's at
+     the same context; each kernel's device time per decode step or per
+     prefill (CUDA graphs of its calls) beside its bound, its plain
+     version and a PyTorch yardstick (K3: torch._int_mm and a bf16
+     matmul; K10: K1's three calls for the same layer);
   6. path 2, Llama-2-7B W2A16 g128 at full width and depth (32 layers,
      hidden 4096, 32 heads, head_dim 128, FFN 11008, vocab 32000), random
      weights from seed 0: kernel K4 (per-group act-quant + grouped-scale
      packed qgemm) against its plain version at the path's shapes, bits 2
      and 4 (a one-layer W4A16 model), N = 1, 16 and 256 (exact codes,
      scales, code sums and per-group int32 dots without folds, NMSE
-     <= 1e-6 with them), K1 on the int8 head at N = 1 and 256; prefill of
-     a 256-token prompt and 64 greedy decode steps (1 K1 and 128 K4
-     launches for the prefill; 128 K4, 1 K1 and 32 K2 per decode step),
-     then the checks and timings of path 1, K4's at N = 1 and N = 256;
+     <= 1e-6 with them); kernel K5 (the grouped route from 3 * group_size
+     rows: bf16 activations times weights dequantized to bf16, one f32
+     tensor-core dot) at N = 384 and 512, bits 2 and 4, and at Phi-3's
+     down with the SwiGLU fold (the bf16 activations and dequantized
+     weights byte for byte, the output within sqrt(Kp) * 2^-23 of
+     sum |xa * W|); K1 on the int8 head at N = 1, K3 at 256 and 512;
+     prefill of a 1024-token prompt in chunks of 512 and 64 greedy decode
+     steps (256 K5 and 2 K3 launches for the prefill; 128 K4, 1 K1 and 32
+     K2 per decode step), then the checks and timings of path 1 (the
+     teacher-forced check on the prefill's last position and the decode
+     steps, NMSE <= LLAMA_TF_NMSE), K4's at N = 1 and 256, K5's and K4's
+     at N = 384 and 512;
   7. path 3, Mixtral-8x7B W2A16 g128 at full width and depth (32 layers,
      hidden 4096, 32 heads and 8 KV heads, 8 experts top-2 with FFN 14336,
      vocab 32000), random weights drawn on the card from seed 0: kernel K7
@@ -41,7 +58,7 @@ Phases, each printing one JSON line before the last two:
      down 14336 x 4096 with the SwiGLU prologue) and, at bits 4, at
      Qwen2-MoE-A14B's (3584 x 5120, 2560 x 3584) on a 4-expert stack, N = 1
      and 4, every expert, bit for bit; prefill of a 256-token prompt (the
-     MoE layers in the capacity-dispatch form over K4: 576 K4 and 1 K1
+     MoE layers in the capacity-dispatch form over K4: 576 K4 and 1 K3
      launches) and 64 greedy decode steps (the select form through K7: 128
      K7, 64 K4, 32 K2 and 1 K1 launches per step), then the checks and
      timings of path 1 (the decode step captured in a CUDA graph, which
@@ -56,7 +73,7 @@ Phases, each printing one JSON line before the last two:
      to 2368 (K9's stored rows byte for byte, the rest of the cache
      untouched, no store at cached length S); K4 at Phi-3's shapes (N = 1
      and 256); a 2304-token prefill (nine chunks of 256, past the window)
-     and 64 greedy decode steps on an int8 cache (1152 K4 and 9 K1
+     and 64 greedy decode steps on an int8 cache (1152 K4 and 9 K3
      launches for the prefill; 128 K4, 1 K1 and 32 K6 a step), the same on
      a bf16 cache, and 64 steps from the int8 prefill's cache in the
      deferred (K8) and in-kernel (K9) KV-write modes, which must agree bit
@@ -86,8 +103,17 @@ PEAKS = (("H200", 4.8e12, 1979e12, 989e12),
 
 STEPS, FORCED, MOE_FORCED, PHI3_FORCED, PROFILED = 64, 8, 2, 2, 4
 BITNET_PROMPT, LLAMA_PROMPT, PHI3_PROMPT = 16, 256, 2304
+BITNET_LONG_PROMPT, LLAMA_LONG_PROMPT, LLAMA_CHUNK = 1024, 1024, 512
 FOLDED_NMSE, K2_F32_ERR = 1e-6, 2e-5
 PATH_NMSE, TIE_MARGIN = 1e-4, 1e-2
+# Llama-2-7B's 1024-token prefill through K5 against the plain versions,
+# logits NMSE at the last position: K5 and the plain f32 matmul add in other
+# orders (each call within ~1e-6 of sum |xa * W|), and 32 random layers
+# amplify the bf16 roundings that moves.  Measured on the H100: 8.3e-3.
+# On the CPU, at llama-2-7b scaled(8) with 32 layers, changing only the
+# plain matmul's sum order (f32 or f64) moves the last position by 2.6e-3
+# (2 layers: 7.4e-5).
+LLAMA_TF_NMSE = 3e-2
 STEP_MS = {}  # per path: eager and graph step ms, prefill s (the record line)
 
 
@@ -195,7 +221,7 @@ def qgemm_bytes(qt, x, kw):
 # ---------------------------------------------------------------------------
 
 def check_k1(card, cases):
-    """K1 against its plain version; cases: (label, x, qt, folds)."""
+    """K1 against its plain version; cases: (label, x, qt, folds), N < 64."""
     import torch
     from tmac_tpu_torch.ops.cuda import qgemm_kernel as k1
     from tmac_tpu_torch.utils import nmse
@@ -215,9 +241,8 @@ def check_k1(card, cases):
                 raise AssertionError(f"K1 {label} N={N}: {row}")
         else:
             # no folds: the codes and the int32 sums are exact
-            large = N >= k1.LARGE_N
-            codes, xs, xsum = k1.launch_act_quant(x, qt, large_n=large)
-            pc, pxs, pxsum = k1.act_quant_plain(x, qt, large_n=large)
+            codes, xs, xsum = k1.launch_act_quant(x, qt)
+            pc, pxs, pxsum = k1.act_quant_plain(x, qt)
             unit = dataclasses.replace(qt, scales=torch.ones_like(qt.scales),
                                        sub=torch.zeros_like(qt.sub))
             acc = k1.launch_gemm(codes, torch.ones_like(xs),
@@ -234,6 +259,123 @@ def check_k1(card, cases):
                     and row["acc_equal"] and close):
                 raise AssertionError(f"K1 {label} N={N}: {row}")
         rows.append(row)
+    return rows, worst
+
+
+def check_k3(card, cases):
+    """K3 against its plain version, bit for bit (exact int32 sums, the
+    same f32 epilogue); cases: (label, x, qt, folds), N >= 64.  Without
+    folds also the prologue's codes, scales and code sums and the int32
+    dot itself (unit scales, zero sub)."""
+    import torch
+    from tmac_tpu_torch.ops.cuda import qgemm_kernel as k1
+    rows, worst = [], 0.0
+    for label, x, qt, kw in cases:
+        N = x.shape[0]
+        got = k1.qgemm_large_int(x, qt, **kw)
+        want = k1.qgemm_fused_plain(x, qt, **kw)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        worst = max(worst, err)
+        row = dict(shape=label, bits=qt.bits, N=N, max_abs_err=err,
+                   bitwise=bool(torch.equal(got, want)))
+        ok = row["bitwise"]
+        if not kw:
+            codes, xs, xsum = k1.launch_act_quant(x, qt, large_n=True)
+            pc, pxs, pxsum = k1.act_quant_plain(x, qt, large_n=True)
+            unit = dataclasses.replace(qt, scales=torch.ones_like(qt.scales),
+                                       sub=torch.zeros_like(qt.sub))
+            acc = k1.launch_large_int(codes, torch.ones_like(xs),
+                                      torch.zeros_like(xsum), unit)
+            want_acc = k1.int_dot_plain(pc, qt)
+            row.update(codes_equal=bool(torch.equal(codes, k1.dp4a_order(pc, qt.bits))),
+                       xs_equal=bool(torch.equal(xs, pxs)),
+                       xsum_equal=bool(torch.equal(xsum, pxsum)),
+                       acc_equal=bool(torch.equal(acc, want_acc.float())),
+                       acc_absmax=int(want_acc.abs().max()))
+            ok = ok and all(row[k] for k in ("codes_equal", "xs_equal",
+                                             "xsum_equal", "acc_equal"))
+        rows.append(row)
+        if not ok:
+            raise AssertionError(f"K3 {label} N={N}: {row}")
+    return rows, worst
+
+
+def k5_bound(xa, w):
+    """The f32-accumulation tolerance K5 is held to, per output: sqrt(Kp)
+    units of 2^-23 of sum_k |xa[n, k] * W[k, m]|, the typical growth of Kp
+    roundings of at most a unit in the last place each, in any order (the
+    products of bf16 values are exact in f32).  Measured on the H100 at
+    Llama's and Phi-3's shapes: at most 1.3e-6 of the sum, an eighth of
+    the bound at Kp = 8192."""
+    return (xa.float().abs() @ w.float().abs()) * (w.shape[0] ** 0.5 * 2.0 ** -23)
+
+
+def check_k5(card, cases, weights_checked=()):
+    """K5 against its plain version; cases: (label, x, qt, folds).  The
+    exact parts byte for byte: the prologue's bf16 activations, and the
+    weights the matmul dequantizes (read back through one-hot activation
+    rows, whose products and sums are exact, for each weight not in
+    weights_checked); the output within k5_bound of the plain version's
+    (max_ratio: the largest |kernel - plain| / sum |xa * W|)."""
+    import torch
+    from tmac_tpu_torch.ops.cuda import qgemm_grouped_kernel as k5
+    from tmac_tpu_torch.utils import nmse
+    rows, worst, seen = [], 0.0, set(weights_checked)
+    for label, x, qt, kw in cases:
+        N = x.shape[0]
+        norm, glu = kw.get("norm"), kw.get("glu", False)
+        got = k5.qgemm_dequant(x, qt, **kw)
+        want = k5.qgemm_dequant_plain(x, qt, **kw)
+        xa = k5.launch_act_bf16(x, qt, norm, glu)
+        pxa = k5.act_bf16_plain(x, qt, norm, glu)
+        w = k5.dequant_weights_plain(qt)
+        mag = qt.slice_m(xa.float().abs() @ w.float().abs())
+        bound = qt.slice_m(k5_bound(xa, w))
+        torch.cuda.synchronize()
+        diff = (got - want).abs()
+        err = float(diff.max())
+        worst = max(worst, err)
+        row = dict(shape=label, bits=qt.bits, N=N, K=qt.kdim_padded, max_abs_err=err,
+                   max_ratio=float((diff / mag.clamp_min(1e-30)).max()),
+                   within_bound=bool((diff <= bound).all()),
+                   nmse=nmse(want.cpu().numpy(), got.cpu().numpy()),
+                   xa_equal=bool(torch.equal(xa.view(torch.int16), pxa.view(torch.int16))))
+        if id(qt) not in seen:
+            seen.add(id(qt))
+            Kp, step = qt.kdim_padded, 1024
+            same = True
+            for k0 in range(0, Kp, step):
+                n = min(step, Kp - k0)
+                onehot = torch.zeros((n, Kp), dtype=torch.bfloat16, device=card.dev)
+                onehot[torch.arange(n), k0 + torch.arange(n)] = 1.0
+                back = k5.launch_dequant_gemm(onehot, qt)
+                same &= bool(torch.equal(back, w[k0:k0 + n].float()))
+            row["weights_equal"] = same
+        rows.append(row)
+        if not (row["within_bound"] and row["xa_equal"]
+                and row.get("weights_equal", True)):
+            raise AssertionError(f"K5 {label} N={N}: {row}")
+    return rows, worst
+
+
+def check_k10(card, cases):
+    """K10 against its plain version, bit for bit; cases: (label, args)
+    with args (attn, resid, norm_w, wo, gate_up, down, eps)."""
+    import torch
+    from tmac_tpu_torch.ops.cuda import block_kernel as k10
+    rows, worst = [], 0.0
+    for label, args in cases:
+        got = k10.wo_mlp_block(*args)
+        want = k10.wo_mlp_block_plain(*args)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        worst = max(worst, err)
+        rows.append(dict(shape=label, max_abs_err=err,
+                         bitwise=bool(torch.equal(got, want)),
+                         finite=bool(torch.isfinite(got).all())))
+        if not (rows[-1]["bitwise"] and rows[-1]["finite"]):
+            raise AssertionError(f"K10 {label}: {rows[-1]}")
     return rows, worst
 
 
@@ -320,17 +462,19 @@ def check_k2(card, Dl):
 # a main path: run, hold to the plain versions, time
 # ---------------------------------------------------------------------------
 
-COUNTERS = ("K1", "K4", "K2", "K7", "K6", "K8", "K9")
+COUNTERS = ("K1", "K4", "K2", "K7", "K6", "K8", "K9", "K3", "K5", "K10")
 
 
 def counters():
     from tmac_tpu_torch.ops.cuda import attention_kernel as ak
+    from tmac_tpu_torch.ops.cuda import block_kernel as k10
     from tmac_tpu_torch.ops.cuda import expert_kernel as k7
     from tmac_tpu_torch.ops.cuda import qgemm_grouped_kernel as k4
     from tmac_tpu_torch.ops.cuda import qgemm_kernel as k1
     return (k1.qgemm_fused, k4.qgemm_grouped, ak.flash_decode, k7.qgemm_expert,
             ak.flash_decode_split, ak.flash_decode_append,
-            ak.flash_decode_append_write)
+            ak.flash_decode_append_write, k1.qgemm_large_int, k4.qgemm_dequant,
+            k10.wo_mlp_block)
 
 
 def read_counts():
@@ -373,7 +517,9 @@ def graph_decode(model, cache, tok):
     return start.elapsed_time(stop) / STEPS, torch.cat(replayed).tolist()
 
 
-KERNEL_NAMES = (("K7 prologue", "expert_act_quant_kernel"),
+KERNEL_NAMES = (("K10", "block_kernel"), ("K3 matmul", "large_int_kernel"),
+                ("K5 prologue", "act_bf16_kernel"), ("K5 matmul", "dequant_gemm_kernel"),
+                ("K7 prologue", "expert_act_quant_kernel"),
                 ("K7 matmul", "expert_qgemm_kernel"),
                 ("K4 prologue", "act_quant_grouped_kernel"),
                 ("K4 dots", "group_dot_kernel"), ("K4 fold", "fold_kernel"),
@@ -410,27 +556,32 @@ def device_time(tag, model, cache, first, step_ms, graph_step_ms):
 
 
 def run_path(card, tag, cfg, params, prompt_len, want_prefill, want_step,
-             forced=FORCED):
-    """Prefill + STEPS greedy decode steps through the runtime's entry
-    points, the kernels' launch counts read around it; then the
-    teacher-forced check against the plain versions over the prompt and
-    `forced` decode positions, the eager and graph step times and the
-    profiler's breakdown.  -> (model, cache, launches over the run, eager
-    step ms, graph step ms)."""
+             forced=FORCED, chunk=256, block=False, tf_gate=None,
+             tf_last_only=False):
+    """Prefill in `chunk`-token pieces + STEPS greedy decode steps through
+    the runtime's entry points (block: the model made in the block mode),
+    the kernels' launch counts read around it; then the teacher-forced
+    check against the plain versions over the prompt and `forced` decode
+    positions, logits NMSE <= PATH_NMSE and tie-aware argmax agreement 1.0
+    (with tf_last_only: the prompt's last position, within tf_gate, and
+    the decode steps from the kernel path's cache on both sides); the
+    eager and graph step times and the profiler's breakdown.
+    -> (model, cache, launches over the run, eager step ms, graph step
+    ms, the prefill's tokens and cache before the decode)."""
     import numpy as np
     import torch
-    from tmac_tpu_torch.models.llama import KVCache, Llama
+    from tmac_tpu_torch.models.llama import KVCache
     from tmac_tpu_torch.runtime.generate import decode_loop, prefill
     from tmac_tpu_torch.runtime.sampling import sample
     from tmac_tpu_torch.utils import argmax_agreement, nmse
     dev = card.dev
     max_len = prompt_len + STEPS
-    model = Llama(cfg, params)
+    model = llama_in_mode(cfg, params, "explicit", block=block)
     prompt = np.random.default_rng(0).integers(0, cfg.vocab_size, (1, prompt_len))
     tokens = torch.from_numpy(prompt).to(dev)
     cache = KVCache.create(cfg, 1, max_len, device=dev)
     zero_counts()
-    logits, cache = prefill(model, tokens, cache)
+    logits, cache = prefill(model, tokens, cache, chunk=chunk)
     first = sample(logits)
     torch.cuda.synchronize()
     pre = read_counts()
@@ -454,13 +605,21 @@ def run_path(card, tag, cfg, params, prompt_len, want_prefill, want_step,
 
     # teacher-forced: kernel path against the plain versions on the card
     t0 = time.perf_counter()
-    plain = Llama(cfg, params, plain=True)
+    plain = llama_in_mode(cfg, params, "explicit", plain=True, block=block)
     worst, agree, pairs = 0.0, [], []
     with torch.no_grad():
         caches = [KVCache.create(cfg, 1, max_len, device=dev) for _ in range(2)]
-        lk, caches[0] = model(tokens, caches[0])
-        lp, caches[1] = plain(tokens, caches[1])
-        pairs.append((lp[0], lk[0]))
+        if tf_last_only:
+            lk, caches[0] = prefill(model, tokens, caches[0], chunk=chunk)
+            lp, caches[1] = prefill(plain, tokens, caches[1], chunk=chunk)
+            last = (lp, lk)
+            # the decode steps then start from the kernel path's cache on
+            # both sides, so they are held to PATH_NMSE
+            caches[1] = clone_cache(caches[0])
+        else:
+            lk, caches[0] = model(tokens, caches[0])
+            lp, caches[1] = plain(tokens, caches[1])
+            pairs.append((lp[0], lk[0]))
         for t in gen[:forced]:
             step = torch.tensor([[t]], device=dev)
             lk, caches[0] = model(step, caches[0])
@@ -472,16 +631,25 @@ def run_path(card, tag, cfg, params, prompt_len, want_prefill, want_step,
         ref, got = ref.float().cpu().numpy(), got.float().cpu().numpy()
         worst = max(worst, nmse(ref, got))
         agree.append(argmax_agreement(ref, got, TIE_MARGIN))
-    say(f"{tag}_teacher_forced", positions=prompt_len + forced, max_nmse=worst,
-        argmax_agreement=min(agree), bitwise=identical, finite=finite,
+    last_nmse = last_agree = None
+    if tf_last_only:
+        ref, got = (t.float().cpu().numpy() for t in last)
+        last_nmse = nmse(ref, got)
+        last_agree = argmax_agreement(ref, got, TIE_MARGIN)
+        finite = finite and bool(np.isfinite(got).all())
+    say(f"{tag}_teacher_forced", positions=(1 if tf_last_only else prompt_len) + forced,
+        max_nmse=worst, argmax_agreement=min(agree), bitwise=identical,
+        prompt_last_nmse=last_nmse, prompt_last_gate=tf_gate if tf_last_only else None,
+        prompt_last_argmax_agreement=last_agree, finite=finite,
         seconds=round(time.perf_counter() - t0, 3))
-    if not (finite and worst <= PATH_NMSE and min(agree) == 1.0):
+    if not (finite and worst <= PATH_NMSE and min(agree) == 1.0
+            and (not tf_last_only or (last_nmse <= tf_gate and last_agree == 1.0))):
         raise AssertionError(f"{tag}: teacher-forced: nmse {worst}, agreement {agree}")
     del plain, caches, pairs
 
     # decode rate: a second run, timed with CUDA events
     cache = KVCache.create(cfg, 1, max_len, device=dev)
-    logits, cache = prefill(model, tokens, cache)
+    logits, cache = prefill(model, tokens, cache, chunk=chunk)
     first = sample(logits)
     torch.cuda.synchronize()
     start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
@@ -500,10 +668,11 @@ def run_path(card, tag, cfg, params, prompt_len, want_prefill, want_step,
     # eager run's tokens
     cache = KVCache.create(cfg, 1, max_len, device=dev)
     t0 = time.perf_counter()
-    logits, cache = prefill(model, tokens, cache)
+    logits, cache = prefill(model, tokens, cache, chunk=chunk)
     tok = sample(logits)
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
+    prefilled = (clone_cache(cache), tok.clone())
     graph_step_ms, replayed = graph_decode(model, cache, tok)
     same = replayed == gen[1:]
     say(f"{tag}_decode_graph", step_ms=graph_step_ms,
@@ -515,9 +684,9 @@ def run_path(card, tag, cfg, params, prompt_len, want_prefill, want_step,
 
     # where an eager step's device time goes (torch.profiler, kernels only)
     cache = KVCache.create(cfg, 1, max_len, device=dev)
-    logits, cache = prefill(model, tokens, cache)
+    logits, cache = prefill(model, tokens, cache, chunk=chunk)
     device_time(tag, model, cache, sample(logits), step_ms, graph_step_ms)
-    return model, cache, total, step_ms, graph_step_ms
+    return model, cache, total, step_ms, graph_step_ms, prefilled
 
 
 def time_k4(card, calls, reps=20):
@@ -577,6 +746,85 @@ def time_k2(card, cfg, cache, kv_len):
     return ms, plain, bound, lib
 
 
+def dominant_bound(rows):
+    """What bounds a sum of calls (rows with bound_ms, bound_by and
+    per_prefill): the side with the larger share of the summed bound."""
+    by = {"bytes": 0.0, "operations": 0.0}
+    for r in rows:
+        by[r["bound_by"]] += r["bound_ms"] * r.get("per_prefill", 1)
+    return max(by, key=by.get)
+
+
+def time_k3(card, calls, reps=5):
+    """K3 per call over `calls` [(x, qt, folds)] (a CUDA graph of them
+    all): ms; on the first call's inputs the plain version's ms, the bound
+    (int8 operations or bytes), torch._int_mm on the unpacked int8 codes
+    (the library yardstick) and a bf16 matmul on the dequantized weights."""
+    import torch
+    from tmac_tpu_torch.ops.cuda import qgemm_kernel as k1
+    from tmac_tpu_torch.ops.qgemm import unpack_codes
+    x, qt, kw = calls[0]
+    N, Kp, Mp = x.shape[0], qt.kdim_padded, qt.mdim_padded
+    ms = graph_ms(lambda: [k1.qgemm_large_int(a, w, **f) for a, w, f in calls],
+                  reps=reps) / len(calls)
+    plain_ms = cuda_ms(lambda: k1.qgemm_fused_plain(x, qt, **kw), 1)
+    ops, nbytes = 2 * N * Kp * Mp, qgemm_bytes(qt, x, kw)
+    codes = torch.randint(-127, 128, (N, Kp), dtype=torch.int8, device=card.dev)
+    w8 = unpack_codes(qt).contiguous()
+    return dict(N=N, K=Kp, Mp=Mp, ms=ms, plain_ms=plain_ms,
+                bound_ms=card.bound_ms(nbytes, ops, card.int8_peak),
+                bound_by="bytes" if nbytes / card.bw >= ops / card.int8_peak
+                else "operations",
+                library_ms=graph_ms(lambda: torch._int_mm(codes, w8), reps=reps),
+                bf16_matmul_ms=yardstick_ms(card, x, qt, False))
+
+
+def time_k5(card, calls, reps=5):
+    """K5 per call over `calls` [(x, qt, folds)] (a CUDA graph of them
+    all): ms, K4's ms on the same calls, and on the first call's inputs the
+    plain version's ms, the bound (bf16 operations or bytes) and a bf16
+    matmul on the dequantized weights (the library yardstick)."""
+    from tmac_tpu_torch.ops.cuda import qgemm_grouped_kernel as k5
+    x, qt, kw = calls[0]
+    N, Kp, Mp = x.shape[0], qt.kdim_padded, qt.mdim_padded
+    ms = graph_ms(lambda: [k5.qgemm_dequant(a, w, **f) for a, w, f in calls],
+                  reps=reps) / len(calls)
+    k4_ms = graph_ms(lambda: [k5.qgemm_grouped(a, w, **f) for a, w, f in calls],
+                     reps=1) / len(calls)
+    plain_ms = cuda_ms(lambda: k5.qgemm_dequant_plain(x, qt, **kw), 1)
+    ops, nbytes = 2 * N * Kp * Mp, qgemm_bytes(qt, x, kw)
+    return dict(N=N, K=Kp, Mp=Mp, ms=ms, k4_ms=k4_ms, plain_ms=plain_ms,
+                bound_ms=card.bound_ms(nbytes, ops, card.bf16_peak),
+                bound_by="bytes" if nbytes / card.bw >= ops / card.bf16_peak
+                else "operations",
+                library_ms=yardstick_ms(card, x, qt, False))
+
+
+def time_k10(card, blocks):
+    """K10 per call over `blocks` [(attn, resid, norm_w, wo, gate_up, down,
+    eps)] (a CUDA graph of one call a layer, the weights cold in L2 as in a
+    step), K1's three separate calls for the same layers (wo + residual,
+    gate_up + norm, down + SwiGLU + residual), the plain version and the
+    byte bound, per layer."""
+    from tmac_tpu_torch.ops.cuda import block_kernel as k10
+    from tmac_tpu_torch.ops.cuda import qgemm_kernel as k1
+    n = len(blocks)
+    attn, resid, norm_w, wo, gu, dn, eps = blocks[0]
+    xg = card.bf16(1, gu.mdim)
+    ms = graph_ms(lambda: [k10.wo_mlp_block(*b) for b in blocks]) / n
+    three = graph_ms(lambda: [(k1.qgemm_fused(b[0], b[3], residual=b[1]),
+                               k1.qgemm_fused(b[1], b[4], norm=(b[2], b[6])),
+                               k1.qgemm_fused(xg, b[5], glu=True, residual=b[1]))
+                              for b in blocks]) / n
+    plain_ms = cuda_ms(lambda: k10.wo_mlp_block_plain(*blocks[0]), 3)
+    H = attn.shape[1]
+    nbytes = sum(qgemm_bytes(qt, x, {}) - 4 * qt.mdim_padded - x.numel() * 2
+                 for qt, x in ((wo, attn), (gu, attn), (dn, xg))) + 3 * 2 * H + 4 * H
+    ops = 2 * (wo.kdim * wo.mdim + gu.kdim * gu.mdim + dn.kdim * dn.mdim)
+    return dict(ms=ms, k1_three_calls_ms=three, plain_ms=plain_ms,
+                bound_ms=card.bound_ms(nbytes, ops, card.int8_peak), bytes=nbytes)
+
+
 # ---------------------------------------------------------------------------
 # path 1: BitNet-3B W1.58A8
 # ---------------------------------------------------------------------------
@@ -620,11 +868,43 @@ def bitnet_path(card, build_s, ptxas):
     k2_rows, k2_err = check_k2(card, cfg.head_dim)
     say("k2_check", checks=k2_rows)
 
+    # K3 at the prefill shapes (N = 64 and 256) with each linear's folds,
+    # and without folds on gate_up and the int8 head, bit for bit
+    k3_cases = [(s_, *k1_args(s_, N, layers[0])) for N in (64, 256)
+                for s_ in ("wqkv", "wo", "gate_up", "down", "head")]
+    k3_cases.append(("gate_up", *k1_args("gate_up", 256, layers[0])[:2], {}))
+    k3_rows, k3_err = check_k3(card, k3_cases)
+    say("k3_check", checks=k3_rows)
+    # K10 at the layers' shapes, a norm weight other than ones on layer 1
+    k10_cases = [(f"layer {i}", (card.bf16(1, H), card.bf16(1, H),
+                                 layers[i]["mlp_norm"] if i == 0 else
+                                 (1.0 + 0.1 * card.bf16(H)).to(torch.bfloat16),
+                                 layers[i]["wo"], layers[i]["gate_up"],
+                                 layers[i]["down"], eps)) for i in (0, 1)]
+    k10_rows, k10_err = check_k10(card, k10_cases)
+    say("k10_check", checks=k10_rows)
+
     L = cfg.num_layers
     # K1: 4 linears a layer and the head; K2: one call a layer
-    model, cache, launches, _, _ = run_path(
+    model, cache, launches, _, graph_default, _ = run_path(
         card, "bitnet", cfg, params, BITNET_PROMPT,
         counts(K1=4 * L + 1), counts(K1=4.0 * L + 1, K2=float(L)))
+
+    # the long prompt in chunks of 256 (K3: 4 linears a layer and the head
+    # a chunk), then the decode steps in the block mode (K10 a layer; K1
+    # on wqkv and the head; K2)
+    chunks = BITNET_LONG_PROMPT // 256
+    _, _, launches_b, _, graph_block, (snap, tok) = run_path(
+        card, "bitnet_block", cfg, params, BITNET_LONG_PROMPT,
+        counts(K3=(4 * L + 1) * chunks),
+        counts(K1=L + 1.0, K2=float(L), K10=float(L)), block=True)
+    default = llama_in_mode(cfg, params, "explicit")
+    graph_same_ctx, _ = graph_decode(default, clone_cache(snap), tok.clone())
+    say("bitnet_block_vs_default", prompt=BITNET_LONG_PROMPT,
+        block_graph_step_ms=graph_block, default_graph_step_ms=graph_same_ctx,
+        default_graph_step_ms_at_16_tokens=graph_default, card=card.name,
+        nvidia_smi=card.smi)
+    del default, snap
 
     # per-kernel device times at the decode shapes (N=1), each a CUDA graph
     # of its calls over the 26 layers' weights (cold in the 50 MB L2, as in
@@ -654,9 +934,44 @@ def bitnet_path(card, build_s, ptxas):
     k2_ms, k2_plain, k2_bound, k2_lib = time_k2(card, cfg, cache, kv_len)
     say("k2_times", kv_len=kv_len, ms=k2_ms, plain_ms=k2_plain,
         bound_ms=k2_bound, library_ms=k2_lib, per_step=L)
-    del model, cache, params
+
+    # K3 per call at N = 256 (CUDA graphs of its calls over 4 layers'
+    # weights) and per prefill of BITNET_LONG_PROMPT tokens
+    k3_rows, k3_tot = [], dict(ms=0.0, plain_ms=0.0, bound_ms=0.0,
+                               library_ms=0.0, bf16_matmul_ms=0.0)
+    for shape in shapes:
+        calls = [k1_args(shape, 256, layers[i]) for i in range(min(4, L))]
+        row = time_k3(card, calls[:1] if shape == "head" else calls)
+        n = chunks * (1 if shape == "head" else L)
+        k3_rows.append(dict(shape=shape, per_prefill=n, **row))
+        for key in k3_tot:
+            k3_tot[key] += n * row[key]
+    say("k3_times", rows=k3_rows, per_prefill=dict(k3_tot, calls=(4 * L + 1) * chunks),
+        card=card.name, nvidia_smi=card.smi)
+
+    # K10 per call (a CUDA graph over the 26 layers) beside K1's three
+    # separate calls for the same layers
+    blocks = [(card.bf16(1, H), card.bf16(1, H), layers[i]["mlp_norm"],
+               layers[i]["wo"], layers[i]["gate_up"], layers[i]["down"], eps)
+              for i in range(L)]
+    k10_t = time_k10(card, blocks)
+    say("k10_times", per_step=L, **k10_t, card=card.name, nvidia_smi=card.smi)
+    del model, cache, params, blocks
     torch.cuda.empty_cache()
     return [
+        dict(name="qgemm_large_int (K3)", path="bitnet-3b", route="cuda",
+             source="tmac_tpu_torch/ops/cuda/csrc/qgemm_large.cu",
+             replaces="tmac_tpu/ops/pallas/qgemm_kernel.py:266",
+             launches=launches_b["K3"], max_abs_err=k3_err,
+             ms=k3_tot["ms"], plain_ms=k3_tot["plain_ms"],
+             bound_ms=k3_tot["bound_ms"], bound_by=dominant_bound(k3_rows),
+             library_ms=k3_tot["library_ms"]),
+        dict(name="wo_mlp_block (K10)", path="bitnet-3b", route="cuda",
+             source="tmac_tpu_torch/ops/cuda/csrc/block_kernel.cu",
+             replaces="tmac_tpu/ops/pallas/block_kernel.py:222",
+             launches=launches_b["K10"], max_abs_err=k10_err,
+             ms=k10_t["ms"] * L, plain_ms=k10_t["plain_ms"] * L,
+             bound_ms=k10_t["bound_ms"] * L, bound_by="bytes", library_ms=None),
         dict(name="qgemm_fused (K1)", path="bitnet-3b", route="cuda",
              source="tmac_tpu_torch/ops/cuda/csrc/qgemm_fused.cu",
              replaces="tmac_tpu/ops/pallas/qgemm_kernel.py:567",
@@ -722,19 +1037,41 @@ def llama_path(card):
                 cases.append((shape, x, qt, {}))
     rows, k4_err = check_k4(card, cases)
     say("k4_check", checks=rows)
-    del cases, params4
+    # K5 at the prefill shapes of a chunk of 384 or 512 rows, bits 2 (down
+    # with K padded 11008 -> 11264, silu(g) * u before it) and bits 4 (down
+    # with the SwiGLU fold), and at Phi-3-mini's down (8192 x 3072, bits
+    # 2, unpadded: the SwiGLU fold)
+    gen = torch.Generator(device=card.dev)
+    gen.manual_seed(5)
+    phi3_down = rand_qt_on_card(gen, 8192, 3072, 2, 128, card.dev)
+    cases = [(shape, *k4_args(shape, N, layer)) for layer, Ns in (
+        (layers[0], (384, 512)), (params4["layers"][0], (512,)))
+        for N in Ns for shape in shapes]
+    cases.append(("phi-3 down", card.bf16(512, 2 * 8192), phi3_down,
+                  dict(glu=True, residual=card.bf16(512, 3072))))
+    rows, k5_err = check_k5(card, cases)
+    say("k5_check", tolerance="|kernel - plain| <= sqrt(Kp) * 2^-23 * sum_k |xa * W|",
+        checks=rows)
+    del cases, params4, phi3_down
     head = params["lm_head"]
-    rows, k1_err = check_k1(card, [("head", card.bf16(N, H), head, {})
-                                   for N in (1, 256)])
+    rows, k1_err = check_k1(card, [("head", card.bf16(1, H), head, {})])
     say("k1_check_llama_head", checks=rows)
+    rows, k3_err = check_k3(card, [("head", card.bf16(N, H), head, {})
+                                   for N in (256, LLAMA_CHUNK)])
+    say("k3_check_llama_head", checks=rows)
     k2_rows, k2_err = check_k2(card, cfg.head_dim)
     say("k2_check_llama", checks=k2_rows)
 
-    # K4: 4 linears a layer; K1: the head; K2: one call a layer
+    # the prefill in chunks of LLAMA_CHUNK: K5 on 4 linears a layer, K3 on
+    # the head, a chunk; a decode step: K4 on 4 linears a layer, K1 on the
+    # head, K2 a layer
     L = cfg.num_layers
-    model, cache, launches, step_ms, graph_step_ms = run_path(
-        card, "llama", cfg, params, LLAMA_PROMPT,
-        counts(K1=1, K4=4 * L), counts(K1=1.0, K4=4.0 * L, K2=float(L)))
+    chunks = LLAMA_LONG_PROMPT // LLAMA_CHUNK
+    model, cache, launches, step_ms, graph_step_ms, _ = run_path(
+        card, "llama", cfg, params, LLAMA_LONG_PROMPT,
+        counts(K3=chunks, K5=4 * L * chunks),
+        counts(K1=1.0, K4=4.0 * L, K2=float(L)), chunk=LLAMA_CHUNK,
+        tf_gate=LLAMA_TF_NMSE, tf_last_only=True)
 
     # K4 per call at the decode (N=1, CUDA graphs over the 32 layers'
     # weights, cold in L2) and prefill (N=256, over 4 layers' weights)
@@ -750,11 +1087,25 @@ def llama_path(card):
                     tot[key] += L * row[key]
     say("k4_times", rows=k4_rows, per_step=dict(tot, calls=4 * L))
 
+    # K5 per call at N = 384 and 512 (over 4 layers' weights) beside K4 on
+    # the same calls, and per prefill of LLAMA_LONG_PROMPT tokens
+    k5_rows, k5_tot = [], dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0)
+    for N in (384, LLAMA_CHUNK):
+        for shape in shapes:
+            row = time_k5(card, [k4_args(shape, N, layers[i]) for i in range(min(4, L))])
+            k5_rows.append(dict(shape=shape, per_prefill=L * chunks if N == LLAMA_CHUNK
+                                else 0, **row))
+            if N == LLAMA_CHUNK:
+                for key in k5_tot:
+                    k5_tot[key] += L * chunks * row[key]
+    say("k5_times", rows=k5_rows, per_prefill=dict(k5_tot, calls=4 * L * chunks),
+        card=card.name, nvidia_smi=card.smi)
+
     h_ms, h_plain, h_bound, h_lib = time_head(card, head)
     say("k1_times_llama_head", ms=h_ms, plain_ms=h_plain, bound_ms=h_bound,
         library_ms=h_lib)
 
-    kv_len = LLAMA_PROMPT + (1 + STEPS) // 2
+    kv_len = LLAMA_LONG_PROMPT + (1 + STEPS) // 2
     k2_ms, k2_plain, k2_bound, k2_lib = time_k2(card, cfg, cache, kv_len)
     say("k2_times_llama", kv_len=kv_len, ms=k2_ms, plain_ms=k2_plain,
         bound_ms=k2_bound, library_ms=k2_lib, per_step=L)
@@ -762,6 +1113,13 @@ def llama_path(card):
     say("llama_step", eager_ms=step_ms, graph_ms=graph_step_ms,
         kernel_bound_ms=bound_step, card=card.name, nvidia_smi=card.smi)
     return [
+        dict(name="qgemm_dequant (K5)", path="llama-2-7b", route="cuda",
+             source="tmac_tpu_torch/ops/cuda/csrc/qgemm_large.cu",
+             replaces="tmac_tpu/ops/pallas/qgemm_kernel.py:319",
+             launches=launches["K5"], max_abs_err=k5_err,
+             ms=k5_tot["ms"], plain_ms=k5_tot["plain_ms"],
+             bound_ms=k5_tot["bound_ms"], bound_by=dominant_bound(k5_rows),
+             library_ms=k5_tot["library_ms"]),
         dict(name="qgemm_grouped (K4)", path="llama-2-7b", route="cuda",
              source="tmac_tpu_torch/ops/cuda/csrc/qgemm_grouped.cu",
              replaces="tmac_tpu/ops/pallas/qgemm_kernel.py:567",
@@ -971,10 +1329,11 @@ def mixtral_path(card):
         k4=k4_rows, k1=k1_rows, k2=k2_rows)
 
     # prefill: wqkv and wo, and each expert's gate_up and down at C = 128
-    # slots (K4); decode: 2 experts x (gate_up, down) through K7 a layer
-    model, cache, launches, step_ms, graph_step_ms = run_path(
+    # slots (K4), the head at 256 rows (K3); decode: 2 experts x (gate_up,
+    # down) through K7 a layer
+    model, cache, launches, step_ms, graph_step_ms, _ = run_path(
         card, "mixtral", cfg, params, LLAMA_PROMPT,
-        counts(K1=1, K4=(2 + 2 * E) * L),
+        counts(K3=1, K4=(2 + 2 * E) * L),
         counts(K1=1.0, K4=2.0 * L, K2=float(L), K7=4.0 * L), forced=MOE_FORCED)
 
     # K7 per call at decode (N=1): CUDA graphs of its calls over the 32
@@ -1151,24 +1510,29 @@ def check_kv_modes(card, S, window, lengths):
     return rows, worst
 
 
-def llama_in_mode(cfg, params, mode, plain=False):
-    """Llama with its decode KV-write mode chosen as a user chooses it: the
-    deferred_kv argument, or TMAC_KV_INKERNEL=1 in the environment while
-    the model is made (the mode is resolved once, there)."""
+def llama_in_mode(cfg, params, mode, plain=False, block=False):
+    """Llama with its decode KV-write mode and block mode chosen as a user
+    chooses them: the deferred_kv argument, or TMAC_KV_INKERNEL=1 and
+    TMAC_BLOCK_KERNEL=1 in the environment while the model is made (the
+    modes are resolved once, there)."""
     import os
     from tmac_tpu_torch.models.llama import Llama
-    saved = {n: os.environ.pop(n, None)
-             for n in ("TMAC_KV_INKERNEL", "TMAC_DEFERRED_KV")}
+    names = ("TMAC_KV_INKERNEL", "TMAC_DEFERRED_KV", "TMAC_BLOCK_KERNEL")
+    saved = {n: os.environ.pop(n, None) for n in names}
     try:
         if mode == "inkernel":
             os.environ["TMAC_KV_INKERNEL"] = "1"
+        if block:
+            os.environ["TMAC_BLOCK_KERNEL"] = "1"
         model = Llama(cfg, params, plain=plain,
                       deferred_kv=True if mode == "deferred" else None)
     finally:
-        os.environ.pop("TMAC_KV_INKERNEL", None)
+        for n in names:
+            os.environ.pop(n, None)
         os.environ.update({n: v for n, v in saved.items() if v is not None})
-    if model.kv_mode != mode:
-        raise AssertionError(f"asked for the {mode} mode, got {model.kv_mode}")
+    if model.kv_mode != mode or model.block_mode != block:
+        raise AssertionError(f"asked for the {mode} mode (block {block}), got "
+                             f"{model.kv_mode} (block {model.block_mode})")
     return model
 
 
@@ -1309,7 +1673,7 @@ def phi3_path(card):
         0, cfg.vocab_size, (1, PHI3_PROMPT))).to(dev)
     explicit = llama_in_mode(cfg, params, "explicit")
     chunks = -(-PHI3_PROMPT // 256)
-    want_prefill = counts(K1=chunks, K4=4 * L * chunks)
+    want_prefill = counts(K3=chunks, K4=4 * L * chunks)
     runs = {}
     for name, quant in (("int8", True), ("bf16", False)):
         cache = KVCache.create(cfg, 1, max_len, device=dev, quant=quant)
@@ -1530,7 +1894,8 @@ def main() -> int:
             mangled = ln.split("'")[1]
             base = re.search(r"(act_quant_grouped|act_quant|expert_qgemm|qgemm"
                              r"|flash_decode|flash_partial|flash_combine"
-                             r"|group_dot|fold)_kernel", mangled)
+                             r"|group_dot|fold|large_int|act_bf16|dequant_gemm"
+                             r"|block)_kernel", mangled)
             targs = template_args(mangled)
             kernel = f"{base.group(0) if base else mangled}<{','.join(targs)}>"
         elif "registers" in ln or "spill" in ln:
@@ -1544,10 +1909,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     records += phi3_path(card)
     say("record", unit="device ms per decode step of each path (bitnet-3b: "
-        "105 K1 and 26 K2 launches; llama-2-7b: 128 K4, 1 K1 and 32 K2; "
-        "mixtral-8x7b: 128 K7, 64 K4, 32 K2 and 1 K1; phi-3-mini: 128 K4, "
-        "1 K1 and 32 K6, K8 or K9); launches over each path's prefill + "
-        "decode (phi-3-mini K8, K9: decode only)", card=card.name,
+        "105 K1 and 26 K2 launches, in the block mode 26 K10, 27 K1 and 26 "
+        "K2; llama-2-7b: 128 K4, 1 K1 and 32 K2; mixtral-8x7b: 128 K7, 64 "
+        "K4, 32 K2 and 1 K1; phi-3-mini: 128 K4, 1 K1 and 32 K6, K8 or K9), "
+        "except K3 and K5: device ms per prefill of 1024 tokens (bitnet-3b: "
+        "420 K3 launches in chunks of 256; llama-2-7b: 256 K5 in chunks of "
+        "512); launches over each path's prefill + decode (bitnet-3b K3, "
+        "K10: the block-mode run; phi-3-mini K8, K9: decode only)", card=card.name,
         nvidia_smi=card.smi,
         step_ms=STEP_MS, paths_s=round(time.perf_counter() - t_all, 3))
     print(json.dumps({"kernels": records}), flush=True)

@@ -152,6 +152,7 @@ def test_port_imports_neither_jax_nor_tmac_tpu():
             "tmac_tpu_torch.ops.cuda.qgemm_grouped_kernel, "
             "tmac_tpu_torch.ops.cuda.attention_kernel, "
             "tmac_tpu_torch.ops.cuda.expert_kernel, "
+            "tmac_tpu_torch.ops.cuda.block_kernel, "
             "tmac_tpu_torch.models.moe, "
             "tmac_tpu_torch.convert.from_jax; import sys; "
             "assert 'jax' not in sys.modules and not any("
@@ -183,6 +184,7 @@ def test_kernel_modules_do_not_build_on_import():
         "import torch, tmac_tpu_torch.ops.cuda.build as b\n"
         "from tmac_tpu_torch.ops.cuda import qgemm_kernel, attention_kernel\n"
         "from tmac_tpu_torch.ops.cuda import qgemm_grouped_kernel, expert_kernel\n"
+        "from tmac_tpu_torch.ops.cuda import block_kernel\n"
         "from tmac_tpu_torch.models.moe import stack_experts\n"
         "before = set(b.BUILD_DIR.glob('*.so')) if b.BUILD_DIR.exists() else set()\n"
         "import numpy as np\n"
@@ -190,9 +192,18 @@ def test_kernel_modules_do_not_build_on_import():
         "qt = QuantizedTensor.from_float(np.ones((64, 128), np.float32), 2,"
         " device='cpu')\n"
         "qgemm_kernel.qgemm_fused(torch.ones(1, 64), qt)\n"
+        "qgemm_kernel.qgemm_large_int(torch.ones(64, 64), qt)\n"
+        "sq = QuantizedTensor.from_float(np.ones((128, 128), np.float32), 2,"
+        " device='cpu')\n"
+        "dq = QuantizedTensor.from_float(np.ones((64, 128), np.float32), 2,"
+        " device='cpu')\n"
+        "block_kernel.wo_mlp_block(torch.ones(1, 128, dtype=torch.bfloat16),"
+        " torch.ones(1, 128, dtype=torch.bfloat16),"
+        " torch.ones(128, dtype=torch.bfloat16), sq, sq, dq, 1e-6)\n"
         "gq = QuantizedTensor.from_float(np.ones((256, 128), np.float32), 2, 128,"
         " scale_dtype=torch.bfloat16, device='cpu')\n"
         "qgemm_grouped_kernel.qgemm_grouped(torch.ones(1, 256), gq)\n"
+        "qgemm_grouped_kernel.qgemm_dequant(torch.ones(64, 256), gq)\n"
         "eq = QuantizedTensor.from_float(np.ones((512, 128), np.float32), 2, 128,"
         " scale_dtype=torch.bfloat16, device='cpu')\n"
         "expert_kernel.qgemm_expert(torch.ones(1, 512), stack_experts([eq, eq]), 1)\n"
@@ -202,8 +213,37 @@ def test_kernel_modules_do_not_build_on_import():
         "after = set(b.BUILD_DIR.glob('*.so')) if b.BUILD_DIR.exists() else set()\n"
         "assert not b._loaded and before == after\n"
         "assert qgemm_kernel.qgemm_fused.launches == 0\n"
+        "assert qgemm_kernel.qgemm_large_int.launches == 0\n"
+        "assert qgemm_grouped_kernel.qgemm_dequant.launches == 0\n"
+        "assert block_kernel.wo_mlp_block.launches == 0\n"
         "assert qgemm_grouped_kernel.qgemm_grouped.launches == 0\n"
         "assert expert_kernel.qgemm_expert.launches == 0\n"
         "assert attention_kernel.flash_decode.launches == 0\n")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
                    timeout=120)
+
+
+def test_ctypes_signatures_match_the_c_interfaces():
+    """Every extern "C" function of the CUDA sources is declared to ctypes
+    with as many arguments as it takes (a missing or extra one would pass
+    the wrong values at the first launch on the card, where no CPU test
+    reaches)."""
+    import re
+    csrc = ROOT / "tmac_tpu_torch" / "ops" / "cuda"
+    c_args = {}
+    for f in (csrc / "csrc").glob("*.cu"):
+        for name, params in re.findall(r'extern "C" int (\w+)\(([^)]*)\)',
+                                       f.read_text()):
+            c_args[name] = len([p for p in params.split(",") if p.strip()])
+    py_args = {}
+    names = {"_c_ptr": "p", "_c_int": "i", "_c_float": "f"}
+    for f in csrc.glob("*.py"):
+        for node in ast.walk(ast.parse(f.read_text())):
+            if isinstance(node, ast.Assign) and isinstance(
+                    node.targets[0], ast.Attribute) and \
+                    node.targets[0].attr == "argtypes":
+                value = eval(compile(ast.Expression(node.value), str(f), "eval"),
+                             dict(names))
+                py_args[node.targets[0].value.attr] = len(value)
+    assert py_args and set(py_args) == set(c_args), (set(py_args) ^ set(c_args))
+    assert py_args == c_args

@@ -1,6 +1,7 @@
-"""Kernel K1's plain version against the JAX package's fused Pallas qgemm
-(qgemm_pallas act="fused", interpret mode on CPU), and the layout contract
-between K1's prologue and its matmul."""
+"""Kernels K1's and K3's plain version against the JAX package's fused
+Pallas qgemm (qgemm_pallas act="fused", interpret mode on CPU: its small-N
+kernel below 64 rows, its XLA prologue and single-dot kernel from 64), and
+the layout contracts between K1's prologue and the two matmuls."""
 
 import jax
 import jax.numpy as jnp
@@ -16,8 +17,10 @@ from tmac_tpu_torch.models.llama import quantize_activations_int8
 from tmac_tpu_torch.ops.cuda.qgemm_kernel import (act_quant_plain,
                                                   dp4a_order, int_dot_plain,
                                                   qgemm_fused,
-                                                  qgemm_fused_plain)
-from tmac_tpu_torch.ops.qgemm import QuantizedTensor, fuse_m, qgemm, unpack_codes
+                                                  qgemm_fused_plain,
+                                                  qgemm_large_int)
+from tmac_tpu_torch.ops.qgemm import (QuantizedTensor, fuse_m, kernel_for,
+                                      qgemm, unpack_codes)
 from tmac_tpu_torch.utils import nmse
 
 torch.set_num_threads(2)
@@ -74,10 +77,16 @@ CASES = [
     (8, 1, 256, (500,), False, False, False),       # lm head form
     (8, 16, 256, (500,), False, False, False),
     (8, 1, 300, (256,), True, False, True),
-    (2, 72, 256, (384,), False, False, False),    # the N >= 64 route
+    (2, 72, 256, (384,), False, False, False),    # the N >= 64 route: K3
     (2, 72, 256, (256,), False, False, True),
     (2, 72, 512, (256,), False, True, True),
     (8, 72, 256, (500,), False, False, False),
+    (2, 64, 256, (256, 256, 256), True, False, False),  # K3: wqkv form
+    (2, 256, 256, (256,), False, False, True),          # wo form
+    (2, 64, 256, (512, 512), True, False, False),       # gate_up form
+    (2, 256, 512, (256,), False, True, True),           # down form
+    (8, 256, 256, (500,), False, False, False),         # the int8 head
+    (8, 64, 256, (256,), True, False, True),
 ]
 
 
@@ -100,7 +109,9 @@ def test_plain_k1_matches_pallas_fused(bits, N, K, Ms, norm, glu, residual):
         kw_j["residual"] = jnp.asarray(r, jnp.bfloat16)
         kw_t["residual"] = torch.from_numpy(r).to(torch.bfloat16)
     want = pallas_fused(xb, jqt, **kw_j)
-    got = qgemm_fused(xt, qt, **kw_t).numpy()
+    kernel = kernel_for(qt, N)
+    assert kernel is (qgemm_large_int if N >= 64 else qgemm_fused)
+    got = kernel(xt, qt, **kw_t).numpy()
     assert got.shape == want.shape == (N, sum(Ms))
     if norm or glu:
         # XLA's CPU rsqrt (a hardware estimate refined by Newton steps) and
@@ -193,6 +204,14 @@ def test_wrapper_dispatch_and_limits():
         qgemm_fused(x, padded, residual=torch.zeros(2, 200))
     with pytest.raises(ValueError):  # K1 folds a bf16 residual only
         qgemm_fused(x, qt, residual=torch.zeros(2, 384))
+    # K1 takes N < 64 rows and K3 the rest, on the CPU as on the card
+    x64 = torch.zeros((64, 256))
+    with pytest.raises(ValueError, match="K3"):
+        qgemm_fused(x64, qt)
+    with pytest.raises(ValueError, match="K1"):
+        qgemm_large_int(x, qt)
+    assert torch.equal(qgemm(x64, qt, out_dtype=torch.float32),
+                       qgemm_large_int(x64, qt))
 
 
 @pytest.mark.parametrize("case", ["grouped", "grouped_bits3", "int8_x"])

@@ -44,15 +44,16 @@ def _pair(rng, bits, K, Ms, gs=GS):
     return fuse_m(ts), jfuse_m(js)
 
 
-def _pallas(xb, jqt, norm=None, glu=False, residual=None):
+def _pallas(xb, jqt, norm=None, glu=False, residual=None, dispatch=None):
     """qgemm_pallas(act="fused") compiled as the model runs it (inside jit),
     on the route its N picks: fused chunk kernel below 64 rows, XLA
-    prologue + external-int8 chunk kernel from 64."""
+    prologue + external-int8 chunk kernel from 64, the dequant kernel from
+    3 * GS rows (or as dispatch says)."""
     eps = None if norm is None else norm[1]
 
     def f(x, q, w, r):
         return qgemm_pallas(x, q, out_dtype=jnp.float32, interpret=True,
-                            act="fused", glu=glu, residual=r,
+                            act="fused", glu=glu, residual=r, dispatch=dispatch,
                             norm=None if w is None else (w, eps))
     return np.asarray(jax.jit(f)(xb, jqt, None if norm is None else norm[0],
                                  residual))
@@ -129,6 +130,36 @@ def test_plain_k4_matches_pallas(bits, N, K, Ms, norm, glu, residual):
     w64 = unpack_codes(qt).numpy().astype(np.int64).reshape(G, GS, -1)
     c64 = codes.numpy().astype(np.int64).reshape(N, G, GS)
     np.testing.assert_array_equal(parts, np.einsum("ngk,gkm->gnm", c64, w64))
+
+
+@pytest.mark.parametrize("bits", [2, 4])
+def test_grouped_route_at_384_rows_matches_pallas(bits):
+    """At N = 3 * GS rows with dispatch=None the reference takes its
+    dequant kernel (bf16 activations times bf16 dequantized weights), and
+    so must the port's qgemm and every grouped linear of its model: the
+    same bf16 operands, the f32 sums in another order (measured NMSE
+    ~1e-14; K4's int8-activation function differs by ~1e-5)."""
+    from tmac_tpu_torch.models.llama import apply_qlinear
+    rng = np.random.default_rng(bits + 11)
+    qt, jqt = _pair(rng, bits, 512, (256,))
+    x = rng.standard_normal((3 * GS, 512)).astype(np.float32)
+    r = rng.standard_normal((3 * GS, 256)).astype(np.float32)
+    xt = torch.from_numpy(x).to(torch.bfloat16)
+    rt = torch.from_numpy(r).to(torch.bfloat16)
+    want = _pallas(jnp.asarray(x, jnp.bfloat16), jqt,
+                   residual=jnp.asarray(r, jnp.bfloat16))
+    got = qgemm(xt, qt, impl="fused", out_dtype=torch.float32, residual=rt)
+    assert nmse(want, got.numpy()) <= 1e-10
+    assert torch.equal(apply_qlinear(xt[None], qt, residual=rt[None])[0],
+                       got.to(torch.bfloat16))
+    # dispatch="chunk" keeps K4's function, as in the reference
+    chunk = qgemm(xt, qt, impl="fused", out_dtype=torch.float32, residual=rt,
+                  dispatch="chunk")
+    np.testing.assert_array_equal(
+        chunk.numpy(), _pallas(jnp.asarray(x, jnp.bfloat16), jqt,
+                               residual=jnp.asarray(r, jnp.bfloat16),
+                               dispatch="chunk"))
+    assert nmse(want, chunk.numpy()) > 1e-7
 
 
 @pytest.mark.parametrize("bits", [2, 4])

@@ -5,18 +5,23 @@ optional sliding window (Phi-3-mini) and a bf16 or int8 KV cache: w_a8
 (BitNet W1.58A8, per-tensor scales) and w_fp with grouped scales (e.g.
 Llama-2-7B W2A16 / W4A16 g128, bits 2 and 4), dense or MoE (Mixtral-8x7B:
 the MLP is models/moe.py's moe_mlp, whose decode form runs kernel K7).
-Every quantized linear goes through a kernel with the JAX package's pallas
-semantics: K1 (ops/cuda/qgemm_kernel.py) for per-tensor scales, K4
-(ops/cuda/qgemm_grouped_kernel.py) for grouped ones, with activations
-quantized to int8 inside the kernel, rms_norm folded into wqkv and
-gate_up, the residual into wo and down, and SwiGLU into down where down's
-K is unpadded (elsewhere silu(g) * u runs in bf16 torch ops before down,
-as in JAX).  Decode attention goes through ops/cuda/attention_kernel.py:
+Every quantized linear goes through the kernel that the JAX package's
+pallas path runs for its weights and rows (ops.qgemm.route): for
+per-tensor scales K1 (ops/cuda/qgemm_kernel.py) below 64 rows and K3 from
+64, for grouped ones K4 (ops/cuda/qgemm_grouped_kernel.py) and, from
+3 * group_size rows (a prefill chunk of 384 or more at g128), K5, with
+rms_norm folded into wqkv and gate_up, the residual into wo and down, and
+SwiGLU into down where down's K is unpadded (elsewhere silu(g) * u runs in
+bf16 torch ops before down, as in JAX).  With TMAC_BLOCK_KERNEL=1 a
+BitNet decode step runs each layer's wo + residual -> rms_norm -> gate_up
+-> SwiGLU -> down + residual in one program, K10
+(ops/cuda/block_kernel.py), as JAX does then.  Decode attention goes
+through ops/cuda/attention_kernel.py:
 K2 on a bf16 cache without a window, K6 on an int8 cache or with a window,
 or, in the deferred and in-kernel KV-write modes (``Llama``), K8 and K9;
 prefill attention is a masked softmax in f32 torch ops, as the JAX package
-leaves it to XLA.  The int8 lm head is K1
-with bits=8 and no folds, after a separate bf16 rms_norm.
+leaves it to XLA.  The int8 lm head is K1 (K3 from 64 rows) with bits=8
+and no folds, after a separate bf16 rms_norm.
 
 Parameters are a plain dict tree (``init_params``, or
 ``convert.from_jax.params_from_numpy``) that ``Llama`` holds as buffers.
@@ -40,10 +45,9 @@ from tmac_tpu_torch.ops.cuda.attention_kernel import (
     flash_decode, flash_decode_append, flash_decode_append_plain,
     flash_decode_append_write, flash_decode_append_write_plain,
     flash_decode_plain, quantize_kv)
-from tmac_tpu_torch.ops.cuda.qgemm_grouped_kernel import (qgemm_grouped,
-                                                          qgemm_grouped_plain)
-from tmac_tpu_torch.ops.cuda.qgemm_kernel import qgemm_fused, qgemm_fused_plain
-from tmac_tpu_torch.ops.qgemm import QuantizedTensor, fuse_m
+from tmac_tpu_torch.ops.cuda.block_kernel import (wo_mlp_block,
+                                                  wo_mlp_block_plain)
+from tmac_tpu_torch.ops.qgemm import QuantizedTensor, fuse_m, kernel_for
 from tmac_tpu_torch.utils import round_up
 
 
@@ -56,26 +60,22 @@ def quantize_activations_int8(x: torch.Tensor):
     return q, scale[..., None]
 
 
-def linear_kernel(qt: QuantizedTensor, plain: bool = False):
-    """The kernel wrapper for a quantized linear: K4 for grouped scales, K1
-    for per-tensor ones; with plain=True, its plain PyTorch version."""
-    if qt.scales.shape[0] > 1:
-        return qgemm_grouped_plain if plain else qgemm_grouped
-    return qgemm_fused_plain if plain else qgemm_fused
-
-
 def apply_qlinear(x: torch.Tensor, qt: QuantizedTensor, norm=None,
                   glu: bool = False, residual=None, plain: bool = False):
     """x (..., K) @ Wdq (K, M) -> (..., M) in x's dtype, with the JAX
-    package's pallas semantics: int8 activations quantized inside the
-    kernel (per token, or per token and scale group; after the optional
-    norm or SwiGLU fold), exact int32 dots, optional residual added in the
-    epilogue."""
+    package's pallas semantics on its route for the rows of x
+    (ops.qgemm.kernel_for; plain=True takes the kernel's plain version):
+    int8 activations quantized inside the kernel (per token, or per token
+    and scale group; after the optional norm or SwiGLU fold) and exact
+    int32 dots, or, for grouped scales from 3 * group_size rows, bf16
+    activations times bf16 dequantized weights; the optional residual
+    added in the epilogue."""
     shape = x.shape
     x2 = x.reshape(-1, shape[-1])
     res2 = residual.reshape(-1, residual.shape[-1]) \
         if residual is not None else None
-    out = linear_kernel(qt, plain)(x2, qt, norm=norm, glu=glu, residual=res2)
+    out = kernel_for(qt, x2.shape[0], plain)(x2, qt, norm=norm, glu=glu,
+                                             residual=res2)
     return out.reshape(*shape[:-1], qt.mdim).to(x.dtype)
 
 
@@ -417,6 +417,23 @@ def kv_write_mode(deferred_kv: Optional[bool] = None) -> str:
     return "explicit"
 
 
+def block_kernel_gate(cfg: ModelConfig, blk: Block) -> bool:
+    """Whether a one-token, one-sequence step runs the layer's residual
+    block as K10 in block mode: the JAX package's gate (w_a8, no experts,
+    per-tensor wo, gate_up and down at bits 1, 2 or 4, unpadded as the
+    kernel needs).  As there, wo's K is not checked here, and the kernel
+    raises where the reference's asserts fail."""
+    wo, gu, down = blk.wo.qt, blk.gate_up.qt, blk.down.qt
+    hidden = cfg.hidden_size
+    return (cfg.quant.mode == "w_a8" and not cfg.num_experts
+            and all(t.scales.shape[0] == 1 for t in (wo, gu, down))
+            and wo.bits in (1, 2, 4) and wo.kdim_padded == wo.kdim
+            and wo.mdim_padded == wo.mdim == hidden
+            and down.kdim_padded == down.kdim
+            and down.mdim_padded == down.mdim == hidden
+            and gu.mdim_padded == 2 * down.kdim)
+
+
 class Llama(nn.Module):
     """The transformer over a params tree (dense or MoE MLPs).
 
@@ -431,7 +448,11 @@ class Llama(nn.Module):
 
     deferred_kv and the environment choose the decode step's KV-write mode
     once, here (kv_write_mode), so that a captured CUDA graph holds one
-    mode; a prefill (T > 1) always writes explicitly, as in JAX."""
+    mode; a prefill (T > 1) always writes explicitly, as in JAX.  So is
+    the block mode (TMAC_BLOCK_KERNEL=1 while the model is made, off by
+    default, as the JAX package reads it): a step of one token and one
+    sequence then runs each layer that block_kernel_gate admits through
+    K10."""
 
     def __init__(self, cfg: ModelConfig, params: Dict[str, Any],
                  plain: bool = False, deferred_kv: Optional[bool] = None):
@@ -440,6 +461,7 @@ class Llama(nn.Module):
         self.cfg = cfg
         self.plain = plain
         self.kv_mode = kv_write_mode(deferred_kv)
+        self.block_mode = os.environ.get("TMAC_BLOCK_KERNEL", "0") == "1"
         self.attend = {
             "explicit": (flash_decode_plain, flash_decode),
             "deferred": (flash_decode_append_plain, flash_decode_append),
@@ -563,6 +585,15 @@ class Llama(nn.Module):
             else:
                 attn = self._prefill_attention(q, cache, li, positions,
                                                kv_len_mask)
+            if B == 1 and T == 1 and self.block_mode and \
+                    block_kernel_gate(cfg, blk):
+                # wo + residual, norm, gate_up, SwiGLU, down + residual in
+                # one program (K10), its f32 output cast to the stream's bf16
+                block = wo_mlp_block_plain if plain else wo_mlp_block
+                x = block(attn.reshape(1, -1), x.reshape(1, -1), blk.mlp_norm,
+                          blk.wo.qt, blk.gate_up.qt, blk.down.qt,
+                          eps).reshape(B, T, -1).to(x.dtype)
+                continue
             x = apply_qlinear(attn, blk.wo.qt, residual=x, plain=plain)
             if cfg.num_experts:
                 # MoE MLP (models/moe.py): norm, routing and the experts;
@@ -584,6 +615,6 @@ class Llama(nn.Module):
             self._commit_kv(cache, *(torch.stack(t) for t in zip(*pending)))
         x = rms_norm(x, self.final_norm, eps)
         head = self.lm_head.qt
-        logits = linear_kernel(head, plain)(x.reshape(B * T, -1), head)
+        logits = kernel_for(head, B * T, plain)(x.reshape(B * T, -1), head)
         cache.pos += T
         return logits.reshape(B, T, head.mdim), cache

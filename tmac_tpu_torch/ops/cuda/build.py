@@ -9,9 +9,9 @@ and the flags (and of the shared headers, ``csrc/*.cuh``), so an edited
 source is rebuilt.  A failed build raises with
 nvcc's output.
 
-No ``--use_fast_math``: the activation quantization in qgemm_fused.cu,
-qgemm_grouped.cu and qgemm_expert.cu depends on IEEE division, square root
-and ``rintf``.
+No ``--use_fast_math``: the activation prologues (qgemm_fused.cu,
+qgemm_grouped.cu, qgemm_expert.cu, qgemm_large.cu, block_kernel.cu) depend
+on IEEE division, square root, ``expf`` and ``rintf``.
 """
 
 from __future__ import annotations
@@ -26,7 +26,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "_build"
-SOURCES = ("qgemm_fused", "qgemm_grouped", "qgemm_expert", "flash_decode")
+SOURCES = ("qgemm_fused", "qgemm_grouped", "qgemm_expert", "flash_decode",
+           "qgemm_large", "block_kernel")
 # -Xptxas -v only reports each kernel's registers, shared memory and spills
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

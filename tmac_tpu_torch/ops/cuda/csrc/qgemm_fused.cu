@@ -11,11 +11,13 @@
 //        codes rint(x / xs) clamped to +-127) and their sum
 //     -> exact int32 dot with the packed weights
 //     -> the f32 epilogue, (N, Mp), in the form the JAX reference compiles
-//        to on its route for N (XLA contracts one multiply-add of each into
-//        an FMA; q = the code sum):
-//          N < 64:   fma(acc * scale, xs, -(q * xs) * sub) (+ residual)
-//          N >= 64:  fma(acc, scale, -q * sub) * xs, or
-//                    fma(fma(acc, scale, -q * sub), xs, residual)
+//        to for N < 64 (XLA contracts one multiply-add into an FMA; q = the
+//        code sum): fma(acc * scale, xs, -(q * xs) * sub) (+ residual).
+//
+// The matmul serves N < 64 rows, the reference's small-N route.  From 64
+// rows the reference takes another kernel, K3 (qgemm_large.cu), which runs
+// on this file's prologue with large_n set (the bare code sum, for K3's
+// epilogue).
 //
 // What bounds it: at decode (N = 1) each packed weight byte is read once
 // and feeds 4 (bits=2) or 1 (bits=8) multiply-adds, far below the card's
@@ -54,29 +56,6 @@ constexpr int kTY = 32;           // packed-row slices of a block
 constexpr int kCols = 4 * kTX;    // output columns of a block
 constexpr int kRowsMany = 8;      // output rows of a block when N > 1
 
-struct SumOp {
-  __device__ int operator()(int a, int b) const { return a + b; }
-};
-
-struct MaxOp {
-  __device__ float operator()(float a, float b) const { return fmaxf(a, b); }
-};
-
-// Reduction over the whole block; every thread gets the result: an xor
-// butterfly within each warp, then the warps' values in warp order.  `red`
-// holds one value per warp and is free again on return.
-template <typename T, typename Op>
-__device__ T block_reduce(T v, Op op, T* red) {
-  for (int o = 16; o > 0; o >>= 1) v = op(v, __shfl_xor_sync(0xffffffffu, v, o));
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  T r = red[0];
-  for (int w = 1; w < (int)(blockDim.x >> 5); ++w) r = op(r, red[w]);
-  __syncthreads();
-  return r;
-}
-
 __global__ void __launch_bounds__(kQuantThreads) act_quant_kernel(
     const __nv_bfloat16* __restrict__ x, int x_cols, int K, int Kp, int glu,
     const __nv_bfloat16* __restrict__ norm_w, float eps, float inv_norm_k,
@@ -102,7 +81,7 @@ __global__ void __launch_bounds__(kQuantThreads) act_quant_kernel(
     if (norm_w != nullptr && k < K) v = v * rs * __bfloat162float(norm_w[k]);
     amax = fmaxf(amax, fabsf(v));
   }
-  amax = block_reduce(amax, MaxOp(), redf);
+  amax = tmac::block_reduce(amax, tmac::MaxOp(), redf);
   // the row scale as the JAX package's compiled graph computes it: XLA
   // folds its division by 127 into a multiply by the f32 reciprocal
   const float sc = __fmul_rn(fmaxf(amax, 1e-20f), 1.0f / 127.0f);
@@ -118,7 +97,7 @@ __global__ void __launch_bounds__(kQuantThreads) act_quant_kernel(
     // bits=2: byte j of word r holds k = r + j*nq, like the packed fields
     cr[bits == 8 ? k : (k % nq) * 4 + k / nq] = (int8_t)q;
   }
-  qsum = block_reduce(qsum, SumOp(), redi);
+  qsum = tmac::block_reduce(qsum, tmac::SumOp(), redi);
   if (threadIdx.x == 0) {
     xs[n] = sc;
     // the N >= 64 epilogue takes the bare code sum, the other the
@@ -127,29 +106,12 @@ __global__ void __launch_bounds__(kQuantThreads) act_quant_kernel(
   }
 }
 
-// out[i] = byte i of a, b, c, d, in that order (a 4x4 byte transpose).
-__device__ __forceinline__ void transpose4(uint32_t a, uint32_t b, uint32_t c,
-                                           uint32_t d, uint32_t out[4]) {
-  const uint32_t ab_lo = __byte_perm(a, b, 0x5140);  // a0 b0 a1 b1
-  const uint32_t cd_lo = __byte_perm(c, d, 0x5140);
-  const uint32_t ab_hi = __byte_perm(a, b, 0x7362);  // a2 b2 a3 b3
-  const uint32_t cd_hi = __byte_perm(c, d, 0x7362);
-  out[0] = __byte_perm(ab_lo, cd_lo, 0x5410);        // a0 b0 c0 d0
-  out[1] = __byte_perm(ab_lo, cd_lo, 0x7632);
-  out[2] = __byte_perm(ab_hi, cd_hi, 0x5410);
-  out[3] = __byte_perm(ab_hi, cd_hi, 0x7632);
-}
-
-__device__ __forceinline__ uint32_t ldg32(const uint8_t* p) {
-  return __ldg(reinterpret_cast<const uint32_t*>(p));
-}
-
 template <int BITS, int NT>
 __global__ void __launch_bounds__(kTX * kTY) qgemm_kernel(
     const int32_t* __restrict__ xq, const float* __restrict__ xs,
     const float* __restrict__ xsum, int N, int nq,
     const uint8_t* __restrict__ packed, const float* __restrict__ scales,
-    const float* __restrict__ sub, int Mp, int large_n,
+    const float* __restrict__ sub, int Mp,
     const __nv_bfloat16* __restrict__ residual, float* __restrict__ out) {
   __shared__ int red[kTY][NT][kCols];
   const int tx = threadIdx.x % kTX, ty = threadIdx.x / kTX;
@@ -167,15 +129,7 @@ __global__ void __launch_bounds__(kTX * kTY) qgemm_kernel(
 #pragma unroll 4
   for (int q = ty; q < nq; q += kTY) {
     uint32_t col[4];  // col[c]: the 4 weights of column m0 + c for word q
-    if (BITS == 2) {
-      const uint32_t w = ldg32(packed + (size_t)q * Mp + m0);
-      transpose4(w & 0x03030303u, (w >> 2) & 0x03030303u,
-                 (w >> 4) & 0x03030303u, (w >> 6) & 0x03030303u, col);
-    } else {
-      const uint8_t* p = packed + (size_t)(4 * q) * Mp + m0;
-      transpose4(ldg32(p), ldg32(p + Mp), ldg32(p + 2 * (size_t)Mp),
-                 ldg32(p + 3 * (size_t)Mp), col);
-    }
+    tmac::unpack_cols<BITS>(packed, q, Mp, m0, col);
 #pragma unroll
     for (int n = 0; n < NT; ++n) {
       if (n < nrows) {
@@ -202,17 +156,9 @@ __global__ void __launch_bounds__(kTX * kTY) qgemm_kernel(
     // f32 epilogue as the reference compiles it (header), each step
     // rounded on its own or fused exactly where it fuses
     const float zero_fold = -__fmul_rn(xsum[row], sub[m]);
-    float o;
-    if (large_n) {
-      const float c = __fmaf_rn((float)s, scales[m], zero_fold);
-      o = residual != nullptr
-              ? __fmaf_rn(c, xs[row], __bfloat162float(residual[row * Mp + m]))
-              : __fmul_rn(c, xs[row]);
-    } else {
-      o = __fmaf_rn(__fmul_rn((float)s, scales[m]), xs[row], zero_fold);
-      if (residual != nullptr)
-        o = __fadd_rn(o, __bfloat162float(residual[row * Mp + m]));
-    }
+    float o = __fmaf_rn(__fmul_rn((float)s, scales[m]), xs[row], zero_fold);
+    if (residual != nullptr)
+      o = __fadd_rn(o, __bfloat162float(residual[row * Mp + m]));
     out[row * Mp + m] = o;
   }
 }
@@ -220,24 +166,24 @@ __global__ void __launch_bounds__(kTX * kTY) qgemm_kernel(
 template <int BITS>
 void launch_gemm(const int32_t* xq, const float* xs, const float* xsum, int N,
                  int nq, const uint8_t* packed, const float* scales,
-                 const float* sub, int Mp, int large_n,
-                 const __nv_bfloat16* residual, float* out,
-                 cudaStream_t stream) {
+                 const float* sub, int Mp, const __nv_bfloat16* residual,
+                 float* out, cudaStream_t stream) {
   const dim3 block(kTX * kTY);
   if (N == 1) {
     qgemm_kernel<BITS, 1><<<dim3(Mp / kCols, 1), block, 0, stream>>>(
-        xq, xs, xsum, N, nq, packed, scales, sub, Mp, large_n, residual, out);
+        xq, xs, xsum, N, nq, packed, scales, sub, Mp, residual, out);
   } else {
     const int ny = (N + kRowsMany - 1) / kRowsMany;
     qgemm_kernel<BITS, kRowsMany><<<dim3(Mp / kCols, ny), block, 0, stream>>>(
-        xq, xs, xsum, N, nq, packed, scales, sub, Mp, large_n, residual, out);
+        xq, xs, xsum, N, nq, packed, scales, sub, Mp, residual, out);
   }
 }
 
 }  // namespace
 
-// Prologue: x (N, x_cols) bf16 -> codes (N, Kp) int8 in dp4a grouping,
-// xs (N,) and xsum (N,) f32 (the code sum, times xs unless large_n).
+// Prologue (K1's, and K3's with large_n): x (N, x_cols) bf16 -> codes
+// (N, Kp) int8 in dp4a grouping, xs (N,) and xsum (N,) f32 (the code sum,
+// times xs unless large_n).
 // norm_w (K,) bf16 or null.  Returns the CUDA error of the launch (0 on
 // success).
 extern "C" int tmac_act_quant(const void* x, int N, int x_cols, int K, int Kp,
@@ -255,24 +201,25 @@ extern "C" int tmac_act_quant(const void* x, int N, int x_cols, int K, int Kp,
   return (int)cudaGetLastError();
 }
 
-// Matmul: codes (N, Kp) from tmac_act_quant, packed (Kp/4, Mp) (bits=2) or
-// (Kp, Mp) (bits=8) uint8, scales/sub (Mp,) f32, residual (N, Mp) bf16 or
-// null -> out (N, Mp) f32.  Mp must be a multiple of 32.  large_n picks the
-// epilogue of the reference's N >= 64 route (the prologue's must match).
+// Matmul: codes (N, Kp) from tmac_act_quant (large_n off), packed (Kp/4,
+// Mp) (bits=2) or (Kp, Mp) (bits=8) uint8, scales/sub (Mp,) f32, residual
+// (N, Mp) bf16 or null -> out (N, Mp) f32.  1 <= N < 64; Mp a multiple of
+// 32.
 extern "C" int tmac_qgemm(const void* codes, const float* xs,
                           const float* xsum, int N, int Kp, int bits,
                           const void* packed, const float* scales,
-                          const float* sub, int Mp, int large_n,
-                          const void* residual, float* out, void* stream) {
-  if (N <= 0 || Kp % 4 != 0 || Mp % kCols != 0) return (int)cudaErrorInvalidValue;
+                          const float* sub, int Mp, const void* residual,
+                          float* out, void* stream) {
+  if (N <= 0 || N >= 64 || Kp % 4 != 0 || Mp % kCols != 0)
+    return (int)cudaErrorInvalidValue;
   const int32_t* xq = static_cast<const int32_t*>(codes);
   const uint8_t* pk = static_cast<const uint8_t*>(packed);
   const __nv_bfloat16* res = static_cast<const __nv_bfloat16*>(residual);
   cudaStream_t s = (cudaStream_t)stream;
   if (bits == 2) {
-    launch_gemm<2>(xq, xs, xsum, N, Kp / 4, pk, scales, sub, Mp, large_n, res, out, s);
+    launch_gemm<2>(xq, xs, xsum, N, Kp / 4, pk, scales, sub, Mp, res, out, s);
   } else if (bits == 8) {
-    launch_gemm<8>(xq, xs, xsum, N, Kp / 4, pk, scales, sub, Mp, large_n, res, out, s);
+    launch_gemm<8>(xq, xs, xsum, N, Kp / 4, pk, scales, sub, Mp, res, out, s);
   } else {
     return (int)cudaErrorInvalidValue;
   }

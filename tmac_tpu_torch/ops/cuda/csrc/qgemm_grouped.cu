@@ -63,18 +63,6 @@ constexpr int kFoldThreads = 32;   // the fold is a per-thread chain: small bloc
 constexpr int kFoldAhead = 16;   // groups whose loads the fold issues together
 constexpr int kMaxGroups = 512;  // the fold keeps a row's xs and xsum in shared memory
 
-// The prologue's value at column k (zero past the logical K): glu, then
-// rms_norm, each step rounded on its own.
-__device__ __forceinline__ float act_value(const __nv_bfloat16* xr, int k,
-                                           int K, int glu,
-                                           const __nv_bfloat16* norm_w,
-                                           float rs) {
-  float v = tmac::glu_value(xr, k, K, glu);
-  if (norm_w != nullptr && k < K)
-    v = __fmul_rn(__fmul_rn(v, rs), __bfloat162float(norm_w[k]));
-  return v;
-}
-
 __global__ void __launch_bounds__(kQuantThreads) act_quant_grouped_kernel(
     const __nv_bfloat16* __restrict__ x, int x_cols, int K, int Kp, int gs,
     int glu, const __nv_bfloat16* __restrict__ norm_w, float eps,
@@ -94,7 +82,7 @@ __global__ void __launch_bounds__(kQuantThreads) act_quant_grouped_kernel(
   int8_t* cr = codes + (size_t)n * Kp;
   for (int g = warp; g < G; g += kQuantThreads / 32)
     tmac::quant_group_warp(
-        [&](int k) { return act_value(xr, k, K, glu, norm_w, rs); }, g * gs,
+        [&](int k) { return tmac::prologue_value(xr, k, K, glu, norm_w, rs); }, g * gs,
         gs, cr, xs + (size_t)n * G + g, xsum + (size_t)n * G + g);
 }
 

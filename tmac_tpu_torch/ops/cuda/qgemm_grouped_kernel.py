@@ -1,19 +1,24 @@
-"""Kernel K4: per-group activation quantization + grouped-scale packed
-low-bit matmul.
+"""Kernels K4 and K5: grouped-scale packed low-bit matmuls.
 
-Replaces the grouped chunk path of
+K4 replaces the grouped chunk path of
 ``tmac_tpu/ops/pallas/qgemm_kernel.py::_make_kernel`` (G > 1 scale groups,
 activations quantized to int8 per (token, weight group)): the fused form
 that ``qgemm_pallas(act="fused")`` takes for N < 64 and the external-int8
-form (``grouped_int=True``) that it takes for N >= 64.  Both compute the
-same function, which the CUDA C++ in ``csrc/qgemm_grouped.cu`` computes
-for Hopper; that source says what bounds the kernel on the card and how
-its design answers it.
+form (``grouped_int=True``) that it takes from 64 rows with dispatch
+"chunk", or below 3 * group_size rows.  Both compute the same function,
+which the CUDA C++ in ``csrc/qgemm_grouped.cu`` computes for Hopper.
 
-``qgemm_grouped`` is the wrapper: a CPU tensor goes to the plain PyTorch
-version ``qgemm_grouped_plain``, a CUDA tensor to the kernel, which either
-launches or raises.  ``qgemm_grouped.launches`` counts calls that launched
-the kernel (the prologue, the group dots and the fold together).
+K5 replaces its ``dequant_dot`` path, which the same call takes from 64
+rows with dispatch "dequant", or from 3 * group_size rows (the route is
+``ops.qgemm.route``): the prologue's values rounded to bf16, times the
+weights dequantized to bf16, in one f32 dot (``csrc/qgemm_large.cu``).
+
+Each source says what bounds its kernel on the card and how its design
+answers it.  ``qgemm_grouped`` (K4) and ``qgemm_dequant`` (K5) are the
+wrappers: a CPU tensor goes to the plain PyTorch version
+(``qgemm_grouped_plain``, ``qgemm_dequant_plain``), a CUDA tensor to the
+kernel, which either launches or raises.  Each wrapper's ``launches``
+counts calls that launched its kernel (prologue and matmul together).
 Bits 2 and 4 are ported; bits 1 and 3 and an activation group size finer
 than the weight groups are not.
 """
@@ -33,16 +38,17 @@ from tmac_tpu_torch.utils import fma_f32
 _c_ptr, _c_int, _c_float = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
-def _check_supported(qt: QuantizedTensor, glu: bool, norm, residual) -> None:
+def _check_supported(qt: QuantizedTensor, glu: bool, norm, residual,
+                     kernel: str = "K4") -> None:
     if qt.bits not in (2, 4):
-        raise ValueError(f"K4 takes bits 2 and 4, not {qt.bits}")
+        raise ValueError(f"{kernel} takes bits 2 and 4, not {qt.bits}")
     if qt.scales.shape[0] < 2 or qt.k_shards != 1:
-        raise ValueError("K4 takes grouped scales (G > 1) and k_shards == 1")
+        raise ValueError(f"{kernel} takes grouped scales (G > 1) and k_shards == 1")
     if qt.group_size % 32:
-        raise ValueError(f"K4 takes a group size that is a multiple of 32, "
-                         f"not {qt.group_size}")
+        raise ValueError(f"{kernel} takes a group size that is a multiple of "
+                         f"32, not {qt.group_size}")
     if qt.scales.dtype != torch.bfloat16 or qt.sub.dtype != torch.bfloat16:
-        raise ValueError("K4 takes bf16 scales and sub")
+        raise ValueError(f"{kernel} takes bf16 scales and sub")
     if glu and (norm is not None or qt.kdim_padded != qt.kdim):
         raise ValueError("the glu fold needs no norm and an unpadded K")
     if residual is not None and (qt.mdim_padded != qt.mdim
@@ -229,3 +235,120 @@ def qgemm_grouped(x: torch.Tensor, qt: QuantizedTensor, norm=None,
 
 
 qgemm_grouped.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K5: plain PyTorch version
+# ---------------------------------------------------------------------------
+
+def act_bf16_plain(x: torch.Tensor, qt: QuantizedTensor, norm=None,
+                   glu: bool = False) -> torch.Tensor:
+    """K5's prologue: x (N, K) or (N, 2K) -> the bf16 activations (N, Kp),
+    K4's prologue values (SwiGLU or rms_norm, zero past K) rounded to
+    bf16."""
+    return prologue_values(x, qt.kdim, qt.kdim_padded, norm, glu).to(torch.bfloat16)
+
+
+def dequant_weights_plain(qt: QuantizedTensor) -> torch.Tensor:
+    """The bf16 weights (Kp, Mp) K5 multiplies: code * scale[g] - sub[g]
+    in f32 (code * scale is exact), rounded to bf16."""
+    Kp, Mp, gs = qt.kdim_padded, qt.mdim_padded, qt.group_size
+    w = unpack_codes(qt).float().reshape(Kp // gs, gs, Mp)
+    w = w * qt.scales.float()[:, None] - qt.sub.float()[:, None]
+    return w.reshape(Kp, Mp).to(torch.bfloat16)
+
+
+def qgemm_dequant_plain(x: torch.Tensor, qt: QuantizedTensor, norm=None,
+                        glu: bool = False, residual=None) -> torch.Tensor:
+    """The function K5 computes, in plain PyTorch: (N, M) f32, the bf16
+    activations times the bf16 weights in an f32 matmul (in full f32 on
+    the card: callers there keep TF32 off), plus the residual."""
+    _check_supported(qt, glu, norm, residual, "K5")
+    out = act_bf16_plain(x, qt, norm, glu).float() @ dequant_weights_plain(qt).float()
+    if residual is not None:
+        out = out + residual.float()
+    return qt.slice_m(out)
+
+
+# ---------------------------------------------------------------------------
+# K5: CUDA kernel
+# ---------------------------------------------------------------------------
+
+@functools.cache
+def _lib_large():
+    from tmac_tpu_torch.ops.cuda import build
+    lib = build.load("qgemm_large")
+    lib.tmac_act_bf16.argtypes = [
+        _c_ptr, _c_int, _c_int, _c_int, _c_int, _c_int, _c_ptr, _c_float,
+        _c_float, _c_ptr, _c_ptr]
+    lib.tmac_qgemm_dequant.argtypes = [
+        _c_ptr, _c_int, _c_int, _c_int, _c_int, _c_ptr, _c_int, _c_ptr,
+        _c_ptr, _c_ptr, _c_ptr, _c_ptr]
+    for fn in (lib.tmac_act_bf16, lib.tmac_qgemm_dequant):
+        fn.restype = _c_int
+    return lib
+
+
+def launch_act_bf16(x: torch.Tensor, qt: QuantizedTensor, norm=None,
+                    glu: bool = False) -> torch.Tensor:
+    """Launch K5's prologue: -> xa (N, Kp) bf16."""
+    dev = x.device
+    N, K, Kp = x.shape[0], qt.kdim, qt.kdim_padded
+    require("K5", x, "x", torch.bfloat16, (N, 2 * K if glu else K), dev)
+    norm_ptr, eps = None, 0.0
+    if norm is not None:
+        w, eps = norm
+        require("K5", w, "norm weight", torch.bfloat16, (K,), dev)
+        norm_ptr = w.data_ptr()
+    xa = torch.empty((N, Kp), dtype=torch.bfloat16, device=dev)
+    err = _lib_large().tmac_act_bf16(
+        x.data_ptr(), N, x.shape[1], K, Kp, int(glu), norm_ptr, float(eps),
+        1.0 / K, xa.data_ptr(), _stream(dev))
+    raise_on("K5", err, "prologue")
+    return xa
+
+
+def launch_dequant_gemm(xa: torch.Tensor, qt: QuantizedTensor,
+                        residual=None) -> torch.Tensor:
+    """Launch K5's matmul on its prologue's activations: -> (N, Mp) f32."""
+    dev = xa.device
+    N, Kp, Mp, gs = xa.shape[0], qt.kdim_padded, qt.mdim_padded, qt.group_size
+    G = Kp // gs
+    require("K5", xa, "xa", torch.bfloat16, (N, Kp), dev)
+    require("K5", qt.packed, "packed", torch.uint8, (Kp * qt.bits // 8, Mp), dev)
+    require("K5", qt.scales, "scales", torch.bfloat16, (G, Mp), dev)
+    require("K5", qt.sub, "sub", torch.bfloat16, (G, Mp), dev)
+    if Mp % 128 or any(t.data_ptr() % 16 for t in (xa, qt.packed, qt.scales, qt.sub)):
+        raise ValueError("K5: Mp % 128 == 0 and 16-byte aligned operands")
+    res_ptr = None
+    if residual is not None:
+        require("K5", residual, "residual", torch.bfloat16, (N, Mp), dev)
+        res_ptr = residual.data_ptr()
+    out = torch.empty((N, Mp), dtype=torch.float32, device=dev)
+    err = _lib_large().tmac_qgemm_dequant(
+        xa.data_ptr(), N, Kp, gs, qt.bits, qt.packed.data_ptr(), Mp,
+        qt.scales.data_ptr(), qt.sub.data_ptr(), res_ptr, out.data_ptr(),
+        _stream(dev))
+    raise_on("K5", err, "matmul")
+    return out
+
+
+def qgemm_dequant(x: torch.Tensor, qt: QuantizedTensor, norm=None,
+                  glu: bool = False, residual=None) -> torch.Tensor:
+    """K5: x (N, K) [(N, 2K) with glu] @ Wdq -> (N, M) f32 on the
+    reference's large-N dequant route: the prologue's values in bf16
+    times the weights dequantized to bf16, summed in f32.  The folds as
+    qgemm_grouped's.  CPU tensors take the plain version; CUDA tensors the
+    kernel."""
+    _check_supported(qt, glu, norm, residual, "K5")
+    if x.device.type == "cpu":
+        return qgemm_dequant_plain(x, qt, norm, glu, residual)
+    if x.device.type != "cuda":
+        raise ValueError(f"K5 runs on CPU or CUDA tensors, not {x.device}")
+    xa = launch_act_bf16(x, qt, norm, glu)
+    out = launch_dequant_gemm(xa, qt, residual)
+    qgemm_dequant.launches += 1
+    return qt.slice_m(out)
+
+
+qgemm_dequant.launches = 0

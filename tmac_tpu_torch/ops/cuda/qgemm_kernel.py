@@ -1,15 +1,20 @@
-"""Kernel K1: fused activation quantization + packed low-bit matmul.
+"""Kernels K1 and K3: per-tensor-scale packed low-bit matmuls with the
+activations quantized to int8 per row.
 
-Replaces ``tmac_tpu/ops/pallas/qgemm_kernel.py::_make_kernel`` (the
-``fused_quant=True, int_acc=True`` form that ``qgemm_pallas(act="fused")``
-reaches for per-tensor scales), as CUDA C++ for Hopper in
-``csrc/qgemm_fused.cu``.  That source says what bounds the kernel on the
-card (device-memory bytes at decode) and how its design answers it.
+Both replace ``tmac_tpu/ops/pallas/qgemm_kernel.py::_make_kernel`` on the
+two routes that ``qgemm_pallas(act="fused")`` takes for per-tensor scales
+(``ops.qgemm.route``): K1, for N < 64 rows of x, its
+``fused_quant=True, int_acc=True`` form, as CUDA C++ for Hopper in
+``csrc/qgemm_fused.cu``; K3, from 64 rows, its ``single_dot`` form after
+the reference's XLA prologue, in ``csrc/qgemm_large.cu`` on K1's prologue.
+Each source says what bounds its kernel on the card (device-memory bytes
+at decode, the tensor cores at prefill) and how its design answers it.
 
-``qgemm_fused`` is the wrapper: a CPU tensor goes to the plain PyTorch
-version ``qgemm_fused_plain``, a CUDA tensor to the kernel, which either
-launches or raises.  ``qgemm_fused.launches`` counts kernel launches (one
-per call: the quantization prologue and the matmul together).
+``qgemm_fused`` (K1) and ``qgemm_large_int`` (K3) are the wrappers: a CPU
+tensor goes to the plain PyTorch version ``qgemm_fused_plain`` (which
+takes the epilogue of the route for N), a CUDA tensor to the kernel, which
+either launches or raises.  Each wrapper's ``launches`` counts calls that
+launched its kernel (the quantization prologue and the matmul together).
 """
 
 from __future__ import annotations
@@ -19,7 +24,7 @@ import functools
 
 import torch
 
-from tmac_tpu_torch.ops.qgemm import QuantizedTensor, unpack_codes
+from tmac_tpu_torch.ops.qgemm import LARGE_N, QuantizedTensor, unpack_codes
 from tmac_tpu_torch.utils import fma_f32
 
 _c_ptr, _c_int, _c_float = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -42,10 +47,6 @@ def _check_supported(qt: QuantizedTensor, glu: bool, norm, residual) -> None:
 # ---------------------------------------------------------------------------
 # Plain PyTorch version (the CPU path, and what the kernel is held to)
 # ---------------------------------------------------------------------------
-
-# The JAX reference runs N >= LARGE_N rows on another route
-# (qgemm_pallas's XLA prologue), whose compiled f32 epilogue K1 follows too
-LARGE_N = 64
 
 # XLA's CPU backend adds a row longer than this in windows of this many
 # values (kSumWindow in csrc/act_prologue.cuh)
@@ -87,11 +88,19 @@ def prologue_values(x: torch.Tensor, K: int, Kp: int, norm=None,
         xf = g * (1.0 / (1.0 + torch.exp(-g))) * xf[:, K:]
     xf = torch.nn.functional.pad(xf, (0, Kp - K))
     if norm is not None:
-        w, eps = norm
-        var = row_sum_xla_order(xf * xf) * (1.0 / K)
-        xf = xf * (1.0 / torch.sqrt(var + eps))
-        xf = xf * torch.nn.functional.pad(w.float(), (0, Kp - K))
+        xf = rms_norm_values(xf, norm[0], norm[1], K)
     return xf
+
+
+def rms_norm_values(xf: torch.Tensor, w: torch.Tensor, eps: float,
+                    K: int) -> torch.Tensor:
+    """rms_norm of f32 rows xf (N, Kp), zero past the logical K, with the
+    weight w (K,): (xf * (1 / sqrt(var + eps))) * w, the variance over K
+    with the row sum in the reference's order (the prologue kernels' and
+    K10's steps)."""
+    var = row_sum_xla_order(xf * xf) * (1.0 / K)
+    xf = xf * (1.0 / torch.sqrt(var + eps))
+    return xf * torch.nn.functional.pad(w.float(), (0, xf.shape[1] - K))
 
 
 def act_scale(amax: torch.Tensor) -> torch.Tensor:
@@ -136,9 +145,10 @@ def dp4a_order(codes: torch.Tensor, bits: int) -> torch.Tensor:
 
 def qgemm_fused_plain(x: torch.Tensor, qt: QuantizedTensor, norm=None,
                       glu: bool = False, residual=None) -> torch.Tensor:
-    """The function K1 computes, in plain PyTorch: (N, M) f32.  The f32
-    epilogue is the one the reference compiles to on its route for N
-    (csrc/qgemm_fused.cu's header), every step rounded as there."""
+    """The function K1 (N < LARGE_N) and K3 (from LARGE_N rows) compute, in
+    plain PyTorch: (N, M) f32.  The f32 epilogue is the one the reference
+    compiles to on its route for N (the headers of csrc/qgemm_fused.cu and
+    csrc/qgemm_large.cu), every step rounded as there."""
     _check_supported(qt, glu, norm, residual)
     large = x.shape[0] >= LARGE_N
     codes, xs, xsum = act_quant_plain(x, qt, norm, glu, large)
@@ -170,7 +180,7 @@ def _lib():
     lib.tmac_act_quant.restype = _c_int
     lib.tmac_qgemm.argtypes = [
         _c_ptr, _c_ptr, _c_ptr, _c_int, _c_int, _c_int, _c_ptr, _c_ptr,
-        _c_ptr, _c_int, _c_int, _c_ptr, _c_ptr, _c_ptr]
+        _c_ptr, _c_int, _c_ptr, _c_ptr, _c_ptr]
     lib.tmac_qgemm.restype = _c_int
     return lib
 
@@ -193,8 +203,9 @@ def raise_on(kernel: str, err: int, what: str) -> None:
 
 def launch_act_quant(x: torch.Tensor, qt: QuantizedTensor, norm=None,
                      glu: bool = False, large_n: bool = False):
-    """Launch the prologue: -> (codes (N, Kp) int8 in dp4a grouping,
-    xs (N,), xsum (N,)); xsum as act_quant_plain gives it."""
+    """Launch K1's prologue (K3's with large_n): -> (codes (N, Kp) int8
+    in dp4a grouping, xs (N,), xsum (N,)); xsum as act_quant_plain gives
+    it."""
     dev = x.device
     N = x.shape[0]
     K, Kp = qt.kdim, qt.kdim_padded
@@ -216,56 +227,123 @@ def launch_act_quant(x: torch.Tensor, qt: QuantizedTensor, norm=None,
     return codes, xs, xsum
 
 
-def launch_gemm(codes: torch.Tensor, xs: torch.Tensor, xsum: torch.Tensor,
-                qt: QuantizedTensor, residual=None,
-                large_n: bool = False) -> torch.Tensor:
-    """Launch the matmul on prologue outputs: -> (N, Mp) f32, with the
-    epilogue of the reference's route for N (large_n must be the flag the
-    prologue ran with)."""
+def _check_gemm_args(kernel: str, codes, xs, xsum, qt: QuantizedTensor,
+                     residual):
+    """Raise unless the prologue's outputs, the weights and the residual
+    are what `kernel`'s matmul takes; -> the residual's pointer or None."""
     dev = codes.device
     N, Kp, Mp = codes.shape[0], qt.kdim_padded, qt.mdim_padded
-    require("K1", codes, "codes", torch.int8, (N, Kp), dev)
-    require("K1", xs, "xs", torch.float32, (N,), dev)
-    require("K1", xsum, "xsum", torch.float32, (N,), dev)
+    require(kernel, codes, "codes", torch.int8, (N, Kp), dev)
+    require(kernel, xs, "xs", torch.float32, (N,), dev)
+    require(kernel, xsum, "xsum", torch.float32, (N,), dev)
     rows = Kp // 4 if qt.bits == 2 else Kp
-    require("K1", qt.packed, "packed", torch.uint8, (rows, Mp), dev)
-    require("K1", qt.scales, "scales", torch.float32, (1, Mp), dev)
-    require("K1", qt.sub, "sub", torch.float32, (1, Mp), dev)
+    require(kernel, qt.packed, "packed", torch.uint8, (rows, Mp), dev)
+    require(kernel, qt.scales, "scales", torch.float32, (1, Mp), dev)
+    require(kernel, qt.sub, "sub", torch.float32, (1, Mp), dev)
+    if residual is None:
+        return None
+    require(kernel, residual, "residual", torch.bfloat16, (N, Mp), dev)
+    return residual.data_ptr()
+
+
+def launch_gemm(codes: torch.Tensor, xs: torch.Tensor, xsum: torch.Tensor,
+                qt: QuantizedTensor, residual=None) -> torch.Tensor:
+    """Launch K1's matmul on its prologue's outputs (large_n off): ->
+    (N, Mp) f32."""
+    res_ptr = _check_gemm_args("K1", codes, xs, xsum, qt, residual)
+    N, Mp = codes.shape[0], qt.mdim_padded
     if qt.packed.data_ptr() % 4 or Mp % 32:
         raise ValueError("K1: packed must be 4-byte aligned with Mp % 32 == 0")
-    res_ptr = None
-    if residual is not None:
-        require("K1", residual, "residual", torch.bfloat16, (N, Mp), dev)
-        res_ptr = residual.data_ptr()
-    out = torch.empty((N, Mp), dtype=torch.float32, device=dev)
+    out = torch.empty((N, Mp), dtype=torch.float32, device=codes.device)
     err = _lib().tmac_qgemm(
-        codes.data_ptr(), xs.data_ptr(), xsum.data_ptr(), N, Kp, qt.bits,
-        qt.packed.data_ptr(), qt.scales.data_ptr(), qt.sub.data_ptr(), Mp,
-        int(large_n), res_ptr, out.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
+        codes.data_ptr(), xs.data_ptr(), xsum.data_ptr(), N, qt.kdim_padded,
+        qt.bits, qt.packed.data_ptr(), qt.scales.data_ptr(),
+        qt.sub.data_ptr(), Mp, res_ptr, out.data_ptr(),
+        torch.cuda.current_stream(codes.device).cuda_stream)
     raise_on("K1", err, "matmul")
     return out
 
 
+def _on_device(kernel: str, x: torch.Tensor) -> bool:
+    """True for a CUDA tensor (the kernel runs), False for a CPU one (the
+    plain version runs); raise on any other device."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{kernel} runs on CPU or CUDA tensors, not {x.device}")
+    return x.device.type == "cuda"
+
+
 def qgemm_fused(x: torch.Tensor, qt: QuantizedTensor, norm=None,
                 glu: bool = False, residual=None) -> torch.Tensor:
-    """x (N, K) [(N, 2K) with glu] @ Wdq -> (N, M) f32, with the
-    activations quantized per row to int8 inside K1.
+    """K1: x (N, K) [(N, 2K) with glu] @ Wdq -> (N, M) f32 for N < 64
+    rows, with the activations quantized per row to int8 inside the kernel.
 
     norm: (weight (K,), eps) rms_norm before quantization.  glu: x is the
     fused gate_up output and silu(g) * u feeds the matmul.  residual:
     (N, M) added in the epilogue.  CPU tensors take the plain version; CUDA
-    tensors take the kernel (x, the norm weight and the residual in bf16)."""
+    tensors take the kernel (x, the norm weight and the residual in bf16).
+    From 64 rows the reference takes another route: K3, qgemm_large_int
+    (``ops.qgemm.kernel_for`` picks)."""
     _check_supported(qt, glu, norm, residual)
-    if x.device.type == "cpu":
+    if x.shape[0] >= LARGE_N:
+        raise ValueError(f"K1 takes N < {LARGE_N} rows, not {x.shape[0]}: "
+                         "K3 (qgemm_large_int) takes the rest")
+    if not _on_device("K1", x):
         return qgemm_fused_plain(x, qt, norm, glu, residual)
-    if x.device.type != "cuda":
-        raise ValueError(f"K1 runs on CPU or CUDA tensors, not {x.device}")
-    large = x.shape[0] >= LARGE_N
-    codes, xs, xsum = launch_act_quant(x, qt, norm, glu, large)
-    out = launch_gemm(codes, xs, xsum, qt, residual, large)
+    codes, xs, xsum = launch_act_quant(x, qt, norm, glu)
+    out = launch_gemm(codes, xs, xsum, qt, residual)
     qgemm_fused.launches += 1
     return qt.slice_m(out)
 
 
 qgemm_fused.launches = 0
+
+
+@functools.cache
+def _lib_large():
+    from tmac_tpu_torch.ops.cuda import build
+    lib = build.load("qgemm_large")
+    lib.tmac_qgemm_large_int.argtypes = [
+        _c_ptr, _c_ptr, _c_ptr, _c_int, _c_int, _c_int, _c_ptr, _c_ptr,
+        _c_ptr, _c_int, _c_ptr, _c_ptr, _c_ptr]
+    lib.tmac_qgemm_large_int.restype = _c_int
+    return lib
+
+
+def launch_large_int(codes: torch.Tensor, xs: torch.Tensor, xsum: torch.Tensor,
+                     qt: QuantizedTensor, residual=None) -> torch.Tensor:
+    """Launch K3's matmul on K1's prologue outputs (large_n on): -> (N, Mp)
+    f32."""
+    res_ptr = _check_gemm_args("K3", codes, xs, xsum, qt, residual)
+    N, Kp, Mp = codes.shape[0], qt.kdim_padded, qt.mdim_padded
+    if Kp % 16 or Mp % 128 or qt.packed.data_ptr() % 16:
+        raise ValueError("K3: Kp % 16 == 0, Mp % 128 == 0 and 16-byte "
+                         "aligned packed weights")
+    out = torch.empty((N, Mp), dtype=torch.float32, device=codes.device)
+    err = _lib_large().tmac_qgemm_large_int(
+        codes.data_ptr(), xs.data_ptr(), xsum.data_ptr(), N, Kp, qt.bits,
+        qt.packed.data_ptr(), qt.scales.data_ptr(), qt.sub.data_ptr(), Mp,
+        res_ptr, out.data_ptr(),
+        torch.cuda.current_stream(codes.device).cuda_stream)
+    raise_on("K3", err, "matmul")
+    return out
+
+
+def qgemm_large_int(x: torch.Tensor, qt: QuantizedTensor, norm=None,
+                    glu: bool = False, residual=None) -> torch.Tensor:
+    """K3: qgemm_fused's function for N >= 64 rows, on the reference's
+    large-N route (its single int8 dot and that route's epilogue): K1's
+    prologue with the bare code sum, then one exact int32 dot over the
+    whole depth on the tensor cores."""
+    _check_supported(qt, glu, norm, residual)
+    if x.shape[0] < LARGE_N:
+        raise ValueError(f"K3 takes N >= {LARGE_N} rows, not {x.shape[0]}: "
+                         "K1 (qgemm_fused) takes fewer")
+    if not _on_device("K3", x):
+        return qgemm_fused_plain(x, qt, norm, glu, residual)
+    codes, xs, xsum = launch_act_quant(x, qt, norm, glu, large_n=True)
+    out = launch_large_int(codes, xs, xsum, qt, residual)
+    qgemm_large_int.launches += 1
+    return qt.slice_m(out)
+
+
+qgemm_large_int.launches = 0

@@ -5,13 +5,18 @@ implementation computes C = x @ Wdq with
 
     Wdq[k, m] = scales[k // gs, m] * wq[k, m] - sub[k // gs, m]
 
-  * "fused" -- kernel K1 (ops/cuda/qgemm_kernel.py) for per-tensor scales:
-               in-kernel per-token int8 activation quantization, exact
-               int32 accumulation; kernel K4 (ops/cuda/qgemm_grouped_kernel.py)
-               for grouped scales: int8 activations per (token, group),
-               exact int32 dots per group, scales folded per group.  Both
-               take an optional rms_norm / SwiGLU prologue and residual
-               epilogue
+  * "fused" -- the kernel that ``qgemm_pallas(act="fused")`` runs for the
+               weights and the N rows of x (``route``), each with an
+               optional rms_norm / SwiGLU prologue and residual epilogue:
+               per-tensor scales, per-token int8 activations and an exact
+               int32 dot: K1 (ops/cuda/qgemm_kernel.py) for N < 64, K3 from
+               64 rows; grouped scales: K4 (ops/cuda/qgemm_grouped_kernel.py,
+               int8 activations per (token, group), exact int32 dots per
+               group, scales folded per group) below 64 rows or with
+               dispatch "chunk", K5 (the same module: bf16 activations
+               times bf16 dequantized weights, one f32 dot) from 64 rows
+               with dispatch "dequant", or from 3 * group_size rows by
+               default
   * "torch" -- plain grouped dequant matmul (the ``qgemm_xla`` role)
 """
 
@@ -294,20 +299,59 @@ def qgemm_torch(x: torch.Tensor, qt: QuantizedTensor,
     return acc.to(out_dtype or (torch.float32 if int_path else x.dtype))
 
 
+# qgemm_pallas leaves its small-N kernels from this many rows of x
+LARGE_N = 64
+DISPATCHES = (None, "chunk", "dequant")
+
+
+def route(qt: QuantizedTensor, N: int, dispatch: Optional[str] = None) -> str:
+    """The kernel that ``qgemm_pallas(act="fused")`` runs for qt and N rows
+    of x, by its rule off the TPU (its tune table is keyed to a TPU):
+    per-tensor scales take K3 from LARGE_N rows and K1 below; grouped
+    scales take K5 from LARGE_N rows when dispatch is "dequant", or is None
+    and N >= 3 * group_size, and K4 otherwise ("chunk", or fewer rows)."""
+    if dispatch not in DISPATCHES:
+        raise ValueError(f"dispatch must be one of {DISPATCHES}, not {dispatch!r}")
+    if qt.scales.shape[0] == 1:
+        return "K3" if N >= LARGE_N else "K1"
+    if N >= LARGE_N and (dispatch or ("dequant" if N >= 3 * qt.group_size
+                                      else "chunk")) == "dequant":
+        return "K5"
+    return "K4"
+
+
+def kernel_for(qt: QuantizedTensor, N: int, plain: bool = False,
+               dispatch: Optional[str] = None):
+    """The wrapper of ``route``'s kernel, or with plain=True its plain
+    PyTorch version: a function (x, qt, norm=, glu=, residual=) -> (N, M)
+    f32.  Every quantized linear of the port takes its kernel here."""
+    from tmac_tpu_torch.ops.cuda import qgemm_grouped_kernel as grouped
+    from tmac_tpu_torch.ops.cuda import qgemm_kernel as per_tensor
+    return {
+        "K1": (per_tensor.qgemm_fused, per_tensor.qgemm_fused_plain),
+        "K3": (per_tensor.qgemm_large_int, per_tensor.qgemm_fused_plain),
+        "K4": (grouped.qgemm_grouped, grouped.qgemm_grouped_plain),
+        "K5": (grouped.qgemm_dequant, grouped.qgemm_dequant_plain),
+    }[route(qt, N, dispatch)][int(plain)]
+
+
 def qgemm(x: torch.Tensor, qt: QuantizedTensor, impl: str = "auto",
           out_dtype=None, norm=None, glu: bool = False,
-          residual=None) -> torch.Tensor:
+          residual=None, dispatch: Optional[str] = None) -> torch.Tensor:
     """Quantized matmul x (N, K) @ Wdq (K, M) -> (N, M).
 
-    impl: "fused" (float x: kernel K1 for per-tensor scales, K4 for
-    grouped ones), "torch", or "auto": "fused" for any tensor off the CPU,
-    whose kernels raise on what they do not cover yet (int8 x, bits other
-    than K1's 2 and 8 or K4's 2 and 4); on the CPU, the kernels' plain
-    versions for float x (grouped: bits 2 or 4 with bf16 scales) and
-    "torch" otherwise.
+    impl: "fused" (float x: the kernel ``route`` picks: K1 or K3 for
+    per-tensor scales, K4 or K5 for grouped ones), "torch", or "auto":
+    "fused" for any tensor off the CPU, whose kernels raise on what they do
+    not cover yet (int8 x, bits other than K1's and K3's 2 and 8 or K4's
+    and K5's 2 and 4); on the CPU, the kernels' plain versions for float x
+    (grouped: bits 2 or 4 with bf16 scales) and "torch" otherwise.
     norm: optional (weight (K,), eps) rms_norm applied to x first.
     glu: x is (N, 2K) and silu(x[:, :K]) * x[:, K:] feeds the matmul.
     residual: optional (N, M) added to the output.
+    dispatch: the grouped large-N kernel, as qgemm_pallas's argument:
+    "chunk" (K4), "dequant" (K5) or None (the N >= 3 * group_size rule);
+    ignored below LARGE_N rows and for per-tensor scales.
     """
     grouped = qt.scales.shape[0] > 1
     if impl == "auto":
@@ -319,14 +363,9 @@ def qgemm(x: torch.Tensor, qt: QuantizedTensor, impl: str = "auto",
                               else x.dtype)
     if impl == "fused":
         if not x.is_floating_point():
-            raise ValueError("K1 and K4 quantize float activations; int8 x "
-                             "takes impl='torch'")
-        if grouped:
-            from tmac_tpu_torch.ops.cuda.qgemm_grouped_kernel import \
-                qgemm_grouped as kernel
-        else:
-            from tmac_tpu_torch.ops.cuda.qgemm_kernel import \
-                qgemm_fused as kernel
+            raise ValueError("the fused kernels quantize float activations; "
+                             "int8 x takes impl='torch'")
+        kernel = kernel_for(qt, x.shape[0], dispatch=dispatch)
         out = kernel(x.to(torch.bfloat16), qt, norm=norm, glu=glu,
                      residual=residual)
         return out.to(out_dtype)
