@@ -204,6 +204,7 @@ def test_kernel_modules_do_not_build_on_import():
         " scale_dtype=torch.bfloat16, device='cpu')\n"
         "qgemm_grouped_kernel.qgemm_grouped(torch.ones(1, 256), gq)\n"
         "qgemm_grouped_kernel.qgemm_dequant(torch.ones(64, 256), gq)\n"
+        "qgemm_grouped_kernel.qgemm_grouped_large(torch.ones(64, 256), gq)\n"
         "eq = QuantizedTensor.from_float(np.ones((512, 128), np.float32), 2, 128,"
         " scale_dtype=torch.bfloat16, device='cpu')\n"
         "expert_kernel.qgemm_expert(torch.ones(1, 512), stack_experts([eq, eq]), 1)\n"
@@ -217,6 +218,7 @@ def test_kernel_modules_do_not_build_on_import():
         "assert qgemm_grouped_kernel.qgemm_dequant.launches == 0\n"
         "assert block_kernel.wo_mlp_block.launches == 0\n"
         "assert qgemm_grouped_kernel.qgemm_grouped.launches == 0\n"
+        "assert qgemm_grouped_kernel.qgemm_grouped_large.launches == 0\n"
         "assert expert_kernel.qgemm_expert.launches == 0\n"
         "assert attention_kernel.flash_decode.launches == 0\n")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,

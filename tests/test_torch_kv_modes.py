@@ -157,17 +157,26 @@ def test_plain_k9_matches_pallas(quant, window, Dl, rep, KV):
 
 
 def test_plain_k9_skips_the_store_past_the_cache():
-    """cached_lens == S: K9 still attends (K8's output) but stores no row.
-    The JAX kernel has no bound check there, and in interpret mode its
-    store lands on row S - 1, the last cached row (ROADMAP Queue 3)."""
+    """cached_lens == S: K9 still attends (K8's output), and its store,
+    which cannot go past the cache, lands on row S - 1, the last cached
+    row, as the JAX kernel's does in interpret mode (it clamps the row as
+    dynamic_update_slice clamps a start); the cache it leaves is JAX's, and
+    nothing is stored past it: the cache is a view of buffers one row
+    longer, whose guard row S stays as it was."""
     j, t = _both(*_inputs(7, 96, 1, 4, True), True)
+    guarded = {}
+    for n in ("k", "v", "ks", "vs"):
+        tail = t[n].shape[4:]
+        buf = torch.full((L, B, 4, S + 1) + tail, 7, dtype=t[n].dtype)
+        buf[:, :, :, :S] = t[n]
+        guarded[n], t[n] = buf, buf[:, :, :, :S]
     lens = torch.tensor([S, 3, S, 0], dtype=torch.int32)
     li = torch.tensor([LI], dtype=torch.int32)
-    jk = flash_decode_stacked_append_write(
+    jout = flash_decode_stacked_append_write(
         j["q"], j["k"], j["v"], jnp.asarray(lens.numpy()), jnp.int32(LI),
         j["ck"], j["cv"], blk=BLK, interpret=True, k_scale=j["ks"],
-        v_scale=j["vs"])[1]
-    jchanged = np.asarray(jk != j["k"]).any(-1)
+        v_scale=j["vs"])
+    jchanged = np.asarray(jout[1] != j["k"]).any(-1)
     assert jchanged[LI, 0, :, S - 1].all() and jchanged[LI, 2, :, S - 1].all()
     before = {n: t[n].clone() for n in ("k", "v", "ks", "vs")}
     want = ak.flash_decode_append_plain(
@@ -179,10 +188,14 @@ def test_plain_k9_skips_the_store_past_the_cache():
     assert torch.equal(got, want)
     for n, old in before.items():
         changed = (t[n] != old).reshape(L, B, 4, S, -1).any(-1)
-        # only rows 3 and 0 of batch rows 1 and 3, in layer LI
-        assert changed[LI, 1, :, 3].all() and changed[LI, 3, :, 0].all()
-        changed[LI, 1, :, 3] = changed[LI, 3, :, 0] = False
+        # only rows S - 1, 3, S - 1 and 0 of batch rows 0 .. 3, in layer LI
+        for b, row in ((0, S - 1), (1, 3), (2, S - 1), (3, 0)):
+            assert changed[LI, b, :, row].all(), (n, b)
+            changed[LI, b, :, row] = False
         assert not changed.any(), n
+    for n, jn in zip(("k", "v", "ks", "vs"), jout[1:]):
+        np.testing.assert_array_equal(t[n].numpy(), np.asarray(jn))
+        assert (guarded[n][:, :, :, S] == 7).all(), n
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],

@@ -128,10 +128,14 @@ def test_route_and_dispatch():
     grouped, _ = _pair(rng, 2, 512, (256,))
     per_tensor = QuantizedTensor.from_float(
         rng.standard_normal((256, 128)).astype(np.float32), 2, device="cpu")
+    # K4's function: the decode form below 64 rows, K4L (tensor cores)
+    # from 64 rows to 3 * GS, and from 64 with dispatch "chunk"
     assert [route(grouped, n) for n in (1, 63, 64, 383, 384, 1024)] == \
-        ["K4", "K4", "K4", "K4", "K5", "K5"]
+        ["K4", "K4", "K4L", "K4L", "K5", "K5"]
     assert [route(grouped, n, "dequant") for n in (63, 64)] == ["K4", "K5"]
-    assert route(grouped, 512, "chunk") == "K4"
+    assert route(grouped, 512, "chunk") == "K4L"
+    assert kernel_for(grouped, 100) is k45.qgemm_grouped_large
+    assert kernel_for(grouped, 100, plain=True) is k45.qgemm_grouped_plain
     assert [route(per_tensor, n, d) for n, d in ((63, None), (64, None),
                                                  (64, "chunk"))] == ["K1", "K3", "K3"]
     with pytest.raises(ValueError):

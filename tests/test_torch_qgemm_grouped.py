@@ -3,6 +3,8 @@
 runs it), against the dequant oracle, and the layout contract between the
 CUDA kernel's packed-field walk and the per-group dots."""
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -59,12 +61,12 @@ def _pallas(xb, jqt, norm=None, glu=False, residual=None, dispatch=None):
                                  residual))
 
 
-@jax.jit
-def _jax_group_quant(x):
+@functools.partial(jax.jit, static_argnums=1)
+def _jax_group_quant(x, gs=GS):
     """The reference's per-(row, group) quantization (qgemm_pallas's int8
     prologue), compiled: codes, scales, dequantized code sums."""
     N, K = x.shape
-    xg = x.astype(jnp.float32).reshape(N, K // GS, GS)
+    xg = x.astype(jnp.float32).reshape(N, K // gs, gs)
     xs = jnp.maximum(jnp.max(jnp.abs(xg), axis=-1), 1e-20) / 127.0
     q = jnp.clip(jnp.rint(xg / xs[..., None]), -127, 127).astype(jnp.int8)
     xsum = jnp.sum(q.astype(jnp.int32), -1).astype(jnp.float32) * xs
@@ -86,13 +88,45 @@ CASES = [
     (4, 72, 512, (200,), False, False, False),
     (2, 72, 1280, (256,), True, False, False),
     (4, 72, 512, (256,), False, True, True),
+    # K4L's route (64 <= N < 3 * GS) at its edges and ragged row tiles
+    (2, 64, 512, (256,), False, False, True),
+    (4, 100, 512, (256,), True, False, False),
+    (2, 100, 512, (200,), False, False, False),        # M padded
+    (2, 256, 512, (256, 256), False, False, False),    # gate_up form
+    (4, 256, 512, (256,), False, False, True),
+    (4, 383, 1024, (256,), False, True, True),         # W4 down: glu folded
+    (2, 383, 1280, (256,), False, False, True),        # W2 down: K padded
+]
+
+
+# K4L at group sizes that are not a multiple of 64 (its KT = 32 form),
+# against the reference's chunk kernel (dispatch "chunk": from 3 * gs rows
+# its default is the dequant kernel): (group_size, bits, N, K, Ms, norm,
+# glu, residual)
+GS_CASES = [
+    (32, 2, 100, 1120, (256,), False, False, True),    # K padded 1120 -> 1152
+    (32, 4, 256, 1024, (256,), False, True, True),     # glu folded
+    (96, 2, 64, 960, (256,), True, False, False),      # K padded 960 -> 1152
+    (96, 2, 383, 960, (256,), False, False, True),
+    (96, 4, 256, 1152, (200,), False, False, False),   # M padded
 ]
 
 
 @pytest.mark.parametrize("bits,N,K,Ms,norm,glu,residual", CASES)
 def test_plain_k4_matches_pallas(bits, N, K, Ms, norm, glu, residual):
-    rng = np.random.default_rng(bits * 1000 + N * 100 + K + sum(Ms))
-    qt, jqt = _pair(rng, bits, K, Ms)
+    _check_against_pallas(bits, N, K, Ms, norm, glu, residual)
+
+
+@pytest.mark.parametrize("gs,bits,N,K,Ms,norm,glu,residual", GS_CASES)
+def test_plain_k4l_group_sizes_match_pallas(gs, bits, N, K, Ms, norm, glu, residual):
+    _check_against_pallas(bits, N, K, Ms, norm, glu, residual, gs, "chunk")
+
+
+def _check_against_pallas(bits, N, K, Ms, norm, glu, residual, gs=GS,
+                          dispatch=None):
+    seed = bits * 1000 + N * 100 + K + sum(Ms) + (0 if gs == GS else gs)
+    rng = np.random.default_rng(seed)
+    qt, jqt = _pair(rng, bits, K, Ms, gs)
     x = rng.standard_normal((N, 2 * K if glu else K)).astype(np.float32)
     xb = jnp.asarray(x, jnp.bfloat16)
     xt = torch.from_numpy(x).to(torch.bfloat16)
@@ -107,7 +141,7 @@ def test_plain_k4_matches_pallas(bits, N, K, Ms, norm, glu, residual):
         r = rng.standard_normal((N, sum(Ms))).astype(np.float32)
         kw_j["residual"] = jnp.asarray(r, jnp.bfloat16)
         kw_t["residual"] = torch.from_numpy(r).to(torch.bfloat16)
-    want = _pallas(xb, jqt, **kw_j)
+    want = _pallas(xb, jqt, dispatch=dispatch, **kw_j)
     got = qgemm_grouped(xt, qt, **kw_t).numpy()
     assert got.shape == want.shape == (N, sum(Ms))
     if norm or glu:
@@ -121,14 +155,14 @@ def test_plain_k4_matches_pallas(bits, N, K, Ms, norm, glu, residual):
     # FMAs and group order included, so the outputs are bit for bit
     np.testing.assert_array_equal(got, want)
     codes, xs, xsum = act_quant_grouped_plain(xt, qt)
-    jc, jxs, jxsum = _jax_group_quant(jnp.pad(xb, ((0, 0), (0, qt.kdim_padded - K))))
+    jc, jxs, jxsum = _jax_group_quant(jnp.pad(xb, ((0, 0), (0, qt.kdim_padded - K))), gs)
     np.testing.assert_array_equal(codes.numpy(), np.asarray(jc))
     np.testing.assert_array_equal(xs.numpy(), np.asarray(jxs))
     np.testing.assert_array_equal(xsum.numpy(), np.asarray(jxsum))
     parts = group_dots_plain(codes, qt).numpy()
-    G = qt.kdim_padded // GS
-    w64 = unpack_codes(qt).numpy().astype(np.int64).reshape(G, GS, -1)
-    c64 = codes.numpy().astype(np.int64).reshape(N, G, GS)
+    G = qt.kdim_padded // gs
+    w64 = unpack_codes(qt).numpy().astype(np.int64).reshape(G, gs, -1)
+    c64 = codes.numpy().astype(np.int64).reshape(N, G, gs)
     np.testing.assert_array_equal(parts, np.einsum("ngk,gkm->gnm", c64, w64))
 
 
@@ -227,3 +261,100 @@ def test_wrapper_dispatch_and_limits():
         xb = x if not kw.get("glu") else torch.zeros(2, 2 * bad.kdim)
         with pytest.raises(ValueError):
             qgemm_grouped(xb, bad, **kw)
+
+
+def _k4l_b_reads(bits, KT, rbase, Kb):
+    """A model of group_mma_kernel's B path for one depth step of KT
+    packed rows from rbase (field j = step's k // Kb): where cp.async puts
+    packed row r, logical 16-byte chunk q of the block's 128 columns, and
+    which tile byte each (warp column wn, lane, ks, h, tile c, byte i)
+    reads for its B register.  -> (chunk map {(r, q): physical byte
+    offset}, reads [(wn, lane, ks, h, c, i, byte offset)])."""
+    def chunk(r, q):
+        return q ^ (((r >> 2) & 3) << 1)
+    stores = {(r, q): r * 128 + chunk(r, q) * 16
+              for r in range(KT) for q in range(8)}
+    reads = []
+    for wn in (0, 32, 64, 96):
+        for lane in range(32):
+            gq, tq = lane >> 2, lane & 3
+            word = (wn >> 2) + gq
+            for ks in range(KT // 32):
+                for h in range(2):
+                    r = ks * 32 + h * 16 + tq * 4
+                    for c in range(4):
+                        for i in range(4):
+                            # transpose4: byte i of column word c is byte c
+                            # of the word read from row r + i
+                            reads.append((wn, lane, ks, h, c, i, (r + i) * 128
+                                          + chunk(r + i, word >> 2) * 16
+                                          + (word & 3) * 4 + c))
+    return stores, reads
+
+
+@pytest.mark.parametrize("bits,KT", [(2, 64), (4, 64), (2, 32)])
+def test_k4l_fragment_map_reads_the_unpacked_codes(bits, KT):
+    """The swizzled packed tile is a bijection onto its bytes, with the 4
+    packed rows that one B register reads in 4 distinct 16-byte chunk
+    columns (8 chunks of the 128-byte row, no bank shared by a warp's
+    lanes); every (k, column) of the step is read by exactly one fragment
+    element; and the byte a fragment element gets, masked to field j, is
+    the weight code unpack_codes gives for k = j * Kb + rbase + k_local,
+    at the column the epilogue stores it to."""
+    rng = np.random.default_rng(bits + KT)
+    qt, _ = _pair(rng, bits, 1024, (256,))
+    P, Kp, Mp = 8 // bits, qt.kdim_padded, qt.mdim_padded
+    Kb = Kp // P
+    codes = unpack_codes(qt).numpy()
+    pk = qt.packed.numpy()
+    for t in (0, 3, Kp // KT - 1):            # first, a middle and the last step
+        rbase, j = (t * KT) % Kb, (t * KT) // Kb
+        for m0 in (0, 128):
+            stores, reads = _k4l_b_reads(bits, KT, rbase, Kb)
+            offs = sorted(stores.values())
+            assert offs == list(range(0, KT * 128, 16))     # a bijection
+            tile = np.zeros(KT * 128, np.uint8)
+            for (r, q), off in stores.items():
+                tile[off:off + 16] = pk[rbase + r, m0 + q * 16:m0 + q * 16 + 16]
+            seen = set()
+            for wn, lane, ks, h, c, i, off in reads:
+                gq, tq = lane >> 2, lane & 3
+                k_local = ks * 32 + h * 16 + tq * 4 + i        # m16n8k32 B row
+                # the column the epilogue gives tile c's B column gq
+                m = m0 + wn + 4 * gq + c
+                assert (k_local, m) not in seen
+                seen.add((k_local, m))
+                field = (int(tile[off]) >> (bits * j)) & ((1 << bits) - 1)
+                assert field == codes[j * Kb + rbase + k_local, m]
+            assert len(seen) == KT * 128
+            # one register's 4 rows land in 4 distinct chunk columns, and a
+            # warp's 32 lanes read 32 distinct banks in each read
+            for ks in range(KT // 32):
+                for h in range(2):
+                    for i in range(4):
+                        for wn in (0, 32, 64, 96):
+                            banks = {(off // 4) % 32 for w, lane, k2, h2, c, i2, off
+                                     in reads if (w, k2, h2, i2, c) == (wn, ks, h, i, 0)}
+                            assert len(banks) == 32
+
+
+def test_k4l_epilogue_columns_cover_the_tile():
+    """group_mma_kernel's accumulator (mt, c, 2h + e) of warp w (columns
+    wn = 32 w) and lane l is row 16 mt + l / 4 + 8 h and column
+    wn + 4 (2 (l % 4) + e) + c: the 4 warps' 64 outputs a thread cover the
+    64 x 128 block tile once, and the m16n8 C fragment's column 2 (l % 4)
+    + e of tile c is the B column that the lanes with l / 4 = 2 (l % 4) + e
+    supplied, column wn + 4 (l / 4) + c of the packed tile."""
+    seen = set()
+    for warp in range(4):
+        wn = warp * 32
+        for lane in range(32):
+            for mt in range(4):
+                for c in range(4):
+                    for h in range(2):
+                        for e in range(2):
+                            n = 2 * (lane % 4) + e     # the C fragment's column
+                            cell = (16 * mt + lane // 4 + 8 * h, wn + 4 * n + c)
+                            assert cell not in seen
+                            seen.add(cell)
+    assert seen == {(r, m) for r in range(64) for m in range(128)}

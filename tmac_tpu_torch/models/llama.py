@@ -130,9 +130,10 @@ class KVCache:
     Dp is head_dim rounded up to 128 and S_max is rounded up to 128, as in
     the JAX package, so caches keep its layout.  Unlike the JAX package's
     functional cache, ``Llama.forward`` updates this one IN PLACE: it
-    writes the new rows and advances ``pos``.  Rows past max_len are an
-    indexing error here, where JAX's dynamic_update_slice would clamp them
-    (``generate`` checks the lengths).
+    writes the new rows and advances ``pos``.  A write that would run past
+    the last row starts at S - T instead, as JAX's dynamic_update_slice
+    clamps its start (``_write_rows``): a slot held at ``pos == S``
+    rewrites row S - 1, and ``pos`` still advances.
 
     Quantized mode (``create(..., quant=True)``): k/v hold int8 codes and
     k_scale/v_scale (L, B, KV, S) f32 one absmax/127 scale per written row
@@ -314,31 +315,42 @@ def init_params(cfg: ModelConfig, seed: int = 0,
 # Forward
 # ---------------------------------------------------------------------------
 
+def _write_rows(positions: torch.Tensor, S: int) -> torch.Tensor:
+    """The cache rows (B, T) that a write of T rows at positions (B, T)
+    lands on: each slot's start clamped to [0, S - T], as JAX's
+    dynamic_update_slice clamps it, so a write that would run past the
+    last row ends at row S - 1."""
+    T = positions.shape[1]
+    start = positions[:, :1].long().clamp(0, S - T)
+    return start + torch.arange(T, device=positions.device)
+
+
 def _write_kv_stacked(buf: torch.Tensor, li: int, kv: torch.Tensor,
                       positions: torch.Tensor) -> None:
     """Write kv (B, T, KV, D) into the stacked cache buf (L, B, KV, S, Dp)
-    at layer li, rows positions (B, T) (int64), in place.  The padding
-    columns D..Dp stay as the cache was created: zero."""
-    B = kv.shape[0]
-    rows = torch.arange(B, device=kv.device)[:, None]
-    buf[li, ..., :kv.shape[-1]][rows, :, positions] = kv.to(buf.dtype)
+    at layer li, rows _write_rows(positions) (B, T), in place.  The
+    padding columns D..Dp stay as the cache was created: zero."""
+    rows = torch.arange(kv.shape[0], device=kv.device)[:, None]
+    cols = _write_rows(positions, buf.shape[3])
+    buf[li, ..., :kv.shape[-1]][rows, :, cols] = kv.to(buf.dtype)
 
 
 def _write_scale_stacked(sbuf: torch.Tensor, li: int, sc: torch.Tensor,
                          positions: torch.Tensor) -> None:
     """Write per-vector scales sc (B, T, KV) into the stacked scale buffer
-    (L, B, KV, S) at layer li, rows positions (B, T), in place."""
+    (L, B, KV, S) at layer li, rows _write_rows(positions), in place."""
     rows = torch.arange(sc.shape[0], device=sc.device)[:, None]
-    sbuf[li][rows, :, positions] = sc
+    sbuf[li][rows, :, _write_rows(positions, sbuf.shape[3])] = sc
 
 
 def _write_kv_all_layers(buf: torch.Tensor, per_layer: torch.Tensor,
                          pos: torch.Tensor) -> None:
     """The deferred mode's commit: every layer's decode-step rows
-    per_layer (L, B, 1, KV, D) into buf (L, B, KV, S, Dp) at rows pos (B,),
-    in place, in one write."""
+    per_layer (L, B, 1, KV, D) into buf (L, B, KV, S, Dp) at rows
+    _write_rows(pos) (B, 1), in place, in one write."""
     rows = torch.arange(per_layer.shape[1], device=buf.device)[:, None]
-    buf[..., :per_layer.shape[-1]][:, rows, :, pos.long()[:, None]] = \
+    cols = _write_rows(pos[:, None], buf.shape[3])
+    buf[..., :per_layer.shape[-1]][:, rows, :, cols] = \
         per_layer.permute(1, 2, 0, 3, 4).to(buf.dtype)
 
 
@@ -347,7 +359,8 @@ def _write_scale_all_layers(sbuf: torch.Tensor, per_layer: torch.Tensor,
     """_write_kv_all_layers for the scales: per_layer (L, B, 1, KV) into
     sbuf (L, B, KV, S)."""
     rows = torch.arange(per_layer.shape[1], device=sbuf.device)[:, None]
-    sbuf[:, rows, :, pos.long()[:, None]] = per_layer.permute(1, 2, 0, 3)
+    sbuf[:, rows, :, _write_rows(pos[:, None], sbuf.shape[3])] = \
+        per_layer.permute(1, 2, 0, 3)
 
 
 class QLinear(nn.Module):

@@ -132,8 +132,11 @@ def _split_plain(q, k_all, v_all, lens, layer, scale, k_scale, v_scale,
     quant = k_scale is not None
     scale = 1.0 / math.sqrt(Dl) if scale is None else scale
     li = torch.as_tensor(layer, device=dev).reshape(1).long()
-    lens = lens.to(dev).long().clamp(0, S)
-    lo = (lens - window + int(append)).clamp_min(0) if window > 0 \
+    # the window's edge from the length as given, the rows read below S:
+    # past S (a slot held at pos == S) the reference masks the same rows
+    raw = lens.to(dev).long().clamp_min(0)
+    lens = raw.clamp_max(S)
+    lo = (raw - window + int(append)).clamp_min(0) if window > 0 \
         else torch.zeros_like(lens)
     nchunk, J = n_chunks(S, window, chunk), cdiv(chunk, G)
     within = (torch.arange(J, device=dev)[:, None] * G
@@ -206,21 +209,21 @@ def flash_decode_append_plain(q, k_all, v_all, cached_lens, layer, cur_k,
 def _store_row_plain(buf, sbuf, cur, lens, layer):
     """Store cur (B, KV, Dl) at row lens[b] of layer `layer` of buf, in
     place, zero-padded to Dp (quantized, with its scale into sbuf, on an
-    int8 cache); a row at or past S is not stored."""
+    int8 cache).  The row is clamped to [0, S - 1], where the reference's
+    store lands in interpret mode (a slot at cached_lens == S rewrites
+    row S - 1)."""
     B, KV, Dl = cur.shape
     S, Dp = buf.shape[3], buf.shape[4]
     li = torch.as_tensor(layer, device=buf.device).reshape(1).long()
     bi = torch.arange(B, device=buf.device)
-    lens = lens.to(buf.device).long()
-    row = lens.clamp(0, S - 1)
-    ok = ((lens >= 0) & (lens < S))[:, None]
+    row = lens.to(buf.device).long().clamp(0, S - 1)
     if sbuf is not None:
         codes, sc = quantize_kv(cur)
         new = F.pad(codes, (0, Dp - Dl))
-        sbuf[li, bi, :, row] = torch.where(ok, sc, sbuf[li, bi, :, row])
+        sbuf[li, bi, :, row] = sc
     else:
         new = F.pad(cur.float(), (0, Dp - Dl)).to(buf.dtype)
-    buf[li, bi, :, row] = torch.where(ok[..., None], new, buf[li, bi, :, row])
+    buf[li, bi, :, row] = new
 
 
 def flash_decode_append_write_plain(q, k_all, v_all, cached_lens, layer,

@@ -39,8 +39,8 @@
 //           online-softmax step
 //   write   (K9) the current row is also stored at row len, quantized the
 //           _quantize_kv way on an int8 cache (absmax/127 over Dl, rint,
-//           +-127), zero-padded to Dp; skipped when len >= S, where the
-//           TPU kernel has no bound check
+//           +-127), zero-padded to Dp; at len >= S at row S - 1, where
+//           the reference's store lands in interpret mode
 //
 // These run split over the rows (flash-decoding), because at Phi-3-mini's
 // 2047-row window one block per head would stream ~2047 rows on 32 of the
@@ -266,8 +266,11 @@ __global__ void __launch_bounds__(kGroups * 16) flash_partial_kernel(
   const int d0 = lane * kPer;
   const unsigned hmask = 0xffffu << (threadIdx.x & 16);
   const int li = min(max(layer[0], 0), L - 1);
-  const int len = min(max(lens[b], 0), S);
-  const int lo = window > 0 ? max(len - window + append, 0) : 0;
+  // the window's edge from the length as given, the rows read below S:
+  // past S (a slot held at pos == S) the reference masks the same rows
+  const int raw = max(lens[b], 0);
+  const int len = min(raw, S);
+  const int lo = window > 0 ? max(raw - window + append, 0) : 0;
   const int r0 = lo + c * chunk;
   const int r1 = min(len, r0 + chunk);
 
@@ -457,13 +460,11 @@ __global__ void __launch_bounds__(kDp) flash_combine_kernel(
     if (d < Dl) store(out + (bh * rep + r) * Dl + d, a / fmaxf(lt, 1e-30f));
   }
   if (write) {
-    const int row = lens[b];
-    if (row >= 0 && row < S) {
-      const int li = min(max(layer[0], 0), L - 1);
-      const size_t off = (((size_t)li * B + b) * KV + h) * S + row;
-      store_row(k + off * kDp, ks + off, sm_cur[0], Dl, d);
-      store_row(v + off * kDp, vs + off, sm_cur[1], Dl, d);
-    }
+    const int row = min(max(lens[b], 0), S - 1);
+    const int li = min(max(layer[0], 0), L - 1);
+    const size_t off = (((size_t)li * B + b) * KV + h) * S + row;
+    store_row(k + off * kDp, ks + off, sm_cur[0], Dl, d);
+    store_row(v + off * kDp, vs + off, sm_cur[1], Dl, d);
   }
 }
 

@@ -11,14 +11,25 @@ which the CUDA C++ in ``csrc/qgemm_grouped.cu`` computes for Hopper.
 K5 replaces its ``dequant_dot`` path, which the same call takes from 64
 rows with dispatch "dequant", or from 3 * group_size rows (the route is
 ``ops.qgemm.route``): the prologue's values rounded to bf16, times the
-weights dequantized to bf16, in one f32 dot (``csrc/qgemm_large.cu``).
+weights dequantized to bf16, in one f32 dot (``csrc/qgemm_large.cu``: xa
+by TMA, wgmma on the tensor cores, every warpgroup dequantizing its share
+of the weights two depth steps ahead of the products).
+
+K4 runs as two designs on the card: below LARGE_N (64) rows the decode
+form (a dp4a dot per group, int32 partials, an f32 fold), from 64 rows
+K4L, the same function on the int8 tensor cores with the group fold in
+registers (``qgemm_grouped_large``); both are bit for bit the plain
+version.
 
 Each source says what bounds its kernel on the card and how its design
-answers it.  ``qgemm_grouped`` (K4) and ``qgemm_dequant`` (K5) are the
-wrappers: a CPU tensor goes to the plain PyTorch version
-(``qgemm_grouped_plain``, ``qgemm_dequant_plain``), a CUDA tensor to the
-kernel, which either launches or raises.  Each wrapper's ``launches``
-counts calls that launched its kernel (prologue and matmul together).
+answers it.  ``qgemm_grouped`` (K4), ``qgemm_grouped_large`` (K4L) and
+``qgemm_dequant`` (K5) are the wrappers: a CPU tensor goes to the plain
+PyTorch version (``qgemm_grouped_plain``, ``qgemm_dequant_plain``), a
+CUDA tensor to the kernel, which either launches or raises;
+``qgemm_grouped`` raises for a CUDA tensor of LARGE_N rows or more, which
+``ops.qgemm.kernel_for`` routes to K4L.
+Each wrapper's ``launches`` counts calls that launched its kernel
+(prologue and matmul together).
 Bits 2 and 4 are ported; bits 1 and 3 and an activation group size finer
 than the weight groups are not.
 """
@@ -32,7 +43,7 @@ import torch
 
 from tmac_tpu_torch.ops.cuda.qgemm_kernel import (act_scale, prologue_values,
                                                   raise_on, require)
-from tmac_tpu_torch.ops.qgemm import QuantizedTensor, unpack_codes
+from tmac_tpu_torch.ops.qgemm import LARGE_N, QuantizedTensor, unpack_codes
 from tmac_tpu_torch.utils import fma_f32
 
 _c_ptr, _c_int, _c_float = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -140,8 +151,11 @@ def _lib():
     lib.tmac_group_fold.argtypes = [
         _c_ptr, _c_ptr, _c_ptr, _c_int, _c_int, _c_int, _c_ptr, _c_ptr,
         _c_ptr, _c_ptr, _c_ptr]
+    lib.tmac_group_gemm.argtypes = [
+        _c_ptr, _c_ptr, _c_ptr, _c_int, _c_int, _c_int, _c_int, _c_ptr,
+        _c_int, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr]
     for fn in (lib.tmac_act_quant_grouped, lib.tmac_group_dots,
-               lib.tmac_group_fold):
+               lib.tmac_group_fold, lib.tmac_group_gemm):
         fn.restype = _c_int
     return lib
 
@@ -151,17 +165,17 @@ def _stream(dev) -> int:
 
 
 def launch_act_quant_grouped(x: torch.Tensor, qt: QuantizedTensor, norm=None,
-                             glu: bool = False):
+                             glu: bool = False, kernel: str = "K4"):
     """Launch the prologue: -> (codes (N, Kp) int8, xs (N, G), xsum (N, G))."""
     dev = x.device
     N = x.shape[0]
     K, Kp, gs = qt.kdim, qt.kdim_padded, qt.group_size
     G = Kp // gs
-    require("K4", x, "x", torch.bfloat16, (N, 2 * K if glu else K), dev)
+    require(kernel, x, "x", torch.bfloat16, (N, 2 * K if glu else K), dev)
     norm_ptr, eps = None, 0.0
     if norm is not None:
         w, eps = norm
-        require("K4", w, "norm weight", torch.bfloat16, (K,), dev)
+        require(kernel, w, "norm weight", torch.bfloat16, (K,), dev)
         norm_ptr = w.data_ptr()
     codes = torch.empty((N, Kp), dtype=torch.int8, device=dev)
     xs = torch.empty((N, G), dtype=torch.float32, device=dev)
@@ -170,7 +184,7 @@ def launch_act_quant_grouped(x: torch.Tensor, qt: QuantizedTensor, norm=None,
         x.data_ptr(), N, x.shape[1], K, Kp, gs, int(glu), norm_ptr,
         float(eps), 1.0 / K, codes.data_ptr(), xs.data_ptr(), xsum.data_ptr(),
         _stream(dev))
-    raise_on("K4", err, "prologue")
+    raise_on(kernel, err, "prologue")
     return codes, xs, xsum
 
 
@@ -221,12 +235,17 @@ def qgemm_grouped(x: torch.Tensor, qt: QuantizedTensor, norm=None,
     norm: (weight (K,), eps) rms_norm before quantization.  glu: x is the
     fused gate_up output and silu(g) * u feeds the matmul.  residual:
     (N, M) added in the epilogue.  CPU tensors take the plain version; CUDA
-    tensors take the kernel (x, the norm weight and the residual in bf16)."""
+    tensors take the kernel (x, the norm weight and the residual in bf16)
+    below LARGE_N rows; from there the route takes K4L,
+    qgemm_grouped_large (``ops.qgemm.kernel_for`` picks)."""
     _check_supported(qt, glu, norm, residual)
     if x.device.type == "cpu":
         return qgemm_grouped_plain(x, qt, norm, glu, residual)
     if x.device.type != "cuda":
         raise ValueError(f"K4 runs on CPU or CUDA tensors, not {x.device}")
+    if x.shape[0] >= LARGE_N:
+        raise ValueError(f"K4 takes N < {LARGE_N} rows on the card, not "
+                         f"{x.shape[0]}: K4L (qgemm_grouped_large) takes the rest")
     codes, xs, xsum = launch_act_quant_grouped(x, qt, norm, glu)
     parts = launch_group_dots(codes, qt)
     out = launch_fold(parts, xs, xsum, qt, residual)
@@ -235,6 +254,54 @@ def qgemm_grouped(x: torch.Tensor, qt: QuantizedTensor, norm=None,
 
 
 qgemm_grouped.launches = 0
+
+
+def launch_group_gemm(codes: torch.Tensor, xs: torch.Tensor,
+                      xsum: torch.Tensor, qt: QuantizedTensor,
+                      residual=None) -> torch.Tensor:
+    """Launch K4L's matmul on its prologue's outputs: -> (N, Mp) f32."""
+    dev = codes.device
+    N, Kp, Mp, gs = codes.shape[0], qt.kdim_padded, qt.mdim_padded, qt.group_size
+    G = Kp // gs
+    require("K4L", codes, "codes", torch.int8, (N, Kp), dev)
+    require("K4L", xs, "xs", torch.float32, (N, G), dev)
+    require("K4L", xsum, "xsum", torch.float32, (N, G), dev)
+    require("K4L", qt.packed, "packed", torch.uint8, (Kp * qt.bits // 8, Mp), dev)
+    require("K4L", qt.scales, "scales", torch.bfloat16, (G, Mp), dev)
+    require("K4L", qt.sub, "sub", torch.bfloat16, (G, Mp), dev)
+    if Mp % 128 or codes.data_ptr() % 16 or qt.packed.data_ptr() % 16:
+        raise ValueError("K4L: Mp % 128 == 0 and 16-byte aligned codes and packed")
+    res_ptr = None
+    if residual is not None:
+        require("K4L", residual, "residual", torch.bfloat16, (N, Mp), dev)
+        res_ptr = residual.data_ptr()
+    out = torch.empty((N, Mp), dtype=torch.float32, device=dev)
+    err = _lib().tmac_group_gemm(
+        codes.data_ptr(), xs.data_ptr(), xsum.data_ptr(), N, Kp, gs, qt.bits,
+        qt.packed.data_ptr(), Mp, qt.scales.data_ptr(), qt.sub.data_ptr(),
+        res_ptr, out.data_ptr(), _stream(dev))
+    raise_on("K4L", err, "matmul")
+    return out
+
+
+def qgemm_grouped_large(x: torch.Tensor, qt: QuantizedTensor, norm=None,
+                        glu: bool = False, residual=None) -> torch.Tensor:
+    """K4L: qgemm_grouped's function on the int8 tensor cores, the group
+    fold in registers (csrc/qgemm_grouped.cu, group_mma_kernel), the form
+    the route takes from LARGE_N rows; any N on a CUDA tensor.  CPU
+    tensors take the plain version."""
+    _check_supported(qt, glu, norm, residual, "K4L")
+    if x.device.type == "cpu":
+        return qgemm_grouped_plain(x, qt, norm, glu, residual)
+    if x.device.type != "cuda":
+        raise ValueError(f"K4L runs on CPU or CUDA tensors, not {x.device}")
+    codes, xs, xsum = launch_act_quant_grouped(x, qt, norm, glu, "K4L")
+    out = launch_group_gemm(codes, xs, xsum, qt, residual)
+    qgemm_grouped_large.launches += 1
+    return qt.slice_m(out)
+
+
+qgemm_grouped_large.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -318,8 +385,10 @@ def launch_dequant_gemm(xa: torch.Tensor, qt: QuantizedTensor,
     require("K5", qt.packed, "packed", torch.uint8, (Kp * qt.bits // 8, Mp), dev)
     require("K5", qt.scales, "scales", torch.bfloat16, (G, Mp), dev)
     require("K5", qt.sub, "sub", torch.bfloat16, (G, Mp), dev)
-    if Mp % 128 or any(t.data_ptr() % 16 for t in (xa, qt.packed, qt.scales, qt.sub)):
-        raise ValueError("K5: Mp % 128 == 0 and 16-byte aligned operands")
+    if Mp % 128 or (Kp * qt.bits // 8) % 64 or any(
+            t.data_ptr() % 16 for t in (xa, qt.packed, qt.scales, qt.sub)):
+        raise ValueError("K5: Mp % 128 == 0, packed rows a multiple of 64 and "
+                         "16-byte aligned operands")
     res_ptr = None
     if residual is not None:
         require("K5", residual, "residual", torch.bfloat16, (N, Mp), dev)

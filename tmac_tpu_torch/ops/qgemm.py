@@ -12,8 +12,9 @@ implementation computes C = x @ Wdq with
                int32 dot: K1 (ops/cuda/qgemm_kernel.py) for N < 64, K3 from
                64 rows; grouped scales: K4 (ops/cuda/qgemm_grouped_kernel.py,
                int8 activations per (token, group), exact int32 dots per
-               group, scales folded per group) below 64 rows or with
-               dispatch "chunk", K5 (the same module: bf16 activations
+               group, scales folded per group; K4L, its tensor-core form,
+               from 64 rows) below 3 * group_size rows or with dispatch
+               "chunk", K5 (the same module: bf16 activations
                times bf16 dequantized weights, one f32 dot) from 64 rows
                with dispatch "dequant", or from 3 * group_size rows by
                default
@@ -309,7 +310,8 @@ def route(qt: QuantizedTensor, N: int, dispatch: Optional[str] = None) -> str:
     of x, by its rule off the TPU (its tune table is keyed to a TPU):
     per-tensor scales take K3 from LARGE_N rows and K1 below; grouped
     scales take K5 from LARGE_N rows when dispatch is "dequant", or is None
-    and N >= 3 * group_size, and K4 otherwise ("chunk", or fewer rows)."""
+    and N >= 3 * group_size, and K4's function otherwise ("chunk", or fewer
+    rows): K4L, its tensor-core form, from LARGE_N rows, K4 below."""
     if dispatch not in DISPATCHES:
         raise ValueError(f"dispatch must be one of {DISPATCHES}, not {dispatch!r}")
     if qt.scales.shape[0] == 1:
@@ -317,7 +319,7 @@ def route(qt: QuantizedTensor, N: int, dispatch: Optional[str] = None) -> str:
     if N >= LARGE_N and (dispatch or ("dequant" if N >= 3 * qt.group_size
                                       else "chunk")) == "dequant":
         return "K5"
-    return "K4"
+    return "K4L" if N >= LARGE_N else "K4"
 
 
 def kernel_for(qt: QuantizedTensor, N: int, plain: bool = False,
@@ -331,6 +333,7 @@ def kernel_for(qt: QuantizedTensor, N: int, plain: bool = False,
         "K1": (per_tensor.qgemm_fused, per_tensor.qgemm_fused_plain),
         "K3": (per_tensor.qgemm_large_int, per_tensor.qgemm_fused_plain),
         "K4": (grouped.qgemm_grouped, grouped.qgemm_grouped_plain),
+        "K4L": (grouped.qgemm_grouped_large, grouped.qgemm_grouped_plain),
         "K5": (grouped.qgemm_dequant, grouped.qgemm_dequant_plain),
     }[route(qt, N, dispatch)][int(plain)]
 
