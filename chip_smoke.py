@@ -13,8 +13,10 @@ Phases, each printing one JSON line before the last two:
      dot) at N = 64 and 256 on every linear with its folds and the int8
      head, bit for bit; kernel K10 (wo + residual, rms_norm, gate_up,
      SwiGLU, down + residual in one program) on two layers, bit for bit;
-  4. kernel K2 (flash decode) against its plain version: max abs error
-     <= 2e-5 in f32, within one bf16 ulp in bf16;
+  4. kernel K2 (decode attention, one launch a call, a cluster of blocks
+     per KV head) against its plain version, bit for bit, f32 and bf16, on
+     256- and 2048-row caches (lengths 1 to 2048, B = 1 and 2, 32 heads of
+     rep 1 and 8 of rep 4, split_plan's cluster size and 1, 3, 8 and 16);
   5. path 1, BitNet-3B W1.58A8 at full width (26 layers, hidden 3200,
      head_dim 100), random weights from seed 0: prefill of a 16-token
      prompt and 64 greedy decode steps through the runtime's entry points,
@@ -75,10 +77,11 @@ Phases, each printing one JSON line before the last two:
      hidden 3072, 32 heads of head_dim 96, FFN 8192, vocab 32064, a
      2047-row sliding window), random weights drawn on the card from seed
      0: kernels K6 (int8 cache and/or window), K8 (current token as an
-     operand) and K9 (K8 storing the current row) against their plain
-     versions, bit for bit, at Phi-3's shapes and a GQA shape (KV 8, rep
-     4, head_dim 128), bf16 and int8 caches, windows 2047 and 0, lengths 1
-     to 2368 (K9's stored rows byte for byte, the rest of the cache
+     operand) and K9 (K8 storing the current row), the same kernel as K2,
+     against their plain versions, bit for bit, at Phi-3's shapes (at
+     split_plan's cluster size and at 1 and 8) and a GQA shape (KV 8, rep
+     4, head_dim 128), bf16 and int8 caches, windows 2047 and 0, lengths 0
+     to 2432 (K9's stored rows byte for byte, the rest of the cache
      untouched, the store at cached length S on row S - 1); K4 at Phi-3's
      shapes (N = 1) and K4L (N = 64, 100, 256, 383); a 2304-token prefill
      (nine chunks of 256, past the window) and 64 greedy decode steps on
@@ -89,12 +92,16 @@ Phases, each printing one JSON line before the last two:
      for bit (tokens, logits, cache); a teacher-forced check of the
      explicit and in-kernel steps against the plain versions; each mode's
      step captured in a CUDA graph; K6, K8 and K9 per call at 2048 cached
-     rows beside their byte bound, plain versions and SDPA; K4L per call
+     rows beside their byte bound, plain versions and SDPA, K6 at every
+     cluster size; K4L per call
      at 256 rows and per prefill, with its share of the prefill's time;
      then writes at the last row of a 128-row cache (a decode step at
      pos == S in each KV-write mode, a 16-token chunk from S - 6, int8 and
      bf16 caches): the rows the reference's clamped writes give, kernel
-     and plain paths equal, no device-side assert, and one kernel after.
+     and plain paths equal, no device-side assert, and one kernel after;
+  9. the attention sweep: K2 (K6 with Phi-3's window) per call at 1, 64,
+     288, 1056 and 2047 rows for the head shapes of the four paths, beside
+     SDPA and the byte bound (the fixed cost of a call and its streaming).
 The last two lines are the kernels' JSON record and
 {"ok": true, "device": {...}}.  Any failed check raises and the script
 exits non-zero; so does a machine without a CUDA device.
@@ -102,6 +109,7 @@ exits non-zero; so does a machine without a CUDA device.
 
 import contextlib
 import dataclasses
+import itertools
 import json
 import math
 import re
@@ -119,7 +127,7 @@ PEAKS = (("H200", 4.8e12, 1979e12, 989e12),
 STEPS, FORCED, MOE_FORCED, PHI3_FORCED, PROFILED = 64, 8, 2, 2, 4
 BITNET_PROMPT, LLAMA_PROMPT, PHI3_PROMPT = 16, 256, 2304
 BITNET_LONG_PROMPT, LLAMA_LONG_PROMPT, LLAMA_CHUNK = 1024, 1024, 512
-FOLDED_NMSE, K2_F32_ERR = 1e-6, 2e-5
+FOLDED_NMSE = 1e-6
 # K4L's rows: the route's edges (64, 383) and ragged row tiles; the sweep's
 K4L_ROWS, K4L_SWEEP = (64, 100, 256, 383), (64, 128, 256, 384, 512)
 PATH_NMSE, TIE_MARGIN = 1e-4, 1e-2
@@ -464,17 +472,32 @@ def check_k4(card, cases):
     return rows, worst
 
 
+# K2's cases: (S, B, KV, rep, lengths, nsplit): the short cache, then long
+# contexts at S 2048 (one and two batch rows, 32 heads and Mixtral's 8 of
+# rep 4), at split_plan's nsplit (None) and at 1, 3, 8 and 16
+K2_CASES = tuple((256, B, KV, rep, lens, None) for B, KV, rep, lens in (
+    (1, 32, 1, (1,)), (1, 32, 1, (17,)), (1, 32, 1, (80,)), (1, 32, 1, (256,)),
+    (2, 8, 4, (1, 256)), (2, 8, 4, (17, 80)))) + tuple(
+    (2048, 1, 32, 1, (n,), None) for n in (1, 17, 255, 1056, 2047, 2048)) + (
+    (2048, 2, 32, 1, (1056, 17), None), (2048, 2, 8, 4, (2047, 255), None),
+    (2048, 1, 8, 4, (288,), None), (2048, 1, 8, 4, (2048,), None),
+    (2048, 1, 32, 1, (1056,), 1), (2048, 1, 32, 1, (2047,), 3),
+    (2048, 1, 8, 4, (2047,), 8), (2048, 1, 8, 4, (1056,), 16))
+
+
 def check_k2(card, Dl):
+    """K2 against its plain version on K2_CASES at head_dim Dl, f32 and
+    bf16, bit for bit.  A non-portable cluster (nsplit above 8) is held
+    where the card schedules it and recorded as refused where not.  ->
+    (rows, worst abs error)"""
     import numpy as np
     import torch
     from tmac_tpu_torch.ops.cuda import attention_kernel as k2
     dev, rng = card.dev, card.rng
-    S, Dp = 256, 128
+    Dp = 128
     worst, rows = 0.0, []
     for dtype in (torch.float32, torch.bfloat16):
-        for B, KV, rep, lens in ((1, 32, 1, (1,)), (1, 32, 1, (17,)),
-                                 (1, 32, 1, (80,)), (1, 32, 1, (256,)),
-                                 (2, 8, 4, (1, 256)), (2, 8, 4, (17, 80))):
+        for S, B, KV, rep, lens, nsplit in K2_CASES:
             kc = torch.zeros((2, B, KV, S, Dp), device=dev)
             vc = torch.zeros_like(kc)
             kc[..., :Dl] = torch.from_numpy(rng.standard_normal((2, B, KV, S, Dl)).astype(np.float32)).to(dev)
@@ -483,25 +506,23 @@ def check_k2(card, Dl):
             q, kc, vc = q.to(dtype), kc.to(dtype), vc.to(dtype)
             kl = torch.tensor(lens, dtype=torch.int32, device=dev)
             li = torch.tensor([1], dtype=torch.int32, device=dev)
-            got = k2.flash_decode(q, kc, vc, kl, li)
-            want = k2.flash_decode_plain(q, kc, vc, kl, li)
+            row = dict(dtype=str(dtype)[6:], S=S, B=B, KV=KV, rep=rep, lens=lens,
+                       nsplit=nsplit)
+            try:
+                got = k2.flash_decode(q, kc, vc, kl, li, nsplit=nsplit)
+            except RuntimeError as e:
+                if nsplit is None or nsplit <= 8:
+                    raise
+                rows.append(dict(row, refused=str(e)))
+                continue
+            want = k2.flash_decode_plain(q, kc, vc, kl, li, nsplit=nsplit)
             torch.cuda.synchronize()
-            diff = (got.float() - want.float()).abs()
-            if dtype == torch.float32:
-                ok = float(diff.max()) <= K2_F32_ERR
-            else:
-                # one bf16 ulp of the larger of the two values; near zero,
-                # where that ulp is finer than f32 sums can be held to,
-                # the f32 tolerance
-                mag = torch.maximum(got.float().abs(), want.float().abs())
-                ulp = torch.exp2(torch.floor(torch.log2(mag.clamp_min(1e-30))) - 7)
-                ok = bool((diff <= ulp.clamp_min(K2_F32_ERR)).all())
-            worst = max(worst, float(diff.max()))
-            rows.append(dict(dtype=str(dtype)[6:], B=B, rep=rep, lens=lens,
-                             max_abs_err=float(diff.max()),
-                             bitwise=bool(torch.equal(got, want))))
-            if not ok:
+            err = float((got.float() - want.float()).abs().max())
+            worst = max(worst, err)
+            rows.append(dict(row, max_abs_err=err, bitwise=bool(torch.equal(got, want))))
+            if not rows[-1]["bitwise"]:
                 raise AssertionError(f"K2 check failed: {rows[-1]}")
+            del kc, vc
     return rows, worst
 
 
@@ -572,9 +593,7 @@ KERNEL_NAMES = (("K10", "block_kernel"), ("K3 matmul", "large_int_kernel"),
                 ("K4/K4L prologue", "act_quant_grouped_kernel"),
                 ("K4 dots", "group_dot_kernel"), ("K4 fold", "fold_kernel"),
                 ("K1 prologue", "act_quant_kernel"), ("K1 matmul", "qgemm_kernel"),
-                ("K2", "flash_decode_kernel"),
-                ("K6/K8/K9 partial", "flash_partial_kernel"),
-                ("K6/K8/K9 combine", "flash_combine_kernel"))
+                ("K2/K6/K8/K9", "decode_attention_kernel"))
 
 
 def profiled_ms(fn, calls=1):
@@ -1593,9 +1612,10 @@ def rand_cache(card, L, KV, S, Dl, quant):
 
 def check_kv_modes(card, S, window, lengths):
     """K6, K8 and K9 against their plain versions on an S-row cache, bit
-    for bit: Phi-3's shapes (KV 32, rep 1, head_dim 96) and a GQA shape
-    (KV 8, rep 4, head_dim 128), bf16 and int8 caches, the window and none
-    (K6 without either is K2), each of `lengths` (K6 skips 0 and S).  K9
+    for bit: Phi-3's shapes (KV 32, rep 1, head_dim 96; at split_plan's
+    nsplit and at 1 and 8) and a GQA shape (KV 8, rep 4, head_dim 128),
+    bf16 and int8 caches, the window and none (K6 without either is K2),
+    each of `lengths` (K6 skips 0 and S).  K9
     on copies of the cache: its stored rows byte for byte the plain
     version's, every other byte untouched, and at cached length S the
     store on row S - 1, where the reference's lands.  -> (rows, worst abs
@@ -1608,58 +1628,57 @@ def check_kv_modes(card, S, window, lengths):
 
     def same(a, b):
         return a is None or torch.equal(a.view(torch.uint8), b.view(torch.uint8))
-    for KV, rep, Dl in ((32, 1, 96), (8, 4, 128)):
+    for KV, rep, Dl, nsplits in ((32, 1, 96, (None, 1, 8)), (8, 4, 128, (None,))):
         for quant in (True, False):
             k, v, ks, vs = rand_cache(card, L, KV, S, Dl, quant)
             q = card.bf16(1, KV, rep, Dl)
             ck, cv = card.bf16(1, KV, Dl), card.bf16(1, KV, Dl)
             kw = dict(k_scale=ks, v_scale=vs)
-            for w in (window, 0):
-                kw["window"] = w
-                for n in lengths:
-                    lens = torch.tensor([n], dtype=torch.int32, device=dev)
-                    errs = {}
-                    if n and n < S and (quant or w):
-                        got = ak.flash_decode_split(q, k, v, lens, li, **kw)
-                        want = ak.flash_decode_split_plain(q, k, v, lens, li, **kw)
-                        errs["K6"] = (got, want)
-                    if n < S:
-                        got = ak.flash_decode_append(q, k, v, lens, li, ck, cv, **kw)
-                        want = ak.flash_decode_append_plain(q, k, v, lens, li, ck, cv, **kw)
-                        errs["K8"] = (got, want)
-                    # K9 on two copies of the cache, kernel and plain
-                    pair = [[t.clone() if t is not None else None
-                             for t in (k, v, ks, vs)] for _ in range(2)]
-                    outs = []
-                    for fn, (kk, vv, kks, vvs) in zip(
-                            (ak.flash_decode_append_write,
-                             ak.flash_decode_append_write_plain), pair):
-                        outs.append(fn(q, kk, vv, lens, li, ck, cv, k_scale=kks,
-                                       v_scale=vvs, window=w))
-                    errs["K9"] = tuple(outs)
-                    torch.cuda.synchronize()
-                    stored = all(same(a, b) for a, b in zip(*pair))
-                    # outside row min(n, S - 1) of layer 1 the cache is as
-                    # it was
-                    untouched = True
-                    for t, new in zip((k, v, ks, vs), pair[0]):
-                        if t is None:
-                            continue
-                        diff = (t != new).reshape(L, 1, KV, S, -1).any(-1)
-                        diff[1, 0, :, min(n, S - 1)] = False
-                        untouched &= not bool(diff.any())
-                    row = dict(KV=KV, rep=rep, Dl=Dl, cache="int8" if quant else "bf16",
-                               window=w, len=n, stored_equal=stored,
-                               rest_untouched=untouched)
-                    for name, (got, want) in errs.items():
-                        err = float((got.float() - want.float()).abs().max())
-                        worst[name] = max(worst[name], err)
-                        row[name] = dict(max_abs_err=err,
-                                         bitwise=bool(torch.equal(got, want)))
-                    rows.append(row)
-                    if not (stored and untouched and all(
-                            r["bitwise"] for n_, r in row.items() if n_ in errs)):
-                        raise AssertionError(f"K6/K8/K9 check failed: {row}")
+            for w, nsplit, n in itertools.product((window, 0), nsplits, lengths):
+                kw.update(window=w, nsplit=nsplit)
+                lens = torch.tensor([n], dtype=torch.int32, device=dev)
+                errs = {}
+                if n and n < S and (quant or w):
+                    got = ak.flash_decode_split(q, k, v, lens, li, **kw)
+                    want = ak.flash_decode_split_plain(q, k, v, lens, li, **kw)
+                    errs["K6"] = (got, want)
+                if n < S:
+                    got = ak.flash_decode_append(q, k, v, lens, li, ck, cv, **kw)
+                    want = ak.flash_decode_append_plain(q, k, v, lens, li, ck, cv, **kw)
+                    errs["K8"] = (got, want)
+                # K9 on two copies of the cache, kernel and plain
+                pair = [[t.clone() if t is not None else None
+                         for t in (k, v, ks, vs)] for _ in range(2)]
+                outs = []
+                for fn, (kk, vv, kks, vvs) in zip(
+                        (ak.flash_decode_append_write,
+                         ak.flash_decode_append_write_plain), pair):
+                    outs.append(fn(q, kk, vv, lens, li, ck, cv, k_scale=kks,
+                                   v_scale=vvs, window=w, nsplit=nsplit))
+                errs["K9"] = tuple(outs)
+                torch.cuda.synchronize()
+                stored = all(same(a, b) for a, b in zip(*pair))
+                # outside row min(n, S - 1) of layer 1 the cache is as
+                # it was
+                untouched = True
+                for t, new in zip((k, v, ks, vs), pair[0]):
+                    if t is None:
+                        continue
+                    diff = (t != new).reshape(L, 1, KV, S, -1).any(-1)
+                    diff[1, 0, :, min(n, S - 1)] = False
+                    untouched &= not bool(diff.any())
+                row = dict(KV=KV, rep=rep, Dl=Dl, cache="int8" if quant else "bf16",
+                           window=w, nsplit=nsplit, len=n, stored_equal=stored,
+                           rest_untouched=untouched)
+                for name, (got, want) in errs.items():
+                    err = float((got.float() - want.float()).abs().max())
+                    worst[name] = max(worst[name], err)
+                    row[name] = dict(max_abs_err=err,
+                                     bitwise=bool(torch.equal(got, want)))
+                rows.append(row)
+                if not (stored and untouched and all(
+                        r["bitwise"] for n_, r in row.items() if n_ in errs)):
+                    raise AssertionError(f"K6/K8/K9 check failed: {row}")
     return rows, worst
 
 
@@ -1862,17 +1881,77 @@ def time_kv_modes(card, cfg, caches, n):
         qs, kk, vv, **gqa) for kk, vv in views]) / L
     for row in out.values():
         row["library_ms"] = lib
-    # K6 on the int8 cache with fewer rows a block (more blocks a head)
+    # K6 on the int8 cache at cluster sizes around split_plan's (12 and 16,
+    # non-portable clusters, where the card schedules them)
     kw = dict(k_scale=c8.k_scale, v_scale=c8.v_scale, window=W)
-    chunk, by_chunk = ak.CHUNK, {}
-    try:
-        for rows in (64, 128, 256):
-            ak.CHUNK = rows
-            by_chunk[rows] = graph_ms(lambda: [ak.flash_decode_split(
-                q, c8.k, c8.v, lens, i, **kw) for i in lis]) / L
-    finally:
-        ak.CHUNK = chunk
-    out["K6 int8"]["ms_by_chunk"] = by_chunk
+    by_nsplit = {}
+    for p in (1, 2, 3, 4, 6, 8, 12, 16):
+        try:
+            by_nsplit[p] = graph_ms(lambda: [ak.flash_decode_split(
+                q, c8.k, c8.v, lens, i, nsplit=p, **kw) for i in lis]) / L
+        except RuntimeError as e:
+            if p <= 8:
+                raise
+            by_nsplit[p] = f"refused: {e}"
+    out["K6 int8"]["ms_by_nsplit"] = by_nsplit
+    out["K6 int8"]["nsplit"] = ak.split_plan(1, KVh, min(c8.k.shape[3], W),
+                                             ak.sm_count(dev))
+    return out
+
+
+# The attention sweep's rows, and its head shapes: (label, KV heads, query
+# heads per KV head, head_dim, int8 cache, window), those K2 and K6 serve
+# on the paths (BitNet, Llama, Mixtral; Phi-3 on each cache)
+ATTN_SWEEP_ROWS = (1, 64, 288, 1056, 2047)
+ATTN_SWEEP_SHAPES = (("bitnet", 32, 1, 100, False, 0),
+                     ("llama", 32, 1, 128, False, 0),
+                     ("mixtral", 8, 4, 128, False, 0),
+                     ("phi3 int8", 32, 1, 96, True, 2047),
+                     ("phi3 bf16", 32, 1, 96, False, 2047))
+
+
+def attn_sweep(card, layers=8, S=2048):
+    """Decode attention per call (K2; K6 with Phi-3's window) at each of
+    ATTN_SWEEP_ROWS valid rows and ATTN_SWEEP_SHAPES, over a `layers`-layer
+    S-row random cache (a CUDA graph of one call a layer; the layers' rows
+    pass the 50 MB L2 from ~300 rows on), beside SDPA over the same rows
+    (bf16; dequantized beforehand for the int8 cache) and the byte bound
+    (each row's Dl columns of k and v and its two scales once, q and the
+    output).  The 1-row time is the fixed cost of a call; the rest is
+    streaming.  -> rows"""
+    import torch
+    from tmac_tpu_torch.ops.cuda import attention_kernel as ak
+    dev, out = card.dev, []
+    lis = [torch.tensor([i], dtype=torch.int32, device=dev) for i in range(layers)]
+    for label, KV, rep, Dl, quant, W in ATTN_SWEEP_SHAPES:
+        k, v, ks, vs = rand_cache(card, layers, KV, S, Dl, quant)
+        q = card.bf16(1, KV, rep, Dl)
+        qs = q.reshape(1, KV * rep, 1, Dl)
+        gqa = dict(enable_gqa=True) if rep > 1 else {}
+        kw = dict(k_scale=ks, v_scale=vs, window=W)
+        for n in ATTN_SWEEP_ROWS:
+            lens = torch.tensor([n], dtype=torch.int32, device=dev)
+            ms = graph_ms(lambda: [ak.flash_decode(q, k, v, lens, i, **kw)
+                                   for i in lis]) / layers
+            lo = max(n - W, 0) if W else 0
+            views = []
+            for i in range(layers):
+                kk, vv = k[i, :, :, lo:n, :Dl], v[i, :, :, lo:n, :Dl]
+                if quant:
+                    kk = (kk.float() * ks[i, :, :, lo:n, None]).to(torch.bfloat16)
+                    vv = (vv.float() * vs[i, :, :, lo:n, None]).to(torch.bfloat16)
+                views.append((kk, vv))
+            lib = graph_ms(lambda: [torch.nn.functional.scaled_dot_product_attention(
+                qs, kk, vv, **gqa) for kk, vv in views]) / layers
+            rows = n - lo
+            nbytes = (2 * KV * rows * (Dl * k.element_size() + (4 if quant else 0))
+                      + 2 * q.numel() * 2)
+            ops = 4 * KV * rep * rows * Dl
+            peak = card.int8_peak if quant else card.bf16_peak
+            out.append(dict(shape=label, rows=rows, us=ms * 1e3, sdpa_us=lib * 1e3,
+                            bound_us=card.bound_ms(nbytes, ops, peak) * 1e3))
+            del views
+        del k, v, ks, vs
     return out
 
 
@@ -2197,10 +2276,13 @@ def phi3_path(card):
 
 def template_args(mangled):
     """A kernel's template arguments from its mangled name: bf16, f32,
-    int8 or an int."""
+    int8 or an int (a substitution, S<n>_, repeats the type before it)."""
     rest, args = mangled.partition("_kernelI")[2], []
-    while m := re.match(r"13__nv_bfloat16|f|a|Li(\d+)E", rest):
-        args.append(m.group(1) or dict(f="f32", a="int8").get(m.group(0), "bf16"))
+    while m := re.match(r"13__nv_bfloat16|f|a|Li(\d+)E|S\d*_", rest):
+        if m.group(0).startswith("S"):
+            args.append(args[-1] if args else "?")
+        else:
+            args.append(m.group(1) or dict(f="f32", a="int8").get(m.group(0), "bf16"))
         rest = rest[m.end():]
     return args
 
@@ -2230,7 +2312,7 @@ def main() -> int:
         if "Compiling entry function" in ln:
             mangled = ln.split("'")[1]
             base = re.search(r"(act_quant_grouped|act_quant|expert_qgemm|qgemm"
-                             r"|flash_decode|flash_partial|flash_combine"
+                             r"|decode_attention"
                              r"|group_dot|fold|large_int|act_bf16|dequant_wgmma|group_mma"
                              r"|block)_kernel", mangled)
             targs = template_args(mangled)
@@ -2245,6 +2327,8 @@ def main() -> int:
     records += mixtral_path(card)
     torch.cuda.empty_cache()
     records += phi3_path(card)
+    torch.cuda.empty_cache()
+    say("attn_sweep", card=card.name, nvidia_smi=card.smi, rows=attn_sweep(card))
     say("record", unit="device ms per decode step of each path (bitnet-3b: "
         "105 K1 and 26 K2 launches, in the block mode 26 K10, 27 K1 and 26 "
         "K2; llama-2-7b: 128 K4, 1 K1 and 32 K2; mixtral-8x7b: 128 K7, 64 "

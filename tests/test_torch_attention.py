@@ -1,6 +1,7 @@
 """Kernel K2's plain version against the JAX package's flash-decode Pallas
-kernel (flash_decode_stacked, interpret mode on CPU), and against the
-model's masked prefill attention."""
+kernel (flash_decode_stacked, interpret mode on CPU), split over 1, 2, 3
+and 8 blocks a head and over split_plan's choice, and against a masked
+softmax."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -34,11 +35,32 @@ def test_plain_k2_matches_pallas(rep, KV, S, lens):
     want = np.asarray(flash_decode_stacked(
         jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(lens),
         jnp.int32(li), interpret=True))
-    got = flash_decode(torch.from_numpy(q), torch.from_numpy(k),
-                       torch.from_numpy(v), torch.from_numpy(lens),
-                       torch.tensor([li], dtype=torch.int32))
-    assert got.shape == (B, KV, rep, Dl) and got.dtype == torch.float32
-    np.testing.assert_allclose(got.numpy(), want, rtol=2e-5, atol=2e-5)
+    for nsplit in (None, 1, 2, 3, 8):
+        got = flash_decode(torch.from_numpy(q), torch.from_numpy(k),
+                           torch.from_numpy(v), torch.from_numpy(lens),
+                           torch.tensor([li], dtype=torch.int32),
+                           nsplit=nsplit)
+        assert got.shape == (B, KV, rep, Dl) and got.dtype == torch.float32
+        np.testing.assert_allclose(got.numpy(), want, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("rep,KV,Dl", [(1, 4, 100), (4, 2, 128)])
+def test_plain_k2_long_rows_match_pallas(rep, KV, Dl):
+    """Rows over several of the kernel's 64-row ring stages a block (320
+    rows at nsplit 1), lengths on both sides of a stage's edge, the whole
+    cache, and one row."""
+    L, Dp, S, li = 2, 128, 320, 1
+    lens = np.asarray((1, 63, 65, 257, S), np.int32)
+    q, k, v = _inputs(rep + Dl, L, len(lens), KV, rep, Dl, Dp, S)
+    want = np.asarray(flash_decode_stacked(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(lens),
+        jnp.int32(li), interpret=True))
+    for nsplit in (None, 1, 2, 3, 8):
+        got = flash_decode(torch.from_numpy(q), torch.from_numpy(k),
+                           torch.from_numpy(v), torch.from_numpy(lens),
+                           torch.tensor([li], dtype=torch.int32),
+                           nsplit=nsplit)
+        np.testing.assert_allclose(got.numpy(), want, rtol=2e-5, atol=2e-5)
 
 
 def test_plain_k2_empty_rows_give_zeros():

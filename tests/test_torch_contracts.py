@@ -249,3 +249,6 @@ def test_ctypes_signatures_match_the_c_interfaces():
                 py_args[node.targets[0].value.attr] = len(value)
     assert py_args and set(py_args) == set(c_args), (set(py_args) ^ set(c_args))
     assert py_args == c_args
+    # decode attention (K2, K6, K8, K9) has one entry point, of 25 arguments
+    assert c_args["tmac_decode_attention"] == 25
+    assert not {"tmac_flash_decode", "tmac_flash_decode_split"} & set(c_args)

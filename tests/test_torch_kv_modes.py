@@ -5,12 +5,13 @@ flash-decode Pallas kernels (interpret mode on the CPU) and _quantize_kv.
 
 The cases mirror tests/test_attention.py, test_kv_quant.py and
 test_sliding_window.py: int8 and bf16 caches, windows 0, 5 and 40, lengths
-on both sides of the window's edge and across JAX's 32-row blocks and the
-port's chunks (16 rows here beside the default 256), a fresh sequence
-(cached length 0), head_dim 96 and 128, one and four query heads per KV
-head.  Outputs are held to 2e-5 in f32 (the tolerance of K2's test: the
-two sides add in other orders); written codes, scales, values and padding
-exactly.
+0, 1, on both sides of the window's edge, across JAX's 32-row blocks and
+the whole cache, a fresh sequence (cached length 0), head_dim 96 and 128,
+one and four query heads per KV head, each split over 1, 2, 3 and 8 blocks
+a head (nsplit) and over split_plan's choice.  Outputs are held to 2e-5 in
+f32 (the tolerance of K2's test: the two sides add in other orders);
+written codes, scales, values and padding exactly.  The split plan itself
+(split_plan, split_spans) is tested at the end.
 """
 
 import jax
@@ -27,19 +28,21 @@ from tmac_tpu_torch.ops.cuda import attention_kernel as ak
 
 torch.set_num_threads(2)
 
-L, B, S, Dp, LI, BLK = 2, 4, 64, 128, 1, 32
+L, B, S, Dp, LI, BLK = 2, 5, 64, 128, 1, 32
+NSPLITS = (None, 1, 2, 3, 8)  # None: split_plan's choice
 WINDOWS = (0, 5, 40)
 # (head_dim, query heads per KV head, KV heads)
 SHAPES = [(96, 1, 4), (128, 4, 2)]
 
 
 def _lens(window, append, last=S):
-    """Per batch row: the shortest, the window's edge on both sides, and
-    the whole cache or `last` (in append mode, the rows already cached)."""
+    """Per batch row: none, one, the window's edge on both sides (without
+    a window, lengths across JAX's 32-row blocks), and the whole cache or
+    `last` (in append mode, the rows already cached)."""
     if append:
-        return (0, 17, 40, last) if not window \
-            else (0, window - 1, window, last - 1)
-    return (1, 17, 40, S) if not window else (1, window, window + 1, S)
+        return (0, 1, 17, 40, last) if not window \
+            else (0, 1, window - 1, window, last - 1)
+    return (0, 1, 17, 40, S) if not window else (0, 1, window, window + 1, S)
 
 
 def _inputs(seed, Dl, rep, KV, quant):
@@ -88,32 +91,30 @@ CACHE = pytest.mark.parametrize("quant", [True, False], ids=["int8", "bf16"])
 @CACHE
 @WINDOW
 @CASES
-def test_plain_k6_matches_pallas(quant, window, Dl, rep, KV, monkeypatch):
+def test_plain_k6_matches_pallas(quant, window, Dl, rep, KV):
     """flash_decode with k_scale/v_scale and/or a window (K6; with neither,
-    K2) against flash_decode_stacked."""
+    K2) against flash_decode_stacked, split over each of NSPLITS."""
     j, t = _both(*_inputs(window + Dl, Dl, rep, KV, quant), quant)
     lens = np.asarray(_lens(window, False), np.int32)
     want = np.asarray(flash_decode_stacked(
         j["q"], j["k"], j["v"], jnp.asarray(lens), jnp.int32(LI), blk=BLK,
         interpret=True, k_scale=j["ks"], v_scale=j["vs"], window=window))
     lens_t, li = torch.from_numpy(lens), torch.tensor([LI], dtype=torch.int32)
-    got = ak.flash_decode(t["q"], t["k"], t["v"], lens_t, li,
-                          k_scale=t["ks"], v_scale=t["vs"], window=window)
-    assert got.shape == (B, KV, rep, Dl) and got.dtype == torch.float32
-    np.testing.assert_allclose(got.numpy(), want, rtol=2e-5, atol=2e-5)
-    monkeypatch.setattr(ak, "CHUNK", 16)
-    small = ak.flash_decode_split(t["q"], t["k"], t["v"], lens_t, li,
-                                  k_scale=t["ks"], v_scale=t["vs"],
-                                  window=window)
-    np.testing.assert_allclose(small.numpy(), want, rtol=2e-5, atol=2e-5)
+    for nsplit in NSPLITS:
+        got = ak.flash_decode(t["q"], t["k"], t["v"], lens_t, li,
+                              k_scale=t["ks"], v_scale=t["vs"], window=window,
+                              nsplit=nsplit)
+        assert got.shape == (B, KV, rep, Dl) and got.dtype == torch.float32
+        np.testing.assert_allclose(got.numpy(), want, rtol=2e-5, atol=2e-5)
+        assert not got[0].any()  # no valid row: zeros
 
 
 @CACHE
 @WINDOW
 @CASES
-def test_plain_k8_matches_pallas(quant, window, Dl, rep, KV, monkeypatch):
+def test_plain_k8_matches_pallas(quant, window, Dl, rep, KV):
     """flash_decode_append against flash_decode_stacked_append, a fresh
-    sequence among the rows."""
+    sequence among the rows, split over each of NSPLITS."""
     j, t = _both(*_inputs(window + Dl + 1, Dl, rep, KV, quant), quant)
     lens = np.asarray(_lens(window, True), np.int32)
     want = np.asarray(flash_decode_stacked_append(
@@ -121,11 +122,11 @@ def test_plain_k8_matches_pallas(quant, window, Dl, rep, KV, monkeypatch):
         j["cv"], blk=BLK, interpret=True, k_scale=j["ks"], v_scale=j["vs"],
         window=window))
     li = torch.tensor([LI], dtype=torch.int32)
-    for chunk in (ak.CHUNK, 16):
-        monkeypatch.setattr(ak, "CHUNK", chunk)
+    for nsplit in NSPLITS:
         got = ak.flash_decode_append(
             t["q"], t["k"], t["v"], torch.from_numpy(lens), li, t["ck"],
-            t["cv"], k_scale=t["ks"], v_scale=t["vs"], window=window)
+            t["cv"], k_scale=t["ks"], v_scale=t["vs"], window=window,
+            nsplit=nsplit)
         np.testing.assert_allclose(got.numpy(), want, rtol=2e-5, atol=2e-5)
 
 
@@ -143,20 +144,22 @@ def test_plain_k9_matches_pallas(quant, window, Dl, rep, KV):
         j["q"], j["k"], j["v"], jnp.asarray(lens), jnp.int32(LI), j["ck"],
         j["cv"], blk=BLK, interpret=True, k_scale=j["ks"], v_scale=j["vs"],
         window=window)
-    got = ak.flash_decode_append_write(
-        t["q"], t["k"], t["v"], torch.from_numpy(lens),
-        torch.tensor([LI], dtype=torch.int32), t["ck"], t["cv"],
-        k_scale=t["ks"], v_scale=t["vs"], window=window)
-    np.testing.assert_allclose(got.numpy(), np.asarray(res[0]), rtol=2e-5,
-                               atol=2e-5)
     names = ("k", "v", "ks", "vs") if quant else ("k", "v")
-    for name, want in zip(names, res[1:]):
-        mine = t[name].float().numpy()
-        np.testing.assert_array_equal(mine, np.asarray(want, np.float32))
-    assert not t["k"][..., Dl:].any() and not t["v"][..., Dl:].any()
+    for nsplit in NSPLITS:
+        c = dict(t, **{n: t[n].clone() for n in names})
+        got = ak.flash_decode_append_write(
+            c["q"], c["k"], c["v"], torch.from_numpy(lens),
+            torch.tensor([LI], dtype=torch.int32), c["ck"], c["cv"],
+            k_scale=c["ks"], v_scale=c["vs"], window=window, nsplit=nsplit)
+        np.testing.assert_allclose(got.numpy(), np.asarray(res[0]),
+                                   rtol=2e-5, atol=2e-5)
+        for name, want in zip(names, res[1:]):
+            mine = c[name].float().numpy()
+            np.testing.assert_array_equal(mine, np.asarray(want, np.float32))
+        assert not c["k"][..., Dl:].any() and not c["v"][..., Dl:].any()
 
 
-def test_plain_k9_skips_the_store_past_the_cache():
+def test_plain_k9_stores_on_the_last_row_past_the_cache():
     """cached_lens == S: K9 still attends (K8's output), and its store,
     which cannot go past the cache, lands on row S - 1, the last cached
     row, as the JAX kernel's does in interpret mode (it clamps the row as
@@ -170,7 +173,7 @@ def test_plain_k9_skips_the_store_past_the_cache():
         buf = torch.full((L, B, 4, S + 1) + tail, 7, dtype=t[n].dtype)
         buf[:, :, :, :S] = t[n]
         guarded[n], t[n] = buf, buf[:, :, :, :S]
-    lens = torch.tensor([S, 3, S, 0], dtype=torch.int32)
+    lens = torch.tensor([S, 3, S, 0, 1], dtype=torch.int32)
     li = torch.tensor([LI], dtype=torch.int32)
     jout = flash_decode_stacked_append_write(
         j["q"], j["k"], j["v"], jnp.asarray(lens.numpy()), jnp.int32(LI),
@@ -188,8 +191,8 @@ def test_plain_k9_skips_the_store_past_the_cache():
     assert torch.equal(got, want)
     for n, old in before.items():
         changed = (t[n] != old).reshape(L, B, 4, S, -1).any(-1)
-        # only rows S - 1, 3, S - 1 and 0 of batch rows 0 .. 3, in layer LI
-        for b, row in ((0, S - 1), (1, 3), (2, S - 1), (3, 0)):
+        # only rows S - 1, 3, S - 1, 0 and 1 of batch rows 0 .. 4, in layer LI
+        for b, row in ((0, S - 1), (1, 3), (2, S - 1), (3, 0), (4, 1)):
             assert changed[LI, b, :, row].all(), (n, b)
             changed[LI, b, :, row] = False
         assert not changed.any(), n
@@ -219,3 +222,73 @@ def test_quantize_kv_matches_jax_exactly(dtype):
     np.testing.assert_array_equal(q.numpy(), np.asarray(want_q))
     np.testing.assert_array_equal(s.numpy(), np.asarray(want_s))
     assert q[0, 0, :8].tolist() == [127, 0, 2, 2, 0, -2, 4, 126]
+
+
+def _spans(lens, window, append, nsplit, S=S):
+    start, end = ak.split_spans(torch.tensor(lens, dtype=torch.int32), S,
+                                window, append, nsplit)
+    return start.tolist(), end.tolist()
+
+
+@pytest.mark.parametrize("nsplit", [1, 2, 3, 4, 6, 8, 16])
+@pytest.mark.parametrize("window,append", [(0, False), (5, False), (40, False),
+                                           (5, True), (40, True)])
+def test_split_spans_cover_the_rows_once_in_order(nsplit, window, append):
+    """At every length 0 .. S + 2, the spans of a cluster's blocks are
+    contiguous, in rank order, each a whole number of row tiles but the
+    last non-empty one, and together cover [lo, min(len, S)) once."""
+    lens = list(range(S + 3))
+    starts, ends = _spans(lens, window, append, nsplit)
+    for n, st, en in zip(lens, starts, ends):
+        length = min(n, S)
+        lo = max(n - window + int(append), 0) if window else 0
+        rows = [r for a, b in zip(st, en) for r in range(a, b)]
+        assert rows == list(range(lo, length)), (n, st, en)
+        assert st[0] == min(lo, length) and en[-1] == length
+        assert all(b == a for a, b in zip(st[1:], en[:-1]))
+        full = [b - a for a, b in zip(st, en) if b > a][:-1]
+        assert all(w % ak.TILE == 0 for w in full), (n, st, en)
+
+
+def test_split_spans_leave_blocks_empty_at_short_lengths():
+    """A short length fills the first blocks with whole tiles and leaves
+    the others empty, at the end of the rows (start == end == len)."""
+    starts, ends = _spans([1, 9, 0], 0, False, 8)
+    assert (starts[0], ends[0]) == ([0] + [1] * 7, [1] * 8)
+    assert (starts[1], ends[1]) == ([0, 4, 8] + [9] * 5, [4, 8] + [9] * 6)
+    assert (starts[2], ends[2]) == ([0] * 8, [0] * 8)
+
+
+def test_split_spans_past_the_cache():
+    """A length past S reads the rows below S, and the window's edge comes
+    from the length as given (as the reference masks them)."""
+    starts, ends = _spans([S + 10, S + 10], 0, False, 2)
+    assert (starts[0], ends[0]) == ([0, 32], [32, S])
+    starts, ends = _spans([S + 10], 20, True, 2)
+    lo = S + 10 - 20 + 1
+    assert (starts[0], ends[0]) == ([lo, lo + 8], [lo + 8, S])  # 9 rows
+
+
+@pytest.mark.parametrize("B,KV,rows,sms,want", [
+    (1, 32, 1152, 132, 6),     # Llama, BitNet: 192 blocks, ~1.5 an SM
+    (1, 32, 2047, 132, 6),     # Phi-3's window
+    (1, 8, 384, 132, 8),       # Mixtral: capped at the portable cluster
+    (2, 32, 2048, 132, 3),     # two rows of 32 heads
+    (1, 64, 2048, 132, 3),
+    (1, 4, 64, 132, 2),        # few rows: half a stage a block at least
+    (1, 4, 16, 132, 1),
+    (1, 32, 128, 132, 4),
+    (1, 32, 2048, 16, 1),      # a small card
+    (4, 32, 2048, 132, 2),
+])
+def test_split_plan(B, KV, rows, sms, want):
+    assert ak.split_plan(B, KV, rows, sms) == want
+
+
+@pytest.mark.parametrize("nsplit", [0, 17])
+def test_nsplit_must_be_a_cluster_size(nsplit):
+    q = torch.zeros(1, 1, 1, 96)
+    kv = torch.zeros(1, 1, 1, 8, 128)
+    with pytest.raises(ValueError, match="nsplit"):
+        ak.flash_decode(q, kv, kv, torch.ones(1, dtype=torch.int32),
+                        torch.zeros(1, dtype=torch.int32), nsplit=nsplit)

@@ -2,9 +2,11 @@
 cache.
 
 All four replace ``tmac_tpu/ops/pallas/attention_kernel.py::_kernel``, as
-CUDA C++ for Hopper in ``csrc/flash_decode.cu``, which says what bounds them
-on the card (device-memory bytes of the valid cache rows) and how their
-designs answer it:
+one CUDA C++ kernel for Hopper in ``csrc/flash_decode.cu`` (one launch a
+call: a cluster of ``nsplit`` blocks per KV head, rows streamed through a
+shared-memory ring, the blocks' states merged in distributed shared
+memory), which says what bounds them on the card (device-memory bytes of
+the valid cache rows) and how the design answers it:
 
 - K2, ``flash_decode``: a bf16 or f32 cache, no window (``_kernel`` with
   every flag off, through ``flash_decode_stacked``);
@@ -19,9 +21,10 @@ designs answer it:
   input).
 
 Each wrapper sends a CPU tensor to its plain PyTorch version (``*_plain``)
-and a CUDA tensor to its kernel, which either launches or raises; each has
+and a CUDA tensor to the kernel, which either launches or raises; each has
 its own ``.launches`` count of kernel launches.  The plain versions repeat
-their kernel's f32 operations in its order, so the two agree bit for bit.
+the kernel's f32 operations in its order, with the same split of the rows
+(``split_plan``, ``split_spans``), so the two agree bit for bit.
 """
 
 from __future__ import annotations
@@ -40,9 +43,13 @@ _c_ptr, _c_int, _c_float = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
 GROUPS = 16  # half-warps of a block (kGroups in csrc/flash_decode.cu)
-# cache rows a block of K6, K8 and K9 reads (read at each call, so a test
-# can make it smaller)
-CHUNK = 256
+TILE = 4     # rows of a half-warp's row tile (kTile)
+STAGE_ROWS = GROUPS * TILE  # rows of a ring stage (kStageRows)
+MAX_SPLIT = 8               # largest portable cluster
+SPLITS = range(1, 17)       # cluster sizes the kernel takes (9-16 non-portable)
+# SMs the plan assumes for CPU tensors (an H100 SXM's), so the plain version
+# on the CPU splits the rows as the kernel does on that card
+DEFAULT_SMS = 132
 
 
 def quantize_kv(kv: torch.Tensor):
@@ -60,7 +67,7 @@ def quantize_kv(kv: torch.Tensor):
 
 def _lane_scores(qf: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     """qf (B, KV, rep, Dp) . k (B, KV, R, Dp) -> (B, KV, rep, R) in a row's
-    order in the kernels: each of 16 lanes sums its Dp/16 columns from 0,
+    order in the kernel: each of 16 lanes sums its Dp/16 columns from 0,
     then an xor butterfly over the lanes."""
     B, KV, rep, Dp = qf.shape
     prod = (qf[:, :, :, None, :] * k[:, :, None, :, :]).reshape(
@@ -74,35 +81,60 @@ def _lane_scores(qf: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     return sc[..., 0]
 
 
-def flash_decode_plain(q: torch.Tensor, k_all: torch.Tensor,
-                       v_all: torch.Tensor, kv_lens: torch.Tensor, layer,
-                       scale: float | None = None, k_scale=None, v_scale=None,
-                       window: int = 0) -> torch.Tensor:
-    """The function K2 computes, in plain PyTorch, in the kernel's order
-    (with k_scale/v_scale or a window: K6's, flash_decode_split_plain).
-
-    q (B, KV, rep, Dl); k_all/v_all (L, B, KV, S, Dp); kv_lens (B,) valid
-    rows (the current token already written); layer: int or (1,) int
-    tensor.  -> (B, KV, rep, Dl) in q's dtype; a row with no valid entry
-    gives zeros.
-
-    f32 throughout, each step rounded on its own as the kernel rounds it:
-    scores summed 8 dims at a time per lane then over 16 lanes by an xor
-    butterfly; 16 position groups (rows g, g+16, ...) each keep an online
-    softmax; the groups merge in group order.  That is K6's order with one
-    chunk holding every row.  So kernel and plain version agree bit for
-    bit, and a model run through either gives the same tokens."""
-    if k_scale is not None or window:
-        return flash_decode_split_plain(q, k_all, v_all, kv_lens, layer,
-                                        scale, k_scale, v_scale, window)
-    return _split_plain(q, k_all, v_all, kv_lens, layer, scale, None, None,
-                        0, round_up(k_all.shape[3], GROUPS))
+def max_rows(S: int, window: int) -> int:
+    """The most cache rows a call can read: the window's, or the cache's."""
+    return min(S, window) if window > 0 else S
 
 
-def n_chunks(S: int, window: int, chunk: int) -> int:
-    """Blocks a head of K6, K8 and K9 takes: enough chunks of `chunk` rows
-    for the rows a window (or, without one, the cache) can hold."""
-    return cdiv(min(S, window) if window > 0 else S, chunk)
+def split_plan(B: int, KV: int, rows: int, sms: int = DEFAULT_SMS) -> int:
+    """The blocks (one cluster) the kernel gives each (KV head, batch row),
+    from static quantities only, so a CUDA graph can capture the call:
+    about 1.5 blocks an SM over the B * KV clusters, at most MAX_SPLIT,
+    and no more than give each block half a ring stage of the `rows` a
+    call can read.  (Measured on an H100, PERF.md: at 2047 rows 32 heads
+    split 6 ways beat 4 by 16% and 8 by 6%.)"""
+    n = min(MAX_SPLIT, max(1, round(1.5 * sms / (B * KV))))
+    return max(1, min(n, rows // (STAGE_ROWS // 2)))
+
+
+def split_spans(lens: torch.Tensor, S: int, window: int, append: bool,
+                nsplit: int):
+    """The rows each block of a cluster reads, as the kernel divides them
+    from the live lengths: lens (B,) -> (start, end), each (B, nsplit)
+    int64.  The rows [lo, len) (len = min(lens, S); lo = max(lens - window
+    + append, 0) with a window, else 0) in nsplit contiguous spans of
+    cdiv(len - lo, nsplit) rows rounded up to TILE, in rank order; the
+    spans past len are empty (start == end == len)."""
+    raw = lens.long().clamp_min(0)
+    length = raw.clamp_max(S)
+    lo = (raw - window + int(append)).clamp_min(0) if window > 0 \
+        else torch.zeros_like(raw)
+    n = (length - lo).clamp_min(0)
+    span = round_up(cdiv(n, nsplit), TILE)[:, None]
+    rank = torch.arange(nsplit, device=lens.device)
+    start = torch.minimum(lo[:, None] + rank * span, length[:, None])
+    return start, torch.minimum(start + span, length[:, None])
+
+
+@functools.cache
+def _cuda_sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(device: torch.device) -> int:
+    """SMs of a CUDA tensor's card; DEFAULT_SMS for any other device."""
+    if device.type != "cuda":
+        return DEFAULT_SMS
+    return _cuda_sms(device.index if device.index is not None
+                     else torch.cuda.current_device())
+
+
+def _nsplit(nsplit, B, KV, S, window, device) -> int:
+    if nsplit is None:
+        return split_plan(B, KV, max_rows(S, window), sm_count(device))
+    if nsplit not in SPLITS:
+        raise ValueError(f"nsplit must be in 1 .. {SPLITS[-1]}, not {nsplit}")
+    return nsplit
 
 
 def _merge(m, l, acc):
@@ -118,59 +150,63 @@ def _merge(m, l, acc):
     return mx[..., 0], lt, a
 
 
-def _split_plain(q, k_all, v_all, lens, layer, scale, k_scale, v_scale,
-                 window, chunk, cur_k=None, cur_v=None):
-    """The attention of K6 (cur_k None) and K8/K9, in their kernels' order:
-    chunk c holds rows lo + c*chunk + 16j + g (lo the window's lower edge),
-    group g of it keeps an online softmax over its rows, the groups merge
-    in group order, the chunks in chunk order, then the current token
-    comes in as a last online step."""
+def _attend_plain(q, k_all, v_all, lens, layer, scale, k_scale, v_scale,
+                  window, nsplit, cur_k=None, cur_v=None):
+    """The attention of K2/K6 (cur_k None) and K8/K9, in the kernel's
+    order: block `rank` of a cluster of nsplit reads the span
+    split_spans gives it, in stages of STAGE_ROWS rows; half-warp g takes
+    rows 4g .. 4g+3 of each stage (a row tile) and keeps an online softmax
+    over its tiles, rescaled once a tile by the tile's maximum; the
+    half-warps merge in group order, the blocks in rank order, then the
+    current token comes in as a last online step."""
     B, KV, rep, Dl = q.shape
     S, Dp = k_all.shape[3], k_all.shape[4]
     G, dev = GROUPS, k_all.device
     append = cur_k is not None
     quant = k_scale is not None
     scale = 1.0 / math.sqrt(Dl) if scale is None else scale
+    P = _nsplit(nsplit, B, KV, S, window, dev)
     li = torch.as_tensor(layer, device=dev).reshape(1).long()
-    # the window's edge from the length as given, the rows read below S:
-    # past S (a slot held at pos == S) the reference masks the same rows
-    raw = lens.to(dev).long().clamp_min(0)
-    lens = raw.clamp_max(S)
-    lo = (raw - window + int(append)).clamp_min(0) if window > 0 \
-        else torch.zeros_like(lens)
-    nchunk, J = n_chunks(S, window, chunk), cdiv(chunk, G)
-    within = (torch.arange(J, device=dev)[:, None] * G
-              + torch.arange(G, device=dev))                  # (J, G)
-    rows = (lo[:, None, None, None] + within
-            + torch.arange(nchunk, device=dev)[:, None, None] * chunk)
-    valid = (within < chunk) & (rows < lens[:, None, None, None])
+    start, end = split_spans(lens.to(dev), S, window, append, P)  # (B, P)
+    # stages of the longest span a call can give
+    T = cdiv(round_up(cdiv(max_rows(S, window), P), TILE), STAGE_ROWS)
+    within = torch.arange(T * STAGE_ROWS, device=dev).reshape(T, G, TILE)
+    rows = start[:, :, None, None, None] + within       # (B, P, T, G, TILE)
+    ok = (rows < end[:, :, None, None, None])[:, None, None]
     idx = rows.clamp_max(S - 1).reshape(B, -1)
     bi = torch.arange(B, device=dev)[:, None]
 
-    def gather(buf):                                          # (B, KV, R, ...)
+    def gather(buf):                                    # (B, KV, R, ...)
         return buf.index_select(0, li)[0][bi, :, idx].transpose(1, 2)
 
     qf = F.pad(q.float() * scale, (0, Dp - Dl))
     sc = _lane_scores(qf, gather(k_all).float())
-    v = gather(v_all).float().reshape(B, KV, 1, nchunk, J, G, Dp)
+    v = gather(v_all).float().reshape(B, KV, 1, P, T, G, TILE, Dp)
     if quant:
         sc = sc * gather(k_scale)[:, :, None, :]
-        vsc = gather(v_scale).reshape(B, KV, 1, nchunk, J, G)
-    sc = sc.reshape(B, KV, rep, nchunk, J, G)
-    ok = valid[:, None, None]
-    m = torch.full((B, KV, rep, nchunk, G), float("-inf"), device=dev)
+        vsc = gather(v_scale).reshape(B, KV, 1, P, T, G, TILE)
+    sc = sc.reshape(B, KV, rep, P, T, G, TILE)
+    m = torch.full((B, KV, rep, P, G), float("-inf"), device=dev)
     l = torch.zeros_like(m)
-    acc = torch.zeros((B, KV, rep, nchunk, G, Dp), device=dev)
-    for j in range(J):
-        s, okj = sc[..., j, :], ok[..., j, :]
-        m_new = torch.maximum(m, s)
-        corr, p = torch.exp(m - m_new), torch.exp(s - m_new)
-        l = torch.where(okj, l * corr + p, l)
-        pv = p * vsc[..., j, :] if quant else p
-        acc = torch.where(okj[..., None], acc * corr[..., None]
-                          + pv[..., None] * v[..., j, :, :], acc)
-        m = torch.where(okj, m_new, m)
-    m, l, acc = _merge(*_merge(m, l, acc))        # groups, then chunks
+    acc = torch.zeros((B, KV, rep, P, G, Dp), device=dev)
+    for t in range(T):
+        s, okt = sc[:, :, :, :, t], ok[:, :, :, :, t]
+        m_new = torch.maximum(m, torch.where(okt, s, float("-inf")).amax(-1))
+        corr = torch.exp(m - m_new)
+        lt, at = l * corr, acc * corr[..., None]
+        for i in range(TILE):
+            oki = okt[..., i]
+            p = torch.exp(s[..., i] - m_new)
+            lt = torch.where(oki, lt + p, lt)
+            pv = p * vsc[:, :, :, :, t, :, i] if quant else p
+            at = torch.where(oki[..., None], at + pv[..., None]
+                             * v[:, :, :, :, t, :, i], at)
+        # a tile with no valid row leaves the state as it was
+        seen = okt.any(-1)
+        m = torch.where(seen, m_new, m)
+        l = torch.where(seen, lt, l)
+        acc = torch.where(seen[..., None], at, acc)
+    m, l, acc = _merge(*_merge(m, l, acc))        # half-warps, then blocks
     if append:
         ck = F.pad(cur_k.float(), (0, Dp - Dl))
         cv = F.pad(cur_v.float(), (0, Dp - Dl))
@@ -183,27 +219,48 @@ def _split_plain(q, k_all, v_all, lens, layer, scale, k_scale, v_scale,
     return o[..., :Dl].to(q.dtype)
 
 
+def flash_decode_plain(q: torch.Tensor, k_all: torch.Tensor,
+                       v_all: torch.Tensor, kv_lens: torch.Tensor, layer,
+                       scale: float | None = None, k_scale=None, v_scale=None,
+                       window: int = 0, nsplit: int | None = None) -> torch.Tensor:
+    """The function K2 computes (with k_scale/v_scale or a window, K6's),
+    in plain PyTorch, in the kernel's order.
+
+    q (B, KV, rep, Dl); k_all/v_all (L, B, KV, S, Dp); kv_lens (B,) valid
+    rows (the current token already written); layer: int or (1,) int
+    tensor; nsplit: the blocks a head is split over (None: split_plan's
+    choice for the tensors' device).  -> (B, KV, rep, Dl) in q's dtype; a
+    row with no valid entry gives zeros.
+
+    f32 throughout, each step rounded on its own as the kernel rounds it
+    (_attend_plain), so kernel and plain version agree bit for bit, and a
+    model run through either gives the same tokens."""
+    return _attend_plain(q, k_all, v_all, kv_lens, layer, scale, k_scale,
+                         v_scale, window, nsplit)
+
+
 def flash_decode_split_plain(q, k_all, v_all, kv_lens, layer, scale=None,
-                             k_scale=None, v_scale=None,
-                             window: int = 0) -> torch.Tensor:
+                             k_scale=None, v_scale=None, window: int = 0,
+                             nsplit: int | None = None) -> torch.Tensor:
     """The function K6 computes, in its order: flash_decode_plain's over
     the rows [max(kv_lens - window, 0), kv_lens) (all rows below kv_lens
     when window is 0); on an int8 cache (k_scale/v_scale (L, B, KV, S)
     f32) each row's score times its k scale, its probability times its v
     scale before the PV product."""
-    return _split_plain(q, k_all, v_all, kv_lens, layer, scale, k_scale,
-                        v_scale, window, CHUNK)
+    return _attend_plain(q, k_all, v_all, kv_lens, layer, scale, k_scale,
+                         v_scale, window, nsplit)
 
 
 def flash_decode_append_plain(q, k_all, v_all, cached_lens, layer, cur_k,
                               cur_v, scale=None, k_scale=None, v_scale=None,
-                              window: int = 0) -> torch.Tensor:
+                              window: int = 0,
+                              nsplit: int | None = None) -> torch.Tensor:
     """The function K8 computes, in its order: K6's over the cached rows
     [max(cached_lens - window + 1, 0), cached_lens), then the current
     token's cur_k/cur_v (B, KV, Dl), exact floats, as a last online step.
     A fresh sequence (cached_lens 0) reads no row."""
-    return _split_plain(q, k_all, v_all, cached_lens, layer, scale, k_scale,
-                        v_scale, window, CHUNK, cur_k, cur_v)
+    return _attend_plain(q, k_all, v_all, cached_lens, layer, scale, k_scale,
+                         v_scale, window, nsplit, cur_k, cur_v)
 
 
 def _store_row_plain(buf, sbuf, cur, lens, layer):
@@ -228,13 +285,13 @@ def _store_row_plain(buf, sbuf, cur, lens, layer):
 
 def flash_decode_append_write_plain(q, k_all, v_all, cached_lens, layer,
                                     cur_k, cur_v, scale=None, k_scale=None,
-                                    v_scale=None,
-                                    window: int = 0) -> torch.Tensor:
+                                    v_scale=None, window: int = 0,
+                                    nsplit: int | None = None) -> torch.Tensor:
     """The function K9 computes: K8's output, and cur_k/cur_v stored at row
     cached_lens[b] of the cache (k_all, v_all and, on an int8 cache,
     k_scale, v_scale), in place, after the attention has read it."""
-    out = _split_plain(q, k_all, v_all, cached_lens, layer, scale, k_scale,
-                       v_scale, window, CHUNK, cur_k, cur_v)
+    out = _attend_plain(q, k_all, v_all, cached_lens, layer, scale, k_scale,
+                        v_scale, window, nsplit, cur_k, cur_v)
     _store_row_plain(k_all, k_scale, cur_k, cached_lens, layer)
     _store_row_plain(v_all, v_scale, cur_v, cached_lens, layer)
     return out
@@ -244,63 +301,10 @@ def flash_decode_append_write_plain(q, k_all, v_all, cached_lens, layer,
 def _lib():
     from tmac_tpu_torch.ops.cuda import build
     lib = build.load("flash_decode")
-    lib.tmac_flash_decode.argtypes = [
-        _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_int, _c_int,
-        _c_int, _c_int, _c_int, _c_int, _c_int, _c_float, _c_int, _c_ptr]
-    lib.tmac_flash_decode.restype = _c_int
-    lib.tmac_flash_decode_split.argtypes = (
-        [_c_ptr] * 13 + [_c_int] * 12 + [_c_float, _c_int, _c_int, _c_ptr])
-    lib.tmac_flash_decode_split.restype = _c_int
+    lib.tmac_decode_attention.argtypes = (
+        [_c_ptr] * 10 + [_c_int] * 11 + [_c_float, _c_int, _c_int, _c_ptr])
+    lib.tmac_decode_attention.restype = _c_int
     return lib
-
-
-def flash_decode(q: torch.Tensor, k_all: torch.Tensor, v_all: torch.Tensor,
-                 kv_lens: torch.Tensor, layer: torch.Tensor,
-                 scale: float | None = None, k_scale=None, v_scale=None,
-                 window: int = 0) -> torch.Tensor:
-    """Attention of one query token per (batch row, head) over layer
-    `layer` of the stacked cache; shapes as in flash_decode_plain.  With
-    k_scale/v_scale (an int8 cache) or a window, this is K6
-    (flash_decode_split); otherwise K2.
-
-    On CUDA: q, k_all, v_all all bf16 or all f32 and contiguous, Dp == 128,
-    rep <= 8, kv_lens (B,) and layer (1,) int32 on the same device (read by
-    the kernel; the host never waits for them)."""
-    if k_scale is not None or window:
-        return flash_decode_split(q, k_all, v_all, kv_lens, layer, scale,
-                                  k_scale, v_scale, window)
-    if q.device.type == "cpu":
-        return flash_decode_plain(q, k_all, v_all, kv_lens, layer, scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"K2 runs on CPU or CUDA tensors, not {q.device}")
-    B, KV, rep, Dl = q.shape
-    L, _, _, S, Dp = k_all.shape
-    if q.dtype not in (torch.bfloat16, torch.float32):
-        raise ValueError(f"K2 takes bf16 or f32, not {q.dtype}")
-    for name, t, shape in (("k_all", k_all, (L, B, KV, S, Dp)),
-                           ("v_all", v_all, (L, B, KV, S, Dp))):
-        if t.dtype != q.dtype or tuple(t.shape) != shape \
-                or t.device != q.device:
-            raise ValueError(f"K2: {name} must be {q.dtype} {shape} on {q.device}")
-    _check_int32(kv_lens, layer, B, q.device, "K2")
-    if not all(t.is_contiguous() for t in (q, k_all, v_all, kv_lens)):
-        raise ValueError("K2: q, k_all, v_all and kv_lens must be contiguous")
-    if Dp != 128 or not 1 <= rep <= 8 or Dl > Dp:
-        raise ValueError(f"K2 takes Dp == 128, rep <= 8, Dl <= Dp; got "
-                         f"Dp={Dp} rep={rep} Dl={Dl}")
-    if any(t.data_ptr() % 16 for t in (k_all, v_all)):
-        raise ValueError("K2: the cache must be 16-byte aligned")
-    scale = 1.0 / math.sqrt(Dl) if scale is None else scale
-    out = torch.empty_like(q)
-    err = _lib().tmac_flash_decode(
-        q.data_ptr(), k_all.data_ptr(), v_all.data_ptr(), kv_lens.data_ptr(),
-        layer.data_ptr(), out.data_ptr(), L, B, KV, rep, Dl, Dp, S,
-        float(scale), int(q.dtype == torch.bfloat16),
-        torch.cuda.current_stream(q.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"K2 launch failed with CUDA error {err}")
-    flash_decode.launches += 1
-    return out
 
 
 def _check_int32(lens, layer, B, device, name):
@@ -311,10 +315,11 @@ def _check_int32(lens, layer, B, device, name):
                              f"{shape} on {device}")
 
 
-def _launch_split(name, q, k_all, v_all, lens, layer, scale, k_scale,
-                  v_scale, window, cur_k=None, cur_v=None,
-                  write=False) -> torch.Tensor:
-    """Check the arguments of K6, K8 or K9 (`name`) and launch it."""
+def _launch(name, q, k_all, v_all, lens, layer, scale, k_scale, v_scale,
+            window, nsplit, cur_k=None, cur_v=None,
+            write=False) -> torch.Tensor:
+    """Check the arguments of K2, K6, K8 or K9 (`name`) and launch the
+    kernel."""
     if q.device.type != "cuda":
         raise ValueError(f"{name} runs on CPU or CUDA tensors, not {q.device}")
     B, KV, rep, Dl = q.shape
@@ -346,70 +351,94 @@ def _launch_split(name, q, k_all, v_all, lens, layer, scale, k_scale,
         raise ValueError(f"{name}: window {window}")
     if any(t.data_ptr() % 16 for t in (k_all, v_all)):
         raise ValueError(f"{name}: the cache must be 16-byte aligned")
+    nsplit = _nsplit(nsplit, B, KV, S, window, q.device)
     scale = 1.0 / math.sqrt(Dl) if scale is None else scale
-    nchunk = n_chunks(S, window, CHUNK)
-    part_ml = torch.empty((2, B, KV, rep, nchunk), dtype=torch.float32,
-                          device=q.device)
-    part_acc = torch.empty((B, KV, rep, nchunk, Dp), dtype=torch.float32,
-                           device=q.device)
     out = torch.empty_like(q)
 
     def ptr(t):
         return t.data_ptr() if t is not None else None
-    err = _lib().tmac_flash_decode_split(
+    err = _lib().tmac_decode_attention(
         q.data_ptr(), k_all.data_ptr(), v_all.data_ptr(), ptr(k_scale),
         ptr(v_scale), lens.data_ptr(), layer.data_ptr(), ptr(cur_k),
-        ptr(cur_v), out.data_ptr(), part_ml[0].data_ptr(),
-        part_ml[1].data_ptr(), part_acc.data_ptr(), L, B, KV, rep, Dl, Dp, S,
-        int(window), int(cur_k is not None), int(write), CHUNK, nchunk,
-        float(scale), int(q.dtype == torch.bfloat16), int(quant),
+        ptr(cur_v), out.data_ptr(), L, B, KV, rep, Dl, Dp, S, int(window),
+        int(cur_k is not None), int(write), nsplit, float(scale),
+        int(q.dtype == torch.bfloat16), int(quant),
         torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"{name} launch failed with CUDA error {err}")
+        raise RuntimeError(f"{name} launch failed with CUDA error {err} "
+                           f"(nsplit {nsplit})")
+    return out
+
+
+def flash_decode(q: torch.Tensor, k_all: torch.Tensor, v_all: torch.Tensor,
+                 kv_lens: torch.Tensor, layer: torch.Tensor,
+                 scale: float | None = None, k_scale=None, v_scale=None,
+                 window: int = 0, nsplit: int | None = None) -> torch.Tensor:
+    """Attention of one query token per (batch row, head) over layer
+    `layer` of the stacked cache; shapes as in flash_decode_plain.  With
+    k_scale/v_scale (an int8 cache) or a window, this is K6
+    (flash_decode_split); otherwise K2.
+
+    On CUDA: q, k_all, v_all all bf16 or all f32 and contiguous, Dp == 128,
+    rep <= 8, kv_lens (B,) and layer (1,) int32 on the same device (read by
+    the kernel; the host never waits for them); nsplit one of SPLITS or
+    None (split_plan's)."""
+    if k_scale is not None or window:
+        return flash_decode_split(q, k_all, v_all, kv_lens, layer, scale,
+                                  k_scale, v_scale, window, nsplit)
+    if q.device.type == "cpu":
+        return flash_decode_plain(q, k_all, v_all, kv_lens, layer, scale,
+                                  nsplit=nsplit)
+    out = _launch("K2", q, k_all, v_all, kv_lens, layer, scale, None, None,
+                  0, nsplit)
+    flash_decode.launches += 1
     return out
 
 
 def flash_decode_split(q, k_all, v_all, kv_lens, layer, scale=None,
-                       k_scale=None, v_scale=None,
-                       window: int = 0) -> torch.Tensor:
+                       k_scale=None, v_scale=None, window: int = 0,
+                       nsplit: int | None = None) -> torch.Tensor:
     """K6: flash_decode_split_plain's function.  On CUDA: q bf16 or f32;
     the cache of q's type, or int8 with k_scale/v_scale (L, B, KV, S) f32;
     otherwise as flash_decode."""
     if q.device.type == "cpu":
         return flash_decode_split_plain(q, k_all, v_all, kv_lens, layer,
-                                        scale, k_scale, v_scale, window)
-    out = _launch_split("K6", q, k_all, v_all, kv_lens, layer, scale,
-                        k_scale, v_scale, window)
+                                        scale, k_scale, v_scale, window,
+                                        nsplit)
+    out = _launch("K6", q, k_all, v_all, kv_lens, layer, scale, k_scale,
+                  v_scale, window, nsplit)
     flash_decode_split.launches += 1
     return out
 
 
 def flash_decode_append(q, k_all, v_all, cached_lens, layer, cur_k, cur_v,
                         scale=None, k_scale=None, v_scale=None,
-                        window: int = 0) -> torch.Tensor:
+                        window: int = 0,
+                        nsplit: int | None = None) -> torch.Tensor:
     """K8: flash_decode_append_plain's function; cur_k/cur_v (B, KV, Dl) of
     q's type, the rest as flash_decode_split."""
     if q.device.type == "cpu":
         return flash_decode_append_plain(q, k_all, v_all, cached_lens, layer,
                                          cur_k, cur_v, scale, k_scale,
-                                         v_scale, window)
-    out = _launch_split("K8", q, k_all, v_all, cached_lens, layer, scale,
-                        k_scale, v_scale, window, cur_k, cur_v)
+                                         v_scale, window, nsplit)
+    out = _launch("K8", q, k_all, v_all, cached_lens, layer, scale, k_scale,
+                  v_scale, window, nsplit, cur_k, cur_v)
     flash_decode_append.launches += 1
     return out
 
 
 def flash_decode_append_write(q, k_all, v_all, cached_lens, layer, cur_k,
                               cur_v, scale=None, k_scale=None, v_scale=None,
-                              window: int = 0) -> torch.Tensor:
+                              window: int = 0,
+                              nsplit: int | None = None) -> torch.Tensor:
     """K9: flash_decode_append_write_plain's function (the cache updated in
     place); arguments as flash_decode_append."""
     if q.device.type == "cpu":
         return flash_decode_append_write_plain(
             q, k_all, v_all, cached_lens, layer, cur_k, cur_v, scale,
-            k_scale, v_scale, window)
-    out = _launch_split("K9", q, k_all, v_all, cached_lens, layer, scale,
-                        k_scale, v_scale, window, cur_k, cur_v, write=True)
+            k_scale, v_scale, window, nsplit)
+    out = _launch("K9", q, k_all, v_all, cached_lens, layer, scale, k_scale,
+                  v_scale, window, nsplit, cur_k, cur_v, write=True)
     flash_decode_append_write.launches += 1
     return out
 

@@ -1,385 +1,173 @@
-// K2: single-token (decode) attention over one layer of the stacked KV
-// cache, for Hopper.
+// K2, K6, K8, K9: single-token (decode) attention over one layer of the
+// stacked KV cache, for Hopper: one kernel, one launch a call.
 //
-// Replaces tmac_tpu/ops/pallas/attention_kernel.py::_kernel as reached
-// through flash_decode_stacked (append, quant, window and write all off):
+// Replaces tmac_tpu/ops/pallas/attention_kernel.py::_kernel, as reached
+// through flash_decode_stacked (K2: a bf16 or f32 cache, every flag off;
+// K6: an int8 cache and/or a window), flash_decode_stacked_append (K8) and
+// flash_decode_stacked_append_write (K9):
 //
-//   q (B, KV, rep, Dl); k, v (L, B, KV, S, Dp); kv_lens (B,); layer (1,)
-//   out[b, h, r] = softmax(q . k[layer, b, h, :len] * scale) @ v[...]
+//   q (B, KV, rep, Dl); k, v (L, B, KV, S, Dp); lens (B,); layer (1,)
+//   out[b, h, r] = softmax(q . k[layer, b, h, rows] * scale) @ v[...]
 //
-// with q zero-extended from Dl to Dp and the output cut back to Dl inside
-// the kernel, scale = 1/sqrt(Dl) from the caller, an f32 online softmax,
-// and the final acc / max(l, 1e-30).  The layer index and the lengths are
-// read from device memory, so the host never waits on them.
-//
-// What bounds it: each valid cache row of k and v is read once and used
-// for 2*rep multiply-adds per element, so device-memory bytes bound it.
-// The TPU grid is (B,), a single program at B=1; here one block serves
-// one (kv head, batch row) pair, 32 blocks for BitNet-3B.  Inside a block
-// 16 half-warps each stream every 16th position: a half-warp reads one
-// 256-byte row (Dp=128 bf16) as 16-byte loads, reduces its dot product
-// with 4 shuffles and keeps its own online-softmax state in registers.
-// The 16 partial states are merged through shared memory at the end, in a
-// fixed order.  Every sum and product is rounded on its own (no FMA), in an
-// order the plain version in attention_kernel.py repeats, so the two agree
-// bit for bit.  A position-split across blocks (flash-decoding) is later
-// work: at the main path's lengths (<= 80 rows) a block makes <= 5 passes.
-//
-// K6, K8, K9: the same _kernel with its other flags, as reached through
-// flash_decode_stacked with k_scale/v_scale and/or window (K6),
-// flash_decode_stacked_append (K8) and flash_decode_stacked_append_write
-// (K9):
+// with q zero-extended from Dl to Dp, scale from the caller, an f32 online
+// softmax and the final acc / max(l, 1e-30).  The flags:
 //
 //   quant   an int8 cache with one f32 scale per row vector, (L, B, KV, S):
 //           the k scale multiplies a row's score after the dot, the v scale
 //           its probability before the PV product; no dequantized copy
-//   window  rows below win_lo = max(len - window + append, 0) are never read
+//   window  rows below lo = max(len - window + append, 0) are never read
 //   append  len counts the rows already cached; the current token's k/v
 //           (B, KV, Dl) come as operands and are folded in as a last
 //           online-softmax step
 //   write   (K9) the current row is also stored at row len, quantized the
 //           _quantize_kv way on an int8 cache (absmax/127 over Dl, rint,
-//           +-127), zero-padded to Dp; at len >= S at row S - 1, where
-//           the reference's store lands in interpret mode
+//           +-127), zero-padded to Dp; at len >= S at row S - 1, where the
+//           reference's store lands in interpret mode
 //
-// These run split over the rows (flash-decoding), because at Phi-3-mini's
-// 2047-row window one block per head would stream ~2047 rows on 32 of the
-// 132 SMs.  A first kernel (flash_partial_kernel) gives each (chunk of
-// `chunk` rows, kv head, batch row) a block; its chunks start at win_lo, so
-// the window's edge never falls inside a chunk or a group.  Inside a chunk
-// the 16 half-warps stream rows as K2's do (an int8 row is 128 bytes, 8 a
-// lane), four rows ahead in registers, and merge in group order into one
-// partial state (m, l, acc[Dp]) per chunk and query head.  A second kernel
-// (flash_combine_kernel, one block per (kv head, batch row)) merges the
-// chunks in chunk order, adds the current token (append), divides, and
-// stores the current row (write).  The store comes after every read of
-// the cache because the two kernels run in stream order; the partial
-// kernel reads only rows below len.  Bytes still bound it: each windowed
-// row of k and v once, and its two scales.
+// The layer index and the lengths are read from device memory, so the host
+// never waits on them and a CUDA graph can capture a call.
+//
+// What bounds it: each valid row's Dl columns of k and v are read once and
+// used for 2 * rep multiply-adds per element (~2 * rep flops a cache byte,
+// against the card's ridge of ~295), so device-memory bytes bound it in
+// principle.  Measured on an H100 (PERF.md), the CUDA cores' issue
+// rate and the call's fixed cost (cluster barriers, the merges, the
+// launch) bound it first; the design is about those and bytes in flight:
+//
+// - One launch: a thread-block cluster of nsplit blocks per (kv head, batch
+//   row), grid (nsplit, KV, B).  The host picks nsplit from static
+//   quantities (attention_kernel.split_plan), so a graph can capture it.
+// - Block `rank` takes a contiguous span of the rows [lo, len): span =
+//   cdiv(len - lo, nsplit) rounded up to the row tile, computed here from
+//   the live length, so a 48-row step and a 2047-row one both spread over
+//   the whole cluster.  A block whose span is empty still reaches both
+//   cluster barriers (no early return).
+// - Rows stream through a ring of kStages stages of kStageRows rows in
+//   shared memory, filled by cp.async: only the 16-byte pieces that hold
+//   the Dl columns (Phi-3: 192 bytes of a bf16 row, 96 of an int8 one;
+//   BitNet 208; Llama 256) and each row's two f32 scales (4-byte copies: a
+//   window's edge is not 16-byte aligned in the scale array).  A half-warp
+//   copies exactly the rows it reads later, so it waits on its own copies
+//   only and no block barrier sits in the loop.  Sizing: Little's law wants
+//   ~25-40 KB in flight an SM for 3.35 TB/s at ~1 us of latency.  With one
+//   to three blocks an SM (split_plan gives ~1.5 an SM; REP 1 fits in 85
+//   registers), kStages - 1 stages in flight a block give 32-96 KB an SM
+//   for a bf16 row of 256 bytes (2 stages of 32 KB) and 25-77 KB for an
+//   int8 row of 96 bytes (3 stages of 12.5 KB).  Measured on an H100,
+//   deeper rings, 8-row tiles, 512-thread blocks, per-row bulk (TMA)
+//   copies and capped occupancy were all no faster (PERF.md).
+// - 16 half-warps compute on CUDA cores (no tensor cores: the work is far
+//   below the ridge).  Half-warp g takes rows 4g .. 4g+3 of each stage, a
+//   row tile: a lane holds 8 columns and sums its products from 0; the 16
+//   lanes' sums of the tile's 4 rows are reduced in a transposed xor
+//   butterfly (5 shuffles a tile); then the tile's maximum, one rescale of
+//   the state for the tile (l * corr, acc * corr), and the tile's rows
+//   added in order.  Every sum and product is rounded on its own (no FMA),
+//   in an order the plain version in attention_kernel.py repeats, so the
+//   two agree bit for bit.
+// - The 16 half-warps' states merge in group order into the block's (m, l,
+//   acc[Dp]) per query head, which each block stores into rank 0's shared
+//   memory (distributed shared memory).  After cluster.sync() rank 0
+//   merges them in rank order, folds in the current token (append),
+//   divides and stores the output; nothing of a partial state passes
+//   through device memory, and there is no second kernel.  A relaxed
+//   cluster arrive at the start and its wait before the first store into
+//   rank 0 make sure every block has started; rank 0's shared memory, the
+//   only one read across the cluster, lives until rank 0 ends.
+// - K9's store: rank 0 stores the current row after cluster.sync(), so
+//   after every block of the cluster has read its rows.  That matters at
+//   len >= S, where the store lands on row S - 1, which lies inside the
+//   rows the other blocks read; other clusters read other (kv head, batch
+//   row) pairs, whose rows the store does not touch.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 #include <type_traits>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int kDp = 128;      // cache head_dim this kernel serves
-constexpr int kGroups = 16;   // half-warps of a block
-constexpr int kPer = kDp / 16;  // elements of a row per lane
+constexpr int kDp = 128;        // cache head_dim this kernel serves
+constexpr int kGroups = 16;     // half-warps of a block
+constexpr int kThreads = kGroups * 16;
+constexpr int kPer = kDp / 16;  // columns of a row per lane
+constexpr int kTile = 4;        // rows of a half-warp's row tile
+static_assert(kTile == 4, "the transposed reduction takes 4 rows over 16 lanes");
+constexpr int kStageRows = kGroups * kTile;  // rows of a ring stage
+constexpr int kMaxSplit = 16;   // cluster size (above 8 non-portable)
 
-// 8 consecutive elements of a cache row as loaded (one 16-byte load for
-// bf16, two for f32, one 8-byte load for int8), turned into floats at use
-template <typename T> struct Raw8;
+// ring stages by cache element (see the sizing above; f32, a test type, 2)
+template <typename CT> struct Ring { static constexpr int kStages = 2; };
+template <> struct Ring<int8_t> { static constexpr int kStages = 3; };
+template <> struct Ring<float> { static constexpr int kStages = 2; };
 
-template <> struct Raw8<__nv_bfloat16> {
-  uint4 r;
-  __device__ __forceinline__ void load(const __nv_bfloat16* p) {
-    r = *reinterpret_cast<const uint4*>(p);
-  }
-  __device__ __forceinline__ void get(float* f) const {
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&r);
+// Bytes of a row the kernel reads: the 16-byte pieces holding the columns
+// of lanes 0 .. cdiv(Dl, 8) - 1 (8 columns a lane)
+__host__ __device__ __forceinline__ int row_bytes(int Dl, int item) {
+  const int cols = (Dl + kPer - 1) / kPer * kPer;
+  return (cols * item + 15) / 16 * 16;
+}
+
+// 8 consecutive elements of a row from shared memory (one 16-byte load for
+// bf16, two for f32, one 8-byte load for int8), as floats
+__device__ __forceinline__ void get8(const __nv_bfloat16* p, float* f) {
+  const uint4 r = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&r);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 t = __bfloat1622float2(h[i]);
-      f[2 * i] = t.x;
-      f[2 * i + 1] = t.y;
-    }
+  for (int i = 0; i < 4; ++i) {
+    const float2 t = __bfloat1622float2(h[i]);
+    f[2 * i] = t.x;
+    f[2 * i + 1] = t.y;
   }
-};
-
-template <> struct Raw8<float> {
-  float4 a, b;
-  __device__ __forceinline__ void load(const float* p) {
-    a = *reinterpret_cast<const float4*>(p);
-    b = *reinterpret_cast<const float4*>(p + 4);
-  }
-  __device__ __forceinline__ void get(float* f) const {
-    f[0] = a.x; f[1] = a.y; f[2] = a.z; f[3] = a.w;
-    f[4] = b.x; f[5] = b.y; f[6] = b.z; f[7] = b.w;
-  }
-};
-
-template <> struct Raw8<int8_t> {
-  int2 r;
-  __device__ __forceinline__ void load(const int8_t* p) {
-    r = *reinterpret_cast<const int2*>(p);
-  }
-  __device__ __forceinline__ void get(float* f) const {
-    const int8_t* c = reinterpret_cast<const int8_t*>(&r);
+}
+__device__ __forceinline__ void get8(const float* p, float* f) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  const float4 b = *reinterpret_cast<const float4*>(p + 4);
+  f[0] = a.x; f[1] = a.y; f[2] = a.z; f[3] = a.w;
+  f[4] = b.x; f[5] = b.y; f[6] = b.z; f[7] = b.w;
+}
+// int8 codes to floats exactly without the quarter-rate conversion: the
+// code biased to 0..255 as the low byte of 2^23's mantissa, minus 2^23 + 128
+__device__ __forceinline__ void get8(const int8_t* p, float* f) {
+  const int2 r = *reinterpret_cast<const int2*>(p);
+  const unsigned w[2] = {(unsigned)r.x ^ 0x80808080u, (unsigned)r.y ^ 0x80808080u};
 #pragma unroll
-    for (int i = 0; i < 8; ++i) f[i] = (float)c[i];
-  }
-};
+  for (int i = 0; i < 8; ++i)
+    f[i] = __fsub_rn(__uint_as_float(__byte_perm(w[i / 4], 0x4B000000u, 0x7440 + i % 4)),
+                     8388736.0f);
+}
 
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 
-template <typename T, int MAXREP>
-__global__ void __launch_bounds__(kGroups * 16) flash_decode_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    const int* __restrict__ lens, const int* __restrict__ layer,
-    T* __restrict__ out, int L, int B, int KV, int rep, int Dl, int S,
-    float scale) {
-  __shared__ float sm_m[kGroups][MAXREP];
-  __shared__ float sm_l[kGroups][MAXREP];
-  __shared__ float sm_acc[kGroups][kDp];
-
-  const int h = blockIdx.x, b = blockIdx.y;
-  const int g = threadIdx.x >> 4, lane = threadIdx.x & 15;
-  const int d0 = lane * kPer;
-  const unsigned hmask = 0xffffu << (threadIdx.x & 16);
-  const int li = min(max(layer[0], 0), L - 1);
-  const int len = min(max(lens[b], 0), S);
-
-  float qf[MAXREP][kPer];
-#pragma unroll
-  for (int r = 0; r < MAXREP; ++r)
-#pragma unroll
-    for (int i = 0; i < kPer; ++i) {
-      const int d = d0 + i;
-      qf[r][i] = (r < rep && d < Dl)
-          ? to_float(q[((size_t)(b * KV + h) * rep + r) * Dl + d]) * scale
-          : 0.f;
-    }
-
-  float m[MAXREP], l[MAXREP], acc[MAXREP][kPer];
-#pragma unroll
-  for (int r = 0; r < MAXREP; ++r) {
-    m[r] = -INFINITY;
-    l[r] = 0.f;
-#pragma unroll
-    for (int i = 0; i < kPer; ++i) acc[r][i] = 0.f;
-  }
-
-  const size_t base = (((size_t)li * B + b) * KV + h) * (size_t)S * kDp + d0;
-  for (int s = g; s < len; s += kGroups) {
-    Raw8<T> kr, vr;
-    kr.load(k + base + (size_t)s * kDp);
-    vr.load(v + base + (size_t)s * kDp);
-    float kf[kPer], vf[kPer];
-    kr.get(kf);
-    vr.get(vf);
-#pragma unroll
-    for (int r = 0; r < MAXREP; ++r) {
-      if (r < rep) {
-        float sc = 0.f;
-#pragma unroll
-        for (int i = 0; i < kPer; ++i) sc = __fadd_rn(sc, __fmul_rn(qf[r][i], kf[i]));
-        for (int o = 8; o > 0; o >>= 1) sc = __fadd_rn(sc, __shfl_xor_sync(hmask, sc, o));
-        // sc is finite (a valid row), so m_new is and exp(-inf) = 0 needs
-        // no guard here
-        const float m_new = fmaxf(m[r], sc);
-        const float corr = expf(m[r] - m_new);
-        const float p = expf(sc - m_new);
-        l[r] = __fadd_rn(__fmul_rn(l[r], corr), p);
-#pragma unroll
-        for (int i = 0; i < kPer; ++i)
-          acc[r][i] = __fadd_rn(__fmul_rn(acc[r][i], corr), __fmul_rn(p, vf[i]));
-        m[r] = m_new;
-      }
-    }
-  }
-
-  if (lane == 0) {
-#pragma unroll
-    for (int r = 0; r < MAXREP; ++r) {
-      sm_m[g][r] = m[r];
-      sm_l[g][r] = l[r];
-    }
-  }
-  __syncthreads();
-#pragma unroll
-  for (int r = 0; r < MAXREP; ++r) {
-    if (r >= rep) break;
-    float mx = -INFINITY;
-    for (int gg = 0; gg < kGroups; ++gg) mx = fmaxf(mx, sm_m[gg][r]);
-    // -inf guards: a group that saw no row (or a block with len == 0)
-    // contributes zeros, not NaN
-    const float cg = isinf(m[r]) ? 0.f : expf(m[r] - mx);
-#pragma unroll
-    for (int i = 0; i < kPer; ++i) sm_acc[g][d0 + i] = __fmul_rn(acc[r][i], cg);
-    __syncthreads();
-    if (threadIdx.x < kDp) {
-      const int d = threadIdx.x;
-      float a = 0.f, lt = 0.f;
-      for (int gg = 0; gg < kGroups; ++gg) {
-        a = __fadd_rn(a, sm_acc[gg][d]);
-        const float mg = sm_m[gg][r];
-        lt = __fadd_rn(lt, isinf(mg) ? 0.f : __fmul_rn(sm_l[gg][r], expf(mg - mx)));
-      }
-      if (d < Dl) store(out + ((size_t)(b * KV + h) * rep + r) * Dl + d, a / fmaxf(lt, 1e-30f));
-    }
-    __syncthreads();
-  }
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem)
+               : "memory");
 }
-
-template <typename T>
-int launch(const void* q, const void* k, const void* v, const int* lens,
-           const int* layer, void* out, int L, int B, int KV, int rep, int Dl,
-           int S, float scale, cudaStream_t stream) {
-  const dim3 grid(KV, B), block(kGroups * 16);
-  const T* qt = static_cast<const T*>(q);
-  const T* kt = static_cast<const T*>(k);
-  const T* vt = static_cast<const T*>(v);
-  T* ot = static_cast<T*>(out);
-  if (rep == 1) {
-    flash_decode_kernel<T, 1><<<grid, block, 0, stream>>>(
-        qt, kt, vt, lens, layer, ot, L, B, KV, rep, Dl, S, scale);
-  } else {
-    flash_decode_kernel<T, 8><<<grid, block, 0, stream>>>(
-        qt, kt, vt, lens, layer, ot, L, B, KV, rep, Dl, S, scale);
-  }
-  return (int)cudaGetLastError();
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(gmem)
+               : "memory");
 }
-
-// ---------------------------------------------------------------------------
-// K6, K8, K9: split over the rows
-// ---------------------------------------------------------------------------
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
 
 // The weight of a partial online-softmax state in a merge whose maximum is
 // mx: 0 for a state that saw no row (m = -inf), else exp(m - mx).
 __device__ __forceinline__ float merge_weight(float m, float mx) {
   return isinf(m) ? 0.f : expf(m - mx);
-}
-
-template <typename QT, typename CT, int MAXREP>
-__global__ void __launch_bounds__(kGroups * 16) flash_partial_kernel(
-    const QT* __restrict__ q, const CT* __restrict__ k,
-    const CT* __restrict__ v, const float* __restrict__ ks,
-    const float* __restrict__ vs, const int* __restrict__ lens,
-    const int* __restrict__ layer, float* __restrict__ part_m,
-    float* __restrict__ part_l, float* __restrict__ part_acc, int L, int B,
-    int KV, int rep, int Dl, int S, int window, int append, int chunk,
-    float scale) {
-  constexpr bool kQuant = std::is_same<CT, int8_t>::value;
-  __shared__ float sm_m[kGroups][MAXREP];
-  __shared__ float sm_l[kGroups][MAXREP];
-  __shared__ float sm_acc[kGroups][kDp];
-
-  const int c = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int nchunk = gridDim.x;
-  const int g = threadIdx.x >> 4, lane = threadIdx.x & 15;
-  const int d0 = lane * kPer;
-  const unsigned hmask = 0xffffu << (threadIdx.x & 16);
-  const int li = min(max(layer[0], 0), L - 1);
-  // the window's edge from the length as given, the rows read below S:
-  // past S (a slot held at pos == S) the reference masks the same rows
-  const int raw = max(lens[b], 0);
-  const int len = min(raw, S);
-  const int lo = window > 0 ? max(raw - window + append, 0) : 0;
-  const int r0 = lo + c * chunk;
-  const int r1 = min(len, r0 + chunk);
-
-  float qf[MAXREP][kPer];
-#pragma unroll
-  for (int r = 0; r < MAXREP; ++r)
-#pragma unroll
-    for (int i = 0; i < kPer; ++i) {
-      const int d = d0 + i;
-      qf[r][i] = (r < rep && d < Dl)
-          ? __fmul_rn(to_float(q[((size_t)(b * KV + h) * rep + r) * Dl + d]), scale)
-          : 0.f;
-    }
-  float m[MAXREP], l[MAXREP], acc[MAXREP][kPer];
-#pragma unroll
-  for (int r = 0; r < MAXREP; ++r) {
-    m[r] = -INFINITY;
-    l[r] = 0.f;
-#pragma unroll
-    for (int i = 0; i < kPer; ++i) acc[r][i] = 0.f;
-  }
-
-  const size_t head = ((size_t)li * B + b) * KV + h;
-  const CT* kh = k + head * S * kDp + d0;
-  const CT* vh = v + head * S * kDp + d0;
-  const float* ksh = kQuant ? ks + head * S : nullptr;
-  const float* vsh = kQuant ? vs + head * S : nullptr;
-  // a group keeps kAhead of its rows in flight: the row of pass j + kAhead
-  // is requested as soon as the row of pass j is in registers
-  constexpr int kAhead = sizeof(CT) == 4 ? 2 : 4;
-  Raw8<CT> kr[kAhead], vr[kAhead];
-  float ksr[kAhead], vsr[kAhead];
-  auto fetch = [&](int j, int s) {
-    kr[j].load(kh + (size_t)s * kDp);
-    vr[j].load(vh + (size_t)s * kDp);
-    if (kQuant) {
-      ksr[j] = ksh[s];
-      vsr[j] = vsh[s];
-    }
-  };
-#pragma unroll
-  for (int j = 0; j < kAhead; ++j)
-    if (r0 + g + j * kGroups < r1) fetch(j, r0 + g + j * kGroups);
-  for (int s0 = r0 + g; s0 < r1; s0 += kAhead * kGroups) {
-#pragma unroll
-    for (int j = 0; j < kAhead; ++j) {
-      const int s = s0 + j * kGroups;
-      if (s >= r1) break;
-      float kf[kPer], vf[kPer];
-      kr[j].get(kf);
-      vr[j].get(vf);
-      const float ksc = kQuant ? ksr[j] : 1.f, vsc = kQuant ? vsr[j] : 1.f;
-      if (s + kAhead * kGroups < r1) fetch(j, s + kAhead * kGroups);
-#pragma unroll
-      for (int r = 0; r < MAXREP; ++r) {
-        if (r < rep) {
-          float sc = 0.f;
-#pragma unroll
-          for (int i = 0; i < kPer; ++i) sc = __fadd_rn(sc, __fmul_rn(qf[r][i], kf[i]));
-          for (int o = 8; o > 0; o >>= 1) sc = __fadd_rn(sc, __shfl_xor_sync(hmask, sc, o));
-          if (kQuant) sc = __fmul_rn(sc, ksc);
-          const float m_new = fmaxf(m[r], sc);
-          const float corr = expf(m[r] - m_new);
-          const float p = expf(sc - m_new);
-          l[r] = __fadd_rn(__fmul_rn(l[r], corr), p);
-          const float pv = kQuant ? __fmul_rn(p, vsc) : p;
-#pragma unroll
-          for (int i = 0; i < kPer; ++i)
-            acc[r][i] = __fadd_rn(__fmul_rn(acc[r][i], corr), __fmul_rn(pv, vf[i]));
-          m[r] = m_new;
-        }
-      }
-    }
-  }
-
-  // the 16 groups' states, merged in group order into the chunk's
-  if (lane == 0) {
-#pragma unroll
-    for (int r = 0; r < MAXREP; ++r) {
-      sm_m[g][r] = m[r];
-      sm_l[g][r] = l[r];
-    }
-  }
-  __syncthreads();
-#pragma unroll
-  for (int r = 0; r < MAXREP; ++r) {
-    if (r >= rep) break;
-    float mx = -INFINITY;
-    for (int gg = 0; gg < kGroups; ++gg) mx = fmaxf(mx, sm_m[gg][r]);
-    const float e = merge_weight(m[r], mx);
-#pragma unroll
-    for (int i = 0; i < kPer; ++i) sm_acc[g][d0 + i] = __fmul_rn(acc[r][i], e);
-    __syncthreads();
-    if (threadIdx.x < kDp) {
-      const int d = threadIdx.x;
-      float a = 0.f, lt = 0.f;
-      for (int gg = 0; gg < kGroups; ++gg) {
-        a = __fadd_rn(a, sm_acc[gg][d]);
-        lt = __fadd_rn(lt, __fmul_rn(sm_l[gg][r], merge_weight(sm_m[gg][r], mx)));
-      }
-      const size_t st = ((size_t)(b * KV + h) * rep + r) * nchunk + c;
-      part_acc[st * kDp + d] = a;
-      if (d == 0) {
-        part_m[st] = mx;
-        part_l[st] = lt;
-      }
-    }
-    __syncthreads();
-  }
 }
 
 // Stores the current row x[0, Dp) (zero past Dl) at `row`: as is for a
@@ -401,154 +189,430 @@ __device__ __forceinline__ void store_row(CT* row, float* scale,
   }
 }
 
-template <typename QT, typename CT, int MAXREP>
-__global__ void __launch_bounds__(kDp) flash_combine_kernel(
-    const QT* __restrict__ q, const float* __restrict__ part_m,
-    const float* __restrict__ part_l, const float* __restrict__ part_acc,
-    const QT* __restrict__ cur_k, const QT* __restrict__ cur_v,
-    CT* __restrict__ k, CT* __restrict__ v, float* __restrict__ ks,
-    float* __restrict__ vs, const int* __restrict__ lens,
-    const int* __restrict__ layer, QT* __restrict__ out, int L, int B, int KV,
-    int rep, int Dl, int S, int nchunk, float scale, int append, int write) {
-  __shared__ float sm_q[MAXREP][kDp];
+struct Args {
+  const void *q, *cur_k, *cur_v;
+  void *k, *v, *out;
+  float *ks, *vs;
+  const int *lens, *layer;
+  int L, B, KV, rep, Dl, S, window, append, write;
+  float scale;
+};
+
+// Bytes of dynamic shared memory: the ring (after the stream, the
+// half-warps' weighted acc[kGroups][REP][kDp]), then rank 0's merge area
+// (each block's state: acc[REP][kDp], m[REP], l[REP])
+template <typename CT, int REP>
+__host__ __device__ __forceinline__ int ring_bytes(int Dl) {
+  const int ring = Ring<CT>::kStages *
+      (2 * kStageRows * row_bytes(Dl, (int)sizeof(CT)) +
+       (std::is_same<CT, int8_t>::value ? 2 * kStageRows * 4 : 0));
+  return ring > kGroups * REP * kDp * 4 ? ring : kGroups * REP * kDp * 4;
+}
+template <int REP> constexpr int kStateFloats = REP * (kDp + 2);
+
+// A lane's 8 columns of a row, global -> shared: the bytes it reads
+// itself; on an int8 cache an even lane copies its odd neighbour's 8 too
+// (16-byte copies, half as many)
+template <typename CT>
+__device__ __forceinline__ void copy_lane(unsigned char* dst, const unsigned char* src) {
+  if constexpr (sizeof(CT) == 2 || sizeof(CT) == 1) {
+    cp_async16(dst, src);
+  } else {
+    cp_async16(dst, src);
+    cp_async16(dst + 16, src + 16);
+  }
+}
+
+// QT: q, cur_k/v and out (bf16 or f32); CT: the cache (QT, or int8 with
+// scales); REP: query heads per kv head, rounded up to 1, 2, 4 or 8.  REP 1
+// in at most 85 registers: three blocks an SM (see the sizing above).
+template <typename QT, typename CT, int REP>
+__global__ void __launch_bounds__(kThreads, REP == 1 ? 3 : 1) decode_attention_kernel(const Args a) {
+  constexpr bool kQuant = std::is_same<CT, int8_t>::value;
+  constexpr int kStages = Ring<CT>::kStages;
+  constexpr int kLaneBytes = kPer * (int)sizeof(CT);
+  extern __shared__ __align__(16) unsigned char ring[];
+  __shared__ float sm_m[kGroups][REP];
+  __shared__ float sm_le[kGroups][REP];
+  __shared__ float sm_mx[REP];
+  __shared__ float sm_w[kMaxSplit * REP];
   __shared__ float sm_cur[2][kDp];
-  __shared__ float sm_sc[MAXREP];
-  const int h = blockIdx.x, b = blockIdx.y, d = threadIdx.x;
-  const size_t bh = (size_t)b * KV + h;
-  if (append) {
-    // the current token's score per query head, in a row's order: lane
-    // sums of 8 columns, then a butterfly over the 16 lanes of half-warp r
+  __shared__ float sm_sc[REP];
+
+  // the cluster spans the grid's x dimension: its size and a block's rank
+  cg::cluster_group cluster = cg::this_cluster();
+  const int nsplit = gridDim.x, rank = blockIdx.x;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x;
+  const int g = tid >> 4, lane = tid & 15;
+  const int d0 = lane * kPer;
+  const bool live = d0 < a.Dl;  // lanes past Dl hold pad columns: zeros
+  const unsigned hmask = 0xffffu << (tid & 16);
+  const int li = min(max(a.layer[0], 0), a.L - 1);
+  const size_t bh = (size_t)b * a.KV + h;
+  // the window's edge from the length as given, the rows read below S:
+  // past S (a slot held at pos == S) the reference masks the same rows
+  const int raw = max(a.lens[b], 0);
+  const int len = min(raw, a.S);
+  const int lo = a.window > 0 ? max(raw - a.window + a.append, 0) : 0;
+  const int n = max(len - lo, 0);
+  const int span = ((n + nsplit - 1) / nsplit + kTile - 1) / kTile * kTile;
+  const int r0 = min(lo + rank * span, len);
+  const int r1 = min(r0 + span, len);
+  const int nst = (r1 - r0 + kStageRows - 1) / kStageRows;
+  // every block of the cluster has started before any writes into rank
+  // 0's shared memory: arrive now, wait before the first such write
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+
+  const QT* q = static_cast<const QT*>(a.q);
+  float qf[REP][kPer];
 #pragma unroll
-    for (int r = 0; r < MAXREP; ++r)
-      if (r < rep)
-        sm_q[r][d] = d < Dl ? __fmul_rn(to_float(q[(bh * rep + r) * Dl + d]), scale) : 0.f;
-    sm_cur[0][d] = d < Dl ? to_float(cur_k[bh * Dl + d]) : 0.f;
-    sm_cur[1][d] = d < Dl ? to_float(cur_v[bh * Dl + d]) : 0.f;
+  for (int r = 0; r < REP; ++r)
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      const int d = d0 + i;
+      qf[r][i] = (r < a.rep && d < a.Dl)
+          ? __fmul_rn(to_float(q[(bh * a.rep + r) * a.Dl + d]), a.scale)
+          : 0.f;
+    }
+  float m[REP], l[REP], acc[REP][kPer];
+#pragma unroll
+  for (int r = 0; r < REP; ++r) {
+    m[r] = -INFINITY;
+    l[r] = 0.f;
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) acc[r][i] = 0.f;
+  }
+
+  // the ring: stage = k rows, v rows (rbytes each), then k and v scales.
+  // Half-warp g copies its own tile (rows 4g .. 4g+3 of a stage), each lane
+  // the bytes it reads itself (an int8 pair of lanes: the even one); lanes
+  // 0-7 the tile's scales.  So a lane waits only on its half-warp's copies;
+  // __syncwarp orders those of its neighbours, and the rewrite of a slot
+  // after every lane has read it.
+  const int rbytes = row_bytes(a.Dl, (int)sizeof(CT));
+  const int stage_bytes = 2 * kStageRows * rbytes + (kQuant ? 2 * kStageRows * 4 : 0);
+  const size_t head = (((size_t)li * a.B + b) * a.KV + h) * a.S;
+  const unsigned char* kg = static_cast<const unsigned char*>(a.k) + head * kDp * sizeof(CT);
+  const unsigned char* vg = static_cast<const unsigned char*>(a.v) + head * kDp * sizeof(CT);
+  const float* ksg = kQuant ? a.ks + head : nullptr;
+  const float* vsg = kQuant ? a.vs + head : nullptr;
+
+  auto issue = [&](int t) {
+    unsigned char* st = ring + (size_t)(t % kStages) * stage_bytes;
+    const int row0 = r0 + t * kStageRows + g * kTile;
+    const int nv = min(kTile, r1 - row0);
+    if (live && (sizeof(CT) != 1 || !(lane & 1))) {
+#pragma unroll
+      for (int i = 0; i < kTile; ++i) {
+        if (i < nv) {
+          const size_t off = (size_t)(row0 + i) * kDp * sizeof(CT) + lane * kLaneBytes;
+          copy_lane<CT>(st + (g * kTile + i) * rbytes + lane * kLaneBytes, kg + off);
+          copy_lane<CT>(st + (kStageRows + g * kTile + i) * rbytes + lane * kLaneBytes, vg + off);
+        }
+      }
+    }
+    if (kQuant && lane < 2 * kTile && (lane & (kTile - 1)) < nv) {
+      const int i = lane & (kTile - 1), which = lane / kTile;
+      float* dst = reinterpret_cast<float*>(st + 2 * kStageRows * rbytes) +
+                   which * kStageRows + g * kTile + i;
+      cp_async4(dst, (which ? vsg : ksg) + row0 + i);
+    }
+  };
+
+#pragma unroll
+  for (int t = 0; t < kStages - 1; ++t) {
+    if (t < nst) issue(t);
+    cp_async_commit();
+  }
+  for (int t = 0; t < nst; ++t) {
+    cp_async_wait<kStages - 2>();
+    __syncwarp();
+    // the slot refilled here was read at t - 1, before the __syncwarp
+    if (t + kStages - 1 < nst) issue(t + kStages - 1);
+    cp_async_commit();
+
+    const int tr0 = r0 + t * kStageRows + g * kTile;  // this half-warp's tile
+    const unsigned char* st = ring + (size_t)(t % kStages) * stage_bytes;
+    const CT* kt = reinterpret_cast<const CT*>(st + g * kTile * rbytes) + d0;
+    const CT* vt = reinterpret_cast<const CT*>(st + (kStageRows + g * kTile) * rbytes) + d0;
+    const float* kst = reinterpret_cast<const float*>(st + 2 * kStageRows * rbytes) + g * kTile;
+    const float* vst = kst + kStageRows;
+    // the tile's rows: all kTile of them (kFull, every tile but a span's
+    // last), so the rows' chains interleave; or the first nv
+    auto tile = [&](auto full, int nv) {
+      constexpr bool kFull = decltype(full)::value;
+      float kf[kTile][kPer], s[kTile][REP];
+#pragma unroll
+      for (int i = 0; i < kTile; ++i) {
+#pragma unroll
+        for (int c = 0; c < kPer; ++c) kf[i][c] = 0.f;
+        if ((kFull || i < nv) && live)
+          get8(reinterpret_cast<const CT*>(reinterpret_cast<const unsigned char*>(kt) + i * rbytes), kf[i]);
+      }
+#pragma unroll
+      for (int i = 0; i < kTile; ++i)
+#pragma unroll
+        for (int r = 0; r < REP; ++r) {
+          float sc = 0.f;
+#pragma unroll
+          for (int c = 0; c < kPer; ++c) sc = __fadd_rn(sc, __fmul_rn(qf[r][c], kf[i][c]));
+          s[i][r] = sc;
+        }
+      // The 16 lanes' sums of the tile's 4 rows, reduced "transposed": the
+      // xor-8 step keeps rows 2 * b3 + {0, 1} of a lane (b3, b2: bits 3
+      // and 2 of its lane), the xor-4 step row own = 2 * b3 + b2, the
+      // xor-2 and xor-1 steps finish it.  Each sum is the butterfly's own
+      // (own + partner at every step), so every row's score is the one all
+      // 16 lanes of a plain butterfly hold, from 5 shuffles instead of 16;
+      // the lane then takes the exponent of its own row only, and the tile's
+      // 4 probabilities come back by shuffles.
+      const int b3 = (lane >> 3) & 1, b2 = (lane >> 2) & 1, own = 2 * b3 + b2;
+      float p[kTile][REP];
+#pragma unroll
+      for (int r = 0; r < REP; ++r) {
+        float y[2];
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const float keep = b3 ? s[2 + j][r] : s[j][r];
+          const float send = b3 ? s[j][r] : s[2 + j][r];
+          y[j] = __fadd_rn(keep, __shfl_xor_sync(hmask, send, 8));
+        }
+        float x = __fadd_rn(b2 ? y[1] : y[0], __shfl_xor_sync(hmask, b2 ? y[0] : y[1], 4));
+        x = __fadd_rn(x, __shfl_xor_sync(hmask, x, 2));
+        x = __fadd_rn(x, __shfl_xor_sync(hmask, x, 1));
+        if (kQuant) x = __fmul_rn(x, kst[own]);
+        // one rescale a tile: its maximum, then the tile's rows in order
+        float mt = (kFull || own < nv) ? x : -INFINITY;
+        mt = fmaxf(mt, __shfl_xor_sync(hmask, mt, 4));
+        mt = fmaxf(mt, __shfl_xor_sync(hmask, mt, 8));
+        const float m_new = fmaxf(m[r], mt);
+        const float corr = expf(m[r] - m_new);
+        m[r] = m_new;
+        const float p_own = expf(x - m_new);
+#pragma unroll
+        for (int i = 0; i < kTile; ++i)
+          p[i][r] = __shfl_sync(hmask, p_own, (i >> 1) * 8 + (i & 1) * 4, 16);
+        l[r] = __fmul_rn(l[r], corr);
+#pragma unroll
+        for (int i = 0; i < kTile; ++i)
+          if (kFull || i < nv) l[r] = __fadd_rn(l[r], p[i][r]);
+#pragma unroll
+        for (int c = 0; c < kPer; ++c) acc[r][c] = __fmul_rn(acc[r][c], corr);
+      }
+#pragma unroll
+      for (int i = 0; i < kTile; ++i) {
+        if (kFull || i < nv) {
+          float vf[kPer] = {};
+          if (live)
+            get8(reinterpret_cast<const CT*>(reinterpret_cast<const unsigned char*>(vt) + i * rbytes), vf);
+#pragma unroll
+          for (int r = 0; r < REP; ++r) {
+            const float pv = kQuant ? __fmul_rn(p[i][r], vst[i]) : p[i][r];
+#pragma unroll
+            for (int c = 0; c < kPer; ++c)
+              acc[r][c] = __fadd_rn(acc[r][c], __fmul_rn(pv, vf[c]));
+          }
+        }
+      }
+    };
+    if (tr0 + kTile <= r1)
+      tile(std::true_type{}, kTile);
+    else if (tr0 < r1)
+      tile(std::false_type{}, r1 - tr0);
+  }
+  cp_async_wait<0>();
+
+  // rank 0's merge area, where every block of the cluster leaves its state
+  float* merge = cluster.map_shared_rank(
+      reinterpret_cast<float*>(ring + ring_bytes<CT, REP>(a.Dl)), 0);
+  float* mine = merge + rank * kStateFloats<REP>;
+
+  // the 16 half-warps' states, merged in group order into the block's,
+  // every query head at once (the ring, read by now, holds the weighted
+  // acc[group][head][Dp]), and stored into rank 0's shared memory
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+  if (lane == 0) {
+#pragma unroll
+    for (int r = 0; r < REP; ++r) sm_m[g][r] = m[r];
+  }
+  __syncthreads();
+  float* sm_acc = reinterpret_cast<float*>(ring);
+#pragma unroll
+  for (int r = 0; r < REP; ++r) {
+    float mx = -INFINITY;
+#pragma unroll
+    for (int gg = 0; gg < kGroups; ++gg) mx = fmaxf(mx, sm_m[gg][r]);
+    const float e = merge_weight(m[r], mx);
+#pragma unroll
+    for (int c = 0; c < kPer; ++c)
+      sm_acc[(g * REP + r) * kDp + d0 + c] = __fmul_rn(acc[r][c], e);
+    if (lane == 0) sm_le[g][r] = __fmul_rn(l[r], e);
+    if (tid == 0) sm_mx[r] = mx;
+  }
+  __syncthreads();
+  for (int i = tid; i < REP * kDp; i += kThreads) {
+    float sa = 0.f;
+#pragma unroll
+    for (int gg = 0; gg < kGroups; ++gg) sa = __fadd_rn(sa, sm_acc[gg * REP * kDp + i]);
+    mine[i] = sa;
+  }
+  if (tid >= kThreads - REP) {
+    const int r = tid - (kThreads - REP);
+    float lt = 0.f;
+#pragma unroll
+    for (int gg = 0; gg < kGroups; ++gg) lt = __fadd_rn(lt, sm_le[gg][r]);
+    mine[REP * kDp + r] = sm_mx[r];
+    mine[REP * kDp + REP + r] = lt;
+  }
+
+  // rank 0: the current token's row, and its score per query head in a
+  // row's order (half-warp 0's lanes, then the butterfly), while the other
+  // blocks finish
+  if (rank == 0 && a.append) {
+    const QT* ck = static_cast<const QT*>(a.cur_k);
+    const QT* cv = static_cast<const QT*>(a.cur_v);
+    if (tid < kDp) {
+      sm_cur[0][tid] = tid < a.Dl ? to_float(ck[bh * a.Dl + tid]) : 0.f;
+      sm_cur[1][tid] = tid < a.Dl ? to_float(cv[bh * a.Dl + tid]) : 0.f;
+    }
     __syncthreads();
-    const int r = d >> 4, lane = d & 15;
-    if (r < rep) {
-      float sc = 0.f;
+    if (g == 0) {
 #pragma unroll
-      for (int i = 0; i < kPer; ++i)
-        sc = __fadd_rn(sc, __fmul_rn(sm_q[r][lane * kPer + i], sm_cur[0][lane * kPer + i]));
-      for (int o = 8; o > 0; o >>= 1)
-        sc = __fadd_rn(sc, __shfl_xor_sync(0xffffu << (d & 16), sc, o));
-      if (lane == 0) sm_sc[r] = sc;
+      for (int r = 0; r < REP; ++r) {
+        float sc = 0.f;
+#pragma unroll
+        for (int c = 0; c < kPer; ++c) sc = __fadd_rn(sc, __fmul_rn(qf[r][c], sm_cur[0][d0 + c]));
+#pragma unroll
+        for (int o = 8; o > 0; o >>= 1) sc = __fadd_rn(sc, __shfl_xor_sync(hmask, sc, o));
+        if (lane == 0) sm_sc[r] = sc;
+      }
     }
     __syncthreads();
   }
-  for (int r = 0; r < rep && r < MAXREP; ++r) {
-    // the chunks, merged in chunk order
-    const size_t st = (bh * rep + r) * nchunk;
+
+  // every block's state is in rank 0's shared memory, and every block has
+  // read its rows of the cache; the others may exit (rank 0's shared
+  // memory, the only one read across the cluster, lives until rank 0 ends)
+  cluster.sync();
+  if (rank != 0) return;
+  // the blocks' weights in the merge, one thread a (block, query head)
+  if (tid < nsplit * REP) {
+    const int j = tid / REP, r = tid - j * REP;
     float mx = -INFINITY;
-    for (int c = 0; c < nchunk; ++c) mx = fmaxf(mx, part_m[st + c]);
-    float a = 0.f, lt = 0.f;
-    for (int c = 0; c < nchunk; ++c) {
-      const float e = merge_weight(part_m[st + c], mx);
-      a = __fadd_rn(a, __fmul_rn(part_acc[(st + c) * kDp + d], e));
-      lt = __fadd_rn(lt, __fmul_rn(part_l[st + c], e));
+    for (int jj = 0; jj < nsplit; ++jj) mx = fmaxf(mx, merge[jj * kStateFloats<REP> + REP * kDp + r]);
+    sm_w[tid] = merge_weight(merge[j * kStateFloats<REP> + REP * kDp + r], mx);
+    if (j == 0) sm_mx[r] = mx;
+  }
+  __syncthreads();
+  if (tid >= kDp) return;
+  QT* out = static_cast<QT*>(a.out);
+  const int d = tid;
+  for (int r = 0; r < REP && r < a.rep; ++r) {
+    // the blocks, merged in rank order
+    const float mx = sm_mx[r];
+    float sa = 0.f, lt = 0.f;
+    for (int j = 0; j < nsplit; ++j) {
+      const float* st = merge + j * kStateFloats<REP>;
+      const float e = sm_w[j * REP + r];
+      sa = __fadd_rn(sa, __fmul_rn(st[r * kDp + d], e));
+      lt = __fadd_rn(lt, __fmul_rn(st[REP * kDp + REP + r], e));
     }
-    if (append) {
+    if (a.append) {
       // the current token, a last online-softmax step (always valid)
       const float s_c = sm_sc[r];
       const float m_new = fmaxf(mx, s_c);
       const float p = expf(s_c - m_new);
       const float corr = expf(mx - m_new);
       lt = __fadd_rn(__fmul_rn(lt, corr), p);
-      a = __fadd_rn(__fmul_rn(a, corr), __fmul_rn(p, sm_cur[1][d]));
+      sa = __fadd_rn(__fmul_rn(sa, corr), __fmul_rn(p, sm_cur[1][d]));
     }
-    if (d < Dl) store(out + (bh * rep + r) * Dl + d, a / fmaxf(lt, 1e-30f));
+    if (d < a.Dl) store(out + (bh * a.rep + r) * a.Dl + d, sa / fmaxf(lt, 1e-30f));
   }
-  if (write) {
-    const int row = min(max(lens[b], 0), S - 1);
-    const int li = min(max(layer[0], 0), L - 1);
-    const size_t off = (((size_t)li * B + b) * KV + h) * S + row;
-    store_row(k + off * kDp, ks + off, sm_cur[0], Dl, d);
-    store_row(v + off * kDp, vs + off, sm_cur[1], Dl, d);
+  if (a.write) {
+    // after the cluster barrier: no block of this cluster reads the cache
+    // again, though at len >= S row S - 1 lies inside the rows they read
+    const int row = min(raw, a.S - 1);
+    const size_t off = head + row;
+    store_row(static_cast<CT*>(a.k) + off * kDp, a.ks + off, sm_cur[0], a.Dl, d);
+    store_row(static_cast<CT*>(a.v) + off * kDp, a.vs + off, sm_cur[1], a.Dl, d);
   }
 }
 
-struct SplitArgs {
-  const void *q, *cur_k, *cur_v;
-  void *k, *v, *out;
-  float *ks, *vs, *part_m, *part_l, *part_acc;
-  const int *lens, *layer;
-  int L, B, KV, rep, Dl, S, window, append, write, chunk, nchunk;
-  float scale;
-};
-
-template <typename QT, typename CT, int MAXREP>
-int launch_split(const SplitArgs& a, cudaStream_t stream) {
-  const QT* q = static_cast<const QT*>(a.q);
-  CT* k = static_cast<CT*>(a.k);
-  CT* v = static_cast<CT*>(a.v);
-  flash_partial_kernel<QT, CT, MAXREP>
-      <<<dim3(a.nchunk, a.KV, a.B), kGroups * 16, 0, stream>>>(
-          q, k, v, a.ks, a.vs, a.lens, a.layer, a.part_m, a.part_l,
-          a.part_acc, a.L, a.B, a.KV, a.rep, a.Dl, a.S, a.window, a.append,
-          a.chunk, a.scale);
-  const cudaError_t err = cudaGetLastError();
+template <typename QT, typename CT, int REP>
+int launch(const Args& a, int nsplit, cudaStream_t stream) {
+  auto kernel = decode_attention_kernel<QT, CT, REP>;
+  const int smem = ring_bytes<CT, REP>(a.Dl) + nsplit * kStateFloats<REP> * 4;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  flash_combine_kernel<QT, CT, MAXREP><<<dim3(a.KV, a.B), kDp, 0, stream>>>(
-      q, a.part_m, a.part_l, a.part_acc, static_cast<const QT*>(a.cur_k),
-      static_cast<const QT*>(a.cur_v), k, v, a.ks, a.vs, a.lens, a.layer,
-      static_cast<QT*>(a.out), a.L, a.B, a.KV, a.rep, a.Dl, a.S, a.nchunk,
-      a.scale, a.append, a.write);
+  if (nsplit > 8) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return (int)err;
+  }
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = nsplit;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(nsplit, a.KV, a.B);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  // a cluster that cannot be scheduled (its blocks' shared memory on one
+  // GPC) is refused here, once per cluster size and ring size
+  static int admitted_for = -1;
+  if (admitted_for != nsplit * 1000000 + smem) {
+    int clusters = 0;
+    err = cudaOccupancyMaxActiveClusters(&clusters, (const void*)kernel, &cfg);
+    if (err != cudaSuccess) return (int)err;
+    if (clusters < 1) return (int)cudaErrorInvalidConfiguration;
+    admitted_for = nsplit * 1000000 + smem;
+  }
+  err = cudaLaunchKernelEx(&cfg, kernel, a);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
 template <typename QT, typename CT>
-int launch_split_rep(const SplitArgs& a, cudaStream_t stream) {
-  return a.rep == 1 ? launch_split<QT, CT, 1>(a, stream)
-                    : launch_split<QT, CT, 8>(a, stream);
+int launch_rep(const Args& a, int nsplit, cudaStream_t stream) {
+  if (a.rep == 1) return launch<QT, CT, 1>(a, nsplit, stream);
+  if (a.rep == 2) return launch<QT, CT, 2>(a, nsplit, stream);
+  if (a.rep <= 4) return launch<QT, CT, 4>(a, nsplit, stream);
+  return launch<QT, CT, 8>(a, nsplit, stream);
 }
 
 }  // namespace
 
-// q (B, KV, rep, Dl), k/v (L, B, KV, S, Dp), out (B, KV, rep, Dl), all of
-// one type (bf16 when is_bf16, else f32); lens (B,) and layer (1,) int32 on
-// the device.  Dp must be 128 and rep at most 8.  Returns the CUDA error
-// of the launch (0 on success).
-extern "C" int tmac_flash_decode(const void* q, const void* k, const void* v,
-                                 const int* lens, const int* layer, void* out,
-                                 int L, int B, int KV, int rep, int Dl, int Dp,
-                                 int S, float scale, int is_bf16,
-                                 void* stream) {
-  if (Dp != kDp || rep < 1 || rep > 8 || Dl < 1 || Dl > Dp || L < 1 || B < 1 ||
-      KV < 1 || S < 1)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (is_bf16)
-    return launch<__nv_bfloat16>(q, k, v, lens, layer, out, L, B, KV, rep, Dl, S, scale, s);
-  return launch<float>(q, k, v, lens, layer, out, L, B, KV, rep, Dl, S, scale, s);
-}
-
-// K6 (append = write = 0), K8 (append = 1) and K9 (append = write = 1).
-// q, cur_k, cur_v (B, KV, Dl) and out of one type (bf16 when q_bf16, else
+// K2 (quant = window = append = write = 0), K6 (quant and/or window), K8
+// (append = 1) and K9 (append = write = 1), one launch.  q, cur_k, cur_v
+// (B, KV, Dl) and out (B, KV, rep, Dl) of one type (bf16 when q_bf16, else
 // f32); k/v (L, B, KV, S, Dp) of that type, or int8 when quant, with ks/vs
 // (L, B, KV, S) f32; lens (B,) and layer (1,) int32 on the device (lens
-// counts the valid rows, or the cached rows in append mode); part_m and
-// part_l (B, KV, rep, nchunk) and part_acc (B, KV, rep, nchunk, Dp) f32
-// scratch, with nchunk * chunk at least the rows a window (or S) can hold.
-// Returns the CUDA error of the launches (0 on success).
-extern "C" int tmac_flash_decode_split(
+// counts the valid rows, or the cached rows in append mode); nsplit blocks
+// (a cluster) per (kv head, batch row), 1 to 16 (above 8 a non-portable
+// cluster).  Dp must be 128
+// and rep at most 8.  Returns the CUDA error of the launch (0 on success;
+// cudaErrorInvalidConfiguration for a cluster the card cannot schedule).
+extern "C" int tmac_decode_attention(
     const void* q, void* k, void* v, float* ks, float* vs, const int* lens,
-    const int* layer, const void* cur_k, const void* cur_v, void* out,
-    float* part_m, float* part_l, float* part_acc, int L, int B, int KV,
-    int rep, int Dl, int Dp, int S, int window, int append, int write,
-    int chunk, int nchunk, float scale, int q_bf16, int quant, void* stream) {
+    const int* layer, const void* cur_k, const void* cur_v, void* out, int L,
+    int B, int KV, int rep, int Dl, int Dp, int S, int window, int append,
+    int write, int nsplit, float scale, int q_bf16, int quant, void* stream) {
   if (Dp != kDp || rep < 1 || rep > 8 || Dl < 1 || Dl > Dp || L < 1 || B < 1 ||
-      KV < 1 || S < 1 || window < 0 || chunk < 1 || nchunk < 1 ||
-      (write && !append) || (append && (!cur_k || !cur_v)) ||
-      (quant && (!ks || !vs)))
+      KV < 1 || S < 1 || window < 0 || nsplit < 1 || nsplit > kMaxSplit ||
+      (write && !append) ||
+      (append && (!cur_k || !cur_v)) || (quant && (!ks || !vs)))
     return (int)cudaErrorInvalidValue;
-  const SplitArgs a{q, cur_k, cur_v, k, v, out, ks, vs, part_m, part_l,
-                    part_acc, lens, layer, L, B, KV, rep, Dl, S, window,
-                    append, write, chunk, nchunk, scale};
+  const Args a{q, cur_k, cur_v, k, v, out, ks, vs, lens, layer, L, B, KV,
+               rep, Dl, S, window, append, write, scale};
   cudaStream_t s = (cudaStream_t)stream;
   if (q_bf16)
-    return quant ? launch_split_rep<__nv_bfloat16, int8_t>(a, s)
-                 : launch_split_rep<__nv_bfloat16, __nv_bfloat16>(a, s);
-  return quant ? launch_split_rep<float, int8_t>(a, s)
-               : launch_split_rep<float, float>(a, s);
+    return quant ? launch_rep<__nv_bfloat16, int8_t>(a, nsplit, s)
+                 : launch_rep<__nv_bfloat16, __nv_bfloat16>(a, nsplit, s);
+  return quant ? launch_rep<float, int8_t>(a, nsplit, s)
+               : launch_rep<float, float>(a, nsplit, s);
 }
