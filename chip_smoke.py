@@ -1,14 +1,19 @@
 """Drive the PyTorch port's main paths on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py          (from the repository root)
+    python3 chip_smoke.py --phase qgemm_decode_sweep   (that phase alone)
+    python3 chip_smoke.py --phase decode_plan_sweep    (K1, K4 at every ksplit)
 
 Phases, each printing one JSON line before the last two:
   1. the card (nvidia-smi name and power limit, torch's device name);
   2. build the CUDA kernels from tmac_tpu_torch/ops/cuda/csrc with nvcc
      (all sources in parallel), and the synthetic BitNet-3B weights;
-  3. kernel K1 (fused act-quant + packed qgemm, N < 64) against its plain
-     PyTorch version at BitNet-3B's shapes: exact int8 codes and int32
-     sums on the call without folds, NMSE <= 1e-6 on the folded calls;
+  3. kernel K1 (fused act-quant + packed qgemm, N < 64: the prologue and
+     the decode matmul, K split over a cluster) against its plain PyTorch
+     version at BitNet-3B's shapes, N = 1, 4, 16 and 63, at decode_plan's
+     cluster size and at 1 and 8: bit for bit with exact int8 codes and
+     int32 sums on the calls without folds, NMSE <= 1e-6 on the folded
+     calls;
      kernel K3 (the N >= 64 route: K1's prologue + one int8 tensor-core
      dot) at N = 64 and 256 on every linear with its folds and the int8
      head, bit for bit; kernel K10 (wo + residual, rms_norm, gate_up,
@@ -38,9 +43,9 @@ Phases, each printing one JSON line before the last two:
      hidden 4096, 32 heads, head_dim 128, FFN 11008, vocab 32000), random
      weights from seed 0: kernel K4 (per-group act-quant + grouped-scale
      packed qgemm) against its plain version at the path's shapes, bits 2
-     and 4 (a one-layer W4A16 model), N = 1 and 16 (exact codes, scales,
-     code sums and per-group int32 dots without folds, NMSE <= 1e-6 with
-     them), and its tensor-core form K4L (from 64 rows) at N = 64, 100, 256
+     and 4 (a one-layer W4A16 model), N = 1, 4, 16 and 63, at the cluster
+     sizes of K1's checks (bit for bit with exact codes, scales and code
+     sums without folds, NMSE <= 1e-6 with them), and its tensor-core form K4L (from 64 rows) at N = 64, 100, 256
      and 383, bit for bit with every fold, also at group sizes 32 and 96
      (its KT = 32 form, K padded at bits 2); kernel K5 (the grouped route
      from 3 * group_size rows: bf16 activations times weights dequantized
@@ -57,8 +62,8 @@ Phases, each printing one JSON line before the last two:
      f32-order drift there, its argmax where the plain path's lead is
      beyond that drift (noise_gated_argmax), and on the decode steps; the
      same prefill at the first 2 layers, every position's argmax held so),
-     K4's at N = 1, K4L,
-     K5 and K4's dp4a form side by side at N = 64 to 512 (CUDA graphs),
+     K4's at N = 1, K4L and
+     K5 side by side at N = 64 to 512 (CUDA graphs),
      K5's and K4L's at N = 384 and 512;
   7. path 3, Mixtral-8x7B W2A16 g128 at full width and depth (32 layers,
      hidden 4096, 32 heads and 8 KV heads, 8 experts top-2 with FFN 14336,
@@ -101,7 +106,13 @@ Phases, each printing one JSON line before the last two:
      and plain paths equal, no device-side assert, and one kernel after;
   9. the attention sweep: K2 (K6 with Phi-3's window) per call at 1, 64,
      288, 1056 and 2047 rows for the head shapes of the four paths, beside
-     SDPA and the byte bound (the fixed cost of a call and its streaming).
+     SDPA and the byte bound (the fixed cost of a call and its streaming);
+ 10. the decode-matmul sweep (qgemm_decode_sweep): K1 at BitNet-3B's five
+     shapes and K4 at Llama-2-7B's, Phi-3-mini's and Mixtral-8x7B's four,
+     at N = 1, 4 and 16, per call beside the byte bound, the bf16 matmul
+     and the cluster size; then the programmatic launch seen in a
+     profiler trace (pdl_overlap): the matmul starting before its
+     prologue ends, in an eager call and in a captured graph.
 The last two lines are the kernels' JSON record and
 {"ok": true, "device": {...}}.  Any failed check raises and the script
 exits non-zero; so does a machine without a CUDA device.
@@ -218,6 +229,7 @@ class Card:
         self.bw, self.int8_peak, self.bf16_peak = next(
             (p[1:] for p in PEAKS if p[0] in self.name), PEAKS[-1][1:])
         self.rng = np.random.default_rng(1)
+        self.sms = torch.cuda.get_device_properties(0).multi_processor_count
 
     def bf16(self, *shape):
         import numpy as np
@@ -267,45 +279,78 @@ def qgemm_bytes(qt, x, kw):
 # kernel checks
 # ---------------------------------------------------------------------------
 
-def check_k1(card, cases):
-    """K1 against its plain version; cases: (label, x, qt, folds), N < 64."""
+# the decode matmul's cluster sizes every check takes (decode_plan's: None),
+# and the rows its checks take on every path
+DECODE_SPLITS, DECODE_ROWS = (None, 1, 8), (1, 4, 16, 63)
+
+
+def decode_split_call(x, qt, kw, ksplit):
+    """K1's or K4's function on the card at a given cluster size (None:
+    decode_plan's, through the wrapper), below 64 rows."""
+    from tmac_tpu_torch.ops.cuda import qgemm_grouped_kernel as k4
+    from tmac_tpu_torch.ops.cuda import qgemm_kernel as k1
+    grouped = qt.scales.shape[0] > 1
+    if ksplit is None:
+        return (k4.qgemm_grouped if grouped else k1.qgemm_fused)(x, qt, **kw)
+    norm, glu, res = kw.get("norm"), kw.get("glu", False), kw.get("residual")
+    if grouped:
+        codes, xs, xsum = k4.launch_act_quant_grouped(x, qt, norm, glu)
+        out = k4.launch_decode_grouped(codes, xs, xsum, qt, res, ksplit)
+    else:
+        codes, xs, xsum = k1.launch_act_quant(x, qt, norm, glu)
+        out = k1.launch_decode(codes, xs, xsum, qt, res, ksplit)
+    return qt.slice_m(out)
+
+
+def check_k1(card, cases, splits=DECODE_SPLITS):
+    """K1 against its plain version; cases: (label, x, qt, folds), N < 64,
+    each at every cluster size of `splits`: bit for bit without folds
+    (with the prologue's codes, scales and code sums byte for byte and
+    the int32 sums exact), NMSE <= FOLDED_NMSE with them."""
     import torch
     from tmac_tpu_torch.ops.cuda import qgemm_kernel as k1
     from tmac_tpu_torch.utils import nmse
     rows, worst = [], 0.0
     for label, x, qt, kw in cases:
         N = x.shape[0]
-        got = k1.qgemm_fused(x, qt, **kw)
         want = k1.qgemm_fused_plain(x, qt, **kw)
-        torch.cuda.synchronize()
-        err = float((got - want).abs().max())
-        worst = max(worst, err)
-        row = dict(shape=label, N=N, max_abs_err=err,
-                   bitwise=bool(torch.equal(got, want)))
-        if kw:
-            row["nmse"] = nmse(want.cpu().numpy(), got.cpu().numpy())
-            if not row["nmse"] <= FOLDED_NMSE:
-                raise AssertionError(f"K1 {label} N={N}: {row}")
-        else:
-            # no folds: the codes and the int32 sums are exact
+        if not kw:
             codes, xs, xsum = k1.launch_act_quant(x, qt)
             pc, pxs, pxsum = k1.act_quant_plain(x, qt)
             unit = dataclasses.replace(qt, scales=torch.ones_like(qt.scales),
                                        sub=torch.zeros_like(qt.sub))
-            acc = k1.launch_gemm(codes, torch.ones_like(xs),
-                                 torch.zeros_like(xsum), unit)
             want_acc = k1.int_dot_plain(pc, qt)
-            row.update(codes_equal=bool(torch.equal(codes, k1.dp4a_order(pc, qt.bits))),
-                       xs_equal=bool(torch.equal(xs, pxs)),
-                       xsum_equal=bool(torch.equal(xsum, pxsum)),
-                       acc_equal=bool(torch.equal(acc, want_acc.float())),
-                       acc_absmax=int(want_acc.abs().max()))
-            close = torch.allclose(got, want, rtol=1e-6,
-                                   atol=1e-6 * float(want.abs().max()))
-            if not (row["codes_equal"] and row["xs_equal"] and row["xsum_equal"]
-                    and row["acc_equal"] and close):
+        for ksplit in splits:
+            try:
+                got = decode_split_call(x, qt, kw, ksplit)
+            except ValueError as e:  # a forced cluster size that does not fit
+                if ksplit is None:
+                    raise
+                rows.append(dict(shape=label, N=N, ksplit=ksplit, refused=str(e)))
+                continue
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            worst = max(worst, err)
+            row = dict(shape=label, N=N, ksplit=ksplit or k1.decode_plan(
+                N, qt.kdim_padded, qt.mdim_padded, qt.bits, 0, card.sms)[0],
+                max_abs_err=err, bitwise=bool(torch.equal(got, want)))
+            if kw:
+                row["nmse"] = nmse(want.cpu().numpy(), got.cpu().numpy())
+                ok = row["nmse"] <= FOLDED_NMSE
+            else:
+                # no folds: the codes, the int32 sums and the output are exact
+                acc = k1.launch_decode(codes, torch.ones_like(xs),
+                                       torch.zeros_like(xsum), unit, None, ksplit)
+                row.update(codes_equal=bool(torch.equal(codes, pc)),
+                           xs_equal=bool(torch.equal(xs, pxs)),
+                           xsum_equal=bool(torch.equal(xsum, pxsum)),
+                           acc_equal=bool(torch.equal(acc, want_acc.float())),
+                           acc_absmax=int(want_acc.abs().max()))
+                ok = all(row[k] for k in ("bitwise", "codes_equal", "xs_equal",
+                                          "xsum_equal", "acc_equal"))
+            rows.append(row)
+            if not ok:
                 raise AssertionError(f"K1 {label} N={N}: {row}")
-        rows.append(row)
     return rows, worst
 
 
@@ -426,14 +471,13 @@ def check_k10(card, cases):
     return rows, worst
 
 
-def check_k4(card, cases):
+def check_k4(card, cases, splits=DECODE_SPLITS):
     """K4's function against its plain version; cases: (label, x, qt,
-    folds).  Below 64 rows the decode form (K4), from 64 rows K4L, each
-    through the wrapper that ops.qgemm.kernel_for picks for its function.
-    K4L bit for bit with every fold;
-    without folds both also with the plain prologue's codes, scales and
-    code sums (and K4's per-group int32 dots); K4 with folds within
-    FOLDED_NMSE."""
+    folds).  Below 64 rows the decode form (K4), at every cluster size of
+    `splits`; from 64 rows K4L, through the wrapper that ops.qgemm.kernel_for
+    picks.  Bit for bit without folds, with the plain prologue's codes,
+    scales and code sums byte for byte; K4L bit for bit with every fold too,
+    K4 within FOLDED_NMSE with them."""
     import torch
     from tmac_tpu_torch.ops.cuda import qgemm_grouped_kernel as k4
     from tmac_tpu_torch.ops.qgemm import LARGE_N, kernel_for
@@ -442,33 +486,41 @@ def check_k4(card, cases):
     for label, x, qt, kw in cases:
         N = x.shape[0]
         large = N >= LARGE_N
-        got = kernel_for(qt, N, dispatch="chunk")(x, qt, **kw)
         want = k4.qgemm_grouped_plain(x, qt, **kw)
-        torch.cuda.synchronize()
-        err = float((got - want).abs().max())
-        worst = max(worst, err)
-        row = dict(shape=label, kernel="K4L" if large else "K4", bits=qt.bits, N=N,
-                   folds=sorted(kw), max_abs_err=err, bitwise=bool(torch.equal(got, want)),
-                   nmse=nmse(want.cpu().numpy(), got.cpu().numpy()))
-        ok = row["bitwise"] if large else (not kw or row["nmse"] <= FOLDED_NMSE)
+        prologue = {}
         if not kw:
-            # no folds: codes, scales, code sums (and K4's group dots) are exact
             codes, xs, xsum = k4.launch_act_quant_grouped(x, qt)
             pc, pxs, pxsum = k4.act_quant_grouped_plain(x, qt)
-            row.update(codes_equal=bool(torch.equal(codes, pc)),
-                       xs_equal=bool(torch.equal(xs, pxs)),
-                       xsum_equal=bool(torch.equal(xsum, pxsum)))
-            if not large:
-                parts = k4.launch_group_dots(codes, qt)
-                want_parts = k4.group_dots_plain(pc, qt)
-                row.update(parts_equal=bool(torch.equal(parts, want_parts)),
-                           parts_absmax=int(want_parts.abs().max()))
+            prologue = dict(codes_equal=bool(torch.equal(codes, pc)),
+                            xs_equal=bool(torch.equal(xs, pxs)),
+                            xsum_equal=bool(torch.equal(xsum, pxsum)))
+        for ksplit in ((None,) if large else splits):
+            if large:
+                got = kernel_for(qt, N, dispatch="chunk")(x, qt, **kw)
+            else:
+                try:
+                    got = decode_split_call(x, qt, kw, ksplit)
+                except ValueError as e:  # a forced cluster size that does not fit
+                    if ksplit is None:
+                        raise
+                    rows.append(dict(shape=label, kernel="K4", N=N, ksplit=ksplit,
+                                     refused=str(e)))
+                    continue
             torch.cuda.synchronize()
-            ok = ok and row["codes_equal"] and row["xs_equal"] and row["xsum_equal"] \
-                and row.get("parts_equal", True) and row["nmse"] <= FOLDED_NMSE
-        rows.append(row)
-        if not ok:
-            raise AssertionError(f"{row['kernel']} {label} N={N}: {row}")
+            err = float((got - want).abs().max())
+            worst = max(worst, err)
+            row = dict(shape=label, kernel="K4L" if large else "K4", bits=qt.bits, N=N,
+                       folds=sorted(kw), max_abs_err=err,
+                       bitwise=bool(torch.equal(got, want)),
+                       nmse=nmse(want.cpu().numpy(), got.cpu().numpy()), **prologue)
+            if not large:
+                row["ksplit"] = ksplit or k4.decode_plan(
+                    N, qt.kdim_padded, qt.mdim_padded, qt.bits, qt.group_size, card.sms)[0]
+            ok = row["bitwise"] if large or not kw else row["nmse"] <= FOLDED_NMSE
+            ok = ok and all(prologue.values())
+            rows.append(row)
+            if not ok:
+                raise AssertionError(f"{row['kernel']} {label} N={N}: {row}")
     return rows, worst
 
 
@@ -591,14 +643,16 @@ KERNEL_NAMES = (("K10", "block_kernel"), ("K3 matmul", "large_int_kernel"),
                 ("K7 prologue", "expert_act_quant_kernel"),
                 ("K7 matmul", "expert_qgemm_kernel"),
                 ("K4/K4L prologue", "act_quant_grouped_kernel"),
-                ("K4 dots", "group_dot_kernel"), ("K4 fold", "fold_kernel"),
-                ("K1 prologue", "act_quant_kernel"), ("K1 matmul", "qgemm_kernel"),
+                ("K4 matmul", "k4_decode_kernel"),
+                ("K1 prologue", "act_quant_kernel"), ("K1 matmul", "k1_decode_kernel"),
                 ("K2/K6/K8/K9", "decode_attention_kernel"))
 
 
-def profiled_ms(fn, calls=1):
+def profiled_ms(fn, calls=1, launched=None):
     """Device ms of fn() by kernel (KERNEL_NAMES' labels, the rest as torch
-    glue) from torch.profiler, divided by `calls`."""
+    glue) from torch.profiler, divided by `calls`; `launched`, a dict, gets
+    the kernels' launches by label, divided by `calls`."""
+    launched = {} if launched is None else launched
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -613,6 +667,7 @@ def profiled_ms(fn, calls=1):
         key = next((label for label, k in KERNEL_NAMES if k in e.key),
                    "torch glue")
         ms[key] += e.device_time_total / 1e3 / calls
+        launched[key] = launched.get(key, 0) + e.count / calls
     return {k: v for k, v in ms.items() if v}
 
 
@@ -621,9 +676,11 @@ def device_time(tag, model, cache, first, step_ms, graph_step_ms):
     kernel times over PROFILED steps from first (B,) and cache, by kernel
     and the rest as torch glue; printed as the phase `{tag}_device_time`."""
     from tmac_tpu_torch.runtime.generate import decode_loop
-    per_step = profiled_ms(lambda: decode_loop(model, first, cache, PROFILED), PROFILED)
+    launched = {}
+    per_step = profiled_ms(lambda: decode_loop(model, first, cache, PROFILED), PROFILED,
+                           launched)
     busy = sum(per_step.values())
-    say(f"{tag}_device_time", ms_per_step=per_step, busy_ms=busy,
+    say(f"{tag}_device_time", ms_per_step=per_step, launches_per_step=launched, busy_ms=busy,
         idle_share_eager=1 - busy / step_ms,
         idle_share_graph=1 - busy / graph_step_ms)
 
@@ -897,9 +954,8 @@ def time_k5(card, calls, reps=5):
 def sweep_k4l_k5(card, calls_by_shape, reps=5):
     """K4L and K5 per call at K4L_SWEEP rows over each shape's calls
     [(x, qt, folds)] (CUDA graphs of the calls, x cut to N rows), beside
-    the dp4a form of K4 that served these rows before K4L (its prologue,
-    per-group dots and fold launched directly), each one's bound and the
-    bf16 matmul yardstick; printed as the phase `k4l_k5_sweep`."""
+    each one's bound and the bf16 matmul yardstick; printed as the phase
+    `k4l_k5_sweep`."""
     from tmac_tpu_torch.ops.cuda import qgemm_grouped_kernel as k4
     rows = []
     for N in K4L_SWEEP:
@@ -908,12 +964,6 @@ def sweep_k4l_k5(card, calls_by_shape, reps=5):
                                              for k, v in kw.items()})
                    for x, qt, kw in calls]
             x, qt, kw = cut[0]
-
-            def dp4a(a, w, f):
-                codes, xs, xsum = k4.launch_act_quant_grouped(a, w, f.get("norm"),
-                                                              f.get("glu", False))
-                return k4.launch_fold(k4.launch_group_dots(codes, w), xs, xsum, w,
-                                      f.get("residual"))
             ops, nbytes = 2 * N * qt.kdim_padded * qt.mdim_padded, qgemm_bytes(qt, x, kw)
             rows.append(dict(
                 shape=shape, N=N, K=qt.kdim_padded, Mp=qt.mdim_padded,
@@ -921,8 +971,6 @@ def sweep_k4l_k5(card, calls_by_shape, reps=5):
                                          for a, w, f in cut], reps=reps) / len(cut),
                 k5_ms=graph_ms(lambda: [k4.qgemm_dequant(a, w, **f)
                                         for a, w, f in cut], reps=reps) / len(cut),
-                k4_dp4a_ms=graph_ms(lambda: [dp4a(a, w, f) for a, w, f in cut],
-                                    reps=1) / len(cut),
                 k4l_bound_ms=card.bound_ms(nbytes, ops, card.int8_peak),
                 k5_bound_ms=card.bound_ms(nbytes, ops, card.bf16_peak),
                 library_ms=yardstick_ms(card, x, qt, False)))
@@ -990,9 +1038,11 @@ def bitnet_path(card, build_s, ptxas):
             kw["residual"] = card.bf16(N, qt.mdim)
         return card.bf16(N, width), qt, kw
 
-    cases = [(s, *k1_args(s, N, layers[0])) for s, N in (
-        ("wqkv", 1), ("wqkv", 16), ("wo", 1), ("gate_up", 1), ("down", 1),
-        ("down", 16), ("head", 1))]
+    cases = []
+    for N in DECODE_ROWS:
+        for s_ in shapes:
+            x, qt, kw = k1_args(s_, N, layers[0])
+            cases += [(s_, x, qt, kw), (s_, x[:, :qt.kdim].contiguous(), qt, {})]
     rows, k1_err = check_k1(card, cases)
     say("k1_check", checks=rows)
     k2_rows, k2_err = check_k2(card, cfg.head_dim)
@@ -1159,7 +1209,7 @@ def llama_path(card):
     cases = []
     for layer in (layers[0], params4["layers"][0]):
         for shape in shapes:
-            for N in (1, 16) + K4L_ROWS:
+            for N in DECODE_ROWS + K4L_ROWS:
                 cases.append((shape, *k4_args(shape, N, layer)))
                 x, qt, _ = k4_args(shape, N, layer, folds=False)
                 if shape == "down" and x.shape[1] != qt.kdim:
@@ -1481,7 +1531,7 @@ def mixtral_path(card):
     del cases, q_gu, q_dn, alone, out_of_range
     # K4, K1 and K2 at this path's own shapes and weights
     l0, eps = layers[0], cfg.rms_norm_eps
-    k4_cases = [(s_, card.bf16(N, w), l0[s_], kw) for N in (1, 256)
+    k4_cases = [(s_, card.bf16(N, w), l0[s_], kw) for N in DECODE_ROWS + (256,)
                 for s_, w, kw in (("wqkv", H, dict(norm=(l0["attn_norm"], eps))),
                                   ("wo", cfg.q_dim, {}))]
     # the dispatch prefill's expert blocks: C = 128 slots through each
@@ -1899,6 +1949,196 @@ def time_kv_modes(card, cfg, caches, n):
     return out
 
 
+# The decode-matmul sweep's rows, and its shapes: (label, K, M, bits, group
+# size (0: per-tensor), folds) of K1 on BitNet-3B and K4 on Llama-2-7B W2
+# (down at its padded K, silu(g) * u before it), Phi-3-mini W2 and
+# Mixtral-8x7B W2 (attention, and the experts' shapes its dispatch prefill
+# reaches at small N)
+QGEMM_SWEEP_ROWS = (1, 4, 16)
+K1_SWEEP_SHAPES = (("bitnet wqkv", 3200, 9600, 2, 0, "norm"),
+                   ("bitnet wo", 3200, 3200, 2, 0, "residual"),
+                   ("bitnet gate_up", 3200, 17280, 2, 0, "norm"),
+                   ("bitnet down", 8704, 3200, 2, 0, "glu residual"),
+                   ("bitnet head", 3200, 32000, 8, 0, ""))
+K4_SWEEP_SHAPES = (("llama wqkv", 4096, 12288, 2, 128, "norm"),
+                   ("llama wo", 4096, 4096, 2, 128, "residual"),
+                   ("llama gate_up", 4096, 22016, 2, 128, "norm"),
+                   ("llama down", 11264, 4096, 2, 128, "residual"),
+                   ("phi3 wqkv", 3072, 9216, 2, 128, "norm"),
+                   ("phi3 wo", 3072, 3072, 2, 128, "residual"),
+                   ("phi3 gate_up", 3072, 16384, 2, 128, "norm"),
+                   ("phi3 down", 8192, 3072, 2, 128, "glu residual"),
+                   ("mixtral wqkv", 4096, 6144, 2, 128, "norm"),
+                   ("mixtral wo", 4096, 4096, 2, 128, "residual"),
+                   ("mixtral expert gate_up", 4096, 28672, 2, 128, ""),
+                   ("mixtral expert down", 14336, 4096, 2, 128, "glu"))
+
+
+def ternary_qt_on_card(gen, K, M, dev):
+    """Per-tensor 2-bit weights (K, M) drawn on the card (random packed
+    bytes, f32 scales ~1/sqrt(K), sub = 2 * scale), K padded to a multiple
+    of 16 as the package pads it."""
+    import torch
+    from tmac_tpu_torch.ops.qgemm import QuantizedTensor
+    from tmac_tpu_torch.utils import round_up
+    Kp = round_up(K, 16)
+    packed = torch.randint(0, 256, (Kp // 4, M), generator=gen, device=dev,
+                           dtype=torch.uint8)
+    scales = (0.5 + torch.rand((1, M), generator=gen, device=dev)) / math.sqrt(K)
+    return QuantizedTensor(packed, None, scales, 2 * scales, 2, Kp, 1, 1, (K, M))
+
+
+def qgemm_decode_sweep(card, layers=8):
+    """K1 and K4 per call at QGEMM_SWEEP_ROWS rows on K1_SWEEP_SHAPES and
+    K4_SWEEP_SHAPES, through their wrappers (qgemm_fused, qgemm_grouped)
+    with each shape's folds: a CUDA graph of calls over at least `layers`
+    copies of the weights, as many as pass 120 MB (cold in the 50 MB L2,
+    as in a decode step), beside the byte bound and the bf16 matmul
+    yardstick, and the cluster size decode_plan gives (None where the
+    package has no decode_plan).  -> rows"""
+    import torch
+    from tmac_tpu_torch.ops.cuda import qgemm_grouped_kernel as k4
+    from tmac_tpu_torch.ops.cuda import qgemm_kernel as k1
+    plan = getattr(k1, "decode_plan", None)
+    gen = torch.Generator(device=card.dev)
+    gen.manual_seed(8)
+    out = []
+    for kernel, fn, shapes in (("K1", k1.qgemm_fused, K1_SWEEP_SHAPES),
+                               ("K4", k4.qgemm_grouped, K4_SWEEP_SHAPES)):
+        for label, K, M, bits, gs, folds in shapes:
+            if gs:
+                one = rand_qt_on_card(gen, K, M, bits, gs, card.dev)
+            elif bits == 8:
+                one = int8_head_on_card(gen, K, M, card.dev)
+            else:
+                one = ternary_qt_on_card(gen, K, M, card.dev)
+            wbytes = one.packed.numel() + 2 * one.scales.numel() * one.scales.element_size()
+            ws = [one] + [dataclasses.replace(one, packed=one.packed.clone())
+                          for _ in range(max(layers, math.ceil(120e6 / wbytes)) - 1)]
+            ones = torch.ones(K, dtype=torch.bfloat16, device=card.dev)
+            for N in QGEMM_SWEEP_ROWS:
+                kw = {}
+                if "norm" in folds:
+                    kw["norm"] = (ones, 1e-5)
+                if "residual" in folds:
+                    kw["residual"] = card.bf16(N, M)
+                kw["glu"] = "glu" in folds
+                x = card.bf16(N, 2 * K if kw["glu"] else K)
+                us = graph_ms(lambda: [fn(x, w, **kw) for w in ws]) / len(ws) * 1e3
+                Kp, Mp = one.kdim_padded, one.mdim_padded
+                out.append(dict(
+                    kernel=kernel, shape=label, N=N, K=Kp, Mp=Mp, bits=bits, us=us,
+                    bound_us=card.bound_ms(qgemm_bytes(one, x, kw), 2 * N * Kp * Mp,
+                                           card.int8_peak) * 1e3,
+                    bf16_us=yardstick_ms(card, x, one, True) * 1e3,
+                    ksplit=plan(N, Kp, Mp, bits, gs)[0] if plan else None))
+            del ws
+    torch.cuda.empty_cache()
+    return out
+
+
+def decode_plan_sweep(card, layers=8):
+    """K1 and K4 per call at every cluster size of qgemm_kernel.DECODE_SPLITS
+    (forced after the prologue, decode_split_call) on K1_SWEEP_SHAPES and
+    K4_SWEEP_SHAPES at QGEMM_SWEEP_ROWS rows, timed as qgemm_decode_sweep
+    times them, beside decode_plan's choice: the data decode_plan's
+    constants are fitted to.  A size whose shared memory cannot fit is
+    None.  -> rows"""
+    import torch
+    from tmac_tpu_torch.ops.cuda import qgemm_kernel as k1
+    gen = torch.Generator(device=card.dev)
+    gen.manual_seed(8)
+    out = []
+    for shapes in (K1_SWEEP_SHAPES, K4_SWEEP_SHAPES):
+        for label, K, M, bits, gs, folds in shapes:
+            if gs:
+                one = rand_qt_on_card(gen, K, M, bits, gs, card.dev)
+            elif bits == 8:
+                one = int8_head_on_card(gen, K, M, card.dev)
+            else:
+                one = ternary_qt_on_card(gen, K, M, card.dev)
+            ws = [one] + [dataclasses.replace(one, packed=one.packed.clone())
+                          for _ in range(max(layers, math.ceil(120e6 / one.packed.numel())) - 1)]
+            ones = torch.ones(K, dtype=torch.bfloat16, device=card.dev)
+            for N in QGEMM_SWEEP_ROWS:
+                kw = {"glu": "glu" in folds}
+                if "norm" in folds:
+                    kw["norm"] = (ones, 1e-5)
+                if "residual" in folds:
+                    kw["residual"] = card.bf16(N, M)
+                x = card.bf16(N, 2 * K if kw["glu"] else K)
+                us = {}
+                for ksplit in k1.DECODE_SPLITS:
+                    try:
+                        us[ksplit] = graph_ms(lambda: [decode_split_call(x, w, kw, ksplit)
+                                                       for w in ws]) / len(ws) * 1e3
+                    except ValueError:
+                        us[ksplit] = None
+                plan = k1.decode_plan(N, one.kdim_padded, M, bits, gs, card.sms)[0]
+                out.append(dict(shape=label, N=N, plan=plan, us=us))
+            del ws
+    torch.cuda.empty_cache()
+    return out
+
+
+def pdl_overlap(card, calls=4):
+    """The programmatic dependent launch seen on the card: torch.profiler's
+    trace of `calls` K1 calls (BitNet-3B's down, N = 1) and K4 calls
+    (Llama-2-7B W2's down), eagerly and replayed from a CUDA graph; for
+    each matmul kernel, how far it started before its prologue ended (µs,
+    positive: they overlap).  -> {mode: summary}"""
+    import os
+    import tempfile
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from tmac_tpu_torch.ops.cuda import qgemm_grouped_kernel as k4
+    from tmac_tpu_torch.ops.cuda import qgemm_kernel as k1
+    gen = torch.Generator(device=card.dev)
+    gen.manual_seed(9)
+    w1 = ternary_qt_on_card(gen, 8704, 3200, card.dev)
+    w4 = rand_qt_on_card(gen, 11264, 4096, 2, 128, card.dev)
+    x1, x4 = card.bf16(1, 2 * 8704), card.bf16(1, 11264)
+    r1, r4 = card.bf16(1, 3200), card.bf16(1, 4096)
+
+    def fn():
+        for _ in range(calls):
+            k1.qgemm_fused(x1, w1, glu=True, residual=r1)
+            k4.qgemm_grouped(x4, w4, residual=r4)
+
+    def trace(run):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        fd, path = tempfile.mkstemp(suffix=".json")
+        os.close(fd)
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+        os.unlink(path)
+        kernels = sorted((e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
+                         if e.get("cat") == "kernel")
+        out = {}
+        for label, pro, mm in (("K1", "act_quant_kernel", "k1_decode_kernel"),
+                               ("K4", "act_quant_grouped_kernel", "k4_decode_kernel")):
+            leads, last_end = [], None
+            for start, end, name in kernels:
+                if pro in name:
+                    last_end = end
+                elif mm in name and last_end is not None:
+                    leads.append(last_end - start)
+                    last_end = None
+            out[label] = dict(pairs=len(leads), overlapping=sum(x > 0 for x in leads),
+                              lead_us=leads)
+        out["kernels_seen"] = len(kernels)
+        return out
+    eager = trace(fn)
+    graph = capture(fn)
+    replayed = trace(graph.replay)
+    del graph
+    return dict(eager=eager, graph=replayed)
+
+
 # The attention sweep's rows, and its head shapes: (label, KV heads, query
 # heads per KV head, head_dim, int8 cache, window), those K2 and K6 serve
 # on the paths (BitNet, Llama, Mixtral; Phi-3 on each cache)
@@ -2028,7 +2268,7 @@ def phi3_path(card):
         checks=len(kv_rows), worst=kv_err, rows=kv_rows)
     l0, eps = params["layers"][0], cfg.rms_norm_eps
     k4_cases = []
-    for N in (1,) + K4L_ROWS:
+    for N in DECODE_ROWS + K4L_ROWS:
         for shape, width, kw in (
                 ("wqkv", H, dict(norm=(l0["attn_norm"], eps))),
                 ("wo", cfg.q_dim, dict(residual=card.bf16(N, H))),
@@ -2313,13 +2553,23 @@ def main() -> int:
             mangled = ln.split("'")[1]
             base = re.search(r"(act_quant_grouped|act_quant|expert_qgemm|qgemm"
                              r"|decode_attention"
-                             r"|group_dot|fold|large_int|act_bf16|dequant_wgmma|group_mma"
+                             r"|k1_decode|k4_decode|large_int|act_bf16|dequant_wgmma|group_mma"
                              r"|block)_kernel", mangled)
             targs = template_args(mangled)
             kernel = f"{base.group(0) if base else mangled}<{','.join(targs)}>"
         elif "registers" in ln or "spill" in ln:
             ptxas.append(f"{kernel}: {ln.split(':', 1)[-1].strip()}")
 
+    if sys.argv[1:] == ["--phase", "decode_plan_sweep"]:
+        say("decode_plan_sweep", card=card.name, nvidia_smi=card.smi,
+            rows=decode_plan_sweep(card))
+        return 0
+    if sys.argv[1:] == ["--phase", "qgemm_decode_sweep"]:
+        say("build", nvcc_s=round(build_s, 3), ptxas=ptxas)
+        say("qgemm_decode_sweep", card=card.name, nvidia_smi=card.smi,
+            rows=qgemm_decode_sweep(card))
+        say("pdl_overlap", card=card.name, **pdl_overlap(card))
+        return 0
     t_all = time.perf_counter()
     records = bitnet_path(card, build_s, ptxas)
     records += llama_path(card)
@@ -2329,6 +2579,9 @@ def main() -> int:
     records += phi3_path(card)
     torch.cuda.empty_cache()
     say("attn_sweep", card=card.name, nvidia_smi=card.smi, rows=attn_sweep(card))
+    say("qgemm_decode_sweep", card=card.name, nvidia_smi=card.smi,
+        rows=qgemm_decode_sweep(card))
+    say("pdl_overlap", card=card.name, **pdl_overlap(card))
     say("record", unit="device ms per decode step of each path (bitnet-3b: "
         "105 K1 and 26 K2 launches, in the block mode 26 K10, 27 K1 and 26 "
         "K2; llama-2-7b: 128 K4, 1 K1 and 32 K2; mixtral-8x7b: 128 K7, 64 "

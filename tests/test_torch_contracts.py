@@ -252,3 +252,9 @@ def test_ctypes_signatures_match_the_c_interfaces():
     # decode attention (K2, K6, K8, K9) has one entry point, of 25 arguments
     assert c_args["tmac_decode_attention"] == 25
     assert not {"tmac_flash_decode", "tmac_flash_decode_split"} & set(c_args)
+    # K1's and K4's decode forms: the prologue (K1's with its code-order
+    # flag) and one matmul each, with its cluster size and token rows
+    assert c_args["tmac_act_quant"] == 16
+    assert c_args["tmac_decode_qgemm"] == 15
+    assert c_args["tmac_decode_group_gemm"] == 16
+    assert not {"tmac_qgemm", "tmac_group_dots", "tmac_group_fold"} & set(c_args)

@@ -1,0 +1,221 @@
+"""The decode matmul that K1 and K4 share below 64 rows
+(csrc/decode_matmul.cuh): its static plan, the split of K over a cluster,
+the lane and ring layout it reads the packed weights in, and the on-chip
+group fold, each emulated in plain PyTorch and held to the plain versions
+(and, for the split fold, to the JAX package's grouped Pallas qgemm)."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tmac_tpu.ops.pallas.qgemm_kernel import qgemm_pallas
+from tmac_tpu.ops.qgemm import QuantizedTensor as JQT
+from tmac_tpu_torch.ops.cuda.qgemm_grouped_kernel import (
+    act_quant_grouped_plain, block_partials_plain, fold_plain,
+    fold_split_plain, group_dots_plain, qgemm_grouped_plain)
+from tmac_tpu_torch.ops.cuda.qgemm_kernel import (
+    DECODE_MAX_SPLIT, DECODE_SMEM_LIMIT, act_quant_plain, decode_owner,
+    decode_plan, decode_smem, decode_spans, decode_units, int_dot_plain,
+    int_dot_split_plain)
+from tmac_tpu_torch.ops.qgemm import QuantizedTensor
+
+torch.set_num_threads(2)
+
+# (N, Kp, Mp, bits, group size) of the paths' decode calls: BitNet-3B's
+# per-tensor linears and int8 head, Llama-2-7B W2 and W4, Phi-3-mini and
+# Mixtral-8x7B (attention and expert shapes), at decode and prompt rows;
+# 22, 28 and 43 chunks split unevenly
+PATH_SHAPES = [(n, *s) for n in (1, 4, 16, 63) for s in (
+    (3200, 9600, 2, 0), (3200, 3200, 2, 0), (3200, 17280, 2, 0),
+    (8704, 3200, 2, 0), (3200, 32000, 8, 0),
+    (4096, 12288, 2, 128), (4096, 4096, 2, 128), (4096, 22016, 2, 128),
+    (11264, 4096, 2, 128), (11008, 4096, 4, 128),
+    (3072, 9216, 2, 128), (3072, 3072, 2, 128), (3072, 16384, 2, 128),
+    (8192, 3072, 2, 128), (4096, 6144, 2, 128), (4096, 28672, 2, 128),
+    (14336, 4096, 2, 128))]
+
+
+@pytest.mark.parametrize("N,Kp,Mp,bits,gs", PATH_SHAPES)
+def test_decode_plan_is_static_and_partitions_k(N, Kp, Mp, bits, gs):
+    ksplit, nt = decode_plan(N, Kp, Mp, bits, gs)
+    assert decode_plan(N, Kp, Mp, bits, gs) == (ksplit, nt)
+    Kb, unit, nunits = decode_units(Kp, bits, gs)
+    assert 1 <= ksplit <= min(DECODE_MAX_SPLIT, nunits)
+    assert nt == (1 if N == 1 else 4)
+    assert decode_smem(bits, nt, gs > 0, nunits, unit, ksplit,
+                       Kp // gs if gs else 1) <= DECODE_SMEM_LIMIT
+    if gs:
+        assert Kb % gs == 0 and unit == gs
+    # every cluster size partitions the units exactly, in rank order
+    for k in range(1, DECODE_MAX_SPLIT + 1):
+        spans = decode_spans(nunits, k)
+        assert spans[0][0] == 0 and spans[-1][1] == nunits
+        assert all(a[1] == b[0] for a, b in zip(spans, spans[1:]))
+        assert all(u1 - u0 in (nunits // k, -(-nunits // k)) for u0, u1 in spans)
+        owner = decode_owner(nunits, k)
+        assert [spans[r][0] + lc for r, lc in owner] == list(range(nunits))
+
+
+def _grouped(rng, bits, G, gs=32, M=128):
+    K = G * gs
+    wq = rng.integers(0, 1 << bits, (K, M)).astype(np.uint8)
+    sc = ((0.5 + rng.random((G, M))) * 0.05).astype(np.float32)
+    sub = sc * rng.integers(0, 1 << bits, (G, M)).astype(np.float32)
+    return QuantizedTensor.from_quantized(wq, sc, sub, bits, gs,
+                                          scale_dtype=torch.bfloat16, device="cpu")
+
+
+@pytest.mark.parametrize("bits", [2, 4])
+@pytest.mark.parametrize("ksplit", range(1, DECODE_MAX_SPLIT + 1))
+def test_split_fold_equals_fold_plain(ksplit, bits):
+    """The on-chip fold: each block's per-group partials of its chunks,
+    folded in group order through the owner map, give fold_plain's bytes,
+    for every G from 2 to 88 the packing admits (chunks split unevenly
+    and, past the chunk count, blocks left empty)."""
+    rng = np.random.default_rng(100 * bits + ksplit)
+    P = 8 // bits
+    for G in range(P, 89, P):
+        qt = _grouped(rng, bits, G)
+        N = 2
+        codes = torch.from_numpy(rng.integers(-127, 128, (N, qt.kdim_padded)).astype(np.int8))
+        xs = torch.from_numpy((rng.random((N, G)) * 0.02 + 1e-3).astype(np.float32))
+        xsum = torch.from_numpy(rng.standard_normal((N, G)).astype(np.float32))
+        res = torch.from_numpy(rng.standard_normal((N, 128)).astype(np.float32)).to(torch.bfloat16)
+        blocks = block_partials_plain(codes, qt, ksplit)
+        want_parts = group_dots_plain(codes, qt)
+        _, _, nchunks = decode_units(qt.kdim_padded, bits, qt.group_size)
+        for g, (rank, lc) in enumerate(decode_owner(nchunks, ksplit) * P):
+            assert torch.equal(blocks[rank][lc, g // nchunks], want_parts[g]), (G, g)
+        got = fold_split_plain(blocks, xs, xsum, qt, ksplit, res)
+        want = fold_plain(want_parts, xs, xsum, qt, res)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32)), G
+
+
+@pytest.mark.parametrize("bits", [2, 4])
+def test_split_fold_matches_pallas(bits):
+    """22 chunks (Llama-2-7B's down at bits 2 has 22) split over a
+    cluster of 8 and folded on chip, emulated, against the JAX package's
+    fused grouped Pallas qgemm (interpret mode) on the same weights and
+    activations: bit for bit with the plain version, and within f32
+    rounding of the reference (whose compiled fold is the plain version's
+    order at a few groups, test_torch_qgemm_grouped.py, but not bit for bit
+    at 88)."""
+    rng = np.random.default_rng(bits)
+    gs, M, N = 32, 128, 1
+    G = 22 * (8 // bits)
+    K = G * gs
+    wq = rng.integers(0, 1 << bits, (K, M)).astype(np.uint8)
+    sc = ((0.5 + rng.random((G, M))) * 0.05).astype(np.float32)
+    sub = sc * rng.integers(0, 1 << bits, (G, M)).astype(np.float32)
+    qt = QuantizedTensor.from_quantized(wq, sc, sub, bits, gs,
+                                        scale_dtype=torch.bfloat16, device="cpu")
+    jqt = JQT.from_quantized(wq, sc, sub, bits, gs, scale_dtype=jnp.bfloat16)
+    assert decode_units(qt.kdim_padded, bits, gs)[2] == 22
+    x = rng.standard_normal((N, K)).astype(np.float32)
+    codes, xs, xsum = act_quant_grouped_plain(torch.from_numpy(x).to(torch.bfloat16), qt)
+    got = fold_split_plain(block_partials_plain(codes, qt, 8), xs, xsum, qt, 8)
+    want = np.asarray(jax.jit(lambda a, q: qgemm_pallas(
+        a, q, out_dtype=jnp.float32, interpret=True, act="fused"))(
+            jnp.asarray(x, jnp.bfloat16), jqt))
+    assert torch.equal(got, qgemm_grouped_plain(torch.from_numpy(x).to(torch.bfloat16), qt))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-6 * np.abs(want).max())
+
+
+def _ternary(rng, bits, K, M):
+    if bits == 8:
+        w = (rng.standard_normal((K, M)) * 0.02).astype(np.float32)
+        return QuantizedTensor.from_float(w, 8, K, device="cpu")
+    wq = rng.integers(1, 4, (K, M)).astype(np.uint8)
+    s = np.full((1, M), 1.0 / np.sqrt(K), np.float32)
+    return QuantizedTensor.from_quantized(wq, s, 2 * s, 2, K, device="cpu")
+
+
+@pytest.mark.parametrize("bits", [2, 8])
+@pytest.mark.parametrize("ksplit", range(1, DECODE_MAX_SPLIT + 1))
+def test_k1_split_sums_equal_int_dot(ksplit, bits):
+    """K1's int32 sums as the decode matmul splits them (units of 32
+    packed rows over the cluster, each field masked in place and shifted
+    back, the blocks' sums added in rank order) equal int_dot_plain; K =
+    1200 gives 75 (bits 2) or 1200 (bits 8) packed rows, split unevenly
+    with a ragged last unit."""
+    rng = np.random.default_rng(ksplit + bits)
+    qt = _ternary(rng, bits, 1200, 256)
+    x = torch.from_numpy(rng.standard_normal((3, 1200)).astype(np.float32))
+    codes, _, _ = act_quant_plain(x, qt)
+    assert torch.equal(int_dot_split_plain(codes, qt, ksplit), int_dot_plain(codes, qt))
+
+
+def _transpose4(a, b, c, d):
+    """tmac::transpose4 on four uint32 words: word i holds byte i of each."""
+    ws = (a, b, c, d)
+    return [sum(((int(w) >> (8 * i)) & 0xFF) << (8 * k) for k, w in enumerate(ws))
+            for i in range(4)]
+
+
+def _dp4a(a, b, c, a_unsigned):
+    """dp4a of the 4 bytes of a (unsigned or signed) and b (signed), plus c."""
+    def byte(w, i, signed):
+        v = (int(w) >> (8 * i)) & 0xFF
+        return v - 256 if signed and v >= 128 else v
+    return c + sum(byte(a, i, not a_unsigned) * byte(b, i, True) for i in range(4))
+
+
+@pytest.mark.parametrize("bits,gs", [(2, 0), (8, 0), (2, 32), (4, 32)])
+def test_lane_reads_feed_the_matmul(bits, gs):
+    """A model of decode_matmul's main loop for one block (ksplit 1, one
+    128-column strip): stage t's packed rows land swizzled in the ring
+    (16-byte chunk q of stage row i at chunk q ^ (i / 4) % 8); lane (rg, cw)
+    of warp w reads 4 rows x 4 columns there, transposes them, masks field
+    j in place and meets the natural-order code word of k = j * Kb + row;
+    the shifted sums, added over the row groups, equal the plain dot per
+    group (K4) or in all (K1).  Also: the ring's reads hit each stored
+    byte exactly once."""
+    rng = np.random.default_rng(bits + gs)
+    K, M = 256, 128
+    if gs:
+        qt = _grouped(rng, bits, K // gs, gs, M)
+        codes = torch.from_numpy(rng.integers(-127, 128, (1, K)).astype(np.int8))
+        want = group_dots_plain(codes, qt)[:, 0].numpy()
+    else:
+        qt = _ternary(rng, bits, K, M)
+        codes, _, _ = act_quant_plain(torch.from_numpy(
+            rng.standard_normal((1, K)).astype(np.float32)), qt)
+        want = int_dot_plain(codes, qt)[0].numpy()[None]
+    P = 1 if bits == 8 else 8 // bits
+    Kb, unit, nunits = decode_units(K, bits, gs)
+    pk = qt.packed.numpy()
+    cw32 = codes.numpy().view(np.uint8)[0]
+    mask = (1 << bits) - 1 if bits < 8 else 0xFF
+    got = np.zeros_like(want, dtype=np.int64)
+    seen = np.zeros((Kb, M), np.int64)
+    for t in range(-(-Kb // 32)):
+        ring = np.zeros(32 * 128, np.uint8)
+        for tid in range(256):            # one 16-byte copy a thread
+            i, q = tid >> 3, tid & 7
+            if t * 32 + i < Kb:
+                ring[i * 128 + ((q ^ (i >> 2)) & 7) * 16:][:16] = pk[t * 32 + i, q * 16:q * 16 + 16]
+        for warp in range(8):
+            for lane in range(32):
+                rg, cw = lane >> 2, lane & 3
+                base = 4 * rg * 128 + ((warp ^ rg) & 7) * 16 + 4 * cw
+                words = [int.from_bytes(ring[base + r * 128:base + r * 128 + 4].tobytes(), "little")
+                         for r in range(4)]
+                col = _transpose4(*words)
+                row = t * 32 + 4 * rg
+                if row >= Kb:
+                    continue
+                for r in range(4):
+                    seen[row + r, 16 * warp + 4 * cw:16 * warp + 4 * cw + 4] += 1
+                for j in range(P):
+                    k = j * Kb + row
+                    xv = int.from_bytes(cw32[k:k + 4].tobytes(), "little")
+                    g = k // gs if gs else 0
+                    for c in range(4):
+                        m = 16 * warp + 4 * cw + c
+                        a = col[c] & ((mask << (bits * j)) * 0x01010101) if bits < 8 else col[c]
+                        s = _dp4a(a, xv, 0, bits < 8)
+                        got[g, m] += s >> (bits * j) if bits < 8 else s
+    assert (seen == 1).all()
+    np.testing.assert_array_equal(got, want)

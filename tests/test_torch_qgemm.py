@@ -134,8 +134,10 @@ def test_plain_k1_matches_pallas_fused(bits, N, K, Ms, norm, glu, residual):
 
 @pytest.mark.parametrize("bits", [2, 8])
 def test_dp4a_grouping_feeds_the_matmul(bits):
-    """Emulates K1's matmul on the prologue's code grouping: word q of a
-    row holds the 4 codes that meet the 4 weights of packed word q."""
+    """Emulates K3's matmul on the prologue's dp4a code grouping (K1's
+    decode matmul reads natural order, test_torch_decode_matmul.py): word
+    q of a row holds the 4 codes that meet the 4 weights of packed word
+    q."""
     rng = np.random.default_rng(bits)
     qt, _ = _pair(rng, bits, 256, (128,))
     x = torch.from_numpy(rng.standard_normal((3, 256)).astype(np.float32))

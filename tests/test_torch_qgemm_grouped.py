@@ -214,10 +214,10 @@ def test_plain_k4_matches_dequant_oracle(bits):
 
 @pytest.mark.parametrize("bits", [2, 4])
 def test_packed_field_walk_feeds_the_group_dots(bits):
-    """Emulates csrc/qgemm_grouped.cu's group-dot kernel: a chunk of gs
-    packed rows holds, in field j, the gs consecutive k of group
-    j * nchunks + c, so 4 packed rows meet one 32-bit word of natural-order
-    codes in each dp4a."""
+    """Emulates the packed-field walk of K4's decode matmul
+    (csrc/decode_matmul.cuh): a chunk of gs packed rows holds, in field j,
+    the gs consecutive k of group j * nchunks + c, so 4 packed rows meet
+    one 32-bit word of natural-order codes in each dp4a."""
     rng = np.random.default_rng(bits)
     qt, _ = _pair(rng, bits, 1024, (128,))
     x = torch.from_numpy(rng.standard_normal((3, 1024)).astype(np.float32))

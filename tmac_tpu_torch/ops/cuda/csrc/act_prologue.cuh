@@ -2,7 +2,9 @@
 // K1 (qgemm_fused.cu), K3 and K5 (qgemm_large.cu), K4 (qgemm_grouped.cu), K7
 // (qgemm_expert.cu) and K10 (block_kernel.cu); the block reductions, the
 // unpack of packed words into per-column words and the per-group
-// quantization, byte transpose and f32 fold of K4 and K7.
+// quantization, byte transpose and f32 fold of K4 and K7; the row staged
+// once in shared memory (stage_row, sum_staged, norm_row) for K1's and
+// K4's prologues; programmatic dependent launch (pdl_trigger, pdl_wait).
 //
 // A row sum is added in the order that the JAX package's reference compiles
 // to: XLA's CPU backend rewrites a row reduction longer than 32 into windows
@@ -24,16 +26,139 @@ constexpr int kSumWindow = 32;
 // The prologue's value at column k of row xr, before rms_norm: x, or
 // silu(g) * u with the gate half in columns [0, K) and the up half in
 // [K, 2K); zero past the logical K.
+// silu(g) * u, each step rounded on its own (IEEE exp and division)
+__device__ __forceinline__ float silu_mul(float g, float u) {
+  return __fmul_rn(__fmul_rn(g, 1.0f / (1.0f + expf(-g))), u);
+}
+
 __device__ __forceinline__ float glu_value(const __nv_bfloat16* xr, int k,
                                            int K, int glu) {
   if (k >= K) return 0.f;
   float v = __bfloat162float(xr[k]);
-  if (glu) {
-    const float u = __bfloat162float(xr[K + k]);
-    v = __fmul_rn(__fmul_rn(v, 1.0f / (1.0f + expf(-v))), u);
-  }
+  if (glu) v = silu_mul(v, __bfloat162float(xr[K + k]));
   return v;
 }
+
+// Programmatic dependent launch (sm_90): a prologue lets the kernel
+// launched after it with the programmatic-serialization attribute start
+// now; that kernel waits for the prologue's writes with pdl_wait().
+__device__ __forceinline__ void pdl_trigger() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void pdl_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+
+// Whether stage_row and norm_row may read rows of x (N, x_cols) and the
+// norm weight with 16-byte loads
+inline int row_loads_vec(const void* x, int x_cols, int K, const void* norm_w) {
+  return reinterpret_cast<uintptr_t>(x) % 16 == 0 && x_cols % 8 == 0 && K % 8 == 0 &&
+         reinterpret_cast<uintptr_t>(norm_w) % 16 == 0;
+}
+
+// 16-byte pieces of a row a thread of a 512-thread prologue block loads at
+// once (K <= 16384)
+constexpr int kRowLoads = 4;
+
+// The staged row's layout in shared memory: value k at staged(k), one
+// float of padding after every 32, so that the threads of a warp, each
+// summing its own window of 32 (sum_staged), read 32 distinct banks.
+__device__ __forceinline__ int staged(int k) { return k + (k >> 5); }
+
+// Floats of shared memory a staged row of n values takes
+__host__ __device__ constexpr int staged_floats(int n) { return n + (n + 31) / 32; }
+
+// The prologue's values of row xr before rms_norm, glu_value(xr, k) for k
+// < Kp, into shared memory at vals[staged(k)], each x element read once:
+// 16-byte loads when vec (x's row and K a multiple of 8 elements, the row
+// 16-byte aligned), else one element a load.  The whole block calls it;
+// vals is complete on return.
+__device__ void stage_row(const __nv_bfloat16* xr, int K, int Kp, int glu,
+                          int vec, float* vals) {
+  if (vec) {
+    // every load first, then the values: one round trip to memory
+    const uint4* g4 = reinterpret_cast<const uint4*>(xr);
+    const uint4* u4 = reinterpret_cast<const uint4*>(xr + K);
+    uint4 gw[kRowLoads], uw[kRowLoads];
+#pragma unroll
+    for (int r = 0; r < kRowLoads; ++r) {
+      const int i = threadIdx.x + r * blockDim.x;
+      if (i < K / 8) {
+        gw[r] = g4[i];
+        if (glu) uw[r] = u4[i];
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < kRowLoads; ++r) {
+      const int i = threadIdx.x + r * blockDim.x;
+      if (i >= K / 8) continue;
+      const __nv_bfloat16* g = reinterpret_cast<const __nv_bfloat16*>(&gw[r]);
+      const __nv_bfloat16* u = reinterpret_cast<const __nv_bfloat16*>(&uw[r]);
+      float* d = vals + staged(8 * i);  // 8 | 32: the 8 values are contiguous
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        d[e] = glu ? silu_mul(__bfloat162float(g[e]), __bfloat162float(u[e]))
+                   : __bfloat162float(g[e]);
+    }
+    for (int k = K + threadIdx.x; k < Kp; k += blockDim.x) vals[staged(k)] = 0.f;
+  } else {
+    for (int k = threadIdx.x; k < Kp; k += blockDim.x)
+      vals[staged(k)] = glu_value(xr, k, K, glu);
+  }
+  __syncthreads();
+}
+
+// The sum of src[staged(i)] (squared first when `square`) over i < n in
+// XLA's CPU order (kSumWindow above), each addition rounded on its own;
+// every thread gets it.  The whole block calls it, with at least
+// ceil(n / 32) threads; `scratch` holds staged_floats(ceil(n / 32)) floats
+// and is free again on return.  Values past either end of a window add
+// +0, which leaves a sum of non-negative values unchanged, bit for bit.
+__device__ float sum_staged(const float* src, int n, bool square, float* scratch) {
+  const int w = threadIdx.x;
+  while (n > kSumWindow) {
+    const int nwin = (n + kSumWindow - 1) / kSumWindow;
+    const int padl = (nwin * kSumWindow - n) / 2;
+    float s = 0.f;
+    if (w < nwin) {
+      float v[kSumWindow];
+#pragma unroll
+      for (int j = 0; j < kSumWindow; ++j) {
+        const int i = w * kSumWindow + j - padl;
+        const float x = (i >= 0 && i < n) ? src[staged(i)] : 0.f;
+        v[j] = square ? __fmul_rn(x, x) : x;
+      }
+#pragma unroll
+      for (int j = 0; j < kSumWindow; ++j) s = __fadd_rn(s, v[j]);
+    }
+    __syncthreads();
+    if (w < nwin) scratch[staged(w)] = s;
+    __syncthreads();
+    src = scratch;
+    square = false;
+    n = nwin;
+  }
+  float v[kSumWindow];
+#pragma unroll
+  for (int i = 0; i < kSumWindow; ++i) {
+    const float x = i < n ? src[staged(i)] : 0.f;
+    v[i] = square ? __fmul_rn(x, x) : x;
+  }
+  float total = 0.f;
+#pragma unroll
+  for (int i = 0; i < kSumWindow; ++i) total = __fadd_rn(total, v[i]);
+  __syncthreads();  // scratch is free again
+  return total;
+}
+
+// rms_norm of the staged row in place (k < K; zeros past K stay zero):
+// the sum of squares in XLA's order, then (v * rs) * w[k], each step rounded
+// on its own, as prologue_value computes it.  Whole block; `scratch` as
+// sum_staged's; vals is complete on return.
+__device__ void norm_row(float* vals, int K, int Kp,
+                         const __nv_bfloat16* norm_w, float eps,
+                         float inv_norm_k, int vec, float* scratch);
 
 // One level of the window tree: the sum of window w of n values (read by
 // `get`), the level padded by `padl` zeros on the left.
@@ -133,6 +258,22 @@ __device__ T block_reduce(T v, Op op, T* red) {
   return r;
 }
 
+// The same for an operation whose result does not depend on the order
+// (an integer sum, a maximum), in two warp butterflies: each warp combines
+// the warps' values (`identity` past the last warp) itself.  `red` holds
+// 32 values.
+template <typename T, typename Op>
+__device__ T block_allreduce(T v, Op op, T identity, T* red) {
+  for (int o = 16; o > 0; o >>= 1) v = op(v, __shfl_xor_sync(0xffffffffu, v, o));
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (lane == 0) red[warp] = v;
+  __syncthreads();
+  v = lane < (int)(blockDim.x >> 5) ? red[lane] : identity;
+  for (int o = 16; o > 0; o >>= 1) v = op(v, __shfl_xor_sync(0xffffffffu, v, o));
+  __syncthreads();
+  return v;
+}
+
 // One warp quantizes one group of gs values, get(k) for k in [k0, k0 + gs)
 // (K4 and K7): absmax, then, as XLA compiles the reference's
 // `max(amax, 1e-20) / 127.0`, the scale times the f32 reciprocal of 127;
@@ -219,5 +360,42 @@ struct GroupFold {
   }
   __device__ __forceinline__ float result() const { return __fsub_rn(acc, z); }
 };
+
+__device__ void norm_row(float* vals, int K, int Kp,
+                         const __nv_bfloat16* norm_w, float eps,
+                         float inv_norm_k, int vec, float* scratch) {
+  // the weight's loads are issued before the row sum, which hides them
+  uint4 wv[kRowLoads];
+  if (vec) {
+#pragma unroll
+    for (int r = 0; r < kRowLoads; ++r) {
+      const int i = threadIdx.x + r * blockDim.x;
+      if (i < K / 8) wv[r] = reinterpret_cast<const uint4*>(norm_w)[i];
+    }
+  }
+  const float rs = rms_factor(sum_staged(vals, Kp, true, scratch), inv_norm_k, eps);
+  if (vec) {
+#pragma unroll
+    for (int r = 0; r < kRowLoads; ++r) {
+      const int i = threadIdx.x + r * blockDim.x;
+      if (i >= K / 8) continue;
+      const __nv_bfloat16* w = reinterpret_cast<const __nv_bfloat16*>(&wv[r]);
+      float* d = vals + staged(8 * i);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) d[e] = __fmul_rn(__fmul_rn(d[e], rs), __bfloat162float(w[e]));
+    }
+  } else {
+    for (int k = threadIdx.x; k < K; k += blockDim.x)
+      vals[staged(k)] = __fmul_rn(__fmul_rn(vals[staged(k)], rs), __bfloat162float(norm_w[k]));
+  }
+  __syncthreads();
+}
+
+// dp4a of unsigned bytes a with signed bytes b, added to c
+__device__ __forceinline__ int dp4a_us(uint32_t a, int b, int c) {
+  int d;
+  asm("dp4a.u32.s32 %0, %1, %2, %3;" : "=r"(d) : "r"(a), "r"(b), "r"(c));
+  return d;
+}
 
 }  // namespace tmac

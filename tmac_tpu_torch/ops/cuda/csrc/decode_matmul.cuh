@@ -1,0 +1,499 @@
+// The decode-time matmul of K1 (qgemm_fused.cu, per-tensor scales) and K4
+// (qgemm_grouped.cu, grouped scales): N < 64 rows of int8 activation codes
+// from the prologue against packed low-bit weights, for Hopper.
+//
+// What bounds it: at decode each packed weight byte feeds 4 (bits 2), 2
+// (bits 4) or 1 (bits 8) multiply-adds a row, far below the card's
+// operations-per-byte balance, so device-memory bytes bound it; a call
+// moves 0.8-25 MB, a few microseconds at 3.35 TB/s, so the call's fixed
+// costs (launches, the prologue, barriers) matter as much.  The design:
+//
+// - One launch after the prologue, with programmatic dependent launch: the
+//   prologue lets this kernel start at once (pdl_trigger), and each block
+//   first issues the copies of its packed weights (and, for K4, of the
+//   group scales and zero points its fold reads) into a ring of kStages
+//   stages in shared memory, and only then waits for the prologue's codes
+//   (pdl_wait).  So up to kStages - 1 stages of weights a block are in
+//   flight while the prologue runs.
+// - A block takes a 128-column strip and a range of the packed rows: the
+//   grid is (strips * ksplit, row tiles of NT token rows), with clusters of
+//   ksplit blocks along the packed rows (K).  The rows are split in units
+//   (K4: a chunk of gs packed rows, whose field j holds group
+//   j * nchunks + c; K1: 32 rows), block `rank` of a cluster taking units
+//   [rank * nunits / ksplit, (rank + 1) * nunits / ksplit).  The host picks
+//   ksplit and NT from shapes only (decode_plan), so a CUDA graph can
+//   capture the call.
+// - The ring: stage t is 32 packed rows of the strip (4 KB), one 16-byte
+//   cp.async a thread, its 16-byte chunks XOR-swizzled by row group.  Warp
+//   w takes columns 16w .. 16w+15 of every row, so warps never add into the
+//   same sums; lane (rg, cw) rows 4rg .. 4rg+3 of the stage and columns
+//   16w + 4cw .. +3: one 32-bit word of each of the 4 rows, turned into
+//   per-column words (tmac::transpose4: byte i of word c is column c of row
+//   i), then field j masked in place: 4 consecutive k of field j, k = j * Kb
+//   + row, which meet one 32-bit word of natural-order codes in a dp4a
+//   (unsigned weight bytes, signed codes; the field's factor 2^(bits * j)
+//   is shifted out, exactly, when the sum is flushed).  That is 4 shared
+//   loads, 6 byte permutes, P masks and P dp4a per 16 bytes and token row.
+// - The partials: the 8 row groups of a warp add their sums with shuffles
+//   (integers: any order is exact) into the block's int32 partials in
+//   shared memory, K1 per (row, column) at the end, K4 per (chunk, field,
+//   row, column) after each chunk: no shared-memory atomics (measured on
+//   an H100, atomics from the 8 warps into the same sums took up to half
+//   of the kernel's time).  Block `rank` finishes a slice of the strip's
+//   columns.  After cluster.sync() every block stores its partials into the
+//   (then idle) ring of the block that finishes their columns, through
+//   distributed shared memory (stores, which nothing waits on), and after a
+//   second cluster.sync() each block works from its own shared memory only:
+//   K1 adds the ksplit partials of an output in rank order and runs the f32
+//   epilogue; K4 folds an output's partials over g = 0 .. G - 1 in order
+//   (tmac::GroupFold, the reference's f32 chain; partial g comes from the
+//   block that owns chunk g % nchunks).  No partial reaches device memory.
+// - The epilogue's operands (K1's scales and zero points before the wait;
+//   xs, xsum and the residual after it) are loaded into registers before
+//   the main loop, so no load waits at the end.
+
+#pragma once
+
+#include <cooperative_groups.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <utility>
+
+#include "act_prologue.cuh"
+
+namespace tmac {
+namespace decode {
+
+namespace cg = cooperative_groups;
+
+constexpr int kThreads = 256;
+constexpr int kStrip = 128;                       // columns of a block
+constexpr int kStageRows = 32;                    // packed rows of a stage
+constexpr int kStageBytes = kStageRows * kStrip;  // one 16-byte copy a thread
+constexpr int kStages = 8;
+constexpr int kRingBytes = kStages * kStageBytes;
+constexpr int kMaxSplit = 8;                      // portable cluster size
+constexpr int kSliceUnits = kStrip / 8;           // the fold's slices: 8 columns
+constexpr int kXStride = 20;  // ints a lane in K4's exchange buffer (P * 4 <= 16)
+constexpr int kXBytes = (kThreads / 32) * 32 * kXStride * 4;
+
+struct Args {
+  const int8_t* codes;   // (N, Kp), natural k order
+  const float* xs;       // (N,) or (N, G)
+  const float* xsum;
+  const uint8_t* packed; // (Kb, Mp)
+  const void* scales;    // (1, Mp) f32 or (G, Mp) bf16
+  const void* sub;
+  const __nv_bfloat16* residual;  // (N, Mp) or null
+  float* out;            // (N, Mp)
+  int N, Kp, Kb, Mp, G, nunits, unit_rows;
+};
+
+__host__ __device__ inline int align16(int b) { return (b + 15) / 16 * 16; }
+
+// Shared memory of a block (the host sizes the launch with the same
+// numbers, qgemm_kernel.decode_smem): the ring, which after the main loop
+// receives the partials of the block's slice of columns from the cluster
+// (K4: group, row, column; K1: rank, row, column), the codes of the block's
+// rows, its own int32 partials, and for the grouped fold the slice's scales
+// and zero points (bf16) and the tile's xs and xsum.
+struct Layout {
+  int span, units, slice, codes, parts, fsc, fxs, xbuf, total;
+  __host__ __device__ Layout(int P, int NT, bool grouped, int nunits,
+                             int unit_rows, int ksplit, int G) {
+    units = (nunits + ksplit - 1) / ksplit;
+    span = (units * unit_rows + kStageRows - 1) / kStageRows * kStageRows;
+    slice = (kSliceUnits + ksplit - 1) / ksplit * 8;
+    const int recv = (grouped ? G : ksplit) * NT * slice * 4;
+    codes = align16(recv > kRingBytes ? recv : kRingBytes);
+    parts = codes + align16(NT * P * span);
+    fsc = parts + (grouped ? units * P : 1) * NT * kStrip * 4;
+    fxs = fsc + (grouped ? align16(2 * G * slice * 2) : 0);
+    xbuf = align16(fxs + (grouped ? 2 * NT * G * 4 : 0));
+    total = xbuf + (grouped ? kXBytes : 0);
+  }
+};
+
+// The block of a cluster of ksplit whose slice of the strip's columns
+// holds column m, and where that slice starts
+__device__ __forceinline__ int slice_owner(int m, int ksplit) {
+  return ((m / 8 + 1) * ksplit - 1) / kSliceUnits;
+}
+__device__ __forceinline__ int slice_start(int rank, int ksplit) {
+  return rank * kSliceUnits / ksplit * 8;
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool full) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(full ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// The thread's sums into partial block `blk` of part_s (K4: chunk, field,
+// row, column; K1: row, column), then cleared.  The 8 row groups of a warp
+// hold sums of the same columns: K4 adds them through a per-warp exchange
+// buffer in shared memory (a third of the instructions of a shuffle
+// reduce-scatter, measured twice as fast on an H100); K1, which flushes
+// once, adds its fields first, then all-reduces its NT * 4 sums with
+// shuffles and lets row group 0 store them.  Integer sums: any order is
+// exact.  (A function, not a lambda: acc must stay in registers.)
+template <int BITS, int NT, int P, bool GROUPED>
+__device__ __forceinline__ void flush(int (&acc)[NT][P][4], int* part_s, int* xbuf, int blk,
+                                      int rg, int cw, int lane, int col0, int nrows) {
+  if (GROUPED) {
+    // per token row n: each lane's P * 4 sums into the warp's exchange
+    // buffer (kXStride ints a lane: conflict-free 16-byte stores), then lane
+    // (rg, cw) adds values e = rg * P/2 .. +P/2 (e = j * 4 + c) over the 8
+    // lanes of column word cw and stores them
+    constexpr int E = P * 4, H = E >= 8 ? E / 8 : 1;  // (K1, P = 1, never here)
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      if (n >= nrows) break;
+#pragma unroll
+      for (int q = 0; q < E / 4; ++q)
+        *reinterpret_cast<int4*>(xbuf + lane * kXStride + 4 * q) =
+            make_int4(acc[n][q][0], acc[n][q][1], acc[n][q][2], acc[n][q][3]);
+      __syncwarp();
+      int sum[H];
+#pragma unroll
+      for (int i = 0; i < H; ++i) sum[i] = 0;
+#pragma unroll
+      for (int src = 0; src < 8; ++src)
+#pragma unroll
+        for (int i = 0; i < H; ++i) sum[i] += xbuf[(src * 4 + cw) * kXStride + rg * H + i];
+#pragma unroll
+      for (int i = 0; i < H; ++i) {
+        const int e = rg * H + i, j = e / 4, c = e % 4;
+        part_s[((blk * P + j) * NT + n) * kStrip + col0 + c] = sum[i] >> (BITS * j);
+      }
+      __syncwarp();
+    }
+  } else {
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        int s = 0;
+#pragma unroll
+        for (int j = 0; j < P; ++j) s += acc[n][j][c] >> (BITS == 8 ? 0 : BITS * j);
+#pragma unroll
+        for (int o = 16; o >= 4; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+        if (rg == 0 && n < nrows) part_s[n * kStrip + col0 + c] = s;
+      }
+  }
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int j = 0; j < P; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[n][j][c] = 0;
+}
+
+// The kernel body.  BITS 2 or 4 (fields of unsigned codes) or 8 (signed
+// codes, one a byte); NT token rows a block; GROUPED: K4 (per-group
+// partials and the fold) or K1 (one int32 sum and its epilogue).
+template <int BITS, int NT, bool GROUPED>
+__device__ __forceinline__ void decode_matmul(const Args& a) {
+  constexpr int P = BITS == 8 ? 1 : 8 / BITS;
+  constexpr uint32_t kField = BITS == 2 ? 0x03030303u : 0x0F0F0F0Fu;
+  extern __shared__ __align__(16) uint8_t smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int ksplit = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  // warp w: columns 16w .. 16w+15 of the strip (16-byte chunk w of every
+  // row); lane: row group rg (rows 4rg .. 4rg+3 of a stage) and column
+  // word cw (columns 16w + 4cw .. +3)
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int rg = lane >> 2, cw = lane & 3;
+  const int col0 = 16 * warp + 4 * cw;
+  const int m0 = (blockIdx.x / ksplit) * kStrip;
+  const int n0 = blockIdx.y * NT;
+  const int nrows = min(NT, a.N - n0);
+  const int u0 = rank * a.nunits / ksplit, u1 = (rank + 1) * a.nunits / ksplit;
+  const int r0 = u0 * a.unit_rows, r1 = min(u1 * a.unit_rows, a.Kb);
+  const int nst = (r1 - r0 + kStageRows - 1) / kStageRows;
+  const Layout L(P, NT, GROUPED, a.nunits, a.unit_rows, ksplit, a.G);
+  const int s0 = slice_start(rank, ksplit), s1 = slice_start(rank + 1, ksplit);
+  const int w = s1 - s0, nout = NT * w;  // the outputs this block finishes
+  int8_t* codes_s = reinterpret_cast<int8_t*>(smem + L.codes);
+  int* part_s = reinterpret_cast<int*>(smem + L.parts);
+  int* xbuf = reinterpret_cast<int*>(smem + L.xbuf) + warp * 32 * kXStride;
+
+  auto load_stage = [&](int t, int slot) {
+    const int r = r0 + t * kStageRows + (tid >> 3), q = tid & 7;
+    const bool ok = r < r1;
+    // 16-byte chunk q of stage row i at chunk q ^ ((i / 4) % 8): the 8 row
+    // groups a warp reads at once fall on distinct banks
+    const int i = tid >> 3;
+    cp_async16(smem + slot * kStageBytes + i * kStrip + ((q ^ (i >> 2)) & 7) * 16,
+               a.packed + (size_t)(ok ? r : r0) * a.Mp + m0 + q * 16, ok);
+  };
+
+  // before the prologue's results exist: the weights (and the fold's
+  // scales and zero points, with stage 0) and the epilogue's weights
+  if (GROUPED) {
+    const int su = w / 8;
+    __nv_bfloat16* fsc = reinterpret_cast<__nv_bfloat16*>(smem + L.fsc);
+    const __nv_bfloat16* sc = static_cast<const __nv_bfloat16*>(a.scales);
+    const __nv_bfloat16* sb = static_cast<const __nv_bfloat16*>(a.sub);
+    for (int i = tid; i < 2 * a.G * su; i += kThreads) {
+      const int which = i / (a.G * su), g = (i / su) % a.G, u = i % su;
+      cp_async16(fsc + ((size_t)which * a.G + g) * L.slice + 8 * u,
+                 (which ? sb : sc) + (size_t)g * a.Mp + m0 + s0 + 8 * u, true);
+    }
+  }
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < nst) load_stage(s, s);
+    cp_async_commit();
+  }
+  // the thread's outputs o = tid + h * kThreads < nout: row o / w, column
+  // s0 + o % w of the strip; their epilogue operands, loaded ahead
+  float e_sc[2] = {0.f, 0.f}, e_sb[2] = {0.f, 0.f}, e_xs[2] = {0.f, 0.f},
+        e_xq[2] = {0.f, 0.f}, e_res[2] = {0.f, 0.f};
+  if (!GROUPED) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int o = tid + h * kThreads;
+      if (o < nout) {
+        e_sc[h] = __ldg(static_cast<const float*>(a.scales) + m0 + s0 + o % w);
+        e_sb[h] = __ldg(static_cast<const float*>(a.sub) + m0 + s0 + o % w);
+      }
+    }
+  }
+
+  pdl_wait();  // the prologue's codes, xs and xsum are complete
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int o = tid + h * kThreads, n = o / w;
+    if (o < nout && n < nrows) {
+      const size_t row = (size_t)(n0 + n);
+      if (!GROUPED) {
+        e_xs[h] = __ldcg(a.xs + row);
+        e_xq[h] = __ldcg(a.xsum + row);
+      }
+      if (a.residual != nullptr)
+        e_res[h] = __bfloat162float(__ldcg(a.residual + row * a.Mp + m0 + s0 + o % w));
+    }
+  }
+  // the codes of the block's rows, k = j * Kb + r for r in [r0, r0 + span):
+  // codes_s[(n * P + j) * span + r - r0], zero past r1 and past N
+  const int words = L.span / 4;
+#pragma unroll 4
+  for (int i = tid; i < NT * P * words; i += kThreads) {
+    const int nj = i / words, n = nj / P, j = nj % P, r = r0 + 4 * (i % words);
+    int v = 0;
+    if (n < nrows && r < r1)
+      v = __ldcg(reinterpret_cast<const int*>(a.codes + (size_t)(n0 + n) * a.Kp +
+                                              (size_t)j * a.Kb + r));
+    reinterpret_cast<int*>(codes_s)[i] = v;
+  }
+  float* fxs = reinterpret_cast<float*>(smem + L.fxs);
+  if (GROUPED) {
+    for (int i = tid; i < NT * a.G; i += kThreads) {
+      const int n = i / a.G, g = i % a.G;
+      const bool ok = n < nrows;
+      fxs[i] = ok ? __ldcg(a.xs + (size_t)(n0 + n) * a.G + g) : 0.f;
+      fxs[NT * a.G + i] = ok ? __ldcg(a.xsum + (size_t)(n0 + n) * a.G + g) : 0.f;
+    }
+  }
+
+  int acc[NT][P][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int j = 0; j < P; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[n][j][c] = 0;
+
+  // K4: the stages of one chunk, then its flush; K1: every stage, then one
+  // flush.  No flush inside the stage loop: with it there, ptxas wanted
+  // ~180 registers at 4 token rows and spilled at the cap of 128 (measured
+  // on an H100: K4 at N = 4 up to 1.2x slower)
+  const int spu = GROUPED ? a.unit_rows / kStageRows : max(nst, 1);  // gs % 32 == 0
+#pragma unroll 1
+  for (int t0 = 0; t0 < nst; t0 += spu) {
+#pragma unroll 1
+    for (int t = t0; t < min(t0 + spu, nst); ++t) {
+      cp_async_wait<kStages - 2>();
+      __syncthreads();
+      if (t + kStages - 1 < nst) load_stage(t + kStages - 1, (t + kStages - 1) % kStages);
+      cp_async_commit();
+      const uint8_t* st = smem + (t % kStages) * kStageBytes + 4 * rg * kStrip +
+                          ((warp ^ rg) & 7) * 16 + 4 * cw;
+      uint32_t col[4];
+      transpose4(*reinterpret_cast<const uint32_t*>(st),
+                 *reinterpret_cast<const uint32_t*>(st + kStrip),
+                 *reinterpret_cast<const uint32_t*>(st + 2 * kStrip),
+                 *reinterpret_cast<const uint32_t*>(st + 3 * kStrip), col);
+      const int rl = t * kStageRows + 4 * rg;
+#pragma unroll
+      for (int j = 0; j < P; ++j) {
+#pragma unroll
+        for (int n = 0; n < NT; ++n) {
+          const int xv = *reinterpret_cast<const int*>(codes_s + (n * P + j) * L.span + rl);
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            if (BITS == 8)
+              acc[n][j][c] = __dp4a((int)col[c], xv, acc[n][j][c]);
+            else
+              acc[n][j][c] = dp4a_us(col[c] & (kField << (BITS * j)), xv, acc[n][j][c]);
+          }
+        }
+      }
+    }
+    if (GROUPED)
+      flush<BITS, NT, P, true>(acc, part_s, xbuf, t0 / spu, rg, cw, lane, col0, nrows);
+  }
+  if (!GROUPED) flush<BITS, NT, P, false>(acc, part_s, xbuf, 0, rg, cw, lane, col0, nrows);
+  cp_async_wait<0>();
+  __syncthreads();
+  cluster.sync();  // every block's partials are complete and its ring idle
+
+  // each block's partials into the receive area (the ring) of the block
+  // that finishes their columns: plain stores into distributed shared
+  // memory, which nothing waits on until the barrier below
+  int* recv = reinterpret_cast<int*>(smem);
+  if (GROUPED) {
+    const int nchunks = a.nunits;
+    for (int i = tid; i < (u1 - u0) * P * NT * kStrip; i += kThreads) {
+      const int m = i % kStrip, n = (i / kStrip) % NT, lj = i / (kStrip * NT);
+      if (n >= nrows) continue;
+      const int g = (lj % P) * nchunks + u0 + lj / P;
+      const int o = slice_owner(m, ksplit);
+      cluster.map_shared_rank(recv, o)[(g * NT + n) * L.slice + m - slice_start(o, ksplit)] =
+          part_s[i];
+    }
+  } else {
+    for (int i = tid; i < NT * kStrip; i += kThreads) {
+      const int m = i % kStrip, n = i / kStrip;
+      if (n >= nrows) continue;
+      const int o = slice_owner(m, ksplit);
+      cluster.map_shared_rank(recv, o)[(rank * NT + n) * L.slice + m - slice_start(o, ksplit)] =
+          part_s[i];
+    }
+  }
+  cluster.sync();  // every partial has landed; nothing crosses blocks after
+  pdl_trigger();   // a programmatically launched successor may start
+
+  if (!GROUPED) {
+    // K1: the ksplit partials of each output in rank order, then the f32
+    // epilogue as the reference compiles it for N < 64:
+    // fma(acc * scale, xs, -(xsum * sub)) (+ residual)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int o = tid + h * kThreads, n = o / w, mm = o % w;
+      if (o >= nout || n >= nrows) continue;
+      int s = 0;
+      for (int b = 0; b < ksplit; ++b) s += recv[(b * NT + n) * L.slice + mm];
+      const float zero_fold = -__fmul_rn(e_xq[h], e_sb[h]);
+      float v = __fmaf_rn(__fmul_rn((float)s, e_sc[h]), e_xs[h], zero_fold);
+      if (a.residual != nullptr) v = __fadd_rn(v, e_res[h]);
+      a.out[(size_t)(n0 + n) * a.Mp + m0 + s0 + mm] = v;
+    }
+  } else {
+    // K4: the fold of each output over the groups in order (the
+    // reference's f32 chain), from the received partials
+    const __nv_bfloat16* fsc = reinterpret_cast<const __nv_bfloat16*>(smem + L.fsc);
+    const __nv_bfloat16* fsb = fsc + (size_t)a.G * L.slice;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int o = tid + h * kThreads, n = o / w, mm = o % w;
+      if (o >= nout || n >= nrows) continue;
+      GroupFold fold;
+#pragma unroll 4
+      for (int g = 0; g < a.G; ++g)
+        fold.step(g, (float)recv[(g * NT + n) * L.slice + mm], fxs[n * a.G + g],
+                  __bfloat162float(fsc[g * L.slice + mm]), fxs[(NT + n) * a.G + g],
+                  __bfloat162float(fsb[g * L.slice + mm]));
+      float v = fold.result();
+      if (a.residual != nullptr) v = __fadd_rn(v, e_res[h]);
+      a.out[(size_t)(n0 + n) * a.Mp + m0 + s0 + mm] = v;
+    }
+  }
+}
+
+// Launch a prologue kernel with programmatic stream serialization: its
+// blocks may start while the kernel before it finishes, and must call
+// pdl_wait() before they read anything that kernel (or one before it)
+// wrote, and write nothing before.  Nothing falls back.
+template <typename... Params, typename... Args_>
+int launch_programmatic(void (*kernel)(Params...), dim3 grid, dim3 block, int smem,
+                        cudaStream_t stream, Args_&&... args) {
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = block;
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, std::forward<Args_>(args)...);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// Launch `kernel` (one of the decode_matmul instances) on a grid of
+// (Mp / 128) * ksplit x cdiv(N, NT) blocks in clusters of ksplit along x,
+// with programmatic stream serialization (it starts while the prologue
+// before it runs).  A cluster the card cannot place is refused with
+// cudaErrorInvalidConfiguration; nothing falls back.
+template <typename Kernel>
+int launch(Kernel kernel, const Args& a, int ksplit, int NT, int smem,
+           cudaStream_t stream) {
+  // (kernel, ksplit, shared memory) triples already admitted
+  static const void* admitted[64];
+  static int admitted_key[64], n_admitted = 0;
+  const int key = ksplit * 1000000 + smem;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute attr[2];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = ksplit;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  attr[1].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[1].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((a.Mp / kStrip) * ksplit, (a.N + NT - 1) / NT);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  bool known = false;
+  for (int i = 0; i < n_admitted; ++i)
+    known |= admitted[i] == (const void*)kernel && admitted_key[i] == key;
+  if (!known) {
+    int clusters = 0;
+    err = cudaOccupancyMaxActiveClusters(&clusters, (const void*)kernel, &cfg);
+    if (err != cudaSuccess) return (int)err;
+    if (clusters < 1) return (int)cudaErrorInvalidConfiguration;
+    if (n_admitted < 64) {
+      admitted[n_admitted] = (const void*)kernel;
+      admitted_key[n_admitted++] = key;
+    }
+  }
+  cfg.numAttrs = 2;
+  err = cudaLaunchKernelEx(&cfg, kernel, a);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+}  // namespace decode
+}  // namespace tmac

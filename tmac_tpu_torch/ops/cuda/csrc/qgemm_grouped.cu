@@ -25,27 +25,25 @@
 //
 // What bounds it: at decode (N = 1) each packed weight byte feeds 4
 // (bits 2) or 2 (bits 4) multiply-adds, far below the card's
-// operations-per-byte balance, so device-memory bytes bound it.  The work
-// is split in three kernels:
+// operations-per-byte balance, so device-memory bytes bound it, and at a
+// few microseconds a call its fixed costs as much.  Two launches a call:
 //   1. the prologue, one block per row (blocks share nothing, so the TPU
-//      kernel's step-0 scratch becomes a kernel of its own): codes in
-//      natural k order, xs (N, G) and xsum (N, G);
-//   2. the per-group integer dots, written as int32 partials (G, N, Mp).
-//      Integer sums are exact in any order, so this kernel is free to
-//      split the work for the memory system: a block takes a 128-column
-//      strip, one chunk of gs packed rows and up to kRowsMany tokens; a
-//      thread loads the 4 adjacent columns of a packed row as one 32-bit
-//      word, 4 rows at a time, turns them into per-column words with byte
-//      permutes and masks out field j, whose 4 bytes are 4 consecutive k
-//      of one group (field j of packed row r holds k = r + j * Kp / p, and
-//      Kp / p is a multiple of gs), so one dp4a meets 4 consecutive codes;
-//      the 8 warps of a block add their partials in shared memory with
-//      integer atomics;
-//   3. the f32 fold above, one thread per output, in group order, the
-//      loads of 16 groups issued ahead of the chain.
-// The partials cost 8 bytes per output and group of extra traffic (about
-// a fifth of the packed bytes at decode, most of it in L2).
-//
+//      kernel's step-0 scratch becomes a kernel of its own): the row read
+//      once, with 16-byte loads, into shared memory (silu(g) * u computed
+//      once an element), the rms_norm sum from there, then one warp per
+//      group: codes in natural k order, xs (N, G) and xsum (N, G).  It is
+//      launched programmatically (its launch overlaps the kernel before
+//      it, on whose completion it waits first), and then lets the matmul
+//      start (programmatic dependent launch);
+//   2. the matmul (decode_matmul.cuh, k4_decode_kernel): it streams its
+//      packed weights and its fold's scales and zero points into shared
+//      memory while the prologue runs, splits K over a thread-block
+//      cluster by chunks of gs packed rows (field j of chunk c holds the gs
+//      consecutive k of group j * nchunks + c; Kp / p is a multiple of gs),
+//      keeps each block's per-group int32 partials in its shared memory,
+//      and folds them in group order through distributed shared memory.
+//      Nothing of the partials reaches device memory.
+
 // K4L, the same function from 64 rows of x (a prefill chunk below
 // 3 * group_size rows), is bound by operations, not bytes: at 256 rows each
 // packed byte feeds 256 * 4 multiply-adds (bits 2), above the card's ~590
@@ -100,157 +98,56 @@
 #include <stdint.h>
 
 #include "act_prologue.cuh"
+#include "decode_matmul.cuh"
 
 namespace {
 
 constexpr int kQuantThreads = 512;
-constexpr int kWarps = 8;
-constexpr int kStrip = 128;     // output columns of a matmul block
-constexpr int kRowsMany = 4;    // token rows of a matmul block when N > 1
-constexpr int kFoldThreads = 32;   // the fold is a per-thread chain: small blocks spread it
-constexpr int kFoldAhead = 16;   // groups whose loads the fold issues together
-constexpr int kMaxGroups = 512;  // the fold keeps a row's xs and xsum in shared memory
 
 __global__ void __launch_bounds__(kQuantThreads) act_quant_grouped_kernel(
     const __nv_bfloat16* __restrict__ x, int x_cols, int K, int Kp, int gs,
     int glu, const __nv_bfloat16* __restrict__ norm_w, float eps,
-    float inv_norm_k, int8_t* __restrict__ codes, float* __restrict__ xs,
-    float* __restrict__ xsum) {
-  __shared__ float scratch[kQuantThreads];
+    float inv_norm_k, int vec, int8_t* __restrict__ codes,
+    float* __restrict__ xs, float* __restrict__ xsum) {
+  // launched programmatically: wait for the kernels before, then let the
+  // matmul after start
+  tmac::pdl_wait();
+  tmac::pdl_trigger();
+  extern __shared__ __align__(16) float vals[];  // the row, staged (act_prologue.cuh)
+  __shared__ float scratch[tmac::staged_floats(kQuantThreads)];
   const int n = blockIdx.x;
-  const __nv_bfloat16* xr = x + (size_t)n * x_cols;
-  float rs = 1.f;
-  if (norm_w != nullptr)
-    rs = tmac::rms_factor(tmac::sumsq_xla_order(xr, K, Kp, glu, scratch),
-                          inv_norm_k, eps);
+  tmac::stage_row(x + (size_t)n * x_cols, K, Kp, glu, vec, vals);
+  if (norm_w != nullptr) tmac::norm_row(vals, K, Kp, norm_w, eps, inv_norm_k, vec, scratch);
 
   // one warp per group at a time: absmax, codes, code sum
   const int G = Kp / gs;
   const int warp = threadIdx.x >> 5;
   int8_t* cr = codes + (size_t)n * Kp;
   for (int g = warp; g < G; g += kQuantThreads / 32)
-    tmac::quant_group_warp(
-        [&](int k) { return tmac::prologue_value(xr, k, K, glu, norm_w, rs); }, g * gs,
-        gs, cr, xs + (size_t)n * G + g, xsum + (size_t)n * G + g);
+    tmac::quant_group_warp([&](int k) { return vals[tmac::staged(k)]; }, g * gs, gs, cr,
+                           xs + (size_t)n * G + g, xsum + (size_t)n * G + g);
 }
 
-// Block: columns [128 * blockIdx.x, +128) (lane l: 4 columns from 4 * l),
-// chunk c = blockIdx.y (packed rows [c * gs, +gs), the groups
-// g = j * nchunks + c of the P fields), token rows from NT * blockIdx.z.
-// Warp w takes packed rows [c * gs + w * gs / 8, +gs / 8).
 template <int BITS, int NT>
-__global__ void __launch_bounds__(kWarps * 32) group_dot_kernel(
-    const int32_t* __restrict__ codes4, int N, int Kp, int gs,
-    const uint8_t* __restrict__ packed, int Mp, int32_t* __restrict__ parts) {
-  constexpr int P = 8 / BITS;
-  constexpr uint32_t kMask = BITS == 2 ? 0x03030303u : 0x0F0F0F0Fu;
-  __shared__ int acc_s[NT * P * kStrip];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int m0 = blockIdx.x * kStrip + 4 * lane;
-  const int c = blockIdx.y;
-  const int n0 = blockIdx.z * NT;
-  const int nrows = min(NT, N - n0);
-  const int nq = Kp / 4;          // 32-bit words of codes per row
-  const int Kb = Kp / P;          // packed rows
-  const int rpw = gs / kWarps;    // packed rows of a warp
-  for (int i = threadIdx.x; i < NT * P * kStrip; i += blockDim.x) acc_s[i] = 0;
-  __syncthreads();
-
-  int part[NT][P][4];
-#pragma unroll
-  for (int n = 0; n < NT; ++n)
-#pragma unroll
-    for (int j = 0; j < P; ++j)
-#pragma unroll
-      for (int cc = 0; cc < 4; ++cc) part[n][j][cc] = 0;
-
-  const int r0 = c * gs + warp * rpw;
-  for (int r = r0; r < r0 + rpw; r += 4) {
-    const uint8_t* p = packed + (size_t)r * Mp + m0;
-    uint32_t col[4];  // col[cc]: column m0 + cc's bytes of rows r .. r+3
-    tmac::transpose4(__ldg(reinterpret_cast<const uint32_t*>(p)),
-               __ldg(reinterpret_cast<const uint32_t*>(p + Mp)),
-               __ldg(reinterpret_cast<const uint32_t*>(p + 2 * (size_t)Mp)),
-               __ldg(reinterpret_cast<const uint32_t*>(p + 3 * (size_t)Mp)),
-               col);
-#pragma unroll
-    for (int j = 0; j < P; ++j) {
-      const int q = (j * Kb + r) / 4;  // codes of k = j*Kb + r .. +3
-#pragma unroll
-      for (int n = 0; n < NT; ++n) {
-        if (n < nrows) {
-          const int xv = __ldg(codes4 + (size_t)(n0 + n) * nq + q);
-#pragma unroll
-          for (int cc = 0; cc < 4; ++cc)
-            part[n][j][cc] = __dp4a((int)((col[cc] >> (BITS * j)) & kMask), xv,
-                                    part[n][j][cc]);
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int n = 0; n < NT; ++n)
-#pragma unroll
-    for (int j = 0; j < P; ++j)
-#pragma unroll
-      for (int cc = 0; cc < 4; ++cc)
-        if (n < nrows) atomicAdd(&acc_s[(n * P + j) * kStrip + 4 * lane + cc], part[n][j][cc]);
-  __syncthreads();
-
-  const int nchunks = Kb / gs;
-  for (int i = threadIdx.x; i < NT * P * kStrip; i += blockDim.x) {
-    const int n = i / (P * kStrip), j = (i / kStrip) % P, m = i % kStrip;
-    if (n < nrows) {
-      const size_t g = (size_t)j * nchunks + c;
-      parts[(g * N + n0 + n) * Mp + blockIdx.x * kStrip + m] = acc_s[i];
-    }
-  }
+__global__ void __launch_bounds__(tmac::decode::kThreads, 2)
+    k4_decode_kernel(const tmac::decode::Args a) {
+  tmac::decode::decode_matmul<BITS, NT, true>(a);
 }
 
-__global__ void __launch_bounds__(kFoldThreads) fold_kernel(
-    const int32_t* __restrict__ parts, const float* __restrict__ xs,
-    const float* __restrict__ xsum, int N, int G, int Mp,
-    const __nv_bfloat16* __restrict__ scales,
-    const __nv_bfloat16* __restrict__ sub,
-    const __nv_bfloat16* __restrict__ residual, float* __restrict__ out) {
-  __shared__ float xsn[kMaxGroups], xsumn[kMaxGroups];
-  const int m = blockIdx.x * blockDim.x + threadIdx.x;
-  const int n = blockIdx.y;
-  for (int g = threadIdx.x; g < G; g += blockDim.x) {
-    xsn[g] = xs[(size_t)n * G + g];
-    xsumn[g] = xsum[(size_t)n * G + g];
-  }
-  __syncthreads();
-  if (m >= Mp) return;
-  const size_t stride = (size_t)N * Mp;
-  const int32_t* pp = parts + (size_t)n * Mp + m;
-  // The two chains run in group order; the loads of kFoldAhead groups are
-  // issued together ahead of them, so the thread waits on device memory
-  // once per kFoldAhead groups and not once per group (the row's xs and
-  // xsum sit in shared memory).
-  tmac::GroupFold fold;
-  for (int g0 = 0; g0 < G; g0 += kFoldAhead) {
-    float p[kFoldAhead], sc[kFoldAhead], sb[kFoldAhead];
-#pragma unroll
-    for (int i = 0; i < kFoldAhead; ++i) {
-      const int g = g0 + i;
-      if (g < G) {
-        p[i] = (float)pp[g * stride];
-        sc[i] = __bfloat162float(scales[(size_t)g * Mp + m]);
-        sb[i] = __bfloat162float(sub[(size_t)g * Mp + m]);
-      }
+template <int BITS>
+int launch_decode(const tmac::decode::Args& a, int ksplit, int nt,
+                  cudaStream_t stream) {
+  constexpr int P = 8 / BITS;
+  switch (nt) {
+    case 1: {
+      const tmac::decode::Layout L(P, 1, true, a.nunits, a.unit_rows, ksplit, a.G);
+      return tmac::decode::launch(k4_decode_kernel<BITS, 1>, a, ksplit, 1, L.total, stream);
     }
-#pragma unroll
-    for (int i = 0; i < kFoldAhead; ++i) {
-      const int g = g0 + i;
-      if (g < G) fold.step(g, p[i], xsn[g], sc[i], xsumn[g], sb[i]);
+    default: {
+      const tmac::decode::Layout L(P, 4, true, a.nunits, a.unit_rows, ksplit, a.G);
+      return tmac::decode::launch(k4_decode_kernel<BITS, 4>, a, ksplit, 4, L.total, stream);
     }
   }
-  float o = fold.result();
-  if (residual != nullptr)
-    o = __fadd_rn(o, __bfloat162float(residual[(size_t)n * Mp + m]));
-  out[(size_t)n * Mp + m] = o;
 }
 
 // ---------------------------------------------------------------------------
@@ -570,23 +467,6 @@ int launch_group_mma_kt(const int8_t* codes, const float* xs, const float* xsum,
                                         scales, sub, residual, out, stream);
 }
 
-template <int BITS>
-void launch_dots(const int32_t* codes4, int N, int Kp, int gs,
-                 const uint8_t* packed, int Mp, int32_t* parts,
-                 cudaStream_t stream) {
-  const int nchunks = Kp / (8 / BITS) / gs;
-  const dim3 block(kWarps * 32);
-  if (N == 1) {
-    group_dot_kernel<BITS, 1><<<dim3(Mp / kStrip, nchunks, 1), block, 0, stream>>>(
-        codes4, N, Kp, gs, packed, Mp, parts);
-  } else {
-    const int nz = (N + kRowsMany - 1) / kRowsMany;
-    group_dot_kernel<BITS, kRowsMany>
-        <<<dim3(Mp / kStrip, nchunks, nz), block, 0, stream>>>(
-            codes4, N, Kp, gs, packed, Mp, parts);
-  }
-}
-
 }  // namespace
 
 // Prologue: x (N, x_cols) bf16 -> codes (N, Kp) int8 in natural k order,
@@ -600,48 +480,54 @@ extern "C" int tmac_act_quant_grouped(const void* x, int N, int x_cols, int K,
   if (N <= 0 || gs <= 0 || Kp % gs != 0 ||
       Kp > tmac::kSumWindow * kQuantThreads)
     return (int)cudaErrorInvalidValue;
-  act_quant_grouped_kernel<<<N, kQuantThreads, 0, (cudaStream_t)stream>>>(
+  const int smem = tmac::staged_floats(Kp) * 4;
+  const cudaError_t err = cudaFuncSetAttribute(
+      act_quant_grouped_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  return tmac::decode::launch_programmatic(
+      act_quant_grouped_kernel, dim3(N), dim3(kQuantThreads), smem, (cudaStream_t)stream,
       static_cast<const __nv_bfloat16*>(x), x_cols, K, Kp, gs, glu,
       static_cast<const __nv_bfloat16*>(norm_w), eps, inv_norm_k,
-      static_cast<int8_t*>(codes), xs, xsum);
-  return (int)cudaGetLastError();
+      tmac::row_loads_vec(x, x_cols, K, norm_w), static_cast<int8_t*>(codes), xs, xsum);
 }
 
-// Per-group int32 dots: codes (N, Kp) from the prologue, packed
-// (Kp * bits / 8, Mp) uint8 -> parts (G, N, Mp) int32.  bits 2 or 4; gs a
-// multiple of 32; Kp a multiple of gs * 8 / bits; Mp a multiple of 128.
-extern "C" int tmac_group_dots(const void* codes, int N, int Kp, int gs,
-                               int bits, const void* packed, int Mp,
-                               void* parts, void* stream) {
-  if (N <= 0 || gs <= 0 || gs % 32 != 0 || Mp % kStrip != 0 ||
-      (bits != 2 && bits != 4) || Kp % (gs * (8 / bits)) != 0)
+// K4's matmul: codes (N, Kp) int8 in natural order, xs and xsum (N, G) f32
+// from the prologue, packed (Kp * bits / 8, Mp) uint8, scales and sub
+// (G, Mp) bf16, residual (N, Mp) bf16 or null -> out (N, Mp) f32, the fold
+// on chip.  1 <= N < 64; bits 2 or 4; gs a multiple of 32; Kp a multiple
+// of gs * 8 / bits; Mp of 128; G >= 2; a cluster of ksplit (1-8) blocks
+// along K, nt (1 or 4) token rows a block.  Launched programmatically after
+// the prologue.  Returns the CUDA error (cudaErrorInvalidConfiguration for
+// a cluster the card cannot place).
+extern "C" int tmac_decode_group_gemm(const void* codes, const float* xs,
+                                      const float* xsum, int N, int Kp, int gs,
+                                      int bits, const void* packed, int Mp,
+                                      const void* scales, const void* sub,
+                                      const void* residual, float* out,
+                                      int ksplit, int nt, void* stream) {
+  if (N <= 0 || N >= 64 || gs <= 0 || gs % 32 != 0 ||
+      Mp % tmac::decode::kStrip != 0 || (bits != 2 && bits != 4) ||
+      Kp % (gs * (8 / bits)) != 0 || Kp / gs < 2 || ksplit < 1 ||
+      ksplit > tmac::decode::kMaxSplit || (nt != 1 && nt != 4))
     return (int)cudaErrorInvalidValue;
-  const int32_t* c4 = static_cast<const int32_t*>(codes);
-  const uint8_t* pk = static_cast<const uint8_t*>(packed);
-  int32_t* pt = static_cast<int32_t*>(parts);
+  tmac::decode::Args a{};
+  a.codes = static_cast<const int8_t*>(codes);
+  a.xs = xs;
+  a.xsum = xsum;
+  a.packed = static_cast<const uint8_t*>(packed);
+  a.scales = scales;
+  a.sub = sub;
+  a.residual = static_cast<const __nv_bfloat16*>(residual);
+  a.out = out;
+  a.N = N;
+  a.Kp = Kp;
+  a.Kb = Kp / (8 / bits);
+  a.Mp = Mp;
+  a.G = Kp / gs;
+  a.unit_rows = gs;
+  a.nunits = a.Kb / gs;
   cudaStream_t s = (cudaStream_t)stream;
-  if (bits == 2) launch_dots<2>(c4, N, Kp, gs, pk, Mp, pt, s);
-  else launch_dots<4>(c4, N, Kp, gs, pk, Mp, pt, s);
-  return (int)cudaGetLastError();
-}
-
-// The f32 fold: parts (G, N, Mp), xs and xsum (N, G), scales and sub
-// (G, Mp) bf16, residual (N, Mp) bf16 or null -> out (N, Mp) f32.
-// 2 <= G <= 512.
-extern "C" int tmac_group_fold(const void* parts, const float* xs,
-                               const float* xsum, int N, int G, int Mp,
-                               const void* scales, const void* sub,
-                               const void* residual, float* out,
-                               void* stream) {
-  if (N <= 0 || G < 2 || G > kMaxGroups || Mp <= 0)
-    return (int)cudaErrorInvalidValue;
-  const dim3 grid((Mp + kFoldThreads - 1) / kFoldThreads, N);
-  fold_kernel<<<grid, kFoldThreads, 0, (cudaStream_t)stream>>>(
-      static_cast<const int32_t*>(parts), xs, xsum, N, G, Mp,
-      static_cast<const __nv_bfloat16*>(scales),
-      static_cast<const __nv_bfloat16*>(sub),
-      static_cast<const __nv_bfloat16*>(residual), out);
-  return (int)cudaGetLastError();
+  return bits == 2 ? launch_decode<2>(a, ksplit, nt, s) : launch_decode<4>(a, ksplit, nt, s);
 }
 
 // K4L: codes (N, Kp) int8, xs and xsum (N, G) f32 from the prologue, packed

@@ -16,10 +16,13 @@ by TMA, wgmma on the tensor cores, every warpgroup dequantizing its share
 of the weights two depth steps ahead of the products).
 
 K4 runs as two designs on the card: below LARGE_N (64) rows the decode
-form (a dp4a dot per group, int32 partials, an f32 fold), from 64 rows
-K4L, the same function on the int8 tensor cores with the group fold in
-registers (``qgemm_grouped_large``); both are bit for bit the plain
-version.
+form (``csrc/decode_matmul.cuh``, shared with K1: launched right after the
+prologue so that it streams its weights while the prologue runs, K split
+over a thread-block cluster by ``decode_plan``, the per-group int32
+partials kept in shared memory and folded in group order through
+distributed shared memory), from 64 rows K4L, the same function on the
+int8 tensor cores with the group fold in registers
+(``qgemm_grouped_large``); both are bit for bit the plain version.
 
 Each source says what bounds its kernel on the card and how its design
 answers it.  ``qgemm_grouped`` (K4), ``qgemm_grouped_large`` (K4L) and
@@ -41,8 +44,11 @@ import functools
 
 import torch
 
-from tmac_tpu_torch.ops.cuda.qgemm_kernel import (act_scale, prologue_values,
-                                                  raise_on, require)
+from tmac_tpu_torch.ops.cuda.qgemm_kernel import (DECODE_STRIP, _sms, act_scale,
+                                                  check_decode_smem, decode_owner, decode_plan,
+                                                  decode_spans, decode_units,
+                                                  prologue_values, raise_on,
+                                                  require)
 from tmac_tpu_torch.ops.qgemm import LARGE_N, QuantizedTensor, unpack_codes
 from tmac_tpu_torch.utils import fma_f32
 
@@ -125,6 +131,40 @@ def fold_plain(parts: torch.Tensor, xs: torch.Tensor, xsum: torch.Tensor,
     return out
 
 
+def block_partials_plain(codes: torch.Tensor, qt: QuantizedTensor,
+                         ksplit: int):
+    """The per-group int32 partials each block of a decode cluster keeps in
+    its shared memory: for block `rank`, the chunks [u0, u1) of its span
+    (decode_spans), as (u1 - u0, P, N, Mp) int32, entry (c - u0, j) being
+    group j * nchunks + c.  Exact int64 sums, as the kernel's."""
+    P, gs = 8 // qt.bits, qt.group_size
+    Kb, _, nchunks = decode_units(qt.kdim_padded, qt.bits, gs)
+    w = unpack_codes(qt).long()
+    c = codes.long()
+    blocks = []
+    for u0, u1 in decode_spans(nchunks, ksplit):
+        blocks.append(torch.stack([torch.stack([
+            c[:, j * Kb + ch * gs:j * Kb + (ch + 1) * gs]
+            @ w[j * Kb + ch * gs:j * Kb + (ch + 1) * gs]
+            for j in range(P)]) for ch in range(u0, u1)]).to(torch.int32)
+            if u1 > u0 else None)
+    return blocks
+
+
+def fold_split_plain(blocks, xs: torch.Tensor, xsum: torch.Tensor,
+                     qt: QuantizedTensor, ksplit: int, residual=None) -> torch.Tensor:
+    """The decode matmul's on-chip fold: partial g read from the block that
+    owns chunk g % nchunks (decode_owner), field g // nchunks, and folded in
+    group order (fold_plain's chain) -> (N, Mp) f32."""
+    _, _, nchunks = decode_units(qt.kdim_padded, qt.bits, qt.group_size)
+    owner = decode_owner(nchunks, ksplit)
+    G = qt.kdim_padded // qt.group_size
+    parts = torch.stack([blocks[owner[g % nchunks][0]][owner[g % nchunks][1],
+                                                        g // nchunks]
+                         for g in range(G)])
+    return fold_plain(parts, xs, xsum, qt, residual)
+
+
 def qgemm_grouped_plain(x: torch.Tensor, qt: QuantizedTensor, norm=None,
                         glu: bool = False, residual=None) -> torch.Tensor:
     """The function K4 computes, in plain PyTorch: (N, M) f32."""
@@ -145,17 +185,14 @@ def _lib():
     lib.tmac_act_quant_grouped.argtypes = [
         _c_ptr, _c_int, _c_int, _c_int, _c_int, _c_int, _c_int, _c_ptr,
         _c_float, _c_float, _c_ptr, _c_ptr, _c_ptr, _c_ptr]
-    lib.tmac_group_dots.argtypes = [
-        _c_ptr, _c_int, _c_int, _c_int, _c_int, _c_ptr, _c_int, _c_ptr,
-        _c_ptr]
-    lib.tmac_group_fold.argtypes = [
-        _c_ptr, _c_ptr, _c_ptr, _c_int, _c_int, _c_int, _c_ptr, _c_ptr,
-        _c_ptr, _c_ptr, _c_ptr]
+    lib.tmac_decode_group_gemm.argtypes = [
+        _c_ptr, _c_ptr, _c_ptr, _c_int, _c_int, _c_int, _c_int, _c_ptr,
+        _c_int, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_int, _c_int, _c_ptr]
     lib.tmac_group_gemm.argtypes = [
         _c_ptr, _c_ptr, _c_ptr, _c_int, _c_int, _c_int, _c_int, _c_ptr,
         _c_int, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr]
-    for fn in (lib.tmac_act_quant_grouped, lib.tmac_group_dots,
-               lib.tmac_group_fold, lib.tmac_group_gemm):
+    for fn in (lib.tmac_act_quant_grouped, lib.tmac_decode_group_gemm,
+               lib.tmac_group_gemm):
         fn.restype = _c_int
     return lib
 
@@ -188,42 +225,38 @@ def launch_act_quant_grouped(x: torch.Tensor, qt: QuantizedTensor, norm=None,
     return codes, xs, xsum
 
 
-def launch_group_dots(codes: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
-    """Launch the per-group int32 dots: -> parts (G, N, Mp) int32."""
+def launch_decode_grouped(codes: torch.Tensor, xs: torch.Tensor,
+                          xsum: torch.Tensor, qt: QuantizedTensor, residual=None,
+                          ksplit=None) -> torch.Tensor:
+    """Launch K4's matmul on its prologue's outputs, right after the
+    prologue (it starts while the prologue runs), the group fold on chip:
+    -> (N, Mp) f32.  ksplit: the cluster size along K (decode_plan's by
+    default)."""
     dev = codes.device
     N, Kp, Mp, gs = codes.shape[0], qt.kdim_padded, qt.mdim_padded, qt.group_size
+    G = Kp // gs
     require("K4", codes, "codes", torch.int8, (N, Kp), dev)
-    require("K4", qt.packed, "packed", torch.uint8, (Kp * qt.bits // 8, Mp), dev)
-    if qt.packed.data_ptr() % 4 or codes.data_ptr() % 4:
-        raise ValueError("K4: packed and codes must be 4-byte aligned")
-    parts = torch.empty((Kp // gs, N, Mp), dtype=torch.int32, device=dev)
-    err = _lib().tmac_group_dots(
-        codes.data_ptr(), N, Kp, gs, qt.bits, qt.packed.data_ptr(), Mp,
-        parts.data_ptr(), _stream(dev))
-    raise_on("K4", err, "group dots")
-    return parts
-
-
-def launch_fold(parts: torch.Tensor, xs: torch.Tensor, xsum: torch.Tensor,
-                qt: QuantizedTensor, residual=None) -> torch.Tensor:
-    """Launch the f32 fold: -> (N, Mp) f32."""
-    dev = parts.device
-    G, N, Mp = parts.shape
-    require("K4", parts, "parts", torch.int32, (G, N, Mp), dev)
     require("K4", xs, "xs", torch.float32, (N, G), dev)
     require("K4", xsum, "xsum", torch.float32, (N, G), dev)
+    require("K4", qt.packed, "packed", torch.uint8, (Kp * qt.bits // 8, Mp), dev)
     require("K4", qt.scales, "scales", torch.bfloat16, (G, Mp), dev)
     require("K4", qt.sub, "sub", torch.bfloat16, (G, Mp), dev)
+    if Mp % DECODE_STRIP or codes.data_ptr() % 4 or any(
+            t.data_ptr() % 16 for t in (qt.packed, qt.scales, qt.sub)):
+        raise ValueError("K4: Mp % 128 == 0, 4-byte aligned codes and 16-byte "
+                         "aligned packed, scales and sub")
     res_ptr = None
     if residual is not None:
         require("K4", residual, "residual", torch.bfloat16, (N, Mp), dev)
         res_ptr = residual.data_ptr()
+    plan, nt = decode_plan(N, Kp, Mp, qt.bits, gs, _sms(dev))
+    check_decode_smem("K4", N, Kp, qt.bits, gs, ksplit or plan, nt)
     out = torch.empty((N, Mp), dtype=torch.float32, device=dev)
-    err = _lib().tmac_group_fold(
-        parts.data_ptr(), xs.data_ptr(), xsum.data_ptr(), N, G, Mp,
-        qt.scales.data_ptr(), qt.sub.data_ptr(), res_ptr, out.data_ptr(),
-        _stream(dev))
-    raise_on("K4", err, "fold")
+    err = _lib().tmac_decode_group_gemm(
+        codes.data_ptr(), xs.data_ptr(), xsum.data_ptr(), N, Kp, gs, qt.bits,
+        qt.packed.data_ptr(), Mp, qt.scales.data_ptr(), qt.sub.data_ptr(),
+        res_ptr, out.data_ptr(), ksplit or plan, nt, _stream(dev))
+    raise_on("K4", err, "matmul")
     return out
 
 
@@ -247,8 +280,7 @@ def qgemm_grouped(x: torch.Tensor, qt: QuantizedTensor, norm=None,
         raise ValueError(f"K4 takes N < {LARGE_N} rows on the card, not "
                          f"{x.shape[0]}: K4L (qgemm_grouped_large) takes the rest")
     codes, xs, xsum = launch_act_quant_grouped(x, qt, norm, glu)
-    parts = launch_group_dots(codes, qt)
-    out = launch_fold(parts, xs, xsum, qt, residual)
+    out = launch_decode_grouped(codes, xs, xsum, qt, residual)
     qgemm_grouped.launches += 1
     return qt.slice_m(out)
 

@@ -5,8 +5,11 @@ Both replace ``tmac_tpu/ops/pallas/qgemm_kernel.py::_make_kernel`` on the
 two routes that ``qgemm_pallas(act="fused")`` takes for per-tensor scales
 (``ops.qgemm.route``): K1, for N < 64 rows of x, its
 ``fused_quant=True, int_acc=True`` form, as CUDA C++ for Hopper in
-``csrc/qgemm_fused.cu``; K3, from 64 rows, its ``single_dot`` form after
-the reference's XLA prologue, in ``csrc/qgemm_large.cu`` on K1's prologue.
+``csrc/qgemm_fused.cu`` (the prologue) and ``csrc/decode_matmul.cuh``
+(the matmul K1 shares with K4: a programmatic dependent launch after the
+prologue, K split over a thread-block cluster by ``decode_plan``); K3,
+from 64 rows, its ``single_dot`` form after the reference's XLA prologue,
+in ``csrc/qgemm_large.cu`` on K1's prologue.
 Each source says what bounds its kernel on the card (device-memory bytes
 at decode, the tensor cores at prefill) and how its design answers it.
 
@@ -25,7 +28,7 @@ import functools
 import torch
 
 from tmac_tpu_torch.ops.qgemm import LARGE_N, QuantizedTensor, unpack_codes
-from tmac_tpu_torch.utils import fma_f32
+from tmac_tpu_torch.utils import cdiv, fma_f32, round_up
 
 _c_ptr, _c_int, _c_float = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
@@ -134,13 +137,146 @@ def int_dot_plain(codes: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
 
 
 def dp4a_order(codes: torch.Tensor, bits: int) -> torch.Tensor:
-    """Natural-order codes (N, Kp) -> the grouping K1's prologue writes:
+    """Natural-order codes (N, Kp) -> the grouping K3's prologue writes:
     byte j of 32-bit word q holds the code of k = q + j*Kp/4 for bits=2
     (the packed field order) and of k = 4q + j for bits=8."""
     if bits == 8:
         return codes
     N, Kp = codes.shape
     return codes.reshape(N, 4, Kp // 4).transpose(1, 2).reshape(N, Kp)
+
+
+# ---------------------------------------------------------------------------
+# The decode matmul's plan (csrc/decode_matmul.cuh), shared by K1 and K4
+# ---------------------------------------------------------------------------
+
+DECODE_STRIP = 128        # output columns of a block
+DECODE_STAGE_ROWS = 32    # packed rows of a ring stage (K1's unit of the split)
+DECODE_RING = 8 * DECODE_STAGE_ROWS * DECODE_STRIP  # the ring's bytes
+DECODE_MAX_SPLIT = 8      # portable cluster size
+DECODE_XBUF = 8 * 32 * 20 * 4   # K4's per-warp exchange buffers
+DECODE_SMEM_BUDGET = 112 * 1024   # two blocks an SM
+# a block's fixed costs in packed rows streamed, by token rows a block, and
+# the cluster sizes the plan takes (7 was never measured)
+DECODE_FIXED_ROWS = {1: 96, 4: 256}
+DECODE_SPLITS = (1, 2, 3, 4, 5, 6, 8)
+DECODE_SMEM_LIMIT = 227 * 1024    # a block's shared memory on Hopper
+DEFAULT_SMS = 132         # an H100 SXM's SMs: the plan on the CPU
+
+
+def decode_units(Kp: int, bits: int, gs: int = 0):
+    """The packed rows Kb, the rows of a unit of the K split (a chunk of gs
+    packed rows for grouped scales, whose field j holds group j * nchunks +
+    c; a ring stage of 32 rows for per-tensor ones) and the unit count."""
+    Kb = Kp if bits == 8 else Kp // (8 // bits)
+    unit = gs or DECODE_STAGE_ROWS
+    return Kb, unit, cdiv(Kb, unit)
+
+
+def decode_spans(nunits: int, ksplit: int):
+    """The units [u0, u1) block `rank` of a cluster of ksplit takes: u0 =
+    rank * nunits // ksplit, contiguous and in rank order (empty when
+    ksplit > nunits)."""
+    return [(r * nunits // ksplit, (r + 1) * nunits // ksplit) for r in range(ksplit)]
+
+
+def decode_owner(nunits: int, ksplit: int):
+    """For each unit (chunk) c: (the rank that owns it, its index there)."""
+    owner = []
+    for rank, (u0, u1) in enumerate(decode_spans(nunits, ksplit)):
+        owner += [(rank, c - u0) for c in range(u0, u1)]
+    return owner
+
+
+def decode_smem(bits: int, nt: int, grouped: bool, nunits: int, unit: int,
+                ksplit: int, G: int) -> int:
+    """A block's shared memory, as decode_matmul.cuh's Layout sizes it: the
+    ring (or the partials it receives for its slice of columns, if
+    larger), the codes of its rows, its int32 partials and, grouped, the
+    fold's scales and zero points of its slice and the tile's xs, xsum."""
+    P = 1 if bits == 8 else 8 // bits
+    units = cdiv(nunits, ksplit)
+    span = round_up(units * unit, DECODE_STAGE_ROWS)
+    slice_ = cdiv(DECODE_STRIP // 8, ksplit) * 8
+    recv = (G if grouped else ksplit) * nt * slice_ * 4
+    total = round_up(max(DECODE_RING, recv), 16) + round_up(nt * P * span, 16)
+    total += (units * P if grouped else 1) * nt * DECODE_STRIP * 4
+    if grouped:
+        total += round_up(2 * G * slice_ * 2, 16) + 2 * nt * G * 4
+        total = round_up(total, 16) + DECODE_XBUF
+    return total
+
+
+def decode_plan(N: int, Kp: int, Mp: int, bits: int, gs: int = 0,
+                sms: int = DEFAULT_SMS):
+    """(ksplit, nt) for the decode matmul from shapes only, so a CUDA graph
+    can capture the call: nt token rows a block (1 for N = 1, else 4), and
+    the blocks of a cluster along K, no more than the units of the split,
+    whichever of DECODE_SPLITS minimises waves x (packed rows a block + a
+    block's fixed costs, DECODE_FIXED_ROWS[nt]), 20% more for a cluster
+    size that is no power of two: a block's rows stream in a time about
+    proportional to their count, and a second, part-filled wave of blocks
+    repeats both (an SM holds two blocks, or one whose shared memory
+    passes half of it).  The constants were fitted to every ksplit's time
+    at the paths' shapes on an H100 (chip_smoke.py --phase
+    decode_plan_sweep; PERF.md, PR 8).  Ties go to the
+    smaller cluster.  Raises if no cluster size fits a block's shared
+    memory."""
+    nt = 1 if N == 1 else 4
+    Kb, unit, nunits = decode_units(Kp, bits, gs)
+    grouped, G = gs > 0, Kp // gs if gs else 1
+    clusters = (Mp // DECODE_STRIP) * cdiv(N, nt)
+    best = None
+    for ksplit in DECODE_SPLITS:
+        smem = decode_smem(bits, nt, grouped, nunits, unit, ksplit, G)
+        if ksplit > nunits or smem > DECODE_SMEM_LIMIT:
+            continue
+        per_sm = 2 if smem <= DECODE_SMEM_BUDGET else 1
+        waves = cdiv(clusters * ksplit, per_sm * sms)
+        cost = waves * (cdiv(nunits, ksplit) * unit + DECODE_FIXED_ROWS[nt])
+        if ksplit & (ksplit - 1):
+            cost *= 1.2
+        if best is None or cost < best[0]:
+            best = (cost, ksplit)
+    if best is None:
+        raise ValueError(f"decode matmul: K = {Kp} at N = {N} outgrows a block's "
+                         "shared memory")
+    return best[1], nt
+
+
+def check_decode_smem(kernel: str, N: int, Kp: int, bits: int, gs: int,
+                      ksplit: int, nt: int) -> None:
+    """Raise if a forced cluster size leaves a block more shared memory
+    than the card has (decode_plan's own never does)."""
+    _, unit, nunits = decode_units(Kp, bits, gs)
+    need = decode_smem(bits, nt, gs > 0, nunits, unit, ksplit, Kp // gs if gs else 1)
+    if need > DECODE_SMEM_LIMIT:
+        raise ValueError(f"{kernel}: ksplit {ksplit} at N = {N}, K = {Kp} needs "
+                         f"{need} bytes of shared memory a block")
+
+
+def int_dot_split_plain(codes: torch.Tensor, qt: QuantizedTensor,
+                        ksplit: int) -> torch.Tensor:
+    """K1's int32 sums as the decode matmul splits them: block `rank` takes
+    the packed rows of its units, each field j masked in place (its
+    weights times 2^(bits * j)) meets the natural-order codes k = j * Kb +
+    row, the sum is shifted back by bits * j, and the blocks' sums are
+    added in rank order.  -> (N, Mp) int32, equal to int_dot_plain."""
+    bits = qt.bits
+    Kb, unit, nunits = decode_units(qt.kdim_padded, bits)
+    c = codes.long()
+    pk = qt.packed.long()
+    total = torch.zeros((codes.shape[0], qt.mdim_padded), dtype=torch.long)
+    for u0, u1 in decode_spans(nunits, ksplit):
+        r0, r1 = u0 * unit, min(u1 * unit, Kb)
+        if bits == 8:
+            w = pk[r0:r1].to(torch.uint8).view(torch.int8).long()
+            total += c[:, r0:r1] @ w
+            continue
+        for j in range(8 // bits):
+            masked = pk[r0:r1] & (((1 << bits) - 1) << (bits * j))
+            total += (c[:, j * Kb + r0:j * Kb + r1] @ masked) >> (bits * j)
+    return total.to(torch.int32)
 
 
 def qgemm_fused_plain(x: torch.Tensor, qt: QuantizedTensor, norm=None,
@@ -176,12 +312,12 @@ def _lib():
     lib = build.load("qgemm_fused")
     lib.tmac_act_quant.argtypes = [
         _c_ptr, _c_int, _c_int, _c_int, _c_int, _c_int, _c_ptr, _c_float,
-        _c_float, _c_int, _c_int, _c_ptr, _c_ptr, _c_ptr, _c_ptr]
+        _c_float, _c_int, _c_int, _c_int, _c_ptr, _c_ptr, _c_ptr, _c_ptr]
     lib.tmac_act_quant.restype = _c_int
-    lib.tmac_qgemm.argtypes = [
+    lib.tmac_decode_qgemm.argtypes = [
         _c_ptr, _c_ptr, _c_ptr, _c_int, _c_int, _c_int, _c_ptr, _c_ptr,
-        _c_ptr, _c_int, _c_ptr, _c_ptr, _c_ptr]
-    lib.tmac_qgemm.restype = _c_int
+        _c_ptr, _c_int, _c_ptr, _c_ptr, _c_int, _c_int, _c_ptr]
+    lib.tmac_decode_qgemm.restype = _c_int
     return lib
 
 
@@ -203,9 +339,10 @@ def raise_on(kernel: str, err: int, what: str) -> None:
 
 def launch_act_quant(x: torch.Tensor, qt: QuantizedTensor, norm=None,
                      glu: bool = False, large_n: bool = False):
-    """Launch K1's prologue (K3's with large_n): -> (codes (N, Kp) int8
-    in dp4a grouping, xs (N,), xsum (N,)); xsum as act_quant_plain gives
-    it."""
+    """Launch K1's prologue (K3's with large_n): -> (codes (N, Kp) int8,
+    xs (N,), xsum (N,)); xsum as act_quant_plain gives it.  The codes in
+    natural k order for K1's matmul, in dp4a grouping (dp4a_order) for
+    K3's."""
     dev = x.device
     N = x.shape[0]
     K, Kp = qt.kdim, qt.kdim_padded
@@ -220,7 +357,7 @@ def launch_act_quant(x: torch.Tensor, qt: QuantizedTensor, norm=None,
     xsum = torch.empty((N,), dtype=torch.float32, device=dev)
     err = _lib().tmac_act_quant(
         x.data_ptr(), N, x.shape[1], K, Kp, int(glu), norm_ptr, float(eps),
-        1.0 / K, qt.bits, int(large_n), codes.data_ptr(), xs.data_ptr(),
+        1.0 / K, qt.bits, int(large_n), int(large_n), codes.data_ptr(), xs.data_ptr(),
         xsum.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     raise_on("K1", err, "prologue")
@@ -246,19 +383,28 @@ def _check_gemm_args(kernel: str, codes, xs, xsum, qt: QuantizedTensor,
     return residual.data_ptr()
 
 
-def launch_gemm(codes: torch.Tensor, xs: torch.Tensor, xsum: torch.Tensor,
-                qt: QuantizedTensor, residual=None) -> torch.Tensor:
-    """Launch K1's matmul on its prologue's outputs (large_n off): ->
-    (N, Mp) f32."""
+def _sms(dev) -> int:
+    from tmac_tpu_torch.ops.cuda.attention_kernel import sm_count
+    return sm_count(dev)
+
+
+def launch_decode(codes: torch.Tensor, xs: torch.Tensor, xsum: torch.Tensor,
+                  qt: QuantizedTensor, residual=None, ksplit=None) -> torch.Tensor:
+    """Launch K1's matmul on its prologue's outputs (large_n off), right
+    after the prologue (it starts while the prologue runs): -> (N, Mp)
+    f32.  ksplit: the cluster size along K (decode_plan's by default)."""
     res_ptr = _check_gemm_args("K1", codes, xs, xsum, qt, residual)
-    N, Mp = codes.shape[0], qt.mdim_padded
-    if qt.packed.data_ptr() % 4 or Mp % 32:
-        raise ValueError("K1: packed must be 4-byte aligned with Mp % 32 == 0")
+    N, Kp, Mp = codes.shape[0], qt.kdim_padded, qt.mdim_padded
+    if qt.packed.data_ptr() % 16 or codes.data_ptr() % 4 or Mp % DECODE_STRIP:
+        raise ValueError("K1: 16-byte aligned packed weights, 4-byte aligned "
+                         "codes and Mp % 128 == 0")
+    plan, nt = decode_plan(N, Kp, Mp, qt.bits, 0, _sms(codes.device))
+    check_decode_smem("K1", N, Kp, qt.bits, 0, ksplit or plan, nt)
     out = torch.empty((N, Mp), dtype=torch.float32, device=codes.device)
-    err = _lib().tmac_qgemm(
-        codes.data_ptr(), xs.data_ptr(), xsum.data_ptr(), N, qt.kdim_padded,
-        qt.bits, qt.packed.data_ptr(), qt.scales.data_ptr(),
-        qt.sub.data_ptr(), Mp, res_ptr, out.data_ptr(),
+    err = _lib().tmac_decode_qgemm(
+        codes.data_ptr(), xs.data_ptr(), xsum.data_ptr(), N, Kp, qt.bits,
+        qt.packed.data_ptr(), qt.scales.data_ptr(), qt.sub.data_ptr(), Mp,
+        res_ptr, out.data_ptr(), ksplit or plan, nt,
         torch.cuda.current_stream(codes.device).cuda_stream)
     raise_on("K1", err, "matmul")
     return out
@@ -290,7 +436,7 @@ def qgemm_fused(x: torch.Tensor, qt: QuantizedTensor, norm=None,
     if not _on_device("K1", x):
         return qgemm_fused_plain(x, qt, norm, glu, residual)
     codes, xs, xsum = launch_act_quant(x, qt, norm, glu)
-    out = launch_gemm(codes, xs, xsum, qt, residual)
+    out = launch_decode(codes, xs, xsum, qt, residual)
     qgemm_fused.launches += 1
     return qt.slice_m(out)
 
