@@ -3,6 +3,7 @@
     python3 chip_smoke.py          (from the repository root)
     python3 chip_smoke.py --phase qgemm_decode_sweep   (that phase alone)
     python3 chip_smoke.py --phase decode_plan_sweep    (K1, K4 at every ksplit)
+    python3 chip_smoke.py --phase expert_block_sweep   (K7 and K10 per call)
 
 Phases, each printing one JSON line before the last two:
   1. the card (nvidia-smi name and power limit, torch's device name);
@@ -17,7 +18,8 @@ Phases, each printing one JSON line before the last two:
      kernel K3 (the N >= 64 route: K1's prologue + one int8 tensor-core
      dot) at N = 64 and 256 on every linear with its folds and the int8
      head, bit for bit; kernel K10 (wo + residual, rms_norm, gate_up,
-     SwiGLU, down + residual in one program) on two layers, bit for bit;
+     SwiGLU, down + residual in one program) on two layers, bit for bit,
+     at its plan's grid and at 1, 7 and 100 blocks;
   4. kernel K2 (decode attention, one launch a call, a cluster of blocks
      per KV head) against its plain version, bit for bit, f32 and bf16, on
      256- and 2048-row caches (lengths 1 to 2048, B = 1 and 2, 32 heads of
@@ -68,14 +70,20 @@ Phases, each printing one JSON line before the last two:
   7. path 3, Mixtral-8x7B W2A16 g128 at full width and depth (32 layers,
      hidden 4096, 32 heads and 8 KV heads, 8 experts top-2 with FFN 14336,
      vocab 32000), random weights drawn on the card from seed 0: kernel K7
-     (expert-indexed qgemm, the expert index read on the device) against
-     its plain version at the path's expert shapes (gate_up 4096 x 28672,
-     down 14336 x 4096 with the SwiGLU prologue) and, at bits 4, at
-     Qwen2-MoE-A14B's (3584 x 5120, 2560 x 3584) on a 4-expert stack, N = 1
-     and 4, every expert, bit for bit; prefill of a 256-token prompt (the
-     MoE layers in the capacity-dispatch form over K4L: 576 K4L and 1 K3
-     launches) and 64 greedy decode steps (the select form through K7: 128
-     K7, 64 K4, 32 K2 and 1 K1 launches per step), then the checks and
+     (expert-indexed qgemm, the routed experts' indices read on the
+     device, k of them in one launch) against its plain version at the
+     path's expert shapes (gate_up 4096 x 28672, down 14336 x 4096 with the
+     SwiGLU prologue on each expert's f32 rows) at N = 1 to 4 and, at bits
+     4, at Qwen2-MoE-A14B's (3584 x 5120, 2560 x 3584) on a 4-expert stack,
+     N = 1 and 4: one expert at every expert, two on routes covering every
+     expert, one route at cluster sizes 1 and 8, bit for bit; an index
+     outside the stack gives NaN; the select form's MoE MLP of a layer
+     captured in a CUDA graph and replayed on tokens whose routes change,
+     each replay bit for bit the plain versions'; prefill of a 256-token
+     prompt (the MoE layers in the capacity-dispatch form over K4L: 576 K4L
+     and 1 K3 launches) and 64 greedy decode steps (the select form through
+     K7: 64 K7 (gate_up and down of both routed experts, one call each a
+     layer), 64 K4, 32 K2 and 1 K1 launches per step), then the checks and
      timings of path 1 (the decode step captured in a CUDA graph, which
      proves it makes no host sync), K7's per call and per step;
   8. path 4, Phi-3-mini W2A16 g128 at full width and depth (32 layers,
@@ -112,7 +120,12 @@ Phases, each printing one JSON line before the last two:
      at N = 1, 4 and 16, per call beside the byte bound, the bf16 matmul
      and the cluster size; then the programmatic launch seen in a
      profiler trace (pdl_overlap): the matmul starting before its
-     prologue ends, in an eager call and in a captured graph.
+     prologue ends, in an eager call and in a captured graph;
+ 11. the expert and block sweep (expert_block_sweep): K7 at Mixtral-8x7B's
+     expert shapes, one expert and the two routed experts of a layer
+     (gate_up, down and both), N = 1 and 4, with every cluster size, and
+     K10 at BitNet-3B's layer shapes, per call beside the byte bound and
+     the yardsticks (the bf16 matmul; K1's three calls).
 The last two lines are the kernels' JSON record and
 {"ok": true, "device": {...}}.  Any failed check raises and the script
 exits non-zero; so does a machine without a CUDA device.
@@ -273,6 +286,15 @@ def qgemm_bytes(qt, x, kw):
             + x.numel() * 2 + 4 * N * qt.mdim_padded
             + (2 * N * qt.mdim if kw.get("residual") is not None else 0)
             + (2 * qt.kdim if "norm" in kw else 0))
+
+
+def expert_bytes(one, k, x):
+    """Bytes one K7 call must move for k routed experts of one expert's
+    shape `one`: each expert's packed weights, scales and sub and its f32
+    output, and x (shared, or a block of rows an expert) once."""
+    N = x.shape[-2]
+    return (k * (one.packed.numel() + 2 * one.scales.numel() * one.scales.element_size()
+                 + 4 * N * one.mdim_padded) + x.numel() * x.element_size())
 
 
 # ---------------------------------------------------------------------------
@@ -451,23 +473,31 @@ def check_k5(card, cases, weights_checked=()):
     return rows, worst
 
 
-def check_k10(card, cases):
-    """K10 against its plain version, bit for bit; cases: (label, args)
-    with args (attn, resid, norm_w, wo, gate_up, down, eps)."""
+# K10's grids checked beside the plan's (0: one block an SM): one block,
+# a few, and an uneven split of every phase's units
+K10_BLOCKS = (0, 1, 7, 100)
+
+
+def check_k10(card, cases, grids=K10_BLOCKS):
+    """K10 against its plain version, bit for bit, at each grid of `grids`
+    (the plan's and others: every partition of the units must give the
+    same sums); cases: (label, args) with args (attn, resid, norm_w, wo,
+    gate_up, down, eps)."""
     import torch
     from tmac_tpu_torch.ops.cuda import block_kernel as k10
     rows, worst = [], 0.0
     for label, args in cases:
-        got = k10.wo_mlp_block(*args)
         want = k10.wo_mlp_block_plain(*args)
-        torch.cuda.synchronize()
-        err = float((got - want).abs().max())
-        worst = max(worst, err)
-        rows.append(dict(shape=label, max_abs_err=err,
-                         bitwise=bool(torch.equal(got, want)),
-                         finite=bool(torch.isfinite(got).all())))
-        if not (rows[-1]["bitwise"] and rows[-1]["finite"]):
-            raise AssertionError(f"K10 {label}: {rows[-1]}")
+        for blocks in grids:
+            got = k10.wo_mlp_block(*args, blocks=blocks)
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            worst = max(worst, err)
+            rows.append(dict(shape=label, blocks=blocks or card.sms, max_abs_err=err,
+                             bitwise=bool(torch.equal(got, want)),
+                             finite=bool(torch.isfinite(got).all())))
+            if not (rows[-1]["bitwise"] and rows[-1]["finite"]):
+                raise AssertionError(f"K10 {label}: {rows[-1]}")
     return rows, worst
 
 
@@ -591,7 +621,7 @@ def counters():
     from tmac_tpu_torch.ops.cuda import expert_kernel as k7
     from tmac_tpu_torch.ops.cuda import qgemm_grouped_kernel as k4
     from tmac_tpu_torch.ops.cuda import qgemm_kernel as k1
-    return (k1.qgemm_fused, k4.qgemm_grouped, ak.flash_decode, k7.qgemm_expert,
+    return (k1.qgemm_fused, k4.qgemm_grouped, ak.flash_decode, k7.qgemm_experts,
             ak.flash_decode_split, ak.flash_decode_append,
             ak.flash_decode_append_write, k1.qgemm_large_int, k4.qgemm_dequant,
             k10.wo_mlp_block, k4.qgemm_grouped_large)
@@ -640,8 +670,8 @@ def graph_decode(model, cache, tok):
 KERNEL_NAMES = (("K10", "block_kernel"), ("K3 matmul", "large_int_kernel"),
                 ("K5 prologue", "act_bf16_kernel"), ("K5 matmul", "dequant_wgmma_kernel"),
                 ("K4L matmul", "group_mma_kernel"),
-                ("K7 prologue", "expert_act_quant_kernel"),
-                ("K7 matmul", "expert_qgemm_kernel"),
+                ("K7 prologue", "expert_quant_kernel"),
+                ("K7 matmul", "k7_decode_kernel"),
                 ("K4/K4L prologue", "act_quant_grouped_kernel"),
                 ("K4 matmul", "k4_decode_kernel"),
                 ("K1 prologue", "act_quant_kernel"), ("K1 matmul", "k1_decode_kernel"),
@@ -1446,31 +1476,87 @@ def params_on_card(cfg, seed, dev):
             "lm_head": head}
 
 
-def check_k7(card, cases):
-    """K7 against its plain version on every expert; cases: (label, x,
-    stack, glu).  The activation codes, scales and code sums live inside
-    the kernel, so the outputs are held bit for bit."""
+def check_k7(card, cases, splits=(1, 8)):
+    """K7 against its plain version; cases: (label, x, stack, glu) with x
+    (E, N, width): expert e's rows x[e] (f32 for down, as the select form
+    gives it the gate_up output; bf16 and shared by every expert for
+    gate_up, x[0]).  k = 1 (qgemm_expert) at every expert, and k = 2
+    (qgemm_experts, one launch) on routes that cover every expert, one of
+    them also at the forced cluster sizes `splits` (a size whose shared
+    memory does not fit is recorded as refused): bit for bit, each plain
+    expert computed once.  The activation codes, scales and code sums live
+    inside the kernel, so the outputs are held bit for bit."""
     import torch
     from tmac_tpu_torch.ops.cuda import expert_kernel as k7
     rows, worst = [], 0.0
     for label, x, st, glu in cases:
-        errs, bitwise = [], True
-        for e in range(st.packed.shape[0]):
-            idx = torch.tensor([e], dtype=torch.int32, device=card.dev)
-            got = k7.qgemm_expert(x, st, idx, glu=glu)
-            want = k7.qgemm_expert_plain(x, st, idx, glu=glu)
+        E, N = st.packed.shape[0], x.shape[1]
+        shared = not glu
+        rows_of = (lambda e: x[0]) if shared else (lambda e: x[e])
+        want = [k7.qgemm_expert_plain(rows_of(e), st, e, glu=glu) for e in range(E)]
+        errs, done = [], []
+
+        def hold(got, route, ksplit=None):
             torch.cuda.synchronize()
-            errs.append(float((got - want).abs().max()))
-            same = torch.equal(got, want) and bool(torch.isfinite(got).all())
-            bitwise = bitwise and same
-            if not same:
-                raise AssertionError(f"K7 {label} bits {st.bits} N={x.shape[0]} "
-                                     f"e={e}: max abs error {errs[-1]}")
+            for j, e in enumerate(route):
+                errs.append(float((got[j] - want[e]).abs().max()))
+                if not (torch.equal(got[j], want[e]) and bool(torch.isfinite(got[j]).all())):
+                    raise AssertionError(f"K7 {label} bits {st.bits} N={N} route {route} "
+                                         f"ksplit {ksplit}: max abs error {errs[-1]}")
+            done.append(dict(route=list(route), ksplit=ksplit))
+        for e in range(E):
+            idx = torch.tensor([e], dtype=torch.int32, device=card.dev)
+            hold(k7.qgemm_expert(rows_of(e), st, idx, glu=glu)[None], (e,))
+        routes = [(e, (e + E // 2 + 1) % E) for e in range(0, E, 2)]
+        for r, route in enumerate(routes):
+            idx = torch.tensor(route, dtype=torch.int32, device=card.dev)
+            xr = x[0] if shared else x[list(route)].contiguous()
+            hold(k7.qgemm_experts(xr, st, idx, glu=glu), route)
+            for ksplit in (splits if r == 0 else ()):
+                try:
+                    out = k7.launch_experts(xr, st, idx, glu, ksplit)
+                except ValueError as err:  # a forced cluster size that does not fit
+                    done.append(dict(route=list(route), ksplit=ksplit, refused=str(err)))
+                    continue
+                hold(st.slice_m(out), route, ksplit)
         worst = max(worst, max(errs))
-        rows.append(dict(shape=label, bits=st.bits, N=x.shape[0],
-                         K=st.kdim, M=st.mdim, experts=len(errs),
-                         max_abs_err=max(errs), bitwise=bitwise))
+        rows.append(dict(shape=label, bits=st.bits, N=N, K=st.kdim, M=st.mdim,
+                         experts=E, x_dtype=str(x.dtype), calls=done,
+                         max_abs_err=max(errs), bitwise=True))
     return rows, worst
+
+
+def k7_route_graph(card, layer, cfg, replays=8):
+    """The select form's MoE MLP (moe_mlp, moe_impl="select") on one layer
+    captured in a CUDA graph and replayed on new tokens, whose routes
+    change between replays: each replay against the plain versions run
+    eagerly on the same token, bit for bit.  -> the routes seen."""
+    import torch
+    from tmac_tpu_torch.models.llama import rms_norm
+    from tmac_tpu_torch.models.moe import moe_mlp, route_topk, top_k
+    x = card.bf16(1, 1, cfg.hidden_size)
+    out = torch.empty_like(x)
+
+    def fn():
+        out.copy_(moe_mlp(x, layer, cfg, moe_impl="select"))
+    graph = capture(fn)
+    routes = []
+    for _ in range(replays):
+        x.copy_(card.bf16(1, 1, cfg.hidden_size) * 4.0)
+        graph.replay()
+        want = moe_mlp(x, layer, cfg, moe_impl="select", plain=True)
+        torch.cuda.synchronize()
+        xn = rms_norm(x, layer["mlp_norm"], cfg.rms_norm_eps).reshape(1, -1)
+        cw = route_topk(xn, layer["moe_router"], cfg.num_experts_per_tok,
+                        norm_topk=cfg.moe_norm_topk)
+        routes.append(top_k(cw[0], cfg.num_experts_per_tok)[1].tolist())
+        if not torch.equal(out, want):
+            raise AssertionError(f"K7 graph replay, route {routes[-1]}: max abs error "
+                                 f"{float((out.float() - want.float()).abs().max())}")
+    del graph
+    if len({tuple(r) for r in routes}) < 2:
+        raise AssertionError(f"K7 graph replay: the route never changed: {routes}")
+    return routes
 
 
 def mixtral_path(card):
@@ -1494,7 +1580,7 @@ def mixtral_path(card):
         allocated_gb=round(torch.cuda.memory_allocated() / 1e9, 3))
 
     # K7 at the path's expert shapes (bits 2) and Qwen2-MoE-A14B's (bits 4,
-    # a random 4-expert stack), N = 1 and 4, every expert
+    # a random 4-expert stack), N = 1 to 4, k = 1 at every expert and k = 2
     qcfg = get_preset("qwen2-moe-a14b")
     gen = torch.Generator(device=card.dev)
     gen.manual_seed(4)
@@ -1505,11 +1591,12 @@ def mixtral_path(card):
     q_dn = stack_experts(q4[8:])
     del q4
     cases = []
+    for N in (1, 2, 3, 4):
+        cases += [("gate_up", card.bf16(1, N, H), gu0, False),
+                  ("down", card.bf16(E, N, 2 * Ie).float(), dn0, True)]
     for N in (1, 4):
-        cases += [("gate_up", card.bf16(N, H), gu0, False),
-                  ("down", card.bf16(N, 2 * Ie), dn0, True),
-                  ("qwen gate_up", card.bf16(N, Hq), q_gu, False),
-                  ("qwen down", card.bf16(N, 2 * Iq), q_dn, True)]
+        cases += [("qwen gate_up", card.bf16(1, N, Hq), q_gu, False),
+                  ("qwen down", card.bf16(4, N, 2 * Iq).float(), q_dn, True)]
     rows, k7_err = check_k7(card, cases)
     # the stack at index e against the plain version on a copy of expert e
     # alone, and an index outside the stack (the output says so: NaN)
@@ -1524,11 +1611,20 @@ def mixtral_path(card):
     out_of_range = k7.qgemm_expert(x, dn0, torch.tensor([E], dtype=torch.int32,
                                                         device=card.dev), glu=True)
     nan_out = bool(torch.isnan(out_of_range).all())
+    # a route with one expert in range and one out: the first as alone
+    pair = k7.qgemm_experts(torch.stack([x, x]), dn0,
+                            torch.tensor([e, -1], dtype=torch.int32, device=card.dev),
+                            glu=True)
+    nan_out = nan_out and bool(torch.isnan(pair[1]).all())
+    copy_equal = copy_equal and torch.equal(pair[0], k4.qgemm_grouped_plain(
+        x, alone, glu=True))
+    routes = k7_route_graph(card, layers[0], cfg)
     say("k7_check", at_s=round(time.perf_counter() - t_path, 3), checks=rows,
-        expert_copy_equal=copy_equal, out_of_range_gives_nan=nan_out)
+        expert_copy_equal=copy_equal, out_of_range_gives_nan=nan_out,
+        graph_routes=routes)
     if not (copy_equal and nan_out):
-        raise AssertionError(f"K7: copy equal {copy_equal}, NaN for e = E {nan_out}")
-    del cases, q_gu, q_dn, alone, out_of_range
+        raise AssertionError(f"K7: copy equal {copy_equal}, NaN out of range {nan_out}")
+    del cases, q_gu, q_dn, alone, out_of_range, pair
     # K4, K1 and K2 at this path's own shapes and weights
     l0, eps = layers[0], cfg.rms_norm_eps
     k4_cases = [(s_, card.bf16(N, w), l0[s_], kw) for N in DECODE_ROWS + (256,)
@@ -1549,38 +1645,43 @@ def mixtral_path(card):
         k4=k4_rows, k1=k1_rows, k2=k2_rows)
 
     # prefill: wqkv and wo, and each expert's gate_up and down at C = 128
-    # slots (K4L), the head at 256 rows (K3); decode: 2 experts x (gate_up,
-    # down) through K7 a layer
+    # slots (K4L), the head at 256 rows (K3); decode: one K7 call for the 2
+    # routed experts' gate_up and one for their down a layer
     model, cache, launches, step_ms, graph_step_ms, _ = run_path(
         card, "mixtral", cfg, params, LLAMA_PROMPT,
         counts(K3=1, K4L=(2 + 2 * E) * L),
-        counts(K1=1.0, K4=2.0 * L, K2=float(L), K7=4.0 * L), forced=MOE_FORCED)
+        counts(K1=1.0, K4=2.0 * L, K2=float(L), K7=2.0 * L), forced=MOE_FORCED)
 
-    # K7 per call at decode (N=1): CUDA graphs of its calls over the 32
-    # layers' stacks (cold in L2, as in a step), one routed expert a layer
+    # K7 per call at decode (N=1), as the select form calls it: the 2 routed
+    # experts of a layer in one call, gate_up on the shared row, down on
+    # each expert's f32 gate_up output; CUDA graphs of its calls over the
+    # 32 layers' stacks (cold in L2, as in a step)
     k7_rows, tot = [], dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0)
+    k = cfg.num_experts_per_tok
     for shape, width, glu in (("gate_up", H, False), ("down", 2 * Ie, True)):
         name = "experts_" + shape
-        calls = [(card.bf16(1, width), layers[i][name],
-                  torch.tensor([(3 * i) % E], dtype=torch.int32, device=card.dev))
+        calls = [((card.bf16(k, 1, width).float() if glu else card.bf16(1, width)),
+                  layers[i][name],
+                  torch.tensor([(3 * i + j) % E for j in range(k)], dtype=torch.int32,
+                               device=card.dev))
                  for i in range(L)]
         x, st, idx = calls[0]
-        ms = graph_ms(lambda: [k7.qgemm_expert(a, s_, i_, glu=glu)
+        ms = graph_ms(lambda: [k7.qgemm_experts(a, s_, i_, glu=glu)
                                for a, s_, i_ in calls]) / L
-        plain_ms = cuda_ms(lambda: k7.qgemm_expert_plain(x, st, idx, glu=glu), 3)
+        plain_ms = cuda_ms(lambda: k7.qgemm_experts_plain(x, st, idx, glu=glu), 3)
         one = expert_view(st, 0)
-        lib_ms = yardstick_ms(card, x, one, True)
-        nbytes = qgemm_bytes(one, x, {})
-        ops = 2 * one.kdim_padded * one.mdim_padded
+        lib_ms = k * yardstick_ms(card, (x[0] if glu else x).to(torch.bfloat16), one, True)
+        nbytes = expert_bytes(one, k, x)
+        ops = 2 * k * one.kdim_padded * one.mdim_padded
         bound = card.bound_ms(nbytes, ops, card.int8_peak)
-        k7_rows.append(dict(shape=shape, K=one.kdim, Mp=one.mdim_padded, ms=ms,
-                            plain_ms=plain_ms, bound_ms=bound, library_ms=lib_ms,
-                            bytes=nbytes, per_step=2 * L))
+        k7_rows.append(dict(shape=shape, experts=k, K=one.kdim, Mp=one.mdim_padded,
+                            ms=ms, plain_ms=plain_ms, bound_ms=bound, library_ms=lib_ms,
+                            bytes=nbytes, per_step=L))
         for key, val in (("ms", ms), ("plain_ms", plain_ms),
                          ("bound_ms", bound), ("library_ms", lib_ms)):
-            tot[key] += 2 * L * val
+            tot[key] += L * val
     say("k7_times", at_s=round(time.perf_counter() - t_path, 3), rows=k7_rows,
-        per_step=dict(tot, calls=4 * L), card=card.name, nvidia_smi=card.smi)
+        per_step=dict(tot, calls=2 * L), card=card.name, nvidia_smi=card.smi)
 
     # K4 (wqkv with its norm, wo with its residual) at decode, over the 32
     # layers, as in path 2
@@ -1612,7 +1713,7 @@ def mixtral_path(card):
         kernel_bound_ms=bound_step, card=card.name, nvidia_smi=card.smi,
         path_s=round(time.perf_counter() - t_path, 3))
     return [
-        dict(name="qgemm_expert (K7)", path="mixtral-8x7b", route="cuda",
+        dict(name="qgemm_experts (K7)", path="mixtral-8x7b", route="cuda",
              source="tmac_tpu_torch/ops/cuda/csrc/qgemm_expert.cu",
              replaces="tmac_tpu/ops/pallas/expert_kernel.py:207",
              launches=launches["K7"], max_abs_err=k7_err,
@@ -2077,6 +2178,127 @@ def decode_plan_sweep(card, layers=8):
                 plan = k1.decode_plan(N, one.kdim_padded, M, bits, gs, card.sms)[0]
                 out.append(dict(shape=label, N=N, plan=plan, us=us))
             del ws
+    torch.cuda.empty_cache()
+    return out
+
+
+def expert_block_sweep(card, calls=8):
+    """K7 at Mixtral-8x7B's expert shapes (W2 g128: gate_up 4096 x 28672,
+    down 14336 x 4096 with the SwiGLU prologue) and K10 at BitNet-3B's
+    layer shapes, per call: CUDA graphs of `calls` calls over distinct
+    weights (two 8-expert stacks, each call routed to other experts; 8
+    BitNet layers), cold in the 50 MB L2 as in a decode step, beside the
+    byte bound and the yardstick (K7: the bf16 matmul on each routed
+    expert's dequantized weights; K10: K1's three calls).  K7 per expert
+    (k = 1) and for a layer's two routed experts, gate_up, down and both
+    as the select form runs them, at N = 1 and 4.  Runs on the package
+    before K7's k-expert form too (no qgemm_experts: two qgemm_expert calls
+    each, and the layer casts gate_up's output to bf16 between, as that
+    select form did).  With the k-expert form: K7's and K10's checks
+    first, and K7's two-expert calls at every cluster size beside
+    decode_plan's.  -> dict"""
+    import torch
+    from tmac_tpu_torch.models.moe import expert_view, stack_experts
+    from tmac_tpu_torch.ops.cuda import block_kernel as k10
+    from tmac_tpu_torch.ops.cuda import expert_kernel as k7
+    from tmac_tpu_torch.ops.cuda import qgemm_kernel as k1
+    from tmac_tpu_torch.ops.qgemm import fuse_m
+    gen = torch.Generator(device=card.dev)
+    gen.manual_seed(10)
+    H, Ie, E, k, dev = 4096, 14336, 8, 2, card.dev
+    new = hasattr(k7, "qgemm_experts")
+    stacks = [(stack_experts([fuse_m([rand_qt_on_card(gen, H, Ie, 2, 128, dev)
+                                      for _ in range(2)]) for _ in range(E)]),
+               stack_experts([rand_qt_on_card(gen, Ie, H, 2, 128, dev) for _ in range(E)]))
+              for _ in range(2)]
+    routes = [(i % 2, [(i // 2 * k + j) % E for j in range(k)]) for i in range(calls)]
+    idx = [torch.tensor(r, dtype=torch.int32, device=dev) for _, r in routes]
+    out = dict(new_form=new, card=card.name, nvidia_smi=card.smi)
+    if new:
+        gc = [("gate_up", card.bf16(1, N, H), stacks[0][0], False) for N in (1, 4)]
+        dc = [("down", card.bf16(E, N, 2 * Ie).float(), stacks[0][1], True) for N in (1, 4)]
+        out["k7_checks"] = check_k7(card, gc + dc)[0]
+    one_gu, one_dn = expert_view(stacks[0][0], 0), expert_view(stacks[0][1], 0)
+    rows = []
+    for N in (1, 4):
+        x, xd = card.bf16(N, H), card.bf16(k, N, 2 * Ie)
+        xdf = xd.float()  # each expert's gate_up output, as the select form gives it
+
+        def st(i, w):
+            return stacks[routes[i][0]][w]
+
+        def gu1(i):
+            k7.qgemm_expert(x, st(i, 0), idx[i][:1])
+
+        def dn1(i):
+            k7.qgemm_expert(xd[0], st(i, 1), idx[i][:1], glu=True)
+        if new:
+            def gu2(i):
+                k7.qgemm_experts(x, st(i, 0), idx[i])
+
+            def dn2(i):
+                k7.qgemm_experts(xdf, st(i, 1), idx[i], glu=True)
+
+            def layer(i):
+                g = k7.qgemm_experts(x, st(i, 0), idx[i])
+                k7.qgemm_experts(g.contiguous(), st(i, 1), idx[i], glu=True)
+        else:
+            def gu2(i):
+                for j in range(k):
+                    k7.qgemm_expert(x, st(i, 0), idx[i][j:j + 1])
+
+            def dn2(i):
+                for j in range(k):
+                    k7.qgemm_expert(xd[j], st(i, 1), idx[i][j:j + 1], glu=True)
+
+            def layer(i):
+                for j in range(k):
+                    g = k7.qgemm_expert(x, st(i, 0), idx[i][j:j + 1])
+                    k7.qgemm_expert(g.to(torch.bfloat16), st(i, 1), idx[i][j:j + 1], glu=True)
+        b_gu1 = card.bound_ms(expert_bytes(one_gu, 1, x), 2 * N * H * 2 * Ie, card.int8_peak)
+        b_dn1 = card.bound_ms(expert_bytes(one_dn, 1, xd[0]), 2 * N * H * Ie, card.int8_peak)
+        b_gu2 = card.bound_ms(expert_bytes(one_gu, k, x), 2 * k * N * H * 2 * Ie,
+                              card.int8_peak)
+        b_dn2 = card.bound_ms(expert_bytes(one_dn, k, xd), 2 * k * N * H * Ie, card.int8_peak)
+        lib_gu = yardstick_ms(card, x, one_gu, True)
+        lib_dn = yardstick_ms(card, xd[0], one_dn, True)
+        for label, fn, experts, bound, lib in (
+                ("gate_up", gu1, 1, b_gu1, lib_gu), ("down", dn1, 1, b_dn1, lib_dn),
+                ("gate_up", gu2, k, b_gu2, k * lib_gu), ("down", dn2, k, b_dn2, k * lib_dn),
+                ("layer", layer, k, b_gu2 + b_dn2, k * (lib_gu + lib_dn))):
+            us = graph_ms(lambda: [fn(i) for i in range(calls)]) / calls * 1e3
+            row = dict(shape=label, N=N, experts=experts, us=us, bound_us=bound * 1e3,
+                       bf16_us=lib * 1e3)
+            if new and label != "layer":
+                K, Mp = (H, 2 * Ie) if label == "gate_up" else (Ie, H)
+                row["ksplit"], row["nt"], row["stages"] = k1.decode_plan(
+                    N, K, Mp, 2, 128, card.sms, experts)
+                if experts == k:
+                    xi, w = (x, 0) if label == "gate_up" else (xdf, 1)
+                    row["us_by_ksplit"] = {}
+                    for ks in k1.DECODE_SPLITS:
+                        try:
+                            row["us_by_ksplit"][ks] = graph_ms(lambda: [
+                                k7.launch_experts(xi, st(i, w), idx[i], w == 1, ks)
+                                for i in range(calls)]) / calls * 1e3
+                        except ValueError:
+                            row["us_by_ksplit"][ks] = None
+            rows.append(row)
+    out["k7"] = rows
+    del stacks
+    torch.cuda.empty_cache()
+
+    # K10 at BitNet-3B's layer shapes (wo 3200 x 3200, gate_up 3200 x 17280,
+    # down 8640 x 3200), per-tensor W2
+    blocks = [(card.bf16(1, 3200), card.bf16(1, 3200),
+               (1.0 + 0.1 * card.bf16(3200)).to(torch.bfloat16),
+               ternary_qt_on_card(gen, 3200, 3200, dev),
+               ternary_qt_on_card(gen, 3200, 17280, dev),
+               ternary_qt_on_card(gen, 8640, 3200, dev), 1e-5) for _ in range(calls)]
+    if hasattr(k10, "block_plan"):
+        out["k10_checks"] = check_k10(card, [(f"layer {i}", blocks[i]) for i in (0, 1)])[0]
+    out["k10"] = time_k10(card, blocks)
+    del blocks
     torch.cuda.empty_cache()
     return out
 
@@ -2551,9 +2773,9 @@ def main() -> int:
     for ln in "\n".join(logs.values()).splitlines():
         if "Compiling entry function" in ln:
             mangled = ln.split("'")[1]
-            base = re.search(r"(act_quant_grouped|act_quant|expert_qgemm|qgemm"
-                             r"|decode_attention"
-                             r"|k1_decode|k4_decode|large_int|act_bf16|dequant_wgmma|group_mma"
+            base = re.search(r"(act_quant_grouped|act_quant|expert_quant|qgemm"
+                             r"|decode_attention|k1_decode|k4_decode|k7_decode"
+                             r"|large_int|act_bf16|dequant_wgmma|group_mma"
                              r"|block)_kernel", mangled)
             targs = template_args(mangled)
             kernel = f"{base.group(0) if base else mangled}<{','.join(targs)}>"
@@ -2563,6 +2785,10 @@ def main() -> int:
     if sys.argv[1:] == ["--phase", "decode_plan_sweep"]:
         say("decode_plan_sweep", card=card.name, nvidia_smi=card.smi,
             rows=decode_plan_sweep(card))
+        return 0
+    if sys.argv[1:] == ["--phase", "expert_block_sweep"]:
+        say("build", nvcc_s=round(build_s, 3), ptxas=ptxas)
+        say("expert_block_sweep", **expert_block_sweep(card))
         return 0
     if sys.argv[1:] == ["--phase", "qgemm_decode_sweep"]:
         say("build", nvcc_s=round(build_s, 3), ptxas=ptxas)
@@ -2582,10 +2808,12 @@ def main() -> int:
     say("qgemm_decode_sweep", card=card.name, nvidia_smi=card.smi,
         rows=qgemm_decode_sweep(card))
     say("pdl_overlap", card=card.name, **pdl_overlap(card))
+    say("expert_block_sweep", **expert_block_sweep(card))
     say("record", unit="device ms per decode step of each path (bitnet-3b: "
         "105 K1 and 26 K2 launches, in the block mode 26 K10, 27 K1 and 26 "
-        "K2; llama-2-7b: 128 K4, 1 K1 and 32 K2; mixtral-8x7b: 128 K7, 64 "
-        "K4, 32 K2 and 1 K1; phi-3-mini: 128 K4, 1 K1 and 32 K6, K8 or K9), "
+        "K2; llama-2-7b: 128 K4, 1 K1 and 32 K2; mixtral-8x7b: 64 K7 (one "
+        "call for the 2 routed experts' gate_up, one for their down, a "
+        "layer), 64 K4, 32 K2 and 1 K1; phi-3-mini: 128 K4, 1 K1 and 32 K6, K8 or K9), "
         "except K3, K5 and K4L: device ms per prefill (bitnet-3b: 420 K3 "
         "launches for 1024 tokens in chunks of 256; llama-2-7b: 256 K5 for "
         "1024 tokens in chunks of 512; phi-3-mini: 1152 K4L for 2304 tokens "

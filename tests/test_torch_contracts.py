@@ -208,6 +208,7 @@ def test_kernel_modules_do_not_build_on_import():
         "eq = QuantizedTensor.from_float(np.ones((512, 128), np.float32), 2, 128,"
         " scale_dtype=torch.bfloat16, device='cpu')\n"
         "expert_kernel.qgemm_expert(torch.ones(1, 512), stack_experts([eq, eq]), 1)\n"
+        "expert_kernel.qgemm_experts(torch.ones(1, 512), stack_experts([eq, eq]), [1, 0])\n"
         "q = torch.ones(1, 1, 1, 100); kv = torch.zeros(1, 1, 1, 8, 128)\n"
         "attention_kernel.flash_decode(q, kv, kv, torch.ones(1, dtype=torch.int32),"
         " torch.zeros(1, dtype=torch.int32))\n"
@@ -220,6 +221,7 @@ def test_kernel_modules_do_not_build_on_import():
         "assert qgemm_grouped_kernel.qgemm_grouped.launches == 0\n"
         "assert qgemm_grouped_kernel.qgemm_grouped_large.launches == 0\n"
         "assert expert_kernel.qgemm_expert.launches == 0\n"
+        "assert expert_kernel.qgemm_experts.launches == 0\n"
         "assert attention_kernel.flash_decode.launches == 0\n")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
                    timeout=120)
@@ -258,3 +260,8 @@ def test_ctypes_signatures_match_the_c_interfaces():
     assert c_args["tmac_decode_qgemm"] == 15
     assert c_args["tmac_decode_group_gemm"] == 16
     assert not {"tmac_qgemm", "tmac_group_dots", "tmac_group_fold"} & set(c_args)
+    # K7: one entry for the k routed experts (prologue and K4's decode
+    # matmul with the expert as grid.z); K10 with its scratch and grid
+    assert c_args["tmac_qgemm_experts"] == 24
+    assert "tmac_qgemm_expert" not in c_args
+    assert c_args["tmac_wo_mlp_block"] == 23

@@ -34,7 +34,7 @@ from tmac_tpu_torch.ops.cuda.expert_kernel import (expert_copy,
                                                    qgemm_expert,
                                                    qgemm_expert_plain)
 from tmac_tpu_torch.ops.cuda.qgemm_grouped_kernel import (
-    act_quant_grouped_plain, group_dots_plain, qgemm_grouped_plain)
+    act_quant_grouped_plain, qgemm_grouped_plain)
 from tmac_tpu_torch.ops.qgemm import QuantizedTensor, fuse_m
 from tmac_tpu_torch.utils import nmse
 
@@ -134,36 +134,31 @@ def test_plain_k7_is_k4_on_the_expert(bits, N, K, Ms, glu):
 
 @pytest.mark.parametrize("bits", [2, 4])
 def test_expert_walk_feeds_the_group_dots(bits):
-    """Emulates csrc/qgemm_expert.cu's group-dot phase: for a 32-column
-    strip, warp w takes chunks w, w+8, ..., lane (cg, rg) the columns
-    4cg..4cg+3 and, of each 16 packed rows, the 4 from 4rg; the 4 row groups
-    add by shuffles and chunk c's field j is group j * nchunks + c.  Every
-    expert's strip must equal the exact group dots."""
+    """Emulates K7's matmul (csrc/decode_matmul.cuh with the expert as
+    grid.z): a block offsets the stack's packed weights by e * Kb * Mp and
+    its scales and zero points by e * G * Mp, then runs K4's split of K over
+    a cluster; every cluster size's per-group partials and on-chip fold
+    must give K4's plain version on expert e, bit for bit."""
+    from tmac_tpu_torch.ops.cuda.qgemm_grouped_kernel import (block_partials_plain,
+                                                            fold_split_plain)
+    from tmac_tpu_torch.ops.cuda.qgemm_kernel import decode_units
     rng = np.random.default_rng(bits)
     K, M = 1024, 128
     st, _ = _stacks(rng, bits, K, (M,))
     x = torch.from_numpy(rng.standard_normal((2, K)).astype(np.float32))
-    P, Kb = 8 // bits, K // (8 // bits)
-    nchunks, mask = Kb // GS, (1 << bits) - 1
+    Kb, Mp, G = K * bits // 8, st.mdim_padded, K // GS
+    flat_pk, flat_sc = st.packed.reshape(-1), st.scales.reshape(-1)
+    _, _, nchunks = decode_units(K, bits, GS)
     for e in range(E):
         qt = expert_view(st, e)
-        codes = act_quant_grouped_plain(x, qt)[0].numpy().astype(np.int64)
-        pk = st.packed[e].numpy().astype(np.int64)
-        want = group_dots_plain(torch.from_numpy(codes).to(torch.int8), qt).numpy()
-        for m0 in range(0, M, 32):
-            dots = np.zeros((K // GS, 2, 32), np.int64)
-            for warp in range(8):
-                for c in range(warp, nchunks, 8):
-                    for rg in range(4):
-                        for r in range(c * GS + 4 * rg, (c + 1) * GS, 16):
-                            for cg in range(8):
-                                cols = slice(m0 + 4 * cg, m0 + 4 * cg + 4)
-                                rows = pk[r:r + 4, cols]          # (4 rows, 4 cols)
-                                for j in range(P):
-                                    w = (rows >> (bits * j)) & mask
-                                    xw = codes[:, j * Kb + r:j * Kb + r + 4]
-                                    dots[j * nchunks + c, :, 4 * cg:4 * cg + 4] += xw @ w
-            np.testing.assert_array_equal(dots, want[:, :, m0:m0 + 32])
+        assert torch.equal(flat_pk[e * Kb * Mp:(e + 1) * Kb * Mp].reshape(Kb, Mp), qt.packed)
+        assert torch.equal(flat_sc[e * G * Mp:(e + 1) * G * Mp].reshape(G, Mp), qt.scales)
+        codes, xs, xsum = act_quant_grouped_plain(x, qt)
+        want = qgemm_grouped_plain(x, qt)
+        for ksplit in range(1, nchunks + 1):
+            blocks = block_partials_plain(codes, qt, ksplit)
+            got = fold_split_plain(blocks, xs, xsum, qt, ksplit)
+            assert torch.equal(got, want), (e, ksplit)
 
 
 def test_wrapper_dispatch_and_limits():

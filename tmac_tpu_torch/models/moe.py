@@ -9,8 +9,9 @@ sum of the expert outputs.  Three forms compute it (``moe_mlp``):
 
   * select (B=1 decode, the default there): only the k routed experts run,
     through kernel K7 (ops/cuda/expert_kernel.py), which reads the expert
-    index from device memory and only that expert's bytes -- no host sync,
-    so the decode step can be captured in a CUDA graph;
+    indices from device memory and only those experts' bytes -- no host
+    sync, so the decode step can be captured in a CUDA graph; one call for
+    every routed expert's gate_up and one for their down;
   * dense-masked (other small blocks): every expert on every token, the
     combine weights zeroing the experts not routed to;
   * capacity dispatch (prefill blocks, T > 1 and N >= 64): a one-hot
@@ -33,8 +34,8 @@ import torch
 
 from tmac_tpu_torch.ops.cuda.expert_kernel import (expert_copy,
                                                    expert_kernel_supported,
-                                                   qgemm_expert,
-                                                   qgemm_expert_plain)
+                                                   qgemm_experts,
+                                                   qgemm_experts_plain)
 from tmac_tpu_torch.ops.qgemm import QuantizedTensor
 from tmac_tpu_torch.utils import round_up
 
@@ -202,16 +203,16 @@ def moe_mlp(x: torch.Tensor, layer: dict, cfg,
         acc = torch.zeros((N, H), dtype=torch.float32, device=x.device)
         if (expert_kernel_supported(gu_stack)
                 and expert_kernel_supported(down_stack)):
-            # K7: the routed index stays on the device and the kernel reads
-            # expert e's bytes from the stack; the gate_up output rounds to
-            # x's dtype, the down output stays f32
-            kernel = qgemm_expert_plain if plain else qgemm_expert
+            # K7: the routed indices stay on the device and the kernel reads
+            # the routed experts' bytes from the stack, all k in one call;
+            # down's prologue rounds the f32 gate_up output to bf16 as it
+            # reads it, the down output stays f32
+            kernel = qgemm_experts_plain if plain else qgemm_experts
             idx = topi.to(torch.int32)
+            gu = kernel(x2, gu_stack, idx)                   # (k, N, 2I)
+            ye = kernel(gu.contiguous(), down_stack, idx, glu=True)  # (k, N, H)
             for j in range(topi.shape[0]):
-                e = idx[j:j + 1]
-                gu = kernel(x2, gu_stack, e)
-                ye = kernel(gu.to(x2.dtype), down_stack, e, glu=True)
-                acc = acc + topw[j] * ye
+                acc = acc + topw[j] * ye[j]
         else:
             # outside K7's scope: a gathered copy of each routed expert
             for j in range(topi.shape[0]):

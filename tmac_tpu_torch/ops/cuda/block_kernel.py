@@ -5,8 +5,11 @@ token and per-tensor bits-2 weights (BitNet), wo + residual -> rms_norm ->
 gate_up -> SwiGLU -> down + residual, every matmul on int8 activations
 quantized per row, as CUDA C++ for Hopper in ``csrc/block_kernel.cu``.
 That source says what bounds the kernel (device-memory bytes), how its
-blocks wait for each other between phases, and which f32 steps of the
-reference it follows.
+blocks wait for each other between phases while the next phase's weights
+stream in, how the int32 sums of a strip are added across blocks, and
+which f32 steps of the reference it follows.  ``block_plan`` and the
+functions after it model the kernel's static partition of the work (the
+CPU tests hold them to ``int_dot_plain``).
 
 ``wo_mlp_block`` is the wrapper: a CPU tensor goes to the plain PyTorch
 version ``wo_mlp_block_plain``, a CUDA tensor to the kernel, which either
@@ -25,7 +28,7 @@ from tmac_tpu_torch.ops.cuda import qgemm_kernel as k1
 from tmac_tpu_torch.ops.cuda.qgemm_kernel import (act_scale, int_dot_plain,
                                                   raise_on, require)
 from tmac_tpu_torch.ops.qgemm import QuantizedTensor
-from tmac_tpu_torch.utils import fma_f32
+from tmac_tpu_torch.utils import cdiv, fma_f32
 
 _c_ptr, _c_int, _c_float = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
@@ -90,6 +93,52 @@ def wo_mlp_block_plain(attn: torch.Tensor, resid: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# The kernel's static plan (csrc/block_kernel.cu)
+# ---------------------------------------------------------------------------
+
+BLOCK_STRIP = 128       # columns of a unit
+BLOCK_STAGE_ROWS = 64   # packed rows of a unit (a stage of the ring)
+
+
+def block_plan(K: int, M: int):
+    """A phase's units: (units a strip, unit count) of a (K, M) bits-2
+    matmul, units numbered strip-major (strip = u // per_strip, its packed
+    rows from (u % per_strip) * 64)."""
+    per_strip = cdiv(K // 4, BLOCK_STAGE_ROWS)
+    return per_strip, (M // BLOCK_STRIP) * per_strip
+
+
+def block_spans(total: int, blocks: int):
+    """The units [u0, u1) of each of `blocks` blocks: b * total // blocks
+    on, in order, covering every unit once (empty where blocks > total)."""
+    return [(b * total // blocks, (b + 1) * total // blocks) for b in range(blocks)]
+
+
+def int_dot_units_plain(codes: torch.Tensor, qt: QuantizedTensor,
+                        blocks: int) -> torch.Tensor:
+    """The exact int32 dot (1, M) as the kernel's blocks add it: each block
+    sums each strip's packed rows of its units (field j of packed row r,
+    masked in place, meets code j * K / 4 + r, shifted back by 2j), and
+    the blocks' strip sums are added in device memory.  Equal to
+    int_dot_plain."""
+    K, M = qt.kdim_padded, qt.mdim_padded
+    Kb = K // 4
+    per_strip, total = block_plan(K, M)
+    c = codes.long()
+    pk = qt.packed.long()
+    sums = torch.zeros((codes.shape[0], M), dtype=torch.long)
+    for u0, u1 in block_spans(total, blocks):
+        for u in range(u0, u1):
+            strip, r0 = u // per_strip, (u % per_strip) * BLOCK_STAGE_ROWS
+            r1 = min(r0 + BLOCK_STAGE_ROWS, Kb)
+            cols = slice(strip * BLOCK_STRIP, (strip + 1) * BLOCK_STRIP)
+            for j in range(4):
+                masked = pk[r0:r1, cols] & (3 << (2 * j))
+                sums[:, cols] += (c[:, j * Kb + r0:j * Kb + r1] @ masked) >> (2 * j)
+    return sums.to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
 # CUDA kernel
 # ---------------------------------------------------------------------------
 
@@ -99,19 +148,37 @@ def _lib():
     lib = build.load("block_kernel")
     lib.tmac_wo_mlp_block.argtypes = [
         _c_ptr, _c_ptr, _c_ptr, _c_float, _c_float, _c_int, _c_int, _c_int,
-        _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr,
-        _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr]
+        _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr,
+        _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_int, _c_ptr]
     lib.tmac_wo_mlp_block.restype = _c_int
     return lib
+
+
+# per (card, H, I2): the int32 sums of wo, gate_up and down (2H + I2) the
+# kernel's blocks add into, and its counters (zero when made and left zero
+# by every launch)
+_scratch: dict = {}
+
+
+def _sums_scratch(dev, H: int, I2: int):
+    key = (dev, H, I2)
+    if key not in _scratch:
+        _scratch[key] = (torch.zeros(2 * H + I2, dtype=torch.int32, device=dev),
+                         torch.zeros(4, dtype=torch.int32, device=dev))
+    return _scratch[key]
 
 
 def wo_mlp_block(attn: torch.Tensor, resid: torch.Tensor,
                  norm_w: torch.Tensor, wo: QuantizedTensor,
                  gu: QuantizedTensor, dn: QuantizedTensor,
-                 eps: float) -> torch.Tensor:
+                 eps: float, blocks: int = 0) -> torch.Tensor:
     """One decode token through [wo + resid, rms_norm, gate_up, SwiGLU,
     down + resid]: attn and resid (1, H) bf16, norm_w (H,) bf16 -> (1, H)
-    f32.  CPU tensors take the plain version; CUDA tensors the kernel."""
+    f32.  CPU tensors take the plain version; CUDA tensors the kernel (H
+    and gate_up's M multiples of 128; one launch at a time on a card, as
+    its scratch sums are the card's).  blocks: the kernel's grid, 0 for
+    one block an SM (the plan); a grid larger than can be resident at once
+    is refused."""
     check_supported(attn, wo, gu, dn)
     if attn.device.type == "cpu":
         return wo_mlp_block_plain(attn, resid, norm_w, wo, gu, dn, eps)
@@ -127,10 +194,18 @@ def wo_mlp_block(attn: torch.Tensor, resid: torch.Tensor,
         require("K10", qt.packed, f"{name} packed", torch.uint8, (K // 4, M), dev)
         require("K10", qt.scales, f"{name} scales", torch.float32, (1, M), dev)
         require("K10", qt.sub, f"{name} sub", torch.float32, (1, M), dev)
-        if qt.packed.data_ptr() % 4:
-            raise ValueError(f"K10: {name} packed must be 4-byte aligned")
-    x2 = torch.empty((H,), dtype=torch.float32, device=dev)
-    gu_out = torch.empty((I2,), dtype=torch.float32, device=dev)
+    if H % BLOCK_STRIP or I2 % BLOCK_STRIP:
+        raise ValueError(f"K10 takes H and gate_up's M multiples of {BLOCK_STRIP}, "
+                         f"not {H} and {I2}")
+    # the kernel copies each array into shared memory 16 bytes at a time
+    for name, t in (("resid", resid), ("norm weight", norm_w),
+                    ("wo packed", wo.packed), ("wo scales", wo.scales), ("wo sub", wo.sub),
+                    ("gate_up packed", gu.packed), ("down packed", dn.packed)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"K10: {name} must be 16-byte aligned")
+    sums, counts = _sums_scratch(dev, H, I2)
+    # down's input before quantization, the blocks' absmax
+    work = torch.empty((Ip + 1024,), dtype=torch.float32, device=dev)
     out = torch.empty((1, H), dtype=torch.float32, device=dev)
     err = _lib().tmac_wo_mlp_block(
         attn.data_ptr(), resid.data_ptr(), norm_w.data_ptr(), float(eps),
@@ -138,7 +213,7 @@ def wo_mlp_block(attn: torch.Tensor, resid: torch.Tensor,
         wo.packed.data_ptr(), wo.scales.data_ptr(), wo.sub.data_ptr(),
         gu.packed.data_ptr(), gu.scales.data_ptr(), gu.sub.data_ptr(),
         dn.packed.data_ptr(), dn.scales.data_ptr(), dn.sub.data_ptr(),
-        x2.data_ptr(), gu_out.data_ptr(), out.data_ptr(),
+        work.data_ptr(), out.data_ptr(), sums.data_ptr(), counts.data_ptr(), int(blocks),
         torch.cuda.current_stream(dev).cuda_stream)
     raise_on("K10", err, "block")
     wo_mlp_block.launches += 1

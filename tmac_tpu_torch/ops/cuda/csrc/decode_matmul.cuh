@@ -1,6 +1,8 @@
-// The decode-time matmul of K1 (qgemm_fused.cu, per-tensor scales) and K4
-// (qgemm_grouped.cu, grouped scales): N < 64 rows of int8 activation codes
-// from the prologue against packed low-bit weights, for Hopper.
+// The decode-time matmul of K1 (qgemm_fused.cu, per-tensor scales), K4
+// (qgemm_grouped.cu, grouped scales) and K7 (qgemm_expert.cu: K4 on the
+// routed experts of a stack, the expert a grid dimension): N < 64 rows of
+// int8 activation codes from the prologue against packed low-bit weights,
+// for Hopper.
 //
 // What bounds it: at decode each packed weight byte feeds 4 (bits 2), 2
 // (bits 4) or 1 (bits 8) multiply-adds a row, far below the card's
@@ -43,7 +45,9 @@
 //   columns.  After cluster.sync() every block stores its partials into the
 //   (then idle) ring of the block that finishes their columns, through
 //   distributed shared memory (stores, which nothing waits on), and after a
-//   second cluster.sync() each block works from its own shared memory only:
+//   second cluster.sync() each block works from its own shared memory only
+//   (a cluster of one skips both: its flush lays its partials out as the
+//   fold reads them):
 //   K1 adds the ksplit partials of an output in rank order and runs the f32
 //   epilogue; K4 folds an output's partials over g = 0 .. G - 1 in order
 //   (tmac::GroupFold, the reference's f32 chain; partial g comes from the
@@ -51,6 +55,12 @@
 // - The epilogue's operands (K1's scales and zero points before the wait;
 //   xs, xsum and the residual after it) are loaded into registers before
 //   the main loop, so no load waits at the end.
+// - K7 (EXPERTS): block (x, y, j) reads the index of routed expert j before
+//   it waits for the prologue (written two kernels back, complete when the
+//   prologue, which waited for it, let this grid start), offsets the
+//   weights, scales and zero points to that expert (and its codes, xs and
+//   xsum to row block j when each expert has its own rows) and writes to
+//   output slice j; the ring's depth (STAGES) is K7's plan's, 6 or 8.
 
 #pragma once
 
@@ -72,8 +82,7 @@ constexpr int kThreads = 256;
 constexpr int kStrip = 128;                       // columns of a block
 constexpr int kStageRows = 32;                    // packed rows of a stage
 constexpr int kStageBytes = kStageRows * kStrip;  // one 16-byte copy a thread
-constexpr int kStages = 8;
-constexpr int kRingBytes = kStages * kStageBytes;
+constexpr int kStages = 8;                        // K1's and K4's; K7 takes 6 or 8
 constexpr int kMaxSplit = 8;                      // portable cluster size
 constexpr int kSliceUnits = kStrip / 8;           // the fold's slices: 8 columns
 constexpr int kXStride = 20;  // ints a lane in K4's exchange buffer (P * 4 <= 16)
@@ -89,6 +98,12 @@ struct Args {
   const __nv_bfloat16* residual;  // (N, Mp) or null
   float* out;            // (N, Mp)
   int N, Kp, Kb, Mp, G, nunits, unit_rows;
+  // K7 (EXPERTS): grid.z = the routed experts j, expert idx[j] of a stack
+  // of E (packed (E, Kb, Mp), scales and sub (E, G, Mp)); codes, xs and
+  // xsum shared by all of them (x_per_expert 0) or a block of N rows each;
+  // out (experts, N, Mp)
+  const int* idx;
+  int E, x_per_expert;
 };
 
 __host__ __device__ inline int align16(int b) { return (b + 15) / 16 * 16; }
@@ -102,12 +117,13 @@ __host__ __device__ inline int align16(int b) { return (b + 15) / 16 * 16; }
 struct Layout {
   int span, units, slice, codes, parts, fsc, fxs, xbuf, total;
   __host__ __device__ Layout(int P, int NT, bool grouped, int nunits,
-                             int unit_rows, int ksplit, int G) {
+                             int unit_rows, int ksplit, int G, int stages = kStages) {
+    const int ring = stages * kStageBytes;
     units = (nunits + ksplit - 1) / ksplit;
     span = (units * unit_rows + kStageRows - 1) / kStageRows * kStageRows;
     slice = (kSliceUnits + ksplit - 1) / ksplit * 8;
     const int recv = (grouped ? G : ksplit) * NT * slice * 4;
-    codes = align16(recv > kRingBytes ? recv : kRingBytes);
+    codes = align16(recv > ring ? recv : ring);
     parts = codes + align16(NT * P * span);
     fsc = parts + (grouped ? units * P : 1) * NT * kStrip * 4;
     fxs = fsc + (grouped ? align16(2 * G * slice * 2) : 0);
@@ -142,7 +158,9 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // The thread's sums into partial block `blk` of part_s (K4: chunk, field,
-// row, column; K1: row, column), then cleared.  The 8 row groups of a warp
+// row, column, or, for a cluster of one (nchunks > 0), group j * nchunks +
+// blk, row, column: the layout the fold reads; K1: row, column), then
+// cleared.  The 8 row groups of a warp
 // hold sums of the same columns: K4 adds them through a per-warp exchange
 // buffer in shared memory (a third of the instructions of a shuffle
 // reduce-scatter, measured twice as fast on an H100); K1, which flushes
@@ -151,7 +169,8 @@ __device__ __forceinline__ void cp_async_wait() {
 // exact.  (A function, not a lambda: acc must stay in registers.)
 template <int BITS, int NT, int P, bool GROUPED>
 __device__ __forceinline__ void flush(int (&acc)[NT][P][4], int* part_s, int* xbuf, int blk,
-                                      int rg, int cw, int lane, int col0, int nrows) {
+                                      int nchunks, int rg, int cw, int lane, int col0,
+                                      int nrows) {
   if (GROUPED) {
     // per token row n: each lane's P * 4 sums into the warp's exchange
     // buffer (kXStride ints a lane: conflict-free 16-byte stores), then lane
@@ -176,7 +195,8 @@ __device__ __forceinline__ void flush(int (&acc)[NT][P][4], int* part_s, int* xb
 #pragma unroll
       for (int i = 0; i < H; ++i) {
         const int e = rg * H + i, j = e / 4, c = e % 4;
-        part_s[((blk * P + j) * NT + n) * kStrip + col0 + c] = sum[i] >> (BITS * j);
+        const int slot = nchunks ? j * nchunks + blk : blk * P + j;
+        part_s[(slot * NT + n) * kStrip + col0 + c] = sum[i] >> (BITS * j);
       }
       __syncwarp();
     }
@@ -203,9 +223,11 @@ __device__ __forceinline__ void flush(int (&acc)[NT][P][4], int* part_s, int* xb
 
 // The kernel body.  BITS 2 or 4 (fields of unsigned codes) or 8 (signed
 // codes, one a byte); NT token rows a block; GROUPED: K4 (per-group
-// partials and the fold) or K1 (one int32 sum and its epilogue).
-template <int BITS, int NT, bool GROUPED>
-__device__ __forceinline__ void decode_matmul(const Args& a) {
+// partials and the fold) or K1 (one int32 sum and its epilogue); EXPERTS:
+// K7, K4 on the routed experts of a stack, one grid.z slice each; STAGES:
+// the ring's stages.
+template <int BITS, int NT, bool GROUPED, bool EXPERTS = false, int STAGES = kStages>
+__device__ __forceinline__ void decode_matmul(const Args& args) {
   constexpr int P = BITS == 8 ? 1 : 8 / BITS;
   constexpr uint32_t kField = BITS == 2 ? 0x03030303u : 0x0F0F0F0Fu;
   extern __shared__ __align__(16) uint8_t smem[];
@@ -220,13 +242,40 @@ __device__ __forceinline__ void decode_matmul(const Args& a) {
   const int col0 = 16 * warp + 4 * cw;
   const int m0 = (blockIdx.x / ksplit) * kStrip;
   const int n0 = blockIdx.y * NT;
-  const int nrows = min(NT, a.N - n0);
-  const int u0 = rank * a.nunits / ksplit, u1 = (rank + 1) * a.nunits / ksplit;
-  const int r0 = u0 * a.unit_rows, r1 = min(u1 * a.unit_rows, a.Kb);
+  const int nrows = min(NT, args.N - n0);
+  const int u0 = rank * args.nunits / ksplit, u1 = (rank + 1) * args.nunits / ksplit;
+  const int r0 = u0 * args.unit_rows, r1 = min(u1 * args.unit_rows, args.Kb);
   const int nst = (r1 - r0 + kStageRows - 1) / kStageRows;
-  const Layout L(P, NT, GROUPED, a.nunits, a.unit_rows, ksplit, a.G);
+  const Layout L(P, NT, GROUPED, args.nunits, args.unit_rows, ksplit, args.G, STAGES);
   const int s0 = slice_start(rank, ksplit), s1 = slice_start(rank + 1, ksplit);
   const int w = s1 - s0, nout = NT * w;  // the outputs this block finishes
+  Args routed = args;  // K7: the routed expert's operands
+  if (EXPERTS) {
+    // The routed expert, read before pdl_wait: the index was written two
+    // kernels back (the router's cast), and the prologue between waited
+    // for that kernel's completion before it let this grid start.  Every
+    // block of a cluster reads the same index, so a cluster leaves whole.
+    const int j = blockIdx.z;
+    const int e = __ldcg(args.idx + j);
+    Args& r = routed;
+    r.out += (size_t)j * r.N * r.Mp;
+    if (e < 0 || e >= r.E) {  // no expert to read: the outputs say so
+      pdl_wait();
+      for (int o = tid; o < nout; o += kThreads)
+        if (o / w < nrows)
+          r.out[(size_t)(n0 + o / w) * r.Mp + m0 + s0 + o % w] = __int_as_float(0x7fc00000);
+      return;
+    }
+    r.packed += (size_t)e * r.Kb * r.Mp;
+    r.scales = static_cast<const __nv_bfloat16*>(r.scales) + (size_t)e * r.G * r.Mp;
+    r.sub = static_cast<const __nv_bfloat16*>(r.sub) + (size_t)e * r.G * r.Mp;
+    if (r.x_per_expert) {
+      r.codes += (size_t)j * r.N * r.Kp;
+      r.xs += (size_t)j * r.N * r.G;
+      r.xsum += (size_t)j * r.N * r.G;
+    }
+  }
+  const Args& a = EXPERTS ? routed : args;
   int8_t* codes_s = reinterpret_cast<int8_t*>(smem + L.codes);
   int* part_s = reinterpret_cast<int*>(smem + L.parts);
   int* xbuf = reinterpret_cast<int*>(smem + L.xbuf) + warp * 32 * kXStride;
@@ -254,7 +303,7 @@ __device__ __forceinline__ void decode_matmul(const Args& a) {
                  (which ? sb : sc) + (size_t)g * a.Mp + m0 + s0 + 8 * u, true);
     }
   }
-  for (int s = 0; s < kStages - 1; ++s) {
+  for (int s = 0; s < STAGES - 1; ++s) {
     if (s < nst) load_stage(s, s);
     cp_async_commit();
   }
@@ -327,11 +376,11 @@ __device__ __forceinline__ void decode_matmul(const Args& a) {
   for (int t0 = 0; t0 < nst; t0 += spu) {
 #pragma unroll 1
     for (int t = t0; t < min(t0 + spu, nst); ++t) {
-      cp_async_wait<kStages - 2>();
+      cp_async_wait<STAGES - 2>();
       __syncthreads();
-      if (t + kStages - 1 < nst) load_stage(t + kStages - 1, (t + kStages - 1) % kStages);
+      if (t + STAGES - 1 < nst) load_stage(t + STAGES - 1, (t + STAGES - 1) % STAGES);
       cp_async_commit();
-      const uint8_t* st = smem + (t % kStages) * kStageBytes + 4 * rg * kStrip +
+      const uint8_t* st = smem + (t % STAGES) * kStageBytes + 4 * rg * kStrip +
                           ((warp ^ rg) & 7) * 16 + 4 * cw;
       uint32_t col[4];
       transpose4(*reinterpret_cast<const uint32_t*>(st),
@@ -355,38 +404,49 @@ __device__ __forceinline__ void decode_matmul(const Args& a) {
       }
     }
     if (GROUPED)
-      flush<BITS, NT, P, true>(acc, part_s, xbuf, t0 / spu, rg, cw, lane, col0, nrows);
+      flush<BITS, NT, P, true>(acc, part_s, xbuf, t0 / spu, ksplit == 1 ? a.nunits : 0, rg,
+                               cw, lane, col0, nrows);
   }
-  if (!GROUPED) flush<BITS, NT, P, false>(acc, part_s, xbuf, 0, rg, cw, lane, col0, nrows);
+  if (!GROUPED) flush<BITS, NT, P, false>(acc, part_s, xbuf, 0, 0, rg, cw, lane, col0, nrows);
   cp_async_wait<0>();
   __syncthreads();
-  cluster.sync();  // every block's partials are complete and its ring idle
+  // partial (group g, or rank g for K1; row n; column mm of the slice) at
+  // part0[(g * NT + n) * width + mm]: a cluster of one folds from its own
+  // partials, which its flush laid out so
+  const int* part0 = part_s;
+  int width = kStrip;
+  if (ksplit > 1) {
+    cluster.sync();  // every block's partials are complete and its ring idle
 
-  // each block's partials into the receive area (the ring) of the block
-  // that finishes their columns: plain stores into distributed shared
-  // memory, which nothing waits on until the barrier below
-  int* recv = reinterpret_cast<int*>(smem);
-  if (GROUPED) {
-    const int nchunks = a.nunits;
-    for (int i = tid; i < (u1 - u0) * P * NT * kStrip; i += kThreads) {
-      const int m = i % kStrip, n = (i / kStrip) % NT, lj = i / (kStrip * NT);
-      if (n >= nrows) continue;
-      const int g = (lj % P) * nchunks + u0 + lj / P;
-      const int o = slice_owner(m, ksplit);
-      cluster.map_shared_rank(recv, o)[(g * NT + n) * L.slice + m - slice_start(o, ksplit)] =
-          part_s[i];
+    // each block's partials into the receive area (the ring) of the block
+    // that finishes their columns: plain stores, into distributed shared
+    // memory for another block's, which nothing waits on until the
+    // barrier below
+    int* recv = reinterpret_cast<int*>(smem);
+    if (GROUPED) {
+      const int nchunks = a.nunits;
+      for (int i = tid; i < (u1 - u0) * P * NT * kStrip; i += kThreads) {
+        const int m = i % kStrip, n = (i / kStrip) % NT, lj = i / (kStrip * NT);
+        if (n >= nrows) continue;
+        const int g = (lj % P) * nchunks + u0 + lj / P;
+        const int o = slice_owner(m, ksplit);
+        int* dst = o == rank ? recv : cluster.map_shared_rank(recv, o);
+        dst[(g * NT + n) * L.slice + m - slice_start(o, ksplit)] = part_s[i];
+      }
+    } else {
+      for (int i = tid; i < NT * kStrip; i += kThreads) {
+        const int m = i % kStrip, n = i / kStrip;
+        if (n >= nrows) continue;
+        const int o = slice_owner(m, ksplit);
+        int* dst = o == rank ? recv : cluster.map_shared_rank(recv, o);
+        dst[(rank * NT + n) * L.slice + m - slice_start(o, ksplit)] = part_s[i];
+      }
     }
-  } else {
-    for (int i = tid; i < NT * kStrip; i += kThreads) {
-      const int m = i % kStrip, n = i / kStrip;
-      if (n >= nrows) continue;
-      const int o = slice_owner(m, ksplit);
-      cluster.map_shared_rank(recv, o)[(rank * NT + n) * L.slice + m - slice_start(o, ksplit)] =
-          part_s[i];
-    }
+    cluster.sync();  // every partial has landed; nothing crosses blocks after
+    part0 = recv;
+    width = L.slice;
   }
-  cluster.sync();  // every partial has landed; nothing crosses blocks after
-  pdl_trigger();   // a programmatically launched successor may start
+  pdl_trigger();  // a programmatically launched successor may start
 
   if (!GROUPED) {
     // K1: the ksplit partials of each output in rank order, then the f32
@@ -397,7 +457,7 @@ __device__ __forceinline__ void decode_matmul(const Args& a) {
       const int o = tid + h * kThreads, n = o / w, mm = o % w;
       if (o >= nout || n >= nrows) continue;
       int s = 0;
-      for (int b = 0; b < ksplit; ++b) s += recv[(b * NT + n) * L.slice + mm];
+      for (int b = 0; b < ksplit; ++b) s += part0[(b * NT + n) * width + mm];
       const float zero_fold = -__fmul_rn(e_xq[h], e_sb[h]);
       float v = __fmaf_rn(__fmul_rn((float)s, e_sc[h]), e_xs[h], zero_fold);
       if (a.residual != nullptr) v = __fadd_rn(v, e_res[h]);
@@ -405,7 +465,7 @@ __device__ __forceinline__ void decode_matmul(const Args& a) {
     }
   } else {
     // K4: the fold of each output over the groups in order (the
-    // reference's f32 chain), from the received partials
+    // reference's f32 chain), from the partials
     const __nv_bfloat16* fsc = reinterpret_cast<const __nv_bfloat16*>(smem + L.fsc);
     const __nv_bfloat16* fsb = fsc + (size_t)a.G * L.slice;
 #pragma unroll
@@ -415,7 +475,7 @@ __device__ __forceinline__ void decode_matmul(const Args& a) {
       GroupFold fold;
 #pragma unroll 4
       for (int g = 0; g < a.G; ++g)
-        fold.step(g, (float)recv[(g * NT + n) * L.slice + mm], fxs[n * a.G + g],
+        fold.step(g, (float)part0[(g * NT + n) * width + mm], fxs[n * a.G + g],
                   __bfloat162float(fsc[g * L.slice + mm]), fxs[(NT + n) * a.G + g],
                   __bfloat162float(fsb[g * L.slice + mm]));
       float v = fold.result();
@@ -448,13 +508,14 @@ int launch_programmatic(void (*kernel)(Params...), dim3 grid, dim3 block, int sm
 }
 
 // Launch `kernel` (one of the decode_matmul instances) on a grid of
-// (Mp / 128) * ksplit x cdiv(N, NT) blocks in clusters of ksplit along x,
+// (Mp / 128) * ksplit x cdiv(N, NT) x experts blocks in clusters of ksplit
+// along x,
 // with programmatic stream serialization (it starts while the prologue
 // before it runs).  A cluster the card cannot place is refused with
 // cudaErrorInvalidConfiguration; nothing falls back.
 template <typename Kernel>
 int launch(Kernel kernel, const Args& a, int ksplit, int NT, int smem,
-           cudaStream_t stream) {
+           cudaStream_t stream, int experts = 1) {
   // (kernel, ksplit, shared memory) triples already admitted
   static const void* admitted[64];
   static int admitted_key[64], n_admitted = 0;
@@ -470,7 +531,7 @@ int launch(Kernel kernel, const Args& a, int ksplit, int NT, int smem,
   attr[1].id = cudaLaunchAttributeProgrammaticStreamSerialization;
   attr[1].val.programmaticStreamSerializationAllowed = 1;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((a.Mp / kStrip) * ksplit, (a.N + NT - 1) / NT);
+  cfg.gridDim = dim3((a.Mp / kStrip) * ksplit, (a.N + NT - 1) / NT, experts);
   cfg.blockDim = dim3(kThreads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;

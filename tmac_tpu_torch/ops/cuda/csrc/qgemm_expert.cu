@@ -1,265 +1,186 @@
-// K7: decode qgemm against expert e of a stacked MoE weight, for Hopper.
+// K7: decode qgemm against the routed experts of a stacked MoE weight, for
+// Hopper: every routed expert of a token in one launch of the shared decode
+// matmul (decode_matmul.cuh), after one prologue.
 //
 // Replaces tmac_tpu/ops/pallas/expert_kernel.py::_expert_kernel (reached
-// through qgemm_expert_pallas), the select form of models/moe.py's MoE MLP:
+// through qgemm_expert_pallas), the select form of models/moe.py's MoE MLP,
+// for the k experts of a top-k route at once:
 //
-//   e, read from device memory (a one-element int32 tensor, e.g. a slice of
-//     the router's top-k indices), so that no host sync and no copy of the
-//     expert is needed and a decode step can be captured in a CUDA graph;
-//   x (N, K) bf16 [or (N, 2K) for the SwiGLU prologue]
+//   idx (k,) int32, read from device memory (the router's top-k indices), so
+//     that no host sync and no copy of an expert is needed and a decode step
+//     can be captured in a CUDA graph;
+//   x (N, K) [or (N, 2K) for the SwiGLU prologue], shared by the k experts,
+//     or (k, N, K) [(k, N, 2K)], a block of rows each; bf16, or f32 rounded
+//     to bf16 as it is read (round to nearest even, as .to(bfloat16)), so
+//     that down reads gate_up's f32 output with no cast between;
 //     -> optional silu(g) * u
 //     -> per (row n, group g of gs columns): xs = max(amax, 1e-20) * (1/127),
 //        int8 codes rint(x / xs) clamped to +-127, xsum = (code sum) * xs
-//     -> per group: exact int32 dot of the codes with expert e's weight codes
-//        (packed (E, K / p, Mp), field j of packed row r holds k = r + j*K/p)
+//     -> per group: exact int32 dot of the codes with expert idx[j]'s weight
+//        codes (packed (E, K / p, Mp), field f of packed row r holds
+//        k = r + f*K/p)
 //     -> the f32 fold of K4 (act_prologue.cuh, GroupFold): acc over the
 //        groups in order with the reference's FMA pairing, minus xsum @ sub
 //        (scales and sub (E, G, Mp) bf16)
-//     -> out (N, Mp) f32.
+//     -> out (k, N, Mp) f32; an index outside [0, E) gives NaN outputs.
 //
 // What bounds it: at decode (N = 1) each packed weight byte feeds 4 (bits 2)
-// or 2 (bits 4) multiply-adds, so device-memory bytes bound it, and only
-// expert e's bytes may move (a top-2 of 8 reads a quarter of the stack).
-// The design:
-//   * two kernels.  The prologue gives each (row, group) a warp of its own
-//     (112 warps for Mixtral's down at N = 1) and writes the codes, xs and
-//     xsum (a few KB) that every matmul block reads from L2; quantizing
-//     inside each matmul block would repeat that serial work in every
-//     block and every wave.
-//   * the matmul: the TPU kernel's sequential grid becomes a loop inside
-//     each block.  A block owns a strip of 32 output columns and every
-//     group of them, so it folds the groups in order itself (K4 needs an
-//     int32 partials buffer and a third kernel for that, because its
-//     blocks split K).  The strip's scales and sub are copied to shared
-//     memory asynchronously while the weights stream, so the fold waits on
-//     no device memory.
-//   * narrow strips give many blocks (128 for a 4096-column down, 896 for
-//     Mixtral's 28672-column gate_up) to spread the weight reads over the
-//     SMs; a block has 16 warps where K has 16 chunks of gs packed rows or
-//     more (8 otherwise), so a narrow output keeps more loads in flight.  A
-//     warp takes whole chunks; a lane loads 4 adjacent columns of 4
-//     consecutive packed rows (four 32-bit loads; the 8 lanes of a row
-//     group read 32 contiguous bytes, a full sector), regroups them per
-//     column with byte permutes and masks out field j: 4 consecutive k of
-//     one group, which meet one 32-bit word of codes in a dp4a.  The 4 row
-//     groups of a warp add their partials with shuffles; the exact int32
-//     group dots go to shared memory, and one thread per output folds them.
-// A matmul block's shared memory holds the group dots (G * NT * 32 ints)
-// and the strip's scales and sub: 28.7 KB at Mixtral's down (K 14336) for
-// N = 1, 71.7 KB for N = 4.
+// or 2 (bits 4) multiply-adds, so device-memory bytes bound it, and only the
+// routed experts' bytes may move (a top-2 of 8 reads a quarter of the
+// stack): 29.4 MB of gate_up and 14.7 MB of down for Mixtral's two experts
+// a layer.  The design:
+//   * two launches for the k experts, not two an expert: the prologue
+//     quantizes x once (gate_up: one x for every expert; down: each
+//     expert's own row block), a warp per (row block, group), launched
+//     programmatically; the matmul is K4's decode matmul with the expert as
+//     grid.z, launched programmatically after it;
+//   * the matmul's blocks (strip, K range, row tile, expert) read idx[j]
+//     before they wait for the prologue, offset their weights, scales and
+//     zero points to expert idx[j], and issue their first weight copies
+//     while the prologue runs; the ring of cp.async stages, the K split
+//     over a cluster and the group fold in distributed shared memory are
+//     decode_matmul.cuh's (decode_plan counts k times the blocks).
 
 #include <cuda_bf16.h>
-#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
-#include <math.h>
 #include <stdint.h>
 
 #include "act_prologue.cuh"
+#include "decode_matmul.cuh"
 
 namespace {
 
 constexpr int kWarps = 8;
-constexpr int kStrip = 32;      // output columns of a block
-constexpr int kMaxRows = 4;     // token rows the kernel takes
-constexpr int kMaxShared = 227 * 1024;
+constexpr int kMaxRows = 4;  // token rows the kernel takes
 
-// the group dots (G, NT, S) int32, then the strip's scales and sub (G, S)
-// bf16 each
-inline size_t shared_bytes(int NT, int G) {
-  constexpr int S = kStrip;
-  return sizeof(int) * (size_t)G * NT * S + 2 * sizeof(__nv_bfloat16) * G * S;
+__device__ __forceinline__ float load_value(const __nv_bfloat16* p) {
+  return __bfloat162float(*p);
 }
 
-// The prologue: warp w of block (b, n) quantizes group 8 b + w of row n.
-__global__ void __launch_bounds__(kWarps * 32) expert_act_quant_kernel(
-    const __nv_bfloat16* __restrict__ x, int x_cols, int K, int gs, int glu,
-    int8_t* __restrict__ codes, float* __restrict__ xs,
-    float* __restrict__ xsum) {
-  const int G = K / gs, n = blockIdx.y;
-  const int g = blockIdx.x * kWarps + (threadIdx.x >> 5);
+// an f32 value rounded to bf16 first, as .to(torch.bfloat16) rounds it
+__device__ __forceinline__ float load_value(const float* p) {
+  return __bfloat162float(__float2bfloat16_rn(*p));
+}
+
+// The prologue: warp w of block (b, r) quantizes group kWarps * b + w of
+// row r of x (rows: N, or k * N with a block of rows an expert), glu: the
+// row holds g in [0, K) and u in [K, 2K).  The group's values are staged in
+// the warp's gs floats of shared memory, silu(g) * u once a value.
+template <typename T>
+__global__ void __launch_bounds__(kWarps * 32) expert_quant_kernel(
+    const T* __restrict__ x, int x_cols, int K, int gs, int glu,
+    int8_t* __restrict__ codes, float* __restrict__ xs, float* __restrict__ xsum) {
+  // launched programmatically: wait for the kernels before, then let the
+  // matmul after start
+  tmac::pdl_wait();
+  tmac::pdl_trigger();
+  extern __shared__ float vals[];  // kWarps x gs
+  const int G = K / gs, r = blockIdx.y, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = blockIdx.x * kWarps + warp;
   if (g >= G) return;
-  const __nv_bfloat16* xr = x + (size_t)n * x_cols;
-  tmac::quant_group_warp([&](int k) { return tmac::glu_value(xr, k, K, glu); },
-                         g * gs, gs, codes + (size_t)n * K, xs + n * G + g,
-                         xsum + n * G + g);
+  const T* xr = x + (size_t)r * x_cols + (size_t)g * gs;
+  float* v = vals + warp * gs;
+#pragma unroll 4
+  for (int i = lane; i < gs; i += 32) {
+    float a = load_value(xr + i);
+    if (glu) a = tmac::silu_mul(a, load_value(xr + K + i));
+    v[i] = a;
+  }
+  __syncwarp();
+  tmac::quant_group_warp([&](int k) { return v[k - g * gs]; }, g * gs, gs,
+                         codes + (size_t)r * K, xs + (size_t)r * G + g,
+                         xsum + (size_t)r * G + g);
 }
 
-// The matmul on the prologue's outputs.  Block: columns [S * blockIdx.x,
-// +S), S = 32, W warps.  NT: rows the shared buffer holds (N <= NT).
-template <int BITS, int NT, int W>
-__global__ void __launch_bounds__(W * 32, 16 / W) expert_qgemm_kernel(
-    const int8_t* __restrict__ codes, const float* __restrict__ xs,
-    const float* __restrict__ xsum, int N, int K, int gs,
-    const int32_t* __restrict__ e_ptr, int E,
-    const uint8_t* __restrict__ packed, const __nv_bfloat16* __restrict__ scales,
-    const __nv_bfloat16* __restrict__ sub, int Mp, float* __restrict__ out) {
-  constexpr int P = 8 / BITS, S = kStrip;
-  constexpr uint32_t kMask = BITS == 2 ? 0x03030303u : 0x0F0F0F0Fu;
-  // a chunk's loads issued together: all 8 steps of a g128 chunk with 16
-  // warps (few blocks), 4 with 8 (registers for two blocks an SM)
-  constexpr int kUnroll = W == 16 ? 8 : 4;
-  constexpr int CG = S / 4;         // lanes across a packed row (4 columns each)
-  constexpr int ROWS = 4 * 32 / CG; // packed rows a warp covers per step
-  extern __shared__ __align__(16) int dots_s[];
-  const int G = K / gs, Kb = K / P, nchunks = Kb / gs;
-  __nv_bfloat16* sc_s = reinterpret_cast<__nv_bfloat16*>(dots_s + G * NT * S);
-  __nv_bfloat16* sb_s = sc_s + G * S;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int m0 = blockIdx.x * S;
-
-  const int e = __ldg(e_ptr);
-  if (e < 0 || e >= E) {  // no expert to read: the output says so
-    for (int i = threadIdx.x; i < N * S; i += blockDim.x)
-      out[(size_t)(i / S) * Mp + m0 + i % S] = __int_as_float(0x7fc00000);
-    return;
-  }
-  const uint8_t* pk = packed + (size_t)e * Kb * Mp;
-  const __nv_bfloat16* sc = scales + (size_t)e * G * Mp;
-  const __nv_bfloat16* sb = sub + (size_t)e * G * Mp;
-  // the fold's scales and sub (2 S bytes a group each) copied to shared
-  // memory asynchronously, behind the weight reads
-  constexpr int PARTS = S / 8;  // 16-byte copies a group row
-  for (int i = threadIdx.x; i < 2 * G * PARTS; i += blockDim.x) {
-    const int g = (i / PARTS) % G, part = i % PARTS;
-    const bool is_sc = i < G * PARTS;
-    __pipeline_memcpy_async((is_sc ? sc_s : sb_s) + g * S + 8 * part,
-                            (is_sc ? sc : sb) + (size_t)g * Mp + m0 + 8 * part, 16);
-  }
-  __pipeline_commit();
-
-  // 1. the group dots: warp w takes chunks w, w + W, ...; lane l the 4
-  // columns 4 * (l % CG) .. + 3 and, of each ROWS packed rows, the 4 from
-  // 4 * (l / CG)
-  const int cg = lane % CG, rg = lane / CG;
-  const int* codes4 = reinterpret_cast<const int*>(codes);
-  for (int c = warp; c < nchunks; c += W) {
-    int part[NT][P][4];
-#pragma unroll
-    for (int n = 0; n < NT; ++n)
-#pragma unroll
-      for (int j = 0; j < P; ++j)
-#pragma unroll
-        for (int cc = 0; cc < 4; ++cc) part[n][j][cc] = 0;
-#pragma unroll kUnroll
-    for (int r = c * gs + 4 * rg; r < (c + 1) * gs; r += ROWS) {
-      const uint8_t* p = pk + (size_t)r * Mp + m0 + 4 * cg;
-      uint32_t col[4];  // col[cc]: column m0 + 4 cg + cc's bytes of rows r .. r+3
-      tmac::transpose4(__ldg(reinterpret_cast<const uint32_t*>(p)),
-                       __ldg(reinterpret_cast<const uint32_t*>(p + Mp)),
-                       __ldg(reinterpret_cast<const uint32_t*>(p + 2 * (size_t)Mp)),
-                       __ldg(reinterpret_cast<const uint32_t*>(p + 3 * (size_t)Mp)),
-                       col);
-#pragma unroll
-      for (int j = 0; j < P; ++j) {
-        const int q = (j * Kb + r) >> 2;  // codes of k = j*Kb + r .. +3
-#pragma unroll
-        for (int n = 0; n < NT; ++n) {
-          if (n < N) {
-            const int xv = __ldg(codes4 + n * (K >> 2) + q);
-#pragma unroll
-            for (int cc = 0; cc < 4; ++cc)
-              part[n][j][cc] = __dp4a((int)((col[cc] >> (BITS * j)) & kMask), xv,
-                                      part[n][j][cc]);
-          }
-        }
-      }
-    }
-#pragma unroll
-    for (int n = 0; n < NT; ++n)
-#pragma unroll
-      for (int j = 0; j < P; ++j)
-#pragma unroll
-        for (int cc = 0; cc < 4; ++cc) {
-          int v = part[n][j][cc];
-#pragma unroll
-          for (int o = CG; o < 32; o <<= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-          if (rg == 0 && n < N)
-            dots_s[((j * nchunks + c) * NT + n) * S + 4 * cg + cc] = v;
-        }
-  }
-  __pipeline_wait_prior(0);
-  __syncthreads();
-
-  // 2. the fold: thread n * S + i folds column i of row n, from shared
-  // memory (the row's xs and xsum are the same across the row: L1)
-  const int n = threadIdx.x / S, i = threadIdx.x % S;
-  if (n >= N) return;
-  const int* dn = dots_s + n * S + i;
-  tmac::GroupFold fold;
-  for (int g = 0; g < G; ++g)
-    fold.step(g, (float)dn[g * NT * S], __ldg(xs + n * G + g),
-              __bfloat162float(sc_s[g * S + i]), __ldg(xsum + n * G + g),
-              __bfloat162float(sb_s[g * S + i]));
-  out[(size_t)n * Mp + m0 + i] = fold.result();
+template <int BITS, int NT, int STAGES>
+__global__ void __launch_bounds__(tmac::decode::kThreads, 2)
+    k7_decode_kernel(const tmac::decode::Args a) {
+  tmac::decode::decode_matmul<BITS, NT, true, true, STAGES>(a);
 }
 
-template <int BITS, int NT, int W>
-int launch_shape(const int8_t* codes, const float* xs, const float* xsum, int N,
-                 int K, int gs, const int32_t* e, int E, const uint8_t* packed,
-                 const __nv_bfloat16* scales, const __nv_bfloat16* sub, int Mp,
-                 float* out, cudaStream_t stream) {
-  const size_t smem = shared_bytes(NT, K / gs);
-  if (smem > kMaxShared) return (int)cudaErrorInvalidValue;
-  static size_t granted = 0;  // the opt-in above 48 KB, once per size
-  if (smem > granted) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        expert_qgemm_kernel<BITS, NT, W>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    granted = smem;
-  }
-  expert_qgemm_kernel<BITS, NT, W><<<Mp / kStrip, W * 32, smem, stream>>>(
-      codes, xs, xsum, N, K, gs, e, E, packed, scales, sub, Mp, out);
-  return (int)cudaGetLastError();
+template <int BITS, int NT, int STAGES>
+int launch_shape(const tmac::decode::Args& a, int ksplit, int experts, cudaStream_t stream) {
+  const tmac::decode::Layout L(8 / BITS, NT, true, a.nunits, a.unit_rows, ksplit, a.G, STAGES);
+  return tmac::decode::launch(k7_decode_kernel<BITS, NT, STAGES>, a, ksplit, NT, L.total,
+                              stream, experts);
 }
 
-// 16 warps a block where there are chunks for them (Mixtral's down: 28),
-// so that the few blocks of a narrow output keep twice the loads in flight
-template <int BITS, int NT>
-int launch(const int8_t* codes, const float* xs, const float* xsum, int N,
-           int K, int gs, const int32_t* e, int E, const uint8_t* packed,
-           const __nv_bfloat16* scales, const __nv_bfloat16* sub, int Mp,
-           float* out, cudaStream_t stream) {
-  if (K / (8 / BITS) / gs >= 16)
-    return launch_shape<BITS, NT, 16>(codes, xs, xsum, N, K, gs, e, E, packed,
-                                      scales, sub, Mp, out, stream);
-  return launch_shape<BITS, NT, 8>(codes, xs, xsum, N, K, gs, e, E, packed,
-                                   scales, sub, Mp, out, stream);
+template <int BITS>
+int launch_matmul(const tmac::decode::Args& a, int ksplit, int nt, int stages, int experts,
+                  cudaStream_t stream) {
+  if (nt == 1)
+    return stages == 6 ? launch_shape<BITS, 1, 6>(a, ksplit, experts, stream)
+                       : launch_shape<BITS, 1, 8>(a, ksplit, experts, stream);
+  return stages == 6 ? launch_shape<BITS, 4, 6>(a, ksplit, experts, stream)
+                     : launch_shape<BITS, 4, 8>(a, ksplit, experts, stream);
 }
 
 }  // namespace
 
-// x (N, x_cols) bf16 with x_cols = K, or 2K with glu; e: device pointer to
-// one int32 in [0, E) (out of range: the output is NaN); packed (E, K*bits/8,
-// Mp) uint8, scales and sub (E, K/gs, Mp) bf16 -> out (N, Mp) f32; codes
-// (N, K) int8, xs and xsum (N, K/gs) f32: the prologue's scratch.
-// 1 <= N <= 4; bits 2 or 4; gs a multiple of 32 with G = K/gs >= 2; K a
-// multiple of gs * 8 / bits; Mp a multiple of 32.  Returns the CUDA error
-// of the launches (0 on success).
-extern "C" int tmac_qgemm_expert(const void* x, int N, int x_cols, int K,
-                                 int gs, int glu, const void* e, int E,
-                                 const void* packed, const void* scales,
-                                 const void* sub, int Mp, int bits, float* out,
-                                 void* codes, float* xs, float* xsum,
-                                 void* stream) {
+// x: (rows, x_cols) bf16 (x_f32 0) or f32 (x_f32 1), rows = N when every
+// expert shares it (x_per_expert 0), k * N otherwise; x_cols = K, or 2K with
+// glu.  idx: k int32 expert indices on the device (outside [0, E): NaN
+// outputs); packed (E, K*bits/8, Mp) uint8, scales and sub (E, K/gs, Mp)
+// bf16 -> out (k, N, Mp) f32; codes (rows, K) int8, xs and xsum (rows, K/gs)
+// f32: the prologue's scratch.  1 <= N <= 4; bits 2 or 4; gs a multiple of
+// 32 with G = K/gs >= 2; K a multiple of gs * 8 / bits; Mp a
+// multiple of 128; a cluster of ksplit (1-8) blocks along K, nt (1 or 4)
+// token rows a block, a ring of `stages` (6 or 8) stages (qgemm_kernel.decode_plan
+// with the expert count).  Two launches, both programmatic.  Returns the
+// CUDA error (0 on success).
+extern "C" int tmac_qgemm_experts(const void* x, int x_f32, int x_per_expert, int N,
+                                  int x_cols, int K, int gs, int glu, const void* idx,
+                                  int k, int E, const void* packed, const void* scales,
+                                  const void* sub, int Mp, int bits, float* out,
+                                  void* codes, float* xs, float* xsum, int ksplit,
+                                  int nt, int stages, void* stream) {
   if (N < 1 || N > kMaxRows || gs <= 0 || gs % 32 != 0 || K / gs < 2 ||
       (bits != 2 && bits != 4) || K % (gs * (8 / bits)) != 0 ||
-      Mp % kStrip != 0 || x_cols != (glu ? 2 * K : K) || E < 1)
+      Mp % tmac::decode::kStrip != 0 || x_cols != (glu ? 2 * K : K) || E < 1 || k < 1 ||
+      ksplit < 1 || ksplit > tmac::decode::kMaxSplit || (nt != 1 && nt != 4) ||
+      (stages != 6 && stages != 8))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  const int G = K / gs;
+  const int G = K / gs, rows = x_per_expert ? k * N : N;
   auto* cd = static_cast<int8_t*>(codes);
-  expert_act_quant_kernel<<<dim3((G + kWarps - 1) / kWarps, N), kWarps * 32, 0, s>>>(
-      static_cast<const __nv_bfloat16*>(x), x_cols, K, gs, glu, cd, xs, xsum);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const auto* ep = static_cast<const int32_t*>(e);
-  const auto* pk = static_cast<const uint8_t*>(packed);
-  const auto* sc = static_cast<const __nv_bfloat16*>(scales);
-  const auto* sb = static_cast<const __nv_bfloat16*>(sub);
-  if (bits == 2)
-    return N == 1 ? launch<2, 1>(cd, xs, xsum, N, K, gs, ep, E, pk, sc, sb, Mp, out, s)
-                  : launch<2, kMaxRows>(cd, xs, xsum, N, K, gs, ep, E, pk, sc, sb, Mp, out, s);
-  return N == 1 ? launch<4, 1>(cd, xs, xsum, N, K, gs, ep, E, pk, sc, sb, Mp, out, s)
-                : launch<4, kMaxRows>(cd, xs, xsum, N, K, gs, ep, E, pk, sc, sb, Mp, out, s);
+  const dim3 grid((G + kWarps - 1) / kWarps, rows);
+  const int smem = kWarps * gs * (int)sizeof(float);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        x_f32 ? (const void*)expert_quant_kernel<float>
+              : (const void*)expert_quant_kernel<__nv_bfloat16>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const int err =
+      x_f32 ? tmac::decode::launch_programmatic(expert_quant_kernel<float>, grid,
+                                                dim3(kWarps * 32), smem, s,
+                                                static_cast<const float*>(x), x_cols, K,
+                                                gs, glu, cd, xs, xsum)
+            : tmac::decode::launch_programmatic(expert_quant_kernel<__nv_bfloat16>, grid,
+                                                dim3(kWarps * 32), smem, s,
+                                                static_cast<const __nv_bfloat16*>(x),
+                                                x_cols, K, gs, glu, cd, xs, xsum);
+  if (err != 0) return err;
+  tmac::decode::Args a{};
+  a.codes = cd;
+  a.xs = xs;
+  a.xsum = xsum;
+  a.packed = static_cast<const uint8_t*>(packed);
+  a.scales = scales;
+  a.sub = sub;
+  a.residual = nullptr;
+  a.out = out;
+  a.N = N;
+  a.Kp = K;
+  a.Kb = K / (8 / bits);
+  a.Mp = Mp;
+  a.G = G;
+  a.unit_rows = gs;
+  a.nunits = a.Kb / gs;
+  a.idx = static_cast<const int*>(idx);
+  a.E = E;
+  a.x_per_expert = x_per_expert;
+  return bits == 2 ? launch_matmul<2>(a, ksplit, nt, stages, k, s)
+                   : launch_matmul<4>(a, ksplit, nt, stages, k, s);
 }

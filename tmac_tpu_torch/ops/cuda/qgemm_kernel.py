@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import itertools
 
 import torch
 
@@ -152,7 +153,7 @@ def dp4a_order(codes: torch.Tensor, bits: int) -> torch.Tensor:
 
 DECODE_STRIP = 128        # output columns of a block
 DECODE_STAGE_ROWS = 32    # packed rows of a ring stage (K1's unit of the split)
-DECODE_RING = 8 * DECODE_STAGE_ROWS * DECODE_STRIP  # the ring's bytes
+DECODE_STAGES = 8         # the ring's stages (K1, K4; K7 takes 6 or 8)
 DECODE_MAX_SPLIT = 8      # portable cluster size
 DECODE_XBUF = 8 * 32 * 20 * 4   # K4's per-warp exchange buffers
 DECODE_SMEM_BUDGET = 112 * 1024   # two blocks an SM
@@ -162,6 +163,23 @@ DECODE_FIXED_ROWS = {1: 96, 4: 256}
 DECODE_SPLITS = (1, 2, 3, 4, 5, 6, 8)
 DECODE_SMEM_LIMIT = 227 * 1024    # a block's shared memory on Hopper
 DEFAULT_SMS = 132         # an H100 SXM's SMs: the plan on the CPU
+# K7's plan (decode_plan with an expert count), a cost model fitted to K7's
+# times at every (cluster size, token rows a block, ring stages) at
+# Mixtral-8x7B's expert shapes, 1 and 2 experts, N = 1 and 4, on an H100
+# (PERF.md's K7 findings): an SM's shared memory and a block's reserve of
+# it; the blocks an SM holds by registers (token rows a block 1, 4); the share of
+# the slots clusters of 4 or more blocks fill (a cluster stays inside a
+# GPC); the bytes an SM must have in flight to stream at full rate; a
+# block's fixed cost in packed rows per group of its fold (the partials'
+# exchange, the f32 chain); the extra work a packed row costs per token
+# row of a block past the first
+SM_SMEM, BLOCK_SMEM_RESERVE = 228 * 1024, 1024
+EXPERT_BLOCKS_PER_SM = {1: 3, 4: 2}
+WIDE_CLUSTER_FILL = 7 / 8
+EXPERT_INFLIGHT_BYTES = 36 * 1024
+EXPERT_FIXED_ROWS_PER_GROUP = 12
+EXPERT_ROW_COST_PER_TOKEN = 1 / 3
+EXPERT_SPLITS, EXPERT_STAGES = (1, 2, 4, 8), (6, 8)
 
 
 def decode_units(Kp: int, bits: int, gs: int = 0):
@@ -189,17 +207,19 @@ def decode_owner(nunits: int, ksplit: int):
 
 
 def decode_smem(bits: int, nt: int, grouped: bool, nunits: int, unit: int,
-                ksplit: int, G: int) -> int:
+                ksplit: int, G: int, stages: int = DECODE_STAGES) -> int:
     """A block's shared memory, as decode_matmul.cuh's Layout sizes it: the
-    ring (or the partials it receives for its slice of columns, if
-    larger), the codes of its rows, its int32 partials and, grouped, the
-    fold's scales and zero points of its slice and the tile's xs, xsum."""
+    ring of `stages` stages (or the partials it receives for its slice of
+    columns, if larger), the codes of its rows, its int32 partials and,
+    grouped, the fold's scales and zero points of its slice and the tile's
+    xs, xsum."""
     P = 1 if bits == 8 else 8 // bits
     units = cdiv(nunits, ksplit)
     span = round_up(units * unit, DECODE_STAGE_ROWS)
     slice_ = cdiv(DECODE_STRIP // 8, ksplit) * 8
     recv = (G if grouped else ksplit) * nt * slice_ * 4
-    total = round_up(max(DECODE_RING, recv), 16) + round_up(nt * P * span, 16)
+    ring = stages * DECODE_STAGE_ROWS * DECODE_STRIP
+    total = round_up(max(ring, recv), 16) + round_up(nt * P * span, 16)
     total += (units * P if grouped else 1) * nt * DECODE_STRIP * 4
     if grouped:
         total += round_up(2 * G * slice_ * 2, 16) + 2 * nt * G * 4
@@ -208,7 +228,7 @@ def decode_smem(bits: int, nt: int, grouped: bool, nunits: int, unit: int,
 
 
 def decode_plan(N: int, Kp: int, Mp: int, bits: int, gs: int = 0,
-                sms: int = DEFAULT_SMS):
+                sms: int = DEFAULT_SMS, experts: int = 0):
     """(ksplit, nt) for the decode matmul from shapes only, so a CUDA graph
     can capture the call: nt token rows a block (1 for N = 1, else 4), and
     the blocks of a cluster along K, no more than the units of the split,
@@ -219,37 +239,68 @@ def decode_plan(N: int, Kp: int, Mp: int, bits: int, gs: int = 0,
     repeats both (an SM holds two blocks, or one whose shared memory
     passes half of it).  The constants were fitted to every ksplit's time
     at the paths' shapes on an H100 (chip_smoke.py --phase
-    decode_plan_sweep; PERF.md, PR 8).  Ties go to the
-    smaller cluster.  Raises if no cluster size fits a block's shared
-    memory."""
-    nt = 1 if N == 1 else 4
+    decode_plan_sweep; PERF.md).  Ties go to the smaller cluster.
+
+    experts (K7, 1 or more routed experts, one grid slice each): -> (ksplit,
+    nt, stages), from EXPERT_SPLITS, nt 1 or (N > 1) 4 and EXPERT_STAGES,
+    whichever minimises waves x (blocks an SM x packed rows a block / the
+    share of the full rate its bytes in flight reach + the fold's fixed
+    cost): the waves count every expert's clusters against the slots they
+    can fill (an SM holds as many blocks as its shared memory and
+    registers allow, clusters of 4 or more fill WIDE_CLUSTER_FILL of
+    them), and a block with fewer bytes in flight than
+    EXPERT_INFLIGHT_BYTES streams slower.  Raises if no configuration
+    fits a block's shared memory."""
     Kb, unit, nunits = decode_units(Kp, bits, gs)
     grouped, G = gs > 0, Kp // gs if gs else 1
-    clusters = (Mp // DECODE_STRIP) * cdiv(N, nt)
     best = None
-    for ksplit in DECODE_SPLITS:
-        smem = decode_smem(bits, nt, grouped, nunits, unit, ksplit, G)
-        if ksplit > nunits or smem > DECODE_SMEM_LIMIT:
-            continue
-        per_sm = 2 if smem <= DECODE_SMEM_BUDGET else 1
-        waves = cdiv(clusters * ksplit, per_sm * sms)
-        cost = waves * (cdiv(nunits, ksplit) * unit + DECODE_FIXED_ROWS[nt])
-        if ksplit & (ksplit - 1):
-            cost *= 1.2
-        if best is None or cost < best[0]:
-            best = (cost, ksplit)
+    if experts:
+        for nt, ksplit, stages in itertools.product((1, 4) if N > 1 else (1,),
+                                                    EXPERT_SPLITS, EXPERT_STAGES):
+            smem = decode_smem(bits, nt, grouped, nunits, unit, ksplit, G, stages)
+            if ksplit > nunits or smem > DECODE_SMEM_LIMIT:
+                continue
+            per_sm = max(1, min(EXPERT_BLOCKS_PER_SM[nt],
+                                SM_SMEM // (smem + BLOCK_SMEM_RESERVE)))
+            clusters = (Mp // DECODE_STRIP) * cdiv(N, nt) * experts
+            fit = per_sm * sms // ksplit
+            if ksplit >= 4:
+                fit = int(fit * WIDE_CLUSTER_FILL)
+            occupancy = min(per_sm, cdiv(clusters * ksplit, sms))
+            rate = min(1.0, occupancy * (stages - 1) * DECODE_STAGE_ROWS * DECODE_STRIP
+                       / EXPERT_INFLIGHT_BYTES)
+            rows = cdiv(nunits, ksplit) * unit * (1 + EXPERT_ROW_COST_PER_TOKEN * (nt - 1))
+            cost = cdiv(clusters, max(fit, 1)) * (occupancy * rows / rate
+                                                   + EXPERT_FIXED_ROWS_PER_GROUP * G)
+            if best is None or cost < best[0]:
+                best = (cost, (ksplit, nt, stages))
+    else:
+        nt = 1 if N == 1 else 4
+        clusters = (Mp // DECODE_STRIP) * cdiv(N, nt)
+        for ksplit in DECODE_SPLITS:
+            smem = decode_smem(bits, nt, grouped, nunits, unit, ksplit, G)
+            if ksplit > nunits or smem > DECODE_SMEM_LIMIT:
+                continue
+            per_sm = 2 if smem <= DECODE_SMEM_BUDGET else 1
+            waves = cdiv(clusters * ksplit, per_sm * sms)
+            cost = waves * (cdiv(nunits, ksplit) * unit + DECODE_FIXED_ROWS[nt])
+            if ksplit & (ksplit - 1):
+                cost *= 1.2
+            if best is None or cost < best[0]:
+                best = (cost, (ksplit, nt))
     if best is None:
         raise ValueError(f"decode matmul: K = {Kp} at N = {N} outgrows a block's "
                          "shared memory")
-    return best[1], nt
+    return best[1]
 
 
 def check_decode_smem(kernel: str, N: int, Kp: int, bits: int, gs: int,
-                      ksplit: int, nt: int) -> None:
+                      ksplit: int, nt: int, stages: int = DECODE_STAGES) -> None:
     """Raise if a forced cluster size leaves a block more shared memory
     than the card has (decode_plan's own never does)."""
     _, unit, nunits = decode_units(Kp, bits, gs)
-    need = decode_smem(bits, nt, gs > 0, nunits, unit, ksplit, Kp // gs if gs else 1)
+    need = decode_smem(bits, nt, gs > 0, nunits, unit, ksplit, Kp // gs if gs else 1,
+                       stages)
     if need > DECODE_SMEM_LIMIT:
         raise ValueError(f"{kernel}: ksplit {ksplit} at N = {N}, K = {Kp} needs "
                          f"{need} bytes of shared memory a block")
