@@ -4,6 +4,7 @@
     python3 chip_smoke.py --phase qgemm_decode_sweep   (that phase alone)
     python3 chip_smoke.py --phase decode_plan_sweep    (K1, K4 at every ksplit)
     python3 chip_smoke.py --phase expert_block_sweep   (K7 and K10 per call)
+    python3 chip_smoke.py --phase k3_sweep             (K3 per call)
 
 Phases, each printing one JSON line before the last two:
   1. the card (nvidia-smi name and power limit, torch's device name);
@@ -15,11 +16,13 @@ Phases, each printing one JSON line before the last two:
      cluster size and at 1 and 8: bit for bit with exact int8 codes and
      int32 sums on the calls without folds, NMSE <= 1e-6 on the folded
      calls;
-     kernel K3 (the N >= 64 route: K1's prologue + one int8 tensor-core
-     dot) at N = 64 and 256 on every linear with its folds and the int8
-     head, bit for bit; kernel K10 (wo + residual, rms_norm, gate_up,
-     SwiGLU, down + residual in one program) on two layers, bit for bit,
-     at its plan's grid and at 1, 7 and 100 blocks;
+     kernel K3 (the N >= 64 route: K1's prologue + one wgmma s8 dot, K
+     split over a cluster) at N = 64, 65, 256, 1000 and 1024 on every
+     linear with its folds, without the residual and the int8 head, at
+     large_plan's cluster size and at 1 and 8, and on wo and the head at
+     every tile and cluster size, bit for bit; kernel K10 (wo + residual,
+     rms_norm, gate_up, SwiGLU, down + residual in one program) on two
+     layers, bit for bit, at its plan's grid and at 1, 7 and 100 blocks;
   4. kernel K2 (decode attention, one launch a call, a cluster of blocks
      per KV head) against its plain version, bit for bit, f32 and bf16, on
      256- and 2048-row caches (lengths 1 to 2048, B = 1 and 2, 32 heads of
@@ -39,8 +42,9 @@ Phases, each printing one JSON line before the last two:
      K2 a step), the block-mode step's graph beside the default mode's at
      the same context; each kernel's device time per decode step or per
      prefill (CUDA graphs of its calls) beside its bound, its plain
-     version and a PyTorch yardstick (K3: torch._int_mm and a bf16
-     matmul; K10: K1's three calls for the same layer);
+     version and a PyTorch yardstick (K3: torch._int_mm on the unpacked
+     codes in both layouts of its second operand, the faster one, and a
+     bf16 matmul; K10: K1's three calls for the same layer);
   6. path 2, Llama-2-7B W2A16 g128 at full width and depth (32 layers,
      hidden 4096, 32 heads, head_dim 128, FFN 11008, vocab 32000), random
      weights from seed 0: kernel K4 (per-group act-quant + grouped-scale
@@ -119,13 +123,17 @@ Phases, each printing one JSON line before the last two:
      shapes and K4 at Llama-2-7B's, Phi-3-mini's and Mixtral-8x7B's four,
      at N = 1, 4 and 16, per call beside the byte bound, the bf16 matmul
      and the cluster size; then the programmatic launch seen in a
-     profiler trace (pdl_overlap): the matmul starting before its
-     prologue ends, in an eager call and in a captured graph;
+     profiler trace (pdl_overlap): K1's, K4's and K3's matmul starting
+     before its prologue ends, in an eager call and in a captured graph;
  11. the expert and block sweep (expert_block_sweep): K7 at Mixtral-8x7B's
      expert shapes, one expert and the two routed experts of a layer
      (gate_up, down and both), N = 1 and 4, with every cluster size, and
      K10 at BitNet-3B's layer shapes, per call beside the byte bound and
-     the yardsticks (the bf16 matmul; K1's three calls).
+     the yardsticks (the bf16 matmul; K1's three calls);
+ 12. K3's sweep (k3_sweep): K3 per call at BitNet-3B's five prefill
+     shapes and Llama-2-7B's int8 head, N = 64, 256 and 1024, beside the
+     bound, torch._int_mm in both layouts and the bf16 matmul, with every
+     tile and cluster size's time (large_plan's data).
 The last two lines are the kernels' JSON record and
 {"ok": true, "device": {...}}.  Any failed check raises and the script
 exits non-zero; so does a machine without a CUDA device.
@@ -301,6 +309,9 @@ def expert_bytes(one, k, x):
 # kernel checks
 # ---------------------------------------------------------------------------
 
+# K3's rows in its checks on BitNet-3B: the route's edge, a ragged 65,
+# the prefill chunk, a ragged 1000 and 1024
+K3_ROWS = (64, 65, 256, 1000, 1024)
 # the decode matmul's cluster sizes every check takes (decode_plan's: None),
 # and the rows its checks take on every path
 DECODE_SPLITS, DECODE_ROWS = (None, 1, 8), (1, 4, 16, 63)
@@ -376,24 +387,32 @@ def check_k1(card, cases, splits=DECODE_SPLITS):
     return rows, worst
 
 
-def check_k3(card, cases):
+# K3's forced cluster sizes in every check beside large_plan's (None)
+K3_SPLITS = (None, 1, 8)
+
+
+def check_k3(card, cases, splits=K3_SPLITS):
     """K3 against its plain version, bit for bit (exact int32 sums, the
-    same f32 epilogue); cases: (label, x, qt, folds), N >= 64.  Without
-    folds also the prologue's codes, scales and code sums and the int32
-    dot itself (unit scales, zero sub)."""
+    same f32 epilogue); cases: (label, x, qt, folds), N >= 64, each through
+    the wrapper (large_plan's tile and cluster size) and at the plan's tile
+    with every forced cluster size of `splits`.  Without folds also the
+    prologue's codes, scales and code sums and the int32 dot itself (unit
+    scales, zero sub)."""
     import torch
     from tmac_tpu_torch.ops.cuda import qgemm_kernel as k1
     rows, worst = [], 0.0
     for label, x, qt, kw in cases:
         N = x.shape[0]
-        got = k1.qgemm_large_int(x, qt, **kw)
         want = k1.qgemm_fused_plain(x, qt, **kw)
+        gots = {ks: (k1.qgemm_large_int(x, qt, **kw) if ks is None
+                     else k3_split_call(x, qt, kw, ksplit=ks)) for ks in splits}
         torch.cuda.synchronize()
-        err = float((got - want).abs().max())
+        err = max(float((g - want).abs().max()) for g in gots.values())
         worst = max(worst, err)
-        row = dict(shape=label, bits=qt.bits, N=N, max_abs_err=err,
-                   bitwise=bool(torch.equal(got, want)))
-        ok = row["bitwise"]
+        row = dict(shape=label, bits=qt.bits, N=N, folds=sorted(kw), max_abs_err=err,
+                   plan=k1.large_plan(N, qt.kdim_padded, qt.mdim_padded, qt.bits, card.sms),
+                   bitwise={str(ks): bool(torch.equal(g, want)) for ks, g in gots.items()})
+        ok = all(row["bitwise"].values())
         if not kw:
             codes, xs, xsum = k1.launch_act_quant(x, qt, large_n=True)
             pc, pxs, pxsum = k1.act_quant_plain(x, qt, large_n=True)
@@ -413,6 +432,28 @@ def check_k3(card, cases):
         if not ok:
             raise AssertionError(f"K3 {label} N={N}: {row}")
     return rows, worst
+
+
+def check_k3_tiles(card, label, x, qt, kw):
+    """K3 at every tile of LARGE_TILES its bits take and every cluster size
+    1-8, against the plain version, bit for bit.  -> rows, worst error"""
+    import torch
+    from tmac_tpu_torch.ops.cuda import qgemm_kernel as k1
+    want = k1.qgemm_fused_plain(x, qt, **kw)
+    rows, worst = [], 0.0
+    for tile in k1.LARGE_TILES:
+        if qt.bits == 8 and tile[1] != 128:
+            continue
+        for ks in range(1, k1.LARGE_MAX_SPLIT + 1):
+            got = k3_split_call(x, qt, kw, tile, ks)
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            worst = max(worst, err)
+            rows.append(dict(tile=list(tile), ksplit=ks, bitwise=bool(torch.equal(got, want))))
+            if not rows[-1]["bitwise"]:
+                raise AssertionError(f"K3 {label} N={x.shape[0]} tile {tile} ksplit {ks}: "
+                                     f"max abs error {err}")
+    return dict(shape=label, bits=qt.bits, N=x.shape[0], folds=sorted(kw), configs=rows), worst
 
 
 def k5_bound(xa, w):
@@ -667,7 +708,7 @@ def graph_decode(model, cache, tok):
     return start.elapsed_time(stop) / STEPS, torch.cat(replayed).tolist()
 
 
-KERNEL_NAMES = (("K10", "block_kernel"), ("K3 matmul", "large_int_kernel"),
+KERNEL_NAMES = (("K10", "block_kernel"), ("K3 matmul", "k3_wgmma_kernel"),
                 ("K5 prologue", "act_bf16_kernel"), ("K5 matmul", "dequant_wgmma_kernel"),
                 ("K4L matmul", "group_mma_kernel"),
                 ("K7 prologue", "expert_quant_kernel"),
@@ -940,7 +981,10 @@ def time_k3(card, calls, reps=5):
     """K3 per call over `calls` [(x, qt, folds)] (a CUDA graph of them
     all): ms; on the first call's inputs the plain version's ms, the bound
     (int8 operations or bytes), torch._int_mm on the unpacked int8 codes
-    (the library yardstick) and a bf16 matmul on the dequantized weights."""
+    with the second operand row-major (Kp, Mp) and column-major (the
+    transpose of a contiguous (Mp, Kp) copy, the layout cuBLASLt's int8
+    kernels take), the faster of the two the library yardstick, and a bf16
+    matmul on the dequantized weights."""
     import torch
     from tmac_tpu_torch.ops.cuda import qgemm_kernel as k1
     from tmac_tpu_torch.ops.qgemm import unpack_codes
@@ -952,11 +996,15 @@ def time_k3(card, calls, reps=5):
     ops, nbytes = 2 * N * Kp * Mp, qgemm_bytes(qt, x, kw)
     codes = torch.randint(-127, 128, (N, Kp), dtype=torch.int8, device=card.dev)
     w8 = unpack_codes(qt).contiguous()
+    w8t = w8.t().contiguous()
+    row_major = graph_ms(lambda: torch._int_mm(codes, w8), reps=reps)
+    col_major = graph_ms(lambda: torch._int_mm(codes, w8t.t()), reps=reps)
     return dict(N=N, K=Kp, Mp=Mp, ms=ms, plain_ms=plain_ms,
                 bound_ms=card.bound_ms(nbytes, ops, card.int8_peak),
                 bound_by="bytes" if nbytes / card.bw >= ops / card.int8_peak
                 else "operations",
-                library_ms=graph_ms(lambda: torch._int_mm(codes, w8), reps=reps),
+                library_ms=min(row_major, col_major), int_mm_row_major_ms=row_major,
+                int_mm_col_major_ms=col_major,
                 bf16_matmul_ms=yardstick_ms(card, x, qt, False))
 
 
@@ -1078,13 +1126,24 @@ def bitnet_path(card, build_s, ptxas):
     k2_rows, k2_err = check_k2(card, cfg.head_dim)
     say("k2_check", checks=k2_rows)
 
-    # K3 at the prefill shapes (N = 64 and 256) with each linear's folds,
-    # and without folds on gate_up and the int8 head, bit for bit
-    k3_cases = [(s_, *k1_args(s_, N, layers[0])) for N in (64, 256)
-                for s_ in ("wqkv", "wo", "gate_up", "down", "head")]
-    k3_cases.append(("gate_up", *k1_args("gate_up", 256, layers[0])[:2], {}))
+    # K3 at the prefill shapes, N = 64 to 1024 (a 1000-row tile ragged),
+    # with each linear's folds and without the residual (wo, down) or any
+    # fold (gate_up), bit for bit at the plan's cluster size and at 1 and 8;
+    # then every tile and cluster size on wo and the int8 head
+    k3_cases = []
+    for N in K3_ROWS:
+        for s_ in ("wqkv", "wo", "gate_up", "down", "head"):
+            x, qt, kw = k1_args(s_, N, layers[0])
+            k3_cases.append((s_, x, qt, kw))
+            if s_ in ("wo", "down", "gate_up"):
+                k3_cases.append((s_, x, qt, {k: v for k, v in kw.items()
+                                              if k == "glu"}))
     k3_rows, k3_err = check_k3(card, k3_cases)
     say("k3_check", checks=k3_rows)
+    for s_, N in (("wo", 256), ("head", 1000)):
+        row, err = check_k3_tiles(card, s_, *k1_args(s_, N, layers[0]))
+        k3_err = max(k3_err, err)
+        say("k3_check_tiles", **row)
     # K10 at the layers' shapes, a norm weight other than ones on layer 1
     k10_cases = [(f"layer {i}", (card.bf16(1, H), card.bf16(1, H),
                                  layers[i]["mlp_norm"] if i == 0 else
@@ -1147,8 +1206,9 @@ def bitnet_path(card, build_s, ptxas):
 
     # K3 per call at N = 256 (CUDA graphs of its calls over 4 layers'
     # weights) and per prefill of BITNET_LONG_PROMPT tokens
-    k3_rows, k3_tot = [], dict(ms=0.0, plain_ms=0.0, bound_ms=0.0,
-                               library_ms=0.0, bf16_matmul_ms=0.0)
+    k3_rows, k3_tot = [], dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0,
+                               int_mm_row_major_ms=0.0, int_mm_col_major_ms=0.0,
+                               bf16_matmul_ms=0.0)
     for shape in shapes:
         calls = [k1_args(shape, 256, layers[i]) for i in range(min(4, L))]
         row = time_k3(card, calls[:1] if shape == "head" else calls)
@@ -2182,6 +2242,95 @@ def decode_plan_sweep(card, layers=8):
     return out
 
 
+# K3's sweep: BitNet-3B's five prefill shapes with their folds and
+# Llama-2-7B's int8 head (label, K, M, bits, folds), at K3_SWEEP_ROWS rows
+K3_SWEEP_ROWS = (64, 256, 1024)
+K3_SWEEP_SHAPES = (("bitnet wqkv", 3200, 9600, 2, "norm"),
+                   ("bitnet wo", 3200, 3200, 2, "residual"),
+                   ("bitnet gate_up", 3200, 17280, 2, "norm"),
+                   ("bitnet down", 8640, 3200, 2, "glu residual"),
+                   ("bitnet head", 3200, 32002, 8, ""),
+                   ("llama head", 4096, 32000, 8, ""))
+
+
+def k3_split_call(x, qt, kw, tile=None, ksplit=None):
+    """K3's function on the card at a forced tile (token rows, columns) and
+    cluster size (None: large_plan's): the prologue, then the matmul."""
+    from tmac_tpu_torch.ops.cuda import qgemm_kernel as k1
+    codes, xs, xsum = k1.launch_act_quant(x, qt, kw.get("norm"), kw.get("glu", False),
+                                          large_n=True)
+    return qt.slice_m(k1.launch_large_int(codes, xs, xsum, qt, kw.get("residual"),
+                                          ksplit=ksplit, tile=tile))
+
+
+def k3_sweep(card, layers=4):
+    """K3 per call at K3_SWEEP_SHAPES x K3_SWEEP_ROWS through its wrapper
+    (qgemm_large_int, prologue and matmul) with each shape's folds: a CUDA
+    graph of calls over `layers` copies of the weights, cold in L2 as a
+    prefill finds them, beside the bound (int8 operations or bytes), the
+    same function as one PyTorch call (torch._int_mm on the unpacked int8
+    codes, the second operand row-major (Kp, Mp) and column-major: the
+    transpose of a contiguous (Mp, Kp) copy; the faster one is the
+    yardstick) and a bf16 matmul on the dequantized weights.  With
+    large_plan (the wgmma design): the plan's (token rows, columns, cluster
+    size) and every configuration's time, the data large_plan is held to.  Runs on the
+    package before it too.  -> rows"""
+    import torch
+    from tmac_tpu_torch.ops.cuda import qgemm_kernel as k1
+    from tmac_tpu_torch.ops.qgemm import unpack_codes
+    plan = getattr(k1, "large_plan", None)
+    gen = torch.Generator(device=card.dev)
+    gen.manual_seed(11)
+    rows = []
+    for label, K, M, bits, folds in K3_SWEEP_SHAPES:
+        one = (int8_head_on_card(gen, K, M, card.dev) if bits == 8
+               else ternary_qt_on_card(gen, K, M, card.dev))
+        ws = [one] + [dataclasses.replace(one, packed=one.packed.clone())
+                      for _ in range(layers - 1)]
+        Kp, Mp = one.kdim_padded, one.mdim_padded
+        w8 = unpack_codes(one).contiguous()
+        row_major = [w8] + [w8.clone() for _ in range(layers - 1)]
+        col_major = [w8.t().contiguous().t() for _ in range(layers)]
+        del w8
+        ones = torch.ones(K, dtype=torch.bfloat16, device=card.dev)
+        for N in K3_SWEEP_ROWS:
+            kw = {"glu": "glu" in folds}
+            if "norm" in folds:
+                kw["norm"] = (ones, 1e-5)
+            if "residual" in folds:
+                kw["residual"] = card.bf16(N, M)
+            x = card.bf16(N, 2 * K if kw["glu"] else K)
+            codes = torch.randint(-127, 128, (N, Kp), dtype=torch.int8, device=card.dev)
+            ops, nbytes = 2 * N * Kp * Mp, qgemm_bytes(one, x, kw)
+            row = dict(
+                shape=label, N=N, K=Kp, Mp=Mp, bits=bits,
+                us=graph_ms(lambda: [k1.qgemm_large_int(x, w, **kw) for w in ws],
+                            reps=5) / layers * 1e3,
+                bound_us=card.bound_ms(nbytes, ops, card.int8_peak) * 1e3,
+                bound_by="bytes" if nbytes / card.bw >= ops / card.int8_peak
+                else "operations",
+                int_mm_row_major_us=graph_ms(lambda: [torch._int_mm(codes, w)
+                                                      for w in row_major], reps=5)
+                / layers * 1e3,
+                int_mm_col_major_us=graph_ms(lambda: [torch._int_mm(codes, w)
+                                                      for w in col_major], reps=5)
+                / layers * 1e3,
+                bf16_us=yardstick_ms(card, x, one, False) * 1e3)
+            row["library_us"] = min(row["int_mm_row_major_us"], row["int_mm_col_major_us"])
+            if plan:
+                row["plan"] = plan(N, Kp, Mp, bits, card.sms)
+                row["us_by_tile_split"] = {
+                    f"{bm}x{bn}x{ks}": graph_ms(lambda: [k3_split_call(x, w, kw, (bm, bn), ks)
+                                                        for w in ws], reps=5) / layers * 1e3
+                    for bm, bn in k1.LARGE_TILES
+                    if bm <= 2 * N and 8 * bm >= N and (bits == 2 or bn == 128)
+                    for ks in range(1, k1.LARGE_MAX_SPLIT + 1)}
+            rows.append(row)
+        del ws, row_major, col_major
+        torch.cuda.empty_cache()
+    return rows
+
+
 def expert_block_sweep(card, calls=8):
     """K7 at Mixtral-8x7B's expert shapes (W2 g128: gate_up 4096 x 28672,
     down 14336 x 4096 with the SwiGLU prologue) and K10 at BitNet-3B's
@@ -2305,10 +2454,11 @@ def expert_block_sweep(card, calls=8):
 
 def pdl_overlap(card, calls=4):
     """The programmatic dependent launch seen on the card: torch.profiler's
-    trace of `calls` K1 calls (BitNet-3B's down, N = 1) and K4 calls
-    (Llama-2-7B W2's down), eagerly and replayed from a CUDA graph; for
-    each matmul kernel, how far it started before its prologue ended (µs,
-    positive: they overlap).  -> {mode: summary}"""
+    trace of `calls` K1 calls (BitNet-3B's down, N = 1), K4 calls
+    (Llama-2-7B W2's down) and K3 calls (BitNet-3B's wo at a 256-row
+    prefill chunk), eagerly and replayed from a CUDA graph; for each matmul
+    kernel, how far it started before its prologue ended (µs, positive:
+    they overlap).  -> {mode: summary}"""
     import os
     import tempfile
     import torch
@@ -2319,13 +2469,15 @@ def pdl_overlap(card, calls=4):
     gen.manual_seed(9)
     w1 = ternary_qt_on_card(gen, 8704, 3200, card.dev)
     w4 = rand_qt_on_card(gen, 11264, 4096, 2, 128, card.dev)
-    x1, x4 = card.bf16(1, 2 * 8704), card.bf16(1, 11264)
-    r1, r4 = card.bf16(1, 3200), card.bf16(1, 4096)
+    w3 = ternary_qt_on_card(gen, 3200, 3200, card.dev)
+    x1, x4, x3 = card.bf16(1, 2 * 8704), card.bf16(1, 11264), card.bf16(256, 3200)
+    r1, r4, r3 = card.bf16(1, 3200), card.bf16(1, 4096), card.bf16(256, 3200)
 
     def fn():
         for _ in range(calls):
             k1.qgemm_fused(x1, w1, glu=True, residual=r1)
             k4.qgemm_grouped(x4, w4, residual=r4)
+            k1.qgemm_large_int(x3, w3, residual=r3)
 
     def trace(run):
         torch.cuda.synchronize()
@@ -2342,7 +2494,8 @@ def pdl_overlap(card, calls=4):
                          if e.get("cat") == "kernel")
         out = {}
         for label, pro, mm in (("K1", "act_quant_kernel", "k1_decode_kernel"),
-                               ("K4", "act_quant_grouped_kernel", "k4_decode_kernel")):
+                               ("K4", "act_quant_grouped_kernel", "k4_decode_kernel"),
+                               ("K3", "act_quant_kernel", "k3_wgmma_kernel")):
             leads, last_end = [], None
             for start, end, name in kernels:
                 if pro in name:
@@ -2775,7 +2928,7 @@ def main() -> int:
             mangled = ln.split("'")[1]
             base = re.search(r"(act_quant_grouped|act_quant|expert_quant|qgemm"
                              r"|decode_attention|k1_decode|k4_decode|k7_decode"
-                             r"|large_int|act_bf16|dequant_wgmma|group_mma"
+                             r"|k3_wgmma|act_bf16|dequant_wgmma|group_mma"
                              r"|block)_kernel", mangled)
             targs = template_args(mangled)
             kernel = f"{base.group(0) if base else mangled}<{','.join(targs)}>"
@@ -2789,6 +2942,10 @@ def main() -> int:
     if sys.argv[1:] == ["--phase", "expert_block_sweep"]:
         say("build", nvcc_s=round(build_s, 3), ptxas=ptxas)
         say("expert_block_sweep", **expert_block_sweep(card))
+        return 0
+    if sys.argv[1:] == ["--phase", "k3_sweep"]:
+        say("build", nvcc_s=round(build_s, 3), ptxas=ptxas)
+        say("k3_sweep", card=card.name, nvidia_smi=card.smi, rows=k3_sweep(card))
         return 0
     if sys.argv[1:] == ["--phase", "qgemm_decode_sweep"]:
         say("build", nvcc_s=round(build_s, 3), ptxas=ptxas)
@@ -2809,6 +2966,7 @@ def main() -> int:
         rows=qgemm_decode_sweep(card))
     say("pdl_overlap", card=card.name, **pdl_overlap(card))
     say("expert_block_sweep", **expert_block_sweep(card))
+    say("k3_sweep", card=card.name, nvidia_smi=card.smi, rows=k3_sweep(card))
     say("record", unit="device ms per decode step of each path (bitnet-3b: "
         "105 K1 and 26 K2 launches, in the block mode 26 K10, 27 K1 and 26 "
         "K2; llama-2-7b: 128 K4, 1 K1 and 32 K2; mixtral-8x7b: 64 K7 (one "

@@ -265,3 +265,7 @@ def test_ctypes_signatures_match_the_c_interfaces():
     assert c_args["tmac_qgemm_experts"] == 24
     assert "tmac_qgemm_expert" not in c_args
     assert c_args["tmac_wo_mlp_block"] == 23
+    # K3: one wgmma matmul, with its tile (token rows, columns) and cluster
+    # size; the mma.sync matmul's entry point is gone
+    assert c_args["tmac_large_int_wgmma"] == 16
+    assert "tmac_qgemm_large_int" not in c_args

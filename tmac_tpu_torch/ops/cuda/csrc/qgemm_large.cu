@@ -28,21 +28,72 @@
 // card's balance of about 590 int8 or 295 bf16 operations per byte of
 // device memory, so the tensor cores bound both.
 //
-// K3 feeds them from shared memory with mma.sync m16n8k32 s8: a block
-// computes a 64 x 128 tile of outputs, its warps 32 x 64 each; each depth
-// step the block's threads load the next tile of activations and packed
-// weights into registers while the warps multiply the current one out of
-// shared memory, then store it there, so the loads overlap the products.
-// Each weight tile is unpacked once per block, so the packed bytes are read
-// once per 64 rows of x.  Field j of packed row r holds the weight of
-// k = r + j * Kp / p (p fields a byte).  K3 at bits 2 multiplies in the
-// order k' = 4r + j, the order in which K1's prologue writes the codes
-// (byte j of word r): four consecutive k' are then the four fields of one
-// packed byte, which is what one register of an m16n8k32 B fragment holds,
-// so a thread turns one 32-bit word of 4 columns into the B registers of 4
-// n8 tiles with byte permutes (its n8 tile t takes columns 4c + t, put back
-// in the epilogue).  At bits 8 (the int8 head) k' = k.
-//
+// K3 is built around wgmma s8 (k3_wgmma_kernel), the only way to the card's
+// full int8 rate:
+//   - a block computes bm token rows x bn columns (large_plan's tile: 64,
+//     128 or 256 rows x 128 columns, or at bits 2 64 or 128 x 256): CWG
+//     warpgroups of MT m64 tiles run wgmma.m64n{bn}k32 s8 x s8 -> s32 with
+//     both operands in shared memory;
+//   - a step is 128 k' (the order of the prologue's codes, below): the
+//     codes' bm x 128 tile comes in by TMA (K-major, 128-byte swizzle; rows
+//     past N as zeros), the step's packed weights (bits 2: 32 packed rows;
+//     bits 8: 128 rows, MN-major) by TMA into a packed ring of R stages, and
+//     the warps unpack them into the B tile, bn columns of 128 k' bytes,
+//     K-major with the 128-byte swizzle (wgmma has no transpose for 8-bit
+//     types): column m's 16-byte chunk c at byte m * 128 + ((c ^ (m % 8))
+//     << 4).  Each packed byte is unpacked once per bm token rows (once per
+//     call at N <= bm);
+//   - at bits 2 field j of packed row r holds k = r + j * Kp / 4, and the
+//     prologue writes the codes in the order k' = 4r + j (dp4a_order): the
+//     4 fields of a byte are 4 consecutive k' of its column.  A thread takes
+//     4 columns and 4 packed rows (4 words), byte-transposes them into one
+//     word a column (tmac::transpose4), and each column's word into its 16
+//     k' bytes (masks, shifts and a second transpose): one 16-byte store a
+//     column.  At bits 8 (the int8 head, k' = k) 16 rows of 4 columns take
+//     four 4 x 4 byte transposes.  Each thread's columns are rotated by its
+//     lane (a byte permute of its input words), so the 8 lanes of a
+//     quarter-warp store to 8 distinct 16-byte bank groups;
+//   - every warp multiplies and unpacks: after issuing step t's wgmma it
+//     unpacks step t + D's B tile (D = 2, or 1 with 3 stages) while that
+//     wgmma runs.  Two loader threads (a warp each) issue the TMAs: the
+//     packed ring, which does not depend on the prologue, and the codes.
+//     The steps go round S stages (A and B) with mbarriers: `full` (the
+//     codes' bytes and one arrival a warp for the B tile), `empty` (one
+//     arrival a warp once the wgmma that read the stage is done), and for
+//     the packed ring `raw_full` (TMA) and `raw_empty`.  No __syncthreads
+//     in the main loop;
+//   - it is launched programmatically after the prologue (act_quant_kernel
+//     lets it start at once): the packed ring fills and the first B tiles
+//     are unpacked before griddepcontrol.wait, the codes' TMAs follow it;
+//   - the blocks of a wave start their steps at different depths (column
+//     tile mod steps), so the codes they read from L2 at once are not the
+//     same lines;
+//   - K is split over a cluster of ksplit (1-8) blocks, block `rank` taking
+//     steps [rank * nsteps / ksplit, (rank + 1) * nsteps / ksplit), to fill
+//     132 SMs when Mp / 128 column tiles are too few (BitNet's wo and down
+//     at Mp = 3200: 25 tiles).  Each block pushes its int32 partials into
+//     the (then idle) ring of the block that finishes their rows, through
+//     distributed shared memory, and after a cluster barrier every block
+//     adds its slice's ksplit partials and runs the epilogue.  The sums are
+//     of integers, exact in any order and any split, so K3 stays equal to
+//     its plain version bit for bit whatever the tile, split and step order;
+//   - the epilogue's scales and zero points are staged in shared memory at
+//     the start; unsplit, the tile goes out through the idle ring as whole
+//     rows with 16-byte stores.
+//   large_plan (qgemm_kernel.py) picks the tile and ksplit from shapes
+//   alone, from a cost model fitted to every configuration's time.
+//   What bounds it: the wgmma alone runs at the card's int8 rate (a step of
+//   256 x 128 x 128 in ~0.52 us at 1.98 GHz), but a step moves ~150 KB
+//   through shared memory (A once, B once per m64 tile, the TMA and unpack
+//   writes), ~0.6 us of its bandwidth, and the whole step takes longer.
+// Tried on the card and not kept: one producer warpgroup unpacking for two
+// consumers (four warps could not unpack a step in the tensor cores' time);
+// the loader thread inside a consumer warpgroup (its TMA waits lengthened
+// that warpgroup's step); an epilogue stored from the fragments (2 columns
+// of 8 rows a store: slower than the main loop's last steps); the weights
+// as wgmma's A operand unpacked into registers (faster at 128 rows, but a
+// block with a loader warp is held to 168 registers and spills at 256).
+
 // K5 is built around wgmma, the only way to the card's full bf16 rate
 // (dequant_wgmma_kernel):
 //   - a block computes 256 token rows x 128 columns: each weight tile is
@@ -72,6 +123,7 @@
 // barriers, no wgmma) takes longer than the wgmma alone, and the two
 // overlap only in part.
 
+#include <cooperative_groups.h>
 #include <cuda.h>
 #include <cudaTypedefs.h>
 #include <cuda_bf16.h>
@@ -80,9 +132,10 @@
 
 #include "act_prologue.cuh"
 
-// Hopper building blocks of K5: mbarriers, a 2-D TMA load, the wgmma
-// shared-memory descriptor with the 128-byte swizzle, wgmma.m64n128k16
-// (bf16 in, f32 accumulators), and the TMA tensor map of a bf16 matrix.
+// Hopper building blocks of K3 and K5: mbarriers, a 2-D TMA load, the
+// wgmma shared-memory descriptor with the 128-byte swizzle,
+// wgmma.m64n128k16 (bf16 in, f32 accumulators) and wgmma.m64n128k32 (s8 in,
+// s32 accumulators), and the TMA tensor maps.
 namespace tmac {
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -111,6 +164,13 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
       "@!done bra WAIT;\n}\n" ::"r"(smem_u32(bar)),
       "r"(parity)
       : "memory");
+}
+
+// one arrival that also expects `bytes` of TMA transactions
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
 }
 
 // the barriers' initialisation, visible to the async proxy (TMA)
@@ -171,6 +231,51 @@ __device__ __forceinline__ void wgmma_m64n128k16(float d[64], uint64_t a, uint64
       : "l"(a), "l"(b), "r"(1));
 }
 
+// d (64 x 128 s32, this thread's 64) += A (64 x 32, K-major) * B (32 x 128,
+// K-major), s8 x s8, both read from shared memory through their descriptors
+__device__ __forceinline__ void wgmma_m64n128k32_s8(int d[64], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+// the same with B 32 x 256 (this thread's 128 of d)
+__device__ __forceinline__ void wgmma_m64n256k32_s8(int d[128], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "%128, %129, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]),
+        "+r"(d[64]), "+r"(d[65]), "+r"(d[66]), "+r"(d[67]), "+r"(d[68]), "+r"(d[69]), "+r"(d[70]), "+r"(d[71]),
+        "+r"(d[72]), "+r"(d[73]), "+r"(d[74]), "+r"(d[75]), "+r"(d[76]), "+r"(d[77]), "+r"(d[78]), "+r"(d[79]),
+        "+r"(d[80]), "+r"(d[81]), "+r"(d[82]), "+r"(d[83]), "+r"(d[84]), "+r"(d[85]), "+r"(d[86]), "+r"(d[87]),
+        "+r"(d[88]), "+r"(d[89]), "+r"(d[90]), "+r"(d[91]), "+r"(d[92]), "+r"(d[93]), "+r"(d[94]), "+r"(d[95]),
+        "+r"(d[96]), "+r"(d[97]), "+r"(d[98]), "+r"(d[99]), "+r"(d[100]), "+r"(d[101]), "+r"(d[102]), "+r"(d[103]),
+        "+r"(d[104]), "+r"(d[105]), "+r"(d[106]), "+r"(d[107]), "+r"(d[108]), "+r"(d[109]), "+r"(d[110]), "+r"(d[111]),
+        "+r"(d[112]), "+r"(d[113]), "+r"(d[114]), "+r"(d[115]), "+r"(d[116]), "+r"(d[117]), "+r"(d[118]), "+r"(d[119]),
+        "+r"(d[120]), "+r"(d[121]), "+r"(d[122]), "+r"(d[123]), "+r"(d[124]), "+r"(d[125]), "+r"(d[126]), "+r"(d[127])
+      : "l"(a), "l"(b), "r"(1));
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -184,13 +289,9 @@ __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
-// The TMA map of a bf16 matrix (rows, cols), row-major, in boxes of 64
-// columns (128 bytes, the 128-byte swizzle) x box_rows rows; rows past the
-// end read as zeros.  cuTensorMapEncodeTiled comes from the driver through
-// the runtime (no link against libcuda).  Returns a CUDA error (0 on
-// success).
-inline int bf16_box_map(CUtensorMap* map, const void* base, int rows, int cols,
-                        int box_rows) {
+// cuTensorMapEncodeTiled, from the driver through the runtime (no link
+// against libcuda); null if the driver has none
+inline PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
   static PFN_cuTensorMapEncodeTiled_v12000 encode = nullptr;
   if (encode == nullptr) {
     void* p = nullptr;
@@ -204,193 +305,481 @@ inline int bf16_box_map(CUtensorMap* map, const void* base, int rows, int cols,
                                 &found) != cudaSuccess ||
         found != cudaDriverEntryPointSuccess)
 #endif
-      return (int)cudaErrorNotSupported;
+      return nullptr;
     encode = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p);
   }
+  return encode;
+}
+
+// The TMA map of a row-major matrix (rows, cols) of 1- or 2-byte elements,
+// in boxes of box_cols x box_rows; elements past the end read as zeros.
+// Returns a CUDA error (0 on success).
+inline int box_map(CUtensorMap* map, CUtensorMapDataType type, int elem_bytes,
+                   const void* base, int rows, int cols, int box_cols, int box_rows,
+                   CUtensorMapSwizzle swizzle) {
+  const PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder();
+  if (encode == nullptr) return (int)cudaErrorNotSupported;
   const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
-  const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * elem_bytes};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
   const cuuint32_t elem[2] = {1, 1};
-  if (encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims,
-             strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+  if (encode(map, type, 2, const_cast<void*>(base), dims, strides, box, elem,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
     return (int)cudaErrorInvalidValue;
   return 0;
+}
+
+// The TMA map of a bf16 matrix (rows, cols), row-major, in boxes of 64
+// columns (128 bytes, the 128-byte swizzle) x box_rows rows; rows past the
+// end read as zeros.  Returns a CUDA error (0 on success).
+inline int bf16_box_map(CUtensorMap* map, const void* base, int rows, int cols,
+                        int box_rows) {
+  return box_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, base, rows, cols, 64, box_rows,
+                 CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 }  // namespace tmac
 
 namespace {
 
-__device__ __forceinline__ void mma_s8(int acc[4], const uint32_t a[4],
-                                       uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(acc[0]), "+r"(acc[1]), "+r"(acc[2]), "+r"(acc[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+namespace cg = cooperative_groups;
 
 // ---------------------------------------------------------------------------
 // K3
 // ---------------------------------------------------------------------------
 
-constexpr int k3BM = 64, k3BN = 128, k3KT = 128, k3Threads = 128;
-constexpr int k3AStride = k3KT + 16;  // bytes a row of the A tile
-// the B tile: bits 2, k3KT / 4 packed rows of 160 bytes; bits 8, k3KT code
-// rows of 136 bytes (strides that spread a warp's fragment reads over the
-// 32 banks)
-template <int BITS>
-struct K3B {
-  static constexpr int kRows = BITS == 2 ? k3KT / 4 : k3KT;
-  static constexpr int kStride = BITS == 2 ? 160 : 136;
-  static constexpr int kChunks = kRows * k3BN / 16 / k3Threads;  // 16-byte loads a thread
+namespace k3 {
+
+constexpr int kStepK = 128;              // k' of a step: one 128-byte row of A and of B
+constexpr int kMaxSplit = 8;             // portable cluster size
+constexpr int kSmemLimit = 227 * 1024;   // a block's shared memory on Hopper
+constexpr int kMaxStages = 8;
+
+// packed rows of a step: bits 2, four fields a byte; bits 8, a code a byte
+__host__ __device__ constexpr int raw_rows(int bits) { return bits == 2 ? kStepK / 4 : kStepK; }
+
+// A block's shared memory at bm token rows and bn columns
+// (qgemm_kernel.large_smem mirrors it): 1024 bytes of alignment slack, the
+// ring of `stages` stages (A, bm x 128 bytes, then B, bn x 128), the packed
+// ring of `raws` stages (32 KB at bits 2, 64 KB at bits 8), the barriers,
+// the epilogue's scales and zero points of the bn columns; as many stages
+// as fit, at most kMaxStages.  After the main loop the ring and the packed
+// ring hold the epilogue's tile, or receive the cluster's partials.
+struct Layout {
+  int stages, raws, a_bytes, stage, raw_bytes, raw, bars, ep, total;
+  __host__ __device__ constexpr Layout(int bits, int bm, int bn)
+      : stages(0), raws((bits == 2 ? 32 : 64) * 1024 / (raw_rows(bits) * bn)),
+        a_bytes(bm * kStepK), stage((bm + bn) * kStepK), raw_bytes(raw_rows(bits) * bn),
+        raw(0), bars(0), ep(0), total(0) {
+    stages = kMaxStages;
+    while (stages > 2 && 1024 + stages * stage + raws * raw_bytes + 16 * (stages + raws) +
+                                 8 * bn > kSmemLimit)
+      --stages;
+    raw = stages * stage;
+    bars = raw + raws * raw_bytes;
+    ep = bars + 16 * (stages + raws);
+    total = 1024 + ep + 8 * bn;
+  }
 };
 
-template <int BITS>
-__global__ void __launch_bounds__(k3Threads) large_int_kernel(
-    const int8_t* __restrict__ codes, const float* __restrict__ xs,
-    const float* __restrict__ xsum, int N, int Kp,
-    const uint8_t* __restrict__ packed, const float* __restrict__ scales,
-    const float* __restrict__ sub, int Mp,
-    const __nv_bfloat16* __restrict__ residual, float* __restrict__ out) {
-  using B = K3B<BITS>;
-  __shared__ __align__(16) uint8_t As[k3BM * k3AStride];
-  __shared__ __align__(16) uint8_t Bs[B::kRows * B::kStride];
+// the row groups of 8 token rows whose sums block `rank` finishes
+__host__ __device__ constexpr int slice_groups(int bm, int ksplit) {
+  return (bm / 8 + ksplit - 1) / ksplit;
+}
+
+struct Args {
+  CUtensorMap codes_map;   // codes (N, Kp) int8: boxes of 128 k' x bm rows, 128-byte swizzle
+  CUtensorMap packed_map;  // packed (Kb, Mp) uint8: boxes of bn columns x raw_rows rows
+  const float* xs;         // (N,)
+  const float* xsum;       // (N,), the bare code sums
+  const float* scales;     // (Mp,)
+  const float* sub;        // (Mp,)
+  const __nv_bfloat16* residual;  // (N, Mp) or null
+  float* out;              // (N, Mp)
+  int N, Mp, nsteps;
+};
+
+// The epilogue of one output is the f32 steps XLA compiles the
+// reference's N >= 64 route to: v = fma(acc, scale, -q * sub) (this
+// function), then v * xs, or fma(v, xs, residual)
+__device__ __forceinline__ float scaled(int acc, float scale, float sub, float q) {
+  return __fmaf_rn((float)acc, scale, -__fmul_rn(q, sub));
+}
+
+// a named barrier of `count` threads
+__device__ __forceinline__ void bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// 32-bit load and 16-byte store at a shared-memory address
+__device__ __forceinline__ uint32_t lds32(uint32_t addr) {
+  uint32_t v;
+  asm volatile("ld.shared.b32 %0, [%1];\n" : "=r"(v) : "r"(addr));
+  return v;
+}
+__device__ __forceinline__ void sts128(uint32_t addr, uint32_t a, uint32_t b, uint32_t c,
+                                       uint32_t d) {
+  asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr), "r"(a), "r"(b), "r"(c),
+               "r"(d)
+               : "memory");
+}
+
+template <int BN>
+__device__ __forceinline__ void wgmma_s8(int* d, uint64_t a, uint64_t b) {
+  if constexpr (BN == 128)
+    tmac::wgmma_m64n128k32_s8(d, a, b);
+  else
+    tmac::wgmma_m64n256k32_s8(d, a, b);
+}
+
+}  // namespace k3
+
+// Block (x, y): columns [bn * (x / ksplit), +bn), token rows [bm * y, +bm)
+// with bm = 64 * CWG * MT, and the steps of rank x % ksplit of its cluster.
+// CWG warpgroups of MT m64 tiles each, whose every warp both multiplies and
+// unpacks, and two loader warps that issue the TMAs.  Stage s of the ring: A (bm rows
+// x 128 bytes, as TMA swizzles it), then B (bn columns x 128 bytes,
+// swizzled alike); stage r of the packed ring: the step's packed rows x bn
+// columns, as stored.
+template <int BITS, int BN, int CWG, int MT>
+__global__ void __launch_bounds__(128 * CWG + 64, 1)
+    k3_wgmma_kernel(const __grid_constant__ k3::Args a) {
+  constexpr int BM = 64 * CWG * MT, kThreads = 128 * CWG, kWarps = kThreads / 32;
+  constexpr int kRawRows = k3::raw_rows(BITS);
+  constexpr k3::Layout L(BITS, BM, BN);
+  constexpr int S = L.stages, R = L.raws;
+  // the B tile of step t is unpacked D steps ahead, while the wgmma of the
+  // step before it runs, into the stage step t - S freed
+  constexpr int D = S >= 4 ? 2 : 1;
+  // 16-byte chunks of B a thread unpacks a step: unit u = tid + kThreads k
+  // is column quad u % (bn / 4) and chunk u / (bn / 4)
+  constexpr int U = 8 * (BN / 4) / kThreads;
+  static_assert(U >= 1 && R >= 4, "K3's tile leaves a thread no unit, or too few packed stages");
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~(uintptr_t)1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L.bars);
+  uint64_t* empty = full + S;
+  uint64_t* raw_full = empty + S;
+  uint64_t* raw_empty = raw_full + R;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int ksplit = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
+  const int tile = blockIdx.x / ksplit;
+  const int m0 = tile * BN, n0 = blockIdx.y * BM;
+  const int t0 = rank * a.nsteps / ksplit, nb = (rank + 1) * a.nsteps / ksplit - t0;
+  // the blocks start their steps at different depths (integer sums are
+  // exact in any order), so that the codes each step reads from L2 are not
+  // the same lines for every block at once
+  const int rot_steps = nb > 0 ? tile % nb : 0;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, tq = lane & 3;
-  const int wm = (warp & 1) * 32, wn = (warp >> 1) * 64;
-  const int m0 = blockIdx.x * k3BN, n0 = blockIdx.y * k3BM;
-  const int brows = BITS == 2 ? Kp / 4 : Kp;  // packed rows in all
-  const int ntiles = (Kp + k3KT - 1) / k3KT;
 
-  uint4 ra[k3BM * k3KT / 16 / k3Threads], rb[B::kChunks];
-  auto load = [&](int t) {
-#pragma unroll
-    for (int i = 0; i < k3BM * k3KT / 16 / k3Threads; ++i) {
-      const int c = tid + i * k3Threads, row = c >> 3, k = t * k3KT + (c & 7) * 16;
-      ra[i] = (n0 + row < N && k < Kp)
-                  ? __ldg(reinterpret_cast<const uint4*>(codes + (size_t)(n0 + row) * Kp + k))
-                  : make_uint4(0, 0, 0, 0);
+  if (tid == 0) {
+    for (int s = 0; s < S; ++s) {
+      tmac::mbar_init(&full[s], kWarps + 1);  // the warps' B tiles, the codes' expect_tx
+      tmac::mbar_init(&empty[s], kWarps);
     }
-#pragma unroll
-    for (int i = 0; i < B::kChunks; ++i) {
-      const int c = tid + i * k3Threads, row = t * B::kRows + (c >> 3);
-      rb[i] = row < brows
-                  ? __ldg(reinterpret_cast<const uint4*>(packed + (size_t)row * Mp + m0 + (c & 7) * 16))
-                  : make_uint4(0, 0, 0, 0);
+    for (int r = 0; r < R; ++r) {
+      tmac::mbar_init(&raw_full[r], 1);
+      tmac::mbar_init(&raw_empty[r], kWarps);
     }
-  };
-  auto store = [&]() {
-#pragma unroll
-    for (int i = 0; i < k3BM * k3KT / 16 / k3Threads; ++i) {
-      const int c = tid + i * k3Threads;
-      *reinterpret_cast<uint4*>(As + (c >> 3) * k3AStride + (c & 7) * 16) = ra[i];
-    }
-#pragma unroll
-    for (int i = 0; i < B::kChunks; ++i) {
-      const int c = tid + i * k3Threads;
-      uint32_t* d = reinterpret_cast<uint32_t*>(Bs + (c >> 3) * B::kStride + (c & 7) * 16);
-      d[0] = rb[i].x;  // 4-byte stores: the bits-8 stride is not 16-aligned
-      d[1] = rb[i].y;
-      d[2] = rb[i].z;
-      d[3] = rb[i].w;
-    }
-  };
-
-  int acc[2][8][4];
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0;
-
-  load(0);
-  store();
+    tmac::fence_barrier_init();
+  }
+  // the epilogue's scales and zero points of the block's columns, staged
+  // once (an epilogue loading them from L2 would wait on each in turn)
+  float* ep = reinterpret_cast<float*>(smem + L.ep);
+  for (int i = tid; i < 2 * BN; i += blockDim.x) {
+    const int m = m0 + i % BN;
+    ep[i] = m < a.Mp ? __ldg((i < BN ? a.scales : a.sub) + m) : 0.f;
+  }
   __syncthreads();
-  for (int t = 0; t < ntiles; ++t) {
-    if (t + 1 < ntiles) load(t + 1);
+
+  auto step_of = [&](int t) { return t0 + (t + rot_steps) % nb; };
+  auto issue_raw = [&](int t) {
+    const int r = t % R;
+    tmac::mbar_arrive_expect_tx(&raw_full[r], L.raw_bytes);
+    tmac::tma_load_2d(smem + L.raw + r * L.raw_bytes, &a.packed_map, m0, step_of(t) * kRawRows,
+                      &raw_full[r]);
+  };
+  auto issue_codes = [&](int t) {
+    tmac::mbar_arrive_expect_tx(&full[t % S], L.a_bytes);
+    tmac::tma_load_2d(smem + (t % S) * L.stage, &a.codes_map, step_of(t) * k3::kStepK, n0,
+                      &full[t % S]);
+  };
+  // This thread's columns are rotated by rot: column 4 q + ((t4 + rot) & 3)
+  // is the t4-th it stores, so the 8 lanes of a quarter-warp store to 8
+  // distinct 16-byte bank groups
+  const uint32_t rot = (lane >> 1) & 3;
+  const uint32_t sel = (rot & 3) | (((rot + 1) & 3) << 4) | (((rot + 2) & 3) << 8) |
+                       (((rot + 3) & 3) << 12);
+  // the B tile of step t from its packed stage, then one arrival a warp on
+  // `full` and on `raw_empty`
+  auto unpack = [&](int t) {
+    const int s = t % S, r = t % R;
+    if (t >= S) tmac::mbar_wait(&empty[s], ((t / S) & 1) ^ 1);
+    tmac::mbar_wait(&raw_full[r], (t / R) & 1);
+    const uint32_t B = tmac::smem_u32(smem + s * L.stage + L.a_bytes);
+    const uint32_t raw = tmac::smem_u32(smem + L.raw + r * L.raw_bytes);
+    constexpr int kWords = BITS == 2 ? 4 : 16;  // packed words a unit reads
+    // every unit's words first (bits 2: packed rows 4c .. 4c + 3; bits 8:
+    // code rows 16c .. 16c + 15), each rotated
+    uint32_t w[U][kWords];
 #pragma unroll
-    for (int ks = 0; ks < k3KT / 32; ++ks) {
-      uint32_t a[2][4];
+    for (int k = 0; k < U; ++k) {
+      const int u = tid + kThreads * k, q = u % (BN / 4), c = u / (BN / 4);
 #pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-        const uint8_t* p = As + (wm + mt * 16 + g) * k3AStride + ks * 32 + tq * 4;
-        a[mt][0] = *reinterpret_cast<const uint32_t*>(p);
-        a[mt][1] = *reinterpret_cast<const uint32_t*>(p + 8 * k3AStride);
-        a[mt][2] = *reinterpret_cast<const uint32_t*>(p + 16);
-        a[mt][3] = *reinterpret_cast<const uint32_t*>(p + 8 * k3AStride + 16);
+      for (int i = 0; i < kWords; ++i)
+        w[k][i] = __byte_perm(k3::lds32(raw + (kWords * c + i) * BN + 4 * q), 0, sel);
+    }
+#pragma unroll
+    for (int k = 0; k < U; ++k) {
+      const int u = tid + kThreads * k, q = u % (BN / 4), c = u / (BN / 4);
+      uint32_t o[4][4];  // [column t4][word of the 16-byte chunk]
+      if (BITS == 2) {
+        // one word a column (byte i: packed row 4c + i), then its 16
+        // fields in k' order (byte j of word i: k' = 16c + 4i + j)
+        uint32_t col[4];
+        tmac::transpose4(w[k][0], w[k][1], w[k][2], w[k][3], col);
+#pragma unroll
+        for (int t4 = 0; t4 < 4; ++t4)
+          tmac::transpose4(col[t4] & 0x03030303u, (col[t4] >> 2) & 0x03030303u,
+                           (col[t4] >> 4) & 0x03030303u, (col[t4] >> 6) & 0x03030303u, o[t4]);
+      } else {
+        // code rows 16c + 4g .. +3: word g of each column's chunk
+#pragma unroll
+        for (int g = 0; g < 4; ++g) {
+          uint32_t col[4];
+          tmac::transpose4(w[k][4 * g], w[k][4 * g + 1], w[k][4 * g + 2], w[k][4 * g + 3], col);
+#pragma unroll
+          for (int t4 = 0; t4 < 4; ++t4) o[t4][g] = col[t4];
+        }
       }
-      // b[h][t]: B register h (k' + 16 h) of n8 tile t; tile t < 4 takes
-      // columns wn + 4c + t, tile t >= 4 columns wn + 32 + 4c + t - 4
-      uint32_t b[2][8];
+#pragma unroll
+      for (int t4 = 0; t4 < 4; ++t4) {
+        const int m = 4 * q + ((t4 + rot) & 3);
+        k3::sts128(B + m * 128 + ((c ^ (m & 7)) << 4), o[t4][0], o[t4][1], o[t4][2], o[t4][3]);
+      }
+    }
+    // the tile's generic-proxy stores, visible to wgmma's async proxy
+    tmac::fence_proxy_async();
+    __syncwarp();
+    if (lane == 0) {
+      tmac::mbar_arrive(&full[s]);
+      tmac::mbar_arrive(&raw_empty[r]);
+    }
+  };
+
+  int acc[MT][BN / 2];
+  const int wg = tid >> 7;
+  if (warp >= kWarps) {
+    // The loaders, one thread each: the packed ring (it does not depend on
+    // the prologue), each step as its stage frees; the codes after
+    // griddepcontrol.wait, each step as its stage frees
+    if (lane == 0) {
+      if (warp == kWarps) {
+        for (int t = 0; t < nb; ++t) {
+          if (t >= R) tmac::mbar_wait(&raw_empty[t % R], ((t / R) & 1) ^ 1);
+          issue_raw(t);
+        }
+      } else {
+        tmac::pdl_wait();  // the prologue's codes are complete
+        for (int t = 0; t < nb; ++t) {
+          if (t >= S) tmac::mbar_wait(&empty[t % S], ((t / S) & 1) ^ 1);
+          issue_codes(t);
+        }
+      }
+    }
+    __syncwarp();
+    tmac::pdl_wait();  // (the split's epilogue reads xs and xsum)
+  } else {
+    // The first D B tiles before the prologue's codes exist (their weights
+    // do not depend on it)
+    for (int t = 0; t < min(D, nb); ++t) unpack(t);
+    tmac::pdl_wait();  // the prologue's xs and xsum are complete
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int e = 0; e < BN / 2; ++e) acc[i][e] = 0;
+    for (int t = 0; t < nb; ++t) {
+      const int s = t % S;
+      tmac::mbar_wait(&full[s], (t / S) & 1);
+      const uint32_t a_base = tmac::smem_u32(smem + s * L.stage) + wg * MT * 64 * 128;
+      const uint32_t b_base = tmac::smem_u32(smem + s * L.stage + L.a_bytes);
+      tmac::wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < k3::kStepK / 32; ++ks) {
+        const uint64_t bd = tmac::smem_desc(b_base + ks * 32, 16, 1024);
+#pragma unroll
+        for (int i = 0; i < MT; ++i)
+          k3::wgmma_s8<BN>(acc[i], tmac::smem_desc(a_base + i * 8192 + ks * 32, 16, 1024), bd);
+      }
+      tmac::wgmma_commit();
+      // the stage before this one is free once its wgmma group is done:
+      // one arrival a warp
+      tmac::wgmma_wait<1>();
+      if (t > 0 && lane == 0) tmac::mbar_arrive(&empty[(t - 1) % S]);
+      // the B tile D steps ahead, while this step's wgmma runs
+      if (t + D < nb) unpack(t + D);
+    }
+    tmac::wgmma_wait<0>();
+  }
+  tmac::pdl_trigger();  // a programmatically launched successor may start
+
+  // accumulator (i, 4 c + e) of a consumer thread: tile row 64 (wg MT + i)
+  // + 16 (warp % 4) + lane / 4 + 8 (e / 2), column 8 c + 2 (lane % 4) + e % 2
+  const int w4 = warp & 3;
+  if (ksplit == 1) {
+    if (warp >= kWarps) return;
+    // Through the (then idle) ring, as whole rows: each thread's sums
+    // scaled (fma(acc, scale, -q * sub)) into a tile of rows padded by 8
+    // floats (a warp's stores take two wavefronts) and its rows' xs beside
+    // it, then every row out with 16-byte stores (the residual read so),
+    // times xs or fma'd with the residual: stores of 2 columns straight from
+    // the fragments touch 8 rows each, and take longer than the main loop's
+    // last steps.
+    constexpr int kPitch = BN + 8;
+    float* tile_s = reinterpret_cast<float*>(smem);
+    float* xs_s = tile_s + BM * kPitch;
+    k3::bar_sync(1, kThreads);  // every warpgroup's last wgmma has read its stage
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
+        const int rl = (wg * MT + i) * 64 + 16 * w4 + (lane >> 2) + 8 * h;
+        const bool live = n0 + rl < a.N;
+        const float q = live ? __ldcg(a.xsum + n0 + rl) : 0.f;
+        if ((lane & 3) == 0) xs_s[rl] = live ? __ldcg(a.xs + n0 + rl) : 0.f;
 #pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const int word = (wn >> 2) + half * 8 + g;
-          uint32_t col[4];
-          if (BITS == 2) {
-            const uint32_t w = *reinterpret_cast<const uint32_t*>(
-                Bs + (ks * 8 + h * 4 + tq) * B::kStride + 4 * word);
-            tmac::transpose4(w & 0x03030303u, (w >> 2) & 0x03030303u,
-                             (w >> 4) & 0x03030303u, (w >> 6) & 0x03030303u, col);
-          } else {
-            const uint8_t* p = Bs + (ks * 32 + h * 16 + tq * 4) * B::kStride + 4 * word;
-            tmac::transpose4(*reinterpret_cast<const uint32_t*>(p),
-                             *reinterpret_cast<const uint32_t*>(p + B::kStride),
-                             *reinterpret_cast<const uint32_t*>(p + 2 * B::kStride),
-                             *reinterpret_cast<const uint32_t*>(p + 3 * B::kStride), col);
-          }
-#pragma unroll
-          for (int c = 0; c < 4; ++c) b[h][half * 4 + c] = col[c];
+        for (int c = 0; c < BN / 8; ++c) {
+          const int mm = 8 * c + 2 * (lane & 3);
+          *reinterpret_cast<float2*>(tile_s + rl * kPitch + mm) =
+              make_float2(k3::scaled(acc[i][4 * c + 2 * h], ep[mm], ep[BN + mm], q),
+                          k3::scaled(acc[i][4 * c + 2 * h + 1], ep[mm + 1], ep[BN + mm + 1], q));
         }
       }
+    k3::bar_sync(1, kThreads);
+    const int rows = min(BM, a.N - n0), cols = min(BN, a.Mp - m0);
 #pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < 8; ++nt) mma_s8(acc[mt][nt], a[mt], b[0][nt], b[1][nt]);
+    for (int k = 0; k < BM * BN / 4 / kThreads; ++k) {
+      const int idx = tid + kThreads * k, rl = idx / (BN / 4), mm = 4 * (idx % (BN / 4));
+      if (rl >= rows || mm >= cols) continue;
+      const float x_s = xs_s[rl];
+      const float4 v = *reinterpret_cast<const float4*>(tile_s + rl * kPitch + mm);
+      const size_t o = (size_t)(n0 + rl) * a.Mp + m0 + mm;
+      float4 r;
+      if (a.residual != nullptr) {
+        const uint2 rb = __ldg(reinterpret_cast<const uint2*>(a.residual + o));
+        const __nv_bfloat162 r01 = *reinterpret_cast<const __nv_bfloat162*>(&rb.x);
+        const __nv_bfloat162 r23 = *reinterpret_cast<const __nv_bfloat162*>(&rb.y);
+        r = make_float4(__fmaf_rn(v.x, x_s, __low2float(r01)),
+                        __fmaf_rn(v.y, x_s, __high2float(r01)),
+                        __fmaf_rn(v.z, x_s, __low2float(r23)),
+                        __fmaf_rn(v.w, x_s, __high2float(r23)));
+      } else {
+        r = make_float4(__fmul_rn(v.x, x_s), __fmul_rn(v.y, x_s), __fmul_rn(v.z, x_s),
+                        __fmul_rn(v.w, x_s));
+      }
+      *reinterpret_cast<float4*>(a.out + o) = r;
     }
-    __syncthreads();
-    if (t + 1 < ntiles) {
-      store();
-      __syncthreads();
-    }
+    return;
   }
 
-  // the epilogue: accumulator (mt, nt, 2 h + e) is row wm + 16 mt + g + 8 h
-  // and column 4 (2 tq + e) + nt of the tile's columns wn (+ 32 for nt >= 4),
-  // so tiles 0..3 (and 4..7) give 4 adjacent columns: one float4 store
+  // The split: block `rank` finishes tile rows [rank * sg * 8, +sg * 8).
+  // Every block's partials go into the ring of the block that finishes
+  // their rows (recv[source rank][row of the slice][column]), through
+  // distributed shared memory; the cluster barriers order it.
+  const int sg = k3::slice_groups(BM, ksplit), srows = 8 * sg;
+  int* recv = reinterpret_cast<int*>(smem);
+  cluster.sync();  // every block's main loop is done and its ring idle
 #pragma unroll
-  for (int mt = 0; mt < 2; ++mt) {
+  for (int i = 0; i < MT; ++i)
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int n = n0 + wm + mt * 16 + g + 8 * h;
-      if (n >= N) continue;
-      const float x_s = xs[n], q = xsum[n];
+    for (int h = 0; h < 2 && warp < kWarps; ++h) {
+      const int rl = (wg * MT + i) * 64 + 16 * w4 + (lane >> 2) + 8 * h;
+      const int owner = (rl >> 3) / sg;
+      int* row = cluster.map_shared_rank(recv, owner) +
+                 (rank * srows + rl - owner * srows) * BN + 2 * (lane & 3);
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
+      for (int c = 0; c < BN / 8; ++c)
+        *reinterpret_cast<int2*>(row + 8 * c) =
+            make_int2(acc[i][4 * c + 2 * h], acc[i][4 * c + 2 * h + 1]);
+    }
+  cluster.sync();  // every partial has landed; nothing crosses blocks after
+  // a warp a row of the slice, 16 bytes a lane: the ksplit partials in
+  // rank order, then the epilogue
+  const int r0 = rank * srows, rows = max(0, min(min(srows, BM - r0), a.N - n0 - r0));
+#pragma unroll 4
+  for (int rr = warp; rr < rows; rr += blockDim.x / 32) {
+    const int n = n0 + r0 + rr;
+    const float x_s = __ldcg(a.xs + n), q = __ldcg(a.xsum + n);
 #pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const int m = m0 + wn + half * 32 + 4 * (2 * tq + e);
-          float o[4];
-#pragma unroll
-          for (int c = 0; c < 4; ++c) {
-            const float zero_fold = -__fmul_rn(q, sub[m + c]);
-            const float v = __fmaf_rn((float)acc[mt][half * 4 + c][2 * h + e],
-                                      scales[m + c], zero_fold);
-            o[c] = residual != nullptr
-                       ? __fmaf_rn(v, x_s, __bfloat162float(residual[(size_t)n * Mp + m + c]))
-                       : __fmul_rn(v, x_s);
-          }
-          *reinterpret_cast<float4*>(out + (size_t)n * Mp + m) =
-              make_float4(o[0], o[1], o[2], o[3]);
-        }
+    for (int h = 0; h < BN / 128; ++h) {
+      const int mm = 4 * (lane + 32 * h), m = m0 + mm;
+      if (m >= a.Mp) continue;
+      int4 sum = make_int4(0, 0, 0, 0);
+      for (int b = 0; b < ksplit; ++b) {
+        const int4 v = *reinterpret_cast<const int4*>(recv + (b * srows + rr) * BN + mm);
+        sum.x += v.x;
+        sum.y += v.y;
+        sum.z += v.z;
+        sum.w += v.w;
       }
+      const size_t o = (size_t)n * a.Mp + m;
+      const int s4[4] = {sum.x, sum.y, sum.z, sum.w};
+      float v[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        v[e] = k3::scaled(s4[e], ep[mm + e], ep[BN + mm + e], q);
+        v[e] = a.residual != nullptr
+                   ? __fmaf_rn(v[e], x_s, __bfloat162float(a.residual[o + e]))
+                   : __fmul_rn(v[e], x_s);
+      }
+      *reinterpret_cast<float4*>(a.out + o) = make_float4(v[0], v[1], v[2], v[3]);
     }
   }
+}
+
+// Launch one instance of K3 on cdiv(Mp, bn) * ksplit x cdiv(N, bm) blocks in
+// clusters of ksplit along x, with programmatic stream serialization (it
+// starts while the prologue before it runs).  A cluster the card cannot
+// place is refused with cudaErrorInvalidConfiguration; nothing falls back.
+template <int BITS, int BN, int CWG, int MT>
+int launch_k3(const k3::Args& a, int ksplit, cudaStream_t stream) {
+  constexpr int BM = 64 * CWG * MT;
+  constexpr k3::Layout L(BITS, BM, BN);
+  static_assert(L.total <= k3::kSmemLimit, "K3's ring outgrows a block's shared memory");
+  static bool admitted[k3::kMaxSplit + 1] = {};
+  auto kernel = k3_wgmma_kernel<BITS, BN, CWG, MT>;
+  if (ksplit * k3::slice_groups(BM, ksplit) * 8 * BN * 4 > L.bars)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L.total);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute attr[2];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = ksplit;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  attr[1].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[1].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((a.Mp + BN - 1) / BN * ksplit, (a.N + BM - 1) / BM);
+  cfg.blockDim = dim3(128 * CWG + 64);
+  cfg.dynamicSmemBytes = L.total;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  if (!admitted[ksplit]) {
+    int clusters = 0;
+    err = cudaOccupancyMaxActiveClusters(&clusters, (const void*)kernel, &cfg);
+    if (err != cudaSuccess) return (int)err;
+    if (clusters < 1) return (int)cudaErrorInvalidConfiguration;
+    admitted[ksplit] = true;
+  }
+  cfg.numAttrs = 2;
+  err = cudaLaunchKernelEx(&cfg, kernel, a);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -622,28 +1011,51 @@ int launch_dequant_wgmma(const CUtensorMap& map, int N, int Kp, int gs,
 // K3: codes (N, Kp) int8 from tmac_act_quant with large_n (dp4a grouping),
 // xs and xsum (N,) f32, packed (Kp/4, Mp) (bits=2) or (Kp, Mp) (bits=8)
 // uint8, scales/sub (Mp,) f32, residual (N, Mp) bf16 or null -> out (N, Mp)
-// f32.  Kp a multiple of 16, Mp of 128.  Returns the launch's CUDA error.
-extern "C" int tmac_qgemm_large_int(const void* codes, const float* xs,
+// f32.  Kp a multiple of 16, Mp of 128; codes and packed 16-byte aligned; a
+// block of bm token rows (64, 128 or 256) x bn columns (128; or, at bits 2,
+// 256 at bm 64 or 128), a cluster of ksplit (1-8, at most the 128-k' steps of Kp)
+// blocks along K.  Launched programmatically after the prologue.  Returns
+// the launch's CUDA error (cudaErrorInvalidConfiguration for a cluster the
+// card cannot place).
+extern "C" int tmac_large_int_wgmma(const void* codes, const float* xs,
                                     const float* xsum, int N, int Kp, int bits,
                                     const void* packed, const float* scales,
-                                    const float* sub, int Mp,
-                                    const void* residual, float* out,
-                                    void* stream) {
-  if (N <= 0 || Kp <= 0 || Kp % 16 != 0 || Mp % k3BN != 0 ||
-      (bits != 2 && bits != 8))
+                                    const float* sub, int Mp, const void* residual,
+                                    float* out, int bm, int bn, int ksplit, void* stream) {
+  const int nsteps = (Kp + k3::kStepK - 1) / k3::kStepK;
+  if (N <= 0 || Kp <= 0 || Kp % 16 != 0 || Mp % 128 != 0 || (bits != 2 && bits != 8) ||
+      (bm != 64 && bm != 128 && bm != 256) || (bn != 128 && bn != 256) ||
+      (bn == 256 && (bm == 256 || bits == 8)) || ksplit < 1 || ksplit > k3::kMaxSplit || ksplit > nsteps ||
+      reinterpret_cast<uintptr_t>(codes) % 16 || reinterpret_cast<uintptr_t>(packed) % 16)
     return (int)cudaErrorInvalidValue;
-  const dim3 grid(Mp / k3BN, (N + k3BM - 1) / k3BM);
-  const int8_t* c = static_cast<const int8_t*>(codes);
-  const uint8_t* pk = static_cast<const uint8_t*>(packed);
-  const __nv_bfloat16* res = static_cast<const __nv_bfloat16*>(residual);
+  k3::Args a{};
+  int err = tmac::box_map(&a.codes_map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, codes, N, Kp,
+                          k3::kStepK, bm, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (err != 0) return err;
+  err = tmac::box_map(&a.packed_map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, packed,
+                      bits == 2 ? Kp / 4 : Kp, Mp, bn, k3::raw_rows(bits),
+                      CU_TENSOR_MAP_SWIZZLE_NONE);
+  if (err != 0) return err;
+  a.xs = xs;
+  a.xsum = xsum;
+  a.scales = scales;
+  a.sub = sub;
+  a.residual = static_cast<const __nv_bfloat16*>(residual);
+  a.out = out;
+  a.N = N;
+  a.Mp = Mp;
+  a.nsteps = nsteps;
   cudaStream_t s = (cudaStream_t)stream;
-  if (bits == 2)
-    large_int_kernel<2><<<grid, k3Threads, 0, s>>>(c, xs, xsum, N, Kp, pk, scales,
-                                                   sub, Mp, res, out);
-  else
-    large_int_kernel<8><<<grid, k3Threads, 0, s>>>(c, xs, xsum, N, Kp, pk, scales,
-                                                   sub, Mp, res, out);
-  return (int)cudaGetLastError();
+  switch (bits * 10000 + bn * 10 + bm / 64) {
+    case 21281: return launch_k3<2, 128, 1, 1>(a, ksplit, s);
+    case 21282: return launch_k3<2, 128, 2, 1>(a, ksplit, s);
+    case 21284: return launch_k3<2, 128, 2, 2>(a, ksplit, s);
+    case 22561: return launch_k3<2, 256, 1, 1>(a, ksplit, s);
+    case 22562: return launch_k3<2, 256, 2, 1>(a, ksplit, s);
+    case 81281: return launch_k3<8, 128, 1, 1>(a, ksplit, s);
+    case 81282: return launch_k3<8, 128, 2, 1>(a, ksplit, s);
+    default: return launch_k3<8, 128, 2, 2>(a, ksplit, s);
+  }
 }
 
 // K5's prologue: x (N, x_cols) bf16 -> xa (N, Kp) bf16.  norm_w (K,) bf16 or

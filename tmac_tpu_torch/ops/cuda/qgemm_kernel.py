@@ -9,7 +9,9 @@ two routes that ``qgemm_pallas(act="fused")`` takes for per-tensor scales
 (the matmul K1 shares with K4: a programmatic dependent launch after the
 prologue, K split over a thread-block cluster by ``decode_plan``); K3,
 from 64 rows, its ``single_dot`` form after the reference's XLA prologue,
-in ``csrc/qgemm_large.cu`` on K1's prologue.
+in ``csrc/qgemm_large.cu`` on K1's prologue (wgmma s8 on TMA-fed,
+producer-unpacked shared memory; the token tile and a split of K over a
+cluster picked by ``large_plan``).
 Each source says what bounds its kernel on the card (device-memory bytes
 at decode, the tensor cores at prefill) and how its design answers it.
 
@@ -339,18 +341,28 @@ def qgemm_fused_plain(x: torch.Tensor, qt: QuantizedTensor, norm=None,
     _check_supported(qt, glu, norm, residual)
     large = x.shape[0] >= LARGE_N
     codes, xs, xsum = act_quant_plain(x, qt, norm, glu, large)
-    acc = int_dot_plain(codes, qt).float()
+    acc = int_dot_plain(codes, qt)
+    if large:
+        return qt.slice_m(large_epilogue_plain(acc, xs, xsum, qt, residual))
+    acc = acc.float()
     scale, xs = qt.scales[0].float().expand_as(acc), xs[:, None].expand_as(acc)
     zero_fold = -(xsum[:, None] * qt.sub[0].float())
-    if large:
-        out = fma_f32(acc, scale, zero_fold)
-        out = (out * xs if residual is None
-               else fma_f32(out, xs, residual.float()))
-    else:
-        out = fma_f32(acc * scale, xs, zero_fold)
-        if residual is not None:
-            out = out + residual.float()
+    out = fma_f32(acc * scale, xs, zero_fold)
+    if residual is not None:
+        out = out + residual.float()
     return qt.slice_m(out)
+
+
+def large_epilogue_plain(acc: torch.Tensor, xs: torch.Tensor, xsum: torch.Tensor,
+                         qt: QuantizedTensor, residual=None) -> torch.Tensor:
+    """K3's f32 epilogue on the exact int32 sums acc (N, Mp), xs and the
+    bare code sums xsum (N,): fma(acc, scale, -(xsum * sub)) * xs, or
+    fma(that, xs, residual), each step rounded as the reference's N >= 64
+    route compiles it.  -> (N, Mp) f32."""
+    acc = acc.float()
+    scale, xs = qt.scales[0].float().expand_as(acc), xs[:, None].expand_as(acc)
+    out = fma_f32(acc, scale, -(xsum[:, None] * qt.sub[0].float()))
+    return out * xs if residual is None else fma_f32(out, xs, residual.float())
 
 
 # ---------------------------------------------------------------------------
@@ -495,31 +507,172 @@ def qgemm_fused(x: torch.Tensor, qt: QuantizedTensor, norm=None,
 qgemm_fused.launches = 0
 
 
+# ---------------------------------------------------------------------------
+# K3's plan (csrc/qgemm_large.cu, k3_wgmma_kernel)
+# ---------------------------------------------------------------------------
+
+LARGE_STEP = 128          # k' of a step (one 128-byte swizzled row of A and B)
+# a block's (token rows, columns): (1 x m64, n128), (2 x m64, n128),
+# (2 x 2 x m64, n128), and at bits 2 (1 x m64, n256), (2 x m64, n256)
+LARGE_TILES = ((64, 128), (128, 128), (256, 128), (64, 256), (128, 256))
+LARGE_MAX_SPLIT = 8       # portable cluster size
+LARGE_MAX_STAGES = 8
+# large_plan's cost model, fitted (least squares on log times) to the
+# matmul's time at every tile and cluster size 1-8 on BitNet-3B's prefill
+# shapes at N = 64, 256 and 1024 on an H100 (PERF.md, PR 10), in
+# microseconds: a step's time by tile (bits 8 LARGE_BITS8_STEP times it:
+# four times the packed bytes to unpack); a block's fixed time, LARGE_FIXED_US
+# plus LARGE_AREA_US times its tile's area over 256 x 128 (the epilogue, the
+# rings' first fill); a split's cost, (LARGE_SPLIT_US + LARGE_SPLIT_PER_US *
+# ksplit) times that area (the partials through distributed shared memory);
+# and the share of the card clusters of 4 or more blocks fill
+LARGE_STEP_US = {(64, 128): 0.61, (128, 128): 0.67, (256, 128): 0.85,
+                 (64, 256): 0.87, (128, 256): 1.03}
+LARGE_BITS8_STEP = 1.27
+LARGE_FIXED_US, LARGE_AREA_US = 2.9, 6.8
+LARGE_SPLIT_US, LARGE_SPLIT_PER_US = 3.1, 0.2
+LARGE_WIDE_FILL = 0.945
+
+
+def large_smem(bits: int, bm: int, bn: int):
+    """(ring stages, packed stages, bytes) of K3's shared memory at a tile
+    of bm token rows x bn columns, as k3::Layout sizes it: 1024 bytes of
+    alignment slack; stages of A (bm x 128 bytes) and B (bn x 128 bytes),
+    as many as fit, at most LARGE_MAX_STAGES; the packed ring, 32 KB at
+    bits 2 and 64 KB at bits 8; the barriers; the epilogue's scales and
+    zero points."""
+    rows = LARGE_STEP // 4 if bits == 2 else LARGE_STEP
+    raws = (32 if bits == 2 else 64) * 1024 // (rows * bn)
+    stage = (bm + bn) * LARGE_STEP
+
+    def total(stages):
+        return 1024 + stages * stage + raws * rows * bn + 16 * (stages + raws) + 8 * bn
+    stages = LARGE_MAX_STAGES
+    while stages > 2 and total(stages) > DECODE_SMEM_LIMIT:
+        stages -= 1
+    return stages, raws, total(stages)
+
+
+def large_recv(bm: int, bn: int, ksplit: int) -> int:
+    """Bytes a block receives of its cluster's partials: ksplit sources x
+    the row groups of 8 it finishes x bn columns of int32."""
+    return ksplit * cdiv(bm // 8, ksplit) * 8 * bn * 4
+
+
+def check_large(N: int, Kp: int, Mp: int, bits: int, bm: int, bn: int,
+                ksplit: int) -> None:
+    """Raise unless K3 takes these shapes at a tile of bm token rows x bn
+    columns and a cluster of ksplit blocks along K (large_plan's, or
+    forced)."""
+    if bits not in (2, 8):
+        raise ValueError(f"K3 takes bits 2 and 8, not {bits}")
+    if N < LARGE_N or Kp <= 0 or Kp % 16 or Mp % 128:
+        raise ValueError(f"K3 takes N >= {LARGE_N}, Kp % 16 == 0 and Mp % 128 == 0, "
+                         f"not N = {N}, Kp = {Kp}, Mp = {Mp}")
+    if (bm, bn) not in LARGE_TILES or (bits == 8 and bn != 128):
+        raise ValueError(f"K3: a tile of {bm} x {bn} at bits {bits}; it takes "
+                         f"{LARGE_TILES}, at bits 8 those of 128 columns")
+    nsteps = cdiv(Kp, LARGE_STEP)
+    if not 1 <= ksplit <= min(LARGE_MAX_SPLIT, nsteps):
+        raise ValueError(f"K3: a cluster of {ksplit} along {nsteps} steps of K")
+    stages, raws, total = large_smem(bits, bm, bn)
+    ring = total - 1024 - 16 * (stages + raws) - 8 * bn  # the rings, which receive
+    if total > DECODE_SMEM_LIMIT or large_recv(bm, bn, ksplit) > ring:
+        raise ValueError(f"K3: tile {bm} x {bn} at ksplit {ksplit} outgrows a block's "
+                         "shared memory")
+
+
+def large_spans(nsteps: int, ksplit: int):
+    """The steps [t0, t1) block `rank` of a cluster of ksplit takes: t0 =
+    rank * nsteps // ksplit, contiguous and in rank order."""
+    return [(r * nsteps // ksplit, (r + 1) * nsteps // ksplit) for r in range(ksplit)]
+
+
+def large_steps(nsteps: int, ksplit: int, rank: int, tile: int):
+    """The steps block `rank` of column tile `tile`'s cluster walks, in its
+    order: its span of large_spans, started at its tile index (mod the
+    span's length), so that the blocks of a wave read different codes from
+    L2 at once.  Integer sums make the order immaterial to the result."""
+    t0, t1 = large_spans(nsteps, ksplit)[rank]
+    nb = t1 - t0
+    return [t0 + (t + tile % nb) % nb for t in range(nb)] if nb else []
+
+
+def large_plan(N: int, Kp: int, Mp: int, bits: int, sms: int = DEFAULT_SMS):
+    """(bm, bn, ksplit) for K3 from shapes only, so a CUDA graph can
+    capture the call: the tile (LARGE_TILES) and the cluster size along K
+    (1 to LARGE_MAX_SPLIT, no more than the steps) that minimise waves x a
+    block's time.  A block holds an SM (its rings take most of the shared
+    memory), so a wave is sms // ksplit clusters (LARGE_WIDE_FILL of that
+    from 4 blocks a cluster); a block's time is its steps x the tile's step
+    time, its fixed time and, split, the split's cost (the constants
+    above).  Ties go to the earlier candidate (smaller cluster, then the
+    earlier tile).  Raises on shapes K3 does not take."""
+    check_large(N, Kp, Mp, bits, *LARGE_TILES[0], 1)
+    best = None
+    for ksplit, (bm, bn) in itertools.product(range(1, LARGE_MAX_SPLIT + 1), LARGE_TILES):
+        try:
+            check_large(N, Kp, Mp, bits, bm, bn, ksplit)
+        except ValueError:
+            continue
+        fit = sms // ksplit
+        if ksplit >= 4:
+            fit = int(fit * LARGE_WIDE_FILL)
+        waves = cdiv(cdiv(Mp, bn) * cdiv(N, bm), max(fit, 1))
+        area = bm * bn / (256 * 128)
+        step = LARGE_STEP_US[bm, bn] * (LARGE_BITS8_STEP if bits == 8 else 1.0)
+        block = (cdiv(cdiv(Kp, LARGE_STEP), ksplit) * step + LARGE_FIXED_US
+                 + LARGE_AREA_US * area
+                 + ((LARGE_SPLIT_US + LARGE_SPLIT_PER_US * ksplit) * area if ksplit > 1 else 0.0))
+        cost = waves * block
+        if best is None or cost < best[0] - 1e-9:
+            best = (cost, (bm, bn, ksplit))
+    return best[1]
+
+
+def large_partials_plain(codes: torch.Tensor, qt: QuantizedTensor,
+                         ksplit: int):
+    """K3's int32 sums as its K split takes them: codes (N, Kp) in K3's
+    order (dp4a_order) against the weight codes in the same order, block
+    `rank` of a cluster of ksplit taking the 128-k' steps of large_spans.
+    -> ksplit (N, Mp) int64 partials; their sum, in any order, is
+    int_dot_plain's."""
+    w = dp4a_order(unpack_codes(qt).t(), qt.bits).t().long()
+    c = codes.long()
+    return [c[:, t0 * LARGE_STEP:t1 * LARGE_STEP] @ w[t0 * LARGE_STEP:t1 * LARGE_STEP]
+            for t0, t1 in large_spans(cdiv(qt.kdim_padded, LARGE_STEP), ksplit)]
+
+
 @functools.cache
 def _lib_large():
     from tmac_tpu_torch.ops.cuda import build
     lib = build.load("qgemm_large")
-    lib.tmac_qgemm_large_int.argtypes = [
+    lib.tmac_large_int_wgmma.argtypes = [
         _c_ptr, _c_ptr, _c_ptr, _c_int, _c_int, _c_int, _c_ptr, _c_ptr,
-        _c_ptr, _c_int, _c_ptr, _c_ptr, _c_ptr]
-    lib.tmac_qgemm_large_int.restype = _c_int
+        _c_ptr, _c_int, _c_ptr, _c_ptr, _c_int, _c_int, _c_int, _c_ptr]
+    lib.tmac_large_int_wgmma.restype = _c_int
     return lib
 
 
 def launch_large_int(codes: torch.Tensor, xs: torch.Tensor, xsum: torch.Tensor,
-                     qt: QuantizedTensor, residual=None) -> torch.Tensor:
-    """Launch K3's matmul on K1's prologue outputs (large_n on): -> (N, Mp)
-    f32."""
+                     qt: QuantizedTensor, residual=None, ksplit=None,
+                     tile=None) -> torch.Tensor:
+    """Launch K3's matmul on K1's prologue outputs (large_n on), right
+    after the prologue (it starts while the prologue runs): -> (N, Mp)
+    f32.  tile (bm, bn) and ksplit: the block's token rows and columns and
+    the cluster size along K (large_plan's by default)."""
     res_ptr = _check_gemm_args("K3", codes, xs, xsum, qt, residual)
     N, Kp, Mp = codes.shape[0], qt.kdim_padded, qt.mdim_padded
-    if Kp % 16 or Mp % 128 or qt.packed.data_ptr() % 16:
-        raise ValueError("K3: Kp % 16 == 0, Mp % 128 == 0 and 16-byte "
-                         "aligned packed weights")
+    if qt.packed.data_ptr() % 16 or codes.data_ptr() % 16:
+        raise ValueError("K3: 16-byte aligned codes and packed weights")
+    plan_bm, plan_bn, plan_split = large_plan(N, Kp, Mp, qt.bits, _sms(codes.device))
+    (bm, bn), ksplit = tile or (plan_bm, plan_bn), ksplit or plan_split
+    check_large(N, Kp, Mp, qt.bits, bm, bn, ksplit)
     out = torch.empty((N, Mp), dtype=torch.float32, device=codes.device)
-    err = _lib_large().tmac_qgemm_large_int(
+    err = _lib_large().tmac_large_int_wgmma(
         codes.data_ptr(), xs.data_ptr(), xsum.data_ptr(), N, Kp, qt.bits,
         qt.packed.data_ptr(), qt.scales.data_ptr(), qt.sub.data_ptr(), Mp,
-        res_ptr, out.data_ptr(),
+        res_ptr, out.data_ptr(), bm, bn, ksplit,
         torch.cuda.current_stream(codes.device).cuda_stream)
     raise_on("K3", err, "matmul")
     return out
@@ -530,7 +683,8 @@ def qgemm_large_int(x: torch.Tensor, qt: QuantizedTensor, norm=None,
     """K3: qgemm_fused's function for N >= 64 rows, on the reference's
     large-N route (its single int8 dot and that route's epilogue): K1's
     prologue with the bare code sum, then one exact int32 dot over the
-    whole depth on the tensor cores."""
+    whole depth on the tensor cores (wgmma s8; large_plan's token tile and
+    split of K)."""
     _check_supported(qt, glu, norm, residual)
     if x.shape[0] < LARGE_N:
         raise ValueError(f"K3 takes N >= {LARGE_N} rows, not {x.shape[0]}: "
