@@ -5,6 +5,7 @@
     python3 chip_smoke.py --phase decode_plan_sweep    (K1, K4 at every ksplit)
     python3 chip_smoke.py --phase expert_block_sweep   (K7 and K10 per call)
     python3 chip_smoke.py --phase k3_sweep             (K3 per call)
+    python3 chip_smoke.py --phase graph_spread         (one step's graphs)
 
 Phases, each printing one JSON line before the last two:
   1. the card (nvidia-smi name and power limit, torch's device name);
@@ -30,13 +31,28 @@ Phases, each printing one JSON line before the last two:
   5. path 1, BitNet-3B W1.58A8 at full width (26 layers, hidden 3200,
      head_dim 100), random weights from seed 0: prefill of a 16-token
      prompt and 64 greedy decode steps through the runtime's entry points,
-     with the kernels' launch counts read around it (105 K1 and 26 K2
-     launches per decode step); a teacher-forced check of the kernel path
-     against the plain versions on the card (logits NMSE <= 1e-4,
-     tie-aware argmax agreement 1.0); the eager decode rate from CUDA
-     events; the same step captured in a CUDA graph (the card's own time
-     per step, checked to give the eager tokens); the device time of an
-     eager step by kernel from torch.profiler; then the same for a
+     prefill and decode_loop (its first step eager, then one CUDA graph of
+     the step replayed 63 times), with the kernels' launch counts read
+     around it (105 K1 and 26 K2 launches per decode step, each wrapper
+     counting its call in the loop's eager step and in its one capture);
+     a teacher-forced check of the kernel path against the plain versions
+     on the card (logits NMSE <= 1e-4, tie-aware argmax agreement 1.0);
+     the same 64 steps by an eager loop of decode_step (its rate from CUDA
+     events) and by a CUDA graph of the step captured here (the card's own
+     time per step), both giving decode_loop's tokens; decode_loop timed
+     three times (min, median and max of its replayed step, tokens/s with
+     and without the capture's one-time cost); the device time of an
+     eager step by kernel from torch.profiler; then the phase
+     generate_from_checkpoint: the weights saved with the port's
+     checkpoint writer (and a synthetic tokenizer) to a temporary
+     directory and loaded back on the card, every tensor byte for byte;
+     generate() from the loaded model giving the in-memory model's greedy
+     tokens; sampled at temperature 0.8, top-k 40, top-p 0.95, min-p 0.05
+     and repeat penalty 1.1, seed 1 twice the same tokens and seed 2
+     others; text in and out through the checkpoint's tokenizer; a
+     sampler's CUDA graph drawing anew at each replay; perplexity over two
+     512-token windows on the kernel path (210 K3 launches) within 1e-6
+     of the plain versions'; then the same as the main run for a
      1024-token prefill in chunks of 256 (420 K3 launches, no K1) and 64
      steps of a model made with TMAC_BLOCK_KERNEL=1 (26 K10, 27 K1 and 26
      K2 a step), the block-mode step's graph beside the default mode's at
@@ -61,8 +77,9 @@ Phases, each printing one JSON line before the last two:
      sqrt(Kp) * 2^-23 of sum |xa * W|); K1 on the int8 head at N = 1, K3
      at 256 and 512;
      prefill of a 1024-token prompt in chunks of 512 and 64 greedy decode
-     steps (256 K5 and 2 K3 launches for the prefill; 128 K4, 1 K1 and 32
-     K2 per decode step), then the checks and timings of path 1 (the
+     steps through decode_loop (256 K5 and 2 K3 launches for the prefill;
+     128 K4, 1 K1 and 32 K2 per decode step), then the checks and timings
+     of path 1's main run (the
      teacher-forced check on the prefill's last position, NMSE <=
      LLAMA_TF_NMSE and <= LLAMA_FLOOR_RATIO times the plain path's own
      f32-order drift there, its argmax where the plain path's lead is
@@ -85,11 +102,11 @@ Phases, each printing one JSON line before the last two:
      captured in a CUDA graph and replayed on tokens whose routes change,
      each replay bit for bit the plain versions'; prefill of a 256-token
      prompt (the MoE layers in the capacity-dispatch form over K4L: 576 K4L
-     and 1 K3 launches) and 64 greedy decode steps (the select form through
-     K7: 64 K7 (gate_up and down of both routed experts, one call each a
-     layer), 64 K4, 32 K2 and 1 K1 launches per step), then the checks and
-     timings of path 1 (the decode step captured in a CUDA graph, which
-     proves it makes no host sync), K7's per call and per step;
+     and 1 K3 launches) and 64 greedy decode steps through decode_loop
+     (the select form through K7: 64 K7 (gate_up and down of both routed
+     experts, one call each a layer), 64 K4, 32 K2 and 1 K1 launches per
+     step; the step in a CUDA graph makes no host sync), then the checks
+     and timings of path 1's main run, K7's per call and per step;
   8. path 4, Phi-3-mini W2A16 g128 at full width and depth (32 layers,
      hidden 3072, 32 heads of head_dim 96, FFN 8192, vocab 32064, a
      2047-row sliding window), random weights drawn on the card from seed
@@ -101,14 +118,16 @@ Phases, each printing one JSON line before the last two:
      to 2432 (K9's stored rows byte for byte, the rest of the cache
      untouched, the store at cached length S on row S - 1); K4 at Phi-3's
      shapes (N = 1) and K4L (N = 64, 100, 256, 383); a 2304-token prefill
-     (nine chunks of 256, past the window) and 64 greedy decode steps on
-     an int8 cache (1152 K4L and 9 K3 launches for the prefill, no K4;
-     128 K4, 1 K1 and 32 K6 a step), the same on
-     a bf16 cache, and 64 steps from the int8 prefill's cache in the
-     deferred (K8) and in-kernel (K9) KV-write modes, which must agree bit
-     for bit (tokens, logits, cache); a teacher-forced check of the
-     explicit and in-kernel steps against the plain versions; each mode's
-     step captured in a CUDA graph; K6, K8 and K9 per call at 2048 cached
+     (nine chunks of 256, past the window) and 64 greedy decode steps
+     through decode_loop on an int8 cache (1152 K4L and 9 K3 launches for
+     the prefill, no K4; 128 K4, 1 K1 and 32 K6 a step), the same on a
+     bf16 cache, and 64 steps through decode_loop from the int8 prefill's
+     cache in the deferred (K8) and in-kernel (K9) KV-write modes, each
+     run also by an eager loop giving the same tokens (and cache), the two
+     modes agreeing bit for bit (tokens, logits, cache); a teacher-forced
+     check of the explicit and in-kernel steps against the plain versions;
+     each mode's step captured in a CUDA graph, and decode_loop timed
+     three times in each mode; K6, K8 and K9 per call at 2048 cached
      rows beside their byte bound, plain versions and SDPA, K6 at every
      cluster size; K4L per call
      at 256 rows and per prefill, with its share of the prefill's time;
@@ -742,14 +761,86 @@ def profiled_ms(fn, calls=1, launched=None):
     return {k: v for k, v in ms.items() if v}
 
 
+def eager_decode(model, first, cache, steps=STEPS):
+    """`steps` greedy tokens from first (B,) by an eager Python loop of the
+    runtime's decode_step, the host launching every kernel of every step:
+    (row 0's tokens, device ms per step from CUDA events)."""
+    import torch
+    from tmac_tpu_torch.runtime.generate import decode_step
+    tok, toks = first, []
+    start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(steps):
+        tok, cache = decode_step(model, tok, cache)
+        toks.append(tok)
+    stop.record()
+    torch.cuda.synchronize()
+    return torch.stack(toks, 1)[0].tolist(), start.elapsed_time(stop) / steps
+
+
+def loop_decode(model, first, cache, steps=STEPS):
+    """`steps` greedy tokens from first (B,) through the runtime's
+    decode_loop, which on the card runs the first step eagerly and replays
+    a CUDA graph of it for the rest: (row 0's tokens, its stats: ms per
+    replayed step from the loop's own events, host seconds around the
+    whole call, setup seconds before the first replay)."""
+    import torch
+    from tmac_tpu_torch.runtime.generate import decode_loop
+    stats = {}
+    t0 = time.perf_counter()
+    out, _ = decode_loop(model, first, cache, steps, stats=stats)
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    if not stats["graph"] or stats["replays"] != steps - 1:
+        raise AssertionError(f"decode_loop on the card did not replay a graph: {stats}")
+    start, stop = stats.pop("replay_events")
+    stats.update(step_ms=start.elapsed_time(stop) / stats["replays"], host_s=host_s)
+    return out[0].tolist(), stats
+
+
+def loop_counts(pre, total):
+    """Launch counts of a decode_loop run read around it (pre: before it):
+    each wrapper counts its calls, and the loop calls each of a step's
+    wrappers twice, in its eager first step and in the one capture, while
+    the graph's replays launch without the host.  -> (per step, launched
+    on the card: pre + STEPS steps)."""
+    per_step = {k: (total[k] - pre[k]) / 2 for k in COUNTERS}
+    return per_step, {k: pre[k] + per_step[k] * STEPS for k in COUNTERS}
+
+
+def loop_rates(card, tag, model, snap, first, want, eager_ms, runs=3):
+    """decode_loop timed `runs` times from the prefill's cache snap: tokens/s
+    without the capture's one-time cost (ms per replayed step, the card's
+    own time) and with it (STEPS over the host's seconds around the call),
+    beside the eager loop's rate; each run's tokens must equal `want`.
+    Printed as the phase `{tag}_decode_loop`; returns the median ms."""
+    rows = []
+    for _ in range(runs):
+        toks, st = loop_decode(model, first.clone(), clone_cache(snap))
+        if toks != want:
+            raise AssertionError(f"{tag}: decode_loop gave other tokens")
+        rows.append(dict(step_ms=st["step_ms"], tokens_per_s=1e3 / st["step_ms"],
+                         tokens_per_s_with_capture=STEPS / st["host_s"],
+                         setup_s=st["setup_s"], host_s=st["host_s"]))
+    ms = sorted(r["step_ms"] for r in rows)
+    say(f"{tag}_decode_loop", steps=STEPS, runs=rows, step_ms_min=ms[0],
+        step_ms_median=ms[len(ms) // 2], step_ms_max=ms[-1],
+        tokens_per_s=1e3 / ms[len(ms) // 2],
+        tokens_per_s_with_capture=sorted(
+            r["tokens_per_s_with_capture"] for r in rows)[len(rows) // 2],
+        eager_step_ms=eager_ms, eager_tokens_per_s=1e3 / eager_ms,
+        tokens_equal_main_run=True, card=card.name, nvidia_smi=card.smi)
+    return ms[len(ms) // 2], ms
+
+
 def device_time(tag, model, cache, first, step_ms, graph_step_ms):
     """Where an eager decode step's device time goes: torch.profiler's
-    kernel times over PROFILED steps from first (B,) and cache, by kernel
-    and the rest as torch glue; printed as the phase `{tag}_device_time`."""
-    from tmac_tpu_torch.runtime.generate import decode_loop
+    kernel times over PROFILED eager steps from first (B,) and cache, by
+    kernel and the rest as torch glue; printed as the phase
+    `{tag}_device_time`."""
     launched = {}
-    per_step = profiled_ms(lambda: decode_loop(model, first, cache, PROFILED), PROFILED,
-                           launched)
+    per_step = profiled_ms(lambda: eager_decode(model, first, cache, PROFILED),
+                           PROFILED, launched)
     busy = sum(per_step.values())
     say(f"{tag}_device_time", ms_per_step=per_step, launches_per_step=launched, busy_ms=busy,
         idle_share_eager=1 - busy / step_ms,
@@ -760,19 +851,25 @@ def run_path(card, tag, cfg, params, prompt_len, want_prefill, want_step,
              forced=FORCED, chunk=256, block=False, tf_gate=None,
              tf_last_only=False):
     """Prefill in `chunk`-token pieces + STEPS greedy decode steps through
-    the runtime's entry points (block: the model made in the block mode),
+    the runtime's entry points, prefill and decode_loop (a CUDA graph of
+    the step after its first; block: the model made in the block mode),
     the kernels' launch counts read around it; then the teacher-forced
     check against the plain versions over the prompt and `forced` decode
     positions, logits NMSE <= PATH_NMSE and tie-aware argmax agreement 1.0
     (with tf_last_only: the prompt's last position, within tf_gate, and
     the decode steps from the kernel path's cache on both sides); the
-    eager and graph step times and the profiler's breakdown.
-    -> (model, cache, launches over the run, eager step ms, graph step
-    ms, the prefill's tokens and cache before the decode)."""
+    same steps by an eager loop of decode_step and by chip_smoke's own
+    captured step (graph_decode), each giving decode_loop's tokens; the
+    rates of all three (decode_loop three times); the profiler's breakdown
+    of an eager step.
+    -> dict: model, cache (after the main run), launches (counted over the
+    main run), step_ms (eager), graph_step_ms (graph_decode's), loop_ms
+    (decode_loop's median), snap and first (the prefill's cache and first
+    token, before the decode), prompt, gen (the main run's tokens)."""
     import numpy as np
     import torch
     from tmac_tpu_torch.models.llama import KVCache
-    from tmac_tpu_torch.runtime.generate import decode_loop, prefill
+    from tmac_tpu_torch.runtime.generate import prefill
     from tmac_tpu_torch.runtime.sampling import sample
     from tmac_tpu_torch.utils import argmax_agreement, nmse
     dev = card.dev
@@ -782,15 +879,17 @@ def run_path(card, tag, cfg, params, prompt_len, want_prefill, want_step,
     tokens = torch.from_numpy(prompt).to(dev)
     cache = KVCache.create(cfg, 1, max_len, device=dev)
     zero_counts()
+    t0 = time.perf_counter()
     logits, cache = prefill(model, tokens, cache, chunk=chunk)
     first = sample(logits)
     torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
     pre = read_counts()
-    out, cache = decode_loop(model, first, cache, STEPS)
-    torch.cuda.synchronize()
+    snap = clone_cache(cache)
+    out, stats = loop_decode(model, first, cache)
     total = read_counts()
-    per_step = {k: (total[k] - pre[k]) / STEPS for k in COUNTERS}
-    gen = torch.cat([first[:, None], out], 1)[0].tolist()
+    per_step, on_card = loop_counts(pre, total)
+    gen = [int(first[0])] + out
     if not bool(torch.isfinite(logits).all()):
         raise AssertionError(f"{tag}: prefill logits are not finite")
     if not all(0 <= t < cfg.vocab_size for t in gen) or len(gen) != STEPS + 1:
@@ -801,8 +900,9 @@ def run_path(card, tag, cfg, params, prompt_len, want_prefill, want_step,
         raise AssertionError(f"{tag}: cache pos {int(cache.pos[0])}")
     say(f"{tag}_main_path", model=cfg.name, bits=cfg.quant.bits,
         layers=cfg.num_layers, prompt=prompt_len, steps=STEPS, tokens=gen[:16],
+        decode="decode_loop (CUDA graph)", replays=stats["replays"],
         launches_prefill=pre, launches_per_decode_step=per_step,
-        launches_total=total)
+        launches_total=total, launched_on_card=on_card)
 
     # teacher-forced: kernel path against the plain versions on the card
     t0 = time.perf_counter()
@@ -866,46 +966,35 @@ def run_path(card, tag, cfg, params, prompt_len, want_prefill, want_step,
                              f"prompt's last position {last}")
     del plain, caches, pairs
 
-    # decode rate: a second run, timed with CUDA events
-    cache = KVCache.create(cfg, 1, max_len, device=dev)
-    logits, cache = prefill(model, tokens, cache, chunk=chunk)
-    first = sample(logits)
-    torch.cuda.synchronize()
-    start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    t0 = time.perf_counter()
-    start.record()
-    decode_loop(model, first, cache, STEPS)
-    stop.record()
-    torch.cuda.synchronize()
-    host_s = time.perf_counter() - t0
-    step_ms = start.elapsed_time(stop) / STEPS
+    # the same steps from the prefill's cache by an eager loop of
+    # decode_step (the host launching every kernel) and by a CUDA graph
+    # of a step captured here: both must give decode_loop's tokens
+    host_t0 = time.perf_counter()
+    eager, step_ms = eager_decode(model, first.clone(), clone_cache(snap))
+    host_s = time.perf_counter() - host_t0
     say(f"{tag}_decode_rate", tokens_per_s=1e3 / step_ms, step_ms=step_ms,
-        host_tokens_per_s=STEPS / host_s, card=card.name, nvidia_smi=card.smi)
-
-    # the same step captured once in a CUDA graph and replayed: the card's
-    # own time for a step, without the host's launches; it must give the
-    # eager run's tokens
-    cache = KVCache.create(cfg, 1, max_len, device=dev)
-    t0 = time.perf_counter()
-    logits, cache = prefill(model, tokens, cache, chunk=chunk)
-    tok = sample(logits)
-    torch.cuda.synchronize()
-    prefill_s = time.perf_counter() - t0
-    prefilled = (clone_cache(cache), tok.clone())
-    graph_step_ms, replayed = graph_decode(model, cache, tok)
+        host_tokens_per_s=STEPS / host_s, tokens_equal_decode_loop=eager == gen[1:],
+        card=card.name, nvidia_smi=card.smi)
+    if eager != gen[1:]:
+        raise AssertionError(f"{tag}: the eager loop gave other tokens than decode_loop")
+    graph_step_ms, replayed = graph_decode(model, clone_cache(snap), first.clone())
     same = replayed == gen[1:]
     say(f"{tag}_decode_graph", step_ms=graph_step_ms,
-        tokens_per_s=1e3 / graph_step_ms, tokens_equal_eager=same,
+        tokens_per_s=1e3 / graph_step_ms, tokens_equal_decode_loop=same,
         prefill_host_s=prefill_s)
-    STEP_MS[tag] = dict(eager=step_ms, graph=graph_step_ms, prefill_s=prefill_s)
     if not same:
         raise AssertionError(f"{tag}: graph-replayed decode gave other tokens")
+    loop_ms, spread = loop_rates(card, tag, model, snap, first, gen[1:], step_ms)
+    STEP_MS[tag] = dict(eager=step_ms, graph=graph_step_ms, loop=loop_ms,
+                        loop_min_median_max=[spread[0], spread[len(spread) // 2],
+                                             spread[-1]],
+                        prefill_s=prefill_s, launched_on_card=on_card)
 
     # where an eager step's device time goes (torch.profiler, kernels only)
-    cache = KVCache.create(cfg, 1, max_len, device=dev)
-    logits, cache = prefill(model, tokens, cache, chunk=chunk)
-    device_time(tag, model, cache, sample(logits), step_ms, graph_step_ms)
-    return model, cache, total, step_ms, graph_step_ms, prefilled
+    device_time(tag, model, clone_cache(snap), first, step_ms, graph_step_ms)
+    return dict(model=model, cache=cache, launches=total, step_ms=step_ms,
+                graph_step_ms=graph_step_ms, loop_ms=loop_ms, snap=snap,
+                first=first, prompt=prompt, gen=gen)
 
 
 def time_k4(card, calls, reps=20):
@@ -1155,25 +1244,28 @@ def bitnet_path(card, build_s, ptxas):
 
     L = cfg.num_layers
     # K1: 4 linears a layer and the head; K2: one call a layer
-    model, cache, launches, _, graph_default, _ = run_path(
-        card, "bitnet", cfg, params, BITNET_PROMPT,
-        counts(K1=4 * L + 1), counts(K1=4.0 * L + 1, K2=float(L)))
+    main = run_path(card, "bitnet", cfg, params, BITNET_PROMPT,
+                    counts(K1=4 * L + 1), counts(K1=4.0 * L + 1, K2=float(L)))
+    model, cache, launches = main["model"], main["cache"], main["launches"]
+    generate_from_checkpoint(card, cfg, params, main)
 
     # the long prompt in chunks of 256 (K3: 4 linears a layer and the head
     # a chunk), then the decode steps in the block mode (K10 a layer; K1
     # on wqkv and the head; K2)
     chunks = BITNET_LONG_PROMPT // 256
-    _, _, launches_b, _, graph_block, (snap, tok) = run_path(
-        card, "bitnet_block", cfg, params, BITNET_LONG_PROMPT,
-        counts(K3=(4 * L + 1) * chunks),
-        counts(K1=L + 1.0, K2=float(L), K10=float(L)), block=True)
+    block = run_path(card, "bitnet_block", cfg, params, BITNET_LONG_PROMPT,
+                     counts(K3=(4 * L + 1) * chunks),
+                     counts(K1=L + 1.0, K2=float(L), K10=float(L)), block=True)
+    launches_b = block["launches"]
     default = llama_in_mode(cfg, params, "explicit")
-    graph_same_ctx, _ = graph_decode(default, clone_cache(snap), tok.clone())
+    graph_same_ctx, _ = graph_decode(default, clone_cache(block["snap"]),
+                                     block["first"].clone())
     say("bitnet_block_vs_default", prompt=BITNET_LONG_PROMPT,
-        block_graph_step_ms=graph_block, default_graph_step_ms=graph_same_ctx,
-        default_graph_step_ms_at_16_tokens=graph_default, card=card.name,
+        block_graph_step_ms=block["graph_step_ms"],
+        default_graph_step_ms=graph_same_ctx,
+        default_graph_step_ms_at_16_tokens=main["graph_step_ms"], card=card.name,
         nvidia_smi=card.smi)
-    del default, snap
+    del default, block, main
 
     # per-kernel device times at the decode shapes (N=1), each a CUDA graph
     # of its calls over the 26 layers' weights (cold in the 50 MB L2, as in
@@ -1258,6 +1350,157 @@ def bitnet_path(card, build_s, ptxas):
     ]
 
 
+# the generate_from_checkpoint phase: a sampler at its full settings, and
+# perplexity over two windows of 512 tokens
+CKPT_SAMPLER = dict(temperature=0.8, top_k=40, top_p=0.95, min_p=0.05,
+                    repeat_penalty=1.1)
+PPL_WINDOW, PPL_REL = 512, 1e-6
+
+
+def tree_leaves(tree, path="params"):
+    """(path, tensor or meta value) of a params tree, dict keys sorted, a
+    QuantizedTensor's fields as leaves of their own."""
+    from tmac_tpu_torch.ops.qgemm import QuantizedTensor
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from tree_leaves(tree[k], f"{path}.{k}")
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            yield from tree_leaves(v, f"{path}.{i}")
+    elif isinstance(tree, QuantizedTensor):
+        for f in dataclasses.fields(tree):
+            yield from tree_leaves(getattr(tree, f.name), f"{path}.{f.name}")
+    else:
+        yield path, tree
+
+
+def synthetic_tokenizer(vocab):
+    """An SPM tokenizer of `vocab` pieces: the specials, the 256 byte
+    pieces (so any text encodes) and word pieces up to the vocabulary."""
+    from tmac_tpu_torch.runtime import tokenizer as tk
+    toks = ["<unk>", "<s>", "</s>"] + [f"<0x{b:02X}>" for b in range(256)] + ["\u2581"]
+    toks += [f"\u2581w{i}" for i in range(vocab - len(toks))]
+    types = [tk.TT_UNKNOWN, tk.TT_CONTROL, tk.TT_CONTROL] + [tk.TT_BYTE] * 256 \
+        + [tk.TT_NORMAL] * (vocab - 259)
+    scores = [0.0] * 3 + [-20.0] * 256 + [-1.0] + [-2.0] * (vocab - 260)
+    return tk.SPMTokenizer(toks, types, scores)
+
+
+def sampler_graph_check(card, vocab, replays=16):
+    """sample() at temperature 1 on uniform logits captured in a CUDA graph
+    with its generator registered: consecutive replays must draw anew."""
+    import torch
+    from tmac_tpu_torch.runtime.sampling import SamplerConfig, sample
+    gen = torch.Generator(device=card.dev).manual_seed(3)
+    logits = torch.zeros((1, vocab), device=card.dev)
+    out = torch.empty((1,), dtype=torch.int32, device=card.dev)
+    cfg = SamplerConfig(temperature=1.0)
+
+    def draw():
+        out.copy_(sample(logits, gen, cfg))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        draw()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    graph.register_generator_state(gen)
+    with torch.cuda.graph(graph):
+        draw()
+    drawn = []
+    for _ in range(replays):
+        graph.replay()
+        drawn.append(int(out[0]))
+    return drawn
+
+
+def generate_from_checkpoint(card, cfg, params, main):
+    """The phase generate_from_checkpoint on BitNet-3B at full width: the
+    params saved with the port's writer (and a synthetic tokenizer beside
+    them) to a temporary directory and loaded back on the card, every
+    tensor byte for byte; generate() from the loaded model, greedy, giving
+    the in-memory model's tokens (main: run_path's result); sampled at
+    CKPT_SAMPLER, seed 1 twice the same tokens and seed 2 others; text in
+    and out through the checkpoint's tokenizer; a sampler's CUDA graph
+    drawing anew at each replay; perplexity over two PPL_WINDOW-token
+    windows of a seeded stream on the kernel path (K3) within PPL_REL of
+    the plain versions'."""
+    import os
+    import tempfile
+    import numpy as np
+    import torch
+    from tmac_tpu_torch.convert.checkpoint import (WEIGHTS_FILE, load_checkpoint,
+                                                   save_checkpoint)
+    from tmac_tpu_torch.models.llama import Llama
+    from tmac_tpu_torch.runtime.generate import generate
+    from tmac_tpu_torch.runtime.perplexity import perplexity
+    from tmac_tpu_torch.runtime.sampling import SamplerConfig
+    from tmac_tpu_torch.runtime.tokenizer import load_tokenizer
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        save_checkpoint(tmp, cfg, params)
+        synthetic_tokenizer(cfg.vocab_size).save(tmp)
+        save_s = time.perf_counter() - t0
+        nbytes = os.path.getsize(os.path.join(tmp, WEIGHTS_FILE))
+        t0 = time.perf_counter()
+        lcfg, lparams = load_checkpoint(tmp, device=card.dev)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        tok = load_tokenizer(tmp)
+
+    def same(x, y):
+        if isinstance(x, torch.Tensor):
+            return (isinstance(y, torch.Tensor) and x.dtype == y.dtype
+                    and x.shape == y.shape
+                    and torch.equal(x.view(torch.uint8), y.view(torch.uint8)))
+        return x == y
+    a, b = list(tree_leaves(params)), list(tree_leaves(lparams))
+    differ = [p for (p, x), (q, y) in zip(a, b) if p != q or not same(x, y)]
+    if len(a) != len(b):
+        differ.append(f"{len(a)} leaves saved, {len(b)} loaded")
+    loaded = Llama(lcfg, lparams)
+    prompt = main["prompt"]
+    greedy = generate(loaded, prompt, STEPS + 1)[0].tolist()
+    sampler = SamplerConfig(**CKPT_SAMPLER)
+    sampled = dict(zip(("seed 1", "seed 1 again", "seed 2"), (
+        generate(loaded, prompt, STEPS + 1, sampler=sampler, seed=s)[0].tolist()
+        for s in (1, 1, 2))))
+    ids = tok.encode("hello world")
+    text = tok.decode(generate(loaded, np.asarray([ids]), 16)[0].tolist())
+    drawn = sampler_graph_check(card, cfg.vocab_size)
+    stream = np.random.default_rng(2).integers(0, cfg.vocab_size, 2 * PPL_WINDOW)
+    zero_counts()
+    ppl = perplexity(loaded, stream, PPL_WINDOW)
+    ppl_launches = read_counts()
+    ppl_plain = perplexity(Llama(lcfg, lparams, plain=True), stream, PPL_WINDOW)
+    rel = abs(ppl["nll"] - ppl_plain["nll"]) / ppl_plain["nll"]
+    want_ppl = counts(K3=2 * (4 * cfg.num_layers + 1))
+    checks = dict(
+        config_equal=lcfg == cfg, leaves=len(a), leaves_differing=differ[:8],
+        greedy_equal_in_memory=greedy == main["gen"],
+        seed_reproduces=sampled["seed 1"] == sampled["seed 1 again"],
+        seeds_differ=sampled["seed 1"] != sampled["seed 2"],
+        sampled_in_range=all(0 <= t < cfg.vocab_size
+                             for s_ in sampled.values() for t in s_),
+        replays_draw_anew=len(set(drawn)) >= len(drawn) - 2,
+        ppl_within_plain=rel <= PPL_REL and ppl["tokens"] == 2 * (PPL_WINDOW - 1),
+        ppl_launches_as_expected=ppl_launches == want_ppl)
+    say("generate_from_checkpoint", model=cfg.name, weights_bytes=nbytes,
+        save_s=round(save_s, 3), load_s=round(load_s, 3),
+        sampler=CKPT_SAMPLER, tokens={k: v[:12] for k, v in sampled.items()},
+        distinct_sampled=len(set(sampled["seed 1"])), prompt_text="hello world",
+        prompt_ids=ids, text_out=text[:80], sampler_graph_draws=drawn[:8],
+        perplexity=ppl, perplexity_plain=ppl_plain, perplexity_rel_diff=rel,
+        ppl_gate=PPL_REL, ppl_launches=ppl_launches, **checks,
+        seconds=round(time.perf_counter() - t_phase, 3), card=card.name,
+        nvidia_smi=card.smi)
+    if differ or not all(v for k, v in checks.items()
+                         if k not in ("leaves", "leaves_differing")):
+        raise AssertionError(f"generate_from_checkpoint: {checks}")
+    del loaded, lparams
+
+
 # ---------------------------------------------------------------------------
 # path 2: Llama-2-7B W2A16 g128
 # ---------------------------------------------------------------------------
@@ -1340,11 +1583,11 @@ def llama_path(card):
     # head, K2 a layer
     L = cfg.num_layers
     chunks = LLAMA_LONG_PROMPT // LLAMA_CHUNK
-    model, cache, launches, step_ms, graph_step_ms, _ = run_path(
-        card, "llama", cfg, params, LLAMA_LONG_PROMPT,
-        counts(K3=chunks, K5=4 * L * chunks),
-        counts(K1=1.0, K4=4.0 * L, K2=float(L)), chunk=LLAMA_CHUNK,
-        tf_gate=LLAMA_TF_NMSE, tf_last_only=True)
+    main = run_path(card, "llama", cfg, params, LLAMA_LONG_PROMPT,
+                    counts(K3=chunks, K5=4 * L * chunks),
+                    counts(K1=1.0, K4=4.0 * L, K2=float(L)), chunk=LLAMA_CHUNK,
+                    tf_gate=LLAMA_TF_NMSE, tf_last_only=True)
+    model, cache, launches = main["model"], main["cache"], main["launches"]
     llama_shallow_check(card, cfg, params, LLAMA_LONG_PROMPT, LLAMA_CHUNK)
 
     # K4 per call at the decode shapes (N=1, CUDA graphs over the 32
@@ -1386,8 +1629,9 @@ def llama_path(card):
     say("k2_times_llama", kv_len=kv_len, ms=k2_ms, plain_ms=k2_plain,
         bound_ms=k2_bound, library_ms=k2_lib, per_step=L)
     bound_step = tot["bound_ms"] + h_bound + k2_bound * L
-    say("llama_step", eager_ms=step_ms, graph_ms=graph_step_ms,
-        kernel_bound_ms=bound_step, card=card.name, nvidia_smi=card.smi)
+    say("llama_step", eager_ms=main["step_ms"], graph_ms=main["graph_step_ms"],
+        decode_loop_ms=main["loop_ms"], kernel_bound_ms=bound_step, card=card.name,
+        nvidia_smi=card.smi)
     return [
         dict(name="qgemm_dequant (K5)", path="llama-2-7b", route="cuda",
              source="tmac_tpu_torch/ops/cuda/csrc/qgemm_large.cu",
@@ -1707,10 +1951,11 @@ def mixtral_path(card):
     # prefill: wqkv and wo, and each expert's gate_up and down at C = 128
     # slots (K4L), the head at 256 rows (K3); decode: one K7 call for the 2
     # routed experts' gate_up and one for their down a layer
-    model, cache, launches, step_ms, graph_step_ms, _ = run_path(
-        card, "mixtral", cfg, params, LLAMA_PROMPT,
-        counts(K3=1, K4L=(2 + 2 * E) * L),
-        counts(K1=1.0, K4=2.0 * L, K2=float(L), K7=2.0 * L), forced=MOE_FORCED)
+    main = run_path(card, "mixtral", cfg, params, LLAMA_PROMPT,
+                    counts(K3=1, K4L=(2 + 2 * E) * L),
+                    counts(K1=1.0, K4=2.0 * L, K2=float(L), K7=2.0 * L),
+                    forced=MOE_FORCED)
+    model, cache, launches = main["model"], main["cache"], main["launches"]
 
     # K7 per call at decode (N=1), as the select form calls it: the 2 routed
     # experts of a layer in one call, gate_up on the shared row, down on
@@ -1769,8 +2014,9 @@ def mixtral_path(card):
         k2_ms=k2_ms, k2_plain_ms=k2_plain, k2_bound_ms=k2_bound,
         k2_library_ms=k2_lib, k2_per_step=L)
     bound_step = tot["bound_ms"] + k4_tot["bound_ms"] + h_bound + k2_bound * L
-    say("mixtral_step", eager_ms=step_ms, graph_ms=graph_step_ms,
-        kernel_bound_ms=bound_step, card=card.name, nvidia_smi=card.smi,
+    say("mixtral_step", eager_ms=main["step_ms"], graph_ms=main["graph_step_ms"],
+        decode_loop_ms=main["loop_ms"], kernel_bound_ms=bound_step, card=card.name,
+        nvidia_smi=card.smi,
         path_s=round(time.perf_counter() - t_path, 3))
     return [
         dict(name="qgemm_experts (K7)", path="mixtral-8x7b", route="cuda",
@@ -2622,7 +2868,7 @@ def phi3_path(card):
     import torch
     from tmac_tpu_torch.models.config import get_preset
     from tmac_tpu_torch.models.llama import KVCache
-    from tmac_tpu_torch.runtime.generate import decode_loop, prefill
+    from tmac_tpu_torch.runtime.generate import prefill
     from tmac_tpu_torch.runtime.sampling import sample
     from tmac_tpu_torch.utils import argmax_agreement, nmse, round_up
     t_path = time.perf_counter()
@@ -2658,9 +2904,10 @@ def phi3_path(card):
         k4=k4_checks, k1=k1_rows)
     del k4_cases
 
-    # the main run: 2304-token prefill and 64 greedy steps on an int8
-    # cache, explicit KV writes (K6 reads the current row back
-    # quantized); then the same on a bf16 cache (K6 with the window only)
+    # the main run: 2304-token prefill and 64 greedy steps through
+    # decode_loop on an int8 cache, explicit KV writes (K6 reads the current
+    # row back quantized); then the same on a bf16 cache (K6 with the window
+    # only); each beside an eager loop of decode_step from the same cache
     tokens = torch.from_numpy(np.random.default_rng(0).integers(
         0, cfg.vocab_size, (1, PHI3_PROMPT))).to(dev)
     explicit = llama_in_mode(cfg, params, "explicit")
@@ -2677,56 +2924,64 @@ def phi3_path(card):
         prefill_s = time.perf_counter() - t0
         pre = read_counts()
         snap = clone_cache(cache)
-        start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        start.record()
-        out, cache = decode_loop(explicit, first, cache, STEPS)
-        stop.record()
-        torch.cuda.synchronize()
+        out, _ = loop_decode(explicit, first, cache)
         total = read_counts()
-        per_step = {k: (total[k] - pre[k]) / STEPS for k in COUNTERS}
-        gen = torch.cat([first[:, None], out], 1)[0].tolist()
+        per_step, on_card = loop_counts(pre, total)
+        gen = [int(first[0])] + out
+        eager, step_ms = eager_decode(explicit, first.clone(), clone_cache(snap))
         ok = (bool(torch.isfinite(logits).all()) and len(gen) == STEPS + 1
               and all(0 <= t < cfg.vocab_size for t in gen)
               and int(cache.pos[0]) == max_len and pre == want_prefill
-              and per_step == counts(K1=1.0, K4=4.0 * L, K6=float(L)))
-        step_ms = start.elapsed_time(stop) / STEPS
+              and per_step == counts(K1=1.0, K4=4.0 * L, K6=float(L))
+              and eager == out)
         runs[name] = dict(snap=snap, cache=cache, first=first, gen=gen,
-                          step_ms=step_ms, prefill_s=prefill_s, launches=total)
+                          step_ms=step_ms, prefill_s=prefill_s, launches=total,
+                          on_card=on_card)
         say(f"phi3_{name}_main_path", model=cfg.name, prompt=PHI3_PROMPT,
-            steps=STEPS, tokens=gen[:16], launches_prefill=pre,
-            launches_per_decode_step=per_step, launches_total=total,
-            eager_step_ms=step_ms, prefill_host_s=prefill_s)
+            steps=STEPS, tokens=gen[:16], decode="decode_loop (CUDA graph)",
+            launches_prefill=pre, launches_per_decode_step=per_step,
+            launches_total=total, launched_on_card=on_card,
+            eager_step_ms=step_ms, eager_tokens_equal=eager == out,
+            prefill_host_s=prefill_s)
         if not ok:
             raise AssertionError(f"phi3 {name} cache: run failed its checks")
 
-    # deferred (K8) and in-kernel (K9) steps from the int8 prefill's cache:
-    # the two compute one function and must agree bit for bit
+    # deferred (K8) and in-kernel (K9) steps from the int8 prefill's cache
+    # through decode_loop, and an eager loop of the model keeping each
+    # step's logits: the two modes compute one function and must agree bit
+    # for bit
     for mode, label in (("deferred", "K8"), ("inkernel", "K9")):
         model = llama_in_mode(cfg, params, mode)
-        cache, tok = clone_cache(runs["int8"]["snap"]), runs["int8"]["first"].clone()
-        gen, lgs = [int(tok[0])], []
+        cache = clone_cache(runs["int8"]["snap"])
         zero_counts()
+        out, _ = loop_decode(model, runs["int8"]["first"].clone(), cache)
+        total = read_counts()
+        per_step, on_card = loop_counts(counts(), total)
+        eager_cache, tok = clone_cache(runs["int8"]["snap"]), runs["int8"]["first"].clone()
+        gen, lgs = [int(tok[0])], []
         start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         with torch.no_grad():
             start.record()
             for _ in range(STEPS):
-                logits, cache = model(tok[:, None], cache)
+                logits, eager_cache = model(tok[:, None], eager_cache)
                 tok = sample(logits[:, -1])
                 lgs.append(logits[0, -1])
                 gen.append(tok)
             stop.record()
         torch.cuda.synchronize()
-        total = read_counts()
         gen = [gen[0]] + torch.stack(gen[1:]).reshape(-1).tolist()
-        per_step = {k: total[k] / STEPS for k in COUNTERS}
-        runs[mode] = dict(model=model, cache=cache, gen=gen,
-                          logits=torch.stack(lgs), launches=total,
+        runs[mode] = dict(model=model, cache=eager_cache, gen=gen,
+                          logits=torch.stack(lgs), launches=total, on_card=on_card,
                           step_ms=start.elapsed_time(stop) / STEPS)
-        say(f"phi3_{mode}_path", tokens=gen[:16], launches_per_decode_step=per_step,
-            launches_total=total, eager_step_ms=runs[mode]["step_ms"])
+        same = out == gen[1:] and cache_bytes_equal(cache, eager_cache)
+        say(f"phi3_{mode}_path", tokens=gen[:16], decode="decode_loop (CUDA graph)",
+            launches_per_decode_step=per_step, launches_total=total,
+            launched_on_card=on_card, eager_step_ms=runs[mode]["step_ms"],
+            decode_loop_equals_eager=same)
         if per_step != counts(K1=1.0, K4=4.0 * L, **{label: float(L)}) \
-                or not bool(torch.isfinite(runs[mode]["logits"]).all()):
-            raise AssertionError(f"phi3 {mode}: launches {per_step}")
+                or not bool(torch.isfinite(runs[mode]["logits"]).all()) or not same:
+            raise AssertionError(f"phi3 {mode}: launches {per_step}, tokens and "
+                                 f"cache equal to the eager loop's: {same}")
     d, k = runs["deferred"], runs["inkernel"]
     agree = dict(tokens=d["gen"] == k["gen"],
                  logits=bool(torch.equal(d["logits"], k["logits"])),
@@ -2764,8 +3019,9 @@ def phi3_path(card):
                and r["cache_equal"] for r in tf.values()):
         raise AssertionError(f"phi3: teacher-forced: {tf}")
 
-    # each mode's step captured in a CUDA graph from the prefill's cache:
-    # it must replay the eager tokens
+    # each mode's step captured in a CUDA graph from the prefill's cache
+    # (graph_decode): it must replay the eager tokens; then decode_loop
+    # timed three times in each mode
     graphs = {}
     for mode, model, src in (("int8", explicit, "int8"), ("bf16", explicit, "bf16"),
                              ("deferred", d["model"], "int8"),
@@ -2775,8 +3031,13 @@ def phi3_path(card):
         graphs[mode] = dict(step_ms=ms, tokens_per_s=1e3 / ms,
                             eager_step_ms=runs[mode]["step_ms"],
                             tokens_equal_eager=replayed == runs[mode]["gen"][1:])
-        STEP_MS[f"phi3 {mode}"] = dict(eager=runs[mode]["step_ms"], graph=ms,
-                                       prefill_s=runs[src].get("prefill_s"))
+        loop_ms, spread = loop_rates(card, f"phi3_{mode}", model, runs[src]["snap"],
+                                     runs[src]["first"], runs[mode]["gen"][1:],
+                                     runs[mode]["step_ms"])
+        STEP_MS[f"phi3 {mode}"] = dict(
+            eager=runs[mode]["step_ms"], graph=ms, loop=loop_ms,
+            loop_min_median_max=[spread[0], spread[len(spread) // 2], spread[-1]],
+            prefill_s=runs[src].get("prefill_s"), launched_on_card=runs[mode]["on_card"])
     say("phi3_decode_graph", card=card.name, nvidia_smi=card.smi, **graphs)
     if not all(g["tokens_equal_eager"] for g in graphs.values()):
         raise AssertionError("phi3: a graph-replayed decode gave other tokens")
@@ -2889,6 +3150,62 @@ def phi3_path(card):
     ]
 
 
+def graph_spread(card, own=3, shared=3, rounds=3, steps=32):
+    """Llama-2-7B W2 at full size (init_params, seed 0), its decode
+    step after a 1024-token prefill captured in `own` CUDA graphs, each on
+    its own copy of the cache and token, and in `shared` more graphs on
+    the first one's buffers; each graph timed `rounds` times in turns
+    (`steps` replays from the prefill's position, ms per step), the card's
+    clocks read each round; then decode_loop `rounds` times (ms per
+    replayed step, setup seconds).  Whether the replays' speed belongs to
+    a capture, to its buffers, or to the moment."""
+    import numpy as np
+    import torch
+    from tmac_tpu_torch.models.config import get_preset
+    from tmac_tpu_torch.models.llama import KVCache, init_params
+    from tmac_tpu_torch.runtime.generate import prefill
+    from tmac_tpu_torch.runtime.sampling import sample
+    cfg = get_preset("llama-2-7b")
+    params = init_params(cfg, seed=0, device=card.dev)
+    model = llama_in_mode(cfg, params, "explicit")
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (1, LLAMA_LONG_PROMPT))).to(card.dev)
+    cache = KVCache.create(cfg, 1, LLAMA_LONG_PROMPT + STEPS, device=card.dev)
+    logits, cache = prefill(model, tokens, cache, chunk=LLAMA_CHUNK)
+    first = sample(logits)
+    bufs = [(clone_cache(cache), first.clone()) for _ in range(own)]
+    bufs += [bufs[0]] * shared
+    graphs = []
+    for c, tok in bufs:
+        pos0 = c.pos.clone()
+
+        def step(c=c, tok=tok):
+            lg, _ = model(tok[:, None], c)
+            tok.copy_(sample(lg[:, -1]))
+        graphs.append((capture(step), c, tok, pos0))
+        c.pos.copy_(pos0)
+        tok.copy_(first)
+    ms = [[] for _ in graphs]
+    clocks = []
+    for _ in range(rounds):
+        for i, (g, c, tok, pos0) in enumerate(graphs):
+            c.pos.copy_(pos0)
+            tok.copy_(first)
+            ms[i].append(cuda_ms(g.replay, steps))
+        clocks.append(subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.sm,clocks.mem,power.draw,temperature.gpu",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60).stdout.strip())
+    del graphs
+    loops = []
+    for _ in range(rounds):
+        _, st = loop_decode(model, first.clone(), clone_cache(cache))
+        loops.append(dict(step_ms=st["step_ms"], setup_s=st["setup_s"]))
+    return dict(model=cfg.name, prompt=LLAMA_LONG_PROMPT, steps=steps,
+                graphs_own_buffers=ms[:own], graphs_on_first_buffers=ms[own:],
+                clocks_sm_mem_power_temp=clocks, decode_loop=loops)
+
+
 def template_args(mangled):
     """A kernel's template arguments from its mangled name: bf16, f32,
     int8 or an int (a substitution, S<n>_, repeats the type before it)."""
@@ -2947,6 +3264,10 @@ def main() -> int:
         say("build", nvcc_s=round(build_s, 3), ptxas=ptxas)
         say("k3_sweep", card=card.name, nvidia_smi=card.smi, rows=k3_sweep(card))
         return 0
+    if sys.argv[1:] == ["--phase", "graph_spread"]:
+        say("build", nvcc_s=round(build_s, 3))
+        say("graph_spread", card=card.name, nvidia_smi=card.smi, **graph_spread(card))
+        return 0
     if sys.argv[1:] == ["--phase", "qgemm_decode_sweep"]:
         say("build", nvcc_s=round(build_s, 3), ptxas=ptxas)
         say("qgemm_decode_sweep", card=card.name, nvidia_smi=card.smi,
@@ -2975,9 +3296,15 @@ def main() -> int:
         "except K3, K5 and K4L: device ms per prefill (bitnet-3b: 420 K3 "
         "launches for 1024 tokens in chunks of 256; llama-2-7b: 256 K5 for "
         "1024 tokens in chunks of 512; phi-3-mini: 1152 K4L for 2304 tokens "
-        "in chunks of 256); launches over each path's prefill + decode "
-        "(bitnet-3b K3, K10: the block-mode run; phi-3-mini K8, K9: decode "
-        "only)", card=card.name,
+        "in chunks of 256); launches: the wrappers' counts over each path's "
+        "prefill and decode_loop, which calls a step's wrappers twice (its "
+        "eager first step and the one capture) and replays the graph for "
+        "the other 63 steps without the host (launched_on_card in step_ms: "
+        "prefill + 64 steps) (bitnet-3b K3, K10: the block-mode run; "
+        "phi-3-mini K8, K9: decode only); step_ms per path: eager (a loop of "
+        "decode_step), graph (chip_smoke's captured step), loop (decode_loop's "
+        "replayed step, the median of three runs, with min, median and max)",
+        card=card.name,
         nvidia_smi=card.smi,
         step_ms=STEP_MS, paths_s=round(time.perf_counter() - t_all, 3))
     print(json.dumps({"kernels": records}), flush=True)

@@ -148,6 +148,10 @@ def test_qgemm_torch_matches_qgemm_xla(bits, gs):
 def test_port_imports_neither_jax_nor_tmac_tpu():
     code = ("import tmac_tpu_torch, tmac_tpu_torch.models.llama, "
             "tmac_tpu_torch.runtime.generate, "
+            "tmac_tpu_torch.runtime.sampling, "
+            "tmac_tpu_torch.runtime.tokenizer, "
+            "tmac_tpu_torch.runtime.perplexity, "
+            "tmac_tpu_torch.convert.checkpoint, "
             "tmac_tpu_torch.ops.cuda.qgemm_kernel, "
             "tmac_tpu_torch.ops.cuda.qgemm_grouped_kernel, "
             "tmac_tpu_torch.ops.cuda.attention_kernel, "
