@@ -6,6 +6,8 @@
     python3 chip_smoke.py --phase expert_block_sweep   (K7 and K10 per call)
     python3 chip_smoke.py --phase k3_sweep             (K3 per call)
     python3 chip_smoke.py --phase graph_spread         (one step's graphs)
+    python3 chip_smoke.py --phase grouped_paths        (paths 5 and 6, the
+                                                        bits 1/3 K4L/K5 sweep)
 
 Phases, each printing one JSON line before the last two:
   1. the card (nvidia-smi name and power limit, torch's device name);
@@ -106,7 +108,8 @@ Phases, each printing one JSON line before the last two:
      (the select form through K7: 64 K7 (gate_up and down of both routed
      experts, one call each a layer), 64 K4, 32 K2 and 1 K1 launches per
      step; the step in a CUDA graph makes no host sync), then the checks
-     and timings of path 1's main run, K7's per call and per step;
+     and timings of path 1's main run, K7's per call and per step, and
+     K4L's device time over a prefill (torch.profiler) beside its bound;
   8. path 4, Phi-3-mini W2A16 g128 at full width and depth (32 layers,
      hidden 3072, 32 heads of head_dim 96, FFN 8192, vocab 32064, a
      2047-row sliding window), random weights drawn on the card from seed
@@ -135,21 +138,41 @@ Phases, each printing one JSON line before the last two:
      pos == S in each KV-write mode, a 16-token chunk from S - 6, int8 and
      bf16 caches): the rows the reference's clamped writes give, kernel
      and plain paths equal, no device-side assert, and one kernel after;
-  9. the attention sweep: K2 (K6 with Phi-3's window) per call at 1, 64,
+  9. paths 5 and 6 (grouped_path), weights drawn on the card from seed 0
+     at full width and depth: Llama-3.1-8B W3A16 g128 (32 layers, hidden
+     4096, 32 heads over 8 KV heads, FFN 14336, vocab 128256, llama3 rope
+     scaling; 3-bit weights as a lo and a hi plane) and Qwen2-7B W4A16
+     g128 (28 layers, hidden 3584, 28 heads over 4 KV heads: rep 7, FFN
+     18944, vocab 152064, nonzero q/k/v biases): K4 (N = 1, 4, 16 at the
+     checks' cluster sizes), K4L (N = 64, 256) and, for Llama-3.1, K5 (N
+     = 384, 512) on layer 0's four linears with and without their folds,
+     K1 and K3 on the head and K2 at the model's head shape, each against
+     its plain version; Llama-3.1's 768-token prompt in chunks of 512 (128
+     K5) and 256 (128 K4L), Qwen2's 256 tokens (112 K4L), each with 64
+     greedy steps through decode_loop (128 or 112 K4, 1 K1, 32 or 28 K2 a
+     step) and path 1's checks and timings (Llama-3.1's teacher-forced
+     check on the prompt's last position as path 2's, Qwen2's on every
+     position); each kernel's time per step or prefill beside its bound,
+     plain version and yardstick;
+ 10. the attention sweep: K2 (K6 with Phi-3's window) per call at 1, 64,
      288, 1056 and 2047 rows for the head shapes of the four paths, beside
      SDPA and the byte bound (the fixed cost of a call and its streaming);
- 10. the decode-matmul sweep (qgemm_decode_sweep): K1 at BitNet-3B's five
+ 11. the decode-matmul sweep (qgemm_decode_sweep): K1 at BitNet-3B's five
      shapes and K4 at Llama-2-7B's, Phi-3-mini's and Mixtral-8x7B's four,
-     at N = 1, 4 and 16, per call beside the byte bound, the bf16 matmul
-     and the cluster size; then the programmatic launch seen in a
-     profiler trace (pdl_overlap): K1's, K4's and K3's matmul starting
-     before its prologue ends, in an eager call and in a captured graph;
- 11. the expert and block sweep (expert_block_sweep): K7 at Mixtral-8x7B's
+     and at Llama-3.1-8B's at bits 3 and 1 and Qwen2-7B's at bits 4 (those
+     rows also against the plain version), at N = 1, 4 and 16, per call
+     beside the byte bound, the bf16 matmul and the cluster size; K4L (N =
+     64, 256) and K5 (N = 384, 512) at bits 3 and 1 on Llama-3.1-8B's
+     shapes, checked and timed (k4l_k5_sweep_b13); then the programmatic
+     launch seen in a profiler trace (pdl_overlap): K1's, K4's and K3's
+     matmul starting before its prologue ends, in an eager call and in a
+     captured graph;
+ 12. the expert and block sweep (expert_block_sweep): K7 at Mixtral-8x7B's
      expert shapes, one expert and the two routed experts of a layer
      (gate_up, down and both), N = 1 and 4, with every cluster size, and
      K10 at BitNet-3B's layer shapes, per call beside the byte bound and
      the yardsticks (the bf16 matmul; K1's three calls);
- 12. K3's sweep (k3_sweep): K3 per call at BitNet-3B's five prefill
+ 13. K3's sweep (k3_sweep): K3 per call at BitNet-3B's five prefill
      shapes and Llama-2-7B's int8 head, N = 64, 256 and 1024, beside the
      bound, torch._int_mm in both layouts and the bf16 matmul, with every
      tile and cluster size's time (large_plan's data).
@@ -306,10 +329,12 @@ def yardstick_ms(card, x, qt, copies_for_l2):
 
 
 def qgemm_bytes(qt, x, kw):
-    """Bytes one call must move: packed weights, scales and sub, x, the f32
-    output, the residual and the norm weight, each once."""
+    """Bytes one call must move: packed weights (both planes at bits 3),
+    scales and sub, x, the f32 output, the residual and the norm weight,
+    each once."""
     N = x.shape[0]
-    return (qt.packed.numel() + 2 * qt.scales.numel() * qt.scales.element_size()
+    hi = qt.packed_hi.numel() if qt.packed_hi is not None else 0
+    return (qt.packed.numel() + hi + 2 * qt.scales.numel() * qt.scales.element_size()
             + x.numel() * 2 + 4 * N * qt.mdim_padded
             + (2 * N * qt.mdim if kw.get("residual") is not None else 0)
             + (2 * qt.kdim if "norm" in kw else 0))
@@ -1145,6 +1170,42 @@ def sweep_k4l_k5(card, calls_by_shape, reps=5):
     return rows
 
 
+def sweep_b13_large(card):
+    """K4L (N = 64, 256) and K5 (N = 384, 512) at bits 3 and 1 on
+    Llama-3.1-8B's four linear shapes with their folds (weights drawn on
+    the card): each call against its plain version (check_k4: bit for bit;
+    check_k5: within its bound), then timed (time_k4, time_k5: a CUDA graph
+    of the call) beside its bound and the bf16 matmul on the dequantized
+    weights; printed as the phase `k4l_k5_sweep_b13`."""
+    import torch
+    gen = torch.Generator(device=card.dev)
+    gen.manual_seed(13)
+    rows = []
+    for bits in (3, 1):
+        for label, K, M, folds in B13_SHAPES:
+            qt = rand_qt_on_card(gen, K, M, bits, 128, card.dev)
+            ones = torch.ones(K, dtype=torch.bfloat16, device=card.dev)
+            for N in (64, 256, 384, 512):
+                kw = dict(glu="glu" in folds)
+                if "norm" in folds:
+                    kw["norm"] = (ones, 1e-5)
+                if "residual" in folds:
+                    kw["residual"] = card.bf16(N, M)
+                x = card.bf16(N, 2 * K if kw["glu"] else K)
+                case = [(label, x, qt, kw)]
+                if N < 384:
+                    _, err = check_k4(card, case)
+                    t = time_k4(card, [case[0][1:]], reps=5)
+                else:
+                    _, err = check_k5(card, case)
+                    t = time_k5(card, [case[0][1:]])
+                rows.append(dict(shape=label, bits=bits, kernel="K4L" if N < 384 else "K5",
+                                 max_abs_err=err, **t))
+            del qt
+    say("k4l_k5_sweep_b13", rows=rows, card=card.name, nvidia_smi=card.smi)
+    return rows
+
+
 def time_k10(card, blocks):
     """K10 per call over `blocks` [(attn, resid, norm_w, wo, gate_up, down,
     eps)] (a CUDA graph of one call a layer, the weights cold in L2 as in a
@@ -1702,25 +1763,32 @@ def k4l_group_size_cases(card):
 def rand_qt_on_card(gen, K, M, bits, gs, dev):
     """Synthetic grouped weights drawn on the card from the seeded
     generator `gen`, with the shapes, dtypes and value ranges of the
-    package's init_params: random codes (packed bytes), bf16 scales
-    (0.5 + U) * 2 * std / mid, zero points on each group's mean code
-    jittered by -2..2, bf16 sub.  K and M must need no padding."""
+    package's init_params: random codes (packed bytes; at bits 3 a lo and
+    a hi plane), bf16 scales (0.5 + U) * 2 * std / mid, zero points on
+    each group's mean code jittered by -2..2, bf16 sub.  K and M must need
+    no padding (K a multiple of 8 * gs at bits 1 and 3)."""
     import torch
-    from tmac_tpu_torch.ops.qgemm import QuantizedTensor
-    p, qmax, mid = 8 // bits, (1 << bits) - 1, 1 << (bits - 1)
+    from tmac_tpu_torch.ops.qgemm import QuantizedTensor, unpack_codes
+    p, qmax, mid = 8 if bits == 3 else 8 // bits, (1 << bits) - 1, 1 << (bits - 1)
     if K % (p * gs) or M % 128:
         raise ValueError(f"({K}, {M}) would need padding at bits {bits}")
-    G, Kb = K // gs, K // p
+    G, Kb = K // gs, K // (4 if bits == 3 else p)
     packed = torch.randint(0, 256, (Kb, M), generator=gen, device=dev,
                            dtype=torch.uint8)
+    hi = torch.randint(0, 256, (K // 8, M), generator=gen, device=dev,
+                       dtype=torch.uint8) if bits == 3 else None
     scales = (0.5 + torch.rand((G, M), generator=gen, device=dev)) \
         * (2.0 / math.sqrt(K) / mid)
-    # field j of the chunk of gs packed rows c holds group j * Kb / gs + c
-    gmean = torch.cat([((packed >> (bits * j)) & qmax).reshape(-1, gs, M)
-                       .float().mean(1) for j in range(p)])
+    if bits == 3:
+        gmean = unpack_codes(QuantizedTensor(packed, hi, scales, scales, bits, gs, 1, 1, (K, M))
+                             ).reshape(G, gs, M).float().mean(1)
+    else:
+        # field j of the chunk of gs packed rows c holds group j * Kb / gs + c
+        gmean = torch.cat([((packed >> (bits * j)) & qmax).reshape(-1, gs, M)
+                           .float().mean(1) for j in range(p)])
     zq = (gmean.round() + torch.randint(-2, 3, (G, M), generator=gen,
                                         device=dev)).clamp(0, qmax)
-    return QuantizedTensor(packed, None, scales.to(torch.bfloat16),
+    return QuantizedTensor(packed, hi, scales.to(torch.bfloat16),
                            (scales * zq).to(torch.bfloat16), bits, gs, 1, 1,
                            (K, M))
 
@@ -1744,7 +1812,10 @@ def params_on_card(cfg, seed, dev):
     """A model's parameter tree at full size, drawn on the card (the
     package's numpy draws take minutes at billions of weights): norms of
     ones, bf16 embedding (and MoE router) ~N(0, 0.02), random grouped
-    weights (rand_qt_on_card), a random int8 head."""
+    weights (rand_qt_on_card; at bits 3 with their hi planes), with
+    attention_bias nonzero bf16 q/k/v biases ~N(0, 0.5) (the package's
+    init_params draws zeros, which would leave the bias adds unchecked), a
+    random int8 head."""
     import torch
     from tmac_tpu_torch.models.llama import (padded_intermediate,
                                              padded_moe_intermediate)
@@ -1769,11 +1840,17 @@ def params_on_card(cfg, seed, dev):
                 "experts_gate_up": stack_experts([fuse_m([qt(H, Ie), qt(H, Ie)])
                                                   for _ in range(E)]),
                 "experts_down": stack_experts([qt(Ie, H) for _ in range(E)])}
+    def biases():
+        if not cfg.attention_bias:
+            return {}
+        return {name: (torch.randn(width, generator=gen, device=dev) * 0.5).to(torch.bfloat16)
+                for name, width in (("bq", cfg.q_dim), ("bk", cfg.kv_dim),
+                                    ("bv", cfg.kv_dim))}
     ones = torch.ones(H, dtype=torch.bfloat16, device=dev)
     layers = [{
         "attn_norm": ones, "mlp_norm": ones,
         "wqkv": fuse_m([qt(H, cfg.q_dim), qt(H, cfg.kv_dim), qt(H, cfg.kv_dim)]),
-        "wo": qt(cfg.q_dim, H), **mlp(),
+        "wo": qt(cfg.q_dim, H), **mlp(), **biases(),
     } for _ in range(cfg.num_layers)]
     head = int8_head_on_card(gen, H, V, dev)
     return {"embed": normal(V, H), "layers": layers, "final_norm": ones,
@@ -1956,6 +2033,35 @@ def mixtral_path(card):
                     counts(K1=1.0, K4=2.0 * L, K2=float(L), K7=2.0 * L),
                     forced=MOE_FORCED)
     model, cache, launches = main["model"], main["cache"], main["launches"]
+
+    # K4L over a prefill (wqkv and wo at the prompt's rows, every expert's
+    # gate_up and down at its C slots): device ms by torch.profiler, the
+    # bound of those calls from their shapes
+    from tmac_tpu_torch.models.llama import KVCache
+    from tmac_tpu_torch.models.moe import expert_capacity
+    from tmac_tpu_torch.runtime.generate import prefill
+    launched = {}
+    by_kernel = profiled_ms(lambda: prefill(
+        model, torch.from_numpy(main["prompt"]).to(card.dev),
+        KVCache.create(cfg, 1, LLAMA_PROMPT + STEPS, device=card.dev)), launched=launched)
+    Cm = expert_capacity(LLAMA_PROMPT, cfg)
+    meta = torch.device("meta")
+    k4l_calls = [(l0["wqkv"], torch.empty((LLAMA_PROMPT, H), device=meta),
+                  dict(norm=None)),
+                 (l0["wo"], torch.empty((LLAMA_PROMPT, cfg.q_dim), device=meta),
+                  dict(residual=True))] + E * [
+        (expert_view(gu0, 0), torch.empty((Cm, H), device=meta), {}),
+        (expert_view(dn0, 0), torch.empty((Cm, 2 * Ie), device=meta), dict(glu=True))]
+    k4l_bound = L * sum(card.bound_ms(qgemm_bytes(qt, x, kw),
+                                      2 * x.shape[0] * qt.kdim_padded * qt.mdim_padded,
+                                      card.int8_peak) for qt, x, kw in k4l_calls)
+    say("k4l_times_mixtral", at_s=round(time.perf_counter() - t_path, 3),
+        prompt=LLAMA_PROMPT, capacity=Cm,
+        ms_per_prefill=by_kernel.get("K4L matmul", 0.0) + by_kernel.get("K4/K4L prologue", 0.0),
+        matmul_ms=by_kernel.get("K4L matmul", 0.0),
+        prologue_ms=by_kernel.get("K4/K4L prologue", 0.0),
+        launches=launched.get("K4L matmul", 0), bound_ms_per_prefill=k4l_bound,
+        card=card.name, nvidia_smi=card.smi)
 
     # K7 per call at decode (N=1), as the select form calls it: the 2 routed
     # experts of a layer in one call, gate_up on the shared row, down on
@@ -2379,6 +2485,15 @@ K4_SWEEP_SHAPES = (("llama wqkv", 4096, 12288, 2, 128, "norm"),
                    ("mixtral wo", 4096, 4096, 2, 128, "residual"),
                    ("mixtral expert gate_up", 4096, 28672, 2, 128, ""),
                    ("mixtral expert down", 14336, 4096, 2, 128, "glu"))
+# K4's bits 3 and 1 forms at Llama-3.1-8B's shapes (each row also checked
+# against the plain version), and Qwen2-7B's at bits 4
+B13_SHAPES = (("wqkv", 4096, 6144, "norm"), ("wo", 4096, 4096, "residual"),
+              ("gate_up", 4096, 28672, "norm"), ("down", 14336, 4096, "glu residual"))
+K4_B13_SWEEP_SHAPES = tuple((f"llama31 {label} w{bits}", K, M, bits, 128, folds)
+                            for bits in (3, 1) for label, K, M, folds in B13_SHAPES) + (
+    ("qwen2 wqkv", 3584, 4608, 4, 128, "norm"), ("qwen2 wo", 3584, 3584, 4, 128, "residual"),
+    ("qwen2 gate_up", 3584, 37888, 4, 128, "norm"),
+    ("qwen2 down", 18944, 3584, 4, 128, "glu residual"))
 
 
 def ternary_qt_on_card(gen, K, M, dev):
@@ -2410,8 +2525,11 @@ def qgemm_decode_sweep(card, layers=8):
     gen = torch.Generator(device=card.dev)
     gen.manual_seed(8)
     out = []
+    # the shapes added with bits 1 and 3 (and rows past 16384), which a
+    # parent package for an A/B does not take
+    new_shapes = K4_B13_SWEEP_SHAPES if hasattr(k4, "GROUPED_BITS") else ()
     for kernel, fn, shapes in (("K1", k1.qgemm_fused, K1_SWEEP_SHAPES),
-                               ("K4", k4.qgemm_grouped, K4_SWEEP_SHAPES)):
+                               ("K4", k4.qgemm_grouped, K4_SWEEP_SHAPES + new_shapes)):
         for label, K, M, bits, gs, folds in shapes:
             if gs:
                 one = rand_qt_on_card(gen, K, M, bits, gs, card.dev)
@@ -2439,6 +2557,13 @@ def qgemm_decode_sweep(card, layers=8):
                                            card.int8_peak) * 1e3,
                     bf16_us=yardstick_ms(card, x, one, True) * 1e3,
                     ksplit=plan(N, Kp, Mp, bits, gs)[0] if plan else None))
+                if (label, K, M, bits, gs, folds) in new_shapes:
+                    # against the plain version: bit for bit without the
+                    # folds, within FOLDED_NMSE with them (check_k4)
+                    rows, _ = check_k4(card, [(label, x, one, kw),
+                                              (label, card.bf16(N, K), one, {})], (None,))
+                    out[-1]["checks"] = [dict(folds=r["folds"], bitwise=r["bitwise"],
+                                              nmse=r["nmse"]) for r in rows]
             del ws
     torch.cuda.empty_cache()
     return out
@@ -3150,6 +3275,160 @@ def phi3_path(card):
     ]
 
 
+# ---------------------------------------------------------------------------
+# paths 5 and 6: Llama-3.1-8B W3A16 g128 (llama3 rope scaling) and
+# Qwen2-7B W4A16 g128 (attention bias, GQA rep 7)
+# ---------------------------------------------------------------------------
+
+# Llama-3.1-8B's 768-token prompt in chunks of 512 (K5 at bits 3) and 256
+# (K4L at bits 3); Qwen2-7B's 256 tokens in one chunk (K4L at bits 4); the
+# decode steps teacher-forced against the plain versions
+W3_PROMPT, W3_CHUNK, QWEN_PROMPT, NEW_FORCED = 768, 512, 256, 2
+
+
+def check_k2_heads(card, KV, rep, Dl, S=2048):
+    """K2 against its plain version at one head shape (KV heads of rep
+    query heads, head_dim Dl) on an S-row bf16 cache: lengths 1, 17, 1056
+    and S - 1, at split_plan's cluster size and at 1 and 8, bit for bit.
+    -> (rows, worst abs error)"""
+    import numpy as np
+    import torch
+    from tmac_tpu_torch.ops.cuda import attention_kernel as k2
+    dev, rng = card.dev, card.rng
+    kc = torch.zeros((2, 1, KV, S, 128), device=dev)
+    vc = torch.zeros_like(kc)
+    for c in (kc, vc):
+        c[..., :Dl] = torch.from_numpy(rng.standard_normal((2, 1, KV, S, Dl))
+                                       .astype(np.float32)).to(dev)
+    kc, vc = kc.to(torch.bfloat16), vc.to(torch.bfloat16)
+    q = card.bf16(1, KV, rep, Dl)
+    li = torch.tensor([1], dtype=torch.int32, device=dev)
+    rows, worst = [], 0.0
+    for n in (1, 17, 1056, S - 1):
+        kl = torch.tensor([n], dtype=torch.int32, device=dev)
+        for nsplit in (None, 1, 8):
+            got = k2.flash_decode(q, kc, vc, kl, li, nsplit=nsplit)
+            want = k2.flash_decode_plain(q, kc, vc, kl, li, nsplit=nsplit)
+            torch.cuda.synchronize()
+            err = float((got.float() - want.float()).abs().max())
+            worst = max(worst, err)
+            rows.append(dict(KV=KV, rep=rep, len=n, nsplit=nsplit, max_abs_err=err,
+                             bitwise=bool(torch.equal(got, want))))
+            if not rows[-1]["bitwise"]:
+                raise AssertionError(f"K2 check failed: {rows[-1]}")
+    return rows, worst
+
+
+def grouped_path(card, tag, cfg, prompt_len, chunk):
+    """A grouped-scale model at full width and depth, weights drawn on the
+    card (params_on_card): K4 (N = 1, 4, 16, at every cluster size of the
+    checks), K4L (N = 64, 256) and, where a chunk takes it, K5 (N = 384,
+    512) on layer 0's four linears with their folds and without, K1 and K3
+    on the head and K2 at the model's head shape, each against its plain
+    version; then run_path's main run (prefill in chunks, decode_loop, the
+    teacher-forced check: on the prompt's last position when a chunk takes
+    K5, else on every position) and the kernels' device times per step and
+    per prefill.  -> the kernels' records"""
+    import torch
+    from tmac_tpu_torch.ops.qgemm import route
+    t_path = time.perf_counter()
+    params = params_on_card(cfg, 0, card.dev)
+    torch.cuda.synchronize()
+    say(f"{tag}_build", model=cfg.name, bits=cfg.quant.bits, layers=cfg.num_layers,
+        init_params_s=round(time.perf_counter() - t_path, 3))
+    layers, L = params["layers"], cfg.num_layers
+    H, eps, rep = cfg.hidden_size, cfg.rms_norm_eps, cfg.num_heads // cfg.num_kv_heads
+
+    def args(shape, N, layer, folds=True):
+        qt = layer[shape]
+        if shape in ("wqkv", "gate_up"):
+            kw = dict(norm=(layer["attn_norm" if shape == "wqkv" else "mlp_norm"], eps))
+            width = H
+        else:
+            kw, width = dict(residual=card.bf16(N, qt.mdim)), qt.kdim
+            if shape == "down" and qt.kdim_padded == qt.kdim:
+                kw["glu"], width = True, 2 * qt.kdim
+        return card.bf16(N, width if folds else qt.kdim), qt, kw if folds else {}
+
+    shapes = ("wqkv", "wo", "gate_up", "down")
+    l0 = layers[0]
+    cases = [(sh, *args(sh, N, l0)) for sh in shapes for N in (1, 4, 16, 64, 256)]
+    cases += [(sh, *args(sh, N, l0, False)) for sh in shapes for N in (1, 64)]
+    k4_rows, _ = check_k4(card, cases)
+    k4_err = max(r.get("max_abs_err", 0.0) for r in k4_rows if r["kernel"] == "K4")
+    k4l_err = max(r.get("max_abs_err", 0.0) for r in k4_rows if r["kernel"] == "K4L")
+    pieces = [min(chunk, prompt_len - o) for o in range(0, prompt_len, chunk)]
+    k5_chunks = sum(route(l0["wqkv"], n) == "K5" for n in pieces)
+    k4l_chunks = sum(route(l0["wqkv"], n) == "K4L" for n in pieces)
+    k5_rows, k5_err = check_k5(card, [(sh, *args(sh, N, l0)) for N in (384, 512)
+                                      for sh in shapes]) if k5_chunks else ([], 0.0)
+    head = params["lm_head"]
+    k1_rows, k1_err = check_k1(card, [("head", card.bf16(1, H), head, {})])
+    k3_rows, k3_err = check_k3(card, [("head", card.bf16(chunk, H), head, {})])
+    k2_rows, k2_err = check_k2_heads(card, cfg.num_kv_heads, rep, cfg.head_dim)
+    say(f"{tag}_checks", at_s=round(time.perf_counter() - t_path, 3), k4=k4_rows,
+        k5=k5_rows, k1=k1_rows, k3=k3_rows, k2=k2_rows)
+
+    # the prefill: K5 or K4L on 4 linears a layer a chunk, K3 on the head a
+    # chunk; a decode step: K4 on 4 linears a layer, K1 on the head, K2 a layer
+    main = run_path(card, tag, cfg, params, prompt_len,
+                    counts(K3=len(pieces), K5=4 * L * k5_chunks, K4L=4 * L * k4l_chunks),
+                    counts(K1=1.0, K4=4.0 * L, K2=float(L)), forced=NEW_FORCED, chunk=chunk,
+                    tf_gate=LLAMA_TF_NMSE if k5_chunks else None,
+                    tf_last_only=bool(k5_chunks))
+    launches = main["launches"]
+
+    def per(N, timer, count):
+        """Each shape's time per call at N rows (over the layers' weights;
+        4 layers' from 64 rows), summed over `count` calls of each."""
+        rows, tot = [], dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0)
+        for sh in shapes:
+            calls = [args(sh, N, layers[i]) for i in range(L if N == 1 else min(4, L))]
+            rows.append(dict(shape=sh, per=count, **timer(card, calls)))
+            for key in tot:
+                tot[key] += count * rows[-1][key]
+        return rows, tot
+    k4_times, k4_tot = per(1, time_k4, L)
+    say(f"{tag}_k4_times", rows=k4_times, per_step=dict(k4_tot, calls=4 * L))
+    k4l_times, k4l_tot = per(256, lambda c, calls: time_k4(c, calls, reps=5),
+                             L * k4l_chunks)
+    say(f"{tag}_k4l_times", rows=k4l_times, per_prefill=dict(k4l_tot, calls=4 * L * k4l_chunks))
+    k5_times, k5_tot = per(512, time_k5, L * k5_chunks) if k5_chunks else ([], None)
+    if k5_chunks:
+        say(f"{tag}_k5_times", rows=k5_times, per_prefill=dict(k5_tot, calls=4 * L * k5_chunks))
+    h_ms, h_plain, h_bound, h_lib = time_head(card, head)
+    kv_len = prompt_len + (1 + STEPS) // 2
+    k2_ms, k2_plain, k2_bound, k2_lib = time_k2(card, cfg, main["cache"], kv_len)
+    say(f"{tag}_step", eager_ms=main["step_ms"], graph_ms=main["graph_step_ms"],
+        decode_loop_ms=main["loop_ms"],
+        kernel_bound_ms=k4_tot["bound_ms"] + h_bound + k2_bound * L,
+        head_ms=h_ms, head_bound_ms=h_bound, kv_len=kv_len, k2_ms=k2_ms,
+        k2_bound_ms=k2_bound, k2_library_ms=k2_lib, card=card.name, nvidia_smi=card.smi,
+        path_s=round(time.perf_counter() - t_path, 3))
+    bits, src = cfg.quant.bits, "tmac_tpu_torch/ops/cuda/csrc/"
+
+    def rec(name, source, replaces, label, err, t, by):
+        return dict(name=name, path=cfg.name, route="cuda", source=src + source,
+                    replaces="tmac_tpu/ops/pallas/" + replaces, launches=launches[label],
+                    max_abs_err=err, ms=t["ms"], plain_ms=t["plain_ms"],
+                    bound_ms=t["bound_ms"], bound_by=by, library_ms=t["library_ms"])
+    records = [
+        rec(f"qgemm_grouped (K4) bits {bits}", "qgemm_grouped.cu", "qgemm_kernel.py:567",
+            "K4", k4_err, k4_tot, "bytes"),
+        rec(f"qgemm_grouped_large (K4L) bits {bits}", "qgemm_grouped.cu",
+            "qgemm_kernel.py:428", "K4L", k4l_err, k4l_tot, dominant_bound(k4l_times)),
+        rec(f"flash_decode (K2) rep {rep}", "flash_decode.cu", "attention_kernel.py:367",
+            "K2", k2_err, dict(ms=k2_ms * L, plain_ms=k2_plain * L, bound_ms=k2_bound * L,
+                               library_ms=k2_lib * L), "bytes"),
+    ]
+    if k5_chunks:
+        records.append(rec(f"qgemm_dequant (K5) bits {bits}", "qgemm_large.cu",
+                           "qgemm_kernel.py:319", "K5", k5_err, k5_tot,
+                           dominant_bound(k5_times)))
+    del params, main
+    return records
+
+
 def graph_spread(card, own=3, shared=3, rounds=3, steps=32):
     """Llama-2-7B W2 at full size (init_params, seed 0), its decode
     step after a 1024-token prefill captured in `own` CUDA graphs, each on
@@ -3268,6 +3547,18 @@ def main() -> int:
         say("build", nvcc_s=round(build_s, 3))
         say("graph_spread", card=card.name, nvidia_smi=card.smi, **graph_spread(card))
         return 0
+    if sys.argv[1:] == ["--phase", "grouped_paths"]:
+        from tmac_tpu_torch.models.config import get_preset
+        say("build", nvcc_s=round(build_s, 3), ptxas=ptxas)
+        records = grouped_path(card, "llama31", get_preset("llama-3.1-8b", bits=3),
+                               W3_PROMPT, W3_CHUNK)
+        torch.cuda.empty_cache()
+        records += grouped_path(card, "qwen2", get_preset("qwen2-7b"), QWEN_PROMPT,
+                                QWEN_PROMPT)
+        torch.cuda.empty_cache()
+        sweep_b13_large(card)
+        print(json.dumps({"kernels": records}), flush=True)
+        return 0
     if sys.argv[1:] == ["--phase", "qgemm_decode_sweep"]:
         say("build", nvcc_s=round(build_s, 3), ptxas=ptxas)
         say("qgemm_decode_sweep", card=card.name, nvidia_smi=card.smi,
@@ -3282,9 +3573,16 @@ def main() -> int:
     torch.cuda.empty_cache()
     records += phi3_path(card)
     torch.cuda.empty_cache()
+    from tmac_tpu_torch.models.config import get_preset
+    records += grouped_path(card, "llama31", get_preset("llama-3.1-8b", bits=3),
+                            W3_PROMPT, W3_CHUNK)
+    torch.cuda.empty_cache()
+    records += grouped_path(card, "qwen2", get_preset("qwen2-7b"), QWEN_PROMPT, QWEN_PROMPT)
+    torch.cuda.empty_cache()
     say("attn_sweep", card=card.name, nvidia_smi=card.smi, rows=attn_sweep(card))
     say("qgemm_decode_sweep", card=card.name, nvidia_smi=card.smi,
         rows=qgemm_decode_sweep(card))
+    sweep_b13_large(card)
     say("pdl_overlap", card=card.name, **pdl_overlap(card))
     say("expert_block_sweep", **expert_block_sweep(card))
     say("k3_sweep", card=card.name, nvidia_smi=card.smi, rows=k3_sweep(card))
@@ -3292,11 +3590,13 @@ def main() -> int:
         "105 K1 and 26 K2 launches, in the block mode 26 K10, 27 K1 and 26 "
         "K2; llama-2-7b: 128 K4, 1 K1 and 32 K2; mixtral-8x7b: 64 K7 (one "
         "call for the 2 routed experts' gate_up, one for their down, a "
-        "layer), 64 K4, 32 K2 and 1 K1; phi-3-mini: 128 K4, 1 K1 and 32 K6, K8 or K9), "
+        "layer), 64 K4, 32 K2 and 1 K1; phi-3-mini: 128 K4, 1 K1 and 32 K6, K8 or K9; "
+        "llama-3.1-8b W3: 128 K4, 1 K1 and 32 K2; qwen2-7b W4: 112 K4, 1 K1 and 28 K2), "
         "except K3, K5 and K4L: device ms per prefill (bitnet-3b: 420 K3 "
         "launches for 1024 tokens in chunks of 256; llama-2-7b: 256 K5 for "
         "1024 tokens in chunks of 512; phi-3-mini: 1152 K4L for 2304 tokens "
-        "in chunks of 256); launches: the wrappers' counts over each path's "
+        "in chunks of 256; llama-3.1-8b: 128 K5 and 128 K4L for 768 tokens in "
+        "chunks of 512 and 256; qwen2-7b: 112 K4L for 256 tokens); launches: the wrappers' counts over each path's "
         "prefill and decode_loop, which calls a step's wrappers twice (its "
         "eager first step and the one capture) and replays the graph for "
         "the other 63 steps without the host (launched_on_card in step_ms: "

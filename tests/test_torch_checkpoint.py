@@ -172,3 +172,34 @@ def test_safetensors_refuses_an_unknown_dtype(tmp_path):
     with pytest.raises(TypeError, match="safetensors"):
         save_safetensors({"c": np.zeros(2, np.complex64)},
                          str(pathlib.Path(tmp_path) / "t.safetensors"))
+
+
+@pytest.mark.parametrize("form", ["bits3", "tied", "bf16_head"])
+def test_qwen2_forms_round_trip_byte_for_byte(form, tmp_path):
+    """Qwen2-7B scaled(8) at bits 3 (lo and hi planes, the same nonzero
+    q/k/v biases in both trees), also with a tied or a bf16 head:
+    params_from_numpy carries JAX's tree byte for byte, both writers give
+    the same bytes, and the port loads JAX's files back byte for byte."""
+    from tests.test_torch_model_presets import set_biases
+    extra = {"bits3": {}, "tied": dict(tie_word_embeddings=True),
+             "bf16_head": dict(head_bits=16)}[form]
+    cfg, jcfg = (dataclasses.replace(get("qwen2-7b", bits=3).scaled(8), **extra)
+                 for get in (get_preset, jax_preset))
+    jparams = jl.init_params(jcfg, seed=0)
+    # the port's own tree keeps JAX's key order, which the files follow
+    params = init_params(cfg, seed=0, device="cpu")
+    _assert_tree_equal(params, params_from_numpy(jax.tree.map(np.asarray, jparams), cfg,
+                                                 device="cpu"))
+    set_biases(params, jparams, cfg)
+    _assert_tree_equal(params, params_from_numpy(jax.tree.map(np.asarray, jparams), cfg,
+                                                 device="cpu"))
+    assert params["layers"][0]["wqkv"].packed_hi is not None
+    assert ("lm_head" in params) == (form != "tied")
+    jck.save_checkpoint(str(tmp_path / "jax"), jcfg, jparams)
+    save_checkpoint(str(tmp_path / "port"), cfg, params)
+    for name in ("weights.safetensors", "config.json"):
+        assert (tmp_path / "port" / name).read_bytes() == \
+            (tmp_path / "jax" / name).read_bytes(), name
+    lcfg, loaded = load_checkpoint(str(tmp_path / "jax"), device="cpu")
+    assert lcfg == cfg
+    _assert_tree_equal(loaded, params)

@@ -16,9 +16,9 @@ from tmac_tpu_torch.ops.cuda.qgemm_grouped_kernel import (
     act_quant_grouped_plain, block_partials_plain, fold_plain,
     fold_split_plain, group_dots_plain, qgemm_grouped_plain)
 from tmac_tpu_torch.ops.cuda.qgemm_kernel import (
-    DECODE_MAX_SPLIT, DECODE_SMEM_LIMIT, act_quant_plain, decode_owner,
-    decode_plan, decode_smem, decode_spans, decode_units, int_dot_plain,
-    int_dot_split_plain)
+    DECODE_MAX_SPLIT, DECODE_SMEM_LIMIT, act_quant_plain, decode_fields,
+    decode_nt, decode_owner, decode_plan, decode_smem, decode_spans,
+    decode_units, int_dot_plain, int_dot_split_plain)
 from tmac_tpu_torch.ops.qgemm import QuantizedTensor
 
 torch.set_num_threads(2)
@@ -34,7 +34,11 @@ PATH_SHAPES = [(n, *s) for n in (1, 4, 16, 63) for s in (
     (11264, 4096, 2, 128), (11008, 4096, 4, 128),
     (3072, 9216, 2, 128), (3072, 3072, 2, 128), (3072, 16384, 2, 128),
     (8192, 3072, 2, 128), (4096, 6144, 2, 128), (4096, 28672, 2, 128),
-    (14336, 4096, 2, 128))]
+    (14336, 4096, 2, 128),
+    # Llama-3.1-8B at bits 3 and 1, Qwen2-7B at bits 4
+    (4096, 6144, 3, 128), (4096, 4096, 3, 128), (4096, 28672, 3, 128),
+    (14336, 4096, 3, 128), (4096, 6144, 1, 128), (14336, 4096, 1, 128),
+    (3584, 4608, 4, 128), (18944, 3584, 4, 128))]
 
 
 @pytest.mark.parametrize("N,Kp,Mp,bits,gs", PATH_SHAPES)
@@ -43,7 +47,7 @@ def test_decode_plan_is_static_and_partitions_k(N, Kp, Mp, bits, gs):
     assert decode_plan(N, Kp, Mp, bits, gs) == (ksplit, nt)
     Kb, unit, nunits = decode_units(Kp, bits, gs)
     assert 1 <= ksplit <= min(DECODE_MAX_SPLIT, nunits)
-    assert nt == (1 if N == 1 else 4)
+    assert nt == decode_nt(N, bits) == (1 if N == 1 else 2 if bits in (1, 3) else 4)
     assert decode_smem(bits, nt, gs > 0, nunits, unit, ksplit,
                        Kp // gs if gs else 1) <= DECODE_SMEM_LIMIT
     if gs:
@@ -67,15 +71,18 @@ def _grouped(rng, bits, G, gs=32, M=128):
                                           scale_dtype=torch.bfloat16, device="cpu")
 
 
-@pytest.mark.parametrize("bits", [2, 4])
+@pytest.mark.parametrize("bits", [1, 2, 3, 4])
 @pytest.mark.parametrize("ksplit", range(1, DECODE_MAX_SPLIT + 1))
 def test_split_fold_equals_fold_plain(ksplit, bits):
     """The on-chip fold: each block's per-group partials of its chunks,
     folded in group order through the owner map, give fold_plain's bytes,
     for every G from 2 to 88 the packing admits (chunks split unevenly
-    and, past the chunk count, blocks left empty)."""
+    and, past the chunk count, blocks left empty).  At bits 3 a chunk is
+    gs rows of lo plane rows r and r + Kb and hi plane row r (its 8 slots
+    the groups e * nchunks + c), so the split pairs each hi row with both
+    lo rows that share it."""
     rng = np.random.default_rng(100 * bits + ksplit)
-    P = 8 // bits
+    P = decode_fields(bits)
     for G in range(P, 89, P):
         qt = _grouped(rng, bits, G)
         N = 2
@@ -93,7 +100,7 @@ def test_split_fold_equals_fold_plain(ksplit, bits):
         assert torch.equal(got.view(torch.int32), want.view(torch.int32)), G
 
 
-@pytest.mark.parametrize("bits", [2, 4])
+@pytest.mark.parametrize("bits", [1, 2, 3, 4])
 def test_split_fold_matches_pallas(bits):
     """22 chunks (Llama-2-7B's down at bits 2 has 22) split over a
     cluster of 8 and folded on chip, emulated, against the JAX package's
@@ -104,7 +111,7 @@ def test_split_fold_matches_pallas(bits):
     at 88)."""
     rng = np.random.default_rng(bits)
     gs, M, N = 32, 128, 1
-    G = 22 * (8 // bits)
+    G = 22 * decode_fields(bits)
     K = G * gs
     wq = rng.integers(0, 1 << bits, (K, M)).astype(np.uint8)
     sc = ((0.5 + rng.random((G, M))) * 0.05).astype(np.float32)
@@ -162,7 +169,18 @@ def _dp4a(a, b, c, a_unsigned):
     return c + sum(byte(a, i, not a_unsigned) * byte(b, i, True) for i in range(4))
 
 
-@pytest.mark.parametrize("bits,gs", [(2, 0), (8, 0), (2, 32), (4, 32)])
+def _b3_slot(e, lo1, lo2, hi):
+    """tmac::decode::b3_slot on 32-bit words: slot e's 3-bit codes at bit
+    t = min(2 * (e / 2), 4) of each byte."""
+    j = e >> 1
+    t = 2 * j if j < 2 else 4
+    hs = t + 2 - e
+    h = (hi << hs) & 0xFFFFFFFF if hs >= 0 else hi >> -hs
+    lo = lo2 if e & 1 else lo1
+    return ((lo >> (2 * j - t)) & (0x03030303 << t)) | (h & (0x04040404 << t)), t
+
+
+@pytest.mark.parametrize("bits,gs", [(2, 0), (8, 0), (2, 32), (4, 32), (1, 32), (3, 32)])
 def test_lane_reads_feed_the_matmul(bits, gs):
     """A model of decode_matmul's main loop for one block (ksplit 1, one
     128-column strip): stage t's packed rows land swizzled in the ring
@@ -170,8 +188,10 @@ def test_lane_reads_feed_the_matmul(bits, gs):
     of warp w reads 4 rows x 4 columns there, transposes them, masks field
     j in place and meets the natural-order code word of k = j * Kb + row;
     the shifted sums, added over the row groups, equal the plain dot per
-    group (K4) or in all (K1).  Also: the ring's reads hit each stored
-    byte exactly once."""
+    group (K4) or in all (K1).  At bits 3 a stage holds three planes (lo
+    rows r and r + Kb, hi row r) and slot e's word is _b3_slot's, its
+    codes assembled in place across the 32-bit word.  Also: the ring's
+    reads hit each stored byte exactly once."""
     rng = np.random.default_rng(bits + gs)
     K, M = 256, 128
     if gs:
@@ -183,39 +203,48 @@ def test_lane_reads_feed_the_matmul(bits, gs):
         codes, _, _ = act_quant_plain(torch.from_numpy(
             rng.standard_normal((1, K)).astype(np.float32)), qt)
         want = int_dot_plain(codes, qt)[0].numpy()[None]
-    P = 1 if bits == 8 else 8 // bits
+    P = decode_fields(bits)
     Kb, unit, nunits = decode_units(K, bits, gs)
     pk = qt.packed.numpy()
+    planes = [pk] if bits != 3 else [pk[:Kb], pk[Kb:], qt.packed_hi.numpy()]
     cw32 = codes.numpy().view(np.uint8)[0]
     mask = (1 << bits) - 1 if bits < 8 else 0xFF
     got = np.zeros_like(want, dtype=np.int64)
-    seen = np.zeros((Kb, M), np.int64)
+    seen = np.zeros((len(planes), Kb, M), np.int64)
     for t in range(-(-Kb // 32)):
-        ring = np.zeros(32 * 128, np.uint8)
-        for tid in range(256):            # one 16-byte copy a thread
+        ring = np.zeros((len(planes), 32 * 128), np.uint8)
+        for tid in range(256):            # one 16-byte copy a thread a plane
             i, q = tid >> 3, tid & 7
             if t * 32 + i < Kb:
-                ring[i * 128 + ((q ^ (i >> 2)) & 7) * 16:][:16] = pk[t * 32 + i, q * 16:q * 16 + 16]
+                for p, plane in enumerate(planes):
+                    ring[p, i * 128 + ((q ^ (i >> 2)) & 7) * 16:][:16] = \
+                        plane[t * 32 + i, q * 16:q * 16 + 16]
         for warp in range(8):
             for lane in range(32):
                 rg, cw = lane >> 2, lane & 3
                 base = 4 * rg * 128 + ((warp ^ rg) & 7) * 16 + 4 * cw
-                words = [int.from_bytes(ring[base + r * 128:base + r * 128 + 4].tobytes(), "little")
-                         for r in range(4)]
-                col = _transpose4(*words)
+                cols = [_transpose4(*[int.from_bytes(ring[p, base + r * 128:base + r * 128 + 4]
+                                                     .tobytes(), "little") for r in range(4)])
+                        for p in range(len(planes))]
                 row = t * 32 + 4 * rg
                 if row >= Kb:
                     continue
-                for r in range(4):
-                    seen[row + r, 16 * warp + 4 * cw:16 * warp + 4 * cw + 4] += 1
+                for p in range(len(planes)):
+                    for r in range(4):
+                        seen[p, row + r, 16 * warp + 4 * cw:16 * warp + 4 * cw + 4] += 1
                 for j in range(P):
                     k = j * Kb + row
                     xv = int.from_bytes(cw32[k:k + 4].tobytes(), "little")
                     g = k // gs if gs else 0
                     for c in range(4):
                         m = 16 * warp + 4 * cw + c
-                        a = col[c] & ((mask << (bits * j)) * 0x01010101) if bits < 8 else col[c]
-                        s = _dp4a(a, xv, 0, bits < 8)
-                        got[g, m] += s >> (bits * j) if bits < 8 else s
+                        if bits == 3:
+                            a, shift = _b3_slot(j, *(col[c] for col in cols))
+                        elif bits < 8:
+                            a = cols[0][c] & ((mask << (bits * j)) * 0x01010101)
+                            shift = bits * j
+                        else:
+                            a, shift = cols[0][c], 0
+                        got[g, m] += _dp4a(a, xv, 0, bits < 8) >> shift
     assert (seen == 1).all()
     np.testing.assert_array_equal(got, want)

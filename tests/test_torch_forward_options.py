@@ -1,0 +1,203 @@
+"""The port's forward options and head forms against the JAX package's
+forward(impl="pallas"), at llama-3.1-8b W3 scaled(8) (rope scaling and
+bits 3 on the way), given XLA's rsqrt values for the norm factors so that
+the paths are compared bit for bit (tests/test_torch_model_presets.py):
+``active`` (a frozen slot's pos, its KV rows written at the frozen pos,
+both slots' logits), ``embeds`` (the embedding rows give the token path's
+logits; arbitrary embeds JAX's), ``return_hidden``, a tied and a bf16 head
+(an f32-accumulated dot of bf16 operands on both sides, summed in another
+order: measured max difference 5.0e-7 of the largest logit), and ``valid`` on a
+scaled MoE config's capacity dispatch."""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tests.test_torch_model_presets import given_xla_rsqrt
+from tmac_tpu.models import llama as jl
+from tmac_tpu.models.config import get_preset as jax_preset
+from tmac_tpu_torch.convert.from_jax import cache_from_numpy, params_from_numpy
+from tmac_tpu_torch.models.config import get_preset
+from tmac_tpu_torch.models.llama import KVCache, Llama
+from tmac_tpu_torch.utils import argmax_agreement, nmse
+
+torch.set_num_threads(2)
+
+HEAD_RTOL = 1e-5
+HIDDEN_NMSE = 1e-3
+_fwd = jax.jit(jl.forward, static_argnames=("cfg", "impl", "return_hidden"))
+
+
+def _pair(**kw):
+    return tuple(dataclasses.replace(get("llama-3.1-8b", bits=3).scaled(8), **kw)
+                 for get in (get_preset, jax_preset))
+
+
+def _models(cfg, jcfg):
+    jparams = jl.init_params(jcfg, seed=0)
+    params = params_from_numpy(jax.tree.map(np.asarray, jparams), cfg, device="cpu")
+    return Llama(cfg, params), jparams
+
+
+def _prefilled(cfg, jcfg, model, jparams, B=2, T=8):
+    """Both caches after a B-row prefill of T tokens (seeded), the port's
+    made from JAX's (cache_from_numpy)."""
+    prompt = np.random.default_rng(1).integers(0, cfg.vocab_size, (B, T))
+    jcache = jl.KVCache.create(jcfg, B, 64)
+    _, jcache = _fwd(jparams, jcfg, jnp.asarray(prompt), jcache, impl="pallas")
+    return cache_from_numpy(jax.tree.map(np.asarray, jcache), device="cpu"), jcache
+
+
+@pytest.fixture(scope="module")
+def dense():
+    cfg, jcfg = _pair()
+    return (cfg, jcfg) + _models(cfg, jcfg)
+
+
+def test_active_freezes_a_slot(dense, monkeypatch):
+    given_xla_rsqrt(monkeypatch)
+    cfg, jcfg, model, jparams = dense
+    cache, jcache = _prefilled(cfg, jcfg, model, jparams)
+    tok = np.array([[5], [9]])
+    active = np.array([True, False])
+    lg, cache = model(torch.from_numpy(tok), cache, active=torch.from_numpy(active))
+    jlg, jcache = _fwd(jparams, jcfg, jnp.asarray(tok), jcache, impl="pallas",
+                       active=jnp.asarray(active))
+    np.testing.assert_array_equal(lg.numpy(), np.asarray(jlg))
+    assert cache.pos.tolist() == np.asarray(jcache.pos).tolist() == [9, 8]
+    # the frozen slot's row written at its frozen position, as JAX writes it
+    np.testing.assert_array_equal(cache.k.view(torch.int16).numpy(),
+                                  np.asarray(jcache.k).view(np.int16))
+
+
+def test_embeds_replace_the_lookup(dense, monkeypatch):
+    given_xla_rsqrt(monkeypatch)
+    cfg, jcfg, model, jparams = dense
+    tok = np.random.default_rng(2).integers(0, cfg.vocab_size, (1, 8))
+    want, _ = model(torch.from_numpy(tok), KVCache.create(cfg, 1, 64, device="cpu"))
+    rows = model.embed[torch.from_numpy(tok)]
+    got, _ = model(torch.from_numpy(tok), KVCache.create(cfg, 1, 64, device="cpu"),
+                   embeds=rows.float())
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+    emb = (np.random.default_rng(3).standard_normal((1, 8, cfg.hidden_size)) * 0.05
+           ).astype(np.float32)
+    got, _ = model(torch.from_numpy(tok), KVCache.create(cfg, 1, 64, device="cpu"),
+                   embeds=torch.from_numpy(emb))
+    jlg, _ = _fwd(jparams, jcfg, jnp.asarray(tok), jl.KVCache.create(jcfg, 1, 64),
+                  impl="pallas", embeds=jnp.asarray(emb))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(jlg))
+
+
+def test_return_hidden(dense, monkeypatch):
+    """The hidden states before the final norm: with the norm and head
+    after them, the logits path's bit for bit; against JAX's, bit for bit
+    but at position 4 of this prompt, where a code flips at a tie that
+    XLA's rsqrt values alone do not settle (the logits path differs there
+    too; measured NMSE of the whole (8, H) block 1.1e-5)."""
+    import tmac_tpu_torch.models.llama as tl
+    given_xla_rsqrt(monkeypatch)
+    cfg, jcfg, model, jparams = dense
+    tok = np.random.default_rng(4).integers(0, cfg.vocab_size, (1, 8))
+    hid, cache = model(torch.from_numpy(tok), KVCache.create(cfg, 1, 64, device="cpu"),
+                       return_hidden=True)
+    jhid, jcache = _fwd(jparams, jcfg, jnp.asarray(tok), jl.KVCache.create(jcfg, 1, 64),
+                        impl="pallas", return_hidden=True)
+    assert hid.shape == (1, 8, cfg.hidden_size) and hid.dtype == torch.bfloat16
+    assert int(cache.pos[0]) == int(jcache.pos[0]) == 8
+    logits, _ = model(torch.from_numpy(tok), KVCache.create(cfg, 1, 64, device="cpu"))
+    assert torch.equal(model._head(tl.rms_norm(hid, model.final_norm, cfg.rms_norm_eps)),
+                       logits)
+    got, want = hid[0].float().numpy(), np.asarray(jhid[0]).astype(np.float32)
+    assert nmse(want, got) <= HIDDEN_NMSE
+    same = (got == want).all(-1)
+    assert same.tolist() == [True] * 4 + [False] + [True] * 3
+
+
+@pytest.mark.parametrize("head", ["tied", "bf16"])
+def test_head_forms_match_jax(head, monkeypatch):
+    given_xla_rsqrt(monkeypatch)
+    kw = dict(tie_word_embeddings=True) if head == "tied" else dict(head_bits=16)
+    cfg, jcfg = _pair(**kw)
+    model, jparams = _models(cfg, jcfg)
+    assert ("lm_head" in jparams) == (head == "bf16")
+    assert model.lm_head is None
+    tok = np.random.default_rng(5).integers(0, cfg.vocab_size, (1, 8))
+    cache = KVCache.create(cfg, 1, 64, device="cpu")
+    jcache = jl.KVCache.create(jcfg, 1, 64)
+    for step in (tok, np.array([[3]])):
+        got, cache = model(torch.from_numpy(step), cache)
+        want, jcache = _fwd(jparams, jcfg, jnp.asarray(step), jcache, impl="pallas")
+        want = np.asarray(want)
+        assert got.shape == want.shape and got.dtype == torch.float32
+        np.testing.assert_allclose(got.numpy(), want, rtol=HEAD_RTOL,
+                                   atol=HEAD_RTOL * np.abs(want).max())
+
+
+@pytest.fixture(scope="module")
+def mixtral():
+    cfg, jcfg = (dataclasses.replace(get("mixtral-8x7b").scaled(8), moe_intermediate_size=512)
+                 for get in (get_preset, jax_preset))
+    return (cfg, jcfg) + _models(cfg, jcfg)
+
+
+def test_valid_masks_the_moe_tokens(mixtral):
+    """valid reaches moe_mlp (a 72-token prompt: the capacity dispatch,
+    tests/test_torch_model.py's prompt): the rows marked False get no
+    expert output on both sides, so the positions before them are
+    unchanged and those from them on move; the logits of all positions
+    within Mixtral's gate of JAX's (measured NMSE 4.0e-4)."""
+    cfg, jcfg, model, jparams = mixtral
+    T = 72
+    tok = np.random.default_rng(T).integers(0, cfg.vocab_size, (1, T))
+    valid = np.arange(T)[None, :] < 50
+    got, _ = model(torch.from_numpy(tok), KVCache.create(cfg, 1, 128, device="cpu"),
+                   valid=torch.from_numpy(valid))
+    want, _ = _fwd(jparams, jcfg, jnp.asarray(tok), jl.KVCache.create(jcfg, 1, 128),
+                   impl="pallas", valid=jnp.asarray(valid))
+    want = np.asarray(want)[0]
+    assert nmse(want, got[0].numpy()) <= 3e-3
+    assert argmax_agreement(want, got[0].numpy(), 1e-2) == 1.0
+    unmasked, _ = model(torch.from_numpy(tok), KVCache.create(cfg, 1, 128, device="cpu"))
+    assert torch.equal(unmasked[0, :50], got[0, :50])
+    assert nmse(unmasked[0, 50:].numpy(), got[0, 50:].numpy()) > 1e-2
+
+
+def test_mixtral_other_prompt_gap_is_xla_rsqrt(mixtral, monkeypatch):
+    """Another 72-token prompt (seed 6) is further from JAX than the
+    tests' own: measured NMSE 6.5e-3 and argmax agreement 0.986 without
+    XLA's rsqrt values, 1.1e-4 and 1.0 with them, so the gap is the
+    recorded rsqrt deviation (ROADMAP Queue 3), amplified by the router's
+    top-k."""
+    cfg, jcfg, model, jparams = mixtral
+    tok = np.random.default_rng(6).integers(0, cfg.vocab_size, (1, 72))
+    want, _ = _fwd(jparams, jcfg, jnp.asarray(tok), jl.KVCache.create(jcfg, 1, 128),
+                   impl="pallas")
+    want = np.asarray(want)[0]
+    given_xla_rsqrt(monkeypatch)
+    got, _ = model(torch.from_numpy(tok), KVCache.create(cfg, 1, 128, device="cpu"))
+    assert nmse(want, got[0].numpy()) <= 3e-4
+    assert argmax_agreement(want, got[0].numpy(), 1e-2) == 1.0
+
+
+def test_check_slice_admits_every_preset_and_names_what_it_refuses():
+    """Every preset passes (w_fp at bits 1 to 4, biases, every rope
+    scaling, tied and bf16 heads, MoE); what is still refused raises with
+    the missing form's name."""
+    from tmac_tpu_torch.models.config import PRESETS
+    from tmac_tpu_torch.models.llama import _check_slice
+    for name in PRESETS:
+        for bits in (1, 2, 3, 4) if PRESETS[name].quant.mode == "w_fp" else (2,):
+            _check_slice(get_preset(name, bits=bits))
+    cfg = get_preset("llama-3.1-8b", bits=3)
+    _check_slice(dataclasses.replace(cfg, tie_word_embeddings=True, head_bits=16,
+                                     attention_bias=True, rope_scaling=("yarn", 4.0, 4096)))
+    bitnet = get_preset("bitnet-3b")
+    for bad, match in ((cfg.with_quant(act_group_size=32), "act_group_size"),
+                       (dataclasses.replace(bitnet, num_experts=8), "MoE with w_a8"),
+                       (bitnet.with_quant(bits=4), "w_a8 at bits 4")):
+        with pytest.raises(NotImplementedError, match=match):
+            _check_slice(bad)

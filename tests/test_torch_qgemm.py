@@ -216,7 +216,7 @@ def test_wrapper_dispatch_and_limits():
                        qgemm_large_int(x64, qt))
 
 
-@pytest.mark.parametrize("case", ["grouped", "grouped_bits3", "int8_x"])
+@pytest.mark.parametrize("case", ["grouped", "grouped_bits3", "grouped_bits8", "int8_x"])
 def test_auto_off_the_cpu_takes_k1_or_raises(case):
     """Off the CPU, impl="auto" never reaches the plain grouped matmul: it
     takes K4 for grouped scales and K1 otherwise, which raise on what they
@@ -231,7 +231,11 @@ def test_auto_off_the_cpu_takes_k1_or_raises(case):
     elif case == "grouped_bits3":
         qt = QuantizedTensor.from_float(w, 3, 64, scale_dtype=torch.bfloat16,
                                         device="cpu")
-        want = "K4 takes bits 2 and 4"
+        want = "K4 runs on CPU or CUDA tensors"   # K4 took it (bits 1 to 4)
+    elif case == "grouped_bits8":
+        qt = QuantizedTensor.from_float(w, 8, 64, scale_dtype=torch.bfloat16,
+                                        device="cpu")
+        want = "K4 takes bits 1, 2, 3 and 4"
     else:
         qt = QuantizedTensor.from_float(w, 2, device="cpu")
         x = x.to(torch.int8)

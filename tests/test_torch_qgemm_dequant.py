@@ -77,6 +77,13 @@ CASES = [
     (4, 384, 512, (512, 512), True, False, False),       # gate_up form
     (2, 384, 1280, (256,), False, False, True),          # W2 down: K padded
     (4, 384, 1024, (256,), False, True, True),           # W4 down: glu folded
+    # bits 3 (lo and hi planes) and bits 1, K padded to 8 * GS
+    (3, 384, 1024, (256,), False, False, False),
+    (3, 400, 512, (256,), False, False, True),           # K padded
+    (3, 384, 1024, (256, 256), True, False, False),
+    (3, 512, 1024, (256,), False, True, True),           # glu folded
+    (1, 384, 1024, (256,), False, False, True),
+    (1, 384, 1024, (256,), False, True, False),
 ]
 
 
@@ -109,7 +116,7 @@ def test_plain_k5_matches_pallas_dequant(bits, N, K, Ms, norm, glu, residual):
         wd, np.asarray(jnp.asarray(codes * sc - sb, jnp.bfloat16), np.float32))
 
 
-@pytest.mark.parametrize("bits", [2, 4])
+@pytest.mark.parametrize("bits", [1, 2, 3, 4])
 def test_plain_k5_matches_pallas_dequant_given_xla_rsqrt(bits, monkeypatch):
     """The rms_norm fold with XLA's rsqrt values given to the prologue: the
     gap of the norm cases is XLA's rsqrt alone."""

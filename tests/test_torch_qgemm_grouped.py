@@ -96,6 +96,19 @@ CASES = [
     (4, 256, 512, (256,), False, False, True),
     (4, 383, 1024, (256,), False, True, True),         # W4 down: glu folded
     (2, 383, 1280, (256,), False, False, True),        # W2 down: K padded
+    # bits 3 (a lo and a hi plane) and bits 1: K padded to 8 * GS
+    (3, 2, 1024, (256,), False, False, True),
+    (3, 2, 1024, (256, 256), True, False, False),
+    (3, 16, 512, (200,), False, False, False),         # K 512 -> 1024, M padded
+    (3, 2, 1024, (256,), False, True, True),           # glu folded
+    (1, 2, 1024, (256,), False, False, True),
+    (1, 16, 1024, (256, 256), True, False, False),
+    (1, 2, 1024, (256,), False, True, True),
+    (3, 64, 1024, (256,), False, False, True),         # K4L's route
+    (3, 100, 512, (256,), True, False, False),
+    (3, 256, 1024, (256,), False, True, True),
+    (1, 64, 1024, (200,), False, False, False),
+    (1, 256, 512, (256,), False, False, True),
 ]
 
 
@@ -166,7 +179,7 @@ def _check_against_pallas(bits, N, K, Ms, norm, glu, residual, gs=GS,
     np.testing.assert_array_equal(parts, np.einsum("ngk,gkm->gnm", c64, w64))
 
 
-@pytest.mark.parametrize("bits", [2, 4])
+@pytest.mark.parametrize("bits", [1, 2, 3, 4])
 def test_grouped_route_at_384_rows_matches_pallas(bits):
     """At N = 3 * GS rows with dispatch=None the reference takes its
     dequant kernel (bf16 activations times bf16 dequantized weights), and
@@ -175,8 +188,9 @@ def test_grouped_route_at_384_rows_matches_pallas(bits):
     ~1e-14; K4's int8-activation function differs by ~1e-5)."""
     from tmac_tpu_torch.models.llama import apply_qlinear
     rng = np.random.default_rng(bits + 11)
-    qt, jqt = _pair(rng, bits, 512, (256,))
-    x = rng.standard_normal((3 * GS, 512)).astype(np.float32)
+    K = 1024 if bits in (1, 3) else 512
+    qt, jqt = _pair(rng, bits, K, (256,))
+    x = rng.standard_normal((3 * GS, K)).astype(np.float32)
     r = rng.standard_normal((3 * GS, 256)).astype(np.float32)
     xt = torch.from_numpy(x).to(torch.bfloat16)
     rt = torch.from_numpy(r).to(torch.bfloat16)
@@ -196,7 +210,7 @@ def test_grouped_route_at_384_rows_matches_pallas(bits):
     assert nmse(want, chunk.numpy()) > 1e-7
 
 
-@pytest.mark.parametrize("bits", [2, 4])
+@pytest.mark.parametrize("bits", [1, 2, 3, 4])
 def test_plain_k4_matches_dequant_oracle(bits):
     """Against the float dequant oracle (docs/contracts.md's 5e-4 gate)."""
     rng = np.random.default_rng(bits)
@@ -212,7 +226,7 @@ def test_plain_k4_matches_dequant_oracle(bits):
     assert nmse(oracle.numpy(), qgemm_grouped_plain(x, qt).numpy()) <= 5e-4
 
 
-@pytest.mark.parametrize("bits", [2, 4])
+@pytest.mark.parametrize("bits", [1, 2, 4])
 def test_packed_field_walk_feeds_the_group_dots(bits):
     """Emulates the packed-field walk of K4's decode matmul
     (csrc/decode_matmul.cuh): a chunk of gs packed rows holds, in field j,
@@ -236,15 +250,54 @@ def test_packed_field_walk_feeds_the_group_dots(bits):
     np.testing.assert_array_equal(parts, group_dots_plain(codes, qt).numpy())
 
 
+@pytest.mark.parametrize("bits,N", [(3, 2), (3, 72), (3, 384), (1, 2), (1, 72), (1, 384)])
+def test_fold_chunk_below_the_group_matches_pallas(bits, N):
+    """A tensor packed by hand with Kp = 512 at g128 (the packing pads K
+    to 8 * gs = 1024 at bits 1 and 3): the reference's fold chunk is then
+    Kp / 8 = 64 < gs (at bits 3 min(gs, Kp / 4, Kp / 8)), so it scales and
+    adds each group's int32 dot in two parts.  The plain versions follow
+    (fold_chunk): bit for bit on the K4 (N = 2) and K4L (N = 72) routes,
+    within f32 rounding on K5's (N = 384, whose dequantized weights do not
+    depend on the chunk); a per-group fold gives other bits.  The CUDA
+    kernels K4 and K4L raise for such a tensor (Kp a multiple of 8 * gs)."""
+    from tmac_tpu_torch.ops import packing
+    from tmac_tpu_torch.ops.cuda.qgemm_grouped_kernel import fold_chunk, fold_plain
+    rng = np.random.default_rng(bits * 10 + N)
+    K, M, G = 512, 256, 512 // GS
+    wq = rng.integers(0, 1 << bits, (K, M)).astype(np.uint8)
+    sc = ((0.5 + rng.random((G, M))) * 0.05).astype(np.float32)
+    sub = sc * rng.integers(0, 1 << bits, (G, M)).astype(np.float32)
+    lo, hi = packing.pack_b3(wq) if bits == 3 else (packing.pack_strided(wq, 1), None)
+    bf = jnp.asarray(sc, jnp.bfloat16), jnp.asarray(sub, jnp.bfloat16)
+    jqt = JQT(jnp.asarray(lo), None if hi is None else jnp.asarray(hi), *bf, bits, GS,
+              1, 1, (K, M), None)
+    qt = QuantizedTensor(torch.from_numpy(lo), None if hi is None else torch.from_numpy(hi),
+                         *(torch.from_numpy(np.asarray(a, np.float32)).to(torch.bfloat16)
+                           for a in bf), bits, GS, 1, 1, (K, M))
+    assert qt.kdim_padded == K and fold_chunk(K, bits, GS) == 64
+    x = rng.standard_normal((N, K)).astype(np.float32)
+    xt = torch.from_numpy(x).to(torch.bfloat16)
+    want = _pallas(jnp.asarray(x, jnp.bfloat16), jqt)
+    got = qgemm(xt, qt, impl="fused", out_dtype=torch.float32).numpy()
+    if N >= 3 * GS:
+        assert nmse(want, got) <= 1e-12
+        return
+    np.testing.assert_array_equal(got, want)
+    codes, xs, xsum = act_quant_grouped_plain(xt, qt)
+    whole = torch.stack([(codes[:, k:k + GS].double() @ unpack_codes(qt)[k:k + GS].double())
+                         .to(torch.int32) for k in range(0, K, GS)])
+    assert not np.array_equal(fold_plain(whole, xs, xsum, qt).numpy(), want)
+
+
 def test_wrapper_dispatch_and_limits():
     rng = np.random.default_rng(3)
     qt, _ = _pair(rng, 2, 512, (256,))
     x = torch.from_numpy(rng.standard_normal((2, 512)).astype(np.float32))
     assert torch.equal(qgemm(x, qt, out_dtype=torch.float32),  # auto -> K4
                        qgemm_grouped_plain(x, qt))
-    bits3 = QuantizedTensor.from_quantized(
-        rng.integers(0, 8, (512, 256)).astype(np.uint8),
-        np.ones((4, 256), np.float32), np.zeros((4, 256), np.float32), 3, GS,
+    bits8 = QuantizedTensor.from_quantized(     # grouped bits 8: not ported
+        rng.integers(0, 256, (512, 256)).astype(np.uint8),
+        np.ones((4, 256), np.float32), np.zeros((4, 256), np.float32), 8, GS,
         scale_dtype=torch.bfloat16, device="cpu")
     f32 = QuantizedTensor.from_quantized(
         rng.integers(0, 4, (512, 256)).astype(np.uint8),
@@ -254,7 +307,7 @@ def test_wrapper_dispatch_and_limits():
         rng.standard_normal((512, 256)).astype(np.float32), 2, device="cpu")
     padded_k, _ = _pair(rng, 2, 640, (256,))    # K 640 -> 1024
     padded_m, _ = _pair(rng, 2, 512, (200,))
-    for bad, kw in ((bits3, {}), (f32, {}), (per_tensor, {}),
+    for bad, kw in ((bits8, {}), (f32, {}), (per_tensor, {}),
                     (padded_k, dict(glu=True)),
                     (padded_m, dict(residual=torch.zeros(2, 200, dtype=torch.bfloat16))),
                     (qt, dict(residual=torch.zeros(2, 256)))):

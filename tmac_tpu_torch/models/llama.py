@@ -1,10 +1,14 @@
-"""Llama-family transformer in PyTorch: the main-path subset.
+"""Llama-family transformer in PyTorch.
 
-The port of ``tmac_tpu/models/llama.py`` for models with plain RoPE, an
-optional sliding window (Phi-3-mini) and a bf16 or int8 KV cache: w_a8
-(BitNet W1.58A8, per-tensor scales) and w_fp with grouped scales (e.g.
-Llama-2-7B W2A16 / W4A16 g128, bits 2 and 4), dense or MoE (Mixtral-8x7B:
-the MLP is models/moe.py's moe_mlp, whose decode form runs kernel K7).
+The port of ``tmac_tpu/models/llama.py``: RoPE with any of the JAX
+package's long-context scalings (linear, per-dim factors, llama3, YaRN),
+an optional sliding window (Phi-3-mini), optional q/k/v biases (Qwen2),
+an int8, bf16 or tied head, and a bf16 or int8 KV cache; w_a8 (BitNet
+W1.58A8, per-tensor scales, bits 2) and w_fp with grouped scales at bits
+1 to 4 (e.g. Llama-2-7B W2A16 / W4A16 g128, Llama-3.1-8B W3A16, Qwen2-7B
+W4A16), dense or MoE (Mixtral-8x7B: the MLP is models/moe.py's moe_mlp,
+whose decode form runs kernel K7).  ``_check_slice`` names what is not
+ported yet.
 Every quantized linear goes through the kernel that the JAX package's
 pallas path runs for its weights and rows (ops.qgemm.route): for
 per-tensor scales K1 (ops/cuda/qgemm_kernel.py) below 64 rows and K3 from
@@ -93,20 +97,60 @@ def silu_mul(g: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     return (gf * (1.0 / (1.0 + torch.exp(-gf)))).to(u.dtype) * u
 
 
-def rope_freqs(head_dim: int, theta: float, scaling=None) -> np.ndarray:
-    """Per-dim inverse frequencies (half,) f32 of plain RoPE."""
-    if scaling is not None:
-        raise NotImplementedError("rope_scaling is not ported yet")
+def rope_freqs(head_dim: int, theta: float, scaling=None):
+    """Per-dim inverse frequencies with the optional long-context scaling
+    of ModelConfig.rope_scaling, in float64 numpy as the JAX package
+    computes them (so bit for bit its values): -> (inv_freqs (half,) f32,
+    table_scale, the factor YaRN multiplies into cos and sin, else 1.0).
+    Forms: ("linear", factor), ("factors", per-dim divisors), ("llama3",
+    factor, original max positions, low and high frequency factors: the
+    piecewise rule), ("yarn", factor, original max positions: the ramp,
+    beta_fast 32 and beta_slow 1, and 0.1 ln(factor) + 1 on the tables)."""
     half = head_dim // 2
     freqs = 1.0 / (theta ** (np.arange(half, dtype=np.float64) / half))
-    return freqs.astype(np.float32)
+    if scaling is None:
+        return freqs.astype(np.float32), 1.0
+    kind = scaling[0]
+    if kind == "linear":
+        return (freqs / float(scaling[1])).astype(np.float32), 1.0
+    if kind == "factors":
+        f = np.asarray(scaling[1], np.float64)
+        if f.shape != (half,):
+            raise ValueError(f"rope factors of shape {f.shape}, not ({half},)")
+        return (freqs / f).astype(np.float32), 1.0
+    if kind == "llama3":
+        _, factor, orig, lo, hi = scaling
+        wavelen = 2.0 * np.pi / freqs
+        low_wl, high_wl = orig / lo, orig / hi
+        smooth = np.clip((orig / wavelen - lo) / (hi - lo), 0.0, 1.0)
+        scaled = freqs / factor
+        out = np.where(wavelen < high_wl, freqs,
+                       np.where(wavelen > low_wl, scaled,
+                                (1.0 - smooth) * scaled + smooth * freqs))
+        return out.astype(np.float32), 1.0
+    if kind == "yarn":
+        _, factor, orig = scaling
+
+        def corr_dim(n_rot):
+            return half * np.log(orig / (n_rot * 2 * np.pi)) / np.log(theta)
+        low = max(np.floor(corr_dim(32.0)), 0.0)
+        high = min(np.ceil(corr_dim(1.0)), half - 1.0)
+        ramp = np.clip((np.arange(half) - low) / max(high - low, 1e-3), 0.0, 1.0)
+        mask = 1.0 - ramp  # 1: keep (extrapolate), 0: interpolate
+        out = (freqs / factor) * (1.0 - mask) + freqs * mask
+        return out.astype(np.float32), float(0.1 * np.log(factor) + 1.0)
+    raise ValueError(f"rope_scaling kind {kind!r}")
 
 
-def rope_tables(positions: torch.Tensor, freqs: torch.Tensor):
+def rope_tables(positions: torch.Tensor, freqs: torch.Tensor,
+                table_scale: float = 1.0):
     """positions (B, T) -> (cos, sin) each (B, T, 1, head_dim) f32 in the
-    duplicated-half layout; freqs from rope_freqs, on positions' device."""
+    duplicated-half layout; freqs and table_scale from rope_freqs, freqs on
+    positions' device."""
     angles = positions[:, :, None, None].float() * freqs
     cos, sin = torch.cos(angles), torch.sin(angles)
+    if table_scale != 1.0:
+        cos, sin = cos * table_scale, sin * table_scale
     return torch.cat([cos, cos], -1), torch.cat([sin, sin], -1)
 
 
@@ -176,24 +220,28 @@ class KVCache:
 # ---------------------------------------------------------------------------
 
 def _check_slice(cfg: ModelConfig) -> None:
-    """The model family this port covers so far: dense w_a8 with
-    per-tensor scales, or w_fp with grouped scales at bits 2 or 4 and
-    activations quantized per weight group, dense or MoE."""
+    """The model family this port covers so far: w_a8 with per-tensor
+    scales at bits 2 (BitNet), dense; w_fp with grouped scales at bits 1
+    to 4, dense or MoE; attention bias, tied, bf16 or int8 heads and every
+    rope scaling.  What it refuses names the missing form."""
     q = cfg.quant
+    if q.act_group_size:
+        raise NotImplementedError(
+            "act_group_size > 0 (activation groups finer than the weight "
+            "groups: K4's ags form) is not ported yet")
     if q.mode == "w_a8":
         if q.group_size != -1:
             raise NotImplementedError("only per-tensor w_a8 is ported")
-    elif q.group_size <= 0 or q.bits not in (2, 4) or q.act_group_size:
+        if cfg.num_experts:
+            raise NotImplementedError(
+                "MoE with w_a8 (K7's per-tensor, G = 1 branch) is not ported yet")
+        if q.bits != 2:
+            raise NotImplementedError(
+                f"w_a8 at bits {q.bits} (K1, K3 and K10 at bits 1, 3 and 4) "
+                "is not ported yet; bits 2 is")
+    elif q.group_size <= 0 or q.bits not in (1, 2, 3, 4):
         raise NotImplementedError(
-            "w_fp is ported for grouped scales at bits 2 and 4, with "
-            "activation groups equal to the weight groups")
-    if cfg.num_experts and q.mode != "w_fp":
-        raise NotImplementedError("MoE is ported for w_fp only")
-    if cfg.attention_bias or cfg.tie_word_embeddings \
-            or cfg.head_bits != 8 or cfg.rope_scaling:
-        raise NotImplementedError(
-            "attention bias, tied or bf16 heads and rope scaling are not "
-            "ported yet")
+            "w_fp is ported for grouped scales at bits 1 to 4")
 
 
 def _rand_qt(rng: np.random.Generator, K: int, M: int, cfg: ModelConfig,
@@ -245,9 +293,12 @@ def padded_moe_intermediate(cfg: ModelConfig) -> int:
 
 
 def make_head(head_km: np.ndarray, cfg: ModelConfig, device="cuda"):
-    """lm_head (H, V) float -> int8 QuantizedTensor (per-column scale)."""
+    """lm_head (H, V) float -> a bf16 (H, V) tensor (head_bits >= 16) or an
+    int8 QuantizedTensor (per-column scale; head_bits 8)."""
+    if cfg.head_bits >= 16:
+        return torch.from_numpy(head_km).to(torch.bfloat16).to(device)
     if cfg.head_bits != 8:
-        raise NotImplementedError("only the int8 head is ported")
+        raise ValueError(f"head_bits {cfg.head_bits}: 8 or 16 and up")
     return QuantizedTensor.from_float(head_km, bits=8,
                                       group_size=head_km.shape[0],
                                       device=device)
@@ -300,15 +351,22 @@ def init_params(cfg: ModelConfig, seed: int = 0,
         else:
             layer["gate_up"] = gate_up(I)
             layer["down"] = _rand_qt(rng, I, H, cfg, device)
+        if cfg.attention_bias:
+            # zeros, as the JAX package draws them (a checkpoint brings its own)
+            for name, width in (("bq", cfg.q_dim), ("bk", cfg.kv_dim),
+                                ("bv", cfg.kv_dim)):
+                layer[name] = torch.zeros((width,), dtype=torch.bfloat16,
+                                          device=device)
         layers.append(layer)
-    embed = normal_bf16((cfg.vocab_size, H))
-    head = (rng.standard_normal((H, cfg.vocab_size)) * 0.02).astype(np.float32)
-    return {
-        "embed": embed,
+    params = {
+        "embed": normal_bf16((cfg.vocab_size, H)),
         "layers": layers,
         "final_norm": ones(H),
-        "lm_head": make_head(head, cfg, device),
     }
+    if not cfg.tie_word_embeddings:
+        head = (rng.standard_normal((H, cfg.vocab_size)) * 0.02).astype(np.float32)
+        params["lm_head"] = make_head(head, cfg, device)
+    return params
 
 
 # ---------------------------------------------------------------------------
@@ -383,6 +441,7 @@ class QLinear(nn.Module):
 
 
 _MOE_VECTORS = ("mlp_norm", "moe_router", "shared_gate")
+_BIASES = ("bq", "bk", "bv")
 _MOE_LINEARS = ("experts_gate_up", "experts_down", "shared_gate_up",
                 "shared_down")
 
@@ -394,7 +453,7 @@ class Block(nn.Module):
 
     def __init__(self, layer: Dict[str, Any]):
         super().__init__()
-        for name in ("attn_norm",) + _MOE_VECTORS:
+        for name in ("attn_norm",) + _MOE_VECTORS + _BIASES:
             if name in layer:
                 self.register_buffer(name, layer[name])
         for name in ("wqkv", "wo", "gate_up", "down") + _MOE_LINEARS:
@@ -484,12 +543,17 @@ class Llama(nn.Module):
         self.register_buffer("embed", params["embed"])
         self.register_buffer("final_norm", params["final_norm"])
         self.layers = nn.ModuleList(Block(l) for l in params["layers"])
-        self.lm_head = QLinear(params["lm_head"])
+        # the head: an int8 QuantizedTensor (K1/K3), a bf16 (H, V) tensor,
+        # or none (tie_word_embeddings: the embedding's transpose)
+        head = params.get("lm_head")
+        self.lm_head = QLinear(head) if isinstance(head, QuantizedTensor) else None
+        self.register_buffer("head_w", head if torch.is_tensor(head) else None)
         dev = params["embed"].device
         self.register_buffer("layer_ids", torch.arange(
             cfg.num_layers, dtype=torch.int32, device=dev))
-        self.register_buffer("freqs", torch.from_numpy(rope_freqs(
-            cfg.head_dim, cfg.rope_theta, cfg.rope_scaling)).to(dev))
+        freqs, self.table_scale = rope_freqs(cfg.head_dim, cfg.rope_theta,
+                                             cfg.rope_scaling)
+        self.register_buffer("freqs", torch.from_numpy(freqs).to(dev))
 
     @property
     def device(self) -> torch.device:
@@ -558,11 +622,37 @@ class Llama(nn.Module):
                 _write_scale_all_layers(sbuf, sc, cache.pos)
             _write_kv_all_layers(buf, kv, cache.pos)
 
-    def forward(self, tokens: torch.Tensor, cache: KVCache):
+    def _head(self, x: torch.Tensor) -> torch.Tensor:
+        """Final-normed x (B, T, H) -> logits (B, T, V) f32: the int8 head
+        through K1 (K3 from 64 rows); a bf16 head, or the tied embedding's
+        transpose, as one matmul of the bf16 operands summed in f32 (JAX's
+        preferred_element_type=f32 dot, which it leaves to XLA)."""
+        B, T, H = x.shape
+        if self.lm_head is not None:
+            head = self.lm_head.qt
+            logits = kernel_for(head, B * T, self.plain)(x.reshape(B * T, H), head)
+            return logits.reshape(B, T, head.mdim)
+        w = self.embed.t() if self.head_w is None else self.head_w
+        return torch.matmul(x.float(), w.float())
+
+    def forward(self, tokens: torch.Tensor, cache: KVCache,
+                active: Optional[torch.Tensor] = None,
+                valid: Optional[torch.Tensor] = None,
+                embeds: Optional[torch.Tensor] = None,
+                return_hidden: bool = False):
+        """tokens (B, T) -> (logits (B, T, V) f32, cache), the JAX
+        package's forward options: active (B,) bool freezes the slots that
+        are False (their pos does not advance; their rows are still written
+        at the frozen pos, as JAX writes them); valid (B, T) bool marks the
+        real tokens for the MoE dispatch; embeds (B, T, H) replaces the
+        embedding lookup (cast to the embedding's dtype; tokens still give
+        the shapes); return_hidden returns the hidden states (B, T, H)
+        before the final norm instead of logits."""
         cfg = self.cfg
         B, T = tokens.shape
         dev = tokens.device
-        x = F.embedding(tokens, self.embed)                       # (B, T, H)
+        x = F.embedding(tokens, self.embed) if embeds is None \
+            else embeds.to(self.embed.dtype)                      # (B, T, H)
         positions = (cache.pos[:, None].long()
                      + torch.arange(T, device=dev)[None, :])      # (B, T)
         mode = self.kv_mode if T == 1 else "explicit"
@@ -576,19 +666,20 @@ class Llama(nn.Module):
                 torch.arange(cache.max_len, device=dev)[None, :]
                 < positions[:, -1:] + 1)                          # (B, S)
         pending = []
-        tables = rope_tables(positions, self.freqs)
+        tables = rope_tables(positions, self.freqs, self.table_scale)
         eps = cfg.rms_norm_eps
         qd, kvd = cfg.q_dim, cfg.kv_dim
         plain = self.plain
         for li, blk in enumerate(self.layers):
             qkv = apply_qlinear(x, blk.wqkv.qt, norm=(blk.attn_norm, eps),
                                 plain=plain)
-            q = rope(qkv[..., :qd].reshape(B, T, cfg.num_heads, cfg.head_dim),
-                     tables)
-            k = rope(qkv[..., qd:qd + kvd].reshape(B, T, cfg.num_kv_heads,
-                                                   cfg.head_dim), tables)
-            v = qkv[..., qd + kvd:].reshape(B, T, cfg.num_kv_heads,
-                                            cfg.head_dim)
+            q, k, v = qkv[..., :qd], qkv[..., qd:qd + kvd], qkv[..., qd + kvd:]
+            if hasattr(blk, "bq"):
+                # attention bias, added in the activations' dtype (bf16)
+                q, k, v = q + blk.bq, k + blk.bk, v + blk.bv
+            q = rope(q.reshape(B, T, cfg.num_heads, cfg.head_dim), tables)
+            k = rope(k.reshape(B, T, cfg.num_kv_heads, cfg.head_dim), tables)
+            v = v.reshape(B, T, cfg.num_kv_heads, cfg.head_dim)
             if mode == "explicit":
                 self._write_kv(cache, li, k, v, positions)
             elif mode == "deferred":
@@ -611,7 +702,7 @@ class Llama(nn.Module):
             if cfg.num_experts:
                 # MoE MLP (models/moe.py): norm, routing and the experts;
                 # the residual is added here, in bf16
-                x = x + moe_mlp(x, blk.moe_layer(), cfg, plain=plain)
+                x = x + moe_mlp(x, blk.moe_layer(), cfg, valid=valid, plain=plain)
                 continue
             gu = apply_qlinear(x, blk.gate_up.qt, norm=(blk.mlp_norm, eps),
                                plain=plain)
@@ -626,8 +717,7 @@ class Llama(nn.Module):
                 x = apply_qlinear(h, down, residual=x, plain=plain)
         if pending:
             self._commit_kv(cache, *(torch.stack(t) for t in zip(*pending)))
-        x = rms_norm(x, self.final_norm, eps)
-        head = self.lm_head.qt
-        logits = kernel_for(head, B * T, plain)(x.reshape(B * T, -1), head)
-        cache.pos += T
-        return logits.reshape(B, T, head.mdim), cache
+        cache.pos += T if active is None else T * active.to(cache.pos.dtype)
+        if return_hidden:
+            return x, cache
+        return self._head(rms_norm(x, self.final_norm, eps)), cache

@@ -22,6 +22,13 @@
 namespace tmac {
 
 constexpr int kSumWindow = 32;
+// A long row (LONG below: more than kSumWindow values a thread of the
+// block, Qwen2-7B's down of 18944 in K4's and K5's 512-thread prologues):
+// the first level of window sums gives a thread every blockDim.x-th window
+// into a scratch of kMaxWindows sums, and the row is read an element a
+// load; K4's and K5's prologues take rows up to kMaxRowK
+constexpr int kMaxRowK = 32768;
+constexpr int kMaxWindows = kMaxRowK / kSumWindow;
 
 // The prologue's value at column k of row xr, before rms_norm: x, or
 // silu(g) * u with the gate half in columns [0, K) and the up half in
@@ -112,14 +119,34 @@ __device__ void stage_row(const __nv_bfloat16* xr, int K, int Kp, int glu,
 // The sum of src[staged(i)] (squared first when `square`) over i < n in
 // XLA's CPU order (kSumWindow above), each addition rounded on its own;
 // every thread gets it.  The whole block calls it, with at least
-// ceil(n / 32) threads; `scratch` holds staged_floats(ceil(n / 32)) floats
-// and is free again on return.  Values past either end of a window add
-// +0, which leaves a sum of non-negative values unchanged, bit for bit.
+// ceil(n / 32) threads (LONG: ceil(n / 1024)); `scratch` (not src) holds
+// staged_floats(ceil(n / 32)) floats and is free again on return.  Values
+// past either end of a window add +0, which leaves a sum of non-negative
+// values unchanged, bit for bit.
+template <bool LONG = false>
 __device__ float sum_staged(const float* src, int n, bool square, float* scratch) {
   const int w = threadIdx.x;
   while (n > kSumWindow) {
     const int nwin = (n + kSumWindow - 1) / kSumWindow;
     const int padl = (nwin * kSumWindow - n) / 2;
+    if (LONG && nwin > (int)blockDim.x) {
+      // the first level of a long row (src is the row): each window's sum
+      // is stored as it is made
+      for (int v = w; v < nwin; v += blockDim.x) {
+        float s = 0.f;
+        for (int j = 0; j < kSumWindow; ++j) {
+          const int i = v * kSumWindow + j - padl;
+          const float x = (i >= 0 && i < n) ? src[staged(i)] : 0.f;
+          s = __fadd_rn(s, square ? __fmul_rn(x, x) : x);
+        }
+        scratch[staged(v)] = s;
+      }
+      __syncthreads();
+      src = scratch;
+      square = false;
+      n = nwin;
+      continue;
+    }
     float s = 0.f;
     if (w < nwin) {
       float v[kSumWindow];
@@ -155,7 +182,8 @@ __device__ float sum_staged(const float* src, int n, bool square, float* scratch
 // rms_norm of the staged row in place (k < K; zeros past K stay zero):
 // the sum of squares in XLA's order, then (v * rs) * w[k], each step rounded
 // on its own, as prologue_value computes it.  Whole block; `scratch` as
-// sum_staged's; vals is complete on return.
+// sum_staged's (LONG: sum_staged<true>'s); vals is complete on return.
+template <bool LONG = false>
 __device__ void norm_row(float* vals, int K, int Kp,
                          const __nv_bfloat16* norm_w, float eps,
                          float inv_norm_k, int vec, float* scratch);
@@ -174,8 +202,10 @@ __device__ __forceinline__ float window_sum(Get get, int w, int n, int padl) {
 
 // Sum of get(i) over i < n in XLA's CPU order (above).  The whole block
 // calls it; every thread gets the sum.  `scratch` holds ceil(n / 32)
-// floats, and the block has at least that many threads.
-template <typename Get>
+// floats, and the block has at least that many threads (LONG: a thread
+// sums every blockDim.x-th window of the first level, which get reads
+// without scratch).
+template <bool LONG = false, typename Get>
 __device__ float sum_xla_order(Get get, int n, float* scratch) {
   int nwin = (n + kSumWindow - 1) / kSumWindow;
   int padl = (nwin * kSumWindow - n) / 2;
@@ -184,9 +214,13 @@ __device__ float sum_xla_order(Get get, int n, float* scratch) {
   } else {
     const int w = threadIdx.x;
     float s = 0.f;
-    if (w < nwin) s = window_sum(get, w, n, padl);
-    __syncthreads();
-    if (w < nwin) scratch[w] = s;
+    if (LONG) {
+      for (int v = w; v < nwin; v += blockDim.x) scratch[v] = window_sum(get, v, n, padl);
+    } else {
+      if (w < nwin) s = window_sum(get, w, n, padl);
+      __syncthreads();
+      if (w < nwin) scratch[w] = s;
+    }
     __syncthreads();
     n = nwin;
     while (n > kSumWindow) {
@@ -208,9 +242,10 @@ __device__ float sum_xla_order(Get get, int n, float* scratch) {
 }
 
 // Sum over k < Kp of glu_value(xr, k)^2 in XLA's CPU order.
+template <bool LONG = false>
 __device__ float sumsq_xla_order(const __nv_bfloat16* xr, int K, int Kp,
                                  int glu, float* scratch) {
-  return sum_xla_order([&](int k) {
+  return sum_xla_order<LONG>([&](int k) {
     const float v = glu_value(xr, k, K, glu);
     return __fmul_rn(v, v);
   }, Kp, scratch);
@@ -361,6 +396,7 @@ struct GroupFold {
   __device__ __forceinline__ float result() const { return __fsub_rn(acc, z); }
 };
 
+template <bool LONG>
 __device__ void norm_row(float* vals, int K, int Kp,
                          const __nv_bfloat16* norm_w, float eps,
                          float inv_norm_k, int vec, float* scratch) {
@@ -373,7 +409,7 @@ __device__ void norm_row(float* vals, int K, int Kp,
       if (i < K / 8) wv[r] = reinterpret_cast<const uint4*>(norm_w)[i];
     }
   }
-  const float rs = rms_factor(sum_staged(vals, Kp, true, scratch), inv_norm_k, eps);
+  const float rs = rms_factor(sum_staged<LONG>(vals, Kp, true, scratch), inv_norm_k, eps);
   if (vec) {
 #pragma unroll
     for (int r = 0; r < kRowLoads; ++r) {

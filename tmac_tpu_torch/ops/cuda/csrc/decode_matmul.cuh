@@ -4,8 +4,9 @@
 // int8 activation codes from the prologue against packed low-bit weights,
 // for Hopper.
 //
-// What bounds it: at decode each packed weight byte feeds 4 (bits 2), 2
-// (bits 4) or 1 (bits 8) multiply-adds a row, far below the card's
+// What bounds it: at decode each packed weight byte feeds 8 (bits 1), 4
+// (bits 2), 8/3 (bits 3), 2 (bits 4) or 1 (bits 8) multiply-adds a row, far
+// below the card's
 // operations-per-byte balance, so device-memory bytes bound it; a call
 // moves 0.8-25 MB, a few microseconds at 3.35 TB/s, so the call's fixed
 // costs (launches, the prologue, barriers) matter as much.  The design:
@@ -26,7 +27,14 @@
 //   ksplit and NT from shapes only (decode_plan), so a CUDA graph can
 //   capture the call.
 // - The ring: stage t is 32 packed rows of the strip (4 KB), one 16-byte
-//   cp.async a thread, its 16-byte chunks XOR-swizzled by row group.  Warp
+//   cp.async a thread, its 16-byte chunks XOR-swizzled by row group.
+//   Bits 3 (a 2-bit lo plane of Kp / 4 rows and a 1-bit hi plane of Kp / 8
+//   rows, code = lo + 4 * hi) takes row r (Kb = Kp / 8 rows) as lo rows r
+//   and r + Kb and hi row r, whose 8 codes a column are k = e * Kb + r
+//   (slot e: field e / 2 of lo row r + (e % 2) * Kb, bit e of hi row r):
+//   a stage is those three planes' 32 rows (12 KB, three copies a
+//   thread), so each hi byte is read once, with both lo bytes that share
+//   it, and the slots' partials lay out as bits 1's (P = 8).  Warp
 //   w takes columns 16w .. 16w+15 of every row, so warps never add into the
 //   same sums; lane (rg, cw) rows 4rg .. 4rg+3 of the stage and columns
 //   16w + 4cw .. +3: one 32-bit word of each of the 4 rows, turned into
@@ -36,6 +44,10 @@
 //   (unsigned weight bytes, signed codes; the field's factor 2^(bits * j)
 //   is shifted out, exactly, when the sum is flushed).  That is 4 shared
 //   loads, 6 byte permutes, P masks and P dp4a per 16 bytes and token row.
+//   At bits 3 each slot's 3-bit code is assembled in place (b3_slot: the
+//   lo field and the hi bit moved next to each other at bit t = min(2 *
+//   (e / 2), 4) of the byte by shifts and masks), and its factor 2^t
+//   shifted out at the flush.
 // - The partials: the 8 row groups of a warp add their sums with shuffles
 //   (integers: any order is exact) into the block's int32 partials in
 //   shared memory, K1 per (row, column) at the end, K4 per (chunk, field,
@@ -85,14 +97,15 @@ constexpr int kStageBytes = kStageRows * kStrip;  // one 16-byte copy a thread
 constexpr int kStages = 8;                        // K1's and K4's; K7 takes 6 or 8
 constexpr int kMaxSplit = 8;                      // portable cluster size
 constexpr int kSliceUnits = kStrip / 8;           // the fold's slices: 8 columns
-constexpr int kXStride = 20;  // ints a lane in K4's exchange buffer (P * 4 <= 16)
+constexpr int kXStride = 20;  // ints a lane in K4's exchange buffer (4 slots a pass)
 constexpr int kXBytes = (kThreads / 32) * 32 * kXStride * 4;
 
 struct Args {
   const int8_t* codes;   // (N, Kp), natural k order
   const float* xs;       // (N,) or (N, G)
   const float* xsum;
-  const uint8_t* packed; // (Kb, Mp)
+  const uint8_t* packed; // (Kb, Mp); at bits 3 the lo plane (2 Kb, Mp)
+  const uint8_t* packed_hi;  // bits 3: the hi plane (Kb, Mp); else null
   const void* scales;    // (1, Mp) f32 or (G, Mp) bf16
   const void* sub;
   const __nv_bfloat16* residual;  // (N, Mp) or null
@@ -117,8 +130,9 @@ __host__ __device__ inline int align16(int b) { return (b + 15) / 16 * 16; }
 struct Layout {
   int span, units, slice, codes, parts, fsc, fxs, xbuf, total;
   __host__ __device__ Layout(int P, int NT, bool grouped, int nunits,
-                             int unit_rows, int ksplit, int G, int stages = kStages) {
-    const int ring = stages * kStageBytes;
+                             int unit_rows, int ksplit, int G, int stages = kStages,
+                             int planes = 1) {
+    const int ring = stages * kStageBytes * planes;
     units = (nunits + ksplit - 1) / ksplit;
     span = (units * unit_rows + kStageRows - 1) / kStageRows * kStageRows;
     slice = (kSliceUnits + ksplit - 1) / ksplit * 8;
@@ -157,6 +171,32 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
+// The slots of a row (qgemm_kernel.decode_fields): its fields, and 8 at
+// bits 3 (two lo rows and a hi row); the planes a stage holds; and the
+// factor of slot j's in-place weights, 2^field_shift, shifted out at the
+// flush
+__host__ __device__ constexpr int fields(int bits) {
+  return bits == 8 ? 1 : bits == 3 ? 8 : 8 / bits;
+}
+__host__ __device__ constexpr int planes(int bits) { return bits == 3 ? 3 : 1; }
+template <int BITS>
+__device__ __forceinline__ constexpr int field_shift(int j) {
+  return BITS == 8 ? 0 : BITS == 3 ? (j >> 1 < 2 ? 2 * (j >> 1) : 4) : BITS * j;
+}
+
+// Bits 3, slot e of 4 columns' bytes: the code lo + 4 * hi of k = e * Kb + r
+// at bit t = min(2 * (e / 2), 4) of each byte (at most 7 << 4, an unsigned
+// byte): field e / 2 of lo (lo row r for even e, r + Kb for odd e) shifted
+// right by 2 * (e / 2) - t, and bit e of hi moved to bit t + 2; the shifts
+// that cross a byte only move bits the masks drop (qgemm_grouped_kernel.
+// decode_slot_weights is its plain model)
+__device__ __forceinline__ uint32_t b3_slot(int e, uint32_t lo1, uint32_t lo2, uint32_t hi) {
+  const int j = e >> 1, t = j < 2 ? 2 * j : 4, hs = t + 2 - e;
+  const uint32_t lo = (e & 1) ? lo2 : lo1;
+  const uint32_t h = hs >= 0 ? hi << hs : hi >> -hs;
+  return ((lo >> (2 * j - t)) & (0x03030303u << t)) | (h & (0x04040404u << t));
+}
+
 // The thread's sums into partial block `blk` of part_s (K4: chunk, field,
 // row, column, or, for a cluster of one (nchunks > 0), group j * nchunks +
 // blk, row, column: the layout the fold reads; K1: row, column), then
@@ -172,33 +212,39 @@ __device__ __forceinline__ void flush(int (&acc)[NT][P][4], int* part_s, int* xb
                                       int nchunks, int rg, int cw, int lane, int col0,
                                       int nrows) {
   if (GROUPED) {
-    // per token row n: each lane's P * 4 sums into the warp's exchange
-    // buffer (kXStride ints a lane: conflict-free 16-byte stores), then lane
-    // (rg, cw) adds values e = rg * P/2 .. +P/2 (e = j * 4 + c) over the 8
-    // lanes of column word cw and stores them
-    constexpr int E = P * 4, H = E >= 8 ? E / 8 : 1;  // (K1, P = 1, never here)
+    // per token row n and pass of PH slots: each lane's PH * 4 sums into
+    // the warp's exchange buffer (kXStride ints a lane: conflict-free
+    // 16-byte stores), then lane (rg, cw) adds values e = rg * PH/2 ..
+    // +PH/2 (e = j * 4 + c) over the 8 lanes of column word cw and stores
+    // them
+    constexpr int PH = P > 4 ? 4 : P;
+    constexpr int E = PH * 4, H = E >= 8 ? E / 8 : 1;  // (K1, P = 1, never here)
 #pragma unroll
     for (int n = 0; n < NT; ++n) {
       if (n >= nrows) break;
 #pragma unroll
-      for (int q = 0; q < E / 4; ++q)
-        *reinterpret_cast<int4*>(xbuf + lane * kXStride + 4 * q) =
-            make_int4(acc[n][q][0], acc[n][q][1], acc[n][q][2], acc[n][q][3]);
-      __syncwarp();
-      int sum[H];
+      for (int pass = 0; pass < P / PH; ++pass) {
 #pragma unroll
-      for (int i = 0; i < H; ++i) sum[i] = 0;
+        for (int q = 0; q < E / 4; ++q)
+          *reinterpret_cast<int4*>(xbuf + lane * kXStride + 4 * q) =
+              make_int4(acc[n][pass * PH + q][0], acc[n][pass * PH + q][1],
+                        acc[n][pass * PH + q][2], acc[n][pass * PH + q][3]);
+        __syncwarp();
+        int sum[H];
 #pragma unroll
-      for (int src = 0; src < 8; ++src)
+        for (int i = 0; i < H; ++i) sum[i] = 0;
 #pragma unroll
-        for (int i = 0; i < H; ++i) sum[i] += xbuf[(src * 4 + cw) * kXStride + rg * H + i];
+        for (int src = 0; src < 8; ++src)
 #pragma unroll
-      for (int i = 0; i < H; ++i) {
-        const int e = rg * H + i, j = e / 4, c = e % 4;
-        const int slot = nchunks ? j * nchunks + blk : blk * P + j;
-        part_s[(slot * NT + n) * kStrip + col0 + c] = sum[i] >> (BITS * j);
+          for (int i = 0; i < H; ++i) sum[i] += xbuf[(src * 4 + cw) * kXStride + rg * H + i];
+#pragma unroll
+        for (int i = 0; i < H; ++i) {
+          const int e = rg * H + i, j = pass * PH + e / 4, c = e % 4;
+          const int slot = nchunks ? j * nchunks + blk : blk * P + j;
+          part_s[(slot * NT + n) * kStrip + col0 + c] = sum[i] >> field_shift<BITS>(j);
+        }
+        __syncwarp();
       }
-      __syncwarp();
     }
   } else {
 #pragma unroll
@@ -221,15 +267,16 @@ __device__ __forceinline__ void flush(int (&acc)[NT][P][4], int* part_s, int* xb
       for (int c = 0; c < 4; ++c) acc[n][j][c] = 0;
 }
 
-// The kernel body.  BITS 2 or 4 (fields of unsigned codes) or 8 (signed
-// codes, one a byte); NT token rows a block; GROUPED: K4 (per-group
+// The kernel body.  BITS 1, 2 or 4 (fields of unsigned codes), 3 (a lo and
+// a hi plane) or 8 (signed codes, one a byte); NT token rows a block; GROUPED: K4 (per-group
 // partials and the fold) or K1 (one int32 sum and its epilogue); EXPERTS:
 // K7, K4 on the routed experts of a stack, one grid.z slice each; STAGES:
 // the ring's stages.
 template <int BITS, int NT, bool GROUPED, bool EXPERTS = false, int STAGES = kStages>
 __device__ __forceinline__ void decode_matmul(const Args& args) {
-  constexpr int P = BITS == 8 ? 1 : 8 / BITS;
-  constexpr uint32_t kField = BITS == 2 ? 0x03030303u : 0x0F0F0F0Fu;
+  constexpr int P = fields(BITS);
+  constexpr int kStageAll = kStageBytes * planes(BITS);  // a stage's bytes
+  constexpr uint32_t kField = BITS == 1 ? 0x01010101u : BITS == 2 ? 0x03030303u : 0x0F0F0F0Fu;
   extern __shared__ __align__(16) uint8_t smem[];
   cg::cluster_group cluster = cg::this_cluster();
   const int ksplit = (int)cluster.num_blocks();
@@ -246,7 +293,8 @@ __device__ __forceinline__ void decode_matmul(const Args& args) {
   const int u0 = rank * args.nunits / ksplit, u1 = (rank + 1) * args.nunits / ksplit;
   const int r0 = u0 * args.unit_rows, r1 = min(u1 * args.unit_rows, args.Kb);
   const int nst = (r1 - r0 + kStageRows - 1) / kStageRows;
-  const Layout L(P, NT, GROUPED, args.nunits, args.unit_rows, ksplit, args.G, STAGES);
+  const Layout L(P, NT, GROUPED, args.nunits, args.unit_rows, ksplit, args.G, STAGES,
+                 planes(BITS));
   const int s0 = slice_start(rank, ksplit), s1 = slice_start(rank + 1, ksplit);
   const int w = s1 - s0, nout = NT * w;  // the outputs this block finishes
   Args routed = args;  // K7: the routed expert's operands
@@ -286,8 +334,13 @@ __device__ __forceinline__ void decode_matmul(const Args& args) {
     // 16-byte chunk q of stage row i at chunk q ^ ((i / 4) % 8): the 8 row
     // groups a warp reads at once fall on distinct banks
     const int i = tid >> 3;
-    cp_async16(smem + slot * kStageBytes + i * kStrip + ((q ^ (i >> 2)) & 7) * 16,
-               a.packed + (size_t)(ok ? r : r0) * a.Mp + m0 + q * 16, ok);
+    const size_t src = (size_t)(ok ? r : r0) * a.Mp + m0 + q * 16;
+    uint8_t* dst = smem + slot * kStageAll + i * kStrip + ((q ^ (i >> 2)) & 7) * 16;
+    cp_async16(dst, a.packed + src, ok);
+    if (BITS == 3) {  // lo row r + Kb, then hi row r
+      cp_async16(dst + kStageBytes, a.packed + src + (size_t)a.Kb * a.Mp, ok);
+      cp_async16(dst + 2 * kStageBytes, a.packed_hi + src, ok);
+    }
   };
 
   // before the prologue's results exist: the weights (and the fold's
@@ -380,7 +433,7 @@ __device__ __forceinline__ void decode_matmul(const Args& args) {
       __syncthreads();
       if (t + STAGES - 1 < nst) load_stage(t + STAGES - 1, (t + STAGES - 1) % STAGES);
       cp_async_commit();
-      const uint8_t* st = smem + (t % STAGES) * kStageBytes + 4 * rg * kStrip +
+      const uint8_t* st = smem + (t % STAGES) * kStageAll + 4 * rg * kStrip +
                           ((warp ^ rg) & 7) * 16 + 4 * cw;
       uint32_t col[4];
       transpose4(*reinterpret_cast<const uint32_t*>(st),
@@ -388,17 +441,43 @@ __device__ __forceinline__ void decode_matmul(const Args& args) {
                  *reinterpret_cast<const uint32_t*>(st + 2 * kStrip),
                  *reinterpret_cast<const uint32_t*>(st + 3 * kStrip), col);
       const int rl = t * kStageRows + 4 * rg;
+      if constexpr (BITS == 3) {
+        uint32_t col2[4], colh[4];
+        const uint8_t* s2 = st + kStageBytes;
+        const uint8_t* sh = st + 2 * kStageBytes;
+        transpose4(*reinterpret_cast<const uint32_t*>(s2),
+                   *reinterpret_cast<const uint32_t*>(s2 + kStrip),
+                   *reinterpret_cast<const uint32_t*>(s2 + 2 * kStrip),
+                   *reinterpret_cast<const uint32_t*>(s2 + 3 * kStrip), col2);
+        transpose4(*reinterpret_cast<const uint32_t*>(sh),
+                   *reinterpret_cast<const uint32_t*>(sh + kStrip),
+                   *reinterpret_cast<const uint32_t*>(sh + 2 * kStrip),
+                   *reinterpret_cast<const uint32_t*>(sh + 3 * kStrip), colh);
 #pragma unroll
-      for (int j = 0; j < P; ++j) {
+        for (int e = 0; e < P; ++e) {
+          uint32_t w[4];
 #pragma unroll
-        for (int n = 0; n < NT; ++n) {
-          const int xv = *reinterpret_cast<const int*>(codes_s + (n * P + j) * L.span + rl);
+          for (int c = 0; c < 4; ++c) w[c] = b3_slot(e, col[c], col2[c], colh[c]);
 #pragma unroll
-          for (int c = 0; c < 4; ++c) {
-            if (BITS == 8)
-              acc[n][j][c] = __dp4a((int)col[c], xv, acc[n][j][c]);
-            else
-              acc[n][j][c] = dp4a_us(col[c] & (kField << (BITS * j)), xv, acc[n][j][c]);
+          for (int n = 0; n < NT; ++n) {
+            const int xv = *reinterpret_cast<const int*>(codes_s + (n * P + e) * L.span + rl);
+#pragma unroll
+            for (int c = 0; c < 4; ++c) acc[n][e][c] = dp4a_us(w[c], xv, acc[n][e][c]);
+          }
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < P; ++j) {
+#pragma unroll
+          for (int n = 0; n < NT; ++n) {
+            const int xv = *reinterpret_cast<const int*>(codes_s + (n * P + j) * L.span + rl);
+#pragma unroll
+            for (int c = 0; c < 4; ++c) {
+              if (BITS == 8)
+                acc[n][j][c] = __dp4a((int)col[c], xv, acc[n][j][c]);
+              else
+                acc[n][j][c] = dp4a_us(col[c] & (kField << (BITS * j)), xv, acc[n][j][c]);
+            }
           }
         }
       }

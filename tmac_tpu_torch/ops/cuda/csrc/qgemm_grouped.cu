@@ -23,8 +23,14 @@
 // for g = 2, 3, ...; z = fma(xsum_g, sub_g, z) from z = 0 in g order;
 // out = acc - z (+ residual), every step rounded on its own.
 //
-// What bounds it: at decode (N = 1) each packed weight byte feeds 4
-// (bits 2) or 2 (bits 4) multiply-adds, far below the card's
+// Bits 1 to 4; bits 3 is a 2-bit lo plane (Kp / 4 rows) and a 1-bit hi
+// plane (Kp / 8 rows), code = lo + 4 * hi (ops/packing.py).  Kp is a
+// multiple of gs * 8 at bits 1 and 3 (the packing's padding), so the
+// reference's fold chunk is the group, which these kernels require.
+//
+// What bounds it: at decode (N = 1) each packed weight byte feeds 8
+// (bits 1), 4 (bits 2), 8/3 (bits 3) or 2 (bits 4) multiply-adds, far
+// below the card's
 // operations-per-byte balance, so device-memory bytes bound it, and at a
 // few microseconds a call its fixed costs as much.  Two launches a call:
 //   1. the prologue, one block per row (blocks share nothing, so the TPU
@@ -67,7 +73,10 @@
 //     packed rows; Kb is a multiple of gs, so a step never straddles a
 //     field), and so the groups g = j * nchunks + c come in g order, the
 //     order of the f32 chain (each packed chunk is read p times, once per
-//     field, from L2);
+//     field, from L2).  Bits 3 adds a second B tile a stage, the hi plane's
+//     KT rows (k % (Kp / 8) ..), whose bit k / (Kp / 8) is put at bit 2 of
+//     each lo field's byte, and takes KT = 32 where two blocks of KT = 64
+//     would not fit an SM's shared memory (K = 14336 at g128);
 //   - B fragments: a thread reads one 32-bit word (4 adjacent columns) of
 //     4 consecutive packed rows, turns them into per-column words with
 //     byte permutes (tmac::transpose4) and masks out field j: 4
@@ -104,6 +113,9 @@ namespace {
 
 constexpr int kQuantThreads = 512;
 
+// LONG: a row past 32 values a thread (act_prologue.cuh), read an element a
+// load
+template <bool LONG>
 __global__ void __launch_bounds__(kQuantThreads) act_quant_grouped_kernel(
     const __nv_bfloat16* __restrict__ x, int x_cols, int K, int Kp, int gs,
     int glu, const __nv_bfloat16* __restrict__ norm_w, float eps,
@@ -114,10 +126,11 @@ __global__ void __launch_bounds__(kQuantThreads) act_quant_grouped_kernel(
   tmac::pdl_wait();
   tmac::pdl_trigger();
   extern __shared__ __align__(16) float vals[];  // the row, staged (act_prologue.cuh)
-  __shared__ float scratch[tmac::staged_floats(kQuantThreads)];
+  __shared__ float scratch[tmac::staged_floats(LONG ? tmac::kMaxWindows : kQuantThreads)];
   const int n = blockIdx.x;
   tmac::stage_row(x + (size_t)n * x_cols, K, Kp, glu, vec, vals);
-  if (norm_w != nullptr) tmac::norm_row(vals, K, Kp, norm_w, eps, inv_norm_k, vec, scratch);
+  if (norm_w != nullptr)
+    tmac::norm_row<LONG>(vals, K, Kp, norm_w, eps, inv_norm_k, vec, scratch);
 
   // one warp per group at a time: absmax, codes, code sum
   const int G = Kp / gs;
@@ -128,26 +141,32 @@ __global__ void __launch_bounds__(kQuantThreads) act_quant_grouped_kernel(
                            xs + (size_t)n * G + g, xsum + (size_t)n * G + g);
 }
 
+// the ring's stages: bits 3's stage is three planes of 32 rows (12 KB)
+template <int BITS>
+__host__ __device__ constexpr int k4_stages() { return BITS == 3 ? 3 : tmac::decode::kStages; }
+
 template <int BITS, int NT>
 __global__ void __launch_bounds__(tmac::decode::kThreads, 2)
     k4_decode_kernel(const tmac::decode::Args a) {
-  tmac::decode::decode_matmul<BITS, NT, true>(a);
+  tmac::decode::decode_matmul<BITS, NT, true, false, k4_stages<BITS>()>(a);
 }
+
+// NT: 1 token row a block, or k4_nt<BITS>() (4; 2 at 8 slots a row, bits 1
+// and 3, whose int32 sums take 32 registers a token row)
+template <int BITS>
+constexpr int k4_nt() { return tmac::decode::fields(BITS) == 8 ? 2 : 4; }
 
 template <int BITS>
 int launch_decode(const tmac::decode::Args& a, int ksplit, int nt,
                   cudaStream_t stream) {
-  constexpr int P = 8 / BITS;
-  switch (nt) {
-    case 1: {
-      const tmac::decode::Layout L(P, 1, true, a.nunits, a.unit_rows, ksplit, a.G);
-      return tmac::decode::launch(k4_decode_kernel<BITS, 1>, a, ksplit, 1, L.total, stream);
-    }
-    default: {
-      const tmac::decode::Layout L(P, 4, true, a.nunits, a.unit_rows, ksplit, a.G);
-      return tmac::decode::launch(k4_decode_kernel<BITS, 4>, a, ksplit, 4, L.total, stream);
-    }
+  constexpr int P = tmac::decode::fields(BITS), S = k4_stages<BITS>();
+  constexpr int W = tmac::decode::planes(BITS), NT = k4_nt<BITS>();
+  if (nt == 1) {
+    const tmac::decode::Layout L(P, 1, true, a.nunits, a.unit_rows, ksplit, a.G, S, W);
+    return tmac::decode::launch(k4_decode_kernel<BITS, 1>, a, ksplit, 1, L.total, stream);
   }
+  const tmac::decode::Layout L(P, NT, true, a.nunits, a.unit_rows, ksplit, a.G, S, W);
+  return tmac::decode::launch(k4_decode_kernel<BITS, NT>, a, ksplit, NT, L.total, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -159,13 +178,14 @@ constexpr int kLBM = 128;       // output columns of a block
 constexpr int kLThreads = 128;  // 4 warps of 64 rows x 32 columns
 constexpr int kLStages = 4;
 
-// KT codes (and packed rows) a depth step
-template <int KT>
+// KT codes (and packed rows) a depth step; at bits 3 a second B tile, of
+// KT hi plane rows, follows the lo plane's
+template <int KT, int BITS>
 struct K4LTile {
   static constexpr int kAStride = KT + 16;  // bytes a codes row: conflict-free fragment reads
   static constexpr int kABytes = kLBN * kAStride;
   static constexpr int kBBytes = KT * kLBM;  // KT packed rows of 128 swizzled bytes
-  static constexpr int kStage = kABytes + kBBytes;
+  static constexpr int kStage = kABytes + kBBytes * (BITS == 3 ? 2 : 1);
   static constexpr int kSmem = kLStages * kStage;
 };
 
@@ -223,19 +243,21 @@ template <int BITS, int KT>
 __global__ void __launch_bounds__(kLThreads) group_mma_kernel(
     const int8_t* __restrict__ codes, const float* __restrict__ xs,
     const float* __restrict__ xsum, int N, int Kp, int gs,
-    const uint8_t* __restrict__ packed, int Mp,
+    const uint8_t* __restrict__ packed, const uint8_t* __restrict__ packed_hi, int Mp,
     const __nv_bfloat16* __restrict__ scales,
     const __nv_bfloat16* __restrict__ sub,
     const __nv_bfloat16* __restrict__ residual, float* __restrict__ out) {
-  using T = K4LTile<KT>;
-  constexpr int P = 8 / BITS;
-  constexpr uint32_t kMask = BITS == 2 ? 0x03030303u : 0x0F0F0F0Fu;
+  using T = K4LTile<KT, BITS>;
+  constexpr int P = BITS == 3 ? 4 : 8 / BITS;  // fields of a (lo plane) byte
+  constexpr uint32_t kMask =
+      BITS == 1 ? 0x01010101u : BITS == 4 ? 0x0F0F0F0Fu : 0x03030303u;
   extern __shared__ __align__(16) uint8_t smem[];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int gq = lane >> 2, tq = lane & 3;
   const int wn = warp * 32;
   const int m0 = blockIdx.x * kLBM, n0 = blockIdx.y * kLBN;
   const int Kb = Kp / P, G = Kp / gs, steps_g = gs / KT, ntiles = Kp / KT;
+  const int Kh = Kp / 8;  // bits 3: hi plane rows; bit k / Kh of row k % Kh
 
   auto load = [&](int t, int slot) {
     uint8_t* As = smem + slot * T::kStage;
@@ -251,6 +273,9 @@ __global__ void __launch_bounds__(kLThreads) group_mma_kernel(
       const int r = i >> 3, q = i & 7;
       cp_async16(Bs + r * kLBM + b_chunk(r, q) * 16,
                  packed + (size_t)(rbase + r) * Mp + m0 + q * 16, true);
+      if (BITS == 3)  // the hi plane's rows of the same k, the same layout
+        cp_async16(Bs + T::kBBytes + r * kLBM + b_chunk(r, q) * 16,
+                   packed_hi + (size_t)((t * KT) % Kh + r) * Mp + m0 + q * 16, true);
     }
   };
 
@@ -272,7 +297,8 @@ __global__ void __launch_bounds__(kLThreads) group_mma_kernel(
     cp_async_commit();
     const uint8_t* As = smem + (t % kLStages) * T::kStage;
     const uint8_t* Bs = As + T::kABytes;
-    const int shift = BITS * ((t * KT) / Kb);  // field j of the packed bytes
+    const int shift = (BITS == 3 ? 2 : BITS) * ((t * KT) / Kb);  // field j of the packed bytes
+    const int hbit = (t * KT) / Kh;  // bits 3: the hi plane's bit
 #pragma unroll
     for (int ks = 0; ks < KT / 32; ++ks) {
       // A: one ldmatrix.x4 a m16 tile (its four 8 x 16-byte blocks are the
@@ -297,6 +323,16 @@ __global__ void __launch_bounds__(kLThreads) group_mma_kernel(
         tmac::transpose4(w[0], w[1], w[2], w[3], col);
 #pragma unroll
         for (int c = 0; c < 4; ++c) b[h][c] = (col[c] >> shift) & kMask;
+        if (BITS == 3) {  // + 4 * the hi bit: the 3-bit codes
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            w[i] = *reinterpret_cast<const uint32_t*>(Bs + T::kBBytes + (r + i) * kLBM +
+                                                      b_chunk(r + i, word >> 2) * 16 +
+                                                      (word & 3) * 4);
+          tmac::transpose4(w[0], w[1], w[2], w[3], col);
+#pragma unroll
+          for (int c = 0; c < 4; ++c) b[h][c] |= ((col[c] >> hbit) & 0x01010101u) << 2;
+        }
       }
 #pragma unroll
       for (int mt = 0; mt < 4; ++mt)
@@ -435,35 +471,44 @@ __global__ void __launch_bounds__(kLThreads) group_mma_kernel(
     }
 }
 
+// the ring, then the staged per-group factors (65 rows f32 + 128 columns
+// bf16 a group)
+template <int BITS, int KT>
+int k4l_smem(int G) { return K4LTile<KT, BITS>::kSmem + G * (65 * 4 + kLBM * 2); }
+
 template <int BITS, int KT>
 int launch_group_mma(const int8_t* codes, const float* xs, const float* xsum,
-                     int N, int Kp, int gs, const uint8_t* packed, int Mp,
+                     int N, int Kp, int gs, const uint8_t* packed,
+                     const uint8_t* packed_hi, int Mp,
                      const __nv_bfloat16* scales, const __nv_bfloat16* sub,
                      const __nv_bfloat16* residual, float* out,
                      cudaStream_t stream) {
   auto kernel = group_mma_kernel<BITS, KT>;
-  // the ring, then the staged per-group factors (65 rows f32 + 128 columns
-  // bf16 a group)
-  const int smem = K4LTile<KT>::kSmem + (Kp / gs) * (65 * 4 + kLBM * 2);
+  const int smem = k4l_smem<BITS, KT>(Kp / gs);
   const cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(Mp / kLBM, (N + kLBN - 1) / kLBN);
-  kernel<<<grid, kLThreads, smem, stream>>>(codes, xs, xsum, N, Kp, gs, packed, Mp,
-                                         scales, sub, residual, out);
+  kernel<<<grid, kLThreads, smem, stream>>>(codes, xs, xsum, N, Kp, gs, packed, packed_hi,
+                                         Mp, scales, sub, residual, out);
   return (int)cudaGetLastError();
 }
 
+// KT = 64 where gs allows, but at bits 3 (two B tiles a stage) only where
+// two blocks still fit an SM's shared memory (else 32: K = 14336 at g128)
+constexpr int kTwoBlockSmem = 113 * 1024;
+
 template <int BITS>
 int launch_group_mma_kt(const int8_t* codes, const float* xs, const float* xsum,
-                        int N, int Kp, int gs, const uint8_t* packed, int Mp,
+                        int N, int Kp, int gs, const uint8_t* packed,
+                        const uint8_t* packed_hi, int Mp,
                         const __nv_bfloat16* scales, const __nv_bfloat16* sub,
                         const __nv_bfloat16* residual, float* out,
                         cudaStream_t stream) {
-  if (gs % 64 == 0)
-    return launch_group_mma<BITS, 64>(codes, xs, xsum, N, Kp, gs, packed, Mp,
+  if (gs % 64 == 0 && (BITS != 3 || k4l_smem<BITS, 64>(Kp / gs) <= kTwoBlockSmem))
+    return launch_group_mma<BITS, 64>(codes, xs, xsum, N, Kp, gs, packed, packed_hi, Mp,
                                           scales, sub, residual, out, stream);
-  return launch_group_mma<BITS, 32>(codes, xs, xsum, N, Kp, gs, packed, Mp,
+  return launch_group_mma<BITS, 32>(codes, xs, xsum, N, Kp, gs, packed, packed_hi, Mp,
                                         scales, sub, residual, out, stream);
 }
 
@@ -477,78 +522,96 @@ extern "C" int tmac_act_quant_grouped(const void* x, int N, int x_cols, int K,
                                       const void* norm_w, float eps,
                                       float inv_norm_k, void* codes,
                                       float* xs, float* xsum, void* stream) {
-  if (N <= 0 || gs <= 0 || Kp % gs != 0 ||
-      Kp > tmac::kSumWindow * kQuantThreads)
+  if (N <= 0 || gs <= 0 || Kp % gs != 0 || Kp > tmac::kMaxRowK)
     return (int)cudaErrorInvalidValue;
+  const bool long_row = Kp > tmac::kSumWindow * kQuantThreads;
+  auto kernel = long_row ? &act_quant_grouped_kernel<true> : &act_quant_grouped_kernel<false>;
   const int smem = tmac::staged_floats(Kp) * 4;
-  const cudaError_t err = cudaFuncSetAttribute(
-      act_quant_grouped_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   return tmac::decode::launch_programmatic(
-      act_quant_grouped_kernel, dim3(N), dim3(kQuantThreads), smem, (cudaStream_t)stream,
+      kernel, dim3(N), dim3(kQuantThreads), smem, (cudaStream_t)stream,
       static_cast<const __nv_bfloat16*>(x), x_cols, K, Kp, gs, glu,
       static_cast<const __nv_bfloat16*>(norm_w), eps, inv_norm_k,
-      tmac::row_loads_vec(x, x_cols, K, norm_w), static_cast<int8_t*>(codes), xs, xsum);
+      long_row ? 0 : tmac::row_loads_vec(x, x_cols, K, norm_w), static_cast<int8_t*>(codes),
+      xs, xsum);
 }
 
 // K4's matmul: codes (N, Kp) int8 in natural order, xs and xsum (N, G) f32
-// from the prologue, packed (Kp * bits / 8, Mp) uint8, scales and sub
-// (G, Mp) bf16, residual (N, Mp) bf16 or null -> out (N, Mp) f32, the fold
-// on chip.  1 <= N < 64; bits 2 or 4; gs a multiple of 32; Kp a multiple
-// of gs * 8 / bits; Mp of 128; G >= 2; a cluster of ksplit (1-8) blocks
-// along K, nt (1 or 4) token rows a block.  Launched programmatically after
+// from the prologue, packed (Kp * bits / 8, Mp) uint8 (bits 3: the lo plane
+// (Kp / 4, Mp) and packed_hi, the hi plane (Kp / 8, Mp); else packed_hi
+// null), scales and sub (G, Mp) bf16, residual (N, Mp) bf16 or null -> out
+// (N, Mp) f32, the fold on chip.  1 <= N < 64; bits 1 to 4; gs a multiple
+// of 32; Kp a multiple of gs * P (P = 8 at bits 1 and 3, 8 / bits else);
+// Mp of 128; G >= 2; a cluster of ksplit (1-8) blocks along K, nt (1, or 4;
+// 2 at bits 1 and 3) token rows a block.  Launched programmatically after
 // the prologue.  Returns the CUDA error (cudaErrorInvalidConfiguration for
 // a cluster the card cannot place).
 extern "C" int tmac_decode_group_gemm(const void* codes, const float* xs,
                                       const float* xsum, int N, int Kp, int gs,
-                                      int bits, const void* packed, int Mp,
-                                      const void* scales, const void* sub,
+                                      int bits, const void* packed, const void* packed_hi,
+                                      int Mp, const void* scales, const void* sub,
                                       const void* residual, float* out,
                                       int ksplit, int nt, void* stream) {
+  if (bits < 1 || bits > 4) return (int)cudaErrorInvalidValue;
+  const int P = tmac::decode::fields(bits), nt_max = P == 8 ? 2 : 4;
   if (N <= 0 || N >= 64 || gs <= 0 || gs % 32 != 0 ||
-      Mp % tmac::decode::kStrip != 0 || (bits != 2 && bits != 4) ||
-      Kp % (gs * (8 / bits)) != 0 || Kp / gs < 2 || ksplit < 1 ||
-      ksplit > tmac::decode::kMaxSplit || (nt != 1 && nt != 4))
+      Mp % tmac::decode::kStrip != 0 || (bits == 3) != (packed_hi != nullptr) ||
+      Kp % (gs * P) != 0 || Kp / gs < 2 || ksplit < 1 ||
+      ksplit > tmac::decode::kMaxSplit || (nt != 1 && nt != nt_max))
     return (int)cudaErrorInvalidValue;
   tmac::decode::Args a{};
   a.codes = static_cast<const int8_t*>(codes);
   a.xs = xs;
   a.xsum = xsum;
   a.packed = static_cast<const uint8_t*>(packed);
+  a.packed_hi = static_cast<const uint8_t*>(packed_hi);
   a.scales = scales;
   a.sub = sub;
   a.residual = static_cast<const __nv_bfloat16*>(residual);
   a.out = out;
   a.N = N;
   a.Kp = Kp;
-  a.Kb = Kp / (8 / bits);
+  a.Kb = Kp / P;
   a.Mp = Mp;
   a.G = Kp / gs;
   a.unit_rows = gs;
   a.nunits = a.Kb / gs;
   cudaStream_t s = (cudaStream_t)stream;
-  return bits == 2 ? launch_decode<2>(a, ksplit, nt, s) : launch_decode<4>(a, ksplit, nt, s);
+  switch (bits) {
+    case 1: return launch_decode<1>(a, ksplit, nt, s);
+    case 2: return launch_decode<2>(a, ksplit, nt, s);
+    case 3: return launch_decode<3>(a, ksplit, nt, s);
+    default: return launch_decode<4>(a, ksplit, nt, s);
+  }
 }
 
 // K4L: codes (N, Kp) int8, xs and xsum (N, G) f32 from the prologue, packed
-// (Kp * bits / 8, Mp) uint8, scales and sub (G, Mp) bf16, residual (N, Mp)
-// bf16 or null -> out (N, Mp) f32, the fold in registers.  bits 2 or 4; gs
-// a multiple of 32; Kp a multiple of gs * 8 / bits; Mp of 128; G >= 2.
+// (Kp * bits / 8, Mp) uint8 (bits 3: the lo plane and packed_hi, as K4's),
+// scales and sub (G, Mp) bf16, residual (N, Mp) bf16 or null -> out (N, Mp)
+// f32, the fold in registers.  bits 1 to 4; gs a multiple of 32; Kp a
+// multiple of gs * 8 / bits (gs * 8 at bits 3); Mp of 128; G >= 2.
 extern "C" int tmac_group_gemm(const void* codes, const float* xs,
                                const float* xsum, int N, int Kp, int gs,
-                               int bits, const void* packed, int Mp,
-                               const void* scales, const void* sub,
+                               int bits, const void* packed, const void* packed_hi,
+                               int Mp, const void* scales, const void* sub,
                                const void* residual, float* out, void* stream) {
-  if (N <= 0 || gs <= 0 || gs % 32 != 0 || Mp % kLBM != 0 ||
-      (bits != 2 && bits != 4) || Kp % (gs * (8 / bits)) != 0 || Kp / gs < 2)
+  if (N <= 0 || gs <= 0 || gs % 32 != 0 || Mp % kLBM != 0 || bits < 1 || bits > 4 ||
+      (bits == 3) != (packed_hi != nullptr) ||
+      Kp % (gs * tmac::decode::fields(bits)) != 0 || Kp / gs < 2)
     return (int)cudaErrorInvalidValue;
   const int8_t* c = static_cast<const int8_t*>(codes);
   const uint8_t* pk = static_cast<const uint8_t*>(packed);
+  const uint8_t* ph = static_cast<const uint8_t*>(packed_hi);
   const __nv_bfloat16* sc = static_cast<const __nv_bfloat16*>(scales);
   const __nv_bfloat16* sb = static_cast<const __nv_bfloat16*>(sub);
   const __nv_bfloat16* res = static_cast<const __nv_bfloat16*>(residual);
   cudaStream_t s = (cudaStream_t)stream;
-  if (bits == 2)
-    return launch_group_mma_kt<2>(c, xs, xsum, N, Kp, gs, pk, Mp, sc, sb, res, out, s);
-  return launch_group_mma_kt<4>(c, xs, xsum, N, Kp, gs, pk, Mp, sc, sb, res, out, s);
+  switch (bits) {
+    case 1: return launch_group_mma_kt<1>(c, xs, xsum, N, Kp, gs, pk, ph, Mp, sc, sb, res, out, s);
+    case 2: return launch_group_mma_kt<2>(c, xs, xsum, N, Kp, gs, pk, ph, Mp, sc, sb, res, out, s);
+    case 3: return launch_group_mma_kt<3>(c, xs, xsum, N, Kp, gs, pk, ph, Mp, sc, sb, res, out, s);
+    default: return launch_group_mma_kt<4>(c, xs, xsum, N, Kp, gs, pk, ph, Mp, sc, sb, res, out, s);
+  }
 }

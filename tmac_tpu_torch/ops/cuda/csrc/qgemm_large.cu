@@ -13,7 +13,7 @@
 // which is the f32 epilogue XLA compiles the reference's to.  Integer sums
 // are exact in any order, so K3 equals its plain version bit for bit.
 //
-// K5 (dequant_dot=True: grouped scales, bits 2 or 4; the reference takes
+// K5 (dequant_dot=True: grouped scales, bits 1 to 4; the reference takes
 // it when N >= 3 * group_size, or with dispatch "dequant") computes
 //   xa = bf16(prologue values): SwiGLU or rms_norm as K4's prologue, with
 //        no quantization (one small kernel, one block per row, writes xa)
@@ -799,17 +799,19 @@ constexpr int k5BBytes = 64 * k5BM * 2;     // 64 k x 128 columns bf16
 constexpr int k5Stage = k5ABytes + k5BBytes;
 constexpr int k5Smem = k5Stages * k5Stage + 1024 + 2 * k5Stages * 8;  // + alignment, barriers
 
-// xa (N, Kp) bf16: the prologue values rounded to bf16, one block a row.
+// xa (N, Kp) bf16: the prologue values rounded to bf16, one block a row
+// (LONG: a row past 32 values a thread, act_prologue.cuh).
+template <bool LONG>
 __global__ void __launch_bounds__(kPrologueThreads) act_bf16_kernel(
     const __nv_bfloat16* __restrict__ x, int x_cols, int K, int Kp, int glu,
     const __nv_bfloat16* __restrict__ norm_w, float eps, float inv_norm_k,
     __nv_bfloat16* __restrict__ xa) {
-  __shared__ float scratch[kPrologueThreads];
+  __shared__ float scratch[LONG ? tmac::kMaxWindows : kPrologueThreads];
   const int n = blockIdx.x;
   const __nv_bfloat16* xr = x + (size_t)n * x_cols;
   float rs = 1.f;
   if (norm_w != nullptr)
-    rs = tmac::rms_factor(tmac::sumsq_xla_order(xr, K, Kp, glu, scratch),
+    rs = tmac::rms_factor(tmac::sumsq_xla_order<LONG>(xr, K, Kp, glu, scratch),
                           inv_norm_k, eps);
   for (int k = threadIdx.x; k < Kp; k += blockDim.x)
     xa[(size_t)n * Kp + k] =
@@ -825,15 +827,20 @@ __global__ void __launch_bounds__(kPrologueThreads) act_bf16_kernel(
 // of step t runs, each thread dequantizes its k5Chunks chunks of 8 columns
 // (packed rows rlo + (k5Threads / 16) i) of step t + 2, into the stage the
 // wgmma of step t - 2 read.
+// Bits 3: packed is the 2-bit lo plane (Kp / 4 rows) and packed_hi the
+// 1-bit hi plane (Kh = Kp / 8 rows), code = lo + 4 * hi; lo row r holds k
+// = j * Kb + r in field j, whose hi bit is bit 2 j + (r >= Kh) of hi row
+// r % Kh.  A depth block of 64 lo rows (Kh a multiple of 64) thus reads 64
+// hi rows at one offset, loaded with its lo bytes.
 template <int BITS>
 __global__ void __launch_bounds__(k5Threads, 1) dequant_wgmma_kernel(
     const __grid_constant__ CUtensorMap xa_map, int N, int Kp, int gs,
-    const uint8_t* __restrict__ packed, int Mp,
+    const uint8_t* __restrict__ packed, const uint8_t* __restrict__ packed_hi, int Mp,
     const __nv_bfloat16* __restrict__ scales,
     const __nv_bfloat16* __restrict__ sub,
     const __nv_bfloat16* __restrict__ residual, float* __restrict__ out) {
-  constexpr int P = 8 / BITS;
-  constexpr uint32_t kMask = (1u << BITS) - 1;
+  constexpr int P = BITS == 3 ? 4 : 8 / BITS;  // fields of a (lo plane) byte
+  constexpr uint32_t kMask = BITS == 3 ? 3u : (1u << BITS) - 1;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~(uintptr_t)1023);
@@ -841,7 +848,7 @@ __global__ void __launch_bounds__(k5Threads, 1) dequant_wgmma_kernel(
   uint64_t* empty = full + k5Stages;
   const int tid = threadIdx.x, wg = tid >> 7;
   const int m0 = blockIdx.x * k5BM, n0 = blockIdx.y * k5BN;
-  const int Kb = Kp / P, nsteps = Kp / 64;
+  const int Kb = Kp / P, nsteps = Kp / 64, Kh = Kp / 8;
   const int q = tid & 15, rlo = tid >> 4;  // rows rlo + (k5Threads / 16) i
   const size_t col = (size_t)m0 + 8 * q;
 
@@ -858,12 +865,16 @@ __global__ void __launch_bounds__(k5Threads, 1) dequant_wgmma_kernel(
   // device memory: the packed bytes of depth block rb at the first step of
   // block rb - 1 (p steps ahead), the scale and sub rows two steps ahead.
   uint2 pk[k5Chunks], pk_next[k5Chunks];
+  uint2 ph[BITS == 3 ? k5Chunks : 1], ph_next[BITS == 3 ? k5Chunks : 1];  // bits 3: hi rows
   uint4 sv[2], zv[2];  // [0]: the next step to dequantize, [1]: the one after
-  auto load_packed = [&](int rb, uint2 (&dst)[k5Chunks]) {
+  auto load_packed = [&](int rb, uint2 (&dst)[k5Chunks], uint2 (&dst_hi)[BITS == 3 ? k5Chunks : 1]) {
 #pragma unroll
-    for (int i = 0; i < k5Chunks; ++i)
-      dst[i] = __ldg(reinterpret_cast<const uint2*>(
-          packed + (size_t)(rb * 64 + rlo + (k5Threads / 16) * i) * Mp + col));
+    for (int i = 0; i < k5Chunks; ++i) {
+      const int r = rb * 64 + rlo + (k5Threads / 16) * i;
+      dst[i] = __ldg(reinterpret_cast<const uint2*>(packed + (size_t)r * Mp + col));
+      if constexpr (BITS == 3)
+        dst_hi[i] = __ldg(reinterpret_cast<const uint2*>(packed_hi + (size_t)(r % Kh) * Mp + col));
+    }
   };
   auto load_scales = [&](int step, uint4& s4, uint4& z4) {
     const int g = ((step % P) * Kb + (step / P) * 64 + rlo) / gs;
@@ -892,8 +903,11 @@ __global__ void __launch_bounds__(k5Threads, 1) dequant_wgmma_kernel(
     };
     if (j == 0 && step > 0) {
 #pragma unroll
-      for (int i = 0; i < k5Chunks; ++i) pk[i] = pk_next[i];
-      if (step / P + 1 < Kb / 64) load_packed(step / P + 1, pk_next);
+      for (int i = 0; i < k5Chunks; ++i) {
+        pk[i] = pk_next[i];
+        if constexpr (BITS == 3) ph[i] = ph_next[i];
+      }
+      if (step / P + 1 < Kb / 64) load_packed(step / P + 1, pk_next, ph_next);
     }
     convert(sv[0], zv[0]);
     sv[0] = sv[1];
@@ -909,15 +923,27 @@ __global__ void __launch_bounds__(k5Threads, 1) dequant_wgmma_kernel(
         convert(__ldg(reinterpret_cast<const uint4*>(scales + (size_t)g * Mp + col)),
                 __ldg(reinterpret_cast<const uint4*>(sub + (size_t)g * Mp + col)));
       }
-      // field j of the 8 columns' bytes at bit 8 e
-      const uint32_t lo = pk[i].x >> (BITS * j), hi = pk[i].y >> (BITS * j);
+      // field j of the 8 columns' bytes at bit 8 e (bits 3: and the hi bit)
+      const int shift = (BITS == 3 ? 2 : BITS) * j;
+      const uint32_t lo = pk[i].x >> shift, hi = pk[i].y >> shift;
+      uint32_t hlo = 0, hhi = 0;  // bits 3: 4 * the hi bits, at bit 2 of each byte
+      if constexpr (BITS == 3) {
+        const int hbit = 2 * j + (r0 >= Kh);
+        hlo = ((ph[i].x >> hbit) & 0x01010101u) << 2;
+        hhi = ((ph[i].y >> hbit) & 0x01010101u) << 2;
+      }
       uint32_t w[4];
 #pragma unroll
       for (int e = 0; e < 8; e += 2) {
         float v[2];
 #pragma unroll
         for (int u = 0; u < 2; ++u) {
-          const uint32_t code = (((e + u) < 4 ? lo : hi) >> (8 * ((e + u) & 3))) & kMask;
+          uint32_t code;
+          if constexpr (BITS == 3)
+            code = ((((e + u) < 4 ? lo : hi) & 0x03030303u) | ((e + u) < 4 ? hlo : hhi)) >>
+                       (8 * ((e + u) & 3)) & 0xFFu;
+          else
+            code = (((e + u) < 4 ? lo : hi) >> (8 * ((e + u) & 3))) & kMask;
           // 2^23 + code, less 2^23: the code as a float, exactly, without
           // the quarter-rate int-to-float conversion; code * scale is
           // exact, so the fma is the reference's one rounding
@@ -941,8 +967,8 @@ __global__ void __launch_bounds__(k5Threads, 1) dequant_wgmma_kernel(
 #pragma unroll
     for (int e = 0; e < 64; ++e) acc[i][e] = 0.f;
   const int row0 = wg * 64 * k5MT;
-  load_packed(0, pk);
-  if (Kb / 64 > 1) load_packed(1, pk_next);
+  load_packed(0, pk, ph);
+  if (Kb / 64 > 1) load_packed(1, pk_next, ph_next);
   load_scales(0, sv[0], zv[0]);
   if (nsteps > 1) load_scales(1, sv[1], zv[1]);
   produce(0);
@@ -993,16 +1019,16 @@ __global__ void __launch_bounds__(k5Threads, 1) dequant_wgmma_kernel(
 
 template <int BITS>
 int launch_dequant_wgmma(const CUtensorMap& map, int N, int Kp, int gs,
-                         const uint8_t* packed, int Mp, const __nv_bfloat16* scales,
-                         const __nv_bfloat16* sub, const __nv_bfloat16* residual,
-                         float* out, cudaStream_t stream) {
+                         const uint8_t* packed, const uint8_t* packed_hi, int Mp,
+                         const __nv_bfloat16* scales, const __nv_bfloat16* sub,
+                         const __nv_bfloat16* residual, float* out, cudaStream_t stream) {
   auto kernel = dequant_wgmma_kernel<BITS>;
   const cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, k5Smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(Mp / k5BM, (N + k5BN - 1) / k5BN);
-  kernel<<<grid, k5Threads, k5Smem, stream>>>(map, N, Kp, gs, packed, Mp, scales, sub,
-                                              residual, out);
+  kernel<<<grid, k5Threads, k5Smem, stream>>>(map, N, Kp, gs, packed, packed_hi, Mp, scales,
+                                              sub, residual, out);
   return (int)cudaGetLastError();
 }
 
@@ -1063,27 +1089,31 @@ extern "C" int tmac_large_int_wgmma(const void* codes, const float* xs,
 extern "C" int tmac_act_bf16(const void* x, int N, int x_cols, int K, int Kp,
                              int glu, const void* norm_w, float eps,
                              float inv_norm_k, void* xa, void* stream) {
-  if (N <= 0 || Kp > tmac::kSumWindow * kPrologueThreads)
+  if (N <= 0 || Kp > tmac::kMaxRowK)
     return (int)cudaErrorInvalidValue;
-  act_bf16_kernel<<<N, kPrologueThreads, 0, (cudaStream_t)stream>>>(
+  auto kernel = Kp > tmac::kSumWindow * kPrologueThreads ? &act_bf16_kernel<true>
+                                                         : &act_bf16_kernel<false>;
+  kernel<<<N, kPrologueThreads, 0, (cudaStream_t)stream>>>(
       static_cast<const __nv_bfloat16*>(x), x_cols, K, Kp, glu,
       static_cast<const __nv_bfloat16*>(norm_w), eps, inv_norm_k,
       static_cast<__nv_bfloat16*>(xa));
   return (int)cudaGetLastError();
 }
 
-// K5: xa (N, Kp) bf16, packed (Kp * bits / 8, Mp) uint8, scales/sub (G, Mp)
-// bf16, residual (N, Mp) bf16 or null -> out (N, Mp) f32.  bits 2 or 4; gs
-// a multiple of 32; Kp a multiple of gs * 8 / bits and Kp * bits / 8 of 64;
-// Mp of 128; xa 16-byte aligned.
+// K5: xa (N, Kp) bf16, packed (Kp * bits / 8, Mp) uint8 (bits 3: the lo
+// plane (Kp / 4, Mp) and packed_hi, the hi plane (Kp / 8, Mp); else
+// packed_hi null), scales/sub (G, Mp) bf16, residual (N, Mp) bf16 or null
+// -> out (N, Mp) f32.  bits 1 to 4; gs a multiple of 32; Kp a multiple of
+// gs; every plane's rows a multiple of 64; Mp of 128; xa 16-byte aligned.
 extern "C" int tmac_qgemm_dequant(const void* xa, int N, int Kp, int gs,
-                                  int bits, const void* packed, int Mp,
-                                  const void* scales, const void* sub,
+                                  int bits, const void* packed, const void* packed_hi,
+                                  int Mp, const void* scales, const void* sub,
                                   const void* residual, float* out,
                                   void* stream) {
-  if (N <= 0 || gs <= 0 || gs % 32 != 0 || Mp % k5BM != 0 ||
-      (bits != 2 && bits != 4) || Kp % (gs * (8 / bits)) != 0 ||
-      (Kp / (8 / bits)) % 64 != 0)
+  const int p = bits == 3 ? 4 : bits >= 1 && bits <= 4 ? 8 / bits : 0;
+  if (N <= 0 || gs <= 0 || gs % 32 != 0 || Mp % k5BM != 0 || p == 0 ||
+      (bits == 3) != (packed_hi != nullptr) || Kp % gs != 0 || Kp % p != 0 ||
+      (Kp / p) % 64 != 0 || (bits == 3 && (Kp / 8) % 64 != 0))
     return (int)cudaErrorInvalidValue;
   // xa as a 2-D tensor (Kp columns innermost, N rows), boxes of 64 x 256
   // with the 128-byte swizzle; rows past N read as zeros
@@ -1091,11 +1121,15 @@ extern "C" int tmac_qgemm_dequant(const void* xa, int N, int Kp, int gs,
   const int err = tmac::bf16_box_map(&map, xa, N, Kp, k5BN);
   if (err != 0) return err;
   const uint8_t* pk = static_cast<const uint8_t*>(packed);
+  const uint8_t* ph = static_cast<const uint8_t*>(packed_hi);
   const __nv_bfloat16* sc = static_cast<const __nv_bfloat16*>(scales);
   const __nv_bfloat16* sb = static_cast<const __nv_bfloat16*>(sub);
   const __nv_bfloat16* res = static_cast<const __nv_bfloat16*>(residual);
   cudaStream_t s = (cudaStream_t)stream;
-  if (bits == 2)
-    return launch_dequant_wgmma<2>(map, N, Kp, gs, pk, Mp, sc, sb, res, out, s);
-  return launch_dequant_wgmma<4>(map, N, Kp, gs, pk, Mp, sc, sb, res, out, s);
+  switch (bits) {
+    case 1: return launch_dequant_wgmma<1>(map, N, Kp, gs, pk, ph, Mp, sc, sb, res, out, s);
+    case 2: return launch_dequant_wgmma<2>(map, N, Kp, gs, pk, ph, Mp, sc, sb, res, out, s);
+    case 3: return launch_dequant_wgmma<3>(map, N, Kp, gs, pk, ph, Mp, sc, sb, res, out, s);
+    default: return launch_dequant_wgmma<4>(map, N, Kp, gs, pk, ph, Mp, sc, sb, res, out, s);
+  }
 }

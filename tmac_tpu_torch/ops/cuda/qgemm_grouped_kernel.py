@@ -33,8 +33,9 @@ CUDA tensor to the kernel, which either launches or raises;
 ``ops.qgemm.kernel_for`` routes to K4L.
 Each wrapper's ``launches`` counts calls that launched its kernel
 (prologue and matmul together).
-Bits 2 and 4 are ported; bits 1 and 3 and an activation group size finer
-than the weight groups are not.
+Bits 1, 2, 3 and 4 are ported (bits 3: a 2-bit lo plane and a 1-bit hi
+plane, code = lo + 4 * hi); an activation group size finer than the
+weight groups is not.
 """
 
 from __future__ import annotations
@@ -45,7 +46,8 @@ import functools
 import torch
 
 from tmac_tpu_torch.ops.cuda.qgemm_kernel import (DECODE_STRIP, _sms, act_scale,
-                                                  check_decode_smem, decode_owner, decode_plan,
+                                                  check_decode_smem, decode_fields,
+                                                  decode_owner, decode_plan,
                                                   decode_spans, decode_units,
                                                   prologue_values, raise_on,
                                                   require)
@@ -55,10 +57,15 @@ from tmac_tpu_torch.utils import fma_f32
 _c_ptr, _c_int, _c_float = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
+GROUPED_BITS = (1, 2, 3, 4)
+
+
 def _check_supported(qt: QuantizedTensor, glu: bool, norm, residual,
                      kernel: str = "K4") -> None:
-    if qt.bits not in (2, 4):
-        raise ValueError(f"{kernel} takes bits 2 and 4, not {qt.bits}")
+    if qt.bits not in GROUPED_BITS:
+        raise ValueError(f"{kernel} takes bits 1, 2, 3 and 4, not {qt.bits}")
+    if (qt.bits == 3) != (qt.packed_hi is not None):
+        raise ValueError(f"{kernel} takes a hi plane (packed_hi) at bits 3 only")
     if qt.scales.shape[0] < 2 or qt.k_shards != 1:
         raise ValueError(f"{kernel} takes grouped scales (G > 1) and k_shards == 1")
     if qt.group_size % 32:
@@ -93,35 +100,50 @@ def act_quant_grouped_plain(x: torch.Tensor, qt: QuantizedTensor, norm=None,
     return q.reshape(N, Kp).to(torch.int8), xs, xsum
 
 
+def fold_chunk(Kp: int, bits: int, gs: int) -> int:
+    """The k of one step of the f32 fold: the reference's chunk
+    (``_make_kernel``), min(gs, Kp / p) with p the fields of a byte (4 at
+    bits 3), and at bits 3 also at most Kp / 8 (one block of the hi
+    plane).  It is the group unless Kp / p < gs (at bits 3, Kp / 8 < gs),
+    which the packing's padding (K a multiple of p * gs, of 8 * gs at bits
+    3) leaves only to a tensor made by hand; then a group is folded in
+    parts, each part's int32 dot scaled on its own."""
+    chunk = min(gs, Kp // (4 if bits == 3 else 8 // bits))
+    return min(chunk, Kp // 8) if bits == 3 else chunk
+
+
 def group_dots_plain(codes: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
-    """Exact per-group int32 dots (G, N, Mp) of codes (N, Kp) with the
-    weight codes: a float64 matmul per group (exact: |sum| <= 127 * 15 *
-    group_size < 2^53), on CPU and CUDA alike."""
+    """Exact int32 dots (C, N, Mp) of codes (N, Kp) with the weight codes,
+    one per fold chunk (fold_chunk: a group, or a part of one), in k order:
+    a float64 matmul each (exact: |sum| <= 127 * 15 * group_size < 2^53),
+    on CPU and CUDA alike."""
     N, Kp = codes.shape
-    gs = qt.group_size
+    ch = fold_chunk(Kp, qt.bits, qt.group_size)
     w = unpack_codes(qt)
     return torch.stack([
-        (codes[:, k:k + gs].double() @ w[k:k + gs].double()).to(torch.int32)
-        for k in range(0, Kp, gs)])
+        (codes[:, k:k + ch].double() @ w[k:k + ch].double()).to(torch.int32)
+        for k in range(0, Kp, ch)])
 
 
 def fold_plain(parts: torch.Tensor, xs: torch.Tensor, xsum: torch.Tensor,
                qt: QuantizedTensor, residual=None) -> torch.Tensor:
-    """The f32 epilogue on the int32 partials (G, N, Mp) -> (N, Mp), in
-    the order of csrc/qgemm_grouped.cu (that of the compiled reference):
-    acc = fma(p_0, x_0, p_1 * x_1), then acc = fma(p_g, x_g, acc) with
-    x_g = xs[:, g] * scale[g]; z = fma(xsum[:, g], sub[g], z) from 0;
-    acc - z (+ residual)."""
-    G = parts.shape[0]
+    """The f32 epilogue on the int32 partials (C, N, Mp) of the C fold
+    chunks (group_dots_plain) -> (N, Mp), in the order of
+    csrc/qgemm_grouped.cu (that of the compiled reference):
+    acc = fma(p_0, x_0, p_1 * x_1), then acc = fma(p_c, x_c, acc) with
+    x_c = xs[:, g] * scale[g] of chunk c's group g; z = fma(xsum[:, g],
+    sub[g], z) from 0 over the groups; acc - z (+ residual)."""
+    C, G = parts.shape[0], xs.shape[1]
     scales, sub = qt.scales.float(), qt.sub.float()
     p = parts.float()
 
-    def xscale(g):
+    def xscale(c):
+        g = c * G // C
         return xs[:, g:g + 1] * scales[g]
 
     acc = fma_f32(p[0], xscale(0).expand_as(p[0]), p[1] * xscale(1))
-    for g in range(2, G):
-        acc = fma_f32(p[g], xscale(g).expand_as(acc), acc)
+    for c in range(2, C):
+        acc = fma_f32(p[c], xscale(c).expand_as(acc), acc)
     z = torch.zeros_like(acc)
     for g in range(G):
         z = fma_f32(xsum[:, g:g + 1].expand_as(z), sub[g].expand_as(z), z)
@@ -131,30 +153,53 @@ def fold_plain(parts: torch.Tensor, xs: torch.Tensor, xsum: torch.Tensor,
     return out
 
 
+def decode_slot_weights(qt: QuantizedTensor, r0: int, r1: int, e: int):
+    """What slot e of the decode matmul's rows [r0, r1) (decode_units)
+    multiplies in its dp4a, as csrc/decode_matmul.cuh forms it in place:
+    -> (weight bytes (r1 - r0, Mp) int64, the shift its flush takes back).
+    Bits 1, 2, 4: field e of the packed bytes masked in place, i.e. times
+    2^(bits * e).  Bits 3: the code lo + 4 * hi of k = e * Kb + r
+    assembled at bit t = min(2 * (e // 2), 4) of the byte: field e // 2 of
+    lo plane row r + (e % 2) * Kb, shifted right by 2 * (e // 2) - t, and
+    bit e of hi plane row r, moved to bit t + 2 (tmac::decode::b3_slot)."""
+    pk = qt.packed.long()
+    if qt.bits != 3:
+        return pk[r0:r1] & (((1 << qt.bits) - 1) << (qt.bits * e)), qt.bits * e
+    Kb, j = qt.kdim_padded // 8, e // 2
+    t = min(2 * j, 4)
+    lo = pk[r0 + (e % 2) * Kb:r1 + (e % 2) * Kb] >> (2 * j - t)
+    hi, hs = qt.packed_hi.long()[r0:r1], t + 2 - e
+    hi = hi << hs if hs >= 0 else hi >> -hs
+    return (lo & (3 << t)) | (hi & (4 << t)), t
+
+
 def block_partials_plain(codes: torch.Tensor, qt: QuantizedTensor,
                          ksplit: int):
     """The per-group int32 partials each block of a decode cluster keeps in
     its shared memory: for block `rank`, the chunks [u0, u1) of its span
     (decode_spans), as (u1 - u0, P, N, Mp) int32, entry (c - u0, j) being
-    group j * nchunks + c.  Exact int64 sums, as the kernel's."""
-    P, gs = 8 // qt.bits, qt.group_size
+    group j * nchunks + c: slot j's in-place weights (decode_slot_weights)
+    against the codes of k = j * Kb + row, shifted back.  Exact int64
+    sums, as the kernel's."""
+    P, gs = decode_fields(qt.bits), qt.group_size
     Kb, _, nchunks = decode_units(qt.kdim_padded, qt.bits, gs)
-    w = unpack_codes(qt).long()
     c = codes.long()
+
+    def slot(ch, j):
+        w, shift = decode_slot_weights(qt, ch * gs, (ch + 1) * gs, j)
+        return (c[:, j * Kb + ch * gs:j * Kb + (ch + 1) * gs] @ w) >> shift
     blocks = []
     for u0, u1 in decode_spans(nchunks, ksplit):
-        blocks.append(torch.stack([torch.stack([
-            c[:, j * Kb + ch * gs:j * Kb + (ch + 1) * gs]
-            @ w[j * Kb + ch * gs:j * Kb + (ch + 1) * gs]
-            for j in range(P)]) for ch in range(u0, u1)]).to(torch.int32)
-            if u1 > u0 else None)
+        blocks.append(torch.stack([torch.stack([slot(ch, j) for j in range(P)])
+                                   for ch in range(u0, u1)]).to(torch.int32)
+                      if u1 > u0 else None)
     return blocks
 
 
 def fold_split_plain(blocks, xs: torch.Tensor, xsum: torch.Tensor,
                      qt: QuantizedTensor, ksplit: int, residual=None) -> torch.Tensor:
     """The decode matmul's on-chip fold: partial g read from the block that
-    owns chunk g % nchunks (decode_owner), field g // nchunks, and folded in
+    owns chunk g % nchunks (decode_owner), slot g // nchunks, and folded in
     group order (fold_plain's chain) -> (N, Mp) f32."""
     _, _, nchunks = decode_units(qt.kdim_padded, qt.bits, qt.group_size)
     owner = decode_owner(nchunks, ksplit)
@@ -187,10 +232,10 @@ def _lib():
         _c_float, _c_float, _c_ptr, _c_ptr, _c_ptr, _c_ptr]
     lib.tmac_decode_group_gemm.argtypes = [
         _c_ptr, _c_ptr, _c_ptr, _c_int, _c_int, _c_int, _c_int, _c_ptr,
-        _c_int, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_int, _c_int, _c_ptr]
+        _c_ptr, _c_int, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_int, _c_int, _c_ptr]
     lib.tmac_group_gemm.argtypes = [
         _c_ptr, _c_ptr, _c_ptr, _c_int, _c_int, _c_int, _c_int, _c_ptr,
-        _c_int, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr]
+        _c_ptr, _c_int, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr]
     for fn in (lib.tmac_act_quant_grouped, lib.tmac_decode_group_gemm,
                lib.tmac_group_gemm):
         fn.restype = _c_int
@@ -199,6 +244,28 @@ def _lib():
 
 def _stream(dev) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
+
+
+def _planes(kernel: str, qt: QuantizedTensor, dev, row_multiple: int = 1):
+    """Raise unless qt's packed planes are what `kernel` takes: packed
+    (Kp * bits / 8, Mp), at bits 3 the lo plane (Kp / 4, Mp) and the hi
+    plane (Kp / 8, Mp), each 16-byte aligned with a row count that is a
+    multiple of row_multiple; and, for K4 and K4L at bits 1 and 3, Kp a
+    multiple of 8 * group_size (so that the reference's fold chunk is the
+    group; fold_chunk).  -> the hi plane's pointer, or None."""
+    Kp, Mp, bits, gs = qt.kdim_padded, qt.mdim_padded, qt.bits, qt.group_size
+    planes = [("packed", qt.packed, Kp // 4 if bits == 3 else Kp * bits // 8)]
+    if bits == 3:
+        planes.append(("packed_hi", qt.packed_hi, Kp // 8))
+    for what, t, rows in planes:
+        require(kernel, t, what, torch.uint8, (rows, Mp), dev)
+        if t.data_ptr() % 16 or rows % row_multiple:
+            raise ValueError(f"{kernel}: {what} must be 16-byte aligned with "
+                             f"a multiple of {row_multiple} rows, not {rows}")
+    if kernel != "K5" and Kp % (decode_fields(bits) * gs):
+        raise ValueError(f"{kernel} at bits {bits} takes Kp a multiple of "
+                         f"{decode_fields(bits)} * group_size, not {Kp}")
+    return qt.packed_hi.data_ptr() if bits == 3 else None
 
 
 def launch_act_quant_grouped(x: torch.Tensor, qt: QuantizedTensor, norm=None,
@@ -238,13 +305,13 @@ def launch_decode_grouped(codes: torch.Tensor, xs: torch.Tensor,
     require("K4", codes, "codes", torch.int8, (N, Kp), dev)
     require("K4", xs, "xs", torch.float32, (N, G), dev)
     require("K4", xsum, "xsum", torch.float32, (N, G), dev)
-    require("K4", qt.packed, "packed", torch.uint8, (Kp * qt.bits // 8, Mp), dev)
+    hi_ptr = _planes("K4", qt, dev)
     require("K4", qt.scales, "scales", torch.bfloat16, (G, Mp), dev)
     require("K4", qt.sub, "sub", torch.bfloat16, (G, Mp), dev)
     if Mp % DECODE_STRIP or codes.data_ptr() % 4 or any(
-            t.data_ptr() % 16 for t in (qt.packed, qt.scales, qt.sub)):
+            t.data_ptr() % 16 for t in (qt.scales, qt.sub)):
         raise ValueError("K4: Mp % 128 == 0, 4-byte aligned codes and 16-byte "
-                         "aligned packed, scales and sub")
+                         "aligned scales and sub")
     res_ptr = None
     if residual is not None:
         require("K4", residual, "residual", torch.bfloat16, (N, Mp), dev)
@@ -254,7 +321,7 @@ def launch_decode_grouped(codes: torch.Tensor, xs: torch.Tensor,
     out = torch.empty((N, Mp), dtype=torch.float32, device=dev)
     err = _lib().tmac_decode_group_gemm(
         codes.data_ptr(), xs.data_ptr(), xsum.data_ptr(), N, Kp, gs, qt.bits,
-        qt.packed.data_ptr(), Mp, qt.scales.data_ptr(), qt.sub.data_ptr(),
+        qt.packed.data_ptr(), hi_ptr, Mp, qt.scales.data_ptr(), qt.sub.data_ptr(),
         res_ptr, out.data_ptr(), ksplit or plan, nt, _stream(dev))
     raise_on("K4", err, "matmul")
     return out
@@ -298,11 +365,11 @@ def launch_group_gemm(codes: torch.Tensor, xs: torch.Tensor,
     require("K4L", codes, "codes", torch.int8, (N, Kp), dev)
     require("K4L", xs, "xs", torch.float32, (N, G), dev)
     require("K4L", xsum, "xsum", torch.float32, (N, G), dev)
-    require("K4L", qt.packed, "packed", torch.uint8, (Kp * qt.bits // 8, Mp), dev)
+    hi_ptr = _planes("K4L", qt, dev)
     require("K4L", qt.scales, "scales", torch.bfloat16, (G, Mp), dev)
     require("K4L", qt.sub, "sub", torch.bfloat16, (G, Mp), dev)
-    if Mp % 128 or codes.data_ptr() % 16 or qt.packed.data_ptr() % 16:
-        raise ValueError("K4L: Mp % 128 == 0 and 16-byte aligned codes and packed")
+    if Mp % 128 or codes.data_ptr() % 16:
+        raise ValueError("K4L: Mp % 128 == 0 and 16-byte aligned codes")
     res_ptr = None
     if residual is not None:
         require("K4L", residual, "residual", torch.bfloat16, (N, Mp), dev)
@@ -310,7 +377,7 @@ def launch_group_gemm(codes: torch.Tensor, xs: torch.Tensor,
     out = torch.empty((N, Mp), dtype=torch.float32, device=dev)
     err = _lib().tmac_group_gemm(
         codes.data_ptr(), xs.data_ptr(), xsum.data_ptr(), N, Kp, gs, qt.bits,
-        qt.packed.data_ptr(), Mp, qt.scales.data_ptr(), qt.sub.data_ptr(),
+        qt.packed.data_ptr(), hi_ptr, Mp, qt.scales.data_ptr(), qt.sub.data_ptr(),
         res_ptr, out.data_ptr(), _stream(dev))
     raise_on("K4L", err, "matmul")
     return out
@@ -381,8 +448,8 @@ def _lib_large():
         _c_ptr, _c_int, _c_int, _c_int, _c_int, _c_int, _c_ptr, _c_float,
         _c_float, _c_ptr, _c_ptr]
     lib.tmac_qgemm_dequant.argtypes = [
-        _c_ptr, _c_int, _c_int, _c_int, _c_int, _c_ptr, _c_int, _c_ptr,
-        _c_ptr, _c_ptr, _c_ptr, _c_ptr]
+        _c_ptr, _c_int, _c_int, _c_int, _c_int, _c_ptr, _c_ptr, _c_int,
+        _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr]
     for fn in (lib.tmac_act_bf16, lib.tmac_qgemm_dequant):
         fn.restype = _c_int
     return lib
@@ -414,20 +481,18 @@ def launch_dequant_gemm(xa: torch.Tensor, qt: QuantizedTensor,
     N, Kp, Mp, gs = xa.shape[0], qt.kdim_padded, qt.mdim_padded, qt.group_size
     G = Kp // gs
     require("K5", xa, "xa", torch.bfloat16, (N, Kp), dev)
-    require("K5", qt.packed, "packed", torch.uint8, (Kp * qt.bits // 8, Mp), dev)
+    hi_ptr = _planes("K5", qt, dev, row_multiple=64)
     require("K5", qt.scales, "scales", torch.bfloat16, (G, Mp), dev)
     require("K5", qt.sub, "sub", torch.bfloat16, (G, Mp), dev)
-    if Mp % 128 or (Kp * qt.bits // 8) % 64 or any(
-            t.data_ptr() % 16 for t in (xa, qt.packed, qt.scales, qt.sub)):
-        raise ValueError("K5: Mp % 128 == 0, packed rows a multiple of 64 and "
-                         "16-byte aligned operands")
+    if Mp % 128 or any(t.data_ptr() % 16 for t in (xa, qt.scales, qt.sub)):
+        raise ValueError("K5: Mp % 128 == 0 and 16-byte aligned operands")
     res_ptr = None
     if residual is not None:
         require("K5", residual, "residual", torch.bfloat16, (N, Mp), dev)
         res_ptr = residual.data_ptr()
     out = torch.empty((N, Mp), dtype=torch.float32, device=dev)
     err = _lib_large().tmac_qgemm_dequant(
-        xa.data_ptr(), N, Kp, gs, qt.bits, qt.packed.data_ptr(), Mp,
+        xa.data_ptr(), N, Kp, gs, qt.bits, qt.packed.data_ptr(), hi_ptr, Mp,
         qt.scales.data_ptr(), qt.sub.data_ptr(), res_ptr, out.data_ptr(),
         _stream(dev))
     raise_on("K5", err, "matmul")

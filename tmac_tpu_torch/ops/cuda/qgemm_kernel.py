@@ -156,12 +156,14 @@ def dp4a_order(codes: torch.Tensor, bits: int) -> torch.Tensor:
 DECODE_STRIP = 128        # output columns of a block
 DECODE_STAGE_ROWS = 32    # packed rows of a ring stage (K1's unit of the split)
 DECODE_STAGES = 8         # the ring's stages (K1, K4; K7 takes 6 or 8)
+DECODE_STAGES_B3 = 3      # K4 at bits 3: stages of 3 planes (12 KB each)
 DECODE_MAX_SPLIT = 8      # portable cluster size
 DECODE_XBUF = 8 * 32 * 20 * 4   # K4's per-warp exchange buffers
 DECODE_SMEM_BUDGET = 112 * 1024   # two blocks an SM
 # a block's fixed costs in packed rows streamed, by token rows a block, and
-# the cluster sizes the plan takes (7 was never measured)
-DECODE_FIXED_ROWS = {1: 96, 4: 256}
+# the cluster sizes the plan takes (7 was never measured); nt = 2 (bits 1
+# and 3) is the mean of the two fitted values, not fitted itself
+DECODE_FIXED_ROWS = {1: 96, 2: 176, 4: 256}
 DECODE_SPLITS = (1, 2, 3, 4, 5, 6, 8)
 DECODE_SMEM_LIMIT = 227 * 1024    # a block's shared memory on Hopper
 DEFAULT_SMS = 132         # an H100 SXM's SMs: the plan on the CPU
@@ -184,13 +186,44 @@ EXPERT_ROW_COST_PER_TOKEN = 1 / 3
 EXPERT_SPLITS, EXPERT_STAGES = (1, 2, 4, 8), (6, 8)
 
 
+def decode_fields(bits: int) -> int:
+    """The slots P of a packed row in the decode matmul: its fields (8 at
+    bits 1, 4 at bits 2, 2 at bits 4, 1 at bits 8), and 8 at bits 3, whose
+    row r stands for lo plane rows r and r + Kb and hi plane row r
+    (decode_units)."""
+    return 1 if bits == 8 else 8 if bits == 3 else 8 // bits
+
+
+def decode_planes(bits: int) -> int:
+    """Packed rows of device memory a row of the decode matmul reads: 3 at
+    bits 3 (two lo plane rows, one hi plane row), else 1."""
+    return 3 if bits == 3 else 1
+
+
 def decode_units(Kp: int, bits: int, gs: int = 0):
-    """The packed rows Kb, the rows of a unit of the K split (a chunk of gs
-    packed rows for grouped scales, whose field j holds group j * nchunks +
-    c; a ring stage of 32 rows for per-tensor ones) and the unit count."""
-    Kb = Kp if bits == 8 else Kp // (8 // bits)
+    """The rows Kb, the rows of a unit of the K split (a chunk of gs rows
+    for grouped scales, whose slot j holds group j * nchunks + c; a ring
+    stage of 32 rows for per-tensor ones) and the unit count.  A row is a
+    packed row, except at bits 3: there row r (Kb = Kp / 8) is lo plane
+    rows r and r + Kb and hi plane row r, the 8 k = e * Kb + r (slot e: lo
+    row r + (e % 2) * Kb, field e // 2; hi bit e), so each hi byte is read
+    once, with both lo bytes that share it."""
+    Kb = Kp // decode_fields(bits)
     unit = gs or DECODE_STAGE_ROWS
     return Kb, unit, cdiv(Kb, unit)
+
+
+def decode_stages(bits: int) -> int:
+    """The ring's stages of K4 at bits: DECODE_STAGES, or at bits 3, whose
+    stage is 3 planes of 32 rows, DECODE_STAGES_B3."""
+    return DECODE_STAGES_B3 if bits == 3 else DECODE_STAGES
+
+
+def decode_nt(N: int, bits: int) -> int:
+    """Token rows a block of the decode matmul: 1 for N = 1, else 4, or 2
+    at 8 slots a row (bits 1 and 3), whose int32 sums take 32 registers a
+    token row."""
+    return 1 if N == 1 else 2 if decode_fields(bits) == 8 else 4
 
 
 def decode_spans(nunits: int, ksplit: int):
@@ -209,18 +242,19 @@ def decode_owner(nunits: int, ksplit: int):
 
 
 def decode_smem(bits: int, nt: int, grouped: bool, nunits: int, unit: int,
-                ksplit: int, G: int, stages: int = DECODE_STAGES) -> int:
+                ksplit: int, G: int, stages=None) -> int:
     """A block's shared memory, as decode_matmul.cuh's Layout sizes it: the
-    ring of `stages` stages (or the partials it receives for its slice of
-    columns, if larger), the codes of its rows, its int32 partials and,
-    grouped, the fold's scales and zero points of its slice and the tile's
-    xs, xsum."""
-    P = 1 if bits == 8 else 8 // bits
+    ring of `stages` stages (decode_stages' by default) of decode_planes
+    planes (or the partials it receives for its slice of columns, if
+    larger), the codes of its rows, its int32 partials and, grouped, the
+    fold's scales and zero points of its slice and the tile's xs, xsum."""
+    P = decode_fields(bits)
     units = cdiv(nunits, ksplit)
     span = round_up(units * unit, DECODE_STAGE_ROWS)
     slice_ = cdiv(DECODE_STRIP // 8, ksplit) * 8
     recv = (G if grouped else ksplit) * nt * slice_ * 4
-    ring = stages * DECODE_STAGE_ROWS * DECODE_STRIP
+    ring = (stages or decode_stages(bits)) * DECODE_STAGE_ROWS * DECODE_STRIP \
+        * decode_planes(bits)
     total = round_up(max(ring, recv), 16) + round_up(nt * P * span, 16)
     total += (units * P if grouped else 1) * nt * DECODE_STRIP * 4
     if grouped:
@@ -232,13 +266,13 @@ def decode_smem(bits: int, nt: int, grouped: bool, nunits: int, unit: int,
 def decode_plan(N: int, Kp: int, Mp: int, bits: int, gs: int = 0,
                 sms: int = DEFAULT_SMS, experts: int = 0):
     """(ksplit, nt) for the decode matmul from shapes only, so a CUDA graph
-    can capture the call: nt token rows a block (1 for N = 1, else 4), and
+    can capture the call: nt token rows a block (decode_nt), and
     the blocks of a cluster along K, no more than the units of the split,
-    whichever of DECODE_SPLITS minimises waves x (packed rows a block + a
-    block's fixed costs, DECODE_FIXED_ROWS[nt]), 20% more for a cluster
-    size that is no power of two: a block's rows stream in a time about
-    proportional to their count, and a second, part-filled wave of blocks
-    repeats both (an SM holds two blocks, or one whose shared memory
+    whichever of DECODE_SPLITS minimises waves x (packed rows a block,
+    three a row at bits 3, + a block's fixed costs, DECODE_FIXED_ROWS[nt]),
+    20% more for a cluster size that is no power of two: a block's rows
+    stream in a time about proportional to their count, and a second,
+    part-filled wave of blocks repeats both (an SM holds two blocks, or one whose shared memory
     passes half of it).  The constants were fitted to every ksplit's time
     at the paths' shapes on an H100 (chip_smoke.py --phase
     decode_plan_sweep; PERF.md).  Ties go to the smaller cluster.
@@ -277,7 +311,7 @@ def decode_plan(N: int, Kp: int, Mp: int, bits: int, gs: int = 0,
             if best is None or cost < best[0]:
                 best = (cost, (ksplit, nt, stages))
     else:
-        nt = 1 if N == 1 else 4
+        nt = decode_nt(N, bits)
         clusters = (Mp // DECODE_STRIP) * cdiv(N, nt)
         for ksplit in DECODE_SPLITS:
             smem = decode_smem(bits, nt, grouped, nunits, unit, ksplit, G)
@@ -285,7 +319,8 @@ def decode_plan(N: int, Kp: int, Mp: int, bits: int, gs: int = 0,
                 continue
             per_sm = 2 if smem <= DECODE_SMEM_BUDGET else 1
             waves = cdiv(clusters * ksplit, per_sm * sms)
-            cost = waves * (cdiv(nunits, ksplit) * unit + DECODE_FIXED_ROWS[nt])
+            cost = waves * (cdiv(nunits, ksplit) * unit * decode_planes(bits)
+                            + DECODE_FIXED_ROWS[nt])
             if ksplit & (ksplit - 1):
                 cost *= 1.2
             if best is None or cost < best[0]:
@@ -297,7 +332,7 @@ def decode_plan(N: int, Kp: int, Mp: int, bits: int, gs: int = 0,
 
 
 def check_decode_smem(kernel: str, N: int, Kp: int, bits: int, gs: int,
-                      ksplit: int, nt: int, stages: int = DECODE_STAGES) -> None:
+                      ksplit: int, nt: int, stages=None) -> None:
     """Raise if a forced cluster size leaves a block more shared memory
     than the card has (decode_plan's own never does)."""
     _, unit, nunits = decode_units(Kp, bits, gs)

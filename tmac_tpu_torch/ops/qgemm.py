@@ -347,8 +347,8 @@ def qgemm(x: torch.Tensor, qt: QuantizedTensor, impl: str = "auto",
     per-tensor scales, K4 or K5 for grouped ones), "torch", or "auto":
     "fused" for any tensor off the CPU, whose kernels raise on what they do
     not cover yet (int8 x, bits other than K1's and K3's 2 and 8 or K4's
-    and K5's 2 and 4); on the CPU, the kernels' plain versions for float x
-    (grouped: bits 2 or 4 with bf16 scales) and "torch" otherwise.
+    and K5's 1 to 4); on the CPU, the kernels' plain versions for float x
+    (grouped: bits 1 to 4 with bf16 scales) and "torch" otherwise.
     norm: optional (weight (K,), eps) rms_norm applied to x first.
     glu: x is (N, 2K) and silu(x[:, :K]) * x[:, K:] feeds the matmul.
     residual: optional (N, M) added to the output.
@@ -359,7 +359,7 @@ def qgemm(x: torch.Tensor, qt: QuantizedTensor, impl: str = "auto",
     grouped = qt.scales.shape[0] > 1
     if impl == "auto":
         on_cpu_kernel = x.is_floating_point() and (not grouped or (
-            qt.bits in (2, 4) and qt.scales.dtype == torch.bfloat16))
+            qt.bits in (1, 2, 3, 4) and qt.scales.dtype == torch.bfloat16))
         impl = ("fused" if x.device.type != "cpu" or on_cpu_kernel
                 else "torch")
     out_dtype = out_dtype or (torch.float32 if x.dtype == torch.int8
