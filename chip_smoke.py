@@ -8,6 +8,9 @@
     python3 chip_smoke.py --phase graph_spread         (one step's graphs)
     python3 chip_smoke.py --phase grouped_paths        (paths 5 and 6, the
                                                         bits 1/3 K4L/K5 sweep)
+    python3 chip_smoke.py --phase ags_path             (K4's ags form at bits
+                                                        1-4 and path 7)
+    python3 chip_smoke.py --phase wa8_path             (path 8)
 
 Phases, each printing one JSON line before the last two:
   1. the card (nvidia-smi name and power limit, torch's device name);
@@ -109,7 +112,8 @@ Phases, each printing one JSON line before the last two:
      experts, one call each a layer), 64 K4, 32 K2 and 1 K1 launches per
      step; the step in a CUDA graph makes no host sync), then the checks
      and timings of path 1's main run, K7's per call and per step, and
-     K4L's device time over a prefill (torch.profiler) beside its bound;
+     K4L's device time over a prefill (torch.profiler) beside its bound,
+     its plain version's and the bf16 matmul's on the same calls;
   8. path 4, Phi-3-mini W2A16 g128 at full width and depth (32 layers,
      hidden 3072, 32 heads of head_dim 96, FFN 8192, vocab 32064, a
      2047-row sliding window), random weights drawn on the card from seed
@@ -154,10 +158,36 @@ Phases, each printing one JSON line before the last two:
      check on the prompt's last position as path 2's, Qwen2's on every
      position); each kernel's time per step or prefill beside its bound,
      plain version and yardstick;
- 10. the attention sweep: K2 (K6 with Phi-3's window) per call at 1, 64,
+ 10. K4's ags form (activation groups finer than the weight groups, the
+     reference's act_group_size) at bits 1, 2, 3 and 4, ags 32 and 64, N =
+     1, 4 and 16 on a 4096 x 4096 weight, without folds (bit for bit, the
+     prologue's codes, scales per activation group and weight groups' code
+     sums byte for byte) at decode_plan's cluster size and at 1 and 8, and
+     with the residual; then path 7 (ags_path, grouped_path), Llama-2-7B
+     W2 g128 with zero points at act_group_size 32 (weights drawn on the
+     card, seed 0): K4's ags form (N = 1, 4, 16) and K4L's (N = 64, 256)
+     on layer 0's four linears with and without folds, K5 (N = 384, 512),
+     K1 and K3 on the head, K2; a 768-token prompt in chunks of 512 (128
+     K5, where the reference keeps float activations) and 256 (128 K4L in
+     the ags form), 64 steps at positions 768-831 through decode_loop (128
+     K4, 1 K1, 32 K2 a step), teacher-forced as path 5; the prompt's last
+     position's logits at ags 32 and at ags 0 against a bf16 dequant
+     forward (printed, not gated); K4 per step (also at ags 0 on the same
+     weights), K4L and K5 per prefill;
+ 11. path 8 (mixtral_wa8_path), Mixtral-8x7B's architecture at w_a8 bits 2
+     (ternary per-tensor weights drawn on the card, seed 0; 11.3 GB of
+     expert codes): K7's per-tensor branch at the path's expert shapes, N =
+     1 and 4, and on 4-expert stacks per-tensor at bits 1 and 4 and grouped
+     at bits 1 (check_k7: every expert, two-expert routes, cluster sizes 1
+     and 8; bit for bit, nonzero zero points), K1 and K3 on the path's
+     linears and head, K2 at rep 4; a 256-token prefill (the MoE layers'
+     capacity dispatch with every expert's 128 slots on K3: 577 K3) and 64
+     select steps through decode_loop (64 K7, 65 K1, 32 K2 a step),
+     teacher-forced on every position; K7, K1 per step and K3 per prefill;
+ 12. the attention sweep: K2 (K6 with Phi-3's window) per call at 1, 64,
      288, 1056 and 2047 rows for the head shapes of the four paths, beside
      SDPA and the byte bound (the fixed cost of a call and its streaming);
- 11. the decode-matmul sweep (qgemm_decode_sweep): K1 at BitNet-3B's five
+ 13. the decode-matmul sweep (qgemm_decode_sweep): K1 at BitNet-3B's five
      shapes and K4 at Llama-2-7B's, Phi-3-mini's and Mixtral-8x7B's four,
      and at Llama-3.1-8B's at bits 3 and 1 and Qwen2-7B's at bits 4 (those
      rows also against the plain version), at N = 1, 4 and 16, per call
@@ -167,12 +197,12 @@ Phases, each printing one JSON line before the last two:
      launch seen in a profiler trace (pdl_overlap): K1's, K4's and K3's
      matmul starting before its prologue ends, in an eager call and in a
      captured graph;
- 12. the expert and block sweep (expert_block_sweep): K7 at Mixtral-8x7B's
+ 14. the expert and block sweep (expert_block_sweep): K7 at Mixtral-8x7B's
      expert shapes, one expert and the two routed experts of a layer
      (gate_up, down and both), N = 1 and 4, with every cluster size, and
      K10 at BitNet-3B's layer shapes, per call beside the byte bound and
      the yardsticks (the bf16 matmul; K1's three calls);
- 13. K3's sweep (k3_sweep): K3 per call at BitNet-3B's five prefill
+ 15. K3's sweep (k3_sweep): K3 per call at BitNet-3B's five prefill
      shapes and Llama-2-7B's int8 head, N = 64, 256 and 1024, beside the
      bound, torch._int_mm in both layouts and the bf16 matmul, with every
      tile and cluster size's time (large_plan's data).
@@ -363,7 +393,8 @@ DECODE_SPLITS, DECODE_ROWS = (None, 1, 8), (1, 4, 16, 63)
 
 def decode_split_call(x, qt, kw, ksplit):
     """K1's or K4's function on the card at a given cluster size (None:
-    decode_plan's, through the wrapper), below 64 rows."""
+    decode_plan's, through the wrapper), below 64 rows; kw's act_gs takes
+    K4's ags form."""
     from tmac_tpu_torch.ops.cuda import qgemm_grouped_kernel as k4
     from tmac_tpu_torch.ops.cuda import qgemm_kernel as k1
     grouped = qt.scales.shape[0] > 1
@@ -371,8 +402,9 @@ def decode_split_call(x, qt, kw, ksplit):
         return (k4.qgemm_grouped if grouped else k1.qgemm_fused)(x, qt, **kw)
     norm, glu, res = kw.get("norm"), kw.get("glu", False), kw.get("residual")
     if grouped:
-        codes, xs, xsum = k4.launch_act_quant_grouped(x, qt, norm, glu)
-        out = k4.launch_decode_grouped(codes, xs, xsum, qt, res, ksplit)
+        ags = kw.get("act_gs", 0)
+        codes, xs, xsum = k4.launch_act_quant_grouped(x, qt, norm, glu, ags=ags)
+        out = k4.launch_decode_grouped(codes, xs, xsum, qt, res, ksplit, ags=ags)
     else:
         codes, xs, xsum = k1.launch_act_quant(x, qt, norm, glu)
         out = k1.launch_decode(codes, xs, xsum, qt, res, ksplit)
@@ -588,11 +620,11 @@ def check_k10(card, cases, grids=K10_BLOCKS):
 
 def check_k4(card, cases, splits=DECODE_SPLITS):
     """K4's function against its plain version; cases: (label, x, qt,
-    folds).  Below 64 rows the decode form (K4), at every cluster size of
-    `splits`; from 64 rows K4L, through the wrapper that ops.qgemm.kernel_for
-    picks.  Bit for bit without folds, with the plain prologue's codes,
-    scales and code sums byte for byte; K4L bit for bit with every fold too,
-    K4 within FOLDED_NMSE with them."""
+    folds), folds with act_gs for the ags form.  Below 64 rows the decode
+    form (K4), at every cluster size of `splits`; from 64 rows K4L, through
+    the wrapper that ops.qgemm.kernel_for picks.  Bit for bit without folds,
+    with the plain prologue's codes, scales and code sums byte for byte;
+    K4L bit for bit with every fold too, K4 within FOLDED_NMSE with them."""
     import torch
     from tmac_tpu_torch.ops.cuda import qgemm_grouped_kernel as k4
     from tmac_tpu_torch.ops.qgemm import LARGE_N, kernel_for
@@ -601,17 +633,23 @@ def check_k4(card, cases, splits=DECODE_SPLITS):
     for label, x, qt, kw in cases:
         N = x.shape[0]
         large = N >= LARGE_N
+        # the ags form's arguments only where it is asked for, so that a
+        # parent package without it runs the other cases (an A/B)
+        ags = kw.get("act_gs", 0)
+        aw = dict(ags=ags) if ags else {}
+        folds = {k: v for k, v in kw.items() if k != "act_gs"}
         want = k4.qgemm_grouped_plain(x, qt, **kw)
         prologue = {}
-        if not kw:
-            codes, xs, xsum = k4.launch_act_quant_grouped(x, qt)
-            pc, pxs, pxsum = k4.act_quant_grouped_plain(x, qt)
+        if not folds:
+            codes, xs, xsum = k4.launch_act_quant_grouped(x, qt, **aw)
+            pc, pxs, pxsum = k4.act_quant_grouped_plain(x, qt, **aw)
             prologue = dict(codes_equal=bool(torch.equal(codes, pc)),
                             xs_equal=bool(torch.equal(xs, pxs)),
                             xsum_equal=bool(torch.equal(xsum, pxsum)))
         for ksplit in ((None,) if large else splits):
             if large:
-                got = kernel_for(qt, N, dispatch="chunk")(x, qt, **kw)
+                got = kernel_for(qt, N, dispatch="chunk",
+                                 **({"act_gs": ags} if ags else {}))(x, qt, **folds)
             else:
                 try:
                     got = decode_split_call(x, qt, kw, ksplit)
@@ -625,13 +663,16 @@ def check_k4(card, cases, splits=DECODE_SPLITS):
             err = float((got - want).abs().max())
             worst = max(worst, err)
             row = dict(shape=label, kernel="K4L" if large else "K4", bits=qt.bits, N=N,
-                       folds=sorted(kw), max_abs_err=err,
+                       folds=sorted(folds), max_abs_err=err,
                        bitwise=bool(torch.equal(got, want)),
                        nmse=nmse(want.cpu().numpy(), got.cpu().numpy()), **prologue)
+            if ags:
+                row["ags"] = ags
             if not large:
                 row["ksplit"] = ksplit or k4.decode_plan(
-                    N, qt.kdim_padded, qt.mdim_padded, qt.bits, qt.group_size, card.sms)[0]
-            ok = row["bitwise"] if large or not kw else row["nmse"] <= FOLDED_NMSE
+                    N, qt.kdim_padded, qt.mdim_padded, qt.bits, qt.group_size, card.sms,
+                    **aw)[0]
+            ok = row["bitwise"] if large or not folds else row["nmse"] <= FOLDED_NMSE
             ok = ok and all(prologue.values())
             rows.append(row)
             if not ok:
@@ -757,6 +798,8 @@ KERNEL_NAMES = (("K10", "block_kernel"), ("K3 matmul", "k3_wgmma_kernel"),
                 ("K4L matmul", "group_mma_kernel"),
                 ("K7 prologue", "expert_quant_kernel"),
                 ("K7 matmul", "k7_decode_kernel"),
+                ("K7 prologue", "expert_quant_token_kernel"),
+                ("K7 matmul", "k7_token_kernel"),
                 ("K4/K4L prologue", "act_quant_grouped_kernel"),
                 ("K4 matmul", "k4_decode_kernel"),
                 ("K1 prologue", "act_quant_kernel"), ("K1 matmul", "k1_decode_kernel"),
@@ -1024,19 +1067,18 @@ def run_path(card, tag, cfg, params, prompt_len, want_prefill, want_step,
 
 def time_k4(card, calls, reps=20):
     """K4's function per call over `calls` [(x, qt, folds)] (K4 below 64
-    rows, K4L from there, as kernel_for picks; a CUDA graph of them all,
-    the weights cold in L2 when they exceed it): a dict of ms, plain ms on
-    the first call's inputs, bound ms (and what bounds it), and the bf16
-    yardstick's ms."""
-    from tmac_tpu_torch.ops.cuda import qgemm_grouped_kernel as k4
+    rows, K4L from there, as kernel_for picks; K1 for per-tensor weights; a
+    CUDA graph of them all, the weights cold in L2 when they exceed it): a
+    dict of ms, plain ms on the first call's inputs, bound ms (and what
+    bounds it), and the bf16 yardstick's ms."""
     from tmac_tpu_torch.ops.qgemm import kernel_for
     x, qt, kw = calls[0]
     N = x.shape[0]
     fn = kernel_for(qt, N, dispatch="chunk")
     ms = graph_ms(lambda: [fn(a, w, **f) for a, w, f in calls],
                   reps=reps) / len(calls)
-    plain_ms = cuda_ms(lambda: k4.qgemm_grouped_plain(x, qt, **kw),
-                       3 if N == 1 else 1)
+    plain = kernel_for(qt, N, plain=True, dispatch="chunk")
+    plain_ms = cuda_ms(lambda: plain(x, qt, **kw), 3 if N == 1 else 1)
     ops = 2 * N * qt.kdim_padded * qt.mdim_padded
     nbytes = qgemm_bytes(qt, x, kw)
     by = "bytes" if nbytes / card.bw >= ops / card.int8_peak else "operations"
@@ -1765,20 +1807,25 @@ def rand_qt_on_card(gen, K, M, bits, gs, dev):
     generator `gen`, with the shapes, dtypes and value ranges of the
     package's init_params: random codes (packed bytes; at bits 3 a lo and
     a hi plane), bf16 scales (0.5 + U) * 2 * std / mid, zero points on
-    each group's mean code jittered by -2..2, bf16 sub.  K and M must need
-    no padding (K a multiple of 8 * gs at bits 1 and 3)."""
+    each group's mean code jittered by -2..2, bf16 sub.  M must be a
+    multiple of 128; K is padded as the package pads it (to a multiple of
+    p * gs, 8 * gs at bits 1 and 3), the padded groups' scales and zero
+    points 0 (x is zero there too)."""
     import torch
     from tmac_tpu_torch.ops.qgemm import QuantizedTensor, unpack_codes
+    from tmac_tpu_torch.utils import round_up
     p, qmax, mid = 8 if bits == 3 else 8 // bits, (1 << bits) - 1, 1 << (bits - 1)
-    if K % (p * gs) or M % 128:
-        raise ValueError(f"({K}, {M}) would need padding at bits {bits}")
-    G, Kb = K // gs, K // (4 if bits == 3 else p)
+    if M % 128 or K % gs:
+        raise ValueError(f"({K}, {M}) would need padding of M or a part group at bits {bits}")
+    Kp = round_up(K, p * gs)
+    G, Kb = Kp // gs, Kp // (4 if bits == 3 else p)
     packed = torch.randint(0, 256, (Kb, M), generator=gen, device=dev,
                            dtype=torch.uint8)
-    hi = torch.randint(0, 256, (K // 8, M), generator=gen, device=dev,
+    hi = torch.randint(0, 256, (Kp // 8, M), generator=gen, device=dev,
                        dtype=torch.uint8) if bits == 3 else None
     scales = (0.5 + torch.rand((G, M), generator=gen, device=dev)) \
         * (2.0 / math.sqrt(K) / mid)
+    scales[K // gs:] = 0.0
     if bits == 3:
         gmean = unpack_codes(QuantizedTensor(packed, hi, scales, scales, bits, gs, 1, 1, (K, M))
                              ).reshape(G, gs, M).float().mean(1)
@@ -1791,6 +1838,38 @@ def rand_qt_on_card(gen, K, M, bits, gs, dev):
     return QuantizedTensor(packed, hi, scales.to(torch.bfloat16),
                            (scales * zq).to(torch.bfloat16), bits, gs, 1, 1,
                            (K, M))
+
+
+def wa8_qt_on_card(gen, K, M, dev):
+    """Per-tensor ternary weights (K, M) drawn on the card, as the
+    package's init_params draws w_a8 ones: codes 1..3 (-1, 0, 1 about the
+    midpoint) in every field, f32 scales (0.5 + U) / sqrt(K), sub = 2 *
+    scale; K padded to a multiple of 16."""
+    import torch
+    from tmac_tpu_torch.ops.qgemm import QuantizedTensor
+    from tmac_tpu_torch.utils import round_up
+    Kp = round_up(K, 16)
+    f = torch.randint(1, 4, (4, Kp // 4, M), generator=gen, device=dev, dtype=torch.uint8)
+    packed = f[0] | (f[1] << 2) | (f[2] << 4) | (f[3] << 6)
+    del f
+    scales = (0.5 + torch.rand((1, M), generator=gen, device=dev)) / math.sqrt(K)
+    return QuantizedTensor(packed, None, scales, 2 * scales, 2, Kp, 1, 1, (K, M))
+
+
+def pt_qt_on_card(gen, K, M, bits, dev):
+    """Per-tensor weights (K, M) at bits 1, 2 or 4 drawn on the card:
+    random packed bytes (every code), f32 scales (0.5 + U) / sqrt(K), and
+    zero points on random codes (sub = z * scale, z in [0, 2^bits)); K a
+    multiple of 4 * 8 / bits."""
+    import torch
+    from tmac_tpu_torch.ops.qgemm import QuantizedTensor
+    p = 8 // bits
+    if K % (4 * p) or M % 128:
+        raise ValueError(f"({K}, {M}) would need padding at bits {bits}")
+    packed = torch.randint(0, 256, (K // p, M), generator=gen, device=dev, dtype=torch.uint8)
+    scales = (0.5 + torch.rand((1, M), generator=gen, device=dev)) / math.sqrt(K)
+    z = torch.randint(0, 1 << bits, (1, M), generator=gen, device=dev).float()
+    return QuantizedTensor(packed, None, scales, z * scales, bits, K, 1, 1, (K, M))
 
 
 def int8_head_on_card(gen, H, V, dev):
@@ -1812,7 +1891,8 @@ def params_on_card(cfg, seed, dev):
     """A model's parameter tree at full size, drawn on the card (the
     package's numpy draws take minutes at billions of weights): norms of
     ones, bf16 embedding (and MoE router) ~N(0, 0.02), random grouped
-    weights (rand_qt_on_card; at bits 3 with their hi planes), with
+    weights (rand_qt_on_card; at bits 3 with their hi planes; at w_a8
+    per-tensor ternary ones, wa8_qt_on_card), with
     attention_bias nonzero bf16 q/k/v biases ~N(0, 0.5) (the package's
     init_params draws zeros, which would leave the bias adds unchecked), a
     random int8 head."""
@@ -1826,6 +1906,8 @@ def params_on_card(cfg, seed, dev):
     H, E, V = cfg.hidden_size, cfg.num_experts, cfg.vocab_size
 
     def qt(K, M):
+        if cfg.quant.mode == "w_a8":
+            return wa8_qt_on_card(gen, K, M, dev)
         return rand_qt_on_card(gen, K, M, cfg.quant.bits, cfg.quant.group_size, dev)
 
     def normal(*shape):
@@ -1938,6 +2020,44 @@ def k7_route_graph(card, layer, cfg, replays=8):
     if len({tuple(r) for r in routes}) < 2:
         raise AssertionError(f"K7 graph replay: the route never changed: {routes}")
     return routes
+
+
+def time_k7_step(card, cfg, layers):
+    """K7 per call at decode (N=1), as the select form calls it: the 2 routed
+    experts of a layer in one call, gate_up on the shared row, down on
+    each expert's f32 gate_up output; CUDA graphs of its calls over the
+    layers' stacks (cold in L2, as in a step), beside its plain version,
+    byte bound and the bf16 matmul on the routed experts' dequantized
+    weights.  -> (rows, per-step totals)"""
+    import torch
+    from tmac_tpu_torch.models.moe import expert_view
+    from tmac_tpu_torch.ops.cuda import expert_kernel as k7
+    H, E, L = cfg.hidden_size, cfg.num_experts, len(layers)
+    Ie, k = layers[0]["experts_down"].kdim, cfg.num_experts_per_tok
+    rows, tot = [], dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0)
+    for shape, width, glu in (("gate_up", H, False), ("down", 2 * Ie, True)):
+        name = "experts_" + shape
+        calls = [((card.bf16(k, 1, width).float() if glu else card.bf16(1, width)),
+                  layers[i][name],
+                  torch.tensor([(3 * i + j) % E for j in range(k)], dtype=torch.int32,
+                               device=card.dev))
+                 for i in range(L)]
+        x, st, idx = calls[0]
+        ms = graph_ms(lambda: [k7.qgemm_experts(a, s_, i_, glu=glu)
+                               for a, s_, i_ in calls]) / L
+        plain_ms = cuda_ms(lambda: k7.qgemm_experts_plain(x, st, idx, glu=glu), 3)
+        one = expert_view(st, 0)
+        lib_ms = k * yardstick_ms(card, (x[0] if glu else x).to(torch.bfloat16), one, True)
+        nbytes = expert_bytes(one, k, x)
+        ops = 2 * k * one.kdim_padded * one.mdim_padded
+        bound = card.bound_ms(nbytes, ops, card.int8_peak)
+        rows.append(dict(shape=shape, experts=k, K=one.kdim, Mp=one.mdim_padded,
+                         ms=ms, plain_ms=plain_ms, bound_ms=bound, library_ms=lib_ms,
+                         bytes=nbytes, per_step=L))
+        for key, val in (("ms", ms), ("plain_ms", plain_ms),
+                         ("bound_ms", bound), ("library_ms", lib_ms)):
+            tot[key] += L * val
+    return rows, tot
 
 
 def mixtral_path(card):
@@ -2055,42 +2175,30 @@ def mixtral_path(card):
     k4l_bound = L * sum(card.bound_ms(qgemm_bytes(qt, x, kw),
                                       2 * x.shape[0] * qt.kdim_padded * qt.mdim_padded,
                                       card.int8_peak) for qt, x, kw in k4l_calls)
+    # the same calls on layer 0's weights (wqkv and wo at the prompt's rows,
+    # each expert's gate_up and down at its Cm slots): the plain version
+    # eagerly and the bf16 matmul on the dequantized weights (one call
+    # each, a CUDA graph), times the layers
+    l0_calls = [(card.bf16(LLAMA_PROMPT, H), l0["wqkv"], dict(norm=(l0["attn_norm"], eps))),
+                (card.bf16(LLAMA_PROMPT, cfg.q_dim), l0["wo"],
+                 dict(residual=card.bf16(LLAMA_PROMPT, H)))]
+    l0_calls += [(card.bf16(Cm, H), expert_view(gu0, e), {}) for e in range(E)]
+    l0_calls += [(card.bf16(Cm, 2 * Ie), expert_view(dn0, e), dict(glu=True))
+                 for e in range(E)]
+    k4l_plain = L * cuda_ms(lambda: [k4.qgemm_grouped_plain(x, qt, **kw)
+                                     for x, qt, kw in l0_calls], 1)
+    k4l_lib = L * sum(yardstick_ms(card, x, qt, False) for x, qt, _ in l0_calls)
+    del l0_calls
     say("k4l_times_mixtral", at_s=round(time.perf_counter() - t_path, 3),
         prompt=LLAMA_PROMPT, capacity=Cm,
         ms_per_prefill=by_kernel.get("K4L matmul", 0.0) + by_kernel.get("K4/K4L prologue", 0.0),
         matmul_ms=by_kernel.get("K4L matmul", 0.0),
         prologue_ms=by_kernel.get("K4/K4L prologue", 0.0),
         launches=launched.get("K4L matmul", 0), bound_ms_per_prefill=k4l_bound,
+        plain_ms_per_prefill=k4l_plain, library_ms_per_prefill=k4l_lib,
         card=card.name, nvidia_smi=card.smi)
 
-    # K7 per call at decode (N=1), as the select form calls it: the 2 routed
-    # experts of a layer in one call, gate_up on the shared row, down on
-    # each expert's f32 gate_up output; CUDA graphs of its calls over the
-    # 32 layers' stacks (cold in L2, as in a step)
-    k7_rows, tot = [], dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0)
-    k = cfg.num_experts_per_tok
-    for shape, width, glu in (("gate_up", H, False), ("down", 2 * Ie, True)):
-        name = "experts_" + shape
-        calls = [((card.bf16(k, 1, width).float() if glu else card.bf16(1, width)),
-                  layers[i][name],
-                  torch.tensor([(3 * i + j) % E for j in range(k)], dtype=torch.int32,
-                               device=card.dev))
-                 for i in range(L)]
-        x, st, idx = calls[0]
-        ms = graph_ms(lambda: [k7.qgemm_experts(a, s_, i_, glu=glu)
-                               for a, s_, i_ in calls]) / L
-        plain_ms = cuda_ms(lambda: k7.qgemm_experts_plain(x, st, idx, glu=glu), 3)
-        one = expert_view(st, 0)
-        lib_ms = k * yardstick_ms(card, (x[0] if glu else x).to(torch.bfloat16), one, True)
-        nbytes = expert_bytes(one, k, x)
-        ops = 2 * k * one.kdim_padded * one.mdim_padded
-        bound = card.bound_ms(nbytes, ops, card.int8_peak)
-        k7_rows.append(dict(shape=shape, experts=k, K=one.kdim, Mp=one.mdim_padded,
-                            ms=ms, plain_ms=plain_ms, bound_ms=bound, library_ms=lib_ms,
-                            bytes=nbytes, per_step=L))
-        for key, val in (("ms", ms), ("plain_ms", plain_ms),
-                         ("bound_ms", bound), ("library_ms", lib_ms)):
-            tot[key] += L * val
+    k7_rows, tot = time_k7_step(card, cfg, layers)
     say("k7_times", at_s=round(time.perf_counter() - t_path, 3), rows=k7_rows,
         per_step=dict(tot, calls=2 * L), card=card.name, nvidia_smi=card.smi)
 
@@ -3328,18 +3436,26 @@ def grouped_path(card, tag, cfg, prompt_len, chunk):
     version; then run_path's main run (prefill in chunks, decode_loop, the
     teacher-forced check: on the prompt's last position when a chunk takes
     K5, else on every position) and the kernels' device times per step and
-    per prefill.  -> the kernels' records"""
+    per prefill.  With the config's act_group_size the K4 and K4L checks,
+    timings and records are the ags form's, K4 also timed at ags 0 on the
+    same weights, and the ags and ags 0 logits at the prompt's last
+    position are held against a bf16 dequant forward (ags_accuracy,
+    printed).  -> the kernels' records"""
     import torch
     from tmac_tpu_torch.ops.qgemm import route
     t_path = time.perf_counter()
     params = params_on_card(cfg, 0, card.dev)
     torch.cuda.synchronize()
     say(f"{tag}_build", model=cfg.name, bits=cfg.quant.bits, layers=cfg.num_layers,
+        act_group_size=cfg.quant.act_group_size,
         init_params_s=round(time.perf_counter() - t_path, 3))
     layers, L = params["layers"], cfg.num_layers
     H, eps, rep = cfg.hidden_size, cfg.rms_norm_eps, cfg.num_heads // cfg.num_kv_heads
+    ags = cfg.quant.act_group_size
 
-    def args(shape, N, layer, folds=True):
+    def args(shape, N, layer, folds=True, with_ags=True):
+        """(x, weight, folds) of a linear at N rows, with act_gs (K4's
+        function in the ags form) unless with_ags is off (K5, ags 0)."""
         qt = layer[shape]
         if shape in ("wqkv", "gate_up"):
             kw = dict(norm=(layer["attn_norm" if shape == "wqkv" else "mlp_norm"], eps))
@@ -3348,7 +3464,10 @@ def grouped_path(card, tag, cfg, prompt_len, chunk):
             kw, width = dict(residual=card.bf16(N, qt.mdim)), qt.kdim
             if shape == "down" and qt.kdim_padded == qt.kdim:
                 kw["glu"], width = True, 2 * qt.kdim
-        return card.bf16(N, width if folds else qt.kdim), qt, kw if folds else {}
+        kw = kw if folds else {}
+        if ags and with_ags:
+            kw["act_gs"] = ags
+        return card.bf16(N, width if folds else qt.kdim), qt, kw
 
     shapes = ("wqkv", "wo", "gate_up", "down")
     l0 = layers[0]
@@ -3360,8 +3479,9 @@ def grouped_path(card, tag, cfg, prompt_len, chunk):
     pieces = [min(chunk, prompt_len - o) for o in range(0, prompt_len, chunk)]
     k5_chunks = sum(route(l0["wqkv"], n) == "K5" for n in pieces)
     k4l_chunks = sum(route(l0["wqkv"], n) == "K4L" for n in pieces)
-    k5_rows, k5_err = check_k5(card, [(sh, *args(sh, N, l0)) for N in (384, 512)
-                                      for sh in shapes]) if k5_chunks else ([], 0.0)
+    k5_rows, k5_err = check_k5(card, [(sh, *args(sh, N, l0, with_ags=False))
+                                      for N in (384, 512) for sh in shapes]
+                               ) if k5_chunks else ([], 0.0)
     head = params["lm_head"]
     k1_rows, k1_err = check_k1(card, [("head", card.bf16(1, H), head, {})])
     k3_rows, k3_err = check_k3(card, [("head", card.bf16(chunk, H), head, {})])
@@ -3377,23 +3497,31 @@ def grouped_path(card, tag, cfg, prompt_len, chunk):
                     tf_gate=LLAMA_TF_NMSE if k5_chunks else None,
                     tf_last_only=bool(k5_chunks))
     launches = main["launches"]
+    if ags:
+        say(f"{tag}_ags_accuracy", **ags_accuracy(card, cfg, params, main["prompt"], chunk))
 
-    def per(N, timer, count):
+    def per(N, timer, count, with_ags=True):
         """Each shape's time per call at N rows (over the layers' weights;
         4 layers' from 64 rows), summed over `count` calls of each."""
         rows, tot = [], dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0)
         for sh in shapes:
-            calls = [args(sh, N, layers[i]) for i in range(L if N == 1 else min(4, L))]
+            calls = [args(sh, N, layers[i], with_ags=with_ags)
+                     for i in range(L if N == 1 else min(4, L))]
             rows.append(dict(shape=sh, per=count, **timer(card, calls)))
             for key in tot:
                 tot[key] += count * rows[-1][key]
         return rows, tot
     k4_times, k4_tot = per(1, time_k4, L)
-    say(f"{tag}_k4_times", rows=k4_times, per_step=dict(k4_tot, calls=4 * L))
+    # the ags form beside K4 at ags 0 on the same weights
+    ags0 = dict(ags0_per_step=per(1, time_k4, L, with_ags=False)[1]) if ags else {}
+    say(f"{tag}_k4_times", rows=k4_times, per_step=dict(k4_tot, calls=4 * L),
+        act_group_size=ags, **ags0)
     k4l_times, k4l_tot = per(256, lambda c, calls: time_k4(c, calls, reps=5),
                              L * k4l_chunks)
-    say(f"{tag}_k4l_times", rows=k4l_times, per_prefill=dict(k4l_tot, calls=4 * L * k4l_chunks))
-    k5_times, k5_tot = per(512, time_k5, L * k5_chunks) if k5_chunks else ([], None)
+    say(f"{tag}_k4l_times", rows=k4l_times, per_prefill=dict(k4l_tot, calls=4 * L * k4l_chunks),
+        act_group_size=ags)
+    k5_times, k5_tot = per(512, time_k5, L * k5_chunks, with_ags=False) \
+        if k5_chunks else ([], None)
     if k5_chunks:
         say(f"{tag}_k5_times", rows=k5_times, per_prefill=dict(k5_tot, calls=4 * L * k5_chunks))
     h_ms, h_plain, h_bound, h_lib = time_head(card, head)
@@ -3402,20 +3530,23 @@ def grouped_path(card, tag, cfg, prompt_len, chunk):
     say(f"{tag}_step", eager_ms=main["step_ms"], graph_ms=main["graph_step_ms"],
         decode_loop_ms=main["loop_ms"],
         kernel_bound_ms=k4_tot["bound_ms"] + h_bound + k2_bound * L,
-        head_ms=h_ms, head_bound_ms=h_bound, kv_len=kv_len, k2_ms=k2_ms,
+        head_ms=h_ms, head_bound_ms=h_bound, head_plain_ms=h_plain, head_library_ms=h_lib,
+        kv_len=kv_len, k2_ms=k2_ms,
         k2_bound_ms=k2_bound, k2_library_ms=k2_lib, card=card.name, nvidia_smi=card.smi,
         path_s=round(time.perf_counter() - t_path, 3))
     bits, src = cfg.quant.bits, "tmac_tpu_torch/ops/cuda/csrc/"
+    form = f" ags {ags}" if ags else ""
 
     def rec(name, source, replaces, label, err, t, by):
-        return dict(name=name, path=cfg.name, route="cuda", source=src + source,
+        return dict(name=name, path=cfg.name + (f"-ags{ags}" if ags else ""),
+                    route="cuda", source=src + source,
                     replaces="tmac_tpu/ops/pallas/" + replaces, launches=launches[label],
                     max_abs_err=err, ms=t["ms"], plain_ms=t["plain_ms"],
                     bound_ms=t["bound_ms"], bound_by=by, library_ms=t["library_ms"])
     records = [
-        rec(f"qgemm_grouped (K4) bits {bits}", "qgemm_grouped.cu", "qgemm_kernel.py:567",
-            "K4", k4_err, k4_tot, "bytes"),
-        rec(f"qgemm_grouped_large (K4L) bits {bits}", "qgemm_grouped.cu",
+        rec(f"qgemm_grouped (K4) bits {bits}{form}", "qgemm_grouped.cu",
+            "qgemm_kernel.py:567", "K4", k4_err, k4_tot, "bytes"),
+        rec(f"qgemm_grouped_large (K4L) bits {bits}{form}", "qgemm_grouped.cu",
             "qgemm_kernel.py:428", "K4L", k4l_err, k4l_tot, dominant_bound(k4l_times)),
         rec(f"flash_decode (K2) rep {rep}", "flash_decode.cu", "attention_kernel.py:367",
             "K2", k2_err, dict(ms=k2_ms * L, plain_ms=k2_plain * L, bound_ms=k2_bound * L,
@@ -3427,6 +3558,273 @@ def grouped_path(card, tag, cfg, prompt_len, chunk):
                            dominant_bound(k5_times)))
     del params, main
     return records
+
+
+# K4's ags form checked at every bits on a weight of Llama-2-7B's wo shape;
+# path 7's activation group size
+AGS_SIZES, AGS_ROWS, AGS_PATH = (32, 64), (1, 4, 16), 32
+
+
+def ags_path(card):
+    """Path 7: Llama-2-7B W2 g128 with zero points and act_group_size 32
+    (grouped_path; weights drawn on the card): a 768-token prompt in chunks
+    of 512 (K5, where the reference keeps float activations) and 256 (K4L's
+    ags form), 64 steps at positions 768-831 (K4's ags form, K1, K2).
+    -> the kernels' records"""
+    from tmac_tpu_torch.models.config import get_preset
+    cfg = get_preset("llama-2-7b").with_quant(act_group_size=AGS_PATH)
+    return grouped_path(card, "llama2_ags32", cfg, W3_PROMPT, W3_CHUNK)
+
+
+def k4_ags_bits_check(card):
+    """K4's ags form at bits 1, 2, 3 and 4 (ags 32 and 64, N = 1, 4 and 16)
+    on a 4096 x 4096 weight drawn on the card (gs 128), through check_k4:
+    without folds bit for bit with the prologue's codes, per-activation-
+    group scales and weight groups' code sums byte for byte, at its
+    cluster sizes; with wo's residual bit for bit.  -> (rows, worst)"""
+    import torch
+    gen = torch.Generator(device=card.dev)
+    gen.manual_seed(13)
+    rows, worst = [], 0.0
+    for bits in (1, 2, 3, 4):
+        qt = rand_qt_on_card(gen, 4096, 4096, bits, 128, card.dev)
+        cases = []
+        for ags in AGS_SIZES:
+            for N in AGS_ROWS:
+                cases += [(f"4096 x 4096 w{bits}", card.bf16(N, 4096), qt, dict(act_gs=ags)),
+                          (f"4096 x 4096 w{bits}", card.bf16(N, 4096), qt,
+                           dict(act_gs=ags, residual=card.bf16(N, 4096)))]
+        r, err = check_k4(card, cases)
+        rows += r
+        worst = max(worst, err)
+        del qt
+    return rows, worst
+
+
+def wa8_k7_checks(card, cfg, gu0, dn0):
+    """K7's per-tensor branch on the path's own stacks (gate_up 4096 x 28672
+    on a shared bf16 row, down 14336 x 4096 with the SwiGLU prologue on each
+    expert's f32 rows) at N = 1 and 4, and on 4-expert stacks at the same
+    shapes drawn on the card: per-tensor at bits 1 and 4 (pt_qt_on_card,
+    nonzero zero points) and grouped at bits 1 (g128), through check_k7
+    (every expert alone, routes of two covering every expert, one at
+    cluster sizes 1 and 8): bit for bit.  Each 4-expert stack's forms then
+    timed as time_k7_step times a Mixtral step, over 32 calls whose routes
+    rotate through the stack (its 4 experts exceed the 50 MB L2 at bits 4
+    and come close at bits 1).  -> (rows, worst, {form: (rows, per 32 calls)})"""
+    import torch
+    from tmac_tpu_torch.models.moe import stack_experts
+    from tmac_tpu_torch.ops.qgemm import fuse_m
+    H, Ie, E = gu0.kdim, dn0.kdim, 4
+    gen = torch.Generator(device=card.dev)
+    gen.manual_seed(7)
+    stacks = [(gu0, dn0, gu0.packed.shape[0])]
+    for bits, gs in ((1, 0), (4, 0), (1, 128)):
+        def draw(K, M):
+            return (rand_qt_on_card(gen, K, M, bits, gs, card.dev) if gs
+                    else pt_qt_on_card(gen, K, M, bits, card.dev))
+        stacks.append((stack_experts([fuse_m([draw(H, Ie), draw(H, Ie)]) for _ in range(E)]),
+                       stack_experts([draw(Ie, H) for _ in range(E)]), E))
+    rows, worst, times = [], 0.0, {}
+    four = dataclasses.replace(cfg, num_experts=E)
+    for gu, dn, n in stacks:
+        form = "grouped" if gu.scales.shape[-2] > 1 else "per-tensor"
+        cases = []
+        for N in (1, 4):
+            cases += [(f"gate_up {form}", card.bf16(1, N, H), gu, False),
+                      (f"down {form}", card.bf16(n, N, 2 * Ie).float(), dn, True)]
+        r, err = check_k7(card, cases)
+        rows += r
+        worst = max(worst, err)
+        if n == E:
+            times[f"bits {gu.bits} {form}"] = time_k7_step(
+                card, four, [{"experts_gate_up": gu, "experts_down": dn}] * 32)
+    del stacks
+    torch.cuda.empty_cache()
+    return rows, worst, times
+
+
+def mixtral_wa8_path(card):
+    """Path 8: Mixtral-8x7B's architecture (32 layers, hidden 4096, 8
+    experts top-2 of FFN 14336, 32 heads over 8 KV heads, vocab 32000) at
+    w_a8 bits 2, ternary per-tensor weights drawn on the card (seed 0; the
+    experts' codes 11.3 GB): K7's per-tensor branch checks (and its bits 1
+    and 4 forms, wa8_k7_checks), K1 and K3 on its linears and head, K2;
+    then run_path's main run: a 256-token prefill, whose MoE layers take
+    the capacity dispatch form with every expert's 128 slots on K3, and 64
+    select steps (K7's per-tensor branch for both routed experts, one call
+    for gate_up and one for down a layer, K1 on wqkv, wo and the head, K2
+    at rep 4), teacher-forced on every position; each kernel's device time
+    per step or prefill.  -> the kernels' records"""
+    import torch
+    from tmac_tpu_torch.models.config import get_preset
+    from tmac_tpu_torch.models.moe import expert_capacity, expert_view
+    t_path = time.perf_counter()
+    cfg = get_preset("mixtral-8x7b").with_quant(mode="w_a8", group_size=-1, bits=2)
+    params = params_on_card(cfg, 0, card.dev)
+    torch.cuda.synchronize()
+    layers, head = params["layers"], params["lm_head"]
+    H, L, E, eps = cfg.hidden_size, cfg.num_layers, cfg.num_experts, cfg.rms_norm_eps
+    l0 = layers[0]
+    gu0, dn0 = l0["experts_gate_up"], l0["experts_down"]
+    Ie, C = dn0.kdim, expert_capacity(LLAMA_PROMPT, cfg)
+    say("mixtral_wa8_build", init_params_s=round(time.perf_counter() - t_path, 3),
+        mode=cfg.quant.mode, bits=cfg.quant.bits, layers=L, experts=E,
+        expert_code_gb=round(L * (gu0.packed.numel() + dn0.packed.numel()) / 1e9, 3),
+        allocated_gb=round(torch.cuda.memory_allocated() / 1e9, 3))
+    k7_rows, k7_err, k7_forms = wa8_k7_checks(card, cfg, gu0, dn0)
+    say("k7_check_wa8", at_s=round(time.perf_counter() - t_path, 3), checks=k7_rows,
+        times={f: dict(rows=r, per_32_calls=t) for f, (r, t) in k7_forms.items()},
+        card=card.name, nvidia_smi=card.smi)
+
+    # the path's linears: (x, weight, folds) at N rows
+    def lin(shape, N, layer, e=None):
+        if shape == "wqkv":
+            return card.bf16(N, H), layer["wqkv"], dict(norm=(layer["attn_norm"], eps))
+        if shape == "wo":
+            return card.bf16(N, cfg.q_dim), layer["wo"], dict(residual=card.bf16(N, H))
+        if shape == "gate_up":
+            return card.bf16(N, H), expert_view(layer["experts_gate_up"], e), {}
+        if shape == "down":
+            return card.bf16(N, 2 * Ie), expert_view(layer["experts_down"], e), dict(glu=True)
+        return card.bf16(N, H), head, {}
+    k1_cases = [(sh, *lin(sh, N, l0, 3)) for sh in ("wqkv", "wo", "head") for N in (1, 4)]
+    k1_cases += [(sh, x[:, :w.kdim].contiguous(), w, {}) for sh, x, w, _ in k1_cases[:4]]
+    k1_rows, k1_err = check_k1(card, k1_cases)
+    k3_rows, k3_err = check_k3(card, [(sh, *lin(sh, n, l0, 5)) for sh, n in (
+        ("wqkv", LLAMA_PROMPT), ("wo", LLAMA_PROMPT), ("gate_up", C), ("down", C),
+        ("head", LLAMA_PROMPT))])
+    k2_rows, k2_err = check_k2_heads(card, cfg.num_kv_heads, cfg.num_heads // cfg.num_kv_heads,
+                                     cfg.head_dim)
+    say("k1_k3_k2_check_wa8", at_s=round(time.perf_counter() - t_path, 3), k1=k1_rows,
+        k3=k3_rows, k2=k2_rows)
+
+    # prefill: wqkv and wo at 256 rows, every expert's gate_up and down at
+    # its C slots, the head (K3); a step: K1 on wqkv, wo and the head, one K7
+    # call for the 2 routed experts' gate_up and one for their down a layer
+    main = run_path(card, "mixtral_wa8", cfg, params, LLAMA_PROMPT,
+                    counts(K3=(2 + 2 * E) * L + 1),
+                    counts(K1=2.0 * L + 1, K7=2.0 * L, K2=float(L)), forced=MOE_FORCED)
+    launches = main["launches"]
+
+    k7_times, k7_tot = time_k7_step(card, cfg, layers)
+    say("k7_times_wa8", at_s=round(time.perf_counter() - t_path, 3), rows=k7_times,
+        per_step=dict(k7_tot, calls=2 * L), card=card.name, nvidia_smi=card.smi)
+    k1_rows, k1_tot = [], dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0)
+    for sh in ("wqkv", "wo"):
+        k1_rows.append(dict(shape=sh, per_step=L, **time_k4(
+            card, [lin(sh, 1, layers[i]) for i in range(L)])))
+        for key in k1_tot:
+            k1_tot[key] += L * k1_rows[-1][key]
+    h_ms, h_plain, h_bound, h_lib = time_head(card, head)
+    for key, val in (("ms", h_ms), ("plain_ms", h_plain), ("bound_ms", h_bound),
+                     ("library_ms", h_lib)):
+        k1_tot[key] += val
+    say("k1_times_wa8", rows=k1_rows, head=dict(ms=h_ms, plain_ms=h_plain, bound_ms=h_bound,
+                                                 library_ms=h_lib),
+        per_step=dict(k1_tot, calls=2 * L + 1))
+    k3_rows, k3_tot = [], dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0)
+    for sh, n, count in (("wqkv", LLAMA_PROMPT, L), ("wo", LLAMA_PROMPT, L),
+                         ("gate_up", C, E * L), ("down", C, E * L), ("head", LLAMA_PROMPT, 1)):
+        calls = [lin(sh, n, l0 if sh in ("gate_up", "down") else layers[i], i)
+                 for i in range(1 if sh == "head" else 4)]
+        row = time_k3(card, calls)
+        k3_rows.append(dict(shape=sh, per_prefill=count, **row))
+        for key in k3_tot:
+            k3_tot[key] += count * row[key]
+    say("k3_times_wa8", rows=k3_rows, per_prefill=dict(k3_tot, calls=(2 + 2 * E) * L + 1),
+        card=card.name, nvidia_smi=card.smi)
+    kv_len = LLAMA_PROMPT + (1 + STEPS) // 2
+    k2_ms, k2_plain, k2_bound, k2_lib = time_k2(card, cfg, main["cache"], kv_len)
+    say("mixtral_wa8_step", eager_ms=main["step_ms"], graph_ms=main["graph_step_ms"],
+        decode_loop_ms=main["loop_ms"],
+        kernel_bound_ms=k7_tot["bound_ms"] + k1_tot["bound_ms"] + k2_bound * L,
+        kv_len=kv_len, k2_ms=k2_ms, k2_plain_ms=k2_plain, k2_bound_ms=k2_bound,
+        k2_library_ms=k2_lib, card=card.name, nvidia_smi=card.smi,
+        path_s=round(time.perf_counter() - t_path, 3))
+    src = "tmac_tpu_torch/ops/cuda/csrc/"
+
+    def rec(name, source, replaces, label, err, t, by):
+        return dict(name=name, path="mixtral-8x7b-wa8", route="cuda", source=src + source,
+                    replaces="tmac_tpu/ops/pallas/" + replaces, launches=launches[label],
+                    max_abs_err=err, ms=t["ms"], plain_ms=t["plain_ms"],
+                    bound_ms=t["bound_ms"], bound_by=by, library_ms=t["library_ms"])
+    records = [
+        rec("qgemm_experts (K7) per-tensor bits 2", "qgemm_expert.cu",
+            "expert_kernel.py:207", "K7", k7_err, k7_tot, "bytes"),
+        rec("qgemm_fused (K1)", "qgemm_fused.cu", "qgemm_kernel.py:567", "K1", k1_err,
+            k1_tot, "bytes"),
+        rec("qgemm_large_int (K3)", "qgemm_large.cu", "qgemm_kernel.py:266", "K3", k3_err,
+            k3_tot, dominant_bound(k3_rows)),
+        rec("flash_decode (K2) rep 4", "flash_decode.cu", "attention_kernel.py:367", "K2",
+            k2_err, dict(ms=k2_ms * L, plain_ms=k2_plain * L, bound_ms=k2_bound * L,
+                         library_ms=k2_lib * L), "bytes"),
+    ]
+    del params, main, layers, head
+    return records
+
+
+@contextlib.contextmanager
+def dequant_forward():
+    """Every grouped linear of the model as bf16 activations times the bf16
+    dequantized weights in f32 (K5's plain function, qgemm_dequant_plain,
+    at every row count, no activation quantization); the per-tensor head
+    as it is."""
+    from tmac_tpu_torch.models import llama as tl
+    from tmac_tpu_torch.ops.cuda import qgemm_grouped_kernel as k5
+    saved = tl.kernel_for
+
+    def kernel_for(qt, N, plain=False, dispatch=None, act_gs=0):
+        if qt.scales.shape[0] > 1:
+            return k5.qgemm_dequant_plain
+        return saved(qt, N, plain, dispatch)
+    tl.kernel_for = kernel_for
+    try:
+        yield
+    finally:
+        tl.kernel_for = saved
+
+
+def ags_accuracy(card, cfg, params, prompt, chunk):
+    """What the finer activation scales buy, printed, not gated: layer 0's
+    four linears at 16 rows of N(0, 1) activations through K4 with the
+    config's activation group size and at ags 0, each output's NMSE to the
+    bf16 dequant product (qgemm_dequant_plain, no activation quantization);
+    and the prompt's last position's logits at both (the kernel path,
+    prefill in `chunk`-token pieces), each against a bf16 dequant forward
+    of the same weights (dequant_forward), where 32 random layers amplify
+    every rounding.  -> dict"""
+    import torch
+    from tmac_tpu_torch.models.llama import KVCache
+    from tmac_tpu_torch.ops.cuda import qgemm_grouped_kernel as k4
+    from tmac_tpu_torch.ops.qgemm import kernel_for
+    from tmac_tpu_torch.runtime.generate import prefill
+    from tmac_tpu_torch.utils import argmax_agreement, nmse
+    ags = cfg.quant.act_group_size
+    linears = {}
+    for name, qt in params["layers"][0].items():
+        if name not in ("wqkv", "wo", "gate_up", "down"):
+            continue
+        x = card.bf16(16, qt.kdim)
+        ref = k4.qgemm_dequant_plain(x, qt).cpu().numpy()
+        linears[name] = {f"ags{a}": nmse(ref, kernel_for(qt, 16, act_gs=a)(x, qt).cpu().numpy())
+                         for a in (ags, 0)}
+    tokens = torch.from_numpy(prompt).to(card.dev)
+
+    def last(c):
+        model = llama_in_mode(c, params, "explicit")
+        lg, _ = prefill(model, tokens, KVCache.create(c, 1, tokens.shape[1], device=card.dev),
+                        chunk=chunk)
+        return lg.float().cpu().numpy().reshape(-1)
+    fine = last(cfg)
+    coarse = last(cfg.with_quant(act_group_size=0))
+    with dequant_forward():
+        ref = last(cfg)
+    return dict(act_group_size=ags, linear_nmse_vs_dequant=linears,
+                prompt=int(tokens.shape[1]),
+                nmse_vs_dequant=nmse(ref, fine), nmse_vs_dequant_ags0=nmse(ref, coarse),
+                argmax_vs_dequant=argmax_agreement(ref, fine, TIE_MARGIN),
+                argmax_vs_dequant_ags0=argmax_agreement(ref, coarse, TIE_MARGIN))
 
 
 def graph_spread(card, own=3, shared=3, rounds=3, steps=32):
@@ -3487,9 +3885,10 @@ def graph_spread(card, own=3, shared=3, rounds=3, steps=32):
 
 def template_args(mangled):
     """A kernel's template arguments from its mangled name: bf16, f32,
-    int8 or an int (a substitution, S<n>_, repeats the type before it)."""
+    int8, an int or a bool (0, 1) (a substitution, S<n>_, repeats the type
+    before it)."""
     rest, args = mangled.partition("_kernelI")[2], []
-    while m := re.match(r"13__nv_bfloat16|f|a|Li(\d+)E|S\d*_", rest):
+    while m := re.match(r"13__nv_bfloat16|f|a|L[ib](\d+)E|S\d*_", rest):
         if m.group(0).startswith("S"):
             args.append(args[-1] if args else "?")
         else:
@@ -3522,8 +3921,8 @@ def main() -> int:
     for ln in "\n".join(logs.values()).splitlines():
         if "Compiling entry function" in ln:
             mangled = ln.split("'")[1]
-            base = re.search(r"(act_quant_grouped|act_quant|expert_quant|qgemm"
-                             r"|decode_attention|k1_decode|k4_decode|k7_decode"
+            base = re.search(r"(act_quant_grouped|act_quant|expert_quant_token|expert_quant"
+                             r"|qgemm|decode_attention|k1_decode|k4_decode|k7_decode|k7_token"
                              r"|k3_wgmma|act_bf16|dequant_wgmma|group_mma"
                              r"|block)_kernel", mangled)
             targs = template_args(mangled)
@@ -3559,6 +3958,17 @@ def main() -> int:
         sweep_b13_large(card)
         print(json.dumps({"kernels": records}), flush=True)
         return 0
+    if sys.argv[1:] == ["--phase", "ags_path"]:
+        say("build", nvcc_s=round(build_s, 3), ptxas=ptxas)
+        say("k4_ags_check", checks=k4_ags_bits_check(card)[0])
+        records = ags_path(card)
+        print(json.dumps({"kernels": records}), flush=True)
+        return 0
+    if sys.argv[1:] == ["--phase", "wa8_path"]:
+        say("build", nvcc_s=round(build_s, 3), ptxas=ptxas)
+        records = mixtral_wa8_path(card)
+        print(json.dumps({"kernels": records}), flush=True)
+        return 0
     if sys.argv[1:] == ["--phase", "qgemm_decode_sweep"]:
         say("build", nvcc_s=round(build_s, 3), ptxas=ptxas)
         say("qgemm_decode_sweep", card=card.name, nvidia_smi=card.smi,
@@ -3579,6 +3989,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     records += grouped_path(card, "qwen2", get_preset("qwen2-7b"), QWEN_PROMPT, QWEN_PROMPT)
     torch.cuda.empty_cache()
+    k4_ags_rows, _ = k4_ags_bits_check(card)
+    say("k4_ags_check", checks=k4_ags_rows)
+    records += ags_path(card)
+    torch.cuda.empty_cache()
+    records += mixtral_wa8_path(card)
+    torch.cuda.empty_cache()
     say("attn_sweep", card=card.name, nvidia_smi=card.smi, rows=attn_sweep(card))
     say("qgemm_decode_sweep", card=card.name, nvidia_smi=card.smi,
         rows=qgemm_decode_sweep(card))
@@ -3591,12 +4007,16 @@ def main() -> int:
         "K2; llama-2-7b: 128 K4, 1 K1 and 32 K2; mixtral-8x7b: 64 K7 (one "
         "call for the 2 routed experts' gate_up, one for their down, a "
         "layer), 64 K4, 32 K2 and 1 K1; phi-3-mini: 128 K4, 1 K1 and 32 K6, K8 or K9; "
-        "llama-3.1-8b W3: 128 K4, 1 K1 and 32 K2; qwen2-7b W4: 112 K4, 1 K1 and 28 K2), "
+        "llama-3.1-8b W3: 128 K4, 1 K1 and 32 K2; qwen2-7b W4: 112 K4, 1 K1 and 28 K2; "
+        "llama-2-7b ags 32: 128 K4 (the ags form), 1 K1 and 32 K2; mixtral-8x7b w_a8: 64 "
+        "K7 (the per-tensor branch), 65 K1 and 32 K2), "
         "except K3, K5 and K4L: device ms per prefill (bitnet-3b: 420 K3 "
         "launches for 1024 tokens in chunks of 256; llama-2-7b: 256 K5 for "
         "1024 tokens in chunks of 512; phi-3-mini: 1152 K4L for 2304 tokens "
         "in chunks of 256; llama-3.1-8b: 128 K5 and 128 K4L for 768 tokens in "
-        "chunks of 512 and 256; qwen2-7b: 112 K4L for 256 tokens); launches: the wrappers' counts over each path's "
+        "chunks of 512 and 256; qwen2-7b: 112 K4L for 256 tokens; llama-2-7b ags 32: 128 K5 "
+        "and 128 K4L (the ags form) for 768 tokens in chunks of 512 and 256; mixtral-8x7b "
+        "w_a8: 577 K3 for 256 tokens); launches: the wrappers' counts over each path's "
         "prefill and decode_loop, which calls a step's wrappers twice (its "
         "eager first step and the one capture) and replays the graph for "
         "the other 63 steps without the host (launched_on_card in step_ms: "

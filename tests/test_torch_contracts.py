@@ -260,10 +260,10 @@ def test_ctypes_signatures_match_the_c_interfaces():
     assert not {"tmac_flash_decode", "tmac_flash_decode_split"} & set(c_args)
     # K1's and K4's decode forms: the prologue (K1's with its code-order
     # flag) and one matmul each, with its cluster size and token rows (K4's
-    # also with the bits-3 hi plane's pointer)
+    # also with the bits-3 hi plane's pointer and the activation group size)
     assert c_args["tmac_act_quant"] == 16
     assert c_args["tmac_decode_qgemm"] == 15
-    assert c_args["tmac_decode_group_gemm"] == 17
+    assert c_args["tmac_decode_group_gemm"] == 18
     assert not {"tmac_qgemm", "tmac_group_dots", "tmac_group_fold"} & set(c_args)
     # K7: one entry for the k routed experts (prologue and K4's decode
     # matmul with the expert as grid.z); K10 with its scratch and grid

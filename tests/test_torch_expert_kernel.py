@@ -176,12 +176,19 @@ def test_wrapper_dispatch_and_limits():
             for _ in range(2)])
     bf = dict(scale_dtype=torch.bfloat16)
     for bad in (stack_of(3, 512, GS, **bf),     # bits 3
-                stack_of(2, 512, GS),           # f32 scales
-                stack_of(2, 512, 512),          # per-tensor (G = 1)
+                stack_of(2, 512, GS),           # grouped f32 scales
+                stack_of(2, 512, 512, **bf),    # per-tensor bf16 scales
                 stack_of(2, 640, GS, **bf),     # K padded 640 -> 1024
                 expert_view(st, 0)):            # not a stack
         with pytest.raises(ValueError):
             qgemm_expert(torch.zeros(1, bad.kdim), bad, 0)
+    # per-tensor f32 scales (G = 1, the w_a8 experts) and bits 1 are in
+    # the scope, as in the reference's
+    for good in (stack_of(2, 512, 512), stack_of(1, 1024, GS, **bf)):
+        assert expert_kernel_supported(good)
+        xg = torch.ones(1, good.kdim)
+        assert torch.equal(qgemm_expert(xg, good, 1), qgemm_expert_plain(xg, good, 1))
+    assert not expert_kernel_supported(stack_of(2, 512, 512), act_gs=32)
     with pytest.raises(ValueError):             # glu needs (N, 2K)
         qgemm_expert(x, st, 0, glu=True)
     with pytest.raises(TypeError):              # a device index gathers

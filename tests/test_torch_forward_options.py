@@ -185,8 +185,9 @@ def test_mixtral_other_prompt_gap_is_xla_rsqrt(mixtral, monkeypatch):
 
 def test_check_slice_admits_every_preset_and_names_what_it_refuses():
     """Every preset passes (w_fp at bits 1 to 4, biases, every rope
-    scaling, tied and bf16 heads, MoE); what is still refused raises with
-    the missing form's name."""
+    scaling, tied and bf16 heads, MoE), and so do an act_group_size (valid
+    or one the JAX package ignores) and MoE at w_a8; what is still refused
+    raises with the missing form's name."""
     from tmac_tpu_torch.models.config import PRESETS
     from tmac_tpu_torch.models.llama import _check_slice
     for name in PRESETS:
@@ -196,8 +197,12 @@ def test_check_slice_admits_every_preset_and_names_what_it_refuses():
     _check_slice(dataclasses.replace(cfg, tie_word_embeddings=True, head_bits=16,
                                      attention_bias=True, rope_scaling=("yarn", 4.0, 4096)))
     bitnet = get_preset("bitnet-3b")
-    for bad, match in ((cfg.with_quant(act_group_size=32), "act_group_size"),
-                       (dataclasses.replace(bitnet, num_experts=8), "MoE with w_a8"),
-                       (bitnet.with_quant(bits=4), "w_a8 at bits 4")):
+    for ags in (32, 64, 96):
+        _check_slice(cfg.with_quant(act_group_size=ags))
+    _check_slice(dataclasses.replace(bitnet, num_experts=8))
+    mixtral = get_preset("mixtral-8x7b")
+    _check_slice(mixtral.with_quant(mode="w_a8", group_size=-1))
+    _check_slice(mixtral.with_quant(act_group_size=32))
+    for bad, match in ((bitnet.with_quant(bits=4), "w_a8 at bits 4"),):
         with pytest.raises(NotImplementedError, match=match):
             _check_slice(bad)

@@ -103,7 +103,7 @@ def _state_masks(x, rows, monkeypatch):
                                       js.SamplerState.make(t, k, p, min_p=m)))
     tseen = _capture_masked(ts, monkeypatch)
     ttok = sample_state(torch.from_numpy(x), torch.Generator(),
-                        SamplerState.make(t, k, p, min_p=m)).numpy()
+                        SamplerState.make(t, k, p, min_p=m, device="cpu")).numpy()
     return tseen["masked"], jseen["masked"], ttok, jtok
 
 
@@ -143,7 +143,7 @@ def test_sampler_state_matches_jax_fields():
     cfg = SamplerConfig(temperature=0.8, top_k=40, top_p=0.95, min_p=0.05,
                         repeat_penalty=1.1, presence_penalty=0.2,
                         frequency_penalty=0.3)
-    got = SamplerState.broadcast(cfg, 3)
+    got = SamplerState.broadcast(cfg, 3, device="cpu")
     want = js.SamplerState.broadcast(js.SamplerConfig(**cfg.__dict__), 3)
     for f in ("temperature", "top_k", "top_p", "min_p", "repeat_penalty",
               "presence_penalty", "frequency_penalty"):
@@ -233,7 +233,7 @@ def test_sample_state_draws_follow_each_rows_distribution():
     x = torch.from_numpy(_logits(6, rows=1, V=12, scale=1.5))
     rows = [(0.8, 5, 1.0, 0.0), (1.2, 0, 0.9, 0.05)]
     t, k, p, m = (list(c) * DRAWS for c in zip(*rows))
-    st = SamplerState.make(t, k, p, min_p=m)
+    st = SamplerState.make(t, k, p, min_p=m, device="cpu")
     toks = sample_state(x.expand(2 * DRAWS, -1), torch.Generator()
                         .manual_seed(8), st).numpy().reshape(DRAWS, 2)
     for r, (tr, kr, pr, mr) in enumerate(rows):
@@ -245,7 +245,7 @@ def test_sample_state_draws_follow_each_rows_distribution():
 def test_greedy_is_first_argmax():
     x = torch.tensor([[1.0, 3.0, 3.0, 0.0], [5.0, 5.0, 1.0, 2.0]])
     assert sample(x).tolist() == [1, 0]
-    st = SamplerState.make([0.0, 0.0], [0, 0], [1.0, 1.0])
+    st = SamplerState.make([0.0, 0.0], [0, 0], [1.0, 1.0], device="cpu")
     assert sample_state(x, torch.Generator(), st).tolist() == [1, 0]
 
 
@@ -272,4 +272,4 @@ def test_sampling_without_a_generator_raises():
     with pytest.raises(ValueError, match="Generator"):
         sample(x, None, SamplerConfig(temperature=1.0))
     with pytest.raises(ValueError, match="Generator"):
-        sample_state(x, None, SamplerState.make([0.0], [0], [1.0]))
+        sample_state(x, None, SamplerState.make([0.0], [0], [1.0], device="cpu"))

@@ -6,9 +6,11 @@ an optional sliding window (Phi-3-mini), optional q/k/v biases (Qwen2),
 an int8, bf16 or tied head, and a bf16 or int8 KV cache; w_a8 (BitNet
 W1.58A8, per-tensor scales, bits 2) and w_fp with grouped scales at bits
 1 to 4 (e.g. Llama-2-7B W2A16 / W4A16 g128, Llama-3.1-8B W3A16, Qwen2-7B
-W4A16), dense or MoE (Mixtral-8x7B: the MLP is models/moe.py's moe_mlp,
-whose decode form runs kernel K7).  ``_check_slice`` names what is not
-ported yet.
+W4A16), optionally with activation groups finer than the weight groups
+(``act_group_size``, K4's and K4L's ags form), dense or MoE
+(Mixtral-8x7B: the MLP is models/moe.py's moe_mlp, whose decode form runs
+kernel K7, grouped or, at w_a8, per-tensor).  ``_check_slice`` names
+what is not ported yet.
 Every quantized linear goes through the kernel that the JAX package's
 pallas path runs for its weights and rows (ops.qgemm.route): for
 per-tensor scales K1 (ops/cuda/qgemm_kernel.py) below 64 rows and K3 from
@@ -34,6 +36,7 @@ Parameters are a plain dict tree (``init_params``, or
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 import os
 from typing import Any, Dict, Optional
@@ -65,21 +68,22 @@ def quantize_activations_int8(x: torch.Tensor):
 
 
 def apply_qlinear(x: torch.Tensor, qt: QuantizedTensor, norm=None,
-                  glu: bool = False, residual=None, plain: bool = False):
+                  glu: bool = False, residual=None, plain: bool = False,
+                  act_gs: int = 0):
     """x (..., K) @ Wdq (K, M) -> (..., M) in x's dtype, with the JAX
     package's pallas semantics on its route for the rows of x
     (ops.qgemm.kernel_for; plain=True takes the kernel's plain version):
     int8 activations quantized inside the kernel (per token, or per token
-    and scale group; after the optional norm or SwiGLU fold) and exact
-    int32 dots, or, for grouped scales from 3 * group_size rows, bf16
-    activations times bf16 dequantized weights; the optional residual
-    added in the epilogue."""
+    and scale group, or with act_gs per token and activation group; after
+    the optional norm or SwiGLU fold) and exact int32 dots, or, for
+    grouped scales from 3 * group_size rows, bf16 activations times bf16
+    dequantized weights; the optional residual added in the epilogue."""
     shape = x.shape
     x2 = x.reshape(-1, shape[-1])
     res2 = residual.reshape(-1, residual.shape[-1]) \
         if residual is not None else None
-    out = kernel_for(qt, x2.shape[0], plain)(x2, qt, norm=norm, glu=glu,
-                                             residual=res2)
+    out = kernel_for(qt, x2.shape[0], plain, act_gs=act_gs)(
+        x2, qt, norm=norm, glu=glu, residual=res2)
     return out.reshape(*shape[:-1], qt.mdim).to(x.dtype)
 
 
@@ -221,20 +225,15 @@ class KVCache:
 
 def _check_slice(cfg: ModelConfig) -> None:
     """The model family this port covers so far: w_a8 with per-tensor
-    scales at bits 2 (BitNet), dense; w_fp with grouped scales at bits 1
-    to 4, dense or MoE; attention bias, tied, bf16 or int8 heads and every
-    rope scaling.  What it refuses names the missing form."""
+    scales at bits 2 (BitNet), dense or MoE; w_fp with grouped scales at
+    bits 1 to 4, dense or MoE, with an act_group_size or without (one
+    that does not divide the group size is ignored, as the JAX package
+    ignores it); attention bias, tied, bf16 or int8 heads and every rope
+    scaling.  What it refuses names the missing form."""
     q = cfg.quant
-    if q.act_group_size:
-        raise NotImplementedError(
-            "act_group_size > 0 (activation groups finer than the weight "
-            "groups: K4's ags form) is not ported yet")
     if q.mode == "w_a8":
         if q.group_size != -1:
             raise NotImplementedError("only per-tensor w_a8 is ported")
-        if cfg.num_experts:
-            raise NotImplementedError(
-                "MoE with w_a8 (K7's per-tensor, G = 1 branch) is not ported yet")
         if q.bits != 2:
             raise NotImplementedError(
                 f"w_a8 at bits {q.bits} (K1, K3 and K10 at bits 1, 3 and 4) "
@@ -670,9 +669,12 @@ class Llama(nn.Module):
         eps = cfg.rms_norm_eps
         qd, kvd = cfg.q_dim, cfg.kv_dim
         plain = self.plain
+        # every quantized linear of a layer, with the config's activation
+        # group size (K4's and K4L's ags form; the other kernels ignore it)
+        lin = functools.partial(apply_qlinear, plain=plain,
+                                act_gs=cfg.quant.act_group_size)
         for li, blk in enumerate(self.layers):
-            qkv = apply_qlinear(x, blk.wqkv.qt, norm=(blk.attn_norm, eps),
-                                plain=plain)
+            qkv = lin(x, blk.wqkv.qt, norm=(blk.attn_norm, eps))
             q, k, v = qkv[..., :qd], qkv[..., qd:qd + kvd], qkv[..., qd + kvd:]
             if hasattr(blk, "bq"):
                 # attention bias, added in the activations' dtype (bf16)
@@ -698,23 +700,24 @@ class Llama(nn.Module):
                           blk.wo.qt, blk.gate_up.qt, blk.down.qt,
                           eps).reshape(B, T, -1).to(x.dtype)
                 continue
-            x = apply_qlinear(attn, blk.wo.qt, residual=x, plain=plain)
+            x = lin(attn, blk.wo.qt, residual=x)
             if cfg.num_experts:
                 # MoE MLP (models/moe.py): norm, routing and the experts;
                 # the residual is added here, in bf16
-                x = x + moe_mlp(x, blk.moe_layer(), cfg, valid=valid, plain=plain)
+                x = x + moe_mlp(x, blk.moe_layer(), cfg, cfg.quant.mode,
+                                act_gs=cfg.quant.act_group_size, valid=valid,
+                                plain=plain)
                 continue
-            gu = apply_qlinear(x, blk.gate_up.qt, norm=(blk.mlp_norm, eps),
-                               plain=plain)
+            gu = lin(x, blk.gate_up.qt, norm=(blk.mlp_norm, eps))
             down = blk.down.qt
             if down.kdim_padded == down.kdim:
                 # SwiGLU folded into down's prologue
-                x = apply_qlinear(gu, down, glu=True, residual=x, plain=plain)
+                x = lin(gu, down, glu=True, residual=x)
             else:
                 # down's K is padded (e.g. W2 at group size 128): JAX runs
                 # silu(g) * u in bf16 before the kernel, and so does the port
                 h = silu_mul(gu[..., :down.kdim], gu[..., down.kdim:])
-                x = apply_qlinear(h, down, residual=x, plain=plain)
+                x = lin(h, down, residual=x)
         if pending:
             self._commit_kv(cache, *(torch.stack(t) for t in zip(*pending)))
         cache.pos += T if active is None else T * active.to(cache.pos.dtype)

@@ -11,12 +11,16 @@ sum of the expert outputs.  Three forms compute it (``moe_mlp``):
     through kernel K7 (ops/cuda/expert_kernel.py), which reads the expert
     indices from device memory and only those experts' bytes -- no host
     sync, so the decode step can be captured in a CUDA graph; one call for
-    every routed expert's gate_up and one for their down;
+    every routed expert's gate_up and one for their down (grouped w_fp
+    experts, or per-tensor w_a8 ones; with an act_group_size the JAX
+    package leaves K7, and so does the port: a gathered copy of each
+    expert through K4's ags form);
   * dense-masked (other small blocks): every expert on every token, the
     combine weights zeroing the experts not routed to;
   * capacity dispatch (prefill blocks, T > 1 and N >= 64): a one-hot
-    (tokens, E, C) dispatch tensor from a cumsum, per-expert FFNs (K4) on
-    dense (C, H) blocks, and two einsums to gather and scatter.
+    (tokens, E, C) dispatch tensor from a cumsum, per-expert FFNs (K4L,
+    K4 or K5 grouped, K3 or K1 per-tensor) on dense (C, H) blocks, and
+    two einsums to gather and scatter.
 
 The f32 matrix products (router logits, the combine) run with TF32 off on
 the card (``_full_f32``), as the reference runs them at HIGHEST precision.
@@ -138,33 +142,38 @@ def expert_capacity(n_tokens: int, cfg, capacity_factor: float = 2.0) -> int:
 # ---------------------------------------------------------------------------
 
 def _expert_ffn(x2: torch.Tensor, gu_qt: QuantizedTensor,
-                down_qt: QuantizedTensor, plain: bool) -> torch.Tensor:
+                down_qt: QuantizedTensor, mode: str, plain: bool,
+                act_gs: int = 0) -> torch.Tensor:
     """silu(x @ gate) * (x @ up) @ down on one expert; x2 (N, H) -> (N, H)
     in x2's dtype.  SwiGLU folds into down's prologue where down's K is
-    unpadded; elsewhere silu(g) * u runs in bf16 before down, as in the
-    dense MLP."""
+    unpadded (at w_a8 only for per-tensor scales, as in the JAX package);
+    elsewhere silu(g) * u runs in bf16 before down, as in the dense MLP.
+    act_gs: the activation group size of K4's ags form."""
     from tmac_tpu_torch.models.llama import apply_qlinear, silu_mul
-    gu = apply_qlinear(x2, gu_qt, plain=plain)
-    if down_qt.kdim_padded == down_qt.kdim:
-        return apply_qlinear(gu, down_qt, glu=True, plain=plain)
+    gu = apply_qlinear(x2, gu_qt, plain=plain, act_gs=act_gs)
+    if (down_qt.kdim_padded == down_qt.kdim
+            and (mode != "w_a8" or down_qt.scales.shape[0] == 1)):
+        return apply_qlinear(gu, down_qt, glu=True, plain=plain, act_gs=act_gs)
     ihalf = down_qt.kdim
     return apply_qlinear(silu_mul(gu[..., :ihalf], gu[..., ihalf:]), down_qt,
-                         plain=plain)
+                         plain=plain, act_gs=act_gs)
 
 
 # ---------------------------------------------------------------------------
 # The MoE MLP block
 # ---------------------------------------------------------------------------
 
-def moe_mlp(x: torch.Tensor, layer: dict, cfg,
-            ep_axis: Optional[str] = None, moe_impl: str = "auto",
-            capacity: Optional[int] = None,
+def moe_mlp(x: torch.Tensor, layer: dict, cfg, mode: Optional[str] = None,
+            act_gs: int = 0, ep_axis: Optional[str] = None,
+            moe_impl: str = "auto", capacity: Optional[int] = None,
             valid: Optional[torch.Tensor] = None,
             plain: bool = False) -> torch.Tensor:
     """The MoE replacement for the gate_up/down block.
 
     x (B, T, H) pre-norm hidden states -> the (B, T, H) expert-combined
-    output, without the residual add.  moe_impl: 'dense' | 'dispatch' |
+    output, without the residual add.  mode: the quantization mode
+    ("w_fp" or "w_a8"; cfg.quant.mode by default), act_gs: the activation
+    group size, as the JAX package's.  moe_impl: 'dense' | 'dispatch' |
     'select' | 'auto'; auto takes dispatch for prefill blocks (T > 1 and
     N >= 64), select for one token (N == 1, unless TMAC_MOE_SELECT=0), and
     dense otherwise.  capacity: the dispatch form's per-expert slots
@@ -175,6 +184,7 @@ def moe_mlp(x: torch.Tensor, layer: dict, cfg,
     if ep_axis is not None:
         raise NotImplementedError("expert parallelism (ep_axis) is not ported")
     from tmac_tpu_torch.models.llama import rms_norm
+    mode = mode or cfg.quant.mode
     B, T, H = x.shape
     xn = rms_norm(x, layer["mlp_norm"], cfg.rms_norm_eps)
     x2 = xn.reshape(-1, H)
@@ -201,8 +211,8 @@ def moe_mlp(x: torch.Tensor, layer: dict, cfg,
         assert N == 1, N
         topw, topi = top_k(cw[0], cfg.num_experts_per_tok)
         acc = torch.zeros((N, H), dtype=torch.float32, device=x.device)
-        if (expert_kernel_supported(gu_stack)
-                and expert_kernel_supported(down_stack)):
+        if (expert_kernel_supported(gu_stack, act_gs)
+                and expert_kernel_supported(down_stack, act_gs)):
             # K7: the routed indices stay on the device and the kernel reads
             # the routed experts' bytes from the stack, all k in one call;
             # down's prologue rounds the f32 gate_up output to bf16 as it
@@ -217,14 +227,14 @@ def moe_mlp(x: torch.Tensor, layer: dict, cfg,
             # outside K7's scope: a gathered copy of each routed expert
             for j in range(topi.shape[0]):
                 ye = _expert_ffn(x2, expert_copy(gu_stack, topi[j]),
-                                 expert_copy(down_stack, topi[j]), plain)
+                                 expert_copy(down_stack, topi[j]), mode, plain, act_gs)
                 acc = acc + topw[j] * ye.float()
         out = acc
     elif moe_impl == "dense":
         acc = torch.zeros((N, H), dtype=torch.float32, device=x.device)
         for e in range(E):
             ye = _expert_ffn(x2, expert_view(gu_stack, e),
-                             expert_view(down_stack, e), plain)
+                             expert_view(down_stack, e), mode, plain, act_gs)
             acc = acc + cw[:, e:e + 1] * ye.float()
         out = acc
     else:
@@ -240,7 +250,7 @@ def moe_mlp(x: torch.Tensor, layer: dict, cfg,
         xe = torch.einsum("nec,nh->ech", disp.to(x2.dtype), x2).contiguous()
         ye = torch.stack([
             _expert_ffn(xe[e], expert_view(gu_stack, e),
-                        expert_view(down_stack, e), plain)
+                        expert_view(down_stack, e), mode, plain, act_gs)
             for e in range(E)]).float()                        # (E, C, H)
         # combine: each slot back to its token, weighted; tokens dropped by
         # overflow add nothing
@@ -250,7 +260,7 @@ def moe_mlp(x: torch.Tensor, layer: dict, cfg,
     if "shared_gate_up" in layer:
         # always-on shared expert (Qwen2-MoE), optionally sigmoid-gated
         ys = _expert_ffn(x2, layer["shared_gate_up"], layer["shared_down"],
-                         plain).float()
+                         mode, plain, act_gs).float()
         if "shared_gate" in layer:
             with _full_f32():
                 gate = torch.sigmoid(x2.float() @ layer["shared_gate"].float())

@@ -314,10 +314,11 @@ __device__ T block_allreduce(T v, Op op, T identity, T* red) {
 // `max(amax, 1e-20) / 127.0`, the scale times the f32 reciprocal of 127;
 // int8 codes by a true division, rint and a clamp to +-127, written to
 // codes[k]; lane 0 stores the scale and the code sum times the scale.
+// quant_group_core is its work without the stores: it returns the scale and
+// gives the code sum, to every lane (K4's ags form keeps both).
 template <typename Get>
-__device__ __forceinline__ void quant_group_warp(Get get, int k0, int gs,
-                                                 int8_t* codes, float* xs,
-                                                 float* xsum) {
+__device__ __forceinline__ float quant_group_core(Get get, int k0, int gs, int8_t* codes,
+                                                  int& qsum_out) {
   const int lane = threadIdx.x & 31;
   float amax = 0.f;
   for (int i = lane; i < gs; i += 32) amax = fmaxf(amax, fabsf(get(k0 + i)));
@@ -331,7 +332,17 @@ __device__ __forceinline__ void quant_group_warp(Get get, int k0, int gs,
     qsum += q;
   }
   for (int o = 16; o > 0; o >>= 1) qsum += __shfl_xor_sync(0xffffffffu, qsum, o);
-  if (lane == 0) {
+  qsum_out = qsum;
+  return sc;
+}
+
+template <typename Get>
+__device__ __forceinline__ void quant_group_warp(Get get, int k0, int gs,
+                                                 int8_t* codes, float* xs,
+                                                 float* xsum) {
+  int qsum;
+  const float sc = quant_group_core(get, k0, gs, codes, qsum);
+  if ((threadIdx.x & 31) == 0) {
     *xs = sc;
     *xsum = __fmul_rn((float)qsum, sc);
   }
@@ -393,6 +404,21 @@ struct GroupFold {
     }
     z = __fmaf_rn(xsum, sub, z);
   }
+  // the same two chains apart (K4's ags form): term() takes the fold
+  // chunks c = 0, 1, ... with their factors xs_c * scale_c, zero() the
+  // weight groups' zero-point terms in order
+  __device__ __forceinline__ void term(int c, float p, float xs, float scale) {
+    const float x = __fmul_rn(xs, scale);
+    if (c == 0) {
+      p0 = p;
+      x0 = x;
+    } else if (c == 1) {
+      acc = __fmaf_rn(p0, x0, __fmul_rn(p, x));
+    } else {
+      acc = __fmaf_rn(p, x, acc);
+    }
+  }
+  __device__ __forceinline__ void zero(float xsum, float sub) { z = __fmaf_rn(xsum, sub, z); }
   __device__ __forceinline__ float result() const { return __fsub_rn(acc, z); }
 };
 

@@ -73,6 +73,15 @@
 //   weights, scales and zero points to that expert (and its codes, xs and
 //   xsum to row block j when each expert has its own rows) and writes to
 //   output slice j; the ring's depth (STAGES) is K7's plan's, 6 or 8.
+//   Grouped (bf16 scales and zero points (E, G, Mp)) it is K4's body;
+//   per-tensor (G = 1, f32 (E, 1, Mp)) K1's, the reference's exact int32
+//   sum and one epilogue.
+// - K4's ags form (AGS): activation scales per group of ags = unit_rows
+//   packed rows, finer than the weight groups.  The unit of the split is
+//   an activation group, so the partials, their exchange and the f32
+//   chain run over the Ga = Kp / ags activation groups (x_a = xs[a] *
+//   scale[a / (Ga / G)]), the zero-point chain over the G weight groups;
+//   its own template instance, so the ags = 0 instances are unchanged.
 
 #pragma once
 
@@ -117,6 +126,8 @@ struct Args {
   // out (experts, N, Mp)
   const int* idx;
   int E, x_per_expert;
+  // K4's ags form: the activation groups (xs (N, Ga)), unit_rows = Kp / Ga
+  int Ga;
 };
 
 __host__ __device__ inline int align16(int b) { return (b + 15) / 16 * 16; }
@@ -127,21 +138,24 @@ __host__ __device__ inline int align16(int b) { return (b + 15) / 16 * 16; }
 // (K4: group, row, column; K1: rank, row, column), the codes of the block's
 // rows, its own int32 partials, and for the grouped fold the slice's scales
 // and zero points (bf16) and the tile's xs and xsum.
+// acts: K4's ags form's activation groups (a partial and an xs each), or
+// 0 (one a weight group).
 struct Layout {
   int span, units, slice, codes, parts, fsc, fxs, xbuf, total;
   __host__ __device__ Layout(int P, int NT, bool grouped, int nunits,
                              int unit_rows, int ksplit, int G, int stages = kStages,
-                             int planes = 1) {
+                             int planes = 1, int acts = 0) {
     const int ring = stages * kStageBytes * planes;
+    const int Gx = acts ? acts : G;
     units = (nunits + ksplit - 1) / ksplit;
     span = (units * unit_rows + kStageRows - 1) / kStageRows * kStageRows;
     slice = (kSliceUnits + ksplit - 1) / ksplit * 8;
-    const int recv = (grouped ? G : ksplit) * NT * slice * 4;
+    const int recv = (grouped ? Gx : ksplit) * NT * slice * 4;
     codes = align16(recv > ring ? recv : ring);
     parts = codes + align16(NT * P * span);
     fsc = parts + (grouped ? units * P : 1) * NT * kStrip * 4;
     fxs = fsc + (grouped ? align16(2 * G * slice * 2) : 0);
-    xbuf = align16(fxs + (grouped ? 2 * NT * G * 4 : 0));
+    xbuf = align16(fxs + (grouped ? NT * (Gx + G) * 4 : 0));
     total = xbuf + (grouped ? kXBytes : 0);
   }
 };
@@ -270,9 +284,11 @@ __device__ __forceinline__ void flush(int (&acc)[NT][P][4], int* part_s, int* xb
 // The kernel body.  BITS 1, 2 or 4 (fields of unsigned codes), 3 (a lo and
 // a hi plane) or 8 (signed codes, one a byte); NT token rows a block; GROUPED: K4 (per-group
 // partials and the fold) or K1 (one int32 sum and its epilogue); EXPERTS:
-// K7, K4 on the routed experts of a stack, one grid.z slice each; STAGES:
-// the ring's stages.
-template <int BITS, int NT, bool GROUPED, bool EXPERTS = false, int STAGES = kStages>
+// K7, K4 or K1 on the routed experts of a stack, one grid.z slice each;
+// STAGES: the ring's stages; AGS (with GROUPED): K4's ags form, a partial
+// and a step of the fold per activation group.
+template <int BITS, int NT, bool GROUPED, bool EXPERTS = false, int STAGES = kStages,
+          bool AGS = false>
 __device__ __forceinline__ void decode_matmul(const Args& args) {
   constexpr int P = fields(BITS);
   constexpr int kStageAll = kStageBytes * planes(BITS);  // a stage's bytes
@@ -294,7 +310,7 @@ __device__ __forceinline__ void decode_matmul(const Args& args) {
   const int r0 = u0 * args.unit_rows, r1 = min(u1 * args.unit_rows, args.Kb);
   const int nst = (r1 - r0 + kStageRows - 1) / kStageRows;
   const Layout L(P, NT, GROUPED, args.nunits, args.unit_rows, ksplit, args.G, STAGES,
-                 planes(BITS));
+                 planes(BITS), AGS ? args.Ga : 0);
   const int s0 = slice_start(rank, ksplit), s1 = slice_start(rank + 1, ksplit);
   const int w = s1 - s0, nout = NT * w;  // the outputs this block finishes
   Args routed = args;  // K7: the routed expert's operands
@@ -315,8 +331,13 @@ __device__ __forceinline__ void decode_matmul(const Args& args) {
       return;
     }
     r.packed += (size_t)e * r.Kb * r.Mp;
-    r.scales = static_cast<const __nv_bfloat16*>(r.scales) + (size_t)e * r.G * r.Mp;
-    r.sub = static_cast<const __nv_bfloat16*>(r.sub) + (size_t)e * r.G * r.Mp;
+    if (GROUPED) {
+      r.scales = static_cast<const __nv_bfloat16*>(r.scales) + (size_t)e * r.G * r.Mp;
+      r.sub = static_cast<const __nv_bfloat16*>(r.sub) + (size_t)e * r.G * r.Mp;
+    } else {  // per-tensor: f32 (1, Mp) an expert
+      r.scales = static_cast<const float*>(r.scales) + (size_t)e * r.Mp;
+      r.sub = static_cast<const float*>(r.sub) + (size_t)e * r.Mp;
+    }
     if (r.x_per_expert) {
       r.codes += (size_t)j * r.N * r.Kp;
       r.xs += (size_t)j * r.N * r.G;
@@ -403,7 +424,18 @@ __device__ __forceinline__ void decode_matmul(const Args& args) {
     reinterpret_cast<int*>(codes_s)[i] = v;
   }
   float* fxs = reinterpret_cast<float*>(smem + L.fxs);
-  if (GROUPED) {
+  if constexpr (AGS) {
+    // xs of the Ga activation groups, then xsum of the G weight groups
+    for (int i = tid; i < NT * a.Ga; i += kThreads) {
+      const int n = i / a.Ga;
+      fxs[i] = n < nrows ? __ldcg(a.xs + (size_t)(n0 + n) * a.Ga + i % a.Ga) : 0.f;
+    }
+    for (int i = tid; i < NT * a.G; i += kThreads) {
+      const int n = i / a.G;
+      fxs[NT * a.Ga + i] = n < nrows ? __ldcg(a.xsum + (size_t)(n0 + n) * a.G + i % a.G)
+                                     : 0.f;
+    }
+  } else if (GROUPED) {
     for (int i = tid; i < NT * a.G; i += kThreads) {
       const int n = i / a.G, g = i % a.G;
       const bool ok = n < nrows;
@@ -539,6 +571,29 @@ __device__ __forceinline__ void decode_matmul(const Args& args) {
       for (int b = 0; b < ksplit; ++b) s += part0[(b * NT + n) * width + mm];
       const float zero_fold = -__fmul_rn(e_xq[h], e_sb[h]);
       float v = __fmaf_rn(__fmul_rn((float)s, e_sc[h]), e_xs[h], zero_fold);
+      if (a.residual != nullptr) v = __fadd_rn(v, e_res[h]);
+      a.out[(size_t)(n0 + n) * a.Mp + m0 + s0 + mm] = v;
+    }
+  } else if constexpr (AGS) {
+    // K4's ags form: the chain over the activation groups in order, each
+    // partial's factor its own xs times its weight group's scale, and the
+    // zero-point chain over the weight groups
+    const __nv_bfloat16* fsc = reinterpret_cast<const __nv_bfloat16*>(smem + L.fsc);
+    const __nv_bfloat16* fsb = fsc + (size_t)a.G * L.slice;
+    const int per = a.Ga / a.G;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int o = tid + h * kThreads, n = o / w, mm = o % w;
+      if (o >= nout || n >= nrows) continue;
+      GroupFold fold;
+#pragma unroll 4
+      for (int c = 0; c < a.Ga; ++c)
+        fold.term(c, (float)part0[(c * NT + n) * width + mm], fxs[n * a.Ga + c],
+                  __bfloat162float(fsc[(c / per) * L.slice + mm]));
+#pragma unroll 4
+      for (int g = 0; g < a.G; ++g)
+        fold.zero(fxs[NT * a.Ga + n * a.G + g], __bfloat162float(fsb[g * L.slice + mm]));
+      float v = fold.result();
       if (a.residual != nullptr) v = __fadd_rn(v, e_res[h]);
       a.out[(size_t)(n0 + n) * a.Mp + m0 + s0 + mm] = v;
     }

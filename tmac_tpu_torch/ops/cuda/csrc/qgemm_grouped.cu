@@ -101,6 +101,19 @@
 //     (PERF.md): the per-group fold and the B fragments' byte permutes,
 //     which the two blocks of an SM overlap with the products only in
 //     part.
+//
+// The ags form (the reference's act_group_size, a template instance of its
+// own in all three kernels, so that the ags = 0 code is unchanged): the
+// prologue quantizes per activation group of ags columns (ags a multiple
+// of 32 dividing gs) into xs (N, Ga = Kp / ags) and adds each weight
+// group's gs / ags dequantized code sums into xsum (N, G) in the order the
+// reference compiles its reshape-sum to on each route; K4's decode matmul
+// splits K by activation groups and folds one partial an activation group
+// (decode_matmul.cuh); K4L accumulates one activation group at a time
+// (KT = 32 at ags 32), folds it with xs[a] * scale[a / (gs / ags)], and
+// stages the Ga row factors beside the G column factors: 65 * 4 + 128 * 2
+// * ags / gs bytes an activation group, so a block holds 628 activation
+// groups at ags 32, g128 (Kp 20096), and the launch raises past that.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -112,13 +125,17 @@
 namespace {
 
 constexpr int kQuantThreads = 512;
+// the reference's large-N route starts here (ops.qgemm.LARGE_N): its
+// prologue runs in XLA, whose order of the ags form's xsum differs
+constexpr int kLargeN = 64;
 
 // LONG: a row past 32 values a thread (act_prologue.cuh), read an element a
-// load
-template <bool LONG>
+// load; AGS: one scale per activation group of ags columns, xsum per
+// weight group the sum of its activation groups'
+template <bool LONG, bool AGS>
 __global__ void __launch_bounds__(kQuantThreads) act_quant_grouped_kernel(
     const __nv_bfloat16* __restrict__ x, int x_cols, int K, int Kp, int gs,
-    int glu, const __nv_bfloat16* __restrict__ norm_w, float eps,
+    int ags, int glu, const __nv_bfloat16* __restrict__ norm_w, float eps,
     float inv_norm_k, int vec, int8_t* __restrict__ codes,
     float* __restrict__ xs, float* __restrict__ xsum) {
   // launched programmatically: wait for the kernels before, then let the
@@ -136,19 +153,57 @@ __global__ void __launch_bounds__(kQuantThreads) act_quant_grouped_kernel(
   const int G = Kp / gs;
   const int warp = threadIdx.x >> 5;
   int8_t* cr = codes + (size_t)n * Kp;
-  for (int g = warp; g < G; g += kQuantThreads / 32)
-    tmac::quant_group_warp([&](int k) { return vals[tmac::staged(k)]; }, g * gs, gs, cr,
-                           xs + (size_t)n * G + g, xsum + (size_t)n * G + g);
+  if constexpr (AGS) {
+    // each activation group's code sum and scale behind the staged row,
+    // then each weight group's dequantized code sum in the order the
+    // reference compiles it (qgemm_grouped_kernel.weight_group_sums): from
+    // kLargeN rows, and at 2 activation groups a weight group, an FMA
+    // chain; below, two lanes of products, each added in order, then the
+    // lanes
+    const int Ga = Kp / ags, per = gs / ags;
+    float* qs_s = vals + tmac::staged_floats(Kp);
+    float* sc_s = qs_s + Ga;
+    for (int c = warp; c < Ga; c += kQuantThreads / 32) {
+      int qsum;
+      const float sc = tmac::quant_group_core([&](int k) { return vals[tmac::staged(k)]; },
+                                              c * ags, ags, cr, qsum);
+      if ((threadIdx.x & 31) == 0) {
+        xs[(size_t)n * Ga + c] = sc;
+        qs_s[c] = (float)qsum;
+        sc_s[c] = sc;
+      }
+    }
+    __syncthreads();
+    const bool chain = gridDim.x >= kLargeN || per == 2;
+    for (int g = threadIdx.x; g < G; g += kQuantThreads) {
+      const float* q = qs_s + g * per;
+      const float* c = sc_s + g * per;
+      float s;
+      if (chain) {
+        s = __fmul_rn(q[0], c[0]);
+        for (int i = 1; i < per; ++i) s = __fmaf_rn(q[i], c[i], s);
+      } else {
+        float lane[2] = {__fmul_rn(q[0], c[0]), __fmul_rn(q[1], c[1])};
+        for (int i = 2; i < per; ++i) lane[i & 1] = __fadd_rn(lane[i & 1], __fmul_rn(q[i], c[i]));
+        s = __fadd_rn(lane[0], lane[1]);
+      }
+      xsum[(size_t)n * G + g] = s;
+    }
+  } else {
+    for (int g = warp; g < G; g += kQuantThreads / 32)
+      tmac::quant_group_warp([&](int k) { return vals[tmac::staged(k)]; }, g * gs, gs, cr,
+                             xs + (size_t)n * G + g, xsum + (size_t)n * G + g);
+  }
 }
 
 // the ring's stages: bits 3's stage is three planes of 32 rows (12 KB)
 template <int BITS>
 __host__ __device__ constexpr int k4_stages() { return BITS == 3 ? 3 : tmac::decode::kStages; }
 
-template <int BITS, int NT>
+template <int BITS, int NT, bool AGS>
 __global__ void __launch_bounds__(tmac::decode::kThreads, 2)
     k4_decode_kernel(const tmac::decode::Args a) {
-  tmac::decode::decode_matmul<BITS, NT, true, false, k4_stages<BITS>()>(a);
+  tmac::decode::decode_matmul<BITS, NT, true, false, k4_stages<BITS>(), AGS>(a);
 }
 
 // NT: 1 token row a block, or k4_nt<BITS>() (4; 2 at 8 slots a row, bits 1
@@ -156,17 +211,20 @@ __global__ void __launch_bounds__(tmac::decode::kThreads, 2)
 template <int BITS>
 constexpr int k4_nt() { return tmac::decode::fields(BITS) == 8 ? 2 : 4; }
 
-template <int BITS>
+template <int BITS, bool AGS>
 int launch_decode(const tmac::decode::Args& a, int ksplit, int nt,
                   cudaStream_t stream) {
   constexpr int P = tmac::decode::fields(BITS), S = k4_stages<BITS>();
   constexpr int W = tmac::decode::planes(BITS), NT = k4_nt<BITS>();
+  const int acts = AGS ? a.Ga : 0;
   if (nt == 1) {
-    const tmac::decode::Layout L(P, 1, true, a.nunits, a.unit_rows, ksplit, a.G, S, W);
-    return tmac::decode::launch(k4_decode_kernel<BITS, 1>, a, ksplit, 1, L.total, stream);
+    const tmac::decode::Layout L(P, 1, true, a.nunits, a.unit_rows, ksplit, a.G, S, W, acts);
+    return tmac::decode::launch(k4_decode_kernel<BITS, 1, AGS>, a, ksplit, 1, L.total,
+                                stream);
   }
-  const tmac::decode::Layout L(P, NT, true, a.nunits, a.unit_rows, ksplit, a.G, S, W);
-  return tmac::decode::launch(k4_decode_kernel<BITS, NT>, a, ksplit, NT, L.total, stream);
+  const tmac::decode::Layout L(P, NT, true, a.nunits, a.unit_rows, ksplit, a.G, S, W, acts);
+  return tmac::decode::launch(k4_decode_kernel<BITS, NT, AGS>, a, ksplit, NT, L.total,
+                              stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -239,14 +297,16 @@ __device__ __forceinline__ void cp_async_wait() {
 // wn + 4 (2 (lane % 4) + e) + c.
 // The loop over groups peels groups 0 and 1, whose folds differ, so that
 // the steady loop's code (a group's steps and one fold) stays small.
-template <int BITS, int KT>
+// AGS: the fold's unit is an activation group of ags k (xs (N, Ga)), each
+// scaled by its weight group's column factors.
+template <int BITS, int KT, bool AGS>
 __global__ void __launch_bounds__(kLThreads) group_mma_kernel(
     const int8_t* __restrict__ codes, const float* __restrict__ xs,
     const float* __restrict__ xsum, int N, int Kp, int gs,
     const uint8_t* __restrict__ packed, const uint8_t* __restrict__ packed_hi, int Mp,
     const __nv_bfloat16* __restrict__ scales,
     const __nv_bfloat16* __restrict__ sub,
-    const __nv_bfloat16* __restrict__ residual, float* __restrict__ out) {
+    const __nv_bfloat16* __restrict__ residual, float* __restrict__ out, int ags) {
   using T = K4LTile<KT, BITS>;
   constexpr int P = BITS == 3 ? 4 : 8 / BITS;  // fields of a (lo plane) byte
   constexpr uint32_t kMask =
@@ -256,7 +316,11 @@ __global__ void __launch_bounds__(kLThreads) group_mma_kernel(
   const int gq = lane >> 2, tq = lane & 3;
   const int wn = warp * 32;
   const int m0 = blockIdx.x * kLBM, n0 = blockIdx.y * kLBN;
-  const int Kb = Kp / P, G = Kp / gs, steps_g = gs / KT, ntiles = Kp / KT;
+  // G weight groups; Gf fold units (the activation groups with AGS), each
+  // steps_g depth steps; fold unit f takes weight group f / per
+  const int Kb = Kp / P, G = Kp / gs, ntiles = Kp / KT;
+  const int Gf = AGS ? Kp / ags : G, per = AGS ? gs / ags : 1;
+  const int steps_g = (AGS ? ags : gs) / KT;
   const int Kh = Kp / 8;  // bits 3: hi plane rows; bit k / Kh of row k % Kh
 
   auto load = [&](int t, int slot) {
@@ -343,14 +407,14 @@ __global__ void __launch_bounds__(kLThreads) group_mma_kernel(
 
   // The fold's per-row and per-column factors of every group, staged in
   // shared memory behind the ring once a block: rows[g * 65 + r] (f32, r
-  // < 64) and cols[g * 128 + m] (bf16): xs and scale for the main loop,
-  // then xsum and sub for the epilogue.
+  // < 64; Gf fold units) and cols[g * 128 + m] (bf16; G weight groups): xs
+  // and scale for the main loop, then xsum and sub for the epilogue.
   float* rows_s = reinterpret_cast<float*>(smem + kLStages * T::kStage);
-  __nv_bfloat16* cols_s = reinterpret_cast<__nv_bfloat16*>(rows_s + G * 65);
-  auto stage = [&](const float* rsrc, const __nv_bfloat16* csrc) {
-    for (int i = tid; i < kLBN * G; i += kLThreads) {
-      const int r = i / G, g = i % G;
-      rows_s[g * 65 + r] = rsrc[(size_t)min(n0 + r, N - 1) * G + g];
+  __nv_bfloat16* cols_s = reinterpret_cast<__nv_bfloat16*>(rows_s + Gf * 65);
+  auto stage = [&](const float* rsrc, int rg, const __nv_bfloat16* csrc) {
+    for (int i = tid; i < kLBN * rg; i += kLThreads) {
+      const int r = i / rg, g = i % rg;
+      rows_s[g * 65 + r] = rsrc[(size_t)min(n0 + r, N - 1) * rg + g];
     }
     for (int i = tid; i < G * (kLBM / 2); i += kLThreads) {
       const int g = i / (kLBM / 2), w = i % (kLBM / 2);
@@ -369,7 +433,7 @@ __global__ void __launch_bounds__(kLThreads) group_mma_kernel(
     if (s < ntiles) load(s, s);
     cp_async_commit();
   }
-  stage(xs, scales);
+  stage(xs, Gf, scales);
   // group 0: keep p_0 (as f32) for group 1's fma(p_0, x_0, p_1 * x_1)
   int t = 0;
   for (; t < steps_g; ++t) step(t);
@@ -391,12 +455,12 @@ __global__ void __launch_bounds__(kLThreads) group_mma_kernel(
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const float x0 = __fmul_rn(row_f(0, mt, e >> 1), col_f(0, c, e & 1));
-        const float x1 = __fmul_rn(row_f(1, mt, e >> 1), col_f(1, c, e & 1));
+        const float x1 = __fmul_rn(row_f(1, mt, e >> 1), col_f(1 / per, c, e & 1));
         facc[mt][c][e] = __fmaf_rn(facc[mt][c][e], x0, __fmul_rn(exact_float(acc[mt][c][e]), x1));
         acc[mt][c][e] = 0;
       }
   // groups 2, 3, ...: acc = fma(p_g, x_g, acc)
-  for (int g = 2; g < G; ++g) {
+  for (int g = 2; g < Gf; ++g) {
     for (int i = 0; i < steps_g; ++i, ++t) step(t);
     float xr[4][2], sc[4][2];
 #pragma unroll
@@ -406,7 +470,7 @@ __global__ void __launch_bounds__(kLThreads) group_mma_kernel(
 #pragma unroll
     for (int c = 0; c < 4; ++c)
 #pragma unroll
-      for (int e = 0; e < 2; ++e) sc[c][e] = col_f(g, c, e);
+      for (int e = 0; e < 2; ++e) sc[c][e] = col_f(AGS ? g / per : g, c, e);
 #pragma unroll
     for (int mt = 0; mt < 4; ++mt)
 #pragma unroll
@@ -423,7 +487,7 @@ __global__ void __launch_bounds__(kLThreads) group_mma_kernel(
   // and sub; out = acc - z (+ residual), the 4 tiles' adjacent columns as
   // one float4
   __syncthreads();  // every warp is done with xs and scale
-  stage(xsum, sub);
+  stage(xsum, G, sub);
   float z[4][4][4];
 #pragma unroll
   for (int mt = 0; mt < 4; ++mt)
@@ -471,86 +535,111 @@ __global__ void __launch_bounds__(kLThreads) group_mma_kernel(
     }
 }
 
-// the ring, then the staged per-group factors (65 rows f32 + 128 columns
-// bf16 a group)
+// the ring, then the staged factors (65 rows f32 a fold unit: Gf of them,
+// the activation groups with ags, else G; 128 columns bf16 a weight group)
 template <int BITS, int KT>
-int k4l_smem(int G) { return K4LTile<KT, BITS>::kSmem + G * (65 * 4 + kLBM * 2); }
+int k4l_smem(int G, int Gf) { return K4LTile<KT, BITS>::kSmem + Gf * 65 * 4 + G * kLBM * 2; }
 
-template <int BITS, int KT>
+template <int BITS, int KT, bool AGS>
 int launch_group_mma(const int8_t* codes, const float* xs, const float* xsum,
-                     int N, int Kp, int gs, const uint8_t* packed,
+                     int N, int Kp, int gs, int ags, const uint8_t* packed,
                      const uint8_t* packed_hi, int Mp,
                      const __nv_bfloat16* scales, const __nv_bfloat16* sub,
                      const __nv_bfloat16* residual, float* out,
                      cudaStream_t stream) {
-  auto kernel = group_mma_kernel<BITS, KT>;
-  const int smem = k4l_smem<BITS, KT>(Kp / gs);
+  auto kernel = group_mma_kernel<BITS, KT, AGS>;
+  const int smem = k4l_smem<BITS, KT>(Kp / gs, Kp / (AGS ? ags : gs));
   const cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(Mp / kLBM, (N + kLBN - 1) / kLBN);
   kernel<<<grid, kLThreads, smem, stream>>>(codes, xs, xsum, N, Kp, gs, packed, packed_hi,
-                                         Mp, scales, sub, residual, out);
+                                         Mp, scales, sub, residual, out, ags);
   return (int)cudaGetLastError();
 }
 
-// KT = 64 where gs allows, but at bits 3 (two B tiles a stage) only where
-// two blocks still fit an SM's shared memory (else 32: K = 14336 at g128)
+// KT = 64 where the fold's unit (gs, or ags) allows, but at bits 3 (two B
+// tiles a stage) only where two blocks still fit an SM's shared memory
+// (else 32: K = 14336 at g128)
 constexpr int kTwoBlockSmem = 113 * 1024;
 
-template <int BITS>
+template <int BITS, bool AGS>
 int launch_group_mma_kt(const int8_t* codes, const float* xs, const float* xsum,
-                        int N, int Kp, int gs, const uint8_t* packed,
+                        int N, int Kp, int gs, int ags, const uint8_t* packed,
                         const uint8_t* packed_hi, int Mp,
                         const __nv_bfloat16* scales, const __nv_bfloat16* sub,
                         const __nv_bfloat16* residual, float* out,
                         cudaStream_t stream) {
-  if (gs % 64 == 0 && (BITS != 3 || k4l_smem<BITS, 64>(Kp / gs) <= kTwoBlockSmem))
-    return launch_group_mma<BITS, 64>(codes, xs, xsum, N, Kp, gs, packed, packed_hi, Mp,
-                                          scales, sub, residual, out, stream);
-  return launch_group_mma<BITS, 32>(codes, xs, xsum, N, Kp, gs, packed, packed_hi, Mp,
-                                        scales, sub, residual, out, stream);
+  const int unit = AGS ? ags : gs;
+  if (unit % 64 == 0 &&
+      (BITS != 3 || k4l_smem<BITS, 64>(Kp / gs, Kp / unit) <= kTwoBlockSmem))
+    return launch_group_mma<BITS, 64, AGS>(codes, xs, xsum, N, Kp, gs, ags, packed,
+                                           packed_hi, Mp, scales, sub, residual, out, stream);
+  return launch_group_mma<BITS, 32, AGS>(codes, xs, xsum, N, Kp, gs, ags, packed, packed_hi,
+                                         Mp, scales, sub, residual, out, stream);
+}
+
+template <int BITS>
+int launch_group_mma_ags(const int8_t* codes, const float* xs, const float* xsum,
+                         int N, int Kp, int gs, int ags, const uint8_t* packed,
+                         const uint8_t* packed_hi, int Mp,
+                         const __nv_bfloat16* scales, const __nv_bfloat16* sub,
+                         const __nv_bfloat16* residual, float* out,
+                         cudaStream_t stream) {
+  if (ags)
+    return launch_group_mma_kt<BITS, true>(codes, xs, xsum, N, Kp, gs, ags, packed,
+                                           packed_hi, Mp, scales, sub, residual, out, stream);
+  return launch_group_mma_kt<BITS, false>(codes, xs, xsum, N, Kp, gs, 0, packed, packed_hi,
+                                          Mp, scales, sub, residual, out, stream);
 }
 
 }  // namespace
 
 // Prologue: x (N, x_cols) bf16 -> codes (N, Kp) int8 in natural k order,
-// xs (N, G) and xsum (N, G) f32, G = Kp / gs.  norm_w (K,) bf16 or null.
-// Returns the CUDA error of the launch (0 on success).
+// xs (N, Ga) and xsum (N, G) f32, G = Kp / gs, Ga = Kp / ags (ags > 0: a
+// multiple of 32 below and dividing gs) or G (ags 0).  norm_w (K,) bf16 or
+// null.  Returns the CUDA error of the launch (0 on success).
 extern "C" int tmac_act_quant_grouped(const void* x, int N, int x_cols, int K,
-                                      int Kp, int gs, int glu,
+                                      int Kp, int gs, int ags, int glu,
                                       const void* norm_w, float eps,
                                       float inv_norm_k, void* codes,
                                       float* xs, float* xsum, void* stream) {
-  if (N <= 0 || gs <= 0 || Kp % gs != 0 || Kp > tmac::kMaxRowK)
+  if (N <= 0 || gs <= 0 || Kp % gs != 0 || Kp > tmac::kMaxRowK ||
+      (ags != 0 && (ags < 0 || ags % 32 != 0 || gs % ags != 0 || ags >= gs)))
     return (int)cudaErrorInvalidValue;
   const bool long_row = Kp > tmac::kSumWindow * kQuantThreads;
-  auto kernel = long_row ? &act_quant_grouped_kernel<true> : &act_quant_grouped_kernel<false>;
-  const int smem = tmac::staged_floats(Kp) * 4;
+  auto kernel = long_row ? (ags ? &act_quant_grouped_kernel<true, true>
+                                : &act_quant_grouped_kernel<true, false>)
+                         : (ags ? &act_quant_grouped_kernel<false, true>
+                                : &act_quant_grouped_kernel<false, false>);
+  const int smem = (tmac::staged_floats(Kp) + (ags ? 2 * (Kp / ags) : 0)) * 4;
   const cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   return tmac::decode::launch_programmatic(
       kernel, dim3(N), dim3(kQuantThreads), smem, (cudaStream_t)stream,
-      static_cast<const __nv_bfloat16*>(x), x_cols, K, Kp, gs, glu,
+      static_cast<const __nv_bfloat16*>(x), x_cols, K, Kp, gs, ags, glu,
       static_cast<const __nv_bfloat16*>(norm_w), eps, inv_norm_k,
       long_row ? 0 : tmac::row_loads_vec(x, x_cols, K, norm_w), static_cast<int8_t*>(codes),
       xs, xsum);
 }
 
-// K4's matmul: codes (N, Kp) int8 in natural order, xs and xsum (N, G) f32
-// from the prologue, packed (Kp * bits / 8, Mp) uint8 (bits 3: the lo plane
-// (Kp / 4, Mp) and packed_hi, the hi plane (Kp / 8, Mp); else packed_hi
-// null), scales and sub (G, Mp) bf16, residual (N, Mp) bf16 or null -> out
-// (N, Mp) f32, the fold on chip.  1 <= N < 64; bits 1 to 4; gs a multiple
-// of 32; Kp a multiple of gs * P (P = 8 at bits 1 and 3, 8 / bits else);
-// Mp of 128; G >= 2; a cluster of ksplit (1-8) blocks along K, nt (1, or 4;
-// 2 at bits 1 and 3) token rows a block.  Launched programmatically after
-// the prologue.  Returns the CUDA error (cudaErrorInvalidConfiguration for
-// a cluster the card cannot place).
+// K4's matmul: codes (N, Kp) int8 in natural order, xs (N, Ga) and xsum
+// (N, G) f32 from the prologue (Ga = Kp / ags, or G when ags is 0), packed
+// (Kp * bits / 8, Mp) uint8 (bits 3: the lo plane (Kp / 4, Mp) and
+// packed_hi, the hi plane (Kp / 8, Mp); else packed_hi null), scales and
+// sub (G, Mp) bf16, residual (N, Mp) bf16 or null -> out (N, Mp) f32, the
+// fold on chip.  1 <= N < 64; bits 1 to 4; gs a multiple of 32, ags 0 or a
+// multiple of 32 below and dividing gs; Kp a multiple of gs * P (P = 8 at
+// bits 1 and 3, 8 / bits else); Mp of 128; G >= 2; a cluster of ksplit
+// (1-8) blocks along K, nt (1, or 4; 2 at bits 1 and 3) token rows a
+// block.  Launched programmatically after the prologue.  Returns the CUDA
+// error (cudaErrorInvalidConfiguration for a cluster the card cannot
+// place).
 extern "C" int tmac_decode_group_gemm(const void* codes, const float* xs,
                                       const float* xsum, int N, int Kp, int gs,
-                                      int bits, const void* packed, const void* packed_hi,
+                                      int ags, int bits, const void* packed,
+                                      const void* packed_hi,
                                       int Mp, const void* scales, const void* sub,
                                       const void* residual, float* out,
                                       int ksplit, int nt, void* stream) {
@@ -559,7 +648,8 @@ extern "C" int tmac_decode_group_gemm(const void* codes, const float* xs,
   if (N <= 0 || N >= 64 || gs <= 0 || gs % 32 != 0 ||
       Mp % tmac::decode::kStrip != 0 || (bits == 3) != (packed_hi != nullptr) ||
       Kp % (gs * P) != 0 || Kp / gs < 2 || ksplit < 1 ||
-      ksplit > tmac::decode::kMaxSplit || (nt != 1 && nt != nt_max))
+      ksplit > tmac::decode::kMaxSplit || (nt != 1 && nt != nt_max) ||
+      (ags != 0 && (ags < 0 || ags % 32 != 0 || gs % ags != 0 || ags >= gs)))
     return (int)cudaErrorInvalidValue;
   tmac::decode::Args a{};
   a.codes = static_cast<const int8_t*>(codes);
@@ -576,30 +666,41 @@ extern "C" int tmac_decode_group_gemm(const void* codes, const float* xs,
   a.Kb = Kp / P;
   a.Mp = Mp;
   a.G = Kp / gs;
-  a.unit_rows = gs;
-  a.nunits = a.Kb / gs;
+  a.unit_rows = ags ? ags : gs;
+  a.nunits = a.Kb / a.unit_rows;
+  a.Ga = ags ? Kp / ags : a.G;
   cudaStream_t s = (cudaStream_t)stream;
+  if (ags) {
+    switch (bits) {
+      case 1: return launch_decode<1, true>(a, ksplit, nt, s);
+      case 2: return launch_decode<2, true>(a, ksplit, nt, s);
+      case 3: return launch_decode<3, true>(a, ksplit, nt, s);
+      default: return launch_decode<4, true>(a, ksplit, nt, s);
+    }
+  }
   switch (bits) {
-    case 1: return launch_decode<1>(a, ksplit, nt, s);
-    case 2: return launch_decode<2>(a, ksplit, nt, s);
-    case 3: return launch_decode<3>(a, ksplit, nt, s);
-    default: return launch_decode<4>(a, ksplit, nt, s);
+    case 1: return launch_decode<1, false>(a, ksplit, nt, s);
+    case 2: return launch_decode<2, false>(a, ksplit, nt, s);
+    case 3: return launch_decode<3, false>(a, ksplit, nt, s);
+    default: return launch_decode<4, false>(a, ksplit, nt, s);
   }
 }
 
-// K4L: codes (N, Kp) int8, xs and xsum (N, G) f32 from the prologue, packed
-// (Kp * bits / 8, Mp) uint8 (bits 3: the lo plane and packed_hi, as K4's),
-// scales and sub (G, Mp) bf16, residual (N, Mp) bf16 or null -> out (N, Mp)
-// f32, the fold in registers.  bits 1 to 4; gs a multiple of 32; Kp a
-// multiple of gs * 8 / bits (gs * 8 at bits 3); Mp of 128; G >= 2.
+// K4L: codes (N, Kp) int8, xs (N, Ga) and xsum (N, G) f32 from the
+// prologue (Ga as K4's), packed (Kp * bits / 8, Mp) uint8 (bits 3: the lo
+// plane and packed_hi, as K4's), scales and sub (G, Mp) bf16, residual
+// (N, Mp) bf16 or null -> out (N, Mp) f32, the fold in registers.  bits 1
+// to 4; gs a multiple of 32, ags as K4's; Kp a multiple of gs * 8 / bits
+// (gs * 8 at bits 3); Mp of 128; G >= 2.
 extern "C" int tmac_group_gemm(const void* codes, const float* xs,
-                               const float* xsum, int N, int Kp, int gs,
+                               const float* xsum, int N, int Kp, int gs, int ags,
                                int bits, const void* packed, const void* packed_hi,
                                int Mp, const void* scales, const void* sub,
                                const void* residual, float* out, void* stream) {
   if (N <= 0 || gs <= 0 || gs % 32 != 0 || Mp % kLBM != 0 || bits < 1 || bits > 4 ||
       (bits == 3) != (packed_hi != nullptr) ||
-      Kp % (gs * tmac::decode::fields(bits)) != 0 || Kp / gs < 2)
+      Kp % (gs * tmac::decode::fields(bits)) != 0 || Kp / gs < 2 ||
+      (ags != 0 && (ags < 0 || ags % 32 != 0 || gs % ags != 0 || ags >= gs)))
     return (int)cudaErrorInvalidValue;
   const int8_t* c = static_cast<const int8_t*>(codes);
   const uint8_t* pk = static_cast<const uint8_t*>(packed);
@@ -609,9 +710,13 @@ extern "C" int tmac_group_gemm(const void* codes, const float* xs,
   const __nv_bfloat16* res = static_cast<const __nv_bfloat16*>(residual);
   cudaStream_t s = (cudaStream_t)stream;
   switch (bits) {
-    case 1: return launch_group_mma_kt<1>(c, xs, xsum, N, Kp, gs, pk, ph, Mp, sc, sb, res, out, s);
-    case 2: return launch_group_mma_kt<2>(c, xs, xsum, N, Kp, gs, pk, ph, Mp, sc, sb, res, out, s);
-    case 3: return launch_group_mma_kt<3>(c, xs, xsum, N, Kp, gs, pk, ph, Mp, sc, sb, res, out, s);
-    default: return launch_group_mma_kt<4>(c, xs, xsum, N, Kp, gs, pk, ph, Mp, sc, sb, res, out, s);
+    case 1:
+      return launch_group_mma_ags<1>(c, xs, xsum, N, Kp, gs, ags, pk, ph, Mp, sc, sb, res, out, s);
+    case 2:
+      return launch_group_mma_ags<2>(c, xs, xsum, N, Kp, gs, ags, pk, ph, Mp, sc, sb, res, out, s);
+    case 3:
+      return launch_group_mma_ags<3>(c, xs, xsum, N, Kp, gs, ags, pk, ph, Mp, sc, sb, res, out, s);
+    default:
+      return launch_group_mma_ags<4>(c, xs, xsum, N, Kp, gs, ags, pk, ph, Mp, sc, sb, res, out, s);
   }
 }

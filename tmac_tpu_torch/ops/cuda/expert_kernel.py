@@ -13,7 +13,10 @@ what bounds the kernel on the card and how its design answers it.
 The function is K4's (ops/cuda/qgemm_grouped_kernel.py) on expert e: int8
 activations per (row, scale group), exact int32 group dots, and the same
 f32 fold, whose order is the one XLA compiles the JAX package's grouped
-epilogues to on the CPU (the K4 tests hold it bit for bit).  XLA's compiled
+epilogues to on the CPU (the K4 tests hold it bit for bit).  With
+per-tensor scales (G = 1, f32 (E, 1, Mp): the w_a8 experts) it is K1's
+(ops/cuda/qgemm_kernel.py, N < 64): int8 activations per row, one exact
+int32 dot, K1's f32 epilogue.  XLA's compiled
 form of the expert kernel itself varies with the shape: it pairs the first
 two groups' terms the other way round at some shapes and, from 32 groups,
 adds the zero-point dot's group terms in vector lanes.  The port keeps the
@@ -27,9 +30,10 @@ one (1,) index.  A CPU tensor goes to the plain PyTorch version
 (``qgemm_experts_plain``, ``qgemm_expert_plain``), a CUDA tensor to the
 kernel, which either launches or raises.  Each wrapper's ``launches``
 counts its own calls that launched the kernel (a call is the prologue and
-the matmul together, whatever k).  Ported: bits 2 and 4 with grouped bf16
-scales and an unpadded K, N <= 4; the TPU kernel's per-tensor (G = 1)
-branch and bits 1 are not.
+the matmul together, whatever k).  Ported: the TPU kernel's scope, bits 1,
+2 and 4, grouped or per-tensor scales, an unpadded K, N <= 4; narrowed to
+bf16 scales and a group size that is a multiple of 32 when grouped, f32
+scales when per-tensor (what the model's weights hold).
 """
 
 from __future__ import annotations
@@ -40,8 +44,10 @@ import functools
 import torch
 
 from tmac_tpu_torch.ops.cuda.qgemm_grouped_kernel import qgemm_grouped_plain
-from tmac_tpu_torch.ops.cuda.qgemm_kernel import (DECODE_STRIP, _sms, check_decode_smem,
-                                                  decode_plan, raise_on, require)
+from tmac_tpu_torch.ops.cuda.qgemm_kernel import (DECODE_STRIP, _sms, act_quant_plain,
+                                                  check_decode_smem, decode_epilogue_plain,
+                                                  decode_plan, int_dot_plain, raise_on,
+                                                  require)
 from tmac_tpu_torch.ops.qgemm import QuantizedTensor
 
 _c_ptr, _c_int = ctypes.c_void_p, ctypes.c_int
@@ -49,19 +55,27 @@ _c_ptr, _c_int = ctypes.c_void_p, ctypes.c_int
 MAX_ROWS = 4  # token rows the kernel takes (decode: 1)
 
 
-def expert_kernel_supported(stacked: QuantizedTensor) -> bool:
-    """Whether a stacked QuantizedTensor is in K7's scope: bits 2 or 4,
-    grouped bf16 scales and sub, no k-sharding and no k-padding (the JAX
-    package's rule, ``expert_kernel_supported``, narrowed to what is
-    ported)."""
-    return (stacked.bits in (2, 4)
+def per_tensor(stacked: QuantizedTensor) -> bool:
+    """Whether a stack holds one scale per expert and column (G = 1)."""
+    return stacked.scales.shape[-2] == 1
+
+
+def expert_kernel_supported(stacked: QuantizedTensor, act_gs: int = 0) -> bool:
+    """Whether a stacked QuantizedTensor is in K7's scope: the JAX
+    package's rule (``expert_kernel_supported``: bits 1, 2 or 4, no hi
+    plane, a stack, no k-sharding, no k-padding, no activation groups),
+    narrowed to the scales the kernel reads: grouped bf16 scales and sub
+    with a group size that is a multiple of 32, or per-tensor f32 ones."""
+    if not (stacked.bits in (1, 2, 4)
             and stacked.packed_hi is None
             and stacked.packed.ndim == 3
+            and act_gs == 0
             and stacked.k_shards == 1
-            and stacked.kdim_padded == stacked.kdim
-            and stacked.scales.shape[1] > 1
-            and stacked.group_size % 32 == 0
-            and stacked.scales.dtype == stacked.sub.dtype == torch.bfloat16)
+            and stacked.kdim_padded == stacked.kdim):
+        return False
+    dtype = torch.float32 if per_tensor(stacked) else torch.bfloat16
+    return (stacked.scales.dtype == stacked.sub.dtype == dtype
+            and (per_tensor(stacked) or stacked.group_size % 32 == 0))
 
 
 def _check_supported(stacked: QuantizedTensor, x: torch.Tensor, glu: bool,
@@ -70,8 +84,8 @@ def _check_supported(stacked: QuantizedTensor, x: torch.Tensor, glu: bool,
     (per_expert, N, width) with a block of rows for each routed expert."""
     if not expert_kernel_supported(stacked):
         raise ValueError(
-            "K7 takes a stacked (E, ...) QuantizedTensor at bits 2 or 4 with "
-            "grouped bf16 scales, k_shards 1 and an unpadded K")
+            "K7 takes a stacked (E, ...) QuantizedTensor at bits 1, 2 or 4 with "
+            "grouped bf16 or per-tensor f32 scales, k_shards 1 and an unpadded K")
     width = 2 * stacked.kdim if glu else stacked.kdim
     want = (per_expert, -1, width) if per_expert else (-1, width)
     if x.ndim != len(want) or any(w not in (-1, d) for w, d in zip(want, x.shape)):
@@ -101,9 +115,14 @@ def expert_copy(stacked: QuantizedTensor, e) -> QuantizedTensor:
 def qgemm_expert_plain(x: torch.Tensor, stacked: QuantizedTensor, e,
                        glu: bool = False) -> torch.Tensor:
     """The function K7 computes, in plain PyTorch: K4's plain version on a
-    copy of expert e -> (N, M) f32."""
+    copy of expert e -> (N, M) f32; per-tensor, K1's (N < 64): the row's
+    int8 codes, the exact int32 dot, K1's epilogue."""
     _check_supported(stacked, x, glu)
-    return qgemm_grouped_plain(x, expert_copy(stacked, e), glu=glu)
+    qt = expert_copy(stacked, e)
+    if not per_tensor(stacked):
+        return qgemm_grouped_plain(x, qt, glu=glu)
+    codes, xs, xsum = act_quant_plain(x, qt, glu=glu)
+    return qt.slice_m(decode_epilogue_plain(int_dot_plain(codes, qt), xs, xsum, qt))
 
 
 def qgemm_experts_plain(x: torch.Tensor, stacked: QuantizedTensor, idx,
@@ -147,9 +166,12 @@ def launch_experts(x: torch.Tensor, stacked: QuantizedTensor, idx: torch.Tensor,
     per_expert = k if x.ndim == 3 else 0
     _check_supported(stacked, x, glu, per_expert)
     N, x_cols = x.shape[-2:]
-    E, K, Mp, gs, bits = (stacked.packed.shape[0], stacked.kdim,
-                          stacked.mdim_padded, stacked.group_size, stacked.bits)
-    G = K // gs
+    E, K, Mp, bits = (stacked.packed.shape[0], stacked.kdim, stacked.mdim_padded,
+                      stacked.bits)
+    # per-tensor: one group of K (the C interface's gs = K), K1's split
+    gs, G = (K, 1) if per_tensor(stacked) else (stacked.group_size, K // stacked.group_size)
+    plan_gs = 0 if G == 1 else gs
+    sdtype = torch.float32 if G == 1 else torch.bfloat16
     if not 1 <= N <= MAX_ROWS:
         raise ValueError(f"K7 takes 1 to {MAX_ROWS} rows, not {N}")
     if x.dtype not in (torch.bfloat16, torch.float32):
@@ -157,8 +179,8 @@ def launch_experts(x: torch.Tensor, stacked: QuantizedTensor, idx: torch.Tensor,
     require("K7", x, "x", x.dtype, tuple(x.shape), dev)
     require("K7", idx, "idx", torch.int32, (k,), dev)
     require("K7", stacked.packed, "packed", torch.uint8, (E, K * bits // 8, Mp), dev)
-    require("K7", stacked.scales, "scales", torch.bfloat16, (E, G, Mp), dev)
-    require("K7", stacked.sub, "sub", torch.bfloat16, (E, G, Mp), dev)
+    require("K7", stacked.scales, "scales", sdtype, (E, G, Mp), dev)
+    require("K7", stacked.sub, "sub", sdtype, (E, G, Mp), dev)
     # every block copies its expert's weights, scales and zero points 16
     # bytes at a time: the stacks aligned, and Mp % 128 == 0 aligns each
     # expert's offset in them
@@ -166,8 +188,8 @@ def launch_experts(x: torch.Tensor, stacked: QuantizedTensor, idx: torch.Tensor,
             stacked.packed, stacked.scales, stacked.sub)):
         raise ValueError("K7: Mp % 128 == 0 and 16-byte aligned packed weights, "
                          "scales and sub")
-    plan, nt, stages = decode_plan(N, K, Mp, bits, gs, _sms(dev), experts=k)
-    check_decode_smem("K7", N, K, bits, gs, ksplit or plan, nt, stages)
+    plan, nt, stages = decode_plan(N, K, Mp, bits, plan_gs, _sms(dev), experts=k)
+    check_decode_smem("K7", N, K, bits, plan_gs, ksplit or plan, nt, stages)
     rows = per_expert * N if per_expert else N
     out = torch.empty((k, N, Mp), dtype=torch.float32, device=dev)
     # the prologue's codes, scales and code sums, read by every matmul block

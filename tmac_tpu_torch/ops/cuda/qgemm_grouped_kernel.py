@@ -34,8 +34,13 @@ CUDA tensor to the kernel, which either launches or raises;
 Each wrapper's ``launches`` counts calls that launched its kernel
 (prologue and matmul together).
 Bits 1, 2, 3 and 4 are ported (bits 3: a 2-bit lo plane and a 1-bit hi
-plane, code = lo + 4 * hi); an activation group size finer than the
-weight groups is not.
+plane, code = lo + 4 * hi), and so is the reference's ``act_group_size``
+(its -ags knob, ``effective_ags``): activation scales per group of ags
+columns, finer than the weight groups, on K4 and K4L (``act_gs=``; on
+the card ags a multiple of 32).  The int32 dots are then per activation
+group, each scaled by its own activation scale and its weight group's
+scale in the f32 chain, and the zero-point fold takes each weight
+group's code sum, the sum of its activation groups' (in order).
 """
 
 from __future__ import annotations
@@ -51,7 +56,8 @@ from tmac_tpu_torch.ops.cuda.qgemm_kernel import (DECODE_STRIP, _sms, act_scale,
                                                   decode_spans, decode_units,
                                                   prologue_values, raise_on,
                                                   require)
-from tmac_tpu_torch.ops.qgemm import LARGE_N, QuantizedTensor, unpack_codes
+from tmac_tpu_torch.ops.qgemm import (LARGE_N, QuantizedTensor, effective_ags,
+                                      unpack_codes)
 from tmac_tpu_torch.utils import fma_f32
 
 _c_ptr, _c_int, _c_float = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -87,38 +93,73 @@ def _check_supported(qt: QuantizedTensor, glu: bool, norm, residual,
 # ---------------------------------------------------------------------------
 
 def act_quant_grouped_plain(x: torch.Tensor, qt: QuantizedTensor, norm=None,
-                            glu: bool = False):
+                            glu: bool = False, ags: int = 0):
     """The prologue: x (N, K) or (N, 2K) -> (codes int8 (N, Kp) in natural
-    k order, xs (N, G) f32, xsum (N, G) f32): one absmax scale per (row,
-    group of group_size columns) and the dequantized code sum per group."""
+    k order, xs (N, Ga) f32, xsum (N, G) f32): one absmax scale per (row,
+    activation group of ags columns; of group_size columns when ags is 0,
+    Ga = G) and the dequantized code sum per weight group: with ags, that
+    of its gs / ags activation groups (weight_group_sums)."""
     xf = prologue_values(x, qt.kdim, qt.kdim_padded, norm, glu)
     N, Kp = xf.shape
-    xg = xf.reshape(N, Kp // qt.group_size, qt.group_size)
+    a = ags or qt.group_size
+    xg = xf.reshape(N, Kp // a, a)
     xs = act_scale(xg.abs().amax(-1))
     q = torch.clamp(torch.round(xg / xs[..., None]), -127, 127)
-    xsum = q.sum(-1) * xs
+    qs = q.sum(-1)
+    xsum = qs * xs
+    if ags:
+        xsum = weight_group_sums(qs, xs, qt.group_size // ags, N >= LARGE_N)
     return q.reshape(N, Kp).to(torch.int8), xs, xsum
 
 
-def fold_chunk(Kp: int, bits: int, gs: int) -> int:
+def weight_group_sums(qs: torch.Tensor, xs: torch.Tensor, per: int,
+                      large: bool) -> torch.Tensor:
+    """Each weight group's dequantized code sum from its `per` activation
+    groups' code sums qs and scales xs (N, Ga) -> (N, G), in the order the
+    reference compiles its `(qs * xs).reshape(N, G, per).sum(-1)` to on
+    the CPU: from LARGE_N rows (XLA's prologue before the external-int8
+    kernel), and at per = 2 below, a chain of FMAs, s = fma(qs_i, xs_i, s)
+    from s = qs_0 * xs_0; below LARGE_N rows (inside the fused kernel) at
+    per >= 4, two lanes, the even and the odd products each added from
+    left to right, then the two lanes' sums (measured at per 2 and 4;
+    csrc/qgemm_grouped.cu repeats it)."""
+    N, Ga = qs.shape
+    qs, xs = qs.reshape(N, Ga // per, per), xs.reshape(N, Ga // per, per)
+    prod = qs * xs
+    if large or per == 2:
+        s = prod[..., 0]
+        for i in range(1, per):
+            s = fma_f32(qs[..., i], xs[..., i], s)
+        return s
+    lanes = [prod[..., 0], prod[..., 1]]
+    for i in range(2, per):
+        lanes[i % 2] = lanes[i % 2] + prod[..., i]
+    return lanes[0] + lanes[1]
+
+
+def fold_chunk(Kp: int, bits: int, gs: int, ags: int = 0) -> int:
     """The k of one step of the f32 fold: the reference's chunk
     (``_make_kernel``), min(gs, Kp / p) with p the fields of a byte (4 at
-    bits 3), and at bits 3 also at most Kp / 8 (one block of the hi
-    plane).  It is the group unless Kp / p < gs (at bits 3, Kp / 8 < gs),
-    which the packing's padding (K a multiple of p * gs, of 8 * gs at bits
-    3) leaves only to a tensor made by hand; then a group is folded in
+    bits 3), with an activation group size also at most ags, and at bits 3
+    also at most Kp / 8 (one block of the hi plane).  It is the group (the
+    activation group) unless Kp / p < gs (at bits 3, Kp / 8 < gs), which
+    the packing's padding (K a multiple of p * gs, of 8 * gs at bits 3)
+    leaves only to a tensor made by hand; then a group is folded in
     parts, each part's int32 dot scaled on its own."""
     chunk = min(gs, Kp // (4 if bits == 3 else 8 // bits))
+    if ags:
+        chunk = min(chunk, ags)
     return min(chunk, Kp // 8) if bits == 3 else chunk
 
 
-def group_dots_plain(codes: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
+def group_dots_plain(codes: torch.Tensor, qt: QuantizedTensor,
+                     ags: int = 0) -> torch.Tensor:
     """Exact int32 dots (C, N, Mp) of codes (N, Kp) with the weight codes,
-    one per fold chunk (fold_chunk: a group, or a part of one), in k order:
-    a float64 matmul each (exact: |sum| <= 127 * 15 * group_size < 2^53),
-    on CPU and CUDA alike."""
+    one per fold chunk (fold_chunk: a group or an activation group, or a
+    part of one), in k order: a float64 matmul each (exact: |sum| <= 127 *
+    15 * group_size < 2^53), on CPU and CUDA alike."""
     N, Kp = codes.shape
-    ch = fold_chunk(Kp, qt.bits, qt.group_size)
+    ch = fold_chunk(Kp, qt.bits, qt.group_size, ags)
     w = unpack_codes(qt)
     return torch.stack([
         (codes[:, k:k + ch].double() @ w[k:k + ch].double()).to(torch.int32)
@@ -131,15 +172,16 @@ def fold_plain(parts: torch.Tensor, xs: torch.Tensor, xsum: torch.Tensor,
     chunks (group_dots_plain) -> (N, Mp), in the order of
     csrc/qgemm_grouped.cu (that of the compiled reference):
     acc = fma(p_0, x_0, p_1 * x_1), then acc = fma(p_c, x_c, acc) with
-    x_c = xs[:, g] * scale[g] of chunk c's group g; z = fma(xsum[:, g],
-    sub[g], z) from 0 over the groups; acc - z (+ residual)."""
-    C, G = parts.shape[0], xs.shape[1]
+    x_c = xs[:, a] * scale[g] of chunk c's activation group a (xs (N, Ga))
+    and weight group g; z = fma(xsum[:, g], sub[g], z) from 0 over the
+    groups (xsum (N, G)); acc - z (+ residual)."""
+    C, Ga, G = parts.shape[0], xs.shape[1], xsum.shape[1]
     scales, sub = qt.scales.float(), qt.sub.float()
     p = parts.float()
 
     def xscale(c):
-        g = c * G // C
-        return xs[:, g:g + 1] * scales[g]
+        a, g = c * Ga // C, c * G // C
+        return xs[:, a:a + 1] * scales[g]
 
     acc = fma_f32(p[0], xscale(0).expand_as(p[0]), p[1] * xscale(1))
     for c in range(2, C):
@@ -174,14 +216,15 @@ def decode_slot_weights(qt: QuantizedTensor, r0: int, r1: int, e: int):
 
 
 def block_partials_plain(codes: torch.Tensor, qt: QuantizedTensor,
-                         ksplit: int):
+                         ksplit: int, ags: int = 0):
     """The per-group int32 partials each block of a decode cluster keeps in
     its shared memory: for block `rank`, the chunks [u0, u1) of its span
-    (decode_spans), as (u1 - u0, P, N, Mp) int32, entry (c - u0, j) being
-    group j * nchunks + c: slot j's in-place weights (decode_slot_weights)
-    against the codes of k = j * Kb + row, shifted back.  Exact int64
-    sums, as the kernel's."""
-    P, gs = decode_fields(qt.bits), qt.group_size
+    (decode_spans; a chunk is a group, or with ags an activation group, of
+    packed rows), as (u1 - u0, P, N, Mp) int32, entry (c - u0, j) being
+    (activation) group j * nchunks + c: slot j's in-place weights
+    (decode_slot_weights) against the codes of k = j * Kb + row, shifted
+    back.  Exact int64 sums, as the kernel's."""
+    P, gs = decode_fields(qt.bits), ags or qt.group_size
     Kb, _, nchunks = decode_units(qt.kdim_padded, qt.bits, gs)
     c = codes.long()
 
@@ -197,25 +240,29 @@ def block_partials_plain(codes: torch.Tensor, qt: QuantizedTensor,
 
 
 def fold_split_plain(blocks, xs: torch.Tensor, xsum: torch.Tensor,
-                     qt: QuantizedTensor, ksplit: int, residual=None) -> torch.Tensor:
+                     qt: QuantizedTensor, ksplit: int, residual=None,
+                     ags: int = 0) -> torch.Tensor:
     """The decode matmul's on-chip fold: partial g read from the block that
     owns chunk g % nchunks (decode_owner), slot g // nchunks, and folded in
-    group order (fold_plain's chain) -> (N, Mp) f32."""
-    _, _, nchunks = decode_units(qt.kdim_padded, qt.bits, qt.group_size)
+    (activation) group order (fold_plain's chain) -> (N, Mp) f32."""
+    unit = ags or qt.group_size
+    _, _, nchunks = decode_units(qt.kdim_padded, qt.bits, unit)
     owner = decode_owner(nchunks, ksplit)
-    G = qt.kdim_padded // qt.group_size
     parts = torch.stack([blocks[owner[g % nchunks][0]][owner[g % nchunks][1],
                                                         g // nchunks]
-                         for g in range(G)])
+                         for g in range(qt.kdim_padded // unit)])
     return fold_plain(parts, xs, xsum, qt, residual)
 
 
 def qgemm_grouped_plain(x: torch.Tensor, qt: QuantizedTensor, norm=None,
-                        glu: bool = False, residual=None) -> torch.Tensor:
-    """The function K4 computes, in plain PyTorch: (N, M) f32."""
+                        glu: bool = False, residual=None,
+                        act_gs: int = 0) -> torch.Tensor:
+    """The function K4 computes, in plain PyTorch: (N, M) f32; act_gs as
+    the reference's act_group_size (effective_ags)."""
     _check_supported(qt, glu, norm, residual)
-    codes, xs, xsum = act_quant_grouped_plain(x, qt, norm, glu)
-    parts = group_dots_plain(codes, qt)
+    ags = effective_ags(qt, act_gs)
+    codes, xs, xsum = act_quant_grouped_plain(x, qt, norm, glu, ags)
+    parts = group_dots_plain(codes, qt, ags)
     return qt.slice_m(fold_plain(parts, xs, xsum, qt, residual))
 
 
@@ -228,13 +275,13 @@ def _lib():
     from tmac_tpu_torch.ops.cuda import build
     lib = build.load("qgemm_grouped")
     lib.tmac_act_quant_grouped.argtypes = [
-        _c_ptr, _c_int, _c_int, _c_int, _c_int, _c_int, _c_int, _c_ptr,
+        _c_ptr, _c_int, _c_int, _c_int, _c_int, _c_int, _c_int, _c_int, _c_ptr,
         _c_float, _c_float, _c_ptr, _c_ptr, _c_ptr, _c_ptr]
     lib.tmac_decode_group_gemm.argtypes = [
-        _c_ptr, _c_ptr, _c_ptr, _c_int, _c_int, _c_int, _c_int, _c_ptr,
+        _c_ptr, _c_ptr, _c_ptr, _c_int, _c_int, _c_int, _c_int, _c_int, _c_ptr,
         _c_ptr, _c_int, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_int, _c_int, _c_ptr]
     lib.tmac_group_gemm.argtypes = [
-        _c_ptr, _c_ptr, _c_ptr, _c_int, _c_int, _c_int, _c_int, _c_ptr,
+        _c_ptr, _c_ptr, _c_ptr, _c_int, _c_int, _c_int, _c_int, _c_int, _c_ptr,
         _c_ptr, _c_int, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr]
     for fn in (lib.tmac_act_quant_grouped, lib.tmac_decode_group_gemm,
                lib.tmac_group_gemm):
@@ -268,13 +315,25 @@ def _planes(kernel: str, qt: QuantizedTensor, dev, row_multiple: int = 1):
     return qt.packed_hi.data_ptr() if bits == 3 else None
 
 
+def _check_ags(kernel: str, qt: QuantizedTensor, ags: int) -> None:
+    """Raise unless ags is 0 or an activation group size the kernels take:
+    a multiple of 32 (a ring stage of the decode matmul, a depth step of
+    K4L) that divides the group size."""
+    if ags and (ags % 32 or qt.group_size % ags or ags >= qt.group_size):
+        raise ValueError(f"{kernel} takes an activation group size that is a "
+                         f"multiple of 32 below and dividing group_size "
+                         f"{qt.group_size}, not {ags}")
+
+
 def launch_act_quant_grouped(x: torch.Tensor, qt: QuantizedTensor, norm=None,
-                             glu: bool = False, kernel: str = "K4"):
-    """Launch the prologue: -> (codes (N, Kp) int8, xs (N, G), xsum (N, G))."""
+                             glu: bool = False, kernel: str = "K4", ags: int = 0):
+    """Launch the prologue: -> (codes (N, Kp) int8, xs (N, Ga), xsum (N, G));
+    Ga = Kp / ags with an activation group size, else G."""
     dev = x.device
     N = x.shape[0]
     K, Kp, gs = qt.kdim, qt.kdim_padded, qt.group_size
     G = Kp // gs
+    _check_ags(kernel, qt, ags)
     require(kernel, x, "x", torch.bfloat16, (N, 2 * K if glu else K), dev)
     norm_ptr, eps = None, 0.0
     if norm is not None:
@@ -282,10 +341,10 @@ def launch_act_quant_grouped(x: torch.Tensor, qt: QuantizedTensor, norm=None,
         require(kernel, w, "norm weight", torch.bfloat16, (K,), dev)
         norm_ptr = w.data_ptr()
     codes = torch.empty((N, Kp), dtype=torch.int8, device=dev)
-    xs = torch.empty((N, G), dtype=torch.float32, device=dev)
+    xs = torch.empty((N, Kp // (ags or gs)), dtype=torch.float32, device=dev)
     xsum = torch.empty((N, G), dtype=torch.float32, device=dev)
     err = _lib().tmac_act_quant_grouped(
-        x.data_ptr(), N, x.shape[1], K, Kp, gs, int(glu), norm_ptr,
+        x.data_ptr(), N, x.shape[1], K, Kp, gs, ags, int(glu), norm_ptr,
         float(eps), 1.0 / K, codes.data_ptr(), xs.data_ptr(), xsum.data_ptr(),
         _stream(dev))
     raise_on(kernel, err, "prologue")
@@ -294,16 +353,19 @@ def launch_act_quant_grouped(x: torch.Tensor, qt: QuantizedTensor, norm=None,
 
 def launch_decode_grouped(codes: torch.Tensor, xs: torch.Tensor,
                           xsum: torch.Tensor, qt: QuantizedTensor, residual=None,
-                          ksplit=None) -> torch.Tensor:
+                          ksplit=None, ags: int = 0) -> torch.Tensor:
     """Launch K4's matmul on its prologue's outputs, right after the
     prologue (it starts while the prologue runs), the group fold on chip:
     -> (N, Mp) f32.  ksplit: the cluster size along K (decode_plan's by
-    default)."""
+    default).  ags: the activation group size of the prologue's xs (its
+    own template instance: one partial and one fold step an activation
+    group), or 0."""
     dev = codes.device
     N, Kp, Mp, gs = codes.shape[0], qt.kdim_padded, qt.mdim_padded, qt.group_size
     G = Kp // gs
+    _check_ags("K4", qt, ags)
     require("K4", codes, "codes", torch.int8, (N, Kp), dev)
-    require("K4", xs, "xs", torch.float32, (N, G), dev)
+    require("K4", xs, "xs", torch.float32, (N, Kp // (ags or gs)), dev)
     require("K4", xsum, "xsum", torch.float32, (N, G), dev)
     hi_ptr = _planes("K4", qt, dev)
     require("K4", qt.scales, "scales", torch.bfloat16, (G, Mp), dev)
@@ -316,11 +378,11 @@ def launch_decode_grouped(codes: torch.Tensor, xs: torch.Tensor,
     if residual is not None:
         require("K4", residual, "residual", torch.bfloat16, (N, Mp), dev)
         res_ptr = residual.data_ptr()
-    plan, nt = decode_plan(N, Kp, Mp, qt.bits, gs, _sms(dev))
-    check_decode_smem("K4", N, Kp, qt.bits, gs, ksplit or plan, nt)
+    plan, nt = decode_plan(N, Kp, Mp, qt.bits, gs, _sms(dev), ags=ags)
+    check_decode_smem("K4", N, Kp, qt.bits, gs, ksplit or plan, nt, ags=ags)
     out = torch.empty((N, Mp), dtype=torch.float32, device=dev)
     err = _lib().tmac_decode_group_gemm(
-        codes.data_ptr(), xs.data_ptr(), xsum.data_ptr(), N, Kp, gs, qt.bits,
+        codes.data_ptr(), xs.data_ptr(), xsum.data_ptr(), N, Kp, gs, ags, qt.bits,
         qt.packed.data_ptr(), hi_ptr, Mp, qt.scales.data_ptr(), qt.sub.data_ptr(),
         res_ptr, out.data_ptr(), ksplit or plan, nt, _stream(dev))
     raise_on("K4", err, "matmul")
@@ -328,26 +390,29 @@ def launch_decode_grouped(codes: torch.Tensor, xs: torch.Tensor,
 
 
 def qgemm_grouped(x: torch.Tensor, qt: QuantizedTensor, norm=None,
-                  glu: bool = False, residual=None) -> torch.Tensor:
+                  glu: bool = False, residual=None, act_gs: int = 0) -> torch.Tensor:
     """x (N, K) [(N, 2K) with glu] @ Wdq -> (N, M) f32, with the
     activations quantized to int8 per (row, scale group) inside K4.
 
     norm: (weight (K,), eps) rms_norm before quantization.  glu: x is the
     fused gate_up output and silu(g) * u feeds the matmul.  residual:
-    (N, M) added in the epilogue.  CPU tensors take the plain version; CUDA
-    tensors take the kernel (x, the norm weight and the residual in bf16)
-    below LARGE_N rows; from there the route takes K4L,
-    qgemm_grouped_large (``ops.qgemm.kernel_for`` picks)."""
+    (N, M) added in the epilogue.  act_gs: the reference's act_group_size
+    (per (row, activation group) instead, where effective_ags keeps it).
+    CPU tensors take the plain version; CUDA tensors take the kernel (x,
+    the norm weight and the residual in bf16) below LARGE_N rows; from
+    there the route takes K4L, qgemm_grouped_large
+    (``ops.qgemm.kernel_for`` picks)."""
     _check_supported(qt, glu, norm, residual)
     if x.device.type == "cpu":
-        return qgemm_grouped_plain(x, qt, norm, glu, residual)
+        return qgemm_grouped_plain(x, qt, norm, glu, residual, act_gs)
     if x.device.type != "cuda":
         raise ValueError(f"K4 runs on CPU or CUDA tensors, not {x.device}")
     if x.shape[0] >= LARGE_N:
         raise ValueError(f"K4 takes N < {LARGE_N} rows on the card, not "
                          f"{x.shape[0]}: K4L (qgemm_grouped_large) takes the rest")
-    codes, xs, xsum = launch_act_quant_grouped(x, qt, norm, glu)
-    out = launch_decode_grouped(codes, xs, xsum, qt, residual)
+    ags = effective_ags(qt, act_gs)
+    codes, xs, xsum = launch_act_quant_grouped(x, qt, norm, glu, ags=ags)
+    out = launch_decode_grouped(codes, xs, xsum, qt, residual, ags=ags)
     qgemm_grouped.launches += 1
     return qt.slice_m(out)
 
@@ -355,15 +420,49 @@ def qgemm_grouped(x: torch.Tensor, qt: QuantizedTensor, norm=None,
 qgemm_grouped.launches = 0
 
 
+# K4L's shared memory (csrc/qgemm_grouped.cu, k4l_smem): a ring of
+# K4L_STAGES depth steps of KT codes for 64 rows (rows of KT + 16 bytes) and
+# KT packed rows of 128 columns (two B tiles at bits 3), then the fold's
+# staged factors, 65 f32 row factors for each of the Ga activation groups
+# and 128 bf16 column factors for each of the G weight groups
+K4L_STAGES, K4L_SMEM_LIMIT = 4, 227 * 1024
+
+
+def k4l_smem(bits: int, kt: int, G: int, Ga: int = 0) -> int:
+    stage = 64 * (kt + 16) + kt * 128 * (2 if bits == 3 else 1)
+    return K4L_STAGES * stage + (Ga or G) * 65 * 4 + G * 128 * 2
+
+
+def k4l_kt(bits: int, Kp: int, gs: int, ags: int = 0) -> int:
+    """K4L's depth step: 64 where the fold's unit (ags, else gs) is a
+    multiple of 64 and, at bits 3, two blocks still fit an SM; else 32."""
+    unit, G = ags or gs, Kp // gs
+    Ga = Kp // ags if ags else 0
+    return 64 if unit % 64 == 0 and (
+        bits != 3 or k4l_smem(bits, 64, G, Ga) <= 113 * 1024) else 32
+
+
 def launch_group_gemm(codes: torch.Tensor, xs: torch.Tensor,
                       xsum: torch.Tensor, qt: QuantizedTensor,
-                      residual=None) -> torch.Tensor:
-    """Launch K4L's matmul on its prologue's outputs: -> (N, Mp) f32."""
+                      residual=None, ags: int = 0) -> torch.Tensor:
+    """Launch K4L's matmul on its prologue's outputs: -> (N, Mp) f32.  ags:
+    the prologue's activation group size (its own template instance: one
+    int32 accumulator and one fold step an activation group), or 0.  Raises
+    where the fold's staged factors outgrow a block's shared memory (at
+    gs 32 past 394 groups; at gs 128 and ags 32 past 628 activation
+    groups, Kp 20096)."""
     dev = codes.device
     N, Kp, Mp, gs = codes.shape[0], qt.kdim_padded, qt.mdim_padded, qt.group_size
     G = Kp // gs
+    _check_ags("K4L", qt, ags)
+    Ga = Kp // ags if ags else 0
+    smem = k4l_smem(qt.bits, k4l_kt(qt.bits, Kp, gs, ags), G, Ga)
+    if smem > K4L_SMEM_LIMIT:
+        raise ValueError(f"K4L: the fold's factors of {Ga or G} activation and {G} "
+                         f"weight groups need {smem} bytes of shared memory a "
+                         f"block, past the card's {K4L_SMEM_LIMIT}")
     require("K4L", codes, "codes", torch.int8, (N, Kp), dev)
-    require("K4L", xs, "xs", torch.float32, (N, G), dev)
+    require("K4L", xs, "xs", torch.float32, (N, Ga or G), dev)
     require("K4L", xsum, "xsum", torch.float32, (N, G), dev)
     hi_ptr = _planes("K4L", qt, dev)
     require("K4L", qt.scales, "scales", torch.bfloat16, (G, Mp), dev)
@@ -376,7 +475,7 @@ def launch_group_gemm(codes: torch.Tensor, xs: torch.Tensor,
         res_ptr = residual.data_ptr()
     out = torch.empty((N, Mp), dtype=torch.float32, device=dev)
     err = _lib().tmac_group_gemm(
-        codes.data_ptr(), xs.data_ptr(), xsum.data_ptr(), N, Kp, gs, qt.bits,
+        codes.data_ptr(), xs.data_ptr(), xsum.data_ptr(), N, Kp, gs, ags, qt.bits,
         qt.packed.data_ptr(), hi_ptr, Mp, qt.scales.data_ptr(), qt.sub.data_ptr(),
         res_ptr, out.data_ptr(), _stream(dev))
     raise_on("K4L", err, "matmul")
@@ -384,18 +483,20 @@ def launch_group_gemm(codes: torch.Tensor, xs: torch.Tensor,
 
 
 def qgemm_grouped_large(x: torch.Tensor, qt: QuantizedTensor, norm=None,
-                        glu: bool = False, residual=None) -> torch.Tensor:
+                        glu: bool = False, residual=None,
+                        act_gs: int = 0) -> torch.Tensor:
     """K4L: qgemm_grouped's function on the int8 tensor cores, the group
     fold in registers (csrc/qgemm_grouped.cu, group_mma_kernel), the form
     the route takes from LARGE_N rows; any N on a CUDA tensor.  CPU
     tensors take the plain version."""
     _check_supported(qt, glu, norm, residual, "K4L")
     if x.device.type == "cpu":
-        return qgemm_grouped_plain(x, qt, norm, glu, residual)
+        return qgemm_grouped_plain(x, qt, norm, glu, residual, act_gs)
     if x.device.type != "cuda":
         raise ValueError(f"K4L runs on CPU or CUDA tensors, not {x.device}")
-    codes, xs, xsum = launch_act_quant_grouped(x, qt, norm, glu, "K4L")
-    out = launch_group_gemm(codes, xs, xsum, qt, residual)
+    ags = effective_ags(qt, act_gs)
+    codes, xs, xsum = launch_act_quant_grouped(x, qt, norm, glu, "K4L", ags)
+    out = launch_group_gemm(codes, xs, xsum, qt, residual, ags)
     qgemm_grouped_large.launches += 1
     return qt.slice_m(out)
 

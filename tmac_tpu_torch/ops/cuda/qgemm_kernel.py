@@ -171,14 +171,15 @@ DEFAULT_SMS = 132         # an H100 SXM's SMs: the plan on the CPU
 # times at every (cluster size, token rows a block, ring stages) at
 # Mixtral-8x7B's expert shapes, 1 and 2 experts, N = 1 and 4, on an H100
 # (PERF.md's K7 findings): an SM's shared memory and a block's reserve of
-# it; the blocks an SM holds by registers (token rows a block 1, 4); the share of
+# it; the blocks an SM holds by registers (token rows a block 1, 4; 2, bits
+# 1's 8 slots a row, takes nt 4's value unfitted: as many int32 sums); the share of
 # the slots clusters of 4 or more blocks fill (a cluster stays inside a
 # GPC); the bytes an SM must have in flight to stream at full rate; a
 # block's fixed cost in packed rows per group of its fold (the partials'
 # exchange, the f32 chain); the extra work a packed row costs per token
 # row of a block past the first
 SM_SMEM, BLOCK_SMEM_RESERVE = 228 * 1024, 1024
-EXPERT_BLOCKS_PER_SM = {1: 3, 4: 2}
+EXPERT_BLOCKS_PER_SM = {1: 3, 2: 2, 4: 2}
 WIDE_CLUSTER_FILL = 7 / 8
 EXPERT_INFLIGHT_BYTES = 36 * 1024
 EXPERT_FIXED_ROWS_PER_GROUP = 12
@@ -242,29 +243,31 @@ def decode_owner(nunits: int, ksplit: int):
 
 
 def decode_smem(bits: int, nt: int, grouped: bool, nunits: int, unit: int,
-                ksplit: int, G: int, stages=None) -> int:
+                ksplit: int, G: int, stages=None, acts: int = 0) -> int:
     """A block's shared memory, as decode_matmul.cuh's Layout sizes it: the
     ring of `stages` stages (decode_stages' by default) of decode_planes
     planes (or the partials it receives for its slice of columns, if
     larger), the codes of its rows, its int32 partials and, grouped, the
-    fold's scales and zero points of its slice and the tile's xs, xsum."""
+    fold's scales and zero points of its slice and the tile's xs, xsum.
+    acts: the activation groups (a partial and an xs each) of K4's ags
+    form, or 0 (one a weight group)."""
     P = decode_fields(bits)
     units = cdiv(nunits, ksplit)
     span = round_up(units * unit, DECODE_STAGE_ROWS)
     slice_ = cdiv(DECODE_STRIP // 8, ksplit) * 8
-    recv = (G if grouped else ksplit) * nt * slice_ * 4
+    recv = ((acts or G) if grouped else ksplit) * nt * slice_ * 4
     ring = (stages or decode_stages(bits)) * DECODE_STAGE_ROWS * DECODE_STRIP \
         * decode_planes(bits)
     total = round_up(max(ring, recv), 16) + round_up(nt * P * span, 16)
     total += (units * P if grouped else 1) * nt * DECODE_STRIP * 4
     if grouped:
-        total += round_up(2 * G * slice_ * 2, 16) + 2 * nt * G * 4
+        total += round_up(2 * G * slice_ * 2, 16) + nt * ((acts or G) + G) * 4
         total = round_up(total, 16) + DECODE_XBUF
     return total
 
 
 def decode_plan(N: int, Kp: int, Mp: int, bits: int, gs: int = 0,
-                sms: int = DEFAULT_SMS, experts: int = 0):
+                sms: int = DEFAULT_SMS, experts: int = 0, ags: int = 0):
     """(ksplit, nt) for the decode matmul from shapes only, so a CUDA graph
     can capture the call: nt token rows a block (decode_nt), and
     the blocks of a cluster along K, no more than the units of the split,
@@ -286,13 +289,17 @@ def decode_plan(N: int, Kp: int, Mp: int, bits: int, gs: int = 0,
     registers allow, clusters of 4 or more fill WIDE_CLUSTER_FILL of
     them), and a block with fewer bytes in flight than
     EXPERT_INFLIGHT_BYTES streams slower.  Raises if no configuration
-    fits a block's shared memory."""
-    Kb, unit, nunits = decode_units(Kp, bits, gs)
+    fits a block's shared memory.
+
+    ags (K4's ags form): the split's unit and the fold's partials are the
+    activation groups of ags packed rows."""
+    Kb, unit, nunits = decode_units(Kp, bits, ags or gs)
     grouped, G = gs > 0, Kp // gs if gs else 1
+    acts = Kp // ags if ags else 0
     best = None
     if experts:
-        for nt, ksplit, stages in itertools.product((1, 4) if N > 1 else (1,),
-                                                    EXPERT_SPLITS, EXPERT_STAGES):
+        for nt, ksplit, stages in itertools.product(
+                (1, decode_nt(N, bits)) if N > 1 else (1,), EXPERT_SPLITS, EXPERT_STAGES):
             smem = decode_smem(bits, nt, grouped, nunits, unit, ksplit, G, stages)
             if ksplit > nunits or smem > DECODE_SMEM_LIMIT:
                 continue
@@ -314,7 +321,7 @@ def decode_plan(N: int, Kp: int, Mp: int, bits: int, gs: int = 0,
         nt = decode_nt(N, bits)
         clusters = (Mp // DECODE_STRIP) * cdiv(N, nt)
         for ksplit in DECODE_SPLITS:
-            smem = decode_smem(bits, nt, grouped, nunits, unit, ksplit, G)
+            smem = decode_smem(bits, nt, grouped, nunits, unit, ksplit, G, acts=acts)
             if ksplit > nunits or smem > DECODE_SMEM_LIMIT:
                 continue
             per_sm = 2 if smem <= DECODE_SMEM_BUDGET else 1
@@ -332,12 +339,12 @@ def decode_plan(N: int, Kp: int, Mp: int, bits: int, gs: int = 0,
 
 
 def check_decode_smem(kernel: str, N: int, Kp: int, bits: int, gs: int,
-                      ksplit: int, nt: int, stages=None) -> None:
+                      ksplit: int, nt: int, stages=None, ags: int = 0) -> None:
     """Raise if a forced cluster size leaves a block more shared memory
     than the card has (decode_plan's own never does)."""
-    _, unit, nunits = decode_units(Kp, bits, gs)
+    _, unit, nunits = decode_units(Kp, bits, ags or gs)
     need = decode_smem(bits, nt, gs > 0, nunits, unit, ksplit, Kp // gs if gs else 1,
-                       stages)
+                       stages, Kp // ags if ags else 0)
     if need > DECODE_SMEM_LIMIT:
         raise ValueError(f"{kernel}: ksplit {ksplit} at N = {N}, K = {Kp} needs "
                          f"{need} bytes of shared memory a block")
@@ -379,13 +386,22 @@ def qgemm_fused_plain(x: torch.Tensor, qt: QuantizedTensor, norm=None,
     acc = int_dot_plain(codes, qt)
     if large:
         return qt.slice_m(large_epilogue_plain(acc, xs, xsum, qt, residual))
+    return qt.slice_m(decode_epilogue_plain(acc, xs, xsum, qt, residual))
+
+
+def decode_epilogue_plain(acc: torch.Tensor, xs: torch.Tensor, xsum: torch.Tensor,
+                          qt: QuantizedTensor, residual=None) -> torch.Tensor:
+    """K1's f32 epilogue below LARGE_N rows (and K7's per-tensor one) on the
+    exact int32 sums acc (N, Mp), xs and the dequantized code sums xsum
+    (N,): fma(acc * scale, xs, -(xsum * sub)) (+ residual), each step
+    rounded as the reference compiles it.  -> (N, Mp) f32."""
     acc = acc.float()
     scale, xs = qt.scales[0].float().expand_as(acc), xs[:, None].expand_as(acc)
     zero_fold = -(xsum[:, None] * qt.sub[0].float())
     out = fma_f32(acc * scale, xs, zero_fold)
     if residual is not None:
         out = out + residual.float()
-    return qt.slice_m(out)
+    return out
 
 
 def large_epilogue_plain(acc: torch.Tensor, xs: torch.Tensor, xsum: torch.Tensor,

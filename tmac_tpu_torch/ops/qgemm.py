@@ -24,6 +24,7 @@ implementation computes C = x @ Wdq with
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional
 
 import numpy as np
@@ -322,25 +323,44 @@ def route(qt: QuantizedTensor, N: int, dispatch: Optional[str] = None) -> str:
     return "K4L" if N >= LARGE_N else "K4"
 
 
+def effective_ags(qt: QuantizedTensor, act_gs: int) -> int:
+    """The activation group size that ``qgemm_pallas`` keeps: act_gs when
+    the scales are grouped (G > 1) and 0 < act_gs < group_size divides
+    group_size, else 0 (any other value is ignored, not an error).  Only
+    K4's function (K4, K4L) quantizes per activation group; K5 keeps float
+    activations and the per-tensor kernels quantize per token."""
+    if (act_gs and qt.scales.shape[-2] > 1 and 0 < act_gs < qt.group_size
+            and qt.group_size % act_gs == 0):
+        return act_gs
+    return 0
+
+
 def kernel_for(qt: QuantizedTensor, N: int, plain: bool = False,
-               dispatch: Optional[str] = None):
+               dispatch: Optional[str] = None, act_gs: int = 0):
     """The wrapper of ``route``'s kernel, or with plain=True its plain
     PyTorch version: a function (x, qt, norm=, glu=, residual=) -> (N, M)
-    f32.  Every quantized linear of the port takes its kernel here."""
+    f32.  act_gs: the activation group size, bound into K4's and K4L's
+    function (the others ignore it, as the reference does).  Every
+    quantized linear of the port takes its kernel here."""
     from tmac_tpu_torch.ops.cuda import qgemm_grouped_kernel as grouped
     from tmac_tpu_torch.ops.cuda import qgemm_kernel as per_tensor
-    return {
+    kernel = route(qt, N, dispatch)
+    fn = {
         "K1": (per_tensor.qgemm_fused, per_tensor.qgemm_fused_plain),
         "K3": (per_tensor.qgemm_large_int, per_tensor.qgemm_fused_plain),
         "K4": (grouped.qgemm_grouped, grouped.qgemm_grouped_plain),
         "K4L": (grouped.qgemm_grouped_large, grouped.qgemm_grouped_plain),
         "K5": (grouped.qgemm_dequant, grouped.qgemm_dequant_plain),
-    }[route(qt, N, dispatch)][int(plain)]
+    }[kernel][int(plain)]
+    if kernel in ("K4", "K4L") and effective_ags(qt, act_gs):
+        return functools.partial(fn, act_gs=act_gs)
+    return fn
 
 
 def qgemm(x: torch.Tensor, qt: QuantizedTensor, impl: str = "auto",
           out_dtype=None, norm=None, glu: bool = False,
-          residual=None, dispatch: Optional[str] = None) -> torch.Tensor:
+          residual=None, dispatch: Optional[str] = None,
+          act_group_size: int = 0) -> torch.Tensor:
     """Quantized matmul x (N, K) @ Wdq (K, M) -> (N, M).
 
     impl: "fused" (float x: the kernel ``route`` picks: K1 or K3 for
@@ -355,6 +375,9 @@ def qgemm(x: torch.Tensor, qt: QuantizedTensor, impl: str = "auto",
     dispatch: the grouped large-N kernel, as qgemm_pallas's argument:
     "chunk" (K4), "dequant" (K5) or None (the N >= 3 * group_size rule);
     ignored below LARGE_N rows and for per-tensor scales.
+    act_group_size: activation groups finer than the weight groups (the
+    reference's -ags knob) on K4's function; ignored where
+    ``effective_ags`` drops it, by K5 and by impl="torch".
     """
     grouped = qt.scales.shape[0] > 1
     if impl == "auto":
@@ -368,7 +391,8 @@ def qgemm(x: torch.Tensor, qt: QuantizedTensor, impl: str = "auto",
         if not x.is_floating_point():
             raise ValueError("the fused kernels quantize float activations; "
                              "int8 x takes impl='torch'")
-        kernel = kernel_for(qt, x.shape[0], dispatch=dispatch)
+        kernel = kernel_for(qt, x.shape[0], dispatch=dispatch,
+                            act_gs=act_group_size)
         out = kernel(x.to(torch.bfloat16), qt, norm=norm, glu=glu,
                      residual=residual)
         return out.to(out_dtype)

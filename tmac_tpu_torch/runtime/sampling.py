@@ -58,7 +58,7 @@ class SamplerState:
     @classmethod
     def make(cls, temperature, top_k, top_p, repeat_penalty=None,
              presence_penalty=None, frequency_penalty=None, min_p=None,
-             device="cpu") -> "SamplerState":
+             device="cuda") -> "SamplerState":
         n = len(temperature)
 
         def f32(v, default):
@@ -76,7 +76,7 @@ class SamplerState:
 
     @classmethod
     def broadcast(cls, cfg: SamplerConfig, batch: int,
-                  device="cpu") -> "SamplerState":
+                  device="cuda") -> "SamplerState":
         return cls.make([cfg.temperature] * batch, [cfg.top_k] * batch,
                         [cfg.top_p] * batch,
                         [cfg.repeat_penalty] * batch,
