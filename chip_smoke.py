@@ -11,6 +11,8 @@
     python3 chip_smoke.py --phase ags_path             (K4's ags form at bits
                                                         1-4 and path 7)
     python3 chip_smoke.py --phase wa8_path             (path 8)
+    python3 chip_smoke.py --phase engine_serve         (path 9: the engine,
+                                                        its server and bench)
 
 Phases, each printing one JSON line before the last two:
   1. the card (nvidia-smi name and power limit, torch's device name);
@@ -157,7 +159,28 @@ Phases, each printing one JSON line before the last two:
      step) and path 1's checks and timings (Llama-3.1's teacher-forced
      check on the prompt's last position as path 2's, Qwen2's on every
      position); each kernel's time per step or prefill beside its bound,
-     plain version and yardstick;
+     plain version and yardstick; then, on Qwen2-7B's weights and model,
+     path 9 (engine_serve): an InferenceEngine of 8 slots and 2048 rows
+     (prefill chunks of 512 in buckets of 16, 64, 256 and 512; decode
+     chunks of 16 growing to 64; a prefix cache of 4), warmed up, drives
+     the serving bench (16 requests at seed 0 of 16-700 tokens, the last
+     4 sharing a 300-token prefix, budgets of 32-96 tokens, Poisson
+     arrivals), its launches counted against its prefill chunks by bucket
+     and its decode steps (112 K4, 1 K1, 28 K2 a step), the decode step's
+     device time at 8 active slots from the engine's CUDA events (KV
+     lengths of ~80-200 rows and of ~1000), one step of the 8 live slots
+     held to the plain versions, a mixed batch (seeded, unseeded and
+     seeded-greedy draws, a seed again beside other partners and in
+     another slot, logprobs, stop tokens, an eos id, a cancel), a cold
+     engine giving the shared-prefix streams, an int8 cache (K6), the HTTP
+     server (4 clients, two streaming, each reply the engine's ids), slot
+     prefill against generate's prefill bit for bit, 8 greedy streams
+     (bf16 and int8 caches) with every batch-dependent form of the step
+     set to its one-row form each equal to generate()'s at B = 1 token
+     for token, its KV rows bit for bit and its logprob records within
+     1e-4 (on the engine's own 8-row plans: reported), and K4, K1 and K2
+     (K6) at B = 8 checked and timed per step beside B = 1 and their
+     bounds;
  10. K4's ags form (activation groups finer than the weight groups, the
      reference's act_group_size) at bits 1, 2, 3 and 4, ags 32 and 64, N =
      1, 4 and 16 on a 4096 x 4096 weight, without folds (bit for bit, the
@@ -1088,10 +1111,10 @@ def time_k4(card, calls, reps=20):
                 library_ms=yardstick_ms(card, x, qt, N == 1))
 
 
-def time_head(card, head):
-    """K1 on the int8 head at N=1: (ms, plain ms, bound ms, yardstick ms)."""
+def time_head(card, head, N=1):
+    """K1 on the int8 head at N rows: (ms, plain ms, bound ms, yardstick ms)."""
     from tmac_tpu_torch.ops.cuda import qgemm_kernel as k1
-    x = card.bf16(1, head.kdim)
+    x = card.bf16(N, head.kdim)
     return (graph_ms(lambda: k1.qgemm_fused(x, head)),
             cuda_ms(lambda: k1.qgemm_fused_plain(x, head), 3),
             card.bound_ms(qgemm_bytes(head, x, {}),
@@ -3427,7 +3450,44 @@ def check_k2_heads(card, KV, rep, Dl, S=2048):
     return rows, worst
 
 
-def grouped_path(card, tag, cfg, prompt_len, chunk):
+LINEARS = ("wqkv", "wo", "gate_up", "down")
+
+
+def linear_call(card, cfg, shape, N, layer, folds=True, with_ags=True):
+    """(x, weight, folds) of a layer's linear at N rows, with its model's
+    folds (the norm into wqkv and gate_up, the residual into wo and down,
+    SwiGLU into an unpadded down) unless folds is off, and with act_gs
+    (K4's function in the ags form) unless with_ags is off (K5, ags 0)."""
+    qt, ags = layer[shape], cfg.quant.act_group_size
+    if shape in ("wqkv", "gate_up"):
+        kw = dict(norm=(layer["attn_norm" if shape == "wqkv" else "mlp_norm"],
+                        cfg.rms_norm_eps))
+        width = cfg.hidden_size
+    else:
+        kw, width = dict(residual=card.bf16(N, qt.mdim)), qt.kdim
+        if shape == "down" and qt.kdim_padded == qt.kdim:
+            kw["glu"], width = True, 2 * qt.kdim
+    kw = kw if folds else {}
+    if ags and with_ags:
+        kw["act_gs"] = ags
+    return card.bf16(N, width if folds else qt.kdim), qt, kw
+
+
+def per_linear_times(card, cfg, layers, N, timer, count, with_ags=True):
+    """Each linear's time per call at N rows (over the layers' weights; 4
+    layers' from 64 rows) by `timer`, summed over `count` calls of each:
+    (rows, totals of ms, plain_ms, bound_ms and library_ms)."""
+    rows, tot = [], dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0)
+    for sh in LINEARS:
+        calls = [linear_call(card, cfg, sh, N, layers[i], with_ags=with_ags)
+                 for i in range(len(layers) if N == 1 else min(4, len(layers)))]
+        rows.append(dict(shape=sh, per=count, **timer(card, calls)))
+        for key in tot:
+            tot[key] += count * rows[-1][key]
+    return rows, tot
+
+
+def grouped_path(card, tag, cfg, prompt_len, chunk, serve=None):
     """A grouped-scale model at full width and depth, weights drawn on the
     card (params_on_card): K4 (N = 1, 4, 16, at every cluster size of the
     checks), K4L (N = 64, 256) and, where a chunk takes it, K5 (N = 384,
@@ -3440,7 +3500,9 @@ def grouped_path(card, tag, cfg, prompt_len, chunk):
     timings and records are the ags form's, K4 also timed at ags 0 on the
     same weights, and the ags and ags 0 logits at the prompt's last
     position are held against a bf16 dequant forward (ags_accuracy,
-    printed).  -> the kernels' records"""
+    printed).  serve(card, cfg, params, model), when given, runs last on
+    the path's weights and model (engine_serve) and adds its records.  ->
+    the kernels' records"""
     import torch
     from tmac_tpu_torch.ops.qgemm import route
     t_path = time.perf_counter()
@@ -3450,26 +3512,13 @@ def grouped_path(card, tag, cfg, prompt_len, chunk):
         act_group_size=cfg.quant.act_group_size,
         init_params_s=round(time.perf_counter() - t_path, 3))
     layers, L = params["layers"], cfg.num_layers
-    H, eps, rep = cfg.hidden_size, cfg.rms_norm_eps, cfg.num_heads // cfg.num_kv_heads
+    H, rep = cfg.hidden_size, cfg.num_heads // cfg.num_kv_heads
     ags = cfg.quant.act_group_size
 
     def args(shape, N, layer, folds=True, with_ags=True):
-        """(x, weight, folds) of a linear at N rows, with act_gs (K4's
-        function in the ags form) unless with_ags is off (K5, ags 0)."""
-        qt = layer[shape]
-        if shape in ("wqkv", "gate_up"):
-            kw = dict(norm=(layer["attn_norm" if shape == "wqkv" else "mlp_norm"], eps))
-            width = H
-        else:
-            kw, width = dict(residual=card.bf16(N, qt.mdim)), qt.kdim
-            if shape == "down" and qt.kdim_padded == qt.kdim:
-                kw["glu"], width = True, 2 * qt.kdim
-        kw = kw if folds else {}
-        if ags and with_ags:
-            kw["act_gs"] = ags
-        return card.bf16(N, width if folds else qt.kdim), qt, kw
+        return linear_call(card, cfg, shape, N, layer, folds, with_ags)
 
-    shapes = ("wqkv", "wo", "gate_up", "down")
+    shapes = LINEARS
     l0 = layers[0]
     cases = [(sh, *args(sh, N, l0)) for sh in shapes for N in (1, 4, 16, 64, 256)]
     cases += [(sh, *args(sh, N, l0, False)) for sh in shapes for N in (1, 64)]
@@ -3501,16 +3550,7 @@ def grouped_path(card, tag, cfg, prompt_len, chunk):
         say(f"{tag}_ags_accuracy", **ags_accuracy(card, cfg, params, main["prompt"], chunk))
 
     def per(N, timer, count, with_ags=True):
-        """Each shape's time per call at N rows (over the layers' weights;
-        4 layers' from 64 rows), summed over `count` calls of each."""
-        rows, tot = [], dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0)
-        for sh in shapes:
-            calls = [args(sh, N, layers[i], with_ags=with_ags)
-                     for i in range(L if N == 1 else min(4, L))]
-            rows.append(dict(shape=sh, per=count, **timer(card, calls)))
-            for key in tot:
-                tot[key] += count * rows[-1][key]
-        return rows, tot
+        return per_linear_times(card, cfg, layers, N, timer, count, with_ags)
     k4_times, k4_tot = per(1, time_k4, L)
     # the ags form beside K4 at ags 0 on the same weights
     ags0 = dict(ags0_per_step=per(1, time_k4, L, with_ags=False)[1]) if ags else {}
@@ -3556,7 +3596,778 @@ def grouped_path(card, tag, cfg, prompt_len, chunk):
         records.append(rec(f"qgemm_dequant (K5) bits {bits}", "qgemm_large.cu",
                            "qgemm_kernel.py:319", "K5", k5_err, k5_tot,
                            dominant_bound(k5_times)))
+    if serve is not None:
+        records += serve(card, cfg, params, main["model"])
     del params, main
+    return records
+
+
+# ---------------------------------------------------------------------------
+# engine_serve: the continuous-batching engine, its HTTP server and the
+# serving bench on Qwen2-7B W4A16 g128
+# ---------------------------------------------------------------------------
+
+SERVE_ENGINE = dict(max_batch=8, max_len=2048, prefill_chunk=512, decode_chunk=16,
+                    max_decode_chunk=64, prefix_cache_size=4)
+# the bench: SERVE_REQUESTS prompts of 16-700 tokens at seed 0, the last
+# SERVE_SHARED of them a shared SERVE_PREFIX-token prefix and 16-400 tokens
+# more, budgets of 32-96 tokens, Poisson arrivals at SERVE_RATE a second
+# (all within ~0.2 s: the 8 slots stay full while 8 requests wait)
+SERVE_REQUESTS, SERVE_SHARED, SERVE_PREFIX, SERVE_RATE = 16, 4, 300, 80.0
+# the int8-cache run: SERVE_INT8 prompts of 16-300 tokens, budgets 16-48
+SERVE_INT8 = 8
+# the mixed batch's sampler; logprob records against a teacher-forced
+# log-softmax
+SERVE_SAMPLED, LOGPROB_TOL = dict(temperature=0.8, top_p=0.95), 1e-4
+
+
+def serve_traffic(V, n, hi, new_lo, new_hi, shared=0, seed=0):
+    """n prompts of 16-hi random tokens, the last `shared` of them
+    SERVE_PREFIX shared tokens and 16 to hi - SERVE_PREFIX more, and their
+    budgets of new_lo-new_hi tokens, from `seed`."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    prefix = rng.integers(0, V, SERVE_PREFIX).tolist()
+    prompts, budgets = [], []
+    for i in range(n):
+        if i >= n - shared:
+            tail = int(rng.integers(16, hi - SERVE_PREFIX + 1))
+            prompts.append(prefix + rng.integers(0, V, tail).tolist())
+        else:
+            prompts.append(rng.integers(0, V, int(rng.integers(16, hi + 1))).tolist())
+        budgets.append(int(rng.integers(new_lo, new_hi + 1)))
+    return prompts, budgets
+
+
+def engine_counters(eng):
+    """The engine's counters that account for launches (a copy)."""
+    st = eng.stats
+    return dict(prefill_chunks=dict(st["prefill_chunks"]), eager_steps=st["eager_steps"],
+                graph_captures=st["graph_captures"], graph_replays=st["graph_replays"],
+                replay_ms=st["replay_ms"], decode_s=st["decode_s"], chunks=st["chunks"])
+
+
+def engine_run_launches(cfg, params, before, after, quant, warm_buckets=()):
+    """An engine run's launches from its counters (before and after it;
+    warm_buckets: the buckets of a warm-up inside the run, a chunk each,
+    which the prefill counters do not count): per prefill chunk of bucket
+    b, 4 L calls of route(wqkv, b) and one of route(head, b); per decode
+    step, 4 L K4, 1 K1 and L K2 (K6 on an int8 cache).  The wrappers count
+    a decode step where the host runs it: an eager step (a capture's
+    warm-up among them), or a capture's recording (whose replays run
+    without the host).  -> (wrapper calls, launched on the card, a step's
+    launches)"""
+    from tmac_tpu_torch.ops.qgemm import route
+    L = cfg.num_layers
+    wqkv, head = params["layers"][0]["wqkv"], params["lm_head"]
+    calls, step = counts(), counts(K4=4 * L, K1=1, **{"K6" if quant else "K2": L})
+    chunks = {b: n - before["prefill_chunks"].get(b, 0)
+              for b, n in after["prefill_chunks"].items()}
+    for b in warm_buckets:
+        chunks[b] = chunks.get(b, 0) + 1
+    for b, n in chunks.items():
+        calls[route(wqkv, b)] += 4 * L * n
+        calls[route(head, b)] += n
+    d = {k: after[k] - before[k] for k in ("eager_steps", "graph_captures", "graph_replays")}
+    on_card = dict(calls)
+    for k in COUNTERS:
+        calls[k] += step[k] * (d["eager_steps"] + d["graph_captures"])
+        on_card[k] += step[k] * (d["eager_steps"] + d["graph_replays"])
+    return calls, on_card, step
+
+
+# the single-stream comparison: prompts whose lengths are prefill buckets
+# no longer than generate's prefill chunk (256), so that the engine's
+# bucket and generate's chunk run the same kernels on the same rows;
+# budgets of 24-48 tokens from seed 2, WITNESS_LOGPROBS alternatives
+# recorded
+WITNESS_LENS, WITNESS_LOGPROBS = (256, 16, 64, 256, 16, 64, 256, 64), 4
+
+
+@contextlib.contextmanager
+def one_row_forms():
+    """Every form of the decode step that depends on the batch's row count
+    set to its one-row form while the context is open: K1's and K4's plan
+    (decode_plan: the cluster size along K and the token rows a block),
+    K2/K6's blocks a head (split_plan) and the final rms_norm, run a row
+    at a time (torch sizes a reduction's blocks by its row count, so a
+    row's f32 sum of squares can differ between 1 and 8 rows).  Each row
+    of a batch then takes a batch of one's arithmetic; K7's plan (experts)
+    is left as it is."""
+    import torch
+    from tmac_tpu_torch.models import llama
+    from tmac_tpu_torch.ops.cuda import attention_kernel as ak
+    from tmac_tpu_torch.ops.cuda import qgemm_grouped_kernel as k4
+    from tmac_tpu_torch.ops.cuda import qgemm_kernel as k1
+    saved = k1.decode_plan, k4.decode_plan, ak.split_plan, llama.rms_norm
+
+    def one_row(plan):
+        return lambda N, *a, **k: plan(N if k.get("experts") else 1, *a, **k)
+
+    def norm(x, w, eps):
+        return torch.cat([saved[3](x[i:i + 1], w, eps) for i in range(x.shape[0])])
+    k1.decode_plan, k4.decode_plan = one_row(saved[0]), one_row(saved[1])
+    ak.split_plan = lambda B, *a, **k: saved[2](1, *a, **k)
+    llama.rms_norm = norm
+    try:
+        yield
+    finally:
+        k1.decode_plan, k4.decode_plan, ak.split_plan, llama.rms_norm = saved
+
+
+class SingleStream:
+    """The single-stream path teacher-forced: a prompt through generate's
+    prefill (chunks of 256) on a one-row cache of SERVE_ENGINE's length,
+    then one captured decode step (B = 1) replayed over given tokens, which
+    it reads on the card, each step's logits into a row of `rows` (row 0:
+    the prompt's last position's).  The cache keeps the stream's rows."""
+
+    def __init__(self, model, width, quant=False):
+        import torch
+        from tmac_tpu_torch.models.llama import KVCache
+        dev = model.device
+        self.model = model
+        self.cache = KVCache.create(model.cfg, 1, SERVE_ENGINE["max_len"], device=dev,
+                                    quant=quant)
+        self.seq = torch.zeros((width,), dtype=torch.long, device=dev)
+        self.col = torch.zeros((1,), dtype=torch.long, device=dev)
+        self.rows = torch.zeros((width + 1, model.cfg.vocab_size), device=dev)
+        self.graph = None
+
+    def _step(self):
+        lg, _ = self.model(self.seq.index_select(0, self.col)[:, None], self.cache)
+        self.rows.index_copy_(0, self.col + 1, lg[:, -1])
+        self.col.add_(1)
+
+    def run(self, prompt, toks):
+        """-> rows (len(toks), V): the logits each of toks was drawn from."""
+        import torch
+        from tmac_tpu_torch.runtime.generate import prefill
+        self.cache.pos.zero_()
+        last, _ = prefill(self.model, torch.tensor([prompt], device=self.seq.device),
+                          self.cache)
+        self.rows[0].copy_(last[0])
+        n = len(toks) - 1
+        if n > 0:
+            self.seq[:n].copy_(torch.tensor(toks[:-1]))
+            self.col.zero_()
+            done = 0
+            if self.graph is None:
+                self.graph = capture(self._step)  # its warm-up is step 0
+                done = 1
+            for _ in range(n - done):
+                self.graph.replay()
+        return self.rows[:len(toks)]
+
+
+def kv_rows_equal(cache, slot, one, n):
+    """Whether the first n rows of `slot` in every layer of cache (and of
+    an int8 cache's scales) equal the one-row cache one's, bit for bit."""
+    import torch
+    return all(torch.equal(a[:, slot, :, :n], b[:, 0, :, :n])
+               for a, b in ((cache.k, one.k), (cache.v, one.v),
+                            (cache.k_scale, one.k_scale), (cache.v_scale, one.v_scale))
+               if a is not None)
+
+
+def prefill_slot_check(model, prompt, slot, quant):
+    """prefill_slot of a bucket-length prompt (no padding) into `slot` of
+    an empty 8-slot cache of SERVE_ENGINE's rows against generate's prefill
+    of it on a one-row cache: the last logits and every layer's KV rows
+    (and scales) bit for bit, the slot's pos the prompt's length and the
+    other slots untouched.  -> the record."""
+    import torch
+    from tmac_tpu_torch.models.llama import KVCache
+    from tmac_tpu_torch.runtime.engine import prefill_slot
+    from tmac_tpu_torch.runtime.generate import prefill
+    dev, n = model.device, len(prompt)
+    big, one = (KVCache.create(model.cfg, b, SERVE_ENGINE["max_len"], device=dev, quant=quant)
+                for b in (8, 1))
+    x = torch.tensor([prompt], device=dev)
+    got, _ = prefill_slot(model, x, n, big, slot, 0)
+    want, _ = prefill(model, x, one)
+    others = [i for i in range(8) if i != slot]
+    bufs = [t for t in (big.k, big.v, big.k_scale, big.v_scale) if t is not None]
+    rec = dict(prompt_len=n, slot=slot, int8_cache=quant,
+               logits_equal=torch.equal(got, want[0]),
+               kv_rows_equal=kv_rows_equal(big, slot, one, n),
+               pos=big.pos.tolist(),
+               others_untouched=not any(bool(t[:, others].any()) for t in bufs))
+    rec["ok"] = (rec["logits_equal"] and rec["kv_rows_equal"] and rec["others_untouched"]
+                 and rec["pos"] == [n if i == slot else 0 for i in range(8)])
+    return rec
+
+
+def engine_streams(model, prompts, budgets, quant):
+    """The prompts submitted together to a cold engine of SERVE_ENGINE (no
+    prefix cache; an int8 cache with quant), greedy, WITNESS_LOGPROBS
+    alternatives recorded; request i takes slot i (all are admitted in
+    the first tick).  -> (the engine, the finished requests in order)."""
+    from tmac_tpu_torch.runtime.engine import InferenceEngine
+    eng = InferenceEngine(model, **dict(SERVE_ENGINE, prefix_cache_size=0, kv_quant=quant))
+    uids = [eng.submit(p, max_new_tokens=b, logprobs=WITNESS_LOGPROBS)
+            for p, b in zip(prompts, budgets)]
+    eng.step()
+    if [None if r is None else r.uid for r in eng.slots] != uids:
+        raise AssertionError(f"engine_serve: slots {eng.slots} after the first tick")
+    eng.run()
+    return eng, [eng.finished[u] for u in uids]
+
+
+def single_stream_check(model, quant):
+    """The engine against the single-stream path (B = 1): the witness
+    prompts (WITNESS_LENS, seed 2) submitted together to a cold engine
+    twice, on its own 8-row plans and under one_row_forms, each greedy
+    stream against generate()'s tokens for its prompt (one row of
+    SERVE_ENGINE's length, under one_row_forms: its 16-row prefills take
+    the one-row plan, as the engine's do there) and teacher-forced
+    (SingleStream): the slot's KV rows of every layer, each token the
+    argmax of its row, the tie-aware agreement and the logprob records
+    against the rows' log-softmax.  -> {"own_plans": ..., "one_row": ...}
+    (under one_row_forms every stream must equal, the caller checks)."""
+    import numpy as np
+    import torch
+    from tmac_tpu_torch.runtime.generate import generate
+    rng = np.random.default_rng(2)
+    V = model.cfg.vocab_size
+    prompts = [rng.integers(0, V, n).tolist() for n in WITNESS_LENS]
+    budgets = [int(rng.integers(24, 49)) for _ in WITNESS_LENS]
+    runs = {"own_plans": engine_streams(model, prompts, budgets, quant)}
+    out = {}
+    with one_row_forms():
+        runs["one_row"] = engine_streams(model, prompts, budgets, quant)
+        ref = [generate(model, [p], b, max_len=SERVE_ENGINE["max_len"],
+                        kv_quant=quant)[0].tolist() for p, b in zip(prompts, budgets)]
+        ss = SingleStream(model, max(budgets), quant)
+        for name, (eng, reqs) in runs.items():
+            rec = dict(streams=len(reqs), tokens_equal_generate=0, kv_rows_equal=0,
+                       argmax_every_token=0, min_tie_aware_agreement=1.0,
+                       logprob_max_abs_err=0.0)
+            for slot, (p, r, want) in enumerate(zip(prompts, reqs, ref)):
+                rows = ss.run(p, r.output)
+                a, same = tf_agreement(rows, r.output)
+                rec["tokens_equal_generate"] += r.output == want
+                rec["kv_rows_equal"] += kv_rows_equal(eng.cache, slot, ss.cache,
+                                                      len(p) + len(r.output) - 1)
+                rec["argmax_every_token"] += same
+                rec["min_tie_aware_agreement"] = min(rec["min_tie_aware_agreement"], a)
+                rec["logprob_max_abs_err"] = max(rec["logprob_max_abs_err"],
+                                                 lp_error(r.logprobs_out, r.output, rows))
+            out[name] = rec
+        del ss
+    del runs
+    torch.cuda.empty_cache()
+    return dict(prompt_lens=list(WITNESS_LENS), budgets=budgets, int8_cache=quant, **out)
+
+
+def norm_rows_differing(model, trials=200):
+    """The final rms_norm (the model's weight and eps) of random bf16 rows
+    of the model's width, 8 at once against each row alone: -> (rows whose
+    output differs in any bit, rows)."""
+    import torch
+    from tmac_tpu_torch.models.llama import rms_norm
+    cfg, dev = model.cfg, model.device
+    g = torch.Generator(device=dev).manual_seed(0)
+    differ = 0
+    for _ in range(trials):
+        x = torch.randn((8, 1, cfg.hidden_size), generator=g, device=dev).to(torch.bfloat16)
+        both = rms_norm(x, model.final_norm, cfg.rms_norm_eps)
+        differ += sum(not torch.equal(both[i:i + 1],
+                                      rms_norm(x[i:i + 1], model.final_norm, cfg.rms_norm_eps))
+                      for i in range(8))
+    return differ, 8 * trials
+
+
+def tf_agreement(rows, toks):
+    """(argmax_agreement's tie-aware share at TIE_MARGIN of toks against
+    rows (n, V) on the card, whether every token is rows' argmax)."""
+    import torch
+    t = torch.tensor(toks, device=rows.device)
+    top2 = torch.topk(rows, 2, dim=-1).values
+    chosen = rows.gather(1, t[:, None])[:, 0]
+    argmax = rows.argmax(-1) == t
+    ok = argmax | (top2[:, 0] - chosen < TIE_MARGIN) | (top2[:, 0] - top2[:, 1] < TIE_MARGIN)
+    return float(ok.float().mean()), bool(argmax.all())
+
+
+def lp_error(recs, toks, rows):
+    """The largest difference of logprob records (the chosen token's and
+    the top alternatives') from the log-softmax of teacher-forced rows."""
+    import torch
+    logp = torch.log_softmax(rows[:len(toks)], dim=-1)
+    top = torch.topk(logp, len(recs[0]["top"]), dim=-1).values.tolist()
+    return max(max(abs(r["logprob"] - float(logp[i, t])),
+                   *(abs(v - w) for (_, v), w in zip(r["top"], top[i])))
+               for i, (r, t) in enumerate(zip(recs, toks)))
+
+
+def plain_batch_step(model, plain, eng):
+    """One decode step of an engine's 8 live slots (its cache copied, its
+    last tokens) by the kernel path and by the plain versions, B = 8: ->
+    (worst logits NMSE of a row, least tie-aware argmax agreement)."""
+    import torch
+    from tmac_tpu_torch.utils import argmax_agreement, nmse
+    tok = torch.from_numpy(eng.last_tokens.copy()).to(model.device)[:, None]
+    lk, _ = model(tok, clone_cache(eng.cache))
+    lp, _ = plain(tok, clone_cache(eng.cache))
+    ref, got = lp[:, -1].float().cpu().numpy(), lk[:, -1].float().cpu().numpy()
+    return (max(nmse(r, g) for r, g in zip(ref, got)),
+            min(argmax_agreement(r, g, TIE_MARGIN) for r, g in zip(ref, got)))
+
+
+def time_k2_batch(card, cfg, cache, lens):
+    """K2 (K6 on an int8 cache) per call over an engine's cache of B slots
+    at per-slot lengths lens: (ms, plain ms, bound ms, SDPA ms with a
+    length mask over the rows, dequantized to bf16 beforehand on an int8
+    cache)."""
+    import torch
+    from tmac_tpu_torch.ops.cuda import attention_kernel as ak
+    dev, L, Dl = card.dev, cfg.num_layers, cfg.head_dim
+    KVh, rep, B = cfg.num_kv_heads, cfg.num_heads // cfg.num_kv_heads, len(lens)
+    kw = dict(k_scale=cache.k_scale, v_scale=cache.v_scale)
+    q = card.bf16(B, KVh, rep, Dl)
+    kl = torch.tensor(lens, dtype=torch.int32, device=dev)
+    lis = [torch.tensor([i], dtype=torch.int32, device=dev) for i in range(L)]
+    ms = graph_ms(lambda: [ak.flash_decode(q, cache.k, cache.v, kl, i, **kw)
+                           for i in lis]) / L
+    plain = cuda_ms(lambda: ak.flash_decode_plain(q, cache.k, cache.v, kl, lis[1], **kw), 3)
+    S = max(lens)
+
+    def rows(buf, sbuf, i):
+        x = buf[i, :, :, :S, :Dl]
+        return x if sbuf is None else (x.float() * sbuf[i, :, :, :S, None]).to(torch.bfloat16)
+    views = [(rows(cache.k, cache.k_scale, i), rows(cache.v, cache.v_scale, i))
+             for i in range(L)]
+    mask = (torch.arange(S, device=dev)[None, :] < kl[:, None])[:, None, None, :]
+    qs = q.reshape(B, KVh * rep, 1, Dl)
+    lib = graph_ms(lambda: [torch.nn.functional.scaled_dot_product_attention(
+        qs, kk, vv, attn_mask=mask, enable_gqa=True) for kk, vv in views]) / L
+    # each valid row's Dl logical columns of K and V (and an int8 row's two
+    # scales), q and the output
+    elem = cache.k.element_size() + (4 / Dl if cache.quantized else 0)
+    nbytes = 2 * KVh * sum(lens) * Dl * elem + 2 * q.numel() * 2
+    bound = card.bound_ms(nbytes, 4 * KVh * rep * sum(lens) * Dl, card.bf16_peak)
+    return ms, plain, bound, lib
+
+
+def k2_batch_check(card, cfg, cache, lens):
+    """K2 (K6 on an int8 cache) against its plain version on an engine's
+    cache at per-slot lengths lens, every layer, bit for bit: worst abs
+    error."""
+    import torch
+    from tmac_tpu_torch.ops.cuda import attention_kernel as ak
+    KVh, rep = cfg.num_kv_heads, cfg.num_heads // cfg.num_kv_heads
+    q = card.bf16(len(lens), KVh, rep, cfg.head_dim)
+    kl = torch.tensor(lens, dtype=torch.int32, device=card.dev)
+    kw = dict(k_scale=cache.k_scale, v_scale=cache.v_scale)
+    worst = 0.0
+    for i in range(cfg.num_layers):
+        li = torch.tensor([i], dtype=torch.int32, device=card.dev)
+        got = ak.flash_decode(q, cache.k, cache.v, kl, li, **kw)
+        want = ak.flash_decode_plain(q, cache.k, cache.v, kl, li, **kw)
+        if not torch.equal(got, want):
+            raise AssertionError(f"K2/K6 at B = {len(lens)}, layer {i}: "
+                                 f"{float((got.float() - want.float()).abs().max())}")
+        worst = max(worst, float((got.float() - want.float()).abs().max()))
+    return worst
+
+
+def sse_ids(port, body):
+    """POST a streaming /v1/completions: the ids of its events, in order,
+    and its last event."""
+    import urllib.request
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}/v1/completions", data=json.dumps(body).encode(),
+        headers={"Content-Type": "application/json"})
+    events = []
+    with urllib.request.urlopen(req, timeout=300) as r:
+        for raw in r:
+            line = raw.decode().strip()
+            if line.startswith("data: "):
+                events.append(json.loads(line[len("data: "):]))
+    return [t for e in events for t in e["ids"]], events[-1]
+
+
+def post_json(port, path, body=None):
+    import urllib.request
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}",
+        data=None if body is None else json.dumps(body).encode(),
+        headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=300) as r:
+        return json.loads(r.read())
+
+
+def serve_http(eng, prompts, want):
+    """serve_async over the engine on 127.0.0.1 (a free port) with the
+    synthetic tokenizer: GET /health, 4 client threads POSTing
+    /v1/completions (two streaming) for prompts, GET /v1/stats; each
+    reply's ids must equal want's (the engine's ids for the same prompt
+    and budget).  -> the phase's record."""
+    import threading
+    from tmac_tpu_torch.runtime.server import serve_async
+    httpd, serving = serve_async(eng, port=0, tokenizer=synthetic_tokenizer(eng.cfg.vocab_size))
+    port = httpd.server_address[1]
+    out, errors = {}, []
+    try:
+        health = post_json(port, "/health")
+
+        def client(i):
+            body = dict(prompt_ids=prompts[i], max_tokens=len(want[i]))
+            try:
+                if i % 2:
+                    ids, last = sse_ids(port, dict(body, stream=True))
+                    out[i] = dict(ids=ids, finish_reason=last.get("finish_reason"),
+                                  stream=True)
+                else:
+                    r = post_json(port, "/v1/completions", body)
+                    out[i] = dict(ids=r["ids"], finish_reason=r["finish_reason"],
+                                  text=r.get("text", "")[:40], stream=False)
+            except Exception as e:  # noqa: BLE001 -- reported and failed below
+                errors.append(f"client {i}: {type(e).__name__}: {e}")
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=client, args=(i,)) for i in range(len(prompts))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        wall = time.perf_counter() - t0
+        alive = [t.is_alive() for t in threads]
+        stats = post_json(port, "/v1/stats")
+    finally:
+        serving.shutdown()
+        httpd.shutdown()
+        httpd.server_close()
+    equal = [out.get(i, {}).get("ids") == want[i] for i in range(len(prompts))]
+    rec = dict(port=port, health=health, clients=len(prompts), wall_s=wall,
+               replies={i: dict(v, ids=v["ids"][:8]) for i, v in out.items()},
+               ids_equal_engine=equal, errors=errors,
+               stats_prefills=stats.get("prefills"), threads_alive=alive)
+    if errors or any(alive) or not all(equal) or not health.get("ok"):
+        raise AssertionError(f"engine_serve http: {rec}")
+    return rec
+
+
+def engine_serve(card, cfg, params, model):
+    """The phase engine_serve on Qwen2-7B W4A16 g128 at full width and depth
+    (the path's weights and model), each check gating the exit code:
+    - an InferenceEngine of SERVE_ENGINE, warmed up (every prefill bucket,
+      the base decode graph), drives the serving bench (SERVE_REQUESTS
+      requests, Poisson arrivals), its launches counted against its
+      prefill chunks by bucket and its decode steps;
+    - the decode step at 8 active slots, at KV lengths of ~80-200 rows and
+      of ~1000: device ms from the engine's CUDA events, host ms a chunk
+      outside the replays; one step of the 8 live slots (short lengths)
+      against the plain versions;
+    - the prefix cache on an engine whose chunks all take the 512-row
+      bucket: the shared-prefix prompts' hits give their cold streams;
+    - a mixed batch through submit/step on a cold engine without the
+      prefix cache (seeded and unseeded sampled requests, a seed again
+      beside other partners and in another slot, a seeded greedy one,
+      logprobs, stop tokens, an eos id, a cancel after the first chunk),
+      its greedy streams the warmed engine's;
+    - an int8 cache (K6); the HTTP server over the cold engine;
+    - the engine against the single-stream path: prefill_slot against
+      generate's prefill bit for bit (prefill_slot_check), and the witness
+      streams (single_stream_check, bf16 and int8 caches): on the
+      engine's own 8-row plans reported, in the one-row forms every stream
+      generate()'s token for token, its KV rows the single stream's bit
+      for bit, each token the argmax of its teacher-forced row and the
+      logprob records within LOGPROB_TOL of their log-softmax;
+    - K4, K1 and K2 (K6) at B = 8 against their plain versions, and per
+      step beside B = 1 and their bounds.
+    -> the kernels' records at B = 8."""
+    import numpy as np
+    import torch
+    from tmac_tpu_torch.runtime.bench_serve import run_serve_bench
+    from tmac_tpu_torch.runtime.engine import InferenceEngine
+    t_phase = time.perf_counter()
+
+    def report(phase, **kw):
+        say(f"engine_serve_{phase}", at_s=time.perf_counter() - t_phase, **kw)
+    L, V, head = cfg.num_layers, cfg.vocab_size, params["lm_head"]
+    # the warm-up and the bench, the launches counted over both
+    eng = InferenceEngine(model, **SERVE_ENGINE)
+    before = engine_counters(eng)
+    zero_counts()
+    t0 = time.perf_counter()
+    eng.warmup()
+    torch.cuda.synchronize()
+    warm = dict(seconds=time.perf_counter() - t0, graph_captures=eng.stats["graph_captures"],
+                capture_s=eng.stats["capture_s"], stats_kept=eng.stats["prefills"] == 0)
+    prompts, budgets = serve_traffic(V, SERVE_REQUESTS, 700, 32, 96, SERVE_SHARED)
+    bench = run_serve_bench(eng, prompts, budgets, SERVE_RATE, seed=0)
+    torch.cuda.synchronize()
+    got = read_counts()
+    after = engine_counters(eng)
+    calls, launched, step = engine_run_launches(cfg, params, before, after, False,
+                                                warm_buckets=eng.buckets)
+    streams = [eng.finished[u].output for u in bench["uids"]]
+    bench_ok = dict(
+        launches=got == calls,
+        path_kernels_counted=all(got[k] > 0 for k in ("K4", "K1", "K2"))
+        and all(got[k] > 0 for k, n in calls.items() if n),
+        lengths=[len(s) for s in streams] == budgets,
+        reasons=all(eng.finished[u].finish_reason == "length" for u in bench["uids"]),
+        in_range=all(0 <= t < V for s in streams for t in s))
+    report("bench", model=cfg.name, engine=SERVE_ENGINE, rate=SERVE_RATE,
+           prompt_lens=[len(p) for p in prompts], budgets=budgets,
+           **{k: v for k, v in bench.items() if k != "uids"},
+           prefix_hits=eng.stats["prefix_hits"],
+           prefix_tokens_reused=eng.stats["prefix_tokens_reused"],
+           prefill_chunks=after["prefill_chunks"], warmup=warm,
+           chunks=after["chunks"] - before["chunks"],
+           graph_replays=after["graph_replays"] - before["graph_replays"],
+           eager_steps=after["eager_steps"] - before["eager_steps"],
+           launches_counted=got, launches_expected=calls, launched_on_card=launched,
+           launches_per_step=step, checks=bench_ok, card=card.name, nvidia_smi=card.smi)
+    if not all(bench_ok.values()):
+        raise AssertionError(f"engine_serve bench: {bench_ok}")
+
+    # the decode step at 8 active slots, on the engine's own CUDA events,
+    # at short KV lengths (16-token prompts) and at about 1000 rows
+    def decode_at_8(prompts8):
+        """The 8 prompts' requests decoding in all 8 slots, then two ticks
+        timed -> (the record, the uids, the slots' KV lengths)."""
+        uids = [eng.submit(p, max_new_tokens=SERVE_ENGINE["max_len"] - len(p) - 1)
+                for p in prompts8]
+        while eng.waiting or any(r is not None and (r.prefilling or not r.output)
+                                 for r in eng.slots):
+            eng.step()
+        if any(r is None for r in eng.slots):
+            raise AssertionError("engine_serve: a slot emptied before all 8 were active")
+        lens = (eng.cache.pos + 1).tolist()
+        c0 = engine_counters(eng)
+        for _ in range(2):
+            eng.step()
+        c1 = engine_counters(eng)
+        replays = c1["graph_replays"] - c0["graph_replays"]
+        chunks = c1["chunks"] - c0["chunks"]
+        rec = dict(step_ms=(c1["replay_ms"] - c0["replay_ms"]) / replays, replays=replays,
+                   chunks=chunks, eager_steps=c1["eager_steps"] - c0["eager_steps"],
+                   host_ms_per_chunk_outside_replays=(
+                       (c1["decode_s"] - c0["decode_s"]) * 1e3
+                       - (c1["replay_ms"] - c0["replay_ms"])) / chunks,
+                   kv_lens=lens)
+        rec["tokens_per_s"] = 8e3 / rec["step_ms"]
+        return rec, uids, lens
+    at8, uids, lens8 = decode_at_8([p[:16] for p in prompts[:8]])
+    # the 8 live slots' next step against the plain versions
+    plain = llama_in_mode(cfg, params, "explicit", plain=True)
+    at8["plain_max_nmse"], at8["plain_min_agreement"] = plain_batch_step(model, plain, eng)
+    del plain
+    for u in uids:
+        eng.cancel(u)
+    rng = np.random.default_rng(4)
+    at8["at_1000_rows"], uids, lens_long = decode_at_8(
+        [rng.integers(0, V, int(n)).tolist() for n in rng.integers(900, 1001, 8)])
+    for u in uids:
+        eng.cancel(u)
+    STEP_MS["qwen2_engine"] = dict(replayed_step_at_8_slots=at8["step_ms"],
+                                   replayed_step_at_8_slots_1000_rows=at8["at_1000_rows"][
+                                       "step_ms"],
+                                   bench_aggregate_tokens_per_s=bench["aggregate_tok_s"])
+    report("step_at_8", **at8, card=card.name, nvidia_smi=card.smi)
+    if at8["plain_max_nmse"] > PATH_NMSE or at8["plain_min_agreement"] < 1.0:
+        raise AssertionError(f"engine_serve: 8 slots against the plain versions: {at8}")
+
+    # the prefix cache, route for route: an engine whose prefill chunks
+    # all take the 512-row bucket, so that a hit's remainder chunk runs the
+    # kernels of the cold chunk it replaces (in SERVE_ENGINE's buckets the
+    # remainder after a 256-token match takes the 256-row bucket, K4L on
+    # int8 activations, where the cold chunk took K5 on bf16 ones: another
+    # rounding of the same function).  The four shared-prefix prompts
+    # together (admitted in one tick: cold), then the first alone and the
+    # other three together (each a hit): every stream the cold one's
+    G = streams
+    shared = list(range(SERVE_REQUESTS - SERVE_SHARED, SERVE_REQUESTS))
+    pe = InferenceEngine(model, **dict(SERVE_ENGINE,
+                                       prefill_buckets=[SERVE_ENGINE["prefill_chunk"]]))
+    runs = []
+    for groups in ([shared], [shared[:1], shared[1:]]):
+        hits, out = pe.stats["prefix_hits"], {}
+        for group in groups:
+            us = {i: pe.submit(prompts[i], max_new_tokens=budgets[i]) for i in group}
+            pe.run()
+            out.update({i: pe.finished[u].output for i, u in us.items()})
+        runs.append((out, pe.stats["prefix_hits"] - hits))
+    prefix = dict(cold_hits=runs[0][1], hits=runs[1][1],
+                  tokens_reused=pe.stats["prefix_tokens_reused"],
+                  streams_equal_cold={i: runs[1][0][i] == runs[0][0][i] for i in shared},
+                  bench_hits=eng.stats["prefix_hits"],
+                  bench_tokens_reused=eng.stats["prefix_tokens_reused"],
+                  cold_streams_equal_bench={i: runs[0][0][i] == G[i] for i in shared},
+                  graph_captures=pe.stats["graph_captures"], capture_s=pe.stats["capture_s"])
+    del pe
+    report("prefix", **prefix)
+    if (prefix["cold_hits"] or prefix["hits"] != SERVE_SHARED
+            or not all(prefix["streams_equal_cold"].values())):
+        raise AssertionError(f"engine_serve prefix cache: {prefix}")
+
+    # the mixed batch through submit and step, on a cold engine without
+    # the prefix cache (a prompt sent again to one with it may hit its own
+    # block, whose remainder chunk takes other kernels): its greedy streams
+    # must be the warmed engine's bench streams of the same prompts (the
+    # first 12, which share no prefix: cold there too)
+    mix = InferenceEngine(model, **dict(SERVE_ENGINE, prefix_cache_size=0))
+
+    def cut_at(seq, stop):
+        j = next(j for j in range(len(seq)) if seq[j:j + len(stop)] == stop)
+        return seq[:j]
+    mixed = {
+        "seeded_a": (2, dict(max_new_tokens=24, seed=11, **SERVE_SAMPLED)),
+        "seeded_b": (3, dict(max_new_tokens=24, seed=22, **SERVE_SAMPLED)),
+        "sampled": (4, dict(max_new_tokens=24, **SERVE_SAMPLED)),
+        "logprobs": (0, dict(max_new_tokens=24, logprobs=4)),
+        "stop": (1, dict(max_new_tokens=32, stop_tokens=[G[1][5:7]])),
+        "eos": (5, dict(max_new_tokens=32, eos_id=G[5][4])),
+        "cancelled": (6, dict(max_new_tokens=64)),
+    }
+    before = engine_counters(mix)
+    zero_counts()
+    mu = {k: mix.submit(prompts[i], **kw) for k, (i, kw) in mixed.items()}
+    cancelled_at = None
+    while mix.pending():
+        mix.step()
+        r = mix.request(mu["cancelled"])
+        if cancelled_at is None and r is not None and len(r.output) > 1:
+            cancelled_at = len(r.output)
+            cancel_ok = mix.cancel(mu["cancelled"])
+    # round 2: the seed again beside other partners, in another slot; a
+    # seeded request at temperature 0
+    again = [mix.submit(prompts[7], max_new_tokens=24),
+             mix.submit(prompts[8], max_new_tokens=24, **SERVE_SAMPLED),
+             mix.submit(prompts[2], max_new_tokens=24, seed=11, **SERVE_SAMPLED),
+             mix.submit(prompts[9], max_new_tokens=24, temperature=0.0, seed=5)]
+    mix.run()
+    torch.cuda.synchronize()
+    got = read_counts()
+    after = engine_counters(mix)
+    mcalls, mlaunched, _ = engine_run_launches(cfg, params, before, after, False)
+    out = {k: mix.finished[u] for k, u in mu.items() if u in mix.finished}
+    lp = out["logprobs"]
+    mixed_ok = dict(
+        launches=got == mcalls,
+        seed_repeats=mix.finished[again[2]].output == out["seeded_a"].output,
+        seeds_differ=out["seeded_a"].output != out["seeded_b"].output,
+        seeded_greedy=mix.finished[again[3]].output == G[9][:24],
+        sampled_in_range=all(0 <= t < V for k in ("seeded_a", "seeded_b", "sampled")
+                             for t in out[k].output),
+        partner_greedy=mix.finished[again[0]].output == G[7][:24],
+        logprobs_stream=lp.output == G[0][:24] and len(lp.logprobs_out) == 24,
+        stop=out["stop"].output == cut_at(G[1], G[1][5:7])
+        and out["stop"].finish_reason == "stop",
+        eos=out["eos"].output == G[5][:G[5].index(G[5][4]) + 1]
+        and out["eos"].finish_reason == "eos",
+        cancelled=cancelled_at is not None and cancel_ok and mu["cancelled"] not in out)
+    report("mixed", requests={k: dict(prompt=i, **{a: b for a, b in kw.items()
+                                                    if a != "stop_tokens"})
+                              for k, (i, kw) in mixed.items()},
+           tokens={k: r.output[:8] for k, r in out.items()}, cancelled_after=cancelled_at,
+           graph_captures=mix.stats["graph_captures"], capture_s=mix.stats["capture_s"],
+           launches_counted=got, launches_expected=mcalls, launched_on_card=mlaunched,
+           checks=mixed_ok)
+    if not all(mixed_ok.values()):
+        raise AssertionError(f"engine_serve mixed batch: {mixed_ok}")
+
+    # the int8 cache (K6)
+    q8 = InferenceEngine(model, **dict(SERVE_ENGINE, kv_quant=True, prefix_cache_size=0))
+    p8, b8 = serve_traffic(V, SERVE_INT8, 300, 16, 48, seed=1)
+    before = engine_counters(q8)
+    zero_counts()
+    u8 = [q8.submit(p, max_new_tokens=b) for p, b in zip(p8, b8)]
+    q8.run()
+    torch.cuda.synchronize()
+    got = read_counts()
+    calls8, launched8, _ = engine_run_launches(cfg, params, before, engine_counters(q8), True)
+    s8 = [q8.finished[u].output for u in u8]
+    lens_q8 = (q8.cache.pos + 1).tolist()
+    int8_ok = dict(launches=got == calls8, k6_counted=got["K6"] > 0,
+                   lengths=[len(s) for s in s8] == b8)
+    report("int8", launches_counted=got, launches_expected=calls8,
+           launched_on_card=launched8, checks=int8_ok)
+    if not all(int8_ok.values()):
+        raise AssertionError(f"engine_serve int8 cache: {int8_ok}")
+
+    # the HTTP server over the engine
+    http = serve_http(mix, prompts[8:12], [G[i] for i in range(8, 12)])
+    report("http", **http)
+
+    # the engine against the single-stream path: slot prefill against
+    # generate's prefill, bit for bit; the witness streams on the engine's
+    # own plans (reported) and in the one-row forms (every stream equal)
+    rng = np.random.default_rng(3)
+    pre = [prefill_slot_check(model, rng.integers(0, V, n).tolist(), 5, quant)
+           for n, quant in ((256, False), (16, False), (256, True))]
+    single = {"bf16": single_stream_check(model, False),
+              "int8": single_stream_check(model, True)}
+    one = [v["one_row"] for v in single.values()]
+    ss_ok = dict(prefill_slot=all(r["ok"] for r in pre),
+                 streams=all(r["tokens_equal_generate"] == r["kv_rows_equal"]
+                             == r["argmax_every_token"] == r["streams"] for r in one),
+                 logprobs=all(r["logprob_max_abs_err"] <= LOGPROB_TOL for r in one))
+    differ, rows = norm_rows_differing(model)
+    report("single_stream", prefill_slot=pre, **single, logprob_tol=LOGPROB_TOL,
+           final_norm_rows_differing_8_vs_1=differ, final_norm_rows=rows, checks=ss_ok)
+    if not all(ss_ok.values()):
+        raise AssertionError(f"engine_serve single stream: {ss_ok}")
+
+    # K4, K1 and K2 (K6) at B = 8 against their plain versions; per step
+    # beside B = 1 and the bounds
+    layers = params["layers"]
+    k4_rows, _ = check_k4(card, [(sh, *linear_call(card, cfg, sh, 8, layers[0], folds))
+                                 for sh in LINEARS for folds in (True, False)], splits=(None,))
+    k4_err = max(r["max_abs_err"] for r in k4_rows)
+    k1_rows, k1_err = check_k1(card, [("head", card.bf16(8, cfg.hidden_size), head, {})],
+                               splits=(None,))
+    k2_err = k2_batch_check(card, cfg, eng.cache, lens8)
+    k6_err = k2_batch_check(card, cfg, q8.cache, lens_q8)
+    _, k4_8 = per_linear_times(card, cfg, layers, 8, time_k4, L)
+    _, k4_1 = per_linear_times(card, cfg, layers, 1, time_k4, L)
+    h8, h1 = time_head(card, head, 8), time_head(card, head, 1)
+    k2_8 = time_k2_batch(card, cfg, eng.cache, lens8)
+    k2_8_long = time_k2_batch(card, cfg, eng.cache, lens_long)
+    one = dataclasses.replace(eng.cache, k=eng.cache.k[:, :1].contiguous(),
+                              v=eng.cache.v[:, :1].contiguous(), pos=eng.cache.pos[:1])
+    k2_1 = time_k2_batch(card, cfg, one, lens8[:1])
+    del one
+    k6_8 = time_k2_batch(card, cfg, q8.cache, lens_q8)
+
+    def t(v):
+        return dict(ms=v[0], plain_ms=v[1], bound_ms=v[2], library_ms=v[3])
+    per_step = dict(
+        K4_B8=dict(k4_8, calls=4 * L), K4_B1=dict(k4_1, calls=4 * L),
+        K1_B8=t(h8), K1_B1=t(h1), K2_B8={k: L * v for k, v in t(k2_8).items()},
+        K2_B1={k: L * v for k, v in t(k2_1).items()},
+        K2_B8_1000_rows={k: L * v for k, v in t(k2_8_long).items()},
+        K6_B8={k: L * v for k, v in t(k6_8).items()},
+        kv_lens_B8=lens8, kv_lens_B1=lens8[:1], kv_lens_B8_1000_rows=lens_long,
+        kv_lens_int8=lens_q8)
+    report("kernels", per_step=per_step, k4_checks=k4_rows, k1_checks=k1_rows,
+           k2_max_abs_err=k2_err, k6_max_abs_err=k6_err, card=card.name,
+           nvidia_smi=card.smi)
+    src = "tmac_tpu_torch/ops/cuda/csrc/"
+    total = {k: launched[k] + mlaunched[k] + launched8[k] for k in COUNTERS}
+
+    def rec(name, source, replaces, label, err, tm):
+        return dict(name=name, path="qwen2-7b engine, B = 8", route="cuda",
+                    source=src + source, replaces="tmac_tpu/ops/pallas/" + replaces,
+                    launches=total[label], max_abs_err=err, ms=tm["ms"],
+                    plain_ms=tm["plain_ms"], bound_ms=tm["bound_ms"], bound_by="bytes",
+                    library_ms=tm["library_ms"])
+    records = [
+        rec("qgemm_grouped (K4) bits 4, B = 8", "qgemm_grouped.cu", "qgemm_kernel.py:567",
+            "K4", k4_err, k4_8),
+        rec("qgemm_fused (K1) int8 head, B = 8", "qgemm_fused.cu", "qgemm_kernel.py:567",
+            "K1", k1_err, t(h8)),
+        rec("flash_decode (K2) rep 7, B = 8", "flash_decode.cu", "attention_kernel.py:367",
+            "K2", k2_err, per_step["K2_B8"]),
+        rec("flash_decode_split (K6) rep 7 int8, B = 8", "flash_decode.cu",
+            "attention_kernel.py:367", "K6", k6_err, per_step["K6_B8"]),
+    ]
+    del eng, q8, mix
+    say("engine_serve", seconds=time.perf_counter() - t_phase, card=card.name,
+        nvidia_smi=card.smi)
     return records
 
 
@@ -3964,6 +4775,14 @@ def main() -> int:
         records = ags_path(card)
         print(json.dumps({"kernels": records}), flush=True)
         return 0
+    if sys.argv[1:] == ["--phase", "engine_serve"]:
+        from tmac_tpu_torch.models.config import get_preset
+        say("build", nvcc_s=round(build_s, 3))
+        cfg = get_preset("qwen2-7b")
+        params = params_on_card(cfg, 0, card.dev)
+        records = engine_serve(card, cfg, params, llama_in_mode(cfg, params, "explicit"))
+        print(json.dumps({"kernels": records}), flush=True)
+        return 0
     if sys.argv[1:] == ["--phase", "wa8_path"]:
         say("build", nvcc_s=round(build_s, 3), ptxas=ptxas)
         records = mixtral_wa8_path(card)
@@ -3987,7 +4806,8 @@ def main() -> int:
     records += grouped_path(card, "llama31", get_preset("llama-3.1-8b", bits=3),
                             W3_PROMPT, W3_CHUNK)
     torch.cuda.empty_cache()
-    records += grouped_path(card, "qwen2", get_preset("qwen2-7b"), QWEN_PROMPT, QWEN_PROMPT)
+    records += grouped_path(card, "qwen2", get_preset("qwen2-7b"), QWEN_PROMPT, QWEN_PROMPT,
+                            serve=engine_serve)
     torch.cuda.empty_cache()
     k4_ags_rows, _ = k4_ags_bits_check(card)
     say("k4_ags_check", checks=k4_ags_rows)
@@ -4009,7 +4829,8 @@ def main() -> int:
         "layer), 64 K4, 32 K2 and 1 K1; phi-3-mini: 128 K4, 1 K1 and 32 K6, K8 or K9; "
         "llama-3.1-8b W3: 128 K4, 1 K1 and 32 K2; qwen2-7b W4: 112 K4, 1 K1 and 28 K2; "
         "llama-2-7b ags 32: 128 K4 (the ags form), 1 K1 and 32 K2; mixtral-8x7b w_a8: 64 "
-        "K7 (the per-tensor branch), 65 K1 and 32 K2), "
+        "K7 (the per-tensor branch), 65 K1 and 32 K2; qwen2-7b's engine, 8 slots: 112 K4, "
+        "1 K1 and 28 K2 (K6 on the int8 cache)), "
         "except K3, K5 and K4L: device ms per prefill (bitnet-3b: 420 K3 "
         "launches for 1024 tokens in chunks of 256; llama-2-7b: 256 K5 for "
         "1024 tokens in chunks of 512; phi-3-mini: 1152 K4L for 2304 tokens "

@@ -184,14 +184,15 @@ def test_mixtral_other_prompt_gap_is_xla_rsqrt(mixtral, monkeypatch):
 
 
 def test_check_slice_admits_every_preset_and_names_what_it_refuses():
-    """Every preset passes (w_fp at bits 1 to 4, biases, every rope
-    scaling, tied and bf16 heads, MoE), and so do an act_group_size (valid
-    or one the JAX package ignores) and MoE at w_a8; what is still refused
-    raises with the missing form's name."""
+    """Every preset passes at bits 1 to 4 (w_fp, and w_a8, whose weights
+    are bits-2 ternary ones whatever the bits, as in the JAX package;
+    biases, every rope scaling, tied and bf16 heads, MoE), and so do an
+    act_group_size (valid or one the JAX package ignores) and MoE at w_a8;
+    what is still refused raises with the missing form's name."""
     from tmac_tpu_torch.models.config import PRESETS
     from tmac_tpu_torch.models.llama import _check_slice
     for name in PRESETS:
-        for bits in (1, 2, 3, 4) if PRESETS[name].quant.mode == "w_fp" else (2,):
+        for bits in (1, 2, 3, 4):
             _check_slice(get_preset(name, bits=bits))
     cfg = get_preset("llama-3.1-8b", bits=3)
     _check_slice(dataclasses.replace(cfg, tie_word_embeddings=True, head_bits=16,
@@ -203,6 +204,8 @@ def test_check_slice_admits_every_preset_and_names_what_it_refuses():
     mixtral = get_preset("mixtral-8x7b")
     _check_slice(mixtral.with_quant(mode="w_a8", group_size=-1))
     _check_slice(mixtral.with_quant(act_group_size=32))
-    for bad, match in ((bitnet.with_quant(bits=4), "w_a8 at bits 4"),):
+    for bad, match in ((get_preset("llama-2-7b").with_quant(group_size=-1),
+                        "w_fp is ported for grouped scales"),
+                       (bitnet.with_quant(group_size=128), "w_a8 is ported for per-tensor")):
         with pytest.raises(NotImplementedError, match=match):
             _check_slice(bad)

@@ -4,7 +4,8 @@ The port of ``tmac_tpu/models/llama.py``: RoPE with any of the JAX
 package's long-context scalings (linear, per-dim factors, llama3, YaRN),
 an optional sliding window (Phi-3-mini), optional q/k/v biases (Qwen2),
 an int8, bf16 or tied head, and a bf16 or int8 KV cache; w_a8 (BitNet
-W1.58A8, per-tensor scales, bits 2) and w_fp with grouped scales at bits
+W1.58A8, per-tensor scales; its weights are bits-2 ternary ones at any
+configured bits, as the JAX package builds them) and w_fp with grouped scales at bits
 1 to 4 (e.g. Llama-2-7B W2A16 / W4A16 g128, Llama-3.1-8B W3A16, Qwen2-7B
 W4A16), optionally with activation groups finer than the weight groups
 (``act_group_size``, K4's and K4L's ags form), dense or MoE
@@ -225,19 +226,18 @@ class KVCache:
 
 def _check_slice(cfg: ModelConfig) -> None:
     """The model family this port covers so far: w_a8 with per-tensor
-    scales at bits 2 (BitNet), dense or MoE; w_fp with grouped scales at
-    bits 1 to 4, dense or MoE, with an act_group_size or without (one
+    scales (BitNet), dense or MoE, at any of JAX's bits 1 to 4 (whose
+    init_params, converters and tools build bits-2 ternary weights
+    whatever the config says, as _rand_qt does); w_fp with grouped scales
+    at bits 1 to 4, dense or MoE, with an act_group_size or without (one
     that does not divide the group size is ignored, as the JAX package
     ignores it); attention bias, tied, bf16 or int8 heads and every rope
     scaling.  What it refuses names the missing form."""
     q = cfg.quant
     if q.mode == "w_a8":
-        if q.group_size != -1:
-            raise NotImplementedError("only per-tensor w_a8 is ported")
-        if q.bits != 2:
+        if q.group_size != -1 or q.bits not in (1, 2, 3, 4):
             raise NotImplementedError(
-                f"w_a8 at bits {q.bits} (K1, K3 and K10 at bits 1, 3 and 4) "
-                "is not ported yet; bits 2 is")
+                "w_a8 is ported for per-tensor scales at bits 1 to 4")
     elif q.group_size <= 0 or q.bits not in (1, 2, 3, 4):
         raise NotImplementedError(
             "w_fp is ported for grouped scales at bits 1 to 4")

@@ -7,9 +7,12 @@ CUDA graph (runtime/generate.py), so nothing in them may wait for the
 host: no ``.item()``, no boolean-mask indexing, no ``torch.multinomial``.
 Draws come from ``torch.Generator``s that the caller passes: one for the
 whole batch, or a sequence of one per row (the counterpart of JAX's (B, 2)
-keys).  Nothing draws from the global generator.  Threefry and Philox give
-different numbers from one seed, so the draws are compared with JAX's by
-their distribution, not their values.
+keys), or from ``CounterStreams``, whose draws are a pure function of a
+(seed, index) pair per row (the counterpart of JAX's
+``fold_in(key, index)``, which the engine's per-request seeds use).
+Nothing draws from the global generator.  Threefry, Philox and the
+counter hash give different numbers from one seed, so the draws are
+compared with JAX's by their distribution, not their values.
 """
 
 from __future__ import annotations
@@ -19,7 +22,46 @@ from typing import Optional, Sequence, Union
 
 import torch
 
-Generators = Union[torch.Generator, Sequence[torch.Generator]]
+_M32 = 0xFFFFFFFF
+
+
+def _mix32(h: torch.Tensor) -> torch.Tensor:
+    """A 32-bit integer hash (xor-shift-multiply rounds; multipliers below
+    2^31, so that each product of int64 values in [0, 2^32) is exact) of
+    h, an int64 tensor in [0, 2^32), elementwise."""
+    h = h ^ (h >> 16)
+    h = (h * 0x7FEB352D) & _M32
+    h = h ^ (h >> 15)
+    h = (h * 0x2C1B3C6D) & _M32
+    return h ^ (h >> 16)
+
+
+@dataclasses.dataclass
+class CounterStreams:
+    """Per-row draws that are a pure function of (seed[b], index[b]): row
+    b's Exp(1) noise over the vocabulary hashes the pair with each token
+    id, in tensor ops, so a draw needs no generator state, and a CUDA graph
+    of a step that reads seed and index from its buffers draws anew at
+    every replay once index moves.  The counterpart of the JAX package's
+    per-slot ``fold_in(PRNGKey(seed), index)``: a seeded request's noise
+    at token i depends on nothing else."""
+
+    seed: torch.Tensor   # (B,) int64, all 64 bits used
+    index: torch.Tensor  # (B,) int64, its low 32 bits used
+
+    def exponentials(self, vocab: int) -> torch.Tensor:
+        """(B, vocab) f32 Exp(1) draws, -log of a uniform on (0, 1) from the
+        hash's top 24 bits."""
+        seed, index = self.seed.long(), self.index.long()
+        row = _mix32(_mix32((seed & _M32) ^ 0x9E3779B9) ^ ((seed >> 32) & _M32))
+        row = _mix32(row ^ (index & _M32))
+        col = _mix32(torch.arange(vocab, device=seed.device) ^ 0x85EBCA6B)
+        h = _mix32(row[:, None] ^ col[None, :])
+        u = ((h >> 8).float() + 0.5) * (1.0 / (1 << 24))
+        return -torch.log(u)
+
+
+Generators = Union[torch.Generator, Sequence[torch.Generator], CounterStreams]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -163,8 +205,11 @@ def _categorical(generator: Generators, logits: torch.Tensor) -> torch.Tensor:
     Gumbel-max trick), which needs no host round trip.  generator: one
     torch.Generator for the whole batch, or a sequence of one per row (a
     row's draws then depend only on its own generator, not on the batch's
-    other rows)."""
-    if isinstance(generator, torch.Generator):
+    other rows), or CounterStreams (a row's draws a function of its
+    (seed, index))."""
+    if isinstance(generator, CounterStreams):
+        e = generator.exponentials(logits.shape[-1])
+    elif isinstance(generator, torch.Generator):
         e = torch.empty_like(logits, dtype=torch.float32).exponential_(
             generator=generator)
     else:
