@@ -13,6 +13,8 @@
     python3 chip_smoke.py --phase wa8_path             (path 8)
     python3 chip_smoke.py --phase engine_serve         (path 9: the engine,
                                                         its server and bench)
+    python3 chip_smoke.py --phase speculative          (path 10: speculative
+                                                        decoding on BitNet-3B)
 
 Phases, each printing one JSON line before the last two:
   1. the card (nvidia-smi name and power limit, torch's device name);
@@ -228,7 +230,30 @@ Phases, each printing one JSON line before the last two:
  15. K3's sweep (k3_sweep): K3 per call at BitNet-3B's five prefill
      shapes and Llama-2-7B's int8 head, N = 64, 256 and 1024, beside the
      bound, torch._int_mm in both layouts and the bf16 matmul, with every
-     tile and cluster size's time (large_plan's data).
+     tile and cluster size's time (large_plan's data);
+ 16. (run right after path 1) path 10 (speculative_path), speculative
+     decoding on BitNet-3B (weights drawn on the card, seed 0) with
+     BitNet-700M (seed 1) as the draft: K1 at 5 and 9 rows (the
+     verification forwards at k = 4 and 8) at both models' shapes and K2
+     at the draft's head_dim 96 against their plain versions, bit for bit;
+     lookup speculation (k = 8, 3-grams) on a periodic and a random
+     64-token prompt, the 700M draft and the target drafting for itself
+     (k = 4) on the periodic one, 192 greedy tokens each through graph
+     bursts, every wrapper's launches counted against the rounds run
+     through the host; gates: (a) the same rounds run eagerly give the
+     same tokens and forward counts, (b) the plain versions give the same
+     tokens and counts over the first SPEC_PLAIN_NEW tokens, each stream
+     against decode_loop's at the same prompt, equal up to a first
+     divergence that noise_gated_argmax must not gate (the one-token
+     steps' logits there against a verification-shaped forward's);
+     both variants at temperature 0.8, top-p 0.95: (c) a seed repeats,
+     (b) at one seed; the engine's speculative mode (two greedy requests
+     and a seeded sampled one, which takes the normal path and equals the
+     plain engine's) against the engine without it; acceptance, bursts,
+     host syncs, ms per round and per burst, tokens/s beside
+     decode_loop's, eager and graph; a verification forward's device time
+     split into K1 (linears, head), the einsum attention and glue, beside
+     a one-token step; K1 at 5 and 9 rows and K2 at 96 timed.
 The last two lines are the kernels' JSON record and
 {"ok": true, "device": {...}}.  Any failed check raises and the script
 exits non-zero; so does a machine without a CUDA device.
@@ -4694,6 +4719,416 @@ def graph_spread(card, own=3, shared=3, rounds=3, steps=32):
                 clocks_sm_mem_power_temp=clocks, decode_loop=loops)
 
 
+# ---------------------------------------------------------------------------
+# path 10: speculative decoding on BitNet-3B (lookup; BitNet-700M as draft)
+# ---------------------------------------------------------------------------
+
+SPEC_PROMPT, SPEC_NEW, SPEC_K, SPEC_DRAFT_K, SPEC_NGRAM = 64, 192, 8, 4, 3
+# The plain versions' runs (gate b) hold the kernel path to them over the
+# first SPEC_PLAIN_NEW tokens of each run: K1's plain version is a float64
+# matmul of the unpacked codes, ~0.3 s a 26-layer forward on the card.
+# The eager rounds (gate a) run the lookup streams whole and the draft
+# variants' first SPEC_EAGER_NEW tokens (an eager draft round launches
+# five forwards from the host: ~6 tokens/s with the 700M draft).
+SPEC_PLAIN_NEW, SPEC_EAGER_NEW = 8, 32
+# the variants by prompt: lookup on both, the draft models on the periodic
+SPEC_VARIANTS = {"periodic": ("lookup", "draft", "self"), "random": ("lookup",)}
+SPEC_SAMPLER, SPEC_SEED = dict(temperature=0.8, top_p=0.95), 1
+SPEC_ENGINE = dict(max_batch=1, max_len=512, decode_chunk=16)
+SPEC_ENGINE_NEW, SPEC_ENGINE_SAMPLED_NEW = 128, 32
+
+
+def spec_prompts(V):
+    """The phase's two 64-token prompts: a 6-token pattern repeated, and
+    random tokens."""
+    import numpy as np
+    rng = np.random.default_rng(15)
+    periodic = np.tile(rng.integers(0, V, 6), SPEC_PROMPT // 6 + 1)[:SPEC_PROMPT]
+    return {"periodic": periodic[None], "random": rng.integers(0, V, (1, SPEC_PROMPT))}
+
+
+def spec_prefill(model, prompt, S):
+    """The prompt's prefill on a fresh S-row cache: (its greedy first
+    token (1,), the cache)."""
+    import torch
+    from tmac_tpu_torch.models.llama import KVCache
+    from tmac_tpu_torch.runtime.generate import prefill
+    cache = KVCache.create(model.cfg, 1, S, device=model.device)
+    logits, cache = prefill(model, torch.from_numpy(prompt).to(model.device), cache)
+    return torch.argmax(logits.float(), -1).to(torch.int32), cache
+
+
+def spec_run(variant, model, prompt, first, snap, steps, graph, draft=None,
+             snap_d=None):
+    """One greedy speculative decode of `steps` tokens (the first among
+    them) from the prefill's cache snap (and the draft's snap_d): variant
+    "lookup" (k = SPEC_K) or a draft model's (k = SPEC_DRAFT_K).  -> dict
+    of the tokens, forwards, the run's stats and host seconds."""
+    import torch
+    from tmac_tpu_torch.runtime import speculative as sp
+    hist = sp._history(torch.from_numpy(prompt).to(model.device), first, snap.max_len)
+    st, T = {}, prompt.shape[1]
+    t0 = time.perf_counter()
+    if variant == "lookup":
+        out, emitted, nf, _ = sp.decode_chunk_speculative(
+            model, hist, T + 1, clone_cache(snap), steps, ngram=SPEC_NGRAM, k=SPEC_K,
+            stats=st, graph=graph)
+        nfd = 0
+    else:
+        out, emitted, nf, nfd, _, _ = sp.decode_chunk_draft_speculative(
+            model, draft, hist, T + 1, clone_cache(snap), clone_cache(snap_d), steps,
+            k=SPEC_DRAFT_K, stats=st, graph=graph)
+    torch.cuda.synchronize()
+    return dict(tokens=out[0].tolist(), emitted=emitted, nf=nf, nfd=nfd, stats=st,
+                host_s=time.perf_counter() - t0)
+
+
+def spec_round_launches(cfg_t, cfg_d, k):
+    """The wrapper calls of one round: the target's k + 1 rows through K1
+    (4 linears a layer and the head), and k one-token draft steps (K1 on
+    each, K2 a layer)."""
+    if cfg_d is None:
+        return counts(K1=4 * cfg_t.num_layers + 1)
+    return counts(K1=4 * cfg_t.num_layers + 1 + k * (4 * cfg_d.num_layers + 1),
+                  K2=k * cfg_d.num_layers)
+
+
+def spec_divergence(model, prompt, S, ref, got, k):
+    """Where got (a speculative stream, the first token first) parts from
+    ref (decode_loop's, or the plain engine's): the first index d that
+    differs, and whether noise_gated_argmax gates it, with the logits of
+    index d by ref's arithmetic (the prefill, then ref's tokens one at a
+    time) as the reference and those of the same position by a (k + 1)-row
+    forward (a verification's arithmetic) as the other sum order.  A gated
+    divergence raises."""
+    import torch
+    from tmac_tpu_torch.models.llama import KVCache
+    from tmac_tpu_torch.runtime.generate import prefill
+    d = next((i for i, (a, b) in enumerate(zip(ref, got)) if a != b), None)
+    if d is None:
+        return dict(first_divergence=None)
+    dev, seq = model.device, [int(t) for t in prompt[0]] + ref[:d]
+    with torch.no_grad():
+        cache = KVCache.create(model.cfg, 1, S, device=dev)
+        ref_l, cache = prefill(model, torch.from_numpy(prompt).to(dev), cache)
+        ref_l = ref_l[0]
+        for t in ref[:d]:
+            lg, cache = model(torch.tensor([[t]], device=dev), cache)
+            ref_l = lg[0, -1]
+        cache.pos.sub_(k + 1)
+        lgm, _ = model(torch.tensor([seq[-(k + 1):]], device=dev), cache)
+    ref_l, multi = ref_l.float(), lgm[0, -1].float()
+    one = torch.zeros_like(ref_l)
+    one[got[d]] = 1.0
+    g = noise_gated_argmax(ref_l[None], one[None], multi[None])
+    top2 = ref_l.topk(2).values
+    row = dict(first_divergence=d, gated=g["gated_share"] > 0,
+               ref_reproduced=int(ref_l.argmax()) == ref[d],
+               lead=float(top2[0] - top2[1]), margin=g["median_margin"],
+               noise_rms=float((ref_l - multi).pow(2).mean().sqrt()))
+    if row["gated"] and g["gated_agreement"] < 1.0:
+        raise AssertionError(f"a speculative stream parts from the reference at a "
+                             f"gated position: {row}")
+    return row
+
+
+def spec_metrics(run, loop=None):
+    """A run's acceptance, bursts, syncs and rates: tokens per
+    verification forward, ms per replayed round and per burst (CUDA
+    events), tokens/s on the host clock (prefill excluded) and from the
+    replayed rounds' device time."""
+    st = run["stats"]
+    bursts = [a.elapsed_time(b) for a, b in st.get("replay_events", [])]
+    new = run["emitted"] - 1
+    row = dict(tokens=new, forwards=run["nf"], draft_forwards=run["nfd"],
+               tokens_per_forward=new / max(run["nf"], 1), bursts=st["bursts"],
+               host_syncs=st["host_syncs"], replays=st["replays"],
+               eager_rounds=st["eager_rounds"], setup_s=st["setup_s"],
+               tokens_per_s=new / run["host_s"])
+    if st["replays"]:
+        row.update(ms_per_round=sum(bursts) / st["replays"], ms_per_burst=bursts,
+                   device_tokens_per_s=new / (sum(bursts) / st["replays"] * run["nf"]
+                                              / 1e3))
+    return row
+
+
+def verify_split(card, cfg, params, model, cache, k):
+    """A verification forward's device time (k + 1 rows; a CUDA graph)
+    against a one-token step's, and its parts: K1 on the linears (4 a
+    layer, 4 layers' weights a call as per_linear_times takes them, times
+    the layers) and on the int8 head, the einsum attention (26 calls of
+    the model's _prefill_attention), the rest as glue; torch.profiler's
+    kernel split of the same forward."""
+    import torch
+    dev, L, T = card.dev, cfg.num_layers, k + 1
+    pos0 = cache.pos.clone()
+    feed = torch.randint(0, cfg.vocab_size, (1, T), device=dev)
+
+    def fwd(n):
+        def fn():
+            cache.pos.copy_(pos0)
+            model(feed[:, :n], cache)
+        return fn
+    verify_ms, step_ms = graph_ms(fwd(T)), graph_ms(fwd(1))
+    launched = {}
+    prof = profiled_ms(lambda: [fwd(T)() for _ in range(PROFILED)], PROFILED, launched)
+    k1_rows, k1_tot = per_linear_times(card, cfg, params["layers"], T, time_k4, L)
+    head = time_head(card, params["lm_head"], T)
+    head_ms = head[0]
+    q = card.bf16(1, T, cfg.num_heads, cfg.head_dim)
+    positions = pos0[:, None].long() + torch.arange(T, device=dev)[None, :]
+    mask = torch.arange(cache.max_len, device=dev)[None, :] < positions[:, -1:] + 1
+    attn_ms = graph_ms(lambda: [model._prefill_attention(q, cache, li, positions, mask)
+                                for li in range(L)])
+    cache.pos.copy_(pos0)
+    return dict(rows=T, kv_rows=int(pos0[0]), verify_ms=verify_ms, step_ms=step_ms,
+                ratio=verify_ms / step_ms, k1_linears_ms=k1_tot["ms"], k1_head_ms=head_ms,
+                einsum_attention_ms=attn_ms,
+                glue_ms=verify_ms - k1_tot["ms"] - head_ms - attn_ms,
+                profiler_ms=prof, profiler_launches=launched), (k1_rows, k1_tot, head)
+
+
+def speculative_path(card):
+    """Path 10 (the phase `speculative`): lookup and draft-model
+    speculative decoding on BitNet-3B (weights drawn on the card, seed 0),
+    BitNet-700M (seed 1) as the draft; K1 at 5 and 9 rows and K2 at the
+    draft's head_dim 96 checked; gates (a) graph bursts == eager rounds,
+    (b) kernel == plain versions, (c) a seed repeats, and each greedy
+    stream noise-gated against decode_loop's (the engine's against the
+    engine's without speculation).  -> the kernels' records."""
+    import numpy as np
+    import torch
+    from tmac_tpu_torch.models.config import get_preset
+    from tmac_tpu_torch.runtime.engine import InferenceEngine
+    from tmac_tpu_torch.runtime.sampling import SamplerConfig
+    from tmac_tpu_torch.runtime.speculative import generate_speculative, \
+        generate_draft_speculative
+    t_phase = time.perf_counter()
+    cfg, cfg_d = get_preset("bitnet-3b"), get_preset("bitnet-700m")
+    params = params_on_card(cfg, 0, card.dev)
+    params_d = params_on_card(cfg_d, 1, card.dev)
+    torch.cuda.synchronize()
+    say("spec_init", seconds=round(time.perf_counter() - t_phase, 3))
+
+    # (d) K1 at the verification's rows at both models' shapes, K2 at 96
+    cases = []
+    for c, p in ((cfg, params), (cfg_d, params_d)):
+        for N in (SPEC_DRAFT_K + 1, SPEC_K + 1):
+            for sh in LINEARS:
+                x, qt, kw = linear_call(card, c, sh, N, p["layers"][0])
+                cases += [(f"{c.name} {sh}", x, qt, kw),
+                          (f"{c.name} {sh}", x[:, :qt.kdim].contiguous(), qt, {})]
+            cases.append((f"{c.name} head", card.bf16(N, c.hidden_size), p["lm_head"], {}))
+    k1_rows, k1_err = check_k1(card, cases)
+    say("spec_k1_check", checks=k1_rows)
+    k2_rows, k2_err = check_k2_heads(card, cfg_d.num_kv_heads, 1, cfg_d.head_dim)
+    say("spec_k2_check", checks=k2_rows)
+
+    model = llama_in_mode(cfg, params, "explicit")
+    plain = llama_in_mode(cfg, params, "explicit", plain=True)
+    draft = llama_in_mode(cfg_d, params_d, "explicit")
+    draft_plain = llama_in_mode(cfg_d, params_d, "explicit", plain=True)
+    prompts = spec_prompts(cfg.vocab_size)
+    S = SPEC_PROMPT + SPEC_NEW + SPEC_K + 1
+    L, Ld = cfg.num_layers, cfg_d.num_layers
+    launched = {"K1 N=9": 0, "K1 N=5": 0, "K1 draft N=1": 0, "K2 draft": 0, "K3": 0}
+    streams, agree_all = [], 0
+    snaps = {}
+    for pname, prompt in prompts.items():
+        zero_counts()
+        first, snap = spec_prefill(model, prompt, S)
+        _, snap_d = spec_prefill(draft, prompt, S)
+        got = read_counts()
+        want = counts(K3=4 * L + 1 + 4 * Ld + 1)
+        if got != want:
+            raise AssertionError(f"spec prefill launches {got}, wanted {want}")
+        launched["K3"] += got["K3"]
+        pfirst, psnap = spec_prefill(plain, prompt, S)
+        _, psnap_d = spec_prefill(draft_plain, prompt, S)
+        if not (torch.equal(first, pfirst) and cache_bytes_equal(snap, psnap)
+                and cache_bytes_equal(snap_d, psnap_d)):
+            raise AssertionError(f"spec {pname}: the plain prefill differs")
+        snaps[pname] = snap
+        loop_toks, loop_st = loop_decode(model, first.clone(), clone_cache(snap),
+                                         SPEC_NEW - 1)
+        ref = [int(first[0])] + loop_toks
+        eager_ms = eager_decode(model, first.clone(), clone_cache(snap), 32)[1]
+        for variant in SPEC_VARIANTS[pname]:
+            kw, pkw = {}, {}
+            if variant == "draft":
+                kw, pkw = dict(draft=draft, snap_d=snap_d), dict(draft=draft_plain,
+                                                                 snap_d=psnap_d)
+            elif variant == "self":
+                kw, pkw = dict(draft=model, snap_d=snap), dict(draft=plain, snap_d=psnap)
+            k = SPEC_K if variant == "lookup" else SPEC_DRAFT_K
+            zero_counts()
+            g = spec_run(variant, model, prompt, first, snap, SPEC_NEW, True, **kw)
+            got = read_counts()
+            st = g["stats"]
+            calls = st["eager_rounds"] + int(st["captured"])
+            per = spec_round_launches(cfg, None if variant == "lookup" else
+                                      (cfg if variant == "self" else cfg_d), k)
+            if got != {key: v * calls for key, v in per.items()} or not st["graph"] \
+                    or not st["replays"]:
+                raise AssertionError(f"spec {pname} {variant}: launches {got} for "
+                                     f"{calls} rounds through the host, stats {st}")
+            t_rows = (4 * L + 1) * calls
+            if variant == "lookup":
+                launched["K1 N=9"] += t_rows
+            else:
+                launched["K1 N=5"] += t_rows
+                if variant == "draft":
+                    launched["K1 draft N=1"] += got["K1"] - t_rows
+                    launched["K2 draft"] += got["K2"]
+            # (a) the graph's bursts against the same rounds run eagerly
+            n_eager = SPEC_NEW if variant == "lookup" else SPEC_EAGER_NEW
+            ge = g if n_eager == SPEC_NEW else spec_run(
+                variant, model, prompt, first, snap, n_eager, True, **kw)
+            e = spec_run(variant, model, prompt, first, snap, n_eager, False, **kw)
+            # (b) the kernel path against the plain versions
+            gk = spec_run(variant, model, prompt, first, snap, SPEC_PLAIN_NEW, True, **kw)
+            gp = spec_run(variant, plain, prompt, pfirst, psnap, SPEC_PLAIN_NEW, False,
+                          **pkw)
+            div = spec_divergence(model, prompt, S, ref, g["tokens"], k)
+            row = dict(prompt=pname, variant=variant, k=k,
+                       graph_equals_eager=(ge["tokens"], ge["nf"]) == (e["tokens"], e["nf"]),
+                       eager_tokens=n_eager,
+                       kernel_equals_plain=(gk["tokens"], gk["nf"], gk["nfd"])
+                       == (gp["tokens"], gp["nf"], gp["nfd"]),
+                       plain_tokens=SPEC_PLAIN_NEW, launches=got, **div,
+                       **spec_metrics(g), eager_tokens_per_s=(e["emitted"] - 1) / e["host_s"],
+                       decode_loop_tokens_per_s=1e3 / loop_st["step_ms"],
+                       decode_loop_tokens_per_s_with_capture=(SPEC_NEW - 1) / loop_st["host_s"],
+                       decode_loop_eager_tokens_per_s=1e3 / eager_ms,
+                       decode_loop_step_ms=loop_st["step_ms"], tokens_head=g["tokens"][:12],
+                       at_s=round(time.perf_counter() - t_phase, 1))
+            say("spec_run", **row)
+            if not (row["graph_equals_eager"] and row["kernel_equals_plain"]):
+                raise AssertionError(f"spec {pname} {variant}: {row}")
+            streams.append(row)
+            agree_all += div["first_divergence"] is None
+
+    # sampling: both variants at temperature 0.8, top-p 0.95 on the
+    # periodic prompt: (c) a seed repeats; (b) at one seed against the
+    # plain versions (eager rounds on both sides)
+    sampler = SamplerConfig(**SPEC_SAMPLER)
+    prompt = prompts["periodic"]
+    for variant in ("lookup", "draft"):
+        def gen(m, d, n, seed, graph):
+            st = {}
+            t0 = time.perf_counter()
+            if variant == "lookup":
+                out, nf = generate_speculative(m, prompt, n, k=SPEC_K, ngram=SPEC_NGRAM,
+                                               impl="xla" if m.plain else "auto",
+                                               sampler=sampler, seed=seed, stats=st,
+                                               graph=graph)
+                nfd = 0
+            else:
+                out, nf, nfd = generate_draft_speculative(
+                    m, d, prompt, n, k=SPEC_DRAFT_K, impl="xla" if m.plain else "auto",
+                    sampler=sampler, seed=seed, stats=st, graph=graph)
+            torch.cuda.synchronize()
+            return out[0].tolist(), nf, nfd, st, time.perf_counter() - t0
+        # (c) over the whole run for lookup; the draft variant (~60 tokens/s)
+        # repeats its first SPEC_EAGER_NEW tokens
+        one = gen(model, draft, SPEC_NEW, SPEC_SEED, None)
+        n_again = SPEC_NEW if variant == "lookup" else SPEC_EAGER_NEW
+        again = gen(model, draft, n_again, SPEC_SEED, None)
+        once = one if n_again == SPEC_NEW else gen(model, draft, n_again, SPEC_SEED, None)
+        other = gen(model, draft, SPEC_PLAIN_NEW, SPEC_SEED + 1, None)
+        pk = gen(model, draft, SPEC_PLAIN_NEW, SPEC_SEED, False)
+        pp = gen(plain, draft_plain, SPEC_PLAIN_NEW, SPEC_SEED, False)
+        pg = gen(model, draft, SPEC_PLAIN_NEW, SPEC_SEED, None)
+        row = dict(variant=variant, sampler=SPEC_SAMPLER, seed=SPEC_SEED,
+                   seed_repeats=once[:3] == again[:3], repeat_tokens=n_again,
+                   other_seed_differs=one[0][:SPEC_PLAIN_NEW] != other[0],
+                   kernel_equals_plain=pk[:3] == pp[:3],
+                   graph_equals_eager_short=pg[:3] == pk[:3],
+                   tokens_per_forward=(SPEC_NEW - 1) / max(one[1], 1), forwards=one[1],
+                   draft_forwards=one[2], bursts=one[3]["bursts"],
+                   host_syncs=one[3]["host_syncs"], replays=one[3]["replays"],
+                   tokens_per_s_with_prefill=SPEC_NEW / one[4],
+                   in_range=all(0 <= t < cfg.vocab_size for t in one[0]),
+                   tokens_head=one[0][:12], at_s=round(time.perf_counter() - t_phase, 1))
+        say("spec_sampled", **row)
+        if not (row["seed_repeats"] and row["kernel_equals_plain"] and row["in_range"]
+                and one[3]["graph"] and one[3]["replays"]):
+            raise AssertionError(f"spec sampled {variant}: {row}")
+
+    # the engine's speculative mode against the same engine without it
+    ptoks = [prompts["periodic"][0].tolist(), prompts["random"][0].tolist()]
+    outs, stats = {}, {}
+    for spec in (False, True):
+        eng = InferenceEngine(model, speculative=spec, **SPEC_ENGINE)
+        uids = [eng.submit(p, max_new_tokens=SPEC_ENGINE_NEW) for p in ptoks]
+        uids.append(eng.submit(ptoks[0], max_new_tokens=SPEC_ENGINE_SAMPLED_NEW,
+                               seed=SPEC_SEED, **SPEC_SAMPLER))
+        t0 = time.perf_counter()
+        eng.run()
+        torch.cuda.synchronize()
+        outs[spec] = [eng.finished[u].output for u in uids]
+        stats[spec] = dict({k_: v for k_, v in eng.stats.items()
+                            if k_ in ("chunks", "decode_tokens", "spec_forwards",
+                                      "graph_captures", "graph_replays", "eager_steps",
+                                      "decode_s")},
+                           wall_s=time.perf_counter() - t0)
+    eng_rows = []
+    for i, p in enumerate(ptoks):
+        div = spec_divergence(model, np.asarray([p]), SPEC_ENGINE["max_len"], outs[False][i],
+                              outs[True][i], SPEC_K)
+        eng_rows.append(dict(prompt=list(prompts)[i], tokens=len(outs[True][i]), **div))
+        agree_all += div["first_divergence"] is None
+    sampled_same = outs[True][2] == outs[False][2]
+    say("spec_engine", streams=eng_rows, sampled_equal_plain_engine=sampled_same,
+        stats=stats, at_s=round(time.perf_counter() - t_phase, 1), card=card.name,
+        nvidia_smi=card.smi)
+    if not (sampled_same and stats[True].get("spec_forwards", 0) > 0
+            and len(outs[True][2]) == SPEC_ENGINE_SAMPLED_NEW):
+        raise AssertionError(f"spec engine: {stats}")
+
+    # where a verification forward's time goes, against a one-token step
+    split, k1_9 = verify_split(card, cfg, params, model, clone_cache(snaps["periodic"]),
+                               SPEC_K)
+    split5, k1_5 = verify_split(card, cfg, params, model, clone_cache(snaps["periodic"]),
+                                SPEC_DRAFT_K)
+    say("spec_verify_split", k8=split, k4=split5, at_s=round(time.perf_counter() - t_phase, 1),
+        card=card.name, nvidia_smi=card.smi)
+
+    # the kernels' records: K1 at 9 and 5 rows per verification forward
+    # (the linears' calls times the layers and the head), K2 at the draft's
+    # head per draft step
+    records = []
+    for N, label, (rows, tot, head) in ((SPEC_K + 1, "K1 N=9", k1_9),
+                                        (SPEC_DRAFT_K + 1, "K1 N=5", k1_5)):
+        hb = card.bound_ms(qgemm_bytes(params["lm_head"], card.bf16(N, cfg.hidden_size), {}),
+                           2 * N * params["lm_head"].kdim_padded
+                           * params["lm_head"].mdim_padded, card.int8_peak)
+        say("spec_k1_times", N=N, rows=rows, head_ms=head[0], head_plain_ms=head[1],
+            head_library_ms=head[3])
+        records.append(dict(
+            name=f"qgemm_fused (K1) N={N}", path="bitnet-3b speculative", route="cuda",
+            source="tmac_tpu_torch/ops/cuda/csrc/qgemm_fused.cu",
+            replaces="tmac_tpu/ops/pallas/qgemm_kernel.py:567",
+            launches=launched[label], max_abs_err=k1_err, ms=tot["ms"] + head[0],
+            plain_ms=tot["plain_ms"] + head[1], bound_ms=tot["bound_ms"] + hb,
+            bound_by=dominant_bound(rows), library_ms=tot["library_ms"] + head[3]))
+    zero_counts()
+    _, dcache = spec_prefill(draft, prompts["random"], S)
+    k2 = time_k2(card, cfg_d, dcache, SPEC_PROMPT + SPEC_NEW // 2)
+    records.append(dict(
+        name="flash_decode (K2) head_dim 96", path="bitnet-700m draft", route="cuda",
+        source="tmac_tpu_torch/ops/cuda/csrc/flash_decode.cu",
+        replaces="tmac_tpu/ops/pallas/attention_kernel.py:367",
+        launches=launched["K2 draft"], max_abs_err=k2_err, ms=k2[0] * Ld,
+        plain_ms=k2[1] * Ld, bound_ms=k2[2] * Ld, bound_by="bytes", library_ms=k2[3] * Ld))
+    say("spec_summary", streams=len(streams) + len(eng_rows), agree_throughout=agree_all,
+        launches=launched, seconds=round(time.perf_counter() - t_phase, 3),
+        card=card.name, nvidia_smi=card.smi)
+    del model, plain, draft, draft_plain, params, params_d
+    torch.cuda.empty_cache()
+    return records
+
+
 def template_args(mangled):
     """A kernel's template arguments from its mangled name: bf16, f32,
     int8, an int or a bool (0, 1) (a substitution, S<n>_, repeats the type
@@ -4783,6 +5218,11 @@ def main() -> int:
         records = engine_serve(card, cfg, params, llama_in_mode(cfg, params, "explicit"))
         print(json.dumps({"kernels": records}), flush=True)
         return 0
+    if sys.argv[1:] == ["--phase", "speculative"]:
+        say("build", nvcc_s=round(build_s, 3))
+        records = speculative_path(card)
+        print(json.dumps({"kernels": records}), flush=True)
+        return 0
     if sys.argv[1:] == ["--phase", "wa8_path"]:
         say("build", nvcc_s=round(build_s, 3), ptxas=ptxas)
         records = mixtral_wa8_path(card)
@@ -4796,6 +5236,7 @@ def main() -> int:
         return 0
     t_all = time.perf_counter()
     records = bitnet_path(card, build_s, ptxas)
+    records += speculative_path(card)
     records += llama_path(card)
     torch.cuda.empty_cache()
     records += mixtral_path(card)

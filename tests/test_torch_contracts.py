@@ -158,7 +158,13 @@ def test_port_imports_neither_jax_nor_tmac_tpu():
             "tmac_tpu_torch.ops.cuda.expert_kernel, "
             "tmac_tpu_torch.ops.cuda.block_kernel, "
             "tmac_tpu_torch.models.moe, "
-            "tmac_tpu_torch.convert.from_jax; import sys; "
+            "tmac_tpu_torch.convert.from_jax, "
+            "tmac_tpu_torch.runtime.engine, "
+            "tmac_tpu_torch.runtime.speculative, "
+            "tmac_tpu_torch.native, "
+            "tmac_tpu_torch.convert.bitnet, "
+            "tmac_tpu_torch.convert.gptq, "
+            "tmac_tpu_torch.convert.hf; import sys; "
             "assert 'jax' not in sys.modules and not any("
             "m.startswith('tmac_tpu.') or m == 'tmac_tpu' for m in sys.modules)"
             ", sorted(m for m in sys.modules if 'jax' in m or 'tmac_tpu.' in m)")

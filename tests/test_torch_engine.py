@@ -389,8 +389,14 @@ def test_adaptive_chunk_respects_stop_sequences(model):
 
 
 def test_speculative_mode_is_refused(model):
-    with pytest.raises(NotImplementedError, match="runtime/speculative.py"):
-        InferenceEngine(model, max_batch=1, max_len=64, speculative=True)
+    """The speculative mode is single-stream: refused with more than one
+    slot or with step_fns, taken at one slot."""
+    with pytest.raises(ValueError, match="max_batch=1"):
+        InferenceEngine(model, max_batch=2, max_len=64, speculative=True)
+    with pytest.raises(ValueError, match="max_batch=1"):
+        InferenceEngine(model, max_batch=1, max_len=64, speculative=True,
+                        step_fns=(None, None))
+    assert InferenceEngine(model, max_batch=1, max_len=64, speculative=True).speculative
 
 
 def test_impl_is_checked(model):

@@ -275,20 +275,21 @@ def _rand_qt(rng: np.random.Generator, K: int, M: int, cfg: ModelConfig,
                                           scale_dtype=sd, device=device)
 
 
-def _padded_ffn_width(size: int, cfg: ModelConfig) -> int:
+def _padded_ffn_width(size: int, cfg: ModelConfig, tp: int = 1) -> int:
     """An FFN width padded so the whole MLP keeps one 128-aligned layout
-    (e.g. bitnet-3b 8640 -> 8704)."""
+    (e.g. bitnet-3b 8640 -> 8704), and tp gate/up m-shards and down
+    k-shards align with the scale groups."""
     gs = cfg.quant.group_size
-    return round_up(size, int(np.lcm(max(gs, 1), 128)))
+    return round_up(size, int(np.lcm(tp * max(gs, 1), 128)))
 
 
-def padded_intermediate(cfg: ModelConfig) -> int:
-    return _padded_ffn_width(cfg.intermediate_size, cfg)
+def padded_intermediate(cfg: ModelConfig, tp: int = 1) -> int:
+    return _padded_ffn_width(cfg.intermediate_size, cfg, tp)
 
 
-def padded_moe_intermediate(cfg: ModelConfig) -> int:
+def padded_moe_intermediate(cfg: ModelConfig, tp: int = 1) -> int:
     """padded_intermediate for the per-expert FFN width (MoE models)."""
-    return _padded_ffn_width(cfg.moe_intermediate_size, cfg)
+    return _padded_ffn_width(cfg.moe_intermediate_size, cfg, tp)
 
 
 def make_head(head_km: np.ndarray, cfg: ModelConfig, device="cuda"):

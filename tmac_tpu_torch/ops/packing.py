@@ -10,13 +10,24 @@ so field j of packed row r holds the weight for k = r + j*K/p.  Packing is
 applied per contiguous K-shard (`k_shards`).  bits=3 is two arrays: a
 2-bit low plane and a 1-bit high plane.  bits=8 is the degenerate p=1 case.
 
-The bytes equal the JAX package's numpy branch bit for bit; the port never
-loads the JAX package's native library.
+Large tensors go through the port's own build of the repository's C++
+packer (tmac_tpu_torch/native.py) above the reference's size thresholds,
+as the JAX package does; the numpy branch, bit for bit the same for
+packing, runs below them and wherever no compiler is present.  The port
+never loads the JAX package's native library.
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+_NATIVE_MIN_SIZE = 1 << 20  # below this numpy is fast enough
+
+
+def _native():
+    """The C++ fast path (tmac_tpu_torch/native.py) or None."""
+    from tmac_tpu_torch import native
+    return native if native.available() else None
 
 
 def _fields_per_byte(bits: int) -> int:
@@ -32,7 +43,13 @@ def pack_strided(wq: np.ndarray, bits: int, k_shards: int = 1) -> np.ndarray:
     wq = np.asarray(wq, dtype=np.uint8)
     if bits == 8:
         return wq.copy()
+    # validate before the native dispatch: the C++ packer ORs unmasked
+    # shifted bytes, so an out-of-range code would corrupt its neighbour
     assert wq.max(initial=0) < (1 << bits), "weight values exceed bit width"
+    if wq.size >= _NATIVE_MIN_SIZE:
+        nat = _native()
+        if nat is not None:
+            return nat.pack_strided(wq, bits, k_shards)
     ks = K // k_shards
     w = wq.reshape(k_shards, p, ks // p, M)
     packed = np.zeros((k_shards, ks // p, M), dtype=np.uint8)
@@ -49,6 +66,10 @@ def unpack_strided(packed: np.ndarray, bits: int, k_shards: int = 1) -> np.ndarr
     packed = np.asarray(packed, dtype=np.uint8)
     if bits == 8:
         return packed.copy()
+    if packed.size >= _NATIVE_MIN_SIZE // 4:
+        nat = _native()
+        if nat is not None:
+            return nat.unpack_strided(packed, bits, k_shards)
     pk = packed.reshape(k_shards, KP // k_shards, M)
     mask = (1 << bits) - 1
     blocks = [(pk >> (bits * j)) & mask for j in range(p)]
@@ -80,6 +101,11 @@ def quantize_weights(w: np.ndarray, bits: int, group_size: int,
     """
     K, M = w.shape
     assert K % group_size == 0
+    if w.size >= _NATIVE_MIN_SIZE:
+        nat = _native()
+        if nat is not None:
+            return nat.quantize_weights(np.asarray(w, np.float32), bits,
+                                        group_size, zero_point)
     G = K // group_size
     wg = w.reshape(G, group_size, M)
     qmax = (1 << bits) - 1

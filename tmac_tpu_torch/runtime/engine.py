@@ -52,6 +52,7 @@ from tmac_tpu_torch.runtime.sampling import (CounterStreams, SamplerConfig,
                                              SamplerState, apply_penalties,
                                              bump_counts, sample,
                                              sample_state)
+from tmac_tpu_torch.runtime.speculative import _LookupRun
 from tmac_tpu_torch.utils import round_up
 
 
@@ -338,7 +339,8 @@ class InferenceEngine:
                  stream_cb: Optional[Callable[[int, List[int], bool], None]] = None,
                  step_fns=None, cache: Optional[KVCache] = None,
                  prefill_chunk: int = 256, prefill_budget: int = 1,
-                 speculative: bool = False, prefix_cache_size: int = 0,
+                 speculative: bool = False, spec_k: int = 8,
+                 spec_ngram: int = 3, prefix_cache_size: int = 0,
                  prefix_cache_max_len: int = 256,
                  prefix_cache_min_reuse: int = 16, kv_quant: bool = False,
                  logprobs_k: int = 8):
@@ -361,8 +363,12 @@ class InferenceEngine:
         tokens.  stream_cb(uid, tokens_so_far, done): after every decode
         chunk that produced tokens for the request, and once more with
         done=True on completion.
-        speculative: the single-stream lookup-speculation mode of the JAX
-        package (runtime/speculative.py), not ported yet: True raises.
+        speculative: the single-stream latency mode (max_batch 1, no
+        step_fns): a greedy request with no penalties and no logprobs
+        decodes its chunks through lookup speculation
+        (runtime/speculative.py; spec_k drafts from spec_ngram-grams a
+        round), several tokens a forward on self-repetitive text; any
+        other request keeps the normal chunked path.
         prefix_cache_size: keep the KV rows of the last N distinct prompt
         prefixes (LRU) and skip prefilling the longest common prefix a
         new prompt shares with one (0 disables; single-device engines
@@ -374,10 +380,9 @@ class InferenceEngine:
         to it while nothing competes (no queue, no prefill, no stop
         sequences), bounded by the smallest remaining budget; 0 keeps
         decode_chunk."""
-        if speculative:
-            raise NotImplementedError(
-                "speculative engine mode needs runtime/speculative.py, which "
-                "is not ported yet")
+        if speculative and (max_batch != 1 or step_fns is not None):
+            raise ValueError("the speculative engine mode is single-stream and "
+                             "single-device: max_batch=1 and no step_fns")
         _check_impl(model, impl)
         self.model = model
         self.cfg = model.cfg
@@ -394,6 +399,10 @@ class InferenceEngine:
         self.max_chunk = max(max_decode_chunk, decode_chunk) \
             if max_decode_chunk else decode_chunk
         self.stream_cb = stream_cb
+        self.speculative = speculative
+        self.spec_k = spec_k
+        self.spec_ngram = spec_ngram
+        self._spec_run = None   # the lookup run's buffers and graph, at first use
         if prefill_buckets is None:
             prefill_buckets = []
             b = 16
@@ -919,6 +928,10 @@ class InferenceEngine:
             max(r.max_new_tokens - len(r.output), 0)
             if (r is not None and active_np[i]) else 0
             for i, r in enumerate(self.slots)], dtype=np.int64)
+        if (self.speculative and self._slot_temp[0] <= 0.0
+                and self._counts is None and self._n_logprobs == 0
+                and self._spec_fits()):
+            return self._decode_chunk_speculative()
         t0 = time.perf_counter()
         chunk = self._pick_chunk(active_np, rem_np)
         if self._n_seeded:
@@ -966,6 +979,48 @@ class InferenceEngine:
                 self._finish(slot, req)
             elif self.stream_cb:
                 self.stream_cb(req.uid, list(req.output), False)
+
+    def _spec_fits(self) -> bool:
+        req = self.slots[0]
+        hist_len = req.prompt_len + len(req.output)
+        return hist_len + self.chunk + self.spec_k + 1 <= self.S
+
+    def _decode_chunk_speculative(self):
+        """The one slot's greedy chunk through lookup speculation
+        (decode_chunk_speculative's rounds with steps = chunk + 1, the
+        request's last token being the seed).  On entry cache.pos ==
+        history length - 1 (the last token's K/V is written by the next
+        forward), the engine's decode-phase state.  The run's buffers and
+        its CUDA graph are made at the first such chunk and kept."""
+        req = self.slots[0]
+        hist_len = req.prompt_len + len(req.output)
+        hist = np.zeros((1, self.S), np.int64)
+        hist[0, :hist_len] = req.prompt + req.output
+        t0 = time.perf_counter()
+        if self._spec_run is None:
+            self._spec_run = _LookupRun(self.model, self.cache, self.chunk + 1,
+                                        self.spec_ngram, self.spec_k,
+                                        SamplerConfig(), None, self.S)
+        st = {}
+        toks, emitted, nf, _ = self._spec_run.run(
+            torch.from_numpy(hist).to(self.device), hist_len, stats=st)
+        new = toks[0, 1:emitted].tolist()
+        self.stats["chunks"] += 1
+        self.stats["spec_forwards"] = self.stats.get("spec_forwards", 0) + nf
+        self.stats["graph_captures"] += int(st["captured"])
+        self.stats["graph_replays"] += st["replays"]
+        self.stats["decode_s"] += time.perf_counter() - t0
+        for t in new:
+            req.output.append(int(t))
+            self.stats["decode_tokens"] += 1
+            if self._finished_after_append(req):
+                break
+        if req.output:  # stop truncation can empty a 1-token output
+            self.last_tokens[0] = req.output[-1]
+        if self._finished_after_append(req):
+            self._finish(0, req)
+        elif self.stream_cb:
+            self.stream_cb(req.uid, list(req.output), False)
 
     def _decode_with_step_fns(self, chunk, active_np, eos_np, rem_np, seeds,
                               index) -> np.ndarray:

@@ -152,6 +152,15 @@ def _check_impl(model: Llama, impl: str) -> None:
             "'pallas' one without")
 
 
+def check_prompt_ids(prompt_tokens, vocab: int) -> np.ndarray:
+    """The prompt as numpy, its ids checked against the vocabulary (an id
+    past it would be a device-side fault in the embedding)."""
+    pt = np.asarray(prompt_tokens)
+    if pt.max(initial=0) >= vocab or pt.min(initial=0) < 0:
+        raise ValueError(f"prompt token ids out of range [0, {vocab})")
+    return pt
+
+
 def generate(model: Llama, prompt_tokens, max_new_tokens: int,
              max_len: Optional[int] = None,
              sampler: SamplerConfig = SamplerConfig(), seed: int = 0,
@@ -170,9 +179,7 @@ def generate(model: Llama, prompt_tokens, max_new_tokens: int,
     row and give no meaningful tokens, and the port refuses instead."""
     _check_impl(model, impl)
     cfg = model.cfg
-    pt = np.asarray(prompt_tokens)
-    if pt.max(initial=0) >= cfg.vocab_size or pt.min(initial=0) < 0:
-        raise ValueError(f"prompt token ids out of range [0, {cfg.vocab_size})")
+    pt = check_prompt_ids(prompt_tokens, cfg.vocab_size)
     B, T = pt.shape
     if batch is not None and batch != B:
         raise ValueError(f"batch={batch} but the prompt has {B} rows")
