@@ -15,6 +15,7 @@
                                                         its server and bench)
     python3 chip_smoke.py --phase speculative          (path 10: speculative
                                                         decoding on BitNet-3B)
+    python3 chip_smoke.py --phase gguf_path            (path 11: GGUF files)
 
 Phases, each printing one JSON line before the last two:
   1. the card (nvidia-smi name and power limit, torch's device name);
@@ -253,7 +254,25 @@ Phases, each printing one JSON line before the last two:
      host syncs, ms per round and per burst, tokens/s beside
      decode_loop's, eager and graph; a verification forward's device time
      split into K1 (linears, head), the einsum attention and glue, beside
-     a one-token step; K1 at 5 and 9 rows and K2 at 96 timed.
+     a one-token step; K1 at 5 and 9 rows and K2 at 96 timed;
+ 17. (after path 8) path 11 (gguf_path), GGUF files: Llama-3.1-8B at bits
+     4, gs 32 with zero points drawn on the card (seed 0, all 32 layers),
+     written by export_gguf as Q4_K (5.5 GB, in a temporary directory,
+     deleted after) and read back by convert_gguf_model: matmuls at bits 4,
+     gs 32 with f32 scales and sub, the int8 head, rope_freqs.weight as the
+     factors scaling; the card's torch packers and Q4_K decoder held to the
+     numpy ones byte for byte; K4L at K 14336, gs 32 with f32 and bf16
+     scales (past the shared memory that staging every group's factors
+     took); then grouped_path on the gguf's weights: K4 (N = 1, 4, 16),
+     K4L (N = 64, 88), K5 (N = 512) on layer 0's four linears with and
+     without folds, a 600-token prompt in chunks of 512 (128 K5) and 88
+     (128 K4L), 64 steps through decode_loop (128 K4, 1 K1, 32 K2 a step),
+     teacher-forced as path 5, and the kernels' times; then Mixtral-8x7B
+     at full width and 2 of its 32 layers through a Q4_K gguf file: K7's
+     f32 form (N = 1 and 4, gate_up and down, every expert and cluster
+     size), a 64-token prompt (the experts' 32 slots on K4) and 64 steps
+     through decode_loop (4 K7, 4 K4, 2 K2, 1 K1 a step), teacher-forced
+     on the prompt and 16 steps, K7 per step.
 The last two lines are the kernels' JSON record and
 {"ok": true, "device": {...}}.  Any failed check raises and the script
 exits non-zero; so does a machine without a CUDA device.
@@ -3415,7 +3434,7 @@ def phi3_path(card):
              bound_ms=k4_tot["bound_ms"], bound_by="bytes",
              library_ms=k4_tot["library_ms"]),
         dict(name="qgemm_grouped_large (K4L)", path="phi-3-mini", route="cuda",
-             source="tmac_tpu_torch/ops/cuda/csrc/qgemm_grouped.cu",
+             source="tmac_tpu_torch/ops/cuda/csrc/qgemm_grouped_large.cu",
              replaces="tmac_tpu/ops/pallas/qgemm_kernel.py:428",
              launches=runs["int8"]["launches"]["K4L"],
              max_abs_err=max(r["max_abs_err"] for r in k4_checks if r["kernel"] == "K4L"),
@@ -3512,7 +3531,8 @@ def per_linear_times(card, cfg, layers, N, timer, count, with_ags=True):
     return rows, tot
 
 
-def grouped_path(card, tag, cfg, prompt_len, chunk, serve=None):
+def grouped_path(card, tag, cfg, prompt_len, chunk, serve=None, params=None,
+                 k4_rows=(1, 4, 16, 64, 256), k5_rows=(384, 512), k4l_rows=256):
     """A grouped-scale model at full width and depth, weights drawn on the
     card (params_on_card): K4 (N = 1, 4, 16, at every cluster size of the
     checks), K4L (N = 64, 256) and, where a chunk takes it, K5 (N = 384,
@@ -3526,12 +3546,16 @@ def grouped_path(card, tag, cfg, prompt_len, chunk, serve=None):
     same weights, and the ags and ags 0 logits at the prompt's last
     position are held against a bf16 dequant forward (ags_accuracy,
     printed).  serve(card, cfg, params, model), when given, runs last on
-    the path's weights and model (engine_serve) and adds its records.  ->
-    the kernels' records"""
+    the path's weights and model (engine_serve) and adds its records.
+    params: the model's weights on the card (gguf_path's, read from a gguf
+    file), else drawn here; k4_rows, k5_rows: the rows of the K4 and K4L,
+    and K5 checks; k4l_rows: the rows K4L is timed at.  -> the kernels'
+    records"""
     import torch
     from tmac_tpu_torch.ops.qgemm import route
     t_path = time.perf_counter()
-    params = params_on_card(cfg, 0, card.dev)
+    if params is None:
+        params = params_on_card(cfg, 0, card.dev)
     torch.cuda.synchronize()
     say(f"{tag}_build", model=cfg.name, bits=cfg.quant.bits, layers=cfg.num_layers,
         act_group_size=cfg.quant.act_group_size,
@@ -3545,7 +3569,7 @@ def grouped_path(card, tag, cfg, prompt_len, chunk, serve=None):
 
     shapes = LINEARS
     l0 = layers[0]
-    cases = [(sh, *args(sh, N, l0)) for sh in shapes for N in (1, 4, 16, 64, 256)]
+    cases = [(sh, *args(sh, N, l0)) for sh in shapes for N in k4_rows]
     cases += [(sh, *args(sh, N, l0, False)) for sh in shapes for N in (1, 64)]
     k4_rows, _ = check_k4(card, cases)
     k4_err = max(r.get("max_abs_err", 0.0) for r in k4_rows if r["kernel"] == "K4")
@@ -3554,7 +3578,7 @@ def grouped_path(card, tag, cfg, prompt_len, chunk, serve=None):
     k5_chunks = sum(route(l0["wqkv"], n) == "K5" for n in pieces)
     k4l_chunks = sum(route(l0["wqkv"], n) == "K4L" for n in pieces)
     k5_rows, k5_err = check_k5(card, [(sh, *args(sh, N, l0, with_ags=False))
-                                      for N in (384, 512) for sh in shapes]
+                                      for N in k5_rows for sh in shapes]
                                ) if k5_chunks else ([], 0.0)
     head = params["lm_head"]
     k1_rows, k1_err = check_k1(card, [("head", card.bf16(1, H), head, {})])
@@ -3581,7 +3605,7 @@ def grouped_path(card, tag, cfg, prompt_len, chunk, serve=None):
     ags0 = dict(ags0_per_step=per(1, time_k4, L, with_ags=False)[1]) if ags else {}
     say(f"{tag}_k4_times", rows=k4_times, per_step=dict(k4_tot, calls=4 * L),
         act_group_size=ags, **ags0)
-    k4l_times, k4l_tot = per(256, lambda c, calls: time_k4(c, calls, reps=5),
+    k4l_times, k4l_tot = per(k4l_rows, lambda c, calls: time_k4(c, calls, reps=5),
                              L * k4l_chunks)
     say(f"{tag}_k4l_times", rows=k4l_times, per_prefill=dict(k4l_tot, calls=4 * L * k4l_chunks),
         act_group_size=ags)
@@ -3600,7 +3624,8 @@ def grouped_path(card, tag, cfg, prompt_len, chunk, serve=None):
         k2_bound_ms=k2_bound, k2_library_ms=k2_lib, card=card.name, nvidia_smi=card.smi,
         path_s=round(time.perf_counter() - t_path, 3))
     bits, src = cfg.quant.bits, "tmac_tpu_torch/ops/cuda/csrc/"
-    form = f" ags {ags}" if ags else ""
+    sform = " f32 scales" if l0["wqkv"].scales.dtype == torch.float32 else ""
+    form = (f" ags {ags}" if ags else "") + sform
 
     def rec(name, source, replaces, label, err, t, by):
         return dict(name=name, path=cfg.name + (f"-ags{ags}" if ags else ""),
@@ -3611,14 +3636,14 @@ def grouped_path(card, tag, cfg, prompt_len, chunk, serve=None):
     records = [
         rec(f"qgemm_grouped (K4) bits {bits}{form}", "qgemm_grouped.cu",
             "qgemm_kernel.py:567", "K4", k4_err, k4_tot, "bytes"),
-        rec(f"qgemm_grouped_large (K4L) bits {bits}{form}", "qgemm_grouped.cu",
+        rec(f"qgemm_grouped_large (K4L) bits {bits}{form}", "qgemm_grouped_large.cu",
             "qgemm_kernel.py:428", "K4L", k4l_err, k4l_tot, dominant_bound(k4l_times)),
         rec(f"flash_decode (K2) rep {rep}", "flash_decode.cu", "attention_kernel.py:367",
             "K2", k2_err, dict(ms=k2_ms * L, plain_ms=k2_plain * L, bound_ms=k2_bound * L,
                                library_ms=k2_lib * L), "bytes"),
     ]
     if k5_chunks:
-        records.append(rec(f"qgemm_dequant (K5) bits {bits}", "qgemm_large.cu",
+        records.append(rec(f"qgemm_dequant (K5) bits {bits}{sform}", "qgemm_large.cu",
                            "qgemm_kernel.py:319", "K5", k5_err, k5_tot,
                            dominant_bound(k5_times)))
     if serve is not None:
@@ -5129,6 +5154,176 @@ def speculative_path(card):
     return records
 
 
+# ---------------------------------------------------------------------------
+# path 11: GGUF on the card -- Llama-3.1-8B exported to Q4_K and read back
+# (f32 grouped scales in K4, K4L and K5), and a 2-layer Mixtral-8x7B (K7)
+# ---------------------------------------------------------------------------
+
+# Llama-3.1-8B Q4_K: 600 tokens in chunks of 512 (one 512-row chunk on K5,
+# one of 88 rows on K4L, whose down at K 14336 is past K4L's old limit);
+# Mixtral-8x7B Q4_K at 2 of its 32 layers (the only cut): a 64-token
+# prompt and 16 teacher-forced decode steps
+GGUF_PROMPT, GGUF_CHUNK = 600, 512
+GGUF_MOE_LAYERS, GGUF_MOE_PROMPT, GGUF_MOE_FORCED = 2, 64, 16
+
+
+def gguf_roundtrip(card, cfg, tag, wtype="Q4_K"):
+    """cfg's weights drawn on the card (params_on_card, seed 0) at bits 4,
+    gs 32 with zero points, written by export_gguf as `wtype` to a
+    temporary directory, read back by convert_gguf_model on the card; the
+    file deleted.  Prints the seconds of the draw, the export, the read
+    (the header, the directory and every tensor's bytes through the
+    reader's map; the file warm in the page cache) and the conversion.  ->
+    (the gguf's config, its params on the card)"""
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from tmac_tpu_torch.convert import gguf as gg
+    from tmac_tpu_torch.convert.gguf import GGUFReader, convert_gguf_model
+    from tmac_tpu_torch.convert.gguf_export import dequant_float, export_gguf
+    t0 = time.perf_counter()
+    params = params_on_card(cfg, 0, card.dev)
+    torch.cuda.synchronize()
+    draw_s = time.perf_counter() - t0
+    # the writer packs Q4_K and Q8_0 on the tensor's device: the card's
+    # bytes are the CPU's (which the CPU tests hold to the JAX package's),
+    # on layer 0's wo dequantized
+    w = dequant_float(params["layers"][0]["wo"]).t().contiguous()
+    same_bytes = {name: gg._tensor_data(t, w) == gg._tensor_data(t, w.cpu())
+                  for name, t in (("q4_k", gg.GGML_Q4_K), ("q8_0", gg.GGML_Q8_0))}
+    del w
+    d = tempfile.mkdtemp(prefix="gguf_")
+    try:
+        path = f"{d}/{tag}.gguf"
+        free_gb = shutil.disk_usage(d).free / 1e9
+        t0 = time.perf_counter()
+        info = export_gguf(path, cfg, params, wtype=wtype)
+        export_s = time.perf_counter() - t0
+        del params
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        r = GGUFReader(path)
+        touched = sum(int(np.bitwise_xor.reduce(r.tensor_bytes(n)[::4096]))
+                      for n in r.tensors)
+        types = sorted({gg._TYPE_NAMES[t["type"]] for t in r.tensors.values()})
+        r.close()
+        read_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        gcfg, gparams = convert_gguf_model(path, name=f"{cfg.name}-{wtype.lower()}",
+                                           device=card.dev)
+        torch.cuda.synchronize()
+        convert_s = time.perf_counter() - t0
+        # a Q4_K tensor converts on the card to the CPU's bytes
+        r = GGUFReader(path)
+        name = "blk.0.attn_output.weight"
+        on_card = gg._qt_from_gguf(r, name, 1, 1, device=card.dev)
+        host = gg._qt_from_gguf(r, name, 1, 1, device="cpu").to(card.dev)
+        r.close()
+        same_bytes["q4_k_convert"] = all(torch.equal(getattr(on_card, f), getattr(host, f))
+                                         for f in ("packed", "scales", "sub"))
+        del on_card, host
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    l0 = gparams["layers"][0]
+    qts = [l0[n] for n in ("wqkv", "wo", "gate_up", "down") if n in l0] + [
+        l0[n] for n in ("experts_gate_up", "experts_down") if n in l0]
+    same = dict(hidden=gcfg.hidden_size == cfg.hidden_size,
+                layers=gcfg.num_layers == cfg.num_layers,
+                heads=(gcfg.num_heads, gcfg.num_kv_heads) == (cfg.num_heads, cfg.num_kv_heads),
+                vocab=gcfg.vocab_size == cfg.vocab_size,
+                experts=gcfg.num_experts == cfg.num_experts,
+                rope=(cfg.rope_scaling is None) == (gcfg.rope_scaling is None),
+                quant=(gcfg.quant.bits, gcfg.quant.group_size) == (4, 32),
+                f32_scales=all(q.scales.dtype == torch.float32 and q.group_size == 32
+                               and q.bits == 4 for q in qts),
+                int8_head=gparams["lm_head"].bits == 8, **same_bytes)
+    say(f"{tag}_gguf", model=cfg.name, wtype=wtype, bytes=info["bytes"],
+        tensors=info["tensors"], types=types, free_gb_before=round(free_gb, 1),
+        draw_s=round(draw_s, 3), export_s=round(export_s, 3), read_s=round(read_s, 3),
+        convert_s=round(convert_s, 3), read_checksum=touched,
+        rope_scaling=gcfg.rope_scaling[0] if gcfg.rope_scaling else None, checks=same,
+        allocated_gb=round(torch.cuda.memory_allocated() / 1e9, 3))
+    if not all(same.values()):
+        raise AssertionError(f"{tag}: the gguf's model is not the one written: {same}")
+    return gcfg, gparams
+
+
+def gguf_path(card):
+    """Path 11: Llama-3.1-8B and Mixtral-8x7B through a gguf file (module
+    docstring, phase 17).  -> the kernels' records"""
+    import torch
+    from tmac_tpu_torch.models.config import get_preset
+    t_path = time.perf_counter()
+    cfg0 = get_preset("llama-3.1-8b", bits=4, group_size=32, zero_point=True)
+    cfg, params = gguf_roundtrip(card, cfg0, "gguf_llama31")
+    # K4L at K 14336, gs 32 with bf16 scales too (past the shared memory
+    # that staged every group's factors): down with and without its fold
+    down = params["layers"][0]["down"]
+    down_bf16 = dataclasses.replace(down, scales=down.scales.to(torch.bfloat16),
+                                    sub=down.sub.to(torch.bfloat16))
+    I = down.kdim
+    bf16_rows, _ = check_k4(card, [
+        (f"down {dt}", card.bf16(N, 2 * I if glu else I), q,
+         dict(glu=True, residual=card.bf16(N, down.mdim)) if glu else {})
+        for N in (64, 88) for glu in (False, True)
+        for dt, q in (("bf16", down_bf16), ("f32", down))])
+    say("gguf_k4l_k14336", rows=bf16_rows)
+    del down_bf16
+    records = grouped_path(card, "gguf_llama31", cfg, GGUF_PROMPT, GGUF_CHUNK,
+                           params=params, k4_rows=(1, 4, 16, 64, 88), k5_rows=(512,),
+                           k4l_rows=GGUF_PROMPT - GGUF_CHUNK)
+    del params
+    torch.cuda.empty_cache()
+    records += gguf_mixtral(card)
+    say("gguf_path", path_s=round(time.perf_counter() - t_path, 3), card=card.name,
+        nvidia_smi=card.smi)
+    return records
+
+
+def gguf_mixtral(card):
+    """Mixtral-8x7B at full width, 2 of its 32 layers, through a Q4_K gguf
+    file: K7's f32 form against its plain version (N = 1 and 4, gate_up and
+    down, every cluster size); a 64-token prompt (the experts' capacity
+    dispatch at 32 slots on K4, wqkv and wo on K4L, the head on K3) and 64
+    greedy steps through decode_loop (4 K7, 4 K4, 2 K2, 1 K1 a step),
+    teacher-forced on the prompt and 16 steps; K7 per step.  -> its record"""
+    import torch
+    from tmac_tpu_torch.models.config import get_preset
+    from tmac_tpu_torch.models.moe import expert_capacity
+    t_path = time.perf_counter()
+    cfg0 = dataclasses.replace(get_preset("mixtral-8x7b", bits=4, group_size=32,
+                                          zero_point=True), num_layers=GGUF_MOE_LAYERS)
+    cfg, params = gguf_roundtrip(card, cfg0, "gguf_mixtral")
+    layers, L, E, H = params["layers"], cfg.num_layers, cfg.num_experts, cfg.hidden_size
+    gu0, dn0 = layers[0]["experts_gate_up"], layers[0]["experts_down"]
+    Ie = dn0.kdim
+    cases = []
+    for N in (1, 4):
+        cases += [("gate_up", card.bf16(1, N, H), gu0, False),
+                  ("down", card.bf16(E, N, 2 * Ie).float(), dn0, True)]
+    k7_rows, k7_err = check_k7(card, cases, splits=(1, 2, 4, 8))
+    say("gguf_k7_check", at_s=round(time.perf_counter() - t_path, 3), checks=k7_rows)
+    C = expert_capacity(GGUF_MOE_PROMPT, cfg)
+    big = C >= 64  # the experts' slots on K4L from 64 rows, else K4
+    main = run_path(card, "gguf_mixtral", cfg, params, GGUF_MOE_PROMPT,
+                    counts(K3=1, K4L=(2 + (2 * E if big else 0)) * L,
+                           K4=0 if big else 2 * E * L),
+                    counts(K1=1.0, K4=2.0 * L, K2=float(L), K7=2.0 * L),
+                    forced=GGUF_MOE_FORCED)
+    k7_times, tot = time_k7_step(card, cfg, layers)
+    say("gguf_mixtral_k7_times", rows=k7_times, per_step=dict(tot, calls=2 * L),
+        capacity=C, step=dict(eager_ms=main["step_ms"], graph_ms=main["graph_step_ms"],
+                              decode_loop_ms=main["loop_ms"]),
+        path_s=round(time.perf_counter() - t_path, 3), card=card.name, nvidia_smi=card.smi)
+    return [dict(name="qgemm_experts (K7) bits 4 f32 scales", path=cfg.name, route="cuda",
+                 source="tmac_tpu_torch/ops/cuda/csrc/qgemm_expert.cu",
+                 replaces="tmac_tpu/ops/pallas/expert_kernel.py:207",
+                 launches=main["launches"]["K7"], max_abs_err=k7_err,
+                 ms=tot["ms"], plain_ms=tot["plain_ms"], bound_ms=tot["bound_ms"],
+                 bound_by="bytes", library_ms=tot["library_ms"])]
+
+
 def template_args(mangled):
     """A kernel's template arguments from its mangled name: bf16, f32,
     int8, an int or a bool (0, 1) (a substitution, S<n>_, repeats the type
@@ -5228,6 +5423,11 @@ def main() -> int:
         records = mixtral_wa8_path(card)
         print(json.dumps({"kernels": records}), flush=True)
         return 0
+    if sys.argv[1:] == ["--phase", "gguf_path"]:
+        say("build", nvcc_s=round(build_s, 3), ptxas=ptxas)
+        records = gguf_path(card)
+        print(json.dumps({"kernels": records}), flush=True)
+        return 0
     if sys.argv[1:] == ["--phase", "qgemm_decode_sweep"]:
         say("build", nvcc_s=round(build_s, 3), ptxas=ptxas)
         say("qgemm_decode_sweep", card=card.name, nvidia_smi=card.smi,
@@ -5256,6 +5456,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     records += mixtral_wa8_path(card)
     torch.cuda.empty_cache()
+    records += gguf_path(card)
+    torch.cuda.empty_cache()
     say("attn_sweep", card=card.name, nvidia_smi=card.smi, rows=attn_sweep(card))
     say("qgemm_decode_sweep", card=card.name, nvidia_smi=card.smi,
         rows=qgemm_decode_sweep(card))
@@ -5278,7 +5480,10 @@ def main() -> int:
         "in chunks of 256; llama-3.1-8b: 128 K5 and 128 K4L for 768 tokens in "
         "chunks of 512 and 256; qwen2-7b: 112 K4L for 256 tokens; llama-2-7b ags 32: 128 K5 "
         "and 128 K4L (the ags form) for 768 tokens in chunks of 512 and 256; mixtral-8x7b "
-        "w_a8: 577 K3 for 256 tokens); launches: the wrappers' counts over each path's "
+        "w_a8: 577 K3 for 256 tokens; llama-3.1-8b-q4_k (path 11, f32 grouped scales): "
+        "128 K5 and 128 K4L for 600 tokens in chunks of 512 and 88, 128 K4, 1 K1 and 32 K2 "
+        "a step; mixtral-8x7b-q4_k at 2 layers: 4 K7, 4 K4, 2 K2 and 1 K1 a step); "
+        "launches: the wrappers' counts over each path's "
         "prefill and decode_loop, which calls a step's wrappers twice (its "
         "eager first step and the one capture) and replays the graph for "
         "the other 63 steps without the host (launched_on_card in step_ms: "

@@ -36,7 +36,7 @@ from tmac_tpu_torch.convert.from_jax import params_from_numpy
 from tmac_tpu_torch.models.config import get_preset
 from tmac_tpu_torch.models.llama import KVCache, Llama, init_params
 from tmac_tpu_torch.ops.cuda.qgemm_grouped_kernel import (
-    K4L_SMEM_LIMIT, act_quant_grouped_plain, block_partials_plain,
+    K4L_TWO_BLOCKS, act_quant_grouped_plain, block_partials_plain,
     fold_split_plain, k4l_kt, k4l_smem, qgemm_grouped, qgemm_grouped_large,
     qgemm_grouped_plain)
 from tmac_tpu_torch.ops.cuda.qgemm_kernel import (DECODE_SMEM_LIMIT, decode_plan,
@@ -225,10 +225,10 @@ def test_decode_split_of_the_ags_form(bits, ags):
 def test_plans_and_limits_of_the_ags_form():
     """decode_plan sizes the ags form's shared memory (a partial and an xs
     an activation group) and finds a cluster at Llama-2-7B W2's shapes;
-    K4L stages the Ga row factors beside the G column factors: Llama-2-7B's
-    down (Kp 11264, 352 activation groups) and Llama-3-8B's (14336, 448)
-    fit at ags 32, 628 groups is the most, and past it the wrapper raises
-    (K4L at gs 32 without ags keeps its 394)."""
+    K4L streams each activation group's row factors and its weight group's
+    column factors through a few slots, so its shared memory is the same
+    at any K (no limit on the activation groups) and two blocks fit an SM
+    at every depth step, bf16 or f32 scales."""
     for K, M in ((4096, 12288), (4096, 4096), (4096, 22016), (11264, 4096)):
         for N in (1, 4, 16):
             for ags in (32, 64):
@@ -238,11 +238,11 @@ def test_plans_and_limits_of_the_ags_form():
                                    acts=K // ags)
                 assert smem <= DECODE_SMEM_LIMIT
                 assert smem > decode_smem(2, nt, True, nunits, unit, ksplit, K // GS)
-    assert k4l_kt(2, 11264, GS, 32) == 32 and k4l_kt(2, 11264, GS, 64) == 64
-    assert k4l_kt(2, 11264, GS) == 64
-    for Kp, ok in ((11264, True), (14336, True), (20096, True), (20480, False)):
-        assert (k4l_smem(2, 32, Kp // GS, Kp // 32) <= K4L_SMEM_LIMIT) == ok, Kp
-    assert k4l_smem(2, 32, 394, 0) <= K4L_SMEM_LIMIT < k4l_smem(2, 32, 395, 0)
+    assert k4l_kt(2, GS, 32) == 32 and k4l_kt(2, GS, 64) == 64
+    assert k4l_kt(2, GS) == 64 and k4l_kt(3, GS) == 64 and k4l_kt(4, 32) == 32
+    for bits in (1, 2, 3, 4):
+        for kt in (32, 64):
+            assert k4l_smem(bits, kt) < k4l_smem(bits, kt, 4) <= K4L_TWO_BLOCKS
     # a CUDA-only narrowing: ags a multiple of 32; on the CPU any divisor runs
     rng = np.random.default_rng(3)
     qt, _ = _pair(rng, 2, 512, 256)

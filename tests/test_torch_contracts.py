@@ -164,7 +164,9 @@ def test_port_imports_neither_jax_nor_tmac_tpu():
             "tmac_tpu_torch.native, "
             "tmac_tpu_torch.convert.bitnet, "
             "tmac_tpu_torch.convert.gptq, "
-            "tmac_tpu_torch.convert.hf; import sys; "
+            "tmac_tpu_torch.convert.hf, "
+            "tmac_tpu_torch.convert.gguf, "
+            "tmac_tpu_torch.convert.gguf_export; import sys; "
             "assert 'jax' not in sys.modules and not any("
             "m.startswith('tmac_tpu.') or m == 'tmac_tpu' for m in sys.modules)"
             ", sorted(m for m in sys.modules if 'jax' in m or 'tmac_tpu.' in m)")
@@ -269,11 +271,15 @@ def test_ctypes_signatures_match_the_c_interfaces():
     # also with the bits-3 hi plane's pointer and the activation group size)
     assert c_args["tmac_act_quant"] == 16
     assert c_args["tmac_decode_qgemm"] == 15
-    assert c_args["tmac_decode_group_gemm"] == 18
+    assert c_args["tmac_decode_group_gemm"] == 19
+    # K4, K4L, K5 and K7 take the grouped scales' dtype (scale_f32: bf16 or
+    # f32) right after the scales and sub
+    assert c_args["tmac_group_gemm"] == 17
+    assert c_args["tmac_qgemm_dequant"] == 14
     assert not {"tmac_qgemm", "tmac_group_dots", "tmac_group_fold"} & set(c_args)
     # K7: one entry for the k routed experts (prologue and K4's decode
     # matmul with the expert as grid.z); K10 with its scratch and grid
-    assert c_args["tmac_qgemm_experts"] == 24
+    assert c_args["tmac_qgemm_experts"] == 25
     assert "tmac_qgemm_expert" not in c_args
     assert c_args["tmac_wo_mlp_block"] == 23
     # K3: one wgmma matmul, with its tile (token rows, columns) and cluster

@@ -71,6 +71,29 @@ def _grouped(rng, bits, G, gs=32, M=128):
                                           scale_dtype=torch.bfloat16, device="cpu")
 
 
+# Llama-3.1-8B Q4_K's (gguf) linears: bits 4 at gs 32, f32 factors
+GGUF_SHAPES = [(n, *s) for n in (1, 4, 16) for s in (
+    (4096, 6144), (4096, 4096), (4096, 28672), (14336, 4096))]
+
+
+@pytest.mark.parametrize("N,Kp,Mp", GGUF_SHAPES)
+def test_decode_plan_counts_f32_factors(N, Kp, Mp):
+    """With f32 scales and sub the fold stages 4 bytes a factor: the plan
+    fits the block's shared memory counting them, and where no cluster
+    size fits at decode_nt's token rows (down, K 14336 at gs 32, 448
+    groups) it takes one token row a block; bf16 factors at the same
+    shapes keep their plan wherever it fitted."""
+    ksplit, nt = decode_plan(N, Kp, Mp, 4, 32, scale_bytes=4)
+    _, unit, nunits = decode_units(Kp, 4, 32)
+    assert decode_smem(4, nt, True, nunits, unit, ksplit, Kp // 32,
+                       scale_bytes=4) <= DECODE_SMEM_LIMIT
+    assert nt == (decode_nt(N, 4) if N == 1 or Kp == 4096 else 1)
+    assert decode_smem(4, nt, True, nunits, unit, ksplit, Kp // 32, scale_bytes=4) > \
+        decode_smem(4, nt, True, nunits, unit, ksplit, Kp // 32)
+    if Kp == 4096:
+        assert decode_plan(N, Kp, Mp, 4, 32)[1] == decode_nt(N, 4)
+
+
 @pytest.mark.parametrize("bits", [1, 2, 3, 4])
 @pytest.mark.parametrize("ksplit", range(1, DECODE_MAX_SPLIT + 1))
 def test_split_fold_equals_fold_plain(ksplit, bits):

@@ -47,11 +47,13 @@ GS, E = 128, 4
 FOLD_NMSE, GLU_NMSE = 1e-12, 1e-6
 
 
-def _stacks(rng, bits, K, Ms):
+def _stacks(rng, bits, K, Ms, gs=GS, f32=False):
     """E experts with the same meta (random codes, per-group scales and
-    zero points, bf16 scales and sub, as the model's init draws them) as a
-    port and a JAX stack; several Ms make fused (gate_up-form) experts."""
-    qmax, G = (1 << bits) - 1, K // GS
+    zero points, bf16 scales and sub, as the model's init draws them; f32
+    ones, as GGUF's block types give them, with f32) as a port and a JAX
+    stack; several Ms make fused (gate_up-form) experts."""
+    qmax, G = (1 << bits) - 1, K // gs
+    sdt, jsdt = (torch.float32, jnp.float32) if f32 else (torch.bfloat16, jnp.bfloat16)
     ts, js = [], []
     for _ in range(E):
         pt, pj = [], []
@@ -60,9 +62,8 @@ def _stacks(rng, bits, K, Ms):
             sc = ((0.5 + rng.random((G, M))) * 0.05).astype(np.float32)
             sub = sc * rng.integers(0, qmax + 1, (G, M)).astype(np.float32)
             pt.append(QuantizedTensor.from_quantized(
-                wq, sc, sub, bits, GS, scale_dtype=torch.bfloat16, device="cpu"))
-            pj.append(JQT.from_quantized(wq, sc, sub, bits, GS,
-                                         scale_dtype=jnp.bfloat16))
+                wq, sc, sub, bits, gs, scale_dtype=sdt, device="cpu"))
+            pj.append(JQT.from_quantized(wq, sc, sub, bits, gs, scale_dtype=jsdt))
         ts.append(fuse_m(pt) if len(Ms) > 1 else pt[0])
         js.append(jfuse_m(pj) if len(Ms) > 1 else pj[0])
     return stack_experts(ts), jstack(js)
@@ -115,6 +116,39 @@ def test_plain_k7_matches_pallas(bits, N, K, Ms, glu):
         np.testing.assert_array_equal(xs.numpy(), np.asarray(jxs))
         np.testing.assert_array_equal(xsum.numpy(), np.asarray(jxsum))
         assert nmse(want, got) <= FOLD_NMSE, (e, nmse(want, got))
+
+
+# f32 scales and sub (GGUF's Q4_K, Q4_0 and grouped ternary experts):
+# (bits, gs, N, K, Ms, glu), bits 4 at gs 32 and bits 2 at gs 256
+F32_CASES = [
+    (4, 32, 1, 512, (256, 256), False),
+    (4, 32, 4, 512, (256, 256), False),
+    (4, 32, 1, 512, (384,), True),
+    (4, 32, 4, 256, (384,), True),
+    (2, 256, 1, 1024, (256, 256), False),
+    (2, 256, 4, 2048, (384,), True),
+]
+
+
+@pytest.mark.parametrize("bits,gs,N,K,Ms,glu", F32_CASES)
+def test_plain_k7_f32_scales_match_pallas(bits, gs, N, K, Ms, glu):
+    """K7's function with f32 grouped scales, in its scope (K7 on the card
+    takes it), against qgemm_expert_pallas, which reads any scale dtype
+    as f32: the same gates as the bf16 form's."""
+    rng = np.random.default_rng(bits * 100 + gs + N * 10 + K + glu)
+    st, jst = _stacks(rng, bits, K, Ms, gs, f32=True)
+    assert st.scales.dtype == torch.float32
+    assert j_supported(jst) and expert_kernel_supported(st)
+    x = rng.standard_normal((N, 2 * K if glu else K)).astype(np.float32)
+    xb, xt = jnp.asarray(x, jnp.bfloat16), torch.from_numpy(x).to(torch.bfloat16)
+    for e in range(E):
+        want = np.asarray(qgemm_expert_pallas(xb, jst, jnp.int32(e), glu=glu,
+                                              interpret=True))
+        got = qgemm_expert(xt, st, e, glu=glu).numpy()
+        assert got.shape == want.shape == (N, sum(Ms))
+        assert nmse(want, got) <= (GLU_NMSE if glu else FOLD_NMSE), (e, nmse(want, got))
+        assert torch.equal(torch.from_numpy(got),
+                           qgemm_grouped_plain(xt, expert_view(st, e), glu=glu))
 
 
 @pytest.mark.parametrize("bits,N,K,Ms,glu", CASES[::2])
@@ -176,15 +210,15 @@ def test_wrapper_dispatch_and_limits():
             for _ in range(2)])
     bf = dict(scale_dtype=torch.bfloat16)
     for bad in (stack_of(3, 512, GS, **bf),     # bits 3
-                stack_of(2, 512, GS),           # grouped f32 scales
+                stack_of(2, 512, GS, scale_dtype=torch.float16),  # grouped f16 scales
                 stack_of(2, 512, 512, **bf),    # per-tensor bf16 scales
                 stack_of(2, 640, GS, **bf),     # K padded 640 -> 1024
                 expert_view(st, 0)):            # not a stack
         with pytest.raises(ValueError):
             qgemm_expert(torch.zeros(1, bad.kdim), bad, 0)
-    # per-tensor f32 scales (G = 1, the w_a8 experts) and bits 1 are in
-    # the scope, as in the reference's
-    for good in (stack_of(2, 512, 512), stack_of(1, 1024, GS, **bf)):
+    # per-tensor f32 scales (G = 1, the w_a8 experts), grouped f32 scales
+    # (GGUF's) and bits 1 are in the scope, as in the reference's
+    for good in (stack_of(2, 512, 512), stack_of(2, 512, GS), stack_of(1, 1024, GS, **bf)):
         assert expert_kernel_supported(good)
         xg = torch.ones(1, good.kdim)
         assert torch.equal(qgemm_expert(xg, good, 1), qgemm_expert_plain(xg, good, 1))

@@ -216,6 +216,35 @@ def test_wrapper_dispatch_and_limits():
                        qgemm_large_int(x64, qt))
 
 
+
+@pytest.mark.parametrize("form", ["bf16_g64", "f32_g32", "bits8_g64", "f16_g64",
+                                  "mixed_dtypes", "g48"])
+def test_auto_on_the_cpu_asks_the_functions_rule(form):
+    """On the CPU, impl="auto" takes a grouped tensor's plain kernel version
+    exactly where the function takes its weights (weights_form_error is
+    None: the rule _check_supported raises on) and "torch" elsewhere."""
+    import dataclasses
+    from tmac_tpu_torch.ops.cuda.qgemm_grouped_kernel import weights_form_error
+    rng = np.random.default_rng(4)
+    bits, gs = (8, 64) if form == "bits8_g64" else (4, 32) if form == "f32_g32" else (2, 64)
+    K = 384 if form == "g48" else 256
+    w = rng.standard_normal((K, 128)).astype(np.float32)
+    qt = QuantizedTensor.from_float(w, bits, 48 if form == "g48" else gs,
+                                    scale_dtype=torch.bfloat16, device="cpu")
+    if form == "f32_g32":
+        qt = dataclasses.replace(qt, scales=qt.scales.float(), sub=qt.sub.float())
+    elif form == "f16_g64":
+        qt = dataclasses.replace(qt, scales=qt.scales.half(), sub=qt.sub.half())
+    elif form == "mixed_dtypes":
+        qt = dataclasses.replace(qt, sub=qt.sub.float())
+    x = torch.from_numpy(rng.standard_normal((2, K)).astype(np.float32)).to(torch.bfloat16)
+    takes = weights_form_error(qt) is None
+    assert takes == (form in ("bf16_g64", "f32_g32", "bits8_g64"))
+    want = (kernel_for(qt, 2, plain=True)(x, qt).to(torch.bfloat16) if takes
+            else qgemm(x, qt, impl="torch"))
+    assert torch.equal(qgemm(x, qt), want)
+
+
 @pytest.mark.parametrize("case", ["grouped", "grouped_bits3", "grouped_bits8", "int8_x"])
 def test_auto_off_the_cpu_takes_k1_or_raises(case):
     """Off the CPU, impl="auto" never reaches the plain grouped matmul: it
@@ -235,7 +264,7 @@ def test_auto_off_the_cpu_takes_k1_or_raises(case):
     elif case == "grouped_bits8":
         qt = QuantizedTensor.from_float(w, 8, 64, scale_dtype=torch.bfloat16,
                                         device="cpu")
-        want = "K4 takes bits 1, 2, 3 and 4"
+        want = "K4 on the card lacks grouped bits 8"   # the plain version's only
     else:
         qt = QuantizedTensor.from_float(w, 2, device="cpu")
         x = x.to(torch.int8)

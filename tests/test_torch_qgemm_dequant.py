@@ -154,3 +154,50 @@ def test_route_and_dispatch():
         k45.qgemm_dequant(torch.zeros((64, 256)), per_tensor)
     with pytest.raises(ValueError, match="K5 runs on CPU or CUDA"):
         k45.qgemm_dequant(x.to("meta"), grouped.to("meta"))
+
+
+# f32 scales and sub (GGUF's block types): (bits, gs, N, K, Ms, norm, glu,
+# residual), bits 4 at gs 32 (3 * gs = 96 rows) and ternary bits 2 at 256
+F32_CASES = [
+    (4, 32, 96, 512, (256,), False, False, False),
+    (4, 32, 200, 1024, (256, 256, 256), True, False, False),
+    (4, 32, 128, 512, (256,), False, True, True),
+    (2, 256, 768, 1024, (256,), False, False, True),
+]
+
+
+@pytest.mark.parametrize("bits,gs,N,K,Ms,norm,glu,residual", F32_CASES)
+def test_plain_k5_f32_scales_match_pallas_dequant(bits, gs, N, K, Ms, norm, glu, residual):
+    """K5's function with f32 scales against the dequant kernel: the same
+    gates as the bf16 form's; the dequantized weights are now an FMA,
+    code * scale - sub rounded once, then to bf16, as XLA compiles the
+    reference's `(wf * sc - sb)` (and as K5 computes them)."""
+    rng = np.random.default_rng(bits * 1000 + gs + N + K + sum(Ms))
+    qt, jqt = _pair(rng, bits, K, Ms, gs, f32=True)
+    xb, xt, kw_j, kw_t = _inputs(rng, qt, N, K, norm, glu, residual)
+    want = _pallas(xb, jqt, None, **kw_j)
+    assert route(qt, N) == "K5" and qt.scales.dtype == torch.float32
+    got = k45.qgemm_dequant(xt, qt, **kw_t).numpy()
+    assert got.shape == want.shape == (N, sum(Ms)) and np.isfinite(got).all()
+    if norm:
+        assert nmse(want, got) <= NORM_NMSE
+        return
+    _within_rounding(qt, xt, kw_t, want, got)
+
+
+@pytest.mark.parametrize("bits,gs", [(4, 32), (2, 256)])
+def test_k5_f32_dequantized_weights_are_the_references(bits, gs):
+    """The reference's bf16 dequantized weights, read back through one-hot
+    rows of x (each output one exact product), equal dequant_weights_plain
+    byte for byte with f32 scales, which an f32 product then a difference
+    (two roundings) would not give."""
+    rng = np.random.default_rng(bits + gs)
+    K = 8 * gs if bits == 2 else 512
+    qt, jqt = _pair(rng, bits, K, (256,), gs, f32=True)
+    x = jnp.eye(K, dtype=jnp.bfloat16)
+    ws = _pallas(x, jqt, "dequant")
+    wd = k45.dequant_weights_plain(qt).float().numpy()
+    np.testing.assert_array_equal(wd, ws)
+    w = unpack_codes(qt).float().reshape(K // gs, gs, -1)
+    two = (w * qt.scales.float()[:, None] - qt.sub.float()[:, None]).reshape(K, -1)
+    assert (two.to(torch.bfloat16).float().numpy() != ws).any()

@@ -16,7 +16,7 @@ from tmac_tpu.ops.pallas.qgemm_kernel import qgemm_pallas
 from tmac_tpu.ops.qgemm import QuantizedTensor as JQT
 from tmac_tpu.ops.qgemm import fuse_m as jfuse_m
 from tmac_tpu_torch.ops.cuda.qgemm_grouped_kernel import (
-    act_quant_grouped_plain, group_dots_plain, qgemm_grouped,
+    act_quant_grouped_plain, check_kernel_form, group_dots_plain, qgemm_grouped,
     qgemm_grouped_plain)
 from tmac_tpu_torch.ops.qgemm import QuantizedTensor, fuse_m, qgemm, unpack_codes
 from tmac_tpu_torch.utils import nmse
@@ -26,21 +26,24 @@ torch.set_num_threads(2)
 GS = 128
 
 
-def _pair(rng, bits, K, Ms, gs=GS):
+def _pair(rng, bits, K, Ms, gs=GS, f32=False):
     """The same grouped weights (random codes, per-group scales and zero
-    points, bf16 scales and sub, as the model's init draws them) as a port
-    and a JAX QuantizedTensor; several Ms make a fused tensor."""
+    points, bf16 scales and sub, as the model's init draws them; with f32,
+    f32 scales and sub off any zero-point grid, as GGUF's Q4_K gives them)
+    as a port and a JAX QuantizedTensor; several Ms make a fused tensor."""
     qmax = (1 << bits) - 1
     G = K // gs
+    sdt, jsdt = (torch.float32, jnp.float32) if f32 else (torch.bfloat16, jnp.bfloat16)
     ts, js = [], []
     for M in Ms:
         wq = rng.integers(0, qmax + 1, (K, M)).astype(np.uint8)
         sc = ((0.5 + rng.random((G, M))) * 0.05).astype(np.float32)
         sub = sc * rng.integers(0, qmax + 1, (G, M)).astype(np.float32)
+        if f32:
+            sub = (sub * (1 + 1e-3 * rng.random((G, M)))).astype(np.float32)
         ts.append(QuantizedTensor.from_quantized(
-            wq, sc, sub, bits, gs, scale_dtype=torch.bfloat16, device="cpu"))
-        js.append(JQT.from_quantized(wq, sc, sub, bits, gs,
-                                     scale_dtype=jnp.bfloat16))
+            wq, sc, sub, bits, gs, scale_dtype=sdt, device="cpu"))
+        js.append(JQT.from_quantized(wq, sc, sub, bits, gs, scale_dtype=jsdt))
     if len(Ms) == 1:
         return ts[0], js[0]
     return fuse_m(ts), jfuse_m(js)
@@ -130,16 +133,41 @@ def test_plain_k4_matches_pallas(bits, N, K, Ms, norm, glu, residual):
     _check_against_pallas(bits, N, K, Ms, norm, glu, residual)
 
 
+# f32 scales and sub (GGUF's block types): K4 below 64 rows and K4L from
+# 64, bits 4 at gs 32 (below 3 * gs = 96 rows) and ternary bits 2 at gs
+# 256: (gs, bits, N, K, Ms, norm, glu, residual)
+F32_CASES = [
+    (32, 4, 1, 512, (256, 256, 256), True, False, False),
+    (32, 4, 1, 512, (256,), False, False, True),
+    (32, 4, 4, 1024, (256,), False, True, True),
+    (32, 4, 16, 512, (200,), False, False, False),
+    (32, 4, 64, 512, (256,), False, False, True),
+    (32, 4, 88, 1024, (256,), False, True, True),
+    (32, 4, 72, 512, (256, 256), True, False, False),
+    (256, 2, 1, 1024, (256,), False, False, True),
+    (256, 2, 72, 2048, (256,), False, False, False),
+    (256, 2, 300, 1024, (256,), False, True, True),
+]
+
+
+@pytest.mark.parametrize("gs,bits,N,K,Ms,norm,glu,residual", F32_CASES)
+def test_plain_f32_scales_match_pallas(gs, bits, N, K, Ms, norm, glu, residual):
+    """The f32 form: the reference widens any scale dtype to f32 where it
+    reads it, so the plain version's fold (scales read as f32) holds to it
+    bit for bit without a norm or glu fold, as the bf16 form does."""
+    _check_against_pallas(bits, N, K, Ms, norm, glu, residual, gs, "chunk", f32=True)
+
+
 @pytest.mark.parametrize("gs,bits,N,K,Ms,norm,glu,residual", GS_CASES)
 def test_plain_k4l_group_sizes_match_pallas(gs, bits, N, K, Ms, norm, glu, residual):
     _check_against_pallas(bits, N, K, Ms, norm, glu, residual, gs, "chunk")
 
 
 def _check_against_pallas(bits, N, K, Ms, norm, glu, residual, gs=GS,
-                          dispatch=None):
+                          dispatch=None, f32=False):
     seed = bits * 1000 + N * 100 + K + sum(Ms) + (0 if gs == GS else gs)
     rng = np.random.default_rng(seed)
-    qt, jqt = _pair(rng, bits, K, Ms, gs)
+    qt, jqt = _pair(rng, bits, K, Ms, gs, f32)
     x = rng.standard_normal((N, 2 * K if glu else K)).astype(np.float32)
     xb = jnp.asarray(x, jnp.bfloat16)
     xt = torch.from_numpy(x).to(torch.bfloat16)
@@ -295,7 +323,9 @@ def test_wrapper_dispatch_and_limits():
     x = torch.from_numpy(rng.standard_normal((2, 512)).astype(np.float32))
     assert torch.equal(qgemm(x, qt, out_dtype=torch.float32),  # auto -> K4
                        qgemm_grouped_plain(x, qt))
-    bits8 = QuantizedTensor.from_quantized(     # grouped bits 8: not ported
+    # grouped bits 8 and f32 scales: the function's forms, on the CPU the
+    # plain version's (bits 8 the kernel lacks: check_kernel_form names it)
+    bits8 = QuantizedTensor.from_quantized(
         rng.integers(0, 256, (512, 256)).astype(np.uint8),
         np.ones((4, 256), np.float32), np.zeros((4, 256), np.float32), 8, GS,
         scale_dtype=torch.bfloat16, device="cpu")
@@ -303,11 +333,20 @@ def test_wrapper_dispatch_and_limits():
         rng.integers(0, 4, (512, 256)).astype(np.uint8),
         np.ones((4, 256), np.float32), np.zeros((4, 256), np.float32), 2, GS,
         device="cpu")
+    for ok in (bits8, f32):
+        assert torch.equal(qgemm_grouped(x, ok), qgemm_grouped_plain(x, ok))
+    with pytest.raises(ValueError, match="grouped bits 8"):
+        check_kernel_form(bits8)
+    check_kernel_form(f32)
     per_tensor = QuantizedTensor.from_float(
         rng.standard_normal((512, 256)).astype(np.float32), 2, device="cpu")
+    f16 = QuantizedTensor.from_quantized(       # neither bf16 nor f32
+        rng.integers(0, 4, (512, 256)).astype(np.uint8),
+        np.ones((4, 256), np.float32), np.zeros((4, 256), np.float32), 2, GS,
+        scale_dtype=torch.float16, device="cpu")
     padded_k, _ = _pair(rng, 2, 640, (256,))    # K 640 -> 1024
     padded_m, _ = _pair(rng, 2, 512, (200,))
-    for bad, kw in ((bits8, {}), (f32, {}), (per_tensor, {}),
+    for bad, kw in ((f16, {}), (per_tensor, {}),
                     (padded_k, dict(glu=True)),
                     (padded_m, dict(residual=torch.zeros(2, 200, dtype=torch.bfloat16))),
                     (qt, dict(residual=torch.zeros(2, 256)))):
@@ -411,3 +450,111 @@ def test_k4l_epilogue_columns_cover_the_tile():
                             assert cell not in seen
                             seen.add(cell)
     assert seen == {(r, m) for r in range(64) for m in range(128)}
+
+
+@pytest.mark.parametrize("gs,bits,scale_dtype,form", [
+    (16, 2, torch.float32, "group size 16"), (16, 3, torch.float32, "group size 16"),
+    (32, 8, torch.float32, "grouped bits 8"), (32, 8, torch.bfloat16, "grouped bits 8"),
+    (32, 4, torch.float32, None), (256, 2, torch.float32, None),
+    (128, 3, torch.bfloat16, None)])
+def test_kernel_form_check_names_what_the_card_lacks(gs, bits, scale_dtype, form):
+    """check_kernel_form, what K4, K4L and K5 run before they launch:
+    group size 16 (GGUF's Q2_K and Q3_K) and grouped bits 8 (Q8_0) raise a
+    ValueError naming the form; f32 and bf16 scales at a multiple of 32
+    pass.  The plain version computes every one of them."""
+    rng = np.random.default_rng(gs + bits)
+    K = 8 * max(gs, 32) if bits in (1, 3) else 512
+    qmax = (1 << bits) - 1
+    qt = QuantizedTensor.from_quantized(
+        rng.integers(0, qmax + 1, (K, 256)).astype(np.uint8),
+        np.full((K // gs, 256), 0.01, np.float32), np.full((K // gs, 256), 0.05, np.float32),
+        bits, gs, scale_dtype=scale_dtype, device="cpu")
+    for kernel in ("K4", "K4L", "K5"):
+        if form is None:
+            check_kernel_form(qt, kernel)
+        else:
+            with pytest.raises(ValueError, match=f"{kernel} on the card lacks {form}"):
+                check_kernel_form(qt, kernel)
+    x = torch.from_numpy(rng.standard_normal((3, K)).astype(np.float32)).to(torch.bfloat16)
+    assert torch.isfinite(qgemm_grouped(x, qt)).all()
+
+
+def _k4l_streamed(codes, xs, xsum, qt, KT, scale_bytes):
+    """A model of group_mma_kernel's streamed fold factors for one block
+    (64 token rows, 128 columns): the factors of fold units 4 b .. +4 (the
+    last block's 2 where the units are not a multiple of 4; their xs
+    columns and weight groups' scales) land in slot b % K4L_FACTOR_BLOCKS
+    with the first depth step of unit 4 b, issued K4L_STAGES - 1 steps
+    ahead of it (the worst case: landing at once); unit g >= 2's factors
+    are read after its first step's barrier (which has waited for that
+    step's loads, so the block must have come with a step no later), units
+    0 and 1's at unit 1's fold, and each must find its own factors in its
+    slot; the z chain runs in passes of as many groups as the idle ring
+    holds.  The arithmetic is the kernel's order: fma(p_0, x_0, p_1 * x_1),
+    then fma(p_g, x_g, acc); z = fma(xsum_g, sub_g, z); acc - z.
+    -> (64, 128)."""
+    from tmac_tpu_torch.ops.cuda.qgemm_grouped_kernel import (
+        K4L_FACTOR_BLOCKS, K4L_ROW_BYTES, K4L_STAGES, k4l_ring)
+    from tmac_tpu_torch.utils import fma_f32
+    Kp, gs = qt.kdim_padded, qt.group_size
+    G, ntiles, steps_g = Kp // gs, Kp // KT, gs // KT
+    fu = 4
+    parts = group_dots_plain(codes, qt).float()        # exact int32 partials
+    scales, sub = qt.scales.float(), qt.sub.float()
+    slots = [None] * K4L_FACTOR_BLOCKS
+
+    def issue(t):   # step t's loads: a block's factors with its first step
+        if t < ntiles and t % (steps_g * fu) == 0:
+            b = t // (steps_g * fu)
+            slots[b % K4L_FACTOR_BLOCKS] = (t, {
+                f: (xs[:, f].clone(), scales[f].clone())
+                for f in range(fu * b, min(fu * b + fu, G))})
+
+    def read(f, t):  # after step t's barrier
+        t0, block = slots[(f // fu) % K4L_FACTOR_BLOCKS]
+        assert t0 <= t, (f, t0, t)
+        row, col = block[f]
+        return row[:, None] * col[None, :]
+    for t in range(K4L_STAGES - 1):
+        issue(t)
+    acc = x_g = None
+    for t in range(ntiles):
+        issue(t + K4L_STAGES - 1)      # after step t's barrier
+        g, i = divmod(t, steps_g)
+        if g > 1 and i == 0:
+            x_g = read(g, t)           # during unit g's first step
+        if i != steps_g - 1:
+            continue
+        if g == 1:                     # unit g's last step: its fold
+            acc = fma_f32(parts[0], read(0, t), parts[1] * read(1, t))
+        elif g > 1:
+            acc = fma_f32(parts[g], x_g, acc)
+    per_pass = k4l_ring(qt.bits, KT) // (K4L_ROW_BYTES + 128 * scale_bytes)
+    z = torch.zeros_like(acc)
+    for g0 in range(0, G, per_pass):
+        for g in range(g0, min(G, g0 + per_pass)):
+            z = fma_f32(xsum[:, g:g + 1].expand_as(z), sub[g].expand_as(z), z)
+    return acc - z
+
+
+@pytest.mark.parametrize("K", [14336, 4160])
+@pytest.mark.parametrize("f32", [False, True])
+def test_k4l_streamed_factors_at_k14336_match_the_plain_version(f32, K):
+    """K4L past its old shared-memory limit: Llama-3-8B's and Mixtral's
+    down (K 14336) at gs 32, bits 4, bf16 and f32 scales (and K 4160, 130
+    groups: a last block of 2 fold units); the model of its streamed factor
+    staging (_k4l_streamed) gives the plain version's outputs bit for
+    bit, and its shared memory is the same at any K."""
+    from tmac_tpu_torch.ops.cuda.qgemm_grouped_kernel import (K4L_TWO_BLOCKS, k4l_kt,
+                                                              k4l_smem)
+    rng = np.random.default_rng(K + f32)
+    gs = 32
+    qt, _ = _pair(rng, 4, K, (128,), gs, f32)
+    x = torch.from_numpy(rng.standard_normal((64, K)).astype(np.float32)).to(torch.bfloat16)
+    codes, xs, xsum = act_quant_grouped_plain(x, qt)
+    sb = qt.scales.element_size()
+    KT = k4l_kt(4, gs, scale_bytes=sb)
+    assert KT == 32 and k4l_smem(4, KT, sb) <= K4L_TWO_BLOCKS
+    got = _k4l_streamed(codes, xs, xsum, qt, KT, sb)
+    want = qgemm_grouped_plain(x, qt)
+    assert torch.equal(got, want)

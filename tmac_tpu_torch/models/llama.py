@@ -232,7 +232,10 @@ def _check_slice(cfg: ModelConfig) -> None:
     at bits 1 to 4, dense or MoE, with an act_group_size or without (one
     that does not divide the group size is ignored, as the JAX package
     ignores it); attention bias, tied, bf16 or int8 heads and every rope
-    scaling.  What it refuses names the missing form."""
+    scaling.  A tensor's own form (bf16 or f32 scales, group size 16 or a
+    multiple of 32, grouped bits 8, as a gguf file gives them) is the
+    kernels' wrappers' to check.  What it refuses names the missing
+    form."""
     q = cfg.quant
     if q.mode == "w_a8":
         if q.group_size != -1 or q.bits not in (1, 2, 3, 4):

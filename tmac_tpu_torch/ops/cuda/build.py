@@ -26,8 +26,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "_build"
-SOURCES = ("qgemm_fused", "qgemm_grouped", "qgemm_expert", "flash_decode",
-           "qgemm_large", "block_kernel")
+SOURCES = ("qgemm_fused", "qgemm_grouped", "qgemm_grouped_large", "qgemm_expert",
+           "flash_decode", "qgemm_large", "block_kernel")
 # -Xptxas -v only reports each kernel's registers, shared memory and spills
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -82,6 +82,12 @@
 //   chain run over the Ga = Kp / ags activation groups (x_a = xs[a] *
 //   scale[a / (Ga / G)]), the zero-point chain over the G weight groups;
 //   its own template instance, so the ags = 0 instances are unchanged.
+// - f32 group factors (SC = float: GGUF's block scales, which bf16 would
+//   round): the scales and zero points of the slice are staged as read, 4
+//   columns a 16-byte copy instead of 8, so the fold's staging takes twice
+//   the bytes (Layout's scale_bytes; decode_plan counts them) and the f32
+//   chain reads them unrounded; its own template instance, so the bf16
+//   instances are unchanged.
 
 #pragma once
 
@@ -115,7 +121,7 @@ struct Args {
   const float* xsum;
   const uint8_t* packed; // (Kb, Mp); at bits 3 the lo plane (2 Kb, Mp)
   const uint8_t* packed_hi;  // bits 3: the hi plane (Kb, Mp); else null
-  const void* scales;    // (1, Mp) f32 or (G, Mp) bf16
+  const void* scales;    // (1, Mp) f32 or (G, Mp) bf16 or f32 (SC)
   const void* sub;
   const __nv_bfloat16* residual;  // (N, Mp) or null
   float* out;            // (N, Mp)
@@ -137,14 +143,14 @@ __host__ __device__ inline int align16(int b) { return (b + 15) / 16 * 16; }
 // receives the partials of the block's slice of columns from the cluster
 // (K4: group, row, column; K1: rank, row, column), the codes of the block's
 // rows, its own int32 partials, and for the grouped fold the slice's scales
-// and zero points (bf16) and the tile's xs and xsum.
+// and zero points (bf16, or f32: scale_bytes) and the tile's xs and xsum.
 // acts: K4's ags form's activation groups (a partial and an xs each), or
 // 0 (one a weight group).
 struct Layout {
   int span, units, slice, codes, parts, fsc, fxs, xbuf, total;
   __host__ __device__ Layout(int P, int NT, bool grouped, int nunits,
                              int unit_rows, int ksplit, int G, int stages = kStages,
-                             int planes = 1, int acts = 0) {
+                             int planes = 1, int acts = 0, int scale_bytes = 2) {
     const int ring = stages * kStageBytes * planes;
     const int Gx = acts ? acts : G;
     units = (nunits + ksplit - 1) / ksplit;
@@ -154,7 +160,7 @@ struct Layout {
     codes = align16(recv > ring ? recv : ring);
     parts = codes + align16(NT * P * span);
     fsc = parts + (grouped ? units * P : 1) * NT * kStrip * 4;
-    fxs = fsc + (grouped ? align16(2 * G * slice * 2) : 0);
+    fxs = fsc + (grouped ? align16(2 * G * slice * scale_bytes) : 0);
     xbuf = align16(fxs + (grouped ? NT * (Gx + G) * 4 : 0));
     total = xbuf + (grouped ? kXBytes : 0);
   }
@@ -281,14 +287,19 @@ __device__ __forceinline__ void flush(int (&acc)[NT][P][4], int* part_s, int* xb
       for (int c = 0; c < 4; ++c) acc[n][j][c] = 0;
 }
 
+// a group factor as the f32 chain reads it
+__device__ __forceinline__ float factor(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float factor(float v) { return v; }
+
 // The kernel body.  BITS 1, 2 or 4 (fields of unsigned codes), 3 (a lo and
 // a hi plane) or 8 (signed codes, one a byte); NT token rows a block; GROUPED: K4 (per-group
 // partials and the fold) or K1 (one int32 sum and its epilogue); EXPERTS:
 // K7, K4 or K1 on the routed experts of a stack, one grid.z slice each;
 // STAGES: the ring's stages; AGS (with GROUPED): K4's ags form, a partial
-// and a step of the fold per activation group.
+// and a step of the fold per activation group; SC (with GROUPED): the
+// group scales' and zero points' type, __nv_bfloat16 or float.
 template <int BITS, int NT, bool GROUPED, bool EXPERTS = false, int STAGES = kStages,
-          bool AGS = false>
+          bool AGS = false, typename SC = __nv_bfloat16>
 __device__ __forceinline__ void decode_matmul(const Args& args) {
   constexpr int P = fields(BITS);
   constexpr int kStageAll = kStageBytes * planes(BITS);  // a stage's bytes
@@ -310,7 +321,7 @@ __device__ __forceinline__ void decode_matmul(const Args& args) {
   const int r0 = u0 * args.unit_rows, r1 = min(u1 * args.unit_rows, args.Kb);
   const int nst = (r1 - r0 + kStageRows - 1) / kStageRows;
   const Layout L(P, NT, GROUPED, args.nunits, args.unit_rows, ksplit, args.G, STAGES,
-                 planes(BITS), AGS ? args.Ga : 0);
+                 planes(BITS), AGS ? args.Ga : 0, (int)sizeof(SC));
   const int s0 = slice_start(rank, ksplit), s1 = slice_start(rank + 1, ksplit);
   const int w = s1 - s0, nout = NT * w;  // the outputs this block finishes
   Args routed = args;  // K7: the routed expert's operands
@@ -332,8 +343,8 @@ __device__ __forceinline__ void decode_matmul(const Args& args) {
     }
     r.packed += (size_t)e * r.Kb * r.Mp;
     if (GROUPED) {
-      r.scales = static_cast<const __nv_bfloat16*>(r.scales) + (size_t)e * r.G * r.Mp;
-      r.sub = static_cast<const __nv_bfloat16*>(r.sub) + (size_t)e * r.G * r.Mp;
+      r.scales = static_cast<const SC*>(r.scales) + (size_t)e * r.G * r.Mp;
+      r.sub = static_cast<const SC*>(r.sub) + (size_t)e * r.G * r.Mp;
     } else {  // per-tensor: f32 (1, Mp) an expert
       r.scales = static_cast<const float*>(r.scales) + (size_t)e * r.Mp;
       r.sub = static_cast<const float*>(r.sub) + (size_t)e * r.Mp;
@@ -367,14 +378,15 @@ __device__ __forceinline__ void decode_matmul(const Args& args) {
   // before the prologue's results exist: the weights (and the fold's
   // scales and zero points, with stage 0) and the epilogue's weights
   if (GROUPED) {
-    const int su = w / 8;
-    __nv_bfloat16* fsc = reinterpret_cast<__nv_bfloat16*>(smem + L.fsc);
-    const __nv_bfloat16* sc = static_cast<const __nv_bfloat16*>(a.scales);
-    const __nv_bfloat16* sb = static_cast<const __nv_bfloat16*>(a.sub);
+    constexpr int kPer = 16 / (int)sizeof(SC);  // factors a 16-byte copy
+    const int su = w / kPer;
+    SC* fsc = reinterpret_cast<SC*>(smem + L.fsc);
+    const SC* sc = static_cast<const SC*>(a.scales);
+    const SC* sb = static_cast<const SC*>(a.sub);
     for (int i = tid; i < 2 * a.G * su; i += kThreads) {
       const int which = i / (a.G * su), g = (i / su) % a.G, u = i % su;
-      cp_async16(fsc + ((size_t)which * a.G + g) * L.slice + 8 * u,
-                 (which ? sb : sc) + (size_t)g * a.Mp + m0 + s0 + 8 * u, true);
+      cp_async16(fsc + ((size_t)which * a.G + g) * L.slice + kPer * u,
+                 (which ? sb : sc) + (size_t)g * a.Mp + m0 + s0 + kPer * u, true);
     }
   }
   for (int s = 0; s < STAGES - 1; ++s) {
@@ -578,8 +590,8 @@ __device__ __forceinline__ void decode_matmul(const Args& args) {
     // K4's ags form: the chain over the activation groups in order, each
     // partial's factor its own xs times its weight group's scale, and the
     // zero-point chain over the weight groups
-    const __nv_bfloat16* fsc = reinterpret_cast<const __nv_bfloat16*>(smem + L.fsc);
-    const __nv_bfloat16* fsb = fsc + (size_t)a.G * L.slice;
+    const SC* fsc = reinterpret_cast<const SC*>(smem + L.fsc);
+    const SC* fsb = fsc + (size_t)a.G * L.slice;
     const int per = a.Ga / a.G;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
@@ -589,10 +601,10 @@ __device__ __forceinline__ void decode_matmul(const Args& args) {
 #pragma unroll 4
       for (int c = 0; c < a.Ga; ++c)
         fold.term(c, (float)part0[(c * NT + n) * width + mm], fxs[n * a.Ga + c],
-                  __bfloat162float(fsc[(c / per) * L.slice + mm]));
+                  factor(fsc[(c / per) * L.slice + mm]));
 #pragma unroll 4
       for (int g = 0; g < a.G; ++g)
-        fold.zero(fxs[NT * a.Ga + n * a.G + g], __bfloat162float(fsb[g * L.slice + mm]));
+        fold.zero(fxs[NT * a.Ga + n * a.G + g], factor(fsb[g * L.slice + mm]));
       float v = fold.result();
       if (a.residual != nullptr) v = __fadd_rn(v, e_res[h]);
       a.out[(size_t)(n0 + n) * a.Mp + m0 + s0 + mm] = v;
@@ -600,8 +612,8 @@ __device__ __forceinline__ void decode_matmul(const Args& args) {
   } else {
     // K4: the fold of each output over the groups in order (the
     // reference's f32 chain), from the partials
-    const __nv_bfloat16* fsc = reinterpret_cast<const __nv_bfloat16*>(smem + L.fsc);
-    const __nv_bfloat16* fsb = fsc + (size_t)a.G * L.slice;
+    const SC* fsc = reinterpret_cast<const SC*>(smem + L.fsc);
+    const SC* fsb = fsc + (size_t)a.G * L.slice;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int o = tid + h * kThreads, n = o / w, mm = o % w;
@@ -610,8 +622,8 @@ __device__ __forceinline__ void decode_matmul(const Args& args) {
 #pragma unroll 4
       for (int g = 0; g < a.G; ++g)
         fold.step(g, (float)part0[(g * NT + n) * width + mm], fxs[n * a.G + g],
-                  __bfloat162float(fsc[g * L.slice + mm]), fxs[(NT + n) * a.G + g],
-                  __bfloat162float(fsb[g * L.slice + mm]));
+                  factor(fsc[g * L.slice + mm]), fxs[(NT + n) * a.G + g],
+                  factor(fsb[g * L.slice + mm]));
       float v = fold.result();
       if (a.residual != nullptr) v = __fadd_rn(v, e_res[h]);
       a.out[(size_t)(n0 + n) * a.Mp + m0 + s0 + mm] = v;

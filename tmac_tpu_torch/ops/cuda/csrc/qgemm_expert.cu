@@ -21,7 +21,8 @@
 //        k = r + f*K/p)
 //     -> the f32 fold of K4 (act_prologue.cuh, GroupFold): acc over the
 //        groups in order with the reference's FMA pairing, minus xsum @ sub
-//        (scales and sub (E, G, Mp) bf16)
+//        (scales and sub (E, G, Mp) bf16, or f32: GGUF's block scales, their
+//        own template instance)
 //     -> out (k, N, Mp) f32; an index outside [0, E) gives NaN outputs.
 //
 // and its per-tensor branch (G = 1: scales and sub f32 (E, 1, Mp), the
@@ -147,10 +148,10 @@ __global__ void __launch_bounds__(kTokenThreads) expert_quant_token_kernel(
   }
 }
 
-template <int BITS, int NT, int STAGES>
+template <int BITS, int NT, int STAGES, typename SC>
 __global__ void __launch_bounds__(tmac::decode::kThreads, 2)
     k7_decode_kernel(const tmac::decode::Args a) {
-  tmac::decode::decode_matmul<BITS, NT, true, true, STAGES>(a);
+  tmac::decode::decode_matmul<BITS, NT, true, true, STAGES, false, SC>(a);
 }
 
 // the per-tensor branch: K1's body on the routed experts
@@ -160,13 +161,15 @@ __global__ void __launch_bounds__(tmac::decode::kThreads, 2)
   tmac::decode::decode_matmul<BITS, NT, false, true, STAGES>(a);
 }
 
-template <int BITS, int NT, int STAGES, bool GROUPED>
+// SC: the grouped scales' type (bf16 or float; the per-tensor branch's are
+// f32 and SC is unused)
+template <int BITS, int NT, int STAGES, bool GROUPED, typename SC>
 int launch_shape(const tmac::decode::Args& a, int ksplit, int experts, cudaStream_t stream) {
   const tmac::decode::Layout L(8 / BITS, NT, GROUPED, a.nunits, a.unit_rows, ksplit, a.G,
-                               STAGES);
+                               STAGES, 1, 0, (int)sizeof(SC));
   if constexpr (GROUPED)
-    return tmac::decode::launch(k7_decode_kernel<BITS, NT, STAGES>, a, ksplit, NT, L.total,
-                                stream, experts);
+    return tmac::decode::launch(k7_decode_kernel<BITS, NT, STAGES, SC>, a, ksplit, NT,
+                                L.total, stream, experts);
   else
     return tmac::decode::launch(k7_token_kernel<BITS, NT, STAGES>, a, ksplit, NT, L.total,
                                 stream, experts);
@@ -177,24 +180,24 @@ int launch_shape(const tmac::decode::Args& a, int ksplit, int experts, cudaStrea
 template <int BITS>
 constexpr int k7_nt() { return BITS == 1 ? 2 : 4; }
 
-template <int BITS, bool GROUPED>
+template <int BITS, bool GROUPED, typename SC>
 int launch_matmul(const tmac::decode::Args& a, int ksplit, int nt, int stages, int experts,
                   cudaStream_t stream) {
   constexpr int NT = k7_nt<BITS>();
   if (nt == 1)
-    return stages == 6 ? launch_shape<BITS, 1, 6, GROUPED>(a, ksplit, experts, stream)
-                       : launch_shape<BITS, 1, 8, GROUPED>(a, ksplit, experts, stream);
-  return stages == 6 ? launch_shape<BITS, NT, 6, GROUPED>(a, ksplit, experts, stream)
-                     : launch_shape<BITS, NT, 8, GROUPED>(a, ksplit, experts, stream);
+    return stages == 6 ? launch_shape<BITS, 1, 6, GROUPED, SC>(a, ksplit, experts, stream)
+                       : launch_shape<BITS, 1, 8, GROUPED, SC>(a, ksplit, experts, stream);
+  return stages == 6 ? launch_shape<BITS, NT, 6, GROUPED, SC>(a, ksplit, experts, stream)
+                     : launch_shape<BITS, NT, 8, GROUPED, SC>(a, ksplit, experts, stream);
 }
 
-template <bool GROUPED>
+template <bool GROUPED, typename SC = __nv_bfloat16>
 int launch_bits(const tmac::decode::Args& a, int bits, int ksplit, int nt, int stages,
                 int experts, cudaStream_t stream) {
   switch (bits) {
-    case 1: return launch_matmul<1, GROUPED>(a, ksplit, nt, stages, experts, stream);
-    case 2: return launch_matmul<2, GROUPED>(a, ksplit, nt, stages, experts, stream);
-    default: return launch_matmul<4, GROUPED>(a, ksplit, nt, stages, experts, stream);
+    case 1: return launch_matmul<1, GROUPED, SC>(a, ksplit, nt, stages, experts, stream);
+    case 2: return launch_matmul<2, GROUPED, SC>(a, ksplit, nt, stages, experts, stream);
+    default: return launch_matmul<4, GROUPED, SC>(a, ksplit, nt, stages, experts, stream);
   }
 }
 
@@ -204,8 +207,9 @@ int launch_bits(const tmac::decode::Args& a, int bits, int ksplit, int nt, int s
 // expert shares it (x_per_expert 0), k * N otherwise; x_cols = K, or 2K with
 // glu.  idx: k int32 expert indices on the device (outside [0, E): NaN
 // outputs); packed (E, K*bits/8, Mp) uint8, scales and sub (E, G, Mp), G =
-// K/gs: grouped (G >= 2, gs a multiple of 32, K of gs * 8 / bits) bf16, or
-// per-tensor (gs = K, G = 1, K a multiple of 4 * 8 / bits) f32 -> out (k,
+// K/gs: grouped (G >= 2, gs a multiple of 32, K of gs * 8 / bits) bf16
+// (scale_f32 0) or f32 (scale_f32 1), or per-tensor (gs = K, G = 1, K a
+// multiple of 4 * 8 / bits) f32 (scale_f32 1) -> out (k,
 // N, Mp) f32; codes (rows, K) int8, xs and xsum (rows,
 // G) f32: the prologue's scratch.  1 <= N <= 4; bits 1, 2 or 4; Mp a
 // multiple of 128; a cluster of ksplit (1-8) blocks along K, nt (1, or 4; 2
@@ -215,7 +219,7 @@ int launch_bits(const tmac::decode::Args& a, int bits, int ksplit, int nt, int s
 extern "C" int tmac_qgemm_experts(const void* x, int x_f32, int x_per_expert, int N,
                                   int x_cols, int K, int gs, int glu, const void* idx,
                                   int k, int E, const void* packed, const void* scales,
-                                  const void* sub, int Mp, int bits, float* out,
+                                  const void* sub, int scale_f32, int Mp, int bits, float* out,
                                   void* codes, float* xs, float* xsum, int ksplit,
                                   int nt, int stages, void* stream) {
   const int P = 8 / bits;
@@ -224,7 +228,8 @@ extern "C" int tmac_qgemm_experts(const void* x, int x_f32, int x_per_expert, in
       (grouped ? gs % 32 != 0 || K % (gs * P) != 0 : gs != K || K % (4 * P) != 0) ||
       K > tmac::kMaxRowK || Mp % tmac::decode::kStrip != 0 || x_cols != (glu ? 2 * K : K) ||
       E < 1 || k < 1 || ksplit < 1 || ksplit > tmac::decode::kMaxSplit ||
-      (nt != 1 && nt != (bits == 1 ? 2 : 4)) || (stages != 6 && stages != 8))
+      (nt != 1 && nt != (bits == 1 ? 2 : 4)) || (stages != 6 && stages != 8) ||
+      (!grouped && !scale_f32))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const int G = K / gs, rows = x_per_expert ? k * N : N;
@@ -286,6 +291,7 @@ extern "C" int tmac_qgemm_experts(const void* x, int x_f32, int x_per_expert, in
   a.E = E;
   a.x_per_expert = x_per_expert;
   a.Ga = G;
-  return grouped ? launch_bits<true>(a, bits, ksplit, nt, stages, k, s)
-                 : launch_bits<false>(a, bits, ksplit, nt, stages, k, s);
+  if (!grouped) return launch_bits<false>(a, bits, ksplit, nt, stages, k, s);
+  return scale_f32 ? launch_bits<true, float>(a, bits, ksplit, nt, stages, k, s)
+                   : launch_bits<true, __nv_bfloat16>(a, bits, ksplit, nt, stages, k, s);
 }

@@ -832,12 +832,30 @@ __global__ void __launch_bounds__(kPrologueThreads) act_bf16_kernel(
 // = j * Kb + r in field j, whose hi bit is bit 2 j + (r >= Kh) of hi row
 // r % Kh.  A depth block of 64 lo rows (Kh a multiple of 64) thus reads 64
 // hi rows at one offset, loaded with its lo bytes.
-template <int BITS>
+// SC: the scales' and zero points' type: __nv_bfloat16 (8 columns a 16-byte
+// load), or float (GGUF's block scales: two 16-byte loads for 8 columns),
+// its own template instance; code * scale is then not exact, and the fma
+// below is the one rounding the plain version repeats.
+template <typename SC>
+struct ScaleRow {  // 8 columns' scales (or zero points), as loaded
+  uint4 v[sizeof(SC) / 2];
+  __device__ __forceinline__ void load(const SC* p) {
+#pragma unroll
+    for (int h = 0; h < (int)(sizeof(SC) / 2); ++h) v[h] = __ldg(reinterpret_cast<const uint4*>(p) + h);
+  }
+  __device__ __forceinline__ float get(int e) const {
+    if constexpr (sizeof(SC) == 2)
+      return __bfloat162float(reinterpret_cast<const __nv_bfloat16*>(v)[e]);
+    else
+      return reinterpret_cast<const float*>(v)[e];
+  }
+};
+
+template <int BITS, typename SC>
 __global__ void __launch_bounds__(k5Threads, 1) dequant_wgmma_kernel(
     const __grid_constant__ CUtensorMap xa_map, int N, int Kp, int gs,
     const uint8_t* __restrict__ packed, const uint8_t* __restrict__ packed_hi, int Mp,
-    const __nv_bfloat16* __restrict__ scales,
-    const __nv_bfloat16* __restrict__ sub,
+    const SC* __restrict__ scales, const SC* __restrict__ sub,
     const __nv_bfloat16* __restrict__ residual, float* __restrict__ out) {
   constexpr int P = BITS == 3 ? 4 : 8 / BITS;  // fields of a (lo plane) byte
   constexpr uint32_t kMask = BITS == 3 ? 3u : (1u << BITS) - 1;
@@ -866,7 +884,7 @@ __global__ void __launch_bounds__(k5Threads, 1) dequant_wgmma_kernel(
   // block rb - 1 (p steps ahead), the scale and sub rows two steps ahead.
   uint2 pk[k5Chunks], pk_next[k5Chunks];
   uint2 ph[BITS == 3 ? k5Chunks : 1], ph_next[BITS == 3 ? k5Chunks : 1];  // bits 3: hi rows
-  uint4 sv[2], zv[2];  // [0]: the next step to dequantize, [1]: the one after
+  ScaleRow<SC> sv[2], zv[2];  // [0]: the next step to dequantize, [1]: the one after
   auto load_packed = [&](int rb, uint2 (&dst)[k5Chunks], uint2 (&dst_hi)[BITS == 3 ? k5Chunks : 1]) {
 #pragma unroll
     for (int i = 0; i < k5Chunks; ++i) {
@@ -876,10 +894,10 @@ __global__ void __launch_bounds__(k5Threads, 1) dequant_wgmma_kernel(
         dst_hi[i] = __ldg(reinterpret_cast<const uint2*>(packed_hi + (size_t)(r % Kh) * Mp + col));
     }
   };
-  auto load_scales = [&](int step, uint4& s4, uint4& z4) {
+  auto load_scales = [&](int step, ScaleRow<SC>& s4, ScaleRow<SC>& z4) {
     const int g = ((step % P) * Kb + (step / P) * 64 + rlo) / gs;
-    s4 = __ldg(reinterpret_cast<const uint4*>(scales + (size_t)g * Mp + col));
-    z4 = __ldg(reinterpret_cast<const uint4*>(sub + (size_t)g * Mp + col));
+    s4.load(scales + (size_t)g * Mp + col);
+    z4.load(sub + (size_t)g * Mp + col);
   };
   auto produce = [&](int step) {
     const int s = step % k5Stages, r0 = (step / P) * 64, j = step % P;
@@ -892,13 +910,11 @@ __global__ void __launch_bounds__(k5Threads, 1) dequant_wgmma_kernel(
     }
     // scale and -sub of the thread's 8 columns in the group of row rlo
     float sf[8], zf[8];
-    auto convert = [&](uint4 s4, uint4 z4) {
-      const __nv_bfloat16* s8 = reinterpret_cast<const __nv_bfloat16*>(&s4);
-      const __nv_bfloat16* z8 = reinterpret_cast<const __nv_bfloat16*>(&z4);
+    auto convert = [&](const ScaleRow<SC>& s4, const ScaleRow<SC>& z4) {
 #pragma unroll
       for (int e = 0; e < 8; ++e) {
-        sf[e] = __bfloat162float(s8[e]);
-        zf[e] = -__bfloat162float(z8[e]);
+        sf[e] = s4.get(e);
+        zf[e] = -z4.get(e);
       }
     };
     if (j == 0 && step > 0) {
@@ -920,8 +936,10 @@ __global__ void __launch_bounds__(k5Threads, 1) dequant_wgmma_kernel(
       const int g = (j * Kb + r0 + rr) / gs;
       if (g != g_cur) {  // only when gs < 64
         g_cur = g;
-        convert(__ldg(reinterpret_cast<const uint4*>(scales + (size_t)g * Mp + col)),
-                __ldg(reinterpret_cast<const uint4*>(sub + (size_t)g * Mp + col)));
+        ScaleRow<SC> s4, z4;
+        s4.load(scales + (size_t)g * Mp + col);
+        z4.load(sub + (size_t)g * Mp + col);
+        convert(s4, z4);
       }
       // field j of the 8 columns' bytes at bit 8 e (bits 3: and the hi bit)
       const int shift = (BITS == 3 ? 2 : BITS) * j;
@@ -945,8 +963,9 @@ __global__ void __launch_bounds__(k5Threads, 1) dequant_wgmma_kernel(
           else
             code = (((e + u) < 4 ? lo : hi) >> (8 * ((e + u) & 3))) & kMask;
           // 2^23 + code, less 2^23: the code as a float, exactly, without
-          // the quarter-rate int-to-float conversion; code * scale is
-          // exact, so the fma is the reference's one rounding
+          // the quarter-rate int-to-float conversion; then code * scale -
+          // sub with one rounding (bf16 scales: code * scale is exact, so
+          // it is the reference's one rounding)
           const float cf = __fsub_rn(__uint_as_float(0x4B000000u | code), 8388608.0f);
           v[u] = __fmaf_rn(cf, sf[e + u], zf[e + u]);
         }
@@ -1017,12 +1036,14 @@ __global__ void __launch_bounds__(k5Threads, 1) dequant_wgmma_kernel(
     }
 }
 
-template <int BITS>
+template <int BITS, typename SC>
 int launch_dequant_wgmma(const CUtensorMap& map, int N, int Kp, int gs,
                          const uint8_t* packed, const uint8_t* packed_hi, int Mp,
-                         const __nv_bfloat16* scales, const __nv_bfloat16* sub,
+                         const void* scales_, const void* sub_,
                          const __nv_bfloat16* residual, float* out, cudaStream_t stream) {
-  auto kernel = dequant_wgmma_kernel<BITS>;
+  auto kernel = dequant_wgmma_kernel<BITS, SC>;
+  const SC* scales = static_cast<const SC*>(scales_);
+  const SC* sub = static_cast<const SC*>(sub_);
   const cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, k5Smem);
   if (err != cudaSuccess) return (int)err;
@@ -1102,13 +1123,14 @@ extern "C" int tmac_act_bf16(const void* x, int N, int x_cols, int K, int Kp,
 
 // K5: xa (N, Kp) bf16, packed (Kp * bits / 8, Mp) uint8 (bits 3: the lo
 // plane (Kp / 4, Mp) and packed_hi, the hi plane (Kp / 8, Mp); else
-// packed_hi null), scales/sub (G, Mp) bf16, residual (N, Mp) bf16 or null
-// -> out (N, Mp) f32.  bits 1 to 4; gs a multiple of 32; Kp a multiple of
-// gs; every plane's rows a multiple of 64; Mp of 128; xa 16-byte aligned.
+// packed_hi null), scales/sub (G, Mp) bf16 (scale_f32 0) or f32
+// (scale_f32 1), residual (N, Mp) bf16 or null -> out (N, Mp) f32.  bits 1
+// to 4; gs a multiple of 32; Kp a multiple of gs; every plane's rows a
+// multiple of 64; Mp of 128; xa 16-byte aligned.
 extern "C" int tmac_qgemm_dequant(const void* xa, int N, int Kp, int gs,
                                   int bits, const void* packed, const void* packed_hi,
                                   int Mp, const void* scales, const void* sub,
-                                  const void* residual, float* out,
+                                  int scale_f32, const void* residual, float* out,
                                   void* stream) {
   const int p = bits == 3 ? 4 : bits >= 1 && bits <= 4 ? 8 / bits : 0;
   if (N <= 0 || gs <= 0 || gs % 32 != 0 || Mp % k5BM != 0 || p == 0 ||
@@ -1122,14 +1144,20 @@ extern "C" int tmac_qgemm_dequant(const void* xa, int N, int Kp, int gs,
   if (err != 0) return err;
   const uint8_t* pk = static_cast<const uint8_t*>(packed);
   const uint8_t* ph = static_cast<const uint8_t*>(packed_hi);
-  const __nv_bfloat16* sc = static_cast<const __nv_bfloat16*>(scales);
-  const __nv_bfloat16* sb = static_cast<const __nv_bfloat16*>(sub);
   const __nv_bfloat16* res = static_cast<const __nv_bfloat16*>(residual);
   cudaStream_t s = (cudaStream_t)stream;
+  if (scale_f32) {
+    switch (bits) {
+      case 1: return launch_dequant_wgmma<1, float>(map, N, Kp, gs, pk, ph, Mp, scales, sub, res, out, s);
+      case 2: return launch_dequant_wgmma<2, float>(map, N, Kp, gs, pk, ph, Mp, scales, sub, res, out, s);
+      case 3: return launch_dequant_wgmma<3, float>(map, N, Kp, gs, pk, ph, Mp, scales, sub, res, out, s);
+      default: return launch_dequant_wgmma<4, float>(map, N, Kp, gs, pk, ph, Mp, scales, sub, res, out, s);
+    }
+  }
   switch (bits) {
-    case 1: return launch_dequant_wgmma<1>(map, N, Kp, gs, pk, ph, Mp, sc, sb, res, out, s);
-    case 2: return launch_dequant_wgmma<2>(map, N, Kp, gs, pk, ph, Mp, sc, sb, res, out, s);
-    case 3: return launch_dequant_wgmma<3>(map, N, Kp, gs, pk, ph, Mp, sc, sb, res, out, s);
-    default: return launch_dequant_wgmma<4>(map, N, Kp, gs, pk, ph, Mp, sc, sb, res, out, s);
+    case 1: return launch_dequant_wgmma<1, __nv_bfloat16>(map, N, Kp, gs, pk, ph, Mp, scales, sub, res, out, s);
+    case 2: return launch_dequant_wgmma<2, __nv_bfloat16>(map, N, Kp, gs, pk, ph, Mp, scales, sub, res, out, s);
+    case 3: return launch_dequant_wgmma<3, __nv_bfloat16>(map, N, Kp, gs, pk, ph, Mp, scales, sub, res, out, s);
+    default: return launch_dequant_wgmma<4, __nv_bfloat16>(map, N, Kp, gs, pk, ph, Mp, scales, sub, res, out, s);
   }
 }

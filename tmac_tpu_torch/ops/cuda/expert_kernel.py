@@ -32,8 +32,9 @@ kernel, which either launches or raises.  Each wrapper's ``launches``
 counts its own calls that launched the kernel (a call is the prologue and
 the matmul together, whatever k).  Ported: the TPU kernel's scope, bits 1,
 2 and 4, grouped or per-tensor scales, an unpadded K, N <= 4; narrowed to
-bf16 scales and a group size that is a multiple of 32 when grouped, f32
-scales when per-tensor (what the model's weights hold).
+bf16 or f32 scales (f32: GGUF's block scales, their own template instance)
+and a group size that is a multiple of 32 when grouped, f32 scales when
+per-tensor (what the model's weights hold).
 """
 
 from __future__ import annotations
@@ -64,8 +65,9 @@ def expert_kernel_supported(stacked: QuantizedTensor, act_gs: int = 0) -> bool:
     """Whether a stacked QuantizedTensor is in K7's scope: the JAX
     package's rule (``expert_kernel_supported``: bits 1, 2 or 4, no hi
     plane, a stack, no k-sharding, no k-padding, no activation groups),
-    narrowed to the scales the kernel reads: grouped bf16 scales and sub
-    with a group size that is a multiple of 32, or per-tensor f32 ones."""
+    narrowed to the scales the kernel reads: grouped bf16 or f32 scales and
+    sub of one dtype with a group size that is a multiple of 32, or
+    per-tensor f32 ones."""
     if not (stacked.bits in (1, 2, 4)
             and stacked.packed_hi is None
             and stacked.packed.ndim == 3
@@ -73,8 +75,8 @@ def expert_kernel_supported(stacked: QuantizedTensor, act_gs: int = 0) -> bool:
             and stacked.k_shards == 1
             and stacked.kdim_padded == stacked.kdim):
         return False
-    dtype = torch.float32 if per_tensor(stacked) else torch.bfloat16
-    return (stacked.scales.dtype == stacked.sub.dtype == dtype
+    dtypes = (torch.float32,) if per_tensor(stacked) else (torch.bfloat16, torch.float32)
+    return (stacked.scales.dtype == stacked.sub.dtype and stacked.scales.dtype in dtypes
             and (per_tensor(stacked) or stacked.group_size % 32 == 0))
 
 
@@ -85,7 +87,8 @@ def _check_supported(stacked: QuantizedTensor, x: torch.Tensor, glu: bool,
     if not expert_kernel_supported(stacked):
         raise ValueError(
             "K7 takes a stacked (E, ...) QuantizedTensor at bits 1, 2 or 4 with "
-            "grouped bf16 or per-tensor f32 scales, k_shards 1 and an unpadded K")
+            "grouped bf16 or f32 or per-tensor f32 scales, k_shards 1 and an "
+            "unpadded K")
     width = 2 * stacked.kdim if glu else stacked.kdim
     want = (per_expert, -1, width) if per_expert else (-1, width)
     if x.ndim != len(want) or any(w not in (-1, d) for w, d in zip(want, x.shape)):
@@ -148,8 +151,8 @@ def _lib():
     lib = build.load("qgemm_expert")
     lib.tmac_qgemm_experts.argtypes = [
         _c_ptr, _c_int, _c_int, _c_int, _c_int, _c_int, _c_int, _c_int, _c_ptr,
-        _c_int, _c_int, _c_ptr, _c_ptr, _c_ptr, _c_int, _c_int, _c_ptr, _c_ptr,
-        _c_ptr, _c_ptr, _c_int, _c_int, _c_int, _c_ptr]
+        _c_int, _c_int, _c_ptr, _c_ptr, _c_ptr, _c_int, _c_int, _c_int, _c_ptr,
+        _c_ptr, _c_ptr, _c_ptr, _c_int, _c_int, _c_int, _c_ptr]
     lib.tmac_qgemm_experts.restype = _c_int
     return lib
 
@@ -171,7 +174,7 @@ def launch_experts(x: torch.Tensor, stacked: QuantizedTensor, idx: torch.Tensor,
     # per-tensor: one group of K (the C interface's gs = K), K1's split
     gs, G = (K, 1) if per_tensor(stacked) else (stacked.group_size, K // stacked.group_size)
     plan_gs = 0 if G == 1 else gs
-    sdtype = torch.float32 if G == 1 else torch.bfloat16
+    sdtype = stacked.scales.dtype
     if not 1 <= N <= MAX_ROWS:
         raise ValueError(f"K7 takes 1 to {MAX_ROWS} rows, not {N}")
     if x.dtype not in (torch.bfloat16, torch.float32):
@@ -188,8 +191,11 @@ def launch_experts(x: torch.Tensor, stacked: QuantizedTensor, idx: torch.Tensor,
             stacked.packed, stacked.scales, stacked.sub)):
         raise ValueError("K7: Mp % 128 == 0 and 16-byte aligned packed weights, "
                          "scales and sub")
-    plan, nt, stages = decode_plan(N, K, Mp, bits, plan_gs, _sms(dev), experts=k)
-    check_decode_smem("K7", N, K, bits, plan_gs, ksplit or plan, nt, stages)
+    sb = stacked.scales.element_size()
+    plan, nt, stages = decode_plan(N, K, Mp, bits, plan_gs, _sms(dev), experts=k,
+                                   scale_bytes=sb)
+    check_decode_smem("K7", N, K, bits, plan_gs, ksplit or plan, nt, stages,
+                      scale_bytes=sb)
     rows = per_expert * N if per_expert else N
     out = torch.empty((k, N, Mp), dtype=torch.float32, device=dev)
     # the prologue's codes, scales and code sums, read by every matmul block
@@ -199,7 +205,8 @@ def launch_experts(x: torch.Tensor, stacked: QuantizedTensor, idx: torch.Tensor,
     err = _lib().tmac_qgemm_experts(
         x.data_ptr(), int(x.dtype == torch.float32), int(per_expert > 0), N, x_cols,
         K, gs, int(glu), idx.data_ptr(), k, E, stacked.packed.data_ptr(),
-        stacked.scales.data_ptr(), stacked.sub.data_ptr(), Mp, bits, out.data_ptr(),
+        stacked.scales.data_ptr(), stacked.sub.data_ptr(),
+        int(sdtype == torch.float32), Mp, bits, out.data_ptr(),
         codes.data_ptr(), xs.data_ptr(), xsum.data_ptr(), ksplit or plan, nt, stages,
         torch.cuda.current_stream(dev).cuda_stream)
     raise_on("K7", err, "kernel")

@@ -15,7 +15,8 @@ weights dequantized to bf16, in one f32 dot (``csrc/qgemm_large.cu``: xa
 by TMA, wgmma on the tensor cores, every warpgroup dequantizing its share
 of the weights two depth steps ahead of the products).
 
-K4 runs as two designs on the card: below LARGE_N (64) rows the decode
+K4 runs as two designs on the card (``csrc/qgemm_grouped.cu`` and
+``csrc/qgemm_grouped_large.cu``): below LARGE_N (64) rows the decode
 form (``csrc/decode_matmul.cuh``, shared with K1: launched right after the
 prologue so that it streams its weights while the prologue runs, K split
 over a thread-block cluster by ``decode_plan``, the per-group int32
@@ -41,12 +42,21 @@ the card ags a multiple of 32).  The int32 dots are then per activation
 group, each scaled by its own activation scale and its weight group's
 scale in the f32 chain, and the zero-point fold takes each weight
 group's code sum, the sum of its activation groups' (in order).
+
+The scales and sub may be bf16 or f32 (GGUF's block types: the reference
+widens any dtype to f32 where it reads it), each kernel taking f32 in a
+template instance of its own; K4L streams its fold's factors, so any K
+fits a block.  The function (_check_supported, shared with the plain
+versions) also takes group size 16 and grouped bits 8 (GGUF's Q2_K, Q3_K
+and Q8_0), which only the plain versions compute: on a CUDA tensor the
+kernel raises and names the form (check_kernel_form).
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Optional
 
 import torch
 
@@ -63,22 +73,38 @@ from tmac_tpu_torch.utils import fma_f32
 _c_ptr, _c_int, _c_float = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
-GROUPED_BITS = (1, 2, 3, 4)
+GROUPED_BITS = (1, 2, 3, 4)  # the kernels'
+FUNCTION_BITS = (1, 2, 3, 4, 8)  # the plain versions' (grouped bits 8: GGUF's Q8_0)
+SCALE_DTYPES = (torch.bfloat16, torch.float32)
+
+
+def weights_form_error(qt: QuantizedTensor, kernel: str = "K4") -> Optional[str]:
+    """What of qt the function (kernel and plain version alike) does not
+    take, or None.  It takes grouped scales and sub of one dtype, bf16 or
+    f32 (the reference widens any to f32 where it reads them), a group size
+    of 16 or a multiple of 32 (GGUF's K-quants and the rest), bits 1 to 4
+    or 8.  What the CUDA kernel lacks of it, check_kernel_form says."""
+    if qt.bits not in FUNCTION_BITS:
+        return f"{kernel} takes bits 1, 2, 3, 4 and 8, not {qt.bits}"
+    if (qt.bits == 3) != (qt.packed_hi is not None):
+        return f"{kernel} takes a hi plane (packed_hi) at bits 3 only"
+    if qt.scales.shape[0] < 2 or qt.k_shards != 1:
+        return f"{kernel} takes grouped scales (G > 1) and k_shards == 1"
+    if qt.group_size != 16 and qt.group_size % 32:
+        return f"{kernel} takes a group size of 16 or a multiple of 32, not {qt.group_size}"
+    if qt.scales.dtype not in SCALE_DTYPES or qt.sub.dtype != qt.scales.dtype:
+        return (f"{kernel} takes bf16 or f32 scales and sub of one dtype, "
+                f"not {qt.scales.dtype} and {qt.sub.dtype}")
+    return None
 
 
 def _check_supported(qt: QuantizedTensor, glu: bool, norm, residual,
                      kernel: str = "K4") -> None:
-    if qt.bits not in GROUPED_BITS:
-        raise ValueError(f"{kernel} takes bits 1, 2, 3 and 4, not {qt.bits}")
-    if (qt.bits == 3) != (qt.packed_hi is not None):
-        raise ValueError(f"{kernel} takes a hi plane (packed_hi) at bits 3 only")
-    if qt.scales.shape[0] < 2 or qt.k_shards != 1:
-        raise ValueError(f"{kernel} takes grouped scales (G > 1) and k_shards == 1")
-    if qt.group_size % 32:
-        raise ValueError(f"{kernel} takes a group size that is a multiple of "
-                         f"32, not {qt.group_size}")
-    if qt.scales.dtype != torch.bfloat16 or qt.sub.dtype != torch.bfloat16:
-        raise ValueError(f"{kernel} takes bf16 scales and sub")
+    """Raise unless the function takes qt (weights_form_error) and the
+    folds."""
+    err = weights_form_error(qt, kernel)
+    if err:
+        raise ValueError(err)
     if glu and (norm is not None or qt.kdim_padded != qt.kdim):
         raise ValueError("the glu fold needs no norm and an unpadded K")
     if residual is not None and (qt.mdim_padded != qt.mdim
@@ -86,6 +112,28 @@ def _check_supported(qt: QuantizedTensor, glu: bool, norm, residual,
         raise ValueError("the residual fold needs an unpadded, unfused M")
     if residual is not None and residual.dtype != torch.bfloat16:
         raise ValueError(f"the residual fold takes bf16, not {residual.dtype}")
+
+
+def check_kernel_form(qt: QuantizedTensor, kernel: str = "K4") -> None:
+    """Raise a ValueError naming the form, of those the function takes
+    (_check_supported), that the CUDA kernel lacks: grouped bits 8 and
+    group size 16 (a decode ring stage and a K4L depth step are 32 packed
+    rows).  Its scales may be bf16 or f32 (its own template instance).
+    Nothing falls back to the plain version."""
+    if qt.bits not in GROUPED_BITS:
+        raise ValueError(f"{kernel} on the card lacks grouped bits {qt.bits} "
+                         f"(it takes bits 1 to 4)")
+    if qt.group_size % 32:
+        raise ValueError(f"{kernel} on the card lacks group size {qt.group_size} "
+                         f"(it takes a multiple of 32)")
+    if qt.scales.dtype not in SCALE_DTYPES:
+        raise ValueError(f"{kernel} on the card takes bf16 or f32 scales, not "
+                         f"{qt.scales.dtype}")
+
+
+def scale_f32(qt: QuantizedTensor) -> int:
+    """The C interfaces' scale_f32 argument: 1 for f32 scales and sub."""
+    return int(qt.scales.dtype == torch.float32)
 
 
 # ---------------------------------------------------------------------------
@@ -156,14 +204,15 @@ def group_dots_plain(codes: torch.Tensor, qt: QuantizedTensor,
                      ags: int = 0) -> torch.Tensor:
     """Exact int32 dots (C, N, Mp) of codes (N, Kp) with the weight codes,
     one per fold chunk (fold_chunk: a group or an activation group, or a
-    part of one), in k order: a float64 matmul each (exact: |sum| <= 127 *
-    15 * group_size < 2^53), on CPU and CUDA alike."""
+    part of one), in k order: one batched float64 matmul (exact in any
+    order: every partial sum is an integer below 2^53), on CPU and CUDA
+    alike."""
     N, Kp = codes.shape
     ch = fold_chunk(Kp, qt.bits, qt.group_size, ags)
     w = unpack_codes(qt)
-    return torch.stack([
-        (codes[:, k:k + ch].double() @ w[k:k + ch].double()).to(torch.int32)
-        for k in range(0, Kp, ch)])
+    C = Kp // ch
+    return torch.einsum("nck,ckm->cnm", codes.double().reshape(N, C, ch),
+                        w.double().reshape(C, ch, -1)).to(torch.int32)
 
 
 def fold_plain(parts: torch.Tensor, xs: torch.Tensor, xsum: torch.Tensor,
@@ -184,11 +233,18 @@ def fold_plain(parts: torch.Tensor, xs: torch.Tensor, xsum: torch.Tensor,
         return xs[:, a:a + 1] * scales[g]
 
     acc = fma_f32(p[0], xscale(0).expand_as(p[0]), p[1] * xscale(1))
-    for c in range(2, C):
-        acc = fma_f32(p[c], xscale(c).expand_as(acc), acc)
     z = torch.zeros_like(acc)
-    for g in range(G):
-        z = fma_f32(xsum[:, g:g + 1].expand_as(z), sub[g].expand_as(z), z)
+    # the two chains are independent: a step of each in one fma_f32 call
+    for i in range(max(C - 2, G)):
+        c, g = i + 2, i
+        if c < C and g < G:
+            acc, z = fma_f32(torch.stack([p[c], xsum[:, g:g + 1].expand_as(z)]),
+                             torch.stack([xscale(c).expand_as(acc), sub[g].expand_as(z)]),
+                             torch.stack([acc, z])).unbind(0)
+        elif c < C:
+            acc = fma_f32(p[c], xscale(c).expand_as(acc), acc)
+        else:
+            z = fma_f32(xsum[:, g:g + 1].expand_as(z), sub[g].expand_as(z), z)
     out = acc - z
     if residual is not None:
         out = out + residual.float()
@@ -279,13 +335,20 @@ def _lib():
         _c_float, _c_float, _c_ptr, _c_ptr, _c_ptr, _c_ptr]
     lib.tmac_decode_group_gemm.argtypes = [
         _c_ptr, _c_ptr, _c_ptr, _c_int, _c_int, _c_int, _c_int, _c_int, _c_ptr,
-        _c_ptr, _c_int, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_int, _c_int, _c_ptr]
+        _c_ptr, _c_int, _c_ptr, _c_ptr, _c_int, _c_ptr, _c_ptr, _c_int, _c_int, _c_ptr]
+    for fn in (lib.tmac_act_quant_grouped, lib.tmac_decode_group_gemm):
+        fn.restype = _c_int
+    return lib
+
+
+@functools.cache
+def _lib_k4l():
+    from tmac_tpu_torch.ops.cuda import build
+    lib = build.load("qgemm_grouped_large")
     lib.tmac_group_gemm.argtypes = [
         _c_ptr, _c_ptr, _c_ptr, _c_int, _c_int, _c_int, _c_int, _c_int, _c_ptr,
-        _c_ptr, _c_int, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr]
-    for fn in (lib.tmac_act_quant_grouped, lib.tmac_decode_group_gemm,
-               lib.tmac_group_gemm):
-        fn.restype = _c_int
+        _c_ptr, _c_int, _c_ptr, _c_ptr, _c_int, _c_ptr, _c_ptr, _c_ptr]
+    lib.tmac_group_gemm.restype = _c_int
     return lib
 
 
@@ -367,9 +430,10 @@ def launch_decode_grouped(codes: torch.Tensor, xs: torch.Tensor,
     require("K4", codes, "codes", torch.int8, (N, Kp), dev)
     require("K4", xs, "xs", torch.float32, (N, Kp // (ags or gs)), dev)
     require("K4", xsum, "xsum", torch.float32, (N, G), dev)
+    check_kernel_form(qt, "K4")
     hi_ptr = _planes("K4", qt, dev)
-    require("K4", qt.scales, "scales", torch.bfloat16, (G, Mp), dev)
-    require("K4", qt.sub, "sub", torch.bfloat16, (G, Mp), dev)
+    require("K4", qt.scales, "scales", qt.scales.dtype, (G, Mp), dev)
+    require("K4", qt.sub, "sub", qt.scales.dtype, (G, Mp), dev)
     if Mp % DECODE_STRIP or codes.data_ptr() % 4 or any(
             t.data_ptr() % 16 for t in (qt.scales, qt.sub)):
         raise ValueError("K4: Mp % 128 == 0, 4-byte aligned codes and 16-byte "
@@ -378,13 +442,15 @@ def launch_decode_grouped(codes: torch.Tensor, xs: torch.Tensor,
     if residual is not None:
         require("K4", residual, "residual", torch.bfloat16, (N, Mp), dev)
         res_ptr = residual.data_ptr()
-    plan, nt = decode_plan(N, Kp, Mp, qt.bits, gs, _sms(dev), ags=ags)
-    check_decode_smem("K4", N, Kp, qt.bits, gs, ksplit or plan, nt, ags=ags)
+    sb = qt.scales.element_size()
+    plan, nt = decode_plan(N, Kp, Mp, qt.bits, gs, _sms(dev), ags=ags, scale_bytes=sb)
+    check_decode_smem("K4", N, Kp, qt.bits, gs, ksplit or plan, nt, ags=ags,
+                      scale_bytes=sb)
     out = torch.empty((N, Mp), dtype=torch.float32, device=dev)
     err = _lib().tmac_decode_group_gemm(
         codes.data_ptr(), xs.data_ptr(), xsum.data_ptr(), N, Kp, gs, ags, qt.bits,
         qt.packed.data_ptr(), hi_ptr, Mp, qt.scales.data_ptr(), qt.sub.data_ptr(),
-        res_ptr, out.data_ptr(), ksplit or plan, nt, _stream(dev))
+        scale_f32(qt), res_ptr, out.data_ptr(), ksplit or plan, nt, _stream(dev))
     raise_on("K4", err, "matmul")
     return out
 
@@ -405,6 +471,7 @@ def qgemm_grouped(x: torch.Tensor, qt: QuantizedTensor, norm=None,
     _check_supported(qt, glu, norm, residual)
     if x.device.type == "cpu":
         return qgemm_grouped_plain(x, qt, norm, glu, residual, act_gs)
+    check_kernel_form(qt, "K4")
     if x.device.type != "cuda":
         raise ValueError(f"K4 runs on CPU or CUDA tensors, not {x.device}")
     if x.shape[0] >= LARGE_N:
@@ -420,26 +487,33 @@ def qgemm_grouped(x: torch.Tensor, qt: QuantizedTensor, norm=None,
 qgemm_grouped.launches = 0
 
 
-# K4L's shared memory (csrc/qgemm_grouped.cu, k4l_smem): a ring of
+# K4L's shared memory (csrc/qgemm_grouped_large.cu, k4l_smem): a ring of
 # K4L_STAGES depth steps of KT codes for 64 rows (rows of KT + 16 bytes) and
-# KT packed rows of 128 columns (two B tiles at bits 3), then the fold's
-# staged factors, 65 f32 row factors for each of the Ga activation groups
-# and 128 bf16 column factors for each of the G weight groups
-K4L_STAGES, K4L_SMEM_LIMIT = 4, 227 * 1024
+# KT packed rows of 128 columns (two B tiles at bits 3), then
+# K4L_FACTOR_BLOCKS slots of the streamed fold factors of K4L_BLOCK_UNITS
+# fold units each (2 where the fold units are not a multiple of 4): 64 f32
+# row factors and 128 column factors (bf16 or f32) a unit.  The same for
+# every K.  The epilogue's z chain passes groups' xsum and sub through the
+# idle ring, K4L_ROW_BYTES (64 f32, padded) and 128 factors a group.
+K4L_STAGES, K4L_FACTOR_BLOCKS, K4L_BLOCK_UNITS, K4L_ROW_BYTES = 4, 4, 4, 272
+K4L_TWO_BLOCKS = 113 * 1024
 
 
-def k4l_smem(bits: int, kt: int, G: int, Ga: int = 0) -> int:
-    stage = 64 * (kt + 16) + kt * 128 * (2 if bits == 3 else 1)
-    return K4L_STAGES * stage + (Ga or G) * 65 * 4 + G * 128 * 2
+def k4l_ring(bits: int, kt: int) -> int:
+    return K4L_STAGES * (64 * (kt + 16) + kt * 128 * (2 if bits == 3 else 1))
 
 
-def k4l_kt(bits: int, Kp: int, gs: int, ags: int = 0) -> int:
+def k4l_smem(bits: int, kt: int, scale_bytes: int = 2) -> int:
+    return k4l_ring(bits, kt) + K4L_FACTOR_BLOCKS * K4L_BLOCK_UNITS * (
+        64 * 4 + 128 * scale_bytes)
+
+
+def k4l_kt(bits: int, gs: int, ags: int = 0, scale_bytes: int = 2) -> int:
     """K4L's depth step: 64 where the fold's unit (ags, else gs) is a
     multiple of 64 and, at bits 3, two blocks still fit an SM; else 32."""
-    unit, G = ags or gs, Kp // gs
-    Ga = Kp // ags if ags else 0
+    unit = ags or gs
     return 64 if unit % 64 == 0 and (
-        bits != 3 or k4l_smem(bits, 64, G, Ga) <= 113 * 1024) else 32
+        bits != 3 or k4l_smem(bits, 64, scale_bytes) <= K4L_TWO_BLOCKS) else 32
 
 
 def launch_group_gemm(codes: torch.Tensor, xs: torch.Tensor,
@@ -447,37 +521,32 @@ def launch_group_gemm(codes: torch.Tensor, xs: torch.Tensor,
                       residual=None, ags: int = 0) -> torch.Tensor:
     """Launch K4L's matmul on its prologue's outputs: -> (N, Mp) f32.  ags:
     the prologue's activation group size (its own template instance: one
-    int32 accumulator and one fold step an activation group), or 0.  Raises
-    where the fold's staged factors outgrow a block's shared memory (at
-    gs 32 past 394 groups; at gs 128 and ags 32 past 628 activation
-    groups, Kp 20096)."""
+    int32 accumulator and one fold step an activation group), or 0.  The
+    fold's factors stream through a few slots of shared memory, so any K
+    fits a block (k4l_smem)."""
     dev = codes.device
     N, Kp, Mp, gs = codes.shape[0], qt.kdim_padded, qt.mdim_padded, qt.group_size
     G = Kp // gs
     _check_ags("K4L", qt, ags)
     Ga = Kp // ags if ags else 0
-    smem = k4l_smem(qt.bits, k4l_kt(qt.bits, Kp, gs, ags), G, Ga)
-    if smem > K4L_SMEM_LIMIT:
-        raise ValueError(f"K4L: the fold's factors of {Ga or G} activation and {G} "
-                         f"weight groups need {smem} bytes of shared memory a "
-                         f"block, past the card's {K4L_SMEM_LIMIT}")
     require("K4L", codes, "codes", torch.int8, (N, Kp), dev)
     require("K4L", xs, "xs", torch.float32, (N, Ga or G), dev)
     require("K4L", xsum, "xsum", torch.float32, (N, G), dev)
+    check_kernel_form(qt, "K4L")
     hi_ptr = _planes("K4L", qt, dev)
-    require("K4L", qt.scales, "scales", torch.bfloat16, (G, Mp), dev)
-    require("K4L", qt.sub, "sub", torch.bfloat16, (G, Mp), dev)
-    if Mp % 128 or codes.data_ptr() % 16:
-        raise ValueError("K4L: Mp % 128 == 0 and 16-byte aligned codes")
+    require("K4L", qt.scales, "scales", qt.scales.dtype, (G, Mp), dev)
+    require("K4L", qt.sub, "sub", qt.scales.dtype, (G, Mp), dev)
+    if Mp % 128 or any(t.data_ptr() % 16 for t in (codes, qt.scales, qt.sub)):
+        raise ValueError("K4L: Mp % 128 == 0 and 16-byte aligned codes, scales and sub")
     res_ptr = None
     if residual is not None:
         require("K4L", residual, "residual", torch.bfloat16, (N, Mp), dev)
         res_ptr = residual.data_ptr()
     out = torch.empty((N, Mp), dtype=torch.float32, device=dev)
-    err = _lib().tmac_group_gemm(
+    err = _lib_k4l().tmac_group_gemm(
         codes.data_ptr(), xs.data_ptr(), xsum.data_ptr(), N, Kp, gs, ags, qt.bits,
         qt.packed.data_ptr(), hi_ptr, Mp, qt.scales.data_ptr(), qt.sub.data_ptr(),
-        res_ptr, out.data_ptr(), _stream(dev))
+        scale_f32(qt), res_ptr, out.data_ptr(), _stream(dev))
     raise_on("K4L", err, "matmul")
     return out
 
@@ -486,12 +555,13 @@ def qgemm_grouped_large(x: torch.Tensor, qt: QuantizedTensor, norm=None,
                         glu: bool = False, residual=None,
                         act_gs: int = 0) -> torch.Tensor:
     """K4L: qgemm_grouped's function on the int8 tensor cores, the group
-    fold in registers (csrc/qgemm_grouped.cu, group_mma_kernel), the form
+    fold in registers (csrc/qgemm_grouped_large.cu, group_mma_kernel), the form
     the route takes from LARGE_N rows; any N on a CUDA tensor.  CPU
     tensors take the plain version."""
     _check_supported(qt, glu, norm, residual, "K4L")
     if x.device.type == "cpu":
         return qgemm_grouped_plain(x, qt, norm, glu, residual, act_gs)
+    check_kernel_form(qt, "K4L")
     if x.device.type != "cuda":
         raise ValueError(f"K4L runs on CPU or CUDA tensors, not {x.device}")
     ags = effective_ags(qt, act_gs)
@@ -518,10 +588,17 @@ def act_bf16_plain(x: torch.Tensor, qt: QuantizedTensor, norm=None,
 
 def dequant_weights_plain(qt: QuantizedTensor) -> torch.Tensor:
     """The bf16 weights (Kp, Mp) K5 multiplies: code * scale[g] - sub[g]
-    in f32 (code * scale is exact), rounded to bf16."""
+    in f32 with one rounding (an fma), rounded to bf16.  With bf16 scales
+    code * scale is exact, so two steps give the fma's bits: that branch
+    exists only because fma_f32 (float64, round to odd) is several times
+    slower, on the card's checks too."""
     Kp, Mp, gs = qt.kdim_padded, qt.mdim_padded, qt.group_size
     w = unpack_codes(qt).float().reshape(Kp // gs, gs, Mp)
-    w = w * qt.scales.float()[:, None] - qt.sub.float()[:, None]
+    sc = qt.scales.float()[:, None].expand_as(w)
+    if qt.scales.dtype == torch.bfloat16:
+        w = w * sc - qt.sub.float()[:, None]
+    else:
+        w = fma_f32(w, sc, -qt.sub.float()[:, None].expand_as(w))
     return w.reshape(Kp, Mp).to(torch.bfloat16)
 
 
@@ -550,7 +627,7 @@ def _lib_large():
         _c_float, _c_ptr, _c_ptr]
     lib.tmac_qgemm_dequant.argtypes = [
         _c_ptr, _c_int, _c_int, _c_int, _c_int, _c_ptr, _c_ptr, _c_int,
-        _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr]
+        _c_ptr, _c_ptr, _c_int, _c_ptr, _c_ptr, _c_ptr]
     for fn in (lib.tmac_act_bf16, lib.tmac_qgemm_dequant):
         fn.restype = _c_int
     return lib
@@ -582,9 +659,10 @@ def launch_dequant_gemm(xa: torch.Tensor, qt: QuantizedTensor,
     N, Kp, Mp, gs = xa.shape[0], qt.kdim_padded, qt.mdim_padded, qt.group_size
     G = Kp // gs
     require("K5", xa, "xa", torch.bfloat16, (N, Kp), dev)
+    check_kernel_form(qt, "K5")
     hi_ptr = _planes("K5", qt, dev, row_multiple=64)
-    require("K5", qt.scales, "scales", torch.bfloat16, (G, Mp), dev)
-    require("K5", qt.sub, "sub", torch.bfloat16, (G, Mp), dev)
+    require("K5", qt.scales, "scales", qt.scales.dtype, (G, Mp), dev)
+    require("K5", qt.sub, "sub", qt.scales.dtype, (G, Mp), dev)
     if Mp % 128 or any(t.data_ptr() % 16 for t in (xa, qt.scales, qt.sub)):
         raise ValueError("K5: Mp % 128 == 0 and 16-byte aligned operands")
     res_ptr = None
@@ -594,7 +672,7 @@ def launch_dequant_gemm(xa: torch.Tensor, qt: QuantizedTensor,
     out = torch.empty((N, Mp), dtype=torch.float32, device=dev)
     err = _lib_large().tmac_qgemm_dequant(
         xa.data_ptr(), N, Kp, gs, qt.bits, qt.packed.data_ptr(), hi_ptr, Mp,
-        qt.scales.data_ptr(), qt.sub.data_ptr(), res_ptr, out.data_ptr(),
+        qt.scales.data_ptr(), qt.sub.data_ptr(), scale_f32(qt), res_ptr, out.data_ptr(),
         _stream(dev))
     raise_on("K5", err, "matmul")
     return out
@@ -610,6 +688,7 @@ def qgemm_dequant(x: torch.Tensor, qt: QuantizedTensor, norm=None,
     _check_supported(qt, glu, norm, residual, "K5")
     if x.device.type == "cpu":
         return qgemm_dequant_plain(x, qt, norm, glu, residual)
+    check_kernel_form(qt, "K5")
     if x.device.type != "cuda":
         raise ValueError(f"K5 runs on CPU or CUDA tensors, not {x.device}")
     xa = launch_act_bf16(x, qt, norm, glu)

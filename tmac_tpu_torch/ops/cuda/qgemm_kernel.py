@@ -243,14 +243,15 @@ def decode_owner(nunits: int, ksplit: int):
 
 
 def decode_smem(bits: int, nt: int, grouped: bool, nunits: int, unit: int,
-                ksplit: int, G: int, stages=None, acts: int = 0) -> int:
+                ksplit: int, G: int, stages=None, acts: int = 0,
+                scale_bytes: int = 2) -> int:
     """A block's shared memory, as decode_matmul.cuh's Layout sizes it: the
     ring of `stages` stages (decode_stages' by default) of decode_planes
     planes (or the partials it receives for its slice of columns, if
     larger), the codes of its rows, its int32 partials and, grouped, the
-    fold's scales and zero points of its slice and the tile's xs, xsum.
-    acts: the activation groups (a partial and an xs each) of K4's ags
-    form, or 0 (one a weight group)."""
+    fold's scales and zero points of its slice (scale_bytes each: 2 bf16,
+    4 f32) and the tile's xs, xsum.  acts: the activation groups (a partial
+    and an xs each) of K4's ags form, or 0 (one a weight group)."""
     P = decode_fields(bits)
     units = cdiv(nunits, ksplit)
     span = round_up(units * unit, DECODE_STAGE_ROWS)
@@ -261,13 +262,14 @@ def decode_smem(bits: int, nt: int, grouped: bool, nunits: int, unit: int,
     total = round_up(max(ring, recv), 16) + round_up(nt * P * span, 16)
     total += (units * P if grouped else 1) * nt * DECODE_STRIP * 4
     if grouped:
-        total += round_up(2 * G * slice_ * 2, 16) + nt * ((acts or G) + G) * 4
+        total += round_up(2 * G * slice_ * scale_bytes, 16) + nt * ((acts or G) + G) * 4
         total = round_up(total, 16) + DECODE_XBUF
     return total
 
 
 def decode_plan(N: int, Kp: int, Mp: int, bits: int, gs: int = 0,
-                sms: int = DEFAULT_SMS, experts: int = 0, ags: int = 0):
+                sms: int = DEFAULT_SMS, experts: int = 0, ags: int = 0,
+                scale_bytes: int = 2):
     """(ksplit, nt) for the decode matmul from shapes only, so a CUDA graph
     can capture the call: nt token rows a block (decode_nt), and
     the blocks of a cluster along K, no more than the units of the split,
@@ -292,7 +294,10 @@ def decode_plan(N: int, Kp: int, Mp: int, bits: int, gs: int = 0,
     fits a block's shared memory.
 
     ags (K4's ags form): the split's unit and the fold's partials are the
-    activation groups of ags packed rows."""
+    activation groups of ags packed rows.  scale_bytes: the grouped fold's
+    factors, 2 (bf16) or 4 (f32, which stage twice the bytes).  Where no
+    cluster size fits a block at decode_nt's token rows (many groups: K
+    14336 at gs 32 from 2 rows), K4 takes one token row a block."""
     Kb, unit, nunits = decode_units(Kp, bits, ags or gs)
     grouped, G = gs > 0, Kp // gs if gs else 1
     acts = Kp // ags if ags else 0
@@ -300,7 +305,8 @@ def decode_plan(N: int, Kp: int, Mp: int, bits: int, gs: int = 0,
     if experts:
         for nt, ksplit, stages in itertools.product(
                 (1, decode_nt(N, bits)) if N > 1 else (1,), EXPERT_SPLITS, EXPERT_STAGES):
-            smem = decode_smem(bits, nt, grouped, nunits, unit, ksplit, G, stages)
+            smem = decode_smem(bits, nt, grouped, nunits, unit, ksplit, G, stages,
+                               scale_bytes=scale_bytes)
             if ksplit > nunits or smem > DECODE_SMEM_LIMIT:
                 continue
             per_sm = max(1, min(EXPERT_BLOCKS_PER_SM[nt],
@@ -318,20 +324,23 @@ def decode_plan(N: int, Kp: int, Mp: int, bits: int, gs: int = 0,
             if best is None or cost < best[0]:
                 best = (cost, (ksplit, nt, stages))
     else:
-        nt = decode_nt(N, bits)
-        clusters = (Mp // DECODE_STRIP) * cdiv(N, nt)
-        for ksplit in DECODE_SPLITS:
-            smem = decode_smem(bits, nt, grouped, nunits, unit, ksplit, G, acts=acts)
-            if ksplit > nunits or smem > DECODE_SMEM_LIMIT:
-                continue
-            per_sm = 2 if smem <= DECODE_SMEM_BUDGET else 1
-            waves = cdiv(clusters * ksplit, per_sm * sms)
-            cost = waves * (cdiv(nunits, ksplit) * unit * decode_planes(bits)
-                            + DECODE_FIXED_ROWS[nt])
-            if ksplit & (ksplit - 1):
-                cost *= 1.2
-            if best is None or cost < best[0]:
-                best = (cost, (ksplit, nt))
+        for nt in dict.fromkeys((decode_nt(N, bits), 1)):
+            clusters = (Mp // DECODE_STRIP) * cdiv(N, nt)
+            for ksplit in DECODE_SPLITS:
+                smem = decode_smem(bits, nt, grouped, nunits, unit, ksplit, G, acts=acts,
+                                   scale_bytes=scale_bytes)
+                if ksplit > nunits or smem > DECODE_SMEM_LIMIT:
+                    continue
+                per_sm = 2 if smem <= DECODE_SMEM_BUDGET else 1
+                waves = cdiv(clusters * ksplit, per_sm * sms)
+                cost = waves * (cdiv(nunits, ksplit) * unit * decode_planes(bits)
+                                + DECODE_FIXED_ROWS[nt])
+                if ksplit & (ksplit - 1):
+                    cost *= 1.2
+                if best is None or cost < best[0]:
+                    best = (cost, (ksplit, nt))
+            if best is not None:
+                break
     if best is None:
         raise ValueError(f"decode matmul: K = {Kp} at N = {N} outgrows a block's "
                          "shared memory")
@@ -339,12 +348,13 @@ def decode_plan(N: int, Kp: int, Mp: int, bits: int, gs: int = 0,
 
 
 def check_decode_smem(kernel: str, N: int, Kp: int, bits: int, gs: int,
-                      ksplit: int, nt: int, stages=None, ags: int = 0) -> None:
+                      ksplit: int, nt: int, stages=None, ags: int = 0,
+                      scale_bytes: int = 2) -> None:
     """Raise if a forced cluster size leaves a block more shared memory
     than the card has (decode_plan's own never does)."""
     _, unit, nunits = decode_units(Kp, bits, ags or gs)
     need = decode_smem(bits, nt, gs > 0, nunits, unit, ksplit, Kp // gs if gs else 1,
-                       stages, Kp // ags if ags else 0)
+                       stages, Kp // ags if ags else 0, scale_bytes)
     if need > DECODE_SMEM_LIMIT:
         raise ValueError(f"{kernel}: ksplit {ksplit} at N = {N}, K = {Kp} needs "
                          f"{need} bytes of shared memory a block")

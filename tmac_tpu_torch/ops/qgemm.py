@@ -102,63 +102,13 @@ class QuantizedTensor:
             per-tensor tensors and of fields-per-byte x group_size for
             grouped ones.
         bits=8 stores signed codes (wq - 128) and folds the shift into sub.
+        wq, scales and sub may be numpy arrays or torch tensors; they are
+        padded and packed on their own device (the host's for numpy).
         """
-        K, M = wq.shape
-        per_tensor = group_size >= K // k_shards
-        G = k_shards if per_tensor else K // group_size
-        assert scales.shape == (G, M), (scales.shape, G, M)
-        assert M % m_shards == 0, (M, m_shards)
-        ms = M // m_shards
-        msp = round_up(ms, 128)
-        if msp != ms:
-            def _pad_m(a):
-                a = a.reshape(a.shape[0], m_shards, ms)
-                a = np.pad(a, ((0, 0), (0, 0), (0, msp - ms)))
-                return a.reshape(a.shape[0], m_shards * msp)
-            wq, scales, sub = _pad_m(wq), _pad_m(scales), _pad_m(sub)
-        mpad = m_shards * msp
-
-        p_lo = 4 if bits == 3 else 8 // bits
-        pmax = 8 if bits == 3 else p_lo
-        if per_tensor:
-            assert K % k_shards == 0
-            ks = K // k_shards
-            ksp = round_up(ks, pmax * 4)
-        else:
-            assert K % (k_shards * group_size) == 0, (K, k_shards, group_size)
-            ks = K // k_shards
-            ksp = round_up(ks, pmax * group_size)
-        if ksp != ks:
-            wq = wq.reshape(k_shards, ks, mpad)
-            wq = np.pad(wq, ((0, 0), (0, ksp - ks), (0, 0)))
-            wq = wq.reshape(k_shards * ksp, mpad)
-            if not per_tensor:
-                gsh, gp = ks // group_size, ksp // group_size
-
-                def _pad_g(a):
-                    a = a.reshape(k_shards, gsh, mpad)
-                    a = np.pad(a, ((0, 0), (0, gp - gsh), (0, 0)))
-                    return a.reshape(k_shards * gp, mpad)
-                scales, sub = _pad_g(scales), _pad_g(sub)
-
-        if bits == 3:
-            lo, hi = packing.pack_b3(wq, k_shards)
-        elif bits == 8:
-            wq = ((wq.astype(np.int16) - 128) & 0xFF).astype(np.uint8)
-            sub = sub - 128.0 * scales
-            lo, hi = wq, None
-        else:
-            lo, hi = packing.pack_strided(wq, bits, k_shards), None
-
-        def _t(a, dtype=None):
-            t = torch.from_numpy(np.ascontiguousarray(a))
-            return (t if dtype is None else t.to(dtype)).to(device)
-        return cls(
-            packed=_t(lo), packed_hi=_t(hi) if hi is not None else None,
-            scales=_t(scales.astype(np.float32), scale_dtype),
-            sub=_t(sub.astype(np.float32), scale_dtype),
-            bits=bits, group_size=group_size if not per_tensor else ksp,
-            k_shards=k_shards, m_shards=m_shards, shape=(K, M))
+        return cls(**_packed(*(a if isinstance(a, torch.Tensor)
+                               else torch.from_numpy(np.ascontiguousarray(a))
+                               for a in (wq, scales, sub)),
+                             bits, group_size, k_shards, m_shards, scale_dtype, device))
 
     @classmethod
     def from_float(cls, w: np.ndarray, bits: int,
@@ -209,6 +159,72 @@ class QuantizedTensor:
         if ksp != ks:
             w = w.reshape(self.k_shards, ksp, -1)[:, :ks].reshape(self.kdim, -1)
         return self.slice_m(w.reshape(self.kdim, -1))
+
+
+def _pack_fields(wq: torch.Tensor, bits: int, k_shards: int) -> torch.Tensor:
+    """packing.pack_strided on wq's device: (K, M) -> (K // p, M) uint8."""
+    p = 8 // bits
+    K, M = wq.shape
+    w = wq.reshape(k_shards, p, K // k_shards // p, M)
+    packed = torch.zeros((k_shards, K // k_shards // p, M), dtype=torch.uint8,
+                         device=wq.device)
+    for j in range(p):
+        packed |= w[:, j] << (bits * j)
+    return packed.reshape(K // p, M)
+
+
+def _packed(wq, scales, sub, bits, group_size, k_shards, m_shards,
+            scale_dtype, device) -> dict:
+    """QuantizedTensor.from_quantized's padding and packing, on the
+    tensors' device, moved to `device` after.  -> the QuantizedTensor's
+    fields."""
+    F = torch.nn.functional
+    K, M = wq.shape
+    per_tensor = group_size >= K // k_shards
+    G = k_shards if per_tensor else K // group_size
+    assert scales.shape == (G, M), (scales.shape, G, M)
+    assert M % m_shards == 0, (M, m_shards)
+    assert K % (k_shards if per_tensor else k_shards * group_size) == 0, (
+        K, k_shards, group_size)
+    assert int(wq.max()) < (1 << bits), "weight values exceed bit width"
+    wq = wq.to(torch.uint8)
+    ms = M // m_shards
+    msp = round_up(ms, 128)
+    if msp != ms:
+        def _pad_m(a):
+            a = F.pad(a.reshape(a.shape[0], m_shards, ms), (0, msp - ms))
+            return a.reshape(a.shape[0], m_shards * msp)
+        wq, scales, sub = _pad_m(wq), _pad_m(scales), _pad_m(sub)
+    mpad = m_shards * msp
+    pmax = 8 if bits == 3 else 8 // bits
+    ks = K // k_shards
+    ksp = round_up(ks, pmax * 4) if per_tensor else round_up(ks, pmax * group_size)
+    if ksp != ks:
+        wq = F.pad(wq.reshape(k_shards, ks, mpad), (0, 0, 0, ksp - ks))
+        wq = wq.reshape(k_shards * ksp, mpad)
+        if not per_tensor:
+            gsh, gp = ks // group_size, ksp // group_size
+
+            def _pad_g(a):
+                a = F.pad(a.reshape(k_shards, gsh, mpad), (0, 0, 0, gp - gsh))
+                return a.reshape(k_shards * gp, mpad)
+            scales, sub = _pad_g(scales), _pad_g(sub)
+    hi = None
+    if bits == 3:
+        lo = _pack_fields(wq & 0b11, 2, k_shards)
+        hi = _pack_fields((wq >> 2) & 0b1, 1, k_shards)
+    elif bits == 8:
+        lo = ((wq.to(torch.int16) - 128) & 0xFF).to(torch.uint8)
+        sub = sub - 128.0 * scales
+    else:
+        lo = _pack_fields(wq, bits, k_shards)
+
+    def _t(a, dtype=None):
+        return (a if dtype is None else a.float().to(dtype)).contiguous().to(device)
+    return dict(packed=_t(lo), packed_hi=_t(hi) if hi is not None else None,
+                scales=_t(scales, scale_dtype), sub=_t(sub, scale_dtype), bits=bits,
+                group_size=group_size if not per_tensor else ksp, k_shards=k_shards,
+                m_shards=m_shards, shape=(K, M))
 
 
 def unpack_codes(qt: QuantizedTensor) -> torch.Tensor:
@@ -367,8 +383,9 @@ def qgemm(x: torch.Tensor, qt: QuantizedTensor, impl: str = "auto",
     per-tensor scales, K4 or K5 for grouped ones), "torch", or "auto":
     "fused" for any tensor off the CPU, whose kernels raise on what they do
     not cover yet (int8 x, bits other than K1's and K3's 2 and 8 or K4's
-    and K5's 1 to 4); on the CPU, the kernels' plain versions for float x
-    (grouped: bits 1 to 4 with bf16 scales) and "torch" otherwise.
+    and K5's 1 to 4, group size 16); on the CPU, the kernels' plain versions
+    for float x (grouped: bits 1 to 4 or 8, bf16 or f32 scales, group size
+    16 or a multiple of 32) and "torch" otherwise.
     norm: optional (weight (K,), eps) rms_norm applied to x first.
     glu: x is (N, 2K) and silu(x[:, :K]) * x[:, K:] feeds the matmul.
     residual: optional (N, M) added to the output.
@@ -381,8 +398,9 @@ def qgemm(x: torch.Tensor, qt: QuantizedTensor, impl: str = "auto",
     """
     grouped = qt.scales.shape[0] > 1
     if impl == "auto":
-        on_cpu_kernel = x.is_floating_point() and (not grouped or (
-            qt.bits in (1, 2, 3, 4) and qt.scales.dtype == torch.bfloat16))
+        from tmac_tpu_torch.ops.cuda.qgemm_grouped_kernel import weights_form_error
+        on_cpu_kernel = x.is_floating_point() and (
+            not grouped or weights_form_error(qt) is None)
         impl = ("fused" if x.device.type != "cpu" or on_cpu_kernel
                 else "torch")
     out_dtype = out_dtype or (torch.float32 if x.dtype == torch.int8
