@@ -16,6 +16,9 @@
     python3 chip_smoke.py --phase speculative          (path 10: speculative
                                                         decoding on BitNet-3B)
     python3 chip_smoke.py --phase gguf_path            (path 11: GGUF files)
+    python3 chip_smoke.py --phase per_channel_path     (path 12: per-channel
+                                                        w_fp, K1 and K3 at
+                                                        bits 1, 3 and 4)
 
 Phases, each printing one JSON line before the last two:
   1. the card (nvidia-smi name and power limit, torch's device name);
@@ -272,7 +275,24 @@ Phases, each printing one JSON line before the last two:
      f32 form (N = 1 and 4, gate_up and down, every expert and cluster
      size), a 64-token prompt (the experts' 32 slots on K4) and 64 steps
      through decode_loop (4 K7, 4 K4, 2 K2, 1 K1 a step), teacher-forced
-     on the prompt and 16 steps, K7 per step.
+     on the prompt and 16 steps, K7 per step;
+ 18. (after path 11) path 12 (per_channel_path), per-channel w_fp
+     (group_size -1: one f32 scale and zero point a column, int8
+     activations per token): first K1 and K3 at bits 1, 3 and 4 on
+     Llama-3.1-8B's four linear shapes (wqkv 4096 x 6144, wo 4096 x 4096,
+     gate_up 4096 x 28672, down 14336 x 4096; weights drawn on the card
+     with zero points on each column's mean code, seed 17): K1 at N = 1, 4
+     and 16 at decode_plan's cluster size and every size of
+     DECODE_SPLITS, K3 at N = 64, 256 and 1024 at large_plan's tile and
+     split and at every tile and cluster size 1-8, each bit for bit with
+     its codes and int32 sums, each form timed (K1 at N = 1, K3 at 512)
+     beside its bound, plain version and yardsticks; then Llama-3.1-8B W4A8
+     per channel with zero points at full width and depth (seed 0): K1
+     (N = 1, 4) and K3 (N = 512) on layer 0's linears with their folds and
+     on the int8 head, K2 at rep 4; a 1024-token prompt in chunks of 512
+     (258 K3) and 64 steps through decode_loop (129 K1, 32 K2 a step),
+     teacher-forced on every position and 8 steps (bit for bit: K1 and K3
+     sum integers exactly); K1 per step and K3 per prefill timed.
 The last two lines are the kernels' JSON record and
 {"ok": true, "device": {...}}.  Any failed check raises and the script
 exits non-zero; so does a machine without a CUDA device.
@@ -585,7 +605,7 @@ def check_k3_tiles(card, label, x, qt, kw):
     want = k1.qgemm_fused_plain(x, qt, **kw)
     rows, worst = [], 0.0
     for tile in k1.LARGE_TILES:
-        if qt.bits == 8 and tile[1] != 128:
+        if qt.bits != 2 and tile[1] != 128:
             continue
         for ks in range(1, k1.LARGE_MAX_SPLIT + 1):
             got = k3_split_call(x, qt, kw, tile, ks)
@@ -1923,20 +1943,32 @@ def wa8_qt_on_card(gen, K, M, dev):
     return QuantizedTensor(packed, None, scales, 2 * scales, 2, Kp, 1, 1, (K, M))
 
 
-def pt_qt_on_card(gen, K, M, bits, dev):
-    """Per-tensor weights (K, M) at bits 1, 2 or 4 drawn on the card:
-    random packed bytes (every code), f32 scales (0.5 + U) / sqrt(K), and
-    zero points on random codes (sub = z * scale, z in [0, 2^bits)); K a
-    multiple of 4 * 8 / bits."""
+def pt_qt_on_card(gen, K, M, bits, dev, zero_point=True):
+    """Weights (K, M) with one scale row at bits 1 to 4 drawn on the card
+    (w_fp per channel, group_size -1), as the package's init_params draws
+    them: random packed bytes (every code; at bits 3 a lo and a hi plane),
+    f32 scales (0.5 + U) * 2 / sqrt(K) / mid, and with zero_point the zero
+    points on each column's mean code jittered by -2..2 (a uniform zero
+    would leave a coherent per-column offset that makes a deep random
+    forward chaotic), else the midpoint; sub = z * scale.  K a multiple of
+    4 * 8 / bits (of 32 at bits 3), M of 128."""
     import torch
-    from tmac_tpu_torch.ops.qgemm import QuantizedTensor
-    p = 8 // bits
+    from tmac_tpu_torch.ops.qgemm import QuantizedTensor, unpack_codes
+    p, qmax, mid = 8 if bits == 3 else 8 // bits, (1 << bits) - 1, 1 << (bits - 1)
     if K % (4 * p) or M % 128:
         raise ValueError(f"({K}, {M}) would need padding at bits {bits}")
-    packed = torch.randint(0, 256, (K // p, M), generator=gen, device=dev, dtype=torch.uint8)
-    scales = (0.5 + torch.rand((1, M), generator=gen, device=dev)) / math.sqrt(K)
-    z = torch.randint(0, 1 << bits, (1, M), generator=gen, device=dev).float()
-    return QuantizedTensor(packed, None, scales, z * scales, bits, K, 1, 1, (K, M))
+    packed = torch.randint(0, 256, (K // (4 if bits == 3 else p), M), generator=gen,
+                           device=dev, dtype=torch.uint8)
+    hi = torch.randint(0, 256, (K // 8, M), generator=gen, device=dev,
+                       dtype=torch.uint8) if bits == 3 else None
+    scales = (0.5 + torch.rand((1, M), generator=gen, device=dev)) * (2.0 / math.sqrt(K) / mid)
+    qt = QuantizedTensor(packed, hi, scales, scales, bits, K, 1, 1, (K, M))
+    if zero_point:
+        z = (unpack_codes(qt).float().mean(0, keepdim=True).round()
+             + torch.randint(-2, 3, (1, M), generator=gen, device=dev)).clamp(0, qmax)
+    else:
+        z = torch.full((1, M), float(mid), device=dev)
+    return dataclasses.replace(qt, sub=z * scales)
 
 
 def int8_head_on_card(gen, H, V, dev):
@@ -1959,7 +1991,8 @@ def params_on_card(cfg, seed, dev):
     package's numpy draws take minutes at billions of weights): norms of
     ones, bf16 embedding (and MoE router) ~N(0, 0.02), random grouped
     weights (rand_qt_on_card; at bits 3 with their hi planes; at w_a8
-    per-tensor ternary ones, wa8_qt_on_card), with
+    per-tensor ternary ones, wa8_qt_on_card; at group_size -1 per-channel
+    ones, pt_qt_on_card), with
     attention_bias nonzero bf16 q/k/v biases ~N(0, 0.5) (the package's
     init_params draws zeros, which would leave the bias adds unchecked), a
     random int8 head."""
@@ -1975,6 +2008,8 @@ def params_on_card(cfg, seed, dev):
     def qt(K, M):
         if cfg.quant.mode == "w_a8":
             return wa8_qt_on_card(gen, K, M, dev)
+        if cfg.quant.group_size == -1:
+            return pt_qt_on_card(gen, K, M, cfg.quant.bits, dev, cfg.quant.zero_point)
         return rand_qt_on_card(gen, K, M, cfg.quant.bits, cfg.quant.group_size, dev)
 
     def normal(*shape):
@@ -5324,6 +5359,176 @@ def gguf_mixtral(card):
                  bound_by="bytes", library_ms=tot["library_ms"])]
 
 
+# ---------------------------------------------------------------------------
+# per_channel_path: w_fp with one f32 scale and zero point a column
+# (group_size -1), K1 and K3 at bits 1, 3 and 4, on Llama-3.1-8B W4A8
+# ---------------------------------------------------------------------------
+
+# path 12's prompt in chunks (K3 on every linear and the head); the form
+# checks' bits and rows (K1 below 64, K3 from 64), the seed of their weights
+PC_PROMPT, PC_CHUNK = 1024, 512
+PC_BITS, PC_K1_ROWS, PC_K3_ROWS, PC_FORM_SEED = (1, 3, 4), (1, 4, 16), (64, 256, 1024), 17
+
+
+def pc_shapes(cfg):
+    """Path 12's four linear shapes: (name, K, M) of wqkv, wo, gate_up and
+    down."""
+    H, I = cfg.hidden_size, cfg.intermediate_size
+    return (("wqkv", H, cfg.q_dim + 2 * cfg.kv_dim), ("wo", cfg.q_dim, H),
+            ("gate_up", H, 2 * I), ("down", I, H))
+
+
+def pc_form_checks(card, cfg):
+    """K1 and K3 at bits 1, 3 and 4 on path 12's four linear shapes, weights
+    drawn on the card with per-column f32 scales and zero points
+    (pt_qt_on_card): K1 at N = 1, 4 and 16 through the wrapper (decode_plan's
+    cluster size) and at every cluster size of DECODE_SPLITS a block's
+    shared memory takes; K3 at N = 64, 256 and 1024 through the wrapper
+    and at every tile and cluster size large_plan may take
+    (check_k3_tiles); each bit for bit against its plain version, with the
+    prologue's codes, scales and code sums and the int32 sums byte for
+    byte.  Each form timed on each shape: K1 at N = 1 and K3 at N =
+    PC_CHUNK (time_k4, time_k3: CUDA graphs of the calls over `copies`
+    weights of the shape, as many as make 120 MB, at most 8, so most do not
+    stay in the 50 MB L2) beside the bound, the plain version and the
+    yardsticks.  -> (rows by bits, worst error of K1, of K3)"""
+    import torch
+    from tmac_tpu_torch.ops.cuda import qgemm_kernel as k1
+    gen = torch.Generator(device=card.dev)
+    gen.manual_seed(PC_FORM_SEED)
+    out, worst = {}, [0.0, 0.0]
+    for bits in PC_BITS:
+        t0 = time.perf_counter()
+        k1_rows, k3_rows, times = [], [], []
+        for sh, K, M in pc_shapes(cfg):
+            n = max(1, min(8, math.ceil(120e6 / (K * M * bits / 8))))
+            qts = [pt_qt_on_card(gen, K, M, bits, card.dev) for _ in range(n)]
+            qt = qts[0]
+            rows, err = check_k1(card, [(sh, card.bf16(N, K), qt, {}) for N in PC_K1_ROWS],
+                                 splits=(None,) + k1.DECODE_SPLITS)
+            worst[0] = max(worst[0], err)
+            k1_rows.append(dict(shape=sh, K=K, M=M, checks=len(rows),
+                                refused=[(r["N"], r["ksplit"]) for r in rows if "refused" in r],
+                                bitwise=all(r.get("bitwise", True) for r in rows),
+                                plans={N: k1.decode_plan(N, K, M, bits, 0, card.sms)
+                                       for N in PC_K1_ROWS}))
+            for N in PC_K3_ROWS:
+                x = card.bf16(N, K)
+                rows, err = check_k3(card, [(sh, x, qt, {})], splits=(None,))
+                tiles, err2 = check_k3_tiles(card, sh, x, qt, {})
+                worst[1] = max(worst[1], err, err2)
+                k3_rows.append(dict(shape=sh, N=N, plan=rows[0]["plan"],
+                                    configs=len(tiles["configs"]),
+                                    bitwise=rows[0]["bitwise"]["None"] and all(
+                                        c["bitwise"] for c in tiles["configs"]),
+                                    codes_acc_equal=rows[0]["codes_equal"]
+                                    and rows[0]["acc_equal"]))
+            times.append(dict(shape=sh, K=K, M=M, copies=n,
+                              k1=time_k4(card, [(card.bf16(1, K), q, {}) for q in qts]),
+                              k3=time_k3(card, [(card.bf16(PC_CHUNK, K), q, {})
+                                                for q in qts])))
+            del qts, qt
+            torch.cuda.empty_cache()
+        out[bits] = dict(k1=k1_rows, k3=k3_rows, times=times)
+        say(f"pc_forms_bits{bits}", bits=bits, k1=k1_rows, k3=k3_rows, times=times,
+            seconds=round(time.perf_counter() - t0, 3), card=card.name, nvidia_smi=card.smi)
+    return out, worst[0], worst[1]
+
+
+def per_channel_path(card):
+    """Path 12: Llama-3.1-8B (32 layers, hidden 4096, 32 heads over 8 KV
+    heads, FFN 14336, vocab 128256, llama3 rope scaling) at w_fp bits 4,
+    group_size -1 with zero points (W4A8 per channel: one f32 scale and
+    zero point a column, the activations int8 per token), weights drawn on
+    the card (seed 0): first the form checks of K1 and K3 at bits 1, 3 and
+    4 (pc_form_checks); K1 (N = 1, 4) and K3 (N = PC_CHUNK) on layer 0's
+    four linears with their folds and on the int8 head, K2 at rep 4, each
+    against its plain version; then run_path's main run, a 1024-token
+    prompt in chunks of 512 (K3 on the four linears of every layer and the
+    head a chunk: 258) and 64 steps through decode_loop (129 K1 and 32 K2 a
+    step), teacher-forced on every position and 8 steps against the plain
+    versions at PATH_NMSE (K1 and K3 sum integers exactly, so no noise
+    gate); K1's time per step and K3's per prefill beside their bounds,
+    plain versions and yardsticks.  -> the kernels' records"""
+    import torch
+    from tmac_tpu_torch.models.config import get_preset
+    t_path = time.perf_counter()
+    cfg = get_preset("llama-3.1-8b", bits=4).with_quant(group_size=-1, zero_point=True)
+    forms, form_k1_err, form_k3_err = pc_form_checks(card, cfg)
+    t_params = time.perf_counter()
+    params = params_on_card(cfg, 0, card.dev)
+    torch.cuda.synchronize()
+    layers, L, H = params["layers"], cfg.num_layers, cfg.hidden_size
+    rep, l0, head = cfg.num_heads // cfg.num_kv_heads, layers[0], params["lm_head"]
+    say("llama31_pc_build", model=cfg.name, bits=cfg.quant.bits, group_size=-1,
+        zero_point=True, layers=L, forms_s=round(t_params - t_path, 3),
+        init_params_s=round(time.perf_counter() - t_params, 3),
+        scales=str(l0["wqkv"].scales.dtype), scale_rows=l0["wqkv"].scales.shape[0],
+        linear_weight_gb=round(L * sum(l0[n].packed.numel() for n in LINEARS) / 1e9, 3),
+        allocated_gb=round(torch.cuda.memory_allocated() / 1e9, 3))
+    k1_rows, k1_err = check_k1(card, [(sh, *linear_call(card, cfg, sh, N, l0))
+                                      for sh in LINEARS for N in (1, 4)]
+                               + [("head", card.bf16(1, H), head, {})])
+    k3_rows, k3_err = check_k3(card, [(sh, *linear_call(card, cfg, sh, PC_CHUNK, l0))
+                                      for sh in LINEARS]
+                               + [("head", card.bf16(PC_CHUNK, H), head, {})])
+    k2_rows, k2_err = check_k2_heads(card, cfg.num_kv_heads, rep, cfg.head_dim)
+    say("llama31_pc_checks", at_s=round(time.perf_counter() - t_path, 3), k1=k1_rows,
+        k3=k3_rows, k2=k2_rows)
+
+    # the prefill: K3 on the 4 linears of every layer and on the head, a
+    # chunk; a step: K1 on the 4 linears of every layer and the head, K2 a layer
+    chunks = PC_PROMPT // PC_CHUNK
+    main = run_path(card, "llama31_pc", cfg, params, PC_PROMPT,
+                    counts(K3=(4 * L + 1) * chunks), counts(K1=4.0 * L + 1, K2=float(L)),
+                    chunk=PC_CHUNK)
+    launches = main["launches"]
+    k1_times, k1_tot = per_linear_times(card, cfg, layers, 1, time_k4, L)
+    h_ms, h_plain, h_bound, h_lib = time_head(card, head)
+    for key, val in (("ms", h_ms), ("plain_ms", h_plain), ("bound_ms", h_bound),
+                     ("library_ms", h_lib)):
+        k1_tot[key] += val
+    say("llama31_pc_k1_times", rows=k1_times,
+        head=dict(ms=h_ms, plain_ms=h_plain, bound_ms=h_bound, library_ms=h_lib),
+        per_step=dict(k1_tot, calls=4 * L + 1), card=card.name, nvidia_smi=card.smi)
+    k3_times, k3_tot = per_linear_times(card, cfg, layers, PC_CHUNK, time_k3, L * chunks)
+    k3_head = time_k3(card, [(card.bf16(PC_CHUNK, H), head, {})])
+    k3_times.append(dict(shape="head", per=chunks, **k3_head))
+    for key in k3_tot:
+        k3_tot[key] += chunks * k3_head[key]
+    say("llama31_pc_k3_times", rows=k3_times,
+        per_prefill=dict(k3_tot, calls=(4 * L + 1) * chunks), card=card.name,
+        nvidia_smi=card.smi)
+    kv_len = PC_PROMPT + (1 + STEPS) // 2
+    k2_ms, k2_plain, k2_bound, k2_lib = time_k2(card, cfg, main["cache"], kv_len)
+    say("llama31_pc_step", eager_ms=main["step_ms"], graph_ms=main["graph_step_ms"],
+        decode_loop_ms=main["loop_ms"],
+        kernel_bound_ms=k1_tot["bound_ms"] + k2_bound * L, kv_len=kv_len, k2_ms=k2_ms,
+        k2_plain_ms=k2_plain, k2_bound_ms=k2_bound, k2_library_ms=k2_lib,
+        prefill_k3_ms=k3_tot["ms"], prefill_k3_bound_ms=k3_tot["bound_ms"],
+        card=card.name, nvidia_smi=card.smi, path_s=round(time.perf_counter() - t_path, 3))
+    src = "tmac_tpu_torch/ops/cuda/csrc/"
+
+    def rec(name, source, replaces, label, err, t, by):
+        return dict(name=name, path="llama-3.1-8b-w4a8-per-channel", route="cuda",
+                    source=src + source, replaces="tmac_tpu/ops/pallas/" + replaces,
+                    launches=launches[label], max_abs_err=err, ms=t["ms"],
+                    plain_ms=t["plain_ms"], bound_ms=t["bound_ms"], bound_by=by,
+                    library_ms=t["library_ms"])
+    records = [
+        rec("qgemm_fused (K1) per-channel bits 4", "qgemm_fused.cu", "qgemm_kernel.py:567",
+            "K1", max(k1_err, form_k1_err), k1_tot, "bytes"),
+        rec("qgemm_large_int (K3) per-channel bits 4", "qgemm_large.cu",
+            "qgemm_kernel.py:266", "K3", max(k3_err, form_k3_err), k3_tot,
+            dominant_bound(k3_times)),
+        rec("flash_decode (K2) rep 4", "flash_decode.cu", "attention_kernel.py:367", "K2",
+            k2_err, dict(ms=k2_ms * L, plain_ms=k2_plain * L, bound_ms=k2_bound * L,
+                         library_ms=k2_lib * L), "bytes"),
+    ]
+    del params, main, layers, head, forms
+    return records
+
+
 def template_args(mangled):
     """A kernel's template arguments from its mangled name: bf16, f32,
     int8, an int or a bool (0, 1) (a substitution, S<n>_, repeats the type
@@ -5423,6 +5628,11 @@ def main() -> int:
         records = mixtral_wa8_path(card)
         print(json.dumps({"kernels": records}), flush=True)
         return 0
+    if sys.argv[1:] == ["--phase", "per_channel_path"]:
+        say("build", nvcc_s=round(build_s, 3), ptxas=ptxas)
+        records = per_channel_path(card)
+        print(json.dumps({"kernels": records}), flush=True)
+        return 0
     if sys.argv[1:] == ["--phase", "gguf_path"]:
         say("build", nvcc_s=round(build_s, 3), ptxas=ptxas)
         records = gguf_path(card)
@@ -5458,6 +5668,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     records += gguf_path(card)
     torch.cuda.empty_cache()
+    records += per_channel_path(card)
+    torch.cuda.empty_cache()
     say("attn_sweep", card=card.name, nvidia_smi=card.smi, rows=attn_sweep(card))
     say("qgemm_decode_sweep", card=card.name, nvidia_smi=card.smi,
         rows=qgemm_decode_sweep(card))
@@ -5482,7 +5694,9 @@ def main() -> int:
         "and 128 K4L (the ags form) for 768 tokens in chunks of 512 and 256; mixtral-8x7b "
         "w_a8: 577 K3 for 256 tokens; llama-3.1-8b-q4_k (path 11, f32 grouped scales): "
         "128 K5 and 128 K4L for 600 tokens in chunks of 512 and 88, 128 K4, 1 K1 and 32 K2 "
-        "a step; mixtral-8x7b-q4_k at 2 layers: 4 K7, 4 K4, 2 K2 and 1 K1 a step); "
+        "a step; mixtral-8x7b-q4_k at 2 layers: 4 K7, 4 K4, 2 K2 and 1 K1 a step; "
+        "llama-3.1-8b w4a8 per channel (path 12): 258 K3 for 1024 tokens in chunks of "
+        "512, 129 K1 and 32 K2 a step); "
         "launches: the wrappers' counts over each path's "
         "prefill and decode_loop, which calls a step's wrappers twice (its "
         "eager first step and the one capture) and replays the graph for "

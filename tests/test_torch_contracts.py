@@ -267,10 +267,10 @@ def test_ctypes_signatures_match_the_c_interfaces():
     assert c_args["tmac_decode_attention"] == 25
     assert not {"tmac_flash_decode", "tmac_flash_decode_split"} & set(c_args)
     # K1's and K4's decode forms: the prologue (K1's with its code-order
-    # flag) and one matmul each, with its cluster size and token rows (K4's
-    # also with the bits-3 hi plane's pointer and the activation group size)
+    # flag) and one matmul each, with its cluster size, token rows and the
+    # bits-3 hi plane's pointer (K4's also with the activation group size)
     assert c_args["tmac_act_quant"] == 16
-    assert c_args["tmac_decode_qgemm"] == 15
+    assert c_args["tmac_decode_qgemm"] == 16
     assert c_args["tmac_decode_group_gemm"] == 19
     # K4, K4L, K5 and K7 take the grouped scales' dtype (scale_f32: bf16 or
     # f32) right after the scales and sub
@@ -282,7 +282,8 @@ def test_ctypes_signatures_match_the_c_interfaces():
     assert c_args["tmac_qgemm_experts"] == 25
     assert "tmac_qgemm_expert" not in c_args
     assert c_args["tmac_wo_mlp_block"] == 23
-    # K3: one wgmma matmul, with its tile (token rows, columns) and cluster
-    # size; the mma.sync matmul's entry point is gone
-    assert c_args["tmac_large_int_wgmma"] == 16
+    # K3: one wgmma matmul, with the bits-3 hi plane's pointer, its tile
+    # (token rows, columns) and cluster size; the mma.sync matmul's entry
+    # point is gone
+    assert c_args["tmac_large_int_wgmma"] == 17
     assert "tmac_qgemm_large_int" not in c_args

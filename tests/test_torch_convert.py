@@ -369,15 +369,24 @@ def _write_float_checkpoint(tmpdir, cfg, tied, sharded, bf16):
         }, f)
 
 
-@pytest.mark.parametrize("case", ["bitnet-sharded-bf16", "w2-tied-fp16"])
+@pytest.mark.parametrize("case", ["bitnet-sharded-bf16", "w2-tied-fp16",
+                                  "w4-per-channel-zp-fp16", "w3-per-channel-bf16"])
 def test_convert_float_checkpoint(case, tmp_path, monkeypatch):
     """Float master weights: BitNet's absmean ternarization (w_a8) from a
-    sharded bf16 checkpoint, and grouped W2 quantization with a tied head
-    from fp16."""
+    sharded bf16 checkpoint, grouped W2 quantization with a tied head from
+    fp16, and per-channel quantization (group_size -1: one f32 scale and
+    zero point a column, gs = K a linear; K1 in the forward) of
+    Llama-3.1-8B's architecture at bits 4 with zero points and bits 3
+    without."""
     if case.startswith("bitnet"):
         jcfg0 = jax_preset("bitnet-3b").scaled(8)
         kw = dict(mode="w_a8", bits=2, group_size=-1)
         _write_float_checkpoint(str(tmp_path), jcfg0, tied=False, sharded=True, bf16=True)
+    elif "per-channel" in case:
+        jcfg0 = jax_preset("llama-3.1-8b").scaled(8)
+        kw = dict(bits=int(case[1]), group_size=-1, zero_point="zp" in case)
+        _write_float_checkpoint(str(tmp_path), jcfg0, tied=False, sharded=False,
+                                bf16=case.endswith("bf16"))
     else:
         jcfg0 = jax_preset("llama-2-7b").scaled(8)
         kw = dict(bits=2, group_size=128, zero_point=True)
@@ -388,6 +397,48 @@ def test_convert_float_checkpoint(case, tmp_path, monkeypatch):
     assert ("lm_head" in params) != cfg.tie_word_embeddings
     if case.startswith("bitnet"):
         assert params["layers"][0]["wqkv"].scales.dtype == torch.float32
+    if "per-channel" in case:
+        assert cfg.quant.group_size == -1
+        for name in ("wqkv", "wo", "gate_up", "down"):
+            qt = params["layers"][0][name]
+            assert qt.scales.shape[0] == 1 and qt.scales.dtype == torch.float32
+            assert qt.group_size == qt.kdim_padded and (qt.packed_hi is not None) == (kw["bits"] == 3)
+
+
+@pytest.mark.parametrize("bits", [3, 4])
+def test_convert_hf_gptq_per_channel(bits, tmp_path, monkeypatch):
+    """A per-channel GPTQ directory (one scale row a linear, gs = K) in the
+    form the JAX package's converter takes: every linear's K the hidden
+    size (the FFN cut to it), which the config names as its group size,
+    since the converter holds each linear's group size to the config's.
+    Byte for byte JAX's (f32 scales: one group spans K), the forward on K1
+    within the model gate."""
+    cfg0 = dataclasses.replace(jax_preset("llama-3.1-8b").scaled(8), intermediate_size=512)
+    H = cfg0.hidden_size
+    assert cfg0.q_dim == H
+    _write_synthetic_hf_gptq(str(tmp_path), cfg0, bits=bits, gs=H)
+    cfg, params, _ = _convert_both(tmp_path, monkeypatch, f"pc-gptq-{bits}")
+    assert (cfg.quant.bits, cfg.quant.group_size, cfg.quant.zero_point) == (bits, H, True)
+    for name in ("wqkv", "wo", "gate_up", "down"):
+        qt = params["layers"][0][name]
+        assert qt.kdim == H and qt.scales.shape[0] == 1 and qt.scales.dtype == torch.float32
+
+
+def test_gptq_group_size_minus_one_is_refused_by_both(tmp_path):
+    """A GPTQ config's group_size -1 (AutoGPTQ's per channel): each linear
+    parses to gs = K, which the JAX package's converter holds to the
+    config's -1 and refuses (an assertion), and so does the port (a
+    ValueError naming both)."""
+    cfg0 = dataclasses.replace(jax_preset("llama-3.1-8b").scaled(8), intermediate_size=512)
+    _write_synthetic_hf_gptq(str(tmp_path), cfg0, bits=4, gs=cfg0.hidden_size)
+    path = tmp_path / "config.json"
+    conf = json.loads(path.read_text())
+    conf["quantization_config"]["group_size"] = -1
+    path.write_text(json.dumps(conf))
+    with pytest.raises(AssertionError):
+        jhf.convert_hf_model(str(tmp_path), name="pc-gptq")
+    with pytest.raises(ValueError, match="config says 4, -1"):
+        convert_hf_model(str(tmp_path), name="pc-gptq", device="cpu")
 
 
 def test_convert_tp2_packs_shards_as_jax(tmp_path, monkeypatch):

@@ -204,8 +204,12 @@ def test_check_slice_admits_every_preset_and_names_what_it_refuses():
     mixtral = get_preset("mixtral-8x7b")
     _check_slice(mixtral.with_quant(mode="w_a8", group_size=-1))
     _check_slice(mixtral.with_quant(act_group_size=32))
-    for bad, match in ((get_preset("llama-2-7b").with_quant(group_size=-1),
-                        "w_fp is ported for grouped scales"),
+    for zero_point in (False, True):   # per channel (K1 and K3), dense and MoE
+        _check_slice(get_preset("llama-3.1-8b", bits=4).with_quant(
+            group_size=-1, zero_point=zero_point))
+        _check_slice(mixtral.with_quant(bits=3, group_size=-1, zero_point=zero_point))
+    for bad, match in ((get_preset("llama-2-7b").with_quant(group_size=0),
+                        "w_fp is ported for grouped or per-channel scales"),
                        (bitnet.with_quant(group_size=128), "w_a8 is ported for per-tensor")):
         with pytest.raises(NotImplementedError, match=match):
             _check_slice(bad)

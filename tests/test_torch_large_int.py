@@ -1,5 +1,6 @@
-"""K3 (qgemm_large_int: per-tensor int8 codes x packed 2- or 8-bit weights
-from 64 rows, wgmma s8 on Hopper) on the CPU, where its kernel cannot run:
+"""K3 (qgemm_large_int: per-token int8 codes x packed 1- to 4- or 8-bit
+weights with one scale row from 64 rows, wgmma s8 on Hopper) on the CPU,
+where its kernel cannot run:
 a byte-level model of the kernel's unpack into the K-major, 128-byte
 swizzled B tile wgmma reads, an emulation of its tiles, steps and split
 of K against int_dot_plain, large_plan's partition and refusals, the split's
@@ -19,7 +20,7 @@ from tmac_tpu.ops.pallas.qgemm_kernel import qgemm_pallas
 from tmac_tpu.ops.qgemm import QuantizedTensor as JQT
 from tmac_tpu_torch.ops.cuda.qgemm_kernel import (
     LARGE_MAX_SPLIT, LARGE_STEP, LARGE_TILES, act_quant_plain, check_large,
-    dp4a_order, int_dot_plain, large_epilogue_plain, large_partials_plain,
+    decode_fields, dp4a_order, int_dot_plain, large_epilogue_plain, large_partials_plain,
     large_plan, large_smem, large_spans, large_steps, qgemm_fused_plain,
     qgemm_large_int)
 from tmac_tpu_torch.ops.qgemm import QuantizedTensor, unpack_codes
@@ -46,6 +47,13 @@ def _transpose4(a, b, c, d):
     return [_word([r[i] for r in rows]) for i in range(4)]
 
 
+def _byte_perm(a, b, sel):
+    """__byte_perm(a, b, sel): byte i of the result is byte (sel >> 4i) & 7
+    of b:a."""
+    bs = _bytes(a) + _bytes(b)
+    return _word([bs[(sel >> (4 * i)) & 7] for i in range(4)])
+
+
 def _rotate(w, rot):
     """__byte_perm(w, 0, sel): byte i of the result is byte (i + rot) % 4."""
     b = _bytes(w)
@@ -58,12 +66,21 @@ def b_offset(m, c):
     return m * 128 + ((c ^ (m & 7)) << 4)
 
 
+def _slots(x, mask, shifts):
+    """Word t4 of the result: byte i is (byte t4 of x >> shifts[i]) & mask
+    (a transpose4 of the shifted, masked words)."""
+    return _transpose4(*((x >> s) & mask for s in shifts))
+
+
 def unpack_step(raw, bits, bn, threads):
     """The kernel's unpack of one step's packed tile raw (rows, bn) uint8
-    by `threads` compute threads -> (the B tile's bytes, how often each
+    (bits 3: lo rows r, lo rows r + Kp/8 and hi rows r, 16 each) by
+    `threads` compute threads -> (the B tile's bytes, how often each
     16-byte chunk was written, the stores by (warp, unit, t4): [(lane,
     byte offset)])."""
-    kwords = 4 if bits == 2 else 16
+    rows = LARGE_STEP // decode_fields(bits)   # a plane's rows of the step
+    rpc = rows // 8                            # a plane's rows of a unit
+    kwords = rpc * (3 if bits == 3 else 1)
     tile = np.zeros(bn * 128, np.uint8)
     hits = np.zeros(bn * 8, np.int64)
     stores = {}
@@ -75,8 +92,32 @@ def unpack_step(raw, bits, bn, threads):
         for k in range(8 * (bn // 4) // threads):
             u = tid + threads * k
             q, c = u % (bn // 4), u // (bn // 4)
-            w = [_rotate(int(words[kwords * c + i, q]), rot) for i in range(kwords)]
-            if bits == 2:
+            w = [_rotate(int(words[(i // rpc) * rows + rpc * c + i % rpc, q]), rot)
+                 for i in range(kwords)]
+            if bits in (1, 3):
+                o = [[0] * 4 for _ in range(4)]
+                for i in range(2):
+                    if bits == 1:
+                        lo = _slots(w[i], 0x01010101, range(4))
+                        hi = _slots(w[i], 0x01010101, range(4, 8))
+                    else:
+                        x0, x1, h = w[i], w[2 + i], w[4 + i]
+
+                        def slot(e):
+                            return ((((x1 if e % 2 else x0) >> (2 * (e // 2))) & 0x03030303)
+                                    | (((h >> e) & 0x01010101) << 2))
+                        lo = _transpose4(*(slot(e) for e in range(4)))
+                        hi = _transpose4(*(slot(e) for e in range(4, 8)))
+                    for t4 in range(4):
+                        o[t4][2 * i], o[t4][2 * i + 1] = lo[t4], hi[t4]
+            elif bits == 4:
+                o = [[0] * 4 for _ in range(4)]
+                for g in range(2):
+                    for t4, col in enumerate(_transpose4(*w[4 * g:4 * g + 4])):
+                        lo, hi = col & 0x0F0F0F0F, (col >> 4) & 0x0F0F0F0F
+                        o[t4][2 * g] = _byte_perm(lo, hi, 0x5140)
+                        o[t4][2 * g + 1] = _byte_perm(lo, hi, 0x7362)
+            elif bits == 2:
                 o = [_transpose4(x & 0x03030303, (x >> 2) & 0x03030303,
                                  (x >> 4) & 0x03030303, (x >> 6) & 0x03030303)
                      for x in _transpose4(*w)]
@@ -102,6 +143,10 @@ def read_b(tile, bn):
 
 
 def _weights(rng, bits, K, M):
+    if bits in (1, 3, 4):   # per channel, with zero points
+        wq = rng.integers(0, 1 << bits, (K, M)).astype(np.uint8)
+        s = ((0.5 + rng.random((1, M))) / np.sqrt(K)).astype(np.float32)
+        return wq, s, s * rng.integers(0, 1 << bits, (1, M)).astype(np.float32)
     if bits == 2:
         wq = rng.integers(0, 4, (K, M)).astype(np.uint8)
         s = np.full((1, M), 1.0 / np.sqrt(K), np.float32)
@@ -121,25 +166,37 @@ def _tiles(bits):
     return [t for t in LARGE_TILES if bits == 2 or t[1] == 128]
 
 
-@pytest.mark.parametrize("bits,tile", [(b, t) for b in (2, 8) for t in _tiles(b)])
+def _step_codes(raw, bits):
+    """The weight code of each k' (rows of the result) of a step's packed
+    tile raw, as the prologue's order k' = F r + j pairs them."""
+    kp = np.arange(LARGE_STEP)[:, None]
+    F = decode_fields(bits)
+    r, j = kp[:, 0] // F, kp % F
+    if bits == 3:   # slot j: field j // 2 of lo row r (+ Kp/8 for odd j), bit j of hi row r
+        lo = (np.where(j % 2, raw[16 + r], raw[r]) >> (2 * (j // 2))) & 3
+        return (lo + 4 * ((raw[32 + r] >> j) & 1)).astype(np.int8)
+    if bits == 8:
+        return raw.view(np.int8)
+    return ((raw[r] >> (bits * j)) & ((1 << bits) - 1)).astype(np.int8)
+
+
+@pytest.mark.parametrize("bits,tile", [(b, t) for b in (2, 8) for t in _tiles(b)]
+                         + [(b, t) for b in (1, 3, 4) for t in _tiles(b)])
 def test_unpack_lands_every_weight_once_in_the_swizzled_tile(bits, tile):
     """Every (k', m) of a step is written exactly once, where wgmma's
-    descriptor reads it: bits 2, field k' % 4 of packed row k' / 4 (the
-    prologue's dp4a order); bits 8, code row k'.  Each quarter-warp's 8
-    lanes store to 8 distinct 16-byte bank groups."""
+    descriptor reads it: field k' % F of packed row k' / F (the prologue's
+    order, F the slots of a row: bits 3, field j // 2 of lo row r or r +
+    Kp/8 plus 4 times bit j of hi row r); bits 8, code row k'.  Each
+    quarter-warp's 8 lanes store to 8 distinct 16-byte bank groups."""
     bm, bn = tile
     threads = 128 * (1 if bm == 64 else 2)
     rng = np.random.default_rng(bits * 1000 + bm + bn)
-    rows = LARGE_STEP // 4 if bits == 2 else LARGE_STEP
+    rows = LARGE_STEP // decode_fields(bits) * (3 if bits == 3 else 1)
     raw = rng.integers(0, 256, (rows, bn)).astype(np.uint8)
     tile_b, hits, stores = unpack_step(raw, bits, bn, threads)
     assert (hits == 1).all()
     got = read_b(tile_b, bn)
-    kp = np.arange(LARGE_STEP)[:, None]
-    if bits == 2:
-        want = ((raw[kp[:, 0] // 4] >> (2 * (kp % 4))) & 3).astype(np.int8)
-    else:
-        want = raw.view(np.int8)
+    want = _step_codes(raw, bits)
     np.testing.assert_array_equal(got, want)
     for lanes in stores.values():
         offs = dict(lanes)
@@ -156,10 +213,14 @@ def emulate_k3(codes, qt, bm, bn, ksplit):
     int dot of the two tiles, and the ranks' partials added."""
     N, Kp = codes.shape
     Mp, bits = qt.mdim_padded, qt.bits
-    rows = LARGE_STEP // 4 if bits == 2 else LARGE_STEP
+    rows = LARGE_STEP // decode_fields(bits)
     nsteps = cdiv(Kp, LARGE_STEP)
     threads = 128 * (1 if bm == 64 else 2)
     pk = qt.packed.numpy()
+    if bits == 3:   # a step's three boxes: lo rows r, lo rows r + Kp/8, hi rows r
+        planes = [(pk, 0), (pk, Kp // 8), (qt.packed_hi.numpy(), 0)]
+    else:
+        planes = [(pk, 0)]
     c = np.zeros((cdiv(N, bm) * bm, nsteps * LARGE_STEP), np.int64)
     c[:N, :Kp] = codes.numpy()
     acc = np.zeros((cdiv(N, bm) * bm, cdiv(Mp, bn) * bn), np.int64)
@@ -167,9 +228,10 @@ def emulate_k3(codes, qt, bm, bn, ksplit):
         m0 = tile * bn
         for rank in range(ksplit):
             for t in large_steps(nsteps, ksplit, rank, tile):
-                raw = np.zeros((rows, bn), np.uint8)
-                part = pk[t * rows:(t + 1) * rows, m0:m0 + bn]
-                raw[:part.shape[0], :part.shape[1]] = part
+                raw = np.zeros((rows * len(planes), bn), np.uint8)
+                for p, (plane, off) in enumerate(planes):
+                    part = plane[off + t * rows:off + (t + 1) * rows, m0:m0 + bn]
+                    raw[p * rows:p * rows + part.shape[0], :part.shape[1]] = part
                 w = read_b(unpack_step(raw, bits, bn, threads)[0], bn).astype(np.int64)
                 acc[:, m0:m0 + bn] += c[:, t * LARGE_STEP:(t + 1) * LARGE_STEP] @ w
     return acc[:N, :Mp]
@@ -184,6 +246,23 @@ def test_emulated_tiles_give_the_exact_int_dot(bits, tile, ksplit):
     rng = np.random.default_rng(bits + tile[0] + tile[1] + ksplit)
     K, M, N = 624, 384, 70   # Kp 624: five steps, the last ragged
     qt, _ = _pair(rng, bits, K, M)
+    nat = torch.from_numpy(rng.integers(-127, 128, (N, qt.kdim_padded)).astype(np.int8))
+    got = emulate_k3(dp4a_order(nat, bits), qt, *tile, ksplit)
+    np.testing.assert_array_equal(got, int_dot_plain(nat, qt).numpy())
+
+
+@pytest.mark.parametrize("bits,tile,ksplit", [
+    (1, (64, 128), 1), (1, (256, 128), 3), (3, (64, 128), 2), (3, (128, 128), 1),
+    (3, (256, 128), 5), (4, (64, 128), 1), (4, (128, 128), 2), (4, (256, 128), 4)])
+def test_emulated_tiles_give_the_exact_int_dot_per_channel(bits, tile, ksplit):
+    """Bits 1, 3 and 4 with per-column zero points: K = 600 pads to 608 at
+    bits 1 and 3 (4.75 steps: bits 3's last lo box of the first half runs
+    into the second half, whose codes are past Kp, and its other boxes
+    past their planes) and stays 600 at bits 4 (a ragged last step)."""
+    rng = np.random.default_rng(bits + tile[0] + ksplit)
+    K, M, N = 600, 384, 70
+    qt, _ = _pair(rng, bits, K, M)
+    assert qt.kdim_padded == (608 if bits in (1, 3) else 600)
     nat = torch.from_numpy(rng.integers(-127, 128, (N, qt.kdim_padded)).astype(np.int8))
     got = emulate_k3(dp4a_order(nat, bits), qt, *tile, ksplit)
     np.testing.assert_array_equal(got, int_dot_plain(nat, qt).numpy())
@@ -220,7 +299,7 @@ def test_large_plan_walks_every_step_once(K, Mp, bits, N):
 
 
 @pytest.mark.parametrize("args,match", [
-    ((256, 3200, 3200, 4), "bits 2 and 8"),
+    ((256, 3200, 3200, 5), "bits 1 to 4 and 8"),
     ((63, 3200, 3200, 2), "N >= 64"),
     ((256, 3208 - 1, 3200, 2), "Kp % 16"),
     ((256, 3200, 3264, 2), "Mp % 128"),

@@ -3,6 +3,8 @@ Pallas qgemm (qgemm_pallas act="fused", interpret mode on CPU: its small-N
 kernel below 64 rows, its XLA prologue and single-dot kernel from 64), and
 the layout contracts between K1's prologue and the two matmuls."""
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -199,8 +201,12 @@ def test_wrapper_dispatch_and_limits():
     grouped = QuantizedTensor.from_float(w, 2, 64, device="cpu")
     with pytest.raises(ValueError):
         qgemm_fused(x, grouped)
-    with pytest.raises(ValueError):
-        qgemm_fused(x, QuantizedTensor.from_float(w, 4, device="cpu"))
+    # one scale row at any of bits 1 to 4 and 8 (per-channel w_fp at bits
+    # 4 here); a k-sharded tensor (a scale row a shard) is refused
+    w4 = QuantizedTensor.from_float(w, 4, device="cpu")
+    assert torch.equal(qgemm_fused(x, w4), qgemm_fused_plain(x, w4))
+    with pytest.raises(ValueError, match="k_shards == 1"):
+        qgemm_fused(x, dataclasses.replace(w4, k_shards=2))
     padded, _ = _pair(rng, 2, 256, (200,))
     with pytest.raises(ValueError):  # residual on a padded M
         qgemm_fused(x, padded, residual=torch.zeros(2, 200))

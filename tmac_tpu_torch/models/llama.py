@@ -5,10 +5,13 @@ package's long-context scalings (linear, per-dim factors, llama3, YaRN),
 an optional sliding window (Phi-3-mini), optional q/k/v biases (Qwen2),
 an int8, bf16 or tied head, and a bf16 or int8 KV cache; w_a8 (BitNet
 W1.58A8, per-tensor scales; its weights are bits-2 ternary ones at any
-configured bits, as the JAX package builds them) and w_fp with grouped scales at bits
-1 to 4 (e.g. Llama-2-7B W2A16 / W4A16 g128, Llama-3.1-8B W3A16, Qwen2-7B
-W4A16), optionally with activation groups finer than the weight groups
-(``act_group_size``, K4's and K4L's ags form), dense or MoE
+configured bits, as the JAX package builds them) and w_fp at bits 1 to 4,
+with grouped scales (e.g. Llama-2-7B W2A16 / W4A16 g128, Llama-3.1-8B
+W3A16, Qwen2-7B W4A16), optionally with activation groups finer than the
+weight groups (``act_group_size``, K4's and K4L's ags form), or per
+channel (``group_size=-1``: one f32 scale and zero point a column, the
+activations int8 per token, e.g. Llama-3.1-8B W4A8, through K1 and K3),
+dense or MoE
 (Mixtral-8x7B: the MLP is models/moe.py's moe_mlp, whose decode form runs
 kernel K7, grouped or, at w_a8, per-tensor).  ``_check_slice`` names
 what is not ported yet.
@@ -228,10 +231,11 @@ def _check_slice(cfg: ModelConfig) -> None:
     """The model family this port covers so far: w_a8 with per-tensor
     scales (BitNet), dense or MoE, at any of JAX's bits 1 to 4 (whose
     init_params, converters and tools build bits-2 ternary weights
-    whatever the config says, as _rand_qt does); w_fp with grouped scales
-    at bits 1 to 4, dense or MoE, with an act_group_size or without (one
-    that does not divide the group size is ignored, as the JAX package
-    ignores it); attention bias, tied, bf16 or int8 heads and every rope
+    whatever the config says, as _rand_qt does); w_fp at bits 1 to 4,
+    dense or MoE, with grouped scales, with an act_group_size or without
+    (one that does not divide the group size is ignored, as the JAX
+    package ignores it), or per channel (group_size -1, with or without
+    zero points); attention bias, tied, bf16 or int8 heads and every rope
     scaling.  A tensor's own form (bf16 or f32 scales, group size 16 or a
     multiple of 32, grouped bits 8, as a gguf file gives them) is the
     kernels' wrappers' to check.  What it refuses names the missing
@@ -241,9 +245,9 @@ def _check_slice(cfg: ModelConfig) -> None:
         if q.group_size != -1 or q.bits not in (1, 2, 3, 4):
             raise NotImplementedError(
                 "w_a8 is ported for per-tensor scales at bits 1 to 4")
-    elif q.group_size <= 0 or q.bits not in (1, 2, 3, 4):
+    elif (q.group_size <= 0 and q.group_size != -1) or q.bits not in (1, 2, 3, 4):
         raise NotImplementedError(
-            "w_fp is ported for grouped scales at bits 1 to 4")
+            "w_fp is ported for grouped or per-channel scales at bits 1 to 4")
 
 
 def _rand_qt(rng: np.random.Generator, K: int, M: int, cfg: ModelConfig,
@@ -251,7 +255,8 @@ def _rand_qt(rng: np.random.Generator, K: int, M: int, cfg: ModelConfig,
     """Synthetic quantized weights, the JAX package's numpy draws in its
     order: w_a8 ternary {-1,0,1} stored as {1,2,3} with one scale per
     tensor; w_fp random codes with per-group scales and zero points (bf16
-    scales and sub when grouped)."""
+    scales and sub when grouped, f32 per channel: group_size -1), the zero
+    points on each group's mean code, jittered by -2..2."""
     q = cfg.quant
     gs = K if q.group_size == -1 else q.group_size
     std = 1.0 / np.sqrt(K)

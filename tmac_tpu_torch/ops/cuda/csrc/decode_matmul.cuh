@@ -1,4 +1,5 @@
-// The decode-time matmul of K1 (qgemm_fused.cu, per-tensor scales), K4
+// The decode-time matmul of K1 (qgemm_fused.cu, one f32 scale row: per
+// tensor or per column, bits 1 to 4 and 8), K4
 // (qgemm_grouped.cu, grouped scales) and K7 (qgemm_expert.cu: K4 on the
 // routed experts of a stack, the expert a grid dimension): N < 64 rows of
 // int8 activation codes from the prologue against packed low-bit weights,
@@ -208,7 +209,7 @@ __device__ __forceinline__ constexpr int field_shift(int j) {
 // at bit t = min(2 * (e / 2), 4) of each byte (at most 7 << 4, an unsigned
 // byte): field e / 2 of lo (lo row r for even e, r + Kb for odd e) shifted
 // right by 2 * (e / 2) - t, and bit e of hi moved to bit t + 2; the shifts
-// that cross a byte only move bits the masks drop (qgemm_grouped_kernel.
+// that cross a byte only move bits the masks drop (qgemm_kernel.
 // decode_slot_weights is its plain model)
 __device__ __forceinline__ uint32_t b3_slot(int e, uint32_t lo1, uint32_t lo2, uint32_t hi) {
   const int j = e >> 1, t = j < 2 ? 2 * j : 4, hs = t + 2 - e;
@@ -273,7 +274,7 @@ __device__ __forceinline__ void flush(int (&acc)[NT][P][4], int* part_s, int* xb
       for (int c = 0; c < 4; ++c) {
         int s = 0;
 #pragma unroll
-        for (int j = 0; j < P; ++j) s += acc[n][j][c] >> (BITS == 8 ? 0 : BITS * j);
+        for (int j = 0; j < P; ++j) s += acc[n][j][c] >> field_shift<BITS>(j);
 #pragma unroll
         for (int o = 16; o >= 4; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
         if (rg == 0 && n < nrows) part_s[n * kStrip + col0 + c] = s;

@@ -1,8 +1,10 @@
 // K1: fused activation quantization + packed low-bit matmul, for Hopper.
 //
 // Replaces tmac_tpu/ops/pallas/qgemm_kernel.py::_make_kernel with
-// fused_quant=True, int_acc=True (per-tensor scale, G == 1), which the JAX
-// package reaches through qgemm_pallas(act="fused").  It computes
+// fused_quant=True, int_acc=True (one scale row, G == 1: BitNet's
+// per-tensor scale, or w_fp's per-column scales and zero points at
+// group_size -1), which the JAX package reaches through
+// qgemm_pallas(act="fused").  It computes
 //
 //   x (N, K) bf16 [or (N, 2K) for the SwiGLU prologue]
 //     -> optional silu(g) * u, optional rms_norm (variance over the
@@ -20,7 +22,8 @@
 // epilogue) and the dp4a code grouping (below).
 //
 // What bounds it: at decode (N = 1) each packed weight byte is read once
-// and feeds 4 (bits=2) or 1 (bits=8) multiply-adds, far below the card's
+// and feeds 8 (bits 1), 4 (bits 2), 8/3 (bits 3), 2 (bits 4) or 1 (bits 8)
+// multiply-adds, far below the card's
 // operations-per-byte balance, so device-memory bytes bound it, and at a
 // few microseconds a call its fixed costs as much.  Two launches a call:
 //   1. the prologue, one block per row: the row is read once, with 16-byte
@@ -38,12 +41,16 @@
 // order and share nothing, and redoing it in every matmul block would
 // repeat the row's reductions hundreds of times.
 //
-// Field j of packed row r holds the weight for k = r + j*K/4 (bits=2,
-// biased-unsigned {1,2,3}; sub = 2*scale folds the midpoint).  bits=8
-// stores one signed code per byte.  The matmul reads the codes in natural
-// k order (4 packed rows' field j meet the 4 consecutive codes k = j*K/4 +
-// r .. +3); K3 reads them in the dp4a grouping, byte j of 32-bit word r
-// holding k = r + j*K/4.
+// Field j of packed row r holds the weight for k = r + j*Kp/p (p = 8 /
+// bits fields a byte, biased-unsigned; sub folds the midpoint or the
+// column's zero point).  Bits 3 is a 2-bit lo plane (field j of row r: k = r
+// + j*Kp/4) and a 1-bit hi plane (field j of row r: k = r + j*Kp/8), code
+// = lo + 4 * hi.  bits=8 stores one signed code per byte.  The matmul reads
+// the codes in natural k order (4 packed rows' field j meet the 4
+// consecutive codes k = j*Kb + r .. +3, Kb = Kp / P with P slots a row,
+// decode_matmul.cuh); K3 reads them in its own grouping, k' = F*r + j
+// holding k = r + j*Kp/F (F = 8 at bits 1 and 3, 4 at bits 2, 2 at bits 4:
+// the slots of a row, so that one step of K3 meets whole packed rows).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -88,13 +95,14 @@ __global__ void __launch_bounds__(kQuantThreads) act_quant_kernel(
 
   int8_t* cr = codes + (size_t)n * Kp;
   int qsum = 0;
-  if (dp4a && bits == 2) {
-    // byte j of word r holds k = r + j*nq, like the packed fields
-    const int nq = Kp / 4;
+  if (dp4a && bits != 8) {
+    // K3's order: byte j of the F bytes at F*r holds k = r + j*nq, like the
+    // packed fields (bits 3: the slots of lo rows r and r + nq and hi row r)
+    const int F = tmac::decode::fields(bits), nq = Kp / F;
     for (int k = threadIdx.x; k < Kp; k += blockDim.x) {
       const int q = code(k);
       qsum += q;
-      cr[(k % nq) * 4 + k / nq] = (int8_t)q;
+      cr[(k % nq) * F + k / nq] = (int8_t)q;
     }
   } else {
     // natural order, 4 codes a 32-bit store
@@ -118,32 +126,38 @@ __global__ void __launch_bounds__(kQuantThreads) act_quant_kernel(
   }
 }
 
+// the ring's stages: bits 3's stage is three planes of 32 rows (12 KB), as
+// K4's (qgemm_kernel.decode_stages)
+template <int BITS>
+__host__ __device__ constexpr int k1_stages() {
+  return BITS == 3 ? 3 : tmac::decode::kStages;
+}
+
 template <int BITS, int NT>
 __global__ void __launch_bounds__(tmac::decode::kThreads, 2)
     k1_decode_kernel(const tmac::decode::Args a) {
-  tmac::decode::decode_matmul<BITS, NT, false>(a);
+  tmac::decode::decode_matmul<BITS, NT, false, false, k1_stages<BITS>()>(a);
 }
 
+// NT: 1 token row a block, or 4 (2 at 8 slots a row, bits 1 and 3, whose
+// int32 sums take 32 registers a token row: qgemm_kernel.decode_nt)
 template <int BITS>
 int launch_decode(const tmac::decode::Args& a, int ksplit, int nt,
                   cudaStream_t stream) {
-  constexpr int P = BITS == 8 ? 1 : 4;
-  switch (nt) {
-    case 1: {
-      const tmac::decode::Layout L(P, 1, false, a.nunits, a.unit_rows, ksplit, 1);
-      return tmac::decode::launch(k1_decode_kernel<BITS, 1>, a, ksplit, 1, L.total, stream);
-    }
-    default: {
-      const tmac::decode::Layout L(P, 4, false, a.nunits, a.unit_rows, ksplit, 1);
-      return tmac::decode::launch(k1_decode_kernel<BITS, 4>, a, ksplit, 4, L.total, stream);
-    }
+  constexpr int P = tmac::decode::fields(BITS), S = k1_stages<BITS>();
+  constexpr int W = tmac::decode::planes(BITS), NT = P == 8 ? 2 : 4;
+  if (nt == 1) {
+    const tmac::decode::Layout L(P, 1, false, a.nunits, a.unit_rows, ksplit, 1, S, W);
+    return tmac::decode::launch(k1_decode_kernel<BITS, 1>, a, ksplit, 1, L.total, stream);
   }
+  const tmac::decode::Layout L(P, NT, false, a.nunits, a.unit_rows, ksplit, 1, S, W);
+  return tmac::decode::launch(k1_decode_kernel<BITS, NT>, a, ksplit, NT, L.total, stream);
 }
 
 }  // namespace
 
 // Prologue (K1's, and K3's with large_n): x (N, x_cols) bf16 -> codes
-// (N, Kp) int8, in natural k order or (dp4a, bits=2) the dp4a grouping,
+// (N, Kp) int8, in natural k order or (dp4a, bits 1 to 4) K3's grouping,
 // xs (N,) and xsum (N,) f32 (the code sum, times xs unless large_n).
 // norm_w (K,) bf16 or null.  Returns the CUDA error of the
 // launch (0 on success).
@@ -152,8 +166,8 @@ extern "C" int tmac_act_quant(const void* x, int N, int x_cols, int K, int Kp,
                               float inv_norm_k, int bits, int large_n, int dp4a,
                               void* codes, float* xs, float* xsum,
                               void* stream) {
-  if (N <= 0 || Kp % 4 != 0 || Kp > tmac::kSumWindow * kQuantThreads ||
-      (bits != 2 && bits != 8))
+  if (N <= 0 || bits < 1 || (bits > 4 && bits != 8) ||
+      Kp % (4 * tmac::decode::fields(bits)) != 0 || Kp > tmac::kSumWindow * kQuantThreads)
     return (int)cudaErrorInvalidValue;
   const int smem = tmac::staged_floats(Kp) * 4;
   cudaError_t err = cudaFuncSetAttribute(
@@ -167,37 +181,49 @@ extern "C" int tmac_act_quant(const void* x, int N, int x_cols, int K, int Kp,
 }
 
 // K1's matmul: codes (N, Kp) in natural order from tmac_act_quant (large_n
-// off), packed (Kp/4, Mp) (bits=2) or (Kp, Mp) (bits=8) uint8, scales/sub
-// (Mp,) f32, residual (N, Mp) bf16 or null -> out (N, Mp) f32.  1 <= N <
-// 64; Kp a multiple of 16 (bits=2) or 4 (bits=8); Mp of 128; a cluster of ksplit (1-8) blocks
-// along K, nt (1 or 4) token rows a block.  Launched programmatically
-// after the prologue.  Returns the CUDA error (cudaErrorInvalidConfiguration
-// for a cluster the card cannot place).
+// off), packed (Kp * bits / 8, Mp) uint8 (bits 3: the lo plane (Kp / 4, Mp)
+// and packed_hi, the hi plane (Kp / 8, Mp); else packed_hi null), scales/sub
+// (Mp,) f32 (per column), residual (N, Mp) bf16 or null -> out (N, Mp) f32.
+// 1 <= N < 64; bits 1 to 4 or 8; Kp a multiple of 4 * P (P = 8 at bits 1
+// and 3, 8 / bits at 2 and 4, 1 at 8); Mp of 128; a cluster of ksplit
+// (1-8) blocks along K, nt (1, or 4; 2 at bits 1 and 3) token rows a block.
+// Launched programmatically after the prologue.  Returns the CUDA error
+// (cudaErrorInvalidConfiguration for a cluster the card cannot place).
 extern "C" int tmac_decode_qgemm(const void* codes, const float* xs,
                                  const float* xsum, int N, int Kp, int bits,
-                                 const void* packed, const float* scales,
-                                 const float* sub, int Mp, const void* residual,
-                                 float* out, int ksplit, int nt, void* stream) {
-  if (N <= 0 || N >= 64 || Kp % (bits == 2 ? 16 : 4) != 0 || Mp % tmac::decode::kStrip != 0 ||
-      ksplit < 1 || ksplit > tmac::decode::kMaxSplit || (nt != 1 && nt != 4) ||
-      (bits != 2 && bits != 8))
+                                 const void* packed, const void* packed_hi,
+                                 const float* scales, const float* sub, int Mp,
+                                 const void* residual, float* out, int ksplit, int nt,
+                                 void* stream) {
+  if (bits < 1 || (bits > 4 && bits != 8)) return (int)cudaErrorInvalidValue;
+  const int P = tmac::decode::fields(bits), nt_max = P == 8 ? 2 : 4;
+  if (N <= 0 || N >= 64 || Kp % (4 * P) != 0 || Mp % tmac::decode::kStrip != 0 ||
+      ksplit < 1 || ksplit > tmac::decode::kMaxSplit || (nt != 1 && nt != nt_max) ||
+      (bits == 3) != (packed_hi != nullptr))
     return (int)cudaErrorInvalidValue;
   tmac::decode::Args a{};
   a.codes = static_cast<const int8_t*>(codes);
   a.xs = xs;
   a.xsum = xsum;
   a.packed = static_cast<const uint8_t*>(packed);
+  a.packed_hi = static_cast<const uint8_t*>(packed_hi);
   a.scales = scales;
   a.sub = sub;
   a.residual = static_cast<const __nv_bfloat16*>(residual);
   a.out = out;
   a.N = N;
   a.Kp = Kp;
-  a.Kb = bits == 2 ? Kp / 4 : Kp;
+  a.Kb = Kp / P;
   a.Mp = Mp;
   a.G = 1;
   a.unit_rows = tmac::decode::kStageRows;
   a.nunits = (a.Kb + a.unit_rows - 1) / a.unit_rows;
   cudaStream_t s = (cudaStream_t)stream;
-  return bits == 2 ? launch_decode<2>(a, ksplit, nt, s) : launch_decode<8>(a, ksplit, nt, s);
+  switch (bits) {
+    case 1: return launch_decode<1>(a, ksplit, nt, s);
+    case 2: return launch_decode<2>(a, ksplit, nt, s);
+    case 3: return launch_decode<3>(a, ksplit, nt, s);
+    case 4: return launch_decode<4>(a, ksplit, nt, s);
+    default: return launch_decode<8>(a, ksplit, nt, s);
+  }
 }

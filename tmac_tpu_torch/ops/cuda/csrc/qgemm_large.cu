@@ -4,8 +4,11 @@
 // forms that qgemm_pallas(act="fused") takes from N >= 64 rows of x: one
 // dot over the whole unpacked depth instead of per-field or per-group dots.
 //
-// K3 (single_dot=True: per-tensor scales, bits 2 or 8; the reference runs
-// it after an XLA prologue) takes the int8 codes, row scales xs and bare
+// K3 (one scale row, G == 1: BitNet's per-tensor scale, w_fp's per-column
+// scales and zero points at group_size -1, the int8 head; bits 1 to 4 or 8;
+// the reference runs its single_dot form at bits 1, 2, 4 and 8 and its
+// chunk loop with int32 sums at bits 3, both after an XLA prologue, and
+// both the same function) takes the int8 codes, row scales xs and bare
 // code sums q of K1's prologue (qgemm_fused.cu, large_n) and computes
 //   acc = codes (N, Kp) @ weight codes (Kp, Mp), an exact int32 dot
 //   out = fma(acc, scale, -q * sub) * xs, or
@@ -31,24 +34,37 @@
 // K3 is built around wgmma s8 (k3_wgmma_kernel), the only way to the card's
 // full int8 rate:
 //   - a block computes bm token rows x bn columns (large_plan's tile: 64,
-//     128 or 256 rows x 128 columns, or at bits 2 64 or 128 x 256): CWG
+//     128 or 256 rows x 128 columns, or at bits 2 64 or 128 x 256: the
+//     wide tiles were fitted to bits 2 alone, and each instance adds to the
+//     build): CWG
 //     warpgroups of MT m64 tiles run wgmma.m64n{bn}k32 s8 x s8 -> s32 with
 //     both operands in shared memory;
 //   - a step is 128 k' (the order of the prologue's codes, below): the
 //     codes' bm x 128 tile comes in by TMA (K-major, 128-byte swizzle; rows
-//     past N as zeros), the step's packed weights (bits 2: 32 packed rows;
-//     bits 8: 128 rows, MN-major) by TMA into a packed ring of R stages, and
+//     past N as zeros), the step's packed weights (128 / F packed rows of
+//     each plane, below; bits 8: 128 rows; MN-major) by TMA into a packed
+//     ring of R stages, and
 //     the warps unpack them into the B tile, bn columns of 128 k' bytes,
 //     K-major with the 128-byte swizzle (wgmma has no transpose for 8-bit
 //     types): column m's 16-byte chunk c at byte m * 128 + ((c ^ (m % 8))
 //     << 4).  Each packed byte is unpacked once per bm token rows (once per
 //     call at N <= bm);
-//   - at bits 2 field j of packed row r holds k = r + j * Kp / 4, and the
-//     prologue writes the codes in the order k' = 4r + j (dp4a_order): the
-//     4 fields of a byte are 4 consecutive k' of its column.  A thread takes
-//     4 columns and 4 packed rows (4 words), byte-transposes them into one
-//     word a column (tmac::transpose4), and each column's word into its 16
-//     k' bytes (masks, shifts and a second transpose): one 16-byte store a
+//   - field j of packed row r holds k = r + j * Kp / p (p fields a byte),
+//     and the prologue writes the codes in the order k' = F r + j holding
+//     k = r + j * Kp / F (dp4a_order), F the slots of a row: 2 at bits 4,
+//     4 at bits 2, 8 at bits 1 and 3, so the F fields of a byte are F
+//     consecutive k' of its column.  Bits 3 (a 2-bit lo plane, k = r + j *
+//     Kp / 4 in field j, and a 1-bit hi plane, k = r + j * Kp / 8, code lo
+//     + 4 hi) takes row r (Kh = Kp / 8) as lo rows r and r + Kh and hi row
+//     r, the slots of k = r + e Kh: slot e is field e / 2 of lo row r + (e
+//     % 2) Kh and bit e of hi row r.  No one order of the codes lines up a
+//     byte of each plane with consecutive k' otherwise (their field strides
+//     differ), so a step takes 16 lo rows from each of the two halves of
+//     the lo plane and 16 hi rows: three TMA boxes into one packed stage.
+//     A thread takes 4 columns and the packed rows of 16 k' (4 words at
+//     bits 2), byte-transposes them into one word a column
+//     (tmac::transpose4), and each column's word into its 16 k' bytes
+//     (masks, shifts, byte permutes and transposes): one 16-byte store a
 //     column.  At bits 8 (the int8 head, k' = k) 16 rows of 4 columns take
 //     four 4 x 4 byte transposes.  Each thread's columns are rotated by its
 //     lane (a byte permute of its input words), so the 8 lanes of a
@@ -356,21 +372,35 @@ constexpr int kMaxSplit = 8;             // portable cluster size
 constexpr int kSmemLimit = 227 * 1024;   // a block's shared memory on Hopper
 constexpr int kMaxStages = 8;
 
-// packed rows of a step: bits 2, four fields a byte; bits 8, a code a byte
-__host__ __device__ constexpr int raw_rows(int bits) { return bits == 2 ? kStepK / 4 : kStepK; }
+// the slots F of a packed row (k' = F r + j): its fields, 8 at bits 3 (two
+// lo rows and a hi row); the planes a step reads (bits 3: lo rows r and r +
+// Kh, hi rows r); the packed rows of a plane a step reads
+__host__ __device__ constexpr int slots(int bits) {
+  return bits == 8 ? 1 : bits == 4 ? 2 : bits == 2 ? 4 : 8;
+}
+__host__ __device__ constexpr int planes(int bits) { return bits == 3 ? 3 : 1; }
+__host__ __device__ constexpr int raw_rows(int bits) { return kStepK / slots(bits); }
+// the packed ring's stages: as many as 32 KB holds, 4 to 8
+__host__ __device__ constexpr int raw_stages(int bits, int bn) {
+  const int n = 32768 / (raw_rows(bits) * planes(bits) * bn);
+  return n < 4 ? 4 : n > 8 ? 8 : n;
+}
 
 // A block's shared memory at bm token rows and bn columns
 // (qgemm_kernel.large_smem mirrors it): 1024 bytes of alignment slack, the
 // ring of `stages` stages (A, bm x 128 bytes, then B, bn x 128), the packed
-// ring of `raws` stages (32 KB at bits 2, 64 KB at bits 8), the barriers,
-// the epilogue's scales and zero points of the bn columns; as many stages
-// as fit, at most kMaxStages.  After the main loop the ring and the packed
-// ring hold the epilogue's tile, or receive the cluster's partials.
+// ring of `raws` stages (raw_stages: 32 KB at bits 2, 64 KB at bits 8, 16
+// KB at bits 1, 30 KB at bits 3, 32 KB at bits 4, at 128 columns), the
+// barriers, the epilogue's scales and zero points of the bn columns; as
+// many stages as fit, at most kMaxStages.  After the main loop the ring
+// and the packed ring hold the epilogue's tile, or receive the cluster's
+// partials.
 struct Layout {
   int stages, raws, a_bytes, stage, raw_bytes, raw, bars, ep, total;
   __host__ __device__ constexpr Layout(int bits, int bm, int bn)
-      : stages(0), raws((bits == 2 ? 32 : 64) * 1024 / (raw_rows(bits) * bn)),
-        a_bytes(bm * kStepK), stage((bm + bn) * kStepK), raw_bytes(raw_rows(bits) * bn),
+      : stages(0), raws(raw_stages(bits, bn)),
+        a_bytes(bm * kStepK), stage((bm + bn) * kStepK),
+        raw_bytes(raw_rows(bits) * planes(bits) * bn),
         raw(0), bars(0), ep(0), total(0) {
     stages = kMaxStages;
     while (stages > 2 && 1024 + stages * stage + raws * raw_bytes + 16 * (stages + raws) +
@@ -391,6 +421,7 @@ __host__ __device__ constexpr int slice_groups(int bm, int ksplit) {
 struct Args {
   CUtensorMap codes_map;   // codes (N, Kp) int8: boxes of 128 k' x bm rows, 128-byte swizzle
   CUtensorMap packed_map;  // packed (Kb, Mp) uint8: boxes of bn columns x raw_rows rows
+  CUtensorMap hi_map;      // bits 3: packed_hi (Kh, Mp), boxes as packed_map's
   const float* xs;         // (N,)
   const float* xsum;       // (N,), the bare code sums
   const float* scales;     // (Mp,)
@@ -398,6 +429,7 @@ struct Args {
   const __nv_bfloat16* residual;  // (N, Mp) or null
   float* out;              // (N, Mp)
   int N, Mp, nsteps;
+  int kh;                  // bits 3: Kp / 8, the lo plane's second half
 };
 
 // The epilogue of one output is the f32 steps XLA compiles the
@@ -425,6 +457,12 @@ __device__ __forceinline__ void sts128(uint32_t addr, uint32_t a, uint32_t b, ui
                : "memory");
 }
 
+// bit e of each byte of a hi plane word, moved to bit 2: 4 times the hi
+// bit of slot e (bits 3)
+__device__ __forceinline__ uint32_t hi4(uint32_t h, int e) {
+  return ((h >> e) & 0x01010101u) << 2;
+}
+
 template <int BN>
 __device__ __forceinline__ void wgmma_s8(int* d, uint64_t a, uint64_t b) {
   if constexpr (BN == 128)
@@ -447,6 +485,8 @@ __global__ void __launch_bounds__(128 * CWG + 64, 1)
     k3_wgmma_kernel(const __grid_constant__ k3::Args a) {
   constexpr int BM = 64 * CWG * MT, kThreads = 128 * CWG, kWarps = kThreads / 32;
   constexpr int kRawRows = k3::raw_rows(BITS);
+  // packed rows of a plane a unit of 16 k' reads, and its words
+  constexpr int kRpc = kRawRows / 8, kWords = kRpc * k3::planes(BITS);
   constexpr k3::Layout L(BITS, BM, BN);
   constexpr int S = L.stages, R = L.raws;
   // the B tile of step t is unpacked D steps ahead, while the wgmma of the
@@ -497,9 +537,15 @@ __global__ void __launch_bounds__(128 * CWG + 64, 1)
   auto step_of = [&](int t) { return t0 + (t + rot_steps) % nb; };
   auto issue_raw = [&](int t) {
     const int r = t % R;
+    uint8_t* dst = smem + L.raw + r * L.raw_bytes;
     tmac::mbar_arrive_expect_tx(&raw_full[r], L.raw_bytes);
-    tmac::tma_load_2d(smem + L.raw + r * L.raw_bytes, &a.packed_map, m0, step_of(t) * kRawRows,
-                      &raw_full[r]);
+    tmac::tma_load_2d(dst, &a.packed_map, m0, step_of(t) * kRawRows, &raw_full[r]);
+    if constexpr (BITS == 3) {  // lo rows r + Kh, then hi rows r
+      tmac::tma_load_2d(dst + kRawRows * BN, &a.packed_map, m0, a.kh + step_of(t) * kRawRows,
+                        &raw_full[r]);
+      tmac::tma_load_2d(dst + 2 * kRawRows * BN, &a.hi_map, m0, step_of(t) * kRawRows,
+                        &raw_full[r]);
+    }
   };
   auto issue_codes = [&](int t) {
     tmac::mbar_arrive_expect_tx(&full[t % S], L.a_bytes);
@@ -520,22 +566,77 @@ __global__ void __launch_bounds__(128 * CWG + 64, 1)
     tmac::mbar_wait(&raw_full[r], (t / R) & 1);
     const uint32_t B = tmac::smem_u32(smem + s * L.stage + L.a_bytes);
     const uint32_t raw = tmac::smem_u32(smem + L.raw + r * L.raw_bytes);
-    constexpr int kWords = BITS == 2 ? 4 : 16;  // packed words a unit reads
-    // every unit's words first (bits 2: packed rows 4c .. 4c + 3; bits 8:
-    // code rows 16c .. 16c + 15), each rotated
+    // every unit's words first (packed rows kRpc c .. kRpc c + kRpc - 1 of
+    // each plane: bits 2, 4 rows; bits 4, 8; bits 1, 2; bits 3, 2 of each
+    // of its 3 planes; bits 8, code rows 16c .. 16c + 15), each rotated
     uint32_t w[U][kWords];
 #pragma unroll
     for (int k = 0; k < U; ++k) {
       const int u = tid + kThreads * k, q = u % (BN / 4), c = u / (BN / 4);
 #pragma unroll
       for (int i = 0; i < kWords; ++i)
-        w[k][i] = __byte_perm(k3::lds32(raw + (kWords * c + i) * BN + 4 * q), 0, sel);
+        w[k][i] = __byte_perm(
+            k3::lds32(raw + ((i / kRpc) * kRawRows + kRpc * c + i % kRpc) * BN + 4 * q), 0, sel);
     }
 #pragma unroll
     for (int k = 0; k < U; ++k) {
       const int u = tid + kThreads * k, q = u % (BN / 4), c = u / (BN / 4);
       uint32_t o[4][4];  // [column t4][word of the 16-byte chunk]
-      if (BITS == 2) {
+      if constexpr (BITS == 1) {
+        // packed rows 2c + i: bit e of a byte is k' = 16c + 8i + e, so bits
+        // 0-3 are word 2i of its column's chunk and bits 4-7 word 2i + 1
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const uint32_t x = w[k][i];
+          uint32_t lo[4], hi[4];
+          tmac::transpose4(x & 0x01010101u, (x >> 1) & 0x01010101u, (x >> 2) & 0x01010101u,
+                           (x >> 3) & 0x01010101u, lo);
+          tmac::transpose4((x >> 4) & 0x01010101u, (x >> 5) & 0x01010101u,
+                           (x >> 6) & 0x01010101u, (x >> 7) & 0x01010101u, hi);
+#pragma unroll
+          for (int t4 = 0; t4 < 4; ++t4) {
+            o[t4][2 * i] = lo[t4];
+            o[t4][2 * i + 1] = hi[t4];
+          }
+        }
+      } else if constexpr (BITS == 3) {
+        // row 2c + i: lo row words x0 (r) and x1 (r + Kh), hi row word h;
+        // slot e (k' = 16c + 8i + e) is field e / 2 of x(e % 2) plus 4 times
+        // bit e of h, slots 0-3 word 2i of the chunk, 4-7 word 2i + 1
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const uint32_t x0 = w[k][i], x1 = w[k][2 + i], h = w[k][4 + i];
+          uint32_t lo[4], hi[4];
+          tmac::transpose4((x0 & 0x03030303u) | k3::hi4(h, 0), (x1 & 0x03030303u) | k3::hi4(h, 1),
+                           ((x0 >> 2) & 0x03030303u) | k3::hi4(h, 2),
+                           ((x1 >> 2) & 0x03030303u) | k3::hi4(h, 3), lo);
+          tmac::transpose4(((x0 >> 4) & 0x03030303u) | k3::hi4(h, 4),
+                           ((x1 >> 4) & 0x03030303u) | k3::hi4(h, 5),
+                           ((x0 >> 6) & 0x03030303u) | k3::hi4(h, 6),
+                           ((x1 >> 6) & 0x03030303u) | k3::hi4(h, 7), hi);
+#pragma unroll
+          for (int t4 = 0; t4 < 4; ++t4) {
+            o[t4][2 * i] = lo[t4];
+            o[t4][2 * i + 1] = hi[t4];
+          }
+        }
+      } else if constexpr (BITS == 4) {
+        // packed rows 8c + 4g .. +3, one word a column (byte i: row 8c + 4g
+        // + i); fields 0 and 1 of row 8c + r are k' = 16c + 2r and + 1, so
+        // words 2g and 2g + 1 of the chunk interleave the low and the high
+        // nibbles
+#pragma unroll
+        for (int g = 0; g < 2; ++g) {
+          uint32_t col[4];
+          tmac::transpose4(w[k][4 * g], w[k][4 * g + 1], w[k][4 * g + 2], w[k][4 * g + 3], col);
+#pragma unroll
+          for (int t4 = 0; t4 < 4; ++t4) {
+            const uint32_t lo = col[t4] & 0x0F0F0F0Fu, hi = (col[t4] >> 4) & 0x0F0F0F0Fu;
+            o[t4][2 * g] = __byte_perm(lo, hi, 0x5140);
+            o[t4][2 * g + 1] = __byte_perm(lo, hi, 0x7362);
+          }
+        }
+      } else if constexpr (BITS == 2) {
         // one word a column (byte i: packed row 4c + i), then its 16
         // fields in k' order (byte j of word i: k' = 16c + 4i + j)
         uint32_t col[4];
@@ -1055,10 +1156,12 @@ int launch_dequant_wgmma(const CUtensorMap& map, int N, int Kp, int gs,
 
 }  // namespace
 
-// K3: codes (N, Kp) int8 from tmac_act_quant with large_n (dp4a grouping),
-// xs and xsum (N,) f32, packed (Kp/4, Mp) (bits=2) or (Kp, Mp) (bits=8)
-// uint8, scales/sub (Mp,) f32, residual (N, Mp) bf16 or null -> out (N, Mp)
-// f32.  Kp a multiple of 16, Mp of 128; codes and packed 16-byte aligned; a
+// K3: codes (N, Kp) int8 from tmac_act_quant with large_n (K3's grouping),
+// xs and xsum (N,) f32, packed (Kp * bits / 8, Mp) uint8 (bits 3: the lo
+// plane (Kp / 4, Mp) and packed_hi, the hi plane (Kp / 8, Mp); else
+// packed_hi null), scales/sub (Mp,) f32 (per column), residual (N, Mp) bf16
+// or null -> out (N, Mp) f32.  bits 1 to 4 or 8; Kp a multiple of 16 (of
+// 32 at bits 1 and 3), Mp of 128; codes and packed 16-byte aligned; a
 // block of bm token rows (64, 128 or 256) x bn columns (128; or, at bits 2,
 // 256 at bm 64 or 128), a cluster of ksplit (1-8, at most the 128-k' steps of Kp)
 // blocks along K.  Launched programmatically after the prologue.  Returns
@@ -1066,23 +1169,34 @@ int launch_dequant_wgmma(const CUtensorMap& map, int N, int Kp, int gs,
 // card cannot place).
 extern "C" int tmac_large_int_wgmma(const void* codes, const float* xs,
                                     const float* xsum, int N, int Kp, int bits,
-                                    const void* packed, const float* scales,
-                                    const float* sub, int Mp, const void* residual,
-                                    float* out, int bm, int bn, int ksplit, void* stream) {
+                                    const void* packed, const void* packed_hi,
+                                    const float* scales, const float* sub, int Mp,
+                                    const void* residual, float* out, int bm, int bn,
+                                    int ksplit, void* stream) {
   const int nsteps = (Kp + k3::kStepK - 1) / k3::kStepK;
-  if (N <= 0 || Kp <= 0 || Kp % 16 != 0 || Mp % 128 != 0 || (bits != 2 && bits != 8) ||
+  if (N <= 0 || Kp <= 0 || Kp % 16 != 0 || Mp % 128 != 0 || bits < 1 ||
+      (bits > 4 && bits != 8) || Kp % (4 * k3::slots(bits)) != 0 ||
+      (bits == 3) != (packed_hi != nullptr) ||
       (bm != 64 && bm != 128 && bm != 256) || (bn != 128 && bn != 256) ||
-      (bn == 256 && (bm == 256 || bits == 8)) || ksplit < 1 || ksplit > k3::kMaxSplit || ksplit > nsteps ||
-      reinterpret_cast<uintptr_t>(codes) % 16 || reinterpret_cast<uintptr_t>(packed) % 16)
+      (bn == 256 && (bm == 256 || bits != 2)) || ksplit < 1 || ksplit > k3::kMaxSplit || ksplit > nsteps ||
+      reinterpret_cast<uintptr_t>(codes) % 16 || reinterpret_cast<uintptr_t>(packed) % 16 ||
+      reinterpret_cast<uintptr_t>(packed_hi) % 16)
     return (int)cudaErrorInvalidValue;
   k3::Args a{};
   int err = tmac::box_map(&a.codes_map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, codes, N, Kp,
                           k3::kStepK, bm, CU_TENSOR_MAP_SWIZZLE_128B);
   if (err != 0) return err;
-  err = tmac::box_map(&a.packed_map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, packed,
-                      bits == 2 ? Kp / 4 : Kp, Mp, bn, k3::raw_rows(bits),
-                      CU_TENSOR_MAP_SWIZZLE_NONE);
+  // the packed rows of the (lo) plane: Kp / p, p fields a byte
+  const int rows = bits == 3 ? Kp / 4 : Kp * bits / 8;
+  err = tmac::box_map(&a.packed_map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, packed, rows, Mp, bn,
+                      k3::raw_rows(bits), CU_TENSOR_MAP_SWIZZLE_NONE);
   if (err != 0) return err;
+  if (bits == 3) {
+    err = tmac::box_map(&a.hi_map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, packed_hi, Kp / 8, Mp,
+                        bn, k3::raw_rows(bits), CU_TENSOR_MAP_SWIZZLE_NONE);
+    if (err != 0) return err;
+  }
+  a.kh = Kp / 8;
   a.xs = xs;
   a.xsum = xsum;
   a.scales = scales;
@@ -1094,6 +1208,15 @@ extern "C" int tmac_large_int_wgmma(const void* codes, const float* xs,
   a.nsteps = nsteps;
   cudaStream_t s = (cudaStream_t)stream;
   switch (bits * 10000 + bn * 10 + bm / 64) {
+    case 11281: return launch_k3<1, 128, 1, 1>(a, ksplit, s);
+    case 11282: return launch_k3<1, 128, 2, 1>(a, ksplit, s);
+    case 11284: return launch_k3<1, 128, 2, 2>(a, ksplit, s);
+    case 31281: return launch_k3<3, 128, 1, 1>(a, ksplit, s);
+    case 31282: return launch_k3<3, 128, 2, 1>(a, ksplit, s);
+    case 31284: return launch_k3<3, 128, 2, 2>(a, ksplit, s);
+    case 41281: return launch_k3<4, 128, 1, 1>(a, ksplit, s);
+    case 41282: return launch_k3<4, 128, 2, 1>(a, ksplit, s);
+    case 41284: return launch_k3<4, 128, 2, 2>(a, ksplit, s);
     case 21281: return launch_k3<2, 128, 1, 1>(a, ksplit, s);
     case 21282: return launch_k3<2, 128, 2, 1>(a, ksplit, s);
     case 21284: return launch_k3<2, 128, 2, 2>(a, ksplit, s);

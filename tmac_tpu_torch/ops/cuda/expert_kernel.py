@@ -108,7 +108,8 @@ def expert_copy(stacked: QuantizedTensor, e) -> QuantizedTensor:
     else:
         def pick(a):
             return a[e]
-    return QuantizedTensor(pick(stacked.packed), None, pick(stacked.scales),
+    hi = pick(stacked.packed_hi) if stacked.packed_hi is not None else None
+    return QuantizedTensor(pick(stacked.packed), hi, pick(stacked.scales),
                            pick(stacked.sub), stacked.bits,
                            stacked.group_size, stacked.k_shards,
                            stacked.m_shards, stacked.shape,

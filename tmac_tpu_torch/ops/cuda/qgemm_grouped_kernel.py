@@ -63,6 +63,7 @@ import torch
 from tmac_tpu_torch.ops.cuda.qgemm_kernel import (DECODE_STRIP, _sms, act_scale,
                                                   check_decode_smem, decode_fields,
                                                   decode_owner, decode_plan,
+                                                  decode_slot_weights,
                                                   decode_spans, decode_units,
                                                   prologue_values, raise_on,
                                                   require)
@@ -249,26 +250,6 @@ def fold_plain(parts: torch.Tensor, xs: torch.Tensor, xsum: torch.Tensor,
     if residual is not None:
         out = out + residual.float()
     return out
-
-
-def decode_slot_weights(qt: QuantizedTensor, r0: int, r1: int, e: int):
-    """What slot e of the decode matmul's rows [r0, r1) (decode_units)
-    multiplies in its dp4a, as csrc/decode_matmul.cuh forms it in place:
-    -> (weight bytes (r1 - r0, Mp) int64, the shift its flush takes back).
-    Bits 1, 2, 4: field e of the packed bytes masked in place, i.e. times
-    2^(bits * e).  Bits 3: the code lo + 4 * hi of k = e * Kb + r
-    assembled at bit t = min(2 * (e // 2), 4) of the byte: field e // 2 of
-    lo plane row r + (e % 2) * Kb, shifted right by 2 * (e // 2) - t, and
-    bit e of hi plane row r, moved to bit t + 2 (tmac::decode::b3_slot)."""
-    pk = qt.packed.long()
-    if qt.bits != 3:
-        return pk[r0:r1] & (((1 << qt.bits) - 1) << (qt.bits * e)), qt.bits * e
-    Kb, j = qt.kdim_padded // 8, e // 2
-    t = min(2 * j, 4)
-    lo = pk[r0 + (e % 2) * Kb:r1 + (e % 2) * Kb] >> (2 * j - t)
-    hi, hs = qt.packed_hi.long()[r0:r1], t + 2 - e
-    hi = hi << hs if hs >= 0 else hi >> -hs
-    return (lo & (3 << t)) | (hi & (4 << t)), t
 
 
 def block_partials_plain(codes: torch.Tensor, qt: QuantizedTensor,

@@ -1,14 +1,17 @@
-"""Kernels K1 and K3: per-tensor-scale packed low-bit matmuls with the
-activations quantized to int8 per row.
+"""Kernels K1 and K3: packed low-bit matmuls with one scale row (G == 1:
+BitNet's per-tensor scale, w_fp's per-column scales and zero points at
+group_size -1, the int8 head) and the activations quantized to int8 per
+row, at bits 1 to 4 and 8 (bits 3: a 2-bit lo plane and a 1-bit hi plane).
 
 Both replace ``tmac_tpu/ops/pallas/qgemm_kernel.py::_make_kernel`` on the
-two routes that ``qgemm_pallas(act="fused")`` takes for per-tensor scales
+two routes that ``qgemm_pallas(act="fused")`` takes for one scale row
 (``ops.qgemm.route``): K1, for N < 64 rows of x, its
 ``fused_quant=True, int_acc=True`` form, as CUDA C++ for Hopper in
 ``csrc/qgemm_fused.cu`` (the prologue) and ``csrc/decode_matmul.cuh``
 (the matmul K1 shares with K4: a programmatic dependent launch after the
 prologue, K split over a thread-block cluster by ``decode_plan``); K3,
-from 64 rows, its ``single_dot`` form after the reference's XLA prologue,
+from 64 rows, its ``single_dot`` form (at bits 3 its chunk loop with int32
+sums: the same exact dot) after the reference's XLA prologue,
 in ``csrc/qgemm_large.cu`` on K1's prologue (wgmma s8 on TMA-fed,
 producer-unpacked shared memory; the token tile and a split of K over a
 cluster picked by ``large_plan``).
@@ -37,10 +40,12 @@ _c_ptr, _c_int, _c_float = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
 def _check_supported(qt: QuantizedTensor, glu: bool, norm, residual) -> None:
-    if qt.bits not in (2, 8):
-        raise ValueError(f"K1 takes bits 2 and 8, not {qt.bits}")
+    if qt.bits not in (1, 2, 3, 4, 8):
+        raise ValueError(f"K1 takes bits 1 to 4 and 8, not {qt.bits}")
+    if (qt.bits == 3) != (qt.packed_hi is not None):
+        raise ValueError("K1 takes a hi plane at bits 3 and at bits 3 only")
     if qt.scales.shape[0] != 1 or qt.k_shards != 1:
-        raise ValueError("K1 takes per-tensor scales (G == 1) and k_shards == 1")
+        raise ValueError("K1 takes one scale row (G == 1) and k_shards == 1")
     if glu and (norm is not None or qt.kdim_padded != qt.kdim):
         raise ValueError("the glu fold needs no norm and an unpadded K")
     if residual is not None and (qt.mdim_padded != qt.mdim
@@ -140,13 +145,14 @@ def int_dot_plain(codes: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
 
 
 def dp4a_order(codes: torch.Tensor, bits: int) -> torch.Tensor:
-    """Natural-order codes (N, Kp) -> the grouping K3's prologue writes:
-    byte j of 32-bit word q holds the code of k = q + j*Kp/4 for bits=2
-    (the packed field order) and of k = 4q + j for bits=8."""
-    if bits == 8:
-        return codes
+    """Natural-order codes (N, Kp) -> the order K3's prologue writes: k' =
+    F*r + j holds the code of k = r + j*Kp/F, F = decode_fields(bits) the
+    slots of a packed row (2 at bits 4, 4 at bits 2, 8 at bits 1 and 3, so
+    the fields of a packed byte, or at bits 3 the slots of lo rows r and r
+    + Kp/8 and hi row r, are F consecutive k'); k' = k at bits 8."""
+    F = decode_fields(bits)
     N, Kp = codes.shape
-    return codes.reshape(N, 4, Kp // 4).transpose(1, 2).reshape(N, Kp)
+    return codes.reshape(N, F, Kp // F).transpose(1, 2).reshape(N, Kp)
 
 
 # ---------------------------------------------------------------------------
@@ -156,7 +162,7 @@ def dp4a_order(codes: torch.Tensor, bits: int) -> torch.Tensor:
 DECODE_STRIP = 128        # output columns of a block
 DECODE_STAGE_ROWS = 32    # packed rows of a ring stage (K1's unit of the split)
 DECODE_STAGES = 8         # the ring's stages (K1, K4; K7 takes 6 or 8)
-DECODE_STAGES_B3 = 3      # K4 at bits 3: stages of 3 planes (12 KB each)
+DECODE_STAGES_B3 = 3      # K1 and K4 at bits 3: stages of 3 planes (12 KB each)
 DECODE_MAX_SPLIT = 8      # portable cluster size
 DECODE_XBUF = 8 * 32 * 20 * 4   # K4's per-warp exchange buffers
 DECODE_SMEM_BUDGET = 112 * 1024   # two blocks an SM
@@ -215,8 +221,8 @@ def decode_units(Kp: int, bits: int, gs: int = 0):
 
 
 def decode_stages(bits: int) -> int:
-    """The ring's stages of K4 at bits: DECODE_STAGES, or at bits 3, whose
-    stage is 3 planes of 32 rows, DECODE_STAGES_B3."""
+    """The ring's stages of K1 and K4 at bits: DECODE_STAGES, or at bits 3,
+    whose stage is 3 planes of 32 rows, DECODE_STAGES_B3."""
     return DECODE_STAGES_B3 if bits == 3 else DECODE_STAGES
 
 
@@ -360,27 +366,47 @@ def check_decode_smem(kernel: str, N: int, Kp: int, bits: int, gs: int,
                          f"{need} bytes of shared memory a block")
 
 
+def decode_slot_weights(qt: QuantizedTensor, r0: int, r1: int, e: int):
+    """What slot e of the decode matmul's rows [r0, r1) (decode_units)
+    multiplies in its dp4a, as csrc/decode_matmul.cuh forms it in place:
+    -> (weight bytes (r1 - r0, Mp) int64, the shift its flush takes back).
+    Bits 1, 2, 4: field e of the packed bytes masked in place, i.e. times
+    2^(bits * e).  Bits 3: the code lo + 4 * hi of k = e * Kb + r
+    assembled at bit t = min(2 * (e // 2), 4) of the byte: field e // 2 of
+    lo plane row r + (e % 2) * Kb, shifted right by 2 * (e // 2) - t, and
+    bit e of hi plane row r, moved to bit t + 2 (tmac::decode::b3_slot)."""
+    pk = qt.packed.long()
+    if qt.bits != 3:
+        return pk[r0:r1] & (((1 << qt.bits) - 1) << (qt.bits * e)), qt.bits * e
+    Kb, j = qt.kdim_padded // 8, e // 2
+    t = min(2 * j, 4)
+    lo = pk[r0 + (e % 2) * Kb:r1 + (e % 2) * Kb] >> (2 * j - t)
+    hi, hs = qt.packed_hi.long()[r0:r1], t + 2 - e
+    hi = hi << hs if hs >= 0 else hi >> -hs
+    return (lo & (3 << t)) | (hi & (4 << t)), t
+
+
 def int_dot_split_plain(codes: torch.Tensor, qt: QuantizedTensor,
                         ksplit: int) -> torch.Tensor:
     """K1's int32 sums as the decode matmul splits them: block `rank` takes
-    the packed rows of its units, each field j masked in place (its
-    weights times 2^(bits * j)) meets the natural-order codes k = j * Kb +
-    row, the sum is shifted back by bits * j, and the blocks' sums are
-    added in rank order.  -> (N, Mp) int32, equal to int_dot_plain."""
+    the rows of its units (decode_units: at bits 3 a row is lo plane rows r
+    and r + Kb and hi plane row r), each slot e's weights formed in place
+    (decode_slot_weights: times 2^shift) meet the natural-order codes k = e
+    * Kb + row, the sum is shifted back, and the blocks' sums are added in
+    rank order.  -> (N, Mp) int32, equal to int_dot_plain."""
     bits = qt.bits
     Kb, unit, nunits = decode_units(qt.kdim_padded, bits)
     c = codes.long()
-    pk = qt.packed.long()
     total = torch.zeros((codes.shape[0], qt.mdim_padded), dtype=torch.long)
     for u0, u1 in decode_spans(nunits, ksplit):
         r0, r1 = u0 * unit, min(u1 * unit, Kb)
         if bits == 8:
-            w = pk[r0:r1].to(torch.uint8).view(torch.int8).long()
+            w = qt.packed[r0:r1].view(torch.int8).long()
             total += c[:, r0:r1] @ w
             continue
-        for j in range(8 // bits):
-            masked = pk[r0:r1] & (((1 << bits) - 1) << (bits * j))
-            total += (c[:, j * Kb + r0:j * Kb + r1] @ masked) >> (bits * j)
+        for e in range(decode_fields(bits)):
+            w, shift = decode_slot_weights(qt, r0, r1, e)
+            total += (c[:, e * Kb + r0:e * Kb + r1] @ w) >> shift
     return total.to(torch.int32)
 
 
@@ -439,7 +465,7 @@ def _lib():
         _c_float, _c_int, _c_int, _c_int, _c_ptr, _c_ptr, _c_ptr, _c_ptr]
     lib.tmac_act_quant.restype = _c_int
     lib.tmac_decode_qgemm.argtypes = [
-        _c_ptr, _c_ptr, _c_ptr, _c_int, _c_int, _c_int, _c_ptr, _c_ptr,
+        _c_ptr, _c_ptr, _c_ptr, _c_int, _c_int, _c_int, _c_ptr, _c_ptr, _c_ptr,
         _c_ptr, _c_int, _c_ptr, _c_ptr, _c_int, _c_int, _c_ptr]
     lib.tmac_decode_qgemm.restype = _c_int
     return lib
@@ -465,7 +491,7 @@ def launch_act_quant(x: torch.Tensor, qt: QuantizedTensor, norm=None,
                      glu: bool = False, large_n: bool = False):
     """Launch K1's prologue (K3's with large_n): -> (codes (N, Kp) int8,
     xs (N,), xsum (N,)); xsum as act_quant_plain gives it.  The codes in
-    natural k order for K1's matmul, in dp4a grouping (dp4a_order) for
+    natural k order for K1's matmul, in K3's order (dp4a_order) for
     K3's."""
     dev = x.device
     N = x.shape[0]
@@ -497,14 +523,21 @@ def _check_gemm_args(kernel: str, codes, xs, xsum, qt: QuantizedTensor,
     require(kernel, codes, "codes", torch.int8, (N, Kp), dev)
     require(kernel, xs, "xs", torch.float32, (N,), dev)
     require(kernel, xsum, "xsum", torch.float32, (N,), dev)
-    rows = Kp // 4 if qt.bits == 2 else Kp
+    rows = Kp // 4 if qt.bits == 3 else Kp * qt.bits // 8
     require(kernel, qt.packed, "packed", torch.uint8, (rows, Mp), dev)
+    if qt.bits == 3:
+        require(kernel, qt.packed_hi, "packed_hi", torch.uint8, (Kp // 8, Mp), dev)
     require(kernel, qt.scales, "scales", torch.float32, (1, Mp), dev)
     require(kernel, qt.sub, "sub", torch.float32, (1, Mp), dev)
     if residual is None:
         return None
     require(kernel, residual, "residual", torch.bfloat16, (N, Mp), dev)
     return residual.data_ptr()
+
+
+def _hi_ptr(qt: QuantizedTensor) -> int:
+    """The hi plane's address at bits 3, else 0."""
+    return qt.packed_hi.data_ptr() if qt.packed_hi is not None else 0
 
 
 def _sms(dev) -> int:
@@ -519,7 +552,8 @@ def launch_decode(codes: torch.Tensor, xs: torch.Tensor, xsum: torch.Tensor,
     f32.  ksplit: the cluster size along K (decode_plan's by default)."""
     res_ptr = _check_gemm_args("K1", codes, xs, xsum, qt, residual)
     N, Kp, Mp = codes.shape[0], qt.kdim_padded, qt.mdim_padded
-    if qt.packed.data_ptr() % 16 or codes.data_ptr() % 4 or Mp % DECODE_STRIP:
+    if (qt.packed.data_ptr() % 16 or _hi_ptr(qt) % 16 or codes.data_ptr() % 4
+            or Mp % DECODE_STRIP):
         raise ValueError("K1: 16-byte aligned packed weights, 4-byte aligned "
                          "codes and Mp % 128 == 0")
     plan, nt = decode_plan(N, Kp, Mp, qt.bits, 0, _sms(codes.device))
@@ -527,8 +561,8 @@ def launch_decode(codes: torch.Tensor, xs: torch.Tensor, xsum: torch.Tensor,
     out = torch.empty((N, Mp), dtype=torch.float32, device=codes.device)
     err = _lib().tmac_decode_qgemm(
         codes.data_ptr(), xs.data_ptr(), xsum.data_ptr(), N, Kp, qt.bits,
-        qt.packed.data_ptr(), qt.scales.data_ptr(), qt.sub.data_ptr(), Mp,
-        res_ptr, out.data_ptr(), ksplit or plan, nt,
+        qt.packed.data_ptr(), _hi_ptr(qt), qt.scales.data_ptr(),
+        qt.sub.data_ptr(), Mp, res_ptr, out.data_ptr(), ksplit or plan, nt,
         torch.cuda.current_stream(codes.device).cuda_stream)
     raise_on("K1", err, "matmul")
     return out
@@ -574,40 +608,49 @@ qgemm_fused.launches = 0
 
 LARGE_STEP = 128          # k' of a step (one 128-byte swizzled row of A and B)
 # a block's (token rows, columns): (1 x m64, n128), (2 x m64, n128),
-# (2 x 2 x m64, n128), and at bits 2 (1 x m64, n256), (2 x m64, n256)
+# (2 x 2 x m64, n128), and at bits 2 (1 x m64, n256), (2 x m64, n256): the
+# wide tiles were fitted to bits 2 alone, and each instance adds to the build
 LARGE_TILES = ((64, 128), (128, 128), (256, 128), (64, 256), (128, 256))
 LARGE_MAX_SPLIT = 8       # portable cluster size
 LARGE_MAX_STAGES = 8
 # large_plan's cost model, fitted (least squares on log times) to the
 # matmul's time at every tile and cluster size 1-8 on BitNet-3B's prefill
 # shapes at N = 64, 256 and 1024 on an H100 (PERF.md, PR 10), in
-# microseconds: a step's time by tile (bits 8 LARGE_BITS8_STEP times it:
-# four times the packed bytes to unpack); a block's fixed time, LARGE_FIXED_US
+# microseconds: a step's time by tile (times LARGE_BITS_STEP[bits]: bits 8
+# has four times the packed bytes to unpack; bits 1, 3 and 4 take bits 2's
+# step, not fitted); a block's fixed time, LARGE_FIXED_US
 # plus LARGE_AREA_US times its tile's area over 256 x 128 (the epilogue, the
 # rings' first fill); a split's cost, (LARGE_SPLIT_US + LARGE_SPLIT_PER_US *
 # ksplit) times that area (the partials through distributed shared memory);
 # and the share of the card clusters of 4 or more blocks fill
 LARGE_STEP_US = {(64, 128): 0.61, (128, 128): 0.67, (256, 128): 0.85,
                  (64, 256): 0.87, (128, 256): 1.03}
-LARGE_BITS8_STEP = 1.27
+LARGE_BITS_STEP = {1: 1.0, 2: 1.0, 3: 1.0, 4: 1.0, 8: 1.27}
 LARGE_FIXED_US, LARGE_AREA_US = 2.9, 6.8
 LARGE_SPLIT_US, LARGE_SPLIT_PER_US = 3.1, 0.2
 LARGE_WIDE_FILL = 0.945
+
+
+def large_raw_bytes(bits: int, bn: int) -> int:
+    """The packed bytes of one K3 step at bn columns: LARGE_STEP / F packed
+    rows of each plane (F = decode_fields(bits); three planes' rows at bits
+    3: lo rows r and r + Kp/8, hi rows r)."""
+    return LARGE_STEP // decode_fields(bits) * decode_planes(bits) * bn
 
 
 def large_smem(bits: int, bm: int, bn: int):
     """(ring stages, packed stages, bytes) of K3's shared memory at a tile
     of bm token rows x bn columns, as k3::Layout sizes it: 1024 bytes of
     alignment slack; stages of A (bm x 128 bytes) and B (bn x 128 bytes),
-    as many as fit, at most LARGE_MAX_STAGES; the packed ring, 32 KB at
-    bits 2 and 64 KB at bits 8; the barriers; the epilogue's scales and
-    zero points."""
-    rows = LARGE_STEP // 4 if bits == 2 else LARGE_STEP
-    raws = (32 if bits == 2 else 64) * 1024 // (rows * bn)
+    as many as fit, at most LARGE_MAX_STAGES; the packed ring, as many
+    steps as 32 KB holds, 4 to 8 (32 KB at bits 2, 64 KB at bits 8); the
+    barriers; the epilogue's scales and zero points."""
+    raw = large_raw_bytes(bits, bn)
+    raws = min(8, max(4, 32768 // raw))
     stage = (bm + bn) * LARGE_STEP
 
     def total(stages):
-        return 1024 + stages * stage + raws * rows * bn + 16 * (stages + raws) + 8 * bn
+        return 1024 + stages * stage + raws * raw + 16 * (stages + raws) + 8 * bn
     stages = LARGE_MAX_STAGES
     while stages > 2 and total(stages) > DECODE_SMEM_LIMIT:
         stages -= 1
@@ -625,14 +668,14 @@ def check_large(N: int, Kp: int, Mp: int, bits: int, bm: int, bn: int,
     """Raise unless K3 takes these shapes at a tile of bm token rows x bn
     columns and a cluster of ksplit blocks along K (large_plan's, or
     forced)."""
-    if bits not in (2, 8):
-        raise ValueError(f"K3 takes bits 2 and 8, not {bits}")
-    if N < LARGE_N or Kp <= 0 or Kp % 16 or Mp % 128:
-        raise ValueError(f"K3 takes N >= {LARGE_N}, Kp % 16 == 0 and Mp % 128 == 0, "
-                         f"not N = {N}, Kp = {Kp}, Mp = {Mp}")
-    if (bm, bn) not in LARGE_TILES or (bits == 8 and bn != 128):
+    if bits not in (1, 2, 3, 4, 8):
+        raise ValueError(f"K3 takes bits 1 to 4 and 8, not {bits}")
+    if N < LARGE_N or Kp <= 0 or Kp % 16 or Kp % (4 * decode_fields(bits)) or Mp % 128:
+        raise ValueError(f"K3 takes N >= {LARGE_N}, Kp % 16 == 0 (Kp % 32 at bits 1 and 3) "
+                         f"and Mp % 128 == 0, not N = {N}, Kp = {Kp}, Mp = {Mp}")
+    if (bm, bn) not in LARGE_TILES or (bits != 2 and bn != 128):
         raise ValueError(f"K3: a tile of {bm} x {bn} at bits {bits}; it takes "
-                         f"{LARGE_TILES}, at bits 8 those of 128 columns")
+                         f"{LARGE_TILES}, at bits other than 2 those of 128 columns")
     nsteps = cdiv(Kp, LARGE_STEP)
     if not 1 <= ksplit <= min(LARGE_MAX_SPLIT, nsteps):
         raise ValueError(f"K3: a cluster of {ksplit} along {nsteps} steps of K")
@@ -681,7 +724,7 @@ def large_plan(N: int, Kp: int, Mp: int, bits: int, sms: int = DEFAULT_SMS):
             fit = int(fit * LARGE_WIDE_FILL)
         waves = cdiv(cdiv(Mp, bn) * cdiv(N, bm), max(fit, 1))
         area = bm * bn / (256 * 128)
-        step = LARGE_STEP_US[bm, bn] * (LARGE_BITS8_STEP if bits == 8 else 1.0)
+        step = LARGE_STEP_US[bm, bn] * LARGE_BITS_STEP[bits]
         block = (cdiv(cdiv(Kp, LARGE_STEP), ksplit) * step + LARGE_FIXED_US
                  + LARGE_AREA_US * area
                  + ((LARGE_SPLIT_US + LARGE_SPLIT_PER_US * ksplit) * area if ksplit > 1 else 0.0))
@@ -709,7 +752,7 @@ def _lib_large():
     from tmac_tpu_torch.ops.cuda import build
     lib = build.load("qgemm_large")
     lib.tmac_large_int_wgmma.argtypes = [
-        _c_ptr, _c_ptr, _c_ptr, _c_int, _c_int, _c_int, _c_ptr, _c_ptr,
+        _c_ptr, _c_ptr, _c_ptr, _c_int, _c_int, _c_int, _c_ptr, _c_ptr, _c_ptr,
         _c_ptr, _c_int, _c_ptr, _c_ptr, _c_int, _c_int, _c_int, _c_ptr]
     lib.tmac_large_int_wgmma.restype = _c_int
     return lib
@@ -724,7 +767,7 @@ def launch_large_int(codes: torch.Tensor, xs: torch.Tensor, xsum: torch.Tensor,
     the cluster size along K (large_plan's by default)."""
     res_ptr = _check_gemm_args("K3", codes, xs, xsum, qt, residual)
     N, Kp, Mp = codes.shape[0], qt.kdim_padded, qt.mdim_padded
-    if qt.packed.data_ptr() % 16 or codes.data_ptr() % 16:
+    if qt.packed.data_ptr() % 16 or _hi_ptr(qt) % 16 or codes.data_ptr() % 16:
         raise ValueError("K3: 16-byte aligned codes and packed weights")
     plan_bm, plan_bn, plan_split = large_plan(N, Kp, Mp, qt.bits, _sms(codes.device))
     (bm, bn), ksplit = tile or (plan_bm, plan_bn), ksplit or plan_split
@@ -732,8 +775,8 @@ def launch_large_int(codes: torch.Tensor, xs: torch.Tensor, xsum: torch.Tensor,
     out = torch.empty((N, Mp), dtype=torch.float32, device=codes.device)
     err = _lib_large().tmac_large_int_wgmma(
         codes.data_ptr(), xs.data_ptr(), xsum.data_ptr(), N, Kp, qt.bits,
-        qt.packed.data_ptr(), qt.scales.data_ptr(), qt.sub.data_ptr(), Mp,
-        res_ptr, out.data_ptr(), bm, bn, ksplit,
+        qt.packed.data_ptr(), _hi_ptr(qt), qt.scales.data_ptr(),
+        qt.sub.data_ptr(), Mp, res_ptr, out.data_ptr(), bm, bn, ksplit,
         torch.cuda.current_stream(codes.device).cuda_stream)
     raise_on("K3", err, "matmul")
     return out

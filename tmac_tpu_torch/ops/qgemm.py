@@ -8,7 +8,8 @@ implementation computes C = x @ Wdq with
   * "fused" -- the kernel that ``qgemm_pallas(act="fused")`` runs for the
                weights and the N rows of x (``route``), each with an
                optional rms_norm / SwiGLU prologue and residual epilogue:
-               per-tensor scales, per-token int8 activations and an exact
+               one scale row (per tensor, or per column at group_size
+               -1), per-token int8 activations and an exact
                int32 dot: K1 (ops/cuda/qgemm_kernel.py) for N < 64, K3 from
                64 rows; grouped scales: K4 (ops/cuda/qgemm_grouped_kernel.py,
                int8 activations per (token, group), exact int32 dots per
@@ -380,12 +381,11 @@ def qgemm(x: torch.Tensor, qt: QuantizedTensor, impl: str = "auto",
     """Quantized matmul x (N, K) @ Wdq (K, M) -> (N, M).
 
     impl: "fused" (float x: the kernel ``route`` picks: K1 or K3 for
-    per-tensor scales, K4 or K5 for grouped ones), "torch", or "auto":
+    one scale row, K4 or K5 for grouped ones), "torch", or "auto":
     "fused" for any tensor off the CPU, whose kernels raise on what they do
-    not cover yet (int8 x, bits other than K1's and K3's 2 and 8 or K4's
-    and K5's 1 to 4, group size 16); on the CPU, the kernels' plain versions
-    for float x (grouped: bits 1 to 4 or 8, bf16 or f32 scales, group size
-    16 or a multiple of 32) and "torch" otherwise.
+    not cover yet (int8 x, grouped bits 8, group size 16); on the CPU, the
+    kernels' plain versions for float x (grouped: bits 1 to 4 or 8, bf16 or
+    f32 scales, group size 16 or a multiple of 32) and "torch" otherwise.
     norm: optional (weight (K,), eps) rms_norm applied to x first.
     glu: x is (N, 2K) and silu(x[:, :K]) * x[:, K:] feeds the matmul.
     residual: optional (N, M) added to the output.
