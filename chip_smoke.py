@@ -76,9 +76,10 @@ Phases, each printing one JSON line before the last two:
      bf16 matmul; K10: K1's three calls for the same layer);
   6. path 2, Llama-2-7B W2A16 g128 at full width and depth (32 layers,
      hidden 4096, 32 heads, head_dim 128, FFN 11008, vocab 32000), random
-     weights from seed 0: kernel K4 (per-group act-quant + grouped-scale
-     packed qgemm) against its plain version at the path's shapes, bits 2
-     and 4 (a one-layer W4A16 model), N = 1, 4, 16 and 63, at the cluster
+     weights drawn on the card from seed 0 (params_on_card): kernel K4
+     (per-group act-quant + grouped-scale packed qgemm) against its plain
+     version at the path's shapes, bits 2 and 4 (a one-layer W4A16 model,
+     the package's init_params), N = 1, 4, 16 and 63, at the cluster
      sizes of K1's checks (bit for bit with exact codes, scales and code
      sums without folds, NMSE <= 1e-6 with them), and its tensor-core form K4L (from 64 rows) at N = 64, 100, 256
      and 383, bit for bit with every fold, also at group sizes 32 and 96
@@ -114,16 +115,17 @@ Phases, each printing one JSON line before the last two:
      outside the stack gives NaN; the select form's MoE MLP of a layer
      captured in a CUDA graph and replayed on tokens whose routes change,
      each replay bit for bit the plain versions'; prefill of a 256-token
-     prompt (the MoE layers in the capacity-dispatch form over K4L: 576 K4L
-     and 1 K3 launches) and 64 greedy decode steps through decode_loop
-     (the select form through K7: 64 K7 (gate_up and down of both routed
-     experts, one call each a layer), 64 K4, 32 K2 and 1 K1 launches per
-     step; the step in a CUDA graph makes no host sync), then the checks
+     prompt (the MoE layers in the capacity-dispatch form over K4L: 288 K4L
+     and 1 K3 launches at MIXTRAL_LAYERS (16) of its 32 layers) and 64
+     greedy decode steps through decode_loop (the select form through K7:
+     32 K7 (gate_up and down of both routed experts, one call each a
+     layer), 32 K4, 16 K2 and 1 K1 launches per step; the step in a CUDA
+     graph makes no host sync), then the checks
      and timings of path 1's main run, K7's per call and per step, and
      K4L's device time over a prefill (torch.profiler) beside its bound,
      its plain version's and the bf16 matmul's on the same calls;
-  8. path 4, Phi-3-mini W2A16 g128 at full width and depth (32 layers,
-     hidden 3072, 32 heads of head_dim 96, FFN 8192, vocab 32064, a
+  8. path 4, Phi-3-mini W2A16 g128 at full width, PHI3_LAYERS (16) of its
+     32 layers (hidden 3072, 32 heads of head_dim 96, FFN 8192, vocab 32064, a
      2047-row sliding window), random weights drawn on the card from seed
      0: kernels K6 (int8 cache and/or window), K8 (current token as an
      operand) and K9 (K8 storing the current row), the same kernel as K2,
@@ -134,8 +136,8 @@ Phases, each printing one JSON line before the last two:
      untouched, the store at cached length S on row S - 1); K4 at Phi-3's
      shapes (N = 1) and K4L (N = 64, 100, 256, 383); a 2304-token prefill
      (nine chunks of 256, past the window) and 64 greedy decode steps
-     through decode_loop on an int8 cache (1152 K4L and 9 K3 launches for
-     the prefill, no K4; 128 K4, 1 K1 and 32 K6 a step), the same on a
+     through decode_loop on an int8 cache (576 K4L and 9 K3 launches for
+     the prefill, no K4; 64 K4, 1 K1 and 16 K6 a step), the same on a
      bf16 cache, and 64 steps through decode_loop from the int8 prefill's
      cache in the deferred (K8) and in-kernel (K9) KV-write modes, each
      run also by an eager loop giving the same tokens (and cache), the two
@@ -151,7 +153,7 @@ Phases, each printing one JSON line before the last two:
      bf16 caches): the rows the reference's clamped writes give, kernel
      and plain paths equal, no device-side assert, and one kernel after;
   9. paths 5 and 6 (grouped_path), weights drawn on the card from seed 0
-     at full width and depth: Llama-3.1-8B W3A16 g128 (32 layers, hidden
+     at full width: Llama-3.1-8B W3A16 g128 (W3_LAYERS (16) of 32 layers, hidden
      4096, 32 heads over 8 KV heads, FFN 14336, vocab 128256, llama3 rope
      scaling; 3-bit weights as a lo and a hi plane) and Qwen2-7B W4A16
      g128 (28 layers, hidden 3584, 28 heads over 4 KV heads: rep 7, FFN
@@ -194,12 +196,13 @@ Phases, each printing one JSON line before the last two:
      sums byte for byte) at decode_plan's cluster size and at 1 and 8, and
      with the residual; then path 7 (ags_path, grouped_path), Llama-2-7B
      W2 g128 with zero points at act_group_size 32 (weights drawn on the
-     card, seed 0): K4's ags form (N = 1, 4, 16) and K4L's (N = 64, 256)
+     card, seed 0; AGS_LAYERS (16) of 32 layers): K4's ags form (N = 1,
+     4, 16) and K4L's (N = 64, 256)
      on layer 0's four linears with and without folds, K5 (N = 384, 512),
-     K1 and K3 on the head, K2; a 768-token prompt in chunks of 512 (128
-     K5, where the reference keeps float activations) and 256 (128 K4L in
-     the ags form), 64 steps at positions 768-831 through decode_loop (128
-     K4, 1 K1, 32 K2 a step), teacher-forced as path 5; the prompt's last
+     K1 and K3 on the head, K2; a 768-token prompt in chunks of 512 (64
+     K5, where the reference keeps float activations) and 256 (64 K4L in
+     the ags form), 64 steps at positions 768-831 through decode_loop (64
+     K4, 1 K1, 16 K2 a step), teacher-forced as path 5; the prompt's last
      position's logits at ags 32 and at ags 0 against a bf16 dequant
      forward (printed, not gated); K4 per step (also at ags 0 on the same
      weights), K4L and K5 per prefill;
@@ -259,8 +262,8 @@ Phases, each printing one JSON line before the last two:
      split into K1 (linears, head), the einsum attention and glue, beside
      a one-token step; K1 at 5 and 9 rows and K2 at 96 timed;
  17. (after path 8) path 11 (gguf_path), GGUF files: Llama-3.1-8B at bits
-     4, gs 32 with zero points drawn on the card (seed 0, all 32 layers),
-     written by export_gguf as Q4_K (5.5 GB, in a temporary directory,
+     4, gs 32 with zero points drawn on the card (seed 0, GGUF_LAYERS (16)
+     of its 32 layers), written by export_gguf as Q4_K (in a temporary directory,
      deleted after) and read back by convert_gguf_model: matmuls at bits 4,
      gs 32 with f32 scales and sub, the int8 head, rope_freqs.weight as the
      factors scaling; the card's torch packers and Q4_K decoder held to the
@@ -268,8 +271,8 @@ Phases, each printing one JSON line before the last two:
      scales (past the shared memory that staging every group's factors
      took); then grouped_path on the gguf's weights: K4 (N = 1, 4, 16),
      K4L (N = 64, 88), K5 (N = 512) on layer 0's four linears with and
-     without folds, a 600-token prompt in chunks of 512 (128 K5) and 88
-     (128 K4L), 64 steps through decode_loop (128 K4, 1 K1, 32 K2 a step),
+     without folds, a 600-token prompt in chunks of 512 (64 K5) and 88
+     (64 K4L), 64 steps through decode_loop (64 K4, 1 K1, 16 K2 a step),
      teacher-forced as path 5, and the kernels' times; then Mixtral-8x7B
      at full width and 2 of its 32 layers through a Q4_K gguf file: K7's
      f32 form (N = 1 and 4, gate_up and down, every expert and cluster
@@ -292,12 +295,36 @@ Phases, each printing one JSON line before the last two:
      on the int8 head, K2 at rep 4; a 1024-token prompt in chunks of 512
      (258 K3) and 64 steps through decode_loop (129 K1, 32 K2 a step),
      teacher-forced on every position and 8 steps (bit for bit: K1 and K3
-     sum integers exactly); K1 per step and K3 per prefill timed.
+     sum integers exactly); K1 per step and K3 per prefill timed;
+ 19. (after path 12) paths 13, 14 and 14b (gguf_lowbit_path), GGUF's
+     Q2_K and Q8_0: first the form checks (lowbit_form_checks) of K4 (N =
+     1, 4, 16 at every cluster size), K4L (dispatch "chunk", N = 64, 88)
+     and K5 (N = 512) at gs 16 with bits 1-4 and bf16 and f32 scales, and
+     at bits 8 with gs 32 and 16, on Llama-3.1-8B's four linear shapes
+     (seed 18), bit for bit (K5 within its bound), and K4 and K4L at ags
+     16 on a layer of Llama-2-7B W2 g128 with and without its folds; K4L
+     at gs 16 and the ags-16 forms timed; then path 13, Llama-3.1-8B at
+     full width and depth drawn on the card and written as Q2_K (bits 2,
+     gs 16, f32 scales and sub) and read back: K4 (N = 1, 4, 16), K4L (64,
+     88) and K5 (512 and 88) on layer 0 with and without folds, a 600-token prompt
+     in chunks of 512 and 88 (256 K5: 3 * 16 rows take K5), 64 steps
+     through decode_loop (128 K4 at gs 16, 1 K1, 32 K2 a step),
+     teacher-forced as path 5; path 14, the same at LB_Q8_LAYERS (16)
+     layers through a Q8_0 file (bits 8, gs 32: 64 K5, 64 K4L, 64 K4 a
+     step); path 14b, Mixtral-8x7B at 2 of 32 layers through a Q2_K file:
+     K7 at gs 16 (N = 1 and 4, every expert and cluster size), 64 tokens
+     (wqkv and wo on K5, the experts' slots on K4) and 64 steps (4 K7, 4
+     K4, 2 K2, 1 K1 a step), teacher-forced on the prompt's last position
+     and GGUF_MOE_FORCED (16) steps (path 13: NEW_FORCED); in the full
+     run, paths 13 and 14b force LB_FULL_RUN_FORCED (1 and 1) steps.
+In the full run the sweeps come last (full_run_sweeps), the timing
+sweeps only while the run has spent less than SWEEPS_BY_S seconds.
 The last two lines are the kernels' JSON record and
 {"ok": true, "device": {...}}.  Any failed check raises and the script
 exits non-zero; so does a machine without a CUDA device.
 """
 
+import collections
 import contextlib
 import dataclasses
 import itertools
@@ -306,6 +333,7 @@ import math
 import re
 import subprocess
 import sys
+import threading
 import time
 
 # Published H100 / H200 peaks (NVIDIA data sheets, dense): device-memory
@@ -353,6 +381,10 @@ NOISE_LEADS = 6.0
 # floor rule.
 LLAMA_SHALLOW_LAYERS, SHALLOW_NMSE, SHALLOW_GATED_SHARE = 2, 1e-3, 0.5
 STEP_MS = {}  # per path: eager and graph step ms, prefill s (the record line)
+# paths 3, 4, 5 and 7's depths since the full run took paths 13, 14 and
+# 14b (PERF.md §4 lists the seconds each cut saves): 16 of the 32 layers
+# of Mixtral-8x7B, Phi-3-mini, Llama-3.1-8B W3 and Llama-2-7B at ags 32
+MIXTRAL_LAYERS = PHI3_LAYERS = W3_LAYERS = AGS_LAYERS = 16
 
 
 def say(phase, **kw):
@@ -1053,7 +1085,7 @@ def run_path(card, tag, cfg, params, prompt_len, want_prefill, want_step,
         raise AssertionError(f"{tag}: launch counts: prefill {pre}, per step {per_step}")
     if int(cache.pos[0]) != prompt_len + STEPS:
         raise AssertionError(f"{tag}: cache pos {int(cache.pos[0])}")
-    say(f"{tag}_main_path", model=cfg.name, bits=cfg.quant.bits,
+    say(f"{tag}_main_path", model=cfg.name, bits=params["layers"][0]["wqkv"].bits,
         layers=cfg.num_layers, prompt=prompt_len, steps=STEPS, tokens=gen[:16],
         decode="decode_loop (CUDA graph)", replays=stats["replays"],
         launches_prefill=pre, launches_per_decode_step=per_step,
@@ -1364,19 +1396,27 @@ def time_k10(card, blocks):
 # path 1: BitNet-3B W1.58A8
 # ---------------------------------------------------------------------------
 
-def bitnet_path(card, build_s, ptxas):
+def bitnet_path(card, finish_build):
+    """Path 1 (module docstring, phases 2-5 and 10-15); its weights drawn
+    while the kernels build, finish_build() -> (nvcc seconds, ptxas's
+    report) waiting for them.  -> the kernels' records"""
     import torch
     from tmac_tpu_torch.models.config import get_preset
     from tmac_tpu_torch.models.llama import init_params
     from tmac_tpu_torch.ops.cuda import qgemm_kernel as k1
     cfg = get_preset("bitnet-3b")
     t0 = time.perf_counter()
-    params = init_params(cfg, seed=0, device=card.dev)
-    torch.cuda.synchronize()
+    try:
+        params = init_params(cfg, seed=0, device=card.dev)
+        torch.cuda.synchronize()
+    finally:  # nvcc's processes end before anything leaves here
+        init_s = time.perf_counter() - t0
+        build_s, ptxas = finish_build()
     from tmac_tpu_torch.ops.cuda import build
     say("build", nvcc_s=round(build_s, 3), sources=list(build.SOURCES),
-        ptxas=ptxas,
-        init_params_s=round(time.perf_counter() - t0, 3))
+        nvcc_s_by_source={k: round(v, 3) for k, v in build.build_seconds.items()},
+        ptxas=ptxas, init_params_s=round(init_s, 3),
+        waited_for_nvcc_s=round(time.perf_counter() - t0 - init_s, 3))
     layers = params["layers"]
     H, I, eps = cfg.hidden_size, layers[0]["down"].kdim, cfg.rms_norm_eps
     # (weight per layer, x width, folds) at the main path's shapes
@@ -1701,7 +1741,7 @@ def llama_path(card):
     from tmac_tpu_torch.models.llama import init_params
     cfg = get_preset("llama-2-7b")
     t0 = time.perf_counter()
-    params = init_params(cfg, seed=0, device=card.dev)
+    params = params_on_card(cfg, 0, card.dev)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     cfg4 = dataclasses.replace(get_preset("llama-2-7b", bits=4), num_layers=1)
@@ -1821,7 +1861,7 @@ def llama_path(card):
     bound_step = tot["bound_ms"] + h_bound + k2_bound * L
     say("llama_step", eager_ms=main["step_ms"], graph_ms=main["graph_step_ms"],
         decode_loop_ms=main["loop_ms"], kernel_bound_ms=bound_step, card=card.name,
-        nvidia_smi=card.smi)
+        nvidia_smi=card.smi, path_s=round(time.perf_counter() - t0, 3))
     return [
         dict(name="qgemm_dequant (K5)", path="llama-2-7b", route="cuda",
              source="tmac_tpu_torch/ops/cuda/csrc/qgemm_large.cu",
@@ -1889,15 +1929,18 @@ def k4l_group_size_cases(card):
 # path 3: Mixtral-8x7B W2A16 g128 (MoE)
 # ---------------------------------------------------------------------------
 
-def rand_qt_on_card(gen, K, M, bits, gs, dev):
+def rand_qt_on_card(gen, K, M, bits, gs, dev, scale_dtype=None):
     """Synthetic grouped weights drawn on the card from the seeded
     generator `gen`, with the shapes, dtypes and value ranges of the
     package's init_params: random codes (packed bytes; at bits 3 a lo and
-    a hi plane), bf16 scales (0.5 + U) * 2 * std / mid, zero points on
-    each group's mean code jittered by -2..2, bf16 sub.  M must be a
-    multiple of 128; K is padded as the package pads it (to a multiple of
-    p * gs, 8 * gs at bits 1 and 3), the padded groups' scales and zero
-    points 0 (x is zero there too)."""
+    a hi plane; at bits 8 the signed codes wq - 128 the package stores),
+    bf16 scales (0.5 + U) * 2 * std / mid, zero points on each group's mean
+    code jittered by -2..2, bf16 sub (at bits 8 shifted by 128 * scale, as
+    the package folds the codes' bias into it); scale_dtype (torch.float32:
+    GGUF's block scales) the scales' and sub's dtype instead of bf16.  M
+    must be a multiple of 128; K is padded as the package pads it (to a
+    multiple of p * gs, 8 * gs at bits 1 and 3), the padded groups' scales
+    and zero points 0 (x is zero there too)."""
     import torch
     from tmac_tpu_torch.ops.qgemm import QuantizedTensor, unpack_codes
     from tmac_tpu_torch.utils import round_up
@@ -1916,14 +1959,18 @@ def rand_qt_on_card(gen, K, M, bits, gs, dev):
     if bits == 3:
         gmean = unpack_codes(QuantizedTensor(packed, hi, scales, scales, bits, gs, 1, 1, (K, M))
                              ).reshape(G, gs, M).float().mean(1)
+    elif bits == 8:
+        gmean = (packed.view(torch.int8).float() + 128).reshape(G, gs, M).mean(1)
     else:
         # field j of the chunk of gs packed rows c holds group j * Kb / gs + c
         gmean = torch.cat([((packed >> (bits * j)) & qmax).reshape(-1, gs, M)
                            .float().mean(1) for j in range(p)])
     zq = (gmean.round() + torch.randint(-2, 3, (G, M), generator=gen,
                                         device=dev)).clamp(0, qmax)
-    return QuantizedTensor(packed, hi, scales.to(torch.bfloat16),
-                           (scales * zq).to(torch.bfloat16), bits, gs, 1, 1,
+    if bits == 8:
+        zq = zq - 128
+    dt = scale_dtype or torch.bfloat16
+    return QuantizedTensor(packed, hi, scales.to(dt), (scales * zq).to(dt), bits, gs, 1, 1,
                            (K, M))
 
 
@@ -2170,7 +2217,7 @@ def mixtral_path(card):
     from tmac_tpu_torch.ops.cuda import qgemm_grouped_kernel as k4
     from tmac_tpu_torch.ops.qgemm import QuantizedTensor, fuse_m
     t_path = time.perf_counter()
-    cfg = get_preset("mixtral-8x7b")
+    cfg = dataclasses.replace(get_preset("mixtral-8x7b"), num_layers=MIXTRAL_LAYERS)
     t0 = time.perf_counter()
     params = params_on_card(cfg, 0, card.dev)
     torch.cuda.synchronize()
@@ -3207,7 +3254,7 @@ def phi3_path(card):
     from tmac_tpu_torch.runtime.sampling import sample
     from tmac_tpu_torch.utils import argmax_agreement, nmse, round_up
     t_path = time.perf_counter()
-    cfg = get_preset("phi-3-mini")
+    cfg = dataclasses.replace(get_preset("phi-3-mini"), num_layers=PHI3_LAYERS)
     dev, L, H, I = card.dev, cfg.num_layers, cfg.hidden_size, cfg.intermediate_size
     max_len = PHI3_PROMPT + STEPS
     t0 = time.perf_counter()
@@ -3567,25 +3614,26 @@ def per_linear_times(card, cfg, layers, N, timer, count, with_ags=True):
 
 
 def grouped_path(card, tag, cfg, prompt_len, chunk, serve=None, params=None,
-                 k4_rows=(1, 4, 16, 64, 256), k5_rows=(384, 512), k4l_rows=256):
+                 k4_rows=(1, 4, 16, 64, 256), k5_rows=(384, 512), forced=NEW_FORCED):
     """A grouped-scale model at full width and depth, weights drawn on the
     card (params_on_card): K4 (N = 1, 4, 16, at every cluster size of the
     checks), K4L (N = 64, 256) and, where a chunk takes it, K5 (N = 384,
-    512) on layer 0's four linears with their folds and without, K1 and K3
-    on the head and K2 at the model's head shape, each against its plain
-    version; then run_path's main run (prefill in chunks, decode_loop, the
-    teacher-forced check: on the prompt's last position when a chunk takes
-    K5, else on every position) and the kernels' device times per step and
-    per prefill.  With the config's act_group_size the K4 and K4L checks,
-    timings and records are the ags form's, K4 also timed at ags 0 on the
-    same weights, and the ags and ags 0 logits at the prompt's last
-    position are held against a bf16 dequant forward (ags_accuracy,
-    printed).  serve(card, cfg, params, model), when given, runs last on
-    the path's weights and model (engine_serve) and adds its records.
-    params: the model's weights on the card (gguf_path's, read from a gguf
-    file), else drawn here; k4_rows, k5_rows: the rows of the K4 and K4L,
-    and K5 checks; k4l_rows: the rows K4L is timed at.  -> the kernels'
-    records"""
+    512 and each chunk's rows that take K5) on layer 0's four linears with
+    their folds and without, K1 and K3 on the head and K2 at the model's
+    head shape, each against its plain version; then run_path's main run
+    (prefill in chunks, decode_loop, the teacher-forced check: on the
+    prompt's last position when a chunk takes K5, else on every position)
+    and the kernels' device times per step and per prefill (K5 and K4L
+    timed at the rows of each chunk the route sends them).  With the
+    config's act_group_size the K4 and K4L checks, timings and records are
+    the ags form's, K4 also timed at ags 0 on the same weights, and the ags
+    and ags 0 logits at the prompt's last position are held against a bf16
+    dequant forward (ags_accuracy, printed).  serve(card, cfg, params,
+    model), when given, runs last on the path's weights and model
+    (engine_serve) and adds its records.  params: the model's weights on
+    the card (gguf_path's, read from a gguf file), else drawn here;
+    k4_rows, k5_rows: the rows of the K4 and K4L, and K5 checks; forced:
+    the decode steps teacher-forced.  -> the kernels' records"""
     import torch
     from tmac_tpu_torch.ops.qgemm import route
     t_path = time.perf_counter()
@@ -3609,11 +3657,14 @@ def grouped_path(card, tag, cfg, prompt_len, chunk, serve=None, params=None,
     k4_rows, _ = check_k4(card, cases)
     k4_err = max(r.get("max_abs_err", 0.0) for r in k4_rows if r["kernel"] == "K4")
     k4l_err = max(r.get("max_abs_err", 0.0) for r in k4_rows if r["kernel"] == "K4L")
+    # the prompt's chunks by kernel: {rows: chunks of those rows}
     pieces = [min(chunk, prompt_len - o) for o in range(0, prompt_len, chunk)]
-    k5_chunks = sum(route(l0["wqkv"], n) == "K5" for n in pieces)
-    k4l_chunks = sum(route(l0["wqkv"], n) == "K4L" for n in pieces)
+    by_kernel = {k: collections.Counter(n for n in pieces if route(l0["wqkv"], n) == k)
+                 for k in ("K5", "K4L")}
+    k5_chunks, k4l_chunks = (sum(by_kernel[k].values()) for k in ("K5", "K4L"))
     k5_rows, k5_err = check_k5(card, [(sh, *args(sh, N, l0, with_ags=False))
-                                      for N in k5_rows for sh in shapes]
+                                      for N in sorted(set(k5_rows) | set(by_kernel["K5"]))
+                                      for sh in shapes]
                                ) if k5_chunks else ([], 0.0)
     head = params["lm_head"]
     k1_rows, k1_err = check_k1(card, [("head", card.bf16(1, H), head, {})])
@@ -3626,7 +3677,7 @@ def grouped_path(card, tag, cfg, prompt_len, chunk, serve=None, params=None,
     # chunk; a decode step: K4 on 4 linears a layer, K1 on the head, K2 a layer
     main = run_path(card, tag, cfg, params, prompt_len,
                     counts(K3=len(pieces), K5=4 * L * k5_chunks, K4L=4 * L * k4l_chunks),
-                    counts(K1=1.0, K4=4.0 * L, K2=float(L)), forced=NEW_FORCED, chunk=chunk,
+                    counts(K1=1.0, K4=4.0 * L, K2=float(L)), forced=forced, chunk=chunk,
                     tf_gate=LLAMA_TF_NMSE if k5_chunks else None,
                     tf_last_only=bool(k5_chunks))
     launches = main["launches"]
@@ -3635,17 +3686,27 @@ def grouped_path(card, tag, cfg, prompt_len, chunk, serve=None, params=None,
 
     def per(N, timer, count, with_ags=True):
         return per_linear_times(card, cfg, layers, N, timer, count, with_ags)
+
+    def per_chunks(kernel, timer, with_ags=True):
+        """`kernel`'s rows and totals over the prompt's chunks it takes,
+        each chunk's linears timed at that chunk's rows."""
+        rows, tot = [], dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0)
+        for n, c in sorted(by_kernel[kernel].items()):
+            r, t = per(n, timer, L * c, with_ags)
+            rows += r
+            for key in tot:
+                tot[key] += t[key]
+        return rows, tot
+
     k4_times, k4_tot = per(1, time_k4, L)
     # the ags form beside K4 at ags 0 on the same weights
     ags0 = dict(ags0_per_step=per(1, time_k4, L, with_ags=False)[1]) if ags else {}
     say(f"{tag}_k4_times", rows=k4_times, per_step=dict(k4_tot, calls=4 * L),
         act_group_size=ags, **ags0)
-    k4l_times, k4l_tot = per(k4l_rows, lambda c, calls: time_k4(c, calls, reps=5),
-                             L * k4l_chunks)
+    k4l_times, k4l_tot = per_chunks("K4L", lambda c, calls: time_k4(c, calls, reps=5))
     say(f"{tag}_k4l_times", rows=k4l_times, per_prefill=dict(k4l_tot, calls=4 * L * k4l_chunks),
         act_group_size=ags)
-    k5_times, k5_tot = per(512, time_k5, L * k5_chunks, with_ags=False) \
-        if k5_chunks else ([], None)
+    k5_times, k5_tot = per_chunks("K5", time_k5, with_ags=False)
     if k5_chunks:
         say(f"{tag}_k5_times", rows=k5_times, per_prefill=dict(k5_tot, calls=4 * L * k5_chunks))
     h_ms, h_plain, h_bound, h_lib = time_head(card, head)
@@ -3658,8 +3719,9 @@ def grouped_path(card, tag, cfg, prompt_len, chunk, serve=None, params=None,
         kv_len=kv_len, k2_ms=k2_ms,
         k2_bound_ms=k2_bound, k2_library_ms=k2_lib, card=card.name, nvidia_smi=card.smi,
         path_s=round(time.perf_counter() - t_path, 3))
-    bits, src = cfg.quant.bits, "tmac_tpu_torch/ops/cuda/csrc/"
+    bits, src = l0["wqkv"].bits, "tmac_tpu_torch/ops/cuda/csrc/"
     sform = " f32 scales" if l0["wqkv"].scales.dtype == torch.float32 else ""
+    sform += " gs 16" if l0["wqkv"].group_size == 16 else ""
     form = (f" ags {ags}" if ags else "") + sform
 
     def rec(name, source, replaces, label, err, t, by):
@@ -3671,12 +3733,14 @@ def grouped_path(card, tag, cfg, prompt_len, chunk, serve=None, params=None,
     records = [
         rec(f"qgemm_grouped (K4) bits {bits}{form}", "qgemm_grouped.cu",
             "qgemm_kernel.py:567", "K4", k4_err, k4_tot, "bytes"),
-        rec(f"qgemm_grouped_large (K4L) bits {bits}{form}", "qgemm_grouped_large.cu",
-            "qgemm_kernel.py:428", "K4L", k4l_err, k4l_tot, dominant_bound(k4l_times)),
         rec(f"flash_decode (K2) rep {rep}", "flash_decode.cu", "attention_kernel.py:367",
             "K2", k2_err, dict(ms=k2_ms * L, plain_ms=k2_plain * L, bound_ms=k2_bound * L,
                                library_ms=k2_lib * L), "bytes"),
     ]
+    if k4l_chunks:   # (gs 16: every chunk of 64 rows or more takes K5)
+        records.insert(1, rec(f"qgemm_grouped_large (K4L) bits {bits}{form}",
+                              "qgemm_grouped_large.cu", "qgemm_kernel.py:428", "K4L",
+                              k4l_err, k4l_tot, dominant_bound(k4l_times)))
     if k5_chunks:
         records.append(rec(f"qgemm_dequant (K5) bits {bits}{sform}", "qgemm_large.cu",
                            "qgemm_kernel.py:319", "K5", k5_err, k5_tot,
@@ -4468,7 +4532,8 @@ def ags_path(card):
     ags form), 64 steps at positions 768-831 (K4's ags form, K1, K2).
     -> the kernels' records"""
     from tmac_tpu_torch.models.config import get_preset
-    cfg = get_preset("llama-2-7b").with_quant(act_group_size=AGS_PATH)
+    cfg = dataclasses.replace(get_preset("llama-2-7b").with_quant(act_group_size=AGS_PATH),
+                              num_layers=AGS_LAYERS)
     return grouped_path(card, "llama2_ags32", cfg, W3_PROMPT, W3_CHUNK)
 
 
@@ -5200,16 +5265,22 @@ def speculative_path(card):
 # prompt and 16 teacher-forced decode steps
 GGUF_PROMPT, GGUF_CHUNK = 600, 512
 GGUF_MOE_LAYERS, GGUF_MOE_PROMPT, GGUF_MOE_FORCED = 2, 64, 16
+# path 11's depth since the full run took paths 13, 14 and 14b: 16 of
+# Llama-3.1-8B's 32 layers (at 32 the path took ~56 s more, PERF.md §4)
+GGUF_LAYERS = 16
 
 
-def gguf_roundtrip(card, cfg, tag, wtype="Q4_K"):
-    """cfg's weights drawn on the card (params_on_card, seed 0) at bits 4,
-    gs 32 with zero points, written by export_gguf as `wtype` to a
-    temporary directory, read back by convert_gguf_model on the card; the
-    file deleted.  Prints the seconds of the draw, the export, the read
-    (the header, the directory and every tensor's bytes through the
-    reader's map; the file warm in the page cache) and the conversion.  ->
-    (the gguf's config, its params on the card)"""
+def gguf_roundtrip(card, cfg, tag, wtype="Q4_K", form=(4, 32)):
+    """cfg's weights drawn on the card (params_on_card, seed 0), written by
+    export_gguf as `wtype` to a temporary directory, read back by
+    convert_gguf_model on the card; the file deleted.  form: the (bits,
+    group size) its matmul weights must read back as (Q4_K (4, 32), Q2_K
+    (2, 16), Q8_0 (8, 32): the config of a Q8_0 file says bits 4, so the
+    weights' own form is checked), with f32 scales.  Prints the seconds of
+    the draw, the export, the read (the header, the directory and every
+    tensor's bytes through the reader's map; the file warm in the page
+    cache) and the conversion.  -> (the gguf's config, its params on the
+    card)"""
     import shutil
     import tempfile
     import numpy as np
@@ -5221,12 +5292,13 @@ def gguf_roundtrip(card, cfg, tag, wtype="Q4_K"):
     params = params_on_card(cfg, 0, card.dev)
     torch.cuda.synchronize()
     draw_s = time.perf_counter() - t0
-    # the writer packs Q4_K and Q8_0 on the tensor's device: the card's
-    # bytes are the CPU's (which the CPU tests hold to the JAX package's),
-    # on layer 0's wo dequantized
+    # the writer packs Q2_K, Q4_K and Q8_0 on the tensor's device: the
+    # card's bytes are the CPU's (which the CPU tests hold to the JAX
+    # package's), on layer 0's wo dequantized
     w = dequant_float(params["layers"][0]["wo"]).t().contiguous()
     same_bytes = {name: gg._tensor_data(t, w) == gg._tensor_data(t, w.cpu())
-                  for name, t in (("q4_k", gg.GGML_Q4_K), ("q8_0", gg.GGML_Q8_0))}
+                  for name, t in (("q2_k", gg.GGML_Q2_K), ("q4_k", gg.GGML_Q4_K),
+                                  ("q8_0", gg.GGML_Q8_0))}
     del w
     d = tempfile.mkdtemp(prefix="gguf_")
     try:
@@ -5249,14 +5321,16 @@ def gguf_roundtrip(card, cfg, tag, wtype="Q4_K"):
                                            device=card.dev)
         torch.cuda.synchronize()
         convert_s = time.perf_counter() - t0
-        # a Q4_K tensor converts on the card to the CPU's bytes
+        # a tensor of the file's type converts on the card to the CPU's
+        # bytes
         r = GGUFReader(path)
         name = "blk.0.attn_output.weight"
         on_card = gg._qt_from_gguf(r, name, 1, 1, device=card.dev)
         host = gg._qt_from_gguf(r, name, 1, 1, device="cpu").to(card.dev)
         r.close()
-        same_bytes["q4_k_convert"] = all(torch.equal(getattr(on_card, f), getattr(host, f))
-                                         for f in ("packed", "scales", "sub"))
+        same_bytes[f"{wtype.lower()}_convert"] = all(
+            torch.equal(getattr(on_card, f), getattr(host, f))
+            for f in ("packed", "scales", "sub"))
         del on_card, host
     finally:
         shutil.rmtree(d, ignore_errors=True)
@@ -5269,9 +5343,8 @@ def gguf_roundtrip(card, cfg, tag, wtype="Q4_K"):
                 vocab=gcfg.vocab_size == cfg.vocab_size,
                 experts=gcfg.num_experts == cfg.num_experts,
                 rope=(cfg.rope_scaling is None) == (gcfg.rope_scaling is None),
-                quant=(gcfg.quant.bits, gcfg.quant.group_size) == (4, 32),
-                f32_scales=all(q.scales.dtype == torch.float32 and q.group_size == 32
-                               and q.bits == 4 for q in qts),
+                form=all((q.bits, q.group_size) == form for q in qts),
+                f32_scales=all(q.scales.dtype == torch.float32 for q in qts),
                 int8_head=gparams["lm_head"].bits == 8, **same_bytes)
     say(f"{tag}_gguf", model=cfg.name, wtype=wtype, bytes=info["bytes"],
         tensors=info["tensors"], types=types, free_gb_before=round(free_gb, 1),
@@ -5290,7 +5363,8 @@ def gguf_path(card):
     import torch
     from tmac_tpu_torch.models.config import get_preset
     t_path = time.perf_counter()
-    cfg0 = get_preset("llama-3.1-8b", bits=4, group_size=32, zero_point=True)
+    cfg0 = dataclasses.replace(get_preset("llama-3.1-8b", bits=4, group_size=32,
+                                          zero_point=True), num_layers=GGUF_LAYERS)
     cfg, params = gguf_roundtrip(card, cfg0, "gguf_llama31")
     # K4L at K 14336, gs 32 with bf16 scales too (past the shared memory
     # that staged every group's factors): down with and without its fold
@@ -5306,8 +5380,7 @@ def gguf_path(card):
     say("gguf_k4l_k14336", rows=bf16_rows)
     del down_bf16
     records = grouped_path(card, "gguf_llama31", cfg, GGUF_PROMPT, GGUF_CHUNK,
-                           params=params, k4_rows=(1, 4, 16, 64, 88), k5_rows=(512,),
-                           k4l_rows=GGUF_PROMPT - GGUF_CHUNK)
+                           params=params, k4_rows=(1, 4, 16, 64, 88), k5_rows=(512,))
     del params
     torch.cuda.empty_cache()
     records += gguf_mixtral(card)
@@ -5316,20 +5389,29 @@ def gguf_path(card):
     return records
 
 
-def gguf_mixtral(card):
-    """Mixtral-8x7B at full width, 2 of its 32 layers, through a Q4_K gguf
-    file: K7's f32 form against its plain version (N = 1 and 4, gate_up and
-    down, every cluster size); a 64-token prompt (the experts' capacity
-    dispatch at 32 slots on K4, wqkv and wo on K4L, the head on K3) and 64
-    greedy steps through decode_loop (4 K7, 4 K4, 2 K2, 1 K1 a step),
-    teacher-forced on the prompt and 16 steps; K7 per step.  -> its record"""
+def gguf_mixtral(card, wtype="Q4_K", form=(4, 32), forced=GGUF_MOE_FORCED):
+    """Mixtral-8x7B at full width, 2 of its 32 layers, through a gguf file
+    of `wtype` (Q4_K; Q2_K for K7 at gs 16) whose matmul weights read back
+    as `form` (bits, group size): K7's form against its plain version (N =
+    1 and 4, gate_up and down, every cluster size); a 64-token prompt (the
+    experts' capacity dispatch at 32 slots on K4, wqkv and wo on K4L, or
+    at gs 16 on K5, the head on K3) and 64 greedy steps through
+    decode_loop (4 K7, 4 K4, 2 K2, 1 K1 a step: the experts on K7, none
+    through apply_qlinear), teacher-forced on the prompt and `forced`
+    steps (where the prompt takes K5, whose tensor cores
+    sum in their own order, on its last position within LLAMA_TF_NMSE and
+    the steps from the kernel path's cache, as grouped_path does); K7 per
+    step.  -> its record"""
     import torch
     from tmac_tpu_torch.models.config import get_preset
-    from tmac_tpu_torch.models.moe import expert_capacity
+    from tmac_tpu_torch.models.moe import expert_capacity, expert_view
+    from tmac_tpu_torch.ops.qgemm import route
     t_path = time.perf_counter()
-    cfg0 = dataclasses.replace(get_preset("mixtral-8x7b", bits=4, group_size=32,
+    bits, gs = form
+    tag = "gguf_mixtral" if wtype == "Q4_K" else f"gguf_{wtype.lower()}_mixtral"
+    cfg0 = dataclasses.replace(get_preset("mixtral-8x7b", bits=min(bits, 4), group_size=gs,
                                           zero_point=True), num_layers=GGUF_MOE_LAYERS)
-    cfg, params = gguf_roundtrip(card, cfg0, "gguf_mixtral")
+    cfg, params = gguf_roundtrip(card, cfg0, tag, wtype, form)
     layers, L, E, H = params["layers"], cfg.num_layers, cfg.num_experts, cfg.hidden_size
     gu0, dn0 = layers[0]["experts_gate_up"], layers[0]["experts_down"]
     Ie = dn0.kdim
@@ -5338,21 +5420,28 @@ def gguf_mixtral(card):
         cases += [("gate_up", card.bf16(1, N, H), gu0, False),
                   ("down", card.bf16(E, N, 2 * Ie).float(), dn0, True)]
     k7_rows, k7_err = check_k7(card, cases, splits=(1, 2, 4, 8))
-    say("gguf_k7_check", at_s=round(time.perf_counter() - t_path, 3), checks=k7_rows)
+    say(f"{tag}_k7_check", at_s=round(time.perf_counter() - t_path, 3), checks=k7_rows)
+    # the prompt's kernels: wqkv and wo at its rows, the experts at their
+    # capacity (each expert's two linears), as ops.qgemm.route picks them
     C = expert_capacity(GGUF_MOE_PROMPT, cfg)
-    big = C >= 64  # the experts' slots on K4L from 64 rows, else K4
-    main = run_path(card, "gguf_mixtral", cfg, params, GGUF_MOE_PROMPT,
-                    counts(K3=1, K4L=(2 + (2 * E if big else 0)) * L,
-                           K4=0 if big else 2 * E * L),
+    attn = route(layers[0]["wqkv"], GGUF_MOE_PROMPT)
+    experts = route(expert_view(gu0, 0), C)
+    want = {"K3": 1, attn: 2 * L}
+    want[experts] = want.get(experts, 0) + 2 * E * L
+    k5 = "K5" in want
+    main = run_path(card, tag, cfg, params, GGUF_MOE_PROMPT, counts(**want),
                     counts(K1=1.0, K4=2.0 * L, K2=float(L), K7=2.0 * L),
-                    forced=GGUF_MOE_FORCED)
+                    forced=forced, tf_gate=LLAMA_TF_NMSE if k5 else None,
+                    tf_last_only=k5)
     k7_times, tot = time_k7_step(card, cfg, layers)
-    say("gguf_mixtral_k7_times", rows=k7_times, per_step=dict(tot, calls=2 * L),
-        capacity=C, step=dict(eager_ms=main["step_ms"], graph_ms=main["graph_step_ms"],
-                              decode_loop_ms=main["loop_ms"]),
+    say(f"{tag}_k7_times", rows=k7_times, per_step=dict(tot, calls=2 * L),
+        capacity=C, prompt_kernels=want,
+        step=dict(eager_ms=main["step_ms"], graph_ms=main["graph_step_ms"],
+                  decode_loop_ms=main["loop_ms"]),
         path_s=round(time.perf_counter() - t_path, 3), card=card.name, nvidia_smi=card.smi)
-    return [dict(name="qgemm_experts (K7) bits 4 f32 scales", path=cfg.name, route="cuda",
-                 source="tmac_tpu_torch/ops/cuda/csrc/qgemm_expert.cu",
+    gform = f" gs {gs}" if gs == 16 else ""
+    return [dict(name=f"qgemm_experts (K7) bits {bits} f32 scales{gform}", path=cfg.name,
+                 route="cuda", source="tmac_tpu_torch/ops/cuda/csrc/qgemm_expert.cu",
                  replaces="tmac_tpu/ops/pallas/expert_kernel.py:207",
                  launches=main["launches"]["K7"], max_abs_err=k7_err,
                  ms=tot["ms"], plain_ms=tot["plain_ms"], bound_ms=tot["bound_ms"],
@@ -5529,6 +5618,211 @@ def per_channel_path(card):
     return records
 
 
+# ---------------------------------------------------------------------------
+# gguf_lowbit_path: GGUF's Q2_K and Q8_0 on the card, group size 16 and
+# grouped bits 8 in K4, K4L and K5, K4 and K4L at ags 16, K7 at gs 16
+# ---------------------------------------------------------------------------
+
+# path 14's depth (the full run's time: 16 of 32 layers, PERF.md §4);
+# paths 13 and 14b's teacher-forced steps in the full run (their plain K4
+# and K7 fold 896 groups an output at gs 16, in a Python loop: 29 and 3.5 s
+# a step on a slow host, PERF.md §4), where --phase gguf_lowbit_path
+# forces NEW_FORCED and GGUF_MOE_FORCED; the form checks' (bits, group
+# size, scale dtype) on Llama-3.1-8B's shapes (gs 16 at bits 1-4: Q2_K's and Q3_K's forms; bits 8
+# at gs 32, Q8_0's, and 16), their rows, ags and seed; path 7's config for
+# the ags-16 checks
+LB_Q8_LAYERS = 16
+LB_FULL_RUN_FORCED = (1, 1)
+LB_FORMS = tuple((b, 16, dt) for b in (2, 3, 1, 4) for dt in ("f32", "bf16")) + (
+    (8, 32, "f32"), (8, 32, "bf16"), (8, 16, "f32"))
+LB_K4_ROWS, LB_K4L_ROWS, LB_K5_ROWS, LB_AGS, LB_FORM_SEED = (1, 4, 16), (64, 88), (512,), 16, 18
+
+
+def lowbit_form_checks(card, cfg):
+    """K4 (N = 1, 4, 16 through the wrapper and at every cluster size of
+    DECODE_SPLITS a block's shared memory takes), K4L (dispatch "chunk",
+    N = 64, 88) and K5 (N = 512) on Llama-3.1-8B's four linear shapes
+    (pc_shapes) at each form of LB_FORMS, weights drawn on the card
+    (rand_qt_on_card, seed LB_FORM_SEED): each bit for bit against its
+    plain version, with the prologue's codes, scales and code sums byte
+    for byte (K5 within k5_bound, its activations and dequantized weights
+    byte for byte); then K4 (N = 1, 4, 16, with the model's folds: within
+    FOLDED_NMSE, and without: bit for bit) and K4L (N = 64, 88, with and
+    without folds, bit for bit) at ags 16 on a layer of path 7's config
+    (Llama-2-7B W2 g128, drawn as params_on_card draws it).  Timed, each
+    over one layer's four linears (time_k4: CUDA graphs of the calls):
+    K4L at gs 16 on Q2_K's form (bits 2, f32) at 88 rows, K4 at ags 16 at
+    1 row and K4L at ags 16 at 256, beside their bounds, plain versions and
+    yardsticks.  -> (records of the three timed forms, the worst errors of
+    K4, K4L and K5 over every form)"""
+    import torch
+    from tmac_tpu_torch.models.config import get_preset
+    from tmac_tpu_torch.ops.cuda import qgemm_kernel as k1
+    gen = torch.Generator(device=card.dev)
+    gen.manual_seed(LB_FORM_SEED)
+    dtypes = {"f32": torch.float32, "bf16": torch.bfloat16}
+    worst = dict(K4=0.0, K4L=0.0, K5=0.0)
+    timed = {}
+    for bits, gs, dt in LB_FORMS:
+        t0 = time.perf_counter()
+        zero_counts()
+        rows, times = [], []
+        for sh, K, M in pc_shapes(cfg):
+            qt = rand_qt_on_card(gen, K, M, bits, gs, card.dev, dtypes[dt])
+            k4_rows, _ = check_k4(card, [(sh, card.bf16(N, K), qt, {})
+                                         for N in LB_K4_ROWS + LB_K4L_ROWS],
+                                  splits=(None,) + k1.DECODE_SPLITS)
+            k5_rows, k5_err = check_k5(card, [(sh, card.bf16(N, K), qt, {})
+                                              for N in LB_K5_ROWS])
+            for r in k4_rows:
+                worst[r["kernel"]] = max(worst[r["kernel"]], r.get("max_abs_err", 0.0))
+            worst["K5"] = max(worst["K5"], k5_err)
+            ok = [r for r in k4_rows if "refused" not in r]
+            rows.append(dict(shape=sh, K=K, M=M, k4=sum(r["kernel"] == "K4" for r in ok),
+                             k4l=sum(r["kernel"] == "K4L" for r in ok),
+                             refused=[(r["N"], r["ksplit"]) for r in k4_rows
+                                      if "refused" in r],
+                             bitwise=all(r["bitwise"] for r in ok),
+                             k5_within_bound=all(r["within_bound"] for r in k5_rows),
+                             k5_max_ratio=max(r["max_ratio"] for r in k5_rows),
+                             plans={N: k1.decode_plan(N, K, M, bits, gs, card.sms,
+                                                      scale_bytes=qt.scales.element_size())
+                                    for N in LB_K4_ROWS}))
+            if (bits, gs, dt) == (2, 16, "f32"):
+                times.append(dict(shape=sh, **time_k4(card, [(card.bf16(88, K), qt, {})],
+                                                      reps=5)))
+            del qt
+        launches = read_counts()
+        if times:
+            timed["K4L gs 16"] = (times, launches["K4L"])
+        torch.cuda.empty_cache()
+        say(f"lowbit_forms_b{bits}_g{gs}_{dt}", bits=bits, group_size=gs, scales=dt,
+            rows=rows, k4l_times=times, launches=launches,
+            seconds=round(time.perf_counter() - t0, 3), card=card.name, nvidia_smi=card.smi)
+    # ags 16 on a layer of path 7's config, with and without its folds
+    t0 = time.perf_counter()
+    cfg7 = dataclasses.replace(get_preset("llama-2-7b").with_quant(act_group_size=LB_AGS),
+                               num_layers=1)
+    l0 = params_on_card(cfg7, 0, card.dev)["layers"][0]
+    zero_counts()
+    cases = [(sh, *linear_call(card, cfg7, sh, N, l0, folds)) for sh in LINEARS
+             for N in LB_K4_ROWS + LB_K4L_ROWS for folds in (True, False)]
+    ags_rows, _ = check_k4(card, cases)
+    for r in ags_rows:
+        worst[r["kernel"]] = max(worst[r["kernel"]], r.get("max_abs_err", 0.0))
+    k4_times = [dict(shape=sh, **time_k4(card, [linear_call(card, cfg7, sh, 1, l0)]))
+                for sh in LINEARS]
+    k4l_times = [dict(shape=sh, **time_k4(card, [linear_call(card, cfg7, sh, 256, l0)],
+                                          reps=5)) for sh in LINEARS]
+    launches = read_counts()
+    timed["K4 ags 16"] = (k4_times, launches["K4"])
+    timed["K4L ags 16"] = (k4l_times, launches["K4L"])
+    ran = [r for r in ags_rows if "refused" not in r]
+    say("lowbit_forms_ags16", model=cfg7.name, act_group_size=LB_AGS,
+        checks=len(ran), refused=[(r["shape"], r["N"], r["ksplit"]) for r in ags_rows
+                                  if "refused" in r],
+        bitwise_unfolded=all(r["bitwise"] for r in ran if not r["folds"]),
+        worst_folded_nmse=max(r["nmse"] for r in ran if r["folds"]),
+        k4_times=k4_times, k4l_times=k4l_times, launches=launches,
+        seconds=round(time.perf_counter() - t0, 3), card=card.name, nvidia_smi=card.smi)
+    del l0
+    torch.cuda.empty_cache()
+    src = "tmac_tpu_torch/ops/cuda/csrc/"
+    records = []
+    for name, source, label, path in (
+            ("qgemm_grouped_large (K4L) bits 2 f32 scales gs 16", "qgemm_grouped_large.cu",
+             "K4L gs 16", "llama-3.1-8b shapes, 88 rows, dispatch chunk (checks)"),
+            ("qgemm_grouped (K4) bits 2 ags 16", "qgemm_grouped.cu", "K4 ags 16",
+             "llama-2-7b-ags16 layer, 1 row (checks)"),
+            ("qgemm_grouped_large (K4L) bits 2 ags 16", "qgemm_grouped_large.cu",
+             "K4L ags 16", "llama-2-7b-ags16 layer, 256 rows (checks)")):
+        rows, launches = timed[label]
+        tot = {k: sum(r[k] for r in rows) for k in ("ms", "plain_ms", "bound_ms",
+                                                    "library_ms")}
+        records.append(dict(name=name, path=path, route="cuda", source=src + source,
+                            replaces="tmac_tpu/ops/pallas/qgemm_kernel.py:" + (
+                                "567" if label.startswith("K4 ") else "428"),
+                            launches=launches, max_abs_err=worst[label.split()[0]],
+                            bound_by=dominant_bound(rows), **tot))
+    return records, worst
+
+
+def gguf_lowbit_path(card, forced=(NEW_FORCED, GGUF_MOE_FORCED)):
+    """The low-bit GGUF forms (module docstring, phase 19): the form
+    checks (lowbit_form_checks), then path 13, Llama-3.1-8B at full width
+    and depth through a Q2_K gguf file (bits 2, gs 16, f32 scales: a
+    600-token prompt in chunks of 512 and 88, both on K5 at gs 16, 64 steps
+    on K4 at gs 16), path 14, Llama-3.1-8B through a Q8_0 file (bits 8, gs
+    32: the 512-row chunk on K5, the 88-row one on K4L, the steps on K4, at
+    LB_Q8_LAYERS layers), each as path 11 runs (gguf_roundtrip, then
+    grouped_path on the file's weights), and path 14b, Mixtral-8x7B at 2
+    of 32 layers through a Q2_K file (K7 at gs 16).  forced: the decode
+    steps teacher-forced on paths 13 and 14b.  -> the kernels' records"""
+    import torch
+    from tmac_tpu_torch.models.config import get_preset
+    t_path = time.perf_counter()
+    cfg = get_preset("llama-3.1-8b", bits=2, group_size=16, zero_point=True)
+    records, _ = lowbit_form_checks(card, cfg)
+    t_forms = time.perf_counter() - t_path
+    gcfg, params = gguf_roundtrip(card, cfg, "gguf_q2k", "Q2_K", (2, 16))
+    records += grouped_path(card, "gguf_q2k", gcfg, GGUF_PROMPT, GGUF_CHUNK, params=params,
+                            k4_rows=(1, 4, 16, 64, 88), k5_rows=(512,), forced=forced[0])
+    del params
+    torch.cuda.empty_cache()
+    t_q8 = time.perf_counter()
+    cfg8 = dataclasses.replace(get_preset("llama-3.1-8b", bits=4, group_size=32,
+                                          zero_point=True), num_layers=LB_Q8_LAYERS)
+    gcfg, params = gguf_roundtrip(card, cfg8, "gguf_q8", "Q8_0", (8, 32))
+    records += grouped_path(card, "gguf_q8", gcfg, GGUF_PROMPT, GGUF_CHUNK, params=params,
+                            k4_rows=(1, 4, 16, 64, 88), k5_rows=(512,))
+    del params
+    torch.cuda.empty_cache()
+    t_moe = time.perf_counter()
+    records += gguf_mixtral(card, "Q2_K", (2, 16), forced[1])
+    torch.cuda.empty_cache()
+    say("gguf_lowbit_path", forms_s=round(t_forms, 3), q2k_s=round(t_q8 - t_path - t_forms, 3),
+        q8_s=round(t_moe - t_q8, 3), moe_s=round(time.perf_counter() - t_moe, 3),
+        path_s=round(time.perf_counter() - t_path, 3), q8_layers=LB_Q8_LAYERS, forced=forced,
+        card=card.name, nvidia_smi=card.smi)
+    return records
+
+
+# the full run's timing sweeps start only while the run has spent less
+# than SWEEPS_BY_S of its 1200 s (on the slowest chip hosts the paths take
+# ~1140 s, PERF.md §4)
+SWEEPS_BY_S = 1050
+
+
+def full_run_sweeps(card, t_all):
+    """The full run's sweeps after its paths (t_all: when they began):
+    k4l_k5_sweep_b13 (K4L and K5 at bits 3 and 1, checked), then, where
+    the run has spent less than SWEEPS_BY_S, the timing sweeps of kernels
+    the paths checked (attn_sweep, qgemm_decode_sweep, pdl_overlap,
+    expert_block_sweep, k3_sweep); each one's seconds printed last
+    (sweeps_s, with skipped_at_s where the timing sweeps were left out)."""
+    sweeps = (
+        ("attn_sweep", lambda: say("attn_sweep", card=card.name, nvidia_smi=card.smi,
+                                   rows=attn_sweep(card))),
+        ("qgemm_decode_sweep", lambda: say("qgemm_decode_sweep", card=card.name,
+                                           nvidia_smi=card.smi, rows=qgemm_decode_sweep(card))),
+        ("pdl_overlap", lambda: say("pdl_overlap", card=card.name, **pdl_overlap(card))),
+        ("expert_block_sweep", lambda: say("expert_block_sweep", **expert_block_sweep(card))),
+        ("k3_sweep", lambda: say("k3_sweep", card=card.name, nvidia_smi=card.smi,
+                                 rows=k3_sweep(card))))
+    seconds, t0 = {}, time.perf_counter()
+    sweep_b13_large(card)
+    seconds["k4l_k5_sweep_b13"] = round(time.perf_counter() - t0, 3)
+    spent = time.perf_counter() - t_all
+    if spent >= SWEEPS_BY_S:
+        seconds["skipped_at_s"] = round(spent, 3)
+        sweeps = ()
+    for name, run in sweeps:
+        t0 = time.perf_counter()
+        run()
+        seconds[name] = round(time.perf_counter() - t0, 3)
+    say("sweeps_s", **seconds)
+
+
 def template_args(mangled):
     """A kernel's template arguments from its mangled name: bf16, f32,
     int8, an int or a bool (0, 1) (a substitution, S<n>_, repeats the type
@@ -5559,22 +5853,42 @@ def main() -> int:
         count=torch.cuda.device_count(), peak_bytes_per_s=card.bw,
         peak_int8_ops=card.int8_peak, peak_bf16_flops=card.bf16_peak)
 
-    t0 = time.perf_counter()
-    logs = build.build()
-    build_s = time.perf_counter() - t0
-    # ptxas's report per kernel: registers, shared memory, spills
-    ptxas, kernel = [], "?"
-    for ln in "\n".join(logs.values()).splitlines():
-        if "Compiling entry function" in ln:
-            mangled = ln.split("'")[1]
-            base = re.search(r"(act_quant_grouped|act_quant|expert_quant_token|expert_quant"
-                             r"|qgemm|decode_attention|k1_decode|k4_decode|k7_decode|k7_token"
-                             r"|k3_wgmma|act_bf16|dequant_wgmma|group_mma"
-                             r"|block)_kernel", mangled)
-            targs = template_args(mangled)
-            kernel = f"{base.group(0) if base else mangled}<{','.join(targs)}>"
-        elif "registers" in ln or "spill" in ln:
-            ptxas.append(f"{kernel}: {ln.split(':', 1)[-1].strip()}")
+    # the kernels build (nvcc, every source at once) on a thread while the
+    # full run draws BitNet-3B's weights on the host; finish_build() waits
+    built = {}
+
+    def run_build():
+        t0 = time.perf_counter()
+        try:
+            built["logs"] = build.build()
+        except Exception as err:  # noqa: BLE001  (raised again by finish_build)
+            built["error"] = err
+        built["s"] = time.perf_counter() - t0
+    builder = threading.Thread(target=run_build, daemon=True)
+    builder.start()
+
+    def finish_build():
+        """-> (nvcc seconds, ptxas's report per kernel: registers, shared
+        memory, spills), once the build has ended; its failure raised."""
+        builder.join()
+        if "error" in built:
+            raise built["error"]
+        ptxas, kernel = [], "?"
+        for ln in "\n".join(built["logs"].values()).splitlines():
+            if "Compiling entry function" in ln:
+                mangled = ln.split("'")[1]
+                base = re.search(r"(act_quant_grouped|act_quant|expert_quant_token"
+                                 r"|expert_quant|qgemm|decode_attention|k1_decode|k4_decode"
+                                 r"|k7_decode|k7_token|k3_wgmma|act_bf16|dequant_wgmma"
+                                 r"|group_mma|block)_kernel", mangled)
+                targs = template_args(mangled)
+                kernel = f"{base.group(0) if base else mangled}<{','.join(targs)}>"
+            elif "registers" in ln or "spill" in ln:
+                ptxas.append(f"{kernel}: {ln.split(':', 1)[-1].strip()}")
+        return built["s"], ptxas
+
+    if sys.argv[1:]:
+        build_s, ptxas = finish_build()
 
     if sys.argv[1:] == ["--phase", "decode_plan_sweep"]:
         say("decode_plan_sweep", card=card.name, nvidia_smi=card.smi,
@@ -5638,6 +5952,12 @@ def main() -> int:
         records = gguf_path(card)
         print(json.dumps({"kernels": records}), flush=True)
         return 0
+    if sys.argv[1:] == ["--phase", "gguf_lowbit_path"]:
+        say("build", nvcc_s=round(build_s, 3), ptxas=ptxas,
+            nvcc_s_by_source={k: round(v, 3) for k, v in build.build_seconds.items()})
+        records = gguf_lowbit_path(card)
+        print(json.dumps({"kernels": records}), flush=True)
+        return 0
     if sys.argv[1:] == ["--phase", "qgemm_decode_sweep"]:
         say("build", nvcc_s=round(build_s, 3), ptxas=ptxas)
         say("qgemm_decode_sweep", card=card.name, nvidia_smi=card.smi,
@@ -5645,7 +5965,7 @@ def main() -> int:
         say("pdl_overlap", card=card.name, **pdl_overlap(card))
         return 0
     t_all = time.perf_counter()
-    records = bitnet_path(card, build_s, ptxas)
+    records = bitnet_path(card, finish_build)
     records += speculative_path(card)
     records += llama_path(card)
     torch.cuda.empty_cache()
@@ -5654,8 +5974,8 @@ def main() -> int:
     records += phi3_path(card)
     torch.cuda.empty_cache()
     from tmac_tpu_torch.models.config import get_preset
-    records += grouped_path(card, "llama31", get_preset("llama-3.1-8b", bits=3),
-                            W3_PROMPT, W3_CHUNK)
+    records += grouped_path(card, "llama31", dataclasses.replace(
+        get_preset("llama-3.1-8b", bits=3), num_layers=W3_LAYERS), W3_PROMPT, W3_CHUNK)
     torch.cuda.empty_cache()
     records += grouped_path(card, "qwen2", get_preset("qwen2-7b"), QWEN_PROMPT, QWEN_PROMPT,
                             serve=engine_serve)
@@ -5670,33 +5990,38 @@ def main() -> int:
     torch.cuda.empty_cache()
     records += per_channel_path(card)
     torch.cuda.empty_cache()
-    say("attn_sweep", card=card.name, nvidia_smi=card.smi, rows=attn_sweep(card))
-    say("qgemm_decode_sweep", card=card.name, nvidia_smi=card.smi,
-        rows=qgemm_decode_sweep(card))
-    sweep_b13_large(card)
-    say("pdl_overlap", card=card.name, **pdl_overlap(card))
-    say("expert_block_sweep", **expert_block_sweep(card))
-    say("k3_sweep", card=card.name, nvidia_smi=card.smi, rows=k3_sweep(card))
+    records += gguf_lowbit_path(card, LB_FULL_RUN_FORCED)
+    torch.cuda.empty_cache()
+    full_run_sweeps(card, t_all)
     say("record", unit="device ms per decode step of each path (bitnet-3b: "
         "105 K1 and 26 K2 launches, in the block mode 26 K10, 27 K1 and 26 "
-        "K2; llama-2-7b: 128 K4, 1 K1 and 32 K2; mixtral-8x7b: 64 K7 (one "
-        "call for the 2 routed experts' gate_up, one for their down, a "
-        "layer), 64 K4, 32 K2 and 1 K1; phi-3-mini: 128 K4, 1 K1 and 32 K6, K8 or K9; "
-        "llama-3.1-8b W3: 128 K4, 1 K1 and 32 K2; qwen2-7b W4: 112 K4, 1 K1 and 28 K2; "
-        "llama-2-7b ags 32: 128 K4 (the ags form), 1 K1 and 32 K2; mixtral-8x7b w_a8: 64 "
+        "K2; llama-2-7b: 128 K4, 1 K1 and 32 K2; mixtral-8x7b (16 layers): 32 "
+        "K7 (one call for the 2 routed experts' gate_up, one for their down, a "
+        "layer), 32 K4, 16 K2 and 1 K1; phi-3-mini (16 layers): 64 K4, 1 K1 and 16 K6, K8 "
+        "or K9; "
+        "llama-3.1-8b W3 (16 layers): 64 K4, 1 K1 and 16 K2; qwen2-7b W4: 112 K4, 1 K1 "
+        "and 28 K2; llama-2-7b ags 32 (16 layers): 64 K4 (the ags form), 1 K1 and 16 K2; "
+        "mixtral-8x7b w_a8: 64 "
         "K7 (the per-tensor branch), 65 K1 and 32 K2; qwen2-7b's engine, 8 slots: 112 K4, "
         "1 K1 and 28 K2 (K6 on the int8 cache)), "
         "except K3, K5 and K4L: device ms per prefill (bitnet-3b: 420 K3 "
         "launches for 1024 tokens in chunks of 256; llama-2-7b: 256 K5 for "
-        "1024 tokens in chunks of 512; phi-3-mini: 1152 K4L for 2304 tokens "
-        "in chunks of 256; llama-3.1-8b: 128 K5 and 128 K4L for 768 tokens in "
-        "chunks of 512 and 256; qwen2-7b: 112 K4L for 256 tokens; llama-2-7b ags 32: 128 K5 "
-        "and 128 K4L (the ags form) for 768 tokens in chunks of 512 and 256; mixtral-8x7b "
-        "w_a8: 577 K3 for 256 tokens; llama-3.1-8b-q4_k (path 11, f32 grouped scales): "
-        "128 K5 and 128 K4L for 600 tokens in chunks of 512 and 88, 128 K4, 1 K1 and 32 K2 "
-        "a step; mixtral-8x7b-q4_k at 2 layers: 4 K7, 4 K4, 2 K2 and 1 K1 a step; "
+        "1024 tokens in chunks of 512; phi-3-mini: 576 K4L for 2304 tokens "
+        "in chunks of 256; llama-3.1-8b: 64 K5 and 64 K4L for 768 tokens in "
+        "chunks of 512 and 256; qwen2-7b: 112 K4L for 256 tokens; llama-2-7b ags 32: 64 K5 "
+        "and 64 K4L (the ags form) for 768 tokens in chunks of 512 and 256; mixtral-8x7b "
+        "w_a8: 577 K3 for 256 tokens; llama-3.1-8b-q4_k (path 11, f32 grouped scales, "
+        "16 layers): 64 K5 and 64 K4L for 600 tokens in chunks of 512 and 88, 64 K4, 1 K1 "
+        "and 16 K2 a step; mixtral-8x7b-q4_k at 2 layers: 4 K7, 4 K4, 2 K2 and 1 K1 a step; "
         "llama-3.1-8b w4a8 per channel (path 12): 258 K3 for 1024 tokens in chunks of "
-        "512, 129 K1 and 32 K2 a step); "
+        "512, 129 K1 and 32 K2 a step; llama-3.1-8b-q2_k (path 13, gs 16): 256 K5 for 600 "
+        "tokens in chunks of 512 and 88 (each timed at its own rows), 128 K4, 1 K1 and "
+        "32 K2 a step; llama-3.1-8b-q8_0 "
+        "(path 14, bits 8, 16 layers): 64 K5 and 64 K4L for 600 tokens, 64 K4, 1 K1 and "
+        "16 K2 a step; mixtral-8x7b-q2_k at 2 layers (path 14b): 4 K5 and 32 K4 for 64 "
+        "tokens, 4 K7, 4 K4, 2 K2 and 1 K1 a step; the form checks' records (K4L at gs 16, "
+        "K4 and K4L at ags 16): ms over one layer's four linears, launches over the "
+        "checks); "
         "launches: the wrappers' counts over each path's "
         "prefill and decode_loop, which calls a step's wrappers twice (its "
         "eager first step and the one capture) and replays the graph for "

@@ -203,7 +203,8 @@ def _b3_slot(e, lo1, lo2, hi):
     return ((lo >> (2 * j - t)) & (0x03030303 << t)) | (h & (0x04040404 << t)), t
 
 
-@pytest.mark.parametrize("bits,gs", [(2, 0), (8, 0), (2, 32), (4, 32), (1, 32), (3, 32)])
+@pytest.mark.parametrize("bits,gs", [(2, 0), (8, 0), (2, 32), (4, 32), (1, 32), (3, 32),
+                                     (8, 32), (8, 16), (2, 16), (3, 16)])
 def test_lane_reads_feed_the_matmul(bits, gs):
     """A model of decode_matmul's main loop for one block (ksplit 1, one
     128-column strip): stage t's packed rows land swizzled in the ring
@@ -213,8 +214,10 @@ def test_lane_reads_feed_the_matmul(bits, gs):
     the shifted sums, added over the row groups, equal the plain dot per
     group (K4) or in all (K1).  At bits 3 a stage holds three planes (lo
     rows r and r + Kb, hi row r) and slot e's word is _b3_slot's, its
-    codes assembled in place across the 32-bit word.  Also: the ring's
-    reads hit each stored byte exactly once."""
+    codes assembled in place across the 32-bit word; at grouped bits 8
+    the bytes are signed codes, met s8 x s8; at gs 16 a stage's rows hold
+    two groups.  Also: the ring's reads hit each stored byte exactly
+    once."""
     rng = np.random.default_rng(bits + gs)
     K, M = 256, 128
     if gs:
@@ -271,3 +274,151 @@ def test_lane_reads_feed_the_matmul(bits, gs):
                         got[g, m] += _dp4a(a, xv, 0, bits < 8) >> shift
     assert (seen == 1).all()
     np.testing.assert_array_equal(got, want)
+
+
+def _flush_model(acc, P, half, blk, nblk, nchunks, shift):
+    """decode_matmul.cuh's grouped flush for one token row and one column
+    word of a warp: acc[rg] the (P, 4) int sums of row group rg's lane
+    (field j, column c, times 2^shift(j)); each lane's PH * 4 values of a
+    pass go through the exchange buffer (value e = 4 q + c of a lane is
+    field pass * PH + q); lane rg then adds values e = rg * H .. +H over
+    the 8 row groups (only row groups with rg * H < E: bits 8's E = 4), or
+    with `half` values e = (rg % 4) * PH .. +PH of unit blk + rg / 4 over
+    the 4 row groups of its half, stored if that unit is one of the
+    block's nblk.  -> {(slot, c): value}, slot as part_s's (nchunks: a
+    cluster of one's layout), asserting each is stored once."""
+    PH = min(P, 4)
+    E = PH * 4
+    H = E // 8 if E >= 8 else 1
+    out = {}
+    for pass_ in range(P // PH):
+        xbuf = [[acc[src][pass_ * PH + e // 4][e % 4] for e in range(E)] for src in range(8)]
+        for rg in range(8):
+            if half:
+                u, q = rg >> 2, rg & 3
+                if blk + u >= nblk:
+                    continue
+                es, srcs, unit = [q * PH + i for i in range(PH)], range(4 * u, 4 * u + 4), blk + u
+            else:
+                if rg * H >= E:
+                    continue
+                es, srcs, unit = [rg * H + i for i in range(H)], range(8), blk
+            for e in es:
+                j, c = pass_ * PH + e // 4, e % 4
+                slot = j * nchunks + unit if nchunks else unit * P + j
+                assert (slot, c) not in out
+                out[(slot, c)] = sum(xbuf[src][e] for src in srcs) >> shift(j)
+    return out
+
+
+@pytest.mark.parametrize("bits,unit", [(b, u) for b in (1, 2, 3, 4, 8) for u in (16, 32)])
+@pytest.mark.parametrize("ksplit", [1, 3, 8])
+def test_half_stage_flush_stores_the_block_partials(bits, unit, ksplit):
+    """The grouped decode matmul's flush at 16-row units (half a ring
+    stage: row groups 0-3 hold the first unit's rows, 4-7 the second's, a
+    block's last stage possibly half empty) and at 32, its bits-8 lanes
+    (E = 4 values, row groups 0-3 store them): each block's lanes' dp4a
+    sums (rows 4 rg .. +3 of each stage, slot j's weights formed in place)
+    through _flush_model give every partial of its units exactly once,
+    equal to block_partials_plain's, for cluster sizes that leave blocks
+    an odd unit count (Kp 1536 at bits 8, 96 units of 16: 32, 32, 32 at 3;
+    12 at 8)."""
+    from tmac_tpu_torch.ops.cuda.qgemm_kernel import decode_slot_weights
+    rng = np.random.default_rng(bits * 10 + unit + ksplit)
+    P = decode_fields(bits)
+    Kp = 1536 if bits == 8 else 256 * P * (2 if bits in (1, 3) else 1)
+    qt = _grouped(rng, bits, Kp // unit, unit, 128)
+    Kb, _, nunits = decode_units(Kp, bits, unit)
+    codes = torch.from_numpy(rng.integers(-127, 128, (2, Kp)).astype(np.int8))
+    c = codes.long()
+    slots = [decode_slot_weights(qt, 0, Kb, j) for j in range(P)]
+    shifts = [sh for _, sh in slots]
+    blocks = block_partials_plain(codes, qt, ksplit)
+    for rank, (u0, u1) in enumerate(decode_spans(nunits, ksplit)):
+        if u1 == u0:
+            continue
+        r0, r1 = u0 * unit, min(u1 * unit, Kb)
+        spu, upf = max(unit // 32, 1), 2 if unit < 32 else 1
+        nst = -(-(r1 - r0) // 32)
+        got = torch.zeros_like(blocks[rank].long())
+        for t0 in range(0, nst, spu):
+            acc = torch.zeros((8, 2, P, 128), dtype=torch.long)   # (rg, n, j, m)
+            for t in range(t0, min(t0 + spu, nst)):
+                for rg in range(8):
+                    rows = [r for r in range(r0 + 32 * t + 4 * rg, r0 + 32 * t + 4 * rg + 4)
+                            if r < r1]
+                    for j in range(P):
+                        acc[rg, :, j] += c[:, [j * Kb + r for r in rows]] @ slots[j][0][rows]
+            blk = t0 // spu * upf
+            for n in range(2):
+                for word in range(32):
+                    lanes = acc[:, n, :, 4 * word:4 * word + 4].tolist()
+                    nch = nunits if ksplit == 1 else 0   # a cluster of one's layout
+                    out = _flush_model(lanes, P, upf == 2, blk, u1 - u0,
+                                       nch, lambda j: shifts[j])
+                    for (slot, cc), v in out.items():
+                        u, j = (slot % nch, slot // nch) if nch else divmod(slot, P)
+                        got[u, j, n, 4 * word + cc] = v
+            assert len(out) == (min(upf, u1 - u0 - blk)) * P * 4
+        assert torch.equal(got, blocks[rank].long()), rank
+
+
+# Llama-3.1-8B Q2_K's (gguf) linears: bits 2 at gs 16, f32 factors
+Q2K_SHAPES = [(n, *s) for n in (1, 4, 16) for s in (
+    (4096, 6144), (4096, 4096), (4096, 28672), (14336, 4096))]
+
+
+@pytest.mark.parametrize("N,Kp,Mp", Q2K_SHAPES)
+def test_decode_plan_streams_factors_only_where_none_fit(N, Kp, Mp):
+    """At gs 16 with f32 factors (Q2_K) every group's scale and zero point
+    of a block's slice can pass its shared memory (K 14336: 896 groups); the
+    plan then takes a block that streams them through two slots of equal
+    windows (decode_windows, decode_matmul.cuh's Layout), which fits; where
+    a block staging them all fits, the plan is that one (every earlier
+    form's plan is unchanged: stream=False gives the same bytes)."""
+    from tmac_tpu_torch.ops.cuda.qgemm_kernel import decode_windows
+    ksplit, nt = decode_plan(N, Kp, Mp, 2, 16, scale_bytes=4)
+    _, unit, nunits = decode_units(Kp, 2, 16)
+    G = Kp // 16
+    smem = decode_smem(2, nt, True, nunits, unit, ksplit, G, scale_bytes=4)
+    staged = decode_smem(2, nt, True, nunits, unit, ksplit, G, scale_bytes=4, stream=False)
+    assert smem <= DECODE_SMEM_LIMIT
+    assert (smem == staged) == (staged <= DECODE_SMEM_LIMIT) == (Kp != 14336)
+    # down's 896 groups at a cluster of 8 (a 16-column slice, 128 bytes of
+    # f32 factors a group) beside 120 KB before the factors and 27 KB after:
+    # 320 groups fit a slot, so three windows of 299
+    assert decode_windows(120 * 1024, 27 * 1024, 896, 16, 4) == (299, 2)
+    assert decode_windows(120 * 1024, 27 * 1024, 100, 16, 4) == (100, 1)
+    for n, k, m, bits, gs in PATH_SHAPES:     # every earlier form: staged, as before
+        ks, t = decode_plan(n, k, m, bits, gs)
+        _, u, nu = decode_units(k, bits, gs)
+        assert decode_smem(bits, t, gs > 0, nu, u, ks, k // gs if gs else 1,
+                           stream=False) <= DECODE_SMEM_LIMIT
+
+
+@pytest.mark.parametrize("G,fwin", [(896, 299), (896, 128), (10, 3), (7, 7)])
+def test_factor_windows_land_before_their_fold(G, fwin):
+    """The fold's factor windows as decode_matmul.cuh issues them: windows
+    0 and 1 with the first stage's copies (complete after the main loop's
+    last wait), window w + 2 into slot w % 2 after the barrier that ends
+    window w's fold, one commit group each (empty past the last window);
+    window w >= 2 is read after cp.async.wait_group 1 and a barrier.  Each
+    window's reads find its own groups in its slot, and the chain visits
+    the groups in order."""
+    nwin = -(-G // fwin)
+    slot = {0: 0, 1: 1 if nwin > 1 else None}
+    groups = []          # commit groups issued in the fold: window or None
+    done = 0             # groups complete
+    visited = []
+    for wi in range(nwin):
+        if wi >= 2:
+            done = max(done, len(groups) - 1)          # wait_group 1
+            assert wi in groups[:done]
+        assert slot[wi % 2] == wi
+        visited += range(wi * fwin, min(G, wi * fwin + fwin))
+        if nwin > 2:
+            # the barrier: every thread has left window wi's slot
+            groups.append(wi + 2 if wi + 2 < nwin else None)
+            if wi + 2 < nwin:
+                slot[wi % 2] = wi + 2
+    assert visited == list(range(G))

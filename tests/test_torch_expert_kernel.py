@@ -260,3 +260,56 @@ def test_params_from_numpy_carries_stacked_experts():
     assert layer["moe_router"].dtype == torch.bfloat16
     np.testing.assert_array_equal(layer["moe_router"].view(torch.int16).numpy(),
                                   np.asarray(jlayer["moe_router"]).view(np.int16))
+
+
+# group size 16 (GGUF's Q2_K experts), bf16 and f32 scales: (bits, N, K,
+# Ms, glu, f32)
+GS16_CASES = [
+    (2, 1, 512, (256, 256), False, True),
+    (2, 4, 512, (384,), True, True),
+    (4, 1, 256, (256, 256), False, False),
+    (1, 4, 512, (384,), True, False),
+]
+
+
+@pytest.mark.parametrize("bits,N,K,Ms,glu,f32", GS16_CASES)
+def test_plain_k7_gs16_matches_pallas(bits, N, K, Ms, glu, f32):
+    """K7's function at group size 16, which K7 on the card takes since
+    the decode matmul has a 16-row unit (as JAX's expert kernel takes any
+    group size, its chunk min(gs, K / p)): against qgemm_expert_pallas in
+    interpret mode, at the gates of the other group sizes, and bit for bit
+    K4's plain version on the expert."""
+    rng = np.random.default_rng(bits * 100 + N * 10 + K + glu + f32)
+    st, jst = _stacks(rng, bits, K, Ms, 16, f32=f32)
+    assert j_supported(jst) and expert_kernel_supported(st)
+    x = rng.standard_normal((N, 2 * K if glu else K)).astype(np.float32)
+    xb, xt = jnp.asarray(x, jnp.bfloat16), torch.from_numpy(x).to(torch.bfloat16)
+    for e in range(E):
+        want = np.asarray(qgemm_expert_pallas(xb, jst, jnp.int32(e), glu=glu,
+                                              interpret=True))
+        got = qgemm_expert(xt, st, e, glu=glu).numpy()
+        assert got.shape == want.shape == (N, sum(Ms))
+        assert nmse(want, got) <= (GLU_NMSE if glu else FOLD_NMSE), (e, nmse(want, got))
+        assert torch.equal(torch.from_numpy(got),
+                           qgemm_grouped_plain(xt, expert_view(st, e), glu=glu))
+
+
+@pytest.mark.parametrize("bits", [1, 2, 3, 4, 8])
+def test_expert_scope_agrees_with_jax(bits):
+    """The port's expert_kernel_supported against JAX's on a grid of forms:
+    group sizes 16, 32, 64, 128 and per tensor, act_gs 0, 16 and 32, bf16
+    and f32 scales.  They agree on every form but the narrowing the port
+    documents, the scale dtype: per-tensor scales in bf16 (the model's are
+    f32) are JAX's and not the port's.  Bits 3 (a hi plane) and 8 are in
+    neither scope, nor is a K the packing pads (bits 1 at gs >= 64)."""
+    rng = np.random.default_rng(bits)
+    K = 256
+    for gs in (16, 32, 64, 128, K):
+        for f32 in (False, True):
+            st, jst = _stacks(rng, bits, K, (128,), gs, f32=f32)
+            for act_gs in (0, 16, 32):
+                want = j_supported(jst, act_gs)
+                got = expert_kernel_supported(st, act_gs)
+                narrowed = gs == K and not f32
+                assert got == (want and not narrowed), (gs, f32, act_gs)
+                assert want == (bits in (1, 2, 4) and act_gs == 0 and st.kdim_padded == K)

@@ -37,6 +37,7 @@ from tmac_tpu.models import moe as jm
 from tmac_tpu.models.config import get_preset as jax_preset
 from tmac_tpu.models.llama import init_params as jax_init
 from tmac_tpu_torch.convert.from_jax import params_from_numpy
+from tmac_tpu_torch.models import llama as tl
 from tmac_tpu_torch.models import moe as tm
 from tmac_tpu_torch.models.config import get_preset
 from tmac_tpu_torch.utils import nmse
@@ -208,6 +209,46 @@ def test_moe_select_gather_route_matches_jax(monkeypatch):
         want, got = _both(cfg, jcfg, layer, jlayer, x, moe_impl="select")
         assert np.isfinite(got).all()
         assert nmse(want, got) <= MOE_NMSE, trial
+
+
+def test_moe_select_gs16_runs_k7_on_both_sides(monkeypatch):
+    """A Mixtral layer at group size 16 (GGUF's Q2_K experts): both
+    packages' expert_kernel_supported take its stacks, so the select form
+    runs the expert kernel on both sides (JAX's qgemm_expert_pallas, the
+    port's K7, whose plain version runs on CPU tensors; neither the gather
+    route nor apply_qlinear), 2 calls per routed expert, and the outputs
+    agree as at other group sizes."""
+    cfg, jcfg = (c.with_quant(group_size=16) for c in _mixtral())
+    layer, jlayer = _layers(cfg, jcfg, seed=3)
+    for stack in ("experts_gate_up", "experts_down"):
+        assert layer[stack].group_size == 16
+        assert jek.expert_kernel_supported(jlayer[stack])
+        assert tek.expert_kernel_supported(layer[stack])
+    calls = {"jax": 0, "port": 0}
+
+    def counting(side, fn):
+        def wrapped(*a, **k):
+            calls[side] += 1
+            return fn(*a, **k)
+        return wrapped
+
+    def refuse(*a, **k):
+        raise AssertionError("an expert took the dense route")
+    monkeypatch.setattr(jek, "qgemm_expert_pallas",
+                        counting("jax", jek.qgemm_expert_pallas))
+    monkeypatch.setattr(tek, "qgemm_expert_plain",
+                        counting("port", tek.qgemm_expert_plain))
+    monkeypatch.setattr(tl, "apply_qlinear", refuse)
+    rng = np.random.default_rng(7)
+    for trial in range(2):
+        x = _tokens(rng, cfg, 1)
+        want, got = _both(cfg, jcfg, layer, jlayer, x, moe_impl="select")
+        assert np.isfinite(got).all()
+        assert nmse(want, got) <= MOE_NMSE, trial
+    # JAX's jitted moe_mlp traces its expert calls once, the port calls K7
+    # each trial
+    k = cfg.num_experts_per_tok
+    assert calls == {"jax": 2 * k, "port": 2 * 2 * k}
 
 
 def test_dispatch_drops_overflow_like_jax():

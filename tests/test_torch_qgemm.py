@@ -270,7 +270,7 @@ def test_auto_off_the_cpu_takes_k1_or_raises(case):
     elif case == "grouped_bits8":
         qt = QuantizedTensor.from_float(w, 8, 64, scale_dtype=torch.bfloat16,
                                         device="cpu")
-        want = "K4 on the card lacks grouped bits 8"   # the plain version's only
+        want = "K4 runs on CPU or CUDA tensors"   # K4 took it (grouped bits 8 too)
     else:
         qt = QuantizedTensor.from_float(w, 2, device="cpu")
         x = x.to(torch.int8)

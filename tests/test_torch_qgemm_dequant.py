@@ -185,14 +185,14 @@ def test_plain_k5_f32_scales_match_pallas_dequant(bits, gs, N, K, Ms, norm, glu,
     _within_rounding(qt, xt, kw_t, want, got)
 
 
-@pytest.mark.parametrize("bits,gs", [(4, 32), (2, 256)])
+@pytest.mark.parametrize("bits,gs", [(4, 32), (2, 256), (2, 16), (3, 16)])
 def test_k5_f32_dequantized_weights_are_the_references(bits, gs):
     """The reference's bf16 dequantized weights, read back through one-hot
     rows of x (each output one exact product), equal dequant_weights_plain
     byte for byte with f32 scales, which an f32 product then a difference
     (two roundings) would not give."""
     rng = np.random.default_rng(bits + gs)
-    K = 8 * gs if bits == 2 else 512
+    K = 8 * gs if bits == 2 and gs > 16 else 512
     qt, jqt = _pair(rng, bits, K, (256,), gs, f32=True)
     x = jnp.eye(K, dtype=jnp.bfloat16)
     ws = _pallas(x, jqt, "dequant")
@@ -201,3 +201,86 @@ def test_k5_f32_dequantized_weights_are_the_references(bits, gs):
     w = unpack_codes(qt).float().reshape(K // gs, gs, -1)
     two = (w * qt.scales.float()[:, None] - qt.sub.float()[:, None]).reshape(K, -1)
     assert (two.to(torch.bfloat16).float().numpy() != ws).any()
+
+
+@pytest.mark.parametrize("bits,gs", [(2, 16), (3, 16), (1, 16), (8, 16), (8, 32), (4, 32)])
+def test_k5_producer_dequantizes_as_the_plain_version(bits, gs):
+    """A model of dequant_wgmma_kernel's producer: step = rb * P + j
+    dequantizes field j of packed rows 64 rb .. +64 (k = j * Kb + r), its
+    thread (q, rlo) the 8 columns 8 q .. +8 of rows rlo + 16 i (i < 4);
+    the scale and zero point rows prefetched for row rlo's group, and
+    reloaded where a chunk's row is in another group (every chunk at gs
+    16: the in-step group change); the code taken as a float by the exact
+    add (bits 8: the signed byte xor 0x80, less 2^23 + 128); then
+    fma(code, scale, -sub) rounded to bf16: the plain version's weights
+    bit for bit, f32 scales (and bits 8's sub shifted by 128 * scale)."""
+    from tmac_tpu_torch.utils import fma_f32
+    rng = np.random.default_rng(bits * 7 + gs)
+    K = 1024 if bits in (1, 3) else 512
+    qt, _ = _pair(rng, bits, K, (128,), gs, f32=True)
+    Kp, Mp = qt.kdim_padded, qt.mdim_padded
+    P = 1 if bits == 8 else 4 if bits == 3 else 8 // bits
+    Kb, Kh = Kp // P, Kp // 8
+    pk = qt.packed.long()
+    hi = qt.packed_hi.long() if bits == 3 else None
+    sc, sb = qt.scales.float(), qt.sub.float()
+    out = torch.zeros((Kp, Mp), dtype=torch.bfloat16)
+    reloads = 0
+    for step in range(Kp // 64):
+        rb, j = divmod(step, P)
+        r0 = rb * 64
+        for rlo in range(16):
+            g_pre = ((step % P) * Kb + (step // P) * 64 + rlo) // gs   # load_scales
+            g_cur, s_row, z_row = (j * Kb + r0 + rlo) // gs, sc[g_pre], sb[g_pre]
+            assert g_cur == g_pre
+            for i in range(4):
+                rr = rlo + 16 * i
+                g = (j * Kb + r0 + rr) // gs
+                if g != g_cur:
+                    g_cur, s_row, z_row = g, sc[g], sb[g]
+                    reloads += 1
+                byte = pk[r0 + rr]
+                if bits == 3:
+                    code = (((byte >> (2 * j)) & 3)
+                            | (((hi[(r0 + rr) % Kh] >> (2 * j + (r0 >= Kh))) & 1) << 2))
+                    cf = code.float()
+                elif bits == 8:
+                    biased = torch.from_numpy((byte.numpy() ^ 0x80).astype(np.uint32)
+                                              | 0x4B000000).view(torch.float32)
+                    cf = biased - torch.tensor(8388736.0)
+                else:
+                    cf = ((byte >> (bits * j)) & ((1 << bits) - 1)).float()
+                v = fma_f32(cf, s_row, -z_row)
+                out[j * Kb + r0 + rr] = v.to(torch.bfloat16)
+    assert torch.equal(out.view(torch.int16), k45.dequant_weights_plain(qt).view(torch.int16))
+    assert (reloads > 0) == (gs < 64)
+
+
+@pytest.mark.parametrize("gs", [32, 16])
+def test_bits8_dequant_reads_signed_codes(gs):
+    """Grouped bits 8 (GGUF's Q8_0) on K5's route: the port dequantizes the
+    signed codes the packing stores (wq - 128, the shift folded into sub),
+    as the reference's own XLA route (qgemm_xla) does, within the bf16
+    rounding of the weights.  The reference's Pallas dequant route in
+    interpret mode reads the same bytes as unsigned (its interpret-mode
+    unpack masks the widened bytes and, unlike its single-dot branch,
+    never wraps them to int8), 256 * scale off on every weight whose
+    code is negative: a fault of the reference (ROADMAP Queue 3), pinned
+    here, which the port does not follow."""
+    from tmac_tpu.ops.qgemm import qgemm_xla
+    rng = np.random.default_rng(gs)
+    K = 512
+    qt, jqt = _pair(rng, 8, K, (256,), gs, f32=True)
+    eye = jnp.eye(K, dtype=jnp.bfloat16)
+    wd = k45.dequant_weights_plain(qt).float().numpy()
+    wx = np.asarray(qgemm_xla(eye, jqt, out_dtype=jnp.float32))
+    assert np.abs(wd - wx).max() <= 2.0 ** -8 * np.abs(wx).max()
+    ws = _pallas(eye, jqt, "dequant")
+    codes = np.asarray(jqt.packed)
+    sc, sb = np.asarray(jqt.scales, np.float32), np.asarray(jqt.sub, np.float32)
+    unsigned = (codes.astype(np.float32).reshape(K // gs, gs, -1) * sc[:, None]
+                - sb[:, None]).reshape(K, -1)
+    assert np.abs(unsigned.astype(jnp.bfloat16).astype(np.float32) - ws).max() \
+        <= 2.0 ** -8 * np.abs(ws).max()
+    neg = codes.view(np.int8) < 0
+    assert np.allclose((ws - wd)[neg].mean() / (256 * sc.mean()), 1.0, rtol=0.2)

@@ -335,15 +335,15 @@ def test_wrapper_dispatch_and_limits():
         device="cpu")
     for ok in (bits8, f32):
         assert torch.equal(qgemm_grouped(x, ok), qgemm_grouped_plain(x, ok))
-    with pytest.raises(ValueError, match="grouped bits 8"):
-        check_kernel_form(bits8)
-    check_kernel_form(f32)
+        check_kernel_form(ok)
     per_tensor = QuantizedTensor.from_float(
         rng.standard_normal((512, 256)).astype(np.float32), 2, device="cpu")
     f16 = QuantizedTensor.from_quantized(       # neither bf16 nor f32
         rng.integers(0, 4, (512, 256)).astype(np.uint8),
         np.ones((4, 256), np.float32), np.zeros((4, 256), np.float32), 2, GS,
         scale_dtype=torch.float16, device="cpu")
+    with pytest.raises(ValueError, match="takes bf16 or f32 scales"):
+        check_kernel_form(f16)
     padded_k, _ = _pair(rng, 2, 640, (256,))    # K 640 -> 1024
     padded_m, _ = _pair(rng, 2, 512, (200,))
     for bad, kw in ((f16, {}), (per_tensor, {}),
@@ -384,7 +384,7 @@ def _k4l_b_reads(bits, KT, rbase, Kb):
     return stores, reads
 
 
-@pytest.mark.parametrize("bits,KT", [(2, 64), (4, 64), (2, 32)])
+@pytest.mark.parametrize("bits,KT", [(2, 64), (4, 64), (2, 32), (8, 64), (8, 32)])
 def test_k4l_fragment_map_reads_the_unpacked_codes(bits, KT):
     """The swizzled packed tile is a bijection onto its bytes, with the 4
     packed rows that one B register reads in 4 distinct 16-byte chunk
@@ -392,7 +392,8 @@ def test_k4l_fragment_map_reads_the_unpacked_codes(bits, KT):
     lanes); every (k, column) of the step is read by exactly one fragment
     element; and the byte a fragment element gets, masked to field j, is
     the weight code unpack_codes gives for k = j * Kb + rbase + k_local,
-    at the column the epilogue stores it to."""
+    at the column the epilogue stores it to (bits 8: the byte itself, a
+    signed code, with no field to mask)."""
     rng = np.random.default_rng(bits + KT)
     qt, _ = _pair(rng, bits, 1024, (256,))
     P, Kp, Mp = 8 // bits, qt.kdim_padded, qt.mdim_padded
@@ -417,6 +418,8 @@ def test_k4l_fragment_map_reads_the_unpacked_codes(bits, KT):
                 assert (k_local, m) not in seen
                 seen.add((k_local, m))
                 field = (int(tile[off]) >> (bits * j)) & ((1 << bits) - 1)
+                if bits == 8:
+                    field -= 256 * (field >= 128)
                 assert field == codes[j * Kb + rbase + k_local, m]
             assert len(seen) == KT * 128
             # one register's 4 rows land in 4 distinct chunk columns, and a
@@ -456,12 +459,17 @@ def test_k4l_epilogue_columns_cover_the_tile():
     (16, 2, torch.float32, "group size 16"), (16, 3, torch.float32, "group size 16"),
     (32, 8, torch.float32, "grouped bits 8"), (32, 8, torch.bfloat16, "grouped bits 8"),
     (32, 4, torch.float32, None), (256, 2, torch.float32, None),
-    (128, 3, torch.bfloat16, None)])
+    (128, 3, torch.bfloat16, None), (16, 8, torch.float32, "grouped bits 8"),
+    (16, 1, torch.bfloat16, "group size 16"), (32, 2, torch.float16, "float16 scales")])
 def test_kernel_form_check_names_what_the_card_lacks(gs, bits, scale_dtype, form):
-    """check_kernel_form, what K4, K4L and K5 run before they launch:
-    group size 16 (GGUF's Q2_K and Q3_K) and grouped bits 8 (Q8_0) raise a
-    ValueError naming the form; f32 and bf16 scales at a multiple of 32
-    pass.  The plain version computes every one of them."""
+    """check_kernel_form, what K4, K4L and K5 run before they launch: group
+    size 16 (GGUF's Q2_K and Q3_K) and grouped bits 8 (Q8_0), which the
+    kernels take since they have a 16-row unit and an s8 x s8 form, pass
+    with f32 and bf16 scales, as every multiple of 32 does, and so does an
+    activation group size of 16 (_check_ags); the one form it names is a
+    scale dtype other than bf16 and f32.  The plain version computes every
+    form it passes."""
+    from tmac_tpu_torch.ops.cuda.qgemm_grouped_kernel import _check_ags
     rng = np.random.default_rng(gs + bits)
     K = 8 * max(gs, 32) if bits in (1, 3) else 512
     qmax = (1 << bits) - 1
@@ -470,13 +478,20 @@ def test_kernel_form_check_names_what_the_card_lacks(gs, bits, scale_dtype, form
         np.full((K // gs, 256), 0.01, np.float32), np.full((K // gs, 256), 0.05, np.float32),
         bits, gs, scale_dtype=scale_dtype, device="cpu")
     for kernel in ("K4", "K4L", "K5"):
-        if form is None:
-            check_kernel_form(qt, kernel)
-        else:
-            with pytest.raises(ValueError, match=f"{kernel} on the card lacks {form}"):
+        if scale_dtype == torch.float16:
+            with pytest.raises(ValueError, match=f"{kernel} on the card takes bf16 or f32"):
                 check_kernel_form(qt, kernel)
+            continue
+        check_kernel_form(qt, kernel)
+        if gs >= 32:
+            _check_ags(kernel, qt, 16)
+    if scale_dtype == torch.float16:
+        return
     x = torch.from_numpy(rng.standard_normal((3, K)).astype(np.float32)).to(torch.bfloat16)
     assert torch.isfinite(qgemm_grouped(x, qt)).all()
+    for ags in (8, 48):     # the plain version's, not the kernels'
+        with pytest.raises(ValueError, match="activation group size of 16"):
+            _check_ags("K4", qt, ags)
 
 
 def _k4l_streamed(codes, xs, xsum, qt, KT, scale_bytes):
@@ -558,3 +573,99 @@ def test_k4l_streamed_factors_at_k14336_match_the_plain_version(f32, K):
     got = _k4l_streamed(codes, xs, xsum, qt, KT, sb)
     want = qgemm_grouped_plain(x, qt)
     assert torch.equal(got, want)
+
+
+def test_k4l_half_steps_are_the_k16_operands():
+    """K4L's U16 form splits a KT = 32 step's m16n8k32 operands into two
+    m16n8k16 products: ldmatrix.x4's matrix i (lanes 8 i .. 8 i + 7 give
+    its row addresses) holds token rows 8 (i % 2) .. +8 and k bytes 16 (i //
+    2) .. +16, so A registers 2 h and 2 h + 1 are the m16n8k16 A fragment
+    (rows +0 and +8) of k half h, and B register h (packed rows 16 h + 4 tq
+    .. +3, _k4l_b_reads) is its B fragment: each half's sums are exactly
+    fold unit 2 t + h's."""
+    for lane in range(32):
+        i = lane >> 3                      # the matrix this lane addresses
+        row = (lane & 7) + ((lane >> 3) & 1) * 8
+        kbyte = (lane >> 4) * 16
+        assert (row // 8, kbyte // 16) == (i % 2, i // 2)
+    for h in range(2):
+        for i in (2 * h, 2 * h + 1):       # A registers of half h
+            assert i // 2 == h
+    _, reads = _k4l_b_reads(2, 32, 0, 256)
+    for wn, lane, ks, h, c, i, off in reads:
+        k_local = ks * 32 + h * 16 + (lane & 3) * 4 + i
+        assert 16 * h <= k_local < 16 * h + 16
+
+
+def _k4l_u16(codes, xs, xsum, qt, ags=0):
+    """A model of group_mma_kernel's U16 form for one block: fold units of
+    16 k (the groups at gs 16, the activation groups at ags 16), two a KT =
+    32 step, each half's int32 sums folded right after its m16n8k16; the
+    factors of units 4 b .. +4 land in slot b % K4L_FACTOR_BLOCKS with step
+    2 b's copies (issued K4L_STAGES - 1 steps ahead, after the barrier of
+    the step that issues them) and are read at the fold, after the step's
+    barrier, which must find its own block there; then the z chain over
+    the weight groups.  The arithmetic is the kernel's: fma(p_0, x_0, p_1 *
+    x_1), fma(p_f, x_f, acc), x_f = xs_f * scale of f's weight group.  ->
+    (N, Mp)."""
+    from tmac_tpu_torch.ops.cuda.qgemm_grouped_kernel import (K4L_FACTOR_BLOCKS,
+                                                              K4L_STAGES)
+    from tmac_tpu_torch.utils import fma_f32
+    Kp, gs = qt.kdim_padded, qt.group_size
+    assert (ags or gs) == 16
+    Gf, per, G, ntiles, fu = Kp // 16, gs // 16, Kp // gs, Kp // 32, 4
+    parts = group_dots_plain(codes, qt, ags).float()
+    assert parts.shape[0] == Gf
+    scales, sub = qt.scales.float(), qt.sub.float()
+    slots = [None] * K4L_FACTOR_BLOCKS
+
+    def issue(t):
+        if t < ntiles and t % (fu // 2) == 0:
+            b = t // (fu // 2)
+            slots[b % K4L_FACTOR_BLOCKS] = (t, {f: (xs[:, f].clone(), scales[f // per].clone())
+                                                for f in range(fu * b, min(fu * b + fu, Gf))})
+
+    def read(f, t):
+        t0, block = slots[(f // fu) % K4L_FACTOR_BLOCKS]
+        assert t0 <= t, (f, t0, t)
+        row, col = block[f]
+        return row[:, None] * col[None, :]
+    for t in range(K4L_STAGES - 1):
+        issue(t)
+    acc = None
+    for t in range(ntiles):
+        issue(t + K4L_STAGES - 1)
+        for h in range(2):
+            f = 2 * t + h
+            if f == 0:
+                acc = parts[0]
+            elif f == 1:
+                acc = fma_f32(acc, read(0, t), parts[1] * read(1, t))
+            else:
+                acc = fma_f32(parts[f], read(f, t), acc)
+    z = torch.zeros_like(acc)
+    for g in range(G):
+        z = fma_f32(xsum[:, g:g + 1].expand_as(z), sub[g].expand_as(z), z)
+    return acc - z
+
+
+@pytest.mark.parametrize("bits,gs,ags,f32", [
+    (2, 16, 0, True), (3, 16, 0, True), (1, 16, 0, False), (4, 16, 0, False),
+    (8, 16, 0, True), (2, 128, 16, False), (4, 32, 16, True)])
+def test_k4l_u16_form_matches_the_plain_version(bits, gs, ags, f32):
+    """K4L at 16-k fold units (gs 16: Q2_K, Q3_K; bits 8 at gs 16; ags 16
+    on a g128 and an f32 gs 32 tensor), modelled by _k4l_u16, gives the
+    plain version's outputs bit for bit, at 64 and 88 rows (the route's
+    chunk rows below 3 * 16 take K5, so K4L runs here with dispatch
+    "chunk"); k4l_kt takes KT = 32 for it."""
+    from tmac_tpu_torch.ops.cuda.qgemm_grouped_kernel import k4l_kt
+    rng = np.random.default_rng(bits * 100 + gs + ags)
+    K = 1024 if bits in (1, 3) else 512
+    qt, _ = _pair(rng, bits, K, (128,), gs, f32)
+    assert k4l_kt(bits, gs, ags, qt.scales.element_size()) == 32
+    for N in (64, 88):
+        x = torch.from_numpy(rng.standard_normal((N, K)).astype(np.float32)).to(torch.bfloat16)
+        codes, xs, xsum = act_quant_grouped_plain(x, qt, ags=ags)
+        got = _k4l_u16(codes, xs, xsum, qt, ags)
+        want = qgemm_grouped_plain(x, qt, act_gs=ags)
+        assert torch.equal(got, want), N

@@ -5,7 +5,8 @@ package's conversion).
 GGUF is llama.cpp's file format: a header, metadata, a tensor directory
 and block-quantized tensor data.  The reader parses gguf v2/v3 files
 (spec: github.com/ggerganov/ggml/blob/master/docs/gguf.md) in numpy (the
-K-quants' affine fields in torch, so that Q4_K decodes on the card) and
+K-quants' affine fields in torch, so that Q4_K, Q2_K and Q8_0 decode on
+the card) and
 maps each block type onto the QuantizedTensor contract
 (Wdq = scales * wq - sub):
 
@@ -20,8 +21,8 @@ maps each block type onto the QuantizedTensor contract
 
 f32, because GGUF's fp16 block scales (10 mantissa bits) would not
 survive bf16 (7 bits).  The kernels read either (ops/cuda/
-qgemm_grouped_kernel.py: K4, K4L and K5; expert_kernel.py: K7); group
-size 16 and grouped bits 8 run in the plain versions only.
+qgemm_grouped_kernel.py: K4, K4L and K5; expert_kernel.py: K7), group
+size 16 and grouped bits 8 too.
 
 write_gguf writes a gguf v3 file whose bytes are those of the JAX
 package's writer for the same tensors; it writes the header first (every
@@ -247,7 +248,8 @@ class GGUFReader:
             q = blk[:, 2:].view(np.int8)
             return (q.astype(np.float32) * d.astype(np.float32)[:, None]).reshape(shape)
         if t == GGML_Q2_K:
-            codes, scales, mins = self._q2_k_fields(raw)
+            codes, scales, mins = (f.numpy() for f in self._q2_k_fields(
+                self.tensor_on(name, "cpu")))
             w = (codes.reshape(-1, 16, 16).astype(np.float32)
                  * scales[:, :, None] - mins[:, :, None])
             return w.reshape(shape)
@@ -355,25 +357,21 @@ class GGUFReader:
         return sc6, m6
 
     @staticmethod
-    def _q2_k_fields(raw: np.ndarray):
+    def _q2_k_fields(raw: torch.Tensor):
         """Q2_K super-blocks -> (codes (nb, 256) uint8 0..3, scales
         (nb, 16) f32, mins (nb, 16) f32) with w = sc_g*q - m_g over
         contiguous 16-element groups (llama.cpp dequantize_row_q2_K:
         scales[16] hold scale in the low nibble, min in the high, both
-        rescaled by fp16 super-scales d/dmin)."""
+        rescaled by fp16 super-scales d/dmin); on raw's device."""
         blk = raw.reshape(-1, 84)
         sc_raw = blk[:, :16]
         qs = blk[:, 16:80]
-        d = blk[:, 80:82].copy().view(np.float16).reshape(-1).astype(np.float32)
-        dmin = blk[:, 82:84].copy().view(np.float16).reshape(-1).astype(np.float32)
-        codes = np.empty((blk.shape[0], 256), np.uint8)
-        for n in (0, 1):  # 128-element halves share a 32-byte chunk
-            chunk = qs[:, 32 * n:32 * (n + 1)]
-            for j in range(4):  # bit positions 0/2/4/6
-                codes[:, 128 * n + 32 * j:128 * n + 32 * (j + 1)] = \
-                    (chunk >> (2 * j)) & 3
-        return (codes, d[:, None] * (sc_raw & 0x0F),
-                dmin[:, None] * (sc_raw >> 4))
+        d = blk[:, 80:82].contiguous().view(torch.float16).reshape(-1).float()
+        dmin = blk[:, 82:84].contiguous().view(torch.float16).reshape(-1).float()
+        # 128-element halves share a 32-byte chunk, bit positions 0/2/4/6
+        codes = torch.cat([(qs[:, 32 * n:32 * (n + 1)] >> (2 * j)) & 3
+                           for n in (0, 1) for j in range(4)], 1)
+        return codes, d[:, None] * (sc_raw & 0x0F), dmin[:, None] * (sc_raw >> 4)
 
     @staticmethod
     def _q3_k_fields(raw: np.ndarray):
@@ -490,14 +488,18 @@ class GGUFReader:
         w = d*sc4*q - dmin*m4 is this framework's dequant contract at
         group_size 16, so llama.cpp 2-bit artifacts run natively on the
         2-bit LUT kernels with no requantization."""
+        return tuple(t.numpy() for t in self._q2_k_quantized(name, "cpu"))
+
+    def _q2_k_quantized(self, name: str, device):
+        """q2_k_to_quantized's arrays as torch tensors, decoded and
+        transposed on `device`."""
         info = self.tensors[name]
         assert info["type"] == GGML_Q2_K, _TYPE_NAMES.get(info["type"])
         K, M = info["dims"][0], info["dims"][1]
-        codes, scales, mins = self._q2_k_fields(self.tensor_bytes(name))
-        wq = codes.reshape(M, K).T.copy()
-        sc = scales.reshape(M, K // 16).T.copy()
-        sub = mins.reshape(M, K // 16).T.copy()
-        return wq, sc, sub
+        codes, scales, mins = self._q2_k_fields(self.tensor_on(name, device))
+        return (codes.reshape(M, K).t().contiguous(),
+                scales.reshape(M, K // 16).t().contiguous(),
+                mins.reshape(M, K // 16).t().contiguous())
 
     def q3_k_to_quantized(self, name: str):
         """Q3_K matmul weight -> (wq (K, M) uint8 0..7, scales (K/16, M)
@@ -609,16 +611,19 @@ class GGUFReader:
         path (w = d*q; biased codes wq = q + 128, sub = 128*d).  8-bit
         artifacts then run the int8 MXU kernel losslessly instead of the
         4-bit requantize fallback."""
+        return tuple(t.numpy() for t in self._q8_0_quantized(name, "cpu"))
+
+    def _q8_0_quantized(self, name: str, device):
+        """q8_0_to_quantized's arrays as torch tensors, decoded and
+        transposed on `device`."""
         info = self.tensors[name]
         assert info["type"] == GGML_Q8_0, _TYPE_NAMES.get(info["type"])
         K, M = info["dims"][0], info["dims"][1]
-        blk = self.tensor_bytes(name).reshape(-1, 34)
-        d = blk[:, :2].copy().view(np.float16).reshape(-1).astype(np.float32)
-        q = blk[:, 2:].view(np.int8)
-        wq = (q.astype(np.int16) + 128).astype(np.uint8)
-        wq = wq.reshape(M, K).T.copy()
-        scales = d.reshape(M, K // 32).T.copy()
-        return wq, scales, 128.0 * scales
+        blk = self.tensor_on(name, device).reshape(-1, 34)
+        d = blk[:, :2].contiguous().view(torch.float16).reshape(-1).float()
+        wq = (blk[:, 2:].contiguous().view(torch.int8).to(torch.int16) + 128).to(torch.uint8)
+        scales = d.reshape(M, K // 32).t().contiguous()
+        return wq.reshape(M, K).t().contiguous(), scales, 128.0 * scales
 
     def q4_1_to_quantized(self, name: str):
         """Q4_1 matmul weight -> (wq, scales, sub) EXACTLY: the affine
@@ -791,13 +796,16 @@ def _qt_from_gguf(r: GGUFReader, name: str, tp_m: int, tp_k: int,
             gs = wq.shape[0] // tp_k
         # f32 in both branches: the grouped block scales are fp16
         return qt(wq, scales, sub, 2, gs)
-    if t == GGML_Q4_K:
-        # decoded and transposed on the device, not on the host
-        return qt(*r._q4_k_quantized(name, device), 4, 32)
+    on_device = {GGML_Q4_K: (r._q4_k_quantized, 4, 32),
+                 GGML_Q2_K: (r._q2_k_quantized, 2, 16),
+                 GGML_Q8_0: (r._q8_0_quantized, 8, 32)}
+    if t in on_device:
+        # decoded and transposed on the device, not on the host (f32
+        # scales, as below)
+        fields, bits, gs = on_device[t]
+        return qt(*fields(name, device), bits, gs)
     exact = {GGML_Q4_0: (r.q4_0_to_quantized, 4, 32),
              GGML_Q4_1: (r.q4_1_to_quantized, 4, 32),
-             GGML_Q8_0: (r.q8_0_to_quantized, 8, 32),
-             GGML_Q2_K: (r.q2_k_to_quantized, 2, 16),
              GGML_Q3_K: (r.q3_k_to_quantized, 3, 16)}
     if t in exact:
         # f32 scales: fp16 block scales (10 mantissa bits) would not
@@ -1031,44 +1039,6 @@ def _pack_q5_1(w_mk: np.ndarray) -> bytes:
     return out.tobytes()
 
 
-def _pack_q2_k(w_mk: np.ndarray) -> bytes:
-    """(M, K) float -> Q2_K super-blocks (block model of
-    dequantize_row_q2_K: per-16 affine, 4-bit scales/mins x fp16 super
-    scales; simplified scale search)."""
-    M, K = w_mk.shape
-    assert K % 256 == 0
-    blocks = w_mk.reshape(-1, 256).astype(np.float32)
-    g = blocks.reshape(-1, 16, 16)
-    mn = np.minimum(g.min(axis=2), 0.0)
-    mx = g.max(axis=2)
-    sc_f = (mx - mn) / 3.0
-    m_f = -mn
-    d = sc_f.max(axis=1) / 15.0
-    dmin = m_f.max(axis=1) / 15.0
-    d_s = np.where(d == 0, 1.0, d)
-    dm_s = np.where(dmin == 0, 1.0, dmin)
-    sc4 = np.clip(np.rint(sc_f / d_s[:, None]), 0, 15).astype(np.uint8)
-    m4 = np.clip(np.rint(m_f / dm_s[:, None]), 0, 15).astype(np.uint8)
-    eff = d[:, None] * sc4
-    eff_s = np.where(eff == 0, 1.0, eff)
-    q = np.clip(np.rint((g + (dmin[:, None] * m4)[:, :, None])
-                        / eff_s[:, :, None]), 0, 3)
-    codes = np.where(eff[:, :, None] == 0, 0, q).astype(np.uint8)
-    codes = codes.reshape(-1, 256)
-    nb = blocks.shape[0]
-    out = np.zeros((nb, 84), np.uint8)
-    out[:, 0:16] = sc4 | (m4 << 4)
-    for n in (0, 1):
-        chunk = np.zeros((nb, 32), np.uint8)
-        for j in range(4):
-            chunk |= codes[:, 128 * n + 32 * j:128 * n + 32 * (j + 1)] \
-                << (2 * j)
-        out[:, 16 + 32 * n:16 + 32 * (n + 1)] = chunk
-    out[:, 80:82] = d.astype(np.float16)[:, None].view(np.uint8)
-    out[:, 82:84] = dmin.astype(np.float16)[:, None].view(np.uint8)
-    return out.tobytes()
-
-
 def _pack_q3_k(w_mk: np.ndarray) -> bytes:
     """(M, K) float -> Q3_K super-blocks (block model of
     dequantize_row_q3_K: per-16 symmetric q in [-4,3], 6-bit scales
@@ -1253,7 +1223,41 @@ def _pack_q5_k(w: torch.Tensor) -> torch.Tensor:
     return torch.cat(head + [qh] + qs, 1)
 
 
-_TORCH_PACKERS = {GGML_Q4_K: _pack_q4_k, GGML_Q5_K: _pack_q5_k, GGML_Q8_0: _pack_q8_0}
+def _pack_q2_k(w: torch.Tensor) -> torch.Tensor:
+    """(M, K) float -> Q2_K super-blocks (block model of
+    dequantize_row_q2_K: per-16 affine, 4-bit scales/mins x fp16 super
+    scales; simplified scale search), (nb, 84) uint8."""
+    if w.shape[1] % 256:
+        raise ValueError(f"K-quants pack rows of a multiple of 256, not {w.shape[1]}")
+    g = w.reshape(-1, 16, 16).float()
+    zero = torch.zeros((), dtype=g.dtype, device=g.device)
+    mn = torch.minimum(g.amin(2), zero)
+    mx = g.amax(2)
+    sc_f = _div(mx - mn, 3.0)
+    m_f = -mn
+    d = _div(sc_f.amax(1), 15.0)
+    dmin = _div(m_f.amax(1), 15.0)
+    d_s = torch.where(d == 0, torch.ones_like(d), d)
+    dm_s = torch.where(dmin == 0, torch.ones_like(dmin), dmin)
+    sc4 = torch.clamp(torch.round(sc_f / d_s[:, None]), 0, 15).to(torch.uint8)
+    m4 = torch.clamp(torch.round(m_f / dm_s[:, None]), 0, 15).to(torch.uint8)
+    eff = d[:, None] * sc4
+    eff_s = torch.where(eff == 0, torch.ones_like(eff), eff)
+    q = torch.clamp(torch.round((g + (dmin[:, None] * m4)[:, :, None])
+                                / eff_s[:, :, None]), 0, 3)
+    codes = torch.where(eff[:, :, None] == 0, torch.zeros_like(q), q).to(torch.uint8)
+    codes = codes.reshape(-1, 256)
+    chunks = []
+    for n in (0, 1):
+        chunk = codes[:, 128 * n:128 * n + 32].clone()
+        for j in range(1, 4):
+            chunk |= codes[:, 128 * n + 32 * j:128 * n + 32 * (j + 1)] << (2 * j)
+        chunks.append(chunk)
+    return torch.cat([sc4 | (m4 << 4)] + chunks + [_f16_bytes(d), _f16_bytes(dmin)], 1)
+
+
+_TORCH_PACKERS = {GGML_Q2_K: _pack_q2_k, GGML_Q4_K: _pack_q4_k, GGML_Q5_K: _pack_q5_k,
+                  GGML_Q8_0: _pack_q8_0}
 
 
 def _tensor_nbytes(ttype: int, shape) -> int:
@@ -1266,7 +1270,7 @@ def _tensor_nbytes(ttype: int, shape) -> int:
 
 
 _PACKERS = {GGML_Q4_0: _pack_q4_0, GGML_Q4_1: _pack_q4_1, GGML_Q5_0: _pack_q5_0,
-            GGML_Q5_1: _pack_q5_1, GGML_Q2_K: _pack_q2_k, GGML_Q3_K: _pack_q3_k,
+            GGML_Q5_1: _pack_q5_1, GGML_Q3_K: _pack_q3_k,
             GGML_Q6_K: _pack_q6_k, GGML_TQ1_0: _pack_tq1_0, GGML_TQ2_0: _pack_tq2_0,
             GGML_I2_S: _pack_i2_s}
 

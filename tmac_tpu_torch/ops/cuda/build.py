@@ -19,20 +19,24 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
+import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "_build"
-SOURCES = ("qgemm_fused", "qgemm_grouped", "qgemm_grouped_large", "qgemm_expert",
-           "flash_decode", "qgemm_large", "block_kernel")
+SOURCES = ("qgemm_fused", "qgemm_grouped", "qgemm_grouped_large", "qgemm_grouped_large_f32",
+           "qgemm_expert", "flash_decode", "qgemm_large", "block_kernel")
 # -Xptxas -v only reports each kernel's registers, shared memory and spills
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _loaded: dict = {}
+# each source's nvcc seconds in the last build() that compiled it
+build_seconds: dict = {}
 
 
 def nvcc() -> str:
@@ -46,6 +50,9 @@ def nvcc() -> str:
 
 def library_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    # a source that includes another (qgemm_grouped_large_f32.cu) and the headers
+    src += b"".join((CSRC / f.decode()).read_bytes()
+                    for f in re.findall(rb'#include "(\w+\.cu)"', src))
     src += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
@@ -54,27 +61,36 @@ def library_path(name: str) -> Path:
 def build(names=SOURCES) -> dict:
     """Compile every source in `names` that is not built yet, all nvcc
     processes at once; returns nvcc's output (ptxas's register, shared
-    memory and spill report) by name for each one compiled."""
+    memory and spill report) by name for each one compiled, and records
+    each one's seconds in build_seconds."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     jobs = {}
+    t0 = time.perf_counter()
     for name in names:
         out = library_path(name)
         if out.exists():
             continue
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
+        log = tempfile.TemporaryFile(mode="w+", dir=BUILD_DIR)  # no pipe to fill
         cmd = [nvcc(), *FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
-        jobs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                       stderr=subprocess.STDOUT, text=True),
-                      tmp, out)
+        jobs[name] = (subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT),
+                      log, tmp, out)
     logs, failed = {}, []
-    for name, (proc, tmp, out) in jobs.items():
-        logs[name] = proc.communicate()[0]
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            failed.append(f"nvcc failed on {name}.cu:\n{logs[name]}")
-        else:
-            os.replace(tmp, out)
+    while len(logs) < len(jobs):
+        for name, (proc, log, tmp, out) in jobs.items():
+            if name in logs or proc.poll() is None:
+                continue
+            build_seconds[name] = time.perf_counter() - t0
+            log.seek(0)
+            logs[name] = log.read()
+            log.close()
+            if proc.returncode != 0:
+                os.unlink(tmp)
+                failed.append(f"nvcc failed on {name}.cu:\n{logs[name]}")
+            else:
+                os.replace(tmp, out)
+        time.sleep(0.05)
     if failed:
         raise RuntimeError("\n".join(failed))
     return logs

@@ -89,6 +89,24 @@
 //   the bytes (Layout's scale_bytes; decode_plan counts them) and the f32
 //   chain reads them unrounded; its own template instance, so the bf16
 //   instances are unchanged.
+// - 16-row units (GGUF's Q2_K and Q3_K at gs 16, an ags of 16, K7 at gs
+//   16): a ring stage of 32 rows holds two units, rows 0-15 in the lanes of
+//   row groups 0-3 and rows 16-31 in those of 4-7, so each stage is flushed
+//   as two units, each summed over the 4 row groups of its half (flush's
+//   `half`); the fold is unchanged (a partial a group, in group order).  At
+//   gs 16 the fold, not the codes, bounds the kernel: with f32 factors a
+//   group's scale and zero point are 4 bits a weight against 2 bits of
+//   code (Q2_K), and an output's chain has Kp / 16 steps.
+// - Grouped bits 8 (GGUF's Q8_0: signed codes, one a byte, P = 1): the
+//   bytes are the codes, an s8 x s8 dp4a; the flush's 4 values a token row
+//   are added by the lanes of row groups 0-3.
+// - Streamed factors: where staging every group's factors would pass a
+//   block's shared memory (gs 16 with f32 factors at K 14336: 115 KB of
+//   them a block at a cluster of 8), they come in windows of fwin groups
+//   through two slots (Layout): windows 0 and 1 with the weights, window w
+//   + 2 issued once the fold of window w has left its slot.  Where they
+//   fit (every earlier form) there is one window, the same bytes, and the
+//   fold is the one-window code.
 
 #pragma once
 
@@ -139,6 +157,10 @@ struct Args {
 
 __host__ __device__ inline int align16(int b) { return (b + 15) / 16 * 16; }
 
+// A group size (or activation group size) the grouped kernels take: 16 (a
+// half stage, flush's `half`) or a multiple of 32 (whole stages)
+__host__ __device__ inline bool unit_size_ok(int gs) { return gs == 16 || (gs > 0 && gs % 32 == 0); }
+
 // Shared memory of a block (the host sizes the launch with the same
 // numbers, qgemm_kernel.decode_smem): the ring, which after the main loop
 // receives the partials of the block's slice of columns from the cluster
@@ -147,8 +169,14 @@ __host__ __device__ inline int align16(int b) { return (b + 15) / 16 * 16; }
 // and zero points (bf16, or f32: scale_bytes) and the tile's xs and xsum.
 // acts: K4's ags form's activation groups (a partial and an xs each), or
 // 0 (one a weight group).
+// A block's shared memory on Hopper
+constexpr int kSmemLimit = 227 * 1024;
+
+// fwin: the groups of a factor window (G: every group's factors staged at
+// once; fewer where that would pass kSmemLimit: windows through two slots
+// of fslot bytes, [scale, zero point][group of the window][slice]).
 struct Layout {
-  int span, units, slice, codes, parts, fsc, fxs, xbuf, total;
+  int span, units, slice, codes, parts, fsc, fwin, fslot, fxs, xbuf, total;
   __host__ __device__ Layout(int P, int NT, bool grouped, int nunits,
                              int unit_rows, int ksplit, int G, int stages = kStages,
                              int planes = 1, int acts = 0, int scale_bytes = 2) {
@@ -161,7 +189,21 @@ struct Layout {
     codes = align16(recv > ring ? recv : ring);
     parts = codes + align16(NT * P * span);
     fsc = parts + (grouped ? units * P : 1) * NT * kStrip * 4;
-    fxs = fsc + (grouped ? align16(2 * G * slice * scale_bytes) : 0);
+    const int per_group = 2 * slice * scale_bytes;  // a multiple of 16
+    const int rest = grouped ? align16(NT * (Gx + G) * 4) + kXBytes : 0;
+    fwin = G;
+    fslot = grouped ? G * per_group : 0;
+    int slots = 1;
+    if (grouped && fsc + fslot + rest > kSmemLimit) {
+      const int per_slot = (kSmemLimit - fsc - rest) / 2 / per_group;
+      if (per_slot >= 1) {
+        const int nwin = (G + per_slot - 1) / per_slot;
+        fwin = (G + nwin - 1) / nwin;
+        fslot = fwin * per_group;
+        slots = 2;
+      }
+    }
+    fxs = fsc + slots * fslot;
     xbuf = align16(fxs + (grouped ? NT * (Gx + G) * 4 : 0));
     total = xbuf + (grouped ? kXBytes : 0);
   }
@@ -228,18 +270,25 @@ __device__ __forceinline__ uint32_t b3_slot(int e, uint32_t lo1, uint32_t lo2, u
 // once, adds its fields first, then all-reduces its NT * 4 sums with
 // shuffles and lets row group 0 store them.  Integer sums: any order is
 // exact.  (A function, not a lambda: acc must stay in registers.)
-template <int BITS, int NT, int P, bool GROUPED>
+// HALF (16-row units): the lanes of row groups 0-3 hold unit blk's sums,
+// those of 4-7 unit blk + 1's, stored if it is one of the block's nblk; a
+// template parameter, chosen at the call, so that whole units' flush is
+// the code it was (a run-time branch here cost K4 8-18% a call at gs 32 to
+// 128 on an H100).
+template <int BITS, int NT, int P, bool GROUPED, bool HALF = false>
 __device__ __forceinline__ void flush(int (&acc)[NT][P][4], int* part_s, int* xbuf, int blk,
                                       int nchunks, int rg, int cw, int lane, int col0,
-                                      int nrows) {
+                                      int nrows, int nblk = 0) {
   if (GROUPED) {
     // per token row n and pass of PH slots: each lane's PH * 4 sums into
     // the warp's exchange buffer (kXStride ints a lane: conflict-free
     // 16-byte stores), then lane (rg, cw) adds values e = rg * PH/2 ..
     // +PH/2 (e = j * 4 + c) over the 8 lanes of column word cw and stores
-    // them
+    // them (bits 8: E = 4 values, row groups 0-3 a value each); with half,
+    // lane (rg, cw) adds values e = (rg % 4) * PH .. +PH of unit blk + rg / 4
+    // over the 4 lanes of its half
     constexpr int PH = P > 4 ? 4 : P;
-    constexpr int E = PH * 4, H = E >= 8 ? E / 8 : 1;  // (K1, P = 1, never here)
+    constexpr int E = PH * 4, H = E >= 8 ? E / 8 : 1;
 #pragma unroll
     for (int n = 0; n < NT; ++n) {
       if (n >= nrows) break;
@@ -251,18 +300,38 @@ __device__ __forceinline__ void flush(int (&acc)[NT][P][4], int* part_s, int* xb
               make_int4(acc[n][pass * PH + q][0], acc[n][pass * PH + q][1],
                         acc[n][pass * PH + q][2], acc[n][pass * PH + q][3]);
         __syncwarp();
-        int sum[H];
+        if constexpr (HALF) {
+          const int u = rg >> 2, q = rg & 3;
+          int sum[PH];
 #pragma unroll
-        for (int i = 0; i < H; ++i) sum[i] = 0;
+          for (int i = 0; i < PH; ++i) sum[i] = 0;
 #pragma unroll
-        for (int src = 0; src < 8; ++src)
+          for (int src = 0; src < 4; ++src)
 #pragma unroll
-          for (int i = 0; i < H; ++i) sum[i] += xbuf[(src * 4 + cw) * kXStride + rg * H + i];
+            for (int i = 0; i < PH; ++i)
+              sum[i] += xbuf[((4 * u + src) * 4 + cw) * kXStride + q * PH + i];
+          if (blk + u < nblk) {
 #pragma unroll
-        for (int i = 0; i < H; ++i) {
-          const int e = rg * H + i, j = pass * PH + e / 4, c = e % 4;
-          const int slot = nchunks ? j * nchunks + blk : blk * P + j;
-          part_s[(slot * NT + n) * kStrip + col0 + c] = sum[i] >> field_shift<BITS>(j);
+            for (int i = 0; i < PH; ++i) {
+              const int e = q * PH + i, j = pass * PH + e / 4, c = e % 4;
+              const int slot = nchunks ? j * nchunks + blk + u : (blk + u) * P + j;
+              part_s[(slot * NT + n) * kStrip + col0 + c] = sum[i] >> field_shift<BITS>(j);
+            }
+          }
+        } else if (E >= 8 || rg * H < E) {
+          int sum[H];
+#pragma unroll
+          for (int i = 0; i < H; ++i) sum[i] = 0;
+#pragma unroll
+          for (int src = 0; src < 8; ++src)
+#pragma unroll
+            for (int i = 0; i < H; ++i) sum[i] += xbuf[(src * 4 + cw) * kXStride + rg * H + i];
+#pragma unroll
+          for (int i = 0; i < H; ++i) {
+            const int e = rg * H + i, j = pass * PH + e / 4, c = e % 4;
+            const int slot = nchunks ? j * nchunks + blk : blk * P + j;
+            part_s[(slot * NT + n) * kStrip + col0 + c] = sum[i] >> field_shift<BITS>(j);
+          }
         }
         __syncwarp();
       }
@@ -376,19 +445,28 @@ __device__ __forceinline__ void decode_matmul(const Args& args) {
     }
   };
 
-  // before the prologue's results exist: the weights (and the fold's
-  // scales and zero points, with stage 0) and the epilogue's weights
-  if (GROUPED) {
+  // the factors of window wi (fwin groups from wi * fwin) of the slice's
+  // columns into slot wi % 2 (a single window: every group, slot 0)
+  auto load_factors = [&](int wi) {
     constexpr int kPer = 16 / (int)sizeof(SC);  // factors a 16-byte copy
-    const int su = w / kPer;
-    SC* fsc = reinterpret_cast<SC*>(smem + L.fsc);
+    const int su = w / kPer, g0 = wi * L.fwin, ng = min(L.fwin, a.G - g0);
+    SC* dst = reinterpret_cast<SC*>(smem + L.fsc + (wi & 1) * L.fslot);
     const SC* sc = static_cast<const SC*>(a.scales);
     const SC* sb = static_cast<const SC*>(a.sub);
-    for (int i = tid; i < 2 * a.G * su; i += kThreads) {
-      const int which = i / (a.G * su), g = (i / su) % a.G, u = i % su;
-      cp_async16(fsc + ((size_t)which * a.G + g) * L.slice + kPer * u,
-                 (which ? sb : sc) + (size_t)g * a.Mp + m0 + s0 + kPer * u, true);
+    for (int i = tid; i < 2 * ng * su; i += kThreads) {
+      const int which = i / (ng * su), g = (i / su) % ng, u = i % su;
+      cp_async16(dst + ((size_t)which * L.fwin + g) * L.slice + kPer * u,
+                 (which ? sb : sc) + (size_t)(g0 + g) * a.Mp + m0 + s0 + kPer * u, true);
     }
+  };
+  const int nwin = GROUPED ? (a.G + L.fwin - 1) / L.fwin : 0;
+
+  // before the prologue's results exist: the weights (and the fold's
+  // scales and zero points, with stage 0: windows 0 and 1) and the
+  // epilogue's weights
+  if (GROUPED) {
+    load_factors(0);
+    if (nwin > 1) load_factors(1);
   }
   for (int s = 0; s < STAGES - 1; ++s) {
     if (s < nst) load_stage(s, s);
@@ -469,7 +547,9 @@ __device__ __forceinline__ void decode_matmul(const Args& args) {
   // flush.  No flush inside the stage loop: with it there, ptxas wanted
   // ~180 registers at 4 token rows and spilled at the cap of 128 (measured
   // on an H100: K4 at N = 4 up to 1.2x slower)
-  const int spu = GROUPED ? a.unit_rows / kStageRows : max(nst, 1);  // gs % 32 == 0
+  // stages a flush (units of 32 rows or more), or units a stage (2 at 16 rows)
+  const int spu = GROUPED ? max(a.unit_rows / kStageRows, 1) : max(nst, 1);
+  const int upf = GROUPED && a.unit_rows < kStageRows ? 2 : 1;
 #pragma unroll 1
   for (int t0 = 0; t0 < nst; t0 += spu) {
 #pragma unroll 1
@@ -527,7 +607,10 @@ __device__ __forceinline__ void decode_matmul(const Args& args) {
         }
       }
     }
-    if (GROUPED)
+    if (GROUPED && upf == 2)
+      flush<BITS, NT, P, true, true>(acc, part_s, xbuf, 2 * t0, ksplit == 1 ? a.nunits : 0,
+                                     rg, cw, lane, col0, nrows, u1 - u0);
+    else if (GROUPED)
       flush<BITS, NT, P, true>(acc, part_s, xbuf, t0 / spu, ksplit == 1 ? a.nunits : 0, rg,
                                cw, lane, col0, nrows);
   }
@@ -587,7 +670,7 @@ __device__ __forceinline__ void decode_matmul(const Args& args) {
       if (a.residual != nullptr) v = __fadd_rn(v, e_res[h]);
       a.out[(size_t)(n0 + n) * a.Mp + m0 + s0 + mm] = v;
     }
-  } else if constexpr (AGS) {
+  } else if (nwin == 1 && AGS) {
     // K4's ags form: the chain over the activation groups in order, each
     // partial's factor its own xs times its weight group's scale, and the
     // zero-point chain over the weight groups
@@ -610,7 +693,7 @@ __device__ __forceinline__ void decode_matmul(const Args& args) {
       if (a.residual != nullptr) v = __fadd_rn(v, e_res[h]);
       a.out[(size_t)(n0 + n) * a.Mp + m0 + s0 + mm] = v;
     }
-  } else {
+  } else if (nwin == 1) {
     // K4: the fold of each output over the groups in order (the
     // reference's f32 chain), from the partials
     const SC* fsc = reinterpret_cast<const SC*>(smem + L.fsc);
@@ -626,6 +709,56 @@ __device__ __forceinline__ void decode_matmul(const Args& args) {
                   factor(fsc[g * L.slice + mm]), fxs[(NT + n) * a.G + g],
                   factor(fsb[g * L.slice + mm]));
       float v = fold.result();
+      if (a.residual != nullptr) v = __fadd_rn(v, e_res[h]);
+      a.out[(size_t)(n0 + n) * a.Mp + m0 + s0 + mm] = v;
+    }
+  } else {
+    // the same two folds with the factors streamed: a window of groups'
+    // factors at a time, window wi + 2 issued once every thread has left
+    // window wi's slot.  (Kept apart from the one-window folds above: one
+    // loop for both took the earlier forms' K4 and K7 8-19% longer a call
+    // on an H100, gs 32 f32 the most.)
+    const int per = AGS ? a.Ga / a.G : 1;
+    GroupFold fold[2];
+    for (int wi = 0; wi < nwin; ++wi) {
+      if (wi >= 2) {
+        cp_async_wait<1>();
+        __syncthreads();
+      }
+      const SC* wsc = reinterpret_cast<const SC*>(smem + L.fsc + (wi & 1) * L.fslot);
+      const SC* wsb = wsc + (size_t)L.fwin * L.slice;
+      const int g0 = wi * L.fwin, g1 = min(a.G, g0 + L.fwin);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int o = tid + h * kThreads, n = o / w, mm = o % w;
+        if (o >= nout || n >= nrows) continue;
+        if constexpr (AGS) {
+#pragma unroll 4
+          for (int c = g0 * per; c < g1 * per; ++c)
+            fold[h].term(c, (float)part0[(c * NT + n) * width + mm], fxs[n * a.Ga + c],
+                         factor(wsc[(c / per - g0) * L.slice + mm]));
+#pragma unroll 4
+          for (int g = g0; g < g1; ++g)
+            fold[h].zero(fxs[NT * a.Ga + n * a.G + g], factor(wsb[(g - g0) * L.slice + mm]));
+        } else {
+#pragma unroll 4
+          for (int g = g0; g < g1; ++g)
+            fold[h].step(g, (float)part0[(g * NT + n) * width + mm], fxs[n * a.G + g],
+                         factor(wsc[(g - g0) * L.slice + mm]), fxs[(NT + n) * a.G + g],
+                         factor(wsb[(g - g0) * L.slice + mm]));
+        }
+      }
+      if (nwin > 2) {
+        __syncthreads();
+        if (wi + 2 < nwin) load_factors(wi + 2);
+        cp_async_commit();
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int o = tid + h * kThreads, n = o / w, mm = o % w;
+      if (o >= nout || n >= nrows) continue;
+      float v = fold[h].result();
       if (a.residual != nullptr) v = __fadd_rn(v, e_res[h]);
       a.out[(size_t)(n0 + n) * a.Mp + m0 + s0 + mm] = v;
     }

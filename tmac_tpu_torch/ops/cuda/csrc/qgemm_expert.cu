@@ -31,7 +31,10 @@
 //        int8 codes as above, xsum = (code sum) * xs
 //     -> the exact int32 dot of the codes with the expert's weight codes
 //     -> fma(acc * scale, xs, -(xsum * sub)), as K1's epilogue.
-// Bits 1, 2 and 4, both forms (the reference's scope).
+// Bits 1, 2 and 4, both forms (the reference's scope); grouped at any gs
+// the decode matmul takes, 16 (GGUF's Q2_K experts: two 16-row units a
+// ring stage, the prologue's warp a group of 16 with half its lanes idle)
+// or a multiple of 32.
 //
 // What bounds it: at decode (N = 1) each packed weight byte feeds 8 (bits 1),
 // 4 (bits 2) or 2 (bits 4) multiply-adds, so device-memory bytes bound it, and only the
@@ -207,7 +210,7 @@ int launch_bits(const tmac::decode::Args& a, int bits, int ksplit, int nt, int s
 // expert shares it (x_per_expert 0), k * N otherwise; x_cols = K, or 2K with
 // glu.  idx: k int32 expert indices on the device (outside [0, E): NaN
 // outputs); packed (E, K*bits/8, Mp) uint8, scales and sub (E, G, Mp), G =
-// K/gs: grouped (G >= 2, gs a multiple of 32, K of gs * 8 / bits) bf16
+// K/gs: grouped (G >= 2, gs 16 or a multiple of 32, K of gs * 8 / bits) bf16
 // (scale_f32 0) or f32 (scale_f32 1), or per-tensor (gs = K, G = 1, K a
 // multiple of 4 * 8 / bits) f32 (scale_f32 1) -> out (k,
 // N, Mp) f32; codes (rows, K) int8, xs and xsum (rows,
@@ -225,7 +228,7 @@ extern "C" int tmac_qgemm_experts(const void* x, int x_f32, int x_per_expert, in
   const int P = 8 / bits;
   const bool grouped = gs > 0 && gs < K;
   if (N < 1 || N > kMaxRows || gs <= 0 || (bits != 1 && bits != 2 && bits != 4) ||
-      (grouped ? gs % 32 != 0 || K % (gs * P) != 0 : gs != K || K % (4 * P) != 0) ||
+      (grouped ? !tmac::decode::unit_size_ok(gs) || K % (gs * P) != 0 : gs != K || K % (4 * P) != 0) ||
       K > tmac::kMaxRowK || Mp % tmac::decode::kStrip != 0 || x_cols != (glu ? 2 * K : K) ||
       E < 1 || k < 1 || ksplit < 1 || ksplit > tmac::decode::kMaxSplit ||
       (nt != 1 && nt != (bits == 1 ? 2 : 4)) || (stages != 6 && stages != 8) ||

@@ -23,10 +23,14 @@
 // for g = 2, 3, ...; z = fma(xsum_g, sub_g, z) from z = 0 in g order;
 // out = acc - z (+ residual), every step rounded on its own.
 //
-// Bits 1 to 4; bits 3 is a 2-bit lo plane (Kp / 4 rows) and a 1-bit hi
-// plane (Kp / 8 rows), code = lo + 4 * hi (ops/packing.py).  Kp is a
-// multiple of gs * 8 at bits 1 and 3 (the packing's padding), so the
-// reference's fold chunk is the group, which these kernels require.
+// Bits 1 to 4 and 8; bits 3 is a 2-bit lo plane (Kp / 4 rows) and a 1-bit
+// hi plane (Kp / 8 rows), code = lo + 4 * hi (ops/packing.py); bits 8 (GGUF's
+// Q8_0) one signed code a byte (the reference's wq - 128, the shift folded
+// into sub), multiplied s8 x s8.  Kp is a multiple of gs * 8 at bits 1 and
+// 3 (the packing's padding), so the reference's fold chunk is the group,
+// which these kernels require.  Group sizes: 16 (GGUF's Q2_K and Q3_K) or a
+// multiple of 32; a 16-row unit is half a ring stage of the decode matmul
+// (decode_matmul.cuh) and half a depth step of K4L.
 //
 // What bounds it: at decode (N = 1) each packed weight byte feeds 8
 // (bits 1), 4 (bits 2), 8/3 (bits 3) or 2 (bits 4) multiply-adds, far
@@ -54,15 +58,15 @@
 //
 // The ags form (the reference's act_group_size, a template instance of its
 // own in each kernel, so that the ags = 0 code is unchanged): the
-// prologue quantizes per activation group of ags columns (ags a multiple
-// of 32 dividing gs) into xs (N, Ga = Kp / ags) and adds each weight
+// prologue quantizes per activation group of ags columns (ags 16 or a
+// multiple of 32, dividing gs) into xs (N, Ga = Kp / ags) and adds each weight
 // group's gs / ags dequantized code sums into xsum (N, G) in the order the
 // reference compiles its reshape-sum to on each route; K4's decode matmul
 // splits K by activation groups and folds one partial an activation group
 // (decode_matmul.cuh); K4L accumulates one activation group at a time
 // (KT = 32 at ags 32), folds it with xs[a] * scale[a / (gs / ags)], each
 // activation group's slot holding its row factors and its weight group's
-// column factors.
+// column factors; at ags 16, as at gs 16, two fold units a KT = 32 step.
 //
 // f32 scales and zero points (GGUF's block scales, which bf16 would
 // round): the decode matmul, K4L and their launches take SC = float in a
@@ -192,23 +196,24 @@ int launch_decode_bits(const tmac::decode::Args& a, int bits, int ksplit, int nt
     case 1: return launch_decode<1, AGS, SC>(a, ksplit, nt, stream);
     case 2: return launch_decode<2, AGS, SC>(a, ksplit, nt, stream);
     case 3: return launch_decode<3, AGS, SC>(a, ksplit, nt, stream);
-    default: return launch_decode<4, AGS, SC>(a, ksplit, nt, stream);
+    case 4: return launch_decode<4, AGS, SC>(a, ksplit, nt, stream);
+    default: return launch_decode<8, AGS, SC>(a, ksplit, nt, stream);
   }
 }
 
 }  // namespace
 
 // Prologue: x (N, x_cols) bf16 -> codes (N, Kp) int8 in natural k order,
-// xs (N, Ga) and xsum (N, G) f32, G = Kp / gs, Ga = Kp / ags (ags > 0: a
-// multiple of 32 below and dividing gs) or G (ags 0).  norm_w (K,) bf16 or
+// xs (N, Ga) and xsum (N, G) f32, G = Kp / gs, Ga = Kp / ags (ags > 0: 16
+// or a multiple of 32, below and dividing gs) or G (ags 0).  norm_w (K,) bf16 or
 // null.  Returns the CUDA error of the launch (0 on success).
 extern "C" int tmac_act_quant_grouped(const void* x, int N, int x_cols, int K,
                                       int Kp, int gs, int ags, int glu,
                                       const void* norm_w, float eps,
                                       float inv_norm_k, void* codes,
                                       float* xs, float* xsum, void* stream) {
-  if (N <= 0 || gs <= 0 || Kp % gs != 0 || Kp > tmac::kMaxRowK ||
-      (ags != 0 && (ags < 0 || ags % 32 != 0 || gs % ags != 0 || ags >= gs)))
+  if (N <= 0 || !tmac::decode::unit_size_ok(gs) || Kp % gs != 0 || Kp > tmac::kMaxRowK ||
+      (ags != 0 && (!tmac::decode::unit_size_ok(ags) || gs % ags != 0 || ags >= gs)))
     return (int)cudaErrorInvalidValue;
   const bool long_row = Kp > tmac::kSumWindow * kQuantThreads;
   auto kernel = long_row ? (ags ? &act_quant_grouped_kernel<true, true>
@@ -232,11 +237,12 @@ extern "C" int tmac_act_quant_grouped(const void* x, int N, int x_cols, int K,
 // (Kp * bits / 8, Mp) uint8 (bits 3: the lo plane (Kp / 4, Mp) and
 // packed_hi, the hi plane (Kp / 8, Mp); else packed_hi null), scales and
 // sub (G, Mp) bf16 (scale_f32 0) or f32 (scale_f32 1), residual (N, Mp)
-// bf16 or null -> out (N, Mp) f32, the fold on chip.  1 <= N < 64; bits 1 to 4; gs a multiple of 32, ags 0 or a
-// multiple of 32 below and dividing gs; Kp a multiple of gs * P (P = 8 at
-// bits 1 and 3, 8 / bits else); Mp of 128; G >= 2; a cluster of ksplit
-// (1-8) blocks along K, nt (1, or 4; 2 at bits 1 and 3) token rows a
-// block.  Launched programmatically after the prologue.  Returns the CUDA
+// bf16 or null -> out (N, Mp) f32, the fold on chip.  1 <= N < 64; bits 1
+// to 4 or 8 (signed codes); gs 16 or a multiple of 32, ags 0 or 16 or a
+// multiple of 32, below and dividing gs; Kp a multiple of gs * P (P = 8 at
+// bits 1 and 3, 1 at bits 8, 8 / bits else); Mp of 128; G >= 2; a cluster
+// of ksplit (1-8) blocks along K, nt (1, or 4; 2 at bits 1 and 3) token
+// rows a block.  Launched programmatically after the prologue.  Returns the CUDA
 // error (cudaErrorInvalidConfiguration for a cluster the card cannot
 // place).
 extern "C" int tmac_decode_group_gemm(const void* codes, const float* xs,
@@ -246,13 +252,13 @@ extern "C" int tmac_decode_group_gemm(const void* codes, const float* xs,
                                       int Mp, const void* scales, const void* sub,
                                       int scale_f32, const void* residual, float* out,
                                       int ksplit, int nt, void* stream) {
-  if (bits < 1 || bits > 4) return (int)cudaErrorInvalidValue;
+  if (bits < 1 || (bits > 4 && bits != 8)) return (int)cudaErrorInvalidValue;
   const int P = tmac::decode::fields(bits), nt_max = P == 8 ? 2 : 4;
-  if (N <= 0 || N >= 64 || gs <= 0 || gs % 32 != 0 ||
+  if (N <= 0 || N >= 64 || !tmac::decode::unit_size_ok(gs) ||
       Mp % tmac::decode::kStrip != 0 || (bits == 3) != (packed_hi != nullptr) ||
       Kp % (gs * P) != 0 || Kp / gs < 2 || ksplit < 1 ||
       ksplit > tmac::decode::kMaxSplit || (nt != 1 && nt != nt_max) ||
-      (ags != 0 && (ags < 0 || ags % 32 != 0 || gs % ags != 0 || ags >= gs)))
+      (ags != 0 && (!tmac::decode::unit_size_ok(ags) || gs % ags != 0 || ags >= gs)))
     return (int)cudaErrorInvalidValue;
   tmac::decode::Args a{};
   a.codes = static_cast<const int8_t*>(codes);

@@ -76,6 +76,23 @@
 // round): SC = float, a template instance of its own (scale_f32 in the C
 // interface), so the bf16 instances are unchanged; the factors are read
 // as stored.
+//
+// 16-k fold units (gs 16: GGUF's Q2_K and Q3_K; or ags 16), U16, a template
+// instance of its own at KT = 32: a step holds two units, k 0-15 and 16-31
+// of it, which are the two halves of m16n8k32's operands (A registers 0, 1
+// and 2, 3; B register 0 and 1), so each half is one m16n8k16 into the
+// int32 accumulators, folded (and cleared) after it: twice the folds and
+// mma instructions a step of the gs 32 form, with the same bytes.  The
+// route sends gs 16 to K5 from 64 rows (3 * 16 < 64), so this form runs
+// only with dispatch "chunk".
+//
+// Bits 8 (GGUF's Q8_0, P = 1): the packed bytes are the signed codes, the
+// B registers as read, with no field to mask.
+//
+// This source builds two libraries: the bf16-scale instances here, and,
+// compiled again with TMAC_K4L_F32 set (qgemm_grouped_large_f32.cu), the
+// f32 ones, so that the two halves of K4L's 60 template instances compile
+// in parallel (as one source they took 93 s of nvcc, the build's longest).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -83,6 +100,11 @@
 
 #include "act_prologue.cuh"
 #include "decode_matmul.cuh"
+
+// 1: this library's instances take f32 scales and zero points; 0: bf16
+#ifndef TMAC_K4L_F32
+#define TMAC_K4L_F32 0
+#endif
 
 namespace {
 
@@ -116,6 +138,16 @@ __device__ __forceinline__ void mma_s8(int acc[4], const uint32_t a[4],
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+r"(acc[0]), "+r"(acc[1]), "+r"(acc[2]), "+r"(acc[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// the same on 16 k: k 0-15 of the m16n8k32 operands (A registers a0, a1;
+// one B register)
+__device__ __forceinline__ void mma_s8_k16(int acc[4], uint32_t a0, uint32_t a1, uint32_t b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5}, {%6}, {%0,%1,%2,%3};\n"
+      : "+r"(acc[0]), "+r"(acc[1]), "+r"(acc[2]), "+r"(acc[3])
+      : "r"(a0), "r"(a1), "r"(b));
 }
 
 __device__ __forceinline__ void ldmatrix_x4(uint32_t r[4], const void* p) {
@@ -195,8 +227,9 @@ __host__ __device__ constexpr int z_slot_bytes() { return kRowBytes + kLBM * (in
 // the steady loop's code (a group's steps and one fold) stays small.
 // AGS: the fold's unit is an activation group of ags k (xs (N, Ga)), each
 // scaled by its weight group's column factors.  SC: the scales' and zero
-// points' type (__nv_bfloat16, or float: GGUF's block scales).
-template <int BITS, int KT, bool AGS, typename SC>
+// points' type (__nv_bfloat16, or float: GGUF's block scales).  U16 (KT =
+// 32): fold units of 16 k, two a step.
+template <int BITS, int KT, bool AGS, typename SC, bool U16 = false>
 __global__ void __launch_bounds__(kLThreads) group_mma_kernel(
     const int8_t* __restrict__ codes, const float* __restrict__ xs,
     const float* __restrict__ xsum, int N, int Kp, int gs,
@@ -204,9 +237,12 @@ __global__ void __launch_bounds__(kLThreads) group_mma_kernel(
     const SC* __restrict__ scales, const SC* __restrict__ sub,
     const __nv_bfloat16* __restrict__ residual, float* __restrict__ out, int ags) {
   using T = K4LTile<KT, BITS>;
-  constexpr int P = BITS == 3 ? 4 : 8 / BITS;  // fields of a (lo plane) byte
-  constexpr uint32_t kMask =
-      BITS == 1 ? 0x01010101u : BITS == 4 ? 0x0F0F0F0Fu : 0x03030303u;
+  static_assert(!U16 || KT == 32, "16-k fold units take KT = 32");
+  constexpr int P = BITS == 8 ? 1 : BITS == 3 ? 4 : 8 / BITS;  // fields of a (lo plane) byte
+  constexpr uint32_t kMask = BITS == 8   ? 0xFFFFFFFFu
+                             : BITS == 1 ? 0x01010101u
+                             : BITS == 4 ? 0x0F0F0F0Fu
+                                         : 0x03030303u;
   constexpr int kBlock = factor_block_bytes<SC>();
   constexpr int kZSlot = z_slot_bytes<SC>();
   constexpr int kColChunks = kLBM * (int)sizeof(SC) / 16;  // 16-byte copies of a column row
@@ -217,18 +253,21 @@ __global__ void __launch_bounds__(kLThreads) group_mma_kernel(
   const int wn = warp * 32;
   const int m0 = blockIdx.x * kLBM, n0 = blockIdx.y * kLBN;
   // G weight groups; Gf fold units (the activation groups with AGS), each
-  // steps_g depth steps; fold unit f takes weight group f / per
+  // steps_g depth steps (U16: half a step); fold unit f takes weight group
+  // f / per
   const int Kb = Kp / P, G = Kp / gs, ntiles = Kp / KT;
   const int Gf = AGS ? Kp / ags : G, per = AGS ? gs / ags : 1;
-  const int steps_g = (AGS ? ags : gs) / KT;
+  const int steps_g = U16 ? 1 : (AGS ? ags : gs) / KT;
   const int Kh = Kp / 8;  // bits 3: hi plane rows; bit k / Kh of row k % Kh
   uint8_t* fac = smem + T::kSmem;  // the factor blocks, behind the ring
-  // fold units a factor block: 4, the last block's 2 where Gf % 4 == 2 (Gf
-  // is even: Kp is a multiple of 2 * gs); a compile-time 4 keeps the
-  // fold's slot addressing in immediates (17 registers fewer)
+  // fold units a factor block: 4, the last block's fewer where Gf % 4 != 0
+  // (Gf is even but at bits 8, whose Kp need only be a multiple of gs); a
+  // compile-time 4 keeps the fold's slot addressing in immediates (17
+  // registers fewer)
   constexpr int fu = kMaxFU, fu_shift = 2;
   const bool rows16 = Gf % 4 == 0;  // xs's rows 16-byte aligned
-  const int steps_b = steps_g * fu;
+  const bool rows8 = Gf % 2 == 0;   // 8-byte aligned
+  const int steps_b = U16 ? fu / 2 : steps_g * fu;
   int fac_next = 0, fac_block = 0;  // the next block's first step, and its index
 
   // factor block b into its slot: the xs of the block's 64 rows for units
@@ -241,9 +280,11 @@ __global__ void __launch_bounds__(kLThreads) group_mma_kernel(
       const float* src = xs + (size_t)min(n0 + tid, N - 1) * Gf + f0;
       if (rows16) {
         cp_async16(blk + 16 * tid, src, true);
-      } else {
+      } else if (rows8) {
         cp_async8(blk + 16 * tid, src);
         if (nu == fu) cp_async8(blk + 16 * tid + 8, src + 2);
+      } else {
+        for (int i = 0; i < nu; ++i) cp_async4(blk + 16 * tid + 4 * i, src + i);
       }
     }
     for (int i = tid - kLBN; i >= 0 && i < nu * kColChunks; i += kLThreads - kLBN) {
@@ -287,30 +328,20 @@ __global__ void __launch_bounds__(kLThreads) group_mma_kernel(
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[mt][c][e] = 0;
 
-  // one depth step t: wait for its stage, start the load of step
-  // t + kLStages - 1, run before() (reads of shared memory that the
-  // barrier has made safe), add its products into acc
-  auto step = [&](int t, auto&& before) {
-    cp_async_wait<kLStages - 2>();
-    __syncthreads();
-    if (t + kLStages - 1 < ntiles) load(t + kLStages - 1, (t + kLStages - 1) % kLStages);
-    cp_async_commit();
-    before();
+  // the A and B registers of k-slice ks (32 k) of step t's stage
+  auto fragments = [&](int t, int ks, uint32_t (&a)[4][4], uint32_t (&b)[2][4]) {
     const uint8_t* As = smem + (t % kLStages) * T::kStage;
     const uint8_t* Bs = As + T::kABytes;
     const int shift = (BITS == 3 ? 2 : BITS) * ((t * KT) / Kb);  // field j of the packed bytes
     const int hbit = (t * KT) / Kh;  // bits 3: the hi plane's bit
-#pragma unroll
-    for (int ks = 0; ks < KT / 32; ++ks) {
+    {
       // A: one ldmatrix.x4 a m16 tile (its four 8 x 16-byte blocks are the
       // m16n8k32 A registers: rows +0 / +8, k bytes +0 / +16)
-      uint32_t a[4][4];
 #pragma unroll
       for (int mt = 0; mt < 4; ++mt)
         ldmatrix_x4(a[mt], As + (mt * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * T::kAStride +
                                ks * 32 + (lane >> 4) * 16);
       // b[h][c]: B register h (k + 16 h) of n8 tile c
-      uint32_t b[2][4];
       const int word = (wn >> 2) + gq;  // columns 4 * word .. +3
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
@@ -335,10 +366,45 @@ __global__ void __launch_bounds__(kLThreads) group_mma_kernel(
           for (int c = 0; c < 4; ++c) b[h][c] |= ((col[c] >> hbit) & 0x01010101u) << 2;
         }
       }
+    }
+  };
+
+  // one depth step t: wait for its stage, start the load of step
+  // t + kLStages - 1, run before() (reads of shared memory that the
+  // barrier has made safe), add its products into acc
+  auto step = [&](int t, auto&& before) {
+    cp_async_wait<kLStages - 2>();
+    __syncthreads();
+    if (t + kLStages - 1 < ntiles) load(t + kLStages - 1, (t + kLStages - 1) % kLStages);
+    cp_async_commit();
+    before();
+#pragma unroll
+    for (int ks = 0; ks < KT / 32; ++ks) {
+      uint32_t a[4][4], b[2][4];
+      fragments(t, ks, a, b);
 #pragma unroll
       for (int mt = 0; mt < 4; ++mt)
 #pragma unroll
         for (int c = 0; c < 4; ++c) mma_s8(acc[mt][c], a[mt], b[0][c], b[1][c]);
+    }
+  };
+  // U16: step t's two fold units, k 0-15 then 16-31, each one m16n8k16
+  // into acc and then after(half) (its fold)
+  auto step16 = [&](int t, auto&& after) {
+    cp_async_wait<kLStages - 2>();
+    __syncthreads();
+    if (t + kLStages - 1 < ntiles) load(t + kLStages - 1, (t + kLStages - 1) % kLStages);
+    cp_async_commit();
+    uint32_t a[4][4], b[2][4];
+    fragments(t, 0, a, b);
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          mma_s8_k16(acc[mt][c], a[mt][2 * hh], a[mt][2 * hh + 1], b[hh][c]);
+      after(hh);
     }
   };
 
@@ -366,57 +432,96 @@ __global__ void __launch_bounds__(kLThreads) group_mma_kernel(
     if (s < ntiles) load(s, s);
     cp_async_commit();
   }
-  // group 0: keep p_0 (as f32) for group 1's fma(p_0, x_0, p_1 * x_1)
-  int t = 0;
-  for (; t < steps_g; ++t) step(t, [] {});
-#pragma unroll
-  for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-    for (int c = 0; c < 4; ++c)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        facc[mt][c][e] = exact_float(acc[mt][c][e]);
-        acc[mt][c][e] = 0;
-      }
-  // group 1
-  for (; t < 2 * steps_g; ++t) step(t, [] {});
-#pragma unroll
-  for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-    for (int c = 0; c < 4; ++c)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float x0 = __fmul_rn(row_f(0, mt, e >> 1), col_f(0, c, e & 1));
-        const float x1 = __fmul_rn(row_f(1, mt, e >> 1), col_f(1, c, e & 1));
-        facc[mt][c][e] =
-            __fmaf_rn(facc[mt][c][e], x0, __fmul_rn(exact_float(acc[mt][c][e]), x1));
-        acc[mt][c][e] = 0;
-      }
-  // groups 2, 3, ...: acc = fma(p_g, x_g, acc), the factors of g read
-  // during its first step
-  for (int g = 2; g < Gf; ++g) {
-    float xr[4][2], sc[4][2];
-    step(t++, [&] {
+  if constexpr (U16) {
+    // step 0: units 0 (keep p_0 as f32) and 1 (fma(p_0, x_0, p_1 * x_1));
+    // steps 1, ...: units 2 t and 2 t + 1, acc = fma(p_f, x_f, acc), the
+    // factors read at the fold
+    step16(0, [&](int hh) {
 #pragma unroll
       for (int mt = 0; mt < 4; ++mt)
 #pragma unroll
-        for (int h = 0; h < 2; ++h) xr[mt][h] = row_f(g, mt, h);
+        for (int c = 0; c < 4; ++c)
 #pragma unroll
-      for (int c = 0; c < 4; ++c)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) sc[c][e] = col_f(g, c, e);
+          for (int e = 0; e < 4; ++e) {
+            if (hh == 0) {
+              facc[mt][c][e] = exact_float(acc[mt][c][e]);
+            } else {
+              const float x0 = __fmul_rn(row_f(0, mt, e >> 1), col_f(0, c, e & 1));
+              const float x1 = __fmul_rn(row_f(1, mt, e >> 1), col_f(1, c, e & 1));
+              facc[mt][c][e] =
+                  __fmaf_rn(facc[mt][c][e], x0, __fmul_rn(exact_float(acc[mt][c][e]), x1));
+            }
+            acc[mt][c][e] = 0;
+          }
     });
-    for (int i = 1; i < steps_g; ++i, ++t) step(t, [] {});
+    for (int t = 1; t < ntiles; ++t)
+      step16(t, [&](int hh) {
+        const int f = 2 * t + hh;
+#pragma unroll
+        for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              facc[mt][c][e] = __fmaf_rn(
+                  exact_float(acc[mt][c][e]),
+                  __fmul_rn(row_f(f, mt, e >> 1), col_f(f, c, e & 1)), facc[mt][c][e]);
+              acc[mt][c][e] = 0;
+            }
+      });
+  } else {
+    // group 0: keep p_0 (as f32) for group 1's fma(p_0, x_0, p_1 * x_1)
+    int t = 0;
+    for (; t < steps_g; ++t) step(t, [] {});
 #pragma unroll
     for (int mt = 0; mt < 4; ++mt)
 #pragma unroll
       for (int c = 0; c < 4; ++c)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          facc[mt][c][e] = __fmaf_rn(exact_float(acc[mt][c][e]),
-                                     __fmul_rn(xr[mt][e >> 1], sc[c][e & 1]), facc[mt][c][e]);
+          facc[mt][c][e] = exact_float(acc[mt][c][e]);
           acc[mt][c][e] = 0;
         }
+    // group 1
+    for (; t < 2 * steps_g; ++t) step(t, [] {});
+#pragma unroll
+    for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float x0 = __fmul_rn(row_f(0, mt, e >> 1), col_f(0, c, e & 1));
+          const float x1 = __fmul_rn(row_f(1, mt, e >> 1), col_f(1, c, e & 1));
+          facc[mt][c][e] =
+              __fmaf_rn(facc[mt][c][e], x0, __fmul_rn(exact_float(acc[mt][c][e]), x1));
+          acc[mt][c][e] = 0;
+        }
+    // groups 2, 3, ...: acc = fma(p_g, x_g, acc), the factors of g read
+    // during its first step
+    for (int g = 2; g < Gf; ++g) {
+      float xr[4][2], sc[4][2];
+      step(t++, [&] {
+#pragma unroll
+        for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) xr[mt][h] = row_f(g, mt, h);
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) sc[c][e] = col_f(g, c, e);
+      });
+      for (int i = 1; i < steps_g; ++i, ++t) step(t, [] {});
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            facc[mt][c][e] = __fmaf_rn(exact_float(acc[mt][c][e]),
+                                       __fmul_rn(xr[mt][e >> 1], sc[c][e & 1]), facc[mt][c][e]);
+            acc[mt][c][e] = 0;
+          }
+    }
   }
 
   // epilogue: z = fma(xsum_g, sub_g, z) in g order, xsum and sub passing
@@ -496,12 +601,12 @@ constexpr int k4l_smem() {
   return K4LTile<KT, BITS>::kSmem + kBlockSlots * factor_block_bytes<SC>();
 }
 
-template <int BITS, int KT, bool AGS, typename SC>
+template <int BITS, int KT, bool AGS, typename SC, bool U16 = false>
 int launch_group_mma(const int8_t* codes, const float* xs, const float* xsum,
                      int N, int Kp, int gs, int ags, const uint8_t* packed,
                      const uint8_t* packed_hi, int Mp, const void* scales, const void* sub,
                      const __nv_bfloat16* residual, float* out, cudaStream_t stream) {
-  auto kernel = group_mma_kernel<BITS, KT, AGS, SC>;
+  auto kernel = group_mma_kernel<BITS, KT, AGS, SC, U16>;
   constexpr int smem = k4l_smem<BITS, KT, SC>();
   const cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -514,7 +619,8 @@ int launch_group_mma(const int8_t* codes, const float* xs, const float* xsum,
 }
 
 // KT = 64 where the fold's unit (gs, or ags) allows, but at bits 3 (two B
-// tiles a stage) only where two blocks still fit an SM's shared memory
+// tiles a stage) only where two blocks still fit an SM's shared memory; a
+// unit of 16 takes the U16 instance (KT = 32, two units a step)
 constexpr int kTwoBlockSmem = 113 * 1024;
 
 template <int BITS, bool AGS, typename SC>
@@ -523,6 +629,10 @@ int launch_group_mma_kt(const int8_t* codes, const float* xs, const float* xsum,
                         const uint8_t* packed_hi, int Mp, const void* scales, const void* sub,
                         const __nv_bfloat16* residual, float* out, cudaStream_t stream) {
   const int unit = AGS ? ags : gs;
+  if (unit == 16)
+    return launch_group_mma<BITS, 32, AGS, SC, true>(codes, xs, xsum, N, Kp, gs, ags, packed,
+                                                     packed_hi, Mp, scales, sub, residual, out,
+                                                     stream);
   if (unit % 64 == 0 && (BITS != 3 || k4l_smem<BITS, 64, SC>() <= kTwoBlockSmem))
     return launch_group_mma<BITS, 64, AGS, SC>(codes, xs, xsum, N, Kp, gs, ags, packed,
                                                packed_hi, Mp, scales, sub, residual, out,
@@ -560,8 +670,11 @@ int launch_group_mma_bits(int bits, const int8_t* codes, const float* xs, const 
     case 3:
       return launch_group_mma_ags<3, SC>(codes, xs, xsum, N, Kp, gs, ags, packed, packed_hi,
                                          Mp, scales, sub, residual, out, stream);
-    default:
+    case 4:
       return launch_group_mma_ags<4, SC>(codes, xs, xsum, N, Kp, gs, ags, packed, packed_hi,
+                                         Mp, scales, sub, residual, out, stream);
+    default:
+      return launch_group_mma_ags<8, SC>(codes, xs, xsum, N, Kp, gs, ags, packed, packed_hi,
                                          Mp, scales, sub, residual, out, stream);
   }
 }
@@ -571,27 +684,32 @@ int launch_group_mma_bits(int bits, const int8_t* codes, const float* xs, const 
 // K4L: codes (N, Kp) int8, xs (N, Ga) and xsum (N, G) f32 from the
 // prologue (Ga as K4's), packed (Kp * bits / 8, Mp) uint8 (bits 3: the lo
 // plane and packed_hi, as K4's), scales and sub (G, Mp) bf16 (scale_f32 0)
-// or f32 (scale_f32 1), residual (N, Mp) bf16 or null -> out (N, Mp) f32,
-// the fold in registers.  bits 1 to 4; gs a multiple of 32, ags as K4's;
-// Kp a multiple of gs * 8 / bits (gs * 8 at bits 3); Mp of 128; G >= 2.
+// or f32 (scale_f32 1: the library built with TMAC_K4L_F32; each library
+// refuses the other), residual (N, Mp) bf16 or null -> out (N, Mp) f32,
+// the fold in registers.  bits 1 to 4 or 8; gs 16 or a multiple of 32, ags
+// as K4's; Kp a multiple of gs * 8 / bits (gs * 8 at bits 3, gs at bits 8);
+// Mp of 128; G >= 2.
 extern "C" int tmac_group_gemm(const void* codes, const float* xs,
                                const float* xsum, int N, int Kp, int gs, int ags,
                                int bits, const void* packed, const void* packed_hi,
                                int Mp, const void* scales, const void* sub, int scale_f32,
                                const void* residual, float* out, void* stream) {
-  if (N <= 0 || gs <= 0 || gs % 32 != 0 || Mp % kLBM != 0 || bits < 1 || bits > 4 ||
-      (bits == 3) != (packed_hi != nullptr) ||
+  if (N <= 0 || !tmac::decode::unit_size_ok(gs) || Mp % kLBM != 0 || bits < 1 ||
+      (bits > 4 && bits != 8) || (bits == 3) != (packed_hi != nullptr) ||
       Kp % (gs * tmac::decode::fields(bits)) != 0 || Kp / gs < 2 ||
-      (ags != 0 && (ags < 0 || ags % 32 != 0 || gs % ags != 0 || ags >= gs)))
+      (ags != 0 && (!tmac::decode::unit_size_ok(ags) || gs % ags != 0 || ags >= gs)) ||
+      (scale_f32 != 0) != (TMAC_K4L_F32 != 0))
     return (int)cudaErrorInvalidValue;
   const int8_t* c = static_cast<const int8_t*>(codes);
   const uint8_t* pk = static_cast<const uint8_t*>(packed);
   const uint8_t* ph = static_cast<const uint8_t*>(packed_hi);
   const __nv_bfloat16* res = static_cast<const __nv_bfloat16*>(residual);
   cudaStream_t s = (cudaStream_t)stream;
-  if (scale_f32)
-    return launch_group_mma_bits<float>(bits, c, xs, xsum, N, Kp, gs, ags, pk, ph, Mp, scales,
-                                        sub, res, out, s);
+#if TMAC_K4L_F32
+  return launch_group_mma_bits<float>(bits, c, xs, xsum, N, Kp, gs, ags, pk, ph, Mp, scales,
+                                      sub, res, out, s);
+#else
   return launch_group_mma_bits<__nv_bfloat16>(bits, c, xs, xsum, N, Kp, gs, ags, pk, ph, Mp,
                                               scales, sub, res, out, s);
+#endif
 }

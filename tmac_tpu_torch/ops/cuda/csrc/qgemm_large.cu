@@ -937,6 +937,13 @@ __global__ void __launch_bounds__(kPrologueThreads) act_bf16_kernel(
 // load), or float (GGUF's block scales: two 16-byte loads for 8 columns),
 // its own template instance; code * scale is then not exact, and the fma
 // below is the one rounding the plain version repeats.
+// Group size 16 (GGUF's Q2_K and Q3_K): a thread's rows rlo + 16 i of a
+// 64-row step change group every chunk, so each chunk loads its group's
+// scale and zero point rows (the `g != g_cur` branch, from L2: the step's
+// prefetch holds only row rlo's); the 8 columns' loads stay 16-byte
+// aligned, the column offset 8 q being one of the row's.
+// Bits 8 (GGUF's Q8_0, P = 1): the packed bytes are signed codes, taken as
+// floats through the same exact add (code + 128 biased, less 2^23 + 128).
 template <typename SC>
 struct ScaleRow {  // 8 columns' scales (or zero points), as loaded
   uint4 v[sizeof(SC) / 2];
@@ -958,7 +965,7 @@ __global__ void __launch_bounds__(k5Threads, 1) dequant_wgmma_kernel(
     const uint8_t* __restrict__ packed, const uint8_t* __restrict__ packed_hi, int Mp,
     const SC* __restrict__ scales, const SC* __restrict__ sub,
     const __nv_bfloat16* __restrict__ residual, float* __restrict__ out) {
-  constexpr int P = BITS == 3 ? 4 : 8 / BITS;  // fields of a (lo plane) byte
+  constexpr int P = BITS == 8 ? 1 : BITS == 3 ? 4 : 8 / BITS;  // fields of a (lo plane) byte
   constexpr uint32_t kMask = BITS == 3 ? 3u : (1u << BITS) - 1;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = reinterpret_cast<uint8_t*>(
@@ -1064,10 +1071,13 @@ __global__ void __launch_bounds__(k5Threads, 1) dequant_wgmma_kernel(
           else
             code = (((e + u) < 4 ? lo : hi) >> (8 * ((e + u) & 3))) & kMask;
           // 2^23 + code, less 2^23: the code as a float, exactly, without
-          // the quarter-rate int-to-float conversion; then code * scale -
-          // sub with one rounding (bf16 scales: code * scale is exact, so
-          // it is the reference's one rounding)
-          const float cf = __fsub_rn(__uint_as_float(0x4B000000u | code), 8388608.0f);
+          // the quarter-rate int-to-float conversion (bits 8: the signed
+          // byte biased by 128, less 2^23 + 128); then code * scale - sub
+          // with one rounding (bf16 scales: code * scale is exact, so it is
+          // the reference's one rounding)
+          const float cf =
+              BITS == 8 ? __fsub_rn(__uint_as_float(0x4B000000u | (code ^ 0x80u)), 8388736.0f)
+                        : __fsub_rn(__uint_as_float(0x4B000000u | code), 8388608.0f);
           v[u] = __fmaf_rn(cf, sf[e + u], zf[e + u]);
         }
         const __nv_bfloat162 pr = __floats2bfloat162_rn(v[0], v[1]);
@@ -1248,15 +1258,15 @@ extern "C" int tmac_act_bf16(const void* x, int N, int x_cols, int K, int Kp,
 // plane (Kp / 4, Mp) and packed_hi, the hi plane (Kp / 8, Mp); else
 // packed_hi null), scales/sub (G, Mp) bf16 (scale_f32 0) or f32
 // (scale_f32 1), residual (N, Mp) bf16 or null -> out (N, Mp) f32.  bits 1
-// to 4; gs a multiple of 32; Kp a multiple of gs; every plane's rows a
-// multiple of 64; Mp of 128; xa 16-byte aligned.
+// to 4 or 8 (signed codes); gs 16 or a multiple of 32; Kp a multiple of gs;
+// every plane's rows a multiple of 64; Mp of 128; xa 16-byte aligned.
 extern "C" int tmac_qgemm_dequant(const void* xa, int N, int Kp, int gs,
                                   int bits, const void* packed, const void* packed_hi,
                                   int Mp, const void* scales, const void* sub,
                                   int scale_f32, const void* residual, float* out,
                                   void* stream) {
-  const int p = bits == 3 ? 4 : bits >= 1 && bits <= 4 ? 8 / bits : 0;
-  if (N <= 0 || gs <= 0 || gs % 32 != 0 || Mp % k5BM != 0 || p == 0 ||
+  const int p = bits == 8 ? 1 : bits == 3 ? 4 : bits >= 1 && bits <= 4 ? 8 / bits : 0;
+  if (N <= 0 || !(gs == 16 || (gs > 0 && gs % 32 == 0)) || Mp % k5BM != 0 || p == 0 ||
       (bits == 3) != (packed_hi != nullptr) || Kp % gs != 0 || Kp % p != 0 ||
       (Kp / p) % 64 != 0 || (bits == 3 && (Kp / 8) % 64 != 0))
     return (int)cudaErrorInvalidValue;
@@ -1274,13 +1284,15 @@ extern "C" int tmac_qgemm_dequant(const void* xa, int N, int Kp, int gs,
       case 1: return launch_dequant_wgmma<1, float>(map, N, Kp, gs, pk, ph, Mp, scales, sub, res, out, s);
       case 2: return launch_dequant_wgmma<2, float>(map, N, Kp, gs, pk, ph, Mp, scales, sub, res, out, s);
       case 3: return launch_dequant_wgmma<3, float>(map, N, Kp, gs, pk, ph, Mp, scales, sub, res, out, s);
-      default: return launch_dequant_wgmma<4, float>(map, N, Kp, gs, pk, ph, Mp, scales, sub, res, out, s);
+      case 4: return launch_dequant_wgmma<4, float>(map, N, Kp, gs, pk, ph, Mp, scales, sub, res, out, s);
+      default: return launch_dequant_wgmma<8, float>(map, N, Kp, gs, pk, ph, Mp, scales, sub, res, out, s);
     }
   }
   switch (bits) {
     case 1: return launch_dequant_wgmma<1, __nv_bfloat16>(map, N, Kp, gs, pk, ph, Mp, scales, sub, res, out, s);
     case 2: return launch_dequant_wgmma<2, __nv_bfloat16>(map, N, Kp, gs, pk, ph, Mp, scales, sub, res, out, s);
     case 3: return launch_dequant_wgmma<3, __nv_bfloat16>(map, N, Kp, gs, pk, ph, Mp, scales, sub, res, out, s);
-    default: return launch_dequant_wgmma<4, __nv_bfloat16>(map, N, Kp, gs, pk, ph, Mp, scales, sub, res, out, s);
+    case 4: return launch_dequant_wgmma<4, __nv_bfloat16>(map, N, Kp, gs, pk, ph, Mp, scales, sub, res, out, s);
+    default: return launch_dequant_wgmma<8, __nv_bfloat16>(map, N, Kp, gs, pk, ph, Mp, scales, sub, res, out, s);
   }
 }

@@ -31,10 +31,12 @@ one (1,) index.  A CPU tensor goes to the plain PyTorch version
 kernel, which either launches or raises.  Each wrapper's ``launches``
 counts its own calls that launched the kernel (a call is the prologue and
 the matmul together, whatever k).  Ported: the TPU kernel's scope, bits 1,
-2 and 4, grouped or per-tensor scales, an unpadded K, N <= 4; narrowed to
-bf16 or f32 scales (f32: GGUF's block scales, their own template instance)
-and a group size that is a multiple of 32 when grouped, f32 scales when
-per-tensor (what the model's weights hold).
+2 and 4, grouped or per-tensor scales, an unpadded K, N <= 4, grouped at
+group size 16 (GGUF's Q2_K experts: two 16-row units a ring stage) or a
+multiple of 32, which are every group size the packing and the GGUF
+reader give; narrowed to bf16 or f32 scales (f32: GGUF's block scales,
+their own template instance) when grouped, f32 scales when per-tensor
+(what the model's weights hold).
 """
 
 from __future__ import annotations
@@ -44,7 +46,7 @@ import functools
 
 import torch
 
-from tmac_tpu_torch.ops.cuda.qgemm_grouped_kernel import qgemm_grouped_plain
+from tmac_tpu_torch.ops.cuda.qgemm_grouped_kernel import qgemm_grouped_plain, unit_size_ok
 from tmac_tpu_torch.ops.cuda.qgemm_kernel import (DECODE_STRIP, _sms, act_quant_plain,
                                                   check_decode_smem, decode_epilogue_plain,
                                                   decode_plan, int_dot_plain, raise_on,
@@ -66,8 +68,8 @@ def expert_kernel_supported(stacked: QuantizedTensor, act_gs: int = 0) -> bool:
     package's rule (``expert_kernel_supported``: bits 1, 2 or 4, no hi
     plane, a stack, no k-sharding, no k-padding, no activation groups),
     narrowed to the scales the kernel reads: grouped bf16 or f32 scales and
-    sub of one dtype with a group size that is a multiple of 32, or
-    per-tensor f32 ones."""
+    sub of one dtype with a group size of 16 or a multiple of 32
+    (unit_size_ok), or per-tensor f32 ones."""
     if not (stacked.bits in (1, 2, 4)
             and stacked.packed_hi is None
             and stacked.packed.ndim == 3
@@ -77,7 +79,7 @@ def expert_kernel_supported(stacked: QuantizedTensor, act_gs: int = 0) -> bool:
         return False
     dtypes = (torch.float32,) if per_tensor(stacked) else (torch.bfloat16, torch.float32)
     return (stacked.scales.dtype == stacked.sub.dtype and stacked.scales.dtype in dtypes
-            and (per_tensor(stacked) or stacked.group_size % 32 == 0))
+            and (per_tensor(stacked) or unit_size_ok(stacked.group_size)))
 
 
 def _check_supported(stacked: QuantizedTensor, x: torch.Tensor, glu: bool,

@@ -34,11 +34,12 @@ CUDA tensor to the kernel, which either launches or raises;
 ``ops.qgemm.kernel_for`` routes to K4L.
 Each wrapper's ``launches`` counts calls that launched its kernel
 (prologue and matmul together).
-Bits 1, 2, 3 and 4 are ported (bits 3: a 2-bit lo plane and a 1-bit hi
-plane, code = lo + 4 * hi), and so is the reference's ``act_group_size``
-(its -ags knob, ``effective_ags``): activation scales per group of ags
-columns, finer than the weight groups, on K4 and K4L (``act_gs=``; on
-the card ags a multiple of 32).  The int32 dots are then per activation
+Bits 1, 2, 3, 4 and 8 are ported (bits 3: a 2-bit lo plane and a 1-bit
+hi plane, code = lo + 4 * hi; bits 8, GGUF's Q8_0: signed codes, one a
+byte), at group size 16 (GGUF's Q2_K and Q3_K) or a multiple of 32, and so
+is the reference's ``act_group_size`` (its -ags knob, ``effective_ags``):
+activation scales per group of ags columns, finer than the weight groups,
+on K4 and K4L (``act_gs=``; on the card ags 16 or a multiple of 32).  The int32 dots are then per activation
 group, each scaled by its own activation scale and its weight group's
 scale in the f32 chain, and the zero-point fold takes each weight
 group's code sum, the sum of its activation groups' (in order).
@@ -46,10 +47,9 @@ group's code sum, the sum of its activation groups' (in order).
 The scales and sub may be bf16 or f32 (GGUF's block types: the reference
 widens any dtype to f32 where it reads it), each kernel taking f32 in a
 template instance of its own; K4L streams its fold's factors, so any K
-fits a block.  The function (_check_supported, shared with the plain
-versions) also takes group size 16 and grouped bits 8 (GGUF's Q2_K, Q3_K
-and Q8_0), which only the plain versions compute: on a CUDA tensor the
-kernel raises and names the form (check_kernel_form).
+fits a block, and so does K4 where staging them all would not (gs 16 with
+f32 factors at K 14336).  A 16-row unit is half a ring stage of the
+decode matmul and half a depth step of K4L (two folds a step there).
 """
 
 from __future__ import annotations
@@ -74,9 +74,15 @@ from tmac_tpu_torch.utils import fma_f32
 _c_ptr, _c_int, _c_float = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
-GROUPED_BITS = (1, 2, 3, 4)  # the kernels'
-FUNCTION_BITS = (1, 2, 3, 4, 8)  # the plain versions' (grouped bits 8: GGUF's Q8_0)
+GROUPED_BITS = (1, 2, 3, 4, 8)  # the kernels' and the plain versions' (bits 8: GGUF's Q8_0)
 SCALE_DTYPES = (torch.bfloat16, torch.float32)
+
+
+def unit_size_ok(gs: int) -> bool:
+    """A group size, or activation group size, the grouped kernels take: 16
+    (half a ring stage of the decode matmul, half a depth step of K4L) or
+    a multiple of 32 (whole ones)."""
+    return gs == 16 or (gs > 0 and gs % 32 == 0)
 
 
 def weights_form_error(qt: QuantizedTensor, kernel: str = "K4") -> Optional[str]:
@@ -85,13 +91,13 @@ def weights_form_error(qt: QuantizedTensor, kernel: str = "K4") -> Optional[str]
     f32 (the reference widens any to f32 where it reads them), a group size
     of 16 or a multiple of 32 (GGUF's K-quants and the rest), bits 1 to 4
     or 8.  What the CUDA kernel lacks of it, check_kernel_form says."""
-    if qt.bits not in FUNCTION_BITS:
+    if qt.bits not in GROUPED_BITS:
         return f"{kernel} takes bits 1, 2, 3, 4 and 8, not {qt.bits}"
     if (qt.bits == 3) != (qt.packed_hi is not None):
         return f"{kernel} takes a hi plane (packed_hi) at bits 3 only"
     if qt.scales.shape[0] < 2 or qt.k_shards != 1:
         return f"{kernel} takes grouped scales (G > 1) and k_shards == 1"
-    if qt.group_size != 16 and qt.group_size % 32:
+    if not unit_size_ok(qt.group_size):
         return f"{kernel} takes a group size of 16 or a multiple of 32, not {qt.group_size}"
     if qt.scales.dtype not in SCALE_DTYPES or qt.sub.dtype != qt.scales.dtype:
         return (f"{kernel} takes bf16 or f32 scales and sub of one dtype, "
@@ -116,17 +122,11 @@ def _check_supported(qt: QuantizedTensor, glu: bool, norm, residual,
 
 
 def check_kernel_form(qt: QuantizedTensor, kernel: str = "K4") -> None:
-    """Raise a ValueError naming the form, of those the function takes
-    (_check_supported), that the CUDA kernel lacks: grouped bits 8 and
-    group size 16 (a decode ring stage and a K4L depth step are 32 packed
-    rows).  Its scales may be bf16 or f32 (its own template instance).
-    Nothing falls back to the plain version."""
-    if qt.bits not in GROUPED_BITS:
-        raise ValueError(f"{kernel} on the card lacks grouped bits {qt.bits} "
-                         f"(it takes bits 1 to 4)")
-    if qt.group_size % 32:
-        raise ValueError(f"{kernel} on the card lacks group size {qt.group_size} "
-                         f"(it takes a multiple of 32)")
+    """Raise a ValueError naming the form that the CUDA kernel lacks: the
+    kernels take every form of the function (weights_form_error: bits 1 to
+    4 and 8, group size 16 or a multiple of 32) with bf16 or f32 scales
+    (each its own template instance), so what is left are other scale
+    dtypes.  Nothing falls back to the plain version."""
     if qt.scales.dtype not in SCALE_DTYPES:
         raise ValueError(f"{kernel} on the card takes bf16 or f32 scales, not "
                          f"{qt.scales.dtype}")
@@ -323,9 +323,11 @@ def _lib():
 
 
 @functools.cache
-def _lib_k4l():
+def _lib_k4l(f32: int = 0):
+    """K4L's library for bf16 (f32 0) or f32 scales: one source built twice,
+    each library with its dtype's instances (csrc/qgemm_grouped_large.cu)."""
     from tmac_tpu_torch.ops.cuda import build
-    lib = build.load("qgemm_grouped_large")
+    lib = build.load("qgemm_grouped_large_f32" if f32 else "qgemm_grouped_large")
     lib.tmac_group_gemm.argtypes = [
         _c_ptr, _c_ptr, _c_ptr, _c_int, _c_int, _c_int, _c_int, _c_int, _c_ptr,
         _c_ptr, _c_int, _c_ptr, _c_ptr, _c_int, _c_ptr, _c_ptr, _c_ptr]
@@ -360,12 +362,11 @@ def _planes(kernel: str, qt: QuantizedTensor, dev, row_multiple: int = 1):
 
 
 def _check_ags(kernel: str, qt: QuantizedTensor, ags: int) -> None:
-    """Raise unless ags is 0 or an activation group size the kernels take:
-    a multiple of 32 (a ring stage of the decode matmul, a depth step of
-    K4L) that divides the group size."""
-    if ags and (ags % 32 or qt.group_size % ags or ags >= qt.group_size):
-        raise ValueError(f"{kernel} takes an activation group size that is a "
-                         f"multiple of 32 below and dividing group_size "
+    """Raise unless ags is 0 or an activation group size the kernels take
+    (unit_size_ok) below and dividing the group size."""
+    if ags and (not unit_size_ok(ags) or qt.group_size % ags or ags >= qt.group_size):
+        raise ValueError(f"{kernel} takes an activation group size of 16 or a "
+                         f"multiple of 32, below and dividing group_size "
                          f"{qt.group_size}, not {ags}")
 
 
@@ -491,7 +492,8 @@ def k4l_smem(bits: int, kt: int, scale_bytes: int = 2) -> int:
 
 def k4l_kt(bits: int, gs: int, ags: int = 0, scale_bytes: int = 2) -> int:
     """K4L's depth step: 64 where the fold's unit (ags, else gs) is a
-    multiple of 64 and, at bits 3, two blocks still fit an SM; else 32."""
+    multiple of 64 and, at bits 3, two blocks still fit an SM; else 32 (at
+    a unit of 16, two units a step)."""
     unit = ags or gs
     return 64 if unit % 64 == 0 and (
         bits != 3 or k4l_smem(bits, 64, scale_bytes) <= K4L_TWO_BLOCKS) else 32
@@ -524,7 +526,7 @@ def launch_group_gemm(codes: torch.Tensor, xs: torch.Tensor,
         require("K4L", residual, "residual", torch.bfloat16, (N, Mp), dev)
         res_ptr = residual.data_ptr()
     out = torch.empty((N, Mp), dtype=torch.float32, device=dev)
-    err = _lib_k4l().tmac_group_gemm(
+    err = _lib_k4l(scale_f32(qt)).tmac_group_gemm(
         codes.data_ptr(), xs.data_ptr(), xsum.data_ptr(), N, Kp, gs, ags, qt.bits,
         qt.packed.data_ptr(), hi_ptr, Mp, qt.scales.data_ptr(), qt.sub.data_ptr(),
         scale_f32(qt), res_ptr, out.data_ptr(), _stream(dev))

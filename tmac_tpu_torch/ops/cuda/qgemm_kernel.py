@@ -250,14 +250,17 @@ def decode_owner(nunits: int, ksplit: int):
 
 def decode_smem(bits: int, nt: int, grouped: bool, nunits: int, unit: int,
                 ksplit: int, G: int, stages=None, acts: int = 0,
-                scale_bytes: int = 2) -> int:
+                scale_bytes: int = 2, stream: bool = True) -> int:
     """A block's shared memory, as decode_matmul.cuh's Layout sizes it: the
     ring of `stages` stages (decode_stages' by default) of decode_planes
     planes (or the partials it receives for its slice of columns, if
     larger), the codes of its rows, its int32 partials and, grouped, the
     fold's scales and zero points of its slice (scale_bytes each: 2 bf16,
     4 f32) and the tile's xs, xsum.  acts: the activation groups (a partial
-    and an xs each) of K4's ags form, or 0 (one a weight group)."""
+    and an xs each) of K4's ags form, or 0 (one a weight group).  Where
+    every group's factors would pass DECODE_SMEM_LIMIT the kernel streams
+    them in windows through two slots (decode_windows); stream=False sizes
+    the block without that."""
     P = decode_fields(bits)
     units = cdiv(nunits, ksplit)
     span = round_up(units * unit, DECODE_STAGE_ROWS)
@@ -267,10 +270,26 @@ def decode_smem(bits: int, nt: int, grouped: bool, nunits: int, unit: int,
         * decode_planes(bits)
     total = round_up(max(ring, recv), 16) + round_up(nt * P * span, 16)
     total += (units * P if grouped else 1) * nt * DECODE_STRIP * 4
-    if grouped:
-        total += round_up(2 * G * slice_ * scale_bytes, 16) + nt * ((acts or G) + G) * 4
-        total = round_up(total, 16) + DECODE_XBUF
-    return total
+    if not grouped:
+        return total
+    rest = round_up(nt * ((acts or G) + G) * 4, 16) + DECODE_XBUF
+    fwin, slots = decode_windows(total, rest, G, slice_, scale_bytes) if stream else (G, 1)
+    return total + slots * fwin * 2 * slice_ * scale_bytes + rest
+
+
+def decode_windows(fsc: int, rest: int, G: int, slice_: int, scale_bytes: int):
+    """The grouped fold's factor windows (decode_matmul.cuh's Layout): ->
+    (groups a window, slots).  Every group's at once, (G, 1), where that
+    fits DECODE_SMEM_LIMIT beside the fsc bytes before the factors and the
+    rest after them; else windows of equal size in two slots, as few as
+    fit (gs 16 with f32 factors at K 14336)."""
+    per_group = 2 * slice_ * scale_bytes
+    if fsc + G * per_group + rest <= DECODE_SMEM_LIMIT:
+        return G, 1
+    per_slot = (DECODE_SMEM_LIMIT - fsc - rest) // 2 // per_group
+    if per_slot < 1:
+        return G, 1
+    return cdiv(G, cdiv(G, per_slot)), 2
 
 
 def decode_plan(N: int, Kp: int, Mp: int, bits: int, gs: int = 0,
@@ -303,54 +322,73 @@ def decode_plan(N: int, Kp: int, Mp: int, bits: int, gs: int = 0,
     activation groups of ags packed rows.  scale_bytes: the grouped fold's
     factors, 2 (bf16) or 4 (f32, which stage twice the bytes).  Where no
     cluster size fits a block at decode_nt's token rows (many groups: K
-    14336 at gs 32 from 2 rows), K4 takes one token row a block."""
+    14336 at gs 32 from 2 rows), K4 takes one token row a block; where none
+    fits at one row with every group's factors staged (gs 16 with f32
+    factors at K 14336), the plan is the same search over blocks that
+    stream their factors (decode_windows)."""
     Kb, unit, nunits = decode_units(Kp, bits, ags or gs)
     grouped, G = gs > 0, Kp // gs if gs else 1
     acts = Kp // ags if ags else 0
+    # blocks that stage every group's factors first (every form the plan was
+    # fitted to), blocks that stream them only where none of those fits
+    for stream in (False, True):
+        best = (_expert_plan if experts else _dense_plan)(
+            N, Mp, bits, grouped, nunits, unit, G, sms, experts, acts, scale_bytes, stream)
+        if best is not None:
+            return best[1]
+    raise ValueError(f"decode matmul: K = {Kp} at N = {N} outgrows a block's "
+                     "shared memory")
+
+
+def _expert_plan(N, Mp, bits, grouped, nunits, unit, G, sms, experts, acts, scale_bytes,
+                 stream):
+    """decode_plan's search for K7: -> (cost, (ksplit, nt, stages)) or None."""
     best = None
-    if experts:
-        for nt, ksplit, stages in itertools.product(
-                (1, decode_nt(N, bits)) if N > 1 else (1,), EXPERT_SPLITS, EXPERT_STAGES):
-            smem = decode_smem(bits, nt, grouped, nunits, unit, ksplit, G, stages,
-                               scale_bytes=scale_bytes)
+    for nt, ksplit, stages in itertools.product(
+            (1, decode_nt(N, bits)) if N > 1 else (1,), EXPERT_SPLITS, EXPERT_STAGES):
+        smem = decode_smem(bits, nt, grouped, nunits, unit, ksplit, G, stages,
+                           scale_bytes=scale_bytes, stream=stream)
+        if ksplit > nunits or smem > DECODE_SMEM_LIMIT:
+            continue
+        per_sm = max(1, min(EXPERT_BLOCKS_PER_SM[nt],
+                            SM_SMEM // (smem + BLOCK_SMEM_RESERVE)))
+        clusters = (Mp // DECODE_STRIP) * cdiv(N, nt) * experts
+        fit = per_sm * sms // ksplit
+        if ksplit >= 4:
+            fit = int(fit * WIDE_CLUSTER_FILL)
+        occupancy = min(per_sm, cdiv(clusters * ksplit, sms))
+        rate = min(1.0, occupancy * (stages - 1) * DECODE_STAGE_ROWS * DECODE_STRIP
+                   / EXPERT_INFLIGHT_BYTES)
+        rows = cdiv(nunits, ksplit) * unit * (1 + EXPERT_ROW_COST_PER_TOKEN * (nt - 1))
+        cost = cdiv(clusters, max(fit, 1)) * (occupancy * rows / rate
+                                               + EXPERT_FIXED_ROWS_PER_GROUP * G)
+        if best is None or cost < best[0]:
+            best = (cost, (ksplit, nt, stages))
+    return best
+
+
+def _dense_plan(N, Mp, bits, grouped, nunits, unit, G, sms, experts, acts, scale_bytes,
+                stream):
+    """decode_plan's search for K1 and K4: -> (cost, (ksplit, nt)) or None."""
+    for nt in dict.fromkeys((decode_nt(N, bits), 1)):
+        best = None
+        clusters = (Mp // DECODE_STRIP) * cdiv(N, nt)
+        for ksplit in DECODE_SPLITS:
+            smem = decode_smem(bits, nt, grouped, nunits, unit, ksplit, G, acts=acts,
+                               scale_bytes=scale_bytes, stream=stream)
             if ksplit > nunits or smem > DECODE_SMEM_LIMIT:
                 continue
-            per_sm = max(1, min(EXPERT_BLOCKS_PER_SM[nt],
-                                SM_SMEM // (smem + BLOCK_SMEM_RESERVE)))
-            clusters = (Mp // DECODE_STRIP) * cdiv(N, nt) * experts
-            fit = per_sm * sms // ksplit
-            if ksplit >= 4:
-                fit = int(fit * WIDE_CLUSTER_FILL)
-            occupancy = min(per_sm, cdiv(clusters * ksplit, sms))
-            rate = min(1.0, occupancy * (stages - 1) * DECODE_STAGE_ROWS * DECODE_STRIP
-                       / EXPERT_INFLIGHT_BYTES)
-            rows = cdiv(nunits, ksplit) * unit * (1 + EXPERT_ROW_COST_PER_TOKEN * (nt - 1))
-            cost = cdiv(clusters, max(fit, 1)) * (occupancy * rows / rate
-                                                   + EXPERT_FIXED_ROWS_PER_GROUP * G)
+            per_sm = 2 if smem <= DECODE_SMEM_BUDGET else 1
+            waves = cdiv(clusters * ksplit, per_sm * sms)
+            cost = waves * (cdiv(nunits, ksplit) * unit * decode_planes(bits)
+                            + DECODE_FIXED_ROWS[nt])
+            if ksplit & (ksplit - 1):
+                cost *= 1.2
             if best is None or cost < best[0]:
-                best = (cost, (ksplit, nt, stages))
-    else:
-        for nt in dict.fromkeys((decode_nt(N, bits), 1)):
-            clusters = (Mp // DECODE_STRIP) * cdiv(N, nt)
-            for ksplit in DECODE_SPLITS:
-                smem = decode_smem(bits, nt, grouped, nunits, unit, ksplit, G, acts=acts,
-                                   scale_bytes=scale_bytes)
-                if ksplit > nunits or smem > DECODE_SMEM_LIMIT:
-                    continue
-                per_sm = 2 if smem <= DECODE_SMEM_BUDGET else 1
-                waves = cdiv(clusters * ksplit, per_sm * sms)
-                cost = waves * (cdiv(nunits, ksplit) * unit * decode_planes(bits)
-                                + DECODE_FIXED_ROWS[nt])
-                if ksplit & (ksplit - 1):
-                    cost *= 1.2
-                if best is None or cost < best[0]:
-                    best = (cost, (ksplit, nt))
-            if best is not None:
-                break
-    if best is None:
-        raise ValueError(f"decode matmul: K = {Kp} at N = {N} outgrows a block's "
-                         "shared memory")
-    return best[1]
+                best = (cost, (ksplit, nt))
+        if best is not None:
+            return best
+    return None
 
 
 def check_decode_smem(kernel: str, N: int, Kp: int, bits: int, gs: int,
@@ -370,11 +408,13 @@ def decode_slot_weights(qt: QuantizedTensor, r0: int, r1: int, e: int):
     """What slot e of the decode matmul's rows [r0, r1) (decode_units)
     multiplies in its dp4a, as csrc/decode_matmul.cuh forms it in place:
     -> (weight bytes (r1 - r0, Mp) int64, the shift its flush takes back).
-    Bits 1, 2, 4: field e of the packed bytes masked in place, i.e. times
+    Bits 8: the signed codes as stored (one slot).  Bits 1, 2, 4: field e of the packed bytes masked in place, i.e. times
     2^(bits * e).  Bits 3: the code lo + 4 * hi of k = e * Kb + r
     assembled at bit t = min(2 * (e // 2), 4) of the byte: field e // 2 of
     lo plane row r + (e % 2) * Kb, shifted right by 2 * (e // 2) - t, and
     bit e of hi plane row r, moved to bit t + 2 (tmac::decode::b3_slot)."""
+    if qt.bits == 8:
+        return qt.packed[r0:r1].view(torch.int8).long(), 0
     pk = qt.packed.long()
     if qt.bits != 3:
         return pk[r0:r1] & (((1 << qt.bits) - 1) << (qt.bits * e)), qt.bits * e
@@ -400,10 +440,6 @@ def int_dot_split_plain(codes: torch.Tensor, qt: QuantizedTensor,
     total = torch.zeros((codes.shape[0], qt.mdim_padded), dtype=torch.long)
     for u0, u1 in decode_spans(nunits, ksplit):
         r0, r1 = u0 * unit, min(u1 * unit, Kb)
-        if bits == 8:
-            w = qt.packed[r0:r1].view(torch.int8).long()
-            total += c[:, r0:r1] @ w
-            continue
         for e in range(decode_fields(bits)):
             w, shift = decode_slot_weights(qt, r0, r1, e)
             total += (c[:, e * Kb + r0:e * Kb + r1] @ w) >> shift

@@ -383,8 +383,7 @@ def qgemm(x: torch.Tensor, qt: QuantizedTensor, impl: str = "auto",
     impl: "fused" (float x: the kernel ``route`` picks: K1 or K3 for
     one scale row, K4 or K5 for grouped ones), "torch", or "auto":
     "fused" for any tensor off the CPU, whose kernels raise on what they do
-    not cover yet (int8 x, grouped bits 8, group size 16); on the CPU, the
-    kernels' plain versions for float x (grouped: bits 1 to 4 or 8, bf16 or
+    not cover yet (int8 x); on the CPU, the kernels' plain versions for float x (grouped: bits 1 to 4 or 8, bf16 or
     f32 scales, group size 16 or a multiple of 32) and "torch" otherwise.
     norm: optional (weight (K,), eps) rms_norm applied to x first.
     glu: x is (N, 2K) and silu(x[:, :K]) * x[:, K:] feeds the matmul.

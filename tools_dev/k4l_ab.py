@@ -10,7 +10,8 @@ rotated in a CUDA graph, so the weights are cold in L2), and whether the
 output equals the plain version bit for bit.  `variants` patches
 csrc/qgemm_grouped_large.cu textually, builds each patched copy with the
 package's nvcc flags into _scratch/k4l_variants/ and times it through the
-package's own wrapper.  Some variants compute wrong results on purpose (a
+package's own wrapper (a variant holds the bf16-scale instances, as the
+source builds by default: its f32 shapes raise).  Some variants compute wrong results on purpose (a
 part of the kernel left out, to time what it costs); the bitwise column
 says which.  Run parent, new (or variants), then parent again on one card:
 a card's power limit moves absolute times between machines.
@@ -187,7 +188,7 @@ def main():
     if mode == "parent":
         logs = build.build(("qgemm_grouped",))
     else:
-        logs = build.build(("qgemm_grouped", "qgemm_grouped_large"))
+        logs = build.build(("qgemm_grouped", "qgemm_grouped_large", "qgemm_grouped_large_f32"))
     card = cs.Card()
     result = dict(mode=mode, package=str(Path(tmac_tpu_torch.__file__).parent),
                   card=card.smi, ptxas=_ptxas(cs, "\n".join(logs.values())))
@@ -204,7 +205,7 @@ def main():
             ref = gk._lib_k4l()
             lib.tmac_group_gemm.argtypes = ref.tmac_group_gemm.argtypes
             lib.tmac_group_gemm.restype = ref.tmac_group_gemm.restype
-            gk._lib_k4l = lambda lib=lib: lib
+            gk._lib_k4l = lambda f32=0, lib=lib: lib
             result["variants"][name] = dict(ptxas=ptxas, rows=_time_shapes(cs, card))
     else:
         result["build_s"] = round(time.time() - t0, 1)
