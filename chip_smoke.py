@@ -19,6 +19,10 @@
     python3 chip_smoke.py --phase per_channel_path     (path 12: per-channel
                                                         w_fp, K1 and K3 at
                                                         bits 1, 3 and 4)
+    python3 chip_smoke.py --phase tools_path           (qgemm's non-fused
+                                                        forms E1-E4, then
+                                                        the tools and the
+                                                        CLI in-process)
 
 Phases, each printing one JSON line before the last two:
   1. the card (nvidia-smi name and power limit, torch's device name);
@@ -263,7 +267,7 @@ Phases, each printing one JSON line before the last two:
      a one-token step; K1 at 5 and 9 rows and K2 at 96 timed;
  17. (after path 8) path 11 (gguf_path), GGUF files: Llama-3.1-8B at bits
      4, gs 32 with zero points drawn on the card (seed 0, GGUF_LAYERS (16)
-     of its 32 layers), written by export_gguf as Q4_K (in a temporary directory,
+     of its 32 layers; GGUF_FULL_RUN_LAYERS (8) in the full run), written by export_gguf as Q4_K (in a temporary directory,
      deleted after) and read back by convert_gguf_model: matmuls at bits 4,
      gs 32 with f32 scales and sub, the int8 head, rope_freqs.weight as the
      factors scaling; the card's torch packers and Q4_K decoder held to the
@@ -316,7 +320,22 @@ Phases, each printing one JSON line before the last two:
      (wqkv and wo on K5, the experts' slots on K4) and 64 steps (4 K7, 4
      K4, 2 K2, 1 K1 a step), teacher-forced on the prompt's last position
      and GGUF_MOE_FORCED (16) steps (path 13: NEW_FORCED); in the full
-     run, paths 13 and 14b force LB_FULL_RUN_FORCED (1 and 1) steps.
+     run, paths 13 and 14b force LB_FULL_RUN_FORCED (1 and 1) steps,
+     path 13 runs LB_FULL_RUN_Q2K_LAYERS (16) of its 32 layers and path
+     14 LB_FULL_RUN_Q8_LAYERS (8).
+ 20. (after path 14b) tools_path: qgemm_pallas's forms whose activations
+     come from outside (E1: int8 x at one scale row on K1's EXT instance
+     and K3; E2: per-group int8 codes on K4 and K4L; E3: bf16 x on K4's
+     native kernel and K4L's native instance; E4: float x on K5), each
+     against its plain version at Llama-2-7B's and BitNet-3B's linears
+     (act_form_checks; E1 and E2 bit for bit, E3 within sqrt(chunk) *
+     2^-23 * sum |x * w|, E4 within K5's bound) and timed; then, every E
+     count at 0, the tools in-process (profile on Llama-2-7B at N = 1,
+     256, 512 and with act "native", on BitNet-3B with int8 x; microbench;
+     autotune into a temporary table and one read of it each, held to the
+     plain version; parity at scaled(8)), each E form launched; then the
+     CLI (generate, ppl, score, bench-e2e, trace) on a TOOLS_CKPT_LAYERS-
+     layer BitNet-3B checkpoint.
 In the full run the sweeps come last (full_run_sweeps), the timing
 sweeps only while the run has spent less than SWEEPS_BY_S seconds.
 The last two lines are the kernels' JSON record and
@@ -336,12 +355,8 @@ import sys
 import threading
 import time
 
-# Published H100 / H200 peaks (NVIDIA data sheets, dense): device-memory
-# bytes/s, int8 ops/s, bf16 flop/s; matched on torch's device name.
-PEAKS = (("H200", 4.8e12, 1979e12, 989e12),
-         ("H100 NVL", 3.9e12, 1671e12, 835e12),
-         ("H100 PCIe", 2.0e12, 1513e12, 756e12),
-         ("H100", 3.35e12, 1979e12, 989e12))
+# the kernel timers (the package's timing module imports torch only at a call)
+from tmac_tpu_torch.tools.timing import capture, cuda_ms, graph_ms
 
 STEPS, FORCED, MOE_FORCED, PHI3_FORCED, PROFILED = 64, 8, 2, 2, 4
 BITNET_PROMPT, LLAMA_PROMPT, PHI3_PROMPT = 16, 256, 2304
@@ -391,42 +406,9 @@ def say(phase, **kw):
     print(json.dumps({"phase": phase, **kw}), flush=True)
 
 
-def cuda_ms(fn, reps):
-    """Mean device time of fn() in ms over `reps` calls (after a warm-up)."""
-    import torch
-    fn()
-    torch.cuda.synchronize()
-    start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    start.record()
-    for _ in range(reps):
-        fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / reps
-
-
-def capture(fn):
-    """fn's device work as a CUDA graph (run once eagerly first, on a side
-    stream, as capture requires)."""
-    import torch
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        fn()
-    return graph
-
-
-def graph_ms(fn, reps=20):
-    """Device time of fn() in ms: its CUDA graph replayed `reps` times."""
-    return cuda_ms(capture(fn).replay, reps)
-
-
 class Card:
-    """The card, its peaks, and the random inputs of the kernel checks."""
+    """The card, its peaks (the package's platform.device_spec: the data
+    sheet's dense rates), and the random inputs of the kernel checks."""
 
     def __init__(self):
         import numpy as np
@@ -438,8 +420,11 @@ class Card:
             capture_output=True, text=True, timeout=60).stdout.strip()
         self.smi = smi.splitlines()[0] if smi else None
         self.name = torch.cuda.get_device_name(0)
-        self.bw, self.int8_peak, self.bf16_peak = next(
-            (p[1:] for p in PEAKS if p[0] in self.name), PEAKS[-1][1:])
+        from tmac_tpu_torch.platform import device_spec
+        self.spec = device_spec(self.name)
+        self.bw = self.spec.hbm_bytes_per_s
+        self.int8_peak = self.spec.int8_tops * 1e12
+        self.bf16_peak = self.spec.bf16_tflops * 1e12
         self.rng = np.random.default_rng(1)
         self.sms = torch.cuda.get_device_properties(0).multi_processor_count
 
@@ -453,23 +438,13 @@ class Card:
         return max(nbytes / self.bw, ops / peak) * 1e3
 
 
-def dequant_bf16(qt):
-    """The (Kp, Mp) bf16 dequantized weights of a QuantizedTensor, for the
-    bf16 matmul yardstick."""
-    import torch
-    from tmac_tpu_torch.ops.qgemm import unpack_codes
-    w = unpack_codes(qt).float()
-    G = qt.scales.shape[0]
-    w = w.reshape(G, -1, w.shape[-1]) * qt.scales.float()[:, None] \
-        - qt.sub.float()[:, None]
-    return w.reshape(qt.kdim_padded, -1).to(torch.bfloat16)
-
-
 def yardstick_ms(card, x, qt, copies_for_l2):
-    """bf16 x (K-padded) @ the dequantized (Kp, Mp) weights, in copies that
-    together exceed the 50 MB L2 when copies_for_l2 (as the packed weights
-    of a decode step do)."""
+    """bf16 x (K-padded) @ the dequantized (Kp, Mp) weights
+    (ops.qgemm.dequant_bf16: dequant_baseline_matmul's product without its
+    per-call dequantization), in copies that together exceed the 50 MB L2
+    when copies_for_l2 (as the packed weights of a decode step do)."""
     import torch
+    from tmac_tpu_torch.ops.qgemm import dequant_bf16
     w = dequant_bf16(qt)
     n = 1 if not copies_for_l2 else max(1, min(4, math.ceil(120e6 / w.numel() / 2)))
     copies = [w] + [w.clone() for _ in range(n - 1)]
@@ -5357,14 +5332,15 @@ def gguf_roundtrip(card, cfg, tag, wtype="Q4_K", form=(4, 32)):
     return gcfg, gparams
 
 
-def gguf_path(card):
-    """Path 11: Llama-3.1-8B and Mixtral-8x7B through a gguf file (module
-    docstring, phase 17).  -> the kernels' records"""
+def gguf_path(card, layers=GGUF_LAYERS):
+    """Path 11: Llama-3.1-8B (at `layers` of its 32 layers) and
+    Mixtral-8x7B through a gguf file (module docstring, phase 17).  -> the
+    kernels' records"""
     import torch
     from tmac_tpu_torch.models.config import get_preset
     t_path = time.perf_counter()
     cfg0 = dataclasses.replace(get_preset("llama-3.1-8b", bits=4, group_size=32,
-                                          zero_point=True), num_layers=GGUF_LAYERS)
+                                          zero_point=True), num_layers=layers)
     cfg, params = gguf_roundtrip(card, cfg0, "gguf_llama31")
     # K4L at K 14336, gs 32 with bf16 scales too (past the shared memory
     # that staged every group's factors): down with and without its fold
@@ -5384,8 +5360,8 @@ def gguf_path(card):
     del params
     torch.cuda.empty_cache()
     records += gguf_mixtral(card)
-    say("gguf_path", path_s=round(time.perf_counter() - t_path, 3), card=card.name,
-        nvidia_smi=card.smi)
+    say("gguf_path", path_s=round(time.perf_counter() - t_path, 3), layers=layers,
+        card=card.name, nvidia_smi=card.smi)
     return records
 
 
@@ -5623,7 +5599,7 @@ def per_channel_path(card):
 # grouped bits 8 in K4, K4L and K5, K4 and K4L at ags 16, K7 at gs 16
 # ---------------------------------------------------------------------------
 
-# path 14's depth (the full run's time: 16 of 32 layers, PERF.md §4);
+# path 14's depth (16 of 32 layers; the full run's is LB_FULL_RUN_Q8_LAYERS, PERF.md §4);
 # paths 13 and 14b's teacher-forced steps in the full run (their plain K4
 # and K7 fold 896 groups an output at gs 16, in a Python loop: 29 and 3.5 s
 # a step on a slow host, PERF.md §4), where --phase gguf_lowbit_path
@@ -5633,6 +5609,9 @@ def per_channel_path(card):
 # the ags-16 checks
 LB_Q8_LAYERS = 16
 LB_FULL_RUN_FORCED = (1, 1)
+# the full run's cuts since it took tools_path (PERF.md §4): path 13 at 16
+# of 32 layers, path 14 at 8 (of LB_Q8_LAYERS), path 11 at 8 of 32
+LB_FULL_RUN_Q2K_LAYERS, LB_FULL_RUN_Q8_LAYERS, GGUF_FULL_RUN_LAYERS = 16, 8, 8
 LB_FORMS = tuple((b, 16, dt) for b in (2, 3, 1, 4) for dt in ("f32", "bf16")) + (
     (8, 32, "f32"), (8, 32, "bf16"), (8, 16, "f32"))
 LB_K4_ROWS, LB_K4L_ROWS, LB_K5_ROWS, LB_AGS, LB_FORM_SEED = (1, 4, 16), (64, 88), (512,), 16, 18
@@ -5747,31 +5726,34 @@ def lowbit_form_checks(card, cfg):
     return records, worst
 
 
-def gguf_lowbit_path(card, forced=(NEW_FORCED, GGUF_MOE_FORCED)):
+def gguf_lowbit_path(card, forced=(NEW_FORCED, GGUF_MOE_FORCED), q2k_layers=None,
+                     q8_layers=LB_Q8_LAYERS):
     """The low-bit GGUF forms (module docstring, phase 19): the form
     checks (lowbit_form_checks), then path 13, Llama-3.1-8B at full width
     and depth through a Q2_K gguf file (bits 2, gs 16, f32 scales: a
     600-token prompt in chunks of 512 and 88, both on K5 at gs 16, 64 steps
     on K4 at gs 16), path 14, Llama-3.1-8B through a Q8_0 file (bits 8, gs
     32: the 512-row chunk on K5, the 88-row one on K4L, the steps on K4, at
-    LB_Q8_LAYERS layers), each as path 11 runs (gguf_roundtrip, then
+    q8_layers layers), each as path 11 runs (gguf_roundtrip, then
     grouped_path on the file's weights), and path 14b, Mixtral-8x7B at 2
     of 32 layers through a Q2_K file (K7 at gs 16).  forced: the decode
-    steps teacher-forced on paths 13 and 14b.  -> the kernels' records"""
+    steps teacher-forced on paths 13 and 14b; q2k_layers: path 13's depth
+    (all 32 by default); q8_layers: path 14's.  -> the kernels' records"""
     import torch
     from tmac_tpu_torch.models.config import get_preset
     t_path = time.perf_counter()
     cfg = get_preset("llama-3.1-8b", bits=2, group_size=16, zero_point=True)
     records, _ = lowbit_form_checks(card, cfg)
     t_forms = time.perf_counter() - t_path
-    gcfg, params = gguf_roundtrip(card, cfg, "gguf_q2k", "Q2_K", (2, 16))
+    gcfg, params = gguf_roundtrip(card, dataclasses.replace(
+        cfg, num_layers=q2k_layers or cfg.num_layers), "gguf_q2k", "Q2_K", (2, 16))
     records += grouped_path(card, "gguf_q2k", gcfg, GGUF_PROMPT, GGUF_CHUNK, params=params,
                             k4_rows=(1, 4, 16, 64, 88), k5_rows=(512,), forced=forced[0])
     del params
     torch.cuda.empty_cache()
     t_q8 = time.perf_counter()
     cfg8 = dataclasses.replace(get_preset("llama-3.1-8b", bits=4, group_size=32,
-                                          zero_point=True), num_layers=LB_Q8_LAYERS)
+                                          zero_point=True), num_layers=q8_layers)
     gcfg, params = gguf_roundtrip(card, cfg8, "gguf_q8", "Q8_0", (8, 32))
     records += grouped_path(card, "gguf_q8", gcfg, GGUF_PROMPT, GGUF_CHUNK, params=params,
                             k4_rows=(1, 4, 16, 64, 88), k5_rows=(512,))
@@ -5782,9 +5764,362 @@ def gguf_lowbit_path(card, forced=(NEW_FORCED, GGUF_MOE_FORCED)):
     torch.cuda.empty_cache()
     say("gguf_lowbit_path", forms_s=round(t_forms, 3), q2k_s=round(t_q8 - t_path - t_forms, 3),
         q8_s=round(t_moe - t_q8, 3), moe_s=round(time.perf_counter() - t_moe, 3),
-        path_s=round(time.perf_counter() - t_path, 3), q8_layers=LB_Q8_LAYERS, forced=forced,
+        path_s=round(time.perf_counter() - t_path, 3), q8_layers=q8_layers, forced=forced,
+        q2k_layers=q2k_layers or cfg.num_layers, forms=len(LB_FORMS),
         card=card.name, nvidia_smi=card.smi)
     return records
+
+
+# ---------------------------------------------------------------------------
+# tools_path: qgemm_pallas's forms whose activations come from outside (E1-E4)
+# at full width, then the port's tools and CLI, in-process
+# ---------------------------------------------------------------------------
+
+# the linears (K, M) of Llama-2-7B (bits 2 and 4, g128) and BitNet-3B (w_a8)
+TOOLS_LLAMA = ((4096, 4096), (4096, 11008), (11008, 4096))
+TOOLS_BITNET = ((3200, 3200), (3200, 8704), (8704, 3200))
+FORM_ROWS = {"E1": (1, 4, 63, 64, 256), "E2": (1, 16, 64, 256), "E3": (1, 64, 256),
+             "E4": (384, 512)}
+# each form's timed calls: the rows at which it is timed on its three shapes
+FORM_TIMED = {"E1": (1, 256), "E2": (1, 256), "E3": (1, 256), "E4": (512,)}
+FORM_SOURCES = {
+    "E1": "tmac_tpu_torch/ops/cuda/csrc/qgemm_fused.cu + decode_matmul.cuh (K1, EXT); "
+          "qgemm_large.cu (K3)",
+    "E2": "tmac_tpu_torch/ops/cuda/csrc/qgemm_grouped.cu + decode_matmul.cuh (K4); "
+          "qgemm_grouped_large.cu, _f32.cu (K4L)",
+    "E3": "tmac_tpu_torch/ops/cuda/csrc/qgemm_grouped.cu (k4_native_kernel); "
+          "qgemm_grouped_large_native.cu (K4L, NATIVE)",
+    "E4": "tmac_tpu_torch/ops/cuda/csrc/qgemm_large.cu (K5)"}
+
+
+def form_fns():
+    """{form: (wrapper, plain version)} of E1-E4 (ops.qgemm.form)."""
+    from tmac_tpu_torch.ops.cuda import qgemm_grouped_kernel as gk
+    from tmac_tpu_torch.ops.cuda import qgemm_kernel as k1
+    return {"E1": (k1.qgemm_int8_x, k1.int8_x_plain),
+            "E2": (gk.qgemm_grouped_ext, gk.grouped_ext_plain),
+            "E3": (gk.qgemm_native, gk.native_plain),
+            "E4": (gk.qgemm_dequant_ext, gk.dequant_ext_plain)}
+
+
+def form_counts():
+    return {f: fns[0].launches for f, fns in form_fns().items()}
+
+
+def zero_form_counts():
+    for kernel, _ in form_fns().values():
+        kernel.launches = 0
+
+
+def check_form(card, form, label, x, qt, **kw):
+    """One E form on the card against its plain version: E1 and E2 bit for
+    bit; E3 within native_bound (sqrt(chunk) * 2^-23 * sum |x * w|: only a
+    chunk's f32 sum order differs); E4 within k5_bound, K5's gate.  -> the
+    row (max_abs_err, max_ratio of the error to its bound)."""
+    import torch
+    from tmac_tpu_torch.ops.cuda import qgemm_grouped_kernel as gk
+    from tmac_tpu_torch.ops.qgemm import pad_x_for, route
+    kernel, plain = form_fns()[form]
+    got, want = kernel(x, qt, **kw), plain(x, qt, **kw)
+    torch.cuda.synchronize()
+    diff = (got - want).abs()
+    row = dict(form=form, shape=label, bits=qt.bits, N=x.shape[0],
+               kernel=route(qt, x.shape[0], act="native" if form == "E3" else "auto",
+                            x_int8=x.dtype == torch.int8),
+               max_abs_err=float(diff.max()))
+    if form in ("E1", "E2"):
+        ok = row["bitwise"] = bool(torch.equal(got, want))
+    else:
+        if form == "E3":
+            bound = gk.native_bound(x, qt)
+        else:
+            xa = pad_x_for(x.to(torch.bfloat16), qt)
+            bound = qt.slice_m(k5_bound(xa, gk.dequant_weights_plain(qt)))
+        row["max_ratio"] = float((diff / bound.clamp_min(1e-30)).max())
+        ok = row["within_bound"] = bool((diff <= bound).all())
+    if not ok:
+        raise AssertionError(f"{form} {label} N={x.shape[0]}: {row}")
+    return row
+
+
+def form_bytes(x, qt):
+    """Bytes one E call must move: packed weights (both planes at bits 3),
+    scales and sub, x and the f32 output, each once."""
+    hi = qt.packed_hi.numel() if qt.packed_hi is not None else 0
+    return (qt.packed.numel() + hi + 2 * qt.scales.numel() * qt.scales.element_size()
+            + x.numel() * x.element_size() + 4 * x.shape[0] * qt.mdim_padded)
+
+
+def time_form(card, form, x, qt):
+    """One E call's device ms (a CUDA graph of it), its plain version's
+    (eager), its bound (bytes at the card's rate; 2 N Kp Mp operations at
+    the int8 peak for E1, E2, the bf16 one for E3, E4) and the yardstick:
+    x in bf16 times the bf16 dequantized weights, one torch.matmul
+    (ops.qgemm.dequant_baseline_matmul's product)."""
+    import torch
+    from tmac_tpu_torch.ops.qgemm import dequant_bf16, pad_x_for
+    kernel, plain = form_fns()[form]
+    N = x.shape[0]
+    ms = graph_ms(lambda: kernel(x, qt))
+    plain_ms = cuda_ms(lambda: plain(x, qt), 1)
+    ops = 2 * N * qt.kdim_padded * qt.mdim_padded
+    peak = card.int8_peak if form in ("E1", "E2") else card.bf16_peak
+    w = dequant_bf16(qt)
+    xb = pad_x_for(x.to(torch.bfloat16), qt)
+    lib = graph_ms(lambda: torch.matmul(xb, w))
+    nbytes = form_bytes(x, qt)
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=card.bound_ms(nbytes, ops, peak),
+                bound_by="bytes" if nbytes / card.bw >= ops / peak else "operations",
+                library_ms=lib)
+
+
+def act_form_checks(card):
+    """E1-E4 at full width against their plain versions (check_form), then
+    timed: E1 on BitNet-3B's three linears (ternary weights, int8 x) at
+    FORM_ROWS["E1"] rows, and one scale row with bf16 x (E2 through
+    as_grouped) at 1 and 64; E2, E3 and E4 on Llama-2-7B's three at bits 2
+    and 4, g128 (bf16 x), E2 also at ags 32 on 4096 x 4096 and with int8 x
+    at 1 and 64 rows.  -> (check rows, per-form records of the timed calls
+    summed over FORM_TIMED's rows on the three shapes, bits 2; the largest
+    error by form)."""
+    import torch
+    gen = torch.Generator(device=card.dev)
+    gen.manual_seed(19)
+    rows, worst = [], collections.defaultdict(float)
+    timed = {f: collections.defaultdict(float) for f in FORM_ROWS}
+    # each form's summed bound ms by what bounds it (bytes, operations)
+    bound_by = {f: collections.defaultdict(float) for f in FORM_ROWS}
+
+    def x_for(K, N, int8=False):
+        if int8:
+            return torch.randint(-127, 128, (N, K), generator=gen, device=card.dev,
+                                 dtype=torch.int8)
+        return torch.randn((N, K), generator=gen, device=card.dev).to(torch.bfloat16)
+
+    def run(form, label, qt, N, int8=False, time_it=False, **kw):
+        x = x_for(qt.kdim, N, int8)
+        row = check_form(card, form, label, x, qt, **kw)
+        rows.append(row)
+        worst[form] = max(worst[form], row["max_abs_err"])
+        if time_it:
+            t = time_form(card, form, x, qt)
+            row.update(t)
+            bound_by[form][t["bound_by"]] += t["bound_ms"]
+            for k in ("ms", "plain_ms", "bound_ms", "library_ms"):
+                timed[form][k] += t[k]
+
+    for K, M in TOOLS_BITNET:
+        qt = wa8_qt_on_card(gen, K, M, card.dev)
+        for N in FORM_ROWS["E1"]:
+            run("E1", f"bitnet {K}x{M}", qt, N, int8=True, time_it=N in FORM_TIMED["E1"])
+        for N in (1, 64):
+            run("E2", f"bitnet {K}x{M} one scale row", qt, N)
+        del qt
+    for bits in (2, 4):
+        for K, M in TOOLS_LLAMA:
+            qt = rand_qt_on_card(gen, K, M, bits, 128, card.dev)
+            label = f"llama-2-7b {K}x{M}"
+            for form in ("E2", "E3", "E4"):
+                for N in FORM_ROWS[form]:
+                    run(form, label, qt, N, time_it=bits == 2 and N in FORM_TIMED[form])
+            for N in (1, 64):
+                run("E2", label + " int8 x", qt, N, int8=True)
+            if (K, M) == (4096, 4096):
+                for N in (1, 64):
+                    run("E2", label + " ags 32", qt, N, act_gs=32)
+            del qt
+            torch.cuda.empty_cache()
+    records = {f: dict(timed[f], bound_by=max(bound_by[f], key=bound_by[f].get))
+               for f in FORM_ROWS}
+    return rows, records, dict(worst)
+
+
+# the CLI's checkpoint: BitNet-3B at full width, its depth cut to this many
+# of its 26 layers (the subcommands' load, prefill and steps scale with it)
+TOOLS_CKPT_LAYERS = 4
+# the gate rows of tools/parity.py run on the card, at scaled(8)
+TOOLS_PARITY = ("bitnet-3b-w1.58", "llama-2-7b-w2")
+
+
+def tools_run(card, tmp):
+    """The port's tools in-process on the card (the phase's main run: E1-E4
+    are counted here; profile and autotune run with --min-work 0, so their
+    timed chains keep --iters calls and the counts are the same in every
+    run): profile on Llama-2-7B's linears at N = 1, 256, 512
+    (act "auto": E2 and E4) and, with --act native, at 1 and 256 (E3), and
+    on BitNet-3B's at 1 and 256 (int8 x: E1), each CSV printed as a JSON
+    line; microbench; autotune on Llama-2-7B at N = 1 and 256 into a
+    temporary table, then one call of each tuned shape that reads the
+    table, held to its plain version bit for bit; parity on TOOLS_PARITY
+    at scaled(8), after every tensor's form is checked against what the
+    kernels take.  -> the seconds of each step."""
+    import os
+
+    import torch
+    from tmac_tpu_torch.models.config import get_preset
+    from tmac_tpu_torch.models.llama import init_params
+    from tmac_tpu_torch.ops.cuda.qgemm_grouped_kernel import weights_form_error
+    from tmac_tpu_torch.ops.qgemm import QuantizedTensor, kernel_for, route
+    from tmac_tpu_torch.ops import tune_table
+    from tmac_tpu_torch.tools import autotune, microbench, parity, profile_kernels
+    seconds = {}
+
+    def step(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        seconds[name] = round(time.perf_counter() - t0, 3)
+        return out
+
+    for tag, preset, ns, act in (("llama-2-7b", "llama-2-7b", ("1", "256", "512"), "auto"),
+                                 ("llama-2-7b native", "llama-2-7b", ("1", "256"), "native"),
+                                 ("bitnet-3b", "bitnet-3b", ("1", "256"), "auto")):
+        out = os.path.join(tmp, "profile.csv")
+        rows = step("profile " + tag, lambda: profile_kernels.main(
+            ["--preset", preset, "--n", *ns, "--act", act, "--iters", "10", "--min-work", "0",
+             "--out", out]))
+        n_rows = len(profile_kernels.SHAPE_PRESETS[preset]) * len(ns)
+        if len(rows) != n_rows:
+            raise AssertionError(f"profile {tag}: {len(rows)} rows of {n_rows}")
+        with open(out) as f:
+            say("tools_profile", preset=tag, card=card.name, nvidia_smi=card.smi,
+                csv=f.read().splitlines())
+    say("tools_microbench", card=card.name, nvidia_smi=card.smi,
+        rows=step("microbench", lambda: microbench.main([])))
+
+    table = os.path.join(tmp, "tune_table.json")
+    os.environ["TMAC_TORCH_TUNE_TABLE"] = table
+    tune_table.invalidate_cache()
+    try:
+        tuned = step("autotune", lambda: autotune.main(
+            ["--preset", "llama-2-7b", "--n", "1", "256", "--iters", "20", "--min-work", "0"]))
+        reads = []
+        cfg = get_preset("llama-2-7b")
+        for r in tuned:
+            qt = profile_kernels._weights(cfg.quant.bits, r["M"], r["K"], "w_fp",
+                                          cfg.quant.group_size, card.dev)
+            x = card.bf16(r["N"], r["K"])
+            got = kernel_for(qt, r["N"])(x, qt)
+            want = kernel_for(qt, r["N"], plain=True)(x, qt)
+            torch.cuda.synchronize()
+            kern = route(qt, r["N"])
+            reads.append(dict(K=r["K"], M=r["M"], N=r["N"], best=r["best"], kernel=kern,
+                              passed=autotune._gate(kern, got, want, x, qt)))
+            if not reads[-1]["passed"]:
+                raise AssertionError(f"tuned call {reads[-1]} fails its parity gate")
+        with open(table) as f:
+            say("tools_autotune", card=card.name, nvidia_smi=card.smi, rows=tuned,
+                reads=reads, table=json.load(f))
+    finally:
+        del os.environ["TMAC_TORCH_TUNE_TABLE"]
+        tune_table.invalidate_cache()
+
+    configs = [c for c in parity.GATE_CONFIGS if c[0] in TOOLS_PARITY]
+    for label, name, kw in configs:
+        params = init_params(get_preset(name, **kw).scaled(8), seed=0, device="cpu")
+        for li, layer in enumerate(params["layers"]):
+            for key, qt in layer.items():
+                if isinstance(qt, QuantizedTensor) and qt.scales.shape[0] > 1 and \
+                        weights_form_error(qt) is not None:
+                    raise AssertionError(f"parity {label} layer {li} {key}: "
+                                         f"{weights_form_error(qt)}")
+    rows = step("parity", lambda: parity.run_gate(configs, scale=8, device="cuda"))
+    say("tools_parity", card=card.name, nvidia_smi=card.smi, table=parity.format_table(rows),
+        rows=rows)
+    for r in rows:
+        if not (r["nmse"] < 2e-3 and r["layer_nmse_max"] < 2e-3
+                and r["agree_tie_aware"] == 1.0):
+            raise AssertionError(f"parity {r['preset']}: {r}")
+    return seconds
+
+
+def cli_run(card, tmp):
+    """The CLI in-process on a BitNet-3B checkpoint (full width,
+    TOOLS_CKPT_LAYERS layers, weights drawn on the card, saved with the
+    checkpoint writer): generate (16 tokens), ppl (two 256-token windows,
+    K3; its NLL equal to the plain versions' on the same model within
+    1e-6), score, bench-e2e and trace (a Chrome trace with device time).
+    -> the subcommands' outputs and seconds."""
+    import contextlib
+    import io
+    import os
+
+    import numpy as np
+    import torch
+    from tmac_tpu_torch.convert.checkpoint import save_checkpoint
+    from tmac_tpu_torch.models.config import get_preset
+    from tmac_tpu_torch.models.llama import Llama
+    from tmac_tpu_torch.runtime.perplexity import perplexity
+    from tmac_tpu_torch.tools import cli
+    cfg = dataclasses.replace(get_preset("bitnet-3b"), num_layers=TOOLS_CKPT_LAYERS)
+    params = params_on_card(cfg, 0, card.dev)
+    ckpt = os.path.join(tmp, "bitnet-3b")
+    t0 = time.perf_counter()
+    save_checkpoint(ckpt, cfg, params)
+    out = {"save_s": round(time.perf_counter() - t0, 3)}
+    stream = np.random.default_rng(0).integers(0, cfg.vocab_size, 512).astype(np.int32)
+    np.save(os.path.join(tmp, "toks.npy"), stream)
+
+    def run(*argv):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            cli.main(list(argv))
+        out[argv[0] + "_s"] = round(time.perf_counter() - t0, 3)
+        return buf.getvalue().strip().splitlines()
+
+    prompt = ",".join(str(t) for t in stream[:16])
+    out["generate"] = [int(t) for t in run("generate", "--ckpt", ckpt, "--prompt-ids", prompt,
+                                           "-n", "16")[-1].split(",")]
+    out["ppl"] = json.loads(run("ppl", "--ckpt", ckpt, "--tokens",
+                                os.path.join(tmp, "toks.npy"), "--window", "256")[-1])
+    out["score"] = json.loads(run("score", "--ckpt", ckpt, "--context-ids", prompt,
+                                  "--continuation-ids", "1,2,3;4")[-1])
+    out["bench_e2e"] = run("bench-e2e", "--ckpt", ckpt, "--prompt-len", "16",
+                           "--steps", "32")
+    out["trace"] = json.loads(run("trace", "--ckpt", ckpt, "--steps", "8", "--out",
+                                  os.path.join(tmp, "trace.json"))[-1])
+    with torch.no_grad():
+        plain = perplexity(Llama(cfg, params, plain=True), stream, window=256)
+    out["ppl_plain"] = plain
+    ok = (len(out["generate"]) == 16 and out["ppl"]["tokens"] == 510
+          and abs(out["ppl"]["nll"] - plain["nll"]) <= 1e-6 * plain["nll"]
+          and len(out["score"]) == 2 and float(out["bench_e2e"][1].split(",")[4]) > 0
+          and out["trace"]["events"] > 0)
+    if not ok:
+        raise AssertionError(f"the CLI on the checkpoint: {out}")
+    return out
+
+
+def tools_path(card):
+    """The phase: act_form_checks (E1-E4 against their plain versions at
+    full width, timed), then with every E form's count at 0 the tools'
+    run (tools_run), the counts read after it (each E form launched), then
+    the CLI on a checkpoint (cli_run).  -> the kernels line's E1-E4
+    records."""
+    import tempfile
+
+    import torch
+    t0 = time.perf_counter()
+    rows, records, worst = act_form_checks(card)
+    say("act_forms", card=card.name, nvidia_smi=card.smi, checks=rows, records=records,
+        max_abs_err=worst, s=round(time.perf_counter() - t0, 3))
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        zero_form_counts()
+        seconds = tools_run(card, tmp)
+        launches = form_counts()
+        if not all(launches.values()):
+            raise AssertionError(f"the tools' run launched no E form of {launches}")
+        t1 = time.perf_counter()
+        cli_out = cli_run(card, tmp)
+        seconds["cli"] = round(time.perf_counter() - t1, 3)
+    torch.cuda.empty_cache()
+    say("tools_path", card=card.name, nvidia_smi=card.smi, launches=launches, cli=cli_out,
+        seconds=seconds, s=round(time.perf_counter() - t0, 3))
+    replaces = "tmac_tpu/ops/pallas/qgemm_kernel.py:428"
+    return [dict(name=f"qgemm_pallas external form ({f})", path="tools", route="cuda",
+                 source=FORM_SOURCES[f], replaces=replaces, launches=launches[f],
+                 max_abs_err=worst[f], **records[f]) for f in FORM_ROWS]
 
 
 # the full run's timing sweeps start only while the run has spent less
@@ -5879,7 +6214,7 @@ def main() -> int:
                 mangled = ln.split("'")[1]
                 base = re.search(r"(act_quant_grouped|act_quant|expert_quant_token"
                                  r"|expert_quant|qgemm|decode_attention|k1_decode|k4_decode"
-                                 r"|k7_decode|k7_token|k3_wgmma|act_bf16|dequant_wgmma"
+                                 r"|k7_decode|k7_token|k3_wgmma|act_bf16|dequant_wgmma|k4_native"
                                  r"|group_mma|block)_kernel", mangled)
                 targs = template_args(mangled)
                 kernel = f"{base.group(0) if base else mangled}<{','.join(targs)}>"
@@ -5958,6 +6293,12 @@ def main() -> int:
         records = gguf_lowbit_path(card)
         print(json.dumps({"kernels": records}), flush=True)
         return 0
+    if sys.argv[1:] == ["--phase", "tools_path"]:
+        say("build", nvcc_s=round(build_s, 3), ptxas=ptxas,
+            nvcc_s_by_source={k: round(v, 3) for k, v in build.build_seconds.items()})
+        records = tools_path(card)
+        print(json.dumps({"kernels": records}), flush=True)
+        return 0
     if sys.argv[1:] == ["--phase", "qgemm_decode_sweep"]:
         say("build", nvcc_s=round(build_s, 3), ptxas=ptxas)
         say("qgemm_decode_sweep", card=card.name, nvidia_smi=card.smi,
@@ -5986,12 +6327,16 @@ def main() -> int:
     torch.cuda.empty_cache()
     records += mixtral_wa8_path(card)
     torch.cuda.empty_cache()
-    records += gguf_path(card)
+    records += gguf_path(card, GGUF_FULL_RUN_LAYERS)
     torch.cuda.empty_cache()
     records += per_channel_path(card)
     torch.cuda.empty_cache()
-    records += gguf_lowbit_path(card, LB_FULL_RUN_FORCED)
+    records += gguf_lowbit_path(card, LB_FULL_RUN_FORCED, LB_FULL_RUN_Q2K_LAYERS,
+                                LB_FULL_RUN_Q8_LAYERS)
     torch.cuda.empty_cache()
+    t_tools = time.perf_counter()
+    records += tools_path(card)
+    say("tools_path_s", s=round(time.perf_counter() - t_tools, 3))
     full_run_sweeps(card, t_all)
     say("record", unit="device ms per decode step of each path (bitnet-3b: "
         "105 K1 and 26 K2 launches, in the block mode 26 K10, 27 K1 and 26 "
@@ -6011,17 +6356,18 @@ def main() -> int:
         "chunks of 512 and 256; qwen2-7b: 112 K4L for 256 tokens; llama-2-7b ags 32: 64 K5 "
         "and 64 K4L (the ags form) for 768 tokens in chunks of 512 and 256; mixtral-8x7b "
         "w_a8: 577 K3 for 256 tokens; llama-3.1-8b-q4_k (path 11, f32 grouped scales, "
-        "16 layers): 64 K5 and 64 K4L for 600 tokens in chunks of 512 and 88, 64 K4, 1 K1 "
-        "and 16 K2 a step; mixtral-8x7b-q4_k at 2 layers: 4 K7, 4 K4, 2 K2 and 1 K1 a step; "
+        "8 layers): 32 K5 and 32 K4L for 600 tokens in chunks of 512 and 88, 32 K4, 1 K1 "
+        "and 8 K2 a step; mixtral-8x7b-q4_k at 2 layers: 4 K7, 4 K4, 2 K2 and 1 K1 a step; "
         "llama-3.1-8b w4a8 per channel (path 12): 258 K3 for 1024 tokens in chunks of "
-        "512, 129 K1 and 32 K2 a step; llama-3.1-8b-q2_k (path 13, gs 16): 256 K5 for 600 "
-        "tokens in chunks of 512 and 88 (each timed at its own rows), 128 K4, 1 K1 and "
-        "32 K2 a step; llama-3.1-8b-q8_0 "
-        "(path 14, bits 8, 16 layers): 64 K5 and 64 K4L for 600 tokens, 64 K4, 1 K1 and "
-        "16 K2 a step; mixtral-8x7b-q2_k at 2 layers (path 14b): 4 K5 and 32 K4 for 64 "
+        "512, 129 K1 and 32 K2 a step; llama-3.1-8b-q2_k (path 13, gs 16, 16 layers): 128 "
+        "K5 for 600 tokens in chunks of 512 and 88 (each timed at its own rows), 64 K4, 1 K1 "
+        "and 16 K2 a step; llama-3.1-8b-q8_0 "
+        "(path 14, bits 8, 8 layers): 32 K5 and 32 K4L for 600 tokens, 32 K4, 1 K1 and "
+        "8 K2 a step; mixtral-8x7b-q2_k at 2 layers (path 14b): 4 K5 and 32 K4 for 64 "
         "tokens, 4 K7, 4 K4, 2 K2 and 1 K1 a step; the form checks' records (K4L at gs 16, "
         "K4 and K4L at ags 16): ms over one layer's four linears, launches over the "
-        "checks); "
+        "checks; the tools' E1-E4 (tools_path): ms over the timed calls, launches over the "
+        "tools' run, whose timed chains keep their fixed lengths); "
         "launches: the wrappers' counts over each path's "
         "prefill and decode_loop, which calls a step's wrappers twice (its "
         "eager first step and the one capture) and replays the graph for "

@@ -84,7 +84,7 @@ def test_plain_ags_matches_pallas(bits, ags, N):
     x = rng.standard_normal((N, K)).astype(np.float32)
     want = _pallas(jnp.asarray(x, jnp.bfloat16), jqt, ags)
     xt = torch.from_numpy(x).to(torch.bfloat16)
-    got = qgemm(xt, qt, impl="fused", out_dtype=torch.float32, act_group_size=ags,
+    got = qgemm(xt, qt, impl="fused", act="fused", out_dtype=torch.float32, act_group_size=ags,
                 dispatch="chunk" if N >= 64 else None).numpy()
     np.testing.assert_array_equal(got, want)
     codes, xs, xsum = act_quant_grouped_plain(xt, qt, ags=ags)

@@ -140,7 +140,7 @@ def test_qgemm_torch_matches_qgemm_xla(bits, gs):
     else:        # f32 sums over the groups, in another order
         np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6 * np.abs(want).max())
     xf = rng.standard_normal((N, K)).astype(np.float32)
-    got = qgemm(torch.from_numpy(xf), t, impl="torch").numpy()
+    got = qgemm(torch.from_numpy(xf), t, impl="torch", act="fused").numpy()
     want = np.asarray(qgemm_xla(jnp.asarray(xf), j))
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5 * np.abs(want).max())
 
@@ -276,6 +276,10 @@ def test_ctypes_signatures_match_the_c_interfaces():
     # f32) right after the scales and sub
     assert c_args["tmac_group_gemm"] == 17
     assert c_args["tmac_qgemm_dequant"] == 14
+    # the native form (act="native", bf16 x): K4's kernel below 64 rows with
+    # the fold chunk, K4L's instance from 64 (no xs, no ags)
+    assert c_args["tmac_decode_native"] == 16
+    assert c_args["tmac_group_gemm_native"] == 15
     assert not {"tmac_qgemm", "tmac_group_dots", "tmac_group_fold"} & set(c_args)
     # K7: one entry for the k routed experts (prologue and K4's decode
     # matmul with the expert as grid.z); K10 with its scratch and grid

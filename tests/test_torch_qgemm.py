@@ -195,7 +195,7 @@ def test_wrapper_dispatch_and_limits():
     rng = np.random.default_rng(1)
     qt, _ = _pair(rng, 2, 256, (384,))
     x = torch.from_numpy(rng.standard_normal((2, 256)).astype(np.float32))
-    via_qgemm = qgemm(x, qt, out_dtype=torch.float32)   # auto -> fused
+    via_qgemm = qgemm(x, qt, out_dtype=torch.float32, act="fused")   # auto -> fused
     assert torch.equal(via_qgemm, qgemm_fused_plain(x, qt))
     w = rng.standard_normal((256, 128)).astype(np.float32)
     grouped = QuantizedTensor.from_float(w, 2, 64, device="cpu")
@@ -218,7 +218,7 @@ def test_wrapper_dispatch_and_limits():
         qgemm_fused(x64, qt)
     with pytest.raises(ValueError, match="K1"):
         qgemm_large_int(x, qt)
-    assert torch.equal(qgemm(x64, qt, out_dtype=torch.float32),
+    assert torch.equal(qgemm(x64, qt, out_dtype=torch.float32, act="fused"),
                        qgemm_large_int(x64, qt))
 
 
@@ -247,8 +247,8 @@ def test_auto_on_the_cpu_asks_the_functions_rule(form):
     takes = weights_form_error(qt) is None
     assert takes == (form in ("bf16_g64", "f32_g32", "bits8_g64"))
     want = (kernel_for(qt, 2, plain=True)(x, qt).to(torch.bfloat16) if takes
-            else qgemm(x, qt, impl="torch"))
-    assert torch.equal(qgemm(x, qt), want)
+            else qgemm(x, qt, impl="torch", act="fused"))
+    assert torch.equal(qgemm(x, qt, act="fused"), want)
 
 
 @pytest.mark.parametrize("case", ["grouped", "grouped_bits3", "grouped_bits8", "int8_x"])
@@ -275,6 +275,6 @@ def test_auto_off_the_cpu_takes_k1_or_raises(case):
         qt = QuantizedTensor.from_float(w, 2, device="cpu")
         x = x.to(torch.int8)
         want = "quantize float activations"
-    qgemm(x, qt)  # the CPU takes a plain version
+    qgemm(x, qt, act="fused")  # the CPU takes a plain version
     with pytest.raises(ValueError, match=want):
-        qgemm(x.to("meta"), qt.to("meta"))
+        qgemm(x.to("meta"), qt.to("meta"), act="fused")

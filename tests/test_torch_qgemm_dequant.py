@@ -148,7 +148,7 @@ def test_route_and_dispatch():
     with pytest.raises(ValueError):
         route(grouped, 384, "dense")
     x = torch.zeros((64, 512))
-    assert torch.equal(qgemm(x, grouped, dispatch="dequant", out_dtype=torch.float32),
+    assert torch.equal(qgemm(x, grouped, dispatch="dequant", out_dtype=torch.float32, act="fused"),
                        k45.qgemm_dequant_plain(x, grouped))
     with pytest.raises(ValueError):       # K5 takes grouped bf16 scales
         k45.qgemm_dequant(torch.zeros((64, 256)), per_tensor)

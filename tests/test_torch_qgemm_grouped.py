@@ -224,12 +224,12 @@ def test_grouped_route_at_384_rows_matches_pallas(bits):
     rt = torch.from_numpy(r).to(torch.bfloat16)
     want = _pallas(jnp.asarray(x, jnp.bfloat16), jqt,
                    residual=jnp.asarray(r, jnp.bfloat16))
-    got = qgemm(xt, qt, impl="fused", out_dtype=torch.float32, residual=rt)
+    got = qgemm(xt, qt, impl="fused", act="fused", out_dtype=torch.float32, residual=rt)
     assert nmse(want, got.numpy()) <= 1e-10
     assert torch.equal(apply_qlinear(xt[None], qt, residual=rt[None])[0],
                        got.to(torch.bfloat16))
     # dispatch="chunk" keeps K4's function, as in the reference
-    chunk = qgemm(xt, qt, impl="fused", out_dtype=torch.float32, residual=rt,
+    chunk = qgemm(xt, qt, impl="fused", act="fused", out_dtype=torch.float32, residual=rt,
                   dispatch="chunk")
     np.testing.assert_array_equal(
         chunk.numpy(), _pallas(jnp.asarray(x, jnp.bfloat16), jqt,
@@ -306,7 +306,7 @@ def test_fold_chunk_below_the_group_matches_pallas(bits, N):
     x = rng.standard_normal((N, K)).astype(np.float32)
     xt = torch.from_numpy(x).to(torch.bfloat16)
     want = _pallas(jnp.asarray(x, jnp.bfloat16), jqt)
-    got = qgemm(xt, qt, impl="fused", out_dtype=torch.float32).numpy()
+    got = qgemm(xt, qt, impl="fused", act="fused", out_dtype=torch.float32).numpy()
     if N >= 3 * GS:
         assert nmse(want, got) <= 1e-12
         return
@@ -321,7 +321,7 @@ def test_wrapper_dispatch_and_limits():
     rng = np.random.default_rng(3)
     qt, _ = _pair(rng, 2, 512, (256,))
     x = torch.from_numpy(rng.standard_normal((2, 512)).astype(np.float32))
-    assert torch.equal(qgemm(x, qt, out_dtype=torch.float32),  # auto -> K4
+    assert torch.equal(qgemm(x, qt, out_dtype=torch.float32, act="fused"),  # auto -> K4
                        qgemm_grouped_plain(x, qt))
     # grouped bits 8 and f32 scales: the function's forms, on the CPU the
     # plain version's (bits 8 the kernel lacks: check_kernel_form names it)

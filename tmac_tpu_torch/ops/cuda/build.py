@@ -29,7 +29,8 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "_build"
 SOURCES = ("qgemm_fused", "qgemm_grouped", "qgemm_grouped_large", "qgemm_grouped_large_f32",
-           "qgemm_expert", "flash_decode", "qgemm_large", "block_kernel")
+           "qgemm_grouped_large_native", "qgemm_expert", "flash_decode", "qgemm_large",
+           "block_kernel")
 # -Xptxas -v only reports each kernel's registers, shared memory and spills
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -50,7 +51,7 @@ def nvcc() -> str:
 
 def library_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    # a source that includes another (qgemm_grouped_large_f32.cu) and the headers
+    # a source that includes another (qgemm_grouped_large_f32.cu, _native.cu) and the headers
     src += b"".join((CSRC / f.decode()).read_bytes()
                     for f in re.findall(rb'#include "(\w+\.cu)"', src))
     src += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))

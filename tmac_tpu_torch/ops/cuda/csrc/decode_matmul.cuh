@@ -97,6 +97,11 @@
 //   gs 16 the fold, not the codes, bounds the kernel: with f32 factors a
 //   group's scale and zero point are 4 bits a weight against 2 bits of
 //   code (Q2_K), and an output's chain has Kp / 16 steps.
+// - K1's external-int8 form (EXT: int8 x from the caller, the reference's
+//   qgemm_pallas with int8 x and one scale row): no activation scale, and
+//   the epilogue fma(acc, scale, -(xsum * sub)) (+ residual), as the
+//   reference compiles its non-fused int32 route at any N; its own template
+//   instance, so the fused instances are unchanged.
 // - Grouped bits 8 (GGUF's Q8_0: signed codes, one a byte, P = 1): the
 //   bytes are the codes, an s8 x s8 dp4a; the flush's 4 values a token row
 //   are added by the lanes of row groups 0-3.
@@ -367,9 +372,10 @@ __device__ __forceinline__ float factor(float v) { return v; }
 // K7, K4 or K1 on the routed experts of a stack, one grid.z slice each;
 // STAGES: the ring's stages; AGS (with GROUPED): K4's ags form, a partial
 // and a step of the fold per activation group; SC (with GROUPED): the
-// group scales' and zero points' type, __nv_bfloat16 or float.
+// group scales' and zero points' type, __nv_bfloat16 or float; EXT (K1):
+// the external-int8 epilogue, no activation scale.
 template <int BITS, int NT, bool GROUPED, bool EXPERTS = false, int STAGES = kStages,
-          bool AGS = false, typename SC = __nv_bfloat16>
+          bool AGS = false, typename SC = __nv_bfloat16, bool EXT = false>
 __device__ __forceinline__ void decode_matmul(const Args& args) {
   constexpr int P = fields(BITS);
   constexpr int kStageAll = kStageBytes * planes(BITS);  // a stage's bytes
@@ -495,7 +501,7 @@ __device__ __forceinline__ void decode_matmul(const Args& args) {
     if (o < nout && n < nrows) {
       const size_t row = (size_t)(n0 + n);
       if (!GROUPED) {
-        e_xs[h] = __ldcg(a.xs + row);
+        if (!EXT) e_xs[h] = __ldcg(a.xs + row);
         e_xq[h] = __ldcg(a.xsum + row);
       }
       if (a.residual != nullptr)
@@ -666,7 +672,8 @@ __device__ __forceinline__ void decode_matmul(const Args& args) {
       int s = 0;
       for (int b = 0; b < ksplit; ++b) s += part0[(b * NT + n) * width + mm];
       const float zero_fold = -__fmul_rn(e_xq[h], e_sb[h]);
-      float v = __fmaf_rn(__fmul_rn((float)s, e_sc[h]), e_xs[h], zero_fold);
+      float v = EXT ? __fmaf_rn((float)s, e_sc[h], zero_fold)
+                    : __fmaf_rn(__fmul_rn((float)s, e_sc[h]), e_xs[h], zero_fold);
       if (a.residual != nullptr) v = __fadd_rn(v, e_res[h]);
       a.out[(size_t)(n0 + n) * a.Mp + m0 + s0 + mm] = v;
     }

@@ -133,25 +133,34 @@ __host__ __device__ constexpr int k1_stages() {
   return BITS == 3 ? 3 : tmac::decode::kStages;
 }
 
-template <int BITS, int NT>
+// EXT: the external-int8 form (int8 x from the caller; no activation
+// scale, the epilogue fma(acc, scale, -(xsum * sub))), its own instance
+template <int BITS, int NT, bool EXT>
 __global__ void __launch_bounds__(tmac::decode::kThreads, 2)
     k1_decode_kernel(const tmac::decode::Args a) {
-  tmac::decode::decode_matmul<BITS, NT, false, false, k1_stages<BITS>()>(a);
+  tmac::decode::decode_matmul<BITS, NT, false, false, k1_stages<BITS>(), false,
+                              __nv_bfloat16, EXT>(a);
 }
 
 // NT: 1 token row a block, or 4 (2 at 8 slots a row, bits 1 and 3, whose
 // int32 sums take 32 registers a token row: qgemm_kernel.decode_nt)
-template <int BITS>
+template <int BITS, bool EXT>
 int launch_decode(const tmac::decode::Args& a, int ksplit, int nt,
                   cudaStream_t stream) {
   constexpr int P = tmac::decode::fields(BITS), S = k1_stages<BITS>();
   constexpr int W = tmac::decode::planes(BITS), NT = P == 8 ? 2 : 4;
   if (nt == 1) {
     const tmac::decode::Layout L(P, 1, false, a.nunits, a.unit_rows, ksplit, 1, S, W);
-    return tmac::decode::launch(k1_decode_kernel<BITS, 1>, a, ksplit, 1, L.total, stream);
+    return tmac::decode::launch(k1_decode_kernel<BITS, 1, EXT>, a, ksplit, 1, L.total, stream);
   }
   const tmac::decode::Layout L(P, NT, false, a.nunits, a.unit_rows, ksplit, 1, S, W);
-  return tmac::decode::launch(k1_decode_kernel<BITS, NT>, a, ksplit, NT, L.total, stream);
+  return tmac::decode::launch(k1_decode_kernel<BITS, NT, EXT>, a, ksplit, NT, L.total, stream);
+}
+
+template <int BITS>
+int launch_decode_form(const tmac::decode::Args& a, int ksplit, int nt, cudaStream_t stream) {
+  return a.xs == nullptr ? launch_decode<BITS, true>(a, ksplit, nt, stream)
+                         : launch_decode<BITS, false>(a, ksplit, nt, stream);
 }
 
 }  // namespace
@@ -184,6 +193,8 @@ extern "C" int tmac_act_quant(const void* x, int N, int x_cols, int K, int Kp,
 // off), packed (Kp * bits / 8, Mp) uint8 (bits 3: the lo plane (Kp / 4, Mp)
 // and packed_hi, the hi plane (Kp / 8, Mp); else packed_hi null), scales/sub
 // (Mp,) f32 (per column), residual (N, Mp) bf16 or null -> out (N, Mp) f32.
+// xs null: the external-int8 form (the caller's int8 x, xsum its bare code
+// sum; out = fma(acc, scale, -(xsum * sub)) (+ residual)).
 // 1 <= N < 64; bits 1 to 4 or 8; Kp a multiple of 4 * P (P = 8 at bits 1
 // and 3, 8 / bits at 2 and 4, 1 at 8); Mp of 128; a cluster of ksplit
 // (1-8) blocks along K, nt (1, or 4; 2 at bits 1 and 3) token rows a block.
@@ -220,10 +231,10 @@ extern "C" int tmac_decode_qgemm(const void* codes, const float* xs,
   a.nunits = (a.Kb + a.unit_rows - 1) / a.unit_rows;
   cudaStream_t s = (cudaStream_t)stream;
   switch (bits) {
-    case 1: return launch_decode<1>(a, ksplit, nt, s);
-    case 2: return launch_decode<2>(a, ksplit, nt, s);
-    case 3: return launch_decode<3>(a, ksplit, nt, s);
-    case 4: return launch_decode<4>(a, ksplit, nt, s);
-    default: return launch_decode<8>(a, ksplit, nt, s);
+    case 1: return launch_decode_form<1>(a, ksplit, nt, s);
+    case 2: return launch_decode_form<2>(a, ksplit, nt, s);
+    case 3: return launch_decode_form<3>(a, ksplit, nt, s);
+    case 4: return launch_decode_form<4>(a, ksplit, nt, s);
+    default: return launch_decode_form<8>(a, ksplit, nt, s);
   }
 }

@@ -72,6 +72,23 @@
 // round): the decode matmul, K4L and their launches take SC = float in a
 // template instance of their own (scale_f32 in the C interfaces), so the
 // bf16 instances are unchanged; the factors are read as stored.
+//
+// The native form below 64 rows (k4_native_kernel: the reference's
+// act="native", bf16 x kept as it is, a float dot a fold chunk, pinned to
+// the chunk path; any scale rows, the per-tensor ones too): a block of 256
+// threads takes 64 output columns (16 words of 4 packed columns) and NT
+// token rows, 16 k lanes a column word.  It walks the fold chunks in k
+// order: chunk c is field j = c * chunk / Kb of chunk-many packed rows, so
+// each packed byte is read once a field, from L2 after the first; a lane
+// multiplies each of its rows' 4 codes (exact as floats) by the bf16 x of
+// that k in f32 (every product exact), the 16 lanes' sums meet through a
+// shuffle and shared memory in a fixed order, and the owner of an output
+// folds the chunk with the reference's chain (acc = fma(p_0, s_0, p_1 *
+// s_1), then fma(p_c, s_c, acc); p_0 * s_0 alone for one chunk).  Then
+// z = fma(xsum_g, sub_g, z) over the groups and out = acc - z (+ residual).
+// Only the sum order inside a chunk differs from the reference's.  What
+// bounds it: two barriers a fold chunk and a block's 64 columns; a simple
+// form that is right, not yet a fast one.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -201,6 +218,155 @@ int launch_decode_bits(const tmac::decode::Args& a, int bits, int ksplit, int nt
   }
 }
 
+// ---------------------------------------------------------------------------
+// K4's native form (E3), below 64 rows
+// ---------------------------------------------------------------------------
+
+constexpr int kNatCols = 64;                                  // output columns of a block
+constexpr int kNatLanes = 16;                                 // k lanes a column word
+constexpr int kNatThreads = kNatCols / 4 * kNatLanes;         // 256
+constexpr int kNatWarps = kNatThreads / 32;
+
+// the 4 codes of k at packed columns col .. col + 3, as floats: field
+// k / Kb of packed row k % Kb (bits 3: + 4 * bit k / Kh of hi row k % Kh;
+// bits 8: the signed byte of row k)
+template <int BITS>
+__device__ __forceinline__ void native_codes(const uint8_t* __restrict__ packed,
+                                             const uint8_t* __restrict__ packed_hi, int k,
+                                             int Kb, int Kh, int Mp, int col, float w[4]) {
+  const uint32_t word = __ldg(reinterpret_cast<const uint32_t*>(packed + (size_t)(k % Kb) * Mp + col));
+  if (BITS == 8) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) w[e] = (float)(int8_t)(word >> (8 * e));
+    return;
+  }
+  constexpr int LB = BITS == 3 ? 2 : BITS;
+  constexpr uint32_t kMask = LB == 1 ? 0x01010101u : LB == 2 ? 0x03030303u : 0x0F0F0F0Fu;
+  uint32_t v = (word >> (LB * (k / Kb))) & kMask;
+  if (BITS == 3) {
+    const uint32_t h =
+        __ldg(reinterpret_cast<const uint32_t*>(packed_hi + (size_t)(k % Kh) * Mp + col));
+    v |= ((h >> (k / Kh)) & 0x01010101u) << 2;
+  }
+#pragma unroll
+  for (int e = 0; e < 4; ++e) w[e] = (float)((v >> (8 * e)) & 0xFF);
+}
+
+// Block: columns [64 * blockIdx.x, +64), token rows [NT * blockIdx.y, +NT).
+// Thread: column word cw = lane % 16 (columns 4 cw .. +3 of the block), k
+// lane 2 * warp + lane / 16; after a chunk's sums meet, thread t < NT * 64
+// owns output (row t / 64, column t % 64).
+template <int BITS, int NT, typename SC>
+__global__ void __launch_bounds__(kNatThreads) k4_native_kernel(
+    const __nv_bfloat16* __restrict__ x, const float* __restrict__ xsum, int N, int Kp, int gs,
+    int chunk, const uint8_t* __restrict__ packed, const uint8_t* __restrict__ packed_hi,
+    int Mp, const SC* __restrict__ scales, const SC* __restrict__ sub,
+    const __nv_bfloat16* __restrict__ residual, float* __restrict__ out) {
+  __shared__ float red[kNatWarps][NT * kNatCols];
+  constexpr int P = BITS == 8 ? 1 : BITS == 3 ? 4 : 8 / BITS;  // fields of a (lo plane) byte
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int cw = lane & 15, kl = 2 * warp + (lane >> 4);
+  const int m0 = blockIdx.x * kNatCols, n0 = blockIdx.y * NT;
+  const int nrows = min(NT, N - n0);
+  const int Kb = Kp / P, Kh = Kp / 8, C = Kp / chunk;
+  const bool owner = tid < NT * kNatCols;
+  const int on = tid / kNatCols, om = tid % kNatCols;
+  float acc = 0.f, p0 = 0.f, s0 = 0.f;
+  for (int c = 0; c < C; ++c) {
+    const int k0 = c * chunk;
+    float part[NT][4];
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) part[n][e] = 0.f;
+    for (int i = kl; i < chunk; i += kNatLanes) {
+      const int k = k0 + i;
+      float w[4];
+      native_codes<BITS>(packed, packed_hi, k, Kb, Kh, Mp, m0 + 4 * cw, w);
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        const float xv = n < nrows ? __bfloat162float(x[(size_t)(n0 + n) * Kp + k]) : 0.f;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) part[n][e] = __fmaf_rn(xv, w[e], part[n][e]);
+      }
+    }
+    // k lane 2w + 1 (lanes 16-31) into 2w (lanes 0-15), then the warps in order
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        part[n][e] = __fadd_rn(part[n][e], __shfl_down_sync(0xffffffffu, part[n][e], 16));
+    if (lane < 16) {
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) red[warp][n * kNatCols + 4 * cw + e] = part[n][e];
+    }
+    __syncthreads();
+    if (owner) {
+      float p = red[0][tid];
+#pragma unroll
+      for (int w = 1; w < kNatWarps; ++w) p = __fadd_rn(p, red[w][tid]);
+      const float sc = tmac::decode::factor(scales[(size_t)(k0 / gs) * Mp + m0 + om]);
+      if (c == 0) {
+        p0 = p;
+        s0 = sc;
+        acc = __fmul_rn(p, sc);
+      } else if (c == 1) {
+        acc = __fmaf_rn(p0, s0, __fmul_rn(p, sc));
+      } else {
+        acc = __fmaf_rn(p, sc, acc);
+      }
+    }
+    __syncthreads();  // red is read before the next chunk's sums land
+  }
+  if (owner && on < nrows) {
+    const int n = n0 + on, m = m0 + om, G = Kp / gs;
+    float z = 0.f;
+    for (int g = 0; g < G; ++g)
+      z = __fmaf_rn(xsum[(size_t)n * G + g], tmac::decode::factor(sub[(size_t)g * Mp + m]), z);
+    float o = __fsub_rn(acc, z);
+    if (residual != nullptr) o = __fadd_rn(o, __bfloat162float(residual[(size_t)n * Mp + m]));
+    out[(size_t)n * Mp + m] = o;
+  }
+}
+
+template <int BITS, typename SC>
+int launch_native(const __nv_bfloat16* x, const float* xsum, int N, int Kp, int gs, int chunk,
+                  const uint8_t* packed, const uint8_t* packed_hi, int Mp, const void* scales,
+                  const void* sub, const __nv_bfloat16* residual, float* out,
+                  cudaStream_t stream) {
+  const SC* sc = static_cast<const SC*>(scales);
+  const SC* sb = static_cast<const SC*>(sub);
+  if (N == 1) {
+    k4_native_kernel<BITS, 1, SC><<<dim3(Mp / kNatCols, 1), kNatThreads, 0, stream>>>(
+        x, xsum, N, Kp, gs, chunk, packed, packed_hi, Mp, sc, sb, residual, out);
+  } else {
+    k4_native_kernel<BITS, 4, SC><<<dim3(Mp / kNatCols, (N + 3) / 4), kNatThreads, 0, stream>>>(
+        x, xsum, N, Kp, gs, chunk, packed, packed_hi, Mp, sc, sb, residual, out);
+  }
+  return (int)cudaGetLastError();
+}
+
+template <typename SC>
+int launch_native_bits(int bits, const __nv_bfloat16* x, const float* xsum, int N, int Kp,
+                       int gs, int chunk, const uint8_t* packed, const uint8_t* packed_hi,
+                       int Mp, const void* scales, const void* sub,
+                       const __nv_bfloat16* residual, float* out, cudaStream_t stream) {
+  switch (bits) {
+    case 1: return launch_native<1, SC>(x, xsum, N, Kp, gs, chunk, packed, packed_hi, Mp,
+                                        scales, sub, residual, out, stream);
+    case 2: return launch_native<2, SC>(x, xsum, N, Kp, gs, chunk, packed, packed_hi, Mp,
+                                        scales, sub, residual, out, stream);
+    case 3: return launch_native<3, SC>(x, xsum, N, Kp, gs, chunk, packed, packed_hi, Mp,
+                                        scales, sub, residual, out, stream);
+    case 4: return launch_native<4, SC>(x, xsum, N, Kp, gs, chunk, packed, packed_hi, Mp,
+                                        scales, sub, residual, out, stream);
+    default: return launch_native<8, SC>(x, xsum, N, Kp, gs, chunk, packed, packed_hi, Mp,
+                                         scales, sub, residual, out, stream);
+  }
+}
+
 }  // namespace
 
 // Prologue: x (N, x_cols) bf16 -> codes (N, Kp) int8 in natural k order,
@@ -284,4 +450,34 @@ extern "C" int tmac_decode_group_gemm(const void* codes, const float* xs,
                : launch_decode_bits<false, float>(a, bits, ksplit, nt, s);
   return ags ? launch_decode_bits<true, __nv_bfloat16>(a, bits, ksplit, nt, s)
              : launch_decode_bits<false, __nv_bfloat16>(a, bits, ksplit, nt, s);
+}
+
+// K4's native form (E3) below 64 rows: x (N, Kp) bf16 (the caller's, its
+// K padding zero), xsum (N, G) f32 (its f32 sums a scale group of gs k;
+// G = Kp / gs, 1 for one scale row), packed as tmac_decode_group_gemm's,
+// scales and sub (G, Mp) bf16 (scale_f32 0) or f32 (1), residual (N, Mp)
+// bf16 or null -> out (N, Mp) f32.  chunk: the fold's chunk (a multiple of
+// 16 dividing gs and Kp / P; the reference's min(gs, Kp / P), at bits 3
+// also at most Kp / 8).  1 <= N < 64; Mp a multiple of 64.
+extern "C" int tmac_decode_native(const void* x, const float* xsum, int N, int Kp, int gs,
+                                  int chunk, int bits, const void* packed,
+                                  const void* packed_hi, int Mp, const void* scales,
+                                  const void* sub, int scale_f32, const void* residual,
+                                  float* out, void* stream) {
+  const int P = bits == 8 ? 1 : bits == 3 ? 4 : (bits >= 1 && bits <= 4 ? 8 / bits : 0);
+  if (N <= 0 || N >= kLargeN || P == 0 || (bits == 3) != (packed_hi != nullptr) ||
+      Mp % kNatCols != 0 || gs <= 0 || Kp % gs != 0 || chunk < 16 || chunk % 16 != 0 ||
+      (Kp / P) % chunk != 0 || (gs % chunk != 0 && chunk % gs != 0) ||
+      (bits == 3 && (Kp / 8) % chunk != 0))
+    return (int)cudaErrorInvalidValue;
+  const __nv_bfloat16* xb = static_cast<const __nv_bfloat16*>(x);
+  const uint8_t* pk = static_cast<const uint8_t*>(packed);
+  const uint8_t* ph = static_cast<const uint8_t*>(packed_hi);
+  const __nv_bfloat16* res = static_cast<const __nv_bfloat16*>(residual);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (scale_f32)
+    return launch_native_bits<float>(bits, xb, xsum, N, Kp, gs, chunk, pk, ph, Mp, scales, sub,
+                                     res, out, s);
+  return launch_native_bits<__nv_bfloat16>(bits, xb, xsum, N, Kp, gs, chunk, pk, ph, Mp, scales,
+                                           sub, res, out, s);
 }

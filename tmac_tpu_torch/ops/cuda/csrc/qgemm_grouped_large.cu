@@ -89,6 +89,21 @@
 // Bits 8 (GGUF's Q8_0, P = 1): the packed bytes are the signed codes, the
 // B registers as read, with no field to mask.
 //
+// The native form (NATIVE: the reference's act="native", float x kept in
+// its dtype, a float dot a fold chunk, pinned to the chunk path): the A
+// tile holds the caller's bf16 x (2 bytes a k), each 16 k one
+// mma.sync m16n8k16 bf16 with f32 accumulators.  Every code is an integer
+// below 256 in magnitude, so its bf16 is exact, and so is every product;
+// only the sums' order differs from the reference's.  The B words are the
+// int8 form's (4 consecutive k of a column, tmac::transpose4); the 16 k of
+// an m16n8k16 are permuted so that thread tq's hardware k {2tq, 2tq + 1,
+// 2tq + 8, 2tq + 9} are the logical k 4tq .. 4tq + 3, whose 4 bf16 of x are
+// 8 consecutive bytes of its A row.  The fold's unit is a weight group with
+// no activation scale (x_g = scale_g), xsum (N, G) is the caller's f32 sums
+// of x per group.  A third library (qgemm_grouped_large_native.cu: this
+// source with TMAC_K4L_NATIVE set) holds these instances, both scale
+// dtypes, behind tmac_group_gemm_native.
+//
 // This source builds two libraries: the bf16-scale instances here, and,
 // compiled again with TMAC_K4L_F32 set (qgemm_grouped_large_f32.cu), the
 // f32 ones, so that the two halves of K4L's 60 template instances compile
@@ -98,12 +113,18 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "act_prologue.cuh"
 #include "decode_matmul.cuh"
 
 // 1: this library's instances take f32 scales and zero points; 0: bf16
 #ifndef TMAC_K4L_F32
 #define TMAC_K4L_F32 0
+#endif
+// 1: this library holds the native (bf16 x) instances, both scale dtypes
+#ifndef TMAC_K4L_NATIVE
+#define TMAC_K4L_NATIVE 0
 #endif
 
 namespace {
@@ -118,10 +139,11 @@ constexpr int kLThreads = 128;  // 4 warps of 64 rows x 32 columns
 constexpr int kLStages = 4;
 
 // KT codes (and packed rows) a depth step; at bits 3 a second B tile, of
-// KT hi plane rows, follows the lo plane's
-template <int KT, int BITS>
+// KT hi plane rows, follows the lo plane's.  NATIVE: bf16 x, 2 bytes a k
+template <int KT, int BITS, bool NATIVE = false>
 struct K4LTile {
-  static constexpr int kAStride = KT + 16;  // bytes a codes row: conflict-free fragment reads
+  static constexpr int kEB = NATIVE ? 2 : 1;  // bytes of A a k
+  static constexpr int kAStride = KT * kEB + 16;  // bytes an A row: conflict-free fragment reads
   static constexpr int kABytes = kLBN * kAStride;
   static constexpr int kBBytes = KT * kLBM;  // KT packed rows of 128 swizzled bytes
   static constexpr int kStage = kABytes + kBBytes * (BITS == 3 ? 2 : 1);
@@ -150,6 +172,29 @@ __device__ __forceinline__ void mma_s8_k16(int acc[4], uint32_t a0, uint32_t a1,
       : "r"(a0), "r"(a1), "r"(b));
 }
 
+// m16n8k16 bf16 x bf16 + f32 (the native form)
+__device__ __forceinline__ void mma_bf16(float acc[4], uint32_t a0, uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(acc[0]), "+f"(acc[1]), "+f"(acc[2]), "+f"(acc[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// two codes (bytes i, i + 1 of a B word; s8 at bits 8, else unsigned) as
+// a bf16x2 register, exactly: 1.5 * 2^23 + v carries v in its low
+// mantissa bits, and every |v| < 256 has an exact bf16
+template <bool SIGNED>
+__device__ __forceinline__ uint32_t codes_bf16x2(uint32_t w, int i) {
+  const int v0 = SIGNED ? (int)(int8_t)(w >> (8 * i)) : (int)((w >> (8 * i)) & 0xFF);
+  const int v1 = SIGNED ? (int)(int8_t)(w >> (8 * i + 8)) : (int)((w >> (8 * i + 8)) & 0xFF);
+  const __nv_bfloat162 h = __floats2bfloat162_rn(
+      __fsub_rn(__int_as_float(0x4B400000 + v0), 12582912.0f),
+      __fsub_rn(__int_as_float(0x4B400000 + v1), 12582912.0f));
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
 __device__ __forceinline__ void ldmatrix_x4(uint32_t r[4], const void* p) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(p);
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
@@ -163,6 +208,7 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t r[4], const void* p) {
 __device__ __forceinline__ float exact_float(int p) {
   return __fsub_rn(__int_as_float(0x4B400000 + p), 12582912.0f);
 }
+__device__ __forceinline__ float exact_float(float p) { return p; }  // the native form's sums
 
 // 16 bytes global -> shared, asynchronously; zero-filled when !full
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool full) {
@@ -228,16 +274,19 @@ __host__ __device__ constexpr int z_slot_bytes() { return kRowBytes + kLBM * (in
 // AGS: the fold's unit is an activation group of ags k (xs (N, Ga)), each
 // scaled by its weight group's column factors.  SC: the scales' and zero
 // points' type (__nv_bfloat16, or float: GGUF's block scales).  U16 (KT =
-// 32): fold units of 16 k, two a step.
-template <int BITS, int KT, bool AGS, typename SC, bool U16 = false>
+// 32): fold units of 16 k, two a step.  NATIVE: codes is the caller's bf16
+// x (N, Kp), xs is not read (no activation scale), the sums are f32.
+template <int BITS, int KT, bool AGS, typename SC, bool U16 = false, bool NATIVE = false>
 __global__ void __launch_bounds__(kLThreads) group_mma_kernel(
     const int8_t* __restrict__ codes, const float* __restrict__ xs,
     const float* __restrict__ xsum, int N, int Kp, int gs,
     const uint8_t* __restrict__ packed, const uint8_t* __restrict__ packed_hi, int Mp,
     const SC* __restrict__ scales, const SC* __restrict__ sub,
     const __nv_bfloat16* __restrict__ residual, float* __restrict__ out, int ags) {
-  using T = K4LTile<KT, BITS>;
+  using T = K4LTile<KT, BITS, NATIVE>;
+  using Acc = typename std::conditional<NATIVE, float, int>::type;
   static_assert(!U16 || KT == 32, "16-k fold units take KT = 32");
+  static_assert(!(NATIVE && AGS), "the native form has no activation groups");
   constexpr int P = BITS == 8 ? 1 : BITS == 3 ? 4 : 8 / BITS;  // fields of a (lo plane) byte
   constexpr uint32_t kMask = BITS == 8   ? 0xFFFFFFFFu
                              : BITS == 1 ? 0x01010101u
@@ -276,7 +325,7 @@ __global__ void __launch_bounds__(kLThreads) group_mma_kernel(
   auto load_factors = [&](int b) {
     uint8_t* blk = fac + (b % kBlockSlots) * kBlock;
     const int f0 = b * fu, nu = min(fu, Gf - f0);
-    if (tid < kLBN) {
+    if (!NATIVE && tid < kLBN) {
       const float* src = xs + (size_t)min(n0 + tid, N - 1) * Gf + f0;
       if (rows16) {
         cp_async16(blk + 16 * tid, src, true);
@@ -297,11 +346,13 @@ __global__ void __launch_bounds__(kLThreads) group_mma_kernel(
   auto load = [&](int t, int slot) {
     uint8_t* As = smem + slot * T::kStage;
     uint8_t* Bs = As + T::kABytes;
-    for (int i = tid; i < kLBN * KT / 16; i += kLThreads) {
-      const int row = i / (KT / 16), q = i % (KT / 16);
+    const uint8_t* a_src = reinterpret_cast<const uint8_t*>(codes);
+    constexpr int kAChunks = KT * T::kEB / 16;  // 16-byte copies of an A row's step
+    for (int i = tid; i < kLBN * kAChunks; i += kLThreads) {
+      const int row = i / kAChunks, q = i % kAChunks;
       const bool ok = n0 + row < N;
       cp_async16(As + row * T::kAStride + q * 16,
-                 codes + (size_t)(ok ? n0 + row : 0) * Kp + t * KT + q * 16, ok);
+                 a_src + ((size_t)(ok ? n0 + row : 0) * Kp + t * KT) * T::kEB + q * 16, ok);
     }
     const int rbase = (t * KT) % Kb;
     for (int i = tid; i < KT * (kLBM / 16); i += kLThreads) {
@@ -319,7 +370,7 @@ __global__ void __launch_bounds__(kLThreads) group_mma_kernel(
     }
   };
 
-  int acc[4][4][4];
+  Acc acc[4][4][4];
   float facc[4][4][4];
 #pragma unroll
   for (int mt = 0; mt < 4; ++mt)
@@ -336,11 +387,14 @@ __global__ void __launch_bounds__(kLThreads) group_mma_kernel(
     const int hbit = (t * KT) / Kh;  // bits 3: the hi plane's bit
     {
       // A: one ldmatrix.x4 a m16 tile (its four 8 x 16-byte blocks are the
-      // m16n8k32 A registers: rows +0 / +8, k bytes +0 / +16)
+      // m16n8k32 A registers: rows +0 / +8, k bytes +0 / +16); the native
+      // form reads its A per 16 k (native_a)
+      if (!NATIVE) {
 #pragma unroll
-      for (int mt = 0; mt < 4; ++mt)
-        ldmatrix_x4(a[mt], As + (mt * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * T::kAStride +
-                               ks * 32 + (lane >> 4) * 16);
+        for (int mt = 0; mt < 4; ++mt)
+          ldmatrix_x4(a[mt], As + (mt * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * T::kAStride +
+                                 ks * 32 + (lane >> 4) * 16);
+      }
       // b[h][c]: B register h (k + 16 h) of n8 tile c
       const int word = (wn >> 2) + gq;  // columns 4 * word .. +3
 #pragma unroll
@@ -369,6 +423,33 @@ __global__ void __launch_bounds__(kLThreads) group_mma_kernel(
     }
   };
 
+  // the native form's A registers of the 16 k (16 hh .. +16) of k-slice ks
+  // of step t for m16 tile mt: rows gq and gq + 8, logical k 4 tq .. +3 (8
+  // bytes of bf16 x), which are thread tq's hardware k 2 tq, 2 tq + 1 (a0,
+  // a1) and 2 tq + 8, 2 tq + 9 (a2, a3)
+  auto native_a = [&](int t, int ks, int hh, int mt, uint32_t (&a)[4]) {
+    const uint8_t* As = smem + (t % kLStages) * T::kStage;
+    const int kb = (ks * 32 + hh * 16 + 4 * tq) * 2;
+    const uint2 lo = *reinterpret_cast<const uint2*>(As + (mt * 16 + gq) * T::kAStride + kb);
+    const uint2 hi = *reinterpret_cast<const uint2*>(As + (mt * 16 + gq + 8) * T::kAStride + kb);
+    a[0] = lo.x;
+    a[1] = hi.x;
+    a[2] = lo.y;
+    a[3] = hi.y;
+  };
+  // the products of 16 k (half hh of a k-slice's B registers) into acc
+  auto native_mma = [&](int t, int ks, int hh, const uint32_t (&b)[2][4]) {
+#pragma unroll
+    for (int mt = 0; mt < 4; ++mt) {
+      uint32_t a[4];
+      native_a(t, ks, hh, mt, a);
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        mma_bf16(reinterpret_cast<float*>(acc[mt][c]), a[0], a[1], a[2], a[3],
+                 codes_bf16x2<BITS == 8>(b[hh][c], 0), codes_bf16x2<BITS == 8>(b[hh][c], 2));
+    }
+  };
+
   // one depth step t: wait for its stage, start the load of step
   // t + kLStages - 1, run before() (reads of shared memory that the
   // barrier has made safe), add its products into acc
@@ -382,10 +463,16 @@ __global__ void __launch_bounds__(kLThreads) group_mma_kernel(
     for (int ks = 0; ks < KT / 32; ++ks) {
       uint32_t a[4][4], b[2][4];
       fragments(t, ks, a, b);
+      if constexpr (NATIVE) {
+        native_mma(t, ks, 0, b);
+        native_mma(t, ks, 1, b);
+      } else {
 #pragma unroll
-      for (int mt = 0; mt < 4; ++mt)
+        for (int mt = 0; mt < 4; ++mt)
 #pragma unroll
-        for (int c = 0; c < 4; ++c) mma_s8(acc[mt][c], a[mt], b[0][c], b[1][c]);
+          for (int c = 0; c < 4; ++c)
+            mma_s8(reinterpret_cast<int*>(acc[mt][c]), a[mt], b[0][c], b[1][c]);
+      }
     }
   };
   // U16: step t's two fold units, k 0-15 then 16-31, each one m16n8k16
@@ -399,11 +486,16 @@ __global__ void __launch_bounds__(kLThreads) group_mma_kernel(
     fragments(t, 0, a, b);
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
+      if constexpr (NATIVE) {
+        native_mma(t, 0, hh, b);
+      } else {
 #pragma unroll
-      for (int mt = 0; mt < 4; ++mt)
+        for (int mt = 0; mt < 4; ++mt)
 #pragma unroll
-        for (int c = 0; c < 4; ++c)
-          mma_s8_k16(acc[mt][c], a[mt][2 * hh], a[mt][2 * hh + 1], b[hh][c]);
+          for (int c = 0; c < 4; ++c)
+            mma_s8_k16(reinterpret_cast<int*>(acc[mt][c]), a[mt][2 * hh], a[mt][2 * hh + 1],
+                       b[hh][c]);
+      }
       after(hh);
     }
   };
@@ -411,6 +503,7 @@ __global__ void __launch_bounds__(kLThreads) group_mma_kernel(
   // the thread's 8 rows' and 8 columns' factors of fold unit f, from its
   // block: xs and scale in the main loop
   auto row_f = [&](int f, int mt, int h) {
+    if (NATIVE) return 1.f;  // no activation scale: x_f = 1 * scale, exactly
     const float* rows = reinterpret_cast<const float*>(
         fac + ((f >> fu_shift) % kBlockSlots) * kBlock);
     return rows[(mt * 16 + gq + 8 * h) * fu + (f & (fu - 1))];
@@ -596,18 +689,18 @@ __global__ void __launch_bounds__(kLThreads) group_mma_kernel(
 }
 
 // the ring, then the factor slots: the same for every K
-template <int BITS, int KT, typename SC>
+template <int BITS, int KT, typename SC, bool NATIVE = false>
 constexpr int k4l_smem() {
-  return K4LTile<KT, BITS>::kSmem + kBlockSlots * factor_block_bytes<SC>();
+  return K4LTile<KT, BITS, NATIVE>::kSmem + kBlockSlots * factor_block_bytes<SC>();
 }
 
-template <int BITS, int KT, bool AGS, typename SC, bool U16 = false>
+template <int BITS, int KT, bool AGS, typename SC, bool U16 = false, bool NATIVE = false>
 int launch_group_mma(const int8_t* codes, const float* xs, const float* xsum,
                      int N, int Kp, int gs, int ags, const uint8_t* packed,
                      const uint8_t* packed_hi, int Mp, const void* scales, const void* sub,
                      const __nv_bfloat16* residual, float* out, cudaStream_t stream) {
-  auto kernel = group_mma_kernel<BITS, KT, AGS, SC, U16>;
-  constexpr int smem = k4l_smem<BITS, KT, SC>();
+  auto kernel = group_mma_kernel<BITS, KT, AGS, SC, U16, NATIVE>;
+  constexpr int smem = k4l_smem<BITS, KT, SC, NATIVE>();
   const cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
@@ -623,24 +716,55 @@ int launch_group_mma(const int8_t* codes, const float* xs, const float* xsum,
 // unit of 16 takes the U16 instance (KT = 32, two units a step)
 constexpr int kTwoBlockSmem = 113 * 1024;
 
-template <int BITS, bool AGS, typename SC>
+template <int BITS, bool AGS, typename SC, bool NATIVE = false>
 int launch_group_mma_kt(const int8_t* codes, const float* xs, const float* xsum,
                         int N, int Kp, int gs, int ags, const uint8_t* packed,
                         const uint8_t* packed_hi, int Mp, const void* scales, const void* sub,
                         const __nv_bfloat16* residual, float* out, cudaStream_t stream) {
   const int unit = AGS ? ags : gs;
   if (unit == 16)
-    return launch_group_mma<BITS, 32, AGS, SC, true>(codes, xs, xsum, N, Kp, gs, ags, packed,
-                                                     packed_hi, Mp, scales, sub, residual, out,
-                                                     stream);
-  if (unit % 64 == 0 && (BITS != 3 || k4l_smem<BITS, 64, SC>() <= kTwoBlockSmem))
-    return launch_group_mma<BITS, 64, AGS, SC>(codes, xs, xsum, N, Kp, gs, ags, packed,
-                                               packed_hi, Mp, scales, sub, residual, out,
-                                               stream);
-  return launch_group_mma<BITS, 32, AGS, SC>(codes, xs, xsum, N, Kp, gs, ags, packed,
-                                             packed_hi, Mp, scales, sub, residual, out, stream);
+    return launch_group_mma<BITS, 32, AGS, SC, true, NATIVE>(codes, xs, xsum, N, Kp, gs, ags,
+                                                             packed, packed_hi, Mp, scales, sub,
+                                                             residual, out, stream);
+  if (unit % 64 == 0 && (BITS != 3 || k4l_smem<BITS, 64, SC, NATIVE>() <= kTwoBlockSmem))
+    return launch_group_mma<BITS, 64, AGS, SC, false, NATIVE>(codes, xs, xsum, N, Kp, gs, ags,
+                                                              packed, packed_hi, Mp, scales,
+                                                              sub, residual, out, stream);
+  return launch_group_mma<BITS, 32, AGS, SC, false, NATIVE>(codes, xs, xsum, N, Kp, gs, ags,
+                                                            packed, packed_hi, Mp, scales, sub,
+                                                            residual, out, stream);
 }
 
+#if TMAC_K4L_NATIVE
+template <typename SC>
+int launch_native_bits(int bits, const int8_t* x, const float* xsum, int N, int Kp, int gs,
+                       const uint8_t* packed, const uint8_t* packed_hi, int Mp,
+                       const void* scales, const void* sub, const __nv_bfloat16* residual,
+                       float* out, cudaStream_t stream) {
+  switch (bits) {
+    case 1:
+      return launch_group_mma_kt<1, false, SC, true>(x, nullptr, xsum, N, Kp, gs, 0, packed,
+                                                     packed_hi, Mp, scales, sub, residual, out,
+                                                     stream);
+    case 2:
+      return launch_group_mma_kt<2, false, SC, true>(x, nullptr, xsum, N, Kp, gs, 0, packed,
+                                                     packed_hi, Mp, scales, sub, residual, out,
+                                                     stream);
+    case 3:
+      return launch_group_mma_kt<3, false, SC, true>(x, nullptr, xsum, N, Kp, gs, 0, packed,
+                                                     packed_hi, Mp, scales, sub, residual, out,
+                                                     stream);
+    case 4:
+      return launch_group_mma_kt<4, false, SC, true>(x, nullptr, xsum, N, Kp, gs, 0, packed,
+                                                     packed_hi, Mp, scales, sub, residual, out,
+                                                     stream);
+    default:
+      return launch_group_mma_kt<8, false, SC, true>(x, nullptr, xsum, N, Kp, gs, 0, packed,
+                                                     packed_hi, Mp, scales, sub, residual, out,
+                                                     stream);
+  }
+}
+#else
 template <int BITS, typename SC>
 int launch_group_mma_ags(const int8_t* codes, const float* xs, const float* xsum,
                          int N, int Kp, int gs, int ags, const uint8_t* packed,
@@ -678,6 +802,7 @@ int launch_group_mma_bits(int bits, const int8_t* codes, const float* xs, const 
                                          Mp, scales, sub, residual, out, stream);
   }
 }
+#endif
 
 }  // namespace
 
@@ -689,6 +814,7 @@ int launch_group_mma_bits(int bits, const int8_t* codes, const float* xs, const 
 // the fold in registers.  bits 1 to 4 or 8; gs 16 or a multiple of 32, ags
 // as K4's; Kp a multiple of gs * 8 / bits (gs * 8 at bits 3, gs at bits 8);
 // Mp of 128; G >= 2.
+#if !TMAC_K4L_NATIVE
 extern "C" int tmac_group_gemm(const void* codes, const float* xs,
                                const float* xsum, int N, int Kp, int gs, int ags,
                                int bits, const void* packed, const void* packed_hi,
@@ -713,3 +839,31 @@ extern "C" int tmac_group_gemm(const void* codes, const float* xs,
                                               scales, sub, res, out, s);
 #endif
 }
+#else
+// K4L's native form (E3): x (N, Kp) bf16, the caller's (its K padding
+// zero), xsum (N, G) f32 (its f32 sums a weight group), packed, scales, sub
+// and residual as tmac_group_gemm's (scale_f32 0: bf16, 1: f32; this
+// library holds both) -> out (N, Mp) f32: per group a bf16 tensor-core
+// dot with f32 sums, folded in g order with the group's scale, minus
+// xsum @ sub.  The same shapes as tmac_group_gemm's, with no ags.
+extern "C" int tmac_group_gemm_native(const void* x, const float* xsum, int N, int Kp, int gs,
+                                      int bits, const void* packed, const void* packed_hi,
+                                      int Mp, const void* scales, const void* sub,
+                                      int scale_f32, const void* residual, float* out,
+                                      void* stream) {
+  if (N <= 0 || !tmac::decode::unit_size_ok(gs) || Mp % kLBM != 0 || bits < 1 ||
+      (bits > 4 && bits != 8) || (bits == 3) != (packed_hi != nullptr) ||
+      Kp % (gs * tmac::decode::fields(bits)) != 0 || Kp / gs < 2)
+    return (int)cudaErrorInvalidValue;
+  const int8_t* xb = static_cast<const int8_t*>(x);
+  const uint8_t* pk = static_cast<const uint8_t*>(packed);
+  const uint8_t* ph = static_cast<const uint8_t*>(packed_hi);
+  const __nv_bfloat16* res = static_cast<const __nv_bfloat16*>(residual);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (scale_f32)
+    return launch_native_bits<float>(bits, xb, xsum, N, Kp, gs, pk, ph, Mp, scales, sub, res,
+                                     out, s);
+  return launch_native_bits<__nv_bfloat16>(bits, xb, xsum, N, Kp, gs, pk, ph, Mp, scales, sub,
+                                           res, out, s);
+}
+#endif

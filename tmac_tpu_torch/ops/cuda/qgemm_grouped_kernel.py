@@ -50,17 +50,42 @@ template instance of its own; K4L streams its fold's factors, so any K
 fits a block, and so does K4 where staging them all would not (gs 16 with
 f32 factors at K 14336).  A 16-row unit is half a ring stage of the
 decode matmul and half a depth step of K4L (two folds a step there).
+
+The forms whose activations reach the kernel from outside (``qgemm_pallas``
+with act "int8", "auto" or "native"; ``ops.qgemm.form``), each a wrapper
+with its own ``launches`` and a plain version:
+  * E2, ``qgemm_grouped_ext`` (``grouped_ext_plain``): int8 activations
+    per group from outside, K4's matmul below LARGE_N rows and K4L's from
+    there on the caller's codes, xs and xsum: float x quantized per
+    activation group as the reference's XLA prologue does
+    (``act_quant_external``; K4's prologue kernel where its bytes are
+    those: bf16 x, and no ags below LARGE_N rows), or int8 x as given
+    (xs = 1, the reference's float-fold branch on int8 operands); one
+    scale row too, as a grouped tensor of the reference's fold chunks
+    (``as_grouped``);
+  * E3, ``qgemm_native`` (``native_plain``): float dots on bf16 x, a fold
+    chunk at a time, exact products and f32 sums (the reference's
+    act="native", pinned to the chunk path): K4's native kernel below
+    LARGE_N rows (``k4_native_kernel`` in ``csrc/qgemm_grouped.cu``), K4L's
+    native instance from there (``csrc/qgemm_grouped_large_native.cu``,
+    m16n8k16 bf16); only the sum order inside a chunk differs from the
+    plain version's, so each output is held to sqrt(chunk) * 2^-23 *
+    sum |x * w| of it;
+  * E4, ``qgemm_dequant_ext`` (``dequant_ext_plain``): float x at the
+    dequant dot (act "auto" from 64 rows where the dispatch is "dequant"):
+    K5 on x rounded to bf16, with no norm or glu.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 from typing import Optional
 
 import torch
 
-from tmac_tpu_torch.ops.cuda.qgemm_kernel import (DECODE_STRIP, _sms, act_scale,
+from tmac_tpu_torch.ops.cuda.qgemm_kernel import (DECODE_STRIP, _on_device, _sms, act_scale,
                                                   check_decode_smem, decode_fields,
                                                   decode_owner, decode_plan,
                                                   decode_slot_weights,
@@ -68,7 +93,7 @@ from tmac_tpu_torch.ops.cuda.qgemm_kernel import (DECODE_STRIP, _sms, act_scale,
                                                   prologue_values, raise_on,
                                                   require)
 from tmac_tpu_torch.ops.qgemm import (LARGE_N, QuantizedTensor, effective_ags,
-                                      unpack_codes)
+                                      pad_x_for, unpack_codes)
 from tmac_tpu_torch.utils import fma_f32
 
 _c_ptr, _c_int, _c_float = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -112,6 +137,10 @@ def _check_supported(qt: QuantizedTensor, glu: bool, norm, residual,
     err = weights_form_error(qt, kernel)
     if err:
         raise ValueError(err)
+    _check_folds(qt, glu, norm, residual)
+
+
+def _check_folds(qt: QuantizedTensor, glu: bool, norm, residual) -> None:
     if glu and (norm is not None or qt.kdim_padded != qt.kdim):
         raise ValueError("the glu fold needs no norm and an unpadded K")
     if residual is not None and (qt.mdim_padded != qt.mdim
@@ -219,12 +248,13 @@ def group_dots_plain(codes: torch.Tensor, qt: QuantizedTensor,
 def fold_plain(parts: torch.Tensor, xs: torch.Tensor, xsum: torch.Tensor,
                qt: QuantizedTensor, residual=None) -> torch.Tensor:
     """The f32 epilogue on the int32 partials (C, N, Mp) of the C fold
-    chunks (group_dots_plain) -> (N, Mp), in the order of
+    chunks (group_dots_plain; or E3's f32 sums) -> (N, Mp), in the order of
     csrc/qgemm_grouped.cu (that of the compiled reference):
     acc = fma(p_0, x_0, p_1 * x_1), then acc = fma(p_c, x_c, acc) with
     x_c = xs[:, a] * scale[g] of chunk c's activation group a (xs (N, Ga))
-    and weight group g; z = fma(xsum[:, g], sub[g], z) from 0 over the
-    groups (xsum (N, G)); acc - z (+ residual)."""
+    and weight group g (p_0 * x_0 alone for one chunk: bits 8 at one scale
+    row); z = fma(xsum[:, g], sub[g], z) from 0 over the groups (xsum (N,
+    G)); acc - z (+ residual)."""
     C, Ga, G = parts.shape[0], xs.shape[1], xsum.shape[1]
     scales, sub = qt.scales.float(), qt.sub.float()
     p = parts.float()
@@ -233,7 +263,8 @@ def fold_plain(parts: torch.Tensor, xs: torch.Tensor, xsum: torch.Tensor,
         a, g = c * Ga // C, c * G // C
         return xs[:, a:a + 1] * scales[g]
 
-    acc = fma_f32(p[0], xscale(0).expand_as(p[0]), p[1] * xscale(1))
+    acc = (p[0] * xscale(0) if C == 1 else
+           fma_f32(p[0], xscale(0).expand_as(p[0]), p[1] * xscale(1)))
     z = torch.zeros_like(acc)
     # the two chains are independent: a step of each in one fma_f32 call
     for i in range(max(C - 2, G)):
@@ -317,7 +348,11 @@ def _lib():
     lib.tmac_decode_group_gemm.argtypes = [
         _c_ptr, _c_ptr, _c_ptr, _c_int, _c_int, _c_int, _c_int, _c_int, _c_ptr,
         _c_ptr, _c_int, _c_ptr, _c_ptr, _c_int, _c_ptr, _c_ptr, _c_int, _c_int, _c_ptr]
-    for fn in (lib.tmac_act_quant_grouped, lib.tmac_decode_group_gemm):
+    lib.tmac_decode_native.argtypes = [
+        _c_ptr, _c_ptr, _c_int, _c_int, _c_int, _c_int, _c_int, _c_ptr, _c_ptr, _c_int,
+        _c_ptr, _c_ptr, _c_int, _c_ptr, _c_ptr, _c_ptr]
+    for fn in (lib.tmac_act_quant_grouped, lib.tmac_decode_group_gemm,
+               lib.tmac_decode_native):
         fn.restype = _c_int
     return lib
 
@@ -681,3 +716,304 @@ def qgemm_dequant(x: torch.Tensor, qt: QuantizedTensor, norm=None,
 
 
 qgemm_dequant.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# The forms whose activations come from outside: E2, E3, E4
+# ---------------------------------------------------------------------------
+
+def _check_ext(qt: QuantizedTensor, x: torch.Tensor, residual, kernel: str) -> None:
+    """Raise unless the form takes qt (one scale row, or what
+    weights_form_error takes), x (N, K) and the residual."""
+    if qt.scales.shape[0] > 1:
+        _check_supported(qt, False, None, residual, kernel)
+    else:
+        if (qt.bits not in GROUPED_BITS or (qt.bits == 3) != (qt.packed_hi is not None)
+                or qt.k_shards != 1):
+            raise ValueError(f"{kernel} takes bits 1 to 4 and 8 (a hi plane at bits 3 "
+                             "only) and k_shards == 1")
+        _check_folds(qt, False, None, residual)
+    if x.dim() != 2 or x.shape[1] != qt.kdim:
+        raise ValueError(f"{kernel} takes x (N, {qt.kdim}), not {tuple(x.shape)}")
+
+
+def act_quant_external(x: torch.Tensor, qt: QuantizedTensor, ags: int = 0):
+    """E2's quantization of float x, the reference's XLA prologue in
+    qgemm_pallas (act "int8", or "auto" on the chunk path): x (N, K) in
+    f32 (bf16 widened exactly), zero-padded to Kp -> (codes (N, Kp) int8,
+    xs (N, Ga), xsum (N, G)): per activation group of ags columns (of
+    group_size at ags 0, Ga = G; of Kp at one scale row) xs =
+    max(amax, 1e-20) * (1/127), codes rint(x / xs) clamped to +-127 (a true
+    division), and each weight group's dequantized code sum in the order
+    XLA adds it there (weight_group_sums' N >= LARGE_N order at any N)."""
+    xf = pad_x_for(x.float(), qt)
+    N, Kp = xf.shape
+    a = ags or qt.group_size
+    xg = xf.reshape(N, Kp // a, a)
+    xs = act_scale(xg.abs().amax(-1))
+    q = torch.clamp(torch.round(xg / xs[..., None]), -127, 127)
+    qs = q.sum(-1)
+    xsum = weight_group_sums(qs, xs, qt.group_size // ags, True) if ags else qs * xs
+    return q.reshape(N, Kp).to(torch.int8), xs, xsum
+
+
+def external_int8(x: torch.Tensor, qt: QuantizedTensor, ags: int = 0):
+    """E2's (codes (N, Kp), xs, xsum): float x through act_quant_external;
+    int8 x as given, xs = 1 and xsum its exact code sums a scale group (the
+    reference's float-fold branch: part * scale, no activation scale)."""
+    if x.dtype != torch.int8:
+        return act_quant_external(x, qt, ags)
+    codes = pad_x_for(x, qt)
+    N, Kp, G = codes.shape[0], codes.shape[1], qt.scales.shape[0]
+    xsum = codes.reshape(N, G, Kp // G).to(torch.int32).sum(-1).float()
+    return codes, torch.ones_like(xsum), xsum
+
+
+def one_row_zero_fold(acc: torch.Tensor, xsum: torch.Tensor, qt: QuantizedTensor,
+                      residual=None) -> torch.Tensor:
+    """E2's epilogue at one scale row: the reference's xsum @ sub has one
+    term there, and XLA fuses it into the subtraction: fma(-xsum, sub, acc)
+    (+ residual), acc (N, Mp) the chain's f32 sum."""
+    out = fma_f32(-xsum.expand_as(acc), qt.sub.float().expand_as(acc), acc)
+    return out if residual is None else out + residual.float()
+
+
+def grouped_ext_plain(x: torch.Tensor, qt: QuantizedTensor, residual=None,
+                      act_gs: int = 0) -> torch.Tensor:
+    """E2 in plain PyTorch: external_int8's codes, exact int32 dots a fold
+    chunk (group_dots_plain) and the f32 fold (fold_plain; at one scale row
+    its chain, then one_row_zero_fold, or at one chunk E1's epilogue).  act_gs as the reference's
+    act_group_size (float x only).  -> (N, M) f32."""
+    _check_ext(qt, x, residual, "E2")
+    ags = effective_ags(qt, act_gs) if x.dtype != torch.int8 else 0
+    codes, xs, xsum = external_int8(x, qt, ags)
+    parts = group_dots_plain(codes, qt, ags)
+    if qt.scales.shape[0] > 1:
+        return qt.slice_m(fold_plain(parts, xs, xsum, qt, residual))
+    if parts.shape[0] > 1:
+        acc = fold_plain(parts, xs, torch.zeros_like(xsum), qt)
+        return qt.slice_m(one_row_zero_fold(acc, xsum, qt, residual))
+    # one chunk (bits 8): fma(p, xs * scale, -(xsum * sub)), E1's pattern
+    p = parts[0].float()
+    x0 = (xs[:, :1] * qt.scales.float()[0]).expand_as(p)
+    out = fma_f32(p, x0, -(xsum * qt.sub.float()[0]).expand_as(p))
+    return qt.slice_m(out if residual is None else out + residual.float())
+
+
+def as_grouped(qt: QuantizedTensor, xs, xsum: torch.Tensor):
+    """One scale row as the grouped kernels take it: the reference folds
+    its C chunks (fold_chunk: Kp / p, at bits 3 Kp / 8) one at a time with
+    the one scale, so a tensor of C groups of that size with the row
+    repeated, xs (N, 1) repeated, and xsum (N, 1) followed by zeros (z =
+    fma(xsum, sub, 0), then fma(0, sub, z) = z) computes the same chain.
+    (E2 passes xsum 0 and folds the zero point after, one_row_zero_fold.)
+    Grouped tensors come back as they are.  Raises where the kernels
+    cannot take the chunk (bits 8: one chunk; a chunk that is not 16 or a
+    multiple of 32)."""
+    if qt.scales.shape[0] > 1:
+        return qt, xs, xsum
+    Kp = qt.kdim_padded
+    ch = fold_chunk(Kp, qt.bits, Kp)
+    G = Kp // ch
+    if G < 2 or not unit_size_ok(ch):
+        raise ValueError(f"the grouped kernels fold one scale row in chunks of {ch} at "
+                         f"bits {qt.bits}; they take two or more chunks of 16 or a "
+                         "multiple of 32 (one scale row at bits 8 has one chunk)")
+    q = dataclasses.replace(qt, scales=qt.scales.expand(G, -1).contiguous(),
+                            sub=qt.sub.expand(G, -1).contiguous(), group_size=ch)
+    xs = xs.expand(-1, G).contiguous() if xs is not None else None
+    return q, xs, torch.nn.functional.pad(xsum, (0, G - 1)).contiguous()
+
+
+def qgemm_grouped_ext(x: torch.Tensor, qt: QuantizedTensor, residual=None,
+                      act_gs: int = 0) -> torch.Tensor:
+    """E2: x (N, K) float or int8 @ Wdq -> (N, M) f32, the activations
+    quantized per group outside the kernel (external_int8), then K4's
+    matmul below LARGE_N rows or K4L's from there.  Float x: K4's prologue
+    kernel where it writes the reference's bytes (bf16 x, grouped scales,
+    and no ags below LARGE_N rows, where its ags order is the fused
+    kernel's), torch ops otherwise.  CPU tensors take grouped_ext_plain."""
+    _check_ext(qt, x, residual, "E2")
+    if not _on_device("E2", x):
+        return grouped_ext_plain(x, qt, residual, act_gs)
+    N = x.shape[0]
+    ags = effective_ags(qt, act_gs) if x.dtype != torch.int8 else 0
+    if x.dtype == torch.bfloat16 and qt.scales.shape[0] > 1 and (not ags or N >= LARGE_N):
+        codes, xs, xsum = launch_act_quant_grouped(x.contiguous(), qt, ags=ags,
+                                                   kernel="K4L" if N >= LARGE_N else "K4")
+    else:
+        codes, xs, xsum = external_int8(x, qt, ags)
+    one_row = qt.scales.shape[0] == 1
+    # one scale row: the chain on the card (z = 0), the fused zero fold after
+    qk, xs_k, xsum_k = as_grouped(qt, xs.contiguous(),
+                                  torch.zeros_like(xsum) if one_row else xsum.contiguous())
+    codes, res_k = codes.contiguous(), None if one_row else residual
+    if N < LARGE_N:
+        out = launch_decode_grouped(codes, xs_k, xsum_k, qk, res_k, ags=ags)
+    else:
+        out = launch_group_gemm(codes, xs_k, xsum_k, qk, res_k, ags)
+    if one_row:
+        out = one_row_zero_fold(out, xsum, qt, residual)
+    qgemm_grouped_ext.launches += 1
+    return qt.slice_m(out)
+
+
+qgemm_grouped_ext.launches = 0
+
+
+def native_sums(x: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
+    """E3's xsum: the f32 sums of x (zero-padded to Kp) a scale group, (N, G)
+    (the reference's XLA reduction; its order is not followed)."""
+    xf = pad_x_for(x.float(), qt)
+    N, G = xf.shape[0], qt.scales.shape[0]
+    return xf.reshape(N, G, -1).sum(-1)
+
+
+def native_parts_plain(x: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
+    """E3's per-chunk sums (C, N, Mp) f32: x (in f32, bf16 widened exactly)
+    times the codes (as floats), a fold chunk (fold_chunk) at a time; every
+    product exact, the sums f32 (TF32 off on the card)."""
+    xf = pad_x_for(x.float(), qt)
+    N, Kp = xf.shape
+    ch = fold_chunk(Kp, qt.bits, qt.group_size)
+    w = unpack_codes(qt).float()
+    return torch.einsum("nck,ckm->cnm", xf.reshape(N, Kp // ch, ch),
+                        w.reshape(Kp // ch, ch, -1))
+
+
+def native_plain(x: torch.Tensor, qt: QuantizedTensor, residual=None) -> torch.Tensor:
+    """E3 in plain PyTorch: native_parts_plain's chunk sums folded with the
+    scales (fold_plain with xs = 1), minus native_sums @ sub.  -> (N, M)
+    f32."""
+    _check_ext(qt, x, residual, "E3")
+    xsum = native_sums(x, qt)
+    return qt.slice_m(fold_plain(native_parts_plain(x, qt), torch.ones_like(xsum), xsum, qt,
+                                 residual))
+
+
+def native_bound(x: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
+    """Where E3's kernel and plain version may differ, an output at a time:
+    sqrt(chunk) * 2^-23 * sum |x * Wdq| (only the order of a chunk's f32
+    sums differs).  -> (N, M) f32."""
+    xf = pad_x_for(x.float(), qt).abs()
+    ch = fold_chunk(qt.kdim_padded, qt.bits, qt.group_size)
+    w = unpack_codes(qt).float().reshape(qt.scales.shape[0], -1, qt.mdim_padded)
+    w = (w * qt.scales.float()[:, None] - qt.sub.float()[:, None]).abs()
+    return qt.slice_m(xf @ w.reshape(qt.kdim_padded, -1)) * (ch ** 0.5 * 2.0 ** -23)
+
+
+@functools.cache
+def _lib_native():
+    """K4L's native instances, both scale dtypes (csrc/qgemm_grouped_large_native.cu)."""
+    from tmac_tpu_torch.ops.cuda import build
+    lib = build.load("qgemm_grouped_large_native")
+    lib.tmac_group_gemm_native.argtypes = [
+        _c_ptr, _c_ptr, _c_int, _c_int, _c_int, _c_int, _c_ptr, _c_ptr, _c_int, _c_ptr,
+        _c_ptr, _c_int, _c_ptr, _c_ptr, _c_ptr]
+    lib.tmac_group_gemm_native.restype = _c_int
+    return lib
+
+
+def _native_args(kernel: str, xb: torch.Tensor, xsum: torch.Tensor, qt: QuantizedTensor,
+                 residual, cols: int):
+    """Raise unless the native kernels take these operands; -> (hi plane
+    pointer, residual pointer)."""
+    dev = xb.device
+    N, Kp, Mp, G = xb.shape[0], qt.kdim_padded, qt.mdim_padded, qt.scales.shape[0]
+    require(kernel, xb, "x", torch.bfloat16, (N, Kp), dev)
+    require(kernel, xsum, "xsum", torch.float32, (N, G), dev)
+    check_kernel_form(qt, kernel)
+    require(kernel, qt.scales, "scales", qt.scales.dtype, (G, Mp), dev)
+    require(kernel, qt.sub, "sub", qt.scales.dtype, (G, Mp), dev)
+    if Mp % cols or any(t.data_ptr() % 16 for t in (xb, qt.scales, qt.sub)):
+        raise ValueError(f"{kernel}: Mp % {cols} == 0 and 16-byte aligned x, scales and sub")
+    res_ptr = None
+    if residual is not None:
+        require(kernel, residual, "residual", torch.bfloat16, (N, Mp), dev)
+        res_ptr = residual.data_ptr()
+    return res_ptr
+
+
+def launch_decode_native(xb: torch.Tensor, xsum: torch.Tensor, qt: QuantizedTensor,
+                         residual=None) -> torch.Tensor:
+    """Launch K4's native kernel (E3 below LARGE_N rows) on bf16 x (N, Kp)
+    and its sums xsum (N, G): -> (N, Mp) f32."""
+    res_ptr = _native_args("K4", xb, xsum, qt, residual, 64)
+    Kp, bits = qt.kdim_padded, qt.bits
+    rows = Kp // 4 if bits == 3 else Kp * bits // 8
+    require("K4", qt.packed, "packed", torch.uint8, (rows, qt.mdim_padded), xb.device)
+    if bits == 3:
+        require("K4", qt.packed_hi, "packed_hi", torch.uint8, (Kp // 8, qt.mdim_padded),
+                xb.device)
+    out = torch.empty((xb.shape[0], qt.mdim_padded), dtype=torch.float32, device=xb.device)
+    err = _lib().tmac_decode_native(
+        xb.data_ptr(), xsum.data_ptr(), xb.shape[0], Kp, qt.group_size,
+        fold_chunk(Kp, bits, qt.group_size), bits, qt.packed.data_ptr(),
+        qt.packed_hi.data_ptr() if bits == 3 else None, qt.mdim_padded,
+        qt.scales.data_ptr(), qt.sub.data_ptr(), scale_f32(qt), res_ptr, out.data_ptr(),
+        _stream(xb.device))
+    raise_on("K4", err, "native matmul")
+    return out
+
+
+def launch_group_gemm_native(xb: torch.Tensor, xsum: torch.Tensor, qt: QuantizedTensor,
+                             residual=None) -> torch.Tensor:
+    """Launch K4L's native instance (E3 from LARGE_N rows) on bf16 x (N,
+    Kp) and xsum (N, G), G >= 2: -> (N, Mp) f32."""
+    res_ptr = _native_args("K4L", xb, xsum, qt, residual, 128)
+    hi_ptr = _planes("K4L", qt, xb.device)
+    out = torch.empty((xb.shape[0], qt.mdim_padded), dtype=torch.float32, device=xb.device)
+    err = _lib_native().tmac_group_gemm_native(
+        xb.data_ptr(), xsum.data_ptr(), xb.shape[0], qt.kdim_padded, qt.group_size, qt.bits,
+        qt.packed.data_ptr(), hi_ptr, qt.mdim_padded, qt.scales.data_ptr(), qt.sub.data_ptr(),
+        scale_f32(qt), res_ptr, out.data_ptr(), _stream(xb.device))
+    raise_on("K4L", err, "native matmul")
+    return out
+
+
+def qgemm_native(x: torch.Tensor, qt: QuantizedTensor, residual=None) -> torch.Tensor:
+    """E3: x (N, K) @ Wdq -> (N, M) f32 with float dots on x's own dtype
+    (the reference's act="native"): K4's native kernel below LARGE_N rows,
+    K4L's native instance from there (one scale row as_grouped).  On the
+    card x must be bf16 (f32 x at "native" is not ported: ROADMAP.md Queue
+    2); CPU tensors take native_plain."""
+    _check_ext(qt, x, residual, "E3")
+    if not _on_device("E3", x):
+        return native_plain(x, qt, residual)
+    if x.dtype != torch.bfloat16:
+        raise ValueError(f"E3 on the card takes bf16 x, not {x.dtype} (f32 x at "
+                         "act='native' is not ported to the card)")
+    xb = pad_x_for(x, qt).contiguous()
+    xsum = native_sums(x, qt)
+    if x.shape[0] < LARGE_N:
+        out = launch_decode_native(xb, xsum, qt, residual)
+    else:
+        qk, _, xsum = as_grouped(qt, None, xsum)
+        out = launch_group_gemm_native(xb, xsum, qk, residual)
+    qgemm_native.launches += 1
+    return qt.slice_m(out)
+
+
+qgemm_native.launches = 0
+
+
+def dequant_ext_plain(x: torch.Tensor, qt: QuantizedTensor, residual=None) -> torch.Tensor:
+    """E4 in plain PyTorch: K5's function on x rounded to bf16, with no
+    norm or glu (qgemm_dequant_plain)."""
+    _check_supported(qt, False, None, residual, "K5")
+    return qgemm_dequant_plain(x, qt, residual=residual)
+
+
+def qgemm_dequant_ext(x: torch.Tensor, qt: QuantizedTensor, residual=None) -> torch.Tensor:
+    """E4: float x (N, K) @ Wdq -> (N, M) f32 at the dequant dot: x rounded
+    to bf16 and zero-padded (as the reference's kernel casts it), then K5's
+    matmul, no prologue kernel.  CPU tensors take dequant_ext_plain."""
+    _check_supported(qt, False, None, residual, "K5")
+    if not _on_device("E4", x):
+        return dequant_ext_plain(x, qt, residual)
+    out = launch_dequant_gemm(pad_x_for(x.to(torch.bfloat16), qt).contiguous(), qt, residual)
+    qgemm_dequant_ext.launches += 1
+    return qt.slice_m(out)
+
+
+qgemm_dequant_ext.launches = 0

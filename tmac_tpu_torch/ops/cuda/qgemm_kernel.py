@@ -23,6 +23,16 @@ tensor goes to the plain PyTorch version ``qgemm_fused_plain`` (which
 takes the epilogue of the route for N), a CUDA tensor to the kernel, which
 either launches or raises.  Each wrapper's ``launches`` counts calls that
 launched its kernel (the quantization prologue and the matmul together).
+
+``qgemm_int8_x`` is the external-int8 form (E1: ``qgemm_pallas`` with int8
+x and one scale row, any ``act`` but "fused"; the reference's ``int_acc``
+branch with no prologue): the caller's codes, the bare code sum, no
+activation scale and the epilogue fma(acc, scale, -(xsum * sub)) that the
+reference compiles on both routes.  Below LARGE_N rows K1's matmul in its
+EXT instance (``launch_decode`` with xs None), from LARGE_N rows K3's
+(whose epilogue is that one times xs, so xs = 1) on the codes put in K3's
+order (``dp4a_order``, a torch copy that the tools' timings include); its
+plain version is ``int8_x_plain``.
 """
 
 from __future__ import annotations
@@ -33,7 +43,7 @@ import itertools
 
 import torch
 
-from tmac_tpu_torch.ops.qgemm import LARGE_N, QuantizedTensor, unpack_codes
+from tmac_tpu_torch.ops.qgemm import LARGE_N, QuantizedTensor, pad_x_for, unpack_codes
 from tmac_tpu_torch.utils import cdiv, fma_f32, round_up
 
 _c_ptr, _c_int, _c_float = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -335,9 +345,26 @@ def decode_plan(N: int, Kp: int, Mp: int, bits: int, gs: int = 0,
         best = (_expert_plan if experts else _dense_plan)(
             N, Mp, bits, grouped, nunits, unit, G, sms, experts, acts, scale_bytes, stream)
         if best is not None:
-            return best[1]
+            return best[1] if experts else _tuned_split(N, Kp, bits, gs, ags, scale_bytes,
+                                                        nunits, best[1], Mp)
     raise ValueError(f"decode matmul: K = {Kp} at N = {N} outgrows a block's "
                      "shared memory")
+
+
+def _tuned_split(N, Kp, bits, gs, ags, scale_bytes, nunits, plan, Mp):
+    """The plan with the tune table's cluster size where the table holds
+    one for this card and shape (ops/tune_table.py; read only where the
+    file exists) and it fits the plan's token rows."""
+    from tmac_tpu_torch.ops import tune_table
+    ks = tune_table.lookup_decode(bits, Kp, Mp, N, gs, ags)
+    if not ks or ks > nunits or ks not in DECODE_SPLITS:
+        return plan
+    try:
+        check_decode_smem("decode", N, Kp, bits, gs, ks, plan[1], ags=ags,
+                          scale_bytes=scale_bytes)
+    except ValueError:
+        return plan
+    return ks, plan[1]
 
 
 def _expert_plan(N, Mp, bits, grouped, nunits, unit, G, sms, experts, acts, scale_bytes,
@@ -557,7 +584,8 @@ def _check_gemm_args(kernel: str, codes, xs, xsum, qt: QuantizedTensor,
     dev = codes.device
     N, Kp, Mp = codes.shape[0], qt.kdim_padded, qt.mdim_padded
     require(kernel, codes, "codes", torch.int8, (N, Kp), dev)
-    require(kernel, xs, "xs", torch.float32, (N,), dev)
+    if xs is not None:
+        require(kernel, xs, "xs", torch.float32, (N,), dev)
     require(kernel, xsum, "xsum", torch.float32, (N,), dev)
     rows = Kp // 4 if qt.bits == 3 else Kp * qt.bits // 8
     require(kernel, qt.packed, "packed", torch.uint8, (rows, Mp), dev)
@@ -581,11 +609,13 @@ def _sms(dev) -> int:
     return sm_count(dev)
 
 
-def launch_decode(codes: torch.Tensor, xs: torch.Tensor, xsum: torch.Tensor,
+def launch_decode(codes: torch.Tensor, xs, xsum: torch.Tensor,
                   qt: QuantizedTensor, residual=None, ksplit=None) -> torch.Tensor:
     """Launch K1's matmul on its prologue's outputs (large_n off), right
     after the prologue (it starts while the prologue runs): -> (N, Mp)
-    f32.  ksplit: the cluster size along K (decode_plan's by default)."""
+    f32.  ksplit: the cluster size along K (decode_plan's by default).
+    xs None: the external-int8 form's instance (E1: the caller's codes,
+    xsum their bare sum, fma(acc, scale, -(xsum * sub)))."""
     res_ptr = _check_gemm_args("K1", codes, xs, xsum, qt, residual)
     N, Kp, Mp = codes.shape[0], qt.kdim_padded, qt.mdim_padded
     if (qt.packed.data_ptr() % 16 or _hi_ptr(qt) % 16 or codes.data_ptr() % 4
@@ -596,7 +626,7 @@ def launch_decode(codes: torch.Tensor, xs: torch.Tensor, xsum: torch.Tensor,
     check_decode_smem("K1", N, Kp, qt.bits, 0, ksplit or plan, nt)
     out = torch.empty((N, Mp), dtype=torch.float32, device=codes.device)
     err = _lib().tmac_decode_qgemm(
-        codes.data_ptr(), xs.data_ptr(), xsum.data_ptr(), N, Kp, qt.bits,
+        codes.data_ptr(), None if xs is None else xs.data_ptr(), xsum.data_ptr(), N, Kp, qt.bits,
         qt.packed.data_ptr(), _hi_ptr(qt), qt.scales.data_ptr(),
         qt.sub.data_ptr(), Mp, res_ptr, out.data_ptr(), ksplit or plan, nt,
         torch.cuda.current_stream(codes.device).cuda_stream)
@@ -747,8 +777,19 @@ def large_plan(N: int, Kp: int, Mp: int, bits: int, sms: int = DEFAULT_SMS):
     from 4 blocks a cluster); a block's time is its steps x the tile's step
     time, its fixed time and, split, the split's cost (the constants
     above).  Ties go to the earlier candidate (smaller cluster, then the
-    earlier tile).  Raises on shapes K3 does not take."""
+    earlier tile).  Raises on shapes K3 does not take.  The tune table's
+    (bm, bn, ksplit) for this card and shape wins where it holds one that
+    check_large takes (ops/tune_table.py; read only where the file
+    exists)."""
     check_large(N, Kp, Mp, bits, *LARGE_TILES[0], 1)
+    from tmac_tpu_torch.ops import tune_table
+    tuned = tune_table.lookup_large(bits, Kp, Mp, N)
+    if tuned is not None:
+        try:
+            check_large(N, Kp, Mp, bits, *tuned)
+            return tuned
+        except ValueError:
+            pass
     best = None
     for ksplit, (bm, bn) in itertools.product(range(1, LARGE_MAX_SPLIT + 1), LARGE_TILES):
         try:
@@ -838,3 +879,47 @@ def qgemm_large_int(x: torch.Tensor, qt: QuantizedTensor, norm=None,
 
 
 qgemm_large_int.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# E1: the external-int8 form (int8 x, one scale row)
+# ---------------------------------------------------------------------------
+
+def _check_int8_x(qt: QuantizedTensor, x: torch.Tensor, residual) -> None:
+    _check_supported(qt, False, None, residual)
+    if x.dtype != torch.int8 or x.dim() != 2 or x.shape[1] != qt.kdim:
+        raise ValueError(f"E1 takes int8 x (N, {qt.kdim}), not {x.dtype} {tuple(x.shape)}")
+
+
+def int8_x_plain(x: torch.Tensor, qt: QuantizedTensor, residual=None) -> torch.Tensor:
+    """E1 in plain PyTorch: the caller's int8 codes x (N, K), their exact
+    int32 dot with the weight codes and the reference's non-fused epilogue
+    fma(acc, scale, -(xsum * sub)) (+ residual), xsum the bare code sum:
+    K3's epilogue with xs = 1.  -> (N, M) f32."""
+    _check_int8_x(qt, x, residual)
+    codes = pad_x_for(x, qt)
+    xsum = codes.to(torch.int32).sum(1).float()
+    acc = int_dot_plain(codes, qt)
+    return qt.slice_m(large_epilogue_plain(acc, torch.ones_like(xsum), xsum, qt, residual))
+
+
+def qgemm_int8_x(x: torch.Tensor, qt: QuantizedTensor, residual=None) -> torch.Tensor:
+    """E1: int8 x (N, K) @ Wdq -> (N, M) f32 for one scale row, the
+    reference's exact int32 route for int8 x: K1's matmul (its EXT
+    instance) below LARGE_N rows, K3's from there.  CPU tensors take
+    int8_x_plain."""
+    _check_int8_x(qt, x, residual)
+    if not _on_device("E1", x):
+        return int8_x_plain(x, qt, residual)
+    codes = pad_x_for(x, qt).contiguous()
+    xsum = codes.sum(1, dtype=torch.int32).float()
+    if codes.shape[0] < LARGE_N:
+        out = launch_decode(codes, None, xsum, qt, residual)
+    else:
+        out = launch_large_int(dp4a_order(codes, qt.bits).contiguous(), torch.ones_like(xsum),
+                               xsum, qt, residual)
+    qgemm_int8_x.launches += 1
+    return qt.slice_m(out)
+
+
+qgemm_int8_x.launches = 0

@@ -5,7 +5,7 @@ implementation computes C = x @ Wdq with
 
     Wdq[k, m] = scales[k // gs, m] * wq[k, m] - sub[k // gs, m]
 
-  * "fused" -- the kernel that ``qgemm_pallas(act="fused")`` runs for the
+  * "fused" -- the kernel that ``qgemm_pallas`` runs for act, x's dtype and the
                weights and the N rows of x (``route``), each with an
                optional rms_norm / SwiGLU prologue and residual epilogue:
                one scale row (per tensor, or per column at group_size
@@ -18,7 +18,9 @@ implementation computes C = x @ Wdq with
                "chunk", K5 (the same module: bf16 activations
                times bf16 dequantized weights, one f32 dot) from 64 rows
                with dispatch "dequant", or from 3 * group_size rows by
-               default
+               default; with act other than "fused" the forms whose
+               activations reach the kernel from outside (``form``: E1 on
+               K1 / K3, E2 and E3 on K4 / K4L, E4 on K5)
   * "torch" -- plain grouped dequant matmul (the ``qgemm_xla`` role)
 """
 
@@ -26,7 +28,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -318,26 +320,107 @@ def qgemm_torch(x: torch.Tensor, qt: QuantizedTensor,
     return acc.to(out_dtype or (torch.float32 if int_path else x.dtype))
 
 
+def dequant_baseline_matmul(x: torch.Tensor, w_codes: torch.Tensor, scales: torch.Tensor,
+                            sub: torch.Tensor, group_size: int) -> torch.Tensor:
+    """The comparator of the JAX package's ``dequant_baseline_matmul``:
+    weights stored a byte each (int8 codes, (K, M)), dequantized to bf16
+    (Wdq = scales * w - sub per group of group_size rows, in f32, rounded
+    to bf16), then one plain bf16 matmul with f32 sums (torch.matmul; on
+    the card cuBLAS's).  The bf16 dequant yardstick of the port's timings:
+    the reference's is f32, but an f32 matmul on the card runs on its CUDA
+    cores, not its tensor cores.  -> (N, M) f32."""
+    K, M = w_codes.shape
+    w = w_codes.float().reshape(K // group_size, group_size, M)
+    wdq = (w * scales.float()[:, None] - sub.float()[:, None]).reshape(K, M)
+    return torch.matmul(x.to(torch.bfloat16), wdq.to(torch.bfloat16)).float()
+
+
+def dequant_bf16(qt: QuantizedTensor) -> torch.Tensor:
+    """The (Kp, Mp) bf16 dequantized weights of qt (every scale row, its
+    padding included): dequant_baseline_matmul's weights, made once."""
+    w = unpack_codes(qt).float()
+    G = qt.scales.shape[0]
+    w = w.reshape(G, -1, w.shape[-1]) * qt.scales.float()[:, None] - qt.sub.float()[:, None]
+    return w.reshape(qt.kdim_padded, -1).to(torch.bfloat16)
+
+
 # qgemm_pallas leaves its small-N kernels from this many rows of x
 LARGE_N = 64
 DISPATCHES = (None, "chunk", "dequant")
+# qgemm_pallas's activation handling (its `act`)
+ACTS = ("auto", "int8", "fused", "native")
 
 
-def route(qt: QuantizedTensor, N: int, dispatch: Optional[str] = None) -> str:
-    """The kernel that ``qgemm_pallas(act="fused")`` runs for qt and N rows
-    of x, by its rule off the TPU (its tune table is keyed to a TPU):
-    per-tensor scales take K3 from LARGE_N rows and K1 below; grouped
-    scales take K5 from LARGE_N rows when dispatch is "dequant", or is None
-    and N >= 3 * group_size, and K4's function otherwise ("chunk", or fewer
-    rows): K4L, its tensor-core form, from LARGE_N rows, K4 below."""
+def _dispatch(qt: QuantizedTensor, N: int, dispatch: Optional[str], mode: str) -> str:
+    """The grouped kernel from LARGE_N rows, "chunk" (K4's function) or
+    "dequant" (K5): dispatch where given, else the tune table's entry for
+    mode ("fused", or "float" for activations from outside;
+    ops/tune_table.py, read only where the file exists), else "dequant"
+    from 3 * group_size rows."""
+    from tmac_tpu_torch.ops import tune_table
+    d = dispatch or tune_table.lookup_dispatch(qt.bits, qt.kdim_padded, qt.mdim_padded, N,
+                                               qt.group_size, mode)
+    return d or ("dequant" if N >= 3 * qt.group_size else "chunk")
+
+
+def plan(qt: QuantizedTensor, N: int, act: str = "fused", x_int8: bool = False,
+         dispatch: Optional[str] = None) -> Tuple[str, str]:
+    """(form, kernel): what ``qgemm_pallas`` runs for qt, N rows of x, act
+    and x's dtype, by its rule off the TPU.
+
+    The form is "fused" (the in-kernel prologue), or one of those whose
+    activations reach the kernel from outside:
+      E1 -- int8 x, one scale row: an exact int32 dot (its int_acc branch);
+      E2 -- int8 activations per group: int8 x with grouped scales as
+            given, or float x quantized per activation group by an XLA
+            prologue (act "int8", or "auto" on the chunk path, one scale
+            row too);
+      E3 -- act "native": float dots on x's own dtype, pinned to the
+            chunk path unless dispatch is "dequant";
+      E4 -- float x at the dequant dot (act "auto" from LARGE_N grouped
+            rows where _dispatch's "float" rule says "dequant"), and act
+            "native" with dispatch "dequant".
+    The kernel: one scale row takes K3 from LARGE_N rows and K1 below
+    (fused and E1); grouped scales take K5 from LARGE_N rows where the
+    fused form's _dispatch says "dequant", and for E4; K4's function
+    otherwise (E2, E3, the fused "chunk"): K4L, its tensor-core form, from
+    LARGE_N rows, K4 below."""
+    if act not in ACTS:
+        raise ValueError(f"act must be one of {ACTS}, not {act!r}")
     if dispatch not in DISPATCHES:
         raise ValueError(f"dispatch must be one of {DISPATCHES}, not {dispatch!r}")
-    if qt.scales.shape[0] == 1:
-        return "K3" if N >= LARGE_N else "K1"
-    if N >= LARGE_N and (dispatch or ("dequant" if N >= 3 * qt.group_size
-                                      else "chunk")) == "dequant":
-        return "K5"
-    return "K4L" if N >= LARGE_N else "K4"
+    grouped, large = qt.scales.shape[0] > 1, N >= LARGE_N
+    if act == "fused":
+        if x_int8:
+            raise ValueError("the fused kernels quantize float activations; int8 x takes "
+                             "act='auto' (or impl='torch')")
+        f = "fused"
+    elif x_int8:
+        f = "E2" if grouped else "E1"
+    elif grouped and large and (dispatch == "dequant" if act == "native" else
+                                act == "auto" and _dispatch(qt, N, dispatch, "float")
+                                == "dequant"):
+        f = "E4"
+    else:
+        f = "E3" if act == "native" else "E2"
+    if f == "E4" or (f == "fused" and grouped and large
+                     and _dispatch(qt, N, dispatch, "fused") == "dequant"):
+        return f, "K5"
+    if f == "E1" or (f == "fused" and not grouped):
+        return f, "K3" if large else "K1"
+    return f, "K4L" if large else "K4"
+
+
+def form(qt: QuantizedTensor, N: int, act: str = "fused", x_int8: bool = False,
+         dispatch: Optional[str] = None) -> str:
+    """The form of ``plan``: "fused", or E1-E4."""
+    return plan(qt, N, act, x_int8, dispatch)[0]
+
+
+def route(qt: QuantizedTensor, N: int, dispatch: Optional[str] = None,
+          act: str = "fused", x_int8: bool = False) -> str:
+    """The kernel of ``plan``: K1, K3, K4, K4L or K5."""
+    return plan(qt, N, act, x_int8, dispatch)[1]
 
 
 def effective_ags(qt: QuantizedTensor, act_gs: int) -> int:
@@ -353,15 +436,31 @@ def effective_ags(qt: QuantizedTensor, act_gs: int) -> int:
 
 
 def kernel_for(qt: QuantizedTensor, N: int, plain: bool = False,
-               dispatch: Optional[str] = None, act_gs: int = 0):
-    """The wrapper of ``route``'s kernel, or with plain=True its plain
-    PyTorch version: a function (x, qt, norm=, glu=, residual=) -> (N, M)
-    f32.  act_gs: the activation group size, bound into K4's and K4L's
-    function (the others ignore it, as the reference does).  Every
-    quantized linear of the port takes its kernel here."""
+               dispatch: Optional[str] = None, act_gs: int = 0,
+               act: str = "fused", x_int8: bool = False):
+    """The wrapper of ``plan``'s kernel, or with plain=True its plain
+    PyTorch version.  Every quantized linear of the port takes its kernel
+    here."""
+    return _wrapper(qt, *plan(qt, N, act, x_int8, dispatch), plain, act_gs)
+
+
+def _wrapper(qt: QuantizedTensor, f: str, kernel: str, plain: bool, act_gs: int):
+    """The wrapper (or plain version) of form f on kernel.  The fused form:
+    a function (x, qt, norm=, glu=, residual=) -> (N, M) f32; act_gs, the
+    activation group size, bound into K4's and K4L's function (the others
+    ignore it, as the reference does).  The other forms (no norm or glu
+    fold): a function (x, qt, residual=) -> (N, M) f32, act_gs bound into
+    E2's."""
     from tmac_tpu_torch.ops.cuda import qgemm_grouped_kernel as grouped
     from tmac_tpu_torch.ops.cuda import qgemm_kernel as per_tensor
-    kernel = route(qt, N, dispatch)
+    if f != "fused":
+        fn = {
+            "E1": (per_tensor.qgemm_int8_x, per_tensor.int8_x_plain),
+            "E2": (grouped.qgemm_grouped_ext, grouped.grouped_ext_plain),
+            "E3": (grouped.qgemm_native, grouped.native_plain),
+            "E4": (grouped.qgemm_dequant_ext, grouped.dequant_ext_plain),
+        }[f][int(plain)]
+        return functools.partial(fn, act_gs=act_gs) if f == "E2" else fn
     fn = {
         "K1": (per_tensor.qgemm_fused, per_tensor.qgemm_fused_plain),
         "K3": (per_tensor.qgemm_large_int, per_tensor.qgemm_fused_plain),
@@ -377,41 +476,57 @@ def kernel_for(qt: QuantizedTensor, N: int, plain: bool = False,
 def qgemm(x: torch.Tensor, qt: QuantizedTensor, impl: str = "auto",
           out_dtype=None, norm=None, glu: bool = False,
           residual=None, dispatch: Optional[str] = None,
-          act_group_size: int = 0) -> torch.Tensor:
+          act_group_size: int = 0, act: str = "auto") -> torch.Tensor:
     """Quantized matmul x (N, K) @ Wdq (K, M) -> (N, M).
 
-    impl: "fused" (float x: the kernel ``route`` picks: K1 or K3 for
-    one scale row, K4 or K5 for grouped ones), "torch", or "auto":
-    "fused" for any tensor off the CPU, whose kernels raise on what they do
-    not cover yet (int8 x); on the CPU, the kernels' plain versions for float x (grouped: bits 1 to 4 or 8, bf16 or
-    f32 scales, group size 16 or a multiple of 32) and "torch" otherwise.
-    norm: optional (weight (K,), eps) rms_norm applied to x first.
-    glu: x is (N, 2K) and silu(x[:, :K]) * x[:, K:] feeds the matmul.
+    impl: "fused" (the kernel that ``plan`` picks for act), "torch", or
+    "auto": "fused" for any tensor off the CPU, whose kernels raise on
+    what they do not take; on the CPU, the kernels' plain versions where
+    they take the weights (grouped: bits 1 to 4 or 8, bf16 or f32 scales,
+    group size 16 or a multiple of 32) and x (act "fused": float x), and
+    "torch" otherwise.
+    act: the reference's activation handling (``plan``'s form), with its default:
+      "fused"  -- the activations quantized inside the kernel (K1, K3, K4,
+                  K4L; K5 keeps them bf16), with the norm / glu folds; the
+                  form every model linear takes;
+      "int8"   -- float x quantized per activation group outside the
+                  kernel, int8 dots with the scales folded per group (E2);
+      "native" -- float dots on x's own dtype (E3; bf16 x on the card);
+      "auto"   -- "int8", but float x stays float at the dequant dot from
+                  64 grouped rows where the dispatch is "dequant" (E4).
+    int8 x takes the exact int32 route (E1) or the grouped fold (E2) at
+    any act but "fused".  JAX's ``block_m`` has no counterpart on the card
+    (the plans' tile and cluster sizes are ops/tune_table.py's).
+    norm: optional (weight (K,), eps) rms_norm applied to x first (act
+    "fused" only, as the reference).
+    glu: x is (N, 2K) and silu(x[:, :K]) * x[:, K:] feeds the matmul (act
+    "fused" only).
     residual: optional (N, M) added to the output.
     dispatch: the grouped large-N kernel, as qgemm_pallas's argument:
-    "chunk" (K4), "dequant" (K5) or None (the N >= 3 * group_size rule);
-    ignored below LARGE_N rows and for per-tensor scales.
+    "chunk" (K4), "dequant" (K5) or None (the tune table's, then the
+    N >= 3 * group_size rule); ignored below LARGE_N rows and for
+    per-tensor scales.
     act_group_size: activation groups finer than the weight groups (the
     reference's -ags knob) on K4's function; ignored where
     ``effective_ags`` drops it, by K5 and by impl="torch".
     """
     grouped = qt.scales.shape[0] > 1
+    x_int8 = x.dtype == torch.int8
     if impl == "auto":
         from tmac_tpu_torch.ops.cuda.qgemm_grouped_kernel import weights_form_error
-        on_cpu_kernel = x.is_floating_point() and (
+        on_cpu_kernel = (x.is_floating_point() or act != "fused") and (
             not grouped or weights_form_error(qt) is None)
         impl = ("fused" if x.device.type != "cpu" or on_cpu_kernel
                 else "torch")
-    out_dtype = out_dtype or (torch.float32 if x.dtype == torch.int8
-                              else x.dtype)
+    out_dtype = out_dtype or (torch.float32 if x_int8 else x.dtype)
     if impl == "fused":
-        if not x.is_floating_point():
-            raise ValueError("the fused kernels quantize float activations; "
-                             "int8 x takes impl='torch'")
-        kernel = kernel_for(qt, x.shape[0], dispatch=dispatch,
-                            act_gs=act_group_size)
-        out = kernel(x.to(torch.bfloat16), qt, norm=norm, glu=glu,
-                     residual=residual)
+        f, kernel = plan(qt, x.shape[0], act, x_int8, dispatch)
+        fn = _wrapper(qt, f, kernel, False, act_group_size)
+        if f != "fused":
+            if norm is not None or glu:
+                raise ValueError("the norm and glu folds take act='fused'")
+            return fn(x, qt, residual=residual).to(out_dtype)
+        out = fn(x.to(torch.bfloat16), qt, norm=norm, glu=glu, residual=residual)
         return out.to(out_dtype)
     if impl != "torch":
         raise ValueError(f"unknown impl {impl}")
