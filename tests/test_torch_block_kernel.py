@@ -86,11 +86,69 @@ def test_k10_raises_where_the_reference_asserts():
                          torch.from_numpy(r).bfloat16(),
                          torch.ones(H, dtype=torch.bfloat16),
                          ws["wo"][0], ws["gu"][0], ws["dn"][0], EPS)
-    # bits 4 passes the reference's asserts; the port's kernel is bits 2
+    # bits 4 passes the reference's asserts, and the port's (its kernel has
+    # an instance at bits 1, 2 and 4)
     w4 = [QuantizedTensor.from_float(rng.standard_normal(km).astype(np.float32),
                                      4, device="cpu")
           for km in ((H, H), (H, 2 * I), (I, H))]
-    with pytest.raises(NotImplementedError):
-        wo_mlp_block(torch.zeros((1, H), dtype=torch.bfloat16),
-                     torch.zeros((1, H), dtype=torch.bfloat16),
-                     torch.ones(H, dtype=torch.bfloat16), *w4, EPS)
+    args = (torch.zeros((1, H), dtype=torch.bfloat16), torch.zeros((1, H), dtype=torch.bfloat16),
+            torch.ones(H, dtype=torch.bfloat16), *w4, EPS)
+    assert torch.equal(wo_mlp_block(*args), wo_mlp_block_plain(*args))
+
+
+def _pair_bits(rng, K, M, bits):
+    """Per-tensor weights at bits 1 or 4 (random codes, sub = mid * scale)
+    as a port and a JAX QuantizedTensor."""
+    wq = rng.integers(0, 1 << bits, (K, M)).astype(np.uint8)
+    s = np.full((1, M), 1.0 / np.sqrt(K), np.float32)
+    sub = (1 << (bits - 1)) * s
+    return (QuantizedTensor.from_quantized(wq, s, sub, bits, K, device="cpu"),
+            JQT.from_quantized(wq, s, sub, bits, K))
+
+
+@pytest.mark.parametrize("bits", [1, 4])
+@pytest.mark.parametrize("H,I,seed", [(256, 384, 0), (640, 1728, 2)],
+                         ids=["test-shape", "bitnet-like"])
+def test_plain_k10_bits_1_4_matches_wo_mlp_block(bits, H, I, seed):
+    """K10 at bits 1 and 4 (the reference's p = 8 // bits fields a byte):
+    the plain version, which the card's instances are held to, against
+    the reference's wo_mlp_block at the same bits."""
+    rng = np.random.default_rng(seed + 10 * bits)
+    (wo, jwo), (gu, jgu), (dn, jdn) = (_pair_bits(rng, H, H, bits),
+                                       _pair_bits(rng, H, 2 * I, bits),
+                                       _pair_bits(rng, I, H, bits))
+    a, r = (rng.standard_normal((1, H)).astype(np.float32) for _ in range(2))
+    w = (1.0 + 0.1 * rng.standard_normal(H)).astype(np.float32)
+    bf = jnp.bfloat16
+    want = np.asarray(_jax_block(jnp.asarray(a, bf), jnp.asarray(r, bf),
+                                 jnp.asarray(w, bf), jwo, jgu, jdn))
+    args = [torch.from_numpy(v).to(torch.bfloat16) for v in (a, r, w)]
+    got = wo_mlp_block(*args, wo, gu, dn, EPS)
+    assert got.shape == (1, H) and torch.isfinite(got).all()
+    assert nmse(want, got.numpy()) <= BLOCK_NMSE
+
+
+def test_k10_refuses_a_ragged_code_row():
+    """The kernel reads 4 codes of a field at once: down's K must be a
+    multiple of 4 * (8 // bits), which the packing's padding gives."""
+    from tmac_tpu_torch.ops.cuda import block_kernel as k10
+    rng = np.random.default_rng(5)
+    H, I = 256, 400   # 400 = 50 * 8: a bits-1 packing pads it to 416
+    tensors = [_pair_bits(rng, k, m, 1)[0] for k, m in ((H, H), (H, 2 * I), (I, H))]
+    with pytest.raises(ValueError):
+        k10.check_supported(torch.zeros((1, H)), *tensors)
+
+
+@pytest.mark.skipif(not torch.cuda.is_available(), reason="needs a CUDA device")
+@pytest.mark.parametrize("bits", [1, 2, 4])
+def test_k10_kernel_matches_plain_on_card(bits):
+    """On a card: K10's instance at bits against its plain version, bit for
+    bit, at the bitnet-like shape (chip_smoke.py checks BitNet-3B's)."""
+    rng = np.random.default_rng(bits)
+    H, I = 640, 1728
+    ts = [(_pair_bits(rng, k, m, bits)[0] if bits != 2 else _pair(rng, k, m)[0]).to("cuda")
+          for k, m in ((H, H), (H, 2 * I), (I, H))]
+    args = [torch.from_numpy(rng.standard_normal(n).astype(np.float32)).to(torch.bfloat16)
+            .cuda().reshape(shape) for n, shape in ((H, (1, H)), (H, (1, H)), (H, (H,)))]
+    got = wo_mlp_block(*args, *ts, EPS)
+    assert torch.equal(got, wo_mlp_block_plain(*args, *ts, EPS))

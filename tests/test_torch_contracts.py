@@ -276,16 +276,17 @@ def test_ctypes_signatures_match_the_c_interfaces():
     # f32) right after the scales and sub
     assert c_args["tmac_group_gemm"] == 17
     assert c_args["tmac_qgemm_dequant"] == 14
-    # the native form (act="native", bf16 x): K4's kernel below 64 rows with
-    # the fold chunk, K4L's instance from 64 (no xs, no ags)
-    assert c_args["tmac_decode_native"] == 16
+    # the native form (act="native"): K4's kernel (bf16 x below 64 rows,
+    # f32 x at any N; x_f32 after x) with the fold chunk, K4L's instance on
+    # bf16 x from 64 (no xs, no ags)
+    assert c_args["tmac_decode_native"] == 17
     assert c_args["tmac_group_gemm_native"] == 15
     assert not {"tmac_qgemm", "tmac_group_dots", "tmac_group_fold"} & set(c_args)
     # K7: one entry for the k routed experts (prologue and K4's decode
     # matmul with the expert as grid.z); K10 with its scratch and grid
     assert c_args["tmac_qgemm_experts"] == 25
     assert "tmac_qgemm_expert" not in c_args
-    assert c_args["tmac_wo_mlp_block"] == 23
+    assert c_args["tmac_wo_mlp_block"] == 24  # with the bits (1, 2 or 4)
     # K3: one wgmma matmul, with the bits-3 hi plane's pointer, its tile
     # (token rows, columns) and cluster size; the mma.sync matmul's entry
     # point is gone

@@ -208,3 +208,38 @@ def test_k10_split_sums_equal_int_dot(K, M, blocks):
     x = torch.from_numpy(rng.standard_normal((1, K)).astype(np.float32))
     codes = act_quant_plain(x, qt)[0]
     assert torch.equal(int_dot_units_plain(codes, qt, blocks), int_dot_plain(codes, qt))
+
+
+# K10 at bits 1 and 4: BitNet-3B's three matmuls over 132 SMs and a
+# scaled shape whose last stage of packed rows is ragged
+K10_PLANS_BITS = [(3200, 3200, 132, 1), (8640, 3200, 132, 1), (3200, 17280, 132, 4),
+                  (8640, 3200, 132, 4), (800, 256, 3, 1), (800, 256, 7, 4)]
+
+
+@pytest.mark.parametrize("K,M,blocks,bits", K10_PLANS_BITS)
+def test_k10_units_cover_each_strip_once_bits_1_4(K, M, blocks, bits):
+    """The unit partition at bits 1 (8 fields a byte: K / 8 packed rows)
+    and 4 (K / 2): every (strip, packed row) exactly once."""
+    P = 8 // bits
+    per_strip, total = block_plan(K, M, bits)
+    assert per_strip == -(-(K // P) // BLOCK_STAGE_ROWS)
+    rows = np.zeros((M // BLOCK_STRIP, K // P), np.int64)
+    for u0, u1 in block_spans(total, blocks):
+        for u in range(u0, u1):
+            r0 = (u % per_strip) * BLOCK_STAGE_ROWS
+            rows[u // per_strip, r0:r0 + BLOCK_STAGE_ROWS] += 1
+    assert (rows == 1).all()
+
+
+@pytest.mark.parametrize("bits", [1, 4])
+@pytest.mark.parametrize("K,M,blocks", [(800, 256, 1), (800, 256, 5), (512, 384, 7)])
+def test_k10_split_sums_equal_int_dot_bits_1_4(K, M, blocks, bits):
+    """The blocks' strip sums at bits 1 and 4, each of the 8 // bits fields
+    masked in place and shifted back by bits * j: int_dot_plain's."""
+    rng = np.random.default_rng(K + M + blocks + bits)
+    wq = rng.integers(0, 1 << bits, (K, M)).astype(np.uint8)
+    s = np.full((1, M), 0.02, np.float32)
+    qt = QuantizedTensor.from_quantized(wq, s, (1 << (bits - 1)) * s, bits, K, device="cpu")
+    x = torch.from_numpy(rng.standard_normal((1, K)).astype(np.float32))
+    codes = act_quant_plain(x, qt)[0]
+    assert torch.equal(int_dot_units_plain(codes, qt, blocks), int_dot_plain(codes, qt))

@@ -166,8 +166,13 @@ def test_e2_one_scale_row_matches_pallas(bits, N):
     np.testing.assert_array_equal(grouped_ext_plain(xt, qt).numpy(), want)
     codes, xs, xsum = external_int8(xt, qt)
     if bits == 8:
-        with pytest.raises(ValueError, match="one chunk"):
-            as_grouped(qt, xs, xsum)
+        # one chunk: as_grouped leaves it to K4L's one-unit fold, whose
+        # epilogue is fma(p, xs * scale, -fma(xsum, sub, 0))
+        assert as_grouped(qt, xs, xsum)[0] is qt
+        p = gk.group_dots_plain(codes, qt)[0].float()
+        z = gk.fma_f32(xsum.expand_as(p), qt.sub.float()[0].expand_as(p), torch.zeros_like(p))
+        model = gk.fma_f32(p, (xs[:, :1] * qt.scales.float()[0]).expand_as(p), -z)
+        np.testing.assert_array_equal(qt.slice_m(model).numpy(), want)
         return
     qk, xs_g, xsum_g = as_grouped(qt, xs, torch.zeros_like(xsum))
     assert qk.scales.shape[0] == K // fold_chunk(K, bits, K) >= 2
@@ -435,3 +440,98 @@ def test_as_grouped_native_is_the_one_row_fold(bits):
     assert torch.equal(got, native_plain(xt, qt))
     assert torch.equal(dataclasses.replace(qk, scales=qk.scales[:1], sub=qk.sub[:1],
                                            group_size=K).scales, qt.scales)
+
+
+# ---------------------------------------------------------------------------
+# E3 on f32 x, and one scale row at bits 8 from 64 rows (E2, E3)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("bits,gs,N", [(2, 128, 1), (4, 32, 64), (1, 128, 256),
+                                       (8, 32, 100), (3, 128, 63), (4, K, 64)])
+def test_e3_f32_x_matches_pallas(bits, gs, N):
+    """act "native" on f32 x (the reference's f32 dots, the kernels' f32-x
+    instances): the plain version within NATIVE_NMSE of qgemm_pallas and,
+    per output, within native_bound's f32 form of it."""
+    rng = np.random.default_rng(bits * 11 + gs + N)
+    qt, jqt = _pair(rng, bits, K, M, gs)
+    xj, xt = _x(rng, N, K, "f32")
+    want = _pallas(jnp.asarray(xj), jqt, "native")
+    got = qgemm(xt, qt, out_dtype=torch.float32, act="native").numpy()
+    assert nmse(want, got) < NATIVE_NMSE, nmse(want, got)
+    assert np.all(np.abs(got - want) <= native_bound(xt, qt).numpy() + 1e-30)
+
+
+def _k4_native_parts_f32(xt: torch.Tensor, qt) -> torch.Tensor:
+    """A model of K4's native kernel on f32 x (csrc/qgemm_grouped.cu,
+    k4_native_kernel): a fold chunk at a time, each of 16 k lanes adds its
+    products k = lane, lane + 16, ... in one fma each, lanes 2w + 1 into
+    2w, then the 8 warps in order.  -> the chunk sums (C, N, Mp) f32."""
+    xf = pad_x_for(xt.float(), qt)
+    N, Kp = xf.shape
+    ch = fold_chunk(Kp, qt.bits, qt.group_size)
+    w = unpack_codes(qt).float()
+    out = []
+    for c in range(Kp // ch):
+        lanes = []
+        for kl in range(16):
+            part = torch.zeros((N, w.shape[1]))
+            for k in range(c * ch + kl, (c + 1) * ch, 16):
+                part = gk.fma_f32(xf[:, k:k + 1].expand_as(part), w[k].expand_as(part), part)
+            lanes.append(part)
+        p = lanes[0] + lanes[1]
+        for wi in range(1, 8):
+            p = p + (lanes[2 * wi] + lanes[2 * wi + 1])
+        out.append(p)
+    return torch.stack(out)
+
+
+@pytest.mark.parametrize("bits,gs,N", [(2, 128, 1), (8, K, 64), (4, 16, 3), (3, 128, 70)])
+def test_k4_native_f32_x_model_is_within_the_bound(bits, gs, N):
+    """A model of K4's native kernel on f32 x (which takes f32 x at any N)
+    against the plain version: within native_bound's f32 form, the gate
+    chip_smoke.py holds the card to."""
+    rng = np.random.default_rng(bits + gs + N)
+    qt, _ = _pair(rng, bits, K, M, gs)
+    _, xt = _x(rng, N, K, "f32")
+    xsum = native_sums(xt, qt)
+    got = qt.slice_m(fold_plain(_k4_native_parts_f32(xt, qt), torch.ones_like(xsum), xsum, qt))
+    assert torch.all((got - native_plain(xt, qt)).abs() <= native_bound(xt, qt))
+
+
+@pytest.mark.parametrize("N", [64, 256])
+@pytest.mark.parametrize("act", ["int8", "native"])
+def test_bits8_one_scale_row_from_64_rows_matches_pallas(act, N):
+    """One scale row at bits 8 from 64 rows: the reference folds its one
+    chunk (Kp / p = Kp) once; the plain versions (K4L's one-unit fold on
+    the card) against qgemm_pallas: E2 bit for bit, E3 within NATIVE_NMSE
+    and native_bound; the route is K4L."""
+    rng = np.random.default_rng(N + len(act))
+    qt, jqt = _pair(rng, 8, K, M, K)
+    xj, xt = _x(rng, N, K, "bf16")
+    assert route(qt, N, act=act) == "K4L" and qt.scales.shape[0] == 1
+    assert fold_chunk(qt.kdim_padded, 8, qt.kdim_padded) == qt.kdim_padded
+    want = _pallas(xj, jqt, act)
+    got = qgemm(xt, qt, out_dtype=torch.float32, act=act).numpy()
+    if act == "int8":
+        np.testing.assert_array_equal(got, want)
+    else:
+        assert nmse(want, got) < NATIVE_NMSE
+        assert np.all(np.abs(got - want) <= 4 * native_bound(xt, qt).numpy() + 1e-30)
+    assert as_grouped(qt, None, native_sums(xt, qt))[0] is qt
+
+
+@pytest.mark.skipif(not torch.cuda.is_available(), reason="needs a CUDA device")
+@pytest.mark.parametrize("form,bits,gs,N,xdt", [
+    ("E3", 2, 128, 1, "f32"), ("E3", 2, 128, 256, "f32"), ("E3", 8, K, 64, "f32"),
+    ("E3", 8, K, 256, "bf16"), ("E2", 8, K, 64, "bf16"), ("E2", 8, K, 1, "bf16")])
+def test_forms_match_plain_on_card(form, bits, gs, N, xdt):
+    """On a card: E3 on f32 x and the bits-8 one-row forms against their
+    plain versions (E2 bit for bit, E3 within native_bound)."""
+    rng = np.random.default_rng(bits + N)
+    qt = _pair(rng, bits, K, M, gs)[0].to("cuda")
+    x = _x(rng, N, K, xdt)[1].cuda()
+    if form == "E2":
+        assert torch.equal(qgemm_grouped_ext(x, qt), grouped_ext_plain(x, qt))
+    else:
+        got, want = qgemm_native(x, qt), native_plain(x, qt)
+        assert torch.all((got - want).abs() <= native_bound(x, qt))

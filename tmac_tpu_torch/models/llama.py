@@ -58,7 +58,7 @@ from tmac_tpu_torch.ops.cuda.attention_kernel import (
     flash_decode_plain, quantize_kv)
 from tmac_tpu_torch.ops.cuda.block_kernel import (wo_mlp_block,
                                                   wo_mlp_block_plain)
-from tmac_tpu_torch.ops.qgemm import QuantizedTensor, fuse_m, kernel_for
+from tmac_tpu_torch.ops.qgemm import QuantizedTensor, fuse_m, kernel_for, qgemm_torch
 from tmac_tpu_torch.utils import round_up
 
 
@@ -73,7 +73,7 @@ def quantize_activations_int8(x: torch.Tensor):
 
 def apply_qlinear(x: torch.Tensor, qt: QuantizedTensor, norm=None,
                   glu: bool = False, residual=None, plain: bool = False,
-                  act_gs: int = 0):
+                  act_gs: int = 0, mode: Optional[str] = None):
     """x (..., K) @ Wdq (K, M) -> (..., M) in x's dtype, with the JAX
     package's pallas semantics on its route for the rows of x
     (ops.qgemm.kernel_for; plain=True takes the kernel's plain version):
@@ -81,7 +81,17 @@ def apply_qlinear(x: torch.Tensor, qt: QuantizedTensor, norm=None,
     and scale group, or with act_gs per token and activation group; after
     the optional norm or SwiGLU fold) and exact int32 dots, or, for
     grouped scales from 3 * group_size rows, bf16 activations times bf16
-    dequantized weights; the optional residual added in the epilogue."""
+    dequantized weights; the optional residual added in the epilogue.
+
+    A tensor packed for tensor parallelism's row split (k_shards > 1: wo
+    and down of init_params(tp=)) run whole on one device takes no kernel,
+    as JAX's qgemm_pallas takes none (it asserts k_shards == 1): it takes
+    the JAX package's XLA route (its apply_qlinear at impl="xla"), one
+    fold over every shard's groups (ops.qgemm.qgemm_torch) -- at mode
+    "w_a8" on activations quantized per token, else on x as it is -- the
+    SwiGLU applied first in bf16 and the residual added in f32."""
+    if qt.k_shards > 1:
+        return _xla_linear(x, qt, mode, norm, glu, residual)
     shape = x.shape
     x2 = x.reshape(-1, shape[-1])
     res2 = residual.reshape(-1, residual.shape[-1]) \
@@ -89,6 +99,32 @@ def apply_qlinear(x: torch.Tensor, qt: QuantizedTensor, norm=None,
     out = kernel_for(qt, x2.shape[0], plain, act_gs=act_gs)(
         x2, qt, norm=norm, glu=glu, residual=res2)
     return out.reshape(*shape[:-1], qt.mdim).to(x.dtype)
+
+
+def _xla_linear(x: torch.Tensor, qt: QuantizedTensor, mode: Optional[str], norm,
+                glu: bool, residual) -> torch.Tensor:
+    """apply_qlinear's route for a k-sharded tensor on one device: the JAX
+    package's apply_qlinear with use_pallas off (mode "w_a8": x quantized
+    per token over the whole row, the exact int dot times its scale; else
+    the float dot), qgemm_xla's one fold over all shards."""
+    if mode not in ("w_fp", "w_a8"):
+        raise ValueError(f"a k-sharded tensor needs the quantization mode, not {mode!r}")
+    if norm is not None:
+        raise ValueError("a k-sharded tensor takes no norm fold (its rows are split)")
+    shape = x.shape
+    x2 = x.reshape(-1, shape[-1])
+    if glu:
+        x2 = silu_mul(x2[:, :qt.kdim], x2[:, qt.kdim:])
+    if mode == "w_a8":
+        xq, xscale = quantize_activations_int8(x2)
+        out = qgemm_torch(xq, qt, torch.float32) * xscale
+    else:
+        out = qgemm_torch(x2, qt, torch.float32)
+    if residual is not None:
+        out = out + residual.reshape(-1, residual.shape[-1]).float()
+    # contiguous: the einsum's output may come permuted, and the kernels
+    # that read this next take contiguous rows
+    return out.reshape(*shape[:-1], qt.mdim).to(x.dtype).contiguous()
 
 
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
@@ -251,20 +287,25 @@ def _check_slice(cfg: ModelConfig) -> None:
 
 
 def _rand_qt(rng: np.random.Generator, K: int, M: int, cfg: ModelConfig,
-             device) -> QuantizedTensor:
+             device, k_shards: int = 1, m_shards: int = 1) -> QuantizedTensor:
     """Synthetic quantized weights, the JAX package's numpy draws in its
     order: w_a8 ternary {-1,0,1} stored as {1,2,3} with one scale per
-    tensor; w_fp random codes with per-group scales and zero points (bf16
-    scales and sub when grouped, f32 per channel: group_size -1), the zero
-    points on each group's mean code, jittered by -2..2."""
+    tensor (a row per k-shard); w_fp random codes with per-group scales and
+    zero points (bf16 scales and sub when grouped, f32 per channel:
+    group_size -1), the zero points on each group's mean code, jittered by
+    -2..2.  k_shards / m_shards: packed for a row- / column-parallel split."""
     q = cfg.quant
     gs = K if q.group_size == -1 else q.group_size
     std = 1.0 / np.sqrt(K)
+    shards = dict(k_shards=k_shards, m_shards=m_shards, device=device)
     if q.mode == "w_a8":
         wq = rng.integers(1, 4, (K, M)).astype(np.uint8)
         scales = np.full((1, M), std, np.float32)
+        if k_shards > 1:
+            # one scale row per k-shard: each rank holds a (1, M) slice
+            scales = np.repeat(scales, k_shards, 0)
         return QuantizedTensor.from_quantized(wq, scales, 2 * scales, bits=2,
-                                              group_size=K, device=device)
+                                              group_size=K // k_shards, **shards)
     qmax = (1 << q.bits) - 1
     mid = 1 << (q.bits - 1)
     G = K // gs
@@ -280,7 +321,7 @@ def _rand_qt(rng: np.random.Generator, K: int, M: int, cfg: ModelConfig,
         sub = mid * scales
     sd = torch.bfloat16 if gs < K else torch.float32
     return QuantizedTensor.from_quantized(wq, scales, sub, q.bits, gs,
-                                          scale_dtype=sd, device=device)
+                                          scale_dtype=sd, **shards)
 
 
 def _padded_ffn_width(size: int, cfg: ModelConfig, tp: int = 1) -> int:
@@ -312,13 +353,19 @@ def make_head(head_km: np.ndarray, cfg: ModelConfig, device="cuda"):
                                       device=device)
 
 
-def init_params(cfg: ModelConfig, seed: int = 0,
-                device="cuda") -> Dict[str, Any]:
+def init_params(cfg: ModelConfig, seed: int = 0, device="cuda",
+                tp: int = 1) -> Dict[str, Any]:
     """Random-but-realistic quantized parameters at the model's shapes,
-    byte for byte those of the JAX package's init_params(cfg, seed)."""
+    byte for byte those of the JAX package's init_params(cfg, seed, tp=tp):
+    tp > 1 packs the row-parallel linears (wo, down, the experts' and the
+    shared expert's down) with k_shards=tp and the column-parallel ones
+    with m_shards=tp, the FFN widths padded so each shard keeps whole
+    scale groups (parallel/tp.py slices them)."""
     _check_slice(cfg)
     rng = np.random.default_rng(seed)
-    H, I = cfg.hidden_size, padded_intermediate(cfg)
+    H, I = cfg.hidden_size, padded_intermediate(cfg, tp)
+    col = functools.partial(_rand_qt, rng, cfg=cfg, device=device, m_shards=tp)
+    row = functools.partial(_rand_qt, rng, cfg=cfg, device=device, k_shards=tp)
 
     def ones(n):
         return torch.ones((n,), dtype=torch.bfloat16, device=device)
@@ -328,37 +375,34 @@ def init_params(cfg: ModelConfig, seed: int = 0,
             torch.bfloat16).to(device)
 
     def gate_up(width):
-        return fuse_m([_rand_qt(rng, H, width, cfg, device),
-                       _rand_qt(rng, H, width, cfg, device)])
+        return fuse_m([col(H, width), col(H, width)])
 
     layers = []
     for _ in range(cfg.num_layers):
         layer = {
             "attn_norm": ones(H),
             "mlp_norm": ones(H),
-            "wqkv": fuse_m([_rand_qt(rng, H, cfg.q_dim, cfg, device),
-                            _rand_qt(rng, H, cfg.kv_dim, cfg, device),
-                            _rand_qt(rng, H, cfg.kv_dim, cfg, device)]),
-            "wo": _rand_qt(rng, cfg.q_dim, H, cfg, device),
+            "wqkv": fuse_m([col(H, cfg.q_dim), col(H, cfg.kv_dim),
+                            col(H, cfg.kv_dim)]),
+            "wo": row(cfg.q_dim, H),
         }
         if cfg.num_experts:
             # router, then every expert's fused gate_up, then every down,
             # then the shared expert: the JAX package's order of draws
-            Ie, E = padded_moe_intermediate(cfg), cfg.num_experts
+            Ie, E = padded_moe_intermediate(cfg, tp), cfg.num_experts
             layer["moe_router"] = normal_bf16((H, E))
             layer["experts_gate_up"] = stack_experts(
                 [gate_up(Ie) for _ in range(E)])
-            layer["experts_down"] = stack_experts(
-                [_rand_qt(rng, Ie, H, cfg, device) for _ in range(E)])
+            layer["experts_down"] = stack_experts([row(Ie, H) for _ in range(E)])
             if cfg.moe_shared_intermediate_size:
-                Is = _padded_ffn_width(cfg.moe_shared_intermediate_size, cfg)
+                Is = _padded_ffn_width(cfg.moe_shared_intermediate_size, cfg, tp)
                 layer["shared_gate_up"] = gate_up(Is)
-                layer["shared_down"] = _rand_qt(rng, Is, H, cfg, device)
+                layer["shared_down"] = row(Is, H)
                 if cfg.moe_shared_gate:
                     layer["shared_gate"] = normal_bf16((H,))
         else:
             layer["gate_up"] = gate_up(I)
-            layer["down"] = _rand_qt(rng, I, H, cfg, device)
+            layer["down"] = row(I, H)
         if cfg.attention_bias:
             # zeros, as the JAX package draws them (a checkpoint brings its own)
             for name, width in (("bq", cfg.q_dim), ("bk", cfg.kv_dim),
@@ -427,6 +471,17 @@ def _write_scale_all_layers(sbuf: torch.Tensor, per_layer: torch.Tensor,
     rows = torch.arange(per_layer.shape[1], device=sbuf.device)[:, None]
     sbuf[:, rows, :, _write_rows(pos[:, None], sbuf.shape[3])] = \
         per_layer.permute(1, 2, 0, 3)
+
+
+def _tp_sum(out: torch.Tensor, x: Optional[torch.Tensor], group) -> torch.Tensor:
+    """A row-parallel linear's output: without a group the epilogue has
+    added the residual already; with one the partial outputs (bf16) are
+    summed over the group in place (all_reduce, JAX's psum) and x, where
+    given, is added after, in bf16."""
+    if group is None:
+        return out
+    torch.distributed.all_reduce(out, group=group)
+    return out if x is None else x + out
 
 
 class QLinear(nn.Module):
@@ -526,6 +581,15 @@ class Llama(nn.Module):
     exists so that the kernel path can be held against a reference on the
     card; the default path never falls back to it.
 
+    tp_group: a torch.distributed process group of tensor parallelism
+    (parallel/tp.py), the counterpart of the JAX package's tp_axis: cfg is
+    then the rank's local config and params its shards; the partial
+    outputs of wo and down (the MoE MLP's too) are summed over the group
+    in the stream's bf16, as JAX's psum, and the residual is added after
+    the sum (never in the kernel's epilogue); K10's block mode is off, as
+    in JAX.  Every rank runs the replicated parts (embedding, final norm,
+    head).
+
     deferred_kv and the environment choose the decode step's KV-write mode
     once, here (kv_write_mode), so that a captured CUDA graph holds one
     mode; a prefill (T > 1) always writes explicitly, as in JAX.  So is
@@ -535,11 +599,13 @@ class Llama(nn.Module):
     K10."""
 
     def __init__(self, cfg: ModelConfig, params: Dict[str, Any],
-                 plain: bool = False, deferred_kv: Optional[bool] = None):
+                 plain: bool = False, deferred_kv: Optional[bool] = None,
+                 tp_group=None):
         super().__init__()
         _check_slice(cfg)
         self.cfg = cfg
         self.plain = plain
+        self.tp_group = tp_group
         self.kv_mode = kv_write_mode(deferred_kv)
         self.block_mode = os.environ.get("TMAC_BLOCK_KERNEL", "0") == "1"
         self.attend = {
@@ -657,6 +723,7 @@ class Llama(nn.Module):
         the shapes); return_hidden returns the hidden states (B, T, H)
         before the final norm instead of logits."""
         cfg = self.cfg
+        group = self.tp_group
         B, T = tokens.shape
         dev = tokens.device
         x = F.embedding(tokens, self.embed) if embeds is None \
@@ -681,7 +748,7 @@ class Llama(nn.Module):
         # every quantized linear of a layer, with the config's activation
         # group size (K4's and K4L's ags form; the other kernels ignore it)
         lin = functools.partial(apply_qlinear, plain=plain,
-                                act_gs=cfg.quant.act_group_size)
+                                act_gs=cfg.quant.act_group_size, mode=cfg.quant.mode)
         for li, blk in enumerate(self.layers):
             qkv = lin(x, blk.wqkv.qt, norm=(blk.attn_norm, eps))
             q, k, v = qkv[..., :qd], qkv[..., qd:qd + kvd], qkv[..., qd + kvd:]
@@ -700,7 +767,7 @@ class Llama(nn.Module):
             else:
                 attn = self._prefill_attention(q, cache, li, positions,
                                                kv_len_mask)
-            if B == 1 and T == 1 and self.block_mode and \
+            if B == 1 and T == 1 and self.block_mode and group is None and \
                     block_kernel_gate(cfg, blk):
                 # wo + residual, norm, gate_up, SwiGLU, down + residual in
                 # one program (K10), its f32 output cast to the stream's bf16
@@ -709,24 +776,30 @@ class Llama(nn.Module):
                           blk.wo.qt, blk.gate_up.qt, blk.down.qt,
                           eps).reshape(B, T, -1).to(x.dtype)
                 continue
-            x = lin(attn, blk.wo.qt, residual=x)
+            # the residual joins in wo's and down's epilogues only where no
+            # sum over the tp group follows (it must see the partial sums)
+            res = x if group is None else None
+            x = _tp_sum(lin(attn, blk.wo.qt, residual=res), x, group)
             if cfg.num_experts:
                 # MoE MLP (models/moe.py): norm, routing and the experts;
-                # the residual is added here, in bf16
-                x = x + moe_mlp(x, blk.moe_layer(), cfg, cfg.quant.mode,
-                                act_gs=cfg.quant.act_group_size, valid=valid,
-                                plain=plain)
+                # the residual is added here, in bf16, after the tp sum
+                d = moe_mlp(x, blk.moe_layer(), cfg, cfg.quant.mode,
+                            act_gs=cfg.quant.act_group_size, valid=valid,
+                            plain=plain)
+                x = x + _tp_sum(d, None, group)
                 continue
             gu = lin(x, blk.gate_up.qt, norm=(blk.mlp_norm, eps))
             down = blk.down.qt
+            res = x if group is None else None
             if down.kdim_padded == down.kdim:
                 # SwiGLU folded into down's prologue
-                x = lin(gu, down, glu=True, residual=x)
+                d = lin(gu, down, glu=True, residual=res)
             else:
                 # down's K is padded (e.g. W2 at group size 128): JAX runs
                 # silu(g) * u in bf16 before the kernel, and so does the port
                 h = silu_mul(gu[..., :down.kdim], gu[..., down.kdim:])
-                x = lin(h, down, residual=x)
+                d = lin(h, down, residual=res)
+            x = _tp_sum(d, x, group)
         if pending:
             self._commit_kv(cache, *(torch.stack(t) for t in zip(*pending)))
         cache.pos += T if active is None else T * active.to(cache.pos.dtype)

@@ -150,13 +150,13 @@ def _expert_ffn(x2: torch.Tensor, gu_qt: QuantizedTensor,
     elsewhere silu(g) * u runs in bf16 before down, as in the dense MLP.
     act_gs: the activation group size of K4's ags form."""
     from tmac_tpu_torch.models.llama import apply_qlinear, silu_mul
-    gu = apply_qlinear(x2, gu_qt, plain=plain, act_gs=act_gs)
+    gu = apply_qlinear(x2, gu_qt, plain=plain, act_gs=act_gs, mode=mode)
     if (down_qt.kdim_padded == down_qt.kdim
             and (mode != "w_a8" or down_qt.scales.shape[0] == 1)):
-        return apply_qlinear(gu, down_qt, glu=True, plain=plain, act_gs=act_gs)
+        return apply_qlinear(gu, down_qt, glu=True, plain=plain, act_gs=act_gs, mode=mode)
     ihalf = down_qt.kdim
     return apply_qlinear(silu_mul(gu[..., :ihalf], gu[..., ihalf:]), down_qt,
-                         plain=plain, act_gs=act_gs)
+                         plain=plain, act_gs=act_gs, mode=mode)
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,9 @@
 """Kernel K10: a decode step's residual block in one program.
 
 Replaces ``tmac_tpu/ops/pallas/block_kernel.py::wo_mlp_block``: for one
-token and per-tensor bits-2 weights (BitNet), wo + residual -> rms_norm ->
+token and per-tensor weights at bits 1, 2 or 4 (the model's block mode
+takes BitNet's bits 2; bits 1 and 4 are reached by a direct call, as in
+JAX), wo + residual -> rms_norm ->
 gate_up -> SwiGLU -> down + residual, every matmul on int8 activations
 quantized per row, as CUDA C++ for Hopper in ``csrc/block_kernel.cu``.
 That source says what bounds the kernel (device-memory bytes), how its
@@ -12,9 +14,9 @@ functions after it model the kernel's static partition of the work (the
 CPU tests hold them to ``int_dot_plain``).
 
 ``wo_mlp_block`` is the wrapper: a CPU tensor goes to the plain PyTorch
-version ``wo_mlp_block_plain``, a CUDA tensor to the kernel, which either
-launches or raises.  ``wo_mlp_block.launches`` counts launches.  Bits 1
-and 4, which the reference also takes, are not ported.
+version ``wo_mlp_block_plain``, a CUDA tensor to the kernel (one template
+instance a bits), which either launches or raises.
+``wo_mlp_block.launches`` counts launches.
 """
 
 from __future__ import annotations
@@ -35,8 +37,7 @@ _c_ptr, _c_int, _c_float = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 def check_supported(attn: torch.Tensor, wo: QuantizedTensor,
                     gu: QuantizedTensor, dn: QuantizedTensor) -> None:
-    """Raise where the reference's wo_mlp_block asserts, and on the bits
-    not ported."""
+    """Raise where the reference's wo_mlp_block asserts."""
     H = attn.shape[-1]
     if attn.dim() != 2 or attn.shape[0] != 1:
         raise ValueError(f"K10 is decode-only: attn (1, H), not {tuple(attn.shape)}")
@@ -53,8 +54,6 @@ def check_supported(attn: torch.Tensor, wo: QuantizedTensor,
         raise ValueError(f"wo's and down's M must be the hidden size {H}")
     if gu.mdim_padded != 2 * dn.kdim or dn.kdim_padded != dn.kdim:
         raise ValueError("gate_up's M must be twice down's K, unpadded")
-    if wo.bits != 2:
-        raise NotImplementedError(f"K10 is ported for bits 2, not {wo.bits}")
 
 
 # ---------------------------------------------------------------------------
@@ -100,11 +99,11 @@ BLOCK_STRIP = 128       # columns of a unit
 BLOCK_STAGE_ROWS = 64   # packed rows of a unit (a stage of the ring)
 
 
-def block_plan(K: int, M: int):
-    """A phase's units: (units a strip, unit count) of a (K, M) bits-2
-    matmul, units numbered strip-major (strip = u // per_strip, its packed
-    rows from (u % per_strip) * 64)."""
-    per_strip = cdiv(K // 4, BLOCK_STAGE_ROWS)
+def block_plan(K: int, M: int, bits: int = 2):
+    """A phase's units: (units a strip, unit count) of a (K, M) matmul at
+    bits (K // (8 // bits) packed rows), units numbered strip-major (strip
+    = u // per_strip, its packed rows from (u % per_strip) * 64)."""
+    per_strip = cdiv(K // (8 // bits), BLOCK_STAGE_ROWS)
     return per_strip, (M // BLOCK_STRIP) * per_strip
 
 
@@ -118,12 +117,13 @@ def int_dot_units_plain(codes: torch.Tensor, qt: QuantizedTensor,
                         blocks: int) -> torch.Tensor:
     """The exact int32 dot (1, M) as the kernel's blocks add it: each block
     sums each strip's packed rows of its units (field j of packed row r,
-    masked in place, meets code j * K / 4 + r, shifted back by 2j), and
-    the blocks' strip sums are added in device memory.  Equal to
-    int_dot_plain."""
-    K, M = qt.kdim_padded, qt.mdim_padded
-    Kb = K // 4
-    per_strip, total = block_plan(K, M)
+    masked in place, meets code j * K / P + r, shifted back by bits * j;
+    P = 8 // bits fields a byte), and the blocks' strip sums are added in
+    device memory.  Equal to int_dot_plain."""
+    K, M, b = qt.kdim_padded, qt.mdim_padded, qt.bits
+    P = 8 // b
+    Kb = K // P
+    per_strip, total = block_plan(K, M, b)
     c = codes.long()
     pk = qt.packed.long()
     sums = torch.zeros((codes.shape[0], M), dtype=torch.long)
@@ -132,9 +132,9 @@ def int_dot_units_plain(codes: torch.Tensor, qt: QuantizedTensor,
             strip, r0 = u // per_strip, (u % per_strip) * BLOCK_STAGE_ROWS
             r1 = min(r0 + BLOCK_STAGE_ROWS, Kb)
             cols = slice(strip * BLOCK_STRIP, (strip + 1) * BLOCK_STRIP)
-            for j in range(4):
-                masked = pk[r0:r1, cols] & (3 << (2 * j))
-                sums[:, cols] += (c[:, j * Kb + r0:j * Kb + r1] @ masked) >> (2 * j)
+            for j in range(P):
+                masked = pk[r0:r1, cols] & (((1 << b) - 1) << (b * j))
+                sums[:, cols] += (c[:, j * Kb + r0:j * Kb + r1] @ masked) >> (b * j)
     return sums.to(torch.int32)
 
 
@@ -147,7 +147,7 @@ def _lib():
     from tmac_tpu_torch.ops.cuda import build
     lib = build.load("block_kernel")
     lib.tmac_wo_mlp_block.argtypes = [
-        _c_ptr, _c_ptr, _c_ptr, _c_float, _c_float, _c_int, _c_int, _c_int,
+        _c_ptr, _c_ptr, _c_ptr, _c_float, _c_float, _c_int, _c_int, _c_int, _c_int,
         _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr,
         _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_int, _c_ptr]
     lib.tmac_wo_mlp_block.restype = _c_int
@@ -175,7 +175,8 @@ def wo_mlp_block(attn: torch.Tensor, resid: torch.Tensor,
     """One decode token through [wo + resid, rms_norm, gate_up, SwiGLU,
     down + resid]: attn and resid (1, H) bf16, norm_w (H,) bf16 -> (1, H)
     f32.  CPU tensors take the plain version; CUDA tensors the kernel (H
-    and gate_up's M multiples of 128; one launch at a time on a card, as
+    and gate_up's M multiples of 128, down's K of 32 // bits; one launch
+    at a time on a card, as
     its scratch sums are the card's).  blocks: the kernel's grid, 0 for
     one block an SM (the plan); a grid larger than can be resident at once
     is refused."""
@@ -185,18 +186,18 @@ def wo_mlp_block(attn: torch.Tensor, resid: torch.Tensor,
     if attn.device.type != "cuda":
         raise ValueError(f"K10 runs on CPU or CUDA tensors, not {attn.device}")
     dev = attn.device
-    H, I2, Ip = attn.shape[1], gu.mdim, dn.kdim
+    H, I2, Ip, P = attn.shape[1], gu.mdim, dn.kdim, 8 // wo.bits
     require("K10", attn, "attn", torch.bfloat16, (1, H), dev)
     require("K10", resid, "resid", torch.bfloat16, (1, H), dev)
     require("K10", norm_w, "norm weight", torch.bfloat16, (H,), dev)
     for name, qt, K, M in (("wo", wo, H, H), ("gate_up", gu, H, I2),
                            ("down", dn, Ip, H)):
-        require("K10", qt.packed, f"{name} packed", torch.uint8, (K // 4, M), dev)
+        require("K10", qt.packed, f"{name} packed", torch.uint8, (K // P, M), dev)
         require("K10", qt.scales, f"{name} scales", torch.float32, (1, M), dev)
         require("K10", qt.sub, f"{name} sub", torch.float32, (1, M), dev)
-    if H % BLOCK_STRIP or I2 % BLOCK_STRIP:
-        raise ValueError(f"K10 takes H and gate_up's M multiples of {BLOCK_STRIP}, "
-                         f"not {H} and {I2}")
+    if H % BLOCK_STRIP or I2 % BLOCK_STRIP or Ip % (4 * P):
+        raise ValueError(f"K10 takes H and gate_up's M multiples of {BLOCK_STRIP} and "
+                         f"down's K of {4 * P}, not {H}, {I2} and {Ip}")
     # the kernel copies each array into shared memory 16 bytes at a time
     for name, t in (("resid", resid), ("norm weight", norm_w),
                     ("wo packed", wo.packed), ("wo scales", wo.scales), ("wo sub", wo.sub),
@@ -209,7 +210,7 @@ def wo_mlp_block(attn: torch.Tensor, resid: torch.Tensor,
     out = torch.empty((1, H), dtype=torch.float32, device=dev)
     err = _lib().tmac_wo_mlp_block(
         attn.data_ptr(), resid.data_ptr(), norm_w.data_ptr(), float(eps),
-        1.0 / H, H, I2, Ip,
+        1.0 / H, H, I2, Ip, wo.bits,
         wo.packed.data_ptr(), wo.scales.data_ptr(), wo.sub.data_ptr(),
         gu.packed.data_ptr(), gu.scales.data_ptr(), gu.sub.data_ptr(),
         dn.packed.data_ptr(), dn.scales.data_ptr(), dn.sub.data_ptr(),

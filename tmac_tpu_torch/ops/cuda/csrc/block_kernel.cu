@@ -3,7 +3,8 @@
 // Replaces tmac_tpu/ops/pallas/block_kernel.py::wo_mlp_block
 // (_make_block_kernel), which the JAX package runs for each BitNet layer at
 // one token when TMAC_BLOCK_KERNEL=1.  For one row (N = 1) and per-tensor
-// bits-2 weights it computes, every f32 step as XLA compiles the reference
+// weights at bits 1, 2 or 4 (BITS, a template instance each; the model
+// runs bits 2, BitNet's) it computes, every f32 step as XLA compiles the reference
 // (the reference's interpret-mode kernel, read from its optimized HLO):
 //   1. q1, s1 = quantize(f32(attn))            (absmax int8 codes, scale
 //                                               max(amax, 1e-20) * (1/127))
@@ -38,9 +39,12 @@
 //   does the row work behind it, the first stages of the next phase are
 //   already in flight.
 // - The codes stay in natural k order: field j of packed row r holds k =
-//   j * K / 4 + r, so 4 rows' field j meet one 32-bit word of codes in a
-//   dp4a (K1's arithmetic: the field masked in place, shifted out exactly
-//   when the sums are flushed).  A warp owns 16 columns of half the stage's
+//   j * K / P + r (P = 8 / BITS fields a byte: 4 at bits 2, 2 at bits 4, 8
+//   at bits 1, the reference's unpack), so 4 rows' field j meet one 32-bit
+//   word of codes in a dp4a (K1's arithmetic: the field masked in place,
+//   shifted out exactly by BITS * j when the sums are flushed).  A stage's
+//   64 packed rows carry 64 P codes: bits 4 halves, and bits 1 doubles, the
+//   fields a thread walks per byte against bits 2.  A warp owns 16 columns of half the stage's
 //   rows; its 8 row groups add with shuffles, the two halves in shared
 //   memory, and at the end of a strip's units the block adds its exact
 //   int32 sums into device memory with integer atomics (exact in any
@@ -96,7 +100,7 @@ constexpr int kCodePad = 64;                    // codes read past K by a ragged
 constexpr int kRowRegs = 8;                     // a row's values a thread loads at once
 
 struct Linear {
-  const uint8_t* packed;  // (K / 4, M) bits-2 fields
+  const uint8_t* packed;  // (K / P, M) packed fields
   const float* scales;    // (M,)
   const float* sub;       // (M,)
 };
@@ -124,12 +128,14 @@ struct Phase {
   int K, M, Kb, per_strip, total, u0, u1, sum0;
 };
 
+// P: the fields of a packed byte (8 / BITS)
+template <int P>
 __device__ __forceinline__ Phase make_phase(const Linear& w, int K, int M, int sum0) {
   Phase p;
   p.w = w;
   p.K = K;
   p.M = M;
-  p.Kb = K / 4;
+  p.Kb = K / P;
   p.per_strip = (p.Kb + kStageRows - 1) / kStageRows;
   p.total = (M / kStrip) * p.per_strip;
   p.u0 = (int)blockIdx.x * p.total / (int)gridDim.x;
@@ -224,10 +230,10 @@ __device__ float2 quantize(const Smem& s, int K) {
 
 // The codes of the rows the block's units of phase f read, k = j * Kb + r
 // for the 64 rows r of each unit: val(k) quantized at sc, into codes[k]
-// (items i from `from` on, i = (u - u0) * 256 + j * 64 + row of the unit)
-template <typename Val>
+// (items i from `from` on, i = (u - u0) * 64 P + j * 64 + row of the unit)
+template <int P, typename Val>
 __device__ void unit_codes(const Phase& f, float sc, Val val, int8_t* codes, int from = 0) {
-  constexpr int kPer = 4 * kStageRows;
+  constexpr int kPer = P * kStageRows;
 #pragma unroll 4
   for (int i = from + threadIdx.x; i < (f.u1 - f.u0) * kPer; i += kThreads) {
     const int u = f.u0 + i / kPer, j = (i % kPer) / kStageRows;
@@ -247,7 +253,11 @@ __device__ void slice_code_sum(int k0, int k1, float sc, Val val, const Smem& s,
   if (threadIdx.x == 0) atomicAdd(total, qs);
 }
 
+template <int BITS>
 __global__ void __launch_bounds__(kThreads, 1) block_kernel(Args a) {
+  constexpr int P = 8 / BITS;  // fields of a packed byte
+  // a field's bits in each of a word's 4 bytes
+  constexpr uint32_t kMask = BITS == 1 ? 0x01010101u : BITS == 2 ? 0x03030303u : 0x0F0F0F0Fu;
   extern __shared__ __align__(16) uint8_t smem[];
   const Layout L(a.H, a.Ip);
   Smem s;
@@ -266,8 +276,9 @@ __global__ void __launch_bounds__(kThreads, 1) block_kernel(Args a) {
   const int rg = lane >> 2, cw = lane & 3, half = warp / 8, chunk = warp % 8;
   const int B = gridDim.x, b = blockIdx.x;
   cg::grid_group grid = cg::this_grid();
-  const Phase ph0 = make_phase(a.wo, a.H, a.H, 0), ph1 = make_phase(a.gu, a.H, a.I2, a.H),
-              ph2 = make_phase(a.dn, a.Ip, a.H, a.H + a.I2);
+  const Phase ph0 = make_phase<P>(a.wo, a.H, a.H, 0),
+              ph1 = make_phase<P>(a.gu, a.H, a.I2, a.H),
+              ph2 = make_phase<P>(a.dn, a.Ip, a.H, a.H + a.I2);
   const int n0 = ph0.u1 - ph0.u0, n1 = ph1.u1 - ph1.u0;
   const int total = n0 + n1 + ph2.u1 - ph2.u0;
 
@@ -352,7 +363,7 @@ __global__ void __launch_bounds__(kThreads, 1) block_kernel(Args a) {
       q.x = __fmul_rn(fmaxf(amax, 1e-20f), 1.0f / 127.0f);
       auto attn_val = [&](int k) { return s.vals[tmac::staged(k)]; };
       slice_code_sum(b * a.H / B, (b + 1) * a.H / B, q.x, attn_val, s, a.counts + kQsum1);
-      unit_codes(f, q.x, attn_val, s.codes);
+      unit_codes<P>(f, q.x, attn_val, s.codes);
       q0 = q;  // (its code sum is complete after the barrier)
     } else if (p == 1) {
       grid.sync();
@@ -417,7 +428,7 @@ __global__ void __launch_bounds__(kThreads, 1) block_kernel(Args a) {
       grid.sync();
       // every block's absmax and h at this block's rows, loaded together
       float hv[kRowRegs];
-      constexpr int kPer = 4 * kStageRows;
+      constexpr int kPer = P * kStageRows;
 #pragma unroll
       for (int i = 0; i < kRowRegs; ++i) {
         const int w = tid + i * kThreads, u = f.u0 + w / kPer;
@@ -437,14 +448,15 @@ __global__ void __launch_bounds__(kThreads, 1) block_kernel(Args a) {
         if (u < f.u1 && r < f.Kb)
           s.codes[(w % kPer) / kStageRows * f.Kb + r] = (int8_t)quant(hv[i], q.x);
       }
-      unit_codes(f, q.x, [&](int k) { return __ldcg(a.h + k); }, s.codes, kRowRegs * kThreads);
+      unit_codes<P>(f, q.x, [&](int k) { return __ldcg(a.h + k); }, s.codes,
+                    kRowRegs * kThreads);
     }
     if (p == 1) q0 = q;  // gate_up's, for its epilogue after the barrier
     __syncthreads();     // the codes are complete
 
-    int acc[4][4];
+    int acc[P][4];
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
+    for (int j = 0; j < P; ++j)
 #pragma unroll
       for (int c = 0; c < 4; ++c) acc[j][c] = 0;
     // the unit's strip and its stage of rows there, stepped, not divided
@@ -465,11 +477,11 @@ __global__ void __launch_bounds__(kThreads, 1) block_kernel(Args a) {
                        *reinterpret_cast<const uint32_t*>(st + 2 * kStrip),
                        *reinterpret_cast<const uint32_t*>(st + 3 * kStrip), col);
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < P; ++j) {
         const int xv = *reinterpret_cast<const int*>(s.codes + j * f.Kb + r);
 #pragma unroll
         for (int c = 0; c < 4; ++c)
-          acc[j][c] = tmac::dp4a_us(col[c] & (0x03030303u << (2 * j)), xv, acc[j][c]);
+          acc[j][c] = tmac::dp4a_us(col[c] & (kMask << (BITS * j)), xv, acc[j][c]);
       }
       const int cur = strip;
       if (++rs == f.per_strip) {
@@ -486,8 +498,8 @@ __global__ void __launch_bounds__(kThreads, 1) block_kernel(Args a) {
       for (int c = 0; c < 4; ++c) {
         int v = 0;
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          v += acc[j][c] >> (2 * j);
+        for (int j = 0; j < P; ++j) {
+          v += acc[j][c] >> (BITS * j);
           acc[j][c] = 0;
         }
 #pragma unroll
@@ -522,41 +534,54 @@ __global__ void __launch_bounds__(kThreads, 1) block_kernel(Args a) {
   cp_async_wait<0>();
 }
 
-}  // namespace
-
-// attn, resid, norm_w (H,) bf16; wo (H/4, H), gate_up (H/4, I2), down
-// (Ip/4, H) packed bits-2 fields with (M,) f32 scales and sub (every
-// array 16-byte aligned, each copied 16 bytes at a time); work (Ip +
-// 1024,) f32 scratch -> out (H,) f32.  sums (2H + I2,) and counts (4,)
-// int32: zero on entry, left zero (the wrapper keeps them per card; one
-// launch at a time uses them).  blocks: the grid, 0 for as many as are
-// resident at once (one an SM), else at most that, and at most 1024.  H, I2
-// multiples of 128, Ip of 16, I2 == 2 * Ip, max(H, Ip) <= 16384.  Returns
-// the launch's CUDA error.
-extern "C" int tmac_wo_mlp_block(
-    const void* attn, const void* resid, const void* norm_w, float eps,
-    float inv_h, int H, int I2, int Ip, const void* wo_p, const float* wo_s,
-    const float* wo_z, const void* gu_p, const float* gu_s, const float* gu_z,
-    const void* dn_p, const float* dn_s, const float* dn_z, float* work, float* out,
-    int* sums, int* counts, int blocks, void* stream) {
-  if (H % kStrip != 0 || I2 % kStrip != 0 || Ip % 16 != 0 || I2 != 2 * Ip ||
-      (H > Ip ? H : Ip) > tmac::kSumWindow * kThreads || blocks < 0 || blocks > 1024)
-    return (int)cudaErrorInvalidValue;
-  const size_t smem = Layout(H, Ip).total;
+// the cooperative launch of the BITS instance: a grid of `blocks`, or of
+// as many as are resident at once
+template <int BITS>
+int launch_block(const Args& a0, int blocks, cudaStream_t stream) {
+  Args a = a0;
+  const size_t smem = Layout(a.H, a.Ip).total;
   cudaError_t err = cudaFuncSetAttribute(
-      block_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      block_kernel<BITS>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   int dev = 0, sms = 0, per_sm = 0;
   if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
   if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) !=
       cudaSuccess)
     return (int)err;
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, block_kernel,
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, block_kernel<BITS>,
                                                             kThreads, smem)) != cudaSuccess)
     return (int)err;
   const int grid = blocks ? blocks : sms * per_sm;
   if (per_sm < 1 || grid > sms * per_sm || grid > 1024)
     return (int)cudaErrorCooperativeLaunchTooLarge;
+  void* args[] = {&a};
+  return (int)cudaLaunchCooperativeKernel((const void*)block_kernel<BITS>, dim3(grid),
+                                          dim3(kThreads), args, smem, stream);
+}
+
+}  // namespace
+
+// attn, resid, norm_w (H,) bf16; wo (H/P, H), gate_up (H/P, I2), down
+// (Ip/P, H) packed fields of `bits` (1, 2 or 4; P = 8 / bits) with (M,)
+// f32 scales and sub (every
+// array 16-byte aligned, each copied 16 bytes at a time); work (Ip +
+// 1024,) f32 scratch -> out (H,) f32.  sums (2H + I2,) and counts (4,)
+// int32: zero on entry, left zero (the wrapper keeps them per card; one
+// launch at a time uses them).  blocks: the grid, 0 for as many as are
+// resident at once (one an SM), else at most that, and at most 1024.  H, I2
+// multiples of 128, Ip of 4 P (a row of codes 4-byte aligned in every
+// field), I2 == 2 * Ip, max(H, Ip) <= 16384.  Returns the launch's CUDA
+// error.
+extern "C" int tmac_wo_mlp_block(
+    const void* attn, const void* resid, const void* norm_w, float eps,
+    float inv_h, int H, int I2, int Ip, int bits, const void* wo_p, const float* wo_s,
+    const float* wo_z, const void* gu_p, const float* gu_s, const float* gu_z,
+    const void* dn_p, const float* dn_s, const float* dn_z, float* work, float* out,
+    int* sums, int* counts, int blocks, void* stream) {
+  if ((bits != 1 && bits != 2 && bits != 4) || H % kStrip != 0 || I2 % kStrip != 0 ||
+      Ip % (32 / bits) != 0 || I2 != 2 * Ip ||
+      (H > Ip ? H : Ip) > tmac::kSumWindow * kThreads || blocks < 0 || blocks > 1024)
+    return (int)cudaErrorInvalidValue;
   auto lin = [](const void* p, const float* sc, const float* z) {
     return Linear{static_cast<const uint8_t*>(p), sc, z};
   };
@@ -565,7 +590,8 @@ extern "C" int tmac_wo_mlp_block(
          static_cast<const __nv_bfloat16*>(norm_w), eps, inv_h, H, I2, Ip,
          lin(wo_p, wo_s, wo_z), lin(gu_p, gu_s, gu_z), lin(dn_p, dn_s, dn_z),
          work, work + Ip, out, sums, counts};
-  void* args[] = {&a};
-  return (int)cudaLaunchCooperativeKernel((const void*)block_kernel, dim3(grid),
-                                          dim3(kThreads), args, smem, (cudaStream_t)stream);
+  cudaStream_t st = (cudaStream_t)stream;
+  return bits == 1 ? launch_block<1>(a, blocks, st)
+       : bits == 4 ? launch_block<4>(a, blocks, st)
+                   : launch_block<2>(a, blocks, st);
 }

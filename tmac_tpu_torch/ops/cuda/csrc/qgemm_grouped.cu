@@ -73,15 +73,17 @@
 // template instance of their own (scale_f32 in the C interfaces), so the
 // bf16 instances are unchanged; the factors are read as stored.
 //
-// The native form below 64 rows (k4_native_kernel: the reference's
-// act="native", bf16 x kept as it is, a float dot a fold chunk, pinned to
+// The native form (k4_native_kernel: the reference's act="native", bf16 x
+// below 64 rows and f32 x at any N, kept as it is (XT, an instance each), a
+// float dot a fold chunk, pinned to
 // the chunk path; any scale rows, the per-tensor ones too): a block of 256
 // threads takes 64 output columns (16 words of 4 packed columns) and NT
 // token rows, 16 k lanes a column word.  It walks the fold chunks in k
 // order: chunk c is field j = c * chunk / Kb of chunk-many packed rows, so
 // each packed byte is read once a field, from L2 after the first; a lane
-// multiplies each of its rows' 4 codes (exact as floats) by the bf16 x of
-// that k in f32 (every product exact), the 16 lanes' sums meet through a
+// multiplies each of its rows' 4 codes (exact as floats) by the x of that k
+// in f32 with an fma (a bf16 x's products exact; an f32 x's rounded once in
+// the fma's sum, as an f32 dot), the 16 lanes' sums meet through a
 // shuffle and shared memory in a fixed order, and the owner of an output
 // folds the chunk with the reference's chain (acc = fma(p_0, s_0, p_1 *
 // s_1), then fma(p_c, s_c, acc); p_0 * s_0 alone for one chunk).  Then
@@ -252,13 +254,17 @@ __device__ __forceinline__ void native_codes(const uint8_t* __restrict__ packed,
   for (int e = 0; e < 4; ++e) w[e] = (float)((v >> (8 * e)) & 0xFF);
 }
 
+__device__ __forceinline__ float x_value(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float x_value(float v) { return v; }
+
 // Block: columns [64 * blockIdx.x, +64), token rows [NT * blockIdx.y, +NT).
 // Thread: column word cw = lane % 16 (columns 4 cw .. +3 of the block), k
 // lane 2 * warp + lane / 16; after a chunk's sums meet, thread t < NT * 64
-// owns output (row t / 64, column t % 64).
-template <int BITS, int NT, typename SC>
+// owns output (row t / 64, column t % 64).  XT: x's type, __nv_bfloat16 or
+// float.
+template <int BITS, int NT, typename SC, typename XT>
 __global__ void __launch_bounds__(kNatThreads) k4_native_kernel(
-    const __nv_bfloat16* __restrict__ x, const float* __restrict__ xsum, int N, int Kp, int gs,
+    const XT* __restrict__ x, const float* __restrict__ xsum, int N, int Kp, int gs,
     int chunk, const uint8_t* __restrict__ packed, const uint8_t* __restrict__ packed_hi,
     int Mp, const SC* __restrict__ scales, const SC* __restrict__ sub,
     const __nv_bfloat16* __restrict__ residual, float* __restrict__ out) {
@@ -285,7 +291,7 @@ __global__ void __launch_bounds__(kNatThreads) k4_native_kernel(
       native_codes<BITS>(packed, packed_hi, k, Kb, Kh, Mp, m0 + 4 * cw, w);
 #pragma unroll
       for (int n = 0; n < NT; ++n) {
-        const float xv = n < nrows ? __bfloat162float(x[(size_t)(n0 + n) * Kp + k]) : 0.f;
+        const float xv = n < nrows ? x_value(x[(size_t)(n0 + n) * Kp + k]) : 0.f;
 #pragma unroll
         for (int e = 0; e < 4; ++e) part[n][e] = __fmaf_rn(xv, w[e], part[n][e]);
       }
@@ -331,38 +337,39 @@ __global__ void __launch_bounds__(kNatThreads) k4_native_kernel(
   }
 }
 
-template <int BITS, typename SC>
-int launch_native(const __nv_bfloat16* x, const float* xsum, int N, int Kp, int gs, int chunk,
+template <int BITS, typename SC, typename XT>
+int launch_native(const XT* x, const float* xsum, int N, int Kp, int gs, int chunk,
                   const uint8_t* packed, const uint8_t* packed_hi, int Mp, const void* scales,
                   const void* sub, const __nv_bfloat16* residual, float* out,
                   cudaStream_t stream) {
   const SC* sc = static_cast<const SC*>(scales);
   const SC* sb = static_cast<const SC*>(sub);
   if (N == 1) {
-    k4_native_kernel<BITS, 1, SC><<<dim3(Mp / kNatCols, 1), kNatThreads, 0, stream>>>(
+    k4_native_kernel<BITS, 1, SC, XT><<<dim3(Mp / kNatCols, 1), kNatThreads, 0, stream>>>(
         x, xsum, N, Kp, gs, chunk, packed, packed_hi, Mp, sc, sb, residual, out);
   } else {
-    k4_native_kernel<BITS, 4, SC><<<dim3(Mp / kNatCols, (N + 3) / 4), kNatThreads, 0, stream>>>(
-        x, xsum, N, Kp, gs, chunk, packed, packed_hi, Mp, sc, sb, residual, out);
+    k4_native_kernel<BITS, 4, SC, XT>
+        <<<dim3(Mp / kNatCols, (N + 3) / 4), kNatThreads, 0, stream>>>(
+            x, xsum, N, Kp, gs, chunk, packed, packed_hi, Mp, sc, sb, residual, out);
   }
   return (int)cudaGetLastError();
 }
 
-template <typename SC>
-int launch_native_bits(int bits, const __nv_bfloat16* x, const float* xsum, int N, int Kp,
+template <typename SC, typename XT>
+int launch_native_bits(int bits, const XT* x, const float* xsum, int N, int Kp,
                        int gs, int chunk, const uint8_t* packed, const uint8_t* packed_hi,
                        int Mp, const void* scales, const void* sub,
                        const __nv_bfloat16* residual, float* out, cudaStream_t stream) {
   switch (bits) {
-    case 1: return launch_native<1, SC>(x, xsum, N, Kp, gs, chunk, packed, packed_hi, Mp,
+    case 1: return launch_native<1, SC, XT>(x, xsum, N, Kp, gs, chunk, packed, packed_hi, Mp,
                                         scales, sub, residual, out, stream);
-    case 2: return launch_native<2, SC>(x, xsum, N, Kp, gs, chunk, packed, packed_hi, Mp,
+    case 2: return launch_native<2, SC, XT>(x, xsum, N, Kp, gs, chunk, packed, packed_hi, Mp,
                                         scales, sub, residual, out, stream);
-    case 3: return launch_native<3, SC>(x, xsum, N, Kp, gs, chunk, packed, packed_hi, Mp,
+    case 3: return launch_native<3, SC, XT>(x, xsum, N, Kp, gs, chunk, packed, packed_hi, Mp,
                                         scales, sub, residual, out, stream);
-    case 4: return launch_native<4, SC>(x, xsum, N, Kp, gs, chunk, packed, packed_hi, Mp,
+    case 4: return launch_native<4, SC, XT>(x, xsum, N, Kp, gs, chunk, packed, packed_hi, Mp,
                                         scales, sub, residual, out, stream);
-    default: return launch_native<8, SC>(x, xsum, N, Kp, gs, chunk, packed, packed_hi, Mp,
+    default: return launch_native<8, SC, XT>(x, xsum, N, Kp, gs, chunk, packed, packed_hi, Mp,
                                          scales, sub, residual, out, stream);
   }
 }
@@ -452,32 +459,40 @@ extern "C" int tmac_decode_group_gemm(const void* codes, const float* xs,
              : launch_decode_bits<false, __nv_bfloat16>(a, bits, ksplit, nt, s);
 }
 
-// K4's native form (E3) below 64 rows: x (N, Kp) bf16 (the caller's, its
-// K padding zero), xsum (N, G) f32 (its f32 sums a scale group of gs k;
+// K4's native form (E3): x (N, Kp) bf16 (x_f32 0) or f32
+// (x_f32 1) (the caller's, its K padding zero), xsum (N, G) f32 (its f32
+// sums a scale group of gs k;
 // G = Kp / gs, 1 for one scale row), packed as tmac_decode_group_gemm's,
 // scales and sub (G, Mp) bf16 (scale_f32 0) or f32 (1), residual (N, Mp)
 // bf16 or null -> out (N, Mp) f32.  chunk: the fold's chunk (a multiple of
 // 16 dividing gs and Kp / P; the reference's min(gs, Kp / P), at bits 3
-// also at most Kp / 8).  1 <= N < 64; Mp a multiple of 64.
-extern "C" int tmac_decode_native(const void* x, const float* xsum, int N, int Kp, int gs,
-                                  int chunk, int bits, const void* packed,
+// also at most Kp / 8).  1 <= N, below 64 on bf16 x (K4L's native instance
+// takes bf16 x from there; the tensor cores have no f32 x bf16 product, so
+// f32 x stays here at any N); Mp a multiple of 64.
+extern "C" int tmac_decode_native(const void* x, int x_f32, const float* xsum, int N, int Kp,
+                                  int gs, int chunk, int bits, const void* packed,
                                   const void* packed_hi, int Mp, const void* scales,
                                   const void* sub, int scale_f32, const void* residual,
                                   float* out, void* stream) {
   const int P = bits == 8 ? 1 : bits == 3 ? 4 : (bits >= 1 && bits <= 4 ? 8 / bits : 0);
-  if (N <= 0 || N >= kLargeN || P == 0 || (bits == 3) != (packed_hi != nullptr) ||
+  if (N <= 0 || (N >= kLargeN && !x_f32) || P == 0 || (bits == 3) != (packed_hi != nullptr) ||
       Mp % kNatCols != 0 || gs <= 0 || Kp % gs != 0 || chunk < 16 || chunk % 16 != 0 ||
       (Kp / P) % chunk != 0 || (gs % chunk != 0 && chunk % gs != 0) ||
       (bits == 3 && (Kp / 8) % chunk != 0))
     return (int)cudaErrorInvalidValue;
   const __nv_bfloat16* xb = static_cast<const __nv_bfloat16*>(x);
+  const float* xf = static_cast<const float*>(x);
   const uint8_t* pk = static_cast<const uint8_t*>(packed);
   const uint8_t* ph = static_cast<const uint8_t*>(packed_hi);
   const __nv_bfloat16* res = static_cast<const __nv_bfloat16*>(residual);
   cudaStream_t s = (cudaStream_t)stream;
-  if (scale_f32)
-    return launch_native_bits<float>(bits, xb, xsum, N, Kp, gs, chunk, pk, ph, Mp, scales, sub,
-                                     res, out, s);
-  return launch_native_bits<__nv_bfloat16>(bits, xb, xsum, N, Kp, gs, chunk, pk, ph, Mp, scales,
-                                           sub, res, out, s);
+  if (x_f32)
+    return scale_f32 ? launch_native_bits<float>(bits, xf, xsum, N, Kp, gs, chunk, pk, ph, Mp,
+                                                 scales, sub, res, out, s)
+                     : launch_native_bits<__nv_bfloat16>(bits, xf, xsum, N, Kp, gs, chunk, pk,
+                                                         ph, Mp, scales, sub, res, out, s);
+  return scale_f32 ? launch_native_bits<float>(bits, xb, xsum, N, Kp, gs, chunk, pk, ph, Mp,
+                                               scales, sub, res, out, s)
+                   : launch_native_bits<__nv_bfloat16>(bits, xb, xsum, N, Kp, gs, chunk, pk,
+                                                       ph, Mp, scales, sub, res, out, s);
 }

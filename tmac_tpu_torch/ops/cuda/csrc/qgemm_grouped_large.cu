@@ -102,7 +102,14 @@
 // no activation scale (x_g = scale_g), xsum (N, G) is the caller's f32 sums
 // of x per group.  A third library (qgemm_grouped_large_native.cu: this
 // source with TMAC_K4L_NATIVE set) holds these instances, both scale
-// dtypes, behind tmac_group_gemm_native.
+// dtypes, behind tmac_group_gemm_native (f32 x takes K4's native kernel
+// at any N, qgemm_grouped.cu).
+//
+// One fold unit (G = 1: one scale row at bits 8, whose reference chunk is
+// the whole Kp): the reference folds it once, p * x_0 for the native form,
+// fma(p, x_0, -(xsum * sub)) for the external-int8 one (XLA fuses its one
+// zero-point term), so the kernel keeps p as f32 and its epilogue applies
+// that.
 //
 // This source builds two libraries: the bf16-scale instances here, and,
 // compiled again with TMAC_K4L_F32 set (qgemm_grouped_large_f32.cu), the
@@ -563,7 +570,8 @@ __global__ void __launch_bounds__(kLThreads) group_mma_kernel(
             }
       });
   } else {
-    // group 0: keep p_0 (as f32) for group 1's fma(p_0, x_0, p_1 * x_1)
+    // group 0: keep p_0 (as f32) for group 1's fma(p_0, x_0, p_1 * x_1),
+    // or, the one unit, for the epilogue's fold
     int t = 0;
     for (; t < steps_g; ++t) step(t, [] {});
 #pragma unroll
@@ -576,44 +584,47 @@ __global__ void __launch_bounds__(kLThreads) group_mma_kernel(
           acc[mt][c][e] = 0;
         }
     // group 1
-    for (; t < 2 * steps_g; ++t) step(t, [] {});
-#pragma unroll
-    for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-      for (int c = 0; c < 4; ++c)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float x0 = __fmul_rn(row_f(0, mt, e >> 1), col_f(0, c, e & 1));
-          const float x1 = __fmul_rn(row_f(1, mt, e >> 1), col_f(1, c, e & 1));
-          facc[mt][c][e] =
-              __fmaf_rn(facc[mt][c][e], x0, __fmul_rn(exact_float(acc[mt][c][e]), x1));
-          acc[mt][c][e] = 0;
-        }
-    // groups 2, 3, ...: acc = fma(p_g, x_g, acc), the factors of g read
-    // during its first step
-    for (int g = 2; g < Gf; ++g) {
-      float xr[4][2], sc[4][2];
-      step(t++, [&] {
-#pragma unroll
-        for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-          for (int h = 0; h < 2; ++h) xr[mt][h] = row_f(g, mt, h);
-#pragma unroll
-        for (int c = 0; c < 4; ++c)
-#pragma unroll
-          for (int e = 0; e < 2; ++e) sc[c][e] = col_f(g, c, e);
-      });
-      for (int i = 1; i < steps_g; ++i, ++t) step(t, [] {});
+    if (Gf > 1) {
+      for (; t < 2 * steps_g; ++t) step(t, [] {});
 #pragma unroll
       for (int mt = 0; mt < 4; ++mt)
 #pragma unroll
         for (int c = 0; c < 4; ++c)
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
-            facc[mt][c][e] = __fmaf_rn(exact_float(acc[mt][c][e]),
-                                       __fmul_rn(xr[mt][e >> 1], sc[c][e & 1]), facc[mt][c][e]);
+            const float x0 = __fmul_rn(row_f(0, mt, e >> 1), col_f(0, c, e & 1));
+            const float x1 = __fmul_rn(row_f(1, mt, e >> 1), col_f(1, c, e & 1));
+            facc[mt][c][e] =
+                __fmaf_rn(facc[mt][c][e], x0, __fmul_rn(exact_float(acc[mt][c][e]), x1));
             acc[mt][c][e] = 0;
           }
+      // groups 2, 3, ...: acc = fma(p_g, x_g, acc), the factors of g read
+      // during its first step
+      for (int g = 2; g < Gf; ++g) {
+        float xr[4][2], sc[4][2];
+        step(t++, [&] {
+#pragma unroll
+          for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) xr[mt][h] = row_f(g, mt, h);
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) sc[c][e] = col_f(g, c, e);
+        });
+        for (int i = 1; i < steps_g; ++i, ++t) step(t, [] {});
+#pragma unroll
+        for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              facc[mt][c][e] =
+                  __fmaf_rn(exact_float(acc[mt][c][e]), __fmul_rn(xr[mt][e >> 1], sc[c][e & 1]),
+                            facc[mt][c][e]);
+              acc[mt][c][e] = 0;
+            }
+      }
     }
   }
 
@@ -678,7 +689,15 @@ __global__ void __launch_bounds__(kLThreads) group_mma_kernel(
         float o[4];
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
-          o[c] = __fsub_rn(facc[mt][c][2 * h + e], z[mt][c][2 * h + e]);
+          const float f = facc[mt][c][2 * h + e], zz = z[mt][c][2 * h + e];
+          if (Gf == 1) {
+            // the one unit's fold: the factor block of unit 0 is still in
+            // its slot (the z passes use the ring only)
+            const float x0 = __fmul_rn(row_f(0, mt, h), col_f(0, c, e));
+            o[c] = NATIVE ? __fsub_rn(__fmul_rn(f, x0), zz) : __fmaf_rn(f, x0, -zz);
+          } else {
+            o[c] = __fsub_rn(f, zz);
+          }
           if (residual != nullptr)
             o[c] = __fadd_rn(o[c], __bfloat162float(residual[(size_t)n * Mp + m + c]));
         }
@@ -813,7 +832,8 @@ int launch_group_mma_bits(int bits, const int8_t* codes, const float* xs, const 
 // refuses the other), residual (N, Mp) bf16 or null -> out (N, Mp) f32,
 // the fold in registers.  bits 1 to 4 or 8; gs 16 or a multiple of 32, ags
 // as K4's; Kp a multiple of gs * 8 / bits (gs * 8 at bits 3, gs at bits 8);
-// Mp of 128; G >= 2.
+// Mp of 128; G >= 2, or G = 1 (one fold unit: bits 8 at one scale row) at
+// gs a multiple of 32 and ags 0.
 #if !TMAC_K4L_NATIVE
 extern "C" int tmac_group_gemm(const void* codes, const float* xs,
                                const float* xsum, int N, int Kp, int gs, int ags,
@@ -822,7 +842,8 @@ extern "C" int tmac_group_gemm(const void* codes, const float* xs,
                                const void* residual, float* out, void* stream) {
   if (N <= 0 || !tmac::decode::unit_size_ok(gs) || Mp % kLBM != 0 || bits < 1 ||
       (bits > 4 && bits != 8) || (bits == 3) != (packed_hi != nullptr) ||
-      Kp % (gs * tmac::decode::fields(bits)) != 0 || Kp / gs < 2 ||
+      Kp % (gs * tmac::decode::fields(bits)) != 0 ||
+      (Kp / gs < 2 && (gs % 32 != 0 || ags != 0)) ||
       (ags != 0 && (!tmac::decode::unit_size_ok(ags) || gs % ags != 0 || ags >= gs)) ||
       (scale_f32 != 0) != (TMAC_K4L_F32 != 0))
     return (int)cudaErrorInvalidValue;
@@ -845,7 +866,8 @@ extern "C" int tmac_group_gemm(const void* codes, const float* xs,
 // and residual as tmac_group_gemm's (scale_f32 0: bf16, 1: f32; this
 // library holds both) -> out (N, Mp) f32: per group a bf16 tensor-core
 // dot with f32 sums, folded in g order with the group's scale, minus
-// xsum @ sub.  The same shapes as tmac_group_gemm's, with no ags.
+// xsum @ sub.  The same shapes as tmac_group_gemm's, with no ags; G = 1
+// (one fold unit) at gs a multiple of 32.
 extern "C" int tmac_group_gemm_native(const void* x, const float* xsum, int N, int Kp, int gs,
                                       int bits, const void* packed, const void* packed_hi,
                                       int Mp, const void* scales, const void* sub,
@@ -853,7 +875,7 @@ extern "C" int tmac_group_gemm_native(const void* x, const float* xsum, int N, i
                                       void* stream) {
   if (N <= 0 || !tmac::decode::unit_size_ok(gs) || Mp % kLBM != 0 || bits < 1 ||
       (bits > 4 && bits != 8) || (bits == 3) != (packed_hi != nullptr) ||
-      Kp % (gs * tmac::decode::fields(bits)) != 0 || Kp / gs < 2)
+      Kp % (gs * tmac::decode::fields(bits)) != 0 || (Kp / gs < 2 && gs % 32 != 0))
     return (int)cudaErrorInvalidValue;
   const int8_t* xb = static_cast<const int8_t*>(x);
   const uint8_t* pk = static_cast<const uint8_t*>(packed);

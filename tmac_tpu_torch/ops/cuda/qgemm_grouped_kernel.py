@@ -62,15 +62,18 @@ with its own ``launches`` and a plain version:
     those: bf16 x, and no ags below LARGE_N rows), or int8 x as given
     (xs = 1, the reference's float-fold branch on int8 operands); one
     scale row too, as a grouped tensor of the reference's fold chunks
-    (``as_grouped``);
-  * E3, ``qgemm_native`` (``native_plain``): float dots on bf16 x, a fold
-    chunk at a time, exact products and f32 sums (the reference's
-    act="native", pinned to the chunk path): K4's native kernel below
-    LARGE_N rows (``k4_native_kernel`` in ``csrc/qgemm_grouped.cu``), K4L's
-    native instance from there (``csrc/qgemm_grouped_large_native.cu``,
-    m16n8k16 bf16); only the sum order inside a chunk differs from the
-    plain version's, so each output is held to sqrt(chunk) * 2^-23 *
-    sum |x * w| of it;
+    (``as_grouped``), or, at bits 8 (one chunk, folded once), K4L's
+    one-unit fold at any N;
+  * E3, ``qgemm_native`` (``native_plain``): float dots on bf16 or f32 x,
+    a fold chunk at a time, f32 sums (the reference's act="native", pinned
+    to the chunk path): K4's native kernel (``k4_native_kernel`` in
+    ``csrc/qgemm_grouped.cu``, an instance for each x dtype) on bf16 x
+    below LARGE_N rows and on f32 x at any N (the tensor cores have no f32
+    x bf16 product), K4L's native instances on bf16 x from there
+    (``csrc/qgemm_grouped_large_native.cu``, m16n8k16 bf16); only the sum
+    order inside a chunk differs from the plain version's (and, on f32 x,
+    the kernel's fma rounding each product with its sum), so each output
+    is held to native_bound of it;
   * E4, ``qgemm_dequant_ext`` (``dequant_ext_plain``): float x at the
     dequant dot (act "auto" from 64 rows where the dispatch is "dequant"):
     K5 on x rounded to bf16, with no norm or glu.
@@ -349,8 +352,8 @@ def _lib():
         _c_ptr, _c_ptr, _c_ptr, _c_int, _c_int, _c_int, _c_int, _c_int, _c_ptr,
         _c_ptr, _c_int, _c_ptr, _c_ptr, _c_int, _c_ptr, _c_ptr, _c_int, _c_int, _c_ptr]
     lib.tmac_decode_native.argtypes = [
-        _c_ptr, _c_ptr, _c_int, _c_int, _c_int, _c_int, _c_int, _c_ptr, _c_ptr, _c_int,
-        _c_ptr, _c_ptr, _c_int, _c_ptr, _c_ptr, _c_ptr]
+        _c_ptr, _c_int, _c_ptr, _c_int, _c_int, _c_int, _c_int, _c_int, _c_ptr, _c_ptr,
+        _c_int, _c_ptr, _c_ptr, _c_int, _c_ptr, _c_ptr, _c_ptr]
     for fn in (lib.tmac_act_quant_grouped, lib.tmac_decode_group_gemm,
                lib.tmac_decode_native):
         fn.restype = _c_int
@@ -807,18 +810,21 @@ def as_grouped(qt: QuantizedTensor, xs, xsum: torch.Tensor):
     repeated, xs (N, 1) repeated, and xsum (N, 1) followed by zeros (z =
     fma(xsum, sub, 0), then fma(0, sub, z) = z) computes the same chain.
     (E2 passes xsum 0 and folds the zero point after, one_row_zero_fold.)
-    Grouped tensors come back as they are.  Raises where the kernels
-    cannot take the chunk (bits 8: one chunk; a chunk that is not 16 or a
-    multiple of 32)."""
+    Grouped tensors come back as they are, and so does one chunk (bits 8,
+    Kp a multiple of 32: K4L's one fold unit).  Raises where the kernels
+    cannot take the chunk (not 16 or a multiple of 32)."""
     if qt.scales.shape[0] > 1:
         return qt, xs, xsum
     Kp = qt.kdim_padded
     ch = fold_chunk(Kp, qt.bits, Kp)
     G = Kp // ch
-    if G < 2 or not unit_size_ok(ch):
+    if G == 1 and Kp % 32 == 0:
+        # one chunk (bits 8): K4L folds it as its one unit
+        return qt, xs, xsum
+    if not unit_size_ok(ch) or G == 1:
         raise ValueError(f"the grouped kernels fold one scale row in chunks of {ch} at "
-                         f"bits {qt.bits}; they take two or more chunks of 16 or a "
-                         "multiple of 32 (one scale row at bits 8 has one chunk)")
+                         f"bits {qt.bits}: of 16 or a multiple of 32 (one chunk: of Kp "
+                         "a multiple of 32)")
     q = dataclasses.replace(qt, scales=qt.scales.expand(G, -1).contiguous(),
                             sub=qt.sub.expand(G, -1).contiguous(), group_size=ch)
     xs = xs.expand(-1, G).contiguous() if xs is not None else None
@@ -844,16 +850,22 @@ def qgemm_grouped_ext(x: torch.Tensor, qt: QuantizedTensor, residual=None,
     else:
         codes, xs, xsum = external_int8(x, qt, ags)
     one_row = qt.scales.shape[0] == 1
+    codes = codes.contiguous()
     # one scale row: the chain on the card (z = 0), the fused zero fold after
     qk, xs_k, xsum_k = as_grouped(qt, xs.contiguous(),
                                   torch.zeros_like(xsum) if one_row else xsum.contiguous())
-    codes, res_k = codes.contiguous(), None if one_row else residual
-    if N < LARGE_N:
-        out = launch_decode_grouped(codes, xs_k, xsum_k, qk, res_k, ags=ags)
+    if qk.scales.shape[0] == 1:
+        # one chunk (bits 8), which the reference folds once, fma(p, xs *
+        # scale, -(xsum * sub)): K4L's one-unit fold takes xsum, at any N
+        out = launch_group_gemm(codes, xs_k, xsum.contiguous(), qk, residual)
     else:
-        out = launch_group_gemm(codes, xs_k, xsum_k, qk, res_k, ags)
-    if one_row:
-        out = one_row_zero_fold(out, xsum, qt, residual)
+        res_k = None if one_row else residual
+        if N < LARGE_N:
+            out = launch_decode_grouped(codes, xs_k, xsum_k, qk, res_k, ags=ags)
+        else:
+            out = launch_group_gemm(codes, xs_k, xsum_k, qk, res_k, ags)
+        if one_row:
+            out = one_row_zero_fold(out, xsum, qt, residual)
     qgemm_grouped_ext.launches += 1
     return qt.slice_m(out)
 
@@ -871,8 +883,9 @@ def native_sums(x: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
 
 def native_parts_plain(x: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
     """E3's per-chunk sums (C, N, Mp) f32: x (in f32, bf16 widened exactly)
-    times the codes (as floats), a fold chunk (fold_chunk) at a time; every
-    product exact, the sums f32 (TF32 off on the card)."""
+    times the codes (as floats), a fold chunk (fold_chunk) at a time; the
+    sums f32 (TF32 off on the card), every product exact on bf16 x (on f32
+    x rounded once, as the reference's f32 dot)."""
     xf = pad_x_for(x.float(), qt)
     N, Kp = xf.shape
     ch = fold_chunk(Kp, qt.bits, qt.group_size)
@@ -893,25 +906,33 @@ def native_plain(x: torch.Tensor, qt: QuantizedTensor, residual=None) -> torch.T
 
 def native_bound(x: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
     """Where E3's kernel and plain version may differ, an output at a time:
-    sqrt(chunk) * 2^-23 * sum |x * Wdq| (only the order of a chunk's f32
-    sums differs).  -> (N, M) f32."""
+    bf16 x, sqrt(chunk) * 2^-23 * sum |x * Wdq| (every product exact, only
+    the order of a chunk's f32 sums differs); f32 x, (sqrt(chunk) + 1) *
+    2^-23 * sum |x * Wdq| (K4's native kernel adds each product to its sum
+    in one fma, where the plain version rounds each f32 product first: at
+    most 2^-24 of each term more).  -> (N, M) f32."""
     xf = pad_x_for(x.float(), qt).abs()
     ch = fold_chunk(qt.kdim_padded, qt.bits, qt.group_size)
     w = unpack_codes(qt).float().reshape(qt.scales.shape[0], -1, qt.mdim_padded)
     w = (w * qt.scales.float()[:, None] - qt.sub.float()[:, None]).abs()
-    return qt.slice_m(xf @ w.reshape(qt.kdim_padded, -1)) * (ch ** 0.5 * 2.0 ** -23)
+    f = ch ** 0.5 if x.dtype == torch.bfloat16 else ch ** 0.5 + 1
+    return qt.slice_m(xf @ w.reshape(qt.kdim_padded, -1)) * (f * 2.0 ** -23)
 
 
 @functools.cache
 def _lib_native():
-    """K4L's native instances, both scale dtypes (csrc/qgemm_grouped_large_native.cu)."""
+    """K4L's native instances, both scale dtypes
+    (csrc/qgemm_grouped_large_native.cu)."""
     from tmac_tpu_torch.ops.cuda import build
     lib = build.load("qgemm_grouped_large_native")
     lib.tmac_group_gemm_native.argtypes = [
-        _c_ptr, _c_ptr, _c_int, _c_int, _c_int, _c_int, _c_ptr, _c_ptr, _c_int, _c_ptr,
-        _c_ptr, _c_int, _c_ptr, _c_ptr, _c_ptr]
+        _c_ptr, _c_ptr, _c_int, _c_int, _c_int, _c_int, _c_ptr, _c_ptr, _c_int,
+        _c_ptr, _c_ptr, _c_int, _c_ptr, _c_ptr, _c_ptr]
     lib.tmac_group_gemm_native.restype = _c_int
     return lib
+
+
+NATIVE_X = (torch.bfloat16, torch.float32)  # the x dtypes E3's kernels take
 
 
 def _native_args(kernel: str, xb: torch.Tensor, xsum: torch.Tensor, qt: QuantizedTensor,
@@ -920,7 +941,9 @@ def _native_args(kernel: str, xb: torch.Tensor, xsum: torch.Tensor, qt: Quantize
     pointer, residual pointer)."""
     dev = xb.device
     N, Kp, Mp, G = xb.shape[0], qt.kdim_padded, qt.mdim_padded, qt.scales.shape[0]
-    require(kernel, xb, "x", torch.bfloat16, (N, Kp), dev)
+    if xb.dtype not in NATIVE_X:
+        raise ValueError(f"{kernel}'s native form takes bf16 or f32 x, not {xb.dtype}")
+    require(kernel, xb, "x", xb.dtype, (N, Kp), dev)
     require(kernel, xsum, "xsum", torch.float32, (N, G), dev)
     check_kernel_form(qt, kernel)
     require(kernel, qt.scales, "scales", qt.scales.dtype, (G, Mp), dev)
@@ -936,8 +959,8 @@ def _native_args(kernel: str, xb: torch.Tensor, xsum: torch.Tensor, qt: Quantize
 
 def launch_decode_native(xb: torch.Tensor, xsum: torch.Tensor, qt: QuantizedTensor,
                          residual=None) -> torch.Tensor:
-    """Launch K4's native kernel (E3 below LARGE_N rows) on bf16 x (N, Kp)
-    and its sums xsum (N, G): -> (N, Mp) f32."""
+    """Launch K4's native kernel (E3: bf16 x below LARGE_N rows, f32 x at
+    any N) on x (N, Kp) and its sums xsum (N, G): -> (N, Mp) f32."""
     res_ptr = _native_args("K4", xb, xsum, qt, residual, 64)
     Kp, bits = qt.kdim_padded, qt.bits
     rows = Kp // 4 if bits == 3 else Kp * bits // 8
@@ -947,7 +970,8 @@ def launch_decode_native(xb: torch.Tensor, xsum: torch.Tensor, qt: QuantizedTens
                 xb.device)
     out = torch.empty((xb.shape[0], qt.mdim_padded), dtype=torch.float32, device=xb.device)
     err = _lib().tmac_decode_native(
-        xb.data_ptr(), xsum.data_ptr(), xb.shape[0], Kp, qt.group_size,
+        xb.data_ptr(), int(xb.dtype == torch.float32), xsum.data_ptr(), xb.shape[0], Kp,
+        qt.group_size,
         fold_chunk(Kp, bits, qt.group_size), bits, qt.packed.data_ptr(),
         qt.packed_hi.data_ptr() if bits == 3 else None, qt.mdim_padded,
         qt.scales.data_ptr(), qt.sub.data_ptr(), scale_f32(qt), res_ptr, out.data_ptr(),
@@ -958,13 +982,17 @@ def launch_decode_native(xb: torch.Tensor, xsum: torch.Tensor, qt: QuantizedTens
 
 def launch_group_gemm_native(xb: torch.Tensor, xsum: torch.Tensor, qt: QuantizedTensor,
                              residual=None) -> torch.Tensor:
-    """Launch K4L's native instance (E3 from LARGE_N rows) on bf16 x (N,
-    Kp) and xsum (N, G), G >= 2: -> (N, Mp) f32."""
+    """Launch K4L's native instance (E3 on bf16 x from LARGE_N rows) on x
+    (N, Kp) and xsum (N, G), G >= 2 (or one unit: bits 8 at one scale
+    row): -> (N, Mp) f32."""
     res_ptr = _native_args("K4L", xb, xsum, qt, residual, 128)
+    if xb.dtype != torch.bfloat16:
+        raise ValueError(f"K4L's native form takes bf16 x, not {xb.dtype}")
     hi_ptr = _planes("K4L", qt, xb.device)
     out = torch.empty((xb.shape[0], qt.mdim_padded), dtype=torch.float32, device=xb.device)
     err = _lib_native().tmac_group_gemm_native(
-        xb.data_ptr(), xsum.data_ptr(), xb.shape[0], qt.kdim_padded, qt.group_size, qt.bits,
+        xb.data_ptr(), xsum.data_ptr(), xb.shape[0], qt.kdim_padded, qt.group_size,
+        qt.bits,
         qt.packed.data_ptr(), hi_ptr, qt.mdim_padded, qt.scales.data_ptr(), qt.sub.data_ptr(),
         scale_f32(qt), res_ptr, out.data_ptr(), _stream(xb.device))
     raise_on("K4L", err, "native matmul")
@@ -973,19 +1001,18 @@ def launch_group_gemm_native(xb: torch.Tensor, xsum: torch.Tensor, qt: Quantized
 
 def qgemm_native(x: torch.Tensor, qt: QuantizedTensor, residual=None) -> torch.Tensor:
     """E3: x (N, K) @ Wdq -> (N, M) f32 with float dots on x's own dtype
-    (the reference's act="native"): K4's native kernel below LARGE_N rows,
-    K4L's native instance from there (one scale row as_grouped).  On the
-    card x must be bf16 (f32 x at "native" is not ported: ROADMAP.md Queue
-    2); CPU tensors take native_plain."""
+    (the reference's act="native"), bf16 or f32: K4's native kernel on bf16
+    x below LARGE_N rows and on f32 x at any N, K4L's native instance on
+    bf16 x from there (one scale row as_grouped; at bits 8 its one chunk as
+    K4L's one unit).  CPU tensors take native_plain."""
     _check_ext(qt, x, residual, "E3")
     if not _on_device("E3", x):
         return native_plain(x, qt, residual)
-    if x.dtype != torch.bfloat16:
-        raise ValueError(f"E3 on the card takes bf16 x, not {x.dtype} (f32 x at "
-                         "act='native' is not ported to the card)")
+    if x.dtype not in NATIVE_X:
+        raise ValueError(f"E3 on the card takes bf16 or f32 x, not {x.dtype}")
     xb = pad_x_for(x, qt).contiguous()
     xsum = native_sums(x, qt)
-    if x.shape[0] < LARGE_N:
+    if x.shape[0] < LARGE_N or x.dtype == torch.float32:
         out = launch_decode_native(xb, xsum, qt, residual)
     else:
         qk, _, xsum = as_grouped(qt, None, xsum)

@@ -90,6 +90,27 @@ def unpack_b3(packed_lo: np.ndarray, packed_hi: np.ndarray, k_shards: int = 1) -
     return (lo + (hi << 2)).astype(np.uint8)
 
 
+def bitplanes(wq: np.ndarray, bits: int) -> np.ndarray:
+    """Split biased-unsigned (K, M) weights into (bits, K, M) 0/1 planes
+    (the LUT spec's decomposition, ops/lut.py)."""
+    wq = np.asarray(wq, dtype=np.uint8)
+    return np.stack([(wq >> b) & 1 for b in range(bits)], axis=0)
+
+
+def group_indices(wq: np.ndarray, bits: int, g: int = 4) -> np.ndarray:
+    """Bit-plane LUT indices: (bits, K//g, M) uint8 nibbles, plane b's
+    index at group kg being sum_i plane_b[kg*g + i] << i (the T-MAC LUT
+    index stream, unpermuted; only the LUT spec reads it)."""
+    planes = bitplanes(wq, bits)
+    B, K, M = planes.shape
+    assert K % g == 0
+    pg = planes.reshape(B, K // g, g, M)
+    idx = np.zeros((B, K // g, M), dtype=np.uint8)
+    for i in range(g):
+        idx |= pg[:, :, i, :] << i
+    return idx
+
+
 def quantize_weights(w: np.ndarray, bits: int, group_size: int,
                      zero_point: bool = False):
     """Quantize float weights (K, M) to biased-unsigned with per-group scales.

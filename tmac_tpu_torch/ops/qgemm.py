@@ -126,6 +126,36 @@ class QuantizedTensor:
         return cls.from_quantized(wq, scales, sub, bits, group_size,
                                   k_shards, m_shards, **kw)
 
+    def localized(self, tp: int, axis: int) -> "QuantizedTensor":
+        """The view one rank of tp holds of its shard (the arrays already
+        its slice): axis 0, row-parallel (k-sharded), k_shards 1 and K / tp
+        rows; axis 1, column-parallel (m-sharded), m_shards 1, M / tp columns
+        and each fused component's width divided.  The group size needs no
+        change: per-tensor tensors store the per-shard padded K."""
+        if axis == 0:
+            if self.k_shards != tp:
+                raise ValueError(f"k_shards {self.k_shards} is not tp {tp}")
+            return dataclasses.replace(self, k_shards=1, shape=(self.kdim // tp, self.mdim))
+        if self.m_shards != tp:
+            raise ValueError(f"m_shards {self.m_shards} is not tp {tp}")
+        segs = None
+        if self.m_segments is not None:
+            segs = tuple((Mi // tp, mspi) for (Mi, mspi) in self.m_segments)
+        return dataclasses.replace(self, m_shards=1, shape=(self.kdim, self.mdim // tp),
+                                   m_segments=segs)
+
+    def k_shard(self, s: int) -> "QuantizedTensor":
+        """Shard s of a row-parallel tensor (k_shards > 1) as views of its
+        packed and scale rows, localized: the tensor a rank holds."""
+        S = self.k_shards
+
+        def rows(a):
+            n = a.shape[-2] // S
+            return a[..., s * n:(s + 1) * n, :]
+        hi = rows(self.packed_hi) if self.packed_hi is not None else None
+        return dataclasses.replace(self, packed=rows(self.packed), packed_hi=hi,
+                                   scales=rows(self.scales), sub=rows(self.sub)).localized(S, 0)
+
     def _k_pad_geometry(self):
         """(ks, ksp): per-shard logical and padded K."""
         return self.kdim // self.k_shards, self.kdim_padded // self.k_shards
@@ -384,7 +414,9 @@ def plan(qt: QuantizedTensor, N: int, act: str = "fused", x_int8: bool = False,
     (fused and E1); grouped scales take K5 from LARGE_N rows where the
     fused form's _dispatch says "dequant", and for E4; K4's function
     otherwise (E2, E3, the fused "chunk"): K4L, its tensor-core form, from
-    LARGE_N rows, K4 below."""
+    LARGE_N rows, K4 below (E2 at one scale row and bits 8, one fold chunk,
+    K4L at any N; E3 on f32 x, which qgemm_native tells by x's dtype, K4
+    at any N)."""
     if act not in ACTS:
         raise ValueError(f"act must be one of {ACTS}, not {act!r}")
     if dispatch not in DISPATCHES:
@@ -408,6 +440,9 @@ def plan(qt: QuantizedTensor, N: int, act: str = "fused", x_int8: bool = False,
         return f, "K5"
     if f == "E1" or (f == "fused" and not grouped):
         return f, "K3" if large else "K1"
+    if f == "E2" and not grouped and qt.bits == 8:
+        # one scale row at bits 8 is one fold chunk: K4L's one-unit fold
+        return f, "K4L"
     return f, "K4L" if large else "K4"
 
 

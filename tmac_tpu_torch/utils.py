@@ -6,6 +6,14 @@ import numpy as np
 import torch
 
 
+def get_bits_alphas(bits: int):
+    """Bit-plane recombination weights: with signed states s' = 2s - 1 and
+    the s0 = -1 bias fold, an n-bit biased-unsigned w satisfies
+    w - 2^(n-1) = 1/2 (b0' + s0) + b1' + 2 b2' + 4 b3', so the planes'
+    weights are [1/2, 1, 2, 4][:bits]."""
+    return [0.5, 1.0, 2.0, 4.0][:bits]
+
+
 def nmse(a, b) -> float:
     """Normalized mean squared error of b against reference a."""
     a = np.asarray(a, dtype=np.float32)
