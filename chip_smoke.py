@@ -30,6 +30,14 @@
     python3 chip_smoke.py --phase tp_path              (path 15: tp = 2 as
                                                         two gloo ranks on
                                                         the one card)
+    python3 chip_smoke.py --phase attn_forms           (decode attention at
+                                                        Dp 256-512 and rep
+                                                        12 and 16; the rep
+                                                        12 Mistral-Large
+                                                        path)
+    python3 chip_smoke.py --phase parallel_paths       (paths 16 and 17: sp,
+                                                        pp and ep as gloo
+                                                        ranks on the card)
 
 Phases, each printing one JSON line before the last two:
   1. the card (nvidia-smi name and power limit, torch's device name);
@@ -126,16 +134,16 @@ Phases, each printing one JSON line before the last two:
      outside the stack gives NaN; the select form's MoE MLP of a layer
      captured in a CUDA graph and replayed on tokens whose routes change,
      each replay bit for bit the plain versions'; prefill of a 256-token
-     prompt (the MoE layers in the capacity-dispatch form over K4L: 144 K4L
-     and 1 K3 launches at MIXTRAL_LAYERS (8) of its 32 layers) and 64
+     prompt (the MoE layers in the capacity-dispatch form over K4L: 72 K4L
+     and 1 K3 launches at MIXTRAL_LAYERS (4) of its 32 layers) and 64
      greedy decode steps through decode_loop (the select form through K7:
-     16 K7 (gate_up and down of both routed experts, one call each a
-     layer), 16 K4, 8 K2 and 1 K1 launches per step; the step in a CUDA
+     8 K7 (gate_up and down of both routed experts, one call each a
+     layer), 8 K4, 4 K2 and 1 K1 launches per step; the step in a CUDA
      graph makes no host sync), then the checks
      and timings of path 1's main run, K7's per call and per step, and
      K4L's device time over a prefill (torch.profiler) beside its bound,
      its plain version's and the bf16 matmul's on the same calls;
-  8. path 4, Phi-3-mini W2A16 g128 at full width, PHI3_LAYERS (8) of its
+  8. path 4, Phi-3-mini W2A16 g128 at full width, PHI3_LAYERS (4) of its
      32 layers (hidden 3072, 32 heads of head_dim 96, FFN 8192, vocab 32064, a
      2047-row sliding window), random weights drawn on the card from seed
      0: kernels K6 (int8 cache and/or window), K8 (current token as an
@@ -147,8 +155,8 @@ Phases, each printing one JSON line before the last two:
      untouched, the store at cached length S on row S - 1); K4 at Phi-3's
      shapes (N = 1) and K4L (N = 64, 100, 256, 383); a 2304-token prefill
      (nine chunks of 256, past the window) and 64 greedy decode steps
-     through decode_loop on an int8 cache (288 K4L and 9 K3 launches for
-     the prefill at PHI3_LAYERS, no K4; 32 K4, 1 K1 and 8 K6 a step), the
+     through decode_loop on an int8 cache (144 K4L and 9 K3 launches for
+     the prefill at PHI3_LAYERS, no K4; 16 K4, 1 K1 and 4 K6 a step), the
      same on a
      bf16 cache, and 64 steps through decode_loop from the int8 prefill's
      cache in the deferred (K8) and in-kernel (K9) KV-write modes, each
@@ -165,7 +173,7 @@ Phases, each printing one JSON line before the last two:
      bf16 caches): the rows the reference's clamped writes give, kernel
      and plain paths equal, no device-side assert, and one kernel after;
   9. paths 5 and 6 (grouped_path), weights drawn on the card from seed 0
-     at full width: Llama-3.1-8B W3A16 g128 (W3_LAYERS (8) of 32 layers, hidden
+     at full width: Llama-3.1-8B W3A16 g128 (W3_LAYERS (4) of 32 layers, hidden
      4096, 32 heads over 8 KV heads, FFN 14336, vocab 128256, llama3 rope
      scaling; 3-bit weights as a lo and a hi plane) and Qwen2-7B W4A16
      g128 (28 layers, hidden 3584, 28 heads over 4 KV heads: rep 7, FFN
@@ -208,7 +216,7 @@ Phases, each printing one JSON line before the last two:
      sums byte for byte) at decode_plan's cluster size and at 1 and 8, and
      with the residual; then path 7 (ags_path, grouped_path), Llama-2-7B
      W2 g128 with zero points at act_group_size 32 (weights drawn on the
-     card, seed 0; AGS_LAYERS (8) of 32 layers): K4's ags form (N = 1,
+     card, seed 0; AGS_LAYERS (4) of 32 layers): K4's ags form (N = 1,
      4, 16) and K4L's (N = 64, 256)
      on layer 0's four linears with and without folds, K5 (N = 384, 512),
      K1 and K3 on the head, K2; a 768-token prompt in chunks of 512 (64
@@ -329,8 +337,8 @@ Phases, each printing one JSON line before the last two:
      K4, 2 K2, 1 K1 a step), teacher-forced on the prompt's last position
      and GGUF_MOE_FORCED (16) steps (path 13: NEW_FORCED); in the full
      run, paths 13 and 14b force LB_FULL_RUN_FORCED (1 and 1) steps,
-     path 13 runs LB_FULL_RUN_Q2K_LAYERS (4) of its 32 layers and path
-     14 LB_FULL_RUN_Q8_LAYERS (4).
+     path 13 runs LB_FULL_RUN_Q2K_LAYERS (2) of its 32 layers and path
+     14 LB_FULL_RUN_Q8_LAYERS (2).
  20. (after path 14b) tools_path: qgemm_pallas's forms whose activations
      come from outside (E1: int8 x at one scale row on K1's EXT instance
      and K3; E2: per-group int8 codes on K4 and K4L; E3: bf16 x on K4's
@@ -378,6 +386,31 @@ Phases, each printing one JSON line before the last two:
      tp logits' mean relative rms difference from it at most twice that
      of the port's single-device forward over the same weights unsharded,
      every linear on its kernel); each one's eager step timed.
+ 23. attn_forms: decode attention (K2, K6, K8, K9) at a cache head_dim
+     above 128 and at more than 8 query heads per KV head (Dp 256 at Dl
+     256 and 200, rep 12 and 16 at Dp 128, rep 12 at Dp 256, Dp 384 and
+     512), bf16 and int8 caches, with and without a window, at 2047 rows
+     (K9 also at 2048: its store on row S - 1 by the last rep tile's
+     cluster), against their plain versions bit for bit, each form
+     timed; then Mistral-Large-Instruct-2407's widths (hidden 12288, 96
+     heads over 8 KV heads: rep 12, FFN 28672, vocab 32768) at 2 of its 88
+     layers, W2 g128 drawn on the card, through grouped_path (a 256-token
+     prefill on K4L, 64 steps of decode_loop with K2 at rep 12,
+     teacher-forced against the plain path, timed).
+ 24. parallel_paths (paths 16 and 17): gloo ranks on the one card, at
+     full width and 4 layers: Llama-2-7B W2 at sp 2 (a 1024-token prompt,
+     K5 at 512 rows a rank; again in spans of 512 at start 0 and 512, K4L;
+     16 steps of decode_loop from the sp cache), at sp 2 x tp 2 (the tp
+     decode reading the sp cache) and at pp 2 (512 tokens in microbatches
+     of 128, 16 greedy steps through the stages); Mixtral-8x7B W2 at ep 2
+     and ep 2 x tp 2, Qwen2-MoE-A14B W4 at ep 2 (its shared expert), 256
+     tokens (the dispatch form, K4L) and 16 steps (the dense form, K4;
+     never K7), an engine request over ep 2 x tp 2; each held bit for bit
+     to its one-process form (sp_one_process, pp_one_process,
+     ep_partial_sums) where the split allows it, and against the
+     single-device forward by JAX's tolerance or a noise floor
+     (single_gate, tp_gap); each ep rank's K4 and K4L at its local
+     expert's shapes checked and timed.
 In the full run the sweeps come last (full_run_sweeps), the timing
 sweeps only while the run has spent less than SWEEPS_BY_S seconds.
 The last two lines are the kernels' JSON record and
@@ -439,10 +472,10 @@ NOISE_LEADS = 6.0
 LLAMA_SHALLOW_LAYERS, SHALLOW_NMSE, SHALLOW_GATED_SHARE = 2, 1e-3, 0.5
 STEP_MS = {}  # per path: eager and graph step ms, prefill s (the record line)
 # paths 3, 4, 5 and 7's depths since the full run took paths 13, 14 and
-# 14b, then path 15 (PERF.md §4 lists the seconds each cut saves): 8 of
-# the 32 layers of Mixtral-8x7B, Phi-3-mini, Llama-3.1-8B W3 and
-# Llama-2-7B at ags 32
-MIXTRAL_LAYERS = PHI3_LAYERS = W3_LAYERS = AGS_LAYERS = 8
+# 14b, then path 15, then attn_forms and paths 16-17 (PERF.md §4 lists the
+# seconds each cut saves): 4 of the 32 layers of Mixtral-8x7B, Phi-3-mini,
+# Llama-3.1-8B W3 and Llama-2-7B at ags 32
+MIXTRAL_LAYERS = PHI3_LAYERS = W3_LAYERS = AGS_LAYERS = 4
 
 
 def say(phase, **kw):
@@ -2066,7 +2099,8 @@ def int8_head_on_card(gen, H, V, dev):
 def params_on_card(cfg, seed, dev):
     """A model's parameter tree at full size, drawn on the card (the
     package's numpy draws take minutes at billions of weights): norms of
-    ones, bf16 embedding (and MoE router) ~N(0, 0.02), random grouped
+    ones, bf16 embedding (and MoE router, and the shared expert's gate where
+    the config has one) ~N(0, 0.02), random grouped
     weights (rand_qt_on_card; at bits 3 with their hi planes; at w_a8
     per-tensor ternary ones, wa8_qt_on_card; at group_size -1 per-channel
     ones, pt_qt_on_card), with
@@ -2097,10 +2131,17 @@ def params_on_card(cfg, seed, dev):
             I = padded_intermediate(cfg)
             return {"gate_up": fuse_m([qt(H, I), qt(H, I)]), "down": qt(I, H)}
         Ie = padded_moe_intermediate(cfg)
-        return {"moe_router": normal(H, E),
-                "experts_gate_up": stack_experts([fuse_m([qt(H, Ie), qt(H, Ie)])
-                                                  for _ in range(E)]),
-                "experts_down": stack_experts([qt(Ie, H) for _ in range(E)])}
+        out = {"moe_router": normal(H, E),
+               "experts_gate_up": stack_experts([fuse_m([qt(H, Ie), qt(H, Ie)])
+                                                 for _ in range(E)]),
+               "experts_down": stack_experts([qt(Ie, H) for _ in range(E)])}
+        if cfg.moe_shared_intermediate_size:
+            Is = padded_intermediate(dataclasses.replace(
+                cfg, intermediate_size=cfg.moe_shared_intermediate_size))
+            out.update(shared_gate_up=fuse_m([qt(H, Is), qt(H, Is)]), shared_down=qt(Is, H))
+            if cfg.moe_shared_gate:
+                out["shared_gate"] = normal(H)
+        return out
     def biases():
         if not cfg.attention_bias:
             return {}
@@ -5664,10 +5705,10 @@ def per_channel_path(card):
 # the ags-16 checks
 LB_Q8_LAYERS = 16
 LB_FULL_RUN_FORCED = (1, 1)
-# the full run's cuts since it took tools_path, then lut_forms and path 15
-# (PERF.md §4): path 13 at 4 of 32 layers, path 14 at 4 (of LB_Q8_LAYERS),
-# path 11 at 2 of 32
-LB_FULL_RUN_Q2K_LAYERS, LB_FULL_RUN_Q8_LAYERS, GGUF_FULL_RUN_LAYERS = 4, 4, 2
+# the full run's cuts since it took tools_path, then lut_forms and path 15,
+# then attn_forms and paths 16-17 (PERF.md §4): path 13 at 2 of 32 layers,
+# path 14 at 2 (of LB_Q8_LAYERS), path 11 at 2 of 32
+LB_FULL_RUN_Q2K_LAYERS, LB_FULL_RUN_Q8_LAYERS, GGUF_FULL_RUN_LAYERS = 2, 2, 2
 LB_FORMS = tuple((b, 16, dt) for b in (2, 3, 1, 4) for dt in ("f32", "bf16")) + (
     (8, 32, "f32"), (8, 32, "bf16"), (8, 16, "f32"))
 LB_K4_ROWS, LB_K4L_ROWS, LB_K5_ROWS, LB_AGS, LB_FORM_SEED = (1, 4, 16), (64, 88), (512,), 16, 18
@@ -6294,6 +6335,234 @@ def lut_forms(card):
 
 
 # ---------------------------------------------------------------------------
+# attn_forms: decode attention (K2, K6, K8, K9) at a cache head_dim above
+# 128 and at more than 8 query heads per KV head; Mistral-Large-Instruct-
+# 2407's widths (rep 12) through decode_loop
+# ---------------------------------------------------------------------------
+
+# (cache head_dim, head_dim, query heads per KV head, KV heads): Dp 256 at
+# Dl 256 and 200, rep 12 and 16 at Dp 128, rep 12 at Dp 256, and Dp 384
+# and 512 (two rep tiles each)
+ATTN_FORMS = ((256, 256, 2, 8), (256, 200, 4, 8), (128, 128, 12, 8), (128, 128, 16, 4),
+              (256, 256, 12, 8), (384, 320, 3, 8), (512, 500, 2, 8))
+# the checks' cache: ATTN_S rows, lengths ATTN_LEN (and ATTN_S for K9's store
+# on row S - 1), the window ATTN_WINDOW and none, at split_plan's cluster
+# size and at ATTN_SPLITS
+ATTN_S, ATTN_LEN, ATTN_WINDOW, ATTN_SPLITS = 2048, 2047, 1000, (None, 3)
+# Mistral-Large-Instruct-2407 (its config.json: hidden 12288, 96 heads over 8
+# KV heads, head_dim 128, FFN 28672, vocab 32768, rope theta 1e6; 88 layers)
+# at MISTRAL_LAYERS layers, W2 g128; a 256-token prompt (K4L) and 64 steps
+MISTRAL_SHAPE = dict(name="mistral-large-2407", hidden_size=12288, num_heads=96,
+                     num_kv_heads=8, head_dim=128, intermediate_size=28672,
+                     vocab_size=32768, rope_theta=1e6, max_position_embeddings=131072)
+MISTRAL_LAYERS, MISTRAL_PROMPT = 2, 256
+ATTN_FNS = ("K2", "K6", "K8", "K9")
+
+
+def form_cache(card, Dp, Dl, KV, quant, L=2):
+    """A random (L, 1, KV, ATTN_S, Dp) cache, zero past Dl: int8 codes with
+    their f32 scales, or bf16 values (scales None)."""
+    import torch
+    from tmac_tpu_torch.ops.cuda.attention_kernel import quantize_kv
+    kv = torch.nn.functional.pad(torch.randn((2, L, 1, KV, ATTN_S, Dl), device=card.dev),
+                                 (0, Dp - Dl))
+    if not quant:
+        kv = kv.to(torch.bfloat16)
+        return kv[0].contiguous(), kv[1].contiguous(), None, None
+    codes, sc = quantize_kv(kv)
+    return codes[0].contiguous(), codes[1].contiguous(), sc[0].contiguous(), sc[1].contiguous()
+
+
+def attn_fn_call(name, plain, q, cache, lens, li, cur, window, nsplit=None):
+    """One call of K2/K6/K8/K9 (or its plain version) on `cache` (k, v,
+    k_scale, v_scale; K9 stores into it); -> the output."""
+    from tmac_tpu_torch.ops.cuda import attention_kernel as ak
+    k, v, ks, vs = cache
+    kw = dict(k_scale=ks, v_scale=vs, window=window, nsplit=nsplit)
+    fn = {"K2": ak.flash_decode, "K6": ak.flash_decode_split, "K8": ak.flash_decode_append,
+          "K9": ak.flash_decode_append_write}[name]
+    if plain:
+        fn = {"K2": ak.flash_decode_plain, "K6": ak.flash_decode_split_plain,
+              "K8": ak.flash_decode_append_plain,
+              "K9": ak.flash_decode_append_write_plain}[name]
+    args = (q, k, v, lens, li) + ((cur[0], cur[1]) if name in ("K8", "K9") else ())
+    return fn(*args, **kw)
+
+
+def check_attn_forms(card):
+    """K2, K6, K8 and K9 at each of ATTN_FORMS against their plain versions,
+    bit for bit: bf16 and int8 caches, the window and none (K2: bf16, no
+    window; K6: the other three), at ATTN_LEN rows (K9 also at ATTN_S: its
+    store on row S - 1, which every rep tile's cluster reads, by the last
+    one to finish), at ATTN_SPLITS; K9 on two copies of the cache, every
+    byte of the two equal after.  -> (rows, worst abs error by kernel)"""
+    import torch
+    dev = card.dev
+    li = torch.tensor([1], dtype=torch.int32, device=dev)
+    rows, worst = [], dict.fromkeys(ATTN_FNS, 0.0)
+    for Dp, Dl, rep, KV in ATTN_FORMS:
+        q = card.bf16(1, KV, rep, Dl)
+        cur = (card.bf16(1, KV, Dl), card.bf16(1, KV, Dl))
+        for quant in (False, True):
+            cache = form_cache(card, Dp, Dl, KV, quant)
+            for window, nsplit in itertools.product((0, ATTN_WINDOW), ATTN_SPLITS):
+                for name in ATTN_FNS:
+                    if (name == "K2") != (not quant and not window):
+                        continue
+                    for n in (ATTN_LEN, ATTN_S) if name == "K9" else (ATTN_LEN,):
+                        lens = torch.tensor([n], dtype=torch.int32, device=dev)
+                        pair = [tuple(t.clone() if t is not None else None for t in cache)
+                                for _ in range(2)] if name == "K9" else [cache, cache]
+                        got = attn_fn_call(name, False, q, pair[0], lens, li, cur, window, nsplit)
+                        want = attn_fn_call(name, True, q, pair[1], lens, li, cur, window, nsplit)
+                        torch.cuda.synchronize()
+                        err = float((got.float() - want.float()).abs().max())
+                        worst[name] = max(worst[name], err)
+                        stored = all(a is None or torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+                                     for a, b in zip(*pair))
+                        row = dict(kernel=name, Dp=Dp, Dl=Dl, rep=rep, KV=KV,
+                                   cache="int8" if quant else "bf16", window=window,
+                                   nsplit=nsplit, len=n, max_abs_err=err,
+                                   bitwise=bool(torch.equal(got, want)), cache_equal=stored)
+                        rows.append(row)
+                        if not (row["bitwise"] and stored):
+                            raise AssertionError(f"decode attention form check failed: {row}")
+            del cache
+    return rows, worst
+
+
+def k9_graph_after_growth(card):
+    """K9 over two rep tiles (rep 12 at Dp 128: it elects the row's writer
+    through the counters) captured in a CUDA graph at one batch row; then
+    one launch at more (batch row, kv head) pairs than the counter buffer
+    holds, which makes a larger one; int32 blocks of the old buffer's size
+    taken and filled with ones (where a freed buffer would be reused); the
+    cache reset and the graph replayed.  Its output and the row it stores
+    must equal the plain version's, bit for bit.  -> dict (bitwise,
+    cache_equal, the counter buffer's size at the capture and after)."""
+    import torch
+    from tmac_tpu_torch.ops.cuda import attention_kernel as ak
+    dev = card.dev
+    KV, rep, D, S = 8, 12, 128, 256
+    li = torch.tensor([1], dtype=torch.int32, device=dev)
+
+    def inputs(B):
+        return (card.bf16(B, KV, rep, D), card.bf16(2, B, KV, S, D), card.bf16(2, B, KV, S, D),
+                torch.full((B,), S - 8, dtype=torch.int32, device=dev), card.bf16(B, KV, D),
+                card.bf16(B, KV, D))
+    q, k, v, lens, ck, cv = inputs(1)
+    k0, v0 = k.clone(), v.clone()
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        ak.flash_decode_append_write(q, k, v, lens, li, ck, cv)
+    torch.cuda.current_stream(dev).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = ak.flash_decode_append_write(q, k, v, lens, li, ck, cv)
+    n0 = ak._done[q.device][-1].numel()
+    big = inputs(n0 // KV + 1)
+    ak.flash_decode_append_write(big[0], big[1], big[2], big[3], li, big[4], big[5])
+    grown = ak._done[q.device][-1].numel()
+    hold = [torch.ones(n0, dtype=torch.int32, device=dev) for _ in range(8)]
+    k.copy_(k0)
+    v.copy_(v0)
+    graph.replay()
+    kw, vw = k0.clone(), v0.clone()
+    want = ak.flash_decode_append_write_plain(q, kw, vw, lens, li, ck, cv)
+    torch.cuda.synchronize()
+    del hold, big
+    return dict(bitwise=bool(torch.equal(out, want)),
+                cache_equal=bool(torch.equal(k, kw) and torch.equal(v, vw)),
+                counters_at_capture=n0, counters_after=grown)
+
+
+def time_attn_form(card, name, Dp, Dl, rep, KV):
+    """One call of `name` at a form, ATTN_LEN rows of a bf16 cache (K6: int8,
+    no window): device ms (a CUDA graph of it), the plain version's, the
+    bound (the Dl columns of each row read once and q, the current row and
+    the output moved once, at the card's rate; 4 Dl operations a row and
+    query head at the bf16 peak), and SDPA over the same rows (bf16, the
+    int8 cache's values dequantized)."""
+    import torch
+    quant = name == "K6"
+    cache = form_cache(card, Dp, Dl, KV, quant)
+    q = card.bf16(1, KV, rep, Dl)
+    cur = (card.bf16(1, KV, Dl), card.bf16(1, KV, Dl))
+    li = torch.tensor([1], dtype=torch.int32, device=card.dev)
+    lens = torch.tensor([ATTN_LEN], dtype=torch.int32, device=card.dev)
+    ms = graph_ms(lambda: attn_fn_call(name, False, q, cache, lens, li, cur, 0))
+    plain = cuda_ms(lambda: attn_fn_call(name, True, q, cache, lens, li, cur, 0), 1)
+    k, v = cache[0][1, :, :, :ATTN_LEN, :Dl], cache[1][1, :, :, :ATTN_LEN, :Dl]
+    if quant:
+        k = (k.float() * cache[2][1, :, :, :ATTN_LEN, None]).to(torch.bfloat16)
+        v = (v.float() * cache[3][1, :, :, :ATTN_LEN, None]).to(torch.bfloat16)
+    qs = q.reshape(1, KV * rep, 1, Dl)
+    gqa = dict(enable_gqa=True) if rep > 1 else {}
+    lib = graph_ms(lambda: torch.nn.functional.scaled_dot_product_attention(qs, k, v, **gqa))
+    item = 1 if quant else 2
+    nbytes = 2 * KV * ATTN_LEN * (Dl * item + (4 if quant else 0)) + 2 * 2 * KV * rep * Dl
+    if name in ("K8", "K9"):
+        nbytes += 2 * 2 * KV * Dl * (2 if name == "K9" else 1)
+    ops = 4 * KV * rep * ATTN_LEN * Dl
+    return dict(ms=ms, plain_ms=plain, bound_ms=card.bound_ms(nbytes, ops, card.bf16_peak),
+                bound_by="bytes" if nbytes / card.bw >= ops / card.bf16_peak else "operations",
+                library_ms=lib)
+
+
+def attn_forms(card):
+    """The phase attn_forms: check_attn_forms, each form's four kernels
+    timed (time_attn_form), then Mistral-Large-Instruct-2407's widths
+    (MISTRAL_SHAPE: rep 12, two rep tiles of 8 in K2) at MISTRAL_LAYERS of
+    its 88 layers, W2 g128, drawn on the card, through grouped_path (the
+    K4, K4L, K1, K3 and K2 checks at its shapes, a MISTRAL_PROMPT-token
+    prefill and 64 steps of decode_loop, teacher-forced against the plain
+    path, timed).  No public Llama-family config has head_dim above 128,
+    so Dp 256-512 are checked at kernel shapes only.  -> the kernels
+    line's records (the forms' launches: the checks' and timings' calls)."""
+    import torch
+    from tmac_tpu_torch.models.config import get_preset
+    t0 = time.perf_counter()
+    zero_counts()
+    rows, worst = check_attn_forms(card)
+    growth = k9_graph_after_growth(card)
+    if not (growth["bitwise"] and growth["cache_equal"]
+            and growth["counters_after"] > growth["counters_at_capture"]):
+        raise AssertionError(f"K9 replayed from a graph after its counters grew: {growth}")
+    times = {}
+    for Dp, Dl, rep, KV in ATTN_FORMS:
+        for name in ATTN_FNS:
+            times[(name, Dp, Dl, rep, KV)] = time_attn_form(card, name, Dp, Dl, rep, KV)
+    launches = read_counts()
+    checks_s = time.perf_counter() - t0
+    say("attn_forms_checks", card=card.name, nvidia_smi=card.smi, rows=rows,
+        k9_graph_after_growth=growth,
+        times=[dict(kernel=k[0], Dp=k[1], Dl=k[2], rep=k[3], KV=k[4], **t)
+               for k, t in times.items()], launches=launches, s=round(checks_s, 3))
+    records = []
+    for name in ATTN_FNS:
+        tot = {key: sum(t[key] for k, t in times.items() if k[0] == name)
+               for key in ("ms", "plain_ms", "bound_ms", "library_ms")}
+        records.append(dict(
+            name=f"decode attention ({name}) Dp 128-512, rep 2-16 ({len(ATTN_FORMS)} forms)",
+            path="attn_forms", route="cuda",
+            source="tmac_tpu_torch/ops/cuda/csrc/flash_decode.cu",
+            replaces="tmac_tpu/ops/pallas/attention_kernel.py:"
+                     + {"K2": "367", "K6": "367", "K8": "450", "K9": "552"}[name],
+            launches=launches[name], max_abs_err=worst[name], bound_by="bytes", **tot))
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    cfg = dataclasses.replace(get_preset("llama-2-7b"), num_layers=MISTRAL_LAYERS,
+                              **MISTRAL_SHAPE)
+    records += grouped_path(card, "mistral_large", cfg, MISTRAL_PROMPT, MISTRAL_PROMPT,
+                            k4_rows=(1, 4, 64), k5_rows=())
+    torch.cuda.empty_cache()
+    say("attn_forms_s", checks=round(checks_s, 3), mistral_large=round(time.perf_counter() - t1, 3),
+        s=round(time.perf_counter() - t0, 3))
+    return records
+
+
+# ---------------------------------------------------------------------------
 # path 15: tensor parallelism, Llama-2-7B W2 g128 at tp = 2 as two gloo
 # ranks on the one card; BitNet-3B at tp = 2 over TP_BITNET_LAYERS layers
 # ---------------------------------------------------------------------------
@@ -6319,9 +6588,12 @@ def tp_params_on_card(cfg, tp, seed, dev):
     columns each drawn on its own, padded to a multiple of 128 and laid
     side by side (m_shards = tp), the row-parallel ones (wo, down) as tp
     k-shards of K / tp rows each drawn (and padded) on its own, stacked
-    (k_shards = tp).  The same seed gives every process the same tree."""
+    (k_shards = tp); an MoE model's experts alike (each expert's gate_up
+    column-parallel, its down row-parallel, stacked).  The same seed gives
+    every process the same tree."""
     import torch
-    from tmac_tpu_torch.models.llama import padded_intermediate
+    from tmac_tpu_torch.models.llama import padded_intermediate, padded_moe_intermediate
+    from tmac_tpu_torch.models.moe import stack_experts
     from tmac_tpu_torch.ops.qgemm import QuantizedTensor, fuse_m
     from tmac_tpu_torch.utils import round_up
     gen = torch.Generator(device=dev)
@@ -6350,12 +6622,20 @@ def tp_params_on_card(cfg, tp, seed, dev):
     def normal(*shape):
         return (torch.randn(shape, generator=gen, device=dev) * 0.02).to(torch.bfloat16)
 
-    I = padded_intermediate(cfg, tp)
+    def mlp():
+        if not cfg.num_experts:
+            I = padded_intermediate(cfg, tp)
+            return {"gate_up": fuse_m([col(H, I), col(H, I)]), "down": row(I, H)}
+        Ie, E = padded_moe_intermediate(cfg, tp), cfg.num_experts
+        return {"moe_router": normal(H, E),
+                "experts_gate_up": stack_experts([fuse_m([col(H, Ie), col(H, Ie)])
+                                                  for _ in range(E)]),
+                "experts_down": stack_experts([row(Ie, H) for _ in range(E)])}
+
     ones = torch.ones(H, dtype=torch.bfloat16, device=dev)
     layers = [{"attn_norm": ones, "mlp_norm": ones,
                "wqkv": fuse_m([col(H, cfg.q_dim), col(H, cfg.kv_dim), col(H, cfg.kv_dim)]),
-               "wo": row(cfg.q_dim, H),
-               "gate_up": fuse_m([col(H, I), col(H, I)]), "down": row(I, H)}
+               "wo": row(cfg.q_dim, H), **mlp()}
               for _ in range(cfg.num_layers)]
     return {"embed": normal(V, H), "layers": layers, "final_norm": ones,
             "lm_head": int8_head_on_card(gen, H, V, dev)}
@@ -6708,12 +6988,22 @@ def merge_k_shards(qt):
 
 def unsharded_tree(params):
     """init_params(tp=1)'s tree of a tp-packed one's weights: its
-    row-parallel linears (wo, down) merged (merge_k_shards); the
+    row-parallel linears (wo, down, each expert's down) merged
+    (merge_k_shards); the
     column-parallel ones kept (an m-sharded tensor computes each column as
     its unsharded one does)."""
-    layers = [dict(lp, wo=merge_k_shards(lp["wo"]), down=merge_k_shards(lp["down"]))
-              for lp in params["layers"]]
-    return dict(params, layers=layers)
+    from tmac_tpu_torch.models.moe import expert_view, num_local_experts, stack_experts
+
+    def merged(lp):
+        out = dict(lp, wo=merge_k_shards(lp["wo"]))
+        if "down" in lp:
+            out["down"] = merge_k_shards(lp["down"])
+        if "experts_down" in lp:
+            st = lp["experts_down"]
+            out["experts_down"] = stack_experts([merge_k_shards(expert_view(st, e))
+                                                 for e in range(num_local_experts(st))])
+        return out
+    return dict(params, layers=[merged(lp) for lp in params["layers"]])
 
 
 def tp_path(card):
@@ -6819,10 +7109,719 @@ def tp_path(card):
     return records
 
 
+# ---------------------------------------------------------------------------
+# parallel_paths: sequence, pipeline and expert parallelism as gloo ranks on
+# the one card (path 16: sp, sp x tp, pp; path 17: ep, ep x tp, qwen2-moe
+# ep, an engine request over ep x tp)
+# ---------------------------------------------------------------------------
+
+# depth of every model here (full width; the tp path, path 15, runs 32
+# layers); seed; the sp prompt (sp 2: 512 rows a rank, K5) and the chunked
+# prefill's spans (256 rows a rank, K4L); the pp prompt and its microbatch
+# (K4L); the ep prompt (the dispatch form, K4L on each local expert's
+# capacity rows); decode steps
+PAR_LAYERS, PAR_SEED = 4, 0
+SP_PROMPT, SP_SPAN, SP_STEPS = 1024, 512, 16
+PP_PROMPT, PP_MICRO, PP_STEPS = 512, 128, 16
+EP_PROMPT, EP_STEPS = 256, 16
+# the ep layer check's inputs: layer 0's MoE block at EP_PROMPT rows (the
+# dispatch form) and at one (the dense form)
+EP_LAYER_FORMS = (("dispatch", EP_PROMPT), ("dense", 1))
+PAR_RANK_TIMEOUT_S = 600
+# JAX's own gates: tests/test_sp.py and test_pp.py (sp, pp), test_moe.py
+# and test_parallel.py (ep, and every tp composition)
+SP_RTOL, SP_ATOL, EP_RTOL, EP_ATOL = 3e-2, 3e-2, 5e-2, 0.1
+
+
+def par_cfg(name):
+    from tmac_tpu_torch.models.config import get_preset
+    return dataclasses.replace(get_preset(name), num_layers=PAR_LAYERS)
+
+
+def par_rank(rank, d, world):
+    """One rank of parallel_paths (spawned by it): world 2 runs the sp, pp
+    and ep jobs, world 4 sp x tp and ep x tp (and the engine request); each
+    saves its results to d/rank{rank}.pt."""
+    import torch
+    from tmac_tpu_torch.parallel import launch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    launch.init("gloo", "cuda:0", init_method=f"file://{d}/rendezvous", world_size=world,
+                rank=rank)
+    try:
+        with torch.no_grad():
+            torch.save(par_rank_run(rank, world), f"{d}/rank{rank}.pt")
+    finally:
+        launch.shutdown()
+
+
+def par_timed(fn):
+    """fn() with the launch counts zeroed before and read after -> (its
+    result, the counts, host seconds to the card's end)."""
+    import torch
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, read_counts(), time.perf_counter() - t0
+
+
+def par_rank_run(rank, world):
+    import torch
+    from tmac_tpu_torch.models.llama import KVCache
+    from tmac_tpu_torch.parallel import ep as epmod
+    from tmac_tpu_torch.parallel import pp as ppmod
+    from tmac_tpu_torch.parallel import sp as spmod
+    from tmac_tpu_torch.parallel import tp as tpmod
+    card = Card()
+    dev = card.dev
+    out = {"rank": rank}
+    if world == 2:
+        # sp 2: a SP_PROMPT-token prefill, then SP_STEPS steps of decode_loop
+        # from the sp cache (tp 1: the single-device path reads it); then
+        # the same prompt through sp_prefill_chunked (start > 0)
+        cfg = par_cfg("llama-2-7b")
+        params = params_on_card(cfg, PAR_SEED, dev)
+        mesh = spmod.make_sp_mesh(2, device=dev)
+        prefill = spmod.make_sp_prefill(cfg, mesh, params)
+        prompt = tp_prompt(cfg, SP_PROMPT).to(dev)
+        cache = KVCache.create(cfg, 1, SP_PROMPT + SP_STEPS, device=dev)
+        (last, cache), launches, s = par_timed(lambda: prefill(prompt, cache))
+        first = torch.argmax(last, -1).to(torch.int32)
+        toks, _ = loop_decode(prefill.model, first, clone_cache(cache), SP_STEPS)
+        c2 = KVCache.create(cfg, 1, SP_PROMPT + SP_STEPS, device=dev)
+        (last2, c2), launches2, s2 = par_timed(
+            lambda: spmod.sp_prefill_chunked(prefill, prompt, c2, SP_SPAN))
+        out["sp"] = dict(last=last.cpu(), k=cache.k.cpu(), v=cache.v.cpu(), toks=toks,
+                         launches=launches, prefill_s=s, chunked_last=last2.cpu(),
+                         chunked_k=c2.k.cpu(), chunked_launches=launches2, chunked_s=s2)
+        del params, prefill, cache, c2
+        torch.cuda.empty_cache()
+
+        # pp 2: PP_PROMPT tokens in microbatches of PP_MICRO, PP_STEPS greedy steps
+        params = params_on_card(cfg, PAR_SEED, dev)
+        mesh = ppmod.make_pp_mesh(2, device=dev)
+        tree, specs = ppmod.stack_params_pp(params, 2)
+        sparams = ppmod.shard_params_pp(tree, specs, mesh)
+        del params, tree
+        torch.cuda.empty_cache()
+        prefill = ppmod.make_pp_prefill(cfg, mesh, sparams, chunk=PP_MICRO)
+        decode = ppmod.make_pp_decode_step(cfg, mesh, sparams)
+        cache = ppmod.shard_cache_pp(KVCache.create(cfg, 1, PP_PROMPT + PP_STEPS, device=dev),
+                                     mesh)
+        prompt = tp_prompt(cfg, PP_PROMPT).to(dev)
+
+        def pp_run():
+            lg, c = prefill(prompt, cache)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, tok = [lg], torch.argmax(lg, -1)
+            for _ in range(PP_STEPS):
+                lg, c = decode(tok.to(torch.int32), c)
+                logits.append(lg)
+                tok = torch.argmax(lg, -1)
+            torch.cuda.synchronize()
+            return torch.cat(logits), c, (time.perf_counter() - t0) * 1e3 / PP_STEPS
+        (logits, cache, step_ms), launches, s = par_timed(pp_run)
+        out["pp"] = dict(logits=logits.cpu(), k=cache.k.cpu(), launches=launches, s=s,
+                         step_ms=step_ms, stage_layers=len(prefill.model.layers))
+        del sparams, prefill, decode, cache
+        torch.cuda.empty_cache()
+
+        # ep 2: mixtral-8x7b, then qwen2-moe-a14b (its shared expert)
+        for name in ("mixtral-8x7b", "qwen2-moe-a14b"):
+            mcfg = par_cfg(name)
+            params = params_on_card(mcfg, PAR_SEED, dev)
+            mesh = epmod.make_moe_mesh(2, 1, device=dev)
+            prefill, decode = epmod.make_ep_step(mcfg, mesh, epmod.shard_params_moe(params, mesh))
+            del params
+            torch.cuda.empty_cache()
+            out[name] = ep_rank_job(card, mcfg, prefill, decode)
+            out[name]["layer"] = ep_layer_outputs(prefill.model, dev)
+            if rank == 0:
+                out[name]["checks"] = ep_local_checks(card, mcfg, prefill.model)
+            del prefill, decode
+            torch.cuda.empty_cache()
+    else:
+        # sp 2 x tp 2, then ep 2 x tp 2 and one engine request over it
+        cfg = par_cfg("llama-2-7b")
+        mesh = spmod.make_sp_tp_mesh(2, 2, device=dev)
+        params = tpmod.shard_params(tp_params_on_card(cfg, 2, PAR_SEED, dev), mesh)
+        torch.cuda.empty_cache()
+        prefill = spmod.make_sp_prefill(cfg, mesh, params)
+        prompt = tp_prompt(cfg, SP_PROMPT).to(dev)
+        cache = KVCache.create(prefill.model.cfg, 1, SP_PROMPT + SP_STEPS, device=dev)
+        (last, cache), launches, s = par_timed(lambda: prefill(prompt, cache))
+        dec = tpmod.step_fns(prefill.model, tpmod.tp_view(mesh))[1]
+        toks, _, step_logits = dec(torch.argmax(last, -1).to(torch.int32), cache, 0, SP_STEPS,
+                                   return_logits=True)
+        out["sp_tp"] = dict(last=last.cpu(), toks=toks.cpu(), step_logits=step_logits.cpu(),
+                            launches=launches, prefill_s=s)
+        del params, prefill, cache, dec
+        torch.cuda.empty_cache()
+        mcfg = par_cfg("mixtral-8x7b")
+        mesh = epmod.make_moe_mesh(2, 2, device=dev)
+        sparams = epmod.shard_params_moe(tp_params_on_card(mcfg, 2, PAR_SEED, dev), mesh)
+        torch.cuda.empty_cache()
+        prefill, decode = epmod.make_ep_step(mcfg, mesh, sparams)
+        out["ep_tp"] = ep_rank_job(card, mcfg, prefill, decode)
+        from tmac_tpu_torch.runtime.engine import InferenceEngine
+        eng = InferenceEngine(prefill.model, max_batch=2, max_len=EP_PROMPT + 64, decode_chunk=8,
+                              step_fns=epmod.make_moe_engine_fns(mcfg, mesh),
+                              cache=KVCache.create(prefill.model.cfg, 2, EP_PROMPT + 64,
+                                                   device=dev))
+        uid = eng.submit(tp_prompt(mcfg, 100)[0].tolist(), max_new_tokens=16)
+        res, launches, s = par_timed(eng.run)
+        out["engine"] = dict(tokens=res[uid], launches=launches, s=s)
+    return out
+
+
+def ep_rank_job(card, cfg, prefill, decode):
+    """An ep rank's run: EP_PROMPT tokens (the dispatch form), EP_STEPS greedy
+    steps (the dense form), their logits, launch counts and seconds."""
+    import torch
+    from tmac_tpu_torch.models.llama import KVCache
+    prompt = tp_prompt(cfg, EP_PROMPT).to(card.dev)
+    cache = KVCache.create(prefill.model.cfg, 1, EP_PROMPT + EP_STEPS, device=card.dev)
+
+    def run():
+        last, c = prefill(prompt, cache)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        toks, c, logits = decode(torch.argmax(last, -1).to(torch.int32), c, 0, EP_STEPS,
+                                 return_logits=True)
+        torch.cuda.synchronize()
+        return last, toks, logits, (time.perf_counter() - t0) * 1e3 / EP_STEPS
+    (last, toks, logits, step_ms), launches, s = par_timed(run)
+    return dict(last=last.cpu(), toks=toks.cpu(), step_logits=logits.cpu(), launches=launches,
+                s=s, step_ms=step_ms,
+                local_experts=prefill.model.layers[0].experts_gate_up.packed.shape[0])
+
+
+def ep_layer_input(cfg, rows, dev):
+    """The ep layer check's hidden states (1, rows, H) bf16, drawn from
+    PAR_SEED + rows on the host: the same in every process."""
+    import torch
+    g = torch.Generator().manual_seed(PAR_SEED + rows)
+    return torch.randn((1, rows, cfg.hidden_size), generator=g).to(torch.bfloat16).to(dev)
+
+
+def ep_layer_outputs(model, dev):
+    """Layer 0's MoE block on this rank, as the forward runs it (moe_mlp on
+    the rank's experts, ep_axis the rank's place, then the one sum over the
+    ranks), on each of EP_LAYER_FORMS' inputs -> {form: (the rank's bf16
+    partial, the sum)}."""
+    from tmac_tpu_torch.models.llama import _tp_sum
+    from tmac_tpu_torch.models.moe import moe_mlp
+    cfg, layer, out = model.cfg, model.layers[0].moe_layer(), {}
+    for form, rows in EP_LAYER_FORMS:
+        d = moe_mlp(ep_layer_input(cfg, rows, dev), layer, cfg, cfg.quant.mode,
+                    act_gs=cfg.quant.act_group_size, ep_axis=model.ep)
+        part = d.cpu()
+        out[form] = (part, _tp_sum(d, None, model.moe_group).cpu())
+    return out
+
+
+def ep_layer_gate(want, got, parts):
+    """One MoE layer's output summed over the ep ranks (got) against the
+    single device's moe_mlp on the same input in the same form (want),
+    parts the ranks' bf16 partials, all f32 arrays.  The split may add only
+    bf16 roundings: each partial's, the sum's, and want's own, half an ulp
+    each; so every element within 2 bf16 ulps of the largest of |want|,
+    |got| and the partials there, plus 2^-20 of it for the f32 sums'
+    order.  -> dict (held, the largest difference in those ulps and
+    absolute)."""
+    import numpy as np
+    m = np.maximum.reduce([np.abs(a) for a in (want, got, *parts)])
+    ulp = np.exp2(np.floor(np.log2(np.maximum(m, 2.0 ** -126))) - 7)
+    diff = np.abs(got - want)
+    return dict(held=bool((diff <= 2 * ulp + m * 2.0 ** -20).all()),
+                max_ulps=float((diff / ulp).max()), max_abs_diff=float(diff.max()),
+                largest=float(m.max()))
+
+
+def ep_local_checks(card, cfg, model):
+    """An ep rank's kernels at its shapes, against their plain versions: K4
+    (the dense decode form, N = 1) and K4L (the dispatch form's capacity
+    rows) on its first local expert's gate_up and down of layer 0, with
+    the folds the MoE MLP gives them (none on gate_up: the norm runs
+    before; SwiGLU into down where its K is unpadded).  -> (rows, worst
+    error by kernel, times by kernel)."""
+    from tmac_tpu_torch.models.moe import expert_capacity, expert_view
+    blk = model.layers[0]
+    gu, dn = (expert_view(getattr(blk, n).qt, 0) for n in ("experts_gate_up", "experts_down"))
+    C = expert_capacity(EP_PROMPT, cfg)
+    rows, worst, timed = {}, {}, {}
+    for kernel, N in (("K4", 1), ("K4L", C)):
+        calls = [(f"expert gate_up {gu.kdim}x{gu.mdim}", card.bf16(N, gu.kdim), gu, {})]
+        if dn.kdim_padded == dn.kdim:
+            calls.append((f"expert down {dn.kdim}x{dn.mdim} glu", card.bf16(N, 2 * dn.kdim),
+                          dn, dict(glu=True)))
+        else:
+            calls.append((f"expert down {dn.kdim}x{dn.mdim}", card.bf16(N, dn.kdim), dn, {}))
+        rows[kernel], _ = check_k4(card, calls)
+        worst[kernel] = max(r.get("max_abs_err", 0.0) for r in rows[kernel])
+        per = [time_k4(card, [(x, qt, kw)], reps=5) for _, x, qt, kw in calls]
+        timed[kernel] = {k: sum(p[k] for p in per)
+                         for k in ("ms", "plain_ms", "bound_ms", "library_ms")}
+        timed[kernel]["bound_by"] = dominant_bound(per)
+    return dict(rows=rows, worst=worst, timed=timed)
+
+
+def par_spawn(worlds, timeout=PAR_RANK_TIMEOUT_S):
+    """A set of par_rank ranks (torch.multiprocessing, spawn) on the card
+    for each world size in `worlds`, the sets at once, each its own group;
+    -> {world: its ranks' results} after every rank has ended (a hung rank
+    ends the phase at the timeout), and each set's seconds."""
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+    with tempfile.TemporaryDirectory() as top:
+        t0 = time.perf_counter()
+        dirs = {w: tempfile.mkdtemp(dir=top) for w in worlds}
+        ctxs = {w: mp.start_processes(par_rank, args=(dirs[w], w), nprocs=w, join=False,
+                                      start_method="spawn") for w in worlds}
+        seconds = {}
+        try:
+            for w, ctx in ctxs.items():
+                while not ctx.join(timeout=1):
+                    if time.perf_counter() > t0 + timeout:
+                        raise AssertionError(f"a parallel_paths rank ran past {timeout} s")
+                seconds[f"world{w}"] = round(time.perf_counter() - t0, 3)
+        finally:
+            for ctx in ctxs.values():
+                for p in ctx.processes:
+                    if p.is_alive():
+                        p.kill()
+                        p.join()
+        return {w: [torch.load(f"{dirs[w]}/rank{r}.pt", weights_only=False) for r in range(w)]
+                for w in worlds}, seconds
+
+
+def sp_one_process(model, prompt, cache, sp, attn_chunk=512, start=0):
+    """The sp forward of `sp` ranks computed in one process, rank by rank at
+    every layer: each shard's rows through the same kernels at the same
+    shapes, the K/V of every shard laid side by side (what the ranks'
+    gather gives), the attention and MLP of each shard, then the last
+    shard's last row through the head: what the ranks compute, without the
+    process group.  -> (last logits, cache)."""
+    import torch
+    from tmac_tpu_torch.models.llama import _write_kv_stacked, layer_qkv_rope, rms_norm, rope_tables
+    from tmac_tpu_torch.parallel import sp as spmod
+    cfg = model.cfg
+    B, T = prompt.shape
+    Tl = T // sp
+    lin = model.linear()
+    dev = prompt.device
+    xs = [model.embed[prompt[:, i * Tl:(i + 1) * Tl]] for i in range(sp)]
+    pos = [(start + i * Tl + torch.arange(Tl, device=dev))[None].expand(B, Tl) for i in range(sp)]
+    tables = [rope_tables(p, model.freqs, model.table_scale) for p in pos]
+    span = (start + torch.arange(T, device=dev))[None].expand(B, T)
+    KV, rep = cfg.num_kv_heads, cfg.num_heads // cfg.num_kv_heads
+    for li, blk in enumerate(model.layers):
+        qkv = [layer_qkv_rope(blk, cfg, x, t, lin) for x, t in zip(xs, tables)]
+        _write_kv_stacked(cache.k, li, torch.cat([k for _, k, _ in qkv], 1), span)
+        _write_kv_stacked(cache.v, li, torch.cat([v for _, _, v in qkv], 1), span)
+        for i in range(sp):
+            attn = spmod.chunked_causal_attention(
+                qkv[i][0].reshape(B, Tl, KV, rep, cfg.head_dim), cache.k[li], cache.v[li],
+                pos[i], kv_len=start + (i + 1) * Tl, D=cfg.head_dim, chunk=attn_chunk,
+                window=cfg.sliding_window).to(xs[i].dtype)
+            xs[i] = spmod.layer_out_mlp(blk, cfg, xs[i], attn, lin)
+    last = model._head(rms_norm(xs[-1][:, -1:], model.final_norm, cfg.rms_norm_eps))[:, 0]
+    cache.pos.fill_(start + T)
+    return last.float(), cache
+
+
+def pp_one_process(cfg, params, prompt, micro, steps, dev):
+    """The pp ranks' computation in one process: a stage model over every
+    layer (pp.stage_model on a one-rank mesh) through the same microbatches
+    (make_pp_prefill) and decode steps (make_pp_decode_step): what the
+    stages compute, one after the other.  -> (the prefill's and each greedy
+    step's logits (1 + steps, V), cache)."""
+    import torch
+    from tmac_tpu_torch.models.llama import KVCache
+    from tmac_tpu_torch.parallel import pp as ppmod
+    from tmac_tpu_torch.parallel import tp as tpmod
+    mesh = tpmod.Mesh(dp=1, tp=1, rank=0, device=dev)
+    tree, specs = ppmod.stack_params_pp(params, 1)
+    prefill = ppmod.make_pp_prefill(cfg, mesh, tree, chunk=micro)
+    decode = ppmod.make_pp_decode_step(cfg, mesh, tree)
+    lg, c = prefill(prompt, KVCache.create(cfg, 1, prompt.shape[1] + steps, device=dev))
+    logits, tok = [lg], torch.argmax(lg, -1)
+    for _ in range(steps):
+        lg, c = decode(tok.to(torch.int32), c)
+        logits.append(lg)
+        tok = torch.argmax(lg, -1)
+    return torch.cat(logits), c
+
+
+@contextlib.contextmanager
+def ep_partial_sums(ep):
+    """Within it, models/llama.py's moe_mlp runs as `ep` ranks compute it:
+    each rank's slice of the stacks (moe_mlp(ep_axis=(i, ep))), the ranks'
+    bf16 outputs added in rank order (what the group's sum gives two
+    ranks)."""
+    from tmac_tpu_torch.models import llama
+    from tmac_tpu_torch.models.moe import moe_mlp
+    saved = llama.moe_mlp
+
+    def partial_sums(x, layer, cfg, mode=None, act_gs=0, ep_axis=None, **kw):
+        out = None
+        for i in range(ep):
+            mine = dict(layer)
+            for n in ("experts_gate_up", "experts_down"):
+                qt, E = layer[n], layer[n].packed.shape[0] // ep
+                mine[n] = dataclasses.replace(
+                    qt, packed=qt.packed[i * E:(i + 1) * E], scales=qt.scales[i * E:(i + 1) * E],
+                    sub=qt.sub[i * E:(i + 1) * E],
+                    packed_hi=None if qt.packed_hi is None else qt.packed_hi[i * E:(i + 1) * E])
+            o = moe_mlp(x, mine, cfg, mode, act_gs=act_gs, ep_axis=(i, ep), **kw)
+            out = o if out is None else out + o
+        return out
+    llama.moe_mlp = partial_sums
+    try:
+        yield
+    finally:
+        llama.moe_mlp = saved
+
+
+@contextlib.contextmanager
+def ep_masked_split(ep):
+    """Within it, models/llama.py's moe_mlp is the single device's (no
+    ep_axis) run ep times, run i on every expert with the scales and zero
+    points of all but the i-th E / ep of them zeroed (their outputs exactly
+    zero), the shared expert whole in run 0, each in the form ep takes
+    (dispatch for prefill blocks of 64 rows or more, else dense), their
+    bf16 outputs added in order: the MoE sum split into ep bf16 partials
+    as the ranks split it, by a route that does not use ep_axis (ep's
+    noise floor)."""
+    import torch
+    from tmac_tpu_torch.models import llama
+    from tmac_tpu_torch.models.moe import moe_mlp
+    saved, masked = llama.moe_mlp, {}
+
+    def part(layer, i):
+        key = (id(layer["experts_gate_up"].scales), i)
+        if key not in masked:
+            out = {k: v for k, v in layer.items() if i == 0 or not k.startswith("shared_")}
+            for n in ("experts_gate_up", "experts_down"):
+                qt = layer[n]
+                E = qt.scales.shape[0] // ep
+                keep = torch.zeros(qt.scales.shape[0], dtype=torch.bool, device=qt.scales.device)
+                keep[i * E:(i + 1) * E] = True
+
+                def zero(t):
+                    if t is None:
+                        return None
+                    return torch.where(keep.reshape(-1, *[1] * (t.dim() - 1)), t,
+                                       torch.zeros((), dtype=t.dtype, device=t.device))
+                out[n] = dataclasses.replace(qt, scales=zero(qt.scales), sub=zero(qt.sub))
+            masked[key] = out
+        return masked[key]
+
+    def split(x, layer, cfg, mode=None, act_gs=0, ep_axis=None, **kw):
+        B, T, _ = x.shape
+        kw["moe_impl"] = "dispatch" if T > 1 and B * T >= 64 else "dense"
+        out = None
+        for i in range(ep):
+            o = moe_mlp(x, part(layer, i), cfg, mode, act_gs=act_gs, **kw)
+            out = o if out is None else out + o
+        return out
+    llama.moe_mlp = split
+    try:
+        yield
+    finally:
+        llama.moe_mlp = saved
+
+
+def forced_logits(model, cfg, prompt, toks, dev, chunk=None):
+    """model's last logits of the prompt (in chunks of `chunk` rows), then
+    along toks (1, n) a token a step (the first n - 1) -> (n, V) f32."""
+    import torch
+    from tmac_tpu_torch.models.llama import KVCache
+    cache = KVCache.create(cfg, 1, prompt.shape[1] + toks.shape[1], device=dev)
+    T, chunk = prompt.shape[1], chunk or prompt.shape[1]
+    for off in range(0, T, chunk):
+        lg, cache = model(prompt[:, off:off + chunk], cache)
+    out = [lg[:, -1]]
+    for i in range(toks.shape[1] - 1):
+        lg, cache = model(toks[:, i:i + 1].to(dev), cache)
+        out.append(lg[:, -1])
+    return torch.cat(out).float()
+
+
+def eager_step_ms(model, cfg, prompt, steps, dev):
+    """The single-device model's eager decode step after `prompt` (a
+    prefill, then `steps` greedy steps on the host's clock, the card
+    synchronized): ms a step, as the ranks' steps are timed."""
+    import torch
+    from tmac_tpu_torch.models.llama import KVCache
+    cache = KVCache.create(cfg, 1, prompt.shape[1] + steps, device=dev)
+    lg, cache = model(prompt, cache)
+    tok = torch.argmax(lg[:, -1], -1)[:, None]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        lg, cache = model(tok, cache)
+        tok = torch.argmax(lg[:, -1], -1)[:, None]
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / steps
+
+
+def single_gate(want, got, floor, rtol, atol):
+    """got against the single-device forward's want (P, V): JAX's gate (every
+    logit within rtol, atol), or, where random layers carry the rounding of
+    the rank split past it, the noise floor: got's mean relative rms
+    difference from want at most TP_FLOOR times floor's (another
+    single-device forward of the same weights, another route; as path 15's
+    tp_gap).  -> dict (held: either; both gates' numbers)."""
+    import numpy as np
+    diff = np.abs(got - want)
+    outside = diff > atol + rtol * np.abs(want)
+    rel, rel_floor = float(rel_rms(got, want).mean()), float(rel_rms(floor, want).mean())
+    jax = bool(not outside.any())
+    floor_gate = rel <= TP_FLOOR * rel_floor
+    return dict(held=jax or floor_gate, jax_gate=jax, floor_gate=floor_gate,
+                share_outside=float(outside.mean()), max_abs_diff=float(diff.max()),
+                mean_rel_rms=rel, floor_mean_rel_rms=rel_floor,
+                argmax_agreement=float((got.argmax(-1) == want.argmax(-1)).mean()),
+                rtol=rtol, atol=atol, floor_factor=TP_FLOOR)
+
+
+def parallel_paths(card):
+    """The phase parallel_paths: gloo ranks on the one card, every model at
+    full width and PAR_LAYERS layers, weights drawn on the card from
+    PAR_SEED (each rank draws the same tree).  Path 16: llama-2-7b W2 g128
+    at sp 2 (a SP_PROMPT-token prompt, K5 at 512 rows a rank; then the same
+    prompt through sp_prefill_chunked in spans of SP_SPAN: start > 0, K4L;
+    SP_STEPS steps of decode_loop from the sp cache), at sp 2 x tp 2 (the tp
+    decode path reading the sp cache), at pp 2 (PP_PROMPT tokens in
+    microbatches of PP_MICRO, PP_STEPS greedy steps through the stages).
+    Path 17: mixtral-8x7b W2 at ep 2 and ep 2 x tp 2, qwen2-moe-a14b W2 at
+    ep 2 (its gated shared expert, divided by the ep size), EP_PROMPT tokens
+    (dispatch: K4L) and EP_STEPS greedy steps (dense: K4, never K7), an
+    engine request over ep 2 x tp 2 (make_moe_engine_fns).  Held, in this
+    process on the same weights: sp 2 bit for bit to sp_one_process (logits
+    and cache, both spans' runs) and its decode_loop tokens to the one
+    process cache's; pp 2 bit for bit to pp_one_process at every step; ep 2
+    bit for bit to the single-device forward with ep_partial_sums,
+    teacher-forced along the ranks' tokens, and layer 0's MoE block summed
+    over the ranks (both forms) to the single device's moe_mlp on the same
+    input by ep_layer_gate (2 bf16 ulps); each against the single-device
+    forward (teacher-forced, its prefill at the ranks' rows) by
+    single_gate: JAX's tests' tolerance, or a noise floor (sp: the single
+    device at 256-row chunks, K4L; pp: in one chunk, K5; ep: the single
+    device's MoE sums split into two bf16 partials by masked experts,
+    ep_masked_split, no ep_axis); sp x tp and ep x tp by path 15's tp_gap
+    (the floor: the weights unsharded); JAX's gate reported for all.  The two
+    sets of ranks run at once.  Each rank's kernel
+    launches are read around its run.  -> the kernels line's records."""
+    import numpy as np
+    import torch
+    from tmac_tpu_torch.models.llama import KVCache, Llama
+    t_all = time.perf_counter()
+    sets, ranks_s = par_spawn((2, 4))
+    two, four = sets[2], sets[4]
+    r0, q0 = two[0], four[0]
+    dev, out, fail = card.dev, {}, []
+    cfg = par_cfg("llama-2-7b")
+    with torch.no_grad():
+        params = params_on_card(cfg, PAR_SEED, dev)
+        single = Llama(cfg, params)
+        # sp 2
+        prompt = tp_prompt(cfg, SP_PROMPT).to(dev)
+        ref_last, ref_cache = sp_one_process(
+            single, prompt, KVCache.create(cfg, 1, SP_PROMPT + SP_STEPS, device=dev), 2)
+        ref_toks, _ = loop_decode(single, torch.argmax(ref_last, -1).to(torch.int32),
+                                  clone_cache(ref_cache), SP_STEPS)
+        c2 = KVCache.create(cfg, 1, SP_PROMPT + SP_STEPS, device=dev)
+        for off in range(0, SP_PROMPT, SP_SPAN):
+            ref2, c2 = sp_one_process(single, prompt[:, off:off + SP_SPAN], c2, 2, start=off)
+        sp = r0["sp"]
+        toks = torch.tensor([[int(torch.argmax(sp["last"], -1))] + sp["toks"][:-1]])
+        want = forced_logits(single, cfg, prompt, toks, dev, chunk=SP_PROMPT // 2).cpu().numpy()
+        # the noise floor: the single device at 256-row chunks (K4L, not K5)
+        floor = forced_logits(single, cfg, prompt, toks, dev, chunk=SP_SPAN // 2).cpu().numpy()
+        got_first = sp["last"].numpy()
+        out["sp"] = dict(
+            bitwise_last=bool(torch.equal(sp["last"], ref_last.cpu())),
+            bitwise_cache=bool(torch.equal(sp["k"], ref_cache.k.cpu()) and
+                               torch.equal(sp["v"], ref_cache.v.cpu())),
+            bitwise_chunked_last=bool(torch.equal(sp["chunked_last"], ref2.cpu())),
+            bitwise_chunked_cache=bool(torch.equal(sp["chunked_k"], c2.k.cpu())),
+            decode_tokens_equal=sp["toks"] == ref_toks,
+            single_device=single_gate(want[:1], got_first, floor[:1], SP_RTOL, SP_ATOL),
+            launches=sp["launches"], chunked_launches=sp["chunked_launches"],
+            prefill_s=[r["sp"]["prefill_s"] for r in two],
+            chunked_s=[r["sp"]["chunked_s"] for r in two])
+        del ref_cache, c2
+        # single-device prefill time at the same prompt (K5 at 1024 rows)
+        cache = KVCache.create(cfg, 1, SP_PROMPT, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        single(prompt, cache)
+        torch.cuda.synchronize()
+        out["sp"]["single_device_prefill_s"] = time.perf_counter() - t0
+        del cache
+        s = out["sp"]
+        if not (s["bitwise_last"] and s["bitwise_cache"] and s["bitwise_chunked_last"]
+                and s["bitwise_chunked_cache"] and s["decode_tokens_equal"]
+                and s["single_device"]["held"]):
+            fail.append("sp")
+
+        # pp 2
+        prompt = tp_prompt(cfg, PP_PROMPT).to(dev)
+        ref_logits, ref_c = pp_one_process(cfg, params, prompt, PP_MICRO, PP_STEPS, dev)
+        pp = r0["pp"]
+        ks = torch.cat([r["pp"]["k"] for r in two])
+        toks = pp["logits"].argmax(-1)[None]
+        want = forced_logits(single, cfg, prompt, toks, dev, chunk=PP_MICRO).cpu().numpy()
+        # the noise floor: the single device's prefill in one chunk (K5)
+        floor = forced_logits(single, cfg, prompt, toks, dev).cpu().numpy()
+        pp_single_ms = eager_step_ms(single, cfg, prompt, PP_STEPS, dev)
+        out["pp"] = dict(bitwise_logits=bool(torch.equal(pp["logits"], ref_logits.cpu())),
+                         step_ms=[r["pp"]["step_ms"] for r in two],
+                         single_device_step_ms=pp_single_ms,
+                         bitwise_cache=bool(torch.equal(ks, ref_c.k.cpu())),
+                         stage_layers=pp["stage_layers"],
+                         single_device=single_gate(want, pp["logits"].numpy(), floor, SP_RTOL,
+                                                   SP_ATOL),
+                         launches={k: sum(r["pp"]["launches"][k] for r in two) for k in COUNTERS},
+                         s=[r["pp"]["s"] for r in two])
+        p_ = out["pp"]
+        if not (p_["bitwise_logits"] and p_["bitwise_cache"] and p_["single_device"]["held"]):
+            fail.append("pp")
+        del ref_c
+
+        # sp 2 x tp 2 against the single device over the tp-packed weights
+        # (wo, down on the XLA route) and the noise floor (unsharded)
+        tparams = tp_params_on_card(cfg, 2, PAR_SEED, dev)
+        st = q0["sp_tp"]
+        prompt = tp_prompt(cfg, SP_PROMPT).to(dev)
+        toks = torch.cat([st["last"].argmax(-1)[:, None], st["toks"]], 1)
+        want = forced_logits(Llama(cfg, tparams), cfg, prompt, toks, dev, SP_PROMPT // 2)
+        floor = forced_logits(Llama(cfg, unsharded_tree(tparams)), cfg, prompt, toks, dev,
+                              SP_PROMPT // 2)
+        got = torch.cat([st["last"], st["step_logits"][0]]).numpy()
+        gap = tp_gap(want.cpu().numpy(), got, floor.cpu().numpy(), toks[0].numpy(), 1)
+        out["sp_tp"] = dict(single_device=gap, launches={k: sum(r["sp_tp"]["launches"][k]
+                                                               for r in four)
+                                                        for k in COUNTERS},
+                            prefill_s=[r["sp_tp"]["prefill_s"] for r in four])
+        if not gap["floor_gate"]:
+            fail.append("sp_tp")
+        del tparams, params, single
+        torch.cuda.empty_cache()
+
+        # ep 2: mixtral-8x7b and qwen2-moe-a14b, bit for bit to the partial
+        # sums in one process, layer 0's MoE block against the single
+        # device's, and the logits against the single device
+        from tmac_tpu_torch.models.moe import moe_mlp
+        records_ep = {}
+        for name in ("mixtral-8x7b", "qwen2-moe-a14b"):
+            mcfg = par_cfg(name)
+            mparams = params_on_card(mcfg, PAR_SEED, dev)
+            e = r0[name]
+            prompt = tp_prompt(mcfg, EP_PROMPT).to(dev)
+            toks = torch.cat([e["last"].argmax(-1)[:, None], e["toks"]], 1)
+            got = torch.cat([e["last"], e["step_logits"][0]]).numpy()
+            model = Llama(mcfg, mparams)
+            layer = {}
+            for form, rows in EP_LAYER_FORMS:
+                want1 = moe_mlp(ep_layer_input(mcfg, rows, dev), model.layers[0].moe_layer(),
+                                mcfg, mcfg.quant.mode, act_gs=mcfg.quant.act_group_size,
+                                moe_impl=form)
+                sums = [r[name]["layer"][form][1] for r in two]
+                layer[form] = dict(
+                    ep_layer_gate(want1.float().cpu().numpy(), sums[0].float().numpy(),
+                                  [r[name]["layer"][form][0].float().numpy() for r in two]),
+                    ranks_equal=all(torch.equal(t, sums[0]) for t in sums))
+            with ep_partial_sums(2):
+                exact = forced_logits(model, mcfg, prompt, toks, dev).cpu().numpy()
+            want = forced_logits(model, mcfg, prompt, toks, dev).cpu().numpy()
+            # the noise floor: the single device's MoE sums split into the
+            # ranks' two bf16 partials by masked experts (ep_masked_split)
+            with ep_masked_split(2):
+                floor = forced_logits(model, mcfg, prompt, toks, dev).cpu().numpy()
+            rec = dict(bitwise=bool(np.array_equal(exact, got)),
+                       floor_equal=bool(np.array_equal(floor, got)), layer=layer,
+                       local_experts=e["local_experts"],
+                       step_ms=[r[name]["step_ms"] for r in two],
+                       single_device_step_ms=eager_step_ms(model, mcfg, prompt, EP_STEPS, dev),
+                       single_device=single_gate(want, got, floor, EP_RTOL, EP_ATOL),
+                       launches={k: sum(r[name]["launches"][k] for r in two) for k in COUNTERS},
+                       s=[r[name]["s"] for r in two], checks=e["checks"]["rows"])
+            out[name] = rec
+            records_ep[name] = e["checks"]
+            if not (rec["bitwise"] and rec["single_device"]["held"]
+                    and all(g["held"] and g["ranks_equal"] for g in layer.values())):
+                fail.append(name)
+            del mparams, model
+            torch.cuda.empty_cache()
+
+        # ep 2 x tp 2
+        mcfg = par_cfg("mixtral-8x7b")
+        tparams = tp_params_on_card(mcfg, 2, PAR_SEED, dev)
+        e = q0["ep_tp"]
+        prompt = tp_prompt(mcfg, EP_PROMPT).to(dev)
+        toks = torch.cat([e["last"].argmax(-1)[:, None], e["toks"]], 1)
+        want = forced_logits(Llama(mcfg, tparams), mcfg, prompt, toks, dev)
+        floor = forced_logits(Llama(mcfg, unsharded_tree(tparams)), mcfg, prompt, toks, dev)
+        got = torch.cat([e["last"], e["step_logits"][0]]).numpy()
+        gap = tp_gap(want.cpu().numpy(), got, floor.cpu().numpy(), toks[0].numpy(), 1)
+        eng = q0["engine"]
+        out["ep_tp"] = dict(single_device=gap, step_ms=[r["ep_tp"]["step_ms"] for r in four],
+                            launches={k: sum(r["ep_tp"]["launches"][k] for r in four)
+                                      for k in COUNTERS},
+                            s=[r["ep_tp"]["s"] for r in four],
+                            engine=dict(tokens=eng["tokens"], s=eng["s"],
+                                        launches={k: sum(r["engine"]["launches"][k]
+                                                         for r in four) for k in COUNTERS}))
+        if not (gap["floor_gate"] and len(eng["tokens"]) == 16
+                and all(0 <= t < mcfg.vocab_size for t in eng["tokens"])):
+            fail.append("ep_tp")
+        del tparams
+        torch.cuda.empty_cache()
+    finite = all(bool(torch.isfinite(t).all()) for t in (
+        r0["sp"]["last"], r0["pp"]["logits"], q0["sp_tp"]["step_logits"],
+        q0["ep_tp"]["step_logits"], r0["mixtral-8x7b"]["step_logits"],
+        r0["qwen2-moe-a14b"]["step_logits"]))
+    say("parallel_paths", card=card.name, nvidia_smi=card.smi, layers=PAR_LAYERS, backend="gloo",
+        results=out, finite=finite, ranks_s=ranks_s,
+        s=round(time.perf_counter() - t_all, 3))
+    if fail or not finite:
+        raise AssertionError(f"parallel paths against their references: {fail}")
+    need = {"sp K5": out["sp"]["launches"]["K5"], "sp K4L": out["sp"]["chunked_launches"]["K4L"],
+            "pp K4L": out["pp"]["launches"]["K4L"], "pp K4": out["pp"]["launches"]["K4"],
+            "ep K4L": out["mixtral-8x7b"]["launches"]["K4L"],
+            "ep K4": out["mixtral-8x7b"]["launches"]["K4"],
+            "qwen ep K4": out["qwen2-moe-a14b"]["launches"]["K4"],
+            "ep_tp K4": out["ep_tp"]["launches"]["K4"]}
+    if not all(need.values()) or out["mixtral-8x7b"]["launches"]["K7"]:
+        raise AssertionError(f"parallel paths' launches: {need}, "
+                             f"K7 {out['mixtral-8x7b']['launches']['K7']}")
+    records = []
+    for kernel, label in (("K4", "the dense decode form, N = 1"),
+                          ("K4L", "the dispatch form's capacity rows")):
+        t = records_ep["mixtral-8x7b"]["timed"][kernel]
+        records.append(dict(
+            name=f"{kernel} ep=2 local expert ({label}, mixtral-8x7b)", path="ep",
+            route="cuda", source="tmac_tpu_torch/ops/cuda/csrc/" + (
+                "qgemm_grouped.cu + decode_matmul.cuh" if kernel == "K4"
+                else "qgemm_grouped_large.cu"),
+            replaces="tmac_tpu/ops/pallas/qgemm_kernel.py:" + ("567" if kernel == "K4" else "428"),
+            launches=sum(out[n]["launches"][kernel] for n in ("mixtral-8x7b", "qwen2-moe-a14b"))
+            + out["ep_tp"]["launches"][kernel],
+            max_abs_err=max(records_ep[n]["worst"][kernel] for n in records_ep), **t))
+    return records
+
+
 # the full run's timing sweeps start only while the run has spent less
-# than SWEEPS_BY_S of its 1200 s (on the slowest chip hosts the paths take
-# ~1140 s, PERF.md §4)
-SWEEPS_BY_S = 1050
+# than SWEEPS_BY_S of its 1200 s (on an NVIDIA H100 80GB HBM3 at 700 W the
+# paths took 960-1065 s by host, PERF.md §4; the sweeps need ~150 s)
+SWEEPS_BY_S = 900
 
 
 def full_run_sweeps(card, t_all):
@@ -7002,6 +8001,18 @@ def main() -> int:
         records = lut_forms(card)
         print(json.dumps({"kernels": records}), flush=True)
         return 0
+    if sys.argv[1:] == ["--phase", "attn_forms"]:
+        say("build", nvcc_s=round(build_s, 3), ptxas=ptxas,
+            nvcc_s_by_source={k: round(v, 3) for k, v in build.build_seconds.items()})
+        records = attn_forms(card)
+        print(json.dumps({"kernels": records}), flush=True)
+        return 0
+    if sys.argv[1:] == ["--phase", "parallel_paths"]:
+        say("build", nvcc_s=round(build_s, 3),
+            nvcc_s_by_source={k: round(v, 3) for k, v in build.build_seconds.items()})
+        records = parallel_paths(card)
+        print(json.dumps({"kernels": records}), flush=True)
+        return 0
     if sys.argv[1:] == ["--phase", "tp_path"]:
         say("build", nvcc_s=round(build_s, 3),
             nvcc_s_by_source={k: round(v, 3) for k, v in build.build_seconds.items()})
@@ -7053,6 +8064,14 @@ def main() -> int:
     records += tp_path(card)
     torch.cuda.empty_cache()
     say("lut_tp_s", lut_forms=round(t_tp - t_lut, 3), tp_path=round(time.perf_counter() - t_tp, 3))
+    t_new = time.perf_counter()
+    records += attn_forms(card)
+    torch.cuda.empty_cache()
+    t_par = time.perf_counter()
+    records += parallel_paths(card)
+    torch.cuda.empty_cache()
+    say("attn_parallel_s", attn_forms=round(t_par - t_new, 3),
+        parallel_paths=round(time.perf_counter() - t_par, 3))
     full_run_sweeps(card, t_all)
     say("record", unit="device ms per decode step of each path (bitnet-3b: "
         "105 K1 and 26 K2 launches, in the block mode 26 K10, 27 K1 and 26 "

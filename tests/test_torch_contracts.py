@@ -263,8 +263,9 @@ def test_ctypes_signatures_match_the_c_interfaces():
                 py_args[node.targets[0].value.attr] = len(value)
     assert py_args and set(py_args) == set(c_args), (set(py_args) ^ set(c_args))
     assert py_args == c_args
-    # decode attention (K2, K6, K8, K9) has one entry point, of 25 arguments
-    assert c_args["tmac_decode_attention"] == 25
+    # decode attention (K2, K6, K8, K9) has one entry point, of 26 arguments
+    # (with the K9 counters of its rep tiles)
+    assert c_args["tmac_decode_attention"] == 26
     assert not {"tmac_flash_decode", "tmac_flash_decode_split"} & set(c_args)
     # K1's and K4's decode forms: the prologue (K1's with its code-order
     # flag) and one matmul each, with its cluster size, token rows and the

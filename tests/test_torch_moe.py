@@ -298,7 +298,12 @@ def test_qwen2moe_shared_expert_matches_jax():
 
 
 def test_ep_axis_is_refused(mixtral):
+    """moe_mlp(ep_axis=) takes this rank's (index, size) on the ep axis
+    (parallel/ep.py; tests/test_torch_ep.py): a JAX mesh axis name, an
+    index outside the axis, and a stack whose experts times the ep size are
+    not the config's are refused."""
     cfg, _, layer, _ = mixtral
-    with pytest.raises(NotImplementedError):
-        tm.moe_mlp(torch.zeros(1, 1, cfg.hidden_size, dtype=torch.bfloat16),
-                   layer, cfg, ep_axis="ep")
+    x = torch.zeros(1, 1, cfg.hidden_size, dtype=torch.bfloat16)
+    for ep_axis in ("ep", (2, 2), (0, 2)):
+        with pytest.raises(ValueError, match="ep"):
+            tm.moe_mlp(x, layer, cfg, ep_axis=ep_axis)

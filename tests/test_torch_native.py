@@ -123,14 +123,43 @@ def _inputs(seed=5):
         qweight=qweight, qzeros=qzeros)
 
 
+@pytest.fixture(scope="module")
+def reference_library(tmp_path_factory):
+    """The JAX package's native module with a whole library behind it.  Its
+    loader builds tmac_tpu/_lib/libtmac_native.so in place and gives up for
+    the process if the load fails; under xdist every worker collects
+    tests/test_native.py, whose skip mark builds at once in each, so a
+    worker can load a half-written file and skip every case.  Where its
+    library is not loaded, the fixture builds the same source with the
+    same command (tmac_tpu/native.py's) into a temporary file of its own,
+    renames it into place, points the module's loader at it and loads it
+    with the module's own declarations; the module's state is restored
+    after.  Only a missing compiler skips."""
+    saved = jnative._LIB_PATH, jnative._lib, jnative._tried
+    if jnative._lib is None:
+        d = tmp_path_factory.mktemp("jax_native")
+        src = str(native.SOURCE)
+        part, whole = d / "building.so", d / "libtmac_native.so"
+        try:
+            subprocess.run(["g++", "-O3", "-std=c++17", "-fPIC", "-shared", "-pthread",
+                            "-o", str(part), src], check=True, capture_output=True,
+                           timeout=120)
+        except (OSError, subprocess.SubprocessError):
+            pytest.skip("the JAX package's native library cannot be built here")
+        part.rename(whole)
+        jnative._LIB_PATH, jnative._lib, jnative._tried = str(whole), None, False
+        assert jnative.available()
+    yield jnative
+    jnative._LIB_PATH, jnative._lib, jnative._tried = saved
+
+
 @pytest.mark.parametrize("binding", ["pack_strided", "unpack_strided",
                                      "quantize_weights", "unpack_gptq_qweight",
                                      "unpack_gptq_qzeros", "quantize_bitnet"])
-def test_binding_equals_the_reference_library(binding):
+def test_binding_equals_the_reference_library(binding, reference_library):
     """Each binding byte for byte the JAX package's native library's on the
-    same input (the same source built by each package)."""
-    if not jnative.available():
-        pytest.skip("the JAX package's native library cannot be built here")
+    same input (the same source built by each package; the JAX side's
+    library a whole one, reference_library)."""
     a = _inputs()
     args = {"pack_strided": (a["wq"], 2, 2),
             "unpack_strided": (_np_pack(a["wq"], 2, 2), 2, 2),
@@ -138,7 +167,7 @@ def test_binding_equals_the_reference_library(binding):
             "unpack_gptq_qweight": (a["qweight"], 4),
             "unpack_gptq_qzeros": (a["qzeros"], 4, True),
             "quantize_bitnet": (a["w"], 2)}[binding]
-    got, want = getattr(native, binding)(*args), getattr(jnative, binding)(*args)
+    got, want = getattr(native, binding)(*args), getattr(reference_library, binding)(*args)
     got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
     for x, y in zip(got, want):
         assert x.dtype == y.dtype and x.shape == y.shape

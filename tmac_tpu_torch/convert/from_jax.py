@@ -1,7 +1,9 @@
 """Carry parameters and KV caches from the JAX package into the port.
 
 ``params_from_numpy`` takes the tree with every leaf already converted by
-``np.asarray``; ``cache_from_numpy`` a KV cache's fields, likewise.  A quantized tensor is any object or mapping with the
+``np.asarray``; ``pp_params_from_numpy`` the pipeline's stacked stage tree
+(``stack_params_pp``'s), likewise; ``cache_from_numpy`` a KV cache's
+fields.  A quantized tensor is any object or mapping with the
 fields ``packed``, ``packed_hi``, ``scales``, ``sub``, ``bits``,
 ``group_size``, ``k_shards``, ``m_shards``, ``shape`` and ``m_segments``;
 it is read by those names, never by importing the JAX package.  bf16
@@ -71,6 +73,19 @@ def params_from_numpy(tree: Any, cfg: ModelConfig, device="cuda"):
     if len(tree["layers"]) != cfg.num_layers:
         raise ValueError(f"tree has {len(tree['layers'])} layers, config "
                          f"{cfg.name} has {cfg.num_layers}")
+    return _convert(tree, device)
+
+
+def pp_params_from_numpy(tree: Any, cfg: ModelConfig, device="cuda"):
+    """The JAX package's stack_params_pp stage tree (numpy leaves: every
+    layer leaf stacked to (pp, Lp, ...) under "stages", a quantized tensor's
+    arrays alike, its meta one layer's) -> the port's (parallel/pp.py's
+    stack_params_pp form), for shard_params_pp."""
+    for name, leaf in tree["stages"].items():
+        lead = np.asarray(_field(leaf, "packed") if _is_qt(leaf) else leaf).shape[:2]
+        if lead[0] * lead[1] != cfg.num_layers:
+            raise ValueError(f"stage leaf {name} stacks {lead[0]} x {lead[1]} layers, config "
+                             f"{cfg.name} has {cfg.num_layers}")
     return _convert(tree, device)
 
 

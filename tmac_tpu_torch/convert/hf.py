@@ -242,8 +242,8 @@ def convert_hf_model(model_dir: str, quant: Optional[QuantConfig] = None,
     quant: needed for a float checkpoint; read from quantization_config
     for a packed one (its mode then taken from quant when given).  tp:
     pack for tp-way tensor parallelism (q/k/v and gate/up m-sharded, wo
-    and down k-sharded, FFN widths padded to tp * group size); running
-    such params needs the port's parallel/, not ported yet.  gptq_v2
+    and down k-sharded, FFN widths padded to tp * group size), as
+    parallel/tp.py's shard_params slices them.  gptq_v2
     overrides the checkpoint's GPTQ format (v1 stores zero points - 1)."""
     hf = read_hf_config(model_dir)
     reader = HFReader(model_dir)

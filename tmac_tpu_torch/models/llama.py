@@ -484,6 +484,45 @@ def _tp_sum(out: torch.Tensor, x: Optional[torch.Tensor], group) -> torch.Tensor
     return out if x is None else x + out
 
 
+def layer_qkv_rope(blk, cfg: ModelConfig, x: torch.Tensor, tables, lin):
+    """A layer's prologue (the forward's, and parallel/sp.py's and pp.py's):
+    the norm folded into wqkv, the optional biases (in bf16), rotary.  x
+    (B, T, H); lin: apply_qlinear with the model's options -> q (B, T,
+    heads, D), k and v (B, T, KV, D)."""
+    B, T = x.shape[:2]
+    qd, kvd = cfg.q_dim, cfg.kv_dim
+    qkv = lin(x, blk.wqkv.qt, norm=(blk.attn_norm, cfg.rms_norm_eps))
+    q, k, v = qkv[..., :qd], qkv[..., qd:qd + kvd], qkv[..., qd + kvd:]
+    if hasattr(blk, "bq"):
+        # attention bias, added in the activations' dtype (bf16)
+        q, k, v = q + blk.bq, k + blk.bk, v + blk.bv
+    q = rope(q.reshape(B, T, cfg.num_heads, cfg.head_dim), tables)
+    k = rope(k.reshape(B, T, cfg.num_kv_heads, cfg.head_dim), tables)
+    return q, k, v.reshape(B, T, cfg.num_kv_heads, cfg.head_dim)
+
+
+def attn_out(blk, x: torch.Tensor, attn: torch.Tensor, lin, group) -> torch.Tensor:
+    """wo and the residual: folded into wo's epilogue only where no sum
+    over the tp group follows (it must see the partial sums)."""
+    res = x if group is None else None
+    return _tp_sum(lin(attn, blk.wo.qt, residual=res), x, group)
+
+
+def dense_mlp(blk, cfg: ModelConfig, x: torch.Tensor, lin, group) -> torch.Tensor:
+    """The dense MLP and the residual: the norm folded into gate_up, SwiGLU
+    into down where its K is unpadded (else silu(g) * u in bf16 before
+    it, as in JAX), the residual in down's epilogue unless a tp sum
+    follows."""
+    gu = lin(x, blk.gate_up.qt, norm=(blk.mlp_norm, cfg.rms_norm_eps))
+    down = blk.down.qt
+    res = x if group is None else None
+    if down.kdim_padded == down.kdim:
+        d = lin(gu, down, glu=True, residual=res)
+    else:
+        d = lin(silu_mul(gu[..., :down.kdim], gu[..., down.kdim:]), down, residual=res)
+    return _tp_sum(d, x, group)
+
+
 class QLinear(nn.Module):
     """A QuantizedTensor's arrays held as module buffers."""
 
@@ -590,6 +629,12 @@ class Llama(nn.Module):
     in JAX.  Every rank runs the replicated parts (embedding, final norm,
     head).
 
+    ep, moe_group: expert parallelism (parallel/ep.py), the counterpart of
+    the JAX package's ep_axis: ep = (index, size), this rank's place on the
+    ep axis (its MoE stacks hold E / size experts, models/moe.py's
+    moe_mlp(ep_axis=)); the MoE MLP's output is summed once over moe_group
+    (the ep x tp ranks; by default the tp group), attention's wo over the
+    tp group only.
     deferred_kv and the environment choose the decode step's KV-write mode
     once, here (kv_write_mode), so that a captured CUDA graph holds one
     mode; a prefill (T > 1) always writes explicitly, as in JAX.  So is
@@ -600,12 +645,14 @@ class Llama(nn.Module):
 
     def __init__(self, cfg: ModelConfig, params: Dict[str, Any],
                  plain: bool = False, deferred_kv: Optional[bool] = None,
-                 tp_group=None):
+                 tp_group=None, ep=None, moe_group=None):
         super().__init__()
         _check_slice(cfg)
         self.cfg = cfg
         self.plain = plain
         self.tp_group = tp_group
+        self.ep = ep
+        self.moe_group = moe_group if moe_group is not None else tp_group
         self.kv_mode = kv_write_mode(deferred_kv)
         self.block_mode = os.environ.get("TMAC_BLOCK_KERNEL", "0") == "1"
         self.attend = {
@@ -632,6 +679,13 @@ class Llama(nn.Module):
     @property
     def device(self) -> torch.device:
         return self.embed.device
+
+    def linear(self):
+        """apply_qlinear with the model's options (its plain flag, the
+        config's activation group size and mode), as its layers call it."""
+        return functools.partial(apply_qlinear, plain=self.plain,
+                                 act_gs=self.cfg.quant.act_group_size,
+                                 mode=self.cfg.quant.mode)
 
     def _decode_attention(self, q, k, v, cache: KVCache, li: int, lens):
         """q (B, 1, H, D), this step's k/v (B, 1, KV, D) -> (B, 1, H*D)
@@ -743,21 +797,12 @@ class Llama(nn.Module):
         pending = []
         tables = rope_tables(positions, self.freqs, self.table_scale)
         eps = cfg.rms_norm_eps
-        qd, kvd = cfg.q_dim, cfg.kv_dim
         plain = self.plain
         # every quantized linear of a layer, with the config's activation
         # group size (K4's and K4L's ags form; the other kernels ignore it)
-        lin = functools.partial(apply_qlinear, plain=plain,
-                                act_gs=cfg.quant.act_group_size, mode=cfg.quant.mode)
+        lin = self.linear()
         for li, blk in enumerate(self.layers):
-            qkv = lin(x, blk.wqkv.qt, norm=(blk.attn_norm, eps))
-            q, k, v = qkv[..., :qd], qkv[..., qd:qd + kvd], qkv[..., qd + kvd:]
-            if hasattr(blk, "bq"):
-                # attention bias, added in the activations' dtype (bf16)
-                q, k, v = q + blk.bq, k + blk.bk, v + blk.bv
-            q = rope(q.reshape(B, T, cfg.num_heads, cfg.head_dim), tables)
-            k = rope(k.reshape(B, T, cfg.num_kv_heads, cfg.head_dim), tables)
-            v = v.reshape(B, T, cfg.num_kv_heads, cfg.head_dim)
+            q, k, v = layer_qkv_rope(blk, cfg, x, tables, lin)
             if mode == "explicit":
                 self._write_kv(cache, li, k, v, positions)
             elif mode == "deferred":
@@ -776,30 +821,17 @@ class Llama(nn.Module):
                           blk.wo.qt, blk.gate_up.qt, blk.down.qt,
                           eps).reshape(B, T, -1).to(x.dtype)
                 continue
-            # the residual joins in wo's and down's epilogues only where no
-            # sum over the tp group follows (it must see the partial sums)
-            res = x if group is None else None
-            x = _tp_sum(lin(attn, blk.wo.qt, residual=res), x, group)
+            x = attn_out(blk, x, attn, lin, group)
             if cfg.num_experts:
                 # MoE MLP (models/moe.py): norm, routing and the experts;
-                # the residual is added here, in bf16, after the tp sum
+                # the residual is added here, in bf16, after the one sum
+                # over the ep x tp ranks
                 d = moe_mlp(x, blk.moe_layer(), cfg, cfg.quant.mode,
-                            act_gs=cfg.quant.act_group_size, valid=valid,
-                            plain=plain)
-                x = x + _tp_sum(d, None, group)
+                            act_gs=cfg.quant.act_group_size, ep_axis=self.ep,
+                            valid=valid, plain=plain)
+                x = x + _tp_sum(d, None, self.moe_group)
                 continue
-            gu = lin(x, blk.gate_up.qt, norm=(blk.mlp_norm, eps))
-            down = blk.down.qt
-            res = x if group is None else None
-            if down.kdim_padded == down.kdim:
-                # SwiGLU folded into down's prologue
-                d = lin(gu, down, glu=True, residual=res)
-            else:
-                # down's K is padded (e.g. W2 at group size 128): JAX runs
-                # silu(g) * u in bf16 before the kernel, and so does the port
-                h = silu_mul(gu[..., :down.kdim], gu[..., down.kdim:])
-                d = lin(h, down, residual=res)
-            x = _tp_sum(d, x, group)
+            x = dense_mlp(blk, cfg, x, lin, group)
         if pending:
             self._commit_kv(cache, *(torch.stack(t) for t in zip(*pending)))
         cache.pos += T if active is None else T * active.to(cache.pos.dtype)

@@ -24,7 +24,9 @@ sum of the expert outputs.  Three forms compute it (``moe_mlp``):
 
 The f32 matrix products (router logits, the combine) run with TF32 off on
 the card (``_full_f32``), as the reference runs them at HIGHEST precision.
-Expert parallelism (``ep_axis``) is not ported.
+Under expert parallelism (``ep_axis``, parallel/ep.py) a rank holds E / ep
+experts of each stack and combines only those (dense or dispatch, never
+select); the caller sums the ranks' outputs.
 """
 
 from __future__ import annotations
@@ -175,14 +177,17 @@ def moe_mlp(x: torch.Tensor, layer: dict, cfg, mode: Optional[str] = None,
     ("w_fp" or "w_a8"; cfg.quant.mode by default), act_gs: the activation
     group size, as the JAX package's.  moe_impl: 'dense' | 'dispatch' |
     'select' | 'auto'; auto takes dispatch for prefill blocks (T > 1 and
-    N >= 64), select for one token (N == 1, unless TMAC_MOE_SELECT=0), and
-    dense otherwise.  capacity: the dispatch form's per-expert slots
+    N >= 64), select for one token (N == 1, unless TMAC_MOE_SELECT=0; never
+    under ep), and dense otherwise.  ep_axis: (index, size), this rank's
+    place on the expert-parallel axis (the JAX package's mesh axis): the
+    stacks hold experts [index * E_local, (index + 1) * E_local), the
+    combine weights are sliced to them, and the shared expert's output is
+    divided by size, so that the sum over the ep ranks (the caller's) is
+    the whole MLP's.  capacity: the dispatch form's per-expert slots
     (default expert_capacity(N)); tokens past it are dropped.  valid:
     optional (B, T) bool; rows marked False get zero combine weight, so
     they take no dispatch capacity and add nothing.  plain=True runs the
     kernels' plain versions (the card's reference)."""
-    if ep_axis is not None:
-        raise NotImplementedError("expert parallelism (ep_axis) is not ported")
     from tmac_tpu_torch.models.llama import rms_norm
     mode = mode or cfg.quant.mode
     B, T, H = x.shape
@@ -197,18 +202,28 @@ def moe_mlp(x: torch.Tensor, layer: dict, cfg, mode: Optional[str] = None,
     gu_stack: QuantizedTensor = layer["experts_gate_up"]
     down_stack: QuantizedTensor = layer["experts_down"]
     E = num_local_experts(gu_stack)
-    assert E == cfg.num_experts, (E, cfg.num_experts)
+    if ep_axis is not None:
+        if not (isinstance(ep_axis, tuple) and len(ep_axis) == 2
+                and all(isinstance(i, int) for i in ep_axis) and 0 <= ep_axis[0] < ep_axis[1]):
+            raise ValueError(f"ep_axis must be (index, size), 0 <= index < size, not {ep_axis!r}")
+        index, size = ep_axis
+        if E * size != cfg.num_experts:
+            raise ValueError(f"{E} experts a rank over ep {size}: not {cfg.num_experts}")
+        cw = cw[:, index * E:(index + 1) * E]
+    else:
+        assert E == cfg.num_experts, (E, cfg.num_experts)
 
     if moe_impl == "auto":
         if T > 1 and N >= 64:
             moe_impl = "dispatch"
-        elif N == 1 and os.environ.get("TMAC_MOE_SELECT", "1") == "1":
+        elif (N == 1 and ep_axis is None
+              and os.environ.get("TMAC_MOE_SELECT", "1") == "1"):
             moe_impl = "select"
         else:
             moe_impl = "dense"
 
     if moe_impl == "select":
-        assert N == 1, N
+        assert N == 1 and ep_axis is None, (N, ep_axis)
         topw, topi = top_k(cw[0], cfg.num_experts_per_tok)
         acc = torch.zeros((N, H), dtype=torch.float32, device=x.device)
         if (expert_kernel_supported(gu_stack, act_gs)
@@ -265,5 +280,9 @@ def moe_mlp(x: torch.Tensor, layer: dict, cfg, mode: Optional[str] = None,
             with _full_f32():
                 gate = torch.sigmoid(x2.float() @ layer["shared_gate"].float())
             ys = ys * gate[:, None]
+        if ep_axis is not None:
+            # every ep rank computes it: a share of 1 / size each (a true
+            # division, by a tensor, as XLA divides)
+            ys = ys / torch.full((), float(ep_axis[1]), device=ys.device)
         out = out + ys
     return out.reshape(B, T, H).to(x.dtype)

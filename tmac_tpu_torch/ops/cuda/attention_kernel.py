@@ -6,7 +6,9 @@ one CUDA C++ kernel for Hopper in ``csrc/flash_decode.cu`` (one launch a
 call: a cluster of ``nsplit`` blocks per KV head, rows streamed through a
 shared-memory ring, the blocks' states merged in distributed shared
 memory), which says what bounds them on the card (device-memory bytes of
-the valid cache rows) and how the design answers it:
+the valid cache rows) and how the design answers it.  It takes a cache
+head_dim Dp of 128, 256, 384 or 512 and any number of query heads per KV
+head (rep), the latter in tiles of at most ``rep_max(Dp)`` heads:
 
 - K2, ``flash_decode``: a bf16 or f32 cache, no window (``_kernel`` with
   every flag off, through ``flash_decode_stacked``);
@@ -42,10 +44,13 @@ from tmac_tpu_torch.utils import cdiv, round_up
 _c_ptr, _c_int, _c_float = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
-GROUPS = 16  # half-warps of a block (kGroups in csrc/flash_decode.cu)
+LANES = 16   # lanes of a half-warp, over which a row's columns split (kLanes)
+GROUPS = 16  # half-warps of a block at Dp 128 (kGroups in csrc/flash_decode.cu)
 TILE = 4     # rows of a half-warp's row tile (kTile)
-STAGE_ROWS = GROUPS * TILE  # rows of a ring stage (kStageRows)
+STAGE_ROWS = GROUPS * TILE  # rows of a ring stage at Dp 128 (kStageRows)
 MAX_SPLIT = 8               # largest portable cluster
+DPS = (128, 256, 384, 512)  # cache head_dims the kernel is built for
+RING_MAX = 128 * 1024       # the ring's most bytes (kRingMax)
 SPLITS = range(1, 17)       # cluster sizes the kernel takes (9-16 non-portable)
 # SMs the plan assumes for CPU tensors (an H100 SXM's), so the plain version
 # on the CPU splits the rows as the kernel does on that card
@@ -65,15 +70,40 @@ def quantize_kv(kv: torch.Tensor):
     return codes.to(torch.int8), sc
 
 
+def ring_groups(Dp: int, itemsize: int) -> int:
+    """The half-warps of a block for a cache of Dp columns of itemsize bytes
+    (kGroups): the largest of 16, 8 and 4 whose ring (3 stages of int8
+    rows and their scales, else 2) fits RING_MAX bytes."""
+    stages = 3 if itemsize == 1 else 2
+    for g in (16, 8):
+        if stages * (2 * g * TILE * Dp * itemsize + (2 * g * TILE * 4 if itemsize == 1 else 0)) \
+                <= RING_MAX:
+            return g
+    return 4
+
+
+def rep_max(Dp: int) -> int:
+    """The query heads a tile holds at most (kRepMax): 8 at Dp 128, 4 at
+    256, 2 at 384, 1 at 512."""
+    return 8 if Dp <= 128 else 4 if Dp <= 256 else 2 if Dp <= 384 else 1
+
+
+def rep_tiles(rep: int, Dp: int) -> int:
+    """The tiles a kv head's rep query heads take: rep rounded up to 1, 2,
+    4 or 8, at most rep_max(Dp), heads a tile (tile_rep)."""
+    tr = min(1 << max(rep - 1, 0).bit_length(), 8, rep_max(Dp))
+    return cdiv(rep, tr)
+
+
 def _lane_scores(qf: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     """qf (B, KV, rep, Dp) . k (B, KV, R, Dp) -> (B, KV, rep, R) in a row's
     order in the kernel: each of 16 lanes sums its Dp/16 columns from 0,
     then an xor butterfly over the lanes."""
     B, KV, rep, Dp = qf.shape
     prod = (qf[:, :, :, None, :] * k[:, :, None, :, :]).reshape(
-        B, KV, rep, -1, GROUPS, Dp // GROUPS)
+        B, KV, rep, -1, LANES, Dp // LANES)
     sc = torch.zeros_like(prod[..., 0])
-    for i in range(Dp // GROUPS):
+    for i in range(Dp // LANES):
         sc = sc + prod[..., i]
     while sc.shape[-1] > 1:
         h = sc.shape[-1] // 2
@@ -86,14 +116,15 @@ def max_rows(S: int, window: int) -> int:
     return min(S, window) if window > 0 else S
 
 
-def split_plan(B: int, KV: int, rows: int, sms: int = DEFAULT_SMS) -> int:
-    """The blocks (one cluster) the kernel gives each (KV head, batch row),
-    from static quantities only, so a CUDA graph can capture the call:
-    about 1.5 blocks an SM over the B * KV clusters, at most MAX_SPLIT,
-    and no more than give each block half a ring stage of the `rows` a
-    call can read.  (Measured on an H100, PERF.md: at 2047 rows 32 heads
-    split 6 ways beat 4 by 16% and 8 by 6%.)"""
-    n = min(MAX_SPLIT, max(1, round(1.5 * sms / (B * KV))))
+def split_plan(B: int, KV: int, rows: int, sms: int = DEFAULT_SMS,
+               tiles: int = 1) -> int:
+    """The blocks (one cluster) the kernel gives each (KV head, rep tile,
+    batch row), from static quantities only, so a CUDA graph can capture
+    the call: about 1.5 blocks an SM over the B * KV * tiles clusters, at
+    most MAX_SPLIT, and no more than give each block half a (Dp 128) ring
+    stage of the `rows` a call can read.  (Measured on an H100, PERF.md: at
+    2047 rows 32 heads split 6 ways beat 4 by 16% and 8 by 6%.)"""
+    n = min(MAX_SPLIT, max(1, round(1.5 * sms / (B * KV * tiles))))
     return max(1, min(n, rows // (STAGE_ROWS // 2)))
 
 
@@ -129,9 +160,9 @@ def sm_count(device: torch.device) -> int:
                      else torch.cuda.current_device())
 
 
-def _nsplit(nsplit, B, KV, S, window, device) -> int:
+def _nsplit(nsplit, B, KV, S, window, device, tiles: int = 1) -> int:
     if nsplit is None:
-        return split_plan(B, KV, max_rows(S, window), sm_count(device))
+        return split_plan(B, KV, max_rows(S, window), sm_count(device), tiles)
     if nsplit not in SPLITS:
         raise ValueError(f"nsplit must be in 1 .. {SPLITS[-1]}, not {nsplit}")
     return nsplit
@@ -154,23 +185,25 @@ def _attend_plain(q, k_all, v_all, lens, layer, scale, k_scale, v_scale,
                   window, nsplit, cur_k=None, cur_v=None):
     """The attention of K2/K6 (cur_k None) and K8/K9, in the kernel's
     order: block `rank` of a cluster of nsplit reads the span
-    split_spans gives it, in stages of STAGE_ROWS rows; half-warp g takes
-    rows 4g .. 4g+3 of each stage (a row tile) and keeps an online softmax
-    over its tiles, rescaled once a tile by the tile's maximum; the
-    half-warps merge in group order, the blocks in rank order, then the
-    current token comes in as a last online step."""
+    split_spans gives it, in stages of G * TILE rows (G = ring_groups:
+    16 half-warps a block at Dp 128); half-warp g takes rows 4g .. 4g+3 of
+    each stage (a row tile) and keeps an online softmax over its tiles,
+    rescaled once a tile by the tile's maximum; the half-warps merge in
+    group order, the blocks in rank order, then the current token comes in
+    as a last online step.  Each query head's sums are the same in any
+    tiling of the rep heads; the tiles only set the plan's nsplit."""
     B, KV, rep, Dl = q.shape
     S, Dp = k_all.shape[3], k_all.shape[4]
-    G, dev = GROUPS, k_all.device
+    G, dev = ring_groups(Dp, k_all.element_size()), k_all.device
     append = cur_k is not None
     quant = k_scale is not None
     scale = 1.0 / math.sqrt(Dl) if scale is None else scale
-    P = _nsplit(nsplit, B, KV, S, window, dev)
+    P = _nsplit(nsplit, B, KV, S, window, dev, rep_tiles(rep, Dp))
     li = torch.as_tensor(layer, device=dev).reshape(1).long()
     start, end = split_spans(lens.to(dev), S, window, append, P)  # (B, P)
     # stages of the longest span a call can give
-    T = cdiv(round_up(cdiv(max_rows(S, window), P), TILE), STAGE_ROWS)
-    within = torch.arange(T * STAGE_ROWS, device=dev).reshape(T, G, TILE)
+    T = cdiv(round_up(cdiv(max_rows(S, window), P), TILE), G * TILE)
+    within = torch.arange(T * G * TILE, device=dev).reshape(T, G, TILE)
     rows = start[:, :, None, None, None] + within       # (B, P, T, G, TILE)
     ok = (rows < end[:, :, None, None, None])[:, None, None]
     idx = rows.clamp_max(S - 1).reshape(B, -1)
@@ -302,7 +335,7 @@ def _lib():
     from tmac_tpu_torch.ops.cuda import build
     lib = build.load("flash_decode")
     lib.tmac_decode_attention.argtypes = (
-        [_c_ptr] * 10 + [_c_int] * 11 + [_c_float, _c_int, _c_int, _c_ptr])
+        [_c_ptr] * 11 + [_c_int] * 11 + [_c_float, _c_int, _c_int, _c_ptr])
     lib.tmac_decode_attention.restype = _c_int
     return lib
 
@@ -313,6 +346,36 @@ def _check_int32(lens, layer, B, device, name):
                 or t.device != device or not t.is_contiguous():
             raise ValueError(f"{name}: {what} must be contiguous int32 "
                              f"{shape} on {device}")
+
+
+def check_form(name: str, Dl: int, Dp: int) -> None:
+    """Raise for a head shape the kernel does not take: Dl > Dp or a Dp
+    that is not a multiple of 128 (the reference's asserts), or a Dp above
+    512 (no instance is built for it)."""
+    if Dl > Dp or Dp % 128:
+        raise ValueError(f"{name} takes Dl <= Dp and Dp a multiple of 128; got "
+                         f"Dp={Dp} Dl={Dl}")
+    if Dp not in DPS:
+        raise ValueError(f"{name} is built for a cache head_dim Dp of {DPS}, not {Dp}")
+
+
+# every K9 counter buffer made on a device, the newest last.  None is ever
+# freed: a CUDA graph captured over a launch keeps its buffer's address and
+# replays on it after a larger launch has made a newer one
+_done: dict = {}
+
+
+def _done_counts(device, n: int) -> torch.Tensor:
+    """The card's K9 counters (one int32 a (batch row, kv head), zero
+    between launches: the last rep tile's cluster sets its back), at least
+    n of them: the newest buffer, or a larger new one beside the old.  One
+    stream at a time: two K9 launches running at once on one device (two
+    streams, or a graph replayed beside an eager call) would share the
+    counters."""
+    bufs = _done.setdefault(device, [])
+    if not bufs or bufs[-1].numel() < n:
+        bufs.append(torch.zeros(max(n, 256), dtype=torch.int32, device=device))
+    return bufs[-1]
 
 
 def _launch(name, q, k_all, v_all, lens, layer, scale, k_scale, v_scale,
@@ -344,23 +407,23 @@ def _launch(name, q, k_all, v_all, lens, layer, scale, k_scale, v_scale,
     _check_int32(lens, layer, B, q.device, name)
     if not q.is_contiguous():
         raise ValueError(f"{name}: q must be contiguous")
-    if Dp != 128 or not 1 <= rep <= 8 or Dl > Dp:
-        raise ValueError(f"{name} takes Dp == 128, rep <= 8, Dl <= Dp; got "
-                         f"Dp={Dp} rep={rep} Dl={Dl}")
+    check_form(name, Dl, Dp)
     if window < 0:
         raise ValueError(f"{name}: window {window}")
     if any(t.data_ptr() % 16 for t in (k_all, v_all)):
         raise ValueError(f"{name}: the cache must be 16-byte aligned")
-    nsplit = _nsplit(nsplit, B, KV, S, window, q.device)
+    tiles = rep_tiles(rep, Dp)
+    nsplit = _nsplit(nsplit, B, KV, S, window, q.device, tiles)
     scale = 1.0 / math.sqrt(Dl) if scale is None else scale
     out = torch.empty_like(q)
+    done = _done_counts(q.device, B * KV) if write and tiles > 1 else None
 
     def ptr(t):
         return t.data_ptr() if t is not None else None
     err = _lib().tmac_decode_attention(
         q.data_ptr(), k_all.data_ptr(), v_all.data_ptr(), ptr(k_scale),
         ptr(v_scale), lens.data_ptr(), layer.data_ptr(), ptr(cur_k),
-        ptr(cur_v), out.data_ptr(), L, B, KV, rep, Dl, Dp, S, int(window),
+        ptr(cur_v), out.data_ptr(), ptr(done), L, B, KV, rep, Dl, Dp, S, int(window),
         int(cur_k is not None), int(write), nsplit, float(scale),
         int(q.dtype == torch.bfloat16), int(quant),
         torch.cuda.current_stream(q.device).cuda_stream)
@@ -379,8 +442,8 @@ def flash_decode(q: torch.Tensor, k_all: torch.Tensor, v_all: torch.Tensor,
     k_scale/v_scale (an int8 cache) or a window, this is K6
     (flash_decode_split); otherwise K2.
 
-    On CUDA: q, k_all, v_all all bf16 or all f32 and contiguous, Dp == 128,
-    rep <= 8, kv_lens (B,) and layer (1,) int32 on the same device (read by
+    On CUDA: q, k_all, v_all all bf16 or all f32 and contiguous, Dp one
+    of DPS, kv_lens (B,) and layer (1,) int32 on the same device (read by
     the kernel; the host never waits for them); nsplit one of SPLITS or
     None (split_plan's)."""
     if k_scale is not None or window:

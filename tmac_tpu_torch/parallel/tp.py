@@ -132,7 +132,7 @@ def param_specs(params: Dict[str, Any]) -> Dict[str, Any]:
         s = {"attn_norm": REP, "mlp_norm": REP, "wqkv": COL, "wo": ROW}
         if "experts_gate_up" in layer:
             # the stacks carry a leading E axis; tp splits each expert as
-            # the dense MLP (ep, which shards E, is not ported)
+            # the dense MLP (parallel/ep.py's specs shard E too)
             s["moe_router"] = REP
             s["experts_gate_up"] = (None, None, "tp")
             s["experts_down"] = (None, "tp", None)
@@ -185,8 +185,12 @@ def _localize_params(params, tp: int):
 
 def _shard(t: torch.Tensor, spec, mesh: Mesh) -> torch.Tensor:
     """This rank's part of t under spec, copied to the mesh's device (a
-    copy of its own, so the whole can be freed)."""
+    copy of its own, so the whole can be freed).  "ep", "sp" and "pp" name
+    the outer axis of an ep, sp or pp x tp mesh (parallel/ep.py, sp.py,
+    pp.py), which is the grid's dp."""
     for axis, name in enumerate(spec):
+        if name in ("ep", "sp", "pp"):
+            name = "dp"
         if name in ("tp", "dp"):
             n = mesh.tp if name == "tp" else mesh.dp
             r = mesh.tp_rank if name == "tp" else mesh.dp_rank
@@ -227,6 +231,14 @@ def shard_cache(cache: KVCache, mesh: Mesh) -> KVCache:
     return KVCache(k=put(cache.k, cs["k"]), v=put(cache.v, cs["v"]),
                    pos=put(cache.pos, cs["pos"]), k_scale=put(cache.k_scale, cs["k_scale"]),
                    v_scale=put(cache.v_scale, cs["v_scale"]))
+
+
+def tp_view(mesh: Mesh) -> Mesh:
+    """The mesh as one of its tp groups sees it: dp 1, this rank's tp
+    group and tp rank (an ep, sp or pp grid's tp groups each run the whole
+    batch)."""
+    return Mesh(dp=1, tp=mesh.tp, rank=mesh.tp_rank, device=mesh.device,
+                tp_group=mesh.tp_group)
 
 
 def tp_model(cfg: ModelConfig, mesh: Mesh, params, plain: bool = False) -> Llama:
@@ -270,7 +282,13 @@ def make_tp_step(cfg: ModelConfig, mesh: Mesh, params,
     every rank (a dp group takes its B / dp rows); cache is the rank's
     (shard_cache).  decode draws row b's step i from CounterStreams(seed +
     b, i) (greedy by default)."""
-    model = tp_model(cfg, mesh, params, plain)
+    return step_fns(tp_model(cfg, mesh, params, plain), mesh, sampler)
+
+
+def step_fns(model: Llama, mesh: Mesh, sampler: SamplerConfig = SamplerConfig()):
+    """make_tp_step's (prefill_fn, decode_fn) around a rank's model: the
+    global batch in and out, each dp group's B / dp rows run by its ranks
+    (every row by every rank where mesh.dp is 1)."""
 
     @torch.no_grad()
     def prefill_fn(tokens: torch.Tensor, cache: KVCache):
